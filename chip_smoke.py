@@ -1,0 +1,474 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch port (dynamo_tpu_torch) on one NVIDIA GPU and check it.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line:
+  1. device  - the card, its count, and `nvidia-smi` name and power limit;
+  2. build   - build the CUDA kernels from ops/csrc (one nvcc per source);
+  3. kernels - each attention kernel at the main path's shapes (Hk 8, G 3,
+               D 128, PS 16, bf16) against its plain PyTorch version, with
+               times from CUDA events, the library yardstick (SDPA over K/V
+               gathered dense beforehand) and the roofline bound; then
+               (`shapes`) both kernels at the other shapes they accept;
+  4. engine  - build_engine for llama-3.2-3b at full width and depth with
+               random weights, serve 8 concurrent requests (chunked
+               prefill over prior context, a prefix-cache hit, greedy and
+               seeded sampled rows) and check that both kernels' launch
+               counters rose by exactly (prefill chunks x 28) and (decode
+               steps x 28);
+  5. parity  - the same prefill-plus-decode inputs through the kernel path
+               and the plain attention path of the model forward.
+Then the `kernels` summary line and, last, the contract line
+{"ok": true, "device": {...}}. Any failed check exits non-zero before it.
+It needs a CUDA device and the repository around it; it builds into
+build/dynamo_tpu_torch/.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import subprocess
+import sys
+import time
+
+import torch
+import torch.nn.functional as F
+
+from dynamo_tpu_torch.ops import _build
+from dynamo_tpu_torch.ops.flash_prefill import (
+    prefill_paged_attention,
+    prefill_paged_attention_ref,
+)
+from dynamo_tpu_torch.ops.paged_attention import (
+    decode_paged_attention,
+    decode_paged_attention_ref,
+)
+from dynamo_tpu_torch.runtime.context import Context
+from dynamo_tpu_torch.worker import build_engine, parse_args
+
+# NVIDIA H100 SXM data sheet (dense): HBM3 rate and bf16 tensor-core peak
+HBM_BYTES_PER_S = 3.35e12
+BF16_FLOPS_PER_S = 989e12
+KERNEL_TOL = 0.03  # docs/PERF.md "Kernel parity gate" (max abs err, bf16)
+# forward parity: per-row relative L2 error of the f32 logits between the
+# kernel path and the plain path. Both run bf16 activations; the plain
+# path also rounds scores and probabilities to bf16, a ~0.4% relative
+# error per rounding that 28 layers grow to around 1%. A wrong page, mask
+# or softmax moves the logits by O(1) relative.
+FORWARD_REL_TOL = 0.05
+ENGINE_ARGS = ["--model", "llama-3.2-3b", "--num-pages", "2048",
+               "--page-size", "16", "--max-seq-len", "4096",
+               "--max-batch", "8", "--chunk-size", "512"]
+SOURCES = {
+    "decode_paged_attention": (
+        "dynamo_tpu_torch/ops/csrc/paged_attention.cu",
+        "dynamo_tpu/ops/paged_attention.py:302"),
+    "prefill_paged_attention": (
+        "dynamo_tpu_torch/ops/csrc/flash_prefill.cu",
+        "dynamo_tpu/ops/flash_prefill.py:313"),
+}
+
+
+class CheckFailed(Exception):
+    pass
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise CheckFailed(what)
+
+
+def emit(obj) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() over `iters` back-to-back calls."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound(n_bytes: float, n_flops: float):
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_flops / BF16_FLOPS_PER_S * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def random_pages(gen, B, MP, NP, dev):
+    """[B, MP] int32: distinct pages per row (pages 0..NP-1, a permutation
+    slice), so a wrong table read lands on another row's data."""
+    perm = torch.randperm(NP, generator=gen, device="cpu")[: B * MP]
+    return perm.view(B, MP).to(torch.int32).to(dev)
+
+
+def dense_kv(pool, page_table, Hk, G):
+    """[B, H, C, D] K or V gathered from the pool, heads repeated for GQA
+    (built once, outside the timed region of the library call)."""
+    B, MP = page_table.shape
+    _, PS, _, D = pool.shape
+    x = pool[page_table.long()].reshape(B, MP * PS, Hk, D)
+    return x.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
+
+
+def kernel_phase(dev):
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    Hk, G, D, PS = 8, 3, 128, 16
+    H = Hk * G
+    scale = D ** -0.5
+    results = {}
+
+    # decode: B = 8, ragged kv_len up to 4096, one empty row
+    kv_list = [4096, 0, 1, 17, 1000, 2048, 3333, 513]
+    B, MP = len(kv_list), 4096 // PS
+    NP = B * MP + 1
+    k_pool = torch.randn(NP, PS, Hk, D, generator=gen).bfloat16().to(dev)
+    v_pool = torch.randn(NP, PS, Hk, D, generator=gen).bfloat16().to(dev)
+    q = torch.randn(B, Hk, G, D, generator=gen).bfloat16().to(dev)
+    pt = random_pages(gen, B, MP, NP, dev)
+    kvl = torch.tensor(kv_list, dtype=torch.int32, device=dev)
+    out = decode_paged_attention(q, k_pool, v_pool, pt, kvl)
+    torch.cuda.synchronize()
+    ref = decode_paged_attention_ref(q, k_pool, v_pool, pt, kvl)
+    err = (out.float() - ref.float()).abs().max().item()
+    check(torch.isfinite(out.float()).all().item(), "decode kernel output not finite")
+    check(out[1].float().abs().max().item() == 0.0, "decode kv_len=0 row is not 0")
+    check(err <= KERNEL_TOL, f"decode kernel max abs err {err} > {KERNEL_TOL}")
+    kq = dense_kv(k_pool, pt, Hk, G)
+    vq = dense_kv(v_pool, pt, Hk, G)
+    qd = q.reshape(B, H, 1, D)
+    mask = (torch.arange(MP * PS, device=dev)[None, :] < kvl[:, None])[:, None, None, :]
+    n_tok = sum(kv_list)
+    n_bytes = (2 * q.numel() * 2 + n_tok * Hk * D * 2 * 2
+               + sum(-(-k // PS) for k in kv_list) * 4 + B * 4)
+    bound_ms, bound_by = bound(n_bytes, 4 * n_tok * H * D)
+    results["decode_paged_attention"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: decode_paged_attention(q, k_pool, v_pool, pt, kvl)),
+        "plain_ms": cuda_ms(lambda: decode_paged_attention_ref(q, k_pool, v_pool, pt, kvl)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+            qd, kq, vq, attn_mask=mask, scale=scale)),
+        "shape": {"B": B, "Hk": Hk, "G": G, "D": D, "PS": PS,
+                  "kv_lens": kv_list},
+    }
+    del k_pool, v_pool, kq, vq
+
+    # prefill: S = 512 with no prior context, then over 700 prior tokens,
+    # both with q_len < S (padding rows)
+    cases = []
+    for prior, q_len in ((0, 500), (700, 450)):
+        S, B = 512, 1
+        kv = prior + q_len
+        MP = -(-kv // PS) + 2  # table tail past kv_len: other pages
+        NP = MP + 1
+        k_pool = torch.randn(NP, PS, Hk, D, generator=gen).bfloat16().to(dev)
+        v_pool = torch.randn(NP, PS, Hk, D, generator=gen).bfloat16().to(dev)
+        q = torch.randn(B, S, Hk, G, D, generator=gen).bfloat16().to(dev)
+        pt = random_pages(gen, B, MP, NP, dev)
+        ints = [torch.tensor([x], dtype=torch.int32, device=dev)
+                for x in (prior, q_len, kv)]
+        args = (q, k_pool, v_pool, pt, *ints)
+        out = prefill_paged_attention(*args)
+        torch.cuda.synchronize()
+        ref = prefill_paged_attention_ref(*args)
+        err = (out[:, :q_len].float() - ref[:, :q_len].float()).abs().max().item()
+        check(torch.isfinite(out.float()).all().item(), "prefill kernel output not finite")
+        check(out[:, q_len:].float().abs().max().item() == 0.0,
+              "prefill padding rows are not 0")
+        check(err <= KERNEL_TOL, f"prefill kernel max abs err {err} > {KERNEL_TOL} "
+              f"(prior {prior})")
+        kq = dense_kv(k_pool, pt, Hk, G)
+        vq = dense_kv(v_pool, pt, Hk, G)
+        qd = q.reshape(B, S, H, D).transpose(1, 2)
+        s_pos = prior + torch.arange(S, device=dev)
+        c_pos = torch.arange(MP * PS, device=dev)
+        mask = ((c_pos[None, :] <= s_pos[:, None]) & (c_pos[None, :] < kv))[None, None]
+        # what the data needs: valid query rows (q read, out written in
+        # full), the K/V rows below min(kv_len, causal top), and one score
+        # and one PV product per visible (query, key) pair
+        n_pairs = sum(min(prior + s + 1, kv) for s in range(q_len))
+        n_bytes = (q_len * H * D * 2 + q.numel() * 2 + kv * Hk * D * 4
+                   + (-(-kv // PS)) * 4 + 3 * 4)
+        bound_ms, bound_by = bound(n_bytes, 4 * n_pairs * H * D)
+        cases.append({
+            "prior": prior, "q_len": q_len, "S": S, "max_abs_err": err,
+            "ms": cuda_ms(lambda: prefill_paged_attention(*args)),
+            "plain_ms": cuda_ms(lambda: prefill_paged_attention_ref(*args)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qd, kq, vq, attn_mask=mask, scale=scale)),
+        })
+        del k_pool, v_pool, kq, vq
+    top = dict(cases[-1])  # the chunked-prefill case heads the summary
+    top["max_abs_err"] = max(c["max_abs_err"] for c in cases)
+    for k in ("prior", "q_len", "S"):
+        top.pop(k)
+    top["cases"] = cases
+    results["prefill_paged_attention"] = top
+    emit({"phase": "kernels", "tol": KERNEL_TOL, **results})
+    return results
+
+
+def shapes_phase(dev):
+    """Both kernels against their plain versions at the other shapes the
+    wrappers accept (head dims 64/128, GQA groups, page sizes, q-blocks
+    that overrun S), small and untimed."""
+    gen = torch.Generator(device="cpu").manual_seed(3)
+    errs = {}
+    for D, G, PS in ((128, 4, 16), (128, 1, 8), (128, 8, 32), (64, 4, 16),
+                     (64, 2, 4)):
+        Hk, MP = 2, 64
+        NP = 3 * MP + 1
+
+        def rnd(*shape):
+            return torch.randn(*shape, generator=gen).bfloat16().to(dev)
+
+        k_pool, v_pool = rnd(NP, PS, Hk, D), rnd(NP, PS, Hk, D)
+        pt = random_pages(gen, 3, MP, NP, dev)
+        q = rnd(3, Hk, G, D)
+        kvl = torch.tensor([0, 37, 200], dtype=torch.int32, device=dev)
+        out = decode_paged_attention(q, k_pool, v_pool, pt, kvl)
+        ref = decode_paged_attention_ref(q, k_pool, v_pool, pt, kvl)
+        e_dec = (out.float() - ref.float()).abs().max().item()
+        check(out[0].float().abs().max().item() == 0.0,
+              f"decode kv_len=0 row not 0 at D={D} G={G} PS={PS}")
+        S = 48
+        q = rnd(2, S, Hk, G, D)
+        qs, ql = [0, 30], [40, 17]
+        ints = [torch.tensor(x, dtype=torch.int32, device=dev)
+                for x in (qs, ql, [qs[0] + ql[0], qs[1] + ql[1] + 3])]
+        args = (q, k_pool, v_pool, pt[:2].contiguous(), *ints)
+        out = prefill_paged_attention(*args)
+        ref = prefill_paged_attention_ref(*args)
+        e_pre = (out.float() - ref.float()).abs().max().item()
+        torch.cuda.synchronize()
+        name = f"D{D}_G{G}_PS{PS}"
+        errs[name] = {"decode": e_dec, "prefill": e_pre}
+        check(max(e_dec, e_pre) <= KERNEL_TOL,
+              f"kernel parity at {name}: decode {e_dec}, prefill {e_pre}")
+    emit({"phase": "shapes", "tol": KERNEL_TOL, "max_abs_err": errs})
+
+
+async def _serve(engine, reqs, shared_idx, late_req):
+    """Serve `reqs` concurrently; `late_req` (sharing a prefix with
+    reqs[shared_idx]) is sent once that request has its first token, so
+    its prefix pages are registered and it hits the prefix cache."""
+    first_token = asyncio.Event()
+
+    async def collect(i, req):
+        toks, finish, phases = [], None, {}
+        async for item in engine.generate(req, Context(request_id=f"r{i}")):
+            toks.extend(item["token_ids"])
+            if item["token_ids"] and i == shared_idx:
+                first_token.set()
+            if item.get("finish_reason"):
+                finish = item["finish_reason"]
+                phases = item.get("phases") or {}
+                if finish == "error":
+                    raise CheckFailed(f"request r{i} finished with error")
+        return toks, finish, phases
+
+    tasks = [asyncio.create_task(collect(i, r)) for i, r in enumerate(reqs)]
+    await first_token.wait()
+    tasks.append(asyncio.create_task(collect(len(reqs), late_req)))
+    return await asyncio.gather(*tasks)
+
+
+N_OUT = 32  # output tokens per request
+
+
+def workload(vocab_size: int, seed: int):
+    """8 requests from a seed: prompts of 17 to 1500 tokens (the long ones
+    run chunked prefill over prior context, chunk 512), mostly greedy, two
+    sampled (temperature 0.8, top_p 0.9, seeded); the last request shares
+    a 256-token prefix with the one before it. Returns (first 7, last)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def prompt(n):
+        return torch.randint(0, vocab_size, (n,), generator=gen).tolist()
+
+    def req(p, i):
+        samp = {"temperature": 0.0}
+        if i in (2, 5):
+            samp = {"temperature": 0.8, "top_p": 0.9, "seed": 1000 + i}
+        return {"token_ids": p, "sampling": samp,
+                "stop": {"max_tokens": N_OUT, "stop_ids": []}}
+
+    shared = prompt(256)
+    prompts = [prompt(n) for n in (17, 64, 300, 700, 1100, 1500)]
+    prompts.append(shared + prompt(150))
+    late = shared + prompt(400)
+    return [req(p, i) for i, p in enumerate(prompts)], req(late, len(prompts))
+
+
+def serve(engine, seed: int):
+    """Serve workload(seed) to completion (at most 900 s)."""
+    reqs, late = workload(engine.runner.config.vocab_size, seed)
+    prompts = [r["token_ids"] for r in reqs + [late]]
+    return prompts, asyncio.run(asyncio.wait_for(
+        _serve(engine, reqs, len(reqs) - 1, late), 900))
+
+
+def engine_phase(dev):
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    engine = build_engine(parse_args(ENGINE_ARGS))
+    runner = engine.runner
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    V = runner.config.vocab_size
+    n_out = N_OUT
+    # every count to 0 just before the main path runs
+    decode_paged_attention.launches = 0
+    prefill_paged_attention.launches = 0
+    runner.stats = {"prefill_chunks": 0, "decode_steps": 0}
+    t0 = time.monotonic()
+    try:
+        prompts, results = serve(engine, seed=1)
+    finally:
+        engine.stop()
+    torch.cuda.synchronize()  # a fault during the run surfaces here
+    wall = time.monotonic() - t0
+    launches = {"decode_paged_attention": decode_paged_attention.launches,
+                "prefill_paged_attention": prefill_paged_attention.launches}
+    stats = dict(runner.stats)
+    L = runner.config.n_layers
+    for i, (toks, finish, _) in enumerate(results):
+        check(finish in ("length", "stop"), f"r{i} finished {finish!r}")
+        check(finish != "length" or len(toks) == n_out,
+              f"r{i} emitted {len(toks)} tokens, wanted {n_out}")
+        check(all(0 <= t < V for t in toks), f"r{i} emitted a token out of range")
+    check(stats["prefill_chunks"] > 0 and stats["decode_steps"] > 0,
+          f"engine ran no prefill or no decode: {stats}")
+    check(launches["prefill_paged_attention"] == stats["prefill_chunks"] * L,
+          f"prefill launches {launches} != chunks {stats['prefill_chunks']} x {L}")
+    check(launches["decode_paged_attention"] == stats["decode_steps"] * L,
+          f"decode launches {launches} != steps {stats['decode_steps']} x {L}")
+    reused = engine.scheduler.reused_prefix_tokens
+    check(reused >= 256, f"late request reused only {reused} prefix tokens")
+    ttft = sorted(r[2].get("ttft_s", float("nan")) for r in results)
+    decode_rates = sorted(
+        (len(r[0]) - 1) / (r[2]["e2e_s"] - r[2]["ttft_s"]) for r in results)
+    n_tokens = sum(len(r[0]) for r in results)
+    emit({
+        "phase": "engine", "model": runner.config.name,
+        "n_layers": L, "requests": len(results),
+        "prompt_tokens": [len(p) for p in prompts],
+        "output_tokens": [len(r[0]) for r in results],
+        "finish": [r[1] for r in results],
+        "prefill_chunks": stats["prefill_chunks"],
+        "decode_steps": stats["decode_steps"], "launches": launches,
+        "reused_prefix_tokens": reused,
+        "ttft_s_min": ttft[0], "ttft_s_median": ttft[len(ttft) // 2],
+        "ttft_s_max": ttft[-1],
+        "decode_tok_s_per_request_median": decode_rates[len(decode_rates) // 2],
+        "output_tok_s_overall": n_tokens / wall, "wall_s": wall,
+        "build_s": build_s,
+        "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+    })
+    return engine, launches
+
+
+def parity_phase(engine, dev):
+    """Two sequences prefilled in one chunk (S = 320, padding rows), then
+    two decode steps, through forward(attn_impl="kernel") and
+    forward(attn_impl="ref") on their own pools; decode inputs are the
+    kernel path's greedy tokens, fed to both."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.toolkit import make_kv_pool
+
+    runner = engine.runner
+    cfg, params = runner.config, runner.params
+    PS, MP, NP = 16, 24, 64
+    gen = torch.Generator(device="cpu").manual_seed(2)
+    lens = [300, 180]
+    S = 320
+    tok = torch.randint(0, cfg.vocab_size, (2, S), generator=gen)
+    pos = torch.full((2, S), -1, dtype=torch.int32)
+    for b, n in enumerate(lens):
+        pos[b, :n] = torch.arange(n)
+    pages = torch.randperm(NP, generator=gen)[: 2 * MP].view(2, MP).to(torch.int32)
+    tok, pos, pages = tok.to(dev), pos.to(dev), pages.to(dev)
+    pools = {impl: make_kv_pool(cfg, NP + 1, PS, runner.dtype, dev)
+             for impl in ("kernel", "ref")}
+    steps = [(tok, pos, torch.tensor(lens, dtype=torch.int32, device=dev),
+              torch.tensor([n - 1 for n in lens], device=dev))]
+    rel, agree, worst_abs = [], [], 0.0
+    for t in range(3):
+        tk, ps, kvl, last = steps[-1]
+        logits = {impl: llama.forward(cfg, params, tk, ps, *pools[impl], pages,
+                                      kvl, last, attn_impl=impl)[:, -1]
+                  for impl in ("kernel", "ref")}
+        a, b = logits["kernel"], logits["ref"]
+        check(torch.isfinite(a).all().item(), "kernel-path logits not finite")
+        rel.append(((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item())
+        worst_abs = max(worst_abs, (a - b).abs().max().item())
+        agree.extend((a.argmax(-1) == b.argmax(-1)).tolist())
+        nxt = a.argmax(-1).to(torch.int32)[:, None]
+        p1 = torch.tensor([[n + t] for n in lens], dtype=torch.int32, device=dev)
+        steps.append((nxt, p1, (p1[:, 0] + 1).to(torch.int32), None))
+    worst = max(rel)
+    emit({"phase": "parity", "steps": ["prefill", "decode", "decode"],
+          "rel_l2_err_per_step": rel, "max_abs_err": worst_abs,
+          "tol_rel_l2": FORWARD_REL_TOL,
+          "greedy_agreement": sum(agree) / len(agree)})
+    check(worst <= FORWARD_REL_TOL,
+          f"kernel vs plain forward: relative L2 error {worst} > {FORWARD_REL_TOL}")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda", 0)
+    kind = torch.cuda.get_device_name(0)
+    count = torch.cuda.device_count()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    emit({"phase": "device", "kind": kind, "count": count, "nvidia_smi": smi,
+          "torch": torch.__version__, "cuda": torch.version.cuda})
+
+    t0 = time.monotonic()
+    _build.load()
+    # ptxas -v per kernel instantiation: entry name, registers, spills
+    ptxas = {stem: [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+                    if "Compiling entry" in ln or "registers" in ln
+                    or "spill" in ln]
+             for stem, log in _build.build_log.items()}
+    emit({"phase": "build", "seconds": time.monotonic() - t0, "ptxas": ptxas})
+
+    try:
+        kern = kernel_phase(dev)
+        shapes_phase(dev)
+        engine, launches = engine_phase(dev)
+        parity_phase(engine, dev)
+    except CheckFailed as e:
+        print(f"chip_smoke: check failed: {e}", file=sys.stderr)
+        return 1
+    emit({"kernels": [
+        {"name": name, "route": "cuda", "source": SOURCES[name][0],
+         "replaces": SOURCES[name][1], "launches": launches[name],
+         **{k: kern[name][k] for k in ("max_abs_err", "ms", "plain_ms",
+                                       "bound_ms", "bound_by", "library_ms")}}
+        for name in SOURCES
+    ]})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,62 @@
+"""Carry a parameter tree into the port.
+
+The reference's params are a stacked numpy-convertible tree
+({"embed", "norm_f", "lm_head"?, "layers": {"wq": [L, in, out], ...}})
+in x @ W layout; the port's forward reads exactly that layout, so this is
+a checked copy onto the device. Norm weights stay f32, as in the
+reference; matrices take `dtype`.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+
+from dynamo_tpu_torch.models.config import ModelConfig
+
+NORMS = ("norm_f", "attn_norm", "mlp_norm")
+
+
+def _expected_shapes(c: ModelConfig) -> Dict[str, tuple]:
+    hd, L = c.head_dim, c.n_layers
+    shapes = {
+        "embed": (c.vocab_size, c.dim),
+        "norm_f": (c.dim,),
+        "wq": (L, c.dim, c.n_heads * hd),
+        "wk": (L, c.dim, c.n_kv_heads * hd),
+        "wv": (L, c.dim, c.n_kv_heads * hd),
+        "wo": (L, c.n_heads * hd, c.dim),
+        "attn_norm": (L, c.dim),
+        "mlp_norm": (L, c.dim),
+        "w_gate": (L, c.dim, c.ffn_dim),
+        "w_up": (L, c.dim, c.ffn_dim),
+        "w_down": (L, c.ffn_dim, c.dim),
+    }
+    if not c.tie_embeddings:
+        shapes["lm_head"] = (c.dim, c.vocab_size)
+    return shapes
+
+
+def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
+                      device, dtype=torch.bfloat16) -> Dict[str, Any]:
+    """numpy (or array-like) tree -> the port's params dict on `device`.
+    Raises on a missing leaf or a shape that does not match `config`."""
+    want = _expected_shapes(config)
+    flat = {k: v for k, v in tree.items() if k != "layers"}
+    flat.update(tree["layers"])
+
+    def conv(name):
+        if name not in flat:
+            raise KeyError(f"param tree lacks {name!r}")
+        arr = np.asarray(flat[name], dtype=np.float32)
+        if arr.shape != want[name]:
+            raise ValueError(f"{name}: shape {arr.shape}, config wants {want[name]}")
+        t = torch.tensor(arr)  # a copy: the source may be read-only
+        return t.to(device=device, dtype=torch.float32 if name in NORMS else dtype)
+
+    top = {"embed", "norm_f", "lm_head"}
+    out: Dict[str, Any] = {n: conv(n) for n in want if n in top}
+    out["layers"] = {n: conv(n) for n in want if n not in top}
+    return out

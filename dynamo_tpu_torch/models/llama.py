@@ -1,0 +1,145 @@
+"""Dense Llama-family transformer over a paged KV cache.
+
+Port of the dense GQA branch of dynamo_tpu/models/llama.py `forward`:
+embed, RMSNorm, q/k/v, RoPE, KV write, paged attention, wo, SwiGLU, final
+norm, last-position gather and f32 logits. Params are a plain dict of
+tensors in the reference's stacked layout ({"embed", "norm_f", "layers":
+{"wq": [L, in, out], ...}}, x @ W), so one checkpoint tree serves both
+packages. The layer loop is a Python loop over that stack; matrix products
+go to torch.matmul, attention to the ops/ kernels.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+import torch
+import torch.nn.functional as F
+
+from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.models.toolkit import (
+    apply_rope,
+    kv_rows,
+    paged_attention_ref,
+    rms_norm,
+    rope_cos_sin,
+    rope_inv_freq,
+    write_kv,
+)
+from dynamo_tpu_torch.ops.flash_prefill import prefill_paged_attention
+from dynamo_tpu_torch.ops.paged_attention import decode_paged_attention
+
+Params = Dict[str, Any]
+
+# attention paths of `forward`: "kernel" dispatches to the ops/ wrappers
+# (the Hopper kernels on CUDA tensors, their plain versions on CPU
+# tensors); "ref" runs the gather reference, the port of the JAX "jnp" path
+ATTN_IMPLS = ("kernel", "ref")
+
+
+def init_params(config: ModelConfig, seed: int, dtype, device) -> Params:
+    """Random-init params from a seeded generator on `device` (weights
+    ~ N(0, 1/fan_in), norms 1). Same tree and scales as the reference's
+    init_params; the numbers differ (another generator)."""
+    c = config
+    g = torch.Generator(device=device).manual_seed(seed)
+    hd, L = c.head_dim, c.n_layers
+
+    def w(fan_in, *shape):
+        x = torch.randn(shape, generator=g, device=device, dtype=torch.float32)
+        return x.mul_(fan_in ** -0.5).to(dtype)
+
+    def norm(*shape):
+        return torch.ones(shape, dtype=torch.float32, device=device)
+
+    params: Params = {
+        "embed": w(c.dim, c.vocab_size, c.dim),
+        "norm_f": norm(c.dim),
+        "layers": {
+            "wq": w(c.dim, L, c.dim, c.n_heads * hd),
+            "wk": w(c.dim, L, c.dim, c.n_kv_heads * hd),
+            "wv": w(c.dim, L, c.dim, c.n_kv_heads * hd),
+            "wo": w(c.n_heads * hd, L, c.n_heads * hd, c.dim),
+            "attn_norm": norm(L, c.dim),
+            "mlp_norm": norm(L, c.dim),
+            "w_gate": w(c.dim, L, c.dim, c.ffn_dim),
+            "w_up": w(c.dim, L, c.dim, c.ffn_dim),
+            "w_down": w(c.ffn_dim, L, c.ffn_dim, c.dim),
+        },
+    }
+    if not c.tie_embeddings:
+        params["lm_head"] = w(c.dim, c.dim, c.vocab_size)
+    return params
+
+
+def forward(
+    config: ModelConfig,
+    params: Params,
+    tokens: torch.Tensor,  # [B, S]
+    positions: torch.Tensor,  # [B, S] absolute positions (padding = -1)
+    k_pool: torch.Tensor,  # [L, NP, PS, Hk, D]; the last page takes padding
+    v_pool: torch.Tensor,
+    page_table: torch.Tensor,  # [B, MP] int32
+    kv_lens: torch.Tensor,  # [B] int32 context length AFTER this step
+    last_index: Optional[Union[int, torch.Tensor]] = None,  # int or [B]
+    attn_impl: str = "kernel",
+) -> torch.Tensor:
+    """One forward pass (prefill chunk S > 1 or decode S = 1). Writes this
+    step's K/V into the pools in place, attends over the full context and
+    returns f32 logits [B, S, V], or [B, 1, V] at `last_index` only.
+    Padding tokens' K/V land in the pools' last page (see kv_rows): the
+    caller never hands that page out."""
+    if attn_impl not in ATTN_IMPLS:
+        raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
+    c = config
+    B, S = tokens.shape
+    hd = c.head_dim
+    G = c.n_heads // c.n_kv_heads
+    lp = params["layers"]
+    L, NP, PS = k_pool.shape[:3]
+
+    h = params["embed"][tokens.long()]  # [B, S, E]
+    safe_pos = positions.clamp(min=0)
+    # prefill-kernel metadata: valid tokens are a contiguous run from s=0
+    # (ModelRunner contract), so start/len fully describe the positions
+    q_start = safe_pos[:, 0].to(torch.int32).contiguous()
+    q_len = (positions >= 0).sum(1, dtype=torch.int32)
+    cos, sin = rope_cos_sin(
+        safe_pos, rope_inv_freq(c, hd, c.rope_theta, str(tokens.device)))
+    rows = kv_rows(page_table, positions, NP, PS)
+
+    for l in range(c.n_layers):
+        x = rms_norm(h, lp["attn_norm"][l], c.norm_eps)
+        q = (x @ lp["wq"][l]).view(B, S, c.n_heads, hd)
+        k = (x @ lp["wk"][l]).view(B, S, c.n_kv_heads, hd)
+        v = (x @ lp["wv"][l]).view(B, S, c.n_kv_heads, hd)
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        write_kv(k_pool, l, k, rows)
+        write_kv(v_pool, l, v, rows)
+        qg = q.view(B, S, c.n_kv_heads, G, hd)
+        if attn_impl == "ref":
+            attn = paged_attention_ref(
+                qg, k_pool[l], v_pool[l], page_table, safe_pos, kv_lens)
+        elif S == 1:
+            attn = decode_paged_attention(
+                qg[:, 0], k_pool[l], v_pool[l], page_table, kv_lens,
+            )[:, None]
+        else:
+            attn = prefill_paged_attention(
+                qg, k_pool[l], v_pool[l], page_table, q_start, q_len, kv_lens)
+        h = h + attn.reshape(B, S, c.n_heads * hd) @ lp["wo"][l]
+        x = rms_norm(h, lp["mlp_norm"][l], c.norm_eps)
+        gate = F.silu(x @ lp["w_gate"][l])
+        h = h + (gate * (x @ lp["w_up"][l])) @ lp["w_down"][l]
+
+    if last_index is not None:
+        if isinstance(last_index, int):
+            h = h[:, last_index:last_index + 1]
+        else:  # per-row last positions
+            idx = last_index.long().view(B, 1, 1).expand(B, 1, h.shape[-1])
+            h = torch.gather(h, 1, idx)
+    h = rms_norm(h, params["norm_f"], c.norm_eps)
+    lm_head = params.get("lm_head")
+    logits = h @ (params["embed"].T if lm_head is None else lm_head)
+    return logits.float()

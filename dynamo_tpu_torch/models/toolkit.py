@@ -1,0 +1,156 @@
+"""Transformer building blocks for the dense Llama path: RMSNorm, RoPE
+(with llama3 scaling), the token-major paged KV pool and its writer, and
+the plain gather attention that every attention kernel is held against.
+
+Port of dynamo_tpu/models/toolkit.py. Layouts and numerics follow it: the
+pool is [L, NP, PS, Hk, D], norms and rope angles run in f32, and the
+reference attention rounds its scores and probabilities through the query
+dtype where the JAX einsums do.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import numpy as np
+import torch
+
+from dynamo_tpu_torch.models.config import ModelConfig
+
+NEG_INF = -1e30
+
+
+def make_kv_pool(
+    config: ModelConfig, num_pages: int, page_size: int, dtype, device,
+):
+    """Two zeroed pools [L, NP, PS, Hk, D], token-major: one page is one
+    contiguous PS*Hk*D slab, and one token's [Hk, D] row is contiguous."""
+    shape = (config.n_layers, num_pages, page_size, config.n_kv_heads,
+             config.head_dim)
+    return (torch.zeros(shape, dtype=dtype, device=device),
+            torch.zeros(shape, dtype=dtype, device=device))
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """RMSNorm in f32, cast back to the input dtype."""
+    xf = x.float()
+    normed = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
+    return (normed * weight).to(x.dtype)
+
+
+def rope_inv_freq_np(config: Optional[ModelConfig], hd: int, theta: float) -> np.ndarray:
+    """[hd//2] f32 inverse frequencies with the config's scaling applied,
+    computed in float64 numpy and cast to f32 (HF rope_scaling semantics:
+    "llama3" interpolates wavelengths past orig_max/low_freq_factor by
+    1/factor, keeps short ones, and blends a smooth band between)."""
+    half = hd // 2
+    base = theta ** -(np.arange(0, half, dtype=np.float64) / half)
+    if config is None or config.rope_scaling == "none":
+        return base.astype(np.float32)
+    c = config
+    if c.rope_scaling == "llama3":
+        orig = c.rope_orig_max_seq or c.max_seq_len
+        wavelen = 2.0 * math.pi / base
+        low_wl = orig / c.rope_low_freq_factor
+        high_wl = orig / c.rope_high_freq_factor
+        smooth = (orig / wavelen - c.rope_low_freq_factor) / max(
+            c.rope_high_freq_factor - c.rope_low_freq_factor, 1e-9
+        )
+        smooth = np.clip(smooth, 0.0, 1.0)
+        blended = (1 - smooth) * base / c.rope_factor + smooth * base
+        out = np.where(
+            wavelen < high_wl, base,
+            np.where(wavelen > low_wl, base / c.rope_factor, blended),
+        )
+        return out.astype(np.float32)
+    raise ValueError(f"unsupported rope_scaling {c.rope_scaling!r}")
+
+
+@functools.lru_cache(maxsize=16)
+def rope_inv_freq(config: Optional[ModelConfig], hd: int, theta: float,
+                  device: str = "cpu") -> torch.Tensor:
+    """rope_inv_freq_np as a tensor on `device`, built once per config:
+    a host-to-device copy inside the decode loop would wait for the
+    device."""
+    return torch.from_numpy(rope_inv_freq_np(config, hd, theta)).to(device)
+
+
+def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor):
+    """cos/sin tables [..., S, 1, hd//2] in f32 for `positions` [..., S]."""
+    angles = positions[..., None].float() * inv_freq
+    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+
+
+def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
+    """HF-Llama half rotation of x [..., S, n_heads, hd], in f32."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
+         config: Optional[ModelConfig] = None) -> torch.Tensor:
+    """x: [..., S, n_heads, hd], positions [..., S]."""
+    inv_freq = rope_inv_freq(config, x.shape[-1], theta, str(x.device))
+    cos, sin = rope_cos_sin(positions, inv_freq)
+    return apply_rope(x, cos, sin)
+
+
+def paged_attention_ref(
+    q: torch.Tensor,  # [B, S, Hk, G, D] grouped query heads
+    k_pool_l: torch.Tensor,  # [NP, PS, Hk, D] one layer's key pool
+    v_pool_l: torch.Tensor,
+    page_table: torch.Tensor,  # [B, MP] int32
+    q_positions: torch.Tensor,  # [B, S] absolute positions of the queries
+    kv_lens: torch.Tensor,  # [B] context length (tokens valid in the pool)
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Gather paged attention with causal masking by absolute position
+    (flat context index c is absolute position c). Returns [B, S, Hk, G, D];
+    rows with an empty context come out 0."""
+    B, MP = page_table.shape
+    _, PS, Hk, D = k_pool_l.shape
+    k = k_pool_l[page_table.long()].reshape(B, MP * PS, Hk, D)
+    v = v_pool_l[page_table.long()].reshape(B, MP * PS, Hk, D)
+    C = MP * PS
+    if scale is None:
+        scale = D ** -0.5
+    scores = torch.einsum("bskgd,bckd->bkgsc", q, k).float() * scale
+    ctx_pos = torch.arange(C, device=q.device)
+    valid = (ctx_pos[None, :] < kv_lens[:, None])[:, None, None, None, :]
+    causal = ctx_pos[None, None, :] <= q_positions[:, :, None]  # [B, S, C]
+    mask = valid & causal[:, None, None, :, :]
+    scores = torch.where(mask, scores, NEG_INF)
+    m = scores.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(scores - m), 0.0)
+    l = p.sum(-1, keepdim=True)
+    probs = (p / l.clamp(min=1e-30)).to(q.dtype)
+    return torch.einsum("bkgsc,bckd->bskgd", probs, v)
+
+
+def kv_rows(page_table: torch.Tensor, positions: torch.Tensor,
+            num_pages: int, page_size: int) -> torch.Tensor:
+    """Flat token-cell index [B*S] (int64) into a pool viewed as
+    [L, NP*PS, Hk, D] for each written position. Padding (position -1)
+    goes to the pool's LAST page, which the caller keeps out of its page
+    allocator: JAX drops these rows as an out-of-bounds scatter, but
+    index_copy_ has no drop mode and filtering the rows would wait for
+    the device."""
+    MP = page_table.shape[1]
+    valid = positions >= 0
+    pos = positions.clamp(min=0).long()
+    page_of_pos = (pos // page_size).clamp(0, MP - 1)
+    page_idx = torch.gather(page_table.long(), 1, page_of_pos)
+    page_idx = torch.where(valid, page_idx, num_pages - 1)
+    return (page_idx * page_size + pos % page_size).reshape(-1)
+
+
+def write_kv(pool: torch.Tensor, l_idx: int, new: torch.Tensor,
+             rows: torch.Tensor) -> None:
+    """Write new [B, S, Hk, D] into layer `l_idx` of the pool at the
+    token cells `rows` (from kv_rows), in place."""
+    L, NP, PS, Hk, D = pool.shape
+    pool.view(L, NP * PS, Hk, D)[l_idx].index_copy_(
+        0, rows, new.reshape(-1, Hk, D).to(pool.dtype))

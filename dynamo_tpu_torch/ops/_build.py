@@ -1,0 +1,121 @@
+"""Build and bind the port's CUDA kernels.
+
+Each source under ops/csrc/ is compiled by its own `nvcc` process (all
+started together) into a shared library with a plain C interface, then
+loaded with ctypes. Libraries land in `build/dynamo_tpu_torch/` at the
+repository root, named by a hash of the source and the flags, so an edited
+source rebuilds and an unchanged one loads at once. Nothing is built when
+this module is imported: the first launch (or an explicit `load()`) builds.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, List
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "dynamo_tpu_torch"
+NVCC_FLAGS = [
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+]
+
+# source stem -> {C function: (argtypes, restype)}
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+SIGNATURES: Dict[str, Dict[str, tuple]] = {
+    # q, k_pool, v_pool, page_table, kv_lens, out,
+    # B, Hk, G, D, PS, MP, scale, stream
+    "paged_attention": {
+        "decode_paged_attention": (
+            [_P] * 6 + [_I] * 6 + [_F, _P], _I),
+    },
+    # q, k_pool, v_pool, page_table, q_start, q_len, kv_lens, out,
+    # B, S, Hk, G, D, PS, MP, q_block, scale, stream
+    "flash_prefill": {
+        "prefill_paged_attention": (
+            [_P] * 8 + [_I] * 8 + [_F, _P], _I),
+    },
+}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+build_log: Dict[str, str] = {}  # source stem -> nvcc's output (ptxas -v)
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = "/usr/local/cuda/bin/nvcc"
+    if os.path.exists(default):
+        return default
+    raise RuntimeError("nvcc not found: the CUDA kernels build only where "
+                       "the CUDA toolkit is installed")
+
+
+def library_path(stem: str) -> Path:
+    src = (CSRC / f"{stem}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{stem}_{key}.so"
+
+
+def nvcc_command(stem: str, out: Path) -> List[str]:
+    return [nvcc_path(), *NVCC_FLAGS, "-o", str(out), str(CSRC / f"{stem}.cu")]
+
+
+def _bind(stem: str, path: Path) -> ctypes.CDLL:
+    lib = ctypes.CDLL(str(path))
+    for fn, (argtypes, restype) in SIGNATURES[stem].items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
+    lib.kernel_error_string.argtypes = [_I]
+    lib.kernel_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def load() -> Dict[str, ctypes.CDLL]:
+    """Build whatever is missing (one nvcc per source, in parallel) and
+    return {source stem: bound library}."""
+    with _lock:
+        missing = [s for s in SIGNATURES if s not in _libs]
+        if not missing:
+            return _libs
+        to_build = [s for s in missing if not library_path(s).exists()]
+        if to_build:
+            nvcc_path()  # fail before touching the build directory
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        procs = {}
+        for stem in to_build:
+            out = library_path(stem)
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            procs[stem] = (subprocess.Popen(
+                nvcc_command(stem, tmp), stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True), tmp, out)
+        failed = []
+        for stem, (proc, tmp, out) in procs.items():
+            log, _ = proc.communicate()
+            build_log[stem] = log
+            if proc.returncode != 0:
+                failed.append(f"{stem}.cu (rc {proc.returncode}):\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)
+        if failed:
+            raise RuntimeError("nvcc failed for " + "\n".join(failed))
+        for stem in missing:
+            _libs[stem] = _bind(stem, library_path(stem))
+        return _libs
+
+
+def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
+    """Raise if a launcher returned a CUDA error (a refused launch never
+    runs, and a later synchronize would not report it)."""
+    if rc != 0:
+        msg = lib.kernel_error_string(rc).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {rc} ({msg})")

@@ -1,0 +1,53 @@
+"""Worker construction for the PyTorch port: parse args, build the runner
+and the engine.
+
+Port of dynamo_tpu/worker.py `parse_args`, `build_runner` and
+`build_engine`, with the reference's names and the flags this slice uses.
+Serving the engine over the request plane (the reference worker's main)
+is not ported yet; callers drive `engine.generate` directly.
+"""
+
+from __future__ import annotations
+
+import argparse
+
+from dynamo_tpu_torch.engine.engine import InferenceEngine
+from dynamo_tpu_torch.engine.model_runner import ModelRunner
+from dynamo_tpu_torch.models.config import ModelConfig, get_config
+
+
+def parse_args(argv=None):
+    p = argparse.ArgumentParser("dynamo_tpu_torch.worker")
+    p.add_argument("--model", default="tiny", help="model config preset name")
+    p.add_argument("--device", default=None,
+                   help="torch device (default cuda; 'cpu' runs the plain "
+                        "PyTorch attention path)")
+    # KV cache
+    p.add_argument("--num-pages", type=int, default=512)
+    p.add_argument("--page-size", type=int, default=16)
+    p.add_argument("--max-seq-len", type=int, default=4096)
+    # batching
+    p.add_argument("--max-batch", type=int, default=64)
+    p.add_argument("--chunk-size", type=int, default=512)
+    return p.parse_args(argv)
+
+
+def build_runner(args) -> tuple[ModelRunner, ModelConfig]:
+    """Construct the ModelRunner (bf16 random weights, seed 0, until
+    checkpoint loading is ported) and its model config from CLI args."""
+    config = get_config(args.model)
+    runner = ModelRunner(
+        config,
+        num_pages=args.num_pages,
+        page_size=args.page_size,
+        max_pages_per_seq=-(-args.max_seq_len // args.page_size),
+        device=args.device,
+    )
+    return runner, config
+
+
+def build_engine(args, runner=None) -> InferenceEngine:
+    if runner is None:
+        runner, _ = build_runner(args)
+    return InferenceEngine(runner, max_batch=args.max_batch,
+                           chunk_size=args.chunk_size)
