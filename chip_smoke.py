@@ -5,21 +5,33 @@
 
 Phases, each printing one JSON line:
   1. device  - the card, its count, and `nvidia-smi` name and power limit;
-  2. build   - build the CUDA kernels from ops/csrc (one nvcc per source);
+  2. build   - build the CUDA kernels from ops/csrc (one nvcc per source,
+               all started together);
   3. kernels - each attention kernel at the main path's shapes (Hk 8, G 3,
                D 128, PS 16, bf16) against its plain PyTorch version, with
                times from CUDA events, the library yardstick (SDPA over K/V
-               gathered dense beforehand) and the roofline bound; then
-               (`shapes`) both kernels at the other shapes they accept;
+               gathered dense beforehand) and the roofline bound: decode,
+               chunked prefill, and the ragged kernel over a 264-token
+               mixed step (8 decode rows + 4 chunks), the same step with
+               its last chunk dropped (tail rows must be exactly 0) and a
+               verify-shaped step (K+1 = 5 rows per segment); then
+               (`shapes`) all three kernels at the other shapes they take;
   4. engine  - build_engine for llama-3.2-3b at full width and depth with
-               random weights, serve 8 concurrent requests (chunked
+               random weights and serve 8 concurrent requests (chunked
                prefill over prior context, a prefix-cache hit, greedy and
-               seeded sampled rows) and check that both kernels' launch
-               counters rose by exactly (prefill chunks x 28) and (decode
-               steps x 28);
-  5. parity  - the same prefill-plus-decode inputs through the kernel path
-               and the plain attention path of the model forward.
-Then the `kernels` summary line and, last, the contract line
+               seeded sampled rows) three times on one runner, each with
+               every launch count set to 0 just before and read just
+               after: `fused` (the default on a card: mixed plans on the
+               ragged kernel; the main path), `unfused` (DYN_FUSED_MIXED=0:
+               decode, then each chunk on the prefill kernel) and `spec`
+               (--spec-ngram, K 4, prompts that repeat n-grams: verify rows
+               on the ragged kernel). Each kernel's launches must equal its
+               forward passes (runner.stats) x 28 layers;
+  5. parity  - prefill-plus-decode inputs, then one ragged dispatch of
+               decode rows and a chunk over prior context, through the
+               kernel path and the plain attention path of the forward.
+Then the `kernels` summary line (launches from the fused phase), the
+card's name and power limit, and, last, the contract line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
 It needs a CUDA device and the repository around it; it builds into
 build/dynamo_tpu_torch/.
@@ -29,6 +41,7 @@ from __future__ import annotations
 
 import asyncio
 import json
+import os
 import subprocess
 import sys
 import time
@@ -45,8 +58,13 @@ from dynamo_tpu_torch.ops.paged_attention import (
     decode_paged_attention,
     decode_paged_attention_ref,
 )
+from dynamo_tpu_torch.ops.ragged_paged_attention import (
+    build_ragged_metadata,
+    ragged_paged_attention,
+    ragged_paged_attention_ref,
+)
 from dynamo_tpu_torch.runtime.context import Context
-from dynamo_tpu_torch.worker import build_engine, parse_args
+from dynamo_tpu_torch.worker import build_engine, build_runner, parse_args
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 rate and bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
@@ -68,7 +86,13 @@ SOURCES = {
     "prefill_paged_attention": (
         "dynamo_tpu_torch/ops/csrc/flash_prefill.cu",
         "dynamo_tpu/ops/flash_prefill.py:313"),
+    "ragged_paged_attention": (
+        "dynamo_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+        "dynamo_tpu/ops/ragged_paged_attention.py:486"),
 }
+KERNELS = {"decode_paged_attention": decode_paged_attention,
+           "prefill_paged_attention": prefill_paged_attention,
+           "ragged_paged_attention": ragged_paged_attention}
 
 
 class CheckFailed(Exception):
@@ -119,6 +143,124 @@ def dense_kv(pool, page_table, Hk, G):
     _, PS, _, D = pool.shape
     x = pool[page_table.long()].reshape(B, MP * PS, Hk, D)
     return x.permute(0, 2, 1, 3).repeat_interleave(G, dim=1).contiguous()
+
+
+# the ragged kernel's main-path step: the chip engine's T bucket (its
+# 256-token mixed pool + 8 decode rows), 8 decode rows over contexts up
+# to 4096 tokens and 4 chunks (q_len, prior) that cross q-block bounds
+RAGGED_T = 264
+RAGGED_DECODE_KV = [4096, 1, 17, 1000, 2048, 3333, 513, 64]
+RAGGED_CHUNKS = [(125, 700), (67, 0), (48, 1500), (16, 3000)]
+
+
+def ragged_inputs(gen, segs, T, Hk, G, D, PS, MP, dev):
+    """q, pools and kernel operands for segments [(q_len, prior)], each
+    on its own pages (a wrong table read lands on another's data)."""
+    q_lens = [n for n, _ in segs]
+    starts = [p for _, p in segs]
+    NP = len(segs) * MP + 1
+    pt = random_pages(gen, len(segs), MP, NP, "cpu")
+    md = build_ragged_metadata(q_lens, starts, [p + n for n, p in segs],
+                               pt.tolist(), T, max_pages=MP)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).bfloat16().to(dev)
+
+    ints = tuple(torch.from_numpy(md[k]).to(dev)
+                 for k in ("seg_page_table", "seg_kv_lens", "meta"))
+    return (rnd(T, Hk, G, D), rnd(NP, PS, Hk, D), rnd(NP, PS, Hk, D)) + ints, md
+
+
+def ragged_check(args, segs, what):
+    """Kernel against the plain version on the real rows; tail rows (the
+    dummy segment) must be exactly 0. Returns the max abs error."""
+    out = ragged_paged_attention(*args)
+    torch.cuda.synchronize()
+    ref = ragged_paged_attention_ref(*args)
+    n = sum(q for q, _ in segs)
+    err = (out[:n].float() - ref[:n].float()).abs().max().item()
+    check(torch.isfinite(out.float()).all().item(),
+          f"ragged kernel output not finite ({what})")
+    check(n == out.shape[0] or out[n:].float().abs().max().item() == 0.0,
+          f"ragged tail rows are not 0 ({what})")
+    check(err <= KERNEL_TOL, f"ragged kernel max abs err {err} > {KERNEL_TOL} ({what})")
+    return err
+
+
+def ragged_library(args, segs, md, scale):
+    """SDPA yardstick inputs: the real queries [1, H, n, D] against every
+    segment's visible K/V gathered dense [1, H, C, D] beforehand, under a
+    segment-causal mask [n, C]."""
+    q, kp, vp = args[:3]
+    T, Hk, G, D = q.shape
+    dev = q.device
+    ks, vs, col_seg, col_pos = [], [], [], []
+    for s, (n, p) in enumerate(segs):
+        pages = torch.from_numpy(md["seg_page_table"][s]).to(dev).long()
+        ks.append(kp[pages].reshape(-1, Hk, D)[:p + n])
+        vs.append(vp[pages].reshape(-1, Hk, D)[:p + n])
+        col_seg.append(torch.full((p + n,), s, device=dev))
+        col_pos.append(torch.arange(p + n, device=dev))
+
+    def heads(x):
+        return x.permute(1, 0, 2).repeat_interleave(G, dim=0)[None].contiguous()
+
+    n = sum(q_len for q_len, _ in segs)
+    tok_seg = torch.repeat_interleave(
+        torch.arange(len(segs), device=dev),
+        torch.tensor([q_len for q_len, _ in segs], device=dev))
+    tok_pos = torch.from_numpy(md["tok_positions"][:n]).to(dev)
+    col_seg, col_pos = torch.cat(col_seg), torch.cat(col_pos)
+    mask = ((col_seg[None, :] == tok_seg[:, None])
+            & (col_pos[None, :] <= tok_pos[:, None]))[None, None]
+    qd = q[:n].reshape(n, Hk * G, D).transpose(0, 1)[None].contiguous()
+    kd, vd = heads(torch.cat(ks)), heads(torch.cat(vs))
+    return lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                                  scale=scale)
+
+
+def ragged_phase(gen, dev):
+    """The ragged kernel at the main path's step (timed), the same step
+    without its last chunk (a 16-row tail) and a verify-shaped step."""
+    Hk, G, D, PS = 8, 3, 128, 16
+    H, MP = Hk * G, 4096 // PS
+    scale = D ** -0.5
+    decode = [(1, kv - 1) for kv in RAGGED_DECODE_KV]
+    cases = {
+        "mixed": decode + RAGGED_CHUNKS,
+        "mixed_tail": decode + RAGGED_CHUNKS[:-1],
+        "verify": [(5, max(kv - 5, 0)) for kv in RAGGED_DECODE_KV]
+        + RAGGED_CHUNKS[:2],
+    }
+    out = {}
+    for name, segs in cases.items():
+        args, md = ragged_inputs(gen, segs, RAGGED_T, Hk, G, D, PS, MP, dev)
+        rec = {"segments": segs, "t_real": sum(n for n, _ in segs),
+               "max_abs_err": ragged_check(args, segs, name),
+               "ms": cuda_ms(lambda: ragged_paged_attention(*args)),
+               "plain_ms": cuda_ms(lambda: ragged_paged_attention_ref(*args),
+                                   iters=5)}
+        if name == "mixed":
+            # what the data needs: real q rows read, all T out rows
+            # written, each segment's visible K/V once, the table entries
+            # of its visible pages, seg_kv_lens and meta; one score and
+            # one PV product per visible (query, key) pair
+            kv_tok = sum(n + p for n, p in segs)
+            n_bytes = (rec["t_real"] * H * D * 2 + RAGGED_T * H * D * 2
+                       + kv_tok * Hk * D * 2 * 2
+                       + sum(-(-(n + p) // PS) for n, p in segs) * 4
+                       + md["seg_kv_lens"].size * 4 + md["meta"].size * 4)
+            pairs = sum(p + i + 1 for n, p in segs for i in range(n))
+            rec["bound_ms"], rec["bound_by"] = bound(n_bytes, 4 * pairs * H * D)
+            rec["library_ms"] = cuda_ms(ragged_library(args, segs, md, scale))
+        out[name] = rec
+        del args
+    top = {k: out["mixed"][k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")}
+    top["max_abs_err"] = max(c["max_abs_err"] for c in out.values())
+    top["shape"] = {"T": RAGGED_T, "Hk": Hk, "G": G, "D": D, "PS": PS}
+    top["cases"] = out
+    return top
 
 
 def kernel_phase(dev):
@@ -216,14 +358,15 @@ def kernel_phase(dev):
         top.pop(k)
     top["cases"] = cases
     results["prefill_paged_attention"] = top
+    results["ragged_paged_attention"] = ragged_phase(gen, dev)
     emit({"phase": "kernels", "tol": KERNEL_TOL, **results})
     return results
 
 
 def shapes_phase(dev):
-    """Both kernels against their plain versions at the other shapes the
-    wrappers accept (head dims 64/128, GQA groups, page sizes, q-blocks
-    that overrun S), small and untimed."""
+    """The three kernels against their plain versions at the other shapes
+    the wrappers accept (head dims 64/128, GQA groups, page sizes,
+    q-blocks that overrun S), small and untimed."""
     gen = torch.Generator(device="cpu").manual_seed(3)
     errs = {}
     for D, G, PS in ((128, 4, 16), (128, 1, 8), (128, 8, 32), (64, 4, 16),
@@ -254,7 +397,11 @@ def shapes_phase(dev):
         e_pre = (out.float() - ref.float()).abs().max().item()
         torch.cuda.synchronize()
         name = f"D{D}_G{G}_PS{PS}"
-        errs[name] = {"decode": e_dec, "prefill": e_pre}
+        # ragged: decode rows, chunks over prior context, a 11-row tail
+        segs = [(1, 36), (1, 0), (21, 13), (9, 0), (5, 100)]
+        args, _ = ragged_inputs(gen, segs, 48, Hk, G, D, PS, MP, dev)
+        e_rag = ragged_check(args, segs, name)
+        errs[name] = {"decode": e_dec, "prefill": e_pre, "ragged": e_rag}
         check(max(e_dec, e_pre) <= KERNEL_TOL,
               f"kernel parity at {name}: decode {e_dec}, prefill {e_pre}")
     emit({"phase": "shapes", "tol": KERNEL_TOL, "max_abs_err": errs})
@@ -312,114 +459,231 @@ def workload(vocab_size: int, seed: int):
     return [req(p, i) for i, p in enumerate(prompts)], req(late, len(prompts))
 
 
-def serve(engine, seed: int):
-    """Serve workload(seed) to completion (at most 900 s)."""
-    reqs, late = workload(engine.runner.config.vocab_size, seed)
+def spec_workload(vocab_size: int, seed: int):
+    """workload()'s shape (8 requests, the last sharing a 256-token prefix
+    with the one before it), all greedy, with prompts that repeat n-grams:
+    each is a 12 to 40-token motif repeated, so n-gram drafts find
+    matches. Returns (first 7, last)."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+
+    def prompt(n, motif):
+        m = torch.randint(0, vocab_size, (motif,), generator=gen).tolist()
+        return (m * (n // motif + 1))[:n]
+
+    def req(p):
+        return {"token_ids": p, "sampling": {"temperature": 0.0},
+                "stop": {"max_tokens": N_OUT, "stop_ids": []}}
+
+    shared = prompt(256, 32)
+    prompts = [prompt(n, m) for n, m in ((17, 12), (64, 16), (300, 20),
+                                          (700, 24), (1100, 28), (1500, 40))]
+    prompts.append(shared + prompt(150, 30))
+    late = shared + prompt(400, 36)
+    return [req(p) for p in prompts], req(late)
+
+
+def serve(engine, seed: int, spec: bool = False):
+    """Serve workload(seed) (spec_workload with spec) to completion, at
+    most 900 s."""
+    make = spec_workload if spec else workload
+    reqs, late = make(engine.runner.config.vocab_size, seed)
     prompts = [r["token_ids"] for r in reqs + [late]]
     return prompts, asyncio.run(asyncio.wait_for(
         _serve(engine, reqs, len(reqs) - 1, late), 900))
 
 
-def engine_phase(dev):
-    torch.cuda.reset_peak_memory_stats()
-    t0 = time.monotonic()
-    engine = build_engine(parse_args(ENGINE_ARGS))
-    runner = engine.runner
-    torch.cuda.synchronize()
-    build_s = time.monotonic() - t0
+def check_launches(phase: str, launches, stats, L: int) -> None:
+    """Each kernel launched once per layer of each forward pass of its
+    kind, and nowhere else."""
+    want = {
+        "prefill_paged_attention":
+            stats["prefill_chunks"] + stats["padded_prefill_dispatches"],
+        "decode_paged_attention": stats["decode_steps"],
+        "ragged_paged_attention":
+            stats["ragged_mixed_dispatches"] + stats["ragged_verify_dispatches"],
+    }
+    for name, n in want.items():
+        check(launches[name] == n * L,
+              f"{phase}: {name} launches {launches[name]} != {n} passes x {L}")
+
+
+def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
+                 build_s: float = None):
+    """Serve the workload on a fresh engine over `runner`, with every
+    launch count and runner.stats set to 0 just before and read just
+    after. fused=None keeps the engine's default (fused on a card)."""
+    args = ENGINE_ARGS + (["--spec-ngram", "--spec-k", "4"] if spec else [])
+    saved = os.environ.pop("DYN_FUSED_MIXED", None)
+    if fused is not None:
+        os.environ["DYN_FUSED_MIXED"] = "1" if fused else "0"
+    try:
+        engine = build_engine(parse_args(args), runner=runner)
+    finally:
+        os.environ.pop("DYN_FUSED_MIXED", None)
+        if saved is not None:
+            os.environ["DYN_FUSED_MIXED"] = saved
     V = runner.config.vocab_size
-    n_out = N_OUT
-    # every count to 0 just before the main path runs
-    decode_paged_attention.launches = 0
-    prefill_paged_attention.launches = 0
-    runner.stats = {"prefill_chunks": 0, "decode_steps": 0}
+    L = runner.config.n_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in KERNELS.values():
+        fn.launches = 0
+    runner.reset_stats()
     t0 = time.monotonic()
     try:
-        prompts, results = serve(engine, seed=1)
+        prompts, results = serve(engine, seed=1, spec=spec)
     finally:
         engine.stop()
     torch.cuda.synchronize()  # a fault during the run surfaces here
     wall = time.monotonic() - t0
-    launches = {"decode_paged_attention": decode_paged_attention.launches,
-                "prefill_paged_attention": prefill_paged_attention.launches}
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
     stats = dict(runner.stats)
-    L = runner.config.n_layers
     for i, (toks, finish, _) in enumerate(results):
-        check(finish in ("length", "stop"), f"r{i} finished {finish!r}")
-        check(finish != "length" or len(toks) == n_out,
-              f"r{i} emitted {len(toks)} tokens, wanted {n_out}")
-        check(all(0 <= t < V for t in toks), f"r{i} emitted a token out of range")
+        check(finish in ("length", "stop"), f"{phase}: r{i} finished {finish!r}")
+        check(finish != "length" or len(toks) == N_OUT,
+              f"{phase}: r{i} emitted {len(toks)} tokens, wanted {N_OUT}")
+        check(all(0 <= t < V for t in toks),
+              f"{phase}: r{i} emitted a token out of range")
     check(stats["prefill_chunks"] > 0 and stats["decode_steps"] > 0,
-          f"engine ran no prefill or no decode: {stats}")
-    check(launches["prefill_paged_attention"] == stats["prefill_chunks"] * L,
-          f"prefill launches {launches} != chunks {stats['prefill_chunks']} x {L}")
-    check(launches["decode_paged_attention"] == stats["decode_steps"] * L,
-          f"decode launches {launches} != steps {stats['decode_steps']} x {L}")
+          f"{phase}: engine ran no prefill or no decode: {stats}")
+    check_launches(phase, launches, stats, L)
     reused = engine.scheduler.reused_prefix_tokens
-    check(reused >= 256, f"late request reused only {reused} prefix tokens")
+    check(reused >= 256, f"{phase}: late request reused only {reused} prefix tokens")
     ttft = sorted(r[2].get("ttft_s", float("nan")) for r in results)
     decode_rates = sorted(
         (len(r[0]) - 1) / (r[2]["e2e_s"] - r[2]["ttft_s"]) for r in results)
     n_tokens = sum(len(r[0]) for r in results)
-    emit({
-        "phase": "engine", "model": runner.config.name,
-        "n_layers": L, "requests": len(results),
+    rec = {
+        "phase": f"engine_{phase}", "model": runner.config.name,
+        "n_layers": L, "fused_mixed": engine.fused_mixed,
+        "requests": len(results),
         "prompt_tokens": [len(p) for p in prompts],
         "output_tokens": [len(r[0]) for r in results],
         "finish": [r[1] for r in results],
-        "prefill_chunks": stats["prefill_chunks"],
-        "decode_steps": stats["decode_steps"], "launches": launches,
+        "stats": stats, "launches": launches,
         "reused_prefix_tokens": reused,
         "ttft_s_min": ttft[0], "ttft_s_median": ttft[len(ttft) // 2],
         "ttft_s_max": ttft[-1],
         "decode_tok_s_per_request_median": decode_rates[len(decode_rates) // 2],
         "output_tok_s_overall": n_tokens / wall, "wall_s": wall,
-        "build_s": build_s,
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-    })
-    return engine, launches
+    }
+    if build_s is not None:
+        rec["build_s"] = build_s
+    if spec:
+        rec["spec_stats"] = dict(engine.spec_stats)
+        rec["acceptance_rate"] = (engine.spec_stats["accepted"]
+                                  / max(1, engine.spec_stats["drafted"]))
+    return rec, launches, results
 
 
-def parity_phase(engine, dev):
-    """Two sequences prefilled in one chunk (S = 320, padding rows), then
-    two decode steps, through forward(attn_impl="kernel") and
-    forward(attn_impl="ref") on their own pools; decode inputs are the
-    kernel path's greedy tokens, fed to both."""
+def engine_phases(dev):
+    """The fused (main path), unfused and spec phases on one runner."""
+    t0 = time.monotonic()
+    runner, _ = build_runner(parse_args(ENGINE_ARGS))
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+
+    rec, launches, fused = engine_phase(runner, "fused", build_s=build_s)
+    st = rec["stats"]
+    check(rec["fused_mixed"], "fused: the engine did not fuse on the card")
+    check(all(n > 0 for n in launches.values()),
+          f"fused: a kernel of the main path never launched: {launches}")
+    # more chunks than fused dispatches: some plan packed two or more
+    check(st["mixed_chunks"] > st["ragged_mixed_dispatches"] > 0,
+          f"fused: no fused plan packed 2+ chunks: {st}")
+    check(st["padded_prefill_dispatches"] == 0,
+          f"fused: the padded fallback ran {st['padded_prefill_dispatches']} times")
+    emit(rec)
+
+    rec, _, unfused = engine_phase(runner, "unfused", fused=False)
+    check(not rec["fused_mixed"], "unfused: DYN_FUSED_MIXED=0 did not hold")
+    check(rec["launches"]["ragged_paged_attention"] == 0,
+          "unfused: the ragged kernel ran")
+    # information only: bf16 through other kernels may part on near-ties
+    greedy = [i for i in range(len(fused)) if i not in (2, 5)]
+    same = [fused[i][0] == unfused[i][0] for i in greedy]
+    pos = [a == b for i in greedy for a, b in zip(fused[i][0], unfused[i][0])]
+    rec["greedy_agreement_with_fused"] = {
+        "streams_identical": sum(same), "streams": len(same),
+        "token_agreement": sum(pos) / max(1, len(pos))}
+    emit(rec)
+
+    rec, _, _ = engine_phase(runner, "spec", spec=True)
+    st = rec["stats"]
+    check(rec["spec_stats"]["drafted"] > 0 and st["ragged_verify_dispatches"] > 0,
+          f"spec: nothing was drafted or verified: {rec['spec_stats']}, {st}")
+    emit(rec)
+    return runner, launches
+
+
+def parity_phase(runner, dev):
+    """Three sequences prefilled in one chunk (S = 320, padding rows),
+    two decode steps of the first two (the third a padding row), then one
+    ragged dispatch: both decode rows and a 77-token chunk of the third
+    over its 90 prior tokens (T 88, a 9-row tail). Through
+    forward(attn_impl="kernel") and forward(attn_impl="ref") on their own
+    pools; decode inputs are the kernel path's greedy tokens, fed to both."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.toolkit import make_kv_pool
 
-    runner = engine.runner
     cfg, params = runner.config, runner.params
-    PS, MP, NP = 16, 24, 64
+    PS, MP, NP = 16, 24, 80
     gen = torch.Generator(device="cpu").manual_seed(2)
-    lens = [300, 180]
+    lens = [300, 180, 90]
     S = 320
-    tok = torch.randint(0, cfg.vocab_size, (2, S), generator=gen)
-    pos = torch.full((2, S), -1, dtype=torch.int32)
+    tok = torch.randint(0, cfg.vocab_size, (3, S), generator=gen)
+    pos = torch.full((3, S), -1, dtype=torch.int32)
     for b, n in enumerate(lens):
         pos[b, :n] = torch.arange(n)
-    pages = torch.randperm(NP, generator=gen)[: 2 * MP].view(2, MP).to(torch.int32)
+    pages = torch.randperm(NP, generator=gen)[: 3 * MP].view(3, MP).to(torch.int32)
     tok, pos, pages = tok.to(dev), pos.to(dev), pages.to(dev)
     pools = {impl: make_kv_pool(cfg, NP + 1, PS, runner.dtype, dev)
              for impl in ("kernel", "ref")}
     steps = [(tok, pos, torch.tensor(lens, dtype=torch.int32, device=dev),
               torch.tensor([n - 1 for n in lens], device=dev))]
     rel, agree, worst_abs = [], [], 0.0
-    for t in range(3):
-        tk, ps, kvl, last = steps[-1]
-        logits = {impl: llama.forward(cfg, params, tk, ps, *pools[impl], pages,
-                                      kvl, last, attn_impl=impl)[:, -1]
-                  for impl in ("kernel", "ref")}
+
+    def compare(logits):
+        nonlocal worst_abs
         a, b = logits["kernel"], logits["ref"]
         check(torch.isfinite(a).all().item(), "kernel-path logits not finite")
         rel.append(((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item())
         worst_abs = max(worst_abs, (a - b).abs().max().item())
         agree.extend((a.argmax(-1) == b.argmax(-1)).tolist())
-        nxt = a.argmax(-1).to(torch.int32)[:, None]
-        p1 = torch.tensor([[n + t] for n in lens], dtype=torch.int32, device=dev)
-        steps.append((nxt, p1, (p1[:, 0] + 1).to(torch.int32), None))
+        return a.argmax(-1).to(torch.int32)
+
+    for t in range(3):
+        tk, ps, kvl, last = steps[-1]
+        nxt = compare({
+            impl: llama.forward(cfg, params, tk, ps, *pools[impl], pages,
+                                kvl, last, attn_impl=impl)[:, -1]
+            for impl in ("kernel", "ref")})
+        p1 = torch.tensor([[lens[0] + t], [lens[1] + t], [-1]],
+                          dtype=torch.int32, device=dev)
+        steps.append((nxt[:, None], p1,
+                      torch.where(p1[:, 0] < 0, 0, p1[:, 0] + 1).to(torch.int32),
+                      None))
+    # the ragged dispatch: the decode rows' next tokens at lens + 2, and
+    # the third sequence's chunk
+    chunk = torch.randint(0, cfg.vocab_size, (77,), generator=gen).tolist()
+    q_lens, starts = [1, 1, 77], [lens[0] + 2, lens[1] + 2, lens[2]]
+    md = build_ragged_metadata(q_lens, starts, [s + n for s, n in zip(starts, q_lens)],
+                               pages.tolist(), 88, max_pages=MP)
+    flat = torch.zeros(88, dtype=torch.int32)
+    flat[:2] = nxt[:2].cpu()
+    flat[2:79] = torch.tensor(chunk)
+    gather = torch.zeros(md["seg_kv_lens"].shape[0], dtype=torch.int32)
+    gather[:3] = torch.from_numpy(md["last_index"])
+    ragged = tuple(torch.from_numpy(md[k]).to(dev)
+                   for k in ("seg_page_table", "seg_kv_lens", "meta"))
+    positions = torch.from_numpy(md["tok_positions"]).to(dev)[None]
+    compare({impl: llama.forward(cfg, params, flat.to(dev)[None], positions,
+                                 *pools[impl], last_index=gather.to(dev),
+                                 attn_impl=impl, ragged=ragged)[0, :3]
+             for impl in ("kernel", "ref")})
     worst = max(rel)
-    emit({"phase": "parity", "steps": ["prefill", "decode", "decode"],
+    emit({"phase": "parity", "steps": ["prefill", "decode", "decode", "ragged"],
           "rel_l2_err_per_step": rel, "max_abs_err": worst_abs,
           "tol_rel_l2": FORWARD_REL_TOL,
           "greedy_agreement": sum(agree) / len(agree)})
@@ -454,8 +718,8 @@ def main() -> int:
     try:
         kern = kernel_phase(dev)
         shapes_phase(dev)
-        engine, launches = engine_phase(dev)
-        parity_phase(engine, dev)
+        runner, launches = engine_phases(dev)
+        parity_phase(runner, dev)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
@@ -466,6 +730,7 @@ def main() -> int:
                                        "bound_ms", "bound_by", "library_ms")}}
         for name in SOURCES
     ]})
+    print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})
     return 0
 

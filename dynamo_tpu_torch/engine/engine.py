@@ -4,11 +4,15 @@ Port of dynamo_tpu/engine/engine.py, reduced to the main path: requests
 enter through `generate()` (PreprocessedRequest in, engine-output items
 out), a dedicated step thread runs the scheduler/runner loop, and sampled
 tokens flow back through per-request asyncio queues. A MixedPlan runs
-unfused, decode first and then each prefill chunk (the reference's
-DYN_FUSED_MIXED=0 path). Not ported yet: the fused mixed dispatch,
-speculative decoding, guided decoding, logprobs, penalties, logit bias,
-n > 1 branches, LoRA, multimodal input, KV tiers and disaggregation;
-requests asking for those are refused with an "error" item.
+fused on a card (the decode batch's steps and every packed prefill chunk
+in one ragged dispatch plus the decode loop, one token readback) and
+unfused on the CPU (decode first, then each chunk), with DYN_FUSED_MIXED
+overriding, as in the reference. Linear n-gram speculative decoding
+(`spec_ngram`) verifies host-proposed drafts on the same ragged dispatch.
+Not ported yet: tree and draft-model speculation, guided decoding,
+logprobs, penalties, logit bias, n > 1 branches, LoRA, multimodal input,
+KV tiers and disaggregation; requests asking for those are refused with
+an "error" item.
 """
 
 from __future__ import annotations
@@ -16,6 +20,7 @@ from __future__ import annotations
 import asyncio
 import hashlib
 import logging
+import os
 import queue as thread_queue
 import threading
 import time
@@ -24,13 +29,18 @@ from typing import Any, AsyncIterator, Dict, List, Optional
 import torch
 
 from dynamo_tpu_torch.engine.kv_pool import PagePool
+from dynamo_tpu_torch.engine.model_runner import BucketOverflowError
+from dynamo_tpu_torch.engine.ngram_draft import accept_deterministic
+from dynamo_tpu_torch.engine.ngram_draft import propose as ngram_propose
 from dynamo_tpu_torch.engine.scheduler import (
     DecodePlan,
     MixedPlan,
     PrefillPlan,
     Scheduler,
     Sequence,
+    SeqState,
 )
+from dynamo_tpu_torch.ops.ragged_paged_attention import RAGGED_MAX_SEGS
 from dynamo_tpu_torch.runtime.context import Context
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
@@ -70,17 +80,38 @@ def _unsupported(request: Dict[str, Any]) -> Optional[str]:
 
 
 class InferenceEngine:
-    # the reference engine's defaults, which its worker keeps: 4 fused
-    # decode steps per plan, a 256-token prefill pool fair-shared over up
-    # to 8 chunks of at least 16 tokens while decode runs
-    DECODE_STEPS = 4
-    MIXED_PREFILL_TOKENS = 256
-    MIXED_PREFILL_SEQS = 8
-    MIXED_MIN_CHUNK = 16
     IDLE_SLEEP_S = 0.002
 
-    def __init__(self, runner, *, max_batch: int = 64, chunk_size: int = 512):
+    def __init__(
+        self,
+        runner,
+        *,
+        max_batch: int = 64,
+        chunk_size: int = 512,
+        decode_steps: int = 4,  # fused decode iterations per plan
+        mixed_prefill_tokens: int = 256,  # per-iteration prefill token POOL
+        #   while decode runs, fair-shared across packed chunks (0 = strict
+        #   prefill-first alternation)
+        mixed_prefill_seqs: int = 8,  # max distinct prefills packed
+        mixed_min_chunk: int = 16,  # fair-share floor per packed sequence
+        spec_ngram: bool = False,  # n-gram speculative decoding: drafts
+        #   from each sequence's own history, verified as K+1-token rows
+        #   of the ragged dispatch
+        spec_k: int = 4,  # draft tokens proposed per sequence per step
+        spec_max_tokens: int = 0,  # per-iteration cap on drafted tokens
+        #   (0 = bounded only by the mixed pool leftover)
+    ):
         self.runner = runner
+        # fused mixed dispatch: on for a card, off for the CPU (the
+        # reference fuses wherever the platform is not cpu);
+        # DYN_FUSED_MIXED=0/1 overrides for A/Bs
+        flag = os.environ.get("DYN_FUSED_MIXED", "").lower()
+        if flag in ("1", "true", "on", "yes"):
+            self.fused_mixed = True
+        elif flag in ("0", "false", "off", "no"):
+            self.fused_mixed = False
+        else:
+            self.fused_mixed = runner.device.type != "cpu"
         self.pool = PagePool(runner.num_pages, runner.page_size)
         self.scheduler = Scheduler(
             self.pool,
@@ -88,11 +119,29 @@ class InferenceEngine:
             chunk_size=chunk_size,
             max_seq_pages=runner.max_pages_per_seq,
             max_seq_tokens=runner.config.max_seq_len,
-            decode_steps=self.DECODE_STEPS,
-            mixed_prefill_tokens=self.MIXED_PREFILL_TOKENS,
-            mixed_prefill_seqs=self.MIXED_PREFILL_SEQS,
-            mixed_min_chunk=self.MIXED_MIN_CHUNK,
+            decode_steps=decode_steps,
+            mixed_prefill_tokens=mixed_prefill_tokens,
+            mixed_prefill_seqs=mixed_prefill_seqs,
+            mixed_min_chunk=mixed_min_chunk,
+            spec_max_tokens=spec_max_tokens,
+            # one ragged dispatch samples at most RAGGED_MAX_SEGS rows:
+            # budgeting verify tokens to it keeps every verify dispatch
+            # inside the gather the registered bucket has
+            spec_seg_budget=RAGGED_MAX_SEGS,
         )
+        self.spec_k = max(1, int(spec_k))
+        # drafts ride the mixed pool's leftover: no pool, no speculation
+        self.spec_ngram = bool(spec_ngram) and mixed_prefill_tokens > 0
+        if spec_ngram and not self.spec_ngram:
+            log.warning("spec_ngram requested with mixed_prefill_tokens=0; "
+                        "disabled")
+        self.spec_stats = {"drafted": 0, "accepted": 0, "rejected": 0,
+                           "verify_rows": 0, "verify_iters": 0,
+                           "spec_emitted": 0}
+        # the scheduler caps a mixed plan at max_batch decode rows +
+        # mixed_prefill_tokens chunk tokens: that sum is a T bucket, so a
+        # full mixed iteration never rounds up
+        runner.ensure_ragged_bucket(mixed_prefill_tokens + max_batch)
         self._inbox: thread_queue.Queue = thread_queue.Queue()
         self._streams: Dict[str, tuple[asyncio.Queue, asyncio.AbstractEventLoop]] = {}
         self._thread: Optional[threading.Thread] = None
@@ -191,6 +240,7 @@ class InferenceEngine:
 
     def _loop_once(self) -> None:
         self._drain_inbox()
+        self._propose_drafts()
         plan = self.scheduler.step_plan()
         if plan is None:
             if not self.scheduler.has_work():
@@ -201,12 +251,34 @@ class InferenceEngine:
             if isinstance(plan, PrefillPlan):
                 self._run_prefill_inner(plan)
             elif isinstance(plan, MixedPlan):
-                # decode first: ITL never waits behind prompt processing
-                self._run_decode_inner(plan.decode)
+                # of the reference's fusibility gates only the switch
+                # applies: requests with guided decoding, logit bias,
+                # logprobs, penalties, LoRA or multimodal input, which the
+                # fused dispatch does not carry, are refused at admission
+                fused = self.fused_mixed
+                # the decode half: verify rows (with the chunks when fused),
+                # else the fused dispatch, else plain decode first, so ITL
+                # never waits behind prompt processing. A verify that
+                # returns None shed its drafts (bucket overflow).
+                chunk_logits = None
+                if any(s.spec_draft for s in plan.decode.seqs):
+                    chunk_logits = self._run_spec_verify(
+                        plan.decode, plan.prefills if fused else [])
+                if chunk_logits is None and fused:
+                    chunk_logits = self._run_mixed_dispatch(plan)
+                if chunk_logits is None:
+                    self._run_decode_inner(plan.decode)
+                # decode tokens are emitted: from here on a failure only
+                # fails the prefill sequences
                 decode_done = True
-                for p in plan.prefills:
-                    self._run_prefill_inner(p)
-            else:
+                if fused:
+                    self._finish_packed_prefills(
+                        plan.prefills[:len(chunk_logits)], chunk_logits)
+                else:
+                    for p in plan.prefills:
+                        self._run_prefill_inner(p)
+            elif (not any(s.spec_draft for s in plan.seqs)
+                  or self._run_spec_verify(plan, []) is None):
                 self._run_decode_inner(plan)
         except Exception:
             # one bad step must fail ITS sequences, never kill the step
@@ -245,9 +317,28 @@ class InferenceEngine:
         reason = self.scheduler.complete_decode(seq, token, advance_computed=False)
         self._emit(seq, [token] if reason != "stop" else [], reason)
 
+    def _finish_packed_prefills(self, prefills: List[PrefillPlan],
+                                chunk_logits) -> None:
+        """Bookkeeping for chunks whose KV landed in a shared dispatch,
+        with per-chunk isolation: one chunk failing errors only its own
+        sequence, not its siblings or the emitted decode half."""
+        for pplan, logits in zip(prefills, chunk_logits):
+            try:
+                self.scheduler.complete_prefill(pplan)
+                self._finish_prefill(pplan, logits)
+            except Exception:
+                log.exception("packed chunk bookkeeping failed; erroring %s",
+                              pplan.seq.request_id)
+                try:
+                    self._emit(pplan.seq, [], "error")
+                    self.scheduler.abort(pplan.seq.request_id)
+                except Exception:
+                    log.exception("failed to fail sequence %s",
+                                  pplan.seq.request_id)
+
     def _run_decode_inner(self, plan: DecodePlan) -> None:
         """plan.n_steps decode iterations with on-device token feedback (one
-        host sync per plan). Tokens sampled past a stop are discarded."""
+        host sync per plan)."""
         seqs = plan.seqs
         T = plan.n_steps
         step0 = self._step_counter + 1
@@ -257,16 +348,104 @@ class InferenceEngine:
             [s.pages for s in seqs], _sampling_params(seqs), step0,
         )
         for i, seq in enumerate(seqs):
-            emit: List[int] = []
-            reason = None
-            for j in range(T):
-                token = int(sampled[i, j])
-                reason = self.scheduler.complete_decode(seq, token)
-                if reason != "stop":
-                    emit.append(token)
-                if reason:
-                    break
-            self._emit(seq, emit, reason)
+            self._commit(seq, sampled[i, :T])
+
+    def _commit(self, seq: Sequence, tokens) -> None:
+        """Append decoded tokens until one finishes the sequence (the rest
+        are discarded) and emit what was committed."""
+        emit: List[int] = []
+        reason = None
+        for token in tokens:
+            token = int(token)
+            reason = self.scheduler.complete_decode(seq, token)
+            if reason != "stop":
+                emit.append(token)
+            if reason:
+                break
+        self._emit(seq, emit, reason)
+
+    # -- fused mixed dispatch ----------------------------------------------
+    def _run_mixed_dispatch(self, plan: MixedPlan):
+        """The fused dispatch and its decode half's bookkeeping. A pack
+        the runner cannot shape sheds its newest chunk and retries; shed
+        chunks were never completed, so the scheduler plans them again
+        next iteration. Returns the served chunks' last-token logits, one
+        row per chunk from the front of plan.prefills."""
+        seqs = plan.decode.seqs
+        T = plan.decode.n_steps
+        tokens = [s.tokens[-1] for s in seqs]
+        positions = [s.computed_len for s in seqs]
+        tables = [s.pages for s in seqs]
+        step0 = self._step_counter + 1
+        self._step_counter += T
+        prefills = list(plan.prefills)
+        while True:
+            try:
+                sampled, chunk_logits = self.runner.decode_multi_with_prefills(
+                    T, tokens, positions, tables, _sampling_params(seqs),
+                    step0, _chunks(prefills))
+                break
+            except BucketOverflowError as e:
+                if len(prefills) <= 1:
+                    raise  # even one chunk fits no shape
+                shed = prefills.pop()
+                log.warning("mixed pack overflows runner buckets (%s); "
+                            "deferring chunk of %s to the next iteration",
+                            e, shed.seq.request_id)
+        for i, seq in enumerate(seqs):
+            self._commit(seq, sampled[i, :T])
+        return chunk_logits
+
+    # -- speculative decoding (n-gram drafts + ragged verify) ---------------
+    def _propose_drafts(self) -> None:
+        """This iteration's drafts, proposed before step_plan so the
+        scheduler can charge them against the mixed pool: the host n-gram
+        scan over each running sequence's own tokens."""
+        for s in self.scheduler.active:
+            if s.state == SeqState.RUNNING:
+                s.spec_draft = (ngram_propose(s.tokens, self.spec_k)
+                                if self.spec_ngram else [])
+
+    def _run_spec_verify(self, dplan: DecodePlan, prefills):
+        """One ragged dispatch verifying every speculating row's draft (a
+        K+1-token segment: the last real token and the draft) beside the
+        plain decode rows and, when fused, the packed prefill chunks.
+        Acceptance emits target samples through the first mismatch (and
+        the bonus token on a full match), so greedy output equals plain
+        decode. Rejected drafts' KV lies past computed_len and is
+        overwritten later. Returns the chunks' last-token logits, or None
+        when the runner cannot shape the dispatch (the drafts are dropped
+        and the caller runs the plain path)."""
+        seqs = dplan.seqs
+        drafts = [list(s.spec_draft) for s in seqs]
+        for s in seqs:
+            s.spec_draft = []  # consumed (or shed) either way
+        step0 = self._next_step()
+        try:
+            rows, chunk_logits = self.runner.verify_spec(
+                [s.tokens[-1] for s in seqs], [s.computed_len for s in seqs],
+                [s.pages for s in seqs], drafts, _sampling_params(seqs),
+                step0, chunks=_chunks(prefills))
+        except BucketOverflowError as e:
+            log.warning("spec verify overflows runner buckets (%s); dropping "
+                        "this iteration's drafts", e)
+            return None
+        n_drafted = sum(len(d) for d in drafts)
+        accepted = emitted_spec = 0
+        for seq, draft, row in zip(seqs, drafts, rows):
+            emitted = accept_deterministic(draft, row)
+            if draft:
+                accepted += len(emitted) - 1
+                emitted_spec += len(emitted)
+            self._commit(seq, emitted)
+        st = self.spec_stats
+        st["verify_iters"] += 1
+        st["verify_rows"] += sum(1 for d in drafts if d)
+        st["drafted"] += n_drafted
+        st["accepted"] += accepted
+        st["rejected"] += n_drafted - accepted
+        st["spec_emitted"] += emitted_spec
+        return chunk_logits
 
     def _next_step(self) -> int:
         self._step_counter += 1
@@ -305,6 +484,12 @@ def _stable_seed(request_id: str) -> int:
     """Process-independent sampling seed (Python's hash() is salted)."""
     d = hashlib.blake2b(request_id.encode(), digest_size=4).digest()
     return int.from_bytes(d, "big") & 0x7FFFFFFF
+
+
+def _chunks(prefills: List[PrefillPlan]) -> List[Dict[str, Any]]:
+    """The runner's chunk records for packed prefill plans."""
+    return [{"tokens": p.chunk, "start": p.start_pos, "table": p.seq.pages,
+             "prior": p.start_pos} for p in prefills]
 
 
 def _sampling_params(seqs: List[Sequence]) -> Dict[str, list]:

@@ -1,19 +1,24 @@
-"""ModelRunner: the prefill and decode step functions behind the engine.
+"""ModelRunner: the step functions behind the engine.
 
 Port of dynamo_tpu/engine/model_runner.py's main-path methods: `prefill`,
-`decode`, `decode_multi`, `sample_one` and `_pad_page_table`, with the same
-decode and prefill buckets (so step shapes match the reference runner's),
-`_next_bucket` and `BucketOverflowError`. Params and the KV pools live on
-one device; the pools are updated in place. The fused decode loop (a
-lax.scan there) is a Python loop here that keeps the sampled tokens on the
-device between its steps and copies them to the host once per call.
+`decode`, `decode_multi` (over `_decode_loop`), the fused mixed dispatch
+(`decode_multi_with_prefill(s)`: the ragged flat-token step
+`_ragged_step`, or the padded [N, S] fallback `_mixed_loop`), the
+speculative `verify_spec` on the same ragged step, and `sample_one`, with
+the reference's buckets, `_next_bucket` and `BucketOverflowError`. Params
+and the KV pools live on one device; the pools are updated in place. Each
+dispatch uploads its int32 inputs in one packed copy (`_upload`). The
+fused decode loop (a lax.scan there) is a Python loop here that keeps the
+sampled tokens on the device between its steps; the tokens reach the host
+once per call.
 """
 
 from __future__ import annotations
 
 import logging
+import os
 import time
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -23,8 +28,25 @@ from dynamo_tpu_torch.engine.sampling import SamplingParams, sample
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.toolkit import make_kv_pool
+from dynamo_tpu_torch.ops.ragged_paged_attention import (
+    DEFAULT_Q_BLOCK,
+    RAGGED_MAX_SEGS,
+    build_ragged_metadata,
+    ragged_seg_cap,
+)
 
 log = logging.getLogger("dynamo_tpu_torch.engine.runner")
+
+# forward passes by kind, counted in ModelRunner.stats (plain ints): each
+# kind launches one attention kernel per layer
+STAT_KEYS = (
+    "prefill_chunks",  # standalone prefill chunks (prefill kernel)
+    "padded_prefill_dispatches",  # [N, S] fallback chunk sets (prefill kernel)
+    "decode_steps",  # decode steps, fused tails included (decode kernel)
+    "ragged_mixed_dispatches",  # fused mixed steps (ragged kernel)
+    "ragged_verify_dispatches",  # speculative verify steps (ragged kernel)
+    "mixed_chunks",  # prefill chunks served by fused mixed dispatches
+)
 
 
 class BucketOverflowError(ValueError):
@@ -43,6 +65,25 @@ def _next_bucket(buckets: Sequence[int], n: int) -> int:
     raise BucketOverflowError(n, buckets)
 
 
+def _padded(values: Sequence[int], n: int, fill: int) -> np.ndarray:
+    out = np.full(n, fill, np.int32)
+    out[:len(values)] = values
+    return out
+
+
+def _first_rows(x: torch.Tensor, n: int) -> torch.Tensor:
+    """The first n rows of x, zero rows appended where x has fewer."""
+    if x.shape[0] >= n:
+        return x[:n]
+    return torch.cat([x, x.new_zeros((n - x.shape[0],) + x.shape[1:])])
+
+
+def _fold_seed(seed: int, j: int) -> int:
+    """Verify position j > 0 draws with its own seed (the reference's
+    `(seed * 1000003 + j) & 0x7FFFFFFF`); position 0 keeps the row's."""
+    return int(seed) if j == 0 else (int(seed) * 1000003 + int(j)) & 0x7FFFFFFF
+
+
 class ModelRunner:
     def __init__(
         self,
@@ -53,6 +94,7 @@ class ModelRunner:
         max_pages_per_seq: int = 128,
         decode_buckets: Sequence[int] = (1, 2, 4, 8, 16, 32, 64),
         prefill_buckets: Sequence[int] = (16, 32, 64, 128, 256, 512, 1024),
+        ragged_buckets: Sequence[int] = (32, 64, 128, 256, 512, 1024, 2048),
         dtype=torch.bfloat16,
         params: Optional[Dict[str, Any]] = None,  # None: random, seed 0
         device=None,  # None -> cuda (raises without a card); "cpu" for tests
@@ -64,6 +106,16 @@ class ModelRunner:
         self.max_pages_per_seq = max_pages_per_seq
         self.decode_buckets = tuple(decode_buckets)
         self.prefill_buckets = tuple(prefill_buckets)
+        # chunk-count buckets of the padded mixed fallback's [N, S] batch
+        self.pack_buckets = (1, 2, 4, 8, 16, 32)
+        # flat-token buckets of the ragged step; the engine adds its mixed
+        # token budget + max batch (ensure_ragged_bucket)
+        self.ragged_buckets = tuple(sorted(ragged_buckets))
+        self.ragged_q_block = DEFAULT_Q_BLOCK
+        # fused mixed plans ride the ragged step unless DYN_RAGGED_MIXED=0
+        # forces the padded fallback (the reference's A/B switch)
+        flag = os.environ.get("DYN_RAGGED_MIXED", "").lower()
+        self.ragged_mixed = flag not in ("0", "false", "off", "no")
         self.dtype = dtype
         t0 = time.monotonic()
         self.params = params if params is not None else llama.init_params(
@@ -72,12 +124,27 @@ class ModelRunner:
         # takes the padding rows' KV writes (models/toolkit.py kv_rows)
         self.k_pool, self.v_pool = make_kv_pool(
             config, num_pages + 1, page_size, dtype, self.device)
-        # forward passes by kind, for callers checking kernel launch counts
-        self.stats = {"prefill_chunks": 0, "decode_steps": 0}
+        self.stats: Dict[str, int] = {}
+        self.reset_stats()
         self._sampling_cache: Dict[Any, SamplingParams] = {}
         log.info("runner ready: %s params+pool placed in %.1fs on %s "
                  "(%d pages x %d tokens)", config.name, time.monotonic() - t0,
                  self.device, num_pages, page_size)
+
+    def reset_stats(self) -> None:
+        self.stats = {k: 0 for k in STAT_KEYS}
+
+    def _upload(self, *arrays) -> List[torch.Tensor]:
+        """One host-to-device copy for a dispatch's int32 arrays; returns
+        device views with the arrays' shapes."""
+        arrays = [np.asarray(a, np.int32) for a in arrays]
+        flat = np.concatenate([a.ravel() for a in arrays])
+        dev = torch.from_numpy(flat).to(self.device)
+        out, off = [], 0
+        for a in arrays:
+            out.append(dev[off:off + a.size].view(a.shape))
+            off += a.size
+        return out
 
     # -- steps -------------------------------------------------------------
     def prefill(
@@ -93,20 +160,13 @@ class ModelRunner:
         last-token logits [V] (f32, on the device)."""
         n = len(tokens)
         S = _next_bucket(self.prefill_buckets, n)
-        MP = self.max_pages_per_seq
-        # one upload: tokens | positions | page table | kv_len
-        packed = np.zeros(2 * S + MP + 1, np.int32)
-        packed[:n] = tokens
-        packed[S:2 * S] = -1
-        packed[S:S + n] = np.arange(start_pos, start_pos + n)
-        packed[2 * S:2 * S + MP] = self._pad_page_table([page_table_row])[0]
-        packed[-1] = prior_len + n
-        dev = torch.from_numpy(packed).to(self.device)
+        pos = _padded(range(start_pos, start_pos + n), S, -1)
+        tok, pos, pt, kvl = self._upload(
+            _padded(tokens, S, 0)[None], pos[None],
+            self._pad_page_table([page_table_row]), [prior_len + n])
         logits = llama.forward(
-            self.config, self.params, dev[:S].view(1, S), dev[S:2 * S].view(1, S),
-            self.k_pool, self.v_pool, dev[2 * S:2 * S + MP].view(1, MP),
-            dev[-1:], n - 1,
-        )
+            self.config, self.params, tok, pos, self.k_pool, self.v_pool,
+            pt, kvl, n - 1)
         self.stats["prefill_chunks"] += 1
         return logits[0, 0]
 
@@ -125,22 +185,25 @@ class ModelRunner:
         sampling,  # dict of host lists (engine._sampling_params)
         step: int,
     ) -> np.ndarray:
-        """n_steps decode iterations: forward, sample, feed the sampled
-        token back, all on the device; the tokens reach the host once at
-        the end. Page tables must already cover positions[i] + n_steps
-        slots. Returns sampled tokens [B_bucket, n_steps]."""
-        n = len(positions)
-        B = _next_bucket(self.decode_buckets, n)
-        MP = self.max_pages_per_seq
-        packed = np.zeros(2 * B + B * MP, np.int32)  # tokens | pos | table
-        packed[:n] = tokens
-        packed[B:2 * B] = -1
-        packed[B:B + n] = positions
-        packed[2 * B:] = self._pad_page_table(page_tables, B).ravel()
-        dev = torch.from_numpy(packed).to(self.device)
-        tok, pos0 = dev[:B], dev[B:2 * B]
-        pt = dev[2 * B:].view(B, MP)
-        samp = self._device_sampling(sampling, B)
+        """n_steps decode iterations with one host sync at the end. Page
+        tables must already cover positions[i] + n_steps slots. Returns
+        sampled tokens [B_bucket, n_steps]."""
+        B = _next_bucket(self.decode_buckets, len(positions))
+        tok, pos0, pt = self._upload(
+            _padded(tokens, B, 0), _padded(positions, B, -1),
+            self._pad_page_table(page_tables, B))
+        return self._decode_loop(n_steps, tok, pos0, pt,
+                                 self._device_sampling(sampling, B),
+                                 step).cpu().numpy()
+
+    def _decode_loop(self, n_steps: int, tok: torch.Tensor,
+                     pos0: torch.Tensor, pt: torch.Tensor,
+                     samp: SamplingParams, step: int) -> torch.Tensor:
+        """The reference's `_decode_loop`: forward, sample, feed the
+        sampled token back, all on the device, from device tokens `tok`
+        [B] (host-packed, or chained from an earlier dispatch's samples)
+        at positions `pos0` [B] (-1 = padding row) over tables `pt`
+        [B, MP]. Returns sampled tokens [B, n_steps] on the device."""
         out = []
         for t in range(n_steps):
             pos = torch.where(pos0 < 0, -1, pos0 + t)
@@ -152,8 +215,286 @@ class ModelRunner:
             tok = sample(logits[:, 0], samp, step + t)
             out.append(tok)
             self.stats["decode_steps"] += 1
-        return torch.stack(out, 1).cpu().numpy()
+        return torch.stack(out, 1)
 
+    # -- fused mixed dispatch ----------------------------------------------
+    def _use_ragged(self, n_decode: int, n_chunks: int) -> bool:
+        return self.ragged_mixed and n_decode + n_chunks <= RAGGED_MAX_SEGS
+
+    def ensure_ragged_bucket(self, t: int) -> None:
+        """Insert an exact T bucket (rounded up to the q block): the
+        engine registers its mixed token budget + max batch, so a full
+        mixed iteration never rounds up to the next power of two."""
+        qb = self.ragged_q_block
+        t = max(qb, -(-int(t) // qb) * qb)
+        if t not in self.ragged_buckets:
+            self.ragged_buckets = tuple(sorted(set(self.ragged_buckets) | {t}))
+
+    def decode_multi_with_prefill(
+        self, n_steps: int, tokens: List[int], positions: List[int],
+        page_tables: List[List[int]], sampling, step: int,
+        chunk_tokens: List[int], chunk_start: int, chunk_table: List[int],
+        chunk_prior: int,
+    ) -> Tuple[np.ndarray, torch.Tensor]:
+        """decode_multi_with_prefills for one chunk. Returns (sampled
+        [B_bucket, n_steps] host, the chunk's last-token logits [V])."""
+        chunk = {"tokens": chunk_tokens, "start": chunk_start,
+                 "table": chunk_table, "prior": chunk_prior}
+        toks, chunk_logits = self.decode_multi_with_prefills(
+            n_steps, tokens, positions, page_tables, sampling, step, [chunk])
+        return toks, chunk_logits[0]
+
+    def decode_multi_with_prefills(
+        self,
+        n_steps: int,
+        tokens: List[int],
+        positions: List[int],
+        page_tables: List[List[int]],
+        sampling,
+        step: int,
+        chunks: List[Dict[str, Any]],  # {"tokens", "start", "table",
+        #   "prior"} per packed chunk (distinct sequences)
+    ) -> Tuple[np.ndarray, torch.Tensor]:
+        """One fused mixed iteration: the decode batch's n_steps and the
+        packed prefill chunks with one token readback. Rides the ragged
+        step; a plan past the largest T bucket (or DYN_RAGGED_MIXED=0)
+        takes the padded fallback. Returns (sampled [B_bucket, n_steps]
+        host, per-chunk last-token logits [len(chunks), V] device). Raises
+        BucketOverflowError when neither path can shape the plan."""
+        out = None
+        if self._use_ragged(len(positions), len(chunks)):
+            try:
+                out = self._decode_multi_with_prefills_ragged(
+                    n_steps, tokens, positions, page_tables, sampling, step,
+                    chunks)
+            except BucketOverflowError as e:
+                log.warning("mixed plan (%d tokens) overflows ragged T "
+                            "buckets (largest %d); using the padded fallback",
+                            e.n, e.largest)
+        if out is None:
+            out = self._mixed_loop(n_steps, tokens, positions, page_tables,
+                                   sampling, step, chunks)
+        self.stats["mixed_chunks"] += len(chunks)
+        return out
+
+    def _mixed_loop(self, n_steps, tokens, positions, page_tables, sampling,
+                    step, chunks) -> Tuple[np.ndarray, torch.Tensor]:
+        """The padded fallback (the reference's `_mixed_loop` over
+        `_prep_prefill_packed`): the chunks as rows of one [N, S] prefill
+        batch, each row's tokens a contiguous run from s=0 as the prefill
+        kernel needs, then the decode loop. Rows past the real chunks are
+        all padding (q_len 0): their KV goes to the spare page and their
+        logits are dropped."""
+        B = _next_bucket(self.decode_buckets, len(positions))
+        (ptok, ppos, ppt, pkvl, plast, tok, pos0, pt) = self._upload(
+            *self._prep_prefill_packed(chunks), _padded(tokens, B, 0),
+            _padded(positions, B, -1), self._pad_page_table(page_tables, B))
+        logits = llama.forward(self.config, self.params, ptok, ppos,
+                               self.k_pool, self.v_pool, ppt, pkvl, plast)
+        self.stats["padded_prefill_dispatches"] += 1
+        toks = self._decode_loop(n_steps, tok, pos0, pt,
+                                 self._device_sampling(sampling, B), step)
+        return toks.cpu().numpy(), logits[:len(chunks), 0]
+
+    def _prep_prefill_packed(self, chunks):
+        """Host arrays of the padded [N, S] chunk batch: tokens, positions
+        (-1 padding), page tables, kv lens and per-row last indices."""
+        N = _next_bucket(self.pack_buckets, len(chunks))
+        S = _next_bucket(self.prefill_buckets,
+                         max(len(c["tokens"]) for c in chunks))
+        ptok = np.zeros((N, S), np.int32)
+        ppos = np.full((N, S), -1, np.int32)
+        pkvl = np.zeros(N, np.int32)
+        plast = np.zeros(N, np.int32)
+        for i, c in enumerate(chunks):
+            n = len(c["tokens"])
+            ptok[i, :n] = c["tokens"]
+            ppos[i, :n] = np.arange(c["start"], c["start"] + n)
+            pkvl[i] = c["prior"] + n
+            plast[i] = n - 1
+        ppt = self._pad_page_table([c["table"] for c in chunks], N)
+        return ptok, ppos, ppt, pkvl, plast
+
+    def _prep_ragged(self, tokens, positions, page_tables, chunks):
+        """Flatten a mixed plan (the decode rows first, one token each,
+        then the chunks) into one [T_bucket] token axis. Returns (flat
+        tokens, build_ragged_metadata arrays, the per-segment last-token
+        gather [SEG]). Raises BucketOverflowError past the largest T
+        bucket."""
+        n_dec = len(positions)
+        q_lens = [1] * n_dec + [len(c["tokens"]) for c in chunks]
+        q_starts = list(positions) + [c["start"] for c in chunks]
+        kv_lens = [p + 1 for p in positions] + [
+            c["prior"] + len(c["tokens"]) for c in chunks]
+        rows = list(page_tables) + [c["table"] for c in chunks]
+        t_bucket = _next_bucket(self.ragged_buckets, sum(q_lens))
+        md = build_ragged_metadata(
+            q_lens, q_starts, kv_lens, rows, t_bucket,
+            q_block=self.ragged_q_block, max_pages=self.max_pages_per_seq)
+        flat = np.zeros(t_bucket, np.int32)
+        flat[:n_dec] = tokens
+        off = n_dec
+        for c in chunks:
+            flat[off:off + len(c["tokens"])] = c["tokens"]
+            off += len(c["tokens"])
+        gather = _padded(md["last_index"], md["seg_kv_lens"].shape[0], 0)
+        return flat, md, gather
+
+    def _decode_multi_with_prefills_ragged(
+        self, n_steps, tokens, positions, page_tables, sampling, step, chunks,
+    ) -> Tuple[np.ndarray, torch.Tensor]:
+        """Step 0 of the decode batch and every chunk in one ragged flat
+        step (decode rows first, one token each), then steps 1..n-1
+        through the decode loop chained on the step-0 tokens on the
+        device (positions and step advanced by one, so every row draws
+        with the same (seed, step) pairs as the unfused path); one
+        readback at the end."""
+        n_dec = len(positions)
+        B = _next_bucket(self.decode_buckets, n_dec)
+        flat, md, gather = self._prep_ragged(tokens, positions, page_tables,
+                                             chunks)
+        # the tail's positions ride the same upload
+        sampled, seg_logits, views = self._ragged_step(
+            flat, md, gather, sampling, step, extra={
+                "tail_positions": _padded([p + 1 for p in positions], B, -1)})
+        self.stats["ragged_mixed_dispatches"] += 1
+        tok0 = _first_rows(sampled, B)  # decode rows lead the segment order
+        if n_steps > 1:
+            # the decode rows' tables are the first segment rows
+            rest = self._decode_loop(
+                n_steps - 1, tok0, views["tail_positions"],
+                _first_rows(views["seg_page_table"], B),
+                self._device_sampling(sampling, B), step + 1)
+            toks = torch.cat([tok0[:, None], rest], 1)
+        else:
+            toks = tok0[:, None]
+        return toks.cpu().numpy(), seg_logits[n_dec:n_dec + len(chunks)]
+
+    def _ragged_step(
+        self,
+        flat: np.ndarray,  # [T] flat step tokens
+        md: Dict[str, np.ndarray],  # build_ragged_metadata
+        gather: np.ndarray,  # [SEG] flat index of each sampled row
+        sampling,  # dict of host lists, one row per base sequence
+        step: int,
+        row_seq: Optional[np.ndarray] = None,  # [SEG] base row per sampled
+        #   row (None = identity); verify rows expand one sequence's row
+        row_j: Optional[np.ndarray] = None,  # [SEG] verify position per row
+        extra: Optional[Dict[str, np.ndarray]] = None,  # more int32
+        #   arrays to upload with the step, by name
+    ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
+        """The reference's `_ragged_step`: one forward over the flat
+        [1, T] step with logits at the SEG gathered rows, then sampling of
+        every row. Returns (sampled [SEG] int32, seg_logits [SEG, V], the
+        device views of the upload)."""
+        seg_cap = gather.shape[0]
+        host = {"flat": flat[None], "positions": md["tok_positions"][None],
+                "seg_page_table": md["seg_page_table"],
+                "seg_kv_lens": md["seg_kv_lens"], "meta": md["meta"],
+                "gather": gather, **(extra or {})}
+        if row_seq is not None:
+            host["row_seq"] = row_seq
+        views = dict(zip(host, self._upload(*host.values())))
+        logits = llama.forward(
+            self.config, self.params, views["flat"], views["positions"],
+            self.k_pool, self.v_pool, last_index=views["gather"],
+            ragged=(views["seg_page_table"], views["seg_kv_lens"],
+                    views["meta"]))
+        seg_logits = logits[0]
+        base = self._device_sampling(sampling, seg_cap)
+        if row_seq is None:
+            samp = base
+        else:
+            # per-row params gathered on the device from the cached
+            # per-sequence base; seeds and the sampled-row list are host
+            idx = views["row_seq"].long()
+            hot = set(base.sampled_rows)
+            samp = SamplingParams(
+                temperature=base.temperature[idx], top_k=base.top_k[idx],
+                top_p=base.top_p[idx],
+                seeds=[_fold_seed(base.seeds[r], j)
+                       for r, j in zip(row_seq, row_j)],
+                sampled_rows=[e for e, r in enumerate(row_seq) if r in hot])
+        return sample(seg_logits, samp, step), seg_logits, views
+
+    # -- speculative verify ------------------------------------------------
+    def verify_spec(
+        self,
+        tokens: List[int],
+        positions: List[int],
+        page_tables: List[List[int]],
+        drafts: List[List[int]],
+        sampling,
+        step: int,
+        chunks: Sequence[Dict[str, Any]] = (),
+    ) -> Tuple[List[np.ndarray], Any]:
+        """One speculative-verify iteration on the ragged step. Each
+        sequence is a segment of len(draft) + 1 tokens (its last real
+        token, then the draft) and the gather holds an entry per verify
+        position; packed prefill chunks ride behind. Position j > 0 draws
+        with the folded seed (greedy rows are unaffected). KV of the fed
+        draft tokens lands past computed_len; the engine commits a prefix
+        by advancing computed_len. Returns (rows, chunk_logits): rows[i]
+        the len(drafts[i]) + 1 target samples, chunk_logits the chunks'
+        last-token logits [len(chunks), V] on the device ([] without
+        chunks). Raises BucketOverflowError past the T bucket or the
+        sampled-row capacity."""
+        chunks = list(chunks)
+        n_rows = len(positions)
+        row_lens = [len(d) + 1 for d in drafts]
+        q_lens = row_lens + [len(c["tokens"]) for c in chunks]
+        q_starts = list(positions) + [c["start"] for c in chunks]
+        kv_lens = [p + ln for p, ln in zip(positions, row_lens)] + [
+            c["prior"] + len(c["tokens"]) for c in chunks]
+        rows = list(page_tables) + [c["table"] for c in chunks]
+        n_seg = len(q_lens)
+        t_bucket = _next_bucket(self.ragged_buckets, sum(q_lens))
+        seg_cap = ragged_seg_cap(t_bucket)
+        entries = sum(row_lens) + len(chunks)
+        if n_seg > RAGGED_MAX_SEGS or entries > seg_cap:
+            raise BucketOverflowError(max(n_seg, entries), (seg_cap,))
+        md = build_ragged_metadata(
+            q_lens, q_starts, kv_lens, rows, t_bucket,
+            q_block=self.ragged_q_block, max_pages=self.max_pages_per_seq)
+        flat = np.zeros(t_bucket, np.int32)
+        off = 0
+        for tok, d in zip(tokens, drafts):
+            flat[off] = tok
+            flat[off + 1:off + 1 + len(d)] = d
+            off += len(d) + 1
+        for c in chunks:
+            flat[off:off + len(c["tokens"])] = c["tokens"]
+            off += len(c["tokens"])
+        cu = md["cu_q_lens"]
+        gather = np.zeros(seg_cap, np.int32)
+        row_seq = np.zeros(seg_cap, np.int32)
+        row_j = np.zeros(seg_cap, np.int32)
+        w = 0
+        for i in range(n_rows):
+            gather[w:w + row_lens[i]] = np.arange(cu[i], cu[i + 1])
+            row_seq[w:w + row_lens[i]] = i
+            row_j[w:w + row_lens[i]] = np.arange(row_lens[i])
+            w += row_lens[i]
+        chunk_entry0 = w
+        for s in range(n_rows, n_seg):
+            gather[w] = cu[s + 1] - 1
+            w += 1
+        # chunk (and pad) entries sample with a padding row's params
+        row_seq[chunk_entry0:] = min(n_rows, seg_cap - 1)
+        sampled, seg_logits, _ = self._ragged_step(
+            flat, md, gather, sampling, step, row_seq=row_seq, row_j=row_j)
+        self.stats["ragged_verify_dispatches"] += 1
+        sampled_h = sampled.cpu().numpy()  # one bulk sync
+        out: List[np.ndarray] = []
+        w = 0
+        for ln in row_lens:
+            out.append(sampled_h[w:w + ln])
+            w += ln
+        if not chunks:
+            return out, []
+        return out, seg_logits[chunk_entry0:chunk_entry0 + len(chunks)]
+
+    # -- sampling ----------------------------------------------------------
     def sample_one(self, logits: torch.Tensor, sampling, step: int) -> int:
         samp = self._device_sampling(sampling, 1)
         return int(sample(logits[None, :], samp, step)[0])

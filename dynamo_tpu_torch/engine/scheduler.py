@@ -2,11 +2,13 @@
 and recompute-preemption.
 
 Pure host logic, copied from dynamo_tpu/engine/scheduler.py with the
-parts this port does not serve yet left out: speculative drafts, LoRA and
+parts this port does not serve yet left out: tree speculation, LoRA and
 multimodal hash-chain seeds, the host KV tier, disaggregation and
-fork-on-branch. What stays plans exactly as the reference does, so both
-engines see the same PrefillPlan / DecodePlan / MixedPlan sequence for
-the same requests.
+fork-on-branch. Linear speculative drafts stay: the engine proposes them
+before planning, the scheduler trims them to the mixed token pool and the
+ragged dispatch's sampled rows, and reserves their KV slots. What stays
+plans exactly as the reference does, so both engines see the same
+PrefillPlan / DecodePlan / MixedPlan sequence for the same requests.
 
 Invariants:
 - `computed_len` = tokens whose KV is in the pool. While RUNNING,
@@ -57,6 +59,10 @@ class Sequence:
     phases: Dict[str, float] = field(default_factory=dict)
     itl: List[float] = field(default_factory=list)  # bounded ITL samples
     t_last_emit: float = 0.0  # monotonic time of the last token emission
+    # speculative decoding: draft tokens proposed for THIS iteration
+    # (engine sets before step_plan; the scheduler trims them to the
+    # mixed token budget; the engine consumes and clears after verify)
+    spec_draft: List[int] = field(default_factory=list)
 
     @property
     def n_generated(self) -> int:
@@ -81,8 +87,9 @@ class DecodePlan:
 class MixedPlan:
     """One engine iteration that co-schedules the running decode batch
     with a token-budgeted set of prefill chunks from distinct PREFILL
-    sequences (combined length capped at `mixed_prefill_tokens`). This
-    port runs it unfused: decode first, then the chunks one by one."""
+    sequences (combined length capped at `mixed_prefill_tokens`). Decode
+    runs first; the engine fuses both halves into one dispatch where it
+    can (InferenceEngine.fused_mixed)."""
 
     prefills: List[PrefillPlan]
     decode: DecodePlan
@@ -102,6 +109,10 @@ class Scheduler:
         mixed_prefill_seqs: int = 8,
         mixed_min_chunk: int = 16,
         max_seq_tokens: int = 0,  # model context length (0 = page cap only)
+        spec_max_tokens: int = 0,  # per-iteration cap on speculative
+        #   draft tokens (0 = bounded by the mixed pool leftover alone)
+        spec_seg_budget: int = 0,  # sampled-row slots one ragged dispatch
+        #   offers (decode rows + chunks + verify tokens); 0 = unbounded
     ):
         self.pool = pool
         self.max_batch = max_batch
@@ -118,6 +129,8 @@ class Scheduler:
         self.mixed_prefill_tokens = mixed_prefill_tokens
         self.mixed_prefill_seqs = max(1, mixed_prefill_seqs)
         self.mixed_min_chunk = max(1, mixed_min_chunk)
+        self.spec_max_tokens = max(0, spec_max_tokens)
+        self.spec_seg_budget = max(0, spec_seg_budget)
         self.waiting: deque[Sequence] = deque()
         self.active: List[Sequence] = []
         # prompt tokens served from the prefix cache instead of prefilled
@@ -170,7 +183,14 @@ class Scheduler:
                 int((s.stop or {}).get("max_tokens", 1 << 30)) - s.n_generated,
             )
             n_steps = min(n_steps, max(1, budget))
+        # prefill chunks claim the pool first: verify rows are charged from
+        # its leftover only
         pplans = self._plan_prefills(prefill_seqs) if prefill_seq else []
+        self._trim_spec(running, pplans, cap)
+        if sum(self._spec_cost(s) for s in running):
+            # a verify dispatch already advances speculating rows by up to
+            # K+1: no fused multi-step decode beside it
+            n_steps = 1
         running = self._ensure_decode_capacity(running, lookahead=n_steps)
         if not running:
             if prefill_seq is not None:
@@ -179,6 +199,51 @@ class Scheduler:
         if prefill_seq is None:
             return DecodePlan(running, n_steps)
         return MixedPlan(prefills=pplans, decode=DecodePlan(running, n_steps))
+
+    @staticmethod
+    def _spec_cost(s: Sequence) -> int:
+        """Charged verify tokens for one sequence: its draft's tokens (the
+        +1 verify position is the row's own decode slot)."""
+        return len(s.spec_draft)
+
+    def _trim_spec(
+        self, running: List[Sequence], pplans: List[PrefillPlan], cap: int
+    ) -> None:
+        """Fit this iteration's draft tokens to the budgets that keep the
+        verify dispatch inside the registered T bucket: drafted tokens
+        charge the `mixed_prefill_tokens` pool after the prefill chunks
+        (the verified +1 token per row is the row's own decode slot), the
+        optional per-iteration cap, and the ragged dispatch's sampled-row
+        slots. Per sequence, a draft is also clipped to the page/context
+        cap and to the tokens the request may still generate."""
+        if self.mixed_prefill_tokens <= 0:
+            for s in running:
+                s.spec_draft = []
+            return
+        left = self.mixed_prefill_tokens - sum(len(p.chunk) for p in pplans)
+        if self.spec_max_tokens:
+            left = min(left, self.spec_max_tokens)
+        seg_left = None
+        if self.spec_seg_budget:
+            # one sampled-row slot per decode row and per chunk; each
+            # drafted token needs one more (its verify position is gathered)
+            seg_left = self.spec_seg_budget - len(running) - len(pplans)
+        for s in running:
+            if not s.spec_draft:
+                continue
+            take = min(len(s.spec_draft), max(0, left))
+            if seg_left is not None:
+                take = min(take, max(0, seg_left))
+            # KV for fed draft tokens lands at computed_len+1 .. +take
+            take = min(take, max(0, cap - s.computed_len - 1))
+            remaining = (
+                int((s.stop or {}).get("max_tokens", 1 << 30)) - s.n_generated
+            )
+            take = min(take, max(0, remaining))
+            s.spec_draft = s.spec_draft[:take]
+            left -= take
+            if seg_left is not None:
+                seg_left -= take
 
     # -- admission ---------------------------------------------------------
     def _admit(self) -> None:
@@ -266,13 +331,15 @@ class Scheduler:
         self, running: List[Sequence], lookahead: int = 1
     ) -> List[Sequence]:
         """Each running seq needs page slots for positions computed_len ..
-        computed_len+lookahead-1; on pool exhaustion preempt the youngest
-        sequences (recompute-style)."""
+        computed_len+lookahead-1 (a speculating row: its draft length + 1);
+        on pool exhaustion preempt the youngest sequences
+        (recompute-style)."""
         survivors: List[Sequence] = []
         for seq in running:
             if seq.state != SeqState.RUNNING:  # preempted by an earlier turn
                 continue
-            last_pos = seq.computed_len + lookahead - 1
+            last_pos = seq.computed_len + max(
+                lookahead, len(seq.spec_draft) + 1) - 1
             while True:
                 need = last_pos // self.pool.page_size + 1 - len(seq.pages)
                 if need <= 0:
@@ -306,6 +373,7 @@ class Scheduler:
         seq.computed_len = 0
         seq.n_preemptions += 1
         seq.state = SeqState.WAITING
+        seq.spec_draft = []  # stale drafts must not ride the re-admission
         # re-admit with prompt = all tokens so far (already-emitted ones are
         # not re-emitted; generation resumes with the next sampled token)
         seq.prompt = list(seq.tokens)
@@ -348,6 +416,7 @@ class Scheduler:
         seq.finish_reason = reason
         self.pool.release(seq.pages)
         seq.pages = []
+        seq.spec_draft = []
         if seq in self.active:
             self.active.remove(seq)
 

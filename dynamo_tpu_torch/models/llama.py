@@ -2,16 +2,17 @@
 
 Port of the dense GQA branch of dynamo_tpu/models/llama.py `forward`:
 embed, RMSNorm, q/k/v, RoPE, KV write, paged attention, wo, SwiGLU, final
-norm, last-position gather and f32 logits. Params are a plain dict of
-tensors in the reference's stacked layout ({"embed", "norm_f", "layers":
-{"wq": [L, in, out], ...}}, x @ W), so one checkpoint tree serves both
-packages. The layer loop is a Python loop over that stack; matrix products
-go to torch.matmul, attention to the ops/ kernels.
+norm, last-position gather and f32 logits, with the reference's
+`ragged=` branch (the flat step of the fused mixed dispatch). Params are
+a plain dict of tensors in the reference's stacked layout ({"embed",
+"norm_f", "layers": {"wq": [L, in, out], ...}}, x @ W), so one checkpoint
+tree serves both packages. The layer loop is a Python loop over that
+stack; matrix products go to torch.matmul, attention to the ops/ kernels.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -28,6 +29,11 @@ from dynamo_tpu_torch.models.toolkit import (
 )
 from dynamo_tpu_torch.ops.flash_prefill import prefill_paged_attention
 from dynamo_tpu_torch.ops.paged_attention import decode_paged_attention
+from dynamo_tpu_torch.ops.ragged_paged_attention import (
+    ragged_paged_attention,
+    ragged_paged_attention_ref,
+    ragged_token_index,
+)
 
 Params = Dict[str, Any]
 
@@ -79,16 +85,27 @@ def forward(
     positions: torch.Tensor,  # [B, S] absolute positions (padding = -1)
     k_pool: torch.Tensor,  # [L, NP, PS, Hk, D]; the last page takes padding
     v_pool: torch.Tensor,
-    page_table: torch.Tensor,  # [B, MP] int32
-    kv_lens: torch.Tensor,  # [B] int32 context length AFTER this step
+    page_table: Optional[torch.Tensor] = None,  # [B, MP] int32
+    kv_lens: Optional[torch.Tensor] = None,  # [B] int32 context AFTER this step
     last_index: Optional[Union[int, torch.Tensor]] = None,  # int or [B]
     attn_impl: str = "kernel",
+    ragged: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One forward pass (prefill chunk S > 1 or decode S = 1). Writes this
     step's K/V into the pools in place, attends over the full context and
     returns f32 logits [B, S, V], or [B, 1, V] at `last_index` only.
     Padding tokens' K/V land in the pools' last page (see kv_rows): the
-    caller never hands that page out."""
+    caller never hands that page out.
+
+    `ragged=(seg_page_table [SEG, MP], seg_kv_lens [SEG], meta [5, NW])`
+    (ops/ragged_paged_attention.build_ragged_metadata, default q block)
+    makes it the flat mixed step: tokens and positions come in [1, T] and
+    page_table / kv_lens are not used. Each token's KV write goes through
+    its segment's table row (the step viewed as B=T, S=1), with the token's
+    segment derived from `meta` on the device rather than uploaded as a
+    [T, MP] table; attention is ragged; last_index holds the flat
+    per-segment last-token indices [SEG] and the logits come back
+    [1, SEG, V]."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
     c = config
@@ -100,13 +117,22 @@ def forward(
 
     h = params["embed"][tokens.long()]  # [B, S, E]
     safe_pos = positions.clamp(min=0)
-    # prefill-kernel metadata: valid tokens are a contiguous run from s=0
-    # (ModelRunner contract), so start/len fully describe the positions
-    q_start = safe_pos[:, 0].to(torch.int32).contiguous()
-    q_len = (positions >= 0).sum(1, dtype=torch.int32)
     cos, sin = rope_cos_sin(
         safe_pos, rope_inv_freq(c, hd, c.rope_theta, str(tokens.device)))
-    rows = kv_rows(page_table, positions, NP, PS)
+    if ragged is not None:
+        if B != 1:
+            raise ValueError("ragged forward takes a single flat [1, T] row")
+        seg_pt, seg_kvl, meta = ragged
+        tok_seg, _ = ragged_token_index(meta, S)
+        rows = kv_rows(seg_pt[tok_seg], positions.view(S, 1), NP, PS)
+        ragged_attn = (ragged_paged_attention_ref if attn_impl == "ref"
+                       else ragged_paged_attention)
+    else:
+        rows = kv_rows(page_table, positions, NP, PS)
+        # prefill-kernel metadata: valid tokens are a contiguous run from
+        # s=0 (ModelRunner contract), so start/len fully describe them
+        q_start = safe_pos[:, 0].to(torch.int32).contiguous()
+        q_len = (positions >= 0).sum(1, dtype=torch.int32)
 
     for l in range(c.n_layers):
         x = rms_norm(h, lp["attn_norm"][l], c.norm_eps)
@@ -118,7 +144,10 @@ def forward(
         write_kv(k_pool, l, k, rows)
         write_kv(v_pool, l, v, rows)
         qg = q.view(B, S, c.n_kv_heads, G, hd)
-        if attn_impl == "ref":
+        if ragged is not None:
+            attn = ragged_attn(qg[0], k_pool[l], v_pool[l], seg_pt, seg_kvl,
+                               meta)[None]
+        elif attn_impl == "ref":
             attn = paged_attention_ref(
                 qg, k_pool[l], v_pool[l], page_table, safe_pos, kv_lens)
         elif S == 1:
@@ -136,6 +165,8 @@ def forward(
     if last_index is not None:
         if isinstance(last_index, int):
             h = h[:, last_index:last_index + 1]
+        elif ragged is not None:  # flat per-segment last tokens
+            h = h[:, last_index.long()]
         else:  # per-row last positions
             idx = last_index.long().view(B, 1, 1).expand(B, 1, h.shape[-1])
             h = torch.gather(h, 1, idx)

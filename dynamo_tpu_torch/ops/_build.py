@@ -41,6 +41,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "prefill_paged_attention": (
             [_P] * 8 + [_I] * 8 + [_F, _P], _I),
     },
+    # q, k_pool, v_pool, seg_page_table, seg_kv_lens, meta, out,
+    # NW, Hk, G, D, PS, MP, q_block, scale, stream
+    "ragged_paged_attention": {
+        "ragged_paged_attention": (
+            [_P] * 7 + [_I] * 7 + [_F, _P], _I),
+    },
 }
 
 _lock = threading.Lock()

@@ -29,6 +29,27 @@ def parse_args(argv=None):
     # batching
     p.add_argument("--max-batch", type=int, default=64)
     p.add_argument("--chunk-size", type=int, default=512)
+    p.add_argument("--mixed-prefill-tokens", type=int, default=256,
+                   help="per-iteration prefill token POOL when co-scheduled "
+                        "with decode: fair-shared across up to "
+                        "--mixed-prefill-seqs packed chunks from distinct "
+                        "sequences (0 = strict prefill-first)")
+    p.add_argument("--mixed-prefill-seqs", type=int, default=8,
+                   help="max distinct prefills packed per iteration")
+    p.add_argument("--mixed-min-chunk", type=int, default=16,
+                   help="fair-share floor: each packed sequence is offered "
+                        "at least this many prefill tokens per iteration")
+    # speculative decoding
+    p.add_argument("--spec-ngram", action="store_true",
+                   help="draft-model-free speculation: propose the next K "
+                        "tokens by prompt/history n-gram lookup and verify "
+                        "them as ragged rows of the mixed dispatch")
+    p.add_argument("--spec-k", type=int, default=4,
+                   help="n-gram draft length K (verify rows are K+1 tokens)")
+    p.add_argument("--spec-max-tokens", type=int, default=0,
+                   help="per-iteration cap on drafted tokens admitted to "
+                        "the verify dispatch (0 = the leftover mixed "
+                        "prefill token budget)")
     return p.parse_args(argv)
 
 
@@ -49,5 +70,14 @@ def build_runner(args) -> tuple[ModelRunner, ModelConfig]:
 def build_engine(args, runner=None) -> InferenceEngine:
     if runner is None:
         runner, _ = build_runner(args)
-    return InferenceEngine(runner, max_batch=args.max_batch,
-                           chunk_size=args.chunk_size)
+    return InferenceEngine(
+        runner,
+        max_batch=args.max_batch,
+        chunk_size=args.chunk_size,
+        mixed_prefill_tokens=args.mixed_prefill_tokens,
+        mixed_prefill_seqs=args.mixed_prefill_seqs,
+        mixed_min_chunk=args.mixed_min_chunk,
+        spec_ngram=args.spec_ngram,
+        spec_k=args.spec_k,
+        spec_max_tokens=args.spec_max_tokens,
+    )

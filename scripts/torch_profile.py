@@ -10,7 +10,7 @@ once cold, once warm with tracing off, once warm under torch.profiler
 (CPU and CUDA activities). Prints one JSON line: wall time of the two
 warm runs (their difference is the tracing overhead), and for the traced
 run the device-busy time (union of kernel and copy intervals), the idle
-share of the wall time, and device time by family (the two attention
+share of the wall time, and device time by family (the three attention
 kernels, matrix products, everything else) with the top kernels by
 device time. With --trace, also writes the Chrome trace there (about
 100 MB for this workload). Needs one CUDA device.
@@ -40,6 +40,8 @@ def family(name: str) -> str:
         return "decode_attention"
     if "prefill_kernel" in name:
         return "prefill_attention"
+    if "ragged_kernel" in name:
+        return "ragged_attention"
     low = name.lower()
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
         return "matmul"

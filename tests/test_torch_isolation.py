@@ -31,7 +31,9 @@ def _modules():
 
 def test_every_module_imports_without_jax_or_dynamo_tpu():
     mods = ["dynamo_tpu_torch"] + _modules()
-    assert "dynamo_tpu_torch.engine.engine" in mods
+    for m in ("engine.engine", "engine.ngram_draft",
+              "ops.ragged_paged_attention"):
+        assert f"dynamo_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
