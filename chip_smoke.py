@@ -16,6 +16,11 @@ Phases, each printing one JSON line:
                its last chunk dropped (tail rows must be exactly 0) and a
                verify-shaped step (K+1 = 5 rows per segment); then
                (`shapes`) all three kernels at the other shapes they take;
+               then (`copy_kernels`) the three page-copy kernels at the 3B
+               page shape (L 28, PS 16, Hk 8, D 128, bf16) in a 2048-page
+               pool, 94 pages in random order: token- and head-major
+               gather, scatter, and a 4-group layer scatter, bit for bit
+               against their plain versions;
   4. engine  - build_engine for llama-3.2-3b at full width and depth with
                random weights and serve 8 concurrent requests (chunked
                prefill over prior context, a prefix-cache hit, greedy and
@@ -27,10 +32,26 @@ Phases, each printing one JSON line:
                (--spec-ngram, K 4, prompts that repeat n-grams: verify rows
                on the ragged kernel). Each kernel's launches must equal its
                forward passes (runner.stats) x 28 layers;
+     disagg  - (`engine_disagg`) a prefill and a decode engine on the card,
+               one shared params dict, 1024 pages each, behind a
+               PrefillRouter: the same 8 requests, half pulled on the
+               device (colocated instance), half host-staged in chunks of
+               16 pages; the decode engine must run no prefill, imported
+               pages must equal the prefill engine's byte for byte, and
+               the copy kernels' launches must equal the transfer calls
+               x 2 pools;
+     tiers   - (`engine_tiers`) one engine with a 160-page pool, a 512-block
+               host tier and 4 onboard layer groups: a 1100-token request,
+               two 1500-token fillers that evict its pages to the host,
+               then a request sharing its first 1024 tokens, onboarded
+               from the host (bytes equal to what was offloaded, stream
+               equal to a cold prefill's);
   5. parity  - prefill-plus-decode inputs, then one ragged dispatch of
                decode rows and a chunk over prior context, through the
                kernel path and the plain attention path of the forward.
-Then the `kernels` summary line (launches from the fused phase), the
+Then the `kernels` summary line (launches from the fused phase for the
+attention kernels, from engine_disagg for gather and scatter, from
+engine_tiers for the layer scatter), the
 card's name and power limit, and, last, the contract line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
 It needs a CUDA device and the repository around it; it builds into
@@ -50,6 +71,7 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch.ops import _build
+from dynamo_tpu_torch.ops import block_copy as bc
 from dynamo_tpu_torch.ops.flash_prefill import (
     prefill_paged_attention,
     prefill_paged_attention_ref,
@@ -63,8 +85,20 @@ from dynamo_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention,
     ragged_paged_attention_ref,
 )
+from dynamo_tpu_torch.router.prefill_router import (
+    DisaggPolicy,
+    LocalPrefillClient,
+    PrefillRouter,
+)
 from dynamo_tpu_torch.runtime.context import Context
-from dynamo_tpu_torch.worker import build_engine, build_runner, parse_args
+from dynamo_tpu_torch.tokens.hashing import block_hashes
+from dynamo_tpu_torch.worker import (
+    build_engine,
+    build_runner,
+    disagg_endpoint,
+    parse_args,
+)
+from dynamo_tpu_torch.worker_common import register_prefill
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 rate and bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
@@ -89,10 +123,20 @@ SOURCES = {
     "ragged_paged_attention": (
         "dynamo_tpu_torch/ops/csrc/ragged_paged_attention.cu",
         "dynamo_tpu/ops/ragged_paged_attention.py:486"),
+    "gather_pages": ("dynamo_tpu_torch/ops/csrc/block_copy.cu",
+                     "dynamo_tpu/ops/block_copy.py:79"),
+    "scatter_pages": ("dynamo_tpu_torch/ops/csrc/block_copy.cu",
+                      "dynamo_tpu/ops/block_copy.py:226"),
+    "scatter_pages_layers": ("dynamo_tpu_torch/ops/csrc/block_copy.cu",
+                             "dynamo_tpu/ops/block_copy.py:186"),
 }
 KERNELS = {"decode_paged_attention": decode_paged_attention,
            "prefill_paged_attention": prefill_paged_attention,
-           "ragged_paged_attention": ragged_paged_attention}
+           "ragged_paged_attention": ragged_paged_attention,
+           "gather_pages": bc.gather_pages,
+           "scatter_pages": bc.scatter_pages,
+           "scatter_pages_layers": bc.scatter_pages_layers}
+COPY_KERNELS = ("gather_pages", "scatter_pages", "scatter_pages_layers")
 
 
 class CheckFailed(Exception):
@@ -407,6 +451,112 @@ def shapes_phase(dev):
     emit({"phase": "shapes", "tol": KERNEL_TOL, "max_abs_err": errs})
 
 
+# the page-copy kernels at the 3B page shape: the pages of a 1500-token
+# prompt in a 2048-page pool, and the onboard's 4 layer groups
+COPY_SHAPE = (28, 2048, 16, 8, 128)  # L, NP, PS, Hk, D
+COPY_N = 94
+COPY_GROUPS = 4
+
+
+def copy_kernel_phase(dev):
+    """gather (token- and head-major), scatter and the layered scatter
+    against their plain versions, bit for bit, each timed three ways: the
+    kernel launch alone (`ms`, operands checked once beforehand), the
+    wrapper with its checks (`wrapper_ms`: one readback of the page ids
+    per call), the plain version and one PyTorch library call."""
+    L, NP, PS, Hk, D = COPY_SHAPE
+    dgen = torch.Generator(device=dev).manual_seed(4)
+    cgen = torch.Generator(device="cpu").manual_seed(4)
+    pool = torch.randn(COPY_SHAPE, generator=dgen, device=dev).bfloat16()
+    pages = torch.randn((L, COPY_N, PS, Hk, D), generator=dgen, device=dev).bfloat16()
+    idx = torch.randperm(NP, generator=cgen)[:COPY_N].to(torch.int32).to(dev)
+    idx_l = idx.long()
+    # read once and written once: the pages' bytes twice
+    bound_ms, bound_by = bound(2 * pages.numel() * pages.element_size(), 0)
+    out = {}
+
+    def exact(a, b, what):
+        check(torch.equal(a, b), f"{what}: kernel differs from its plain version")
+        return (a.float() - b.float()).abs().max().item()
+
+    for head_major in (False, True):
+        got = bc.gather_pages(pool, idx, head_major=head_major)
+        torch.cuda.synchronize()
+        want = bc.gather_pages_ref(pool, idx, head_major=head_major)
+        buf = torch.empty_like(got)
+        rec = {
+            "max_abs_err": exact(got, want, f"gather head_major={head_major}"),
+            "ms": cuda_ms(lambda: bc._launch_gather(pool, idx, buf, head_major)),
+            "wrapper_ms": cuda_ms(lambda: bc.gather_pages(pool, idx,
+                                                          head_major=head_major)),
+            "plain_ms": cuda_ms(lambda: bc.gather_pages_ref(pool, idx,
+                                                            head_major=head_major)),
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+        if head_major:
+            rec["library_ms"] = cuda_ms(lambda: pool.index_select(1, idx_l)
+                                        .transpose(2, 3).contiguous())
+            out["gather_pages"]["cases"] = {"head_major": rec}
+        else:
+            rec["library_ms"] = cuda_ms(lambda: pool.index_select(1, idx_l))
+            out["gather_pages"] = rec
+    del got, want, buf
+
+    a, b = pool.clone(), pool.clone()
+    bc.scatter_pages(a, idx, pages)
+    torch.cuda.synchronize()
+    bc.scatter_pages_ref(b, idx, pages)
+    out["scatter_pages"] = {
+        "max_abs_err": exact(a, b, "scatter"),
+        "ms": cuda_ms(lambda: bc._launch_scatter(a, idx, pages)),
+        "wrapper_ms": cuda_ms(lambda: bc.scatter_pages(a, idx, pages)),
+        "plain_ms": cuda_ms(lambda: bc.scatter_pages_ref(a, idx, pages)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": cuda_ms(lambda: a.index_copy_(1, idx_l, pages)),
+    }
+    dup = idx.clone()
+    dup[1] = dup[0]
+    try:
+        bc.scatter_pages(a, dup, pages)
+        check(False, "scatter accepted repeated page ids")
+    except ValueError:
+        pass
+    del a
+
+    # the streamed onboard of one pool: 4 layer groups, 4 launches
+    c = pool.clone()
+    groups = [(g * L // COPY_GROUPS, (g + 1) * L // COPY_GROUPS)
+              for g in range(COPY_GROUPS)]
+    offs = torch.tensor([lo for lo, _ in groups], dtype=torch.int32, device=dev)
+    slabs = [pages[lo:hi] for lo, hi in groups]
+
+    def layered(fn):
+        def run():
+            for g in range(COPY_GROUPS):
+                fn(c, idx, slabs[g], offs[g:g + 1])
+        return run
+
+    layered(bc.scatter_pages_layers)()
+    torch.cuda.synchronize()
+    out["scatter_pages_layers"] = {
+        "groups": groups,
+        "max_abs_err": exact(c, b, "layer scatter vs whole-pool scatter"),
+        "ms": cuda_ms(layered(bc._launch_scatter)),
+        "wrapper_ms": cuda_ms(layered(bc.scatter_pages_layers)),
+        "plain_ms": cuda_ms(layered(bc.scatter_pages_layers_ref)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": cuda_ms(lambda: [
+            c[lo:hi].index_copy_(1, idx_l, slab)
+            for (lo, hi), slab in zip(groups, slabs)]),
+    }
+    del b, c, pool, pages
+    torch.cuda.empty_cache()
+    emit({"phase": "copy_kernels", "tol": 0.0,
+          "shape": {"L": L, "NP": NP, "PS": PS, "Hk": Hk, "D": D, "n": COPY_N,
+                    "dtype": "bfloat16"}, **out})
+    return out
+
+
 async def _serve(engine, reqs, shared_idx, late_req):
     """Serve `reqs` concurrently; `late_req` (sharing a prefix with
     reqs[shared_idx]) is sent once that request has its first token, so
@@ -505,6 +655,8 @@ def check_launches(phase: str, launches, stats, L: int) -> None:
     for name, n in want.items():
         check(launches[name] == n * L,
               f"{phase}: {name} launches {launches[name]} != {n} passes x {L}")
+    for name in COPY_KERNELS:  # no transfer and no host tier here
+        check(launches[name] == 0, f"{phase}: {name} launched {launches[name]}")
 
 
 def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
@@ -587,7 +739,7 @@ def engine_phases(dev):
     rec, launches, fused = engine_phase(runner, "fused", build_s=build_s)
     st = rec["stats"]
     check(rec["fused_mixed"], "fused: the engine did not fuse on the card")
-    check(all(n > 0 for n in launches.values()),
+    check(all(n > 0 for k, n in launches.items() if k not in COPY_KERNELS),
           f"fused: a kernel of the main path never launched: {launches}")
     # more chunks than fused dispatches: some plan packed two or more
     check(st["mixed_chunks"] > st["ragged_mixed_dispatches"] > 0,
@@ -615,6 +767,297 @@ def engine_phases(dev):
           f"spec: nothing was drafted or verified: {rec['spec_stats']}, {st}")
     emit(rec)
     return runner, launches
+
+
+DISAGG_ARGS = ["--model", "llama-3.2-3b", "--num-pages", "1024",
+               "--page-size", "16", "--max-seq-len", "4096", "--max-batch", "8",
+               "--chunk-size", "512"]
+DISAGG_CHUNK_PAGES = 16
+PAGE_SIZE = 16
+
+
+def _reset(*runners):
+    for fn in KERNELS.values():
+        fn.launches = 0
+    for r in runners:
+        r.reset_stats()
+
+
+async def _collect_timed(engine, req, rid, on_first=None):
+    """One request through `engine` (the router, or an engine), timed on
+    the client's clock: TTFT at the first item with tokens."""
+    t0 = time.monotonic()
+    toks, finish, phases, t_first = [], None, {}, None
+    async for item in engine.generate(req, Context(request_id=rid)):
+        if item["token_ids"] and t_first is None:
+            t_first = time.monotonic()
+            if on_first is not None:
+                on_first.set()
+        toks.extend(item["token_ids"])
+        if item.get("finish_reason"):
+            finish = item["finish_reason"]
+            phases = item.get("phases") or {}
+    t_end = time.monotonic()
+    check(finish != "error", f"request {rid} finished with error")
+    return {"tokens": toks, "finish": finish, "phases": phases,
+            "ttft_s": (t_first or t_end) - t0, "e2e_s": t_end - t0,
+            "t_first": t_first, "t_end": t_end}
+
+
+def _spy_calls(runner, names):
+    """Record the page count of every call of runner.<name>."""
+    calls = {n: [] for n in names}
+    for n in names:
+        orig = getattr(runner, n)
+
+        def spy(pages, *a, _orig=orig, _n=n, **kw):
+            calls[_n].append(len(pages))
+            return _orig(pages, *a, **kw)
+
+        setattr(runner, n, spy)
+    return calls
+
+
+def _check_finished(phase, results, V):
+    for i, r in enumerate(results):
+        check(r["finish"] == "length" and len(r["tokens"]) == N_OUT,
+              f"{phase}: r{i} finished {r['finish']!r} with {len(r['tokens'])} tokens")
+        check(all(0 <= t < V for t in r["tokens"]), f"{phase}: r{i} token out of range")
+
+
+def disagg_phase(params):
+    """The slice's main path: PrefillRouter → prefill engine (park) → KV
+    pull (device for the colocated instance, host-staged chunks of 16
+    pages for the other) → decode engine (admit with KV, decode)."""
+    p_args = parse_args(DISAGG_ARGS + ["--disagg-role", "prefill"])
+    d_args = parse_args(DISAGG_ARGS + ["--disagg-role", "decode",
+                                       "--disagg-chunk-pages",
+                                       str(DISAGG_CHUNK_PAGES)])
+    prefill = build_engine(p_args, runner=build_runner(p_args, params=params)[0])
+    decode = build_engine(d_args, runner=build_runner(d_args, params=params)[0])
+    iid_dev = disagg_endpoint(prefill, p_args)  # colocated: device pull
+    iid_host = register_prefill(prefill, colocated=False)  # host-staged pull
+    adapter = disagg_endpoint(decode, d_args)
+    router = PrefillRouter(adapter, DisaggPolicy(min_prefill_tokens=16))
+    router.activate(LocalPrefillClient([iid_dev, iid_host]))
+    paths = {}
+    fetch = adapter._fetch
+
+    async def fetch_by_path(src):
+        paths[src["request_id"]] = "device" if src["instance_id"] == iid_dev else "host"
+        return await fetch(src)
+
+    adapter._fetch = fetch_by_path
+    imports = _spy_calls(decode.runner, ("import_pages_device", "import_pages"))
+    V, L = prefill.runner.config.vocab_size, prefill.runner.config.n_layers
+    reqs, late = workload(V, seed=1)
+    prompts = [r["token_ids"] for r in reqs + [late]]
+
+    async def serve():
+        shared = asyncio.Event()
+        tasks = [asyncio.create_task(_collect_timed(
+            router, r, f"r{i}", shared if i == len(reqs) - 1 else None))
+            for i, r in enumerate(reqs)]
+        await shared.wait()  # the late request shares r6's 256-token prefix
+        tasks.append(asyncio.create_task(_collect_timed(router, late, f"r{len(reqs)}")))
+        return await asyncio.gather(*tasks)
+
+    torch.cuda.synchronize()
+    _reset(prefill.runner, decode.runner)
+    t0 = time.monotonic()
+    try:
+        results = asyncio.run(asyncio.wait_for(serve(), 300))
+    finally:
+        prefill.stop()
+        decode.stop()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    pst, dst = dict(prefill.runner.stats), dict(decode.runner.stats)
+    _check_finished("disagg", results, V)
+    path_of = [paths.get(f"r{i}:prefill") for i in range(len(prompts))]
+    check(sorted(path_of) == ["device"] * 4 + ["host"] * 4,
+          f"disagg: transfer paths {path_of}")
+    # the decode engine admitted every prompt with its KV: no prefill
+    check(dst["prefill_chunks"] == dst["mixed_chunks"] == 0
+          and dst["padded_prefill_dispatches"] == 0,
+          f"disagg: the decode engine prefilled: {dst}")
+    check(pst["decode_steps"] == 0, f"disagg: the prefill engine decoded: {pst}")
+    n_pages = [-(-len(p) // PAGE_SIZE) for p in prompts]
+    check(pst["kv_pages_exported"] == sum(n_pages),
+          f"disagg: exported {pst['kv_pages_exported']} pages, want {sum(n_pages)}")
+    # one gather per pool per export: a device pull gathers once, a host
+    # pull once per chunk of 16 pages
+    exports = sum(1 if path == "device" else -(-n // DISAGG_CHUNK_PAGES)
+                  for path, n in zip(path_of, n_pages))
+    check(launches["gather_pages"] == 2 * exports,
+          f"disagg: gather launches {launches['gather_pages']} != {exports} x 2")
+    n_imports = len(imports["import_pages_device"]) + len(imports["import_pages"])
+    check(len(imports["import_pages_device"]) == 4,
+          f"disagg: device imports {imports['import_pages_device']}")
+    check(launches["scatter_pages"] == 2 * n_imports,
+          f"disagg: scatter launches {launches['scatter_pages']} != {n_imports} x 2")
+    shared_pages = decode.scheduler.reused_prefix_tokens // PAGE_SIZE
+    imported = sum(imports["import_pages_device"]) + sum(imports["import_pages"])
+    check(dst["kv_pages_imported"] == imported == sum(n_pages) - shared_pages,
+          f"disagg: imported {dst['kv_pages_imported']} pages, want "
+          f"{sum(n_pages)} - {shared_pages} shared")
+    check(launches["scatter_pages_layers"] == 0, "disagg: layer scatter ran")
+    check(not prefill._parked and not prefill.pool.ref,
+          "disagg: parked pages were not all released")
+    # bytes: the decode engine's imported pages equal the prefill engine's,
+    # read with plain indexing, for the longest request of each path
+    compared = {}
+    for path in ("device", "host"):
+        i = max((j for j, p in enumerate(path_of) if p == path),
+                key=lambda j: len(prompts[j]))
+        hashes = block_hashes(prompts[i], PAGE_SIZE)
+        p_pages = [prefill.pool.by_hash[h] for h in hashes]
+        d_pages = [decode.pool.by_hash[h] for h in hashes]
+        for pp, dp in ((prefill.runner.k_pool, decode.runner.k_pool),
+                       (prefill.runner.v_pool, decode.runner.v_pool)):
+            check(torch.equal(pp[:, p_pages], dp[:, d_pages]),
+                  f"disagg: r{i}'s imported pages differ from the prefill engine's")
+        compared[f"r{i}"] = {"path": path, "pages": len(hashes)}
+    page_bytes = L * PAGE_SIZE * prefill.runner.config.n_kv_heads \
+        * prefill.runner.config.head_dim * 2 * 2  # both pools, bf16
+    # the pull's wall on the decode side (queueing on the prefill
+    # engine's step thread included), then the import on the decode
+    # engine's step thread
+    transfer = {}
+    for path in ("device", "host"):
+        rows = [(n, r["phases"]["kv_fetch_s"], r["phases"]["kv_import_s"])
+                for n, r, p in zip(n_pages, results, path_of) if p == path]
+        pages = sum(n for n, _, _ in rows)
+        secs = sum(f + i for _, f, i in rows)
+        transfer[path] = {
+            "requests": len(rows), "pages": pages,
+            "bytes": pages * page_bytes,
+            "ms_per_request": [(f + i) * 1e3 for _, f, i in rows],
+            "fetch_ms": [f * 1e3 for _, f, _ in rows],
+            "import_ms": [i * 1e3 for _, _, i in rows],
+            "prompt_pages": [n for n, _, _ in rows],
+            "gb_per_s": pages * page_bytes / secs / 1e9,
+        }
+    ttft = sorted(r["ttft_s"] for r in results)
+    rates = sorted((len(r["tokens"]) - 1) / (r["t_end"] - r["t_first"]) for r in results)
+    rec = {
+        "phase": "engine_disagg", "model": prefill.runner.config.name,
+        "n_layers": L, "requests": len(results),
+        "prompt_tokens": [len(p) for p in prompts], "paths": path_of,
+        "output_tokens": [len(r["tokens"]) for r in results],
+        "prefill_stats": pst, "decode_stats": dst, "launches": launches,
+        "export_calls": exports, "import_calls": n_imports,
+        "decode_reused_prefix_tokens": decode.scheduler.reused_prefix_tokens,
+        "bytes_equal": compared, "transfer": transfer,
+        "ttft_s_min": ttft[0], "ttft_s_median": ttft[len(ttft) // 2],
+        "ttft_s_max": ttft[-1],
+        "decode_tok_s_per_request_median": rates[len(rates) // 2],
+        "output_tok_s_overall": sum(len(r["tokens"]) for r in results) / wall,
+        "wall_s": wall,
+    }
+    emit(rec)
+    for name in ("gather_pages", "scatter_pages"):
+        check(launches[name] > 0, f"disagg: {name} never launched")
+    return launches
+
+
+TIER_ARGS = ["--model", "llama-3.2-3b", "--num-pages", "160", "--page-size", "16",
+             "--max-seq-len", "4096", "--max-batch", "8", "--chunk-size", "512"]
+TIER_HOST = ["--host-kv-blocks", "512", "--onboard-layer-groups", "4"]
+
+
+def tiers_phase(params):
+    """G2 host tier: a 1100-token request A, two 1500-token fillers that
+    evict A's pages from the 160-page pool to the host, then A2 = A's
+    first 1024 tokens + 100 new ones, onboarded from the host in 4 layer
+    groups. A cold engine over the same runner serves A2 first: the
+    tiered stream must equal it."""
+    runner, _ = build_runner(parse_args(TIER_ARGS), params=params)
+    cold = build_engine(parse_args(TIER_ARGS), runner=runner)
+    tiered = build_engine(parse_args(TIER_ARGS + TIER_HOST), runner=runner)
+    V, L = runner.config.vocab_size, runner.config.n_layers
+    gen = torch.Generator(device="cpu").manual_seed(5)
+
+    def prompt(n):
+        return torch.randint(0, V, (n,), generator=gen).tolist()
+
+    def req(p):
+        return {"token_ids": p, "sampling": {"temperature": 0.0},
+                "stop": {"max_tokens": N_OUT, "stop_ids": []}}
+
+    a = prompt(1100)
+    fillers = [prompt(1500), prompt(1500)]
+    a2 = a[:1024] + prompt(100)
+    shared = block_hashes(a2, PAGE_SIZE)[:1024 // PAGE_SIZE]
+
+    async def serve(engine, prompts, tag):
+        return [await _collect_timed(engine, req(p), f"{tag}{i}")
+                for i, p in enumerate(prompts)]
+
+    torch.cuda.synchronize()
+    _reset(runner)
+    t0 = time.monotonic()
+    try:
+        cold_out = asyncio.run(asyncio.wait_for(serve(cold, [a2], "cold"), 300))
+        cold.stop()
+        warm = asyncio.run(asyncio.wait_for(serve(tiered, [a] + fillers, "t"), 300))
+        on_host = tiered.host_pool.match(shared)
+        before = tiered.scheduler.reused_prefix_tokens
+        hit = asyncio.run(asyncio.wait_for(serve(tiered, [a2], "hit"), 300))
+        reused = tiered.scheduler.reused_prefix_tokens - before
+    finally:
+        cold.stop()
+        tiered.stop()
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t0
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    st = dict(runner.stats)
+    host = dict(tiered.host_pool.stats)
+    onboard = dict(tiered.onboard_stats)
+    results = cold_out + warm + hit
+    _check_finished("tiers", results, V)
+    check(on_host == len(shared), f"tiers: only {on_host} of A's {len(shared)} "
+          "shared pages reached the host tier")
+    check(reused >= 1024 and onboard["blocks"] == len(shared),
+          f"tiers: A2 reused {reused} tokens, {onboard['blocks']} from the host")
+    check(hit[0]["tokens"] == cold_out[0]["tokens"],
+          "tiers: the onboarded stream differs from the cold prefill's")
+    groups = tiered.onboard_layer_groups
+    check(launches["scatter_pages_layers"] == onboard["onboards"] * groups * 2
+          == st["kv_layer_group_scatters"] * 2 and onboard["onboards"] > 0,
+          f"tiers: layer scatters {launches['scatter_pages_layers']} != "
+          f"{onboard['onboards']} onboards x {groups} groups x 2 pools")
+    # every offload exports one page: one gather per pool
+    check(launches["gather_pages"] == 2 * host["offloaded"] == 2 * st["kv_pages_exported"],
+          f"tiers: gathers {launches['gather_pages']} for {host['offloaded']} offloads")
+    check(launches["scatter_pages"] == 0, "tiers: whole-pool scatter ran")
+    # the onboarded device pages hold exactly the bytes that were offloaded
+    pages = [tiered.pool.by_hash[h] for h in shared]
+    hk, hv = tiered.host_pool.get(shared)
+    check(torch.equal(runner.k_pool[:, pages].cpu(), hk)
+          and torch.equal(runner.v_pool[:, pages].cpu(), hv),
+          "tiers: onboarded pages differ from the offloaded bytes")
+    onboard_bytes = onboard["blocks"] * 2 * L * PAGE_SIZE * runner.config.n_kv_heads \
+        * runner.config.head_dim * 2
+    rec = {
+        "phase": "engine_tiers", "model": runner.config.name, "n_layers": L,
+        "num_pages": runner.num_pages, "host_kv_blocks": tiered.host_pool.capacity,
+        "onboard_layer_groups": groups,
+        "prompt_tokens": {"A": len(a), "fillers": [len(f) for f in fillers],
+                          "A2": len(a2), "A2_shared_with_A": 1024},
+        "stats": st, "launches": launches, "host_pool": host,
+        "onboard": onboard, "reused_prefix_tokens_A2": reused,
+        "kv_onboard_s": hit[0]["phases"].get("kv_onboard_s"),
+        "onboard_bytes": onboard_bytes,
+        "onboard_gb_per_s": onboard_bytes / onboard["seconds"] / 1e9,
+        "ttft_s_A2_onboarded": hit[0]["ttft_s"], "ttft_s_A2_cold": cold_out[0]["ttft_s"],
+        "wall_s": wall,
+    }
+    emit(rec)
+    check(launches["gather_pages"] > 0 and launches["scatter_pages_layers"] > 0,
+          f"tiers: a copy kernel never launched: {launches}")
+    return launches
 
 
 def parity_phase(runner, dev):
@@ -718,7 +1161,14 @@ def main() -> int:
     try:
         kern = kernel_phase(dev)
         shapes_phase(dev)
+        kern.update(copy_kernel_phase(dev))
         runner, launches = engine_phases(dev)
+        # each copy kernel's launches from the phase that runs it
+        disagg = disagg_phase(runner.params)
+        launches["gather_pages"] = disagg["gather_pages"]
+        launches["scatter_pages"] = disagg["scatter_pages"]
+        launches["scatter_pages_layers"] = tiers_phase(runner.params)[
+            "scatter_pages_layers"]
         parity_phase(runner, dev)
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)

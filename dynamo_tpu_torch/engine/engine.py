@@ -9,10 +9,15 @@ in one ragged dispatch plus the decode loop, one token readback) and
 unfused on the CPU (decode first, then each chunk), with DYN_FUSED_MIXED
 overriding, as in the reference. Linear n-gram speculative decoding
 (`spec_ngram`) verifies host-proposed drafts on the same ragged dispatch.
+Disaggregated roles: a "prefill" request parks its KV after the first
+token and is pulled by the decode engine (device or host-staged export); a
+"decode" request carrying `kv_import` is admitted with its KV and no
+prefill. With `host_kv_blocks` evicted prefix pages go to the G2 host pool
+and are onboarded back, layer group by layer group, on a prefix hit.
 Not ported yet: tree and draft-model speculation, guided decoding,
 logprobs, penalties, logit bias, n > 1 branches, LoRA, multimodal input,
-KV tiers and disaggregation; requests asking for those are refused with
-an "error" item.
+remote host-tier pulls and the G3/G4 tiers; requests asking for those are
+refused with an "error" item.
 """
 
 from __future__ import annotations
@@ -29,7 +34,12 @@ from typing import Any, AsyncIterator, Dict, List, Optional
 import torch
 
 from dynamo_tpu_torch.engine.kv_pool import PagePool
-from dynamo_tpu_torch.engine.model_runner import BucketOverflowError
+from dynamo_tpu_torch.engine.model_runner import (
+    BucketOverflowError,
+    kv_arrays_to_payload,
+    kv_payload_incompatible,
+    kv_payload_to_arrays,
+)
 from dynamo_tpu_torch.engine.ngram_draft import accept_deterministic
 from dynamo_tpu_torch.engine.ngram_draft import propose as ngram_propose
 from dynamo_tpu_torch.engine.scheduler import (
@@ -40,6 +50,7 @@ from dynamo_tpu_torch.engine.scheduler import (
     Sequence,
     SeqState,
 )
+from dynamo_tpu_torch.kvbm.host_pool import HostKvPool
 from dynamo_tpu_torch.ops.ragged_paged_attention import RAGGED_MAX_SEGS
 from dynamo_tpu_torch.runtime.context import Context
 
@@ -50,7 +61,7 @@ _ITL_CAP = 512
 
 # request fields and sampling options of features this port does not
 # serve yet: refused up front rather than silently ignored
-_UNSUPPORTED_FIELDS = ("guided", "logit_bias", "adapter", "mm", "kv_import",
+_UNSUPPORTED_FIELDS = ("guided", "logit_bias", "adapter", "mm",
                        "kv_remote_host")
 _UNSUPPORTED_SAMPLING = {"logprobs": None, "repetition_penalty": 1.0,
                          "frequency_penalty": 0.0, "presence_penalty": 0.0,
@@ -70,7 +81,8 @@ def _unsupported(request: Dict[str, Any]) -> Optional[str]:
         if request.get(name):
             return name
     annotations = request.get("annotations") or {}
-    if annotations.get("disagg") or annotations.get("kind") == "embedding":
+    if (annotations.get("disagg") not in (None, "prefill", "decode")
+            or annotations.get("kind") == "embedding"):
         return "annotations"
     sampling = request.get("sampling") or {}
     for name, neutral in _UNSUPPORTED_SAMPLING.items():
@@ -100,6 +112,10 @@ class InferenceEngine:
         spec_k: int = 4,  # draft tokens proposed per sequence per step
         spec_max_tokens: int = 0,  # per-iteration cap on drafted tokens
         #   (0 = bounded only by the mixed pool leftover)
+        host_kv_blocks: int = 0,  # G2 host-tier capacity (0 = disabled)
+        onboard_layer_groups: int = 1,  # stream tier onboarding in this
+        #   many contiguous layer groups (FlowKV-style overlap of transfer
+        #   with the first layers' compute; 1 = whole-sequence import)
     ):
         self.runner = runner
         # fused mixed dispatch: on for a card, off for the CPU (the
@@ -113,6 +129,14 @@ class InferenceEngine:
         else:
             self.fused_mixed = runner.device.type != "cpu"
         self.pool = PagePool(runner.num_pages, runner.page_size)
+        self.onboard_layer_groups = max(1, int(onboard_layer_groups))
+        self.host_pool: Optional[HostKvPool] = None
+        if host_kv_blocks > 0:
+            self.host_pool = HostKvPool(capacity_blocks=host_kv_blocks)
+            self.pool.evict_hook = self._offload_page
+        # G2 onboards served at admission: calls, blocks and seconds
+        self.onboard_stats = {"onboards": 0, "blocks": 0, "seconds": 0.0,
+                              "get_s": 0.0, "wire_s": 0.0, "import_s": 0.0}
         self.scheduler = Scheduler(
             self.pool,
             max_batch=max_batch,
@@ -128,6 +152,9 @@ class InferenceEngine:
             # budgeting verify tokens to it keeps every verify dispatch
             # inside the gather the registered bucket has
             spec_seg_budget=RAGGED_MAX_SEGS,
+            host_tier=self.host_pool,
+            host_onboard=(self._onboard_from_host
+                          if self.host_pool is not None else None),
         )
         self.spec_k = max(1, int(spec_k))
         # drafts ride the mixed pool's leftover: no pool, no speculation
@@ -147,6 +174,10 @@ class InferenceEngine:
         self._thread: Optional[threading.Thread] = None
         self._stop = threading.Event()
         self._step_counter = 0
+        # disaggregation state
+        self._parked: Dict[str, tuple] = {}  # rid -> (Sequence, deadline)
+        self._kv_pending: List[Sequence] = []  # disagg-decode awaiting space
+        self.parked_ttl_s = 60.0
 
     def start(self) -> None:
         if self._thread is None:
@@ -172,13 +203,22 @@ class InferenceEngine:
             yield engine_output([], "error",
                                 error=f"{bad} is not supported by this worker yet")
             return
+        annotations = request.get("annotations") or {}
         seq = Sequence(
             request_id=rid,
             prompt=[int(t) for t in request.get("token_ids") or [0]],
             sampling=request.get("sampling") or {},
             stop=request.get("stop") or {},
             arrival=time.monotonic(),
+            disagg=annotations.get("disagg"),
+            kv_import=request.get("kv_import"),
         )
+        # latency spine: upstream hops (the disagg adapter's KV fetch)
+        # stamped their durations into ctx.metadata["phases"]
+        upstream = context.metadata.get("phases")
+        if isinstance(upstream, dict):
+            seq.phases.update({k: float(v) for k, v in upstream.items()
+                               if isinstance(v, (int, float))})
         # reject prompts that can NEVER be admitted (more pages than the
         # pool/per-seq cap): they would wait forever and block the queue
         PS = self.pool.page_size
@@ -191,7 +231,10 @@ class InferenceEngine:
                 f"KV capacity ({cap_tokens - 1} tokens)"))
             return
         self._streams[rid] = (out, loop)
-        self._inbox.put(("add", seq))
+        if seq.disagg == "decode" and seq.kv_import is not None:
+            self._inbox.put(("add_kv", seq))
+        else:
+            self._inbox.put(("add", seq))
         finished = False
         try:
             while True:
@@ -237,6 +280,39 @@ class InferenceEngine:
                 self.scheduler.add(arg)
             elif op == "abort":
                 self.scheduler.abort(arg)
+                parked = self._parked.pop(arg, None)
+                if parked is not None:
+                    self.scheduler.release_parked(parked[0])
+                self._kv_pending = [s for s in self._kv_pending
+                                    if s.request_id != arg]
+            elif op == "add_kv":
+                self._kv_pending.append(arg)
+            elif op == "export":
+                rid, discard, fut, loop = arg
+                self._reply(fut, loop, self._export_parked, rid, discard)
+            elif op == "export_meta":
+                rid, fut, loop = arg
+                self._reply(fut, loop, self._export_meta, rid)
+            elif op == "export_chunk":
+                rid, start, n, last, fut, loop = arg
+                self._reply(fut, loop, self._export_chunk, rid, start, n, last)
+            elif op == "export_device":
+                rid, fut, loop = arg
+                self._reply(fut, loop, self._export_parked_device, rid)
+        self._admit_kv_pending()
+        self._expire_parked()
+
+    def _reply(self, fut, loop, fn, *args) -> None:
+        """Run an export op on the step thread (the only thread that
+        touches this runner's pools) and resolve the caller's future with
+        its result, or with its exception."""
+        try:
+            value = fn(*args)
+        except Exception as e:
+            log.exception("KV export failed")
+            loop.call_soon_threadsafe(_set_future_exc, fut, e)
+            return
+        loop.call_soon_threadsafe(_set_future, fut, value)
 
     def _loop_once(self) -> None:
         self._drain_inbox()
@@ -314,6 +390,18 @@ class InferenceEngine:
             return
         token = self.runner.sample_one(
             logits, _sampling_params([seq]), self._next_step())
+        if seq.disagg == "prefill":
+            # disagg: first token + transfer handle; the pages stay held
+            # for the decode engine's pull
+            self.scheduler.park(seq)
+            self._parked[seq.request_id] = (
+                seq, time.monotonic() + self.parked_ttl_s)
+            self._emit(seq, [token], "prefill_complete", kv_transfer={
+                "request_id": seq.request_id,
+                "prompt_len": len(seq.prompt),
+                "first_token": token,
+            })
+            return
         reason = self.scheduler.complete_decode(seq, token, advance_computed=False)
         self._emit(seq, [token] if reason != "stop" else [], reason)
 
@@ -451,8 +539,225 @@ class InferenceEngine:
         self._step_counter += 1
         return self._step_counter
 
+    # -- disaggregation: decode-side admission ------------------------------
+    def _kv_layout_mismatch(self, payload: Dict[str, Any]) -> Optional[str]:
+        """Non-None when a host-staged payload can't be imported into the
+        local pool: another wire layout version, page geometry
+        (L, PS, Hk, D) or element type. Device payloads are same-process
+        buffers and never re-sliced."""
+        if payload.get("device"):
+            return None
+        parts = payload.get("chunks") or ([payload] if payload.get("data") else [])
+        for p in parts:
+            if not p.get("k"):
+                continue
+            bad = kv_payload_incompatible(p, self.runner.kv_page_shape,
+                                          self.runner.kv_wire_dtype)
+            if bad:
+                return bad
+        return None
+
+    def _admit_kv_pending(self) -> None:
+        """Disagg-decode sequences: admit + import transferred KV pages."""
+        still: List[Sequence] = []
+        for seq in self._kv_pending:
+            bad = self._kv_layout_mismatch(seq.kv_import or {})
+            if bad:
+                # checked before admit_with_kv marks the prompt computed:
+                # fall back to local prefill (recompute), never adopt
+                # mis-shaped bytes
+                log.warning("P->D KV payload rejected (%s); recomputing %s "
+                            "locally", bad, seq.request_id)
+                seq.kv_import = None
+                self.scheduler.add(seq)
+                continue
+            try:
+                self._admit_one_kv(seq, still)
+            except Exception:
+                # a malformed transfer payload fails THIS request, not the
+                # step thread (this runs from _drain_inbox)
+                log.exception("KV import failed; erroring %s", seq.request_id)
+                try:
+                    self._emit(seq, [], "error")
+                    self.scheduler.abort(seq.request_id)
+                except Exception:
+                    log.exception("failed to fail sequence %s", seq.request_id)
+        self._kv_pending = still
+
+    def _admit_one_kv(self, seq: Sequence, still: List[Sequence]) -> None:
+        seq.tokens = list(seq.prompt)
+        seq.n_prompt0 = len(seq.prompt)
+        if not self.scheduler.admit_with_kv(seq):
+            still.append(seq)
+            return
+        t0 = time.monotonic()
+        payload = seq.kv_import or {}
+        seq.kv_import = None
+        PS = self.pool.page_size
+        # the prompt's last token is the prefill-sampled one: its KV is
+        # written by the first decode step
+        n_kv_pages = (len(seq.prompt) - 1 + PS - 1) // PS
+        ns = seq.n_shared_pages
+        target = seq.pages[ns:n_kv_pages]
+        if target and payload.get("device"):
+            # colocated transfer: staged buffers are already on the device
+            self.runner.import_pages_device(target, ns, payload["k"], payload["v"])
+        elif target and payload.get("chunks"):
+            # chunked host-staged transfer: each chunk covers global pages
+            # [offset, offset+n); skip the prefix-cache-shared span
+            for ch in payload["chunks"]:
+                off, n = int(ch.get("offset", 0)), int(ch["n_pages"])
+                lo, hi = max(off, ns), min(off + n, n_kv_pages)
+                if lo >= hi or not ch.get("data"):
+                    continue
+                self.runner.import_pages(seq.pages[lo:hi], lo - off, ch)
+        elif target and payload.get("data"):
+            self.runner.import_pages(target, ns, payload)
+        seq.phases["kv_import_s"] = time.monotonic() - t0
+
+    # -- disaggregation: prefill-side export (step thread) -------------------
+    def _expire_parked(self) -> None:
+        if not self._parked:
+            return
+        now = time.monotonic()
+        for rid in [r for r, (s, dl) in self._parked.items() if dl < now]:
+            seq, _ = self._parked.pop(rid)
+            self.scheduler.release_parked(seq)
+
+    def _n_prompt_pages(self, seq: Sequence) -> int:
+        """Pages a parked prompt's KV occupies (export side). The import
+        side takes ceil((len-1)/PS) of the decode prompt, which is one
+        token longer (the first token, whose KV the decode step writes)."""
+        return (len(seq.prompt) + self.pool.page_size - 1) // self.pool.page_size
+
+    def _export_parked_device(self, rid: str):
+        """Colocated P→D: gather the parked pages into device buffers on
+        THIS engine's step thread; the decode engine scatters them on its
+        own. Both launch on the device's current stream, so the scatter
+        runs behind the gather."""
+        entry = self._parked.pop(rid, None)
+        if entry is None:
+            return None
+        seq, _ = entry
+        n = self._n_prompt_pages(seq)
+        try:
+            k, v = self.runner.export_pages_device(seq.pages[:n])
+        finally:
+            self.scheduler.release_parked(seq)
+        return {"device": True, "k": k, "v": v, "n_pages": n}
+
+    def _export_meta(self, rid: str) -> Optional[int]:
+        """Page count of a parked request (no pop: the stream export reads
+        chunk by chunk while the request stays parked)."""
+        entry = self._parked.get(rid)
+        return None if entry is None else self._n_prompt_pages(entry[0])
+
+    def _export_chunk(self, rid: str, start: int, n: int, last: bool):
+        """Export pages [start, start+n) of a parked request; `last` pops
+        and releases. Runs between steps, so chunk reads interleave with
+        this engine's other work."""
+        entry = self._parked.get(rid)
+        if entry is None:
+            return None
+        seq, _ = entry
+        # an actively-consumed transfer must not expire between chunks
+        self._parked[rid] = (seq, time.monotonic() + self.parked_ttl_s)
+        try:
+            payload = self.runner.export_pages(seq.pages[start:start + n])
+        finally:
+            if last:
+                self._parked.pop(rid, None)
+                self.scheduler.release_parked(seq)
+        payload["offset"] = start
+        # importers check coverage against this before trusting the stream
+        # (a truncated transfer must recompute, never half-import)
+        payload["total_pages"] = self._n_prompt_pages(seq)
+        return payload
+
+    def _export_parked(self, rid: str, discard: bool = False):
+        entry = self._parked.pop(rid, None)
+        if entry is None:
+            return None
+        seq, _ = entry
+        try:
+            if discard:
+                return None
+            return self.runner.export_pages(seq.pages[:self._n_prompt_pages(seq)])
+        finally:
+            self.scheduler.release_parked(seq)
+
+    async def _step_thread_call(self, op: str, *args):
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        self._inbox.put((op, (*args, fut, loop)))
+        return await fut
+
+    async def export_parked_kv_device(self, request_id: str):
+        """Device-resident parked-KV export: a same-process decode engine
+        imports the gathered buffers without a host round trip."""
+        return await self._step_thread_call("export_device", request_id)
+
+    async def export_parked_kv(self, request_id: str,
+                               discard: bool = False) -> Optional[Dict[str, Any]]:
+        """Pull a parked request's KV pages (the device read runs on the
+        step thread between steps); releases the parked pages.
+        discard=True releases without reading (early-finished requests)."""
+        return await self._step_thread_call("export", request_id, discard)
+
+    async def export_parked_kv_stream(self, request_id: str, chunk_pages: int = 16):
+        """Chunked parked-KV export: the decode side pulls KV in bounded
+        pieces, each read on the step thread between steps. Yields payload
+        dicts carrying "offset" and "total_pages"."""
+        total = await self._step_thread_call("export_meta", request_id)
+        if total is None:
+            return
+        chunk_pages = max(1, int(chunk_pages))
+        for start in range(0, total, chunk_pages):
+            n = min(chunk_pages, total - start)
+            payload = await self._step_thread_call(
+                "export_chunk", request_id, start, n, start + n >= total)
+            if payload is None:  # parked entry expired mid-stream
+                return
+            yield payload
+
+    # -- KVBM G2 tier (step-thread callbacks) -------------------------------
+    def _offload_page(self, page: int, block_hash: int, parent: Optional[int]) -> None:
+        """Device page being evicted → copy its KV to the host tier."""
+        k, v = kv_payload_to_arrays(self.runner.export_pages([page]))
+        self.host_pool.put([block_hash], [parent], k, v)
+
+    def _onboard_from_host(self, pages: List[int], hashes: List[int],
+                           seq: Optional[Sequence] = None) -> bool:
+        """Host-tier blocks → device pages during admission, imported in
+        `onboard_layer_groups` layer slabs. Returns False when a matched
+        block was evicted between match and get: the scheduler then
+        recomputes instead of trusting a partial import."""
+        t0 = time.perf_counter()
+        try:
+            k, v = self.host_pool.get(hashes)
+        except KeyError:
+            log.info("host-tier block evicted before onboard; recomputing")
+            return False
+        if seq is not None:
+            seq.onboard_tier = "G2"
+        t1 = time.perf_counter()
+        payload = kv_arrays_to_payload(k, v)
+        t2 = time.perf_counter()
+        self.runner.import_pages(pages, 0, payload,
+                                 layer_groups=self.onboard_layer_groups)
+        t3 = time.perf_counter()
+        st = self.onboard_stats
+        st["onboards"] += 1
+        st["blocks"] += len(hashes)
+        st["seconds"] += t3 - t0
+        st["get_s"] += t1 - t0  # host blocks stacked
+        st["wire_s"] += t2 - t1  # stacked pages to wire bytes
+        st["import_s"] += t3 - t2  # bytes to device pages
+        return True
+
     # -- emission ----------------------------------------------------------
-    def _emit(self, seq: Sequence, token_ids: List[int], finish: Optional[str]) -> None:
+    def _emit(self, seq: Sequence, token_ids: List[int], finish: Optional[str],
+              **extra: Any) -> None:
         if token_ids:
             now = time.monotonic()
             if "ttft_s" not in seq.phases:
@@ -464,7 +769,7 @@ class InferenceEngine:
                 n = min(len(token_ids), _ITL_CAP - len(seq.itl))
                 seq.itl.extend([per] * n)
             seq.t_last_emit = now
-        item = engine_output(token_ids, finish)
+        item = engine_output(token_ids, finish, **extra)
         if finish:
             # the final item carries the request's phase spine downstream
             phases: Dict[str, Any] = dict(seq.phases)
@@ -478,6 +783,16 @@ class InferenceEngine:
             return
         out, loop = entry
         loop.call_soon_threadsafe(out.put_nowait, item)
+
+
+def _set_future(fut: asyncio.Future, value) -> None:
+    if not fut.done():
+        fut.set_result(value)
+
+
+def _set_future_exc(fut: asyncio.Future, exc: Exception) -> None:
+    if not fut.done():
+        fut.set_exception(exc)
 
 
 def _stable_seed(request_id: str) -> int:

@@ -4,8 +4,11 @@ Port of dynamo_tpu/engine/model_runner.py's main-path methods: `prefill`,
 `decode`, `decode_multi` (over `_decode_loop`), the fused mixed dispatch
 (`decode_multi_with_prefill(s)`: the ragged flat-token step
 `_ragged_step`, or the padded [N, S] fallback `_mixed_loop`), the
-speculative `verify_spec` on the same ragged step, and `sample_one`, with
-the reference's buckets, `_next_bucket` and `BucketOverflowError`. Params
+speculative `verify_spec` on the same ragged step, `sample_one`, and the
+KV transfer methods (`export_pages(_device)`, `import_pages(_device)` with
+the layer-streamed import) over the block-copy kernels, with the
+reference's buckets, `_next_bucket`, `BucketOverflowError` and KV wire
+format (`KV_WIRE_LAYOUT_VERSION` 2). Params
 and the KV pools live on one device; the pools are updated in place. Each
 dispatch uploads its int32 inputs in one packed copy (`_upload`). The
 fused decode loop (a lax.scan there) is a Python loop here that keeps the
@@ -18,6 +21,7 @@ from __future__ import annotations
 import logging
 import os
 import time
+import warnings
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -28,6 +32,11 @@ from dynamo_tpu_torch.engine.sampling import SamplingParams, sample
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.toolkit import make_kv_pool
+from dynamo_tpu_torch.ops.block_copy import (
+    gather_pages,
+    scatter_pages,
+    scatter_pages_layers,
+)
 from dynamo_tpu_torch.ops.ragged_paged_attention import (
     DEFAULT_Q_BLOCK,
     RAGGED_MAX_SEGS,
@@ -46,6 +55,11 @@ STAT_KEYS = (
     "ragged_mixed_dispatches",  # fused mixed steps (ragged kernel)
     "ragged_verify_dispatches",  # speculative verify steps (ragged kernel)
     "mixed_chunks",  # prefill chunks served by fused mixed dispatches
+    # KV transfer (pages, not pool x pages): every export gathers and every
+    # import scatters once per pool (block-copy kernels)
+    "kv_pages_exported",
+    "kv_pages_imported",
+    "kv_layer_group_scatters",  # layer groups of streamed imports
 )
 
 
@@ -82,6 +96,125 @@ def _fold_seed(seed: int, j: int) -> int:
     """Verify position j > 0 draws with its own seed (the reference's
     `(seed * 1000003 + j) & 0x7FFFFFFF`); position 0 keeps the row's."""
     return int(seed) if j == 0 else (int(seed) * 1000003 + int(j)) & 0x7FFFFFFF
+
+
+# Wire layout version for P→D / cross-worker KV payloads. v2 = token-major
+# [L, n, PS, Hk, D]; v1 (implicit, no field) was head-major. An old-layout
+# peer's bytes sliced under the new axis order would import transposed KV
+# silently — reject and force recompute instead.
+KV_WIRE_LAYOUT_VERSION = 2
+
+
+class KvWireLayoutMismatch(ValueError):
+    pass
+
+
+# element types by their wire names: the reference's numpy names, so a
+# payload crosses between the two packages (not str(torch.bfloat16))
+_WIRE_DTYPES = {torch.bfloat16: "bfloat16", torch.float16: "float16",
+                torch.float32: "float32"}
+_FROM_WIRE = {name: dt for dt, name in _WIRE_DTYPES.items()}
+
+
+def _raw_bytes(x: torch.Tensor) -> bytes:
+    """A CPU tensor's elements as bytes (bf16 has no numpy type)."""
+    return x.contiguous().view(torch.uint8).numpy().tobytes()
+
+
+def kv_arrays_to_payload(k: torch.Tensor, v: torch.Tensor,
+                         tp: int = 1) -> Dict[str, Any]:
+    """KV wire format for P→D transfer and G2 offload: [L, n, PS, Hk, D]
+    (token-major, page axis 1 — the pool layout) CPU tensors as raw bytes
+    + shape/dtype metadata. The page geometry and the exporter's tp degree
+    let an importer validate compatibility and recompute instead of
+    adopting mis-shaped bytes."""
+    out_extra = {}
+    if v.shape != k.shape:
+        # MLA pools are asymmetric: k = latent pages, v = 1-wide stub
+        out_extra["v_shape"] = list(v.shape)
+    return {
+        "data": True,
+        "k": _raw_bytes(k),
+        "v": _raw_bytes(v),
+        "shape": list(k.shape),
+        "dtype": _WIRE_DTYPES[k.dtype],
+        **out_extra,
+        "n_pages": int(k.shape[1]),
+        "layout": KV_WIRE_LAYOUT_VERSION,
+        "page_size": int(k.shape[2]),
+        "kv_heads": int(k.shape[3]),
+        "head_dim": int(k.shape[4]),
+        "layers": int(k.shape[0]),
+        "tp": int(tp),
+    }
+
+
+def layer_group_bounds(num_layers: int, groups: int) -> List[Tuple[int, int]]:
+    """Contiguous [lo, hi) layer slabs for the streamed onboard: `groups`
+    near-equal groups, the earlier ones taking the remainder so the first
+    (blocking) transfer is never the runt."""
+    g = max(1, min(int(groups), int(num_layers)))
+    base, rem = divmod(int(num_layers), g)
+    bounds: List[Tuple[int, int]] = []
+    lo = 0
+    for i in range(g):
+        hi = lo + base + (1 if i < rem else 0)
+        bounds.append((lo, hi))
+        lo = hi
+    return bounds
+
+
+def kv_payload_incompatible(
+    payload: Dict[str, Any],
+    page_shape: Tuple[int, int, int, int],
+    dtype: Optional[str] = None,
+) -> Optional[str]:
+    """Reason string when `payload` cannot be imported into a pool whose
+    per-page geometry is `page_shape` = (L, PS, Hk, D) and (optionally)
+    whose wire dtype name is `dtype`; None when compatible. The exporter's
+    TP degree is deliberately not checked (the wire holds full-head
+    pages)."""
+    if payload.get("layout") != KV_WIRE_LAYOUT_VERSION:
+        return f"layout {payload.get('layout')} != {KV_WIRE_LAYOUT_VERSION}"
+    L, PS, Hk, D = page_shape
+    shape = payload.get("shape") or []
+    if len(shape) != 5:
+        return f"malformed shape {shape}"
+    got = (shape[0], shape[2], shape[3], shape[4])
+    if got != (L, PS, Hk, D):
+        return f"page geometry {got} != local (L={L}, PS={PS}, Hk={Hk}, D={D})"
+    if dtype is not None and payload.get("dtype") != dtype:
+        return f"dtype {payload.get('dtype')} != local {dtype}"
+    return None
+
+
+def kv_payload_to_arrays(payload: Dict[str, Any], page_shape=None, dtype=None):
+    """Inverse of kv_arrays_to_payload: (k, v) CPU tensors over the
+    payload's bytes (read-only; never written), or None if the payload
+    carries no data. Raises KvWireLayoutMismatch when the sender used a
+    different layout version or (when `page_shape`/`dtype` is given) a
+    different page geometry or element type."""
+    if not payload or not payload.get("k"):
+        return None
+    if payload.get("layout") != KV_WIRE_LAYOUT_VERSION:
+        raise KvWireLayoutMismatch(
+            f"kv wire layout {payload.get('layout')} != {KV_WIRE_LAYOUT_VERSION}"
+        )
+    if page_shape is not None:
+        bad = kv_payload_incompatible(payload, page_shape, dtype)
+        if bad:
+            raise KvWireLayoutMismatch(bad)
+    elem = _FROM_WIRE.get(payload["dtype"])
+    if elem is None:
+        raise KvWireLayoutMismatch(f"dtype {payload['dtype']} has no torch type")
+    shape = tuple(payload["shape"])
+    v_shape = tuple(payload.get("v_shape") or shape)
+    with warnings.catch_warnings():
+        # bytes are immutable; the tensors are only read
+        warnings.simplefilter("ignore", UserWarning)
+        k = torch.frombuffer(payload["k"], dtype=elem).reshape(shape)
+        v = torch.frombuffer(payload["v"], dtype=elem).reshape(v_shape)
+    return k, v
 
 
 class ModelRunner:
@@ -518,6 +651,115 @@ class ModelRunner:
                 self._sampling_cache.clear()
             self._sampling_cache[key] = hit
         return hit
+
+    # -- KV transfer: the block-copy kernels -------------------------------
+    # Pages cross the transfer boundary dense in the pool dtype. Page ids
+    # name PagePool pages [0, num_pages); the pools' spare page (index
+    # num_pages, the padding rows' KV) never crosses.
+    def _page_ids(self, *pages: Sequence[int]) -> List[torch.Tensor]:
+        for p in pages[0]:
+            if not 0 <= p < self.num_pages:
+                raise ValueError(f"page {p} outside [0, {self.num_pages})")
+        return self._upload(*pages)
+
+    def _dense_pages(self, pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+        return gather_pages(pool, idx)
+
+    def _store_pages(self, pool: torch.Tensor, idx: torch.Tensor,
+                     dense: torch.Tensor) -> None:
+        scatter_pages(pool, idx, self._staged(dense))
+
+    def _store_pages_layers(self, pool: torch.Tensor, idx: torch.Tensor,
+                            dense: torch.Tensor, layer_off: torch.Tensor) -> None:
+        """Layer-group scatter: dense [Lg, n, PS, Hk, D] pages into pool
+        layers [layer_off, layer_off+Lg) at slots idx — the per-group unit
+        of the streamed onboard."""
+        scatter_pages_layers(pool, idx, self._staged(dense), layer_off)
+
+    def _staged(self, x: torch.Tensor) -> torch.Tensor:
+        """Pages as the kernels take them: contiguous, on this device, in
+        the pool dtype."""
+        return x.contiguous().to(self.device, self.dtype)
+
+    def export_pages_device(self, pages: List[int]):
+        """Gather whole KV pages into fresh device buffers (no host copy),
+        [L, n, PS, Hk, D] per pool. The gather materializes new tensors, so
+        the source pages may be reused once it is enqueued: later writes
+        run behind it on the same stream."""
+        idx, = self._page_ids(pages)
+        self.stats["kv_pages_exported"] += len(pages)
+        return self._dense_pages(self.k_pool, idx), self._dense_pages(self.v_pool, idx)
+
+    def import_pages_device(self, target_pages: List[int], offset: int, k, v) -> None:
+        """Scatter device-staged pages [:, offset:offset+n] into this
+        pool's slots (the colocated P→D transfer; the host-staged path
+        below is the fallback)."""
+        idx, = self._page_ids(target_pages)
+        n = len(target_pages)
+        self._store_pages(self.k_pool, idx, k[:, offset:offset + n])
+        self._store_pages(self.v_pool, idx, v[:, offset:offset + n])
+        self.stats["kv_pages_imported"] += n
+
+    def export_pages(self, pages: List[int]) -> Dict[str, Any]:
+        """Device→host read of whole KV pages for P→D transfer and the
+        host tier: one gather per pool into a device buffer, one copy per
+        pool into pinned host memory, then the wire bytes
+        [L, n_pages, PS, Hk, D]."""
+        k, v = self.export_pages_device(pages)
+        if self.device.type == "cuda":
+            k_h = torch.empty(k.shape, dtype=k.dtype, pin_memory=True)
+            v_h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
+            k_h.copy_(k)
+            v_h.copy_(v)
+            k, v = k_h, v_h
+        return kv_arrays_to_payload(k, v)
+
+    @property
+    def kv_page_shape(self) -> Tuple[int, int, int, int]:
+        """(L, PS, Hk, D) page geometry of this runner's pools — the local
+        side of the wire layout handshake."""
+        L, _, PS, Hk, D = self.k_pool.shape
+        return (L, PS, Hk, D)
+
+    @property
+    def kv_wire_dtype(self) -> str:
+        """Dtype name pages cross the transfer boundary with."""
+        return _WIRE_DTYPES[self.dtype]
+
+    def import_pages(self, target_pages: List[int], offset: int,
+                     payload: Dict[str, Any], layer_groups: int = 1) -> None:
+        """Host→device write of transferred pages into this pool's page
+        slots. `offset` = first payload page to use (earlier pages were
+        satisfied by the local prefix cache). Validates the payload's
+        layout metadata against the local pool geometry
+        (KvWireLayoutMismatch on any divergence).
+
+        layer_groups > 1 streams the import in contiguous layer slabs
+        (FlowKV-style): each group's host→device copy and scatter are
+        enqueued on their own. Final pool contents are identical to a whole-sequence
+        import."""
+        arrays = kv_payload_to_arrays(payload, self.kv_page_shape,
+                                      self.kv_wire_dtype)
+        if arrays is None:
+            return
+        k, v = arrays
+        n = len(target_pages)
+        sel = slice(offset, offset + n)
+        if layer_groups <= 1:
+            idx, = self._page_ids(target_pages)
+            self._store_pages(self.k_pool, idx, k[:, sel])
+            self._store_pages(self.v_pool, idx, v[:, sel])
+        else:
+            bounds = layer_group_bounds(self.kv_page_shape[0], layer_groups)
+            # the page list and every group's first layer: one upload
+            idx, offs = self._page_ids(target_pages, [lo for lo, _ in bounds])
+            for g, (lo, hi) in enumerate(bounds):
+                self._store_pages_layers(self.k_pool, idx, k[lo:hi, sel],
+                                         offs[g:g + 1])
+                self._store_pages_layers(self.v_pool, idx, v[lo:hi, sel],
+                                         offs[g:g + 1])
+                self.stats["kv_layer_group_scatters"] += 1
+        self.stats["kv_pages_imported"] += n
 
     def _pad_page_table(self, rows: List[List[int]], B: Optional[int] = None) -> np.ndarray:
         """[B, max_pages_per_seq] int32, padded with page 0 (a real page:

@@ -3,8 +3,9 @@ and recompute-preemption.
 
 Pure host logic, copied from dynamo_tpu/engine/scheduler.py with the
 parts this port does not serve yet left out: tree speculation, LoRA and
-multimodal hash-chain seeds, the host KV tier, disaggregation and
-fork-on-branch. Linear speculative drafts stay: the engine proposes them
+multimodal hash-chain seeds and fork-on-branch. Disaggregation (park,
+release_parked, admit_with_kv) and the G2 host-tier continuation of
+`_try_allocate` are in. Linear speculative drafts stay: the engine proposes them
 before planning, the scheduler trims them to the mixed token pool and the
 ragged dispatch's sampled rows, and reserves their KV slots. What stays
 plans exactly as the reference does, so both engines see the same
@@ -28,7 +29,7 @@ from enum import Enum
 from typing import Any, Dict, List, Optional
 
 from dynamo_tpu_torch.engine.kv_pool import NoSpace, PagePool
-from dynamo_tpu_torch.tokens.hashing import hash_block
+from dynamo_tpu_torch.tokens.hashing import block_hashes, hash_block
 
 log = logging.getLogger("dynamo_tpu_torch.engine.scheduler")
 
@@ -47,10 +48,15 @@ class Sequence:
     sampling: Dict[str, Any]
     stop: Dict[str, Any]
     arrival: float = 0.0
+    # disaggregation roles: None = aggregated; "prefill" = compute KV + the
+    # first token, then park; "decode" = KV arrives by transfer, no prefill
+    disagg: Optional[str] = None
+    kv_import: Any = None  # page payload for disagg-decode admission
     state: SeqState = SeqState.WAITING
     tokens: List[int] = field(default_factory=list)  # prompt + generated
     pages: List[int] = field(default_factory=list)
     computed_len: int = 0
+    n_shared_pages: int = 0  # leading pages from prefix-cache hits
     hash_chain: List[int] = field(default_factory=list)  # registered block hashes
     finish_reason: Optional[str] = None
     n_preemptions: int = 0
@@ -59,6 +65,8 @@ class Sequence:
     phases: Dict[str, float] = field(default_factory=dict)
     itl: List[float] = field(default_factory=list)  # bounded ITL samples
     t_last_emit: float = 0.0  # monotonic time of the last token emission
+    # deepest KV tier the admission onboard touched ("G2")
+    onboard_tier: Optional[str] = None
     # speculative decoding: draft tokens proposed for THIS iteration
     # (engine sets before step_plan; the scheduler trims them to the
     # mixed token budget; the engine consumes and clears after verify)
@@ -108,6 +116,8 @@ class Scheduler:
         mixed_prefill_tokens: int = 256,
         mixed_prefill_seqs: int = 8,
         mixed_min_chunk: int = 16,
+        host_tier=None,  # HostKvPool-like: .match(hashes) -> n
+        host_onboard=None,  # cb(pages, hashes, seq=None) -> bool (G2→G1)
         max_seq_tokens: int = 0,  # model context length (0 = page cap only)
         spec_max_tokens: int = 0,  # per-iteration cap on speculative
         #   draft tokens (0 = bounded by the mixed pool leftover alone)
@@ -131,6 +141,8 @@ class Scheduler:
         self.mixed_min_chunk = max(1, mixed_min_chunk)
         self.spec_max_tokens = max(0, spec_max_tokens)
         self.spec_seg_budget = max(0, spec_seg_budget)
+        self.host_tier = host_tier
+        self.host_onboard = host_onboard
         self.waiting: deque[Sequence] = deque()
         self.active: List[Sequence] = []
         # prompt tokens served from the prefix cache instead of prefilled
@@ -263,14 +275,25 @@ class Scheduler:
         prompt = seq.prompt
         matched_pages: List[int] = []
         hashes: List[int] = []
-        if self.enable_prefix_cache and seq.n_preemptions == 0:
+        use_cache = self.enable_prefix_cache and seq.n_preemptions == 0
+        max_shared = (len(prompt) - 1) // PS
+        if use_cache:
             matched_pages, hashes = self.pool.match_prefix(prompt)
             # never share the page containing the final prompt token: its
             # logits must be recomputed, so cap the match below it
-            max_shared = (len(prompt) - 1) // PS
             while len(matched_pages) > max_shared:
                 self.pool.release([matched_pages.pop()])
                 hashes.pop()
+
+        # G2 host-tier continuation: blocks beyond the device match that the
+        # host pool holds get onboarded into freshly-allocated pages
+        host_n = 0
+        host_hashes: List[int] = []
+        if use_cache and self.host_tier is not None and self.host_onboard is not None:
+            candidates = block_hashes(prompt, PS)[len(matched_pages):max_shared]
+            host_n = self.host_tier.match(candidates)
+            host_hashes = candidates[:host_n]
+
         match_len = len(matched_pages) * PS
         # pages for the rest of the prompt plus the first generated token
         need = -(-(len(prompt) + 1) // PS) - len(matched_pages)
@@ -279,7 +302,27 @@ class Scheduler:
         except NoSpace:
             self.pool.release(matched_pages)
             return False
+
+        if host_n:
+            t_onboard = time.monotonic()
+            if self.host_onboard(fresh[:host_n], host_hashes, seq):
+                # latency spine: lower-tier KV promotion paid at admission
+                seq.phases["kv_onboard_s"] = (
+                    seq.phases.get("kv_onboard_s", 0.0)
+                    + (time.monotonic() - t_onboard))
+                parent = hashes[-1] if hashes else None
+                for page, h in zip(fresh[:host_n], host_hashes):
+                    canonical = self.pool.register(page, h, parent)
+                    if canonical != page:  # raced with another registration
+                        self.pool._ref_inc(canonical)
+                        self.pool.release([page])
+                        fresh[fresh.index(page)] = canonical
+                    parent = h
+                hashes = hashes + host_hashes
+                match_len = (len(matched_pages) + host_n) * PS
+
         seq.pages = matched_pages + fresh
+        seq.n_shared_pages = len(matched_pages)
         seq.hash_chain = hashes
         seq.computed_len = match_len
         self.reused_prefix_tokens += match_len
@@ -325,6 +368,35 @@ class Scheduler:
         self._register_complete_pages(seq)
         if plan.is_last_chunk:
             seq.state = SeqState.RUNNING
+
+    def park(self, seq: Sequence) -> None:
+        """Disagg-prefill: KV computed; hold pages (still ref'd) for the
+        decode worker's pull, out of the active set."""
+        seq.state = SeqState.FINISHED
+        seq.finish_reason = "prefill_complete"
+        if seq in self.active:
+            self.active.remove(seq)
+
+    def release_parked(self, seq: Sequence) -> None:
+        self.pool.release(seq.pages)
+        seq.pages = []
+
+    def admit_with_kv(self, seq: Sequence) -> bool:
+        """Disagg-decode admission: allocate pages for the full (computed)
+        prompt; the caller imports transferred KV into the non-shared pages
+        and the sequence starts RUNNING with no prefill pass.
+
+        The prompt's last token is the prefill-sampled token whose KV is
+        *not* yet computed, so computed_len = len(prompt) - 1."""
+        if len(self.active) >= self.max_batch:
+            return False
+        if not self._try_allocate(seq):
+            return False
+        seq.computed_len = len(seq.prompt) - 1
+        seq.state = SeqState.RUNNING
+        self.active.append(seq)
+        self._register_complete_pages(seq)
+        return True
 
     # -- decode ------------------------------------------------------------
     def _ensure_decode_capacity(

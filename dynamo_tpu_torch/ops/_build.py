@@ -47,6 +47,15 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "ragged_paged_attention": (
             [_P] * 7 + [_I] * 7 + [_F, _P], _I),
     },
+    "block_copy": {
+        # pool, idx, out, L, NP, n, PS, Hk, R (16-byte vectors per D row),
+        # head_major, stream
+        "gather_pages": ([_P] * 3 + [_I] * 7 + [_P], _I),
+        # pool, idx, pages, L, NP, n, page_vecs, stream
+        "scatter_pages": ([_P] * 3 + [_I] * 4 + [_P], _I),
+        # pool, idx, layer_off, pages, Lg, NP, n, page_vecs, stream
+        "scatter_pages_layers": ([_P] * 4 + [_I] * 4 + [_P], _I),
+    },
 }
 
 _lock = threading.Lock()

@@ -1,7 +1,7 @@
 """The port stands alone: dynamo_tpu_torch, chip_smoke.py and
 scripts/torch_profile.py import neither JAX nor anything of the
-dynamo_tpu package (the machine with the card has no JAX). Note the
-prefix: `dynamo_tpu_torch` starts with `dynamo_tpu`.
+dynamo_tpu package, nor ml_dtypes (the machine with the card has none of
+them). Note the prefix: `dynamo_tpu_torch` starts with `dynamo_tpu`.
 """
 
 import ast
@@ -19,7 +19,7 @@ PKG = ROOT / "dynamo_tpu_torch"
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "dynamo_tpu")
+    return top in ("jax", "jaxlib", "dynamo_tpu", "ml_dtypes")
 
 
 def _modules():
@@ -32,7 +32,8 @@ def _modules():
 def test_every_module_imports_without_jax_or_dynamo_tpu():
     mods = ["dynamo_tpu_torch"] + _modules()
     for m in ("engine.engine", "engine.ngram_draft",
-              "ops.ragged_paged_attention"):
+              "ops.ragged_paged_attention", "ops.block_copy",
+              "kvbm.host_pool", "worker_common", "router.prefill_router"):
         assert f"dynamo_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -66,5 +67,5 @@ def test_no_source_file_imports_jax_or_dynamo_tpu():
 
 def test_forbidden_prefix_rule():
     assert _forbidden("dynamo_tpu") and _forbidden("dynamo_tpu.engine")
-    assert _forbidden("jax.numpy")
+    assert _forbidden("jax.numpy") and _forbidden("ml_dtypes")
     assert not _forbidden("dynamo_tpu_torch") and not _forbidden("dynamo_tpu_torch.ops")
