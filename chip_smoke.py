@@ -20,7 +20,12 @@ Phases, each printing one JSON line:
                page shape (L 28, PS 16, Hk 8, D 128, bf16) in a 2048-page
                pool, 94 pages in random order: token- and head-major
                gather, scatter, and a 4-group layer scatter, bit for bit
-               against their plain versions;
+               against their plain versions; then (`mla_kernels`) the two
+               MLA kernels at DeepSeek-V3's shapes (H 128, d_c 512, d_rh
+               64, PS 16, bf16): decode at B 8 (an empty row), prefill
+               S 512 with q_len 450 over 700 prior tokens, a packed [4, 256]
+               prefill with an all-padding row (exactly 0), and other page
+               sizes and head counts, untimed;
   4. engine  - build_engine for llama-3.2-3b at full width and depth with
                random weights and serve 8 concurrent requests (chunked
                prefill over prior context, a prefix-cache hit, greedy and
@@ -48,10 +53,22 @@ Phases, each printing one JSON line:
                equal to a cold prefill's);
   5. parity  - prefill-plus-decode inputs, then one ragged dispatch of
                decode rows and a chunk over prior context, through the
-               kernel path and the plain attention path of the forward.
+               kernel path and the plain attention path of the forward;
+  6. mla     - (`engine_mla`) DeepSeek-V3's three dense layers at full
+               width (get_config("deepseek-v3").with_(n_layers=3,
+               n_experts=0), random bf16 weights) serve the same 8 requests
+               at the card's default (fused plans on the padded fallback:
+               MLA has no ragged path); each MLA kernel's launches must
+               equal its forward passes x 3 and no GQA kernel may launch.
+               Then (`mla_pages`) one request's latent and stub pages go
+               through export/import on the device and through the wire
+               with a 3-group layer-streamed import, bit for bit, and
+               (`parity_mla`) prefill and two decode steps through both
+               attention paths of the forward.
 Then the `kernels` summary line (launches from the fused phase for the
-attention kernels, from engine_disagg for gather and scatter, from
-engine_tiers for the layer scatter), the
+GQA attention kernels, from engine_disagg for gather and scatter, from
+engine_tiers for the layer scatter, from engine_mla for the MLA kernels),
+the
 card's name and power limit, and, last, the contract line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
 It needs a CUDA device and the repository around it; it builds into
@@ -61,20 +78,31 @@ build/dynamo_tpu_torch/.
 from __future__ import annotations
 
 import asyncio
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
+import warnings
 
 import torch
 import torch.nn.functional as F
 
+from dynamo_tpu_torch.engine.model_runner import ModelRunner
+from dynamo_tpu_torch.models.config import get_config
+from dynamo_tpu_torch.models.toolkit import attn_score_scale
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops import block_copy as bc
 from dynamo_tpu_torch.ops.flash_prefill import (
     prefill_paged_attention,
     prefill_paged_attention_ref,
+)
+from dynamo_tpu_torch.ops.mla_attention import (
+    decode_mla_attention,
+    decode_mla_attention_ref,
+    prefill_mla_attention,
+    prefill_mla_attention_ref,
 )
 from dynamo_tpu_torch.ops.paged_attention import (
     decode_paged_attention,
@@ -129,14 +157,26 @@ SOURCES = {
                       "dynamo_tpu/ops/block_copy.py:226"),
     "scatter_pages_layers": ("dynamo_tpu_torch/ops/csrc/block_copy.cu",
                              "dynamo_tpu/ops/block_copy.py:186"),
+    "decode_mla_attention": ("dynamo_tpu_torch/ops/csrc/mla_attention.cu",
+                             "dynamo_tpu/ops/mla_attention.py:161"),
+    "prefill_mla_attention": ("dynamo_tpu_torch/ops/csrc/mla_attention.cu",
+                              "dynamo_tpu/ops/mla_attention.py:299"),
 }
 KERNELS = {"decode_paged_attention": decode_paged_attention,
            "prefill_paged_attention": prefill_paged_attention,
            "ragged_paged_attention": ragged_paged_attention,
            "gather_pages": bc.gather_pages,
            "scatter_pages": bc.scatter_pages,
-           "scatter_pages_layers": bc.scatter_pages_layers}
+           "scatter_pages_layers": bc.scatter_pages_layers,
+           "decode_mla_attention": decode_mla_attention,
+           "prefill_mla_attention": prefill_mla_attention}
 COPY_KERNELS = ("gather_pages", "scatter_pages", "scatter_pages_layers")
+GQA_KERNELS = ("decode_paged_attention", "prefill_paged_attention",
+               "ragged_paged_attention")
+MLA_KERNELS = ("decode_mla_attention", "prefill_mla_attention")
+# DeepSeek-V3's first three layers (dense FFN; the later MoE layers wait for
+# ROADMAP A.11) at full width
+MLA_CONFIG = get_config("deepseek-v3").with_(n_layers=3, n_experts=0)
 
 
 class CheckFailed(Exception):
@@ -557,6 +597,178 @@ def copy_kernel_phase(dev):
     return out
 
 
+# the MLA kernels at DeepSeek-V3's shapes
+MLA_H, MLA_DC, MLA_DR, MLA_PS = 128, 512, 64, 16
+MLA_DECODE_KV = [4096, 0, 1, 17, 1000, 2048, 3333, 513]
+MLA_PACKED = [(256, 0), (130, 500), (0, 0), (77, 1500)]  # (q_len, prior)
+
+
+def mla_library(q, dense, mask, dc, scale):
+    """One PyTorch call for the same function over the latent gathered
+    dense beforehand: q [B, H, n, Dl], dense [B, C, Dl], mask [B, 1, n, C].
+    SDPA with K = the latent (one head shared by all) and V = its first dc
+    columns, on the first fused backend that takes it; where every one
+    refuses (Dk != Dv, Dk 576), a matmul-softmax-matmul. Returns (fn,
+    backend name)."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    k = dense[:, None]
+    v = dense[:, None, :, :dc]
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION):
+        def run(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, scale=scale, enable_gqa=True)
+        try:
+            with warnings.catch_warnings():  # each refusal warns its reason
+                warnings.simplefilter("ignore", UserWarning)
+                run()
+            torch.cuda.synchronize()
+            return run, f"sdpa_{backend.name.lower()}"
+        except (RuntimeError, TypeError):
+            continue
+    B, H, n, Dl = q.shape
+    qf = q.reshape(B, H * n, Dl)
+    maskf = mask.expand(B, H, n, -1).reshape(B, H * n, -1)
+    lat_t = dense.transpose(1, 2)
+    val = dense[..., :dc]
+
+    def mm():
+        s = torch.bmm(qf, lat_t).float() * scale
+        p = torch.softmax(s.masked_fill(~maskf, float("-inf")), -1)
+        return torch.bmm(p.to(q.dtype), val)
+    return mm, "matmul_softmax_matmul"
+
+
+def mla_kernel_phase(dev):
+    """Both MLA kernels against their plain versions at DeepSeek-V3's
+    shapes, timed with their bound and the library yardstick; a packed
+    prefill batch with an all-padding row; other page sizes and head
+    counts, untimed."""
+    gen = torch.Generator(device="cpu").manual_seed(6)
+    H, dc, dr, PS = MLA_H, MLA_DC, MLA_DR, MLA_PS
+    Dl = dc + dr
+    scale = attn_score_scale(MLA_CONFIG, MLA_CONFIG.qk_nope_head_dim + dr)
+    results = {}
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).bfloat16().to(dev)
+
+    # decode: B 8, kv_len up to 4096, one empty row
+    kv_list = MLA_DECODE_KV
+    B, MP = len(kv_list), 4096 // PS
+    NP = B * MP + 1
+    lat = rnd(NP, PS, 1, Dl)
+    q = rnd(B, H, Dl)
+    pt = random_pages(gen, B, MP, NP, dev)
+    kvl = torch.tensor(kv_list, dtype=torch.int32, device=dev)
+    args = (q, lat, pt, kvl)
+    out = decode_mla_attention(*args, dc=dc, scale=scale)
+    torch.cuda.synchronize()
+    ref = decode_mla_attention_ref(*args, dc=dc, scale=scale)
+    err = (out.float() - ref.float()).abs().max().item()
+    check(torch.isfinite(out.float()).all().item(), "MLA decode output not finite")
+    check(out[1].float().abs().max().item() == 0.0, "MLA decode kv_len=0 row is not 0")
+    check(err <= KERNEL_TOL, f"MLA decode max abs err {err} > {KERNEL_TOL}")
+    # what the data needs: q read, out written, each visible latent row
+    # once, the table entries of the visible pages, kv_lens; one score
+    # (Dl wide) and one PV product (dc wide) per (head, context token)
+    n_tok = sum(kv_list)
+    n_bytes = (q.numel() * 2 + B * H * dc * 2 + n_tok * Dl * 2
+               + sum(-(-k // PS) for k in kv_list) * 4 + B * 4)
+    bound_ms, bound_by = bound(n_bytes, 2 * n_tok * H * (Dl + dc))
+    dense = lat[pt.long()].reshape(B, MP * PS, Dl)
+    mask = (torch.arange(MP * PS, device=dev)[None, :] < kvl[:, None])[:, None, None, :]
+    lib_fn, lib_name = mla_library(q[:, :, None], dense, mask, dc, scale)
+    results["decode_mla_attention"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: decode_mla_attention(*args, dc=dc, scale=scale)),
+        "plain_ms": cuda_ms(lambda: decode_mla_attention_ref(*args, dc=dc, scale=scale)),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": cuda_ms(lib_fn), "library": lib_name,
+        "shape": {"B": B, "H": H, "dc": dc, "dr": dr, "PS": PS, "kv_lens": kv_list},
+    }
+    del lat, dense, args
+
+    # prefill: S 512, q_len 450 over 700 prior tokens (padding rows after)
+    S, prior, q_len = 512, 700, 450
+    kv = prior + q_len
+    MP = -(-kv // PS) + 2  # table tail past kv_len: other pages
+    lat = rnd(MP + 1, PS, 1, Dl)
+    q = rnd(1, S, H, Dl)
+    pt = random_pages(gen, 1, MP, MP + 1, dev)
+    ints = [torch.tensor([x], dtype=torch.int32, device=dev) for x in (prior, q_len, kv)]
+    args = (q, lat, pt, *ints)
+    out = prefill_mla_attention(*args, dc=dc, scale=scale)
+    torch.cuda.synchronize()
+    ref = prefill_mla_attention_ref(*args, dc=dc, scale=scale)
+    err = (out[:, :q_len].float() - ref[:, :q_len].float()).abs().max().item()
+    check(torch.isfinite(out.float()).all().item(), "MLA prefill output not finite")
+    check(out[:, q_len:].float().abs().max().item() == 0.0,
+          "MLA prefill padding rows are not 0")
+    check(err <= KERNEL_TOL, f"MLA prefill max abs err {err} > {KERNEL_TOL}")
+    n_pairs = sum(min(prior + s + 1, kv) for s in range(q_len))
+    n_bytes = (q_len * H * Dl * 2 + S * H * dc * 2 + kv * Dl * 2
+               + (-(-kv // PS)) * 4 + 3 * 4)
+    bound_ms, bound_by = bound(n_bytes, 2 * n_pairs * H * (Dl + dc))
+    dense = lat[pt.long()].reshape(1, MP * PS, Dl)
+    s_pos = prior + torch.arange(q_len, device=dev)
+    c_pos = torch.arange(MP * PS, device=dev)
+    mask = ((c_pos[None, :] <= s_pos[:, None]) & (c_pos[None, :] < kv))[None, None]
+    q_heads = q[:, :q_len].permute(0, 2, 1, 3).contiguous()  # [1, H, n, Dl]
+    lib_fn, lib_name = mla_library(q_heads, dense, mask, dc, scale)
+    results["prefill_mla_attention"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: prefill_mla_attention(*args, dc=dc, scale=scale)),
+        "plain_ms": cuda_ms(lambda: prefill_mla_attention_ref(*args, dc=dc, scale=scale),
+                            iters=5),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+        "library_ms": cuda_ms(lib_fn), "library": lib_name,
+        "shape": {"S": S, "q_len": q_len, "prior": prior, "H": H, "dc": dc,
+                  "dr": dr, "PS": PS},
+    }
+    del lat, dense, args, q_heads
+
+    # a packed [4, 256] prefill batch (the padded fallback's shape) with an
+    # all-padding row, then other page sizes and head counts
+    cases = {}
+    for name, (PSx, Hx, segs) in {
+            "packed": (PS, H, MLA_PACKED),
+            "PS8_H16": (8, 16, [(200, 37), (1, 0), (0, 0)]),
+            "PS32_H32": (32, 32, [(64, 900), (33, 5)])}.items():
+        Bx, Sx = len(segs), 256 if name == "packed" else 200
+        MPx = max(-(-(n + p) // PSx) for n, p in segs) + 1
+        NPx = Bx * MPx + 1
+        lat = rnd(NPx, PSx, 1, Dl)
+        ptx = random_pages(gen, Bx, MPx, NPx, dev)
+        qs, ql, kvx = ([p for _, p in segs], [n for n, _ in segs],
+                       [n + p for n, p in segs])
+        ints = [torch.tensor(x, dtype=torch.int32, device=dev) for x in (qs, ql, kvx)]
+        pargs = (rnd(Bx, Sx, Hx, Dl), lat, ptx, *ints)
+        got = prefill_mla_attention(*pargs, dc=dc, scale=scale)
+        dargs = (rnd(Bx, Hx, Dl), lat, ptx, ints[2])
+        got_d = decode_mla_attention(*dargs, dc=dc, scale=scale)
+        torch.cuda.synchronize()
+        want = prefill_mla_attention_ref(*pargs, dc=dc, scale=scale)
+        want_d = decode_mla_attention_ref(*dargs, dc=dc, scale=scale)
+        pad_zero = all(got[b, n:].float().abs().max().item() == 0.0
+                       for b, (n, _) in enumerate(segs) if n < Sx)
+        check(pad_zero, f"MLA prefill padding rows are not 0 ({name})")
+        e_p = max((got[b, :n].float() - want[b, :n].float()).abs().max().item()
+                  for b, (n, _) in enumerate(segs) if n > 0)
+        e_d = (got_d.float() - want_d.float()).abs().max().item()
+        check(max(e_p, e_d) <= KERNEL_TOL,
+              f"MLA kernels at {name}: prefill {e_p}, decode {e_d}")
+        cases[name] = {"segments": segs, "S": Sx, "PS": PSx, "H": Hx,
+                       "prefill_max_abs_err": e_p, "decode_max_abs_err": e_d}
+        del lat, pargs, dargs
+    results["prefill_mla_attention"]["cases"] = cases
+    torch.cuda.empty_cache()
+    emit({"phase": "mla_kernels", "tol": KERNEL_TOL, **results})
+    return results
+
+
 async def _serve(engine, reqs, shared_idx, late_req):
     """Serve `reqs` concurrently; `late_req` (sharing a prefix with
     reqs[shared_idx]) is sent once that request has its first token, so
@@ -642,16 +854,22 @@ def serve(engine, seed: int, spec: bool = False):
         _serve(engine, reqs, len(reqs) - 1, late), 900))
 
 
-def check_launches(phase: str, launches, stats, L: int) -> None:
+def check_launches(phase: str, launches, stats, L: int, mla: bool = False) -> None:
     """Each kernel launched once per layer of each forward pass of its
-    kind, and nowhere else."""
-    want = {
-        "prefill_paged_attention":
-            stats["prefill_chunks"] + stats["padded_prefill_dispatches"],
-        "decode_paged_attention": stats["decode_steps"],
-        "ragged_paged_attention":
-            stats["ragged_mixed_dispatches"] + stats["ragged_verify_dispatches"],
-    }
+    kind, and nowhere else (an MLA model launches no GQA kernel and the
+    other way round)."""
+    prefill = stats["prefill_chunks"] + stats["padded_prefill_dispatches"]
+    ragged = stats["ragged_mixed_dispatches"] + stats["ragged_verify_dispatches"]
+    if mla:
+        want = {"prefill_mla_attention": prefill,
+                "decode_mla_attention": stats["decode_steps"]}
+        want.update({name: 0 for name in GQA_KERNELS})
+        check(ragged == 0, f"{phase}: an MLA model ran ragged passes: {stats}")
+    else:
+        want = {"prefill_paged_attention": prefill,
+                "decode_paged_attention": stats["decode_steps"],
+                "ragged_paged_attention": ragged}
+        want.update({name: 0 for name in MLA_KERNELS})
     for name, n in want.items():
         check(launches[name] == n * L,
               f"{phase}: {name} launches {launches[name]} != {n} passes x {L}")
@@ -698,7 +916,7 @@ def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
               f"{phase}: r{i} emitted a token out of range")
     check(stats["prefill_chunks"] > 0 and stats["decode_steps"] > 0,
           f"{phase}: engine ran no prefill or no decode: {stats}")
-    check_launches(phase, launches, stats, L)
+    check_launches(phase, launches, stats, L, mla=runner.config.is_mla)
     reused = engine.scheduler.reused_prefix_tokens
     check(reused >= 256, f"{phase}: late request reused only {reused} prefix tokens")
     ttft = sorted(r[2].get("ttft_s", float("nan")) for r in results)
@@ -739,7 +957,7 @@ def engine_phases(dev):
     rec, launches, fused = engine_phase(runner, "fused", build_s=build_s)
     st = rec["stats"]
     check(rec["fused_mixed"], "fused: the engine did not fuse on the card")
-    check(all(n > 0 for k, n in launches.items() if k not in COPY_KERNELS),
+    check(all(launches[k] > 0 for k in GQA_KERNELS),
           f"fused: a kernel of the main path never launched: {launches}")
     # more chunks than fused dispatches: some plan packed two or more
     check(st["mixed_chunks"] > st["ragged_mixed_dispatches"] > 0,
@@ -1060,11 +1278,11 @@ def tiers_phase(params):
     return launches
 
 
-def parity_phase(runner, dev):
+def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True):
     """Three sequences prefilled in one chunk (S = 320, padding rows),
-    two decode steps of the first two (the third a padding row), then one
-    ragged dispatch: both decode rows and a 77-token chunk of the third
-    over its 90 prior tokens (T 88, a 9-row tail). Through
+    two decode steps of the first two (the third a padding row), then
+    (`ragged`) one ragged dispatch: both decode rows and a 77-token chunk
+    of the third over its 90 prior tokens (T 88, a 9-row tail). Through
     forward(attn_impl="kernel") and forward(attn_impl="ref") on their own
     pools; decode inputs are the kernel path's greedy tokens, fed to both."""
     from dynamo_tpu_torch.models import llama
@@ -1107,8 +1325,27 @@ def parity_phase(runner, dev):
         steps.append((nxt[:, None], p1,
                       torch.where(p1[:, 0] < 0, 0, p1[:, 0] + 1).to(torch.int32),
                       None))
-    # the ragged dispatch: the decode rows' next tokens at lens + 2, and
-    # the third sequence's chunk
+    steps_run = ["prefill", "decode", "decode"]
+    if ragged:
+        ragged_parity_step(cfg, params, pools, nxt, lens, pages, MP, gen, dev,
+                           compare)
+        steps_run.append("ragged")
+    worst = max(rel)
+    emit({"phase": phase, "model": cfg.name, "steps": steps_run,
+          "rel_l2_err_per_step": rel, "max_abs_err": worst_abs,
+          "tol_rel_l2": FORWARD_REL_TOL,
+          "greedy_agreement": sum(agree) / len(agree)})
+    check(worst <= FORWARD_REL_TOL,
+          f"{phase}: kernel vs plain forward: relative L2 error {worst} > "
+          f"{FORWARD_REL_TOL}")
+
+
+def ragged_parity_step(cfg, params, pools, nxt, lens, pages, MP, gen, dev,
+                       compare):
+    """The ragged dispatch of parity_phase: the decode rows' next tokens at
+    lens + 2, and the third sequence's 77-token chunk."""
+    from dynamo_tpu_torch.models import llama
+
     chunk = torch.randint(0, cfg.vocab_size, (77,), generator=gen).tolist()
     q_lens, starts = [1, 1, 77], [lens[0] + 2, lens[1] + 2, lens[2]]
     md = build_ragged_metadata(q_lens, starts, [s + n for s, n in zip(starts, q_lens)],
@@ -1125,13 +1362,82 @@ def parity_phase(runner, dev):
                                  *pools[impl], last_index=gather.to(dev),
                                  attn_impl=impl, ragged=ragged)[0, :3]
              for impl in ("kernel", "ref")})
-    worst = max(rel)
-    emit({"phase": "parity", "steps": ["prefill", "decode", "decode", "ragged"],
-          "rel_l2_err_per_step": rel, "max_abs_err": worst_abs,
-          "tol_rel_l2": FORWARD_REL_TOL,
-          "greedy_agreement": sum(agree) / len(agree)})
-    check(worst <= FORWARD_REL_TOL,
-          f"kernel vs plain forward: relative L2 error {worst} > {FORWARD_REL_TOL}")
+
+
+def mla_pages_phase(engine, prompt) -> None:
+    """MLA pages through the copy kernels: the latent and stub pages of
+    `prompt` (cached by the finished engine) go export_pages_device ->
+    import_pages_device into fresh slots, and export_pages ->
+    import_pages(layer_groups=3) into others, bit for bit, with the copy
+    kernels' launches counted."""
+    runner = engine.runner
+    src = [engine.pool.by_hash[h] for h in block_hashes(prompt, PAGE_SIZE)]
+    free = [pg for pg in range(runner.num_pages - 1, -1, -1) if pg not in set(src)]
+    dev_dst, wire_dst = free[:len(src)], free[len(src):2 * len(src)]
+    torch.cuda.synchronize()
+    _reset(runner)
+    k, v = runner.export_pages_device(src)
+    runner.import_pages_device(dev_dst, 0, k, v)
+    payload = runner.export_pages(src)
+    runner.import_pages(wire_dst, 0, payload, layer_groups=3)
+    torch.cuda.synchronize()
+    launches = {name: KERNELS[name].launches for name in COPY_KERNELS}
+    for pool in (runner.k_pool, runner.v_pool):
+        check(torch.equal(pool[:, dev_dst], pool[:, src]),
+              "mla_pages: the device round trip changed the pages")
+        check(torch.equal(pool[:, wire_dst], pool[:, src]),
+              "mla_pages: the wire round trip changed the pages")
+    check(runner.k_pool[:, src].float().abs().sum().item() > 0,
+          "mla_pages: the exported latent pages are empty")
+    # each export gathers and each import scatters once per pool
+    want = {"gather_pages": 4, "scatter_pages": 2, "scatter_pages_layers": 6}
+    check(launches == want, f"mla_pages: copy launches {launches} != {want}")
+    emit({"phase": "mla_pages", "pages": len(src),
+          "k_page_shape": list(runner.k_pool.shape[2:]),
+          "v_page_shape": list(runner.v_pool.shape[2:]),
+          "payload_shape": payload["shape"], "payload_v_shape": payload["v_shape"],
+          "launches": launches, "bit_exact": True})
+
+
+def mla_phases(dev):
+    """DeepSeek-V3's three dense layers at full width: the engine phase
+    (launch identities, every request length 32), the page round trip
+    through the copy kernels, and the forward parity."""
+    t0 = time.monotonic()
+    runner = ModelRunner(MLA_CONFIG, num_pages=2048, page_size=PAGE_SIZE,
+                         max_pages_per_seq=4096 // PAGE_SIZE)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    check(not runner.ragged_mixed, "engine_mla: the runner kept the ragged path")
+    check(runner.kv_page_shape == (3, PAGE_SIZE, 1, MLA_CONFIG.mla_cache_dim),
+          f"engine_mla: page shape {runner.kv_page_shape}")
+    rec, launches, results = engine_phase(runner, "mla", build_s=build_s)
+    st = rec["stats"]
+    check(rec["fused_mixed"], "engine_mla: the engine did not fuse on the card")
+    for name in MLA_KERNELS:
+        check(launches[name] > 0, f"engine_mla: {name} never launched")
+    check(st["padded_prefill_dispatches"] > 0 and st["ragged_mixed_dispatches"] == 0,
+          f"engine_mla: mixed plans did not take the padded fallback: {st}")
+    for i, (toks, finish, _) in enumerate(results):
+        check(finish == "length" and len(toks) == N_OUT,
+              f"engine_mla: r{i} finished {finish!r} with {len(toks)} tokens")
+    rec["config"] = {k: getattr(MLA_CONFIG, k) for k in (
+        "name", "dim", "n_layers", "n_heads", "q_lora_rank", "kv_lora_rank",
+        "qk_rope_head_dim", "qk_nope_head_dim", "v_head_dim", "ffn_dim",
+        "vocab_size", "rope_scaling", "rope_factor")}
+    rec["kv_bytes_per_token_per_layer"] = MLA_CONFIG.mla_cache_dim * 2
+    emit(rec)
+    engine = build_engine(parse_args(ENGINE_ARGS), runner=runner)
+    try:
+        prompt = workload(MLA_CONFIG.vocab_size, seed=1)[0][5]["token_ids"]
+        asyncio.run(asyncio.wait_for(_collect_timed(engine, {
+            "token_ids": prompt, "sampling": {"temperature": 0.0},
+            "stop": {"max_tokens": 2, "stop_ids": []}}, "pages"), 300))
+    finally:
+        engine.stop()
+    mla_pages_phase(engine, prompt)
+    parity_phase(runner, dev, phase="parity_mla", ragged=False)
+    return launches
 
 
 def main() -> int:
@@ -1162,6 +1468,7 @@ def main() -> int:
         kern = kernel_phase(dev)
         shapes_phase(dev)
         kern.update(copy_kernel_phase(dev))
+        kern.update(mla_kernel_phase(dev))
         runner, launches = engine_phases(dev)
         # each copy kernel's launches from the phase that runs it
         disagg = disagg_phase(runner.params)
@@ -1170,6 +1477,12 @@ def main() -> int:
         launches["scatter_pages_layers"] = tiers_phase(runner.params)[
             "scatter_pages_layers"]
         parity_phase(runner, dev)
+        del runner, disagg
+        gc.collect()
+        torch.cuda.empty_cache()
+        mla = mla_phases(dev)
+        for name in MLA_KERNELS:
+            launches[name] = mla[name]
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1

@@ -246,9 +246,11 @@ class ModelRunner:
         self.ragged_buckets = tuple(sorted(ragged_buckets))
         self.ragged_q_block = DEFAULT_Q_BLOCK
         # fused mixed plans ride the ragged step unless DYN_RAGGED_MIXED=0
-        # forces the padded fallback (the reference's A/B switch)
+        # forces the padded fallback (the reference's A/B switch); MLA has
+        # no ragged attention, so its plans take the padded fallback
         flag = os.environ.get("DYN_RAGGED_MIXED", "").lower()
-        self.ragged_mixed = flag not in ("0", "false", "off", "no")
+        self.ragged_mixed = (flag not in ("0", "false", "off", "no")
+                             and not config.is_mla)
         self.dtype = dtype
         t0 = time.monotonic()
         self.params = params if params is not None else llama.init_params(

@@ -1,8 +1,9 @@
 """Carry a parameter tree into the port.
 
 The reference's params are a stacked numpy-convertible tree
-({"embed", "norm_f", "lm_head"?, "layers": {"wq": [L, in, out], ...}})
-in x @ W layout; the port's forward reads exactly that layout, so this is
+({"embed", "norm_f", "lm_head"?, "layers": {"wq": [L, in, out], ...}};
+MLA layers hold wkv_a, kv_norm, wkv_b, wo and wq or wq_lat, q_lat_norm,
+wq_up) in x @ W layout; the port's forward reads exactly that layout, so this is
 a checked copy onto the device. Norm weights stay f32, as in the
 reference; matrices take `dtype`.
 """
@@ -16,24 +17,42 @@ import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
 
-NORMS = ("norm_f", "attn_norm", "mlp_norm")
+NORMS = ("norm_f", "attn_norm", "mlp_norm", "kv_norm", "q_lat_norm")
 
 
 def _expected_shapes(c: ModelConfig) -> Dict[str, tuple]:
     hd, L = c.head_dim, c.n_layers
-    shapes = {
-        "embed": (c.vocab_size, c.dim),
-        "norm_f": (c.dim,),
-        "wq": (L, c.dim, c.n_heads * hd),
-        "wk": (L, c.dim, c.n_kv_heads * hd),
-        "wv": (L, c.dim, c.n_kv_heads * hd),
-        "wo": (L, c.n_heads * hd, c.dim),
+    shapes = {"embed": (c.vocab_size, c.dim), "norm_f": (c.dim,)}
+    if c.is_mla:
+        H, dn, dr, dv = c.n_heads, c.qk_nope_head_dim, c.qk_rope_head_dim, c.v_head_dim
+        shapes.update({
+            "wkv_a": (L, c.dim, c.kv_lora_rank + dr),
+            "kv_norm": (L, c.kv_lora_rank),
+            "wkv_b": (L, c.kv_lora_rank, H * (dn + dv)),
+            "wo": (L, H * dv, c.dim),
+        })
+        if c.q_lora_rank:
+            shapes.update({
+                "wq_lat": (L, c.dim, c.q_lora_rank),
+                "q_lat_norm": (L, c.q_lora_rank),
+                "wq_up": (L, c.q_lora_rank, H * (dn + dr)),
+            })
+        else:
+            shapes["wq"] = (L, c.dim, H * (dn + dr))
+    else:
+        shapes.update({
+            "wq": (L, c.dim, c.n_heads * hd),
+            "wk": (L, c.dim, c.n_kv_heads * hd),
+            "wv": (L, c.dim, c.n_kv_heads * hd),
+            "wo": (L, c.n_heads * hd, c.dim),
+        })
+    shapes.update({
         "attn_norm": (L, c.dim),
         "mlp_norm": (L, c.dim),
         "w_gate": (L, c.dim, c.ffn_dim),
         "w_up": (L, c.dim, c.ffn_dim),
         "w_down": (L, c.ffn_dim, c.dim),
-    }
+    })
     if not c.tie_embeddings:
         shapes["lm_head"] = (c.dim, c.vocab_size)
     return shapes

@@ -1,8 +1,9 @@
-"""Model architecture configs for the dense Llama path.
+"""Model architecture configs: the dense Llama path and MLA.
 
 The port's own copy of the fields of dynamo_tpu/models/config.py that the
-dense GQA forward reads, with the same names and defaults, so a config
-built here and one built there describe the same model.
+dense GQA forward and the MLA (DeepSeek) forward read, plus the MoE fields
+the MLA presets set, with the same names and defaults, so a config built
+here and one built there describe the same model.
 """
 
 from __future__ import annotations
@@ -26,16 +27,53 @@ class ModelConfig:
     tie_embeddings: bool = False
     # explicit head_dim when it differs from dim // n_heads
     head_dim_override: int = 0
-    # RoPE long-context scaling (HF rope_scaling): "none" | "llama3"
+    # MoE (0 experts = dense). The forward does not run MoE layers yet;
+    # the fields are here so the DeepSeek presets match the reference's
+    n_experts: int = 0
+    n_experts_active: int = 0
+    moe_ffn_dim: int = 0
+    n_shared_experts: int = 0
+    moe_scoring: str = "softmax"
+    moe_router_bias: bool = False
+    moe_routed_scale: float = 1.0
+    # first k layers use a dense FFN instead of MoE (HF first_k_dense_replace)
+    n_dense_layers: int = 0
+    n_expert_groups: int = 0
+    topk_groups: int = 0
+    # RoPE long-context scaling (HF rope_scaling): "none" | "llama3" | "yarn"
     rope_scaling: str = "none"
     rope_factor: float = 1.0
     rope_orig_max_seq: int = 0  # original_max_position_embeddings
+    rope_beta_fast: float = 32.0
+    rope_beta_slow: float = 1.0
+    rope_mscale: float = 1.0
+    rope_mscale_all_dim: float = 0.0
     rope_low_freq_factor: float = 1.0
     rope_high_freq_factor: float = 4.0
+    # MLA (DeepSeek V2/V3/R1): the KV cache holds one latent c_kv
+    # (kv_lora_rank) plus the shared RoPE key (qk_rope_head_dim) per token
+    attn_type: str = "gqa"  # "gqa" | "mla"
+    kv_lora_rank: int = 0  # d_c: KV latent dim
+    q_lora_rank: int = 0  # query compression rank (0 = direct q proj)
+    qk_rope_head_dim: int = 0  # decoupled positional key dim (shared head)
+    qk_nope_head_dim: int = 0  # per-head content key dim
+    v_head_dim: int = 0
 
     @property
     def head_dim(self) -> int:
         return self.head_dim_override or (self.dim // self.n_heads)
+
+    @property
+    def is_mla(self) -> bool:
+        return self.attn_type == "mla"
+
+    @property
+    def mla_cache_dim(self) -> int:
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def is_moe(self) -> bool:
+        return self.n_experts > 0
 
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
@@ -82,6 +120,60 @@ PRESETS: Dict[str, ModelConfig] = {
         ffn_dim=14336,
         max_seq_len=131072,
         rope_scaling="llama3", rope_factor=8.0, rope_orig_max_seq=8192,
+    ),
+    # MLA test models (CPU tests of the DeepSeek attention family)
+    "tiny-mla": ModelConfig(
+        name="tiny-mla", attn_type="mla", kv_lora_rank=32,
+        qk_rope_head_dim=16, qk_nope_head_dim=32, v_head_dim=32,
+    ),
+    "tiny-mla-q": ModelConfig(  # with query compression (V3-style q path)
+        name="tiny-mla-q", attn_type="mla", kv_lora_rank=32, q_lora_rank=48,
+        qk_rope_head_dim=16, qk_nope_head_dim=32, v_head_dim=32,
+    ),
+    "tiny-mla-moe": ModelConfig(
+        name="tiny-mla-moe", n_layers=3, attn_type="mla", kv_lora_rank=32,
+        qk_rope_head_dim=16, qk_nope_head_dim=32, v_head_dim=32,
+        n_experts=4, n_experts_active=2, moe_ffn_dim=96,
+        n_shared_experts=1, moe_scoring="sigmoid",
+        moe_router_bias=True, moe_routed_scale=2.5, n_dense_layers=1,
+    ),
+    # DeepSeek-V3/R1 (671B-A37B): MLA + 256-expert MoE with the first 3
+    # layers dense. The port serves its dense layers only:
+    # get_config("deepseek-v3").with_(n_layers=3, n_experts=0)
+    "deepseek-v3": ModelConfig(
+        name="deepseek-v3",
+        vocab_size=129280,
+        dim=7168,
+        n_layers=61,
+        n_heads=128,
+        n_kv_heads=128,
+        ffn_dim=18432,
+        max_seq_len=163840,
+        rope_theta=10000.0,
+        norm_eps=1e-6,
+        attn_type="mla",
+        kv_lora_rank=512,
+        q_lora_rank=1536,
+        qk_rope_head_dim=64,
+        qk_nope_head_dim=128,
+        v_head_dim=128,
+        n_experts=256,
+        n_experts_active=8,
+        moe_ffn_dim=2048,
+        n_shared_experts=1,
+        moe_scoring="sigmoid",
+        moe_router_bias=True,
+        moe_routed_scale=2.5,
+        n_dense_layers=3,
+        n_expert_groups=8,
+        topk_groups=4,
+        rope_scaling="yarn",
+        rope_factor=40.0,
+        rope_orig_max_seq=4096,
+        rope_beta_fast=32.0,
+        rope_beta_slow=1.0,
+        rope_mscale=1.0,
+        rope_mscale_all_dim=1.0,
     ),
 }
 

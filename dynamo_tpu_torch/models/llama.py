@@ -1,9 +1,12 @@
-"""Dense Llama-family transformer over a paged KV cache.
+"""Llama-family transformer over a paged KV cache: dense GQA layers, and
+the MLA (DeepSeek) layer with a dense FFN.
 
-Port of the dense GQA branch of dynamo_tpu/models/llama.py `forward`:
-embed, RMSNorm, q/k/v, RoPE, KV write, paged attention, wo, SwiGLU, final
-norm, last-position gather and f32 logits, with the reference's
-`ragged=` branch (the flat step of the fused mixed dispatch). Params are
+Port of the dense GQA and the MLA branches of dynamo_tpu/models/llama.py
+`forward`: embed, RMSNorm, q/k/v, RoPE, KV write, paged attention (MLA:
+models/mla.py over the latent pool), wo, SwiGLU, final norm, last-position
+gather and f32 logits, with the reference's `ragged=` branch (the flat
+step of the fused mixed dispatch; GQA only, as there). MoE layers are not
+ported (ROADMAP A.11): MoE configs raise. Params are
 a plain dict of tensors in the reference's stacked layout ({"embed",
 "norm_f", "layers": {"wq": [L, in, out], ...}}, x @ W), so one checkpoint
 tree serves both packages. The layer loop is a Python loop over that
@@ -18,6 +21,7 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.models.mla import mla_attention
 from dynamo_tpu_torch.models.toolkit import (
     apply_rope,
     kv_rows,
@@ -25,6 +29,7 @@ from dynamo_tpu_torch.models.toolkit import (
     rms_norm,
     rope_cos_sin,
     rope_inv_freq,
+    rope_mscale,
     write_kv,
 )
 from dynamo_tpu_torch.ops.flash_prefill import prefill_paged_attention
@@ -43,11 +48,19 @@ Params = Dict[str, Any]
 ATTN_IMPLS = ("kernel", "ref")
 
 
+def _refuse_moe(c: ModelConfig) -> None:
+    if c.is_moe:
+        raise NotImplementedError(
+            f"{c.name}: MoE layers are not ported yet (ROADMAP A.11); serve "
+            "the dense layers with .with_(n_layers=n_dense_layers, n_experts=0)")
+
+
 def init_params(config: ModelConfig, seed: int, dtype, device) -> Params:
     """Random-init params from a seeded generator on `device` (weights
     ~ N(0, 1/fan_in), norms 1). Same tree and scales as the reference's
     init_params; the numbers differ (another generator)."""
     c = config
+    _refuse_moe(c)
     g = torch.Generator(device=device).manual_seed(seed)
     hd, L = c.head_dim, c.n_layers
 
@@ -58,21 +71,39 @@ def init_params(config: ModelConfig, seed: int, dtype, device) -> Params:
     def norm(*shape):
         return torch.ones(shape, dtype=torch.float32, device=device)
 
-    params: Params = {
-        "embed": w(c.dim, c.vocab_size, c.dim),
-        "norm_f": norm(c.dim),
-        "layers": {
+    # draws in the order of the dense tree: embed, then the layers
+    embed = w(c.dim, c.vocab_size, c.dim)
+    if c.is_mla:
+        # KV compressed to a per-token latent + the shared RoPE key; q
+        # optionally compressed too
+        H, dn, dr, dv = c.n_heads, c.qk_nope_head_dim, c.qk_rope_head_dim, c.v_head_dim
+        layers = {
+            "wkv_a": w(c.dim, L, c.dim, c.kv_lora_rank + dr),
+            "kv_norm": norm(L, c.kv_lora_rank),
+            "wkv_b": w(c.kv_lora_rank, L, c.kv_lora_rank, H * (dn + dv)),
+            "wo": w(H * dv, L, H * dv, c.dim),
+        }
+        if c.q_lora_rank:
+            layers["wq_lat"] = w(c.dim, L, c.dim, c.q_lora_rank)
+            layers["q_lat_norm"] = norm(L, c.q_lora_rank)
+            layers["wq_up"] = w(c.q_lora_rank, L, c.q_lora_rank, H * (dn + dr))
+        else:
+            layers["wq"] = w(c.dim, L, c.dim, H * (dn + dr))
+    else:
+        layers = {
             "wq": w(c.dim, L, c.dim, c.n_heads * hd),
             "wk": w(c.dim, L, c.dim, c.n_kv_heads * hd),
             "wv": w(c.dim, L, c.dim, c.n_kv_heads * hd),
             "wo": w(c.n_heads * hd, L, c.n_heads * hd, c.dim),
-            "attn_norm": norm(L, c.dim),
-            "mlp_norm": norm(L, c.dim),
-            "w_gate": w(c.dim, L, c.dim, c.ffn_dim),
-            "w_up": w(c.dim, L, c.dim, c.ffn_dim),
-            "w_down": w(c.ffn_dim, L, c.ffn_dim, c.dim),
-        },
-    }
+        }
+    layers.update({
+        "attn_norm": norm(L, c.dim),
+        "mlp_norm": norm(L, c.dim),
+        "w_gate": w(c.dim, L, c.dim, c.ffn_dim),
+        "w_up": w(c.dim, L, c.dim, c.ffn_dim),
+        "w_down": w(c.ffn_dim, L, c.ffn_dim, c.dim),
+    })
+    params: Params = {"embed": embed, "norm_f": norm(c.dim), "layers": layers}
     if not c.tie_embeddings:
         params["lm_head"] = w(c.dim, c.dim, c.vocab_size)
     return params
@@ -105,10 +136,12 @@ def forward(
     segment derived from `meta` on the device rather than uploaded as a
     [T, MP] table; attention is ragged; last_index holds the flat
     per-segment last-token indices [SEG] and the logits come back
-    [1, SEG, V]."""
+    [1, SEG, V]. MLA configs refuse `ragged=`, as the reference does; their
+    v_pool is the 1-wide stub and is not written."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
     c = config
+    _refuse_moe(c)
     B, S = tokens.shape
     hd = c.head_dim
     G = c.n_heads // c.n_kv_heads
@@ -117,11 +150,16 @@ def forward(
 
     h = params["embed"][tokens.long()]  # [B, S, E]
     safe_pos = positions.clamp(min=0)
+    rope_dim = c.qk_rope_head_dim if c.is_mla else hd
     cos, sin = rope_cos_sin(
-        safe_pos, rope_inv_freq(c, hd, c.rope_theta, str(tokens.device)))
+        safe_pos, rope_inv_freq(c, rope_dim, c.rope_theta, str(tokens.device)),
+        rope_mscale(c))
     if ragged is not None:
         if B != 1:
             raise ValueError("ragged forward takes a single flat [1, T] row")
+        if c.is_mla:
+            raise NotImplementedError(
+                "ragged mixed forward is not supported for MLA models")
         seg_pt, seg_kvl, meta = ragged
         tok_seg, _ = ragged_token_index(meta, S)
         rows = kv_rows(seg_pt[tok_seg], positions.view(S, 1), NP, PS)
@@ -135,29 +173,36 @@ def forward(
         q_len = (positions >= 0).sum(1, dtype=torch.int32)
 
     for l in range(c.n_layers):
-        x = rms_norm(h, lp["attn_norm"][l], c.norm_eps)
-        q = (x @ lp["wq"][l]).view(B, S, c.n_heads, hd)
-        k = (x @ lp["wk"][l]).view(B, S, c.n_kv_heads, hd)
-        v = (x @ lp["wv"][l]).view(B, S, c.n_kv_heads, hd)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        write_kv(k_pool, l, k, rows)
-        write_kv(v_pool, l, v, rows)
-        qg = q.view(B, S, c.n_kv_heads, G, hd)
-        if ragged is not None:
-            attn = ragged_attn(qg[0], k_pool[l], v_pool[l], seg_pt, seg_kvl,
-                               meta)[None]
-        elif attn_impl == "ref":
-            attn = paged_attention_ref(
-                qg, k_pool[l], v_pool[l], page_table, safe_pos, kv_lens)
-        elif S == 1:
-            attn = decode_paged_attention(
-                qg[:, 0], k_pool[l], v_pool[l], page_table, kv_lens,
-            )[:, None]
+        if c.is_mla:
+            attn = mla_attention(c, lp, h, k_pool, l, rows, page_table,
+                                 (cos, sin), safe_pos, kv_lens, q_start,
+                                 q_len, attn_impl)
         else:
-            attn = prefill_paged_attention(
-                qg, k_pool[l], v_pool[l], page_table, q_start, q_len, kv_lens)
-        h = h + attn.reshape(B, S, c.n_heads * hd) @ lp["wo"][l]
+            x = rms_norm(h, lp["attn_norm"][l], c.norm_eps)
+            q = (x @ lp["wq"][l]).view(B, S, c.n_heads, hd)
+            k = (x @ lp["wk"][l]).view(B, S, c.n_kv_heads, hd)
+            v = (x @ lp["wv"][l]).view(B, S, c.n_kv_heads, hd)
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+            write_kv(k_pool, l, k, rows)
+            write_kv(v_pool, l, v, rows)
+            qg = q.view(B, S, c.n_kv_heads, G, hd)
+            if ragged is not None:
+                attn = ragged_attn(qg[0], k_pool[l], v_pool[l], seg_pt,
+                                   seg_kvl, meta)[None]
+            elif attn_impl == "ref":
+                attn = paged_attention_ref(
+                    qg, k_pool[l], v_pool[l], page_table, safe_pos, kv_lens)
+            elif S == 1:
+                attn = decode_paged_attention(
+                    qg[:, 0], k_pool[l], v_pool[l], page_table, kv_lens,
+                )[:, None]
+            else:
+                attn = prefill_paged_attention(
+                    qg, k_pool[l], v_pool[l], page_table, q_start, q_len,
+                    kv_lens)
+            attn = attn.reshape(B, S, c.n_heads * hd)
+        h = h + attn @ lp["wo"][l]
         x = rms_norm(h, lp["mlp_norm"][l], c.norm_eps)
         gate = F.silu(x @ lp["w_gate"][l])
         h = h + (gate * (x @ lp["w_up"][l])) @ lp["w_down"][l]

@@ -1,6 +1,7 @@
-"""Transformer building blocks for the dense Llama path: RMSNorm, RoPE
-(with llama3 scaling), the token-major paged KV pool and its writer, and
-the plain gather attention that every attention kernel is held against.
+"""Transformer building blocks: RMSNorm, RoPE (with llama3 and yarn
+scaling), the attention score scale, the token-major paged KV pool (the
+latent pool for MLA) and its writer, and the plain gather attention that
+every attention kernel is held against.
 
 Port of dynamo_tpu/models/toolkit.py. Layouts and numerics follow it: the
 pool is [L, NP, PS, Hk, D], norms and rope angles run in f32, and the
@@ -26,7 +27,17 @@ def make_kv_pool(
     config: ModelConfig, num_pages: int, page_size: int, dtype, device,
 ):
     """Two zeroed pools [L, NP, PS, Hk, D], token-major: one page is one
-    contiguous PS*Hk*D slab, and one token's [Hk, D] row is contiguous."""
+    contiguous PS*Hk*D slab, and one token's [Hk, D] row is contiguous.
+
+    MLA models cache one latent vector per token: the "k" pool is
+    [L, NP, PS, 1, d_c + d_rh] and the "v" pool a 1-wide stub
+    [L, NP, PS, 1, 1], so every page-indexed path (transfer, host tier)
+    keeps its k/v shape contract."""
+    if config.is_mla:
+        lat = (config.n_layers, num_pages, page_size, 1, config.mla_cache_dim)
+        stub = (config.n_layers, num_pages, page_size, 1, 1)
+        return (torch.zeros(lat, dtype=dtype, device=device),
+                torch.zeros(stub, dtype=dtype, device=device))
     shape = (config.n_layers, num_pages, page_size, config.n_kv_heads,
              config.head_dim)
     return (torch.zeros(shape, dtype=dtype, device=device),
@@ -40,11 +51,40 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (normed * weight).to(x.dtype)
 
 
+def _yarn_mscale(scale: float, mscale: float) -> float:
+    if scale <= 1.0 or mscale == 0.0:
+        return 1.0
+    return 0.1 * mscale * math.log(scale) + 1.0
+
+
+def rope_mscale(config: Optional[ModelConfig]) -> float:
+    """yarn's cos/sin magnitude mscale(factor, mscale) /
+    mscale(factor, mscale_all_dim); 1 for every other scaling."""
+    if config is None or config.rope_scaling != "yarn":
+        return 1.0
+    m = _yarn_mscale(config.rope_factor, config.rope_mscale)
+    if config.rope_mscale_all_dim:
+        m = m / _yarn_mscale(config.rope_factor, config.rope_mscale_all_dim)
+    return m
+
+
+def attn_score_scale(config: ModelConfig, qk_dim: int) -> float:
+    """Softmax scale incl. yarn's mscale^2 correction (DeepSeek:
+    qk_dim^-0.5 * mscale(factor, mscale_all_dim)^2)."""
+    scale = qk_dim ** -0.5
+    if config.rope_scaling == "yarn" and config.rope_mscale_all_dim:
+        m = _yarn_mscale(config.rope_factor, config.rope_mscale_all_dim)
+        scale = scale * m * m
+    return scale
+
+
 def rope_inv_freq_np(config: Optional[ModelConfig], hd: int, theta: float) -> np.ndarray:
     """[hd//2] f32 inverse frequencies with the config's scaling applied,
     computed in float64 numpy and cast to f32 (HF rope_scaling semantics:
     "llama3" interpolates wavelengths past orig_max/low_freq_factor by
-    1/factor, keeps short ones, and blends a smooth band between)."""
+    1/factor, keeps short ones, and blends a smooth band between; "yarn"
+    blends interpolated and base frequencies per dim with a ramp between
+    the beta_fast/beta_slow correction dims)."""
     half = hd // 2
     base = theta ** -(np.arange(0, half, dtype=np.float64) / half)
     if config is None or config.rope_scaling == "none":
@@ -65,6 +105,21 @@ def rope_inv_freq_np(config: Optional[ModelConfig], hd: int, theta: float) -> np
             np.where(wavelen > low_wl, base / c.rope_factor, blended),
         )
         return out.astype(np.float32)
+    if c.rope_scaling == "yarn":
+        orig = c.rope_orig_max_seq or c.max_seq_len
+
+        def corr_dim(n_rot: float) -> float:
+            return (hd * math.log(orig / (n_rot * 2 * math.pi))) / (
+                2 * math.log(theta))
+
+        low = max(math.floor(corr_dim(c.rope_beta_fast)), 0)
+        high = min(math.ceil(corr_dim(c.rope_beta_slow)), hd - 1)
+        ramp = np.clip(
+            (np.arange(half, dtype=np.float64) - low) / max(high - low, 1),
+            0.0, 1.0)
+        extrap_mask = 1.0 - ramp  # 1 -> keep base (high-frequency dims)
+        out = (base / c.rope_factor) * (1 - extrap_mask) + base * extrap_mask
+        return out.astype(np.float32)
     raise ValueError(f"unsupported rope_scaling {c.rope_scaling!r}")
 
 
@@ -77,10 +132,15 @@ def rope_inv_freq(config: Optional[ModelConfig], hd: int, theta: float,
     return torch.from_numpy(rope_inv_freq_np(config, hd, theta)).to(device)
 
 
-def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor):
-    """cos/sin tables [..., S, 1, hd//2] in f32 for `positions` [..., S]."""
+def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor,
+                 mscale: float = 1.0):
+    """cos/sin tables [..., S, 1, hd//2] in f32 for `positions` [..., S],
+    scaled by `mscale` (yarn's magnitude, rope_mscale)."""
     angles = positions[..., None].float() * inv_freq
-    return torch.cos(angles)[..., None, :], torch.sin(angles)[..., None, :]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    if mscale != 1.0:
+        cos, sin = cos * mscale, sin * mscale
+    return cos[..., None, :], sin[..., None, :]
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
@@ -92,9 +152,10 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.T
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
          config: Optional[ModelConfig] = None) -> torch.Tensor:
-    """x: [..., S, n_heads, hd], positions [..., S]."""
+    """x: [..., S, n_heads, hd], positions [..., S]. `config` applies its
+    rope_scaling (frequency remap, and yarn's cos/sin magnitude)."""
     inv_freq = rope_inv_freq(config, x.shape[-1], theta, str(x.device))
-    cos, sin = rope_cos_sin(positions, inv_freq)
+    cos, sin = rope_cos_sin(positions, inv_freq, rope_mscale(config))
     return apply_rope(x, cos, sin)
 
 
@@ -108,12 +169,14 @@ def paged_attention_ref(
     scale: Optional[float] = None,
 ) -> torch.Tensor:
     """Gather paged attention with causal masking by absolute position
-    (flat context index c is absolute position c). Returns [B, S, Hk, G, D];
-    rows with an empty context come out 0."""
+    (flat context index c is absolute position c). Returns [B, S, Hk, G, Dv]
+    (Dv, the value pool's width, may differ from the keys': MLA's values
+    are the latent's first d_c columns); rows with an empty context come
+    out 0."""
     B, MP = page_table.shape
     _, PS, Hk, D = k_pool_l.shape
     k = k_pool_l[page_table.long()].reshape(B, MP * PS, Hk, D)
-    v = v_pool_l[page_table.long()].reshape(B, MP * PS, Hk, D)
+    v = v_pool_l[page_table.long()].reshape(B, MP * PS, Hk, v_pool_l.shape[-1])
     C = MP * PS
     if scale is None:
         scale = D ** -0.5

@@ -47,6 +47,14 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "ragged_paged_attention": (
             [_P] * 7 + [_I] * 7 + [_F, _P], _I),
     },
+    "mla_attention": {
+        # q, lat_pool, page_table, kv_lens, out, B, H, dc, dr, PS, MP,
+        # scale, stream
+        "decode_mla_attention": ([_P] * 5 + [_I] * 6 + [_F, _P], _I),
+        # q, lat_pool, page_table, q_start, q_len, kv_lens, out,
+        # B, S, H, dc, dr, PS, MP, scale, stream
+        "prefill_mla_attention": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
+    },
     "block_copy": {
         # pool, idx, out, L, NP, n, PS, Hk, R (16-byte vectors per D row),
         # head_major, stream

@@ -48,10 +48,14 @@ def scatter_pages_layers_ref(pool: torch.Tensor, idx: torch.Tensor,
     return pool
 
 
-def _check(pool: torch.Tensor, idx: torch.Tensor, *others: torch.Tensor) -> None:
+def _check(pool: torch.Tensor, idx: torch.Tensor, *others: torch.Tensor,
+           whole_pages: bool = False) -> None:
     """Operands a kernel takes: one CUDA device, contiguous, 16-byte
     aligned, a supported element type, int32 page ids, D rows a whole
-    number of 16-byte vectors."""
+    number of 16-byte vectors. `whole_pages` (a copy that never splits a
+    page into its rows: token-major gathers, both scatters, head-major with
+    one KV head) asks only that a whole page be one: MLA's 1-wide stub
+    pool has 2-byte rows in 32-byte pages."""
     if pool.dtype not in _DTYPES:
         raise TypeError(f"no page-copy kernel for {pool.dtype}")
     if idx.dtype != torch.int32 or idx.dim() != 1:
@@ -63,7 +67,12 @@ def _check(pool: torch.Tensor, idx: torch.Tensor, *others: torch.Tensor) -> None
         raise ValueError("the page-copy kernels take contiguous operands")
     if any(t.data_ptr() % 16 for t in (pool,) + others if t.dtype == pool.dtype):
         raise ValueError("pool and pages must be 16-byte aligned")
-    if pool.shape[-1] * pool.element_size() % 16:
+    if whole_pages:
+        if math.prod(pool.shape[-3:]) * pool.element_size() % 16:
+            raise ValueError(f"pages of {tuple(pool.shape[-3:])} x "
+                             f"{pool.element_size()} bytes are not whole "
+                             "16-byte vectors")
+    elif pool.shape[-1] * pool.element_size() % 16:
         raise ValueError(f"D rows of {pool.shape[-1]} x {pool.element_size()} "
                          "bytes are not whole 16-byte vectors")
 
@@ -104,7 +113,7 @@ def gather_pages(
     stacked = pool.dim() == 5
     L, NP, PS, Hk, D = pool.shape if stacked else (1,) + tuple(pool.shape)
     n = idx.shape[0]
-    _check(pool, idx)
+    _check(pool, idx, whole_pages=not head_major or Hk == 1)
     page = (Hk, PS, D) if head_major else (PS, Hk, D)
     out = torch.empty(((L,) if stacked else ()) + (n,) + page,
                       dtype=pool.dtype, device=pool.device)
@@ -132,7 +141,7 @@ def scatter_pages(
     if tuple(pages.shape) != want or pages.dtype != pool.dtype:
         raise ValueError(f"pages {tuple(pages.shape)} {pages.dtype} do not "
                          f"match {want} {pool.dtype}")
-    _check(pool, idx, pages)
+    _check(pool, idx, pages, whole_pages=True)
     if n == 0:
         return pool
     _check_ids(idx, NP, unique=True)
@@ -159,7 +168,7 @@ def scatter_pages_layers(
                          f"match the pool's pages {(PS, Hk, D)} {pool.dtype}")
     if layer_off.dtype != torch.int32 or layer_off.numel() != 1:
         raise TypeError("layer_off must be a [1] int32 tensor")
-    _check(pool, idx, pages, layer_off)
+    _check(pool, idx, pages, layer_off, whole_pages=True)
     if n == 0:
         return pool
     _check_ids(idx, NP, unique=True, layer_off=layer_off, L=L, Lg=Lg)
@@ -175,6 +184,10 @@ def _stream(t: torch.Tensor) -> int:
 
 def _launch_gather(pool, idx, out, head_major: bool) -> None:
     L, NP, PS, Hk, D = pool.shape if pool.dim() == 5 else (1,) + tuple(pool.shape)
+    if not head_major or Hk == 1:
+        # a plain page copy (the head-major transpose of one KV head moves
+        # nothing): the kernel sees each page as one row of 16-byte vectors
+        PS, Hk, D, head_major = 1, 1, PS * Hk * D, False
     lib = _build.load()["block_copy"]
     rc = lib.gather_pages(
         pool.data_ptr(), idx.data_ptr(), out.data_ptr(), L, NP, idx.shape[0],

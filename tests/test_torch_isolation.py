@@ -33,7 +33,8 @@ def test_every_module_imports_without_jax_or_dynamo_tpu():
     mods = ["dynamo_tpu_torch"] + _modules()
     for m in ("engine.engine", "engine.ngram_draft",
               "ops.ragged_paged_attention", "ops.block_copy",
-              "kvbm.host_pool", "worker_common", "router.prefill_router"):
+              "kvbm.host_pool", "worker_common", "router.prefill_router",
+              "ops.mla_attention", "models.mla"):
         assert f"dynamo_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
