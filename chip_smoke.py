@@ -9,16 +9,20 @@ Phases, each printing one JSON line:
                all started together);
   3. kernels - each attention kernel at the main path's shapes (Hk 8, G 3,
                D 128, PS 16, bf16) against its plain PyTorch version, with
-               times from CUDA events, the library yardstick (SDPA over K/V
+               times from CUDA events around back-to-back calls (for the
+               chunked-prefill and ragged kernels and their yardsticks also
+               as CUDA-graph replays, `device_ms`, free of the host's
+               launch cost), the library yardstick (SDPA over K/V
                gathered dense beforehand) and the roofline bound: decode,
                chunked prefill, and the ragged kernel over a 264-token
                mixed step (8 decode rows + 4 chunks), the same step with
-               its last chunk dropped (tail rows must be exactly 0) and a
-               verify-shaped step (K+1 = 5 rows per segment); then
-               (`shapes`) all three kernels at the other shapes they take;
-               then (`copy_kernels`) the three page-copy kernels at the 3B
-               page shape (L 28, PS 16, Hk 8, D 128, bf16) in a 2048-page
-               pool, 94 pages in random order: token- and head-major
+               its last chunk dropped (tail rows must be exactly 0), a
+               verify-shaped step (K+1 = 5 rows per segment) and, untimed,
+               rows at the edges of its context splits (`split_edges`);
+               then (`shapes`) all three kernels at the other shapes they
+               take; then (`copy_kernels`) the three page-copy kernels at
+               the 3B page shape (L 28, PS 16, Hk 8, D 128, bf16) in a
+               2048-page pool, 94 pages in random order: token- and head-major
                gather, scatter, and a 4-group layer scatter, bit for bit
                against their plain versions; then (`mla_kernels`) the two
                MLA kernels at DeepSeek-V3's shapes (H 128, d_c 512, d_rh
@@ -109,6 +113,7 @@ from dynamo_tpu_torch.ops.paged_attention import (
     decode_paged_attention_ref,
 )
 from dynamo_tpu_torch.ops.ragged_paged_attention import (
+    SPLIT_TOKENS,
     build_ragged_metadata,
     ragged_paged_attention,
     ragged_paged_attention_ref,
@@ -205,6 +210,36 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
+    """Device time of one fn() call: `iters` calls captured in a CUDA
+    graph, replayed `replays` times between CUDA events. The host's launch
+    cost, which cuda_ms's back-to-back calls include for calls of tens of
+    microseconds, is left out."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.stream(side):
+        fn()  # warm the allocator on the capture stream
+        with torch.cuda.graph(graph, stream=side):
+            for _ in range(iters):
+                fn()
+    torch.cuda.synchronize()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    ms = start.elapsed_time(end) / (replays * iters)
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def bound(n_bytes: float, n_flops: float):
@@ -305,25 +340,35 @@ def ragged_library(args, segs, md, scale):
 
 def ragged_phase(gen, dev):
     """The ragged kernel at the main path's step (timed), the same step
-    without its last chunk (a 16-row tail) and a verify-shaped step."""
+    without its last chunk (a 16-row tail), a verify-shaped step and,
+    untimed, rows at the edges of the kernel's context splits: decode
+    rows at kv_len L_s - 1, L_s, L_s + 1 and 2 L_s and an 8-token chunk
+    from L_s - 3 (L_s = SPLIT_TOKENS), T 16 (a 4-row tail)."""
     Hk, G, D, PS = 8, 3, 128, 16
     H, MP = Hk * G, 4096 // PS
     scale = D ** -0.5
     decode = [(1, kv - 1) for kv in RAGGED_DECODE_KV]
+    L_s = SPLIT_TOKENS
     cases = {
         "mixed": decode + RAGGED_CHUNKS,
         "mixed_tail": decode + RAGGED_CHUNKS[:-1],
         "verify": [(5, max(kv - 5, 0)) for kv in RAGGED_DECODE_KV]
         + RAGGED_CHUNKS[:2],
+        "split_edges": [(1, kv - 1) for kv in (L_s - 1, L_s, L_s + 1, 2 * L_s)]
+        + [(8, L_s - 3)],
     }
     out = {}
     for name, segs in cases.items():
-        args, md = ragged_inputs(gen, segs, RAGGED_T, Hk, G, D, PS, MP, dev)
+        T = 16 if name == "split_edges" else RAGGED_T
+        args, md = ragged_inputs(gen, segs, T, Hk, G, D, PS, MP, dev)
         rec = {"segments": segs, "t_real": sum(n for n, _ in segs),
-               "max_abs_err": ragged_check(args, segs, name),
-               "ms": cuda_ms(lambda: ragged_paged_attention(*args)),
-               "plain_ms": cuda_ms(lambda: ragged_paged_attention_ref(*args),
-                                   iters=5)}
+               "max_abs_err": ragged_check(args, segs, name)}
+        if name == "split_edges":
+            out[name] = rec
+            continue
+        rec["ms"] = cuda_ms(lambda: ragged_paged_attention(*args))
+        rec["plain_ms"] = cuda_ms(lambda: ragged_paged_attention_ref(*args),
+                                  iters=5)
         if name == "mixed":
             # what the data needs: real q rows read, all T out rows
             # written, each segment's visible K/V once, the table entries
@@ -336,11 +381,15 @@ def ragged_phase(gen, dev):
                        + md["seg_kv_lens"].size * 4 + md["meta"].size * 4)
             pairs = sum(p + i + 1 for n, p in segs for i in range(n))
             rec["bound_ms"], rec["bound_by"] = bound(n_bytes, 4 * pairs * H * D)
-            rec["library_ms"] = cuda_ms(ragged_library(args, segs, md, scale))
+            lib = ragged_library(args, segs, md, scale)
+            rec["library_ms"] = cuda_ms(lib)
+            rec["device_ms"] = graph_ms(lambda: ragged_paged_attention(*args))
+            rec["library_device_ms"] = graph_ms(lib)
         out[name] = rec
         del args
     top = {k: out["mixed"][k] for k in ("ms", "plain_ms", "bound_ms",
-                                        "bound_by", "library_ms")}
+                                        "bound_by", "library_ms", "device_ms",
+                                        "library_device_ms")}
     top["max_abs_err"] = max(c["max_abs_err"] for c in out.values())
     top["shape"] = {"T": RAGGED_T, "Hk": Hk, "G": G, "D": D, "PS": PS}
     top["cases"] = out
@@ -427,13 +476,18 @@ def kernel_phase(dev):
         n_bytes = (q_len * H * D * 2 + q.numel() * 2 + kv * Hk * D * 4
                    + (-(-kv // PS)) * 4 + 3 * 4)
         bound_ms, bound_by = bound(n_bytes, 4 * n_pairs * H * D)
+        def library():
+            return F.scaled_dot_product_attention(qd, kq, vq, attn_mask=mask,
+                                                  scale=scale)
+
         cases.append({
             "prior": prior, "q_len": q_len, "S": S, "max_abs_err": err,
             "ms": cuda_ms(lambda: prefill_paged_attention(*args)),
             "plain_ms": cuda_ms(lambda: prefill_paged_attention_ref(*args)),
             "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qd, kq, vq, attn_mask=mask, scale=scale)),
+            "library_ms": cuda_ms(library),
+            "device_ms": graph_ms(lambda: prefill_paged_attention(*args)),
+            "library_device_ms": graph_ms(library),
         })
         del k_pool, v_pool, kq, vq
     top = dict(cases[-1])  # the chunked-prefill case heads the summary
@@ -449,13 +503,14 @@ def kernel_phase(dev):
 
 def shapes_phase(dev):
     """The three kernels against their plain versions at the other shapes
-    the wrappers accept (head dims 64/128, GQA groups, page sizes,
-    q-blocks that overrun S), small and untimed."""
+    the wrappers accept (head dims 64/128, GQA groups, page sizes 4 to 32,
+    the main path's G 3 among them, q-blocks that overrun S), small and
+    untimed."""
     gen = torch.Generator(device="cpu").manual_seed(3)
     errs = {}
     for D, G, PS in ((128, 4, 16), (128, 1, 8), (128, 8, 32), (64, 4, 16),
-                     (64, 2, 4)):
-        Hk, MP = 2, 64
+                     (64, 2, 4), (128, 3, 16), (128, 3, 4), (64, 3, 32)):
+        Hk, MP = 2, max(64, 1024 // PS)  # 1024+ tokens: two context splits
         NP = 3 * MP + 1
 
         def rnd(*shape):
@@ -481,9 +536,13 @@ def shapes_phase(dev):
         e_pre = (out.float() - ref.float()).abs().max().item()
         torch.cuda.synchronize()
         name = f"D{D}_G{G}_PS{PS}"
-        # ragged: decode rows, chunks over prior context, a 11-row tail
-        segs = [(1, 36), (1, 0), (21, 13), (9, 0), (5, 100)]
-        args, _ = ragged_inputs(gen, segs, 48, Hk, G, D, PS, MP, dev)
+        check(all(out[b, n:].float().abs().max().item() == 0.0
+                  for b, n in enumerate(ql)), f"prefill padding rows not 0 at {name}")
+        # ragged: decode rows, chunks over prior context, a row and a
+        # chunk past the first context split, a 9-row tail
+        segs = [(1, 36), (1, 0), (21, 13), (9, 0), (5, 100), (1, 700),
+                (9, SPLIT_TOKENS - 2)]
+        args, _ = ragged_inputs(gen, segs, 56, Hk, G, D, PS, MP, dev)
         e_rag = ragged_check(args, segs, name)
         errs[name] = {"decode": e_dec, "prefill": e_pre, "ragged": e_rag}
         check(max(e_dec, e_pre) <= KERNEL_TOL,

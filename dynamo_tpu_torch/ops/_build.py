@@ -3,9 +3,10 @@
 Each source under ops/csrc/ is compiled by its own `nvcc` process (all
 started together) into a shared library with a plain C interface, then
 loaded with ctypes. Libraries land in `build/dynamo_tpu_torch/` at the
-repository root, named by a hash of the source and the flags, so an edited
-source rebuilds and an unchanged one loads at once. Nothing is built when
-this module is imported: the first launch (or an explicit `load()`) builds.
+repository root, named by a hash of the source, the shared headers
+(csrc/*.cuh) and the flags, so an edited source or header rebuilds and an
+unchanged one loads at once. Nothing is built when this module is
+imported: the first launch (or an explicit `load()`) builds.
 """
 
 from __future__ import annotations
@@ -41,11 +42,11 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "prefill_paged_attention": (
             [_P] * 8 + [_I] * 8 + [_F, _P], _I),
     },
-    # q, k_pool, v_pool, seg_page_table, seg_kv_lens, meta, out,
-    # NW, Hk, G, D, PS, MP, q_block, scale, stream
+    # q, k_pool, v_pool, seg_page_table, seg_kv_lens, meta, out, part,
+    # NW, Hk, G, D, PS, MP, q_block, split, scale, stream
     "ragged_paged_attention": {
         "ragged_paged_attention": (
-            [_P] * 7 + [_I] * 7 + [_F, _P], _I),
+            [_P] * 8 + [_I] * 8 + [_F, _P], _I),
     },
     "mla_attention": {
         # q, lat_pool, page_table, kv_lens, out, B, H, dc, dr, PS, MP,
@@ -83,9 +84,12 @@ def nvcc_path() -> str:
 
 
 def library_path(stem: str) -> Path:
-    src = (CSRC / f"{stem}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{stem}_{key}.so"
+    """Keyed by the source, every shared header in csrc/ and the flags."""
+    h = hashlib.sha256((CSRC / f"{stem}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{stem}_{h.hexdigest()[:16]}.so"
 
 
 def nvcc_command(stem: str, out: Path) -> List[str]:

@@ -15,43 +15,64 @@
 // of 16-125 tokens over up to 3000 prior tokens) the bytes are each
 // segment's visible K/V read once, ~68 MB, about 20 us at 3.35 TB/s;
 // the two products are ~2.8 GFLOP, under 3 us of bf16 tensor-core time.
-// So it is bound by bytes. This first version reads each unit's K/V
-// through shared memory and computes both products with f32 FMAs, one
-// tile of 16 context tokens at a time, with no overlap of loads and math:
-// it runs far from that bound.
+// So it is bound by bytes. What holds it back is the traffic from L2 into
+// shared memory: each 8-token unit of a chunk copies its segment's whole
+// visible context again, ~158 MB in all for the 68 MB of K/V.
 //
-// Design: grid (NW, Hk), 128 threads. The TPU runs the (NW, MP) grid in
-// order and lets consecutive units of one q block read-modify-write a
-// resident out block under a row mask; CUDA blocks run in no order, so
-// here one block owns one (work unit, kv head), walks that unit's pages in
-// a loop, and stores ONLY its own rows (rs .. rs + rows). Units of one q
-// block never touch each other's rows, and every row of [0, T) belongs to
-// exactly one unit, so the output needs no initialisation and no
-// read-modify-write. Padding units (rows 0) return at once. The loop
-// bound replaces the TPU index-map clamp: a unit walks context tokens up
-// to min(qpos0 + rows - 1, kv_len - 1), so table entries past it are never
-// read. Masked scores are -inf against a -1e30 running max (p = 0
-// exactly) and the finalize divides by max(l, 1e-30): an empty context
-// gives 0, not NaN.
-//
-// Known imbalance: a decode row over a 4096-token context is one unit of
-// G query rows that walks 256 tiles alone while a chunk's units finish
-// early, and it keeps 3 of its 64 row slots busy. Splitting long units
-// over the context (split-K), mma.sync / wgmma for the products and TMA
-// for the page loads are later changes.
+// Design: the tile body of paged_flash.cuh (bf16 tiles of 64 tokens
+// through a ring of bulk copies, both products on tensor cores, softmax
+// in registers), 128 threads and 64 rows a block (a unit holds at most
+// q_block * G rows), with the context split over blocks
+// (flash-decoding): grid (NW, Hk, NS), NS = ceil(MP * PS / split) from
+// the page table's width, a shape, so the launch needs no host sync.
+// Block (w, h, z) walks positions [z * split, min((z + 1) * split,
+// last_pos + 1)) of unit w, last_pos = min(qpos0 + rows - 1, kv_len - 1),
+// and returns at once when that range is empty. CUDA blocks run in no
+// order, so one block per (unit, head) walking a whole 4096-token row
+// alone set the time of the whole launch; split, that row is 8 blocks of
+// 8 tiles each.
+//   - A unit whose last position falls in split 0 is one block: it
+//     writes its own rows (rs .. rs + rows) of `out` in bf16, and only
+//     those. Every row of [0, T) belongs to exactly one unit, so `out`
+//     needs no initialisation.
+//   - A longer unit's blocks write f32 partials per row (the unnormalised
+//     O, the running max m in base-2 units, the sum l) to the scratch the
+//     wrapper allocates, [NS, NW, Hk, q_block * G, D + 4]; then
+//     `ragged_merge_kernel`, launched by the same call on the same stream,
+//     merges each such unit's splits by log-sum-exp in split order and
+//     writes bf16. A split in which a row sees no key has m = -1e30, l = 0
+//     and weighs exactly 0.
+// Idle rows: a decode unit fills G of a block's 64 rows (one warp's mma
+// with 3 live rows). Handing the idle warps a share of each tile's tokens
+// was not taken: clock stamps on an H100 put a tile's products and
+// softmax in one warp at about a third of the time a tile takes to
+// arrive, so the loads, not the products, set a block's pace.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "paged_flash.cuh"
 
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kRowsMax = 64;  // query rows (token x group) per unit
-constexpr int kTile = 16;     // context tokens per tile
-constexpr float kNegInf = -1e30f;
+using namespace paged_flash;
 
-__device__ __forceinline__ float masked_score() { return __int_as_float(static_cast<int>(0xff800000u)); }  // -inf
+constexpr int kWarps = 4;  // 64 query rows: a unit's q_block * G at most
+constexpr int kThreads = 32 * kWarps;
+
+struct Unit {
+  int n_tok, seg, t0, qpos0, last_pos;
+};
+
+__device__ __forceinline__ Unit read_unit(const int* __restrict__ meta,
+                                          const int* __restrict__ seg_kv_lens,
+                                          int NW, int w, int PS, int MP, int QB) {
+  Unit u;
+  u.n_tok = meta[3 * NW + w];
+  u.seg = meta[w];
+  u.t0 = meta[NW + w] * QB + meta[2 * NW + w];  // first flat token
+  u.qpos0 = meta[4 * NW + w];
+  const int kvl = u.n_tok > 0 ? min(seg_kv_lens[u.seg], MP * PS) : 0;
+  u.last_pos = min(u.qpos0 + u.n_tok - 1, kvl - 1);
+  return u;
+}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -62,206 +83,134 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
               const int* __restrict__ seg_kv_lens,
               const int* __restrict__ meta,
               __nv_bfloat16* __restrict__ out,
-              int NW, int Hk, int G, int PS, int MP, int QB, float scale) {
-  constexpr int kChunks = D / 8;     // 16-byte chunks per row
-  constexpr int kQPad = D + 8;       // bf16 row stride of the query tile
-  constexpr int kKPad = D + 4;       // f32 row stride of the key tile
-  constexpr int kDims = D / 16;      // output dims per thread
-  __shared__ __align__(16) __nv_bfloat16 sq[kRowsMax][kQPad];
-  __shared__ __align__(16) float sk[kTile][kKPad];
-  __shared__ __align__(16) float sv[kTile][D];
-  __shared__ float sp[kRowsMax][kTile + 1];
-  __shared__ float s_m[kRowsMax], s_l[kRowsMax], s_alpha[kRowsMax];
-
+              float* __restrict__ part,
+              int NW, int Hk, int G, int PS, int MP, int QB, int split,
+              float scale_log2) {
+  extern __shared__ __align__(16) unsigned char smem[];
   const int w = blockIdx.x;
   const int h = blockIdx.y;
-  const int n_tok = meta[3 * NW + w];
-  if (n_tok <= 0) return;  // padding unit (uniform over the block)
-  const int seg = meta[w];
-  const int t0 = meta[NW + w] * QB + meta[2 * NW + w];  // first flat token
-  const int qpos0 = meta[4 * NW + w];
-  const int kvl = min(seg_kv_lens[seg], MP * PS);
-  const int* __restrict__ pt = seg_page_table + (size_t)seg * MP;
-  const int tid = threadIdx.x;
-  const int rg = tid / 16;   // rows rg*8 .. rg*8+7
-  const int col = tid % 16;  // tile token (scores) / dim block (PV)
-  const int rows = n_tok * G;
-  const size_t row_stride = (size_t)Hk * D;
+  const int z = blockIdx.z;
+  const Unit u = read_unit(meta, seg_kv_lens, NW, w, PS, MP, QB);
+  if (u.n_tok <= 0) return;  // padding unit (uniform over the block)
+  const int c_begin = z * split;
+  // split 0 always runs: it writes the rows of a unit with no context
+  if (z > 0 && c_begin > u.last_pos) return;
+  const int c_end = min(c_begin + split, u.last_pos + 1);
+  const int rows = u.n_tok * G;
 
   auto q_offset = [&](int r) {  // row r = token (r / G) x group (r % G)
-    return (((size_t)(t0 + r / G) * Hk + h) * G + r % G) * D;
+    return (((size_t)(u.t0 + r / G) * Hk + h) * G + r % G) * D;
   };
+  RowState<D> st;
+  auto q_row = [&](int r) -> const __nv_bfloat16* {
+    return r < rows ? q + q_offset(r) : nullptr;
+  };
+  auto row_vis = [&](int r) { return r < rows ? min(u.qpos0 + r / G, u.last_pos) : -1; };
+  attend<D, kWarps>(smem, q_row, row_vis, k_pool, v_pool,
+                    seg_page_table + (size_t)u.seg * MP, PS, Hk, h, c_begin,
+                    c_end, scale_log2, st);
 
-  for (int i = tid; i < kRowsMax * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c8 = (i % kChunks) * 8;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (r < rows) {
-      val = __ldg(reinterpret_cast<const uint4*>(q + q_offset(r) + c8));
-    }
-    *reinterpret_cast<uint4*>(&sq[r][c8]) = val;
+  if (u.last_pos < split) {  // one split: the rows go straight to out
+    store_rows<D>([&](int r) -> __nv_bfloat16* {
+      return r < rows ? out + q_offset(r) : nullptr;
+    }, st);
+    return;
   }
-  if (tid < kRowsMax) {
-    s_m[tid] = kNegInf;
-    s_l[tid] = 0.f;
-  }
-  float acc[8][kDims];
+  // partials of split z: per row D values of O, then m, l
+  const int lane = threadIdx.x & 31;
+  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  float* base = part + (((size_t)z * NW + w) * Hk + h) * (size_t)(QB * G) * (D + 4);
 #pragma unroll
-  for (int i = 0; i < 8; ++i)
-#pragma unroll
-    for (int e = 0; e < kDims; ++e) acc[i][e] = 0.f;
-
-  // last context position any row of this unit can see
-  const int last_pos = min(qpos0 + n_tok - 1, kvl - 1);
-  const int n_tiles = last_pos >= 0 ? last_pos / kTile + 1 : 0;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int c0 = t * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < kTile * kChunks; i += kThreads) {
-      const int j = i / kChunks;
-      const int c8 = (i % kChunks) * 8;
-      const int c = c0 + j;
-      float kf[8], vf[8];
-      if (c <= last_pos) {
-        const int page = pt[c / PS];
-        const size_t off =
-            ((size_t)page * PS + c % PS) * row_stride + (size_t)h * D + c8;
-        const uint4 kr = __ldg(reinterpret_cast<const uint4*>(k_pool + off));
-        const uint4 vr = __ldg(reinterpret_cast<const uint4*>(v_pool + off));
-        const __nv_bfloat162* kh = reinterpret_cast<const __nv_bfloat162*>(&kr);
-        const __nv_bfloat162* vh = reinterpret_cast<const __nv_bfloat162*>(&vr);
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float2 a = __bfloat1622float2(kh[e]);
-          const float2 z = __bfloat1622float2(vh[e]);
-          kf[2 * e] = a.x;
-          kf[2 * e + 1] = a.y;
-          vf[2 * e] = z.x;
-          vf[2 * e + 1] = z.y;
-        }
-      } else {
-#pragma unroll
-        for (int e = 0; e < 8; ++e) kf[e] = vf[e] = 0.f;
-      }
-      *reinterpret_cast<float4*>(&sk[j][c8]) = make_float4(kf[0], kf[1], kf[2], kf[3]);
-      *reinterpret_cast<float4*>(&sk[j][c8 + 4]) = make_float4(kf[4], kf[5], kf[6], kf[7]);
-      *reinterpret_cast<float4*>(&sv[j][c8]) = make_float4(vf[0], vf[1], vf[2], vf[3]);
-      *reinterpret_cast<float4*>(&sv[j][c8 + 4]) = make_float4(vf[4], vf[5], vf[6], vf[7]);
-    }
-    __syncthreads();
-
-    // scores: rows rg*8 .. rg*8+7 against tile token `col`; row groups
-    // past the unit's rows skip the products
-    const int kv_pos = c0 + col;
-    if (rg * 8 < rows) {
-      float sc[8];
-#pragma unroll
-      for (int i = 0; i < 8; ++i) sc[i] = 0.f;
-#pragma unroll 4
-      for (int d = 0; d < D; d += 4) {
-        const float4 k4 = *reinterpret_cast<const float4*>(&sk[col][d]);
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const uint2 raw = *reinterpret_cast<const uint2*>(&sq[rg * 8 + i][d]);
-          const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-          const float2 z = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-          sc[i] = fmaf(a.x, k4.x, fmaf(a.y, k4.y, fmaf(z.x, k4.z, fmaf(z.y, k4.w, sc[i]))));
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const int r = rg * 8 + i;
-        const bool ok = r < rows && kv_pos <= qpos0 + r / G && kv_pos < kvl;
-        sp[r][col] = ok ? sc[i] * scale : masked_score();
-      }
-    }
-    __syncthreads();
-
-    // online softmax: one thread per row. Masked scores are -inf, so they
-    // contribute p = 0 even while the running max is still the -1e30 start
-    if (tid < rows) {
-      const int r = tid;
-      const float m_old = s_m[r];
-      float mx = masked_score();
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) mx = fmaxf(mx, sp[r][j]);
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kTile; ++j) {
-        const float p = __expf(sp[r][j] - m_new);
-        sp[r][j] = p;
-        sum += p;
-      }
-      const float alpha = __expf(m_old - m_new);
-      s_l[r] = s_l[r] * alpha + sum;
-      s_m[r] = m_new;
-      s_alpha[r] = alpha;
-    }
-    __syncthreads();
-
-    // PV: rows rg*8 .. rg*8+7, dims col*kDims .. col*kDims + kDims - 1
-    if (rg * 8 < rows) {
-      const int n_live = min(8, rows - rg * 8);
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        if (i < n_live) {
-          const float a = s_alpha[rg * 8 + i];
-#pragma unroll
-          for (int e = 0; e < kDims; ++e) acc[i][e] *= a;
-        }
-      }
-#pragma unroll 4
-      for (int j = 0; j < kTile; ++j) {
-        float v[kDims];
-#pragma unroll
-        for (int e = 0; e < kDims; e += 4) {
-          const float4 v4 = *reinterpret_cast<const float4*>(&sv[j][col * kDims + e]);
-          v[e] = v4.x;
-          v[e + 1] = v4.y;
-          v[e + 2] = v4.z;
-          v[e + 3] = v4.w;
-        }
-#pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          if (i < n_live) {
-            const float p = sp[rg * 8 + i][j];
-#pragma unroll
-            for (int e = 0; e < kDims; ++e) acc[i][e] = fmaf(p, v[e], acc[i][e]);
-          }
-        }
-      }
-    }
-  }
-  __syncthreads();  // s_l is final (and initialised when no tile ran)
-
-  // store only this unit's rows
-#pragma unroll
-  for (int i = 0; i < 8; ++i) {
-    const int r = rg * 8 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int r = r0 + 8 * i;
     if (r >= rows) continue;
-    const float denom = fmaxf(s_l[r], 1e-30f);
-    __nv_bfloat16* o = out + q_offset(r) + col * kDims;
+    float* p = base + (size_t)r * (D + 4);
 #pragma unroll
-    for (int e = 0; e < kDims; e += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(o + e) =
-          __floats2bfloat162_rn(acc[i][e] / denom, acc[i][e + 1] / denom);
+    for (int n = 0; n < D / 8; ++n) {
+      *reinterpret_cast<float2*>(p + n * 8 + 2 * (lane & 3)) =
+          make_float2(st.o[n][2 * i], st.o[n][2 * i + 1]);
     }
+    if ((lane & 3) == 0) *reinterpret_cast<float2*>(p + D) = make_float2(st.m[i], st.l[i]);
   }
+}
+
+// Grid (NW, Hk), 128 threads: each unit that spans more than one split
+// merges its splits' partials per row, in split order, and writes bf16.
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+ragged_merge_kernel(const float* __restrict__ part,
+                    const int* __restrict__ seg_kv_lens,
+                    const int* __restrict__ meta,
+                    __nv_bfloat16* __restrict__ out,
+                    int NW, int Hk, int G, int PS, int MP, int QB, int split) {
+  const int w = blockIdx.x;
+  const int h = blockIdx.y;
+  const Unit u = read_unit(meta, seg_kv_lens, NW, w, PS, MP, QB);
+  if (u.n_tok <= 0 || u.last_pos < split) return;  // written by its one block
+  const int n_split = u.last_pos / split + 1;
+  const int rows = u.n_tok * G;
+  const size_t split_stride = (size_t)NW * Hk * (QB * G) * (D + 4);
+  const float* base = part + ((size_t)w * Hk + h) * (size_t)(QB * G) * (D + 4);
+  for (int i = threadIdx.x; i < rows * (D / 4); i += kThreads) {
+    const int r = i / (D / 4);
+    const int d = (i % (D / 4)) * 4;
+    const float* p = base + (size_t)r * (D + 4);
+    float m_all = kNegInf;
+    for (int z = 0; z < n_split; ++z) m_all = fmaxf(m_all, p[z * split_stride + D]);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    float l_all = 0.f;
+    for (int z = 0; z < n_split; ++z) {
+      const float* pz = p + z * split_stride;
+      const float wz = exp2_approx(pz[D] - m_all);
+      const float4 o = *reinterpret_cast<const float4*>(pz + d);
+      l_all += wz * pz[D + 1];
+      acc.x += wz * o.x;
+      acc.y += wz * o.y;
+      acc.z += wz * o.z;
+      acc.w += wz * o.w;
+    }
+    const float inv = 1.f / fmaxf(l_all, 1e-30f);
+    uint2 pk;
+    pk.x = pack_bf16(acc.x * inv, acc.y * inv);
+    pk.y = pack_bf16(acc.z * inv, acc.w * inv);
+    *reinterpret_cast<uint2*>(
+        out + (((size_t)(u.t0 + r / G) * Hk + h) * G + r % G) * D + d) = pk;
+  }
+}
+
+template <int D>
+int launch(int NW, int Hk, int NS, cudaStream_t st, const __nv_bfloat16* q,
+           const __nv_bfloat16* k, const __nv_bfloat16* v, const int* pt,
+           const int* kl, const int* mt, __nv_bfloat16* out, float* part,
+           int G, int PS, int MP, int QB, int split, float scale_log2) {
+  constexpr int smem = Shape<D, kWarps>::kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      ragged_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  ragged_kernel<D><<<dim3(NW, Hk, NS), kThreads, smem, st>>>(
+      q, k, v, pt, kl, mt, out, part, NW, Hk, G, PS, MP, QB, split, scale_log2);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || NS < 2) return static_cast<int>(err);
+  ragged_merge_kernel<D><<<dim3(NW, Hk), kThreads, 0, st>>>(
+      part, kl, mt, out, NW, Hk, G, PS, MP, QB, split);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// part: f32 scratch [NS, NW, Hk, q_block * G, D + 4], NS = ceil(MP * PS /
+// split); only the splits of units longer than one split are written.
 extern "C" int ragged_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* seg_page_table, const void* seg_kv_lens, const void* meta,
-    void* out, int NW, int Hk, int G, int D, int PS, int MP, int q_block,
-    float scale, void* stream) {
+    void* out, void* part, int NW, int Hk, int G, int D, int PS, int MP,
+    int q_block, int split, float scale, void* stream) {
   if (NW == 0) return 0;
-  if (q_block < 1 || q_block * G > kRowsMax) {
+  if (q_block < 1 || q_block * G > 16 * kWarps || split < paged_flash::kTile ||
+      split % paged_flash::kTile) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const dim3 grid(NW, Hk);
+  const int NS = (MP * PS + split - 1) / split;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qq = static_cast<const __nv_bfloat16*>(q);
   const auto* kk = static_cast<const __nv_bfloat16*>(k_pool);
@@ -270,16 +219,17 @@ extern "C" int ragged_paged_attention(
   const auto* kl = static_cast<const int*>(seg_kv_lens);
   const auto* mt = static_cast<const int*>(meta);
   auto* oo = static_cast<__nv_bfloat16*>(out);
+  auto* pp = static_cast<float*>(part);
+  const float scale_log2 = scale * paged_flash::kLog2e;
   if (D == 128) {
-    ragged_kernel<128><<<grid, kThreads, 0, st>>>(
-        qq, kk, vv, pt, kl, mt, oo, NW, Hk, G, PS, MP, q_block, scale);
-  } else if (D == 64) {
-    ragged_kernel<64><<<grid, kThreads, 0, st>>>(
-        qq, kk, vv, pt, kl, mt, oo, NW, Hk, G, PS, MP, q_block, scale);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    return launch<128>(NW, Hk, NS, st, qq, kk, vv, pt, kl, mt, oo, pp, G, PS,
+                       MP, q_block, split, scale_log2);
   }
-  return static_cast<int>(cudaGetLastError());
+  if (D == 64) {
+    return launch<64>(NW, Hk, NS, st, qq, kk, vv, pt, kl, mt, oo, pp, G, PS,
+                      MP, q_block, split, scale_log2);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 extern "C" const char* kernel_error_string(int code) {

@@ -19,9 +19,9 @@ import torch
 from dynamo_tpu_torch.models.toolkit import paged_attention_ref
 from dynamo_tpu_torch.ops import _build
 
-# query rows (token x group) one kernel block stages; q_block is the
-# largest power of two with q_block * G within it
-ROWS_PER_BLOCK = 64
+# query rows (token x group) one kernel block holds, 16 per warp over 8
+# warps; q_block is the most tokens whose rows fit in it, floor(128 / G)
+ROWS_PER_BLOCK = 128
 
 
 def prefill_paged_attention_ref(
@@ -40,10 +40,7 @@ def prefill_paged_attention_ref(
 
 
 def q_block_for(G: int) -> int:
-    qb = 1
-    while qb * 2 * G <= ROWS_PER_BLOCK:
-        qb *= 2
-    return qb
+    return ROWS_PER_BLOCK // G
 
 
 def prefill_paged_attention(

@@ -19,6 +19,12 @@ hand-written Hopper kernel in csrc/ragged_paged_attention.cu; on CPU
 tensors it runs the plain PyTorch version below, the counterpart of the
 reference's `ragged_attention_reference`: every flat token is a B=T, S=1
 row of `paged_attention_ref`.
+
+The kernel splits each unit's context into SPLIT_TOKENS-long pieces, one
+block each, and merges a long unit's pieces by log-sum-exp;
+`ragged_split_partials_ref` and `merge_split_partials_ref` are that
+arithmetic in plain PyTorch, and `split_scratch_shape` the kernel's f32
+scratch for it.
 """
 
 from __future__ import annotations
@@ -28,7 +34,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dynamo_tpu_torch.models.toolkit import paged_attention_ref
+from dynamo_tpu_torch.models.toolkit import NEG_INF, paged_attention_ref
 from dynamo_tpu_torch.ops import _build
 
 # decode batch (<=64) + packed chunks (<=32) in one mixed iteration
@@ -36,6 +42,9 @@ RAGGED_MAX_SEGS = 96
 DEFAULT_Q_BLOCK = 8
 # query rows (token x group) one kernel block stages
 ROWS_PER_BLOCK = 64
+# context tokens one kernel block walks: a multiple of the kernel's
+# 64-token tile
+SPLIT_TOKENS = 512
 
 
 def ragged_seg_cap(t_bucket: int, max_segs: int = RAGGED_MAX_SEGS) -> int:
@@ -174,6 +183,75 @@ def ragged_paged_attention_ref(
     )[:, 0]
 
 
+def split_count(max_pages: int, page_size: int) -> int:
+    """Context splits the kernel's grid holds: enough for the longest
+    context a page-table row can address. A function of shapes only."""
+    return -(-max_pages * page_size // SPLIT_TOKENS)
+
+
+def split_scratch_shape(n_work: int, Hk: int, G: int, D: int, max_pages: int,
+                        page_size: int, q_block: int = DEFAULT_Q_BLOCK
+                        ) -> Tuple[int, int, int, int, int]:
+    """The kernel's f32 partials [NS, NW, Hk, q_block * G, D + 4]: per
+    split, unit, head and row the unnormalised output (D), the running
+    max, the sum, and 2 floats of padding that keep rows 16-byte aligned."""
+    return (split_count(max_pages, page_size), n_work, Hk, q_block * G, D + 4)
+
+
+def ragged_split_partials_ref(
+    q: torch.Tensor, k_pool_l: torch.Tensor, v_pool_l: torch.Tensor,
+    seg_page_table: torch.Tensor, seg_kv_lens: torch.Tensor,
+    meta: torch.Tensor, *, q_block: int = DEFAULT_Q_BLOCK,
+    scale: Optional[float] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Plain version of the kernel's first pass, in f32: for each flat
+    token and each context split z (positions [z * SPLIT_TOKENS,
+    (z + 1) * SPLIT_TOKENS)), the max m of the row's visible scaled scores there, l = sum
+    exp(s - m) and the unnormalised o = sum exp(s - m) v. A split in which
+    the row sees no key gives m = NEG_INF (-1e30), l = 0, o = 0. Returns
+    (m [NS, T, Hk, G], l [NS, T, Hk, G], o [NS, T, Hk, G, D])."""
+    T, Hk, G, D = q.shape
+    if scale is None:
+        scale = D ** -0.5
+    MP = seg_page_table.shape[1]
+    PS = k_pool_l.shape[1]
+    C = MP * PS
+    tok_seg, tok_pos = ragged_token_index(meta, T, q_block)
+    pages = seg_page_table[tok_seg].long()
+    k = k_pool_l[pages].reshape(T, C, Hk, D).float()
+    v = v_pool_l[pages].reshape(T, C, Hk, -1).float()
+    s = torch.einsum("tkgd,tckd->tkgc", q.float(), k) * scale
+    c = torch.arange(C, device=q.device)
+    seen = ((c[None, :] < seg_kv_lens[tok_seg][:, None])
+            & (c[None, :] <= tok_pos[:, None]))
+    ms, ls, os_ = [], [], []
+    for z in range(split_count(MP, PS)):
+        lo, hi = z * SPLIT_TOKENS, min((z + 1) * SPLIT_TOKENS, C)
+        mask = seen[:, None, None, lo:hi]
+        sz = torch.where(mask, s[..., lo:hi], float("-inf"))
+        m = sz.amax(-1).clamp(min=NEG_INF)
+        p = torch.where(mask, torch.exp(sz - m[..., None]), 0.0)
+        ms.append(m)
+        ls.append(p.sum(-1))
+        os_.append(torch.einsum("tkgc,tckd->tkgd", p, v[:, lo:hi]))
+    return torch.stack(ms), torch.stack(ls), torch.stack(os_)
+
+
+def merge_split_partials_ref(m: torch.Tensor, l: torch.Tensor,
+                             o: torch.Tensor) -> torch.Tensor:
+    """The kernel's merge: rescale each split to the rows' overall max and
+    sum in split order; a row that saw nothing comes out 0. [T, Hk, G, D]
+    in f32."""
+    m_all = m.amax(0)
+    l_all = torch.zeros_like(m_all)
+    acc = torch.zeros_like(o[0])
+    for z in range(m.shape[0]):
+        w = torch.exp(m[z] - m_all)
+        l_all = l_all + w * l[z]
+        acc = acc + w[..., None] * o[z]
+    return acc / l_all.clamp(min=1e-30)[..., None]
+
+
 def ragged_paged_attention(
     q: torch.Tensor,  # [T, Hk, G, D] flat query tokens (all segments)
     k_pool_l: torch.Tensor,  # [NP, PS, Hk, D] one layer's token-major pool
@@ -218,13 +296,16 @@ def ragged_paged_attention(
         raise ValueError("the ragged kernel takes contiguous operands")
     # every row of [0, T) belongs to exactly one unit, which writes it
     out = torch.empty_like(q)
+    NW, MP = meta.shape[1], seg_page_table.shape[1]
+    part = torch.empty(split_scratch_shape(NW, Hk, G, D, MP, PS, q_block),
+                       dtype=torch.float32, device=q.device)
     lib = _build.load()["ragged_paged_attention"]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.ragged_paged_attention(
         q.data_ptr(), k_pool_l.data_ptr(), v_pool_l.data_ptr(),
         seg_page_table.data_ptr(), seg_kv_lens.data_ptr(), meta.data_ptr(),
-        out.data_ptr(), meta.shape[1], Hk, G, D, PS,
-        seg_page_table.shape[1], q_block, float(scale), stream,
+        out.data_ptr(), part.data_ptr(), NW, Hk, G, D, PS, MP, q_block,
+        SPLIT_TOKENS, float(scale), stream,
     )
     _build.check(lib, rc, "ragged_paged_attention")
     ragged_paged_attention.launches += 1

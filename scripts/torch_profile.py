@@ -40,7 +40,7 @@ def family(name: str) -> str:
         return "decode_attention"
     if "prefill_kernel" in name:
         return "prefill_attention"
-    if "ragged_kernel" in name:
+    if "ragged_kernel" in name or "ragged_merge_kernel" in name:
         return "ragged_attention"
     low = name.lower()
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
