@@ -9,10 +9,10 @@ Phases, each printing one JSON line:
                all started together);
   3. kernels - each attention kernel at the main path's shapes (Hk 8, G 3,
                D 128, PS 16, bf16) against its plain PyTorch version, with
-               times from CUDA events around back-to-back calls (for the
-               chunked-prefill and ragged kernels and their yardsticks also
-               as CUDA-graph replays, `device_ms`, free of the host's
-               launch cost), the library yardstick (SDPA over K/V
+               times from CUDA events around back-to-back calls (for
+               every attention kernel and its yardstick also as CUDA-graph
+               replays, `device_ms`, free of the host's launch cost), the
+               library yardstick (SDPA over K/V
                gathered dense beforehand) and the roofline bound: decode,
                chunked prefill, and the ragged kernel over a 264-token
                mixed step (8 decode rows + 4 chunks), the same step with
@@ -20,7 +20,8 @@ Phases, each printing one JSON line:
                verify-shaped step (K+1 = 5 rows per segment) and, untimed,
                rows at the edges of its context splits (`split_edges`);
                then (`shapes`) all three kernels at the other shapes they
-               take; then (`copy_kernels`) the three page-copy kernels at
+               take, decode at every (D, G) pair it accepts; then
+               (`copy_kernels`) the three page-copy kernels at
                the 3B page shape (L 28, PS 16, Hk 8, D 128, bf16) in a
                2048-page pool, 94 pages in random order: token- and head-major
                gather, scatter, and a 4-group layer scatter, bit for bit
@@ -29,7 +30,10 @@ Phases, each printing one JSON line:
                64, PS 16, bf16): decode at B 8 (an empty row), prefill
                S 512 with q_len 450 over 700 prior tokens, a packed [4, 256]
                prefill with an all-padding row (exactly 0), and other page
-               sizes and head counts, untimed;
+               sizes and head counts, untimed; then (`decode_split_edges`)
+               both decode kernels with rows at kv_len 0, 1, split - 1,
+               split, split + 1, 2 split and 4096 (GQA at the main path's
+               heads, MLA at H 16, 32 and 128), untimed;
   4. engine  - build_engine for llama-3.2-3b at full width and depth with
                random weights and serve 8 concurrent requests (chunked
                prefill over prior context, a prefix-cache hit, greedy and
@@ -103,12 +107,14 @@ from dynamo_tpu_torch.ops.flash_prefill import (
     prefill_paged_attention_ref,
 )
 from dynamo_tpu_torch.ops.mla_attention import (
+    MLA_SPLIT_TOKENS,
     decode_mla_attention,
     decode_mla_attention_ref,
     prefill_mla_attention,
     prefill_mla_attention_ref,
 )
 from dynamo_tpu_torch.ops.paged_attention import (
+    DECODE_SPLIT_TOKENS,
     decode_paged_attention,
     decode_paged_attention_ref,
 )
@@ -427,13 +433,19 @@ def kernel_phase(dev):
     n_bytes = (2 * q.numel() * 2 + n_tok * Hk * D * 2 * 2
                + sum(-(-k // PS) for k in kv_list) * 4 + B * 4)
     bound_ms, bound_by = bound(n_bytes, 4 * n_tok * H * D)
+    def decode():
+        return decode_paged_attention(q, k_pool, v_pool, pt, kvl)
+
+    def library():
+        return F.scaled_dot_product_attention(qd, kq, vq, attn_mask=mask, scale=scale)
+
     results["decode_paged_attention"] = {
         "max_abs_err": err,
-        "ms": cuda_ms(lambda: decode_paged_attention(q, k_pool, v_pool, pt, kvl)),
+        "ms": cuda_ms(decode),
         "plain_ms": cuda_ms(lambda: decode_paged_attention_ref(q, k_pool, v_pool, pt, kvl)),
         "bound_ms": bound_ms, "bound_by": bound_by,
-        "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-            qd, kq, vq, attn_mask=mask, scale=scale)),
+        "library_ms": cuda_ms(library),
+        "device_ms": graph_ms(decode), "library_device_ms": graph_ms(library),
         "shape": {"B": B, "Hk": Hk, "G": G, "D": D, "PS": PS,
                   "kv_lens": kv_list},
     }
@@ -547,7 +559,76 @@ def shapes_phase(dev):
         errs[name] = {"decode": e_dec, "prefill": e_pre, "ragged": e_rag}
         check(max(e_dec, e_pre) <= KERNEL_TOL,
               f"kernel parity at {name}: decode {e_dec}, prefill {e_pre}")
+    # decode at every (D, G) its wrapper takes, rows over 1 to 4 splits
+    for D in (64, 128):
+        for G in (1, 2, 3, 4, 8):
+            Hk, PS, MP = 2, 16, 64
+            NP = 4 * MP + 1
+            k_pool, v_pool = (torch.randn(NP, PS, Hk, D, generator=gen)
+                              .bfloat16().to(dev) for _ in range(2))
+            pt = random_pages(gen, 4, MP, NP, dev)
+            q = torch.randn(4, Hk, G, D, generator=gen).bfloat16().to(dev)
+            kvl = torch.tensor([0, 37, DECODE_SPLIT_TOKENS + 5, 1000],
+                               dtype=torch.int32, device=dev)
+            out = decode_paged_attention(q, k_pool, v_pool, pt, kvl)
+            torch.cuda.synchronize()
+            ref = decode_paged_attention_ref(q, k_pool, v_pool, pt, kvl)
+            err = (out.float() - ref.float()).abs().max().item()
+            check(out[0].float().abs().max().item() == 0.0,
+                  f"decode kv_len=0 row not 0 at D={D} G={G}")
+            check(err <= KERNEL_TOL, f"decode max abs err {err} at D={D} G={G}")
+            errs[f"decode_D{D}_G{G}"] = err
     emit({"phase": "shapes", "tol": KERNEL_TOL, "max_abs_err": errs})
+
+
+def decode_split_edges_phase(dev):
+    """Both decode kernels with rows at the edges of their context splits
+    (kv_len 0, 1, split - 1, split, split + 1, 2 split and 4096), GQA at
+    the main path's heads and MLA at H 16, 32 and 128, untimed: max abs err
+    within KERNEL_TOL, the kv_len-0 row exactly 0."""
+    gen = torch.Generator(device="cpu").manual_seed(7)
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).bfloat16().to(dev)
+
+    def edges(split):
+        return [0, 1, split - 1, split, split + 1, 2 * split, 4096]
+
+    def gate(out, ref, what):
+        err = (out.float() - ref.float()).abs().max().item()
+        check(torch.isfinite(out.float()).all().item(), f"{what}: output not finite")
+        check(out[0].float().abs().max().item() == 0.0, f"{what}: kv_len=0 row is not 0")
+        check(err <= KERNEL_TOL, f"{what}: max abs err {err} > {KERNEL_TOL}")
+        return err
+
+    PS, MP = 16, 4096 // 16
+    kv_gqa = edges(DECODE_SPLIT_TOKENS)
+    B = len(kv_gqa)
+    Hk, G, D = 8, 3, 128
+    pt = random_pages(gen, B, MP, B * MP + 1, dev)
+    kp, vp = rnd(B * MP + 1, PS, Hk, D), rnd(B * MP + 1, PS, Hk, D)
+    q = rnd(B, Hk, G, D)
+    kvl = torch.tensor(kv_gqa, dtype=torch.int32, device=dev)
+    out = decode_paged_attention(q, kp, vp, pt, kvl)
+    torch.cuda.synchronize()
+    rec = {"gqa": {"split": DECODE_SPLIT_TOKENS, "kv_lens": kv_gqa,
+                   "max_abs_err": gate(out, decode_paged_attention_ref(
+                       q, kp, vp, pt, kvl), "decode split edges")}}
+    del kp, vp
+    kv_mla = edges(MLA_SPLIT_TOKENS)
+    kvl = torch.tensor(kv_mla, dtype=torch.int32, device=dev)
+    lat = rnd(B * MP + 1, PS, 1, MLA_DC + MLA_DR)
+    scale = attn_score_scale(MLA_CONFIG, MLA_CONFIG.qk_nope_head_dim + MLA_DR)
+    rec["mla"] = {"split": MLA_SPLIT_TOKENS, "kv_lens": kv_mla, "max_abs_err": {}}
+    for H in (16, 32, 128):
+        q = rnd(B, H, MLA_DC + MLA_DR)
+        out = decode_mla_attention(q, lat, pt, kvl, dc=MLA_DC, scale=scale)
+        torch.cuda.synchronize()
+        ref = decode_mla_attention_ref(q, lat, pt, kvl, dc=MLA_DC, scale=scale)
+        rec["mla"]["max_abs_err"][f"H{H}"] = gate(out, ref, f"MLA decode split edges H {H}")
+    del lat
+    torch.cuda.empty_cache()
+    emit({"phase": "decode_split_edges", "tol": KERNEL_TOL, **rec})
 
 
 # the page-copy kernels at the 3B page shape: the pages of a 1500-token
@@ -746,6 +827,8 @@ def mla_kernel_phase(dev):
         "plain_ms": cuda_ms(lambda: decode_mla_attention_ref(*args, dc=dc, scale=scale)),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": cuda_ms(lib_fn), "library": lib_name,
+        "device_ms": graph_ms(lambda: decode_mla_attention(*args, dc=dc, scale=scale)),
+        "library_device_ms": graph_ms(lib_fn),
         "shape": {"B": B, "H": H, "dc": dc, "dr": dr, "PS": PS, "kv_lens": kv_list},
     }
     del lat, dense, args
@@ -784,6 +867,8 @@ def mla_kernel_phase(dev):
                             iters=5),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "library_ms": cuda_ms(lib_fn), "library": lib_name,
+        "device_ms": graph_ms(lambda: prefill_mla_attention(*args, dc=dc, scale=scale)),
+        "library_device_ms": graph_ms(lib_fn),
         "shape": {"S": S, "q_len": q_len, "prior": prior, "H": H, "dc": dc,
                   "dr": dr, "PS": PS},
     }
@@ -1528,6 +1613,7 @@ def main() -> int:
         shapes_phase(dev)
         kern.update(copy_kernel_phase(dev))
         kern.update(mla_kernel_phase(dev))
+        decode_split_edges_phase(dev)
         runner, launches = engine_phases(dev)
         # each copy kernel's launches from the phase that runs it
         disagg = disagg_phase(runner.params)

@@ -30,11 +30,11 @@ NVCC_FLAGS = [
 # source stem -> {C function: (argtypes, restype)}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
-    # q, k_pool, v_pool, page_table, kv_lens, out,
-    # B, Hk, G, D, PS, MP, scale, stream
+    # q, k_pool, v_pool, page_table, kv_lens, out, part,
+    # B, Hk, G, D, PS, MP, split, scale, stream
     "paged_attention": {
         "decode_paged_attention": (
-            [_P] * 6 + [_I] * 6 + [_F, _P], _I),
+            [_P] * 7 + [_I] * 7 + [_F, _P], _I),
     },
     # q, k_pool, v_pool, page_table, q_start, q_len, kv_lens, out,
     # B, S, Hk, G, D, PS, MP, q_block, scale, stream
@@ -49,9 +49,9 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
             [_P] * 8 + [_I] * 8 + [_F, _P], _I),
     },
     "mla_attention": {
-        # q, lat_pool, page_table, kv_lens, out, B, H, dc, dr, PS, MP,
-        # scale, stream
-        "decode_mla_attention": ([_P] * 5 + [_I] * 6 + [_F, _P], _I),
+        # q, lat_pool, page_table, kv_lens, out, part, B, H, dc, dr, PS,
+        # MP, split, scale, stream
+        "decode_mla_attention": ([_P] * 6 + [_I] * 7 + [_F, _P], _I),
         # q, lat_pool, page_table, q_start, q_len, kv_lens, out,
         # B, S, H, dc, dr, PS, MP, scale, stream
         "prefill_mla_attention": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),

@@ -1,7 +1,11 @@
 // Shared tile body of the GQA paged flash-attention kernels for Hopper
 // (sm_90a): flash_prefill.cu (chunked prefill) and
-// ragged_paged_attention.cu (the flat mixed step) include it, and each
-// keeps its own launcher and epilogue.
+// ragged_paged_attention.cu (the flat mixed step) walk a block's range
+// with `attend`; paged_attention.cu (decode) gives each warp its own
+// tiles through `tile_update`, the per-tile step `attend` runs. The
+// split-context launchers (ragged, GQA decode, MLA decode in
+// mla_attention.cu) share `merge_splits`. Each keeps its own launcher
+// and epilogue.
 //
 // A block of W warps owns up to 16 W query rows of one kv head (row =
 // token * G + group, the TPU kernels' [Sq * G] flattening), 16 rows a
@@ -179,6 +183,98 @@ struct RowState {
   int vis[2];  // last context position the row sees; -1: none, or no row
 };
 
+// One 64-token tile of the online softmax, in one warp: S = Q K^T for the
+// warp's 16 query rows (qf: Q's A fragments), scale and mask (a token c
+// counts for row i when full or c <= st.vis[i]), the running max and sum,
+// P rounded to bf16, O += P V. sK is the tile's K rows, the V rows follow
+// kTileElems later, both with rows D + 8 bf16 apart.
+template <int D>
+__device__ __forceinline__ void tile_update(const uint32_t (&qf)[D / 16][4],
+                                            const __nv_bfloat16* sK, int c0,
+                                            bool full, float scale_log2,
+                                            RowState<D>& st) {
+  constexpr int kStride = D + 8;
+  constexpr int kKC = D / 16;
+  const __nv_bfloat16* sV = sK + kTile * kStride;
+  const int lane = threadIdx.x & 31;
+  const int t4 = lane & 3;
+  // S = Q K^T: 16 rows x 64 tokens, 8 n-blocks of 8 tokens
+  float s[8][4];
+#pragma unroll
+  for (int n = 0; n < 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+  for (int n2 = 0; n2 < 4; ++n2) {
+#pragma unroll
+    for (int kc = 0; kc < kKC; ++kc) {
+      uint32_t b[4];
+      ldsm_x4(b, smem_u32(sK + (n2 * 16 + (lane >> 4) * 8 + (lane & 7)) * kStride +
+                          kc * 16 + ((lane >> 3) & 1) * 8));
+      mma_bf16(s[2 * n2], qf[kc], b[0], b[1]);
+      mma_bf16(s[2 * n2 + 1], qf[kc], b[2], b[3]);
+    }
+  }
+
+  // scale, mask, row max
+  float mx[2] = {minus_inf(), minus_inf()};
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int c = c0 + n * 8 + 2 * t4 + (e & 1);
+      const float x = s[n][e] * scale_log2;
+      s[n][e] = (full || c <= st.vis[e >> 1]) ? x : minus_inf();
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const float m_new = fmaxf(st.m[i], quad_max(mx[i]));
+    alpha[i] = exp2_approx(st.m[i] - m_new);
+    st.m[i] = m_new;
+  }
+
+  // P = exp2(S - m), rounded to bf16 as P V's A fragments
+  uint32_t pa[4][4];
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int n = 0; n < 8; ++n) {
+    const float p0 = exp2_approx(s[n][0] - st.m[0]);
+    const float p1 = exp2_approx(s[n][1] - st.m[0]);
+    const float p2 = exp2_approx(s[n][2] - st.m[1]);
+    const float p3 = exp2_approx(s[n][3] - st.m[1]);
+    sum[0] += p0 + p1;
+    sum[1] += p2 + p3;
+    pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
+    pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) st.l[i] = st.l[i] * alpha[i] + sum[i];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n) {
+    st.o[n][0] *= alpha[0];
+    st.o[n][1] *= alpha[0];
+    st.o[n][2] *= alpha[1];
+    st.o[n][3] *= alpha[1];
+  }
+
+  // O += P V: k = the tile's 64 tokens in 4 slices of 16
+#pragma unroll
+  for (int k2 = 0; k2 < 4; ++k2) {
+#pragma unroll
+    for (int n2 = 0; n2 < kKC; ++n2) {
+      uint32_t b[4];
+      ldsm_x4_trans(b, smem_u32(sV + (k2 * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
+                                         kStride +
+                                n2 * 16 + (lane >> 4) * 8));
+      mma_bf16(st.o[2 * n2], pa[k2], b[0], b[1]);
+      mma_bf16(st.o[2 * n2 + 1], pa[k2], b[2], b[3]);
+    }
+  }
+}
+
 // The block's attention over context positions [c_begin, c_end), c_begin
 // a multiple of kTile. q_row(r) is row r's D query values in global memory
 // (nullptr: no row, staged as zeros); row_vis(r) the last context position
@@ -199,7 +295,6 @@ __device__ __forceinline__ void attend(
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
-  const int t4 = lane & 3;
   const size_t row_stride = (size_t)Hk * D;
 
   // stage Q with cp.async (zero rows where there is none)
@@ -285,85 +380,9 @@ __device__ __forceinline__ void attend(
     const int c0 = c_begin + t * kTile;
     if (w_hi < c0) continue;  // no row of this warp sees this tile
     mbar_wait(bar0 + 8 * (t % kStages), (t / kStages) & 1);
-    const __nv_bfloat16* sK = sKV + (2 * (t % kStages)) * Sh::kTileElems;
-    const __nv_bfloat16* sV = sK + Sh::kTileElems;
-
-    // S = Q K^T: 16 rows x 64 tokens, 8 n-blocks of 8 tokens
-    float s[8][4];
-#pragma unroll
-    for (int n = 0; n < 8; ++n)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
-#pragma unroll
-    for (int n2 = 0; n2 < 4; ++n2) {
-#pragma unroll
-      for (int kc = 0; kc < Sh::kKC; ++kc) {
-        uint32_t b[4];
-        ldsm_x4(b, smem_u32(sK + (n2 * 16 + (lane >> 4) * 8 + (lane & 7)) * Sh::kStride +
-                            kc * 16 + ((lane >> 3) & 1) * 8));
-        mma_bf16(s[2 * n2], qf[kc], b[0], b[1]);
-        mma_bf16(s[2 * n2 + 1], qf[kc], b[2], b[3]);
-      }
-    }
-
-    // scale, mask, row max
     const bool full = c0 + kTile - 1 <= w_lo;  // every live row sees the whole tile
-    float mx[2] = {minus_inf(), minus_inf()};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int c = c0 + n * 8 + 2 * t4 + (e & 1);
-        const float x = s[n][e] * scale_log2;
-        s[n][e] = (full || c <= st.vis[e >> 1]) ? x : minus_inf();
-        mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const float m_new = fmaxf(st.m[i], quad_max(mx[i]));
-      alpha[i] = exp2_approx(st.m[i] - m_new);
-      st.m[i] = m_new;
-    }
-
-    // P = exp2(S - m), rounded to bf16 as P V's A fragments
-    uint32_t pa[4][4];
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < 8; ++n) {
-      const float p0 = exp2_approx(s[n][0] - st.m[0]);
-      const float p1 = exp2_approx(s[n][1] - st.m[0]);
-      const float p2 = exp2_approx(s[n][2] - st.m[1]);
-      const float p3 = exp2_approx(s[n][3] - st.m[1]);
-      sum[0] += p0 + p1;
-      sum[1] += p2 + p3;
-      pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
-      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) st.l[i] = st.l[i] * alpha[i] + sum[i];
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      st.o[n][0] *= alpha[0];
-      st.o[n][1] *= alpha[0];
-      st.o[n][2] *= alpha[1];
-      st.o[n][3] *= alpha[1];
-    }
-
-    // O += P V: k = the tile's 64 tokens in 4 slices of 16
-#pragma unroll
-    for (int k2 = 0; k2 < 4; ++k2) {
-#pragma unroll
-      for (int n2 = 0; n2 < Sh::kKC; ++n2) {
-        uint32_t b[4];
-        ldsm_x4_trans(b, smem_u32(sV + (k2 * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
-                                           Sh::kStride +
-                                  n2 * 16 + (lane >> 4) * 8));
-        mma_bf16(st.o[2 * n2], pa[k2], b[0], b[1]);
-        mma_bf16(st.o[2 * n2 + 1], pa[k2], b[2], b[3]);
-      }
-    }
+    tile_update<D>(qf, sKV + (2 * (t % kStages)) * Sh::kTileElems, c0, full,
+                   scale_log2, st);
   }
   // a warp that skipped tiles has not waited on them: every copy must land
   // before the block's shared memory goes
@@ -392,6 +411,48 @@ __device__ __forceinline__ void store_rows(ORow out_row, const RowState<D>& st) 
       const float b = live ? st.o[n][2 * i + 1] * inv : 0.f;
       *reinterpret_cast<uint32_t*>(o + n * 8 + 2 * (lane & 3)) = pack_bf16(a, b);
     }
+  }
+}
+
+// The split merge of every split-context launcher (ragged, GQA decode, MLA
+// decode): `rows` rows whose split z partials sit at base + z *
+// split_stride + row * (D + 4) as D floats of unnormalised O, then m (base
+// 2) and l. Each row's splits are rescaled to their overall max and summed
+// in split order, so the result is the same bit for bit from run to run;
+// a split in which the row saw nothing (m = -1e30, l = 0) weighs 0, and a
+// row that saw nothing comes out 0. out_row(r) is row r's D bf16 outputs.
+// Called by all kThreads threads of a block.
+template <int D, int kThreads, class ORow>
+__device__ __forceinline__ void merge_splits(const float* __restrict__ base,
+                                             size_t split_stride, int n_split,
+                                             int rows, ORow out_row) {
+  for (int i = threadIdx.x; i < rows * (D / 4); i += kThreads) {
+    const int r = i / (D / 4);
+    const int d = (i % (D / 4)) * 4;
+    const float* p = base + (size_t)r * (D + 4);
+    // unrolled so that a thread has 8 splits' loads in flight; the
+    // sums stay in split order
+    float m_all = kNegInf;
+#pragma unroll 8
+    for (int z = 0; z < n_split; ++z) m_all = fmaxf(m_all, p[z * split_stride + D]);
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    float l_all = 0.f;
+#pragma unroll 8
+    for (int z = 0; z < n_split; ++z) {
+      const float* pz = p + z * split_stride;
+      const float wz = exp2_approx(pz[D] - m_all);
+      const float4 o = *reinterpret_cast<const float4*>(pz + d);
+      l_all += wz * pz[D + 1];
+      acc.x += wz * o.x;
+      acc.y += wz * o.y;
+      acc.z += wz * o.z;
+      acc.w += wz * o.w;
+    }
+    const float inv = 1.f / fmaxf(l_all, 1e-30f);
+    uint2 pk;
+    pk.x = pack_bf16(acc.x * inv, acc.y * inv);
+    pk.y = pack_bf16(acc.z * inv, acc.w * inv);
+    *reinterpret_cast<uint2*>(out_row(r) + d) = pk;
   }
 }
 

@@ -148,34 +148,11 @@ ragged_merge_kernel(const float* __restrict__ part,
   const Unit u = read_unit(meta, seg_kv_lens, NW, w, PS, MP, QB);
   if (u.n_tok <= 0 || u.last_pos < split) return;  // written by its one block
   const int n_split = u.last_pos / split + 1;
-  const int rows = u.n_tok * G;
   const size_t split_stride = (size_t)NW * Hk * (QB * G) * (D + 4);
   const float* base = part + ((size_t)w * Hk + h) * (size_t)(QB * G) * (D + 4);
-  for (int i = threadIdx.x; i < rows * (D / 4); i += kThreads) {
-    const int r = i / (D / 4);
-    const int d = (i % (D / 4)) * 4;
-    const float* p = base + (size_t)r * (D + 4);
-    float m_all = kNegInf;
-    for (int z = 0; z < n_split; ++z) m_all = fmaxf(m_all, p[z * split_stride + D]);
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    float l_all = 0.f;
-    for (int z = 0; z < n_split; ++z) {
-      const float* pz = p + z * split_stride;
-      const float wz = exp2_approx(pz[D] - m_all);
-      const float4 o = *reinterpret_cast<const float4*>(pz + d);
-      l_all += wz * pz[D + 1];
-      acc.x += wz * o.x;
-      acc.y += wz * o.y;
-      acc.z += wz * o.z;
-      acc.w += wz * o.w;
-    }
-    const float inv = 1.f / fmaxf(l_all, 1e-30f);
-    uint2 pk;
-    pk.x = pack_bf16(acc.x * inv, acc.y * inv);
-    pk.y = pack_bf16(acc.z * inv, acc.w * inv);
-    *reinterpret_cast<uint2*>(
-        out + (((size_t)(u.t0 + r / G) * Hk + h) * G + r % G) * D + d) = pk;
-  }
+  merge_splits<D, kThreads>(base, split_stride, n_split, u.n_tok * G, [&](int r) {
+    return out + (((size_t)(u.t0 + r / G) * Hk + h) * G + r % G) * D;
+  });
 }
 
 template <int D>

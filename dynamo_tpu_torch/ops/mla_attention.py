@@ -11,19 +11,34 @@ result is the attended latent [.., H, d_c], which the caller lifts through
 W_UV. On CUDA tensors each wrapper launches the hand-written Hopper kernel
 in csrc/mla_attention.cu; on CPU tensors it runs the plain version beside
 it. The int8 latent pool and the `*_sharded` wrappers are not ported.
+
+The decode kernel splits each row's context into MLA_SPLIT_TOKENS-long
+pieces and merges them by log-sum-exp; `decode_mla_split_partials_ref`
+is that first pass in plain PyTorch (ops/paged_attention.py
+`split_partials_ref`), merged by `merge_split_partials_ref`.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import torch
 
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops.flash_prefill import prefill_paged_attention_ref
-from dynamo_tpu_torch.ops.paged_attention import decode_paged_attention_ref
+from dynamo_tpu_torch.ops.paged_attention import (
+    decode_paged_attention_ref,
+    decode_split_count,
+    split_partials_ref,
+)
 
 # the (d_c, d_rh) the kernels take: every DeepSeek V2/V3/R1 model's
 KERNEL_DIMS = (512, 64)
-HEADS_PER_BLOCK = 16  # H must be a multiple of it (prefill 16, decode 8)
+# H must be a multiple of it (prefill blocks own 16 heads, decode blocks 64
+# or what is left of H)
+HEADS_PER_BLOCK = 16
+# context tokens one decode block walks: a multiple of its 32-token tile
+MLA_SPLIT_TOKENS = 192
 
 
 def decode_mla_attention_ref(q, lat_pool_l, page_table, kv_lens, *, dc: int,
@@ -36,6 +51,22 @@ def decode_mla_attention_ref(q, lat_pool_l, page_table, kv_lens, *, dc: int,
     lat = lat_pool_l.float()
     return decode_paged_attention_ref(q[:, None].float(), lat, lat[..., :dc],
                                       page_table, kv_lens, scale)[:, 0].to(q.dtype)
+
+
+def decode_mla_split_partials_ref(q, lat_pool_l, page_table, kv_lens, *,
+                                  dc: int, scale: float,
+                                  split: int = MLA_SPLIT_TOKENS
+                                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The decode kernel's partials in plain f32: (m [NS, B, H],
+    l [NS, B, H], o [NS, B, H, dc]) over the splits of each row's positions
+    [0, kv_lens[b])."""
+    B, MP = page_table.shape
+    PS, Dl = lat_pool_l.shape[1], lat_pool_l.shape[-1]
+    C = MP * PS
+    lat = lat_pool_l[page_table.long()].reshape(B, C, Dl).float()
+    s = torch.einsum("bhd,bcd->bhc", q.float(), lat) * scale
+    seen = (torch.arange(C, device=q.device)[None, :] < kv_lens[:, None])[:, None, :]
+    return split_partials_ref(s, seen, lat[..., :dc], split)
 
 
 def prefill_mla_attention_ref(q, lat_pool_l, page_table, q_start, q_len,
@@ -96,12 +127,16 @@ def decode_mla_attention(
                                         dc=dc, scale=scale)
     B, H, _ = q.shape
     dr = _check(q, lat_pool_l, (page_table, kv_lens), dc)
+    # every row is written by its one block or by the merge
     out = q.new_empty((B, H, dc))
+    PS, MP = lat_pool_l.shape[1], page_table.shape[1]
+    part = torch.empty((decode_split_count(MP, PS, MLA_SPLIT_TOKENS), B, H,
+                        dc + 4), dtype=torch.float32, device=q.device)
     lib = _build.load()["mla_attention"]
     rc = lib.decode_mla_attention(
         q.data_ptr(), lat_pool_l.data_ptr(), page_table.data_ptr(),
-        kv_lens.data_ptr(), out.data_ptr(), B, H, dc, dr,
-        lat_pool_l.shape[1], page_table.shape[1], float(scale),
+        kv_lens.data_ptr(), out.data_ptr(), part.data_ptr(), B, H, dc, dr,
+        PS, MP, MLA_SPLIT_TOKENS, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "decode_mla_attention")
     decode_mla_attention.launches += 1

@@ -22,9 +22,10 @@ row of `paged_attention_ref`.
 
 The kernel splits each unit's context into SPLIT_TOKENS-long pieces, one
 block each, and merges a long unit's pieces by log-sum-exp;
-`ragged_split_partials_ref` and `merge_split_partials_ref` are that
-arithmetic in plain PyTorch, and `split_scratch_shape` the kernel's f32
-scratch for it.
+`ragged_split_partials_ref` is that arithmetic in plain PyTorch (on
+ops/paged_attention.py's `split_partials_ref` and
+`merge_split_partials_ref`, shared by every split-context kernel), and
+`split_scratch_shape` the kernel's f32 scratch for it.
 """
 
 from __future__ import annotations
@@ -34,8 +35,13 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dynamo_tpu_torch.models.toolkit import NEG_INF, paged_attention_ref
+from dynamo_tpu_torch.models.toolkit import paged_attention_ref
 from dynamo_tpu_torch.ops import _build
+from dynamo_tpu_torch.ops.paged_attention import (  # noqa: F401 (re-export)
+    decode_split_count,
+    merge_split_partials_ref,
+    split_partials_ref,
+)
 
 # decode batch (<=64) + packed chunks (<=32) in one mixed iteration
 RAGGED_MAX_SEGS = 96
@@ -186,7 +192,7 @@ def ragged_paged_attention_ref(
 def split_count(max_pages: int, page_size: int) -> int:
     """Context splits the kernel's grid holds: enough for the longest
     context a page-table row can address. A function of shapes only."""
-    return -(-max_pages * page_size // SPLIT_TOKENS)
+    return decode_split_count(max_pages, page_size, SPLIT_TOKENS)
 
 
 def split_scratch_shape(n_work: int, Hk: int, G: int, D: int, max_pages: int,
@@ -224,32 +230,8 @@ def ragged_split_partials_ref(
     c = torch.arange(C, device=q.device)
     seen = ((c[None, :] < seg_kv_lens[tok_seg][:, None])
             & (c[None, :] <= tok_pos[:, None]))
-    ms, ls, os_ = [], [], []
-    for z in range(split_count(MP, PS)):
-        lo, hi = z * SPLIT_TOKENS, min((z + 1) * SPLIT_TOKENS, C)
-        mask = seen[:, None, None, lo:hi]
-        sz = torch.where(mask, s[..., lo:hi], float("-inf"))
-        m = sz.amax(-1).clamp(min=NEG_INF)
-        p = torch.where(mask, torch.exp(sz - m[..., None]), 0.0)
-        ms.append(m)
-        ls.append(p.sum(-1))
-        os_.append(torch.einsum("tkgc,tckd->tkgd", p, v[:, lo:hi]))
-    return torch.stack(ms), torch.stack(ls), torch.stack(os_)
-
-
-def merge_split_partials_ref(m: torch.Tensor, l: torch.Tensor,
-                             o: torch.Tensor) -> torch.Tensor:
-    """The kernel's merge: rescale each split to the rows' overall max and
-    sum in split order; a row that saw nothing comes out 0. [T, Hk, G, D]
-    in f32."""
-    m_all = m.amax(0)
-    l_all = torch.zeros_like(m_all)
-    acc = torch.zeros_like(o[0])
-    for z in range(m.shape[0]):
-        w = torch.exp(m[z] - m_all)
-        l_all = l_all + w * l[z]
-        acc = acc + w[..., None] * o[z]
-    return acc / l_all.clamp(min=1e-30)[..., None]
+    return split_partials_ref(s, seen[:, None, None, :], v.permute(0, 2, 1, 3),
+                              SPLIT_TOKENS)
 
 
 def ragged_paged_attention(

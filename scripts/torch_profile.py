@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's engine spends its time on the card.
 
-    python3 scripts/torch_profile.py [--trace PATH]
+    python3 scripts/torch_profile.py [--model llama-3.2-3b|deepseek-v3] [--trace PATH]
 
-Builds the llama-3.2-3b engine exactly as chip_smoke.py's engine phase
-does and serves its 8-request workload three times, each with fresh
+Builds the engine exactly as chip_smoke.py's engine phase does
+(llama-3.2-3b, the default; or, with --model deepseek-v3, the runner of
+chip_smoke.mla_phases: DeepSeek-V3's three dense layers at full width, 2048
+pages of 16) and serves its 8-request workload three times, each with fresh
 prompts (another seed, so no run hits the previous run's prefix cache):
 once cold, once warm with tracing off, once warm under torch.profiler
 (CPU and CUDA activities). Prints one JSON line: wall time of the two
 warm runs (their difference is the tracing overhead), and for the traced
 run the device-busy time (union of kernel and copy intervals), the idle
-share of the wall time, and device time by family (the three attention
-kernels, matrix products, everything else) with the top kernels by
+share of the wall time, and device time by family (the GQA attention
+kernels, the two MLA kernels, matrix products, everything else) with the
+top kernels by
 device time. With --trace, also writes the Chrome trace there (about
 100 MB for this workload). Needs one CUDA device.
 """
@@ -32,11 +35,19 @@ from torch.profiler import ProfilerActivity, profile
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
+from dynamo_tpu_torch.engine.model_runner import ModelRunner  # noqa: E402
 from dynamo_tpu_torch.worker import build_engine, parse_args  # noqa: E402
+
+MODELS = ("llama-3.2-3b", "deepseek-v3")
 
 
 def family(name: str) -> str:
-    if "decode_kernel" in name:
+    if "mla_decode" in name:
+        return "mla_decode"
+    if "mla_prefill" in name:
+        return "mla_prefill"
+    if any(k in name for k in ("decode_kernel", "decode_split_kernel",
+                               "decode_merge_kernel")):
         return "decode_attention"
     if "prefill_kernel" in name:
         return "prefill_attention"
@@ -75,12 +86,18 @@ def timed_serve(engine, seed: int) -> float:
 
 def main() -> int:
     ap = argparse.ArgumentParser()
+    ap.add_argument("--model", choices=MODELS, default=MODELS[0])
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device available", file=sys.stderr)
         return 1
-    engine = build_engine(parse_args(chip_smoke.ENGINE_ARGS))
+    runner = None
+    if args.model == "deepseek-v3":
+        runner = ModelRunner(chip_smoke.MLA_CONFIG, num_pages=2048,
+                             page_size=chip_smoke.PAGE_SIZE,
+                             max_pages_per_seq=4096 // chip_smoke.PAGE_SIZE)
+    engine = build_engine(parse_args(chip_smoke.ENGINE_ARGS), runner=runner)
     try:
         cold_s = timed_serve(engine, seed=11)
         warm_s = timed_serve(engine, seed=12)
@@ -103,6 +120,7 @@ def main() -> int:
         Path(args.trace).parent.mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
+        "model": engine.runner.config.name,
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
