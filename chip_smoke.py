@@ -6,7 +6,8 @@
 Phases, each printing one JSON line:
   1. device  - the card, its count, and `nvidia-smi` name and power limit;
   2. build   - build the CUDA kernels from ops/csrc (one nvcc per source,
-               all started together);
+               all started together), print each one's `ptxas -v` lines
+               and fail if an MLA kernel spills;
   3. kernels - each attention kernel at the main path's shapes (Hk 8, G 3,
                D 128, PS 16, bf16) against its plain PyTorch version, with
                times from CUDA events around back-to-back calls (for
@@ -29,8 +30,14 @@ Phases, each printing one JSON line:
                MLA kernels at DeepSeek-V3's shapes (H 128, d_c 512, d_rh
                64, PS 16, bf16): decode at B 8 (an empty row), prefill
                S 512 with q_len 450 over 700 prior tokens, a packed [4, 256]
-               prefill with an all-padding row (exactly 0), and other page
-               sizes and head counts, untimed; then (`decode_split_edges`)
+               prefill with an all-padding row (exactly 0), other page
+               sizes and head counts, S 203, a 5-token chunk over 3000
+               prior tokens (timed), kv_len 3 past the chunk and q_start
+               37, each with its padding rows exactly 0 and each prefill
+               also held, within TILES_ULPS bf16 ulps, against
+               prefill_mla_tiles_ref (the kernel's tiles and bf16 P in
+               plain PyTorch); then
+               (`decode_split_edges`)
                both decode kernels with rows at kv_len 0, 1, split - 1,
                split, split + 1, 2 split and 4096 (GQA at the main path's
                heads, MLA at H 16, 32 and 128), untimed;
@@ -89,6 +96,7 @@ import asyncio
 import gc
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -112,6 +120,7 @@ from dynamo_tpu_torch.ops.mla_attention import (
     decode_mla_attention_ref,
     prefill_mla_attention,
     prefill_mla_attention_ref,
+    prefill_mla_tiles_ref,
 )
 from dynamo_tpu_torch.ops.paged_attention import (
     DECODE_SPLIT_TOKENS,
@@ -143,6 +152,13 @@ from dynamo_tpu_torch.worker_common import register_prefill
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
 KERNEL_TOL = 0.03  # docs/PERF.md "Kernel parity gate" (max abs err, bf16)
+# MLA prefill against prefill_mla_tiles_ref(round_p=True), which rounds P to
+# bf16 as the kernel does: max err over the valid rows in bf16 ulps of the
+# reference's value (values under 1/8 at 1/8's ulp). The kernel reads 1-6
+# ulps there, the f32 plain version 2-5: the tensor cores' accumulation
+# moves P by as much as rounding it does, while a missed tile or a mask
+# off by one moves outputs by far more (PERF.md, MLA prefill findings)
+TILES_ULPS = 8
 # forward parity: per-row relative L2 error of the f32 logits between the
 # kernel path and the plain path. Both run bf16 activations; the plain
 # path also rounds scores and probabilities to bf16, a ~0.4% relative
@@ -252,6 +268,12 @@ def bound(n_bytes: float, n_flops: float):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / BF16_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def ptxas_lines(log: str):
+    """ptxas -v per kernel instantiation: entry name, registers, spills."""
+    return [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
+            if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
 
 
 def random_pages(gen, B, MP, NP, dev):
@@ -741,6 +763,64 @@ def copy_kernel_phase(dev):
 MLA_H, MLA_DC, MLA_DR, MLA_PS = 128, 512, 64, 16
 MLA_DECODE_KV = [4096, 0, 1, 17, 1000, 2048, 3333, 513]
 MLA_PACKED = [(256, 0), (130, 500), (0, 0), (77, 1500)]  # (q_len, prior)
+# the timed prefill: S 512, q_len 450 over 700 prior tokens
+MLA_TIMED_S, MLA_TIMED_SEG = 512, (450, 700)
+# name: (PS, H, S, segments (q_len, prior[, kv_len past the chunk]))
+MLA_PREFILL_CASES = {
+    "packed": (MLA_PS, MLA_H, 256, MLA_PACKED),
+    "PS8_H16": (8, 16, 200, [(200, 37), (1, 0), (0, 0)]),
+    "PS32_H32": (32, 32, 200, [(64, 900), (33, 5)]),
+    "S203": (MLA_PS, MLA_H, 203, [(203, 100), (150, 0)]),
+    "short_chunk_long_prior": (MLA_PS, MLA_H, 8, [(5, 3000)]),
+    "kv_past_chunk": (MLA_PS, MLA_H, 64, [(64, 300, 3), (40, 0, 3)]),
+    "q_start_37": (MLA_PS, MLA_H, 128, [(128, 37), (100, 37)]),
+}
+
+
+def mla_rnd(gen, dev):
+    return lambda *shape: torch.randn(*shape, generator=gen).bfloat16().to(dev)
+
+
+def mla_decode_args(gen, dev):
+    """(q, lat, page_table, kv_lens): MLA_DECODE_KV at DeepSeek-V3's
+    shapes, a 4096-token table a row."""
+    rnd = mla_rnd(gen, dev)
+    B, MP = len(MLA_DECODE_KV), 4096 // MLA_PS
+    NP = B * MP + 1
+    lat = rnd(NP, MLA_PS, 1, MLA_DC + MLA_DR)
+    q = rnd(B, MLA_H, MLA_DC + MLA_DR)
+    pt = random_pages(gen, B, MP, NP, dev)
+    return q, lat, pt, torch.tensor(MLA_DECODE_KV, dtype=torch.int32, device=dev)
+
+
+def mla_prefill_args(gen, PS, H, S, segs, dev):
+    """(q, lat, page_table, q_start, q_len, kv_lens) for segments (q_len,
+    prior[, kv_len past the chunk]) over a shared pool, one table page past
+    the longest row."""
+    rnd = mla_rnd(gen, dev)
+    B = len(segs)
+    kv = [n + p + sum(x) for n, p, *x in segs]
+    MP = max(-(-k // PS) for k in kv) + 1
+    NP = B * MP + 1
+    lat = rnd(NP, PS, 1, MLA_DC + MLA_DR)
+    pt = random_pages(gen, B, MP, NP, dev)
+    ints = [torch.tensor(x, dtype=torch.int32, device=dev)
+            for x in ([p for _, p, *_ in segs], [n for n, *_ in segs], kv)]
+    return (rnd(B, S, H, MLA_DC + MLA_DR), lat, pt, *ints)
+
+
+def ulps_err(got, want, q_len):
+    """A prefill output against a reference over the valid rows: (max abs
+    err, max err in bf16 ulps of the reference's value, values under 1/8
+    counted at 1/8's ulp)."""
+    errs = []
+    for b, n in enumerate(q_len):
+        if n > 0:
+            w = want[b, :n].float()
+            ulp = torch.exp2(torch.floor(torch.log2(w.abs().clamp(min=0.125))) - 7)
+            d = (got[b, :n].float() - w).abs()
+            errs.append((d.max().item(), (d / ulp).max().item()))
+    return max(e for e, _ in errs), max(u for _, u in errs)
 
 
 def mla_library(q, dense, mask, dc, scale):
@@ -792,18 +872,13 @@ def mla_kernel_phase(dev):
     scale = attn_score_scale(MLA_CONFIG, MLA_CONFIG.qk_nope_head_dim + dr)
     results = {}
 
-    def rnd(*shape):
-        return torch.randn(*shape, generator=gen).bfloat16().to(dev)
+    rnd = mla_rnd(gen, dev)
 
     # decode: B 8, kv_len up to 4096, one empty row
     kv_list = MLA_DECODE_KV
-    B, MP = len(kv_list), 4096 // PS
-    NP = B * MP + 1
-    lat = rnd(NP, PS, 1, Dl)
-    q = rnd(B, H, Dl)
-    pt = random_pages(gen, B, MP, NP, dev)
-    kvl = torch.tensor(kv_list, dtype=torch.int32, device=dev)
-    args = (q, lat, pt, kvl)
+    args = mla_decode_args(gen, dev)
+    q, lat, pt, kvl = args
+    B, MP = len(kv_list), pt.shape[1]
     out = decode_mla_attention(*args, dc=dc, scale=scale)
     torch.cuda.synchronize()
     ref = decode_mla_attention_ref(*args, dc=dc, scale=scale)
@@ -834,7 +909,7 @@ def mla_kernel_phase(dev):
     del lat, dense, args
 
     # prefill: S 512, q_len 450 over 700 prior tokens (padding rows after)
-    S, prior, q_len = 512, 700, 450
+    S, (q_len, prior) = MLA_TIMED_S, MLA_TIMED_SEG
     kv = prior + q_len
     MP = -(-kv // PS) + 2  # table tail past kv_len: other pages
     lat = rnd(MP + 1, PS, 1, Dl)
@@ -850,6 +925,10 @@ def mla_kernel_phase(dev):
     check(out[:, q_len:].float().abs().max().item() == 0.0,
           "MLA prefill padding rows are not 0")
     check(err <= KERNEL_TOL, f"MLA prefill max abs err {err} > {KERNEL_TOL}")
+    want_t, _ = prefill_mla_tiles_ref(*args, dc=dc, scale=scale)
+    err_t, ulps_t = ulps_err(out, want_t, [q_len])
+    check(ulps_t <= TILES_ULPS, f"MLA prefill vs its tiles ref: {ulps_t} ulps > "
+          f"{TILES_ULPS} (max abs err {err_t})")
     n_pairs = sum(min(prior + s + 1, kv) for s in range(q_len))
     n_bytes = (q_len * H * Dl * 2 + S * H * dc * 2 + kv * Dl * 2
                + (-(-kv // PS)) * 4 + 3 * 4)
@@ -861,7 +940,8 @@ def mla_kernel_phase(dev):
     q_heads = q[:, :q_len].permute(0, 2, 1, 3).contiguous()  # [1, H, n, Dl]
     lib_fn, lib_name = mla_library(q_heads, dense, mask, dc, scale)
     results["prefill_mla_attention"] = {
-        "max_abs_err": err,
+        "max_abs_err": err, "tiles_max_abs_err": err_t, "tiles_max_ulps": ulps_t,
+        "plain_tiles_max_ulps": ulps_err(ref, want_t, [q_len])[1],
         "ms": cuda_ms(lambda: prefill_mla_attention(*args, dc=dc, scale=scale)),
         "plain_ms": cuda_ms(lambda: prefill_mla_attention_ref(*args, dc=dc, scale=scale),
                             iters=5),
@@ -872,44 +952,56 @@ def mla_kernel_phase(dev):
         "shape": {"S": S, "q_len": q_len, "prior": prior, "H": H, "dc": dc,
                   "dr": dr, "PS": PS},
     }
-    del lat, dense, args, q_heads
+    del lat, dense, args, q_heads, want_t
 
     # a packed [4, 256] prefill batch (the padded fallback's shape) with an
-    # all-padding row, then other page sizes and head counts
+    # all-padding row, other page sizes and head counts, then the causal
+    # edges at DeepSeek-V3's shapes: S not a multiple of the block's 4
+    # tokens, a short chunk over a long prior (timed: few blocks, long
+    # walks), kv_len past the chunk, q_start off the 32-token tile
     cases = {}
-    for name, (PSx, Hx, segs) in {
-            "packed": (PS, H, MLA_PACKED),
-            "PS8_H16": (8, 16, [(200, 37), (1, 0), (0, 0)]),
-            "PS32_H32": (32, 32, [(64, 900), (33, 5)])}.items():
-        Bx, Sx = len(segs), 256 if name == "packed" else 200
-        MPx = max(-(-(n + p) // PSx) for n, p in segs) + 1
-        NPx = Bx * MPx + 1
-        lat = rnd(NPx, PSx, 1, Dl)
-        ptx = random_pages(gen, Bx, MPx, NPx, dev)
-        qs, ql, kvx = ([p for _, p in segs], [n for n, _ in segs],
-                       [n + p for n, p in segs])
-        ints = [torch.tensor(x, dtype=torch.int32, device=dev) for x in (qs, ql, kvx)]
-        pargs = (rnd(Bx, Sx, Hx, Dl), lat, ptx, *ints)
+    for name, (PSx, Hx, Sx, segs) in MLA_PREFILL_CASES.items():
+        Bx = len(segs)
+        ql = [n for n, *_ in segs]
+        kvx = [n + p + sum(x) for n, p, *x in segs]
+        pargs = mla_prefill_args(gen, PSx, Hx, Sx, segs, dev)
+        lat = pargs[1]
         got = prefill_mla_attention(*pargs, dc=dc, scale=scale)
-        dargs = (rnd(Bx, Hx, Dl), lat, ptx, ints[2])
+        dargs = (rnd(Bx, Hx, Dl), lat, pargs[2], pargs[5])
         got_d = decode_mla_attention(*dargs, dc=dc, scale=scale)
         torch.cuda.synchronize()
         want = prefill_mla_attention_ref(*pargs, dc=dc, scale=scale)
         want_d = decode_mla_attention_ref(*dargs, dc=dc, scale=scale)
+        check(torch.isfinite(got.float()).all().item(), f"MLA prefill not finite ({name})")
         pad_zero = all(got[b, n:].float().abs().max().item() == 0.0
-                       for b, (n, _) in enumerate(segs) if n < Sx)
+                       for b, n in enumerate(ql) if n < Sx)
         check(pad_zero, f"MLA prefill padding rows are not 0 ({name})")
         e_p = max((got[b, :n].float() - want[b, :n].float()).abs().max().item()
-                  for b, (n, _) in enumerate(segs) if n > 0)
+                  for b, n in enumerate(ql) if n > 0)
         e_d = (got_d.float() - want_d.float()).abs().max().item()
         check(max(e_p, e_d) <= KERNEL_TOL,
               f"MLA kernels at {name}: prefill {e_p}, decode {e_d}")
+        want_t, _ = prefill_mla_tiles_ref(*pargs, dc=dc, scale=scale)
+        e_t, u_t = ulps_err(got, want_t, ql)
+        check(u_t <= TILES_ULPS, f"MLA prefill vs its tiles ref at {name}: {u_t} ulps > "
+              f"{TILES_ULPS} (max abs err {e_t})")
         cases[name] = {"segments": segs, "S": Sx, "PS": PSx, "H": Hx,
-                       "prefill_max_abs_err": e_p, "decode_max_abs_err": e_d}
-        del lat, pargs, dargs
+                       "prefill_max_abs_err": e_p, "prefill_tiles_max_abs_err": e_t, "prefill_tiles_max_ulps": u_t,
+                       "plain_tiles_max_ulps": ulps_err(want, want_t, ql)[1],
+                       "decode_max_abs_err": e_d}
+        if name == "short_chunk_long_prior":
+            n_pairs = sum(min(p + s + 1, k) for (n, p, *_), k in zip(segs, kvx)
+                          for s in range(n))
+            n_bytes = (sum(ql) * Hx * Dl * 2 + Bx * Sx * Hx * dc * 2 + sum(kvx) * Dl * 2
+                       + sum(-(-k // PSx) for k in kvx) * 4 + 3 * Bx * 4)
+            cases[name]["bound_ms"], cases[name]["bound_by"] = bound(
+                n_bytes, 2 * n_pairs * Hx * (Dl + dc))
+            cases[name]["device_ms"] = graph_ms(
+                lambda: prefill_mla_attention(*pargs, dc=dc, scale=scale))
+        del lat, pargs, dargs, want_t
     results["prefill_mla_attention"]["cases"] = cases
     torch.cuda.empty_cache()
-    emit({"phase": "mla_kernels", "tol": KERNEL_TOL, **results})
+    emit({"phase": "mla_kernels", "tol": KERNEL_TOL, "tiles_ulps": TILES_ULPS, **results})
     return results
 
 
@@ -1601,14 +1693,14 @@ def main() -> int:
 
     t0 = time.monotonic()
     _build.load()
-    # ptxas -v per kernel instantiation: entry name, registers, spills
-    ptxas = {stem: [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
-                    if "Compiling entry" in ln or "registers" in ln
-                    or "spill" in ln]
-             for stem, log in _build.build_log.items()}
+    ptxas = {stem: ptxas_lines(log) for stem, log in _build.build_log.items()}
     emit({"phase": "build", "seconds": time.monotonic() - t0, "ptxas": ptxas})
 
     try:
+        # the MLA kernels sit at the register cap of one block an SM
+        spills = [ln for ln in ptxas.get("mla_attention", [])
+                  if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+        check(not spills, f"MLA kernels spill: {spills}")
         kern = kernel_phase(dev)
         shapes_phase(dev)
         kern.update(copy_kernel_phase(dev))

@@ -15,11 +15,13 @@ it. The int8 latent pool and the `*_sharded` wrappers are not ported.
 The decode kernel splits each row's context into MLA_SPLIT_TOKENS-long
 pieces and merges them by log-sum-exp; `decode_mla_split_partials_ref`
 is that first pass in plain PyTorch (ops/paged_attention.py
-`split_partials_ref`), merged by `merge_split_partials_ref`.
+`split_partials_ref`), merged by `merge_split_partials_ref`. The prefill
+kernel's blocks and tiles, in the same way, are `prefill_mla_tiles_ref`.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Tuple
 
 import torch
@@ -37,7 +39,11 @@ KERNEL_DIMS = (512, 64)
 # H must be a multiple of it (prefill blocks own 16 heads, decode blocks 64
 # or what is left of H)
 HEADS_PER_BLOCK = 16
-# context tokens one decode block walks: a multiple of its 32-token tile
+# query tokens a prefill block owns, each with its HEADS_PER_BLOCK heads
+PREFILL_BLOCK_TOKENS = 4
+# context tokens a tile of both kernels
+TILE_TOKENS = 32
+# context tokens one decode block walks: a multiple of TILE_TOKENS
 MLA_SPLIT_TOKENS = 192
 
 
@@ -78,6 +84,61 @@ def prefill_mla_attention_ref(q, lat_pool_l, page_table, q_start, q_len,
     return prefill_paged_attention_ref(q[:, :, None].float(), lat,
                                        lat[..., :dc], page_table, q_start,
                                        q_len, kv_lens, scale)[:, :, 0].to(q.dtype)
+
+
+def prefill_mla_tiles_ref(q, lat_pool_l, page_table, q_start, q_len,
+                          kv_lens, *, dc: int, scale: float,
+                          round_p: bool = True
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The prefill kernel's arithmetic in plain f32: blocks of
+    PREFILL_BLOCK_TOKENS tokens x HEADS_PER_BLOCK heads walk TILE_TOKENS-wide
+    tiles [0, ceil((last + 1) / TILE_TOKENS)), `last` the largest causal
+    limit min(q_start + s, kv_len - 1) of the block's valid tokens, with an
+    online softmax in base-2 units (running max from -1e30, masked scores
+    -inf); with round_p, P is rounded to bf16 before the value product (the
+    row sums keep it in f32). Returns (out [B, S, H, dc] in q's dtype,
+    padding rows 0; tiles [B, ceil(S / PREFILL_BLOCK_TOKENS), H /
+    HEADS_PER_BLOCK], the tiles each block walked, 0 for a block with no
+    valid token)."""
+    B, S, H, Dl = q.shape
+    PS, MP = lat_pool_l.shape[1], page_table.shape[1]
+    n_sb = -(-S // PREFILL_BLOCK_TOKENS)
+    Sp = n_sb * PREFILL_BLOCK_TOKENS
+    s_idx = torch.arange(Sp, device=q.device)
+    kvl = kv_lens.long().clamp(max=MP * PS)
+    # the last position each query token sees; -1: padding, or no context
+    vis = torch.where(s_idx[None] < q_len[:, None],
+                      torch.minimum(q_start[:, None].long() + s_idx[None],
+                                    kvl[:, None] - 1), -1)
+    last = vis.reshape(B, n_sb, PREFILL_BLOCK_TOKENS).amax(-1)
+    tiles = torch.where(last >= 0, last // TILE_TOKENS + 1, 0)
+    n_tiles = int(tiles.max()) if B else 0
+    C = n_tiles * TILE_TOKENS
+    lat = lat_pool_l[page_table.long()].reshape(B, MP * PS, Dl).float()
+    lat = torch.nn.functional.pad(lat[:, :C], (0, 0, 0, max(C - MP * PS, 0)))
+    qf = torch.nn.functional.pad(q.float(), (0, 0, 0, 0, 0, Sp - S))
+    scale_log2 = scale * math.log2(math.e)
+    m = torch.full((B, Sp, H), -1e30, device=q.device)
+    l = torch.zeros((B, Sp, H), device=q.device)
+    o = torch.zeros((B, Sp, H, dc), device=q.device)
+    for t in range(n_tiles):
+        c = t * TILE_TOKENS + torch.arange(TILE_TOKENS, device=q.device)
+        lt = lat[:, t * TILE_TOKENS:(t + 1) * TILE_TOKENS]
+        s = torch.einsum("bshd,bcd->bshc", qf, lt) * scale_log2
+        seen = (c[None, None, :] <= vis[:, :, None])[:, :, None, :]
+        s = s.masked_fill(~seen, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        if round_p:
+            p = p.bfloat16().float()
+        o = o * alpha[..., None] + torch.einsum("bshc,bcd->bshd", p, lt[..., :dc])
+        m = m_new
+    out = o / l.clamp(min=1e-30)[..., None]
+    out = torch.where((vis >= 0)[:, :, None, None], out, 0.0)[:, :S]
+    return (out.to(q.dtype),
+            tiles[:, :, None].expand(B, n_sb, H // HEADS_PER_BLOCK))
 
 
 def _check(q, lat_pool_l, ints, dc: int) -> int:
