@@ -41,6 +41,11 @@ Phases, each printing one JSON line:
                both decode kernels with rows at kv_len 0, 1, split - 1,
                split, split + 1, 2 split and 4096 (GQA at the main path's
                heads, MLA at H 16, 32 and 128), untimed;
+               then (`gemma_kernels`) the three GQA kernels' Gemma-2
+               bodies (window, soft cap, scale, D 256) at D 256 / G 2 and
+               D 128 / G 3 against their plain versions in f32, timed
+               beside SDPA with a window mask or the bmm-tanh-softmax-bmm
+               calls (a D 256 instantiation that spills fails the build);
   4. engine  - build_engine for llama-3.2-3b at full width and depth with
                random weights and serve 8 concurrent requests (chunked
                prefill over prior context, a prefix-cache hit, greedy and
@@ -80,10 +85,21 @@ Phases, each printing one JSON line:
                with a 3-group layer-streamed import, bit for bit, and
                (`parity_mla`) prefill and two decode steps through both
                attention paths of the forward.
+  7. gemma  - with the 3B and MLA runners freed, gemma-2-9b at full width
+               and depth (42 layers, head dim 256, a 4096-token window on
+               the even layers): `engine_gemma2` (fused, the default) and
+               `engine_gemma2_unfused` serve the same 8 requests and two
+               prompts of 4600 and 5200 tokens, each request `length`,
+               each kernel's launches equal to its passes x 42, half on
+               the window bodies; `parity_gemma2` prefills a 4700- and a
+               4500-token sequence in 512-token chunks through both
+               attention paths, then two decode steps and a ragged step
+               past the window.
 Then the `kernels` summary line (launches from the fused phase for the
 GQA attention kernels, from engine_disagg for gather and scatter, from
-engine_tiers for the layer scatter, from engine_mla for the MLA kernels),
-the
+engine_tiers for the layer scatter, from engine_mla for the MLA kernels;
+for the GQA kernels also `variants`, the bodies each engine phase
+launched), the
 card's name and power limit, and, last, the contract line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
 It needs a CUDA device and the repository around it; it builds into
@@ -151,6 +167,7 @@ from dynamo_tpu_torch.worker_common import register_prefill
 # NVIDIA H100 SXM data sheet (dense): HBM3 rate and bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS_PER_S = 989e12
+FP32_FLOPS_PER_S = 67e12  # outside the tensor cores
 KERNEL_TOL = 0.03  # docs/PERF.md "Kernel parity gate" (max abs err, bf16)
 # MLA prefill against prefill_mla_tiles_ref(round_p=True), which rounds P to
 # bf16 as the kernel does: max err over the valid rows in bf16 ulps of the
@@ -200,6 +217,7 @@ KERNELS = {"decode_paged_attention": decode_paged_attention,
 COPY_KERNELS = ("gather_pages", "scatter_pages", "scatter_pages_layers")
 GQA_KERNELS = ("decode_paged_attention", "prefill_paged_attention",
                "ragged_paged_attention")
+GQA_STEMS = ("paged_attention", "flash_prefill", "ragged_paged_attention")
 MLA_KERNELS = ("decode_mla_attention", "prefill_mla_attention")
 # DeepSeek-V3's first three layers (dense FFN; the later MoE layers wait for
 # ROADMAP A.11) at full width
@@ -264,9 +282,12 @@ def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
     return ms
 
 
-def bound(n_bytes: float, n_flops: float):
+def bound(n_bytes: float, n_flops: float, n_fp32: float = 0.0):
+    """Least time (ms) for the bytes at the HBM rate, the bf16 tensor-core
+    operations and the f32 ones outside the tensor cores (a soft cap's
+    tanh) at their peaks, and which of the two kinds bounds it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = max(n_flops / BF16_FLOPS_PER_S, n_fp32 / FP32_FLOPS_PER_S) * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -274,6 +295,34 @@ def ptxas_lines(log: str):
     """ptxas -v per kernel instantiation: entry name, registers, spills."""
     return [ln.split(":", 1)[-1].strip() for ln in log.splitlines()
             if "Compiling entry" in ln or "registers" in ln or "spill" in ln]
+
+
+def ptxas_entries(log: str):
+    """{kernel instantiation: {registers, stack, spill_stores, spill_loads}}
+    from `ptxas -v`, keyed by a short name: the kernel and its template
+    arguments, e.g. "prefill_kernel<256,1,0>" (D 256, soft cap, no window)."""
+    out, cur = {}, None
+    for ln in log.splitlines():
+        m = (re.search(r"Compiling entry function '([^']+)'", ln)
+             or re.search(r"Function properties for (\S+)", ln))
+        if m:
+            name = m.group(1)
+            kern = re.search(r"([A-Za-z_]+_kernel)", name)
+            args = re.findall(r"L[ib](\d+)E", name)
+            key = (kern.group(1) if kern else name) + (f"<{','.join(args)}>" if args else "")
+            cur = out.setdefault(key, {})
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
+        if m:
+            cur.update(stack=int(m[1]), spill_stores=int(m[2]),
+                       spill_loads=int(m[3]))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m[1])
+    return out
 
 
 def random_pages(gen, B, MP, NP, dev):
@@ -334,10 +383,22 @@ def ragged_check(args, segs, what):
     return err
 
 
-def ragged_library(args, segs, md, scale):
+def capped_attention(qd, kd, vd, mask, scale, cap):
+    """The soft-capped yardstick (no one PyTorch call caps scores): bmm,
+    tanh, softmax, bmm over dense [.., H, S, D] and [.., H, C, D] under a
+    boolean mask [.., S, C]."""
+    def run():
+        s = torch.matmul(qd, kd.transpose(-1, -2)).float() * scale
+        s = (cap * torch.tanh(s / cap)).masked_fill(~mask, float("-inf"))
+        return torch.matmul(torch.softmax(s, -1).to(vd.dtype), vd)
+    return run
+
+
+def ragged_library(args, segs, md, scale, window=0, softcap=0.0):
     """SDPA yardstick inputs: the real queries [1, H, n, D] against every
     segment's visible K/V gathered dense [1, H, C, D] beforehand, under a
-    segment-causal mask [n, C]."""
+    segment-causal mask [n, C] (and the window, if any; with a soft cap,
+    capped_attention instead of SDPA)."""
     q, kp, vp = args[:3]
     T, Hk, G, D = q.shape
     dev = q.device
@@ -359,9 +420,14 @@ def ragged_library(args, segs, md, scale):
     tok_pos = torch.from_numpy(md["tok_positions"][:n]).to(dev)
     col_seg, col_pos = torch.cat(col_seg), torch.cat(col_pos)
     mask = ((col_seg[None, :] == tok_seg[:, None])
-            & (col_pos[None, :] <= tok_pos[:, None]))[None, None]
+            & (col_pos[None, :] <= tok_pos[:, None]))
+    if window:
+        mask &= col_pos[None, :] > tok_pos[:, None] - window
+    mask = mask[None, None]
     qd = q[:n].reshape(n, Hk * G, D).transpose(0, 1)[None].contiguous()
     kd, vd = heads(torch.cat(ks)), heads(torch.cat(vs))
+    if softcap:
+        return capped_attention(qd, kd, vd, mask, scale, softcap)
     return lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
                                                   scale=scale)
 
@@ -1033,11 +1099,14 @@ async def _serve(engine, reqs, shared_idx, late_req):
 N_OUT = 32  # output tokens per request
 
 
-def workload(vocab_size: int, seed: int):
+def workload(vocab_size: int, seed: int, extra=()):
     """8 requests from a seed: prompts of 17 to 1500 tokens (the long ones
     run chunked prefill over prior context, chunk 512), mostly greedy, two
     sampled (temperature 0.8, top_p 0.9, seeded); the last request shares
-    a 256-token prefix with the one before it. Returns (first 7, last)."""
+    a 256-token prefix with the one before it. `extra` adds greedy
+    requests with prompts of those lengths (drawn after the others, so the
+    eight stay the same), before the one the last shares its prefix with.
+    Returns (all but the last, last)."""
     gen = torch.Generator(device="cpu").manual_seed(seed)
 
     def prompt(n):
@@ -1054,6 +1123,7 @@ def workload(vocab_size: int, seed: int):
     prompts = [prompt(n) for n in (17, 64, 300, 700, 1100, 1500)]
     prompts.append(shared + prompt(150))
     late = shared + prompt(400)
+    prompts[-1:-1] = [prompt(n) for n in extra]
     return [req(p, i) for i, p in enumerate(prompts)], req(late, len(prompts))
 
 
@@ -1080,11 +1150,11 @@ def spec_workload(vocab_size: int, seed: int):
     return [req(p) for p in prompts], req(late)
 
 
-def serve(engine, seed: int, spec: bool = False):
-    """Serve workload(seed) (spec_workload with spec) to completion, at
-    most 900 s."""
-    make = spec_workload if spec else workload
-    reqs, late = make(engine.runner.config.vocab_size, seed)
+def serve(engine, seed: int, spec: bool = False, extra=()):
+    """Serve workload(seed, extra) (spec_workload with spec) to
+    completion, at most 900 s."""
+    V = engine.runner.config.vocab_size
+    reqs, late = spec_workload(V, seed) if spec else workload(V, seed, extra)
     prompts = [r["token_ids"] for r in reqs + [late]]
     return prompts, asyncio.run(asyncio.wait_for(
         _serve(engine, reqs, len(reqs) - 1, late), 900))
@@ -1113,12 +1183,20 @@ def check_launches(phase: str, launches, stats, L: int, mla: bool = False) -> No
         check(launches[name] == 0, f"{phase}: {name} launched {launches[name]}")
 
 
+def reset_launches():
+    for fn in KERNELS.values():
+        fn.launches = 0
+    for name in GQA_KERNELS:
+        KERNELS[name].bodies = {}
+
+
 def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
-                 build_s: float = None):
+                 build_s: float = None, base_args=ENGINE_ARGS, extra=()):
     """Serve the workload on a fresh engine over `runner`, with every
     launch count and runner.stats set to 0 just before and read just
-    after. fused=None keeps the engine's default (fused on a card)."""
-    args = ENGINE_ARGS + (["--spec-ngram", "--spec-k", "4"] if spec else [])
+    after. fused=None keeps the engine's default (fused on a card);
+    `extra` adds prompts to the workload."""
+    args = base_args + (["--spec-ngram", "--spec-k", "4"] if spec else [])
     saved = os.environ.pop("DYN_FUSED_MIXED", None)
     if fused is not None:
         os.environ["DYN_FUSED_MIXED"] = "1" if fused else "0"
@@ -1132,17 +1210,17 @@ def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
     L = runner.config.n_layers
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    for fn in KERNELS.values():
-        fn.launches = 0
+    reset_launches()
     runner.reset_stats()
     t0 = time.monotonic()
     try:
-        prompts, results = serve(engine, seed=1, spec=spec)
+        prompts, results = serve(engine, seed=1, spec=spec, extra=extra)
     finally:
         engine.stop()
     torch.cuda.synchronize()  # a fault during the run surfaces here
     wall = time.monotonic() - t0
     launches = {name: fn.launches for name, fn in KERNELS.items()}
+    bodies = {name: dict(KERNELS[name].bodies) for name in GQA_KERNELS}
     stats = dict(runner.stats)
     for i, (toks, finish, _) in enumerate(results):
         check(finish in ("length", "stop"), f"{phase}: r{i} finished {finish!r}")
@@ -1166,7 +1244,7 @@ def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
         "prompt_tokens": [len(p) for p in prompts],
         "output_tokens": [len(r[0]) for r in results],
         "finish": [r[1] for r in results],
-        "stats": stats, "launches": launches,
+        "stats": stats, "launches": launches, "bodies": bodies,
         "reused_prefix_tokens": reused,
         "ttft_s_min": ttft[0], "ttft_s_median": ttft[len(ttft) // 2],
         "ttft_s_max": ttft[-1],
@@ -1191,6 +1269,7 @@ def engine_phases(dev):
     build_s = time.monotonic() - t0
 
     rec, launches, fused = engine_phase(runner, "fused", build_s=build_s)
+    fused_bodies = rec["bodies"]
     st = rec["stats"]
     check(rec["fused_mixed"], "fused: the engine did not fuse on the card")
     check(all(launches[k] > 0 for k in GQA_KERNELS),
@@ -1220,7 +1299,7 @@ def engine_phases(dev):
     check(rec["spec_stats"]["drafted"] > 0 and st["ragged_verify_dispatches"] > 0,
           f"spec: nothing was drafted or verified: {rec['spec_stats']}, {st}")
     emit(rec)
-    return runner, launches
+    return runner, launches, fused_bodies
 
 
 DISAGG_ARGS = ["--model", "llama-3.2-3b", "--num-pages", "1024",
@@ -1231,8 +1310,7 @@ PAGE_SIZE = 16
 
 
 def _reset(*runners):
-    for fn in KERNELS.values():
-        fn.launches = 0
+    reset_launches()
     for r in runners:
         r.reset_stats()
 
@@ -1514,60 +1592,76 @@ def tiers_phase(params):
     return launches
 
 
-def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True):
-    """Three sequences prefilled in one chunk (S = 320, padding rows),
-    two decode steps of the first two (the third a padding row), then
-    (`ragged`) one ragged dispatch: both decode rows and a 77-token chunk
-    of the third over its 90 prior tokens (T 88, a 9-row tail). Through
-    forward(attn_impl="kernel") and forward(attn_impl="ref") on their own
-    pools; decode inputs are the kernel path's greedy tokens, fed to both."""
+def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True,
+                 lens=(300, 180, 90), S: int = 320, MP: int = 24, NP: int = 80):
+    """Three sequences of `lens` tokens prefilled in chunks of S (one
+    chunk by default; padding rows, and rows that have finished in later
+    chunks), two decode steps of the first two (the third a padding row),
+    then (`ragged`) one ragged dispatch: both decode rows and a 77-token
+    chunk of the third over its prior tokens (T 88, a 9-row tail).
+    Through forward(attn_impl="kernel") and forward(attn_impl="ref") on
+    their own pools; decode inputs are the kernel path's greedy tokens,
+    fed to both. Only rows with tokens in a step are compared."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.toolkit import make_kv_pool
 
     cfg, params = runner.config, runner.params
-    PS, MP, NP = 16, 24, 80
+    PS = 16
     gen = torch.Generator(device="cpu").manual_seed(2)
-    lens = [300, 180, 90]
-    S = 320
-    tok = torch.randint(0, cfg.vocab_size, (3, S), generator=gen)
-    pos = torch.full((3, S), -1, dtype=torch.int32)
-    for b, n in enumerate(lens):
-        pos[b, :n] = torch.arange(n)
+    lens = list(lens)
+    n_chunks = -(-max(lens) // S)
+    toks = [torch.randint(0, cfg.vocab_size, (3, S), generator=gen)
+            for _ in range(n_chunks)]
     pages = torch.randperm(NP, generator=gen)[: 3 * MP].view(3, MP).to(torch.int32)
-    tok, pos, pages = tok.to(dev), pos.to(dev), pages.to(dev)
+    pages = pages.to(dev)
     pools = {impl: make_kv_pool(cfg, NP + 1, PS, runner.dtype, dev)
              for impl in ("kernel", "ref")}
-    steps = [(tok, pos, torch.tensor(lens, dtype=torch.int32, device=dev),
-              torch.tensor([n - 1 for n in lens], device=dev))]
     rel, agree, worst_abs = [], [], 0.0
 
-    def compare(logits):
+    def compare(logits, rows=None):
         nonlocal worst_abs
         a, b = logits["kernel"], logits["ref"]
+        if rows is not None:
+            a, b = a[rows], b[rows]
         check(torch.isfinite(a).all().item(), "kernel-path logits not finite")
         rel.append(((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item())
         worst_abs = max(worst_abs, (a - b).abs().max().item())
         agree.extend((a.argmax(-1) == b.argmax(-1)).tolist())
-        return a.argmax(-1).to(torch.int32)
+        return logits["kernel"].argmax(-1).to(torch.int32)
 
-    for t in range(3):
-        tk, ps, kvl, last = steps[-1]
-        nxt = compare({
-            impl: llama.forward(cfg, params, tk, ps, *pools[impl], pages,
-                                kvl, last, attn_impl=impl)[:, -1]
-            for impl in ("kernel", "ref")})
+    nxt = torch.zeros(3, dtype=torch.int32, device=dev)
+    for ci in range(n_chunks):  # chunked prefill, all rows in one batch
+        pos = torch.full((3, S), -1, dtype=torch.int32)
+        kvl = torch.zeros(3, dtype=torch.int32)
+        last = torch.zeros(3, dtype=torch.long)
+        for b, n in enumerate(lens):
+            lo, hi = ci * S, min(n, (ci + 1) * S)
+            if hi > lo:
+                pos[b, :hi - lo] = torch.arange(lo, hi)
+                kvl[b], last[b] = hi, hi - 1 - lo
+        live = torch.tensor([n > ci * S for n in lens], device=dev)
+        out = compare({
+            impl: llama.forward(cfg, params, toks[ci].to(dev), pos.to(dev),
+                                *pools[impl], pages, kvl.to(dev), last.to(dev),
+                                attn_impl=impl)[:, -1]
+            for impl in ("kernel", "ref")}, None if live.all() else live)
+        done = torch.tensor([ci * S < n <= (ci + 1) * S for n in lens], device=dev)
+        nxt = torch.where(done, out, nxt)
+    for t in range(2):
         p1 = torch.tensor([[lens[0] + t], [lens[1] + t], [-1]],
                           dtype=torch.int32, device=dev)
-        steps.append((nxt[:, None], p1,
-                      torch.where(p1[:, 0] < 0, 0, p1[:, 0] + 1).to(torch.int32),
-                      None))
-    steps_run = ["prefill", "decode", "decode"]
+        kvl = torch.where(p1[:, 0] < 0, 0, p1[:, 0] + 1).to(torch.int32)
+        nxt = compare({
+            impl: llama.forward(cfg, params, nxt[:, None], p1, *pools[impl],
+                                pages, kvl, None, attn_impl=impl)[:, -1]
+            for impl in ("kernel", "ref")})
+    steps_run = ["prefill"] * n_chunks + ["decode", "decode"]
     if ragged:
         ragged_parity_step(cfg, params, pools, nxt, lens, pages, MP, gen, dev,
                            compare)
         steps_run.append("ragged")
     worst = max(rel)
-    emit({"phase": phase, "model": cfg.name, "steps": steps_run,
+    emit({"phase": phase, "model": cfg.name, "lens": lens, "steps": steps_run,
           "rel_l2_err_per_step": rel, "max_abs_err": worst_abs,
           "tol_rel_l2": FORWARD_REL_TOL,
           "greedy_agreement": sum(agree) / len(agree)})
@@ -1676,6 +1770,339 @@ def mla_phases(dev):
     return launches
 
 
+# Gemma-2 9B at full width and depth: 42 layers, head dim 256, G 2, a
+# 4096-token window on the even layers, soft caps 50 (scores) and 30
+# (logits), served with workload()'s 8 requests and two prompts past the
+# window
+GEMMA_ARGS = ["--model", "gemma-2-9b", "--num-pages", "2048",
+              "--page-size", "16", "--max-seq-len", "8192",
+              "--max-batch", "8", "--chunk-size", "512"]
+GEMMA_LONG_PROMPTS = (4600, 5200)
+GEMMA_WINDOW = 4096
+# gemma_kernels: (Hk, G, D) of Gemma-2 9B and of the 3B's heads; 16-token
+# pages, 384 of them a row (6144 tokens)
+GEMMA_SHAPES = {"D256_G2": (8, 2, 256), "D128_G3": (8, 3, 128)}
+GEMMA_MP = 384
+# contexts around the 4096-token window, and contexts whose 7-token window
+# crosses page (16), tile (64), decode-split (384) and ragged-split (512)
+# edges
+GEMMA_LONG = [1, 4095, 4096, 4097, 6000]
+GEMMA_EDGES = [1, 7, 8, 20, 67, 388, 515, 1000]
+# case: (contexts, window, softcap, scale, query scale); scale None is
+# D^-0.5. The soft-capped cases draw queries 20x larger, so that scores
+# reach the cap (std about 20): a body that skipped the cap would miss by
+# far more than KERNEL_TOL. Every case is held against the plain version
+# run in f32 on the same (bf16) inputs, as the MLA kernels are.
+GEMMA_CASES = {
+    "gemma2": (GEMMA_LONG, GEMMA_WINDOW, 50.0, 256 ** -0.5, 20.0),
+    "window_4096": (GEMMA_LONG, GEMMA_WINDOW, 0.0, None, 1.0),
+    "window_7": (GEMMA_EDGES, 7, 0.0, None, 1.0),
+    "window_0": (GEMMA_LONG, 0, 0.0, None, 1.0),
+    "softcap_50": (GEMMA_LONG, None, 50.0, None, 20.0),
+    "scale": (GEMMA_LONG, None, 0.0, 0.05, 1.0),
+}
+GEMMA_CHUNK = 512  # prefill chunk: q_len = min(context, 512)
+GEMMA_RAGGED_CHUNK = 48  # ragged chunk rows beside each decode row
+# soft cap in the kernels: 7 f32 operations a score (two multiplies, ex2,
+# add, rcp, fma, multiply)
+CAP_FP32_OPS = 7
+
+
+def gqa_smem_bytes(D: int):
+    """Dynamic shared memory of each GQA kernel at head dim D (the layouts
+    of paged_attention.cu DecShape and paged_flash.cuh Shape: rows D + 8
+    bf16 apart, 64-token tiles, mbarriers)."""
+    row = (D + 8) * 2
+    return {"decode": (16 + 2 * 3 * 64) * row + 8 * 3,
+            "prefill": (128 + 2 * 2 * 64) * row + 8 * 2,
+            "ragged": (64 + 2 * 2 * 64) * row + 8 * 2}
+
+
+def visible(q_start, q_len, kv, window):
+    """(visible (query, key) pairs, visible tokens, their pages) of q_len
+    query tokens from q_start over a kv-token context: the token at p sees
+    [p - window + 1 (0 without a window), min(p, kv - 1)]."""
+    pairs = 0
+    for p in range(q_start, q_start + q_len):
+        first = max(p - window + 1, 0) if window else 0
+        pairs += max(min(p, kv - 1) - first + 1, 0)
+    if q_len <= 0 or kv <= 0:
+        return pairs, 0, 0
+    first = max(q_start - window + 1, 0) if window else 0
+    last = min(q_start + q_len - 1, kv - 1)
+    if last < first:
+        return pairs, 0, 0
+    return pairs, last - first + 1, last // PAGE_SIZE - first // PAGE_SIZE + 1
+
+
+def gemma_bound(H, Hk, D, spans, window, io_rows, n_ints, softcap):
+    """Bound over what the data needs: `spans` [(q_start, q_len, kv)] of
+    each sequence, whose visible K/V tokens are read once with their table
+    entries; `io_rows` query rows read and output rows written (H x D bf16
+    each); n_ints int32 metadata; one score and one PV product per visible
+    pair and head, and the cap's f32 operations per score."""
+    pairs = toks = pages = 0
+    for q_start, q_len, kv in spans:
+        p, t, g = visible(q_start, q_len, kv, window)
+        pairs, toks, pages = pairs + p, toks + t, pages + g
+    n_bytes = (io_rows * H * D * 2 + toks * Hk * D * 2 * 2 + pages * 4
+               + n_ints * 4)
+    return bound(n_bytes, 4 * pairs * H * D,
+                 CAP_FP32_OPS * pairs * H if softcap else 0.0)
+
+
+def gemma_case_inputs(kernel, contexts, Hk, G, D, q_mul, pools, gen, dgen, dev):
+    """Operands of one gemma_kernels case (on the shape's shared pools,
+    each sequence on its own random pages), its Spans, the rows to check,
+    the query/output row count and int32 metadata count of its bound, and
+    the yardstick's dense operands (q, K, V [.., H, ., D]) and mask
+    without the window."""
+    kp, vp = pools
+    NP = kp.shape[0]
+    H, MP, PS = Hk * G, GEMMA_MP, PAGE_SIZE
+
+    def qrand(*shape):
+        return (torch.randn(*shape, generator=dgen, device=dev) * q_mul).bfloat16()
+
+    def dense(pt):  # [B, H, MP * PS, D] K and V of each row's pages
+        return dense_kv(kp, pt, Hk, G), dense_kv(vp, pt, Hk, G)
+
+    c_pos = torch.arange(MP * PS, device=dev)
+    if kernel == "decode":
+        kv = contexts + [0]
+        B = len(kv)
+        pt = random_pages(gen, B, MP, NP, dev)
+        q = qrand(B, Hk, G, D)
+        kvl = torch.tensor(kv, dtype=torch.int32, device=dev)
+        kd, vd = dense(pt)
+        pos = kvl.long()[:, None] - 1  # [B, 1] query positions
+        mask = (c_pos[None, None, :] <= pos[:, :, None])[:, None]
+        return {"args": (q, kp, vp, pt, kvl), "rows": B - 1,
+                "spans": [(k - 1, 1, k) for k in kv if k > 0], "io_rows": 2 * B,
+                "n_ints": B, "lib": (q.reshape(B, H, 1, D), kd, vd, mask, pos)}
+    if kernel == "prefill":
+        B, S = len(contexts), GEMMA_CHUNK
+        q_len = [min(c, S) for c in contexts]
+        q_start = [c - n for c, n in zip(contexts, q_len)]
+        pt = random_pages(gen, B, MP, NP, dev)
+        q = qrand(B, S, Hk, G, D)
+        ints = [torch.tensor(x, dtype=torch.int32, device=dev)
+                for x in (q_start, q_len, contexts)]
+        kd, vd = dense(pt)
+        pos = ints[0].long()[:, None] + torch.arange(S, device=dev)[None, :]
+        mask = ((c_pos[None, None, :] <= pos[:, :, None])
+                & (c_pos[None, None, :] < ints[2].long()[:, None, None]))[:, None]
+        return {"args": (q, kp, vp, pt, *ints), "rows": q_len,
+                "spans": list(zip(q_start, q_len, contexts)),
+                "io_rows": sum(q_len) + B * S, "n_ints": 3 * B,
+                "lib": (q.reshape(B, S, H, D).transpose(1, 2), kd, vd, mask, pos)}
+    segs = [(1, c - 1) for c in contexts]
+    segs += [(min(GEMMA_RAGGED_CHUNK, c), c - min(GEMMA_RAGGED_CHUNK, c))
+             for c in contexts if c > 1]
+    t_real = sum(n for n, _ in segs)
+    T = -(-(t_real + 1) // 8) * 8  # a tail of dummy rows
+    pt = random_pages(gen, len(segs), MP, NP, "cpu")
+    md = build_ragged_metadata([n for n, _ in segs], [p for _, p in segs],
+                               [p + n for n, p in segs], pt.tolist(), T,
+                               max_pages=MP)
+    ints = tuple(torch.from_numpy(md[k]).to(dev)
+                 for k in ("seg_page_table", "seg_kv_lens", "meta"))
+    return {"args": (qrand(T, Hk, G, D), kp, vp) + ints, "segs": segs, "md": md,
+            "rows": t_real, "spans": [(p, n, p + n) for n, p in segs],
+            "io_rows": t_real + T,
+            "n_ints": md["seg_kv_lens"].size + md["meta"].size}
+
+
+def gemma_plain_f32(kernel, inp, window, scale, softcap):
+    """The plain version on the case's inputs in f32 (ragged: segment by
+    segment, each flat token being an S = 1 row of its segment, so the
+    gathered context stays a few GB)."""
+    args = inp["args"]
+    q = args[0].float()
+    kw = dict(softcap=softcap, window=window)
+    if kernel == "decode":
+        return decode_paged_attention_ref(q, inp["kp32"], inp["vp32"], *args[3:],
+                                          scale, **kw)
+    if kernel == "prefill":
+        return prefill_paged_attention_ref(q, inp["kp32"], inp["vp32"], *args[3:],
+                                           scale, **kw)
+    segs, md = inp["segs"], inp["md"]
+    out = torch.zeros_like(q)
+    lo = 0
+    for s, (n, p) in enumerate(segs):
+        tb = -(-n // 8) * 8
+        ms = build_ragged_metadata([n], [p], [p + n], [md["seg_page_table"][s].tolist()],
+                                   tb, max_pages=GEMMA_MP)
+        ops = [torch.from_numpy(ms[k]).to(q.device)
+               for k in ("seg_page_table", "seg_kv_lens", "meta")]
+        qs = torch.zeros((tb,) + q.shape[1:], device=q.device)
+        qs[:n] = q[lo:lo + n]
+        out[lo:lo + n] = ragged_paged_attention_ref(
+            qs, inp["kp32"], inp["vp32"], *ops, window, scale=scale,
+            softcap=softcap)[:n]
+        lo += n
+    return out
+
+
+def gemma_case(kernel, case, Hk, G, D, pools, pools32, gen, dgen, dev):
+    """One kernel at one gemma_kernels case: checked against the plain
+    version in f32, timed with its yardstick. Everything it allocates is
+    freed on return (the engine phases' peak memory is read later)."""
+    contexts, window, softcap, scale, q_mul = GEMMA_CASES[case]
+    fn = {"decode": decode_paged_attention, "prefill": prefill_paged_attention,
+          "ragged": ragged_paged_attention}[kernel]
+    sc = D ** -0.5 if scale is None else scale
+    inp = gemma_case_inputs(kernel, contexts, Hk, G, D, q_mul, pools, gen, dgen, dev)
+    inp["kp32"], inp["vp32"] = pools32
+    args = inp["args"]
+    kw = dict(scale=scale, softcap=softcap)
+    got = fn(*args, window, **kw)
+    torch.cuda.synchronize()
+    want = gemma_plain_f32(kernel, inp, window, scale, softcap)
+    rows = inp["rows"]
+    if kernel == "prefill":
+        err = max((got[b, :n].float() - want[b, :n]).abs().max().item()
+                  for b, n in enumerate(rows))
+        zero = all(got[b, n:].float().abs().max().item() == 0.0
+                   for b, n in enumerate(rows) if n < GEMMA_CHUNK)
+    else:
+        err = (got[:rows].float() - want[:rows]).abs().max().item()
+        tail = got[rows:] if kernel == "ragged" else got[-1:]
+        zero = tail.numel() == 0 or tail.float().abs().max().item() == 0.0
+    del want
+    what = f"gemma_kernels D{D} G{G} {case} {kernel}"
+    check(torch.isfinite(got.float()).all().item(), f"{what}: not finite")
+    check(zero, f"{what}: padding, tail or empty rows are not 0")
+    check(err <= KERNEL_TOL, f"{what}: max abs err {err} > {KERNEL_TOL}")
+    b_ms, b_by = gemma_bound(Hk * G, Hk, D, inp["spans"], window, inp["io_rows"],
+                             inp["n_ints"], softcap)
+    if kernel == "ragged":
+        lib = ragged_library(args, inp["segs"], inp["md"], sc, window=window,
+                             softcap=softcap)
+    else:
+        qd, kd, vd, mask, pos = inp["lib"]
+        c = torch.arange(kd.shape[2], device=dev)[None, None, None, :]
+        mask = mask & (c < args[-1].long()[:, None, None, None])
+        if window:
+            mask = mask & (c > pos[:, None, :, None] - window)
+        lib = (capped_attention(qd, kd, vd, mask, sc, softcap) if softcap else
+               lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
+                                                      scale=sc))
+
+    def call():
+        return fn(*args, window, **kw)
+
+    return {"max_abs_err": err, "ms": cuda_ms(call), "device_ms": graph_ms(call),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library": "bmm-tanh-softmax-bmm" if softcap else "sdpa",
+            "library_ms": cuda_ms(lib), "library_device_ms": graph_ms(lib)}
+
+
+def gemma_kernels_phase(dev):
+    """The three GQA kernels' Gemma-2 bodies (window, soft cap, scale
+    override, D 256) against their plain versions in f32, at Gemma-2's
+    heads (Hk 8, G 2, D 256) and the 3B's (Hk 8, G 3, D 128): decode rows
+    at the case's contexts (and an empty row), prefill chunks of up to 512
+    tokens ending there, and a ragged step of a decode row and a 48-token
+    chunk at each. Each case is timed back to back and replayed from a CUDA
+    graph beside its yardstick (SDPA under a boolean window mask over
+    dense K/V; with a soft cap, the bmm-tanh-softmax-bmm calls), with a
+    bound over the visible bytes and operations only."""
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    dgen = torch.Generator(device=dev).manual_seed(11)
+    torch.cuda.synchronize()
+    mem = {"start": torch.cuda.memory_allocated()}
+    out = {}
+    for shape, (Hk, G, D) in GEMMA_SHAPES.items():
+        NP = 2 * len(GEMMA_EDGES) * GEMMA_MP + 1
+        pools = tuple(torch.randn(NP, PAGE_SIZE, Hk, D, generator=dgen,
+                                  device=dev).bfloat16() for _ in range(2))
+        pools32 = tuple(x.float() for x in pools)
+        rec = {"Hk": Hk, "G": G, "D": D, "smem_bytes": gqa_smem_bytes(D),
+               "cases": {}}
+        for case, (contexts, window, softcap, scale, q_mul) in GEMMA_CASES.items():
+            crec = {"contexts": contexts, "window": window, "softcap": softcap,
+                    "scale": scale, "q_scale": q_mul}
+            for kernel in ("decode", "prefill", "ragged"):
+                crec[kernel] = gemma_case(kernel, case, Hk, G, D, pools, pools32,
+                                          gen, dgen, dev)
+                torch.cuda.empty_cache()
+            rec["cases"][case] = crec
+        out[shape] = rec
+        del pools, pools32
+        torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    mem["end"] = torch.cuda.memory_allocated()
+    # cuBLAS keeps a workspace for each stream it ran on, here the capped
+    # yardstick's matmuls on graph_ms's capture streams: free them, so
+    # that they do not count in the engine phases' peak memory
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+        mem["after_clearing_cublas_workspaces"] = torch.cuda.memory_allocated()
+    emit({"phase": "gemma_kernels", "tol": KERNEL_TOL,
+          "memory_allocated_bytes": mem, **out})
+    return out
+
+
+def gemma_phases(dev, smi):
+    """gemma-2-9b at full width and depth: `engine_gemma2` (the card's
+    default, fused: ragged and decode kernels; a prefill chunk with no
+    decode row on the prefill kernel) and `engine_gemma2_unfused`
+    (DYN_FUSED_MIXED=0: prefill and decode kernels) on one runner, each
+    request finishing `length`, each kernel's launches equal to its
+    passes x 42, half of them on the window bodies; then `parity_gemma2`,
+    a 4700- and a 4500-token sequence prefilled in 512-token chunks, two
+    decode steps and a ragged step with a chunk past the window."""
+    t0 = time.monotonic()
+    runner, cfg = build_runner(parse_args(GEMMA_ARGS))
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    L = cfg.n_layers
+    check(runner.kv_page_shape == (L, PAGE_SIZE, cfg.n_kv_heads, cfg.head_dim),
+          f"engine_gemma2: page shape {runner.kv_page_shape}")
+    sliding = sum(1 for l in range(L) if l % cfg.sw_period != cfg.sw_global_residue)
+    found = {}
+    for phase, fused in (("gemma2", None), ("gemma2_unfused", False)):
+        rec, launches, results = engine_phase(
+            runner, phase, fused=fused, build_s=build_s if fused is None else None,
+            base_args=GEMMA_ARGS, extra=GEMMA_LONG_PROMPTS)
+        st = rec["stats"]
+        if fused is None:
+            check(rec["fused_mixed"], f"{phase}: the engine did not fuse on the card")
+            check(all(launches[k] > 0 for k in GQA_KERNELS),
+                  f"{phase}: a GQA kernel never launched: {launches}")
+            check(st["ragged_mixed_dispatches"] > 0 and st["padded_prefill_dispatches"] == 0,
+                  f"{phase}: mixed plans did not ride the ragged step: {st}")
+        else:
+            check(not rec["fused_mixed"], f"{phase}: DYN_FUSED_MIXED=0 did not hold")
+            check(launches["ragged_paged_attention"] == 0, f"{phase}: the ragged kernel ran")
+        for i, (toks, finish, _) in enumerate(results):
+            check(finish == "length" and len(toks) == N_OUT,
+                  f"{phase}: r{i} finished {finish!r} with {len(toks)} tokens")
+        check(max(rec["prompt_tokens"]) > GEMMA_WINDOW,
+              f"{phase}: no request ran past the window")
+        # sliding layers launch the window bodies, global layers the others
+        body = f"D{cfg.head_dim}_softcap"
+        for name in GQA_KERNELS:
+            b = rec["bodies"][name]
+            n = launches[name]
+            check(b.get(body.replace("_", "_window_"), 0) == n // L * sliding
+                  and b.get(body, 0) == n - n // L * sliding
+                  and sum(b.values()) == n,
+                  f"{phase}: {name} bodies {b} for {n} launches")
+        rec["config"] = {k: getattr(cfg, k) for k in (
+            "name", "dim", "n_layers", "n_heads", "n_kv_heads", "head_dim",
+            "ffn_dim", "vocab_size", "sliding_window", "attn_logit_softcap",
+            "final_logit_softcap", "query_pre_attn_scalar")}
+        rec["nvidia_smi"] = smi
+        found[phase] = rec["bodies"]
+        emit(rec)
+    parity_phase(runner, dev, phase="parity_gemma2", lens=(4700, 180, 4500),
+                 S=512, MP=300, NP=960)
+    return found
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1694,19 +2121,33 @@ def main() -> int:
     t0 = time.monotonic()
     _build.load()
     ptxas = {stem: ptxas_lines(log) for stem, log in _build.build_log.items()}
-    emit({"phase": "build", "seconds": time.monotonic() - t0, "ptxas": ptxas})
+    # the GQA kernels' instantiations (D 64 / 128 / 256, soft cap 0 / 1)
+    gqa_ptxas = {stem: ptxas_entries(_build.build_log[stem])
+                 for stem in GQA_STEMS if stem in _build.build_log}
+    emit({"phase": "build", "seconds": time.monotonic() - t0, "ptxas": ptxas,
+          "gqa_kernels": gqa_ptxas})
 
     try:
         # the MLA kernels sit at the register cap of one block an SM
         spills = [ln for ln in ptxas.get("mla_attention", [])
                   if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         check(not spills, f"MLA kernels spill: {spills}")
+        # D 256: O alone is 128 registers a thread; no instantiation spills
+        # (decode 2 bodies + merge, prefill 4, ragged 4 + merge)
+        d256 = {f"{stem}:{k}": v for stem, ents in gqa_ptxas.items()
+                for k, v in ents.items() if "<256" in k}
+        check(len(d256) == 12 or len(gqa_ptxas) < len(GQA_STEMS),
+              f"GQA D 256 instantiations: {sorted(d256)}")
+        check(all(v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
+                  for v in d256.values()), f"GQA D 256 kernels spill: {d256}")
         kern = kernel_phase(dev)
         shapes_phase(dev)
         kern.update(copy_kernel_phase(dev))
         kern.update(mla_kernel_phase(dev))
         decode_split_edges_phase(dev)
-        runner, launches = engine_phases(dev)
+        gemma_kernels_phase(dev)
+        runner, launches, bodies = engine_phases(dev)
+        variants = {name: {"engine_fused": bodies[name]} for name in GQA_KERNELS}
         # each copy kernel's launches from the phase that runs it
         disagg = disagg_phase(runner.params)
         launches["gather_pages"] = disagg["gather_pages"]
@@ -1720,6 +2161,12 @@ def main() -> int:
         mla = mla_phases(dev)
         for name in MLA_KERNELS:
             launches[name] = mla[name]
+        del mla
+        gc.collect()
+        torch.cuda.empty_cache()
+        for phase, b in gemma_phases(dev, smi).items():
+            for name in GQA_KERNELS:
+                variants[name][f"engine_{phase}"] = b[name]
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
@@ -1727,7 +2174,8 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": SOURCES[name][0],
          "replaces": SOURCES[name][1], "launches": launches[name],
          **{k: kern[name][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                       "bound_ms", "bound_by", "library_ms")}}
+                                       "bound_ms", "bound_by", "library_ms")},
+         **({"variants": variants[name]} if name in variants else {})}
         for name in SOURCES
     ]})
     print(smi, flush=True)

@@ -3,7 +3,8 @@
 The reference's params are a stacked numpy-convertible tree
 ({"embed", "norm_f", "lm_head"?, "layers": {"wq": [L, in, out], ...}};
 MLA layers hold wkv_a, kv_norm, wkv_b, wo and wq or wq_lat, q_lat_norm,
-wq_up) in x @ W layout; the port's forward reads exactly that layout, so this is
+wq_up; Gemma-2 layers add post_attn_norm and post_mlp_norm) in x @ W
+layout; the port's forward reads exactly that layout, so this is
 a checked copy onto the device. Norm weights stay f32, as in the
 reference; matrices take `dtype`.
 """
@@ -17,7 +18,8 @@ import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
 
-NORMS = ("norm_f", "attn_norm", "mlp_norm", "kv_norm", "q_lat_norm")
+NORMS = ("norm_f", "attn_norm", "mlp_norm", "kv_norm", "q_lat_norm",
+         "post_attn_norm", "post_mlp_norm")
 
 
 def _expected_shapes(c: ModelConfig) -> Dict[str, tuple]:
@@ -53,6 +55,9 @@ def _expected_shapes(c: ModelConfig) -> Dict[str, tuple]:
         "w_up": (L, c.dim, c.ffn_dim),
         "w_down": (L, c.ffn_dim, c.dim),
     })
+    if c.post_norms:
+        shapes["post_attn_norm"] = (L, c.dim)
+        shapes["post_mlp_norm"] = (L, c.dim)
     if not c.tie_embeddings:
         shapes["lm_head"] = (c.dim, c.vocab_size)
     return shapes

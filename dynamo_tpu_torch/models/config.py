@@ -1,9 +1,10 @@
-"""Model architecture configs: the dense Llama path and MLA.
+"""Model architecture configs: the dense Llama path, Gemma-2 and MLA.
 
 The port's own copy of the fields of dynamo_tpu/models/config.py that the
-dense GQA forward and the MLA (DeepSeek) forward read, plus the MoE fields
-the MLA presets set, with the same names and defaults, so a config built
-here and one built there describe the same model.
+dense GQA forward (with the Gemma-2 branches) and the MLA (DeepSeek)
+forward read, plus the MoE fields the MLA presets set, with the same names
+and defaults, so a config built here and one built there describe the
+same model.
 """
 
 from __future__ import annotations
@@ -25,6 +26,29 @@ class ModelConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # Gemma family:
+    #   gelu_tanh MLP activation (GeGLU) instead of SiLU
+    act: str = "silu"  # "silu" | "gelu_tanh"
+    #   embeddings scaled by sqrt(dim) after lookup
+    embed_scale: bool = False
+    #   RMSNorm weights are zero-centered: output = normed * (1 + w)
+    norm_zero_centered: bool = False
+    #   Gemma-2 sandwich norms: post-attention and post-FFW RMSNorms on
+    #   the residual branches (in addition to the pre-norms)
+    post_norms: bool = False
+    #   attention-score soft capping: s = cap * tanh(s / cap); 0 = off
+    attn_logit_softcap: float = 0.0
+    #   final-logit soft capping; 0 = off
+    final_logit_softcap: float = 0.0
+    #   attention scale = query_pre_attn_scalar^-0.5 (0 -> head_dim^-0.5)
+    query_pre_attn_scalar: float = 0.0
+    #   sliding-window attention; 0 = all-global. Layer l is GLOBAL when
+    #   l % sw_period == sw_global_residue, else it slides (Gemma-2: period
+    #   2, residue 1, even layers sliding; Mistral: period 1, residue 1,
+    #   every layer sliding)
+    sliding_window: int = 0
+    sw_period: int = 2
+    sw_global_residue: int = 1
     # explicit head_dim when it differs from dim // n_heads
     head_dim_override: int = 0
     # MoE (0 experts = dense). The forward does not run MoE layers yet;
@@ -136,6 +160,38 @@ PRESETS: Dict[str, ModelConfig] = {
         n_experts=4, n_experts_active=2, moe_ffn_dim=96,
         n_shared_experts=1, moe_scoring="sigmoid",
         moe_router_bias=True, moe_routed_scale=2.5, n_dense_layers=1,
+    ),
+    # Gemma-2 test model (CPU tests of the Gemma family: GeGLU, scaled
+    # embeddings, zero-centered sandwich norms, softcaps, sliding window)
+    "tiny-gemma2": ModelConfig(
+        name="tiny-gemma2", tie_embeddings=True, act="gelu_tanh",
+        embed_scale=True, norm_zero_centered=True, post_norms=True,
+        attn_logit_softcap=50.0, final_logit_softcap=30.0,
+        query_pre_attn_scalar=16.0, sliding_window=8, rope_theta=10000.0,
+    ),
+    # Gemma 2 9B: head_dim 256, 16 query heads over 8 KV heads (G = 2), a
+    # 4096-token window on the even layers, ~18.5 GB in bf16
+    "gemma-2-9b": ModelConfig(
+        name="gemma-2-9b",
+        vocab_size=256000,
+        dim=3584,
+        n_layers=42,
+        n_heads=16,
+        n_kv_heads=8,
+        ffn_dim=14336,
+        max_seq_len=8192,
+        rope_theta=10000.0,
+        norm_eps=1e-6,
+        tie_embeddings=True,
+        head_dim_override=256,
+        act="gelu_tanh",
+        embed_scale=True,
+        norm_zero_centered=True,
+        post_norms=True,
+        attn_logit_softcap=50.0,
+        final_logit_softcap=30.0,
+        query_pre_attn_scalar=256.0,
+        sliding_window=4096,
     ),
     # DeepSeek-V3/R1 (671B-A37B): MLA + 256-expert MoE with the first 3
     # layers dense. The port serves its dense layers only:

@@ -1,11 +1,15 @@
-"""Llama-family transformer over a paged KV cache: dense GQA layers, and
-the MLA (DeepSeek) layer with a dense FFN.
+"""Llama-family transformer over a paged KV cache: dense GQA layers (with
+Gemma-2's branches), and the MLA (DeepSeek) layer with a dense FFN.
 
 Port of the dense GQA and the MLA branches of dynamo_tpu/models/llama.py
 `forward`: embed, RMSNorm, q/k/v, RoPE, KV write, paged attention (MLA:
 models/mla.py over the latent pool), wo, SwiGLU, final norm, last-position
 gather and f32 logits, with the reference's `ragged=` branch (the flat
-step of the fused mixed dispatch; GQA only, as there). MoE layers are not
+step of the fused mixed dispatch; GQA only, as there). Gemma-2: the
+embedding scaled by sqrt(dim), zero-centred norms, the post-attention and
+post-FFN norms, GeGLU, each layer's sliding window (a Python int per
+layer, toolkit.layer_window) with the score scale and soft cap on every
+attention route, and the final-logit soft cap. MoE layers are not
 ported (ROADMAP A.11): MoE configs raise. Params are
 a plain dict of tensors in the reference's stacked layout ({"embed",
 "norm_f", "layers": {"wq": [L, in, out], ...}}, x @ W), so one checkpoint
@@ -24,7 +28,9 @@ from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.mla import mla_attention
 from dynamo_tpu_torch.models.toolkit import (
     apply_rope,
+    gqa_score_scale,
     kv_rows,
+    layer_window,
     paged_attention_ref,
     rms_norm,
     rope_cos_sin,
@@ -57,8 +63,9 @@ def _refuse_moe(c: ModelConfig) -> None:
 
 def init_params(config: ModelConfig, seed: int, dtype, device) -> Params:
     """Random-init params from a seeded generator on `device` (weights
-    ~ N(0, 1/fan_in), norms 1). Same tree and scales as the reference's
-    init_params; the numbers differ (another generator)."""
+    ~ N(0, 1/fan_in), norms 1, or 0 where they are zero-centred). Same
+    tree and scales as the reference's init_params; the numbers differ
+    (another generator)."""
     c = config
     _refuse_moe(c)
     g = torch.Generator(device=device).manual_seed(seed)
@@ -69,7 +76,9 @@ def init_params(config: ModelConfig, seed: int, dtype, device) -> Params:
         return x.mul_(fan_in ** -0.5).to(dtype)
 
     def norm(*shape):
-        return torch.ones(shape, dtype=torch.float32, device=device)
+        # zero-centred norms (Gemma) store w with output normed * (1 + w)
+        fill = 0.0 if c.norm_zero_centered else 1.0
+        return torch.full(shape, fill, dtype=torch.float32, device=device)
 
     # draws in the order of the dense tree: embed, then the layers
     embed = w(c.dim, c.vocab_size, c.dim)
@@ -103,6 +112,9 @@ def init_params(config: ModelConfig, seed: int, dtype, device) -> Params:
         "w_up": w(c.dim, L, c.dim, c.ffn_dim),
         "w_down": w(c.ffn_dim, L, c.ffn_dim, c.dim),
     })
+    if c.post_norms:  # Gemma-2 sandwich norms on the residual branches
+        layers["post_attn_norm"] = norm(L, c.dim)
+        layers["post_mlp_norm"] = norm(L, c.dim)
     params: Params = {"embed": embed, "norm_f": norm(c.dim), "layers": layers}
     if not c.tie_embeddings:
         params["lm_head"] = w(c.dim, c.dim, c.vocab_size)
@@ -147,8 +159,17 @@ def forward(
     G = c.n_heads // c.n_kv_heads
     lp = params["layers"]
     L, NP, PS = k_pool.shape[:3]
+    zc = c.norm_zero_centered
+    # the scale and soft cap of every GQA attention route (None and 0 for
+    # Llama: the kernels' defaults)
+    attn_kw = dict(scale=gqa_score_scale(c), softcap=c.attn_logit_softcap)
+    act = ((lambda x: F.gelu(x, approximate="tanh")) if c.act == "gelu_tanh"
+           else F.silu)
 
     h = params["embed"][tokens.long()]  # [B, S, E]
+    if c.embed_scale:
+        # Gemma: sqrt(dim), rounded through the embedding dtype (HF)
+        h = h * float(torch.tensor(c.dim ** 0.5, dtype=h.dtype))
     safe_pos = positions.clamp(min=0)
     rope_dim = c.qk_rope_head_dim if c.is_mla else hd
     cos, sin = rope_cos_sin(
@@ -178,7 +199,7 @@ def forward(
                                  (cos, sin), safe_pos, kv_lens, q_start,
                                  q_len, attn_impl)
         else:
-            x = rms_norm(h, lp["attn_norm"][l], c.norm_eps)
+            x = rms_norm(h, lp["attn_norm"][l], c.norm_eps, zero_centered=zc)
             q = (x @ lp["wq"][l]).view(B, S, c.n_heads, hd)
             k = (x @ lp["wk"][l]).view(B, S, c.n_kv_heads, hd)
             v = (x @ lp["wv"][l]).view(B, S, c.n_kv_heads, hd)
@@ -187,25 +208,35 @@ def forward(
             write_kv(k_pool, l, k, rows)
             write_kv(v_pool, l, v, rows)
             qg = q.view(B, S, c.n_kv_heads, G, hd)
+            win = layer_window(c, l)
             if ragged is not None:
                 attn = ragged_attn(qg[0], k_pool[l], v_pool[l], seg_pt,
-                                   seg_kvl, meta)[None]
+                                   seg_kvl, meta, win, **attn_kw)[None]
             elif attn_impl == "ref":
                 attn = paged_attention_ref(
-                    qg, k_pool[l], v_pool[l], page_table, safe_pos, kv_lens)
+                    qg, k_pool[l], v_pool[l], page_table, safe_pos, kv_lens,
+                    window=win, **attn_kw)
             elif S == 1:
                 attn = decode_paged_attention(
-                    qg[:, 0], k_pool[l], v_pool[l], page_table, kv_lens,
-                )[:, None]
+                    qg[:, 0], k_pool[l], v_pool[l], page_table, kv_lens, win,
+                    **attn_kw)[:, None]
             else:
                 attn = prefill_paged_attention(
                     qg, k_pool[l], v_pool[l], page_table, q_start, q_len,
-                    kv_lens)
+                    kv_lens, win, **attn_kw)
             attn = attn.reshape(B, S, c.n_heads * hd)
-        h = h + attn @ lp["wo"][l]
-        x = rms_norm(h, lp["mlp_norm"][l], c.norm_eps)
-        gate = F.silu(x @ lp["w_gate"][l])
-        h = h + (gate * (x @ lp["w_up"][l])) @ lp["w_down"][l]
+        attn_out = attn @ lp["wo"][l]
+        if c.post_norms:  # Gemma-2: norm the branch before the residual
+            attn_out = rms_norm(attn_out, lp["post_attn_norm"][l], c.norm_eps,
+                                zero_centered=zc)
+        h = h + attn_out
+        x = rms_norm(h, lp["mlp_norm"][l], c.norm_eps, zero_centered=zc)
+        gate = act(x @ lp["w_gate"][l])
+        ffw = (gate * (x @ lp["w_up"][l])) @ lp["w_down"][l]
+        if c.post_norms:
+            ffw = rms_norm(ffw, lp["post_mlp_norm"][l], c.norm_eps,
+                           zero_centered=zc)
+        h = h + ffw
 
     if last_index is not None:
         if isinstance(last_index, int):
@@ -215,7 +246,10 @@ def forward(
         else:  # per-row last positions
             idx = last_index.long().view(B, 1, 1).expand(B, 1, h.shape[-1])
             h = torch.gather(h, 1, idx)
-    h = rms_norm(h, params["norm_f"], c.norm_eps)
+    h = rms_norm(h, params["norm_f"], c.norm_eps, zero_centered=zc)
     lm_head = params.get("lm_head")
-    logits = h @ (params["embed"].T if lm_head is None else lm_head)
-    return logits.float()
+    logits = (h @ (params["embed"].T if lm_head is None else lm_head)).float()
+    if c.final_logit_softcap:
+        cap = c.final_logit_softcap
+        logits = cap * torch.tanh(logits / cap)
+    return logits

@@ -1,7 +1,7 @@
 """Transformer building blocks: RMSNorm, RoPE (with llama3 and yarn
-scaling), the attention score scale, the token-major paged KV pool (the
-latent pool for MLA) and its writer, and the plain gather attention that
-every attention kernel is held against.
+scaling), the attention score scale, each layer's sliding window, the
+token-major paged KV pool (the latent pool for MLA) and its writer, and
+the plain gather attention that every attention kernel is held against.
 
 Port of dynamo_tpu/models/toolkit.py. Layouts and numerics follow it: the
 pool is [L, NP, PS, Hk, D], norms and rope angles run in f32, and the
@@ -44,11 +44,14 @@ def make_kv_pool(
             torch.zeros(shape, dtype=dtype, device=device))
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm in f32, cast back to the input dtype."""
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             zero_centered: bool = False) -> torch.Tensor:
+    """RMSNorm in f32, cast back to the input dtype. zero_centered
+    (Gemma): the weights store w and the output is normed * (1 + w)."""
     xf = x.float()
     normed = xf * torch.rsqrt(xf.pow(2).mean(-1, keepdim=True) + eps)
-    return (normed * weight).to(x.dtype)
+    w = weight + 1.0 if zero_centered else weight
+    return (normed * w).to(x.dtype)
 
 
 def _yarn_mscale(scale: float, mscale: float) -> float:
@@ -76,6 +79,22 @@ def attn_score_scale(config: ModelConfig, qk_dim: int) -> float:
         m = _yarn_mscale(config.rope_factor, config.rope_mscale_all_dim)
         scale = scale * m * m
     return scale
+
+
+def gqa_score_scale(config: ModelConfig) -> Optional[float]:
+    """The GQA softmax scale: query_pre_attn_scalar^-0.5 where the config
+    sets it (Gemma), else None (the kernels' head_dim^-0.5)."""
+    q = config.query_pre_attn_scalar
+    return q ** -0.5 if q > 0 else None
+
+
+def layer_window(config: ModelConfig, l: int) -> int:
+    """Layer l's sliding window in tokens, 0 for a global layer: global
+    when l % sw_period == sw_global_residue or the config has no window."""
+    c = config
+    if c.sliding_window <= 0 or l % c.sw_period == c.sw_global_residue:
+        return 0
+    return c.sliding_window
 
 
 def rope_inv_freq_np(config: Optional[ModelConfig], hd: int, theta: float) -> np.ndarray:
@@ -159,6 +178,12 @@ def rope(x: torch.Tensor, positions: torch.Tensor, theta: float,
     return apply_rope(x, cos, sin)
 
 
+def softcap_scores(s: torch.Tensor, softcap: float) -> torch.Tensor:
+    """Gemma-2 soft capping of scaled scores: cap * tanh(s / cap); a cap
+    of 0 leaves them."""
+    return softcap * torch.tanh(s / softcap) if softcap else s
+
+
 def paged_attention_ref(
     q: torch.Tensor,  # [B, S, Hk, G, D] grouped query heads
     k_pool_l: torch.Tensor,  # [NP, PS, Hk, D] one layer's key pool
@@ -167,12 +192,15 @@ def paged_attention_ref(
     q_positions: torch.Tensor,  # [B, S] absolute positions of the queries
     kv_lens: torch.Tensor,  # [B] context length (tokens valid in the pool)
     scale: Optional[float] = None,
+    softcap: float = 0.0,  # Gemma-2 score soft capping (0 = off)
+    window: Optional[int] = None,  # sliding window (None or 0 = global)
 ) -> torch.Tensor:
     """Gather paged attention with causal masking by absolute position
     (flat context index c is absolute position c). Returns [B, S, Hk, G, Dv]
     (Dv, the value pool's width, may differ from the keys': MLA's values
     are the latent's first d_c columns); rows with an empty context come
-    out 0."""
+    out 0. Scores are scaled, then soft-capped, then masked; with a
+    window w > 0 a query at position p sees only positions c > p - w."""
     B, MP = page_table.shape
     _, PS, Hk, D = k_pool_l.shape
     k = k_pool_l[page_table.long()].reshape(B, MP * PS, Hk, D)
@@ -180,10 +208,13 @@ def paged_attention_ref(
     C = MP * PS
     if scale is None:
         scale = D ** -0.5
-    scores = torch.einsum("bskgd,bckd->bkgsc", q, k).float() * scale
+    scores = softcap_scores(
+        torch.einsum("bskgd,bckd->bkgsc", q, k).float() * scale, softcap)
     ctx_pos = torch.arange(C, device=q.device)
     valid = (ctx_pos[None, :] < kv_lens[:, None])[:, None, None, None, :]
     causal = ctx_pos[None, None, :] <= q_positions[:, :, None]  # [B, S, C]
+    if window is not None and window > 0:
+        causal = causal & (ctx_pos[None, None, :] > q_positions[:, :, None] - window)
     mask = valid & causal[:, None, None, :, :]
     scores = torch.where(mask, scores, NEG_INF)
     m = scores.amax(-1, keepdim=True)

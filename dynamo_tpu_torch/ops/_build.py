@@ -31,22 +31,22 @@ NVCC_FLAGS = [
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     # q, k_pool, v_pool, page_table, kv_lens, out, part,
-    # B, Hk, G, D, PS, MP, split, scale, stream
+    # B, Hk, G, D, PS, MP, split, window, scale, softcap, stream
     "paged_attention": {
         "decode_paged_attention": (
-            [_P] * 7 + [_I] * 7 + [_F, _P], _I),
+            [_P] * 7 + [_I] * 8 + [_F, _F, _P], _I),
     },
     # q, k_pool, v_pool, page_table, q_start, q_len, kv_lens, out,
-    # B, S, Hk, G, D, PS, MP, q_block, scale, stream
+    # B, S, Hk, G, D, PS, MP, q_block, window, scale, softcap, stream
     "flash_prefill": {
         "prefill_paged_attention": (
-            [_P] * 8 + [_I] * 8 + [_F, _P], _I),
+            [_P] * 8 + [_I] * 9 + [_F, _F, _P], _I),
     },
     # q, k_pool, v_pool, seg_page_table, seg_kv_lens, meta, out, part,
-    # NW, Hk, G, D, PS, MP, q_block, split, scale, stream
+    # NW, Hk, G, D, PS, MP, q_block, split, window, scale, softcap, stream
     "ragged_paged_attention": {
         "ragged_paged_attention": (
-            [_P] * 8 + [_I] * 8 + [_F, _P], _I),
+            [_P] * 8 + [_I] * 9 + [_F, _F, _P], _I),
     },
     "mla_attention": {
         # q, lat_pool, page_table, kv_lens, out, part, B, H, dc, dr, PS,

@@ -1,12 +1,14 @@
 // Chunked-prefill paged flash attention for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel dynamo_tpu/ops/flash_prefill.py
-// `prefill_paged_attention` (body `_prefill_kernel_body`), plain bf16
-// variant: a chunk of S query tokens per sequence, at absolute positions
-// q_start .. q_start + q_len - 1 (padding rows after q_len), attends
-// causally over the sequence's whole paged context (prior prefix plus the
-// chunk, already written to the token-major pool [NP, PS, Hk, D]).
-// Padding rows come out 0.
+// `prefill_paged_attention` (body `_prefill_kernel_body`), its bf16
+// bodies `_prefill_kernel` and `_prefill_kernel_win` with the static
+// softcap and scale: a chunk of S query tokens per sequence, at absolute
+// positions q_start .. q_start + q_len - 1 (padding rows after q_len),
+// attends causally over the sequence's whole paged context (prior prefix
+// plus the chunk, already written to the token-major pool [NP, PS, Hk,
+// D]); with a window w > 0 the row at position p sees only positions
+// c > p - w. Padding rows come out 0. Head dims 64, 128 and 256.
 //
 // What bounds it on an H100: for a 512-token chunk with a few hundred
 // prior tokens the QK^T and PV products (4 * D flops per visible
@@ -29,7 +31,17 @@
 // the last position its rows can see, min(causal top, kv_len - 1): the
 // TPU index-map clamp (flash_prefill.py:248-264) as a trip count, so a
 // causal chunk costs about half the rectangle, and tiles wholly below a
-// warp's causal limits skip the mask. Nothing crosses blocks.
+// warp's causal limits skip the mask. With a window the walk starts at the
+// block's first token's position - w + 1 (the index map's low clamp), so
+// a chunk past the window reads w + QB tokens a block, not its whole
+// context. Nothing crosses blocks.
+//
+// D 256 (Gemma-2): 128 Q rows (67.6 KB) and two stages of K and V tiles
+// (135 KB) take 203 KB of shared memory, one block an SM; Q's fragments
+// are reloaded from shared memory each tile (paged_flash.cuh QFrags) so
+// that O (128 registers) fits without spilling.
+
+#include <type_traits>
 
 #include "paged_flash.cuh"
 
@@ -39,7 +51,7 @@ using namespace paged_flash;
 
 constexpr int kWarps = 8;  // 128 query rows: 16 a warp
 
-template <int D>
+template <int D, bool kCap, bool kWin>
 __global__ void __launch_bounds__(32 * kWarps)
 prefill_kernel(const __nv_bfloat16* __restrict__ q,
                const __nv_bfloat16* __restrict__ k_pool,
@@ -49,7 +61,8 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
                const int* __restrict__ q_len,
                const int* __restrict__ kv_lens,
                __nv_bfloat16* __restrict__ out,
-               int S, int Hk, int G, int PS, int MP, int QB, float scale_log2) {
+               int S, int Hk, int G, int PS, int MP, int QB, int window,
+               ScoreMap sm) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int qb = blockIdx.x;
   const int h = blockIdx.y;
@@ -66,32 +79,55 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   auto q_row = [&](int r) -> const __nv_bfloat16* {
     return (r < rows && r / G < n_tok) ? q + q_offset(r) : nullptr;
   };
-  auto row_vis = [&](int r) {
-    return (r < rows && r / G < n_tok) ? min(pos0 + r / G, kvl - 1) : -1;
+  // the first position a query at p sees (0 without a window)
+  auto first_seen = [&](int p) { return kWin ? max(p - window + 1, 0) : 0; };
+  auto row_span = [&](int r) {
+    if (r >= rows || r / G >= n_tok) return make_int2(0, -1);
+    const int p = pos0 + r / G;
+    return make_int2(first_seen(p), min(p, kvl - 1));
   };
   const int last_pos = n_tok > 0 ? min(pos0 + n_tok - 1, kvl - 1) : -1;
 
   RowState<D> st;
-  attend<D, kWarps>(smem, q_row, row_vis, k_pool, v_pool,
-                    page_table + (size_t)b * MP, PS, Hk, h, 0, last_pos + 1,
-                    scale_log2, st);
+  attend<D, kWarps, kCap, kWin>(smem, q_row, row_span, k_pool, v_pool,
+                          page_table + (size_t)b * MP, PS, Hk, h, first_seen(pos0),
+                          last_pos + 1, sm, st);
   store_rows<D>([&](int r) -> __nv_bfloat16* {
     return (r < rows && s0 + r / G < S) ? out + q_offset(r) : nullptr;
   }, st);
 }
 
-template <int D>
+template <int D, bool kCap, bool kWin>
 int launch(const dim3& grid, cudaStream_t st, const __nv_bfloat16* q,
            const __nv_bfloat16* k, const __nv_bfloat16* v, const int* pt,
            const int* qs, const int* ql, const int* kl, __nv_bfloat16* out,
-           int S, int Hk, int G, int PS, int MP, int QB, float scale_log2) {
+           int S, int Hk, int G, int PS, int MP, int QB, int window,
+           const ScoreMap& sm) {
   constexpr int smem = Shape<D, kWarps>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      prefill_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      prefill_kernel<D, kCap, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  prefill_kernel<D><<<grid, 32 * kWarps, smem, st>>>(
-      q, k, v, pt, qs, ql, kl, out, S, Hk, G, PS, MP, QB, scale_log2);
+  prefill_kernel<D, kCap, kWin><<<grid, 32 * kWarps, smem, st>>>(
+      q, k, v, pt, qs, ql, kl, out, S, Hk, G, PS, MP, QB, window, sm);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the body for (D, soft cap or not, window or not): the plain path
+// carries no cap or window code
+template <int D>
+int launch_d(bool cap, const dim3& grid, cudaStream_t st, const __nv_bfloat16* q,
+             const __nv_bfloat16* k, const __nv_bfloat16* v, const int* pt,
+             const int* qs, const int* ql, const int* kl, __nv_bfloat16* out,
+             int S, int Hk, int G, int PS, int MP, int QB, int window,
+             const ScoreMap& sm) {
+  auto go = [&](auto cap_t, auto win_t) {
+    return launch<D, decltype(cap_t)::value, decltype(win_t)::value>(
+        grid, st, q, k, v, pt, qs, ql, kl, out, S, Hk, G, PS, MP, QB, window, sm);
+  };
+  using T = std::true_type;
+  using F = std::false_type;
+  if (window > 0) return cap ? go(T{}, T{}) : go(F{}, T{});
+  return cap ? go(T{}, F{}) : go(F{}, F{});
 }
 
 }  // namespace
@@ -100,7 +136,8 @@ extern "C" int prefill_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* page_table, const void* q_start, const void* q_len,
     const void* kv_lens, void* out, int B, int S, int Hk, int G, int D,
-    int PS, int MP, int q_block, float scale, void* stream) {
+    int PS, int MP, int q_block, int window, float scale, float softcap,
+    void* stream) {
   if (B == 0 || S == 0) return 0;
   if (q_block < 1 || q_block * G > 16 * kWarps) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -115,14 +152,19 @@ extern "C" int prefill_paged_attention(
   const auto* ql = static_cast<const int*>(q_len);
   const auto* kl = static_cast<const int*>(kv_lens);
   auto* oo = static_cast<__nv_bfloat16*>(out);
-  const float scale_log2 = scale * paged_flash::kLog2e;
+  const paged_flash::ScoreMap sm = paged_flash::score_map(scale, softcap);
+  const bool cap = softcap > 0.f;
   if (D == 128) {
-    return launch<128>(grid, st, qq, kk, vv, pt, qs, ql, kl, oo, S, Hk, G, PS,
-                       MP, q_block, scale_log2);
+    return launch_d<128>(cap, grid, st, qq, kk, vv, pt, qs, ql, kl, oo, S, Hk, G,
+                         PS, MP, q_block, window, sm);
   }
   if (D == 64) {
-    return launch<64>(grid, st, qq, kk, vv, pt, qs, ql, kl, oo, S, Hk, G, PS,
-                      MP, q_block, scale_log2);
+    return launch_d<64>(cap, grid, st, qq, kk, vv, pt, qs, ql, kl, oo, S, Hk, G,
+                        PS, MP, q_block, window, sm);
+  }
+  if (D == 256) {
+    return launch_d<256>(cap, grid, st, qq, kk, vv, pt, qs, ql, kl, oo, S, Hk, G,
+                         PS, MP, q_block, window, sm);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -1,10 +1,13 @@
 // Decode paged attention for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel dynamo_tpu/ops/paged_attention.py
-// `decode_paged_attention` (body `_decode_kernel_body`), plain bf16 variant:
-// one query token per sequence, all G query heads of each kv-head, attends
-// over the sequence's pages of a token-major pool [NP, PS, Hk, D] up to
-// kv_len, with an online softmax in f32. Rows with kv_len 0 come out 0.
+// `decode_paged_attention` (body `_decode_kernel_body`), its bf16 bodies
+// `_decode_kernel` and `_decode_kernel_win` with the static softcap and
+// scale, at head dims 64, 128 and 256: one query token per sequence, all
+// G query heads of each kv-head, attends over the sequence's pages of a
+// token-major pool [NP, PS, Hk, D] up to kv_len (with a window w > 0,
+// from kv_len - w: the reference's rule at paged_attention.py:78-84), with
+// an online softmax in f32. Rows with kv_len 0 come out 0.
 //
 // What bounds it on an H100: bytes. Each context token's K and V rows
 // (2 x D bf16 per kv-head) are read once and used for G dot products and
@@ -41,6 +44,18 @@
 //     the value product (the TPU kernel keeps p in f32). Tensor cores are
 //     not what this byte-bound kernel needs; sharing the tile body with
 //     the prefill and ragged kernels is.
+//   - Sliding window: block (h, b, z) starts at max(z * split, kv_len - w)
+//     (the index map's low clamp at paged_attention.py:241-254, as a
+//     start position), so no tile below the window is copied and no table
+//     entry below it is read; every position a block walks is visible, so
+//     the window needs no mask here. A split wholly below the window of a
+//     row longer than one split stages nothing and writes the empty
+//     partial (m = -1e30, l = 0, O = 0), which the merge weighs 0.
+//   - The soft cap is the tile body's template flag (paged_flash.cuh):
+//     the plain body carries none of it.
+//   - D 256 (Gemma-2): Q's fragments are reloaded from shared memory each
+//     tile (QFrags), so that O's 128 registers fit; 211 KB of shared
+//     memory, one block an SM.
 //   - The warps' (m, l, O) are combined through shared memory in warp
 //     order. A row whose context fits one split writes its bf16 output
 //     directly; a longer row's blocks write f32 partials (O, m, l) to the
@@ -72,7 +87,7 @@ struct DecShape {
                 "combine area larger than the slots");
 };
 
-template <int D>
+template <int D, bool kCap>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                     const __nv_bfloat16* __restrict__ k_pool,
@@ -82,16 +97,28 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
                     __nv_bfloat16* __restrict__ out,
                     float* __restrict__ part,
                     int B, int Hk, int G, int PS, int MP, int split,
-                    float scale_log2) {
+                    int window, ScoreMap sm) {
   using Sh = DecShape<D>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int h = blockIdx.x;
   const int b = blockIdx.y;
   const int z = blockIdx.z;
   const int kvl = min(kv_lens[b], MP * PS);
-  const int c_begin = z * split;
-  if (z > 0 && c_begin >= kvl) return;  // uniform over the block
-  const int c_end = min(c_begin + split, kvl);
+  if (z > 0 && z * split >= kvl) return;  // uniform over the block
+  // the query sits at kvl - 1: with a window it sees [kvl - window, kvl)
+  const int lo = window > 0 ? max(kvl - window, 0) : 0;
+  const int c_begin = max(z * split, lo);
+  const int c_end = min(z * split + split, kvl);
+  const bool direct = kvl <= split;  // one split: bf16 out, else partials
+  if (c_begin >= c_end && !direct) {
+    // a split wholly below the window: the empty partial, nothing staged
+    for (int i = threadIdx.x; i < G * (D + 4); i += kThreads) {
+      const int d = i % (D + 4);
+      part[((size_t)z * B * Hk * G + ((size_t)(b * Hk + h)) * G + i / (D + 4)) * (D + 4) +
+           d] = d == D ? kNegInf : 0.f;
+    }
+    return;
+  }
   const int n_tiles = c_end > c_begin ? (c_end - c_begin + kTile - 1) / kTile : 0;
 
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
@@ -155,20 +182,19 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     st.l[i] = 0.f;
   }
   const int r0 = lane >> 2;  // rows r0 and r0 + 8; G <= 8, so only r0 lives
-  st.vis[0] = r0 < G ? kvl - 1 : -1;
+  st.vis[0] = r0 < G ? c_end - 1 : -1;
   st.vis[1] = -1;
 
   if (warp < n_tiles) {
-    uint32_t qf[D / 16][4];
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-      ldsm_x4(qf[kc], smem_u32(sQ + (lane & 15) * Sh::kStride + kc * 16 + (lane >> 4) * 8));
+    QFrags<D> qf;
+    qf.init(sQ);
     int use = 0;
     for (int t = warp; t < n_tiles; t += kWarps, ++use) {
       mbar_wait(bar, use & 1);
       __syncwarp();  // the zeroed rows are visible
       const int c0 = c_begin + t * kTile;
-      tile_update<D>(qf, sK, c0, c0 + kTile <= kvl, scale_log2, st);
+      // no window mask: every position the block walks is visible
+      tile_update<D, kCap, false>(qf, sK, c0, c0 + kTile <= c_end, sm, st);
       __syncwarp();  // every lane is done with the slot
       if (t + kWarps < n_tiles) issue(t + kWarps);
     }
@@ -194,7 +220,6 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   __syncthreads();
 
   // combine the warps in warp order; one split: bf16 out, else partials
-  const bool direct = kvl <= split;
   for (int i = tid; i < G * (D / 2); i += kThreads) {
     const int r = i / (D / 2);
     const int d = (i % (D / 2)) * 2;
@@ -239,22 +264,35 @@ decode_merge_kernel(const float* __restrict__ part, const int* __restrict__ kv_l
                             [=](int r) { return out + (row0 + r) * D; });
 }
 
-template <int D>
+template <int D, bool kCap>
 int launch(int B, int Hk, int NS, cudaStream_t st, const __nv_bfloat16* q,
            const __nv_bfloat16* k, const __nv_bfloat16* v, const int* pt,
            const int* kl, __nv_bfloat16* out, float* part, int G, int PS,
-           int MP, int split, float scale_log2) {
+           int MP, int split, int window, const ScoreMap& sm) {
   constexpr int smem = DecShape<D>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_split_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      decode_split_kernel<D, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_split_kernel<D><<<dim3(Hk, B, NS), kThreads, smem, st>>>(
-      q, k, v, pt, kl, out, part, B, Hk, G, PS, MP, split, scale_log2);
+  decode_split_kernel<D, kCap><<<dim3(Hk, B, NS), kThreads, smem, st>>>(
+      q, k, v, pt, kl, out, part, B, Hk, G, PS, MP, split, window, sm);
   err = cudaGetLastError();
   if (err != cudaSuccess || NS < 2) return static_cast<int>(err);
   decode_merge_kernel<D><<<dim3(Hk, B), kThreads, 0, st>>>(part, kl, out, B, Hk, G,
                                                              PS, MP, split);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the body for (D, soft cap or not): the plain path carries no cap code
+template <int D>
+int launch_d(bool cap, int B, int Hk, int NS, cudaStream_t st,
+             const __nv_bfloat16* q, const __nv_bfloat16* k,
+             const __nv_bfloat16* v, const int* pt, const int* kl,
+             __nv_bfloat16* out, float* part, int G, int PS, int MP, int split,
+             int window, const ScoreMap& sm) {
+  return cap ? launch<D, true>(B, Hk, NS, st, q, k, v, pt, kl, out, part, G, PS,
+                               MP, split, window, sm)
+             : launch<D, false>(B, Hk, NS, st, q, k, v, pt, kl, out, part, G, PS,
+                                MP, split, window, sm);
 }
 
 }  // namespace
@@ -265,7 +303,8 @@ extern "C" int decode_paged_attention(const void* q, const void* k_pool,
                                       const void* v_pool, const void* page_table,
                                       const void* kv_lens, void* out, void* part,
                                       int B, int Hk, int G, int D, int PS, int MP,
-                                      int split, float scale, void* stream) {
+                                      int split, int window, float scale,
+                                      float softcap, void* stream) {
   if (B == 0) return 0;
   if (G < 1 || G > 8 || split < paged_flash::kTile || split % paged_flash::kTile) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -279,14 +318,19 @@ extern "C" int decode_paged_attention(const void* q, const void* k_pool,
   const auto* kl = static_cast<const int*>(kv_lens);
   auto* oo = static_cast<__nv_bfloat16*>(out);
   auto* pp = static_cast<float*>(part);
-  const float scale_log2 = scale * paged_flash::kLog2e;
+  const paged_flash::ScoreMap sm = paged_flash::score_map(scale, softcap);
+  const bool cap = softcap > 0.f;
   if (D == 128) {
-    return launch<128>(B, Hk, NS, st, qq, kk, vv, pt, kl, oo, pp, G, PS, MP, split,
-                       scale_log2);
+    return launch_d<128>(cap, B, Hk, NS, st, qq, kk, vv, pt, kl, oo, pp, G, PS, MP,
+                         split, window, sm);
   }
   if (D == 64) {
-    return launch<64>(B, Hk, NS, st, qq, kk, vv, pt, kl, oo, pp, G, PS, MP, split,
-                      scale_log2);
+    return launch_d<64>(cap, B, Hk, NS, st, qq, kk, vv, pt, kl, oo, pp, G, PS, MP,
+                        split, window, sm);
+  }
+  if (D == 256) {
+    return launch_d<256>(cap, B, Hk, NS, st, qq, kk, vv, pt, kl, oo, pp, G, PS, MP,
+                         split, window, sm);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

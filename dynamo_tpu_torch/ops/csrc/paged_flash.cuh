@@ -9,7 +9,10 @@
 //
 // A block of W warps owns up to 16 W query rows of one kv head (row =
 // token * G + group, the TPU kernels' [Sq * G] flattening), 16 rows a
-// warp, and walks a range of the context in tiles of 64 tokens. Per tile:
+// warp, and walks a range of the context in tiles of 64 tokens, from the
+// first position any of its rows sees (with a sliding window, the lowest
+// row's position - window + 1: the CUDA form of the Pallas index-map
+// clamp, so tiles wholly below the window are never copied). Per tile:
 //   - Loads by the TMA unit. K and V tiles stay bf16 in dynamic shared
 //     memory, 64 x D each, rows padded by 16 bytes so that ldmatrix's
 //     eight row reads of a phase land in eight different bank quads. A
@@ -28,13 +31,27 @@
 //     their P = 0 never meets a NaN.
 //   - Products on tensor cores: S = Q K^T and O += P V with
 //     mma.sync.m16n8k16 (bf16 in, f32 accumulate), A and B fragments from
-//     ldmatrix (.trans for V); Q's fragments are loaded once. S is masked
-//     in registers (kv_len, causal top, padding rows): a tile wholly below
-//     the warp's lowest causal limit skips the mask, a tile wholly above
-//     the warp's highest skips the products.
+//     ldmatrix (.trans for V). Up to D 128 Q's fragments are loaded once
+//     into registers; at D 256 they would take 64 registers beside O's
+//     128 (32 x 4 f32 a thread), so each tile reloads them from the Q tile
+//     in shared memory (QFrags), one slice of 16 dims for all 64 tokens at
+//     a time. S is masked in registers to each row's visible span (kv_len,
+//     causal top, padding rows; with a window, template flag kWin, also
+//     its low edge): a tile that every live row of the warp sees whole
+//     skips the mask, a tile that no row of the warp sees skips the
+//     products. The plain body (kWin and kCap false) carries no window or
+//     cap code: on an H100 a per-score window test slowed the D 128
+//     prefill (PERF.md, section 6).
 //   - Online softmax in registers. Scores are kept in base-2 units
 //     (scale * log2 e folded in), row max and row sum by quad shuffles
-//     (the sum only once, at the end), m and l in f32. P is rounded to
+//     (the sum only once, at the end), m and l in f32. With a soft cap
+//     (template flag kCap, so the plain body carries none of it) the true
+//     score cap * tanh(s * scale / cap) is formed first, then log2 e is
+//     applied and the mask set, the reference's order (scale, cap, mask).
+//     tanh is 1 - 2 / (2^(2 x log2 e) + 1) on ex2.approx and rcp.approx:
+//     absolute error about 1e-7 (times the cap in the score), where
+//     tanh.approx.f32's 2^-11 relative error would move a capped score of
+//     50 by 0.02. P is rounded to
 //     bf16 in registers and is the A operand of P V as it stands (the S
 //     accumulator's layout is the A fragment's, FlashAttention-2's
 //     identity). One __syncthreads a tile frees the stage for reuse.
@@ -144,6 +161,41 @@ __device__ __forceinline__ float exp2_approx(float x) {  // exp2(-inf) = 0
   return y;
 }
 
+__device__ __forceinline__ float rcp_approx(float x) {  // 1 / inf = 0
+  float y;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// tanh(x) = 1 - 2 / (e^(2x) + 1): -1 and 1 at the far ends (e^(2x) flushes
+// to 0 or overflows to inf), absolute error about 1e-7 in between
+__device__ __forceinline__ float tanh_fast(float x) {
+  return 1.f - 2.f * rcp_approx(exp2_approx(x * (2.f * kLog2e)) + 1.f);
+}
+
+// How a raw score s = q . k becomes the base-2 logit the softmax runs on:
+// plain, s * scale * log2 e; with the soft cap, cap * tanh(s * scale /
+// cap) * log2 e. Built on the host by score_map.
+struct ScoreMap {
+  float scale_log2;  // scale * log2 e
+  float scale_cap;   // scale / cap (soft cap only)
+  float cap_log2;    // cap * log2 e (soft cap only)
+};
+
+inline ScoreMap score_map(float scale, float softcap) {
+  return ScoreMap{scale * kLog2e, softcap > 0.f ? scale / softcap : 0.f,
+                  softcap * kLog2e};
+}
+
+template <bool kCap>
+__device__ __forceinline__ float base2_logit(float s, const ScoreMap& sm) {
+  if constexpr (kCap) {
+    return sm.cap_log2 * tanh_fast(s * sm.scale_cap);
+  } else {
+    return s * sm.scale_log2;
+  }
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low half
   return *reinterpret_cast<uint32_t*>(&v);
@@ -180,18 +232,50 @@ struct RowState {
   float o[D / 8][4];
   float m[2];
   float l[2];
+  int lo[2];   // first context position the row sees (window low edge)
   int vis[2];  // last context position the row sees; -1: none, or no row
 };
 
-// One 64-token tile of the online softmax, in one warp: S = Q K^T for the
-// warp's 16 query rows (qf: Q's A fragments), scale and mask (a token c
-// counts for row i when full or c <= st.vis[i]), the running max and sum,
-// P rounded to bf16, O += P V. sK is the tile's K rows, the V rows follow
-// kTileElems later, both with rows D + 8 bf16 apart.
+// Q's A fragments for one warp's 16 rows, from the Q tile in shared memory
+// (rows D + 8 bf16 apart). Up to D 128 they are loaded once into
+// registers; at D 256 each tile reloads them, slice by slice, with
+// ldmatrix (64 registers saved; the Q tile stays put for the whole walk).
 template <int D>
-__device__ __forceinline__ void tile_update(const uint32_t (&qf)[D / 16][4],
+struct QFrags {
+  static constexpr bool kRegs = D <= 128;
+  uint32_t f[kRegs ? D / 16 : 1][4];
+  uint32_t addr;  // this lane's ldmatrix address, slice 0
+
+  // sq_row0: the warp's first Q row in shared memory
+  __device__ __forceinline__ void init(const __nv_bfloat16* sq_row0) {
+    const int lane = threadIdx.x & 31;
+    addr = smem_u32(sq_row0 + (lane & 15) * (D + 8) + (lane >> 4) * 8);
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int kc = 0; kc < D / 16; ++kc) ldsm_x4(f[kc], addr + kc * 32);
+    }
+  }
+
+  __device__ __forceinline__ void get(int kc, uint32_t (&a)[4]) const {
+    if constexpr (kRegs) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) a[j] = f[kc][j];
+    } else {
+      ldsm_x4(a, addr + kc * 32);
+    }
+  }
+};
+
+// One 64-token tile of the online softmax, in one warp: S = Q K^T for the
+// warp's 16 query rows (qf: Q's A fragments), the score map (scale, soft
+// cap with kCap) and mask (a token c counts for row i when full or c <=
+// st.vis[i], and with kWin st.lo[i] <= c), the running max and sum, P
+// rounded to bf16, O += P V. sK is the tile's K rows, the V rows follow
+// kTileElems later, both with rows D + 8 bf16 apart.
+template <int D, bool kCap, bool kWin>
+__device__ __forceinline__ void tile_update(const QFrags<D>& qf,
                                             const __nv_bfloat16* sK, int c0,
-                                            bool full, float scale_log2,
+                                            bool full, const ScoreMap& sm,
                                             RowState<D>& st) {
   constexpr int kStride = D + 8;
   constexpr int kKC = D / 16;
@@ -204,28 +288,50 @@ __device__ __forceinline__ void tile_update(const uint32_t (&qf)[D / 16][4],
   for (int n = 0; n < 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+  auto k_frag = [&](int n2, int kc, uint32_t (&b)[4]) {
+    ldsm_x4(b, smem_u32(sK + (n2 * 16 + (lane >> 4) * 8 + (lane & 7)) * kStride +
+                        kc * 16 + ((lane >> 3) & 1) * 8));
+  };
+  if constexpr (QFrags<D>::kRegs) {
+    // 16 tokens at a time over all of D: the order the D 128 kernels
+    // were timed in (slice-major slowed the D 128 prefill on an H100)
 #pragma unroll
-  for (int n2 = 0; n2 < 4; ++n2) {
+    for (int n2 = 0; n2 < 4; ++n2) {
+#pragma unroll
+      for (int kc = 0; kc < kKC; ++kc) {
+        uint32_t b[4];
+        k_frag(n2, kc, b);
+        mma_bf16(s[2 * n2], qf.f[kc], b[0], b[1]);
+        mma_bf16(s[2 * n2 + 1], qf.f[kc], b[2], b[3]);
+      }
+    }
+  } else {
+    // one Q slice from shared memory for all 64 tokens
 #pragma unroll
     for (int kc = 0; kc < kKC; ++kc) {
-      uint32_t b[4];
-      ldsm_x4(b, smem_u32(sK + (n2 * 16 + (lane >> 4) * 8 + (lane & 7)) * kStride +
-                          kc * 16 + ((lane >> 3) & 1) * 8));
-      mma_bf16(s[2 * n2], qf[kc], b[0], b[1]);
-      mma_bf16(s[2 * n2 + 1], qf[kc], b[2], b[3]);
+      uint32_t a[4];
+      qf.get(kc, a);
+#pragma unroll
+      for (int n2 = 0; n2 < 4; ++n2) {
+        uint32_t b[4];
+        k_frag(n2, kc, b);
+        mma_bf16(s[2 * n2], a, b[0], b[1]);
+        mma_bf16(s[2 * n2 + 1], a, b[2], b[3]);
+      }
     }
   }
 
-  // scale, mask, row max
+  // score map, mask, row max
   float mx[2] = {minus_inf(), minus_inf()};
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
+      const int i = e >> 1;
       const int c = c0 + n * 8 + 2 * t4 + (e & 1);
-      const float x = s[n][e] * scale_log2;
-      s[n][e] = (full || c <= st.vis[e >> 1]) ? x : minus_inf();
-      mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
+      const float x = base2_logit<kCap>(s[n][e], sm);
+      s[n][e] = (full || (c <= st.vis[i] && (!kWin || c >= st.lo[i]))) ? x : minus_inf();
+      mx[i] = fmaxf(mx[i], s[n][e]);
     }
   }
   float alpha[2];
@@ -275,18 +381,21 @@ __device__ __forceinline__ void tile_update(const uint32_t (&qf)[D / 16][4],
   }
 }
 
-// The block's attention over context positions [c_begin, c_end), c_begin
-// a multiple of kTile. q_row(r) is row r's D query values in global memory
-// (nullptr: no row, staged as zeros); row_vis(r) the last context position
-// row r sees (min(causal top, kv_len - 1)), -1 if none or no row. pt is
-// the row's page table, pool rows [NP, PS, Hk, D]. Every thread of the
-// block must call it (it holds __syncthreads).
-template <int D, int W, class QRow, class RowVis>
+// The block's attention over context positions [c_begin, c_end), in
+// tiles from c_begin: a multiple of kTile without a window; with one
+// (kWin), any position (the first one a row of the block sees). q_row(r)
+// is row r's D query values in global memory (nullptr: no row, staged as
+// zeros); row_span(r) the first and last context positions row r sees
+// (x: the window's low edge, read only with kWin; y: min(causal top,
+// kv_len - 1), -1 if none or no row). pt is the row's page table, pool
+// rows [NP, PS, Hk, D]. Every thread of the block must call it (it holds
+// __syncthreads).
+template <int D, int W, bool kCap, bool kWin, class QRow, class RowSpan>
 __device__ __forceinline__ void attend(
-    unsigned char* smem_raw, QRow q_row, RowVis row_vis,
+    unsigned char* smem_raw, QRow q_row, RowSpan row_span,
     const __nv_bfloat16* __restrict__ k_pool,
     const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ pt,
-    int PS, int Hk, int h, int c_begin, int c_end, float scale_log2,
+    int PS, int Hk, int h, int c_begin, int c_end, const ScoreMap& sm,
     RowState<D>& st) {
   using Sh = Shape<D, W>;
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
@@ -325,12 +434,24 @@ __device__ __forceinline__ void attend(
   for (int i = 0; i < 2; ++i) {
     st.m[i] = kNegInf;
     st.l[i] = 0.f;
-    st.vis[i] = row_vis(r0 + 8 * i);
+    const int2 span = row_span(r0 + 8 * i);
+    st.lo[i] = span.x;
+    // with a window a tile may run past the range's end (c_begin need not
+    // be aligned): its tokens there are not copied, so no row may count
+    // them. Without one, tiles end at a split edge or past every row.
+    st.vis[i] = kWin && span.y >= 0 ? min(span.y, c_end - 1) : span.y;
   }
-  // the warp's highest and lowest causal limits over rows that see context
+  // over the warp's rows that see context: the highest and lowest last
+  // positions and (kWin) the lowest and highest first positions
+  constexpr int kBig = 0x7fffffff;
+  const bool live0 = st.vis[0] >= 0, live1 = st.vis[1] >= 0;
   const int w_hi = warp_max(max(st.vis[0], st.vis[1]));
-  const int w_lo = warp_min(min(st.vis[0] >= 0 ? st.vis[0] : 0x7fffffff,
-                                st.vis[1] >= 0 ? st.vis[1] : 0x7fffffff));
+  const int w_lo = warp_min(min(live0 ? st.vis[0] : kBig, live1 ? st.vis[1] : kBig));
+  int w_first_lo = 0, w_first_hi = 0;
+  if constexpr (kWin) {
+    w_first_lo = warp_min(min(live0 ? st.lo[0] : kBig, live1 ? st.lo[1] : kBig));
+    w_first_hi = warp_max(max(live0 ? st.lo[0] : -1, live1 ? st.lo[1] : -1));
+  }
 
   const int n_tiles = c_end > c_begin ? (c_end - c_begin + kTile - 1) / kTile : 0;
   // tile u: thread i < 2 * kTile copies token i / 2's K row (i even) or V row
@@ -365,24 +486,24 @@ __device__ __forceinline__ void attend(
     pg_after = fetch_page(u + 2);
   }
 
-  uint32_t qf[Sh::kKC][4];
+  QFrags<D> qf;
   for (int t = 0; t < n_tiles; ++t) {
     if (t > 0) __syncthreads();  // every warp is done with tile t - 1: its stage is free
     if (t + kStages - 1 < n_tiles) issue(t + kStages - 1);
     pg_next = pg_after;
     pg_after = fetch_page(t + kStages + 1);
-    if (t == 0 && w_hi >= 0) {
-#pragma unroll
-      for (int kc = 0; kc < Sh::kKC; ++kc)
-        ldsm_x4(qf[kc], smem_u32(sQ + (warp * 16 + (lane & 15)) * Sh::kStride +
-                                 kc * 16 + (lane >> 4) * 8));
-    }
+    if (t == 0 && w_hi >= 0) qf.init(sQ + warp * 16 * Sh::kStride);
     const int c0 = c_begin + t * kTile;
-    if (w_hi < c0) continue;  // no row of this warp sees this tile
+    // no row of this warp sees this tile: above every last or (window)
+    // below every first. Some warp sees each tile: the rows' spans are
+    // contiguous and cover [c_begin, c_end), so every copy is waited on
+    // before its stage is refilled
+    if (w_hi < c0 || (kWin && c0 + kTile - 1 < w_first_lo)) continue;
     mbar_wait(bar0 + 8 * (t % kStages), (t / kStages) & 1);
-    const bool full = c0 + kTile - 1 <= w_lo;  // every live row sees the whole tile
-    tile_update<D>(qf, sKV + (2 * (t % kStages)) * Sh::kTileElems, c0, full,
-                   scale_log2, st);
+    // every live row sees the whole tile
+    const bool full = (!kWin || c0 >= w_first_hi) && c0 + kTile - 1 <= w_lo;
+    tile_update<D, kCap, kWin>(qf, sKV + (2 * (t % kStages)) * Sh::kTileElems, c0,
+                               full, sm, st);
   }
   // a warp that skipped tiles has not waited on them: every copy must land
   // before the block's shared memory goes

@@ -1,14 +1,17 @@
 // Ragged paged attention for Hopper (sm_90a).
 //
 // Replaces the Pallas TPU kernel dynamo_tpu/ops/ragged_paged_attention.py
-// `ragged_paged_attention` (body `_ragged_kernel_body`), plain bf16
-// variant: one flat [T, Hk, G, D] query axis holds decode rows (one token
+// `ragged_paged_attention` (body `_ragged_kernel_body`), its bf16 bodies
+// `_ragged_kernel` and `_ragged_kernel_win` with the static softcap and
+// scale, at head dims 64, 128 and 256: one flat [T, Hk, G, D] query axis
+// holds decode rows (one token
 // each), prefill chunks and speculative-verify rows (K+1 tokens), each
 // segment attending causally over its own paged context in the token-major
 // pool [NP, PS, Hk, D]. The host cuts the axis into work units
 // (meta [5, NW]: seg, q block, first row, row count, position of the first
 // row; ops/ragged_paged_attention.py); rows of the dummy tail segment
-// (kv_len 0) come out 0.
+// (kv_len 0) come out 0. With a window w > 0 each flat token at position
+// p sees only positions c > p - w.
 //
 // What bounds it on an H100: at the main path's shapes (T 264, Hk 8, G 3,
 // D 128, PS 16: eight decode rows over up to 4096 tokens and four chunks
@@ -42,11 +45,17 @@
 //     merges each such unit's splits by log-sum-exp in split order and
 //     writes bf16. A split in which a row sees no key has m = -1e30, l = 0
 //     and weighs exactly 0.
+// Sliding window: block (w, h, z) starts at max(z * split, the unit's
+// first token's position - w + 1), the index map's low clamp. A split
+// wholly below the window stages nothing and writes the empty partial
+// (m = -1e30, l = 0, O = 0), which the merge weighs 0.
 // Idle rows: a decode unit fills G of a block's 64 rows (one warp's mma
 // with 3 live rows). Handing the idle warps a share of each tile's tokens
 // was not taken: clock stamps on an H100 put a tile's products and
 // softmax in one warp at about a third of the time a tile takes to
 // arrive, so the loads, not the products, set a block's pace.
+
+#include <type_traits>
 
 #include "paged_flash.cuh"
 
@@ -74,7 +83,7 @@ __device__ __forceinline__ Unit read_unit(const int* __restrict__ meta,
   return u;
 }
 
-template <int D>
+template <int D, bool kCap, bool kWin>
 __global__ void __launch_bounds__(kThreads)
 ragged_kernel(const __nv_bfloat16* __restrict__ q,
               const __nv_bfloat16* __restrict__ k_pool,
@@ -85,18 +94,29 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
               __nv_bfloat16* __restrict__ out,
               float* __restrict__ part,
               int NW, int Hk, int G, int PS, int MP, int QB, int split,
-              float scale_log2) {
+              int window, ScoreMap sm) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int w = blockIdx.x;
   const int h = blockIdx.y;
   const int z = blockIdx.z;
   const Unit u = read_unit(meta, seg_kv_lens, NW, w, PS, MP, QB);
   if (u.n_tok <= 0) return;  // padding unit (uniform over the block)
-  const int c_begin = z * split;
   // split 0 always runs: it writes the rows of a unit with no context
-  if (z > 0 && c_begin > u.last_pos) return;
-  const int c_end = min(c_begin + split, u.last_pos + 1);
+  if (z > 0 && z * split > u.last_pos) return;
+  // the first position a query at p sees (0 without a window)
+  auto first_seen = [&](int p) { return kWin ? max(p - window + 1, 0) : 0; };
+  const int c_begin = max(z * split, first_seen(u.qpos0));
+  const int c_end = min(z * split + split, u.last_pos + 1);
   const int rows = u.n_tok * G;
+  float* base = part + (((size_t)z * NW + w) * Hk + h) * (size_t)(QB * G) * (D + 4);
+  if (kWin && c_begin >= c_end && u.last_pos >= split) {
+    // a split wholly below the window: the empty partial, nothing staged
+    for (int i = threadIdx.x; i < rows * (D + 4); i += kThreads) {
+      const int d = i % (D + 4);
+      base[(size_t)(i / (D + 4)) * (D + 4) + d] = d == D ? kNegInf : 0.f;
+    }
+    return;
+  }
 
   auto q_offset = [&](int r) {  // row r = token (r / G) x group (r % G)
     return (((size_t)(u.t0 + r / G) * Hk + h) * G + r % G) * D;
@@ -105,10 +125,14 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
   auto q_row = [&](int r) -> const __nv_bfloat16* {
     return r < rows ? q + q_offset(r) : nullptr;
   };
-  auto row_vis = [&](int r) { return r < rows ? min(u.qpos0 + r / G, u.last_pos) : -1; };
-  attend<D, kWarps>(smem, q_row, row_vis, k_pool, v_pool,
-                    seg_page_table + (size_t)u.seg * MP, PS, Hk, h, c_begin,
-                    c_end, scale_log2, st);
+  auto row_span = [&](int r) {
+    if (r >= rows) return make_int2(0, -1);
+    const int p = u.qpos0 + r / G;
+    return make_int2(first_seen(p), min(p, u.last_pos));
+  };
+  attend<D, kWarps, kCap, kWin>(smem, q_row, row_span, k_pool, v_pool,
+                          seg_page_table + (size_t)u.seg * MP, PS, Hk, h, c_begin,
+                          c_end, sm, st);
 
   if (u.last_pos < split) {  // one split: the rows go straight to out
     store_rows<D>([&](int r) -> __nv_bfloat16* {
@@ -119,7 +143,6 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
   // partials of split z: per row D values of O, then m, l
   const int lane = threadIdx.x & 31;
   const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
-  float* base = part + (((size_t)z * NW + w) * Hk + h) * (size_t)(QB * G) * (D + 4);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i;
@@ -155,22 +178,42 @@ ragged_merge_kernel(const float* __restrict__ part,
   });
 }
 
-template <int D>
+template <int D, bool kCap, bool kWin>
 int launch(int NW, int Hk, int NS, cudaStream_t st, const __nv_bfloat16* q,
            const __nv_bfloat16* k, const __nv_bfloat16* v, const int* pt,
            const int* kl, const int* mt, __nv_bfloat16* out, float* part,
-           int G, int PS, int MP, int QB, int split, float scale_log2) {
+           int G, int PS, int MP, int QB, int split, int window,
+           const ScoreMap& sm) {
   constexpr int smem = Shape<D, kWarps>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ragged_kernel<D, kCap, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ragged_kernel<D><<<dim3(NW, Hk, NS), kThreads, smem, st>>>(
-      q, k, v, pt, kl, mt, out, part, NW, Hk, G, PS, MP, QB, split, scale_log2);
+  ragged_kernel<D, kCap, kWin><<<dim3(NW, Hk, NS), kThreads, smem, st>>>(
+      q, k, v, pt, kl, mt, out, part, NW, Hk, G, PS, MP, QB, split, window, sm);
   err = cudaGetLastError();
   if (err != cudaSuccess || NS < 2) return static_cast<int>(err);
   ragged_merge_kernel<D><<<dim3(NW, Hk), kThreads, 0, st>>>(
       part, kl, mt, out, NW, Hk, G, PS, MP, QB, split);
   return static_cast<int>(cudaGetLastError());
+}
+
+// the body for (D, soft cap or not, window or not): the plain path
+// carries no cap or window code
+template <int D>
+int launch_d(bool cap, int NW, int Hk, int NS, cudaStream_t st,
+             const __nv_bfloat16* q, const __nv_bfloat16* k,
+             const __nv_bfloat16* v, const int* pt, const int* kl, const int* mt,
+             __nv_bfloat16* out, float* part, int G, int PS, int MP, int QB,
+             int split, int window, const ScoreMap& sm) {
+  auto go = [&](auto cap_t, auto win_t) {
+    return launch<D, decltype(cap_t)::value, decltype(win_t)::value>(
+        NW, Hk, NS, st, q, k, v, pt, kl, mt, out, part, G, PS, MP, QB, split,
+        window, sm);
+  };
+  using T = std::true_type;
+  using F = std::false_type;
+  if (window > 0) return cap ? go(T{}, T{}) : go(F{}, T{});
+  return cap ? go(T{}, F{}) : go(F{}, F{});
 }
 
 }  // namespace
@@ -181,7 +224,8 @@ extern "C" int ragged_paged_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* seg_page_table, const void* seg_kv_lens, const void* meta,
     void* out, void* part, int NW, int Hk, int G, int D, int PS, int MP,
-    int q_block, int split, float scale, void* stream) {
+    int q_block, int split, int window, float scale, float softcap,
+    void* stream) {
   if (NW == 0) return 0;
   if (q_block < 1 || q_block * G > 16 * kWarps || split < paged_flash::kTile ||
       split % paged_flash::kTile) {
@@ -197,14 +241,19 @@ extern "C" int ragged_paged_attention(
   const auto* mt = static_cast<const int*>(meta);
   auto* oo = static_cast<__nv_bfloat16*>(out);
   auto* pp = static_cast<float*>(part);
-  const float scale_log2 = scale * paged_flash::kLog2e;
+  const paged_flash::ScoreMap sm = paged_flash::score_map(scale, softcap);
+  const bool cap = softcap > 0.f;
   if (D == 128) {
-    return launch<128>(NW, Hk, NS, st, qq, kk, vv, pt, kl, mt, oo, pp, G, PS,
-                       MP, q_block, split, scale_log2);
+    return launch_d<128>(cap, NW, Hk, NS, st, qq, kk, vv, pt, kl, mt, oo, pp, G,
+                         PS, MP, q_block, split, window, sm);
   }
   if (D == 64) {
-    return launch<64>(NW, Hk, NS, st, qq, kk, vv, pt, kl, mt, oo, pp, G, PS,
-                      MP, q_block, split, scale_log2);
+    return launch_d<64>(cap, NW, Hk, NS, st, qq, kk, vv, pt, kl, mt, oo, pp, G,
+                        PS, MP, q_block, split, window, sm);
+  }
+  if (D == 256) {
+    return launch_d<256>(cap, NW, Hk, NS, st, qq, kk, vv, pt, kl, mt, oo, pp, G,
+                         PS, MP, q_block, split, window, sm);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

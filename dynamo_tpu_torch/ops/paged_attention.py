@@ -1,10 +1,16 @@
 """Decode paged attention: one query token per sequence attends over that
 sequence's pages of a token-major KV pool.
 
-Port of dynamo_tpu/ops/paged_attention.py `decode_paged_attention` (plain
-bf16 variant). On CUDA tensors the wrapper launches the hand-written
-Hopper kernel in csrc/paged_attention.cu; on CPU tensors it runs the plain
-PyTorch version below, which is also what the kernel is held against.
+Port of dynamo_tpu/ops/paged_attention.py `decode_paged_attention`: the
+bf16 bodies, plain and Gemma-2's (a sliding window, a score soft cap and a
+scale override), at head dims 64, 128 and 256. On CUDA tensors the wrapper
+launches the hand-written Hopper kernel in csrc/paged_attention.cu; on CPU
+tensors it runs the plain PyTorch version below, which is also what the
+kernel is held against.
+
+Window rule, as in the reference: the query of row b sits at position
+kv_lens[b] - 1, and with a window w > 0 it sees positions
+c >= kv_lens[b] - w only; w = 0 (or None) is global attention.
 
 The kernel splits each row's context into DECODE_SPLIT_TOKENS-long pieces,
 one block each, and merges a long row's pieces by log-sum-exp.
@@ -19,7 +25,11 @@ from typing import Optional, Tuple
 
 import torch
 
-from dynamo_tpu_torch.models.toolkit import NEG_INF, paged_attention_ref
+from dynamo_tpu_torch.models.toolkit import (
+    NEG_INF,
+    paged_attention_ref,
+    softcap_scores,
+)
 from dynamo_tpu_torch.ops import _build
 
 # context tokens one kernel block walks: a multiple of the kernel's 64-token
@@ -75,14 +85,27 @@ def decode_split_count(max_pages: int, page_size: int,
     return -(-max_pages * page_size // split)
 
 
+def window_operand(window: Optional[int]) -> int:
+    """The kernels' window argument: a Python int, 0 for global attention
+    (None, 0 or a negative window, as in the reference)."""
+    if window is None:
+        return 0
+    if not isinstance(window, int):
+        raise TypeError(f"window must be a Python int or None, not "
+                        f"{type(window).__name__} (no host sync per launch)")
+    return max(window, 0)
+
+
 def decode_split_partials_ref(
     q: torch.Tensor, k_pool_l: torch.Tensor, v_pool_l: torch.Tensor,
     page_table: torch.Tensor, kv_lens: torch.Tensor,
-    scale: Optional[float] = None, split: int = DECODE_SPLIT_TOKENS,
+    scale: Optional[float] = None, split: int = DECODE_SPLIT_TOKENS, *,
+    softcap: float = 0.0, window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The decode kernel's partials in plain f32: (m [NS, B, Hk, G],
     l [NS, B, Hk, G], o [NS, B, Hk, G, D]) over the splits of each row's
-    positions [0, kv_lens[b])."""
+    visible positions [kv_lens[b] - window, kv_lens[b]) (from 0 without a
+    window); a split wholly below the window is the empty partial."""
     B, Hk, G, D = q.shape
     if scale is None:
         scale = D ** -0.5
@@ -92,23 +115,44 @@ def decode_split_partials_ref(
     pages = page_table.long()
     k = k_pool_l[pages].reshape(B, C, Hk, D).float()
     v = v_pool_l[pages].reshape(B, C, Hk, -1).float()
-    s = torch.einsum("bkgd,bckd->bkgc", q.float(), k) * scale
-    seen = (torch.arange(C, device=q.device)[None, :]
-            < kv_lens[:, None])[:, None, None, :]
-    return split_partials_ref(s, seen, v.permute(0, 2, 1, 3), split)
+    s = softcap_scores(torch.einsum("bkgd,bckd->bkgc", q.float(), k) * scale,
+                       softcap)
+    c = torch.arange(C, device=q.device)[None, :]
+    seen = c < kv_lens[:, None]
+    w = window_operand(window)
+    if w:
+        seen = seen & (c >= kv_lens[:, None] - w)
+    return split_partials_ref(s, seen[:, None, None, :], v.permute(0, 2, 1, 3),
+                              split)
 
 
 def decode_paged_attention_ref(
     q: torch.Tensor, k_pool_l: torch.Tensor, v_pool_l: torch.Tensor,
     page_table: torch.Tensor, kv_lens: torch.Tensor,
-    scale: Optional[float] = None,
+    scale: Optional[float] = None, *, softcap: float = 0.0,
+    window: Optional[int] = None,
 ) -> torch.Tensor:
     """Plain version: the query of row b sits at position kv_lens[b] - 1
-    and sees positions [0, kv_lens[b]). Rows with kv_len 0 come out 0."""
+    and sees positions [0, kv_lens[b]), the last `window` of them with a
+    window. Rows with kv_len 0 come out 0."""
     q_pos = (kv_lens.long() - 1).clamp(min=0)[:, None]
     return paged_attention_ref(
         q[:, None], k_pool_l, v_pool_l, page_table, q_pos, kv_lens, scale,
+        softcap=softcap, window=window,
     )[:, 0]
+
+
+# head dims each attention kernel is built for (wrappers raise on others)
+KERNEL_HEAD_DIMS = (64, 128, 256)
+
+
+def count_launch(fn, D: int, window: int, softcap: float) -> None:
+    """One launch of a GQA kernel: `fn.launches` and, by body,
+    `fn.bodies` ("D128", "D256_window_softcap", ...). Called by the
+    wrappers right after their kernel launched, and nowhere else."""
+    fn.launches += 1
+    key = f"D{D}" + ("_window" if window else "") + ("_softcap" if softcap else "")
+    fn.bodies[key] = fn.bodies.get(key, 0) + 1
 
 
 def decode_paged_attention(
@@ -117,17 +161,22 @@ def decode_paged_attention(
     v_pool_l: torch.Tensor,
     page_table: torch.Tensor,  # [B, MP] int32
     kv_lens: torch.Tensor,  # [B] int32, context length incl. this token
+    window: Optional[int] = None,  # sliding window in tokens; 0/None: global
     *,
-    scale: Optional[float] = None,
+    scale: Optional[float] = None,  # score scale (default D^-0.5)
+    softcap: float = 0.0,  # score soft cap (0 = off)
 ) -> torch.Tensor:
     """Returns [B, Hk, G, D]. The current token's KV must already be in
-    the pool. Table entries past kv_len are never read."""
+    the pool. Table entries past kv_len, and below the window, are never
+    read."""
     B, Hk, G, D = q.shape
     if scale is None:
         scale = D ** -0.5
+    window = window_operand(window)
     if q.device.type == "cpu":
         return decode_paged_attention_ref(
-            q, k_pool_l, v_pool_l, page_table, kv_lens, scale)
+            q, k_pool_l, v_pool_l, page_table, kv_lens, scale,
+            softcap=softcap, window=window)
     NP, PS, Hk2, D2 = k_pool_l.shape
     if (Hk2, D2) != (Hk, D) or v_pool_l.shape != k_pool_l.shape:
         raise ValueError(f"pool {tuple(k_pool_l.shape)} does not match q {tuple(q.shape)}")
@@ -136,7 +185,7 @@ def decode_paged_attention(
         raise TypeError("the decode kernel takes bf16 q and pools")
     if page_table.dtype != torch.int32 or kv_lens.dtype != torch.int32:
         raise TypeError("page_table and kv_lens must be int32")
-    if D not in (64, 128) or G not in (1, 2, 3, 4, 8):
+    if D not in KERNEL_HEAD_DIMS or G not in (1, 2, 3, 4, 8):
         raise ValueError(f"no decode kernel for D={D}, G={G}")
     tensors = (q, k_pool_l, v_pool_l, page_table, kv_lens)
     if any(t.device != q.device for t in tensors):
@@ -153,12 +202,13 @@ def decode_paged_attention(
     rc = lib.decode_paged_attention(
         q.data_ptr(), k_pool_l.data_ptr(), v_pool_l.data_ptr(),
         page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        part.data_ptr(), B, Hk, G, D, PS, MP, DECODE_SPLIT_TOKENS,
-        float(scale), stream,
+        part.data_ptr(), B, Hk, G, D, PS, MP, DECODE_SPLIT_TOKENS, window,
+        float(scale), float(softcap), stream,
     )
     _build.check(lib, rc, "decode_paged_attention")
-    decode_paged_attention.launches += 1
+    count_launch(decode_paged_attention, D, window, softcap)
     return out
 
 
 decode_paged_attention.launches = 0
+decode_paged_attention.bodies = {}

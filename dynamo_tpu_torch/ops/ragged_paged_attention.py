@@ -1,7 +1,10 @@
 """Ragged paged attention: one flat token axis of decode rows, prefill
 chunks and speculative-verify rows, each segment over its own pages.
 
-Port of dynamo_tpu/ops/ragged_paged_attention.py (plain bf16 variant).
+Port of dynamo_tpu/ops/ragged_paged_attention.py: the bf16 bodies, plain
+and Gemma-2's (sliding window, score soft cap, scale override; each flat
+token at position p sees c > p - w under a window w > 0), at head dims
+64, 128 and 256.
 The host metadata helpers (`ragged_seg_cap`, `ragged_work_cap`,
 `build_ragged_metadata`) are copies of the reference's numpy code: the
 flat [T] axis is cut into q_block-token blocks, and every (block, segment)
@@ -35,12 +38,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dynamo_tpu_torch.models.toolkit import paged_attention_ref
+from dynamo_tpu_torch.models.toolkit import paged_attention_ref, softcap_scores
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops.paged_attention import (  # noqa: F401 (re-export)
+    KERNEL_HEAD_DIMS,
+    count_launch,
     decode_split_count,
     merge_split_partials_ref,
     split_partials_ref,
+    window_operand,
 )
 
 # decode batch (<=64) + packed chunks (<=32) in one mixed iteration
@@ -176,8 +182,9 @@ def ragged_token_index(meta: torch.Tensor, T: int,
 def ragged_paged_attention_ref(
     q: torch.Tensor, k_pool_l: torch.Tensor, v_pool_l: torch.Tensor,
     seg_page_table: torch.Tensor, seg_kv_lens: torch.Tensor,
-    meta: torch.Tensor, *, q_block: int = DEFAULT_Q_BLOCK,
-    scale: Optional[float] = None,
+    meta: torch.Tensor, window: Optional[int] = None, *,
+    q_block: int = DEFAULT_Q_BLOCK, scale: Optional[float] = None,
+    softcap: float = 0.0,
 ) -> torch.Tensor:
     """Plain version: each flat token is one S=1 row of
     paged_attention_ref over its segment's page table and kv_len. Rows of
@@ -186,6 +193,7 @@ def ragged_paged_attention_ref(
     return paged_attention_ref(
         q[:, None], k_pool_l, v_pool_l, seg_page_table[tok_seg],
         tok_pos[:, None], seg_kv_lens[tok_seg], scale,
+        softcap=softcap, window=window,
     )[:, 0]
 
 
@@ -207,15 +215,18 @@ def split_scratch_shape(n_work: int, Hk: int, G: int, D: int, max_pages: int,
 def ragged_split_partials_ref(
     q: torch.Tensor, k_pool_l: torch.Tensor, v_pool_l: torch.Tensor,
     seg_page_table: torch.Tensor, seg_kv_lens: torch.Tensor,
-    meta: torch.Tensor, *, q_block: int = DEFAULT_Q_BLOCK,
-    scale: Optional[float] = None,
+    meta: torch.Tensor, window: Optional[int] = None, *,
+    q_block: int = DEFAULT_Q_BLOCK, scale: Optional[float] = None,
+    softcap: float = 0.0,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain version of the kernel's first pass, in f32: for each flat
     token and each context split z (positions [z * SPLIT_TOKENS,
-    (z + 1) * SPLIT_TOKENS)), the max m of the row's visible scaled scores there, l = sum
-    exp(s - m) and the unnormalised o = sum exp(s - m) v. A split in which
-    the row sees no key gives m = NEG_INF (-1e30), l = 0, o = 0. Returns
-    (m [NS, T, Hk, G], l [NS, T, Hk, G], o [NS, T, Hk, G, D])."""
+    (z + 1) * SPLIT_TOKENS)), the max m of the row's visible scaled (and
+    soft-capped) scores there, l = sum exp(s - m) and the unnormalised
+    o = sum exp(s - m) v. A split in which the row sees no key (past its
+    position, or wholly below its window) gives m = NEG_INF (-1e30),
+    l = 0, o = 0. Returns (m [NS, T, Hk, G], l [NS, T, Hk, G],
+    o [NS, T, Hk, G, D])."""
     T, Hk, G, D = q.shape
     if scale is None:
         scale = D ** -0.5
@@ -226,10 +237,14 @@ def ragged_split_partials_ref(
     pages = seg_page_table[tok_seg].long()
     k = k_pool_l[pages].reshape(T, C, Hk, D).float()
     v = v_pool_l[pages].reshape(T, C, Hk, -1).float()
-    s = torch.einsum("tkgd,tckd->tkgc", q.float(), k) * scale
+    s = softcap_scores(torch.einsum("tkgd,tckd->tkgc", q.float(), k) * scale,
+                       softcap)
     c = torch.arange(C, device=q.device)
     seen = ((c[None, :] < seg_kv_lens[tok_seg][:, None])
             & (c[None, :] <= tok_pos[:, None]))
+    w = window_operand(window)
+    if w:
+        seen = seen & (c[None, :] > tok_pos[:, None] - w)
     return split_partials_ref(s, seen[:, None, None, :], v.permute(0, 2, 1, 3),
                               SPLIT_TOKENS)
 
@@ -241,9 +256,11 @@ def ragged_paged_attention(
     seg_page_table: torch.Tensor,  # [SEG, MP] int32
     seg_kv_lens: torch.Tensor,  # [SEG] int32
     meta: torch.Tensor,  # [5, NW] int32 work units (build_ragged_metadata)
+    window: Optional[int] = None,  # sliding window in tokens; 0/None: global
     *,
     q_block: int = DEFAULT_Q_BLOCK,
-    scale: Optional[float] = None,
+    scale: Optional[float] = None,  # score scale (default D^-0.5)
+    softcap: float = 0.0,  # score soft cap (0 = off)
 ) -> torch.Tensor:
     """Returns [T, Hk, G, D]; rows covered by no real segment return 0.
     Every segment's K/V (its own tokens included) must already be in the
@@ -251,10 +268,11 @@ def ragged_paged_attention(
     T, Hk, G, D = q.shape
     if scale is None:
         scale = D ** -0.5
+    window = window_operand(window)
     if q.device.type == "cpu":
         return ragged_paged_attention_ref(
-            q, k_pool_l, v_pool_l, seg_page_table, seg_kv_lens, meta,
-            q_block=q_block, scale=scale)
+            q, k_pool_l, v_pool_l, seg_page_table, seg_kv_lens, meta, window,
+            q_block=q_block, scale=scale, softcap=softcap)
     NP, PS, Hk2, D2 = k_pool_l.shape
     if (Hk2, D2) != (Hk, D) or v_pool_l.shape != k_pool_l.shape:
         raise ValueError(f"pool {tuple(k_pool_l.shape)} does not match q {tuple(q.shape)}")
@@ -268,7 +286,7 @@ def ragged_paged_attention(
             or seg_kv_lens.shape != seg_page_table.shape[:1]:
         raise ValueError("meta must be [5, NW], seg_page_table [SEG, MP] "
                          "and seg_kv_lens [SEG]")
-    if T % q_block or D not in (64, 128) or q_block * G > ROWS_PER_BLOCK:
+    if T % q_block or D not in KERNEL_HEAD_DIMS or q_block * G > ROWS_PER_BLOCK:
         raise ValueError(f"no ragged kernel for T={T}, D={D}, G={G}, "
                          f"q_block={q_block}")
     tensors = (q, k_pool_l, v_pool_l) + ints
@@ -287,11 +305,12 @@ def ragged_paged_attention(
         q.data_ptr(), k_pool_l.data_ptr(), v_pool_l.data_ptr(),
         seg_page_table.data_ptr(), seg_kv_lens.data_ptr(), meta.data_ptr(),
         out.data_ptr(), part.data_ptr(), NW, Hk, G, D, PS, MP, q_block,
-        SPLIT_TOKENS, float(scale), stream,
+        SPLIT_TOKENS, window, float(scale), float(softcap), stream,
     )
     _build.check(lib, rc, "ragged_paged_attention")
-    ragged_paged_attention.launches += 1
+    count_launch(ragged_paged_attention, D, window, softcap)
     return out
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.bodies = {}

@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's engine spends its time on the card.
 
-    python3 scripts/torch_profile.py [--model llama-3.2-3b|deepseek-v3] [--trace PATH]
+    python3 scripts/torch_profile.py [--model llama-3.2-3b|deepseek-v3|gemma-2-9b] [--trace PATH]
 
 Builds the engine exactly as chip_smoke.py's engine phase does
-(llama-3.2-3b, the default; or, with --model deepseek-v3, the runner of
+(llama-3.2-3b, the default; with --model deepseek-v3, the runner of
 chip_smoke.mla_phases: DeepSeek-V3's three dense layers at full width, 2048
-pages of 16) and serves its 8-request workload three times, each with fresh
+pages of 16; with --model gemma-2-9b, chip_smoke.gemma_phases' runner and
+its two extra prompts past the window) and serves its workload three
+times, each with fresh
 prompts (another seed, so no run hits the previous run's prefix cache):
 once cold, once warm with tracing off, once warm under torch.profiler
 (CPU and CUDA activities). Prints one JSON line: wall time of the two
@@ -38,7 +40,7 @@ import chip_smoke  # noqa: E402
 from dynamo_tpu_torch.engine.model_runner import ModelRunner  # noqa: E402
 from dynamo_tpu_torch.worker import build_engine, parse_args  # noqa: E402
 
-MODELS = ("llama-3.2-3b", "deepseek-v3")
+MODELS = ("llama-3.2-3b", "deepseek-v3", "gemma-2-9b")
 
 
 def family(name: str) -> str:
@@ -76,10 +78,10 @@ def busy_us(intervals) -> float:
     return total
 
 
-def timed_serve(engine, seed: int) -> float:
+def timed_serve(engine, seed: int, extra=()) -> float:
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    chip_smoke.serve(engine, seed)
+    chip_smoke.serve(engine, seed, extra=extra)
     torch.cuda.synchronize()
     return time.monotonic() - t0
 
@@ -92,17 +94,19 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device available", file=sys.stderr)
         return 1
-    runner = None
+    runner, engine_args, extra = None, chip_smoke.ENGINE_ARGS, ()
     if args.model == "deepseek-v3":
         runner = ModelRunner(chip_smoke.MLA_CONFIG, num_pages=2048,
                              page_size=chip_smoke.PAGE_SIZE,
                              max_pages_per_seq=4096 // chip_smoke.PAGE_SIZE)
-    engine = build_engine(parse_args(chip_smoke.ENGINE_ARGS), runner=runner)
+    elif args.model == "gemma-2-9b":
+        engine_args, extra = chip_smoke.GEMMA_ARGS, chip_smoke.GEMMA_LONG_PROMPTS
+    engine = build_engine(parse_args(engine_args), runner=runner)
     try:
-        cold_s = timed_serve(engine, seed=11)
-        warm_s = timed_serve(engine, seed=12)
+        cold_s = timed_serve(engine, seed=11, extra=extra)
+        warm_s = timed_serve(engine, seed=12, extra=extra)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            traced_s = timed_serve(engine, seed=13)
+            traced_s = timed_serve(engine, seed=13, extra=extra)
     finally:
         engine.stop()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]

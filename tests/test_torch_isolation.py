@@ -12,7 +12,14 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+import torch
+
 import dynamo_tpu_torch
+from dynamo_tpu_torch.ops import _build
+from dynamo_tpu_torch.ops import flash_prefill as fp
+from dynamo_tpu_torch.ops import paged_attention as pa
+from dynamo_tpu_torch.ops import ragged_paged_attention as rag
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "dynamo_tpu_torch"
@@ -35,7 +42,9 @@ def test_every_module_imports_without_jax_or_dynamo_tpu():
     for m in ("engine.engine", "engine.ngram_draft",
               "ops.ragged_paged_attention", "ops.block_copy",
               "kvbm.host_pool", "worker_common", "router.prefill_router",
-              "ops.mla_attention", "models.mla"):
+              "ops.mla_attention", "models.mla", "ops.paged_attention",
+              "ops.flash_prefill", "models.llama", "models.toolkit",
+              "engine.weights", "worker"):
         assert f"dynamo_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -72,3 +81,49 @@ def test_forbidden_prefix_rule():
     assert _forbidden("dynamo_tpu") and _forbidden("dynamo_tpu.engine")
     assert _forbidden("jax.numpy") and _forbidden("ml_dtypes")
     assert not _forbidden("dynamo_tpu_torch") and not _forbidden("dynamo_tpu_torch.ops")
+
+
+def _gqa_call(op, D, device):
+    """One Gemma-2-shaped call (window 7, soft cap 50, G 2) of `op` on
+    zeros of head dim D on `device`."""
+    bf = dict(dtype=torch.bfloat16, device=device)
+    i32 = dict(dtype=torch.int32, device=device)
+    kp = torch.zeros(9, 4, 2, D, **bf)
+    kw = dict(scale=0.0625, softcap=50.0)
+    if op == "decode":
+        return pa.decode_paged_attention(
+            torch.zeros(2, 2, 2, D, **bf), kp, kp.clone(),
+            torch.zeros(2, 4, **i32), torch.full((2,), 9, **i32), 7, **kw)
+    if op == "prefill":
+        ints = [torch.full((1,), n, **i32) for n in (3, 8, 11)]
+        return fp.prefill_paged_attention(
+            torch.zeros(1, 8, 2, 2, D, **bf), kp, kp.clone(),
+            torch.zeros(1, 4, **i32), *ints, 7, **kw)
+    md = rag.build_ragged_metadata([1, 5], [9, 0], [10, 5], [[1, 2, 3], [4, 5]],
+                                   8, max_pages=4)
+    ops = [torch.from_numpy(md[k]).to(device)
+           for k in ("seg_page_table", "seg_kv_lens", "meta")]
+    return rag.ragged_paged_attention(torch.zeros(8, 2, 2, D, **bf), kp,
+                                      kp.clone(), *ops, 7, **kw)
+
+
+@pytest.mark.parametrize("op", ["decode", "prefill", "ragged"])
+def test_window_d256_wrappers_raise_unless_on_the_cpu(op, monkeypatch):
+    """A windowed, soft-capped D 256 call on tensors that are not on the
+    CPU (the meta device, on a machine without the CUDA toolkit) raises:
+    it never computes the plain version instead, and counts no launch.
+    On CPU tensors it runs the plain version. D 96 has no kernel."""
+    fn = {"decode": pa.decode_paged_attention,
+          "prefill": fp.prefill_paged_attention,
+          "ragged": rag.ragged_paged_attention}[op]
+    monkeypatch.setattr(_build.shutil, "which", lambda name: None)
+    monkeypatch.setattr(_build.os.path, "exists", lambda p: False)
+    monkeypatch.setattr(_build, "_libs", {})
+    before = fn.launches
+    with pytest.raises(RuntimeError, match="nvcc not found"):
+        _gqa_call(op, 256, "meta")
+    with pytest.raises(ValueError, match="no .* kernel for"):
+        _gqa_call(op, 96, "meta")
+    out = _gqa_call(op, 256, "cpu")
+    assert out.device.type == "cpu" and torch.isfinite(out.float()).all()
+    assert fn.launches == before
