@@ -46,6 +46,13 @@ Phases, each printing one JSON line:
                D 128 / G 3 against their plain versions in f32, timed
                beside SDPA with a window mask or the bmm-tanh-softmax-bmm
                calls (a D 256 instantiation that spills fails the build);
+               then (`int8_kernels`) the int8 bodies (int8 KV pools,
+               models/quant.py) of the three GQA kernels at the
+               `kernels` shapes and at the Gemma-2 case, and of MLA
+               decode at its shape, each against its plain int8 version
+               in f32, timed beside the bf16 yardstick over the K/V
+               dequantized beforehand, and kv_quantize on the card
+               against the CPU's (codes equal, scales within an ulp);
   4. engine  - build_engine for llama-3.2-3b at full width and depth with
                random weights and serve 8 concurrent requests (chunked
                prefill over prior context, a prefix-cache hit, greedy and
@@ -74,6 +81,14 @@ Phases, each printing one JSON line:
   5. parity  - prefill-plus-decode inputs, then one ragged dispatch of
                decode rows and a chunk over prior context, through the
                kernel path and the plain attention path of the forward;
+     int8    - with the 3B runner freed, the slice's main path:
+               llama-3.1-8b at full width and depth with
+               --kv-quantize int8 (`engine_int8kv` fused and
+               `engine_int8kv_unfused`: every request `length`, each GQA
+               kernel's launches equal to its passes x 32, all on the
+               D128_int8 bodies, the pools' bytes beside a bf16 pool's),
+               and `parity_int8kv` (as `parity`, over int8 pools; the
+               distance to bf16 pools reported);
   6. mla     - (`engine_mla`) DeepSeek-V3's three dense layers at full
                width (get_config("deepseek-v3").with_(n_layers=3,
                n_experts=0), random bf16 weights) serve the same 8 requests
@@ -82,9 +97,12 @@ Phases, each printing one JSON line:
                equal its forward passes x 3 and no GQA kernel may launch.
                Then (`mla_pages`) one request's latent and stub pages go
                through export/import on the device and through the wire
-               with a 3-group layer-streamed import, bit for bit, and
+               with a 3-group layer-streamed import, bit for bit,
                (`parity_mla`) prefill and two decode steps through both
-               attention paths of the forward.
+               attention paths of the forward, and (`engine_mla_int8`)
+               the same params over an int8 latent: every decode launch
+               on the int8 body, no MLA prefill launch (int8 prefill
+               gathers, as the reference's does).
   7. gemma  - with the 3B and MLA runners freed, gemma-2-9b at full width
                and depth (42 layers, head dim 256, a 4096-token window on
                the even layers): `engine_gemma2` (fused, the default) and
@@ -94,12 +112,15 @@ Phases, each printing one JSON line:
                the window bodies; `parity_gemma2` prefills a 4700- and a
                4500-token sequence in 512-token chunks through both
                attention paths, then two decode steps and a ragged step
-               past the window.
+               past the window; `engine_gemma2_int8`, the same params
+               over int8 pools, half the launches on the
+               D256_int8_window_softcap bodies.
 Then the `kernels` summary line (launches from the fused phase for the
 GQA attention kernels, from engine_disagg for gather and scatter, from
-engine_tiers for the layer scatter, from engine_mla for the MLA kernels;
-for the GQA kernels also `variants`, the bodies each engine phase
-launched), the
+engine_tiers for the layer scatter, from engine_mla for the MLA kernels,
+from engine_int8kv and engine_mla_int8 for the `*_int8` entries, the
+int8 bodies; for the GQA kernels also `variants`, the bodies each engine
+phase launched), the
 card's name and power limit, and, last, the contract line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
 It needs a CUDA device and the repository around it; it builds into
@@ -123,7 +144,12 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.engine.model_runner import ModelRunner
 from dynamo_tpu_torch.models.config import get_config
-from dynamo_tpu_torch.models.toolkit import attn_score_scale
+from dynamo_tpu_torch.models.quant import (
+    kv_pool_dequantize,
+    kv_pool_quantize,
+    kv_quantize,
+)
+from dynamo_tpu_torch.models.toolkit import attn_score_scale, pool_values
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops import block_copy as bc
 from dynamo_tpu_torch.ops.flash_prefill import (
@@ -605,7 +631,8 @@ def shapes_phase(dev):
     """The three kernels against their plain versions at the other shapes
     the wrappers accept (head dims 64/128, GQA groups, page sizes 4 to 32,
     the main path's G 3 among them, q-blocks that overrun S), small and
-    untimed."""
+    untimed; their int8 bodies on the same rows, quantized, against the
+    plain int8 versions in f32."""
     gen = torch.Generator(device="cpu").manual_seed(3)
     errs = {}
     for D, G, PS in ((128, 4, 16), (128, 1, 8), (128, 8, 32), (64, 4, 16),
@@ -618,6 +645,7 @@ def shapes_phase(dev):
 
         k_pool, v_pool = rnd(NP, PS, Hk, D), rnd(NP, PS, Hk, D)
         pt = random_pages(gen, 3, MP, NP, dev)
+        k8, v8 = kv_pool_quantize(k_pool), kv_pool_quantize(v_pool)
         q = rnd(3, Hk, G, D)
         kvl = torch.tensor([0, 37, 200], dtype=torch.int32, device=dev)
         out = decode_paged_attention(q, k_pool, v_pool, pt, kvl)
@@ -625,6 +653,11 @@ def shapes_phase(dev):
         e_dec = (out.float() - ref.float()).abs().max().item()
         check(out[0].float().abs().max().item() == 0.0,
               f"decode kv_len=0 row not 0 at D={D} G={G} PS={PS}")
+        out = decode_paged_attention(q, k8, v8, pt, kvl)
+        e8_dec = (out.float() - decode_paged_attention_ref(q.float(), k8, v8, pt, kvl)
+                  ).abs().max().item()
+        check(out[0].float().abs().max().item() == 0.0,
+              f"int8 decode kv_len=0 row not 0 at D={D} G={G} PS={PS}")
         S = 48
         q = rnd(2, S, Hk, G, D)
         qs, ql = [0, 30], [40, 17]
@@ -638,15 +671,24 @@ def shapes_phase(dev):
         name = f"D{D}_G{G}_PS{PS}"
         check(all(out[b, n:].float().abs().max().item() == 0.0
                   for b, n in enumerate(ql)), f"prefill padding rows not 0 at {name}")
+        out = prefill_paged_attention(q, k8, v8, *args[3:])
+        e8_pre = (out.float() - prefill_paged_attention_ref(q.float(), k8, v8, *args[3:])
+                  ).abs().max().item()
+        check(all(out[b, n:].float().abs().max().item() == 0.0
+                  for b, n in enumerate(ql)), f"int8 prefill padding rows not 0 at {name}")
         # ragged: decode rows, chunks over prior context, a row and a
         # chunk past the first context split, a 9-row tail
         segs = [(1, 36), (1, 0), (21, 13), (9, 0), (5, 100), (1, 700),
                 (9, SPLIT_TOKENS - 2)]
         args, _ = ragged_inputs(gen, segs, 56, Hk, G, D, PS, MP, dev)
         e_rag = ragged_check(args, segs, name)
-        errs[name] = {"decode": e_dec, "prefill": e_pre, "ragged": e_rag}
-        check(max(e_dec, e_pre) <= KERNEL_TOL,
-              f"kernel parity at {name}: decode {e_dec}, prefill {e_pre}")
+        args8 = (args[0], kv_pool_quantize(args[1]), kv_pool_quantize(args[2])) + args[3:]
+        e8_rag = ragged_check(args8, segs, f"{name} int8")
+        errs[name] = {"decode": e_dec, "prefill": e_pre, "ragged": e_rag,
+                      "int8": {"decode": e8_dec, "prefill": e8_pre, "ragged": e8_rag}}
+        check(max(e_dec, e_pre, e8_dec, e8_pre) <= KERNEL_TOL,
+              f"kernel parity at {name}: decode {e_dec}, prefill {e_pre}, "
+              f"int8 decode {e8_dec}, int8 prefill {e8_pre}")
     # decode at every (D, G) its wrapper takes, rows over 1 to 4 splits
     for D in (64, 128):
         for G in (1, 2, 3, 4, 8):
@@ -672,8 +714,9 @@ def shapes_phase(dev):
 def decode_split_edges_phase(dev):
     """Both decode kernels with rows at the edges of their context splits
     (kv_len 0, 1, split - 1, split, split + 1, 2 split and 4096), GQA at
-    the main path's heads and MLA at H 16, 32 and 128, untimed: max abs err
-    within KERNEL_TOL, the kv_len-0 row exactly 0."""
+    the main path's heads and MLA at H 16, 32 and 128, bf16 and int8
+    (the pools quantized; against the plain int8 version in f32),
+    untimed: max abs err within KERNEL_TOL, the kv_len-0 row exactly 0."""
     gen = torch.Generator(device="cpu").manual_seed(7)
 
     def rnd(*shape):
@@ -702,19 +745,28 @@ def decode_split_edges_phase(dev):
     rec = {"gqa": {"split": DECODE_SPLIT_TOKENS, "kv_lens": kv_gqa,
                    "max_abs_err": gate(out, decode_paged_attention_ref(
                        q, kp, vp, pt, kvl), "decode split edges")}}
-    del kp, vp
+    k8, v8 = kv_pool_quantize(kp), kv_pool_quantize(vp)
+    out = decode_paged_attention(q, k8, v8, pt, kvl)
+    torch.cuda.synchronize()
+    rec["gqa"]["max_abs_err_int8"] = gate(
+        out, decode_paged_attention_ref(q.float(), k8, v8, pt, kvl),
+        "int8 decode split edges")
+    del kp, vp, k8, v8
     kv_mla = edges(MLA_SPLIT_TOKENS)
     kvl = torch.tensor(kv_mla, dtype=torch.int32, device=dev)
     lat = rnd(B * MP + 1, PS, 1, MLA_DC + MLA_DR)
+    lat8 = kv_pool_quantize(lat)
     scale = attn_score_scale(MLA_CONFIG, MLA_CONFIG.qk_nope_head_dim + MLA_DR)
     rec["mla"] = {"split": MLA_SPLIT_TOKENS, "kv_lens": kv_mla, "max_abs_err": {}}
     for H in (16, 32, 128):
         q = rnd(B, H, MLA_DC + MLA_DR)
-        out = decode_mla_attention(q, lat, pt, kvl, dc=MLA_DC, scale=scale)
-        torch.cuda.synchronize()
-        ref = decode_mla_attention_ref(q, lat, pt, kvl, dc=MLA_DC, scale=scale)
-        rec["mla"]["max_abs_err"][f"H{H}"] = gate(out, ref, f"MLA decode split edges H {H}")
-    del lat
+        for kind, pool, qr in (("", lat, q), ("_int8", lat8, q.float())):
+            out = decode_mla_attention(q, pool, pt, kvl, dc=MLA_DC, scale=scale)
+            torch.cuda.synchronize()
+            ref = decode_mla_attention_ref(qr, pool, pt, kvl, dc=MLA_DC, scale=scale)
+            rec["mla"]["max_abs_err"][f"H{H}{kind}"] = gate(
+                out, ref, f"MLA{kind} decode split edges H {H}")
+    del lat, lat8
     torch.cuda.empty_cache()
     emit({"phase": "decode_split_edges", "tol": KERNEL_TOL, **rec})
 
@@ -1160,14 +1212,16 @@ def serve(engine, seed: int, spec: bool = False, extra=()):
         _serve(engine, reqs, len(reqs) - 1, late), 900))
 
 
-def check_launches(phase: str, launches, stats, L: int, mla: bool = False) -> None:
+def check_launches(phase: str, launches, stats, L: int, mla: bool = False,
+                   int8: bool = False) -> None:
     """Each kernel launched once per layer of each forward pass of its
     kind, and nowhere else (an MLA model launches no GQA kernel and the
-    other way round)."""
+    other way round; an int8 latent's prefill gathers, as the reference's
+    does, and launches no MLA prefill kernel)."""
     prefill = stats["prefill_chunks"] + stats["padded_prefill_dispatches"]
     ragged = stats["ragged_mixed_dispatches"] + stats["ragged_verify_dispatches"]
     if mla:
-        want = {"prefill_mla_attention": prefill,
+        want = {"prefill_mla_attention": 0 if int8 else prefill,
                 "decode_mla_attention": stats["decode_steps"]}
         want.update({name: 0 for name in GQA_KERNELS})
         check(ragged == 0, f"{phase}: an MLA model ran ragged passes: {stats}")
@@ -1186,7 +1240,7 @@ def check_launches(phase: str, launches, stats, L: int, mla: bool = False) -> No
 def reset_launches():
     for fn in KERNELS.values():
         fn.launches = 0
-    for name in GQA_KERNELS:
+    for name in GQA_KERNELS + ("decode_mla_attention",):
         KERNELS[name].bodies = {}
 
 
@@ -1220,7 +1274,8 @@ def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
     torch.cuda.synchronize()  # a fault during the run surfaces here
     wall = time.monotonic() - t0
     launches = {name: fn.launches for name, fn in KERNELS.items()}
-    bodies = {name: dict(KERNELS[name].bodies) for name in GQA_KERNELS}
+    bodies = {name: dict(KERNELS[name].bodies)
+              for name in GQA_KERNELS + ("decode_mla_attention",)}
     stats = dict(runner.stats)
     for i, (toks, finish, _) in enumerate(results):
         check(finish in ("length", "stop"), f"{phase}: r{i} finished {finish!r}")
@@ -1230,7 +1285,8 @@ def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
               f"{phase}: r{i} emitted a token out of range")
     check(stats["prefill_chunks"] > 0 and stats["decode_steps"] > 0,
           f"{phase}: engine ran no prefill or no decode: {stats}")
-    check_launches(phase, launches, stats, L, mla=runner.config.is_mla)
+    check_launches(phase, launches, stats, L, mla=runner.config.is_mla,
+                   int8=runner.kv_quantize is not None)
     reused = engine.scheduler.reused_prefix_tokens
     check(reused >= 256, f"{phase}: late request reused only {reused} prefix tokens")
     ttft = sorted(r[2].get("ttft_s", float("nan")) for r in results)
@@ -1251,6 +1307,7 @@ def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
         "decode_tok_s_per_request_median": decode_rates[len(decode_rates) // 2],
         "output_tok_s_overall": n_tokens / wall, "wall_s": wall,
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "kv_quantize": runner.kv_quantize,
     }
     if build_s is not None:
         rec["build_s"] = build_s
@@ -1600,8 +1657,11 @@ def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True,
     then (`ragged`) one ragged dispatch: both decode rows and a 77-token
     chunk of the third over its prior tokens (T 88, a 9-row tail).
     Through forward(attn_impl="kernel") and forward(attn_impl="ref") on
-    their own pools; decode inputs are the kernel path's greedy tokens,
-    fed to both. Only rows with tokens in a step are compared."""
+    their own pools (the runner's kind: int8 with kv_quantize); decode
+    inputs are the kernel path's greedy tokens, fed to both. Only rows
+    with tokens in a step are compared. With int8 pools the kernel path
+    also runs on bf16 pools, and the int8 logits' distance to those is
+    reported as information."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.toolkit import make_kv_pool
 
@@ -1614,19 +1674,29 @@ def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True,
             for _ in range(n_chunks)]
     pages = torch.randperm(NP, generator=gen)[: 3 * MP].view(3, MP).to(torch.int32)
     pages = pages.to(dev)
-    pools = {impl: make_kv_pool(cfg, NP + 1, PS, runner.dtype, dev)
+    # path name -> (attn_impl, pools)
+    paths = {impl: (impl, make_kv_pool(cfg, NP + 1, PS, runner.dtype, dev,
+                                       kv_quantize=runner.kv_quantize))
              for impl in ("kernel", "ref")}
+    if runner.kv_quantize:
+        paths["kernel_bf16"] = ("kernel", make_kv_pool(cfg, NP + 1, PS, runner.dtype, dev))
     rel, agree, worst_abs = [], [], 0.0
+    rel_bf16, agree_bf16 = [], []
 
     def compare(logits, rows=None):
         nonlocal worst_abs
         a, b = logits["kernel"], logits["ref"]
+        c = logits.get("kernel_bf16")
         if rows is not None:
             a, b = a[rows], b[rows]
+            c = None if c is None else c[rows]
         check(torch.isfinite(a).all().item(), "kernel-path logits not finite")
         rel.append(((a - b).norm(dim=-1) / b.norm(dim=-1)).max().item())
         worst_abs = max(worst_abs, (a - b).abs().max().item())
         agree.extend((a.argmax(-1) == b.argmax(-1)).tolist())
+        if c is not None:
+            rel_bf16.append(((a - c).norm(dim=-1) / c.norm(dim=-1)).max().item())
+            agree_bf16.extend((a.argmax(-1) == c.argmax(-1)).tolist())
         return logits["kernel"].argmax(-1).to(torch.int32)
 
     nxt = torch.zeros(3, dtype=torch.int32, device=dev)
@@ -1641,10 +1711,10 @@ def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True,
                 kvl[b], last[b] = hi, hi - 1 - lo
         live = torch.tensor([n > ci * S for n in lens], device=dev)
         out = compare({
-            impl: llama.forward(cfg, params, toks[ci].to(dev), pos.to(dev),
-                                *pools[impl], pages, kvl.to(dev), last.to(dev),
+            name: llama.forward(cfg, params, toks[ci].to(dev), pos.to(dev),
+                                *pl, pages, kvl.to(dev), last.to(dev),
                                 attn_impl=impl)[:, -1]
-            for impl in ("kernel", "ref")}, None if live.all() else live)
+            for name, (impl, pl) in paths.items()}, None if live.all() else live)
         done = torch.tensor([ci * S < n <= (ci + 1) * S for n in lens], device=dev)
         nxt = torch.where(done, out, nxt)
     for t in range(2):
@@ -1652,28 +1722,34 @@ def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True,
                           dtype=torch.int32, device=dev)
         kvl = torch.where(p1[:, 0] < 0, 0, p1[:, 0] + 1).to(torch.int32)
         nxt = compare({
-            impl: llama.forward(cfg, params, nxt[:, None], p1, *pools[impl],
+            name: llama.forward(cfg, params, nxt[:, None], p1, *pl,
                                 pages, kvl, None, attn_impl=impl)[:, -1]
-            for impl in ("kernel", "ref")})
+            for name, (impl, pl) in paths.items()})
     steps_run = ["prefill"] * n_chunks + ["decode", "decode"]
     if ragged:
-        ragged_parity_step(cfg, params, pools, nxt, lens, pages, MP, gen, dev,
+        ragged_parity_step(cfg, params, paths, nxt, lens, pages, MP, gen, dev,
                            compare)
         steps_run.append("ragged")
     worst = max(rel)
-    emit({"phase": phase, "model": cfg.name, "lens": lens, "steps": steps_run,
-          "rel_l2_err_per_step": rel, "max_abs_err": worst_abs,
-          "tol_rel_l2": FORWARD_REL_TOL,
-          "greedy_agreement": sum(agree) / len(agree)})
+    rec = {"phase": phase, "model": cfg.name, "lens": lens, "steps": steps_run,
+           "kv_quantize": runner.kv_quantize,
+           "rel_l2_err_per_step": rel, "max_abs_err": worst_abs,
+           "tol_rel_l2": FORWARD_REL_TOL,
+           "greedy_agreement": sum(agree) / len(agree)}
+    if rel_bf16:  # information only: int8 against bf16 pools, both kernels
+        rec["vs_bf16_pools"] = {"rel_l2_err_per_step": rel_bf16,
+                                "greedy_agreement": sum(agree_bf16) / len(agree_bf16)}
+    emit(rec)
     check(worst <= FORWARD_REL_TOL,
           f"{phase}: kernel vs plain forward: relative L2 error {worst} > "
           f"{FORWARD_REL_TOL}")
 
 
-def ragged_parity_step(cfg, params, pools, nxt, lens, pages, MP, gen, dev,
+def ragged_parity_step(cfg, params, paths, nxt, lens, pages, MP, gen, dev,
                        compare):
-    """The ragged dispatch of parity_phase: the decode rows' next tokens at
-    lens + 2, and the third sequence's 77-token chunk."""
+    """The ragged dispatch of parity_phase over its paths (name ->
+    (attn_impl, pools)): the decode rows' next tokens at lens + 2, and the
+    third sequence's 77-token chunk."""
     from dynamo_tpu_torch.models import llama
 
     chunk = torch.randint(0, cfg.vocab_size, (77,), generator=gen).tolist()
@@ -1688,10 +1764,10 @@ def ragged_parity_step(cfg, params, pools, nxt, lens, pages, MP, gen, dev,
     ragged = tuple(torch.from_numpy(md[k]).to(dev)
                    for k in ("seg_page_table", "seg_kv_lens", "meta"))
     positions = torch.from_numpy(md["tok_positions"]).to(dev)[None]
-    compare({impl: llama.forward(cfg, params, flat.to(dev)[None], positions,
-                                 *pools[impl], last_index=gather.to(dev),
+    compare({name: llama.forward(cfg, params, flat.to(dev)[None], positions,
+                                 *pl, last_index=gather.to(dev),
                                  attn_impl=impl, ragged=ragged)[0, :3]
-             for impl in ("kernel", "ref")})
+             for name, (impl, pl) in paths.items()})
 
 
 def mla_pages_phase(engine, prompt) -> None:
@@ -1767,7 +1843,88 @@ def mla_phases(dev):
         engine.stop()
     mla_pages_phase(engine, prompt)
     parity_phase(runner, dev, phase="parity_mla", ragged=False)
-    return launches
+
+    # the int8 latent (same params): decode on the int8 body, prefill on
+    # the reference's gather (no MLA prefill launch)
+    runner8 = ModelRunner(MLA_CONFIG, num_pages=2048, page_size=PAGE_SIZE,
+                          max_pages_per_seq=4096 // PAGE_SIZE, params=runner.params,
+                          kv_quantize="int8")
+    rec, launches8, results = engine_phase(runner8, "mla_int8")
+    n = launches8["decode_mla_attention"]
+    check(rec["fused_mixed"], "engine_mla_int8: the engine did not fuse on the card")
+    check(n > 0 and rec["bodies"]["decode_mla_attention"] == {"int8": n},
+          f"engine_mla_int8: MLA decode launches {n}, bodies "
+          f"{rec['bodies']['decode_mla_attention']}")
+    for i, (toks, finish, _) in enumerate(results):
+        check(finish == "length" and len(toks) == N_OUT,
+              f"engine_mla_int8: r{i} finished {finish!r} with {len(toks)} tokens")
+    rec["kv_bytes_per_token_per_layer"] = MLA_CONFIG.mla_cache_dim + 4 + 1 + 4
+    emit(rec)
+    return launches, launches8
+
+
+# the slice's main path: llama-3.1-8b at full width and depth (32 layers,
+# 32 / 8 heads, head dim 128, bf16 random weights, seed 0) over int8 KV
+# pools, 2048 pages x 16, serving workload()'s 8 requests
+ENGINE_8B_ARGS = ["--model", "llama-3.1-8b", "--num-pages", "2048",
+                  "--page-size", "16", "--max-seq-len", "4096",
+                  "--max-batch", "8", "--chunk-size", "512",
+                  "--kv-quantize", "int8"]
+
+
+def int8kv_phases(dev, smi):
+    """`engine_int8kv` (fused, the card's default) and
+    `engine_int8kv_unfused` on one llama-3.1-8b runner with int8 pools:
+    every request `length`, each GQA kernel's launches equal to its passes
+    x 32, all on the D128_int8 bodies; the pools' bytes beside a bf16
+    pool's; then `parity_int8kv`. Returns the fused phase's launches and
+    the bodies of both phases."""
+    t0 = time.monotonic()
+    runner, cfg = build_runner(parse_args(ENGINE_8B_ARGS))
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    L = cfg.n_layers
+    check(runner.kv_quantize == "int8" and runner.k_pool["q"].dtype == torch.int8,
+          "engine_int8kv: the runner's pools are not int8")
+    check(runner.kv_page_shape == (L, PAGE_SIZE, cfg.n_kv_heads, cfg.head_dim),
+          f"engine_int8kv: page shape {runner.kv_page_shape}")
+    pool_bytes = sum(t.numel() * t.element_size()
+                     for pool in (runner.k_pool, runner.v_pool) for t in pool.values())
+    bf16_bytes = 2 * runner.k_pool["q"].numel() * 2
+    body = f"D{cfg.head_dim}_int8"
+    found, fused_launches = {}, None
+    for phase, fused in (("int8kv", None), ("int8kv_unfused", False)):
+        rec, launches, results = engine_phase(
+            runner, phase, fused=fused, build_s=build_s if fused is None else None,
+            base_args=ENGINE_8B_ARGS)
+        st = rec["stats"]
+        if fused is None:
+            check(rec["fused_mixed"], f"{phase}: the engine did not fuse on the card")
+            check(all(launches[k] > 0 for k in GQA_KERNELS),
+                  f"{phase}: a GQA kernel never launched: {launches}")
+            check(st["ragged_mixed_dispatches"] > 0 and st["padded_prefill_dispatches"] == 0,
+                  f"{phase}: mixed plans did not ride the ragged step: {st}")
+            fused_launches = launches
+        else:
+            check(not rec["fused_mixed"], f"{phase}: DYN_FUSED_MIXED=0 did not hold")
+            check(launches["ragged_paged_attention"] == 0, f"{phase}: the ragged kernel ran")
+        for i, (toks, finish, _) in enumerate(results):
+            check(finish == "length" and len(toks) == N_OUT,
+                  f"{phase}: r{i} finished {finish!r} with {len(toks)} tokens")
+        for name in GQA_KERNELS:
+            b, n = rec["bodies"][name], launches[name]
+            check(b == ({body: n} if n else {}),
+                  f"{phase}: {name} bodies {b} for {n} launches")
+        rec["kv_pool_bytes"] = pool_bytes
+        rec["kv_pool_bytes_if_bf16"] = bf16_bytes
+        rec["config"] = {k: getattr(cfg, k) for k in (
+            "name", "dim", "n_layers", "n_heads", "n_kv_heads", "head_dim",
+            "ffn_dim", "vocab_size", "rope_scaling")}
+        rec["nvidia_smi"] = smi
+        found[phase] = rec["bodies"]
+        emit(rec)
+    parity_phase(runner, dev, phase="parity_int8kv")
+    return fused_launches, found
 
 
 # Gemma-2 9B at full width and depth: 42 layers, head dim 256, G 2, a
@@ -1835,30 +1992,38 @@ def visible(q_start, q_len, kv, window):
     return pairs, last - first + 1, last // PAGE_SIZE - first // PAGE_SIZE + 1
 
 
-def gemma_bound(H, Hk, D, spans, window, io_rows, n_ints, softcap):
+def kv_row_bytes(D: int, int8: bool = False) -> int:
+    """Bytes of one token's K and V rows of one head: bf16, or int8 codes
+    and an f32 scale each."""
+    return 2 * (D + 4) if int8 else 2 * D * 2
+
+
+def gemma_bound(H, Hk, D, spans, window, io_rows, n_ints, softcap, int8=False):
     """Bound over what the data needs: `spans` [(q_start, q_len, kv)] of
     each sequence, whose visible K/V tokens are read once with their table
-    entries; `io_rows` query rows read and output rows written (H x D bf16
-    each); n_ints int32 metadata; one score and one PV product per visible
-    pair and head, and the cap's f32 operations per score."""
+    entries (kv_row_bytes a head); `io_rows` query rows read and output
+    rows written (H x D bf16 each); n_ints int32 metadata; one score and
+    one PV product per visible pair and head, and the cap's f32 operations
+    per score."""
     pairs = toks = pages = 0
     for q_start, q_len, kv in spans:
         p, t, g = visible(q_start, q_len, kv, window)
         pairs, toks, pages = pairs + p, toks + t, pages + g
-    n_bytes = (io_rows * H * D * 2 + toks * Hk * D * 2 * 2 + pages * 4
+    n_bytes = (io_rows * H * D * 2 + toks * Hk * kv_row_bytes(D, int8) + pages * 4
                + n_ints * 4)
     return bound(n_bytes, 4 * pairs * H * D,
                  CAP_FP32_OPS * pairs * H if softcap else 0.0)
 
 
-def gemma_case_inputs(kernel, contexts, Hk, G, D, q_mul, pools, gen, dgen, dev):
+def gemma_case_inputs(kernel, contexts, Hk, G, D, q_mul, pools, gen, dgen, dev,
+                      lib_pools=None):
     """Operands of one gemma_kernels case (on the shape's shared pools,
     each sequence on its own random pages), its Spans, the rows to check,
     the query/output row count and int32 metadata count of its bound, and
-    the yardstick's dense operands (q, K, V [.., H, ., D]) and mask
-    without the window."""
-    kp, vp = pools
-    NP = kp.shape[0]
+    the yardstick's dense operands (q, K, V [.., H, ., D], from `lib_pools`,
+    the bf16 pools, default `pools`) and mask without the window."""
+    NP = pool_values(pools[0]).shape[0]
+    kp, vp = pools if lib_pools is None else lib_pools
     H, MP, PS = Hk * G, GEMMA_MP, PAGE_SIZE
 
     def qrand(*shape):
@@ -1877,7 +2042,7 @@ def gemma_case_inputs(kernel, contexts, Hk, G, D, q_mul, pools, gen, dgen, dev):
         kd, vd = dense(pt)
         pos = kvl.long()[:, None] - 1  # [B, 1] query positions
         mask = (c_pos[None, None, :] <= pos[:, :, None])[:, None]
-        return {"args": (q, kp, vp, pt, kvl), "rows": B - 1,
+        return {"args": (q, *pools, pt, kvl), "rows": B - 1,
                 "spans": [(k - 1, 1, k) for k in kv if k > 0], "io_rows": 2 * B,
                 "n_ints": B, "lib": (q.reshape(B, H, 1, D), kd, vd, mask, pos)}
     if kernel == "prefill":
@@ -1892,7 +2057,7 @@ def gemma_case_inputs(kernel, contexts, Hk, G, D, q_mul, pools, gen, dgen, dev):
         pos = ints[0].long()[:, None] + torch.arange(S, device=dev)[None, :]
         mask = ((c_pos[None, None, :] <= pos[:, :, None])
                 & (c_pos[None, None, :] < ints[2].long()[:, None, None]))[:, None]
-        return {"args": (q, kp, vp, pt, *ints), "rows": q_len,
+        return {"args": (q, *pools, pt, *ints), "rows": q_len,
                 "spans": list(zip(q_start, q_len, contexts)),
                 "io_rows": sum(q_len) + B * S, "n_ints": 3 * B,
                 "lib": (q.reshape(B, S, H, D).transpose(1, 2), kd, vd, mask, pos)}
@@ -1907,7 +2072,7 @@ def gemma_case_inputs(kernel, contexts, Hk, G, D, q_mul, pools, gen, dgen, dev):
                                max_pages=MP)
     ints = tuple(torch.from_numpy(md[k]).to(dev)
                  for k in ("seg_page_table", "seg_kv_lens", "meta"))
-    return {"args": (qrand(T, Hk, G, D), kp, vp) + ints, "segs": segs, "md": md,
+    return {"args": (qrand(T, Hk, G, D), *pools) + ints, "segs": segs, "md": md,
             "rows": t_real, "spans": [(p, n, p + n) for n, p in segs],
             "io_rows": t_real + T,
             "n_ints": md["seg_kv_lens"].size + md["meta"].size}
@@ -1944,15 +2109,20 @@ def gemma_plain_f32(kernel, inp, window, scale, softcap):
     return out
 
 
-def gemma_case(kernel, case, Hk, G, D, pools, pools32, gen, dgen, dev):
+def gemma_case(kernel, case, Hk, G, D, pools, pools32, gen, dgen, dev,
+               lib_pools=None):
     """One kernel at one gemma_kernels case: checked against the plain
-    version in f32, timed with its yardstick. Everything it allocates is
+    version in f32, timed with its yardstick. Int8 dict `pools` are their
+    own f32 plain operands (`pools32`), and `lib_pools` their dequantized
+    bf16 pools for the yardstick (not timed). Everything it allocates is
     freed on return (the engine phases' peak memory is read later)."""
     contexts, window, softcap, scale, q_mul = GEMMA_CASES[case]
     fn = {"decode": decode_paged_attention, "prefill": prefill_paged_attention,
           "ragged": ragged_paged_attention}[kernel]
     sc = D ** -0.5 if scale is None else scale
-    inp = gemma_case_inputs(kernel, contexts, Hk, G, D, q_mul, pools, gen, dgen, dev)
+    int8 = lib_pools is not None
+    inp = gemma_case_inputs(kernel, contexts, Hk, G, D, q_mul, pools, gen, dgen, dev,
+                            lib_pools)
     inp["kp32"], inp["vp32"] = pools32
     args = inp["args"]
     kw = dict(scale=scale, softcap=softcap)
@@ -1975,9 +2145,10 @@ def gemma_case(kernel, case, Hk, G, D, pools, pools32, gen, dgen, dev):
     check(zero, f"{what}: padding, tail or empty rows are not 0")
     check(err <= KERNEL_TOL, f"{what}: max abs err {err} > {KERNEL_TOL}")
     b_ms, b_by = gemma_bound(Hk * G, Hk, D, inp["spans"], window, inp["io_rows"],
-                             inp["n_ints"], softcap)
+                             inp["n_ints"], softcap, int8)
     if kernel == "ragged":
-        lib = ragged_library(args, inp["segs"], inp["md"], sc, window=window,
+        lib_args = args if not int8 else (args[0], *lib_pools) + tuple(args[3:])
+        lib = ragged_library(lib_args, inp["segs"], inp["md"], sc, window=window,
                              softcap=softcap)
     else:
         qd, kd, vd, mask, pos = inp["lib"]
@@ -2045,6 +2216,220 @@ def gemma_kernels_phase(dev):
     return out
 
 
+# int8 KV (models/quant.py pools): the int8 bodies of the three GQA kernels
+# at `kernels`' D 128 G 3 shapes and at gemma_kernels' Gemma-2 case, and of
+# MLA decode at mla_kernels' decode shape; the kernels-line entries they
+# head and the TPU kernel bodies they replace
+INT8_SOURCES = {
+    "decode_paged_attention_int8": (
+        "dynamo_tpu_torch/ops/csrc/paged_attention.cu",
+        "dynamo_tpu/ops/paged_attention.py:147"),
+    "prefill_paged_attention_int8": (
+        "dynamo_tpu_torch/ops/csrc/flash_prefill.cu",
+        "dynamo_tpu/ops/flash_prefill.py:157"),
+    "ragged_paged_attention_int8": (
+        "dynamo_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+        "dynamo_tpu/ops/ragged_paged_attention.py:303"),
+    "decode_mla_attention_int8": (
+        "dynamo_tpu_torch/ops/csrc/mla_attention.cu",
+        "dynamo_tpu/ops/mla_attention.py:107"),
+}
+
+
+def int8_pool(x):
+    """An int8 pool quantized from bf16 rows x (codes and scales as the
+    engine writes them) and its dequantized bf16 pool, the yardstick's
+    operand (dequantized here, outside every timed call)."""
+    d = kv_pool_quantize(x)
+    return d, kv_pool_dequantize(d, torch.bfloat16)
+
+
+def int8_record(call, plain, lib, n_bytes, n_flops, err):
+    """Times of an int8 kernel call (back to back and replayed), its plain
+    version (back to back) and its yardstick, and the bound."""
+    b_ms, b_by = bound(n_bytes, n_flops)
+    return {"max_abs_err": err, "ms": cuda_ms(call), "device_ms": graph_ms(call),
+            "plain_ms": cuda_ms(plain, iters=5), "bound_ms": b_ms, "bound_by": b_by,
+            "library_ms": cuda_ms(lib), "library_device_ms": graph_ms(lib)}
+
+
+def kv_quantize_check(dev):
+    """kv_quantize on the card against the CPU's on the same bf16 rows:
+    codes equal, scales within 1 ulp."""
+    gen = torch.Generator(device="cpu").manual_seed(13)
+    x = (torch.randn(4096, 8, 128, generator=gen) * 3).bfloat16()
+    x[0, 0] = 0.0
+    cpu, card = kv_quantize(x), kv_quantize(x.to(dev))
+    q_equal = torch.equal(card["q"].cpu(), cpu["q"])
+    ulps = (card["s"].cpu().view(torch.int32).long()
+            - cpu["s"].view(torch.int32).long()).abs().max().item()
+    check(q_equal, "kv_quantize: the card's codes differ from the CPU's")
+    check(ulps <= 1, f"kv_quantize: the card's scales differ by {ulps} ulps")
+    return {"rows": list(x.shape), "q_equal": q_equal, "s_max_ulps": ulps}
+
+
+def int8_kernels_phase(dev):
+    """The int8 bodies against their plain int8 versions in f32 (the scale
+    fold in the TPU kernels' order), each timed back to back and as a
+    CUDA-graph replay beside its bf16 yardstick over the dequantized K/V,
+    with a bound over the codes and scales the data needs: GQA decode,
+    prefill and ragged at `kernels`' D 128 G 3 shapes, the Gemma-2 case
+    (window 4096, cap 50, scale 1/16) at D 256 G 2, MLA decode at its
+    main-path shape; and kv_quantize on the card against the CPU's."""
+    gen = torch.Generator(device="cpu").manual_seed(12)
+    dgen = torch.Generator(device=dev).manual_seed(12)
+    Hk, G, D, PS = 8, 3, 128, 16
+    H = Hk * G
+    scale = D ** -0.5
+    torch.cuda.synchronize()
+    mem = {"start": torch.cuda.memory_allocated()}
+    out = {"kv_quantize": kv_quantize_check(dev)}
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=dgen, device=dev).bfloat16()
+
+    def pools(NP, Hk, D):
+        (kq, kd), (vq, vd) = int8_pool(rnd(NP, PS, Hk, D)), int8_pool(rnd(NP, PS, Hk, D))
+        return (kq, vq), (kd, vd)
+
+    # decode: `kernels`' rows, kv_len up to 4096, one empty row
+    kv_list = [4096, 0, 1, 17, 1000, 2048, 3333, 513]
+    B, MP = len(kv_list), 4096 // PS
+    (kq, vq), (kd, vd) = pools(B * MP + 1, Hk, D)
+    q = rnd(B, Hk, G, D)
+    pt = random_pages(gen, B, MP, B * MP + 1, dev)
+    kvl = torch.tensor(kv_list, dtype=torch.int32, device=dev)
+    got = decode_paged_attention(q, kq, vq, pt, kvl)
+    torch.cuda.synchronize()
+    want = decode_paged_attention_ref(q.float(), kq, vq, pt, kvl)
+    err = (got.float() - want).abs().max().item()
+    check(torch.isfinite(got.float()).all().item(), "int8 decode output not finite")
+    check(got[1].float().abs().max().item() == 0.0, "int8 decode kv_len=0 row is not 0")
+    check(err <= KERNEL_TOL, f"int8 decode max abs err {err} > {KERNEL_TOL}")
+    kdd, vdd = dense_kv(kd, pt, Hk, G), dense_kv(vd, pt, Hk, G)
+    mask = (torch.arange(MP * PS, device=dev)[None, :] < kvl[:, None])[:, None, None, :]
+    qd = q.reshape(B, H, 1, D)
+    n_tok = sum(kv_list)
+    out["decode_paged_attention_int8"] = dict(int8_record(
+        lambda: decode_paged_attention(q, kq, vq, pt, kvl),
+        lambda: decode_paged_attention_ref(q.float(), kq, vq, pt, kvl),
+        lambda: F.scaled_dot_product_attention(qd, kdd, vdd, attn_mask=mask,
+                                               scale=scale),
+        2 * q.numel() * 2 + n_tok * Hk * kv_row_bytes(D, True)
+        + sum(-(-k // PS) for k in kv_list) * 4 + B * 4,
+        4 * n_tok * H * D, err), shape={"B": B, "Hk": Hk, "G": G, "D": D, "PS": PS,
+                                       "kv_lens": kv_list})
+    del kq, vq, kd, vd, kdd, vdd
+
+    # prefill: S 512, q_len 450 over 700 prior tokens (padding rows after)
+    S, prior, q_len = 512, 700, 450
+    kv = prior + q_len
+    MP = -(-kv // PS) + 2
+    (kq, vq), (kd, vd) = pools(MP + 1, Hk, D)
+    q = rnd(1, S, Hk, G, D)
+    pt = random_pages(gen, 1, MP, MP + 1, dev)
+    ints = [torch.tensor([x], dtype=torch.int32, device=dev) for x in (prior, q_len, kv)]
+    got = prefill_paged_attention(q, kq, vq, pt, *ints)
+    torch.cuda.synchronize()
+    want = prefill_paged_attention_ref(q.float(), kq, vq, pt, *ints)
+    err = (got[:, :q_len].float() - want[:, :q_len]).abs().max().item()
+    check(torch.isfinite(got.float()).all().item(), "int8 prefill output not finite")
+    check(got[:, q_len:].float().abs().max().item() == 0.0,
+          "int8 prefill padding rows are not 0")
+    check(err <= KERNEL_TOL, f"int8 prefill max abs err {err} > {KERNEL_TOL}")
+    kdd, vdd = dense_kv(kd, pt, Hk, G), dense_kv(vd, pt, Hk, G)
+    s_pos = prior + torch.arange(S, device=dev)
+    c_pos = torch.arange(MP * PS, device=dev)
+    mask = ((c_pos[None, :] <= s_pos[:, None]) & (c_pos[None, :] < kv))[None, None]
+    qd = q.reshape(1, S, H, D).transpose(1, 2)
+    n_pairs = sum(min(prior + s + 1, kv) for s in range(q_len))
+    out["prefill_paged_attention_int8"] = dict(int8_record(
+        lambda: prefill_paged_attention(q, kq, vq, pt, *ints),
+        lambda: prefill_paged_attention_ref(q.float(), kq, vq, pt, *ints),
+        lambda: F.scaled_dot_product_attention(qd, kdd, vdd, attn_mask=mask,
+                                               scale=scale),
+        q_len * H * D * 2 + q.numel() * 2 + kv * Hk * kv_row_bytes(D, True)
+        + (-(-kv // PS)) * 4 + 3 * 4,
+        4 * n_pairs * H * D, err), shape={"S": S, "prior": prior, "q_len": q_len})
+    del kq, vq, kd, vd, kdd, vdd
+
+    # ragged: the 264-token mixed step of 8 decode rows and 4 chunks
+    segs = [(1, kv - 1) for kv in RAGGED_DECODE_KV] + RAGGED_CHUNKS
+    args, md = ragged_inputs(gen, segs, RAGGED_T, Hk, G, D, PS, 4096 // PS, dev)
+    (kq, kd), (vq, vd) = int8_pool(args[1]), int8_pool(args[2])
+    a8 = (args[0], kq, vq) + tuple(args[3:])
+    got = ragged_paged_attention(*a8)
+    torch.cuda.synchronize()
+    want = ragged_paged_attention_ref(args[0].float(), kq, vq, *args[3:])
+    n = sum(q_len for q_len, _ in segs)
+    err = (got[:n].float() - want[:n]).abs().max().item()
+    check(torch.isfinite(got.float()).all().item(), "int8 ragged output not finite")
+    check(n == got.shape[0] or got[n:].float().abs().max().item() == 0.0,
+          "int8 ragged tail rows are not 0")
+    check(err <= KERNEL_TOL, f"int8 ragged max abs err {err} > {KERNEL_TOL}")
+    kv_tok = sum(q_len + p for q_len, p in segs)
+    pairs = sum(p + i + 1 for q_len, p in segs for i in range(q_len))
+    out["ragged_paged_attention_int8"] = dict(int8_record(
+        lambda: ragged_paged_attention(*a8),
+        lambda: ragged_paged_attention_ref(args[0].float(), kq, vq, *args[3:]),
+        ragged_library((args[0], kd, vd) + tuple(args[3:]), segs, md, scale),
+        n * H * D * 2 + RAGGED_T * H * D * 2 + kv_tok * Hk * kv_row_bytes(D, True)
+        + sum(-(-(q_len + p) // PS) for q_len, p in segs) * 4
+        + md["seg_kv_lens"].size * 4 + md["meta"].size * 4,
+        4 * pairs * H * D, err), shape={"T": RAGGED_T, "segments": segs})
+    del args, a8, kq, vq, kd, vd
+
+    # the Gemma-2 case at D 256 G 2: the int8 window + soft-cap bodies
+    Hk2, G2, D2 = GEMMA_SHAPES["D256_G2"]
+    NP = 2 * len(GEMMA_EDGES) * GEMMA_MP + 1
+    (kq, kd), (vq, vd) = (int8_pool(rnd(NP, PS, Hk2, D2)) for _ in range(2))
+    out["gemma2_D256_G2"] = {
+        kernel: gemma_case(kernel, "gemma2", Hk2, G2, D2, (kq, vq), (kq, vq), gen,
+                           dgen, dev, lib_pools=(kd, vd))
+        for kernel in ("decode", "prefill", "ragged")}
+    del kq, vq, kd, vd
+    torch.cuda.empty_cache()
+
+    # MLA decode: mla_kernels' decode rows at DeepSeek-V3's shapes
+    dc, dr = MLA_DC, MLA_DR
+    Dl = dc + dr
+    mscale = attn_score_scale(MLA_CONFIG, MLA_CONFIG.qk_nope_head_dim + dr)
+    q, lat, pt, kvl = mla_decode_args(gen, dev)
+    lq, ld = int8_pool(lat)
+    B, MP = len(MLA_DECODE_KV), pt.shape[1]
+    got = decode_mla_attention(q, lq, pt, kvl, dc=dc, scale=mscale)
+    torch.cuda.synchronize()
+    want = decode_mla_attention_ref(q.float(), lq, pt, kvl, dc=dc, scale=mscale)
+    err = (got.float() - want.float()).abs().max().item()
+    check(torch.isfinite(got.float()).all().item(), "int8 MLA decode output not finite")
+    check(got[1].float().abs().max().item() == 0.0, "int8 MLA decode kv_len=0 row is not 0")
+    check(err <= KERNEL_TOL, f"int8 MLA decode max abs err {err} > {KERNEL_TOL}")
+    dense = ld[pt.long()].reshape(B, MP * MLA_PS, Dl)
+    mask = (torch.arange(MP * MLA_PS, device=dev)[None, :] < kvl[:, None])[:, None, None, :]
+    lib_fn, lib_name = mla_library(q[:, :, None], dense, mask, dc, mscale)
+    n_tok = sum(MLA_DECODE_KV)
+    out["decode_mla_attention_int8"] = dict(int8_record(
+        lambda: decode_mla_attention(q, lq, pt, kvl, dc=dc, scale=mscale),
+        lambda: decode_mla_attention_ref(q.float(), lq, pt, kvl, dc=dc, scale=mscale),
+        lib_fn,
+        q.numel() * 2 + B * MLA_H * dc * 2 + n_tok * (Dl + 4)
+        + sum(-(-k // MLA_PS) for k in MLA_DECODE_KV) * 4 + B * 4,
+        2 * n_tok * MLA_H * (Dl + dc), err), library=lib_name,
+        shape={"B": B, "H": MLA_H, "dc": dc, "dr": dr, "PS": MLA_PS,
+               "kv_lens": MLA_DECODE_KV})
+    del q, lat, lq, ld, dense
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    mem["end"] = torch.cuda.memory_allocated()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+        mem["after_clearing_cublas_workspaces"] = torch.cuda.memory_allocated()
+    emit({"phase": "int8_kernels", "tol": KERNEL_TOL, "memory_allocated_bytes": mem,
+          **out})
+    return out
+
+
 def gemma_phases(dev, smi):
     """gemma-2-9b at full width and depth: `engine_gemma2` (the card's
     default, fused: ragged and decode kernels; a prefill chunk with no
@@ -2063,10 +2448,11 @@ def gemma_phases(dev, smi):
           f"engine_gemma2: page shape {runner.kv_page_shape}")
     sliding = sum(1 for l in range(L) if l % cfg.sw_period != cfg.sw_global_residue)
     found = {}
-    for phase, fused in (("gemma2", None), ("gemma2_unfused", False)):
+
+    def turn(runner, phase, fused, args):
         rec, launches, results = engine_phase(
-            runner, phase, fused=fused, build_s=build_s if fused is None else None,
-            base_args=GEMMA_ARGS, extra=GEMMA_LONG_PROMPTS)
+            runner, phase, fused=fused, build_s=build_s if phase == "gemma2" else None,
+            base_args=args, extra=GEMMA_LONG_PROMPTS)
         st = rec["stats"]
         if fused is None:
             check(rec["fused_mixed"], f"{phase}: the engine did not fuse on the card")
@@ -2083,11 +2469,11 @@ def gemma_phases(dev, smi):
         check(max(rec["prompt_tokens"]) > GEMMA_WINDOW,
               f"{phase}: no request ran past the window")
         # sliding layers launch the window bodies, global layers the others
-        body = f"D{cfg.head_dim}_softcap"
+        body = f"D{cfg.head_dim}" + ("_int8" if runner.kv_quantize else "") + "_softcap"
         for name in GQA_KERNELS:
             b = rec["bodies"][name]
             n = launches[name]
-            check(b.get(body.replace("_", "_window_"), 0) == n // L * sliding
+            check(b.get(body.replace("_softcap", "_window_softcap"), 0) == n // L * sliding
                   and b.get(body, 0) == n - n // L * sliding
                   and sum(b.values()) == n,
                   f"{phase}: {name} bodies {b} for {n} launches")
@@ -2098,8 +2484,20 @@ def gemma_phases(dev, smi):
         rec["nvidia_smi"] = smi
         found[phase] = rec["bodies"]
         emit(rec)
+
+    turn(runner, "gemma2", None, GEMMA_ARGS)
+    turn(runner, "gemma2_unfused", False, GEMMA_ARGS)
     parity_phase(runner, dev, phase="parity_gemma2", lens=(4700, 180, 4500),
                  S=512, MP=300, NP=960)
+    # the int8 turn: the same params over int8 pools (the bf16 pools freed)
+    params = runner.params
+    runner.k_pool = runner.v_pool = None
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    args8 = GEMMA_ARGS + ["--kv-quantize", "int8"]
+    runner8, _ = build_runner(parse_args(args8), params=params)
+    turn(runner8, "gemma2_int8", None, args8)
     return found
 
 
@@ -2133,10 +2531,11 @@ def main() -> int:
                   if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         check(not spills, f"MLA kernels spill: {spills}")
         # D 256: O alone is 128 registers a thread; no instantiation spills
-        # (decode 2 bodies + merge, prefill 4, ragged 4 + merge)
+        # (decode 4 bodies + merge, prefill 8, ragged 8 + merge: bf16 and
+        # int8 each)
         d256 = {f"{stem}:{k}": v for stem, ents in gqa_ptxas.items()
                 for k, v in ents.items() if "<256" in k}
-        check(len(d256) == 12 or len(gqa_ptxas) < len(GQA_STEMS),
+        check(len(d256) == 22 or len(gqa_ptxas) < len(GQA_STEMS),
               f"GQA D 256 instantiations: {sorted(d256)}")
         check(all(v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
                   for v in d256.values()), f"GQA D 256 kernels spill: {d256}")
@@ -2146,6 +2545,7 @@ def main() -> int:
         kern.update(mla_kernel_phase(dev))
         decode_split_edges_phase(dev)
         gemma_kernels_phase(dev)
+        kern.update(int8_kernels_phase(dev))
         runner, launches, bodies = engine_phases(dev)
         variants = {name: {"engine_fused": bodies[name]} for name in GQA_KERNELS}
         # each copy kernel's launches from the phase that runs it
@@ -2158,25 +2558,38 @@ def main() -> int:
         del runner, disagg
         gc.collect()
         torch.cuda.empty_cache()
-        mla = mla_phases(dev)
+        # the slice's main path: llama-3.1-8b over int8 pools; each int8
+        # entry's launches are the fused phase's (all on its int8 body)
+        int8_launches, int8_bodies = int8kv_phases(dev, smi)
+        for name in GQA_KERNELS:
+            launches[f"{name}_int8"] = int8_launches[name]
+            variants[f"{name}_int8"] = {f"engine_{phase}": b[name]
+                                        for phase, b in int8_bodies.items()}
+        del int8_launches
+        gc.collect()
+        torch.cuda.empty_cache()
+        mla, mla8 = mla_phases(dev)
         for name in MLA_KERNELS:
             launches[name] = mla[name]
-        del mla
+        launches["decode_mla_attention_int8"] = mla8["decode_mla_attention"]
+        del mla, mla8
         gc.collect()
         torch.cuda.empty_cache()
         for phase, b in gemma_phases(dev, smi).items():
             for name in GQA_KERNELS:
-                variants[name][f"engine_{phase}"] = b[name]
+                key = f"{name}_int8" if "int8" in phase else name
+                variants[key][f"engine_{phase}"] = b[name]
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
+    sources = {**SOURCES, **INT8_SOURCES}
     emit({"kernels": [
-        {"name": name, "route": "cuda", "source": SOURCES[name][0],
-         "replaces": SOURCES[name][1], "launches": launches[name],
+        {"name": name, "route": "cuda", "source": sources[name][0],
+         "replaces": sources[name][1], "launches": launches[name],
          **{k: kern[name][k] for k in ("max_abs_err", "ms", "plain_ms",
                                        "bound_ms", "bound_by", "library_ms")},
          **({"variants": variants[name]} if name in variants else {})}
-        for name in SOURCES
+        for name in sources
     ]})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind, "count": count}})

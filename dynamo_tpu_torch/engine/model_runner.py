@@ -9,7 +9,10 @@ KV transfer methods (`export_pages(_device)`, `import_pages(_device)` with
 the layer-streamed import) over the block-copy kernels, with the
 reference's buckets, `_next_bucket`, `BucketOverflowError` and KV wire
 format (`KV_WIRE_LAYOUT_VERSION` 2). Params
-and the KV pools live on one device; the pools are updated in place. Each
+and the KV pools live on one device; the pools are updated in place
+(`kv_quantize="int8"`: the int8 dict pools of models/quant.py, whose pages
+cross the transfer boundary dequantized, so the wire stays in the dense
+dtype and bf16 and int8 workers interoperate). Each
 dispatch uploads its int32 inputs in one packed copy (`_upload`). The
 fused decode loop (a lax.scan there) is a Python loop here that keeps the
 sampled tokens on the device between its steps; the tokens reach the host
@@ -31,7 +34,8 @@ from dynamo_tpu_torch import resolve_device
 from dynamo_tpu_torch.engine.sampling import SamplingParams, sample
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig
-from dynamo_tpu_torch.models.toolkit import make_kv_pool
+from dynamo_tpu_torch.models.quant import kv_pool_dequantize, kv_pool_quantize
+from dynamo_tpu_torch.models.toolkit import is_quantized, make_kv_pool, pool_values
 from dynamo_tpu_torch.ops.block_copy import (
     gather_pages,
     scatter_pages,
@@ -231,6 +235,7 @@ class ModelRunner:
         dtype=torch.bfloat16,
         params: Optional[Dict[str, Any]] = None,  # None: random, seed 0
         device=None,  # None -> cuda (raises without a card); "cpu" for tests
+        kv_quantize: Optional[str] = None,  # "int8": int8 KV pools
     ):
         self.config = config
         self.device = resolve_device(device)
@@ -257,8 +262,10 @@ class ModelRunner:
             config, 0, dtype, self.device)
         # one page more than the PagePool hands out: page `num_pages`
         # takes the padding rows' KV writes (models/toolkit.py kv_rows)
+        self.kv_quantize = kv_quantize
         self.k_pool, self.v_pool = make_kv_pool(
-            config, num_pages + 1, page_size, dtype, self.device)
+            config, num_pages + 1, page_size, dtype, self.device,
+            kv_quantize=kv_quantize)
         self.stats: Dict[str, int] = {}
         self.reset_stats()
         self._sampling_cache: Dict[Any, SamplingParams] = {}
@@ -655,28 +662,55 @@ class ModelRunner:
         return hit
 
     # -- KV transfer: the block-copy kernels -------------------------------
-    # Pages cross the transfer boundary dense in the pool dtype. Page ids
-    # name PagePool pages [0, num_pages); the pools' spare page (index
-    # num_pages, the padding rows' KV) never crosses.
+    # Pages cross the transfer boundary dense in the runner's dtype,
+    # whatever the pools hold (the reference's contract): an int8 pool's
+    # codes and scales are gathered by the copy kernels and dequantized on
+    # export, and imported pages are quantized again (new per-vector
+    # scales: one more rounding, bounded by the int8 step) before the
+    # kernels scatter them. Page ids name PagePool pages [0, num_pages); the
+    # pools' spare page (index num_pages, the padding rows' KV) never
+    # crosses.
     def _page_ids(self, *pages: Sequence[int]) -> List[torch.Tensor]:
         for p in pages[0]:
             if not 0 <= p < self.num_pages:
                 raise ValueError(f"page {p} outside [0, {self.num_pages})")
         return self._upload(*pages)
 
-    def _dense_pages(self, pool: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-        return gather_pages(pool, idx)
+    @staticmethod
+    def _parts(pool) -> List[torch.Tensor]:
+        """The tensors the copy kernels move for a pool, each [L, NP, PS,
+        Hk, D']: the pool, or an int8 pool's codes and its scales as a
+        1-wide last dim (a view)."""
+        if is_quantized(pool):
+            return [pool["q"], pool["s"][..., None]]
+        return [pool]
 
-    def _store_pages(self, pool: torch.Tensor, idx: torch.Tensor,
-                     dense: torch.Tensor) -> None:
-        scatter_pages(pool, idx, self._staged(dense))
+    def _dense_pages(self, pool, idx: torch.Tensor) -> torch.Tensor:
+        parts = [gather_pages(p, idx) for p in self._parts(pool)]
+        if is_quantized(pool):
+            return kv_pool_dequantize({"q": parts[0], "s": parts[1][..., 0]},
+                                      self.dtype)
+        return parts[0]
 
-    def _store_pages_layers(self, pool: torch.Tensor, idx: torch.Tensor,
-                            dense: torch.Tensor, layer_off: torch.Tensor) -> None:
+    def _as_stored(self, pool, dense: torch.Tensor) -> List[torch.Tensor]:
+        """Dense pages staged on this device, as the pool stores them."""
+        dense = self._staged(dense)
+        if not is_quantized(pool):
+            return [dense]
+        d = kv_pool_quantize(dense)
+        return [d["q"], d["s"][..., None]]
+
+    def _store_pages(self, pool, idx: torch.Tensor, dense: torch.Tensor) -> None:
+        for p, pages in zip(self._parts(pool), self._as_stored(pool, dense)):
+            scatter_pages(p, idx, pages)
+
+    def _store_pages_layers(self, pool, idx: torch.Tensor, dense: torch.Tensor,
+                            layer_off: torch.Tensor) -> None:
         """Layer-group scatter: dense [Lg, n, PS, Hk, D] pages into pool
         layers [layer_off, layer_off+Lg) at slots idx — the per-group unit
         of the streamed onboard."""
-        scatter_pages_layers(pool, idx, self._staged(dense), layer_off)
+        for p, pages in zip(self._parts(pool), self._as_stored(pool, dense)):
+            scatter_pages_layers(p, idx, pages, layer_off)
 
     def _staged(self, x: torch.Tensor) -> torch.Tensor:
         """Pages as the kernels take them: contiguous, on this device, in
@@ -720,12 +754,13 @@ class ModelRunner:
     def kv_page_shape(self) -> Tuple[int, int, int, int]:
         """(L, PS, Hk, D) page geometry of this runner's pools — the local
         side of the wire layout handshake."""
-        L, _, PS, Hk, D = self.k_pool.shape
+        L, _, PS, Hk, D = pool_values(self.k_pool).shape
         return (L, PS, Hk, D)
 
     @property
     def kv_wire_dtype(self) -> str:
-        """Dtype name pages cross the transfer boundary with."""
+        """Dtype name pages cross the transfer boundary with: the runner's
+        dense dtype (int8 pools dequantize on export)."""
         return _WIRE_DTYPES[self.dtype]
 
     def import_pages(self, target_pages: List[int], offset: int,

@@ -32,6 +32,8 @@ from dynamo_tpu_torch.models.toolkit import (
     kv_rows,
     layer_window,
     paged_attention_ref,
+    pool_layer,
+    pool_values,
     rms_norm,
     rope_cos_sin,
     rope_inv_freq,
@@ -126,8 +128,8 @@ def forward(
     params: Params,
     tokens: torch.Tensor,  # [B, S]
     positions: torch.Tensor,  # [B, S] absolute positions (padding = -1)
-    k_pool: torch.Tensor,  # [L, NP, PS, Hk, D]; the last page takes padding
-    v_pool: torch.Tensor,
+    k_pool,  # [L, NP, PS, Hk, D] (or its int8 dict); the last page takes padding
+    v_pool,
     page_table: Optional[torch.Tensor] = None,  # [B, MP] int32
     kv_lens: Optional[torch.Tensor] = None,  # [B] int32 context AFTER this step
     last_index: Optional[Union[int, torch.Tensor]] = None,  # int or [B]
@@ -149,7 +151,9 @@ def forward(
     [T, MP] table; attention is ragged; last_index holds the flat
     per-segment last-token indices [SEG] and the logits come back
     [1, SEG, V]. MLA configs refuse `ragged=`, as the reference does; their
-    v_pool is the 1-wide stub and is not written."""
+    v_pool is the 1-wide stub and is not written. Int8 dict pools
+    (models/quant.py) quantize on write and reach the kernels' int8
+    bodies (the "ref" path dequantizes on its gather)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
     c = config
@@ -158,7 +162,7 @@ def forward(
     hd = c.head_dim
     G = c.n_heads // c.n_kv_heads
     lp = params["layers"]
-    L, NP, PS = k_pool.shape[:3]
+    L, NP, PS = pool_values(k_pool).shape[:3]
     zc = c.norm_zero_centered
     # the scale and soft cap of every GQA attention route (None and 0 for
     # Llama: the kernels' defaults)
@@ -209,21 +213,22 @@ def forward(
             write_kv(v_pool, l, v, rows)
             qg = q.view(B, S, c.n_kv_heads, G, hd)
             win = layer_window(c, l)
+            k_l, v_l = pool_layer(k_pool, l), pool_layer(v_pool, l)
             if ragged is not None:
-                attn = ragged_attn(qg[0], k_pool[l], v_pool[l], seg_pt,
-                                   seg_kvl, meta, win, **attn_kw)[None]
+                attn = ragged_attn(qg[0], k_l, v_l, seg_pt, seg_kvl, meta, win,
+                                   **attn_kw)[None]
             elif attn_impl == "ref":
                 attn = paged_attention_ref(
-                    qg, k_pool[l], v_pool[l], page_table, safe_pos, kv_lens,
-                    window=win, **attn_kw)
+                    qg, k_l, v_l, page_table, safe_pos, kv_lens, window=win,
+                    **attn_kw)
             elif S == 1:
                 attn = decode_paged_attention(
-                    qg[:, 0], k_pool[l], v_pool[l], page_table, kv_lens, win,
+                    qg[:, 0], k_l, v_l, page_table, kv_lens, win,
                     **attn_kw)[:, None]
             else:
                 attn = prefill_paged_attention(
-                    qg, k_pool[l], v_pool[l], page_table, q_start, q_len,
-                    kv_lens, win, **attn_kw)
+                    qg, k_l, v_l, page_table, q_start, q_len, kv_lens, win,
+                    **attn_kw)
             attn = attn.reshape(B, S, c.n_heads * hd)
         attn_out = attn @ lp["wo"][l]
         if c.post_norms:  # Gemma-2: norm the branch before the residual

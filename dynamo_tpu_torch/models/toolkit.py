@@ -1,7 +1,8 @@
 """Transformer building blocks: RMSNorm, RoPE (with llama3 and yarn
 scaling), the attention score scale, each layer's sliding window, the
-token-major paged KV pool (the latent pool for MLA) and its writer, and
-the plain gather attention that every attention kernel is held against.
+token-major paged KV pool (the latent pool for MLA; bf16 or the int8 dict
+of models/quant.py) and its writer, and the plain gather attention that
+every attention kernel is held against.
 
 Port of dynamo_tpu/models/toolkit.py. Layouts and numerics follow it: the
 pool is [L, NP, PS, Hk, D], norms and rope angles run in f32, and the
@@ -19,12 +20,15 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.models.quant import kv_dequantize, kv_quantize
 
 NEG_INF = -1e30
+KV_QUANTIZE_MODES = ("int8",)
 
 
 def make_kv_pool(
     config: ModelConfig, num_pages: int, page_size: int, dtype, device,
+    kv_quantize: Optional[str] = None,
 ):
     """Two zeroed pools [L, NP, PS, Hk, D], token-major: one page is one
     contiguous PS*Hk*D slab, and one token's [Hk, D] row is contiguous.
@@ -32,16 +36,44 @@ def make_kv_pool(
     MLA models cache one latent vector per token: the "k" pool is
     [L, NP, PS, 1, d_c + d_rh] and the "v" pool a 1-wide stub
     [L, NP, PS, 1, 1], so every page-indexed path (transfer, host tier)
-    keeps its k/v shape contract."""
+    keeps its k/v shape contract.
+
+    kv_quantize="int8" makes each pool the dict {"q": int8 [L, NP, PS, Hk,
+    D], "s": f32 [L, NP, PS, Hk]} (models/quant.py), the MLA stub too."""
+    if kv_quantize is not None and kv_quantize not in KV_QUANTIZE_MODES:
+        raise ValueError(f"unknown kv_quantize mode {kv_quantize!r}")
     if config.is_mla:
-        lat = (config.n_layers, num_pages, page_size, 1, config.mla_cache_dim)
-        stub = (config.n_layers, num_pages, page_size, 1, 1)
-        return (torch.zeros(lat, dtype=dtype, device=device),
-                torch.zeros(stub, dtype=dtype, device=device))
-    shape = (config.n_layers, num_pages, page_size, config.n_kv_heads,
-             config.head_dim)
-    return (torch.zeros(shape, dtype=dtype, device=device),
-            torch.zeros(shape, dtype=dtype, device=device))
+        k_shape = (config.n_layers, num_pages, page_size, 1, config.mla_cache_dim)
+        v_shape = (config.n_layers, num_pages, page_size, 1, 1)
+    else:
+        k_shape = v_shape = (config.n_layers, num_pages, page_size,
+                             config.n_kv_heads, config.head_dim)
+
+    def zeros(shape):
+        if kv_quantize is None:
+            return torch.zeros(shape, dtype=dtype, device=device)
+        return {"q": torch.zeros(shape, dtype=torch.int8, device=device),
+                "s": torch.zeros(shape[:-1], dtype=torch.float32, device=device)}
+
+    return zeros(k_shape), zeros(v_shape)
+
+
+def is_quantized(pool) -> bool:
+    """An int8 dict pool (or one layer of it)."""
+    return isinstance(pool, dict)
+
+
+def pool_values(pool) -> torch.Tensor:
+    """The tensor that carries a pool's shape: the pool, or its "q"."""
+    return pool["q"] if isinstance(pool, dict) else pool
+
+
+def pool_layer(pool, l: int):
+    """Layer l of a stacked pool: a view [NP, PS, Hk, D], or the dict of
+    the layer's "q" and "s" views."""
+    if isinstance(pool, dict):
+        return {"q": pool["q"][l], "s": pool["s"][l]}
+    return pool[l]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
@@ -200,28 +232,85 @@ def paged_attention_ref(
     (Dv, the value pool's width, may differ from the keys': MLA's values
     are the latent's first d_c columns); rows with an empty context come
     out 0. Scores are scaled, then soft-capped, then masked; with a
-    window w > 0 a query at position p sees only positions c > p - w."""
+    window w > 0 a query at position p sees only positions c > p - w.
+    Int8 dict pools are dequantized as they are gathered (the model's
+    "ref" path; the kernels' plain versions fold the scales instead,
+    paged_attention_int8_ref)."""
     B, MP = page_table.shape
-    _, PS, Hk, D = k_pool_l.shape
-    k = k_pool_l[page_table.long()].reshape(B, MP * PS, Hk, D)
-    v = v_pool_l[page_table.long()].reshape(B, MP * PS, Hk, v_pool_l.shape[-1])
+    _, PS, Hk, D = pool_values(k_pool_l).shape
     C = MP * PS
+
+    def gather(pool_l):
+        if isinstance(pool_l, dict):  # int8: dequantized into q's dtype
+            pool_l = kv_dequantize({k: x[page_table.long()] for k, x in pool_l.items()},
+                                   q.dtype)
+        else:
+            pool_l = pool_l[page_table.long()]
+        return pool_l.reshape(B, C, Hk, pool_l.shape[-1])
+
+    k, v = gather(k_pool_l), gather(v_pool_l)
     if scale is None:
         scale = D ** -0.5
     scores = softcap_scores(
         torch.einsum("bskgd,bckd->bkgsc", q, k).float() * scale, softcap)
-    ctx_pos = torch.arange(C, device=q.device)
-    valid = (ctx_pos[None, :] < kv_lens[:, None])[:, None, None, None, :]
-    causal = ctx_pos[None, None, :] <= q_positions[:, :, None]  # [B, S, C]
-    if window is not None and window > 0:
-        causal = causal & (ctx_pos[None, None, :] > q_positions[:, :, None] - window)
-    mask = valid & causal[:, None, None, :, :]
+    mask = _attention_mask(C, q_positions, kv_lens, window)
     scores = torch.where(mask, scores, NEG_INF)
     m = scores.amax(-1, keepdim=True)
     p = torch.where(mask, torch.exp(scores - m), 0.0)
     l = p.sum(-1, keepdim=True)
     probs = (p / l.clamp(min=1e-30)).to(q.dtype)
     return torch.einsum("bkgsc,bckd->bskgd", probs, v)
+
+
+def _attention_mask(C: int, q_positions: torch.Tensor, kv_lens: torch.Tensor,
+                    window: Optional[int]) -> torch.Tensor:
+    """[B, 1, 1, S, C]: context position c counts for the query at
+    position p when c < kv_len, c <= p and, with a window w > 0, c > p - w."""
+    ctx_pos = torch.arange(C, device=q_positions.device)
+    valid = (ctx_pos[None, :] < kv_lens[:, None])[:, None, None, None, :]
+    causal = ctx_pos[None, None, :] <= q_positions[:, :, None]  # [B, S, C]
+    if window is not None and window > 0:
+        causal = causal & (ctx_pos[None, None, :] > q_positions[:, :, None] - window)
+    return valid & causal[:, None, None, :, :]
+
+
+def paged_attention_int8_ref(
+    q: torch.Tensor,  # [B, S, Hk, G, D]
+    k_pool_l: dict,  # {"q": int8 [NP, PS, Hk, D], "s": f32 [NP, PS, Hk]}
+    v_pool_l: dict,  # the same, or MLA's value view (first d_c columns)
+    page_table: torch.Tensor,
+    q_positions: torch.Tensor,
+    kv_lens: torch.Tensor,
+    scale: Optional[float] = None,
+    softcap: float = 0.0,
+    window: Optional[int] = None,
+) -> torch.Tensor:
+    """The int8 attention kernels' plain version, in f32 in the TPU
+    kernels' order (dynamo_tpu/ops/paged_attention.py
+    `_decode_kernel_body`): s = (q . k_int) * scale, then s *= the key's
+    scale, then the soft cap, then the mask; the denominator sums p; then
+    p *= the value's scale and the output is (p . v_int) / l. Returns
+    [B, S, Hk, G, Dv] in q's dtype; rows with an empty context come out 0."""
+    B, MP = page_table.shape
+    _, PS, Hk, D = k_pool_l["q"].shape
+    C = MP * PS
+    pages = page_table.long()
+    k = k_pool_l["q"][pages].reshape(B, C, Hk, D).float()
+    v = v_pool_l["q"][pages].reshape(B, C, Hk, -1).float()
+    # per (row, head) scales laid out like the scores' last axes
+    ks = k_pool_l["s"][pages].reshape(B, C, Hk).permute(0, 2, 1)[:, :, None, None]
+    vs = v_pool_l["s"][pages].reshape(B, C, Hk).permute(0, 2, 1)[:, :, None, None]
+    if scale is None:
+        scale = D ** -0.5
+    s = torch.einsum("bskgd,bckd->bkgsc", q.float(), k) * scale
+    s = softcap_scores(s * ks, softcap)
+    mask = _attention_mask(C, q_positions, kv_lens, window)
+    s = torch.where(mask, s, NEG_INF)
+    m = s.amax(-1, keepdim=True)
+    p = torch.where(mask, torch.exp(s - m), 0.0)
+    l = p.sum(-1, keepdim=True)  # before the value scale
+    acc = torch.einsum("bkgsc,bckd->bskgd", p * vs, v)
+    return (acc / l.clamp(min=1e-30).permute(0, 3, 1, 2, 4)).to(q.dtype)
 
 
 def kv_rows(page_table: torch.Tensor, positions: torch.Tensor,
@@ -241,10 +330,17 @@ def kv_rows(page_table: torch.Tensor, positions: torch.Tensor,
     return (page_idx * page_size + pos % page_size).reshape(-1)
 
 
-def write_kv(pool: torch.Tensor, l_idx: int, new: torch.Tensor,
-             rows: torch.Tensor) -> None:
+def write_kv(pool, l_idx: int, new: torch.Tensor, rows: torch.Tensor) -> None:
     """Write new [B, S, Hk, D] into layer `l_idx` of the pool at the
-    token cells `rows` (from kv_rows), in place."""
+    token cells `rows` (from kv_rows), in place. An int8 dict pool
+    quantizes the new rows (one scale per (token, head) vector) and writes
+    "q" and "s" at the same cells."""
+    if isinstance(pool, dict):
+        L, NP, PS, Hk, D = pool["q"].shape
+        d = kv_quantize(new.reshape(-1, Hk, D))
+        pool["q"].view(L, NP * PS, Hk, D)[l_idx].index_copy_(0, rows, d["q"])
+        pool["s"].view(L, NP * PS, Hk)[l_idx].index_copy_(0, rows, d["s"])
+        return
     L, NP, PS, Hk, D = pool.shape
     pool.view(L, NP * PS, Hk, D)[l_idx].index_copy_(
         0, rows, new.reshape(-1, Hk, D).to(pool.dtype))

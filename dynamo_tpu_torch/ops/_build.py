@@ -30,28 +30,31 @@ NVCC_FLAGS = [
 # source stem -> {C function: (argtypes, restype)}
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
-    # q, k_pool, v_pool, page_table, kv_lens, out, part,
+    # q, k_pool, k_scales, v_pool, v_scales (the scales NULL for bf16
+    # pools), page_table, kv_lens, out, part,
     # B, Hk, G, D, PS, MP, split, window, scale, softcap, stream
     "paged_attention": {
         "decode_paged_attention": (
-            [_P] * 7 + [_I] * 8 + [_F, _F, _P], _I),
+            [_P] * 9 + [_I] * 8 + [_F, _F, _P], _I),
     },
-    # q, k_pool, v_pool, page_table, q_start, q_len, kv_lens, out,
-    # B, S, Hk, G, D, PS, MP, q_block, window, scale, softcap, stream
+    # q, k_pool, k_scales, v_pool, v_scales, page_table, q_start, q_len,
+    # kv_lens, out, B, S, Hk, G, D, PS, MP, q_block, window, scale,
+    # softcap, stream
     "flash_prefill": {
         "prefill_paged_attention": (
-            [_P] * 8 + [_I] * 9 + [_F, _F, _P], _I),
+            [_P] * 10 + [_I] * 9 + [_F, _F, _P], _I),
     },
-    # q, k_pool, v_pool, seg_page_table, seg_kv_lens, meta, out, part,
-    # NW, Hk, G, D, PS, MP, q_block, split, window, scale, softcap, stream
+    # q, k_pool, k_scales, v_pool, v_scales, seg_page_table, seg_kv_lens,
+    # meta, out, part, NW, Hk, G, D, PS, MP, q_block, split, window, scale,
+    # softcap, stream
     "ragged_paged_attention": {
         "ragged_paged_attention": (
-            [_P] * 8 + [_I] * 9 + [_F, _F, _P], _I),
+            [_P] * 10 + [_I] * 9 + [_F, _F, _P], _I),
     },
     "mla_attention": {
-        # q, lat_pool, page_table, kv_lens, out, part, B, H, dc, dr, PS,
-        # MP, split, scale, stream
-        "decode_mla_attention": ([_P] * 6 + [_I] * 7 + [_F, _P], _I),
+        # q, lat_pool, lat_scales (NULL for bf16), page_table, kv_lens,
+        # out, part, B, H, dc, dr, PS, MP, split, scale, stream
+        "decode_mla_attention": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
         # q, lat_pool, page_table, q_start, q_len, kv_lens, out,
         # B, S, H, dc, dr, PS, MP, scale, stream
         "prefill_mla_attention": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),

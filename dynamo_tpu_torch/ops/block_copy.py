@@ -22,7 +22,8 @@ import torch
 from dynamo_tpu_torch.ops import _build
 
 # the kernels move bytes: any of these element types, 16-byte vectors
-_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
+# (int8: the codes of an int8 KV pool; its f32 scales go as float32)
+_DTYPES = (torch.bfloat16, torch.float16, torch.float32, torch.int8)
 
 
 def gather_pages_ref(pool: torch.Tensor, idx: torch.Tensor, *,

@@ -2,8 +2,10 @@
 //
 // Replaces the Pallas TPU kernel dynamo_tpu/ops/flash_prefill.py
 // `prefill_paged_attention` (body `_prefill_kernel_body`), its bf16
-// bodies `_prefill_kernel` and `_prefill_kernel_win` with the static
-// softcap and scale: a chunk of S query tokens per sequence, at absolute
+// bodies `_prefill_kernel` and `_prefill_kernel_win` and its int8 bodies
+// `_prefill_kernel_int8` and `_prefill_kernel_int8_win` (codes and scales
+// as paged_flash.cuh's kI8 describes), with the static softcap and scale:
+// a chunk of S query tokens per sequence, at absolute
 // positions q_start .. q_start + q_len - 1 (padding rows after q_len),
 // attends causally over the sequence's whole paged context (prior prefix
 // plus the chunk, already written to the token-major pool [NP, PS, Hk,
@@ -51,11 +53,13 @@ using namespace paged_flash;
 
 constexpr int kWarps = 8;  // 128 query rows: 16 a warp
 
-template <int D, bool kCap, bool kWin>
+template <int D, bool kCap, bool kWin, bool kI8>
 __global__ void __launch_bounds__(32 * kWarps)
 prefill_kernel(const __nv_bfloat16* __restrict__ q,
-               const __nv_bfloat16* __restrict__ k_pool,
-               const __nv_bfloat16* __restrict__ v_pool,
+               const void* __restrict__ k_pool,
+               const float* __restrict__ ks,  // kI8: [NP, PS, Hk] scales
+               const void* __restrict__ v_pool,
+               const float* __restrict__ vs,
                const int* __restrict__ page_table,
                const int* __restrict__ q_start,
                const int* __restrict__ q_len,
@@ -89,64 +93,71 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   const int last_pos = n_tok > 0 ? min(pos0 + n_tok - 1, kvl - 1) : -1;
 
   RowState<D> st;
-  attend<D, kWarps, kCap, kWin>(smem, q_row, row_span, k_pool, v_pool,
-                          page_table + (size_t)b * MP, PS, Hk, h, first_seen(pos0),
-                          last_pos + 1, sm, st);
+  attend<D, kWarps, kCap, kWin, kI8>(smem, q_row, row_span, k_pool, ks, v_pool, vs,
+                                     page_table + (size_t)b * MP, PS, Hk, h,
+                                     first_seen(pos0), last_pos + 1, sm, st);
   store_rows<D>([&](int r) -> __nv_bfloat16* {
     return (r < rows && s0 + r / G < S) ? out + q_offset(r) : nullptr;
   }, st);
 }
 
-template <int D, bool kCap, bool kWin>
+template <int D, bool kCap, bool kWin, bool kI8>
 int launch(const dim3& grid, cudaStream_t st, const __nv_bfloat16* q,
-           const __nv_bfloat16* k, const __nv_bfloat16* v, const int* pt,
-           const int* qs, const int* ql, const int* kl, __nv_bfloat16* out,
-           int S, int Hk, int G, int PS, int MP, int QB, int window,
-           const ScoreMap& sm) {
-  constexpr int smem = Shape<D, kWarps>::kSmemBytes;
+           const KvPools& kv, const int* pt, const int* qs, const int* ql,
+           const int* kl, __nv_bfloat16* out, int S, int Hk, int G, int PS,
+           int MP, int QB, int window, const ScoreMap& sm) {
+  constexpr int smem =
+      kI8 ? Shape<D, kWarps>::kSmemBytesI8 : Shape<D, kWarps>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      prefill_kernel<D, kCap, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      prefill_kernel<D, kCap, kWin, kI8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  prefill_kernel<D, kCap, kWin><<<grid, 32 * kWarps, smem, st>>>(
-      q, k, v, pt, qs, ql, kl, out, S, Hk, G, PS, MP, QB, window, sm);
+  prefill_kernel<D, kCap, kWin, kI8><<<grid, 32 * kWarps, smem, st>>>(
+      q, kv.k, kv.ks, kv.v, kv.vs, pt, qs, ql, kl, out, S, Hk, G, PS, MP, QB, window, sm);
   return static_cast<int>(cudaGetLastError());
 }
 
-// the body for (D, soft cap or not, window or not): the plain path
-// carries no cap or window code
+// the body for (D, soft cap or not, window or not, int8 or bf16): the
+// plain path carries no cap, window or int8 code
 template <int D>
 int launch_d(bool cap, const dim3& grid, cudaStream_t st, const __nv_bfloat16* q,
-             const __nv_bfloat16* k, const __nv_bfloat16* v, const int* pt,
-             const int* qs, const int* ql, const int* kl, __nv_bfloat16* out,
-             int S, int Hk, int G, int PS, int MP, int QB, int window,
-             const ScoreMap& sm) {
-  auto go = [&](auto cap_t, auto win_t) {
-    return launch<D, decltype(cap_t)::value, decltype(win_t)::value>(
-        grid, st, q, k, v, pt, qs, ql, kl, out, S, Hk, G, PS, MP, QB, window, sm);
+             const KvPools& kv, const int* pt, const int* qs, const int* ql,
+             const int* kl, __nv_bfloat16* out, int S, int Hk, int G, int PS,
+             int MP, int QB, int window, const ScoreMap& sm) {
+  auto go = [&](auto cap_t, auto win_t, auto i8_t) {
+    return launch<D, decltype(cap_t)::value, decltype(win_t)::value,
+                  decltype(i8_t)::value>(grid, st, q, kv, pt, qs, ql, kl, out, S, Hk,
+                                         G, PS, MP, QB, window, sm);
   };
   using T = std::true_type;
   using F = std::false_type;
-  if (window > 0) return cap ? go(T{}, T{}) : go(F{}, T{});
-  return cap ? go(T{}, F{}) : go(F{}, F{});
+  if (kv.ks != nullptr) {
+    if (window > 0) return cap ? go(T{}, T{}, T{}) : go(F{}, T{}, T{});
+    return cap ? go(T{}, F{}, T{}) : go(F{}, F{}, T{});
+  }
+  if (window > 0) return cap ? go(T{}, T{}, F{}) : go(F{}, T{}, F{});
+  return cap ? go(T{}, F{}, F{}) : go(F{}, F{}, F{});
 }
 
 }  // namespace
 
+// k_scales, v_scales: nullptr for bf16 pools; for int8 pools (codes [NP,
+// PS, Hk, D]) their f32 scales [NP, PS, Hk].
 extern "C" int prefill_paged_attention(
-    const void* q, const void* k_pool, const void* v_pool,
-    const void* page_table, const void* q_start, const void* q_len,
-    const void* kv_lens, void* out, int B, int S, int Hk, int G, int D,
-    int PS, int MP, int q_block, int window, float scale, float softcap,
-    void* stream) {
+    const void* q, const void* k_pool, const void* k_scales, const void* v_pool,
+    const void* v_scales, const void* page_table, const void* q_start,
+    const void* q_len, const void* kv_lens, void* out, int B, int S, int Hk,
+    int G, int D, int PS, int MP, int q_block, int window, float scale,
+    float softcap, void* stream) {
   if (B == 0 || S == 0) return 0;
-  if (q_block < 1 || q_block * G > 16 * kWarps) {
+  if (q_block < 1 || q_block * G > 16 * kWarps ||
+      (k_scales == nullptr) != (v_scales == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const dim3 grid((S + q_block - 1) / q_block, Hk, B);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qq = static_cast<const __nv_bfloat16*>(q);
-  const auto* kk = static_cast<const __nv_bfloat16*>(k_pool);
-  const auto* vv = static_cast<const __nv_bfloat16*>(v_pool);
+  const KvPools kv{k_pool, static_cast<const float*>(k_scales), v_pool,
+                 static_cast<const float*>(v_scales)};
   const auto* pt = static_cast<const int*>(page_table);
   const auto* qs = static_cast<const int*>(q_start);
   const auto* ql = static_cast<const int*>(q_len);
@@ -155,15 +166,15 @@ extern "C" int prefill_paged_attention(
   const paged_flash::ScoreMap sm = paged_flash::score_map(scale, softcap);
   const bool cap = softcap > 0.f;
   if (D == 128) {
-    return launch_d<128>(cap, grid, st, qq, kk, vv, pt, qs, ql, kl, oo, S, Hk, G,
+    return launch_d<128>(cap, grid, st, qq, kv, pt, qs, ql, kl, oo, S, Hk, G,
                          PS, MP, q_block, window, sm);
   }
   if (D == 64) {
-    return launch_d<64>(cap, grid, st, qq, kk, vv, pt, qs, ql, kl, oo, S, Hk, G,
+    return launch_d<64>(cap, grid, st, qq, kv, pt, qs, ql, kl, oo, S, Hk, G,
                         PS, MP, q_block, window, sm);
   }
   if (D == 256) {
-    return launch_d<256>(cap, grid, st, qq, kk, vv, pt, qs, ql, kl, oo, S, Hk, G,
+    return launch_d<256>(cap, grid, st, qq, kv, pt, qs, ql, kl, oo, S, Hk, G,
                          PS, MP, q_block, window, sm);
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -2,8 +2,9 @@
 // cache, for Hopper (sm_90a): decode and chunked prefill.
 //
 // Replaces the Pallas TPU kernels of dynamo_tpu/ops/mla_attention.py:
-// `decode_mla_attention` (body `_mla_kernel`, plain bf16 variant) and
-// `prefill_mla_attention` (`_mla_prefill_kernel`). Attention runs in the
+// `decode_mla_attention` (bodies `_mla_kernel`, bf16, and
+// `_mla_kernel_int8`, the int8 latent) and `prefill_mla_attention`
+// (`_mla_prefill_kernel`, bf16 only, as there). Attention runs in the
 // absorbed form: every query row (a token x head) carries a 576-wide vector
 // q = [q_nope @ W_UK ; q_rope], every context token one 576-wide latent
 // (the RMS-normed c_kv, 512 wide, then the shared RoPE key, 64 wide) in the
@@ -78,6 +79,17 @@
 // merge_splits), launched by the same call. No atomics: the same bits from
 // run to run.
 //
+// int8 latent (decode only; template flag kI8): the pool is models/quant.py's
+// {"q": int8 [NP, PS, 1, 576], "s": f32 [NP, PS, 1]}. A token's 576 codes are
+// one bulk copy into the last 576 bytes of its 1168-byte row slot and its
+// scale a 4-byte cp.async into the stage's slab [32] f32. Once a tile's
+// `full` barrier has completed, each warp converts its own 4 rows to bf16
+// in place (paged_flash.cuh convert_rows) and arrives on the stage's third
+// barrier, `conv`; a warp computes on the tile after `conv` has completed.
+// The one per-token scale multiplies the raw scores and, after the row
+// sum, p (the TPU kernel's fold): it dequantizes both the scores' and the
+// values' side of the same latent. 292 bytes a token against 1152 in bf16.
+//
 // Prefill: grid (ceil(S / 4), H / 16, B). A block owns 4 query tokens x 16
 // heads, so a row group is one token's 16 heads and its causal limit,
 // min(q_start + s, kv_len - 1), is the same for every row of the pair; a
@@ -117,6 +129,10 @@ constexpr int kMaxOff = kPOff + kRows * kPStr * 2;         // [2][kRows] f32
 constexpr int kLOff = kMaxOff + 2 * kRows * 4;             // [2][kRows] f32
 constexpr int kBarOff = kLOff + 2 * kRows * 4;
 constexpr int kSmemBytes = kBarOff + 2 * 8 * kStages;       // a full and an empty barrier a stage
+// int8: a `conv` barrier a stage, then the stages' scale slabs [kStages][kT]
+constexpr int kConvOff = kSmemBytes;
+constexpr int kScaleOff = kConvOff + 8 * kStages;
+constexpr int kSmemBytesI8 = kScaleOff + kStages * kT * 4;
 constexpr int kWarps = kThreads / 32;
 constexpr int kCopiesPerWarp = kT / kWarps;  // latent rows a warp copies a tile (4)
 // tiles issued ahead of the one computed: the ring also holds the tile
@@ -126,7 +142,7 @@ constexpr int kOCols = kDC / 2 / 8;    // 8-column blocks of a half's accumulato
 constexpr int kMergeThreads = kDC / 4; // a merge block: one head, a float4 a thread
 constexpr int kPreHeads = 16;                   // heads a prefill block: a row group
 constexpr int kPreTokens = kRows / kPreHeads;   // query tokens a prefill block (4)
-static_assert(kSmemBytes <= 232448, "the ring fits shared memory");
+static_assert(kSmemBytesI8 <= 232448, "the ring fits shared memory");
 
 // the 64 threads of row group rg's two warps
 __device__ __forceinline__ void pair_sync(int rg) {
@@ -141,14 +157,16 @@ __device__ __forceinline__ void mbar_arrive(uint32_t bar) {
 // multiple of kT, in the layout above: q_row(r) is row r's 576 query values
 // in global memory (nullptr: staged as zeros), vis the last position this
 // warp's row group sees (-1: none; at most c_end - 1), pt the row's page
-// table over the pool [NP, PS, 576]. On return o holds rows r0 = rg * 16 +
+// table over the pool [NP, PS, 576] (bf16; with kI8 int8 codes, lat_s their
+// scales [NP, PS]). On return o holds rows r0 = rg * 16 +
 // lane / 4 and r0 + 8 (index i) unnormalised, columns ch * 256 + n * 8 +
 // 2 * (lane % 4) and the next; m the running max in base-2 units; l the sum
 // over the whole row (both halves, added in half order). Every thread of
 // the block must call it (it holds __syncthreads).
-template <class QRow>
+template <bool kI8, class QRow>
 __device__ __forceinline__ void attend(unsigned char* dsmem, QRow q_row, int vis,
-                                       const __nv_bfloat16* __restrict__ lat,
+                                       const void* __restrict__ lat,
+                                       const float* __restrict__ lat_s,
                                        const int* __restrict__ pt, int PS, int c_begin,
                                        int c_end, float scale_log2, float (&o)[kOCols][4],
                                        float (&m)[2], float (&l)[2]) {
@@ -164,7 +182,10 @@ __device__ __forceinline__ void attend(unsigned char* dsmem, QRow q_row, int vis
   __nv_bfloat16* sP = reinterpret_cast<__nv_bfloat16*>(dsmem + kPOff);
   float* sMax = reinterpret_cast<float*>(dsmem + kMaxOff);
   float* sL = reinterpret_cast<float*>(dsmem + kLOff);
+  float* sSc = reinterpret_cast<float*>(dsmem + kScaleOff);  // kI8 only
   const uint32_t bar0 = smem_u32(dsmem + kBarOff);
+  const uint32_t conv0 = smem_u32(dsmem + kConvOff);  // kI8 only
+  constexpr int kElem = kI8 ? 1 : 2;  // bytes a pool element
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
   const int lane = tid & 31;
@@ -177,17 +198,24 @@ __device__ __forceinline__ void attend(unsigned char* dsmem, QRow q_row, int vis
     const int r = i / kRowVecs;
     const int c8 = (i % kRowVecs) * 8;
     const __nv_bfloat16* src = q_row(r);
-    paged_flash::cp_async16(smem_u32(sQ + r * kStr + c8), src ? src + c8 : lat,
+    paged_flash::cp_async16(smem_u32(sQ + r * kStr + c8),
+                            src ? src + c8 : static_cast<const __nv_bfloat16*>(lat),
                             src != nullptr);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
-  // stage s: `full` at bar0 + 8 s, `empty` at bar0 + 8 (kStages + s), each
-  // arrived on once a tile by every warp
+  // stage s: `full` at bar0 + 8 s, `empty` at bar0 + 8 (kStages + s), with
+  // kI8 `conv` at conv0 + 8 s, each arrived on once a tile by every warp
   if (tid == 0) {
     for (int s = 0; s < 2 * kStages; ++s) paged_flash::mbar_init(bar0 + 8 * s, kWarps);
+    if constexpr (kI8) {
+      for (int s = 0; s < kStages; ++s) paged_flash::mbar_init(conv0 + 8 * s, kWarps);
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
-  __syncthreads();  // the barriers are visible
+  if constexpr (kI8) {  // scales of tokens never copied stay finite
+    for (int i = tid; i < kStages * kT; i += kThreads) sSc[i] = 0.f;
+  }
+  __syncthreads();  // the barriers (and the zeroed scales) are visible
 
   // Tile u goes into stage u % kStages, issued by every warp at the start of
   // tile u - kLead once all are done with tile u - kStages (`empty`): lanes
@@ -203,6 +231,9 @@ __device__ __forceinline__ void attend(unsigned char* dsmem, QRow q_row, int vis
     return lane < kCopiesPerWarp && u < n_tiles && c < c_end ? __ldg(pt + c / PS) : 0;
   };
   int page = fetch_page(0);  // of token `tok` in the next tile to issue
+  // With kI8 a lane's codes land in its row slot's last 576 bytes (the
+  // zeroed rows convert to 0) and its scale in the stage's slab; every lane
+  // commits one cp.async group an issue.
   auto issue = [&](int u) {
     const int c0 = c_begin + u * kT;
     const int n = min(kT, c_end - c0) - warp * kCopiesPerWarp;  // this warp's rows to copy
@@ -214,12 +245,19 @@ __device__ __forceinline__ void attend(unsigned char* dsmem, QRow q_row, int vis
     }
     __syncwarp();
     if (lane == 0) {
-      paged_flash::mbar_expect_tx(full, min(max(n, 0), kCopiesPerWarp) * kDL * 2);
+      paged_flash::mbar_expect_tx(full, min(max(n, 0), kCopiesPerWarp) * kDL * kElem);
     }
     if (lane < min(n, kCopiesPerWarp)) {
-      paged_flash::bulk_copy(smem_u32(rows + lane * kStr),
-                             lat + ((size_t)page * PS + (c0 + tok) % PS) * kDL, kDL * 2, full);
+      const size_t cell = (size_t)page * PS + (c0 + tok) % PS;
+      unsigned char* dst = reinterpret_cast<unsigned char*>(rows + lane * kStr);
+      paged_flash::bulk_copy(smem_u32(dst + (kI8 ? kStr * 2 - kDL : 0)),
+                             static_cast<const unsigned char*>(lat) + cell * kDL * kElem,
+                             kDL * kElem, full);
+      if constexpr (kI8) {
+        paged_flash::cp_async4(smem_u32(sSc + (u % kStages) * kT + tok), lat_s + cell);
+      }
     }
+    if constexpr (kI8) paged_flash::cp_async_commit();
     page = fetch_page(u + 1);
   };
   for (int u = 0; u < kLead && u < n_tiles; ++u) issue(u);
@@ -240,10 +278,24 @@ __device__ __forceinline__ void attend(unsigned char* dsmem, QRow q_row, int vis
       if (u >= kStages)  // every warp is done with tile u - kStages
         paged_flash::mbar_wait(bar0 + 8 * (kStages + u % kStages), (u / kStages - 1) & 1);
       issue(u);
+    } else if constexpr (kI8) {
+      paged_flash::cp_async_commit();  // one group an iteration
     }
     paged_flash::mbar_wait(bar0 + 8 * (t % kStages), (t / kStages) & 1);
     const int c0 = c_begin + t * kT;
     const __nv_bfloat16* sT = sLat + (t % kStages) * kT * kStr;
+    const float* sc = sSc + (t % kStages) * kT;  // kI8: the tile's scales
+    if constexpr (kI8) {
+      // this warp's 4 rows to bf16, its lanes' scales landed (tiles t + 1 ..
+      // t + kLead may be in flight), then every warp's
+      paged_flash::convert_rows<kDL, kStr * 2, kCopiesPerWarp>(reinterpret_cast<unsigned char*>(
+          sLat + ((t % kStages) * kT + warp * kCopiesPerWarp) * kStr));
+      paged_flash::cp_async_wait<kLead>();
+      paged_flash::fence_proxy_async();  // the converted rows before the refill
+      __syncwarp();
+      if (lane == 0) mbar_arrive(conv0 + 8 * (t % kStages));
+      paged_flash::mbar_wait(conv0 + 8 * (t % kStages), (t / kStages) & 1);
+    }
     if (c0 <= vis) {  // the pair sees some of this tile
       // S = Q Lat^T: 16 rows x this half's 16 tokens, k over all 576 columns
       float s[2][4];
@@ -267,8 +319,9 @@ __device__ __forceinline__ void attend(unsigned char* dsmem, QRow q_row, int vis
       for (int n = 0; n < 2; ++n) {
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          const int c = c0 + ch * 16 + n * 8 + 2 * t4 + (e & 1);
-          s[n][e] = full || c <= vis ? s[n][e] * scale_log2 : minus_inf();
+          const int j = ch * 16 + n * 8 + 2 * t4 + (e & 1);  // token of the tile
+          const float raw = kI8 ? s[n][e] * sc[j] : s[n][e];
+          s[n][e] = full || c0 + j <= vis ? raw * scale_log2 : minus_inf();
           mx[e >> 1] = fmaxf(mx[e >> 1], s[n][e]);
         }
       }
@@ -298,8 +351,11 @@ __device__ __forceinline__ void attend(unsigned char* dsmem, QRow q_row, int vis
         sum[0] += p0 + p1;
         sum[1] += p2 + p3;
         const int col = ch * 16 + n * 8 + 2 * t4;
-        *reinterpret_cast<uint32_t*>(sP + r0 * kPStr + col) = pack_bf16(p0, p1);
-        *reinterpret_cast<uint32_t*>(sP + (r0 + 8) * kPStr + col) = pack_bf16(p2, p3);
+        // with kI8 the values' scale multiplies p after the row sum
+        const float v0 = kI8 ? sc[col] : 1.f, v1 = kI8 ? sc[col + 1] : 1.f;
+        *reinterpret_cast<uint32_t*>(sP + r0 * kPStr + col) = pack_bf16(p0 * v0, p1 * v1);
+        *reinterpret_cast<uint32_t*>(sP + (r0 + 8) * kPStr + col) =
+            pack_bf16(p2 * v0, p3 * v1);
       }
 #pragma unroll
       for (int i = 0; i < 2; ++i) l[i] = l[i] * alpha[i] + sum[i];
@@ -347,9 +403,11 @@ __device__ __forceinline__ void attend(unsigned char* dsmem, QRow q_row, int vis
 
 // Grid (B, ceil(H / 64), NS), 256 threads: heads h0 .. h0 + 63 of sequence
 // b over context positions [z * split, min((z + 1) * split, kv_len)).
+template <bool kI8>
 __global__ void __launch_bounds__(kThreads, 1)
 mla_decode_split_kernel(const __nv_bfloat16* __restrict__ q,    // [B, H, 576]
-                        const __nv_bfloat16* __restrict__ lat,  // [NP, PS, 576]
+                        const void* __restrict__ lat,           // [NP, PS, 576] bf16 / int8
+                        const float* __restrict__ lat_s,        // kI8: [NP, PS] scales
                         const int* __restrict__ page_table,     // [B, MP]
                         const int* __restrict__ kv_lens,        // [B]
                         __nv_bfloat16* __restrict__ out,        // [B, H, 512]
@@ -372,10 +430,10 @@ mla_decode_split_kernel(const __nv_bfloat16* __restrict__ q,    // [B, H, 576]
   const bool live = rg * 16 < nh;  // uniform over the warp and its pair
 
   float o[kOCols][4], m[2], l[2];
-  attend(dsmem,
-         [&](int r) { return r < nh ? q + ((size_t)b * H + h0 + r) * kDL : nullptr; },
-         live ? c_end - 1 : -1, lat, page_table + (size_t)b * MP, PS, c_begin, c_end,
-         scale_log2, o, m, l);
+  attend<kI8>(dsmem,
+              [&](int r) { return r < nh ? q + ((size_t)b * H + h0 + r) * kDL : nullptr; },
+              live ? c_end - 1 : -1, lat, lat_s, page_table + (size_t)b * MP, PS, c_begin,
+              c_end, scale_log2, o, m, l);
   if (!live) return;
   const bool direct = kvl <= split;  // one split: bf16 out, else partials
   const int r0 = rg * 16 + (lane >> 2);
@@ -470,13 +528,14 @@ mla_prefill_kernel(const __nv_bfloat16* __restrict__ q,    // [B, S, H, 576]
   const int vis = limit(rg);
 
   float o[kOCols][4], m[2], l[2];
-  attend(dsmem,
-         [&](int r) -> const __nv_bfloat16* {
-           if (limit(r / kPreHeads) < 0) return nullptr;
-           return q + (((size_t)b * S + sb * kPreTokens + r / kPreHeads) * H + h0 +
-                       r % kPreHeads) * kDL;
-         },
-         vis, lat, page_table + (size_t)b * MP, PS, 0, last + 1, scale_log2, o, m, l);
+  attend<false>(dsmem,
+                [&](int r) -> const __nv_bfloat16* {
+                  if (limit(r / kPreHeads) < 0) return nullptr;
+                  return q + (((size_t)b * S + sb * kPreTokens + r / kPreHeads) * H + h0 +
+                              r % kPreHeads) * kDL;
+                },
+                vis, lat, nullptr, page_table + (size_t)b * MP, PS, 0, last + 1, scale_log2,
+                o, m, l);
   const int r0 = rg * 16 + (lane >> 2);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -493,13 +552,31 @@ mla_prefill_kernel(const __nv_bfloat16* __restrict__ q,    // [B, S, H, 576]
   }
 }
 
+template <bool kI8>
+cudaError_t launch_decode(dim3 grid, cudaStream_t st, const void* q, const void* lat,
+                          const void* lat_s, const void* page_table, const void* kv_lens,
+                          void* out, void* part, int B, int H, int PS, int MP, int split,
+                          float scale) {
+  constexpr int smem = kI8 ? kSmemBytesI8 : kSmemBytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      mla_decode_split_kernel<kI8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  mla_decode_split_kernel<kI8><<<grid, kThreads, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), lat, static_cast<const float*>(lat_s),
+      static_cast<const int*>(page_table), static_cast<const int*>(kv_lens),
+      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part), B, H, PS, MP, split,
+      scale * paged_flash::kLog2e);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 // q [B, H, 576], lat [NP, PS, 1, 576], page_table [B, MP], kv_lens [B]
-// -> out [B, H, 512]; bf16, int32. part: f32 scratch [NS, B, H, 516], NS =
-// ceil(MP * PS / split); only the splits of rows longer than one split are
-// written.
-extern "C" int decode_mla_attention(const void* q, const void* lat,
+// -> out [B, H, 512]; bf16, int32. lat_s: nullptr for a bf16 latent pool;
+// for an int8 one (codes [NP, PS, 1, 576]) its f32 scales [NP, PS, 1].
+// part: f32 scratch [NS, B, H, 516], NS = ceil(MP * PS / split); only the
+// splits of rows longer than one split are written.
+extern "C" int decode_mla_attention(const void* q, const void* lat, const void* lat_s,
                                     const void* page_table, const void* kv_lens,
                                     void* out, void* part, int B, int H, int dc,
                                     int dr, int PS, int MP, int split, float scale,
@@ -511,15 +588,13 @@ extern "C" int decode_mla_attention(const void* q, const void* lat,
   const int NS = (MP * PS + split - 1) / split;
   const int n_hb = (H + kRows - 1) / kRows;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(
-      mla_decode_split_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  mla_decode_split_kernel<<<dim3(B, n_hb, NS), kThreads, kSmemBytes, st>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(lat),
-      static_cast<const int*>(page_table), static_cast<const int*>(kv_lens),
-      static_cast<__nv_bfloat16*>(out), static_cast<float*>(part), B, H, PS, MP, split,
-      scale * paged_flash::kLog2e);
-  err = cudaGetLastError();
+  const dim3 grid(B, n_hb, NS);
+  cudaError_t err =
+      lat_s != nullptr
+          ? launch_decode<true>(grid, st, q, lat, lat_s, page_table, kv_lens, out, part, B,
+                                H, PS, MP, split, scale)
+          : launch_decode<false>(grid, st, q, lat, lat_s, page_table, kv_lens, out, part, B,
+                                 H, PS, MP, split, scale);
   if (err != cudaSuccess || NS < 2) return static_cast<int>(err);
   mla_decode_merge_kernel<<<dim3(B, H), kMergeThreads, 0, st>>>(
       static_cast<const float*>(part), static_cast<const int*>(kv_lens),

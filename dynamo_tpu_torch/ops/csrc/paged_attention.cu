@@ -2,8 +2,10 @@
 //
 // Replaces the Pallas TPU kernel dynamo_tpu/ops/paged_attention.py
 // `decode_paged_attention` (body `_decode_kernel_body`), its bf16 bodies
-// `_decode_kernel` and `_decode_kernel_win` with the static softcap and
-// scale, at head dims 64, 128 and 256: one query token per sequence, all
+// `_decode_kernel` and `_decode_kernel_win` and its int8 bodies
+// `_decode_kernel_int8` and `_decode_kernel_int8_win`, with the static
+// softcap and scale, at head dims 64, 128 and 256: one query token per
+// sequence, all
 // G query heads of each kv-head, attends over the sequence's pages of a
 // token-major pool [NP, PS, Hk, D] up to kv_len (with a window w > 0,
 // from kv_len - w: the reference's rule at paged_attention.py:78-84), with
@@ -56,6 +58,15 @@
 //   - D 256 (Gemma-2): Q's fragments are reloaded from shared memory each
 //     tile (QFrags), so that O's 128 registers fit; 211 KB of shared
 //     memory, one block an SM.
+//   - int8 pools (models/quant.py; the TPU kernel's `_decode_kernel_int8`
+//     and `_int8_win`, template flag kI8): a tile's codes arrive by bulk
+//     copies of D bytes into the last D bytes of each row slot and its
+//     scales by 4-byte cp.async into the warp's scale slab; the warp
+//     converts its slot to bf16 in place (paged_flash.cuh convert_rows)
+//     and tile_update folds the K scale into the raw scores and the V
+//     scale into p after the row sum. Half the bytes of the bf16 body
+//     plus 8 bytes a token and head of scales: (D + 4) / 2 D of them at
+//     D 128, 0.52.
 //   - The warps' (m, l, O) are combined through shared memory in warp
 //     order. A row whose context fits one split writes its bf16 output
 //     directly; a longer row's blocks write f32 partials (O, m, l) to the
@@ -64,6 +75,8 @@
 //     log-sum-exp in split order (paged_flash.cuh merge_splits, shared
 //     with the ragged kernel). No atomics: results are the same bit for
 //     bit from run to run.
+
+#include <type_traits>
 
 #include "paged_flash.cuh"
 
@@ -79,19 +92,24 @@ struct DecShape {
   static constexpr int kStride = D + 8;  // bf16 row stride in shared memory
   static constexpr int kTileElems = kTile * kStride;
   static constexpr int kQElems = 16 * kStride;
-  // Q, then per warp a K tile and a V tile, then one mbarrier a warp
+  // Q, then per warp a K tile and a V tile, then one mbarrier a warp; int8
+  // adds a scale slab a warp [kWarps][2][kTile] f32
   static constexpr int kBarOff = (kQElems + 2 * kWarps * kTileElems) * 2;
   static constexpr int kSmemBytes = kBarOff + 8 * kWarps;
+  static constexpr int kScaleOff = kSmemBytes;
+  static constexpr int kSmemBytesI8 = kScaleOff + kWarps * 2 * kTile * 4;
   // the combine area (per warp 8 rows of O, m, l) reuses the tile slots
   static_assert(kWarps * 8 * (D + 2) * 4 <= 2 * kWarps * kTileElems * 2,
                 "combine area larger than the slots");
 };
 
-template <int D, bool kCap>
+template <int D, bool kCap, bool kI8>
 __global__ void __launch_bounds__(kThreads)
 decode_split_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k_pool,
-                    const __nv_bfloat16* __restrict__ v_pool,
+                    const void* __restrict__ k_pool,
+                    const float* __restrict__ ks,  // kI8: [NP, PS, Hk] scales
+                    const void* __restrict__ v_pool,
+                    const float* __restrict__ vs,
                     const int* __restrict__ page_table,
                     const int* __restrict__ kv_lens,
                     __nv_bfloat16* __restrict__ out,
@@ -121,6 +139,7 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
   }
   const int n_tiles = c_end > c_begin ? (c_end - c_begin + kTile - 1) / kTile : 0;
 
+  constexpr int kElem = kI8 ? 1 : 2;  // bytes a pool element
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* sKV = sQ + Sh::kQElems;  // warp w: K at 2w, V at 2w + 1
   const uint32_t bar0 = smem_u32(smem + Sh::kBarOff);
@@ -146,25 +165,41 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
 
   const uint32_t bar = bar0 + 8 * warp;
   __nv_bfloat16* sK = sKV + 2 * warp * Sh::kTileElems;
+  float* sSc = reinterpret_cast<float*>(smem + Sh::kScaleOff) + warp * 2 * kTile;  // kI8
+  if constexpr (kI8) {  // scales of tokens never copied stay finite
+    for (int i = lane; i < 2 * kTile; i += 32) sSc[i] = 0.f;
+    __syncwarp();
+  }
   // tile t into this warp's slot: lane j copies token rows j / 2, (j + 32) / 2,
-  // ... (K for even j, V for odd). The V rows of a partial tile's missing
-  // tokens are zeroed (other addresses than the copies'), so their P = 0
-  // never meets stale bits; the warp syncs before it reads the slot.
+  // ... (K for even j, V for odd; with kI8 the codes into the slot's last D
+  // bytes and the scale into the warp's slab). The bf16 V rows of a partial
+  // tile's missing tokens are zeroed (other addresses than the copies'), so
+  // their P = 0 never meets stale bits; int8 rows convert to finite values
+  // whatever their bytes. The warp syncs before it reads the slot.
   auto issue = [&](int t) {
     const int c0 = c_begin + t * kTile;
     const int n = min(kTile, c_end - c0);
-    if (lane == 0) mbar_expect_tx(bar, n * D * 4);
+    if (lane == 0) mbar_expect_tx(bar, n * D * 2 * kElem);
     for (int j = lane; j < 2 * n; j += 32) {
       const int c = c0 + (j >> 1);
       const int is_v = j & 1;
-      const size_t off = ((size_t)__ldg(pt + c / PS) * PS + c % PS) * row_stride +
-                         (size_t)h * D;
-      bulk_copy(smem_u32(sK + is_v * Sh::kTileElems + (j >> 1) * Sh::kStride),
-                (is_v ? v_pool : k_pool) + off, D * 2, bar);
+      const size_t cell = (size_t)__ldg(pt + c / PS) * PS + c % PS;
+      const size_t off = (cell * row_stride + (size_t)h * D) * kElem;
+      unsigned char* dst =
+          reinterpret_cast<unsigned char*>(sK + is_v * Sh::kTileElems + (j >> 1) * Sh::kStride);
+      bulk_copy(smem_u32(dst + (kI8 ? D + 16 : 0)),
+                static_cast<const unsigned char*>(is_v ? v_pool : k_pool) + off, D * kElem, bar);
+      if constexpr (kI8) {
+        cp_async4(smem_u32(sSc + is_v * kTile + (j >> 1)), (is_v ? vs : ks) + cell * Hk + h);
+      }
     }
-    for (int i = n * (D / 8) + lane; i < kTile * (D / 8); i += 32) {
-      *reinterpret_cast<uint4*>(sK + Sh::kTileElems + (i / (D / 8)) * Sh::kStride +
-                                (i % (D / 8)) * 8) = make_uint4(0u, 0u, 0u, 0u);
+    if constexpr (kI8) {
+      cp_async_commit();
+    } else {
+      for (int i = n * (D / 8) + lane; i < kTile * (D / 8); i += 32) {
+        *reinterpret_cast<uint4*>(sK + Sh::kTileElems + (i / (D / 8)) * Sh::kStride +
+                                  (i % (D / 8)) * 8) = make_uint4(0u, 0u, 0u, 0u);
+      }
     }
   };
   if (warp < n_tiles) issue(warp);
@@ -191,10 +226,17 @@ decode_split_kernel(const __nv_bfloat16* __restrict__ q,
     int use = 0;
     for (int t = warp; t < n_tiles; t += kWarps, ++use) {
       mbar_wait(bar, use & 1);
-      __syncwarp();  // the zeroed rows are visible
+      if constexpr (kI8) {
+        // the warp's slot to bf16; the one outstanding scale group is this
+        // tile's
+        convert_rows<D, 2 * Sh::kStride, 2 * kTile>(reinterpret_cast<unsigned char*>(sK));
+        cp_async_wait<0>();
+        fence_proxy_async();  // the converted rows before the slot's refill
+      }
+      __syncwarp();  // the zeroed (or converted) rows and the scales are visible
       const int c0 = c_begin + t * kTile;
       // no window mask: every position the block walks is visible
-      tile_update<D, kCap, false>(qf, sK, c0, c0 + kTile <= c_end, sm, st);
+      tile_update<D, kCap, false, kI8>(qf, sK, c0, c0 + kTile <= c_end, sm, st, sSc);
       __syncwarp();  // every lane is done with the slot
       if (t + kWarps < n_tiles) issue(t + kWarps);
     }
@@ -264,17 +306,17 @@ decode_merge_kernel(const float* __restrict__ part, const int* __restrict__ kv_l
                             [=](int r) { return out + (row0 + r) * D; });
 }
 
-template <int D, bool kCap>
+template <int D, bool kCap, bool kI8>
 int launch(int B, int Hk, int NS, cudaStream_t st, const __nv_bfloat16* q,
-           const __nv_bfloat16* k, const __nv_bfloat16* v, const int* pt,
-           const int* kl, __nv_bfloat16* out, float* part, int G, int PS,
-           int MP, int split, int window, const ScoreMap& sm) {
-  constexpr int smem = DecShape<D>::kSmemBytes;
+           const KvPools& kv, const int* pt, const int* kl, __nv_bfloat16* out,
+           float* part, int G, int PS, int MP, int split, int window,
+           const ScoreMap& sm) {
+  constexpr int smem = kI8 ? DecShape<D>::kSmemBytesI8 : DecShape<D>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      decode_split_kernel<D, kCap>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      decode_split_kernel<D, kCap, kI8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  decode_split_kernel<D, kCap><<<dim3(Hk, B, NS), kThreads, smem, st>>>(
-      q, k, v, pt, kl, out, part, B, Hk, G, PS, MP, split, window, sm);
+  decode_split_kernel<D, kCap, kI8><<<dim3(Hk, B, NS), kThreads, smem, st>>>(
+      q, kv.k, kv.ks, kv.v, kv.vs, pt, kl, out, part, B, Hk, G, PS, MP, split, window, sm);
   err = cudaGetLastError();
   if (err != cudaSuccess || NS < 2) return static_cast<int>(err);
   decode_merge_kernel<D><<<dim3(Hk, B), kThreads, 0, st>>>(part, kl, out, B, Hk, G,
@@ -282,38 +324,46 @@ int launch(int B, int Hk, int NS, cudaStream_t st, const __nv_bfloat16* q,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the body for (D, soft cap or not): the plain path carries no cap code
+// the body for (D, soft cap or not, int8 or bf16): the plain path carries
+// no cap or int8 code
 template <int D>
 int launch_d(bool cap, int B, int Hk, int NS, cudaStream_t st,
-             const __nv_bfloat16* q, const __nv_bfloat16* k,
-             const __nv_bfloat16* v, const int* pt, const int* kl,
+             const __nv_bfloat16* q, const KvPools& kv, const int* pt, const int* kl,
              __nv_bfloat16* out, float* part, int G, int PS, int MP, int split,
              int window, const ScoreMap& sm) {
-  return cap ? launch<D, true>(B, Hk, NS, st, q, k, v, pt, kl, out, part, G, PS,
-                               MP, split, window, sm)
-             : launch<D, false>(B, Hk, NS, st, q, k, v, pt, kl, out, part, G, PS,
-                                MP, split, window, sm);
+  auto go = [&](auto cap_t, auto i8_t) {
+    return launch<D, decltype(cap_t)::value, decltype(i8_t)::value>(
+        B, Hk, NS, st, q, kv, pt, kl, out, part, G, PS, MP, split, window, sm);
+  };
+  using T = std::true_type;
+  using F = std::false_type;
+  if (kv.ks != nullptr) return cap ? go(T{}, T{}) : go(F{}, T{});
+  return cap ? go(T{}, F{}) : go(F{}, F{});
 }
 
 }  // namespace
 
 // part: f32 scratch [NS, B, Hk, G, D + 4], NS = ceil(MP * PS / split); only
-// the splits of rows longer than one split are written.
+// the splits of rows longer than one split are written. k_scales and
+// v_scales: nullptr for bf16 pools; for int8 pools (codes [NP, PS, Hk, D])
+// their f32 scales [NP, PS, Hk].
 extern "C" int decode_paged_attention(const void* q, const void* k_pool,
-                                      const void* v_pool, const void* page_table,
+                                      const void* k_scales, const void* v_pool,
+                                      const void* v_scales, const void* page_table,
                                       const void* kv_lens, void* out, void* part,
                                       int B, int Hk, int G, int D, int PS, int MP,
                                       int split, int window, float scale,
                                       float softcap, void* stream) {
   if (B == 0) return 0;
-  if (G < 1 || G > 8 || split < paged_flash::kTile || split % paged_flash::kTile) {
+  if (G < 1 || G > 8 || split < paged_flash::kTile || split % paged_flash::kTile ||
+      (k_scales == nullptr) != (v_scales == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int NS = (MP * PS + split - 1) / split;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qq = static_cast<const __nv_bfloat16*>(q);
-  const auto* kk = static_cast<const __nv_bfloat16*>(k_pool);
-  const auto* vv = static_cast<const __nv_bfloat16*>(v_pool);
+  const KvPools kv{k_pool, static_cast<const float*>(k_scales), v_pool,
+                 static_cast<const float*>(v_scales)};
   const auto* pt = static_cast<const int*>(page_table);
   const auto* kl = static_cast<const int*>(kv_lens);
   auto* oo = static_cast<__nv_bfloat16*>(out);
@@ -321,15 +371,15 @@ extern "C" int decode_paged_attention(const void* q, const void* k_pool,
   const paged_flash::ScoreMap sm = paged_flash::score_map(scale, softcap);
   const bool cap = softcap > 0.f;
   if (D == 128) {
-    return launch_d<128>(cap, B, Hk, NS, st, qq, kk, vv, pt, kl, oo, pp, G, PS, MP,
+    return launch_d<128>(cap, B, Hk, NS, st, qq, kv, pt, kl, oo, pp, G, PS, MP,
                          split, window, sm);
   }
   if (D == 64) {
-    return launch_d<64>(cap, B, Hk, NS, st, qq, kk, vv, pt, kl, oo, pp, G, PS, MP,
+    return launch_d<64>(cap, B, Hk, NS, st, qq, kv, pt, kl, oo, pp, G, PS, MP,
                         split, window, sm);
   }
   if (D == 256) {
-    return launch_d<256>(cap, B, Hk, NS, st, qq, kk, vv, pt, kl, oo, pp, G, PS, MP,
+    return launch_d<256>(cap, B, Hk, NS, st, qq, kv, pt, kl, oo, pp, G, PS, MP,
                          split, window, sm);
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -65,6 +65,22 @@
 // wgmma's 64-row tile. Why bulk copies and not TMA tensor tiles: a tensor
 // map cannot follow a page table of 16-token pages without one descriptor
 // copy per page.
+//
+// int8 KV (template flag kI8; the pools are models/quant.py's {"q": int8,
+// "s": f32 [NP, PS, Hk]}): the TPU kernels' `_*_kernel_int8` bodies. A
+// token's D codes are one bulk copy of D bytes into the last D bytes of
+// its row slot (D + 8 bf16 = 2 D + 16 bytes), and its two scales (K and
+// V) one 4-byte cp.async each into the stage's scale slab [2][64] f32
+// (a bulk copy takes no fewer than 16 bytes, and a head's scales lie Hk
+// floats apart). ldmatrix moves 16-bit elements, so once a tile has
+// landed its rows are converted in place to bf16 (convert_rows: every
+// code |q| <= 127 is exact in bf16, so both products stay exact) and the
+// products run as in the bf16 body. The scales are folded as the TPU
+// kernel folds them: the K scale multiplies the raw score before the
+// score map (scale, soft cap); the row sum takes p as it is; the V scale
+// multiplies p only for the value product, before P is rounded to bf16.
+// The ring keeps its size, so the int8 bodies have the bf16 bodies'
+// occupancy; conversion costs one block barrier a tile more.
 
 #pragma once
 
@@ -88,10 +104,23 @@ struct Shape {
   static constexpr int kKC = D / 16;          // 16-wide slices of the head dim
   static constexpr int kTileElems = kTile * kStride;
   static constexpr int kQElems = kRows * kStride;
-  // Q tile, kStages x (K tile, V tile), then one mbarrier a stage
+  // Q tile, kStages x (K tile, V tile), then one mbarrier a stage; int8
+  // adds the stages' scale slabs [kStages][2][kTile] f32
   static constexpr int kRingBytes = (kQElems + 2 * kStages * kTileElems) * 2;
   static constexpr int kSmemBytes = kRingBytes + 8 * kStages;
+  static constexpr int kScaleOff = kSmemBytes;
+  static constexpr int kSmemBytesI8 = kScaleOff + kStages * 2 * kTile * 4;
   static_assert(kThreads >= 2 * kTile, "one bulk copy a thread a tile");
+  static_assert((2 * kTile) % W == 0, "a warp converts whole rows");
+};
+
+// A GQA kernel's pools on the host side of a launch: bf16 pools (scales
+// nullptr), or int8 codes with their f32 scales [NP, PS, Hk]
+struct KvPools {
+  const void* k;
+  const float* ks;
+  const void* v;
+  const float* vs;
 };
 
 __device__ __forceinline__ float minus_inf() {
@@ -126,6 +155,28 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
                  " selp.u32 %0, 1, 0, p;\n}\n"
                  : "=r"(done) : "r"(bar), "r"(parity) : "memory");
   } while (!done);
+}
+
+// 4 bytes global -> shared (cp.async.ca: the only size under 16 bytes)
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" :: "r"(dst), "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// this thread's cp.async groups, all but the newest n complete
+template <int n>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(n) : "memory");
+}
+
+// this thread's shared-memory writes ordered before later bulk copies
+// (the async proxy) into the same bytes
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // `bytes` global -> shared by the TMA unit, counted on mbarrier `bar`
@@ -201,6 +252,52 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+// 4 int8 codes (code j in byte j of w) -> 4 bf16, code 0 in the low half
+// of .x; exact. Each code, biased by 128, is the low mantissa byte of 2^23
+// in f32 (2^23 + code + 128); subtracting 2^23 + 128 leaves the code, a
+// small integer whose f32 upper 16 bits are its bf16.
+__device__ __forceinline__ uint2 i8x4_to_bf16x4(uint32_t w) {
+  const uint32_t x = w ^ 0x80808080u;
+  const float bias = 8388736.f;  // 2^23 + 128
+  const uint32_t f0 = __float_as_uint(__uint_as_float(__byte_perm(x, 0x4b000000u, 0x7540)) - bias);
+  const uint32_t f1 = __float_as_uint(__uint_as_float(__byte_perm(x, 0x4b000000u, 0x7541)) - bias);
+  const uint32_t f2 = __float_as_uint(__uint_as_float(__byte_perm(x, 0x4b000000u, 0x7542)) - bias);
+  const uint32_t f3 = __float_as_uint(__uint_as_float(__byte_perm(x, 0x4b000000u, 0x7543)) - bias);
+  return make_uint2(__byte_perm(f0, f1, 0x7632), __byte_perm(f2, f3, 0x7632));
+}
+
+// One warp converts rows [0, kRowsW) from row0 (rows kRowBytes apart)
+// in place: each row's kD int8 codes, held in its last kD bytes (from
+// byte kRowBytes - kD), become kD bf16 at its start. A row's codes overlap
+// only its own bf16, and the warp reads a row whole (__syncwarp) before
+// it writes it. Rows whose codes were never copied convert whatever bytes
+// they hold: finite values, which their P = 0 (or mask) discards.
+template <int kD, int kRowBytes, int kRowsW>
+__device__ __forceinline__ void convert_rows(unsigned char* row0) {
+  constexpr int kChunks = kD / 16;  // 16 codes a chunk
+  constexpr int kPasses = (kRowsW * kChunks + 31) / 32;
+  const int lane = threadIdx.x & 31;
+#pragma unroll 2
+  for (int p = 0; p < kPasses; ++p) {
+    // pass p: chunks [32 p, 32 p + 32) of the warp's rows, row by row, so
+    // that the rows a pass reads are the rows it writes
+    const int i = p * 32 + lane;
+    const bool live = i < kRowsW * kChunks;
+    unsigned char* row = row0 + (size_t)(i / kChunks) * kRowBytes;
+    const int ch = i % kChunks;
+    uint4 c = make_uint4(0u, 0u, 0u, 0u);
+    if (live) c = *reinterpret_cast<const uint4*>(row + kRowBytes - kD + ch * 16);
+    __syncwarp();
+    if (live) {
+      const uint2 a = i8x4_to_bf16x4(c.x), b = i8x4_to_bf16x4(c.y);
+      const uint2 d = i8x4_to_bf16x4(c.z), e = i8x4_to_bf16x4(c.w);
+      *reinterpret_cast<uint4*>(row + ch * 32) = make_uint4(a.x, a.y, b.x, b.y);
+      *reinterpret_cast<uint4*>(row + ch * 32 + 16) = make_uint4(d.x, d.y, e.x, e.y);
+    }
+    __syncwarp();
+  }
+}
+
 __device__ __forceinline__ int warp_max(int x) {
 #pragma unroll
   for (int s = 16; s > 0; s >>= 1) x = max(x, __shfl_xor_sync(0xffffffffu, x, s));
@@ -271,12 +368,16 @@ struct QFrags {
 // cap with kCap) and mask (a token c counts for row i when full or c <=
 // st.vis[i], and with kWin st.lo[i] <= c), the running max and sum, P
 // rounded to bf16, O += P V. sK is the tile's K rows, the V rows follow
-// kTileElems later, both with rows D + 8 bf16 apart.
-template <int D, bool kCap, bool kWin>
+// kTileElems later, both with rows D + 8 bf16 apart. With kI8 the rows hold
+// the converted codes and sSc the tile's scales (K at [0, 64), V at
+// [64, 128)): the K scale multiplies the raw score, the V scale p after
+// the row sum.
+template <int D, bool kCap, bool kWin, bool kI8>
 __device__ __forceinline__ void tile_update(const QFrags<D>& qf,
                                             const __nv_bfloat16* sK, int c0,
                                             bool full, const ScoreMap& sm,
-                                            RowState<D>& st) {
+                                            RowState<D>& st,
+                                            const float* sSc = nullptr) {
   constexpr int kStride = D + 8;
   constexpr int kKC = D / 16;
   const __nv_bfloat16* sV = sK + kTile * kStride;
@@ -325,11 +426,14 @@ __device__ __forceinline__ void tile_update(const QFrags<D>& qf,
   float mx[2] = {minus_inf(), minus_inf()};
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
+    float2 ks = make_float2(1.f, 1.f);
+    if constexpr (kI8) ks = *reinterpret_cast<const float2*>(sSc + n * 8 + 2 * t4);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = e >> 1;
       const int c = c0 + n * 8 + 2 * t4 + (e & 1);
-      const float x = base2_logit<kCap>(s[n][e], sm);
+      const float raw = kI8 ? s[n][e] * ((e & 1) ? ks.y : ks.x) : s[n][e];
+      const float x = base2_logit<kCap>(raw, sm);
       s[n][e] = (full || (c <= st.vis[i] && (!kWin || c >= st.lo[i]))) ? x : minus_inf();
       mx[i] = fmaxf(mx[i], s[n][e]);
     }
@@ -353,8 +457,14 @@ __device__ __forceinline__ void tile_update(const QFrags<D>& qf,
     const float p3 = exp2_approx(s[n][3] - st.m[1]);
     sum[0] += p0 + p1;
     sum[1] += p2 + p3;
-    pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
-    pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
+    if constexpr (kI8) {  // the V scale, after the sum
+      const float2 vs = *reinterpret_cast<const float2*>(sSc + kTile + n * 8 + 2 * t4);
+      pa[n >> 1][(n & 1) * 2] = pack_bf16(p0 * vs.x, p1 * vs.y);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2 * vs.x, p3 * vs.y);
+    } else {
+      pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
+      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
+    }
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) st.l[i] = st.l[i] * alpha[i] + sum[i];
@@ -388,18 +498,21 @@ __device__ __forceinline__ void tile_update(const QFrags<D>& qf,
 // zeros); row_span(r) the first and last context positions row r sees
 // (x: the window's low edge, read only with kWin; y: min(causal top,
 // kv_len - 1), -1 if none or no row). pt is the row's page table, pool
-// rows [NP, PS, Hk, D]. Every thread of the block must call it (it holds
-// __syncthreads).
-template <int D, int W, bool kCap, bool kWin, class QRow, class RowSpan>
+// rows [NP, PS, Hk, D] of bf16, or with kI8 of int8 codes with scales
+// ks, vs [NP, PS, Hk] (unused without kI8). Every thread of the block must
+// call it (it holds __syncthreads).
+template <int D, int W, bool kCap, bool kWin, bool kI8, class QRow, class RowSpan>
 __device__ __forceinline__ void attend(
     unsigned char* smem_raw, QRow q_row, RowSpan row_span,
-    const __nv_bfloat16* __restrict__ k_pool,
-    const __nv_bfloat16* __restrict__ v_pool, const int* __restrict__ pt,
-    int PS, int Hk, int h, int c_begin, int c_end, const ScoreMap& sm,
-    RowState<D>& st) {
+    const void* __restrict__ k_pool, const float* __restrict__ ks,
+    const void* __restrict__ v_pool, const float* __restrict__ vs,
+    const int* __restrict__ pt, int PS, int Hk, int h, int c_begin, int c_end,
+    const ScoreMap& sm, RowState<D>& st) {
   using Sh = Shape<D, W>;
+  constexpr int kElem = kI8 ? 1 : 2;  // bytes a pool element
   __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* sKV = sQ + Sh::kQElems;  // stage s: K at 2s, V at 2s + 1
+  float* sSc = reinterpret_cast<float*>(smem_raw + Sh::kScaleOff);  // kI8 only
   const uint32_t bar0 = smem_u32(smem_raw + Sh::kRingBytes);
   const int tid = threadIdx.x;
   const int warp = tid >> 5;
@@ -411,8 +524,8 @@ __device__ __forceinline__ void attend(
     const int r = i / Sh::kChunks;
     const int c8 = (i % Sh::kChunks) * 8;
     const __nv_bfloat16* src = q_row(r);
-    cp_async16(smem_u32(sQ + r * Sh::kStride + c8), src ? src + c8 : k_pool,
-               src != nullptr);
+    cp_async16(smem_u32(sQ + r * Sh::kStride + c8),
+               src ? src + c8 : static_cast<const __nv_bfloat16*>(k_pool), src != nullptr);
   }
   asm volatile("cp.async.commit_group;\n" ::: "memory");
   if (tid == 0) {
@@ -423,7 +536,10 @@ __device__ __forceinline__ void attend(
     *reinterpret_cast<uint4*>(sKV + (2 * (i / (Sh::kTileElems / 8)) + 1) * Sh::kTileElems +
                               (i % (Sh::kTileElems / 8)) * 8) = make_uint4(0u, 0u, 0u, 0u);
   }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  if constexpr (kI8) {  // scales of tokens never copied stay finite
+    for (int i = tid; i < kStages * 2 * kTile; i += Sh::kThreads) sSc[i] = 0.f;
+  }
+  fence_proxy_async();
 
 #pragma unroll
   for (int n = 0; n < D / 8; ++n)
@@ -463,16 +579,28 @@ __device__ __forceinline__ void attend(
   };
   int pg_next = -1;   // page of j_tok in the next tile to issue
   int pg_after = -1;  // ... and in the one after
+  // with kI8 the codes land in each row slot's last D bytes and the K / V
+  // scale in the stage's slab (one cp.async group a tile, committed by
+  // every thread whether it copied or not)
   auto issue = [&](int u) {
     const int c0 = c_begin + u * kTile;
     const uint32_t bar = bar0 + 8 * (u % kStages);
-    if (tid == 0) mbar_expect_tx(bar, min(kTile, c_end - c0) * D * 4);
+    if (tid == 0) mbar_expect_tx(bar, min(kTile, c_end - c0) * D * 2 * kElem);
     if (pg_next >= 0) {
       const int c = c0 + j_tok;
-      const size_t off = ((size_t)pg_next * PS + c % PS) * row_stride + (size_t)h * D;
-      bulk_copy(smem_u32(sKV + (2 * (u % kStages) + is_v) * Sh::kTileElems + j_tok * Sh::kStride),
-                (is_v ? v_pool : k_pool) + off, D * 2, bar);
+      const size_t cell = (size_t)pg_next * PS + c % PS;
+      const size_t off = (cell * row_stride + (size_t)h * D) * kElem;
+      unsigned char* dst = reinterpret_cast<unsigned char*>(
+          sKV + (2 * (u % kStages) + is_v) * Sh::kTileElems + j_tok * Sh::kStride);
+      bulk_copy(smem_u32(dst + (kI8 ? D + 16 : 0)),
+                static_cast<const unsigned char*>(is_v ? v_pool : k_pool) + off, D * kElem,
+                bar);
+      if constexpr (kI8) {
+        cp_async4(smem_u32(sSc + ((u % kStages) * 2 + is_v) * kTile + j_tok),
+                  (is_v ? vs : ks) + cell * Hk + h);
+      }
     }
+    if constexpr (kI8) cp_async_commit();
   };
 
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");  // Q
@@ -489,21 +617,36 @@ __device__ __forceinline__ void attend(
   QFrags<D> qf;
   for (int t = 0; t < n_tiles; ++t) {
     if (t > 0) __syncthreads();  // every warp is done with tile t - 1: its stage is free
-    if (t + kStages - 1 < n_tiles) issue(t + kStages - 1);
+    if (t + kStages - 1 < n_tiles) {
+      issue(t + kStages - 1);
+    } else if constexpr (kI8) {
+      cp_async_commit();  // one group an iteration
+    }
     pg_next = pg_after;
     pg_after = fetch_page(t + kStages + 1);
     if (t == 0 && w_hi >= 0) qf.init(sQ + warp * 16 * Sh::kStride);
     const int c0 = c_begin + t * kTile;
+    __nv_bfloat16* sK = sKV + (2 * (t % kStages)) * Sh::kTileElems;
+    if constexpr (kI8) {
+      // the block converts the tile: warp w its 2 kTile / W rows
+      constexpr int kRowsW = 2 * kTile / W;
+      mbar_wait(bar0 + 8 * (t % kStages), (t / kStages) & 1);
+      convert_rows<D, 2 * Sh::kStride, kRowsW>(
+          reinterpret_cast<unsigned char*>(sK + warp * kRowsW * Sh::kStride));
+      cp_async_wait<kStages - 1>();  // this tile's scales
+      fence_proxy_async();  // the converted rows before the stage's refill
+      __syncthreads();
+    }
     // no row of this warp sees this tile: above every last or (window)
     // below every first. Some warp sees each tile: the rows' spans are
     // contiguous and cover [c_begin, c_end), so every copy is waited on
     // before its stage is refilled
     if (w_hi < c0 || (kWin && c0 + kTile - 1 < w_first_lo)) continue;
-    mbar_wait(bar0 + 8 * (t % kStages), (t / kStages) & 1);
+    if constexpr (!kI8) mbar_wait(bar0 + 8 * (t % kStages), (t / kStages) & 1);
     // every live row sees the whole tile
     const bool full = (!kWin || c0 >= w_first_hi) && c0 + kTile - 1 <= w_lo;
-    tile_update<D, kCap, kWin>(qf, sKV + (2 * (t % kStages)) * Sh::kTileElems, c0,
-                               full, sm, st);
+    tile_update<D, kCap, kWin, kI8>(qf, sK, c0, full, sm, st,
+                                    sSc + (t % kStages) * 2 * kTile);
   }
   // a warp that skipped tiles has not waited on them: every copy must land
   // before the block's shared memory goes

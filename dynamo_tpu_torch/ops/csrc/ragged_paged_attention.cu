@@ -2,8 +2,12 @@
 //
 // Replaces the Pallas TPU kernel dynamo_tpu/ops/ragged_paged_attention.py
 // `ragged_paged_attention` (body `_ragged_kernel_body`), its bf16 bodies
-// `_ragged_kernel` and `_ragged_kernel_win` with the static softcap and
-// scale, at head dims 64, 128 and 256: one flat [T, Hk, G, D] query axis
+// `_ragged_kernel` and `_ragged_kernel_win` and its int8 bodies
+// `_ragged_kernel_int8` and `_ragged_kernel_int8_win` (codes and scales as
+// paged_flash.cuh's kI8 describes; the split partials fold the scales
+// before they are written, so the merge is the bf16 one), with the static
+// softcap and scale, at head dims 64, 128 and 256: one flat [T, Hk, G, D]
+// query axis
 // holds decode rows (one token
 // each), prefill chunks and speculative-verify rows (K+1 tokens), each
 // segment attending causally over its own paged context in the token-major
@@ -83,11 +87,13 @@ __device__ __forceinline__ Unit read_unit(const int* __restrict__ meta,
   return u;
 }
 
-template <int D, bool kCap, bool kWin>
+template <int D, bool kCap, bool kWin, bool kI8>
 __global__ void __launch_bounds__(kThreads)
 ragged_kernel(const __nv_bfloat16* __restrict__ q,
-              const __nv_bfloat16* __restrict__ k_pool,
-              const __nv_bfloat16* __restrict__ v_pool,
+              const void* __restrict__ k_pool,
+              const float* __restrict__ ks,  // kI8: [NP, PS, Hk] scales
+              const void* __restrict__ v_pool,
+              const float* __restrict__ vs,
               const int* __restrict__ seg_page_table,
               const int* __restrict__ seg_kv_lens,
               const int* __restrict__ meta,
@@ -130,9 +136,9 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
     const int p = u.qpos0 + r / G;
     return make_int2(first_seen(p), min(p, u.last_pos));
   };
-  attend<D, kWarps, kCap, kWin>(smem, q_row, row_span, k_pool, v_pool,
-                          seg_page_table + (size_t)u.seg * MP, PS, Hk, h, c_begin,
-                          c_end, sm, st);
+  attend<D, kWarps, kCap, kWin, kI8>(smem, q_row, row_span, k_pool, ks, v_pool, vs,
+                                     seg_page_table + (size_t)u.seg * MP, PS, Hk, h,
+                                     c_begin, c_end, sm, st);
 
   if (u.last_pos < split) {  // one split: the rows go straight to out
     store_rows<D>([&](int r) -> __nv_bfloat16* {
@@ -178,18 +184,19 @@ ragged_merge_kernel(const float* __restrict__ part,
   });
 }
 
-template <int D, bool kCap, bool kWin>
+template <int D, bool kCap, bool kWin, bool kI8>
 int launch(int NW, int Hk, int NS, cudaStream_t st, const __nv_bfloat16* q,
-           const __nv_bfloat16* k, const __nv_bfloat16* v, const int* pt,
-           const int* kl, const int* mt, __nv_bfloat16* out, float* part,
-           int G, int PS, int MP, int QB, int split, int window,
-           const ScoreMap& sm) {
-  constexpr int smem = Shape<D, kWarps>::kSmemBytes;
+           const KvPools& kv, const int* pt, const int* kl, const int* mt,
+           __nv_bfloat16* out, float* part, int G, int PS, int MP, int QB,
+           int split, int window, const ScoreMap& sm) {
+  constexpr int smem =
+      kI8 ? Shape<D, kWarps>::kSmemBytesI8 : Shape<D, kWarps>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
-      ragged_kernel<D, kCap, kWin>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      ragged_kernel<D, kCap, kWin, kI8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  ragged_kernel<D, kCap, kWin><<<dim3(NW, Hk, NS), kThreads, smem, st>>>(
-      q, k, v, pt, kl, mt, out, part, NW, Hk, G, PS, MP, QB, split, window, sm);
+  ragged_kernel<D, kCap, kWin, kI8><<<dim3(NW, Hk, NS), kThreads, smem, st>>>(
+      q, kv.k, kv.ks, kv.v, kv.vs, pt, kl, mt, out, part, NW, Hk, G, PS, MP, QB, split,
+      window, sm);
   err = cudaGetLastError();
   if (err != cudaSuccess || NS < 2) return static_cast<int>(err);
   ragged_merge_kernel<D><<<dim3(NW, Hk), kThreads, 0, st>>>(
@@ -197,45 +204,50 @@ int launch(int NW, int Hk, int NS, cudaStream_t st, const __nv_bfloat16* q,
   return static_cast<int>(cudaGetLastError());
 }
 
-// the body for (D, soft cap or not, window or not): the plain path
-// carries no cap or window code
+// the body for (D, soft cap or not, window or not, int8 or bf16): the
+// plain path carries no cap, window or int8 code
 template <int D>
 int launch_d(bool cap, int NW, int Hk, int NS, cudaStream_t st,
-             const __nv_bfloat16* q, const __nv_bfloat16* k,
-             const __nv_bfloat16* v, const int* pt, const int* kl, const int* mt,
-             __nv_bfloat16* out, float* part, int G, int PS, int MP, int QB,
-             int split, int window, const ScoreMap& sm) {
-  auto go = [&](auto cap_t, auto win_t) {
-    return launch<D, decltype(cap_t)::value, decltype(win_t)::value>(
-        NW, Hk, NS, st, q, k, v, pt, kl, mt, out, part, G, PS, MP, QB, split,
-        window, sm);
+             const __nv_bfloat16* q, const KvPools& kv, const int* pt, const int* kl,
+             const int* mt, __nv_bfloat16* out, float* part, int G, int PS, int MP,
+             int QB, int split, int window, const ScoreMap& sm) {
+  auto go = [&](auto cap_t, auto win_t, auto i8_t) {
+    return launch<D, decltype(cap_t)::value, decltype(win_t)::value,
+                  decltype(i8_t)::value>(NW, Hk, NS, st, q, kv, pt, kl, mt, out, part,
+                                         G, PS, MP, QB, split, window, sm);
   };
   using T = std::true_type;
   using F = std::false_type;
-  if (window > 0) return cap ? go(T{}, T{}) : go(F{}, T{});
-  return cap ? go(T{}, F{}) : go(F{}, F{});
+  if (kv.ks != nullptr) {
+    if (window > 0) return cap ? go(T{}, T{}, T{}) : go(F{}, T{}, T{});
+    return cap ? go(T{}, F{}, T{}) : go(F{}, F{}, T{});
+  }
+  if (window > 0) return cap ? go(T{}, T{}, F{}) : go(F{}, T{}, F{});
+  return cap ? go(T{}, F{}, F{}) : go(F{}, F{}, F{});
 }
 
 }  // namespace
 
 // part: f32 scratch [NS, NW, Hk, q_block * G, D + 4], NS = ceil(MP * PS /
 // split); only the splits of units longer than one split are written.
+// k_scales, v_scales: nullptr for bf16 pools; for int8 pools (codes [NP,
+// PS, Hk, D]) their f32 scales [NP, PS, Hk].
 extern "C" int ragged_paged_attention(
-    const void* q, const void* k_pool, const void* v_pool,
-    const void* seg_page_table, const void* seg_kv_lens, const void* meta,
-    void* out, void* part, int NW, int Hk, int G, int D, int PS, int MP,
-    int q_block, int split, int window, float scale, float softcap,
+    const void* q, const void* k_pool, const void* k_scales, const void* v_pool,
+    const void* v_scales, const void* seg_page_table, const void* seg_kv_lens,
+    const void* meta, void* out, void* part, int NW, int Hk, int G, int D, int PS,
+    int MP, int q_block, int split, int window, float scale, float softcap,
     void* stream) {
   if (NW == 0) return 0;
   if (q_block < 1 || q_block * G > 16 * kWarps || split < paged_flash::kTile ||
-      split % paged_flash::kTile) {
+      split % paged_flash::kTile || (k_scales == nullptr) != (v_scales == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const int NS = (MP * PS + split - 1) / split;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qq = static_cast<const __nv_bfloat16*>(q);
-  const auto* kk = static_cast<const __nv_bfloat16*>(k_pool);
-  const auto* vv = static_cast<const __nv_bfloat16*>(v_pool);
+  const KvPools kv{k_pool, static_cast<const float*>(k_scales), v_pool,
+                 static_cast<const float*>(v_scales)};
   const auto* pt = static_cast<const int*>(seg_page_table);
   const auto* kl = static_cast<const int*>(seg_kv_lens);
   const auto* mt = static_cast<const int*>(meta);
@@ -244,15 +256,15 @@ extern "C" int ragged_paged_attention(
   const paged_flash::ScoreMap sm = paged_flash::score_map(scale, softcap);
   const bool cap = softcap > 0.f;
   if (D == 128) {
-    return launch_d<128>(cap, NW, Hk, NS, st, qq, kk, vv, pt, kl, mt, oo, pp, G,
+    return launch_d<128>(cap, NW, Hk, NS, st, qq, kv, pt, kl, mt, oo, pp, G,
                          PS, MP, q_block, split, window, sm);
   }
   if (D == 64) {
-    return launch_d<64>(cap, NW, Hk, NS, st, qq, kk, vv, pt, kl, mt, oo, pp, G,
+    return launch_d<64>(cap, NW, Hk, NS, st, qq, kv, pt, kl, mt, oo, pp, G,
                         PS, MP, q_block, split, window, sm);
   }
   if (D == 256) {
-    return launch_d<256>(cap, NW, Hk, NS, st, qq, kk, vv, pt, kl, mt, oo, pp, G,
+    return launch_d<256>(cap, NW, Hk, NS, st, qq, kv, pt, kl, mt, oo, pp, G,
                          PS, MP, q_block, split, window, sm);
   }
   return static_cast<int>(cudaErrorInvalidValue);

@@ -10,7 +10,11 @@ are the gather attention with K = latent and V = latent[..., :d_c]. The
 result is the attended latent [.., H, d_c], which the caller lifts through
 W_UV. On CUDA tensors each wrapper launches the hand-written Hopper kernel
 in csrc/mla_attention.cu; on CPU tensors it runs the plain version beside
-it. The int8 latent pool and the `*_sharded` wrappers are not ported.
+it. Decode also takes the int8 latent pool {"q": int8 [NP, PS, 1, Dl],
+"s": f32 [NP, PS, 1]} (`_mla_kernel_int8`): the one per-token scale folds
+into the scores and, after the denominator, into p. As in the reference
+there is no int8 prefill kernel (models/mla.py gathers instead). The
+`*_sharded` wrappers are not ported.
 
 The decode kernel splits each row's context into MLA_SPLIT_TOKENS-long
 pieces and merges them by log-sum-exp; `decode_mla_split_partials_ref`
@@ -26,11 +30,14 @@ from typing import Tuple
 
 import torch
 
+from dynamo_tpu_torch.models.toolkit import is_quantized, pool_values
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops.flash_prefill import prefill_paged_attention_ref
 from dynamo_tpu_torch.ops.paged_attention import (
     decode_paged_attention_ref,
     decode_split_count,
+    gather_context,
+    ptr_or_null,
     split_partials_ref,
 )
 
@@ -53,9 +60,16 @@ def decode_mla_attention_ref(q, lat_pool_l, page_table, kv_lens, *, dc: int,
     positions [0, kv_lens[b]). Rows with kv_len 0 come out 0. Like the TPU
     kernel it computes in f32 from the inputs' values and rounds only the
     result: at Dl 576 a bf16 rounding of the raw scores alone moves the
-    output by a few hundredths."""
-    lat = lat_pool_l.float()
-    return decode_paged_attention_ref(q[:, None].float(), lat, lat[..., :dc],
+    output by a few hundredths. An int8 latent pool keeps its codes and
+    folds its scales (toolkit.paged_attention_int8_ref); the values are
+    the codes' first dc columns with the same scale."""
+    if is_quantized(lat_pool_l):
+        lat, val = lat_pool_l, {"q": lat_pool_l["q"][..., :dc],
+                                "s": lat_pool_l["s"]}
+    else:
+        lat = lat_pool_l.float()
+        val = lat[..., :dc]
+    return decode_paged_attention_ref(q[:, None].float(), lat, val,
                                       page_table, kv_lens, scale)[:, 0].to(q.dtype)
 
 
@@ -65,14 +79,18 @@ def decode_mla_split_partials_ref(q, lat_pool_l, page_table, kv_lens, *,
                                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The decode kernel's partials in plain f32: (m [NS, B, H],
     l [NS, B, H], o [NS, B, H, dc]) over the splits of each row's positions
-    [0, kv_lens[b])."""
-    B, MP = page_table.shape
-    PS, Dl = lat_pool_l.shape[1], lat_pool_l.shape[-1]
-    C = MP * PS
-    lat = lat_pool_l[page_table.long()].reshape(B, C, Dl).float()
+    [0, kv_lens[b]); an int8 pool's scale multiplies the scores and, after
+    l, p."""
+    lat, ls = gather_context(lat_pool_l, page_table.long())
+    lat = lat[:, :, 0]  # [B, C, Dl]
+    C = lat.shape[1]
     s = torch.einsum("bhd,bcd->bhc", q.float(), lat) * scale
+    v_scale = None
+    if ls is not None:
+        v_scale = ls[:, None, :, 0]  # [B, 1, C]
+        s = s * v_scale
     seen = (torch.arange(C, device=q.device)[None, :] < kv_lens[:, None])[:, None, :]
-    return split_partials_ref(s, seen, lat[..., :dc], split)
+    return split_partials_ref(s, seen, lat[..., :dc], split, v_scale)
 
 
 def prefill_mla_attention_ref(q, lat_pool_l, page_table, q_start, q_len,
@@ -143,19 +161,37 @@ def prefill_mla_tiles_ref(q, lat_pool_l, page_table, q_start, q_len,
 
 def _check(q, lat_pool_l, ints, dc: int) -> int:
     """Operands the kernels take (`ints`: the page table, then the [B]
-    int32 arrays); returns d_rh."""
+    int32 arrays; the pool bf16, or the int8 dict {"q", "s"} with 16-byte
+    aligned codes); returns d_rh."""
     Dl = q.shape[-1]
     dr = Dl - dc
-    if lat_pool_l.dim() != 4 or lat_pool_l.shape[2] != 1 \
-            or lat_pool_l.shape[3] != Dl:
-        raise ValueError(f"latent pool {tuple(lat_pool_l.shape)} does not "
+    lat = pool_values(lat_pool_l)
+    if lat.dim() != 4 or lat.shape[2] != 1 or lat.shape[3] != Dl:
+        raise ValueError(f"latent pool {tuple(lat.shape)} does not "
                          f"match q {tuple(q.shape)}")
     if (dc, dr) != KERNEL_DIMS or q.shape[-2] % HEADS_PER_BLOCK:
         raise ValueError(f"no MLA kernel for d_c={dc}, d_rh={dr}, "
                          f"H={q.shape[-2]} (takes {KERNEL_DIMS}, H a "
                          f"multiple of {HEADS_PER_BLOCK})")
-    if q.dtype != torch.bfloat16 or lat_pool_l.dtype != torch.bfloat16:
-        raise TypeError("the MLA kernels take bf16 q and latent pool")
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the MLA kernels take a bf16 q, not {q.dtype}")
+    if is_quantized(lat_pool_l):
+        sc = lat_pool_l["s"]
+        if lat.dtype != torch.int8 or sc.dtype != torch.float32:
+            raise TypeError(f"the int8 latent pool takes int8 'q' and f32 "
+                            f"'s', not {lat.dtype} and {sc.dtype}")
+        if tuple(sc.shape) != tuple(lat.shape[:3]):
+            raise ValueError(f"int8 latent pool 's' {tuple(sc.shape)} does "
+                             f"not match its 'q' {tuple(lat.shape)}")
+        if not sc.is_contiguous() or sc.device != q.device:
+            raise ValueError("the int8 latent pool's 's' must be contiguous "
+                             "and on q's device")
+        if lat.data_ptr() % 16 or sc.data_ptr() % 4:
+            raise ValueError("int8 latent pool 'q' must be 16-byte aligned "
+                             "and its 's' 4-byte aligned")
+    elif lat.dtype != torch.bfloat16:
+        raise TypeError(f"the MLA kernels take a bf16 latent pool, not "
+                        f"{lat.dtype}")
     if any(t.dtype != torch.int32 for t in ints):
         raise TypeError("page tables, positions and lengths must be int32")
     B = q.shape[0]
@@ -164,7 +200,7 @@ def _check(q, lat_pool_l, ints, dc: int) -> int:
         raise ValueError(f"page table {tuple(ints[0].shape)} and lengths "
                          f"{[tuple(t.shape) for t in ints[1:]]} do not match "
                          f"the batch of {B}")
-    tensors = (q, lat_pool_l) + tuple(ints)
+    tensors = (q, lat) + tuple(ints)
     if any(t.device != q.device for t in tensors):
         raise ValueError("all operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
@@ -174,7 +210,7 @@ def _check(q, lat_pool_l, ints, dc: int) -> int:
 
 def decode_mla_attention(
     q: torch.Tensor,  # [B, H, Dl] absorbed + rope queries
-    lat_pool_l: torch.Tensor,  # [NP, PS, 1, Dl] one layer's latent pool
+    lat_pool_l,  # [NP, PS, 1, Dl] one layer's latent pool, or its int8 dict
     page_table: torch.Tensor,  # [B, MP] int32
     kv_lens: torch.Tensor,  # [B] int32, context incl. the current token
     *,
@@ -188,19 +224,23 @@ def decode_mla_attention(
                                         dc=dc, scale=scale)
     B, H, _ = q.shape
     dr = _check(q, lat_pool_l, (page_table, kv_lens), dc)
+    lat = pool_values(lat_pool_l)
+    scales = lat_pool_l["s"] if is_quantized(lat_pool_l) else None
     # every row is written by its one block or by the merge
     out = q.new_empty((B, H, dc))
-    PS, MP = lat_pool_l.shape[1], page_table.shape[1]
+    PS, MP = lat.shape[1], page_table.shape[1]
     part = torch.empty((decode_split_count(MP, PS, MLA_SPLIT_TOKENS), B, H,
                         dc + 4), dtype=torch.float32, device=q.device)
     lib = _build.load()["mla_attention"]
     rc = lib.decode_mla_attention(
-        q.data_ptr(), lat_pool_l.data_ptr(), page_table.data_ptr(),
-        kv_lens.data_ptr(), out.data_ptr(), part.data_ptr(), B, H, dc, dr,
-        PS, MP, MLA_SPLIT_TOKENS, float(scale),
+        q.data_ptr(), lat.data_ptr(), ptr_or_null(scales),
+        page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
+        part.data_ptr(), B, H, dc, dr, PS, MP, MLA_SPLIT_TOKENS, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "decode_mla_attention")
     decode_mla_attention.launches += 1
+    key = "int8" if scales is not None else "bf16"
+    decode_mla_attention.bodies[key] = decode_mla_attention.bodies.get(key, 0) + 1
     return out
 
 
@@ -216,7 +256,12 @@ def prefill_mla_attention(
     scale: float,
 ) -> torch.Tensor:
     """Returns the attended latents [B, S, H, dc]; padding rows return 0.
-    The chunk's own latents must already be in the pool."""
+    The chunk's own latents must already be in the pool. The pool is bf16:
+    as in the reference, int8 latents take the gather path instead
+    (models/mla.py)."""
+    if is_quantized(lat_pool_l):
+        raise TypeError("the MLA prefill kernel takes a bf16 latent pool; "
+                        "int8 latent prefill gathers (models/mla.py)")
     if q.device.type == "cpu":
         return prefill_mla_attention_ref(q, lat_pool_l, page_table, q_start,
                                          q_len, kv_lens, dc=dc, scale=scale)
@@ -236,4 +281,5 @@ def prefill_mla_attention(
 
 
 decode_mla_attention.launches = 0
+decode_mla_attention.bodies = {}  # launches by latent type: "bf16", "int8"
 prefill_mla_attention.launches = 0

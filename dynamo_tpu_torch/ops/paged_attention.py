@@ -2,10 +2,13 @@
 sequence's pages of a token-major KV pool.
 
 Port of dynamo_tpu/ops/paged_attention.py `decode_paged_attention`: the
-bf16 bodies, plain and Gemma-2's (a sliding window, a score soft cap and a
-scale override), at head dims 64, 128 and 256. On CUDA tensors the wrapper
-launches the hand-written Hopper kernel in csrc/paged_attention.cu; on CPU
-tensors it runs the plain PyTorch version below, which is also what the
+bf16 bodies and the int8 ones (pools as the dict {"q": int8, "s": f32} of
+models/quant.py, `_decode_kernel_int8[_win]`), each plain and Gemma-2's (a
+sliding window, a score soft cap and a scale override), at head dims 64,
+128 and 256. On CUDA tensors the wrapper launches the hand-written Hopper
+kernel in csrc/paged_attention.cu; on CPU tensors it runs the plain
+PyTorch version below (for int8 pools toolkit.paged_attention_int8_ref,
+which folds the scales in the TPU kernels' order), which is also what the
 kernel is held against.
 
 Window rule, as in the reference: the query of row b sits at position
@@ -27,7 +30,10 @@ import torch
 
 from dynamo_tpu_torch.models.toolkit import (
     NEG_INF,
+    is_quantized,
+    paged_attention_int8_ref,
     paged_attention_ref,
+    pool_values,
     softcap_scores,
 )
 from dynamo_tpu_torch.ops import _build
@@ -38,7 +44,7 @@ DECODE_SPLIT_TOKENS = 384
 
 
 def split_partials_ref(s: torch.Tensor, seen: torch.Tensor, v: torch.Tensor,
-                       split: int
+                       split: int, v_scale: Optional[torch.Tensor] = None,
                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The first pass of a split-context kernel, in plain f32: scaled
     scores s [..., C], the keys each row sees `seen` (broadcastable to s)
@@ -46,9 +52,11 @@ def split_partials_ref(s: torch.Tensor, seen: torch.Tensor, v: torch.Tensor,
     sum for p like s (v [B, Hk, C, D] for s [B, Hk, G, C]). For each
     context split z (positions [z * split, (z + 1) * split)): the max m of
     the row's visible scores there, l = sum exp(s - m) and the
-    unnormalised o = sum exp(s - m) v. A split in which the row sees no
-    key gives m = NEG_INF (-1e30), l = 0, o = 0. Returns (m [NS, ...],
-    l [NS, ...], o [NS, ..., Dv]), NS = ceil(C / split)."""
+    unnormalised o = sum exp(s - m) v; with int8 values, o = sum exp(s - m)
+    v_scale v (v_scale broadcastable to s, applied after l is summed). A
+    split in which the row sees no key gives m = NEG_INF (-1e30), l = 0,
+    o = 0. Returns (m [NS, ...], l [NS, ...], o [NS, ..., Dv]), NS =
+    ceil(C / split)."""
     C = s.shape[-1]
     ms, ls, os_ = [], [], []
     for z in range(-(-C // split)):
@@ -59,8 +67,28 @@ def split_partials_ref(s: torch.Tensor, seen: torch.Tensor, v: torch.Tensor,
         p = torch.where(mask, torch.exp(sz - m[..., None]), 0.0)
         ms.append(m)
         ls.append(p.sum(-1))
+        if v_scale is not None:
+            p = p * v_scale[..., lo:hi]
         os_.append(p @ v[..., lo:hi, :])
     return torch.stack(ms), torch.stack(ls), torch.stack(os_)
+
+
+def gather_context(pool_l, pages: torch.Tensor
+                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """A layer's pages `pages` [N, MP] as f32 rows [N, C, Hk, D] (C = MP *
+    PS) and, for an int8 dict pool, their scales [N, C, Hk] (else None):
+    the split-partials refs' keys and values."""
+    vals = pool_values(pool_l)
+    N, C = pages.shape[0], pages.shape[1] * vals.shape[1]
+    x = vals[pages].reshape(N, C, vals.shape[2], -1).float()
+    if not is_quantized(pool_l):
+        return x, None
+    return x, pool_l["s"][pages].reshape(N, C, vals.shape[2])
+
+
+def head_scale(scale: Optional[torch.Tensor]) -> Optional[torch.Tensor]:
+    """Per-token scales [N, C, Hk] laid out like scores [N, Hk, G, C]."""
+    return None if scale is None else scale.permute(0, 2, 1)[:, :, None, :]
 
 
 def merge_split_partials_ref(m: torch.Tensor, l: torch.Tensor,
@@ -109,21 +137,20 @@ def decode_split_partials_ref(
     B, Hk, G, D = q.shape
     if scale is None:
         scale = D ** -0.5
-    MP = page_table.shape[1]
-    PS = k_pool_l.shape[1]
-    C = MP * PS
-    pages = page_table.long()
-    k = k_pool_l[pages].reshape(B, C, Hk, D).float()
-    v = v_pool_l[pages].reshape(B, C, Hk, -1).float()
-    s = softcap_scores(torch.einsum("bkgd,bckd->bkgc", q.float(), k) * scale,
-                       softcap)
+    k, ks = gather_context(k_pool_l, page_table.long())
+    v, vs = gather_context(v_pool_l, page_table.long())
+    C = k.shape[1]
+    s = torch.einsum("bkgd,bckd->bkgc", q.float(), k) * scale
+    if ks is not None:
+        s = s * head_scale(ks)
+    s = softcap_scores(s, softcap)
     c = torch.arange(C, device=q.device)[None, :]
     seen = c < kv_lens[:, None]
     w = window_operand(window)
     if w:
         seen = seen & (c >= kv_lens[:, None] - w)
     return split_partials_ref(s, seen[:, None, None, :], v.permute(0, 2, 1, 3),
-                              split)
+                              split, head_scale(vs))
 
 
 def decode_paged_attention_ref(
@@ -136,29 +163,98 @@ def decode_paged_attention_ref(
     and sees positions [0, kv_lens[b]), the last `window` of them with a
     window. Rows with kv_len 0 come out 0."""
     q_pos = (kv_lens.long() - 1).clamp(min=0)[:, None]
-    return paged_attention_ref(
+    return attention_ref(k_pool_l)(
         q[:, None], k_pool_l, v_pool_l, page_table, q_pos, kv_lens, scale,
         softcap=softcap, window=window,
     )[:, 0]
+
+
+def attention_ref(pool_l):
+    """The plain gather attention the kernels' plain versions run over
+    this pool: the scale fold for int8 dict pools, else the bf16 one."""
+    return paged_attention_int8_ref if is_quantized(pool_l) else paged_attention_ref
 
 
 # head dims each attention kernel is built for (wrappers raise on others)
 KERNEL_HEAD_DIMS = (64, 128, 256)
 
 
-def count_launch(fn, D: int, window: int, softcap: float) -> None:
+def count_launch(fn, D: int, window: int, softcap: float,
+                 int8: bool = False) -> None:
     """One launch of a GQA kernel: `fn.launches` and, by body,
-    `fn.bodies` ("D128", "D256_window_softcap", ...). Called by the
-    wrappers right after their kernel launched, and nowhere else."""
+    `fn.bodies` ("D128", "D128_int8", "D256_int8_window_softcap", ...).
+    Called by the wrappers right after their kernel launched, and nowhere
+    else."""
     fn.launches += 1
-    key = f"D{D}" + ("_window" if window else "") + ("_softcap" if softcap else "")
+    key = (f"D{D}" + ("_int8" if int8 else "") + ("_window" if window else "")
+           + ("_softcap" if softcap else ""))
     fn.bodies[key] = fn.bodies.get(key, 0) + 1
+
+
+def kv_operands(k_pool_l, v_pool_l, Hk: int, D: int, what: str
+                ) -> Tuple[tuple, bool]:
+    """The pool operands of a GQA kernel, checked: bf16 pools [NP, PS, Hk,
+    D], or int8 dict pools {"q": int8 [NP, PS, Hk, D], "s": f32 [NP, PS,
+    Hk]} with 16-byte aligned rows. Returns ((k, ks, v, vs) tensors, ks
+    and vs None for bf16; int8 or not). Raises naming the operand it
+    refuses."""
+    quant = is_quantized(k_pool_l)
+    if quant != is_quantized(v_pool_l):
+        raise TypeError(f"the {what} kernel takes two bf16 pools or two int8 "
+                        "dict pools, not one of each")
+    if not quant:
+        for name, t in (("k_pool", k_pool_l), ("v_pool", v_pool_l)):
+            if t.dtype != torch.bfloat16:
+                raise TypeError(f"the {what} kernel takes a bf16 {name}, "
+                                f"not {t.dtype}")
+            if t.dim() != 4 or tuple(t.shape[2:]) != (Hk, D):
+                raise ValueError(f"{name} {tuple(t.shape)} does not match "
+                                 f"Hk={Hk}, D={D}")
+        if v_pool_l.shape != k_pool_l.shape:
+            raise ValueError("k_pool and v_pool differ in shape")
+        return (k_pool_l, None, v_pool_l, None), False
+    ops = []
+    for name, pool in (("k_pool", k_pool_l), ("v_pool", v_pool_l)):
+        qv, sc = pool.get("q"), pool.get("s")
+        if qv is None or sc is None:
+            raise TypeError(f"the int8 {name} must be the dict {{'q', 's'}}")
+        if qv.dtype != torch.int8:
+            raise TypeError(f"the {what} kernel takes an int8 {name}['q'], "
+                            f"not {qv.dtype}")
+        if sc.dtype != torch.float32:
+            raise TypeError(f"the {what} kernel takes an f32 {name}['s'], "
+                            f"not {sc.dtype}")
+        if qv.dim() != 4 or tuple(qv.shape[2:]) != (Hk, D):
+            raise ValueError(f"int8 {name}['q'] {tuple(qv.shape)} does not "
+                             f"match Hk={Hk}, D={D}")
+        if tuple(sc.shape) != tuple(qv.shape[:3]):
+            raise ValueError(f"int8 {name}['s'] {tuple(sc.shape)} does not "
+                             f"match its 'q' {tuple(qv.shape)}")
+        if not (qv.is_contiguous() and sc.is_contiguous()):
+            raise ValueError(f"the int8 {name} must be contiguous")
+        if qv.data_ptr() % 16 or sc.data_ptr() % 4:
+            raise ValueError(f"int8 {name}['q'] must be 16-byte aligned "
+                             "and its 's' 4-byte aligned")
+        ops += [qv, sc]
+    if ops[0].shape != ops[2].shape:
+        raise ValueError("the int8 k_pool and v_pool differ in shape")
+    return tuple(ops), True
+
+
+def scale_tensors(*scales: Optional[torch.Tensor]) -> tuple:
+    """The int8 pools' scale tensors among `scales` (None for bf16)."""
+    return tuple(t for t in scales if t is not None)
+
+
+def ptr_or_null(t: Optional[torch.Tensor]) -> Optional[int]:
+    """A kernel's pointer argument: the tensor's address, or NULL."""
+    return None if t is None else t.data_ptr()
 
 
 def decode_paged_attention(
     q: torch.Tensor,  # [B, Hk, G, D]
-    k_pool_l: torch.Tensor,  # [NP, PS, Hk, D] one layer's token-major pool
-    v_pool_l: torch.Tensor,
+    k_pool_l,  # [NP, PS, Hk, D] one layer's token-major pool, or its int8 dict
+    v_pool_l,
     page_table: torch.Tensor,  # [B, MP] int32
     kv_lens: torch.Tensor,  # [B] int32, context length incl. this token
     window: Optional[int] = None,  # sliding window in tokens; 0/None: global
@@ -168,7 +264,7 @@ def decode_paged_attention(
 ) -> torch.Tensor:
     """Returns [B, Hk, G, D]. The current token's KV must already be in
     the pool. Table entries past kv_len, and below the window, are never
-    read."""
+    read. The pools are bf16 or both int8 dicts {"q", "s"}."""
     B, Hk, G, D = q.shape
     if scale is None:
         scale = D ** -0.5
@@ -177,18 +273,16 @@ def decode_paged_attention(
         return decode_paged_attention_ref(
             q, k_pool_l, v_pool_l, page_table, kv_lens, scale,
             softcap=softcap, window=window)
-    NP, PS, Hk2, D2 = k_pool_l.shape
-    if (Hk2, D2) != (Hk, D) or v_pool_l.shape != k_pool_l.shape:
-        raise ValueError(f"pool {tuple(k_pool_l.shape)} does not match q {tuple(q.shape)}")
-    if q.dtype != torch.bfloat16 or k_pool_l.dtype != torch.bfloat16 \
-            or v_pool_l.dtype != torch.bfloat16:
-        raise TypeError("the decode kernel takes bf16 q and pools")
+    (k, ks, v, vs), int8 = kv_operands(k_pool_l, v_pool_l, Hk, D, "decode")
+    PS = k.shape[1]
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the decode kernel takes a bf16 q, not {q.dtype}")
     if page_table.dtype != torch.int32 or kv_lens.dtype != torch.int32:
         raise TypeError("page_table and kv_lens must be int32")
     if D not in KERNEL_HEAD_DIMS or G not in (1, 2, 3, 4, 8):
         raise ValueError(f"no decode kernel for D={D}, G={G}")
-    tensors = (q, k_pool_l, v_pool_l, page_table, kv_lens)
-    if any(t.device != q.device for t in tensors):
+    tensors = (q, k, v, page_table, kv_lens)
+    if any(t.device != q.device for t in tensors + scale_tensors(ks, vs)):
         raise ValueError("all operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the decode kernel takes contiguous operands")
@@ -200,13 +294,13 @@ def decode_paged_attention(
     lib = _build.load()["paged_attention"]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.decode_paged_attention(
-        q.data_ptr(), k_pool_l.data_ptr(), v_pool_l.data_ptr(),
+        q.data_ptr(), k.data_ptr(), ptr_or_null(ks), v.data_ptr(), ptr_or_null(vs),
         page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
         part.data_ptr(), B, Hk, G, D, PS, MP, DECODE_SPLIT_TOKENS, window,
         float(scale), float(softcap), stream,
     )
     _build.check(lib, rc, "decode_paged_attention")
-    count_launch(decode_paged_attention, D, window, softcap)
+    count_launch(decode_paged_attention, D, window, softcap, int8)
     return out
 
 

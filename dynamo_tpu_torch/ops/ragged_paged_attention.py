@@ -1,10 +1,11 @@
 """Ragged paged attention: one flat token axis of decode rows, prefill
 chunks and speculative-verify rows, each segment over its own pages.
 
-Port of dynamo_tpu/ops/ragged_paged_attention.py: the bf16 bodies, plain
-and Gemma-2's (sliding window, score soft cap, scale override; each flat
-token at position p sees c > p - w under a window w > 0), at head dims
-64, 128 and 256.
+Port of dynamo_tpu/ops/ragged_paged_attention.py: the bf16 bodies and
+the int8 ones (dict pools of models/quant.py, `_ragged_kernel_int8[_win]`),
+each plain and Gemma-2's (sliding window, score soft cap, scale override;
+each flat token at position p sees c > p - w under a window w > 0), at
+head dims 64, 128 and 256.
 The host metadata helpers (`ragged_seg_cap`, `ragged_work_cap`,
 `build_ragged_metadata`) are copies of the reference's numpy code: the
 flat [T] axis is cut into q_block-token blocks, and every (block, segment)
@@ -38,13 +39,19 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from dynamo_tpu_torch.models.toolkit import paged_attention_ref, softcap_scores
+from dynamo_tpu_torch.models.toolkit import softcap_scores
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops.paged_attention import (  # noqa: F401 (re-export)
     KERNEL_HEAD_DIMS,
+    attention_ref,
     count_launch,
     decode_split_count,
+    gather_context,
+    head_scale,
+    kv_operands,
     merge_split_partials_ref,
+    ptr_or_null,
+    scale_tensors,
     split_partials_ref,
     window_operand,
 )
@@ -187,10 +194,11 @@ def ragged_paged_attention_ref(
     softcap: float = 0.0,
 ) -> torch.Tensor:
     """Plain version: each flat token is one S=1 row of
-    paged_attention_ref over its segment's page table and kv_len. Rows of
-    the dummy tail segment (kv_len 0) come out 0."""
+    paged_attention_ref (for int8 dict pools, paged_attention_int8_ref)
+    over its segment's page table and kv_len. Rows of the dummy tail
+    segment (kv_len 0) come out 0."""
     tok_seg, tok_pos = ragged_token_index(meta, q.shape[0], q_block)
-    return paged_attention_ref(
+    return attention_ref(k_pool_l)(
         q[:, None], k_pool_l, v_pool_l, seg_page_table[tok_seg],
         tok_pos[:, None], seg_kv_lens[tok_seg], scale,
         softcap=softcap, window=window,
@@ -230,15 +238,15 @@ def ragged_split_partials_ref(
     T, Hk, G, D = q.shape
     if scale is None:
         scale = D ** -0.5
-    MP = seg_page_table.shape[1]
-    PS = k_pool_l.shape[1]
-    C = MP * PS
     tok_seg, tok_pos = ragged_token_index(meta, T, q_block)
     pages = seg_page_table[tok_seg].long()
-    k = k_pool_l[pages].reshape(T, C, Hk, D).float()
-    v = v_pool_l[pages].reshape(T, C, Hk, -1).float()
-    s = softcap_scores(torch.einsum("tkgd,tckd->tkgc", q.float(), k) * scale,
-                       softcap)
+    k, ks = gather_context(k_pool_l, pages)
+    v, vs = gather_context(v_pool_l, pages)
+    C = k.shape[1]
+    s = torch.einsum("tkgd,tckd->tkgc", q.float(), k) * scale
+    if ks is not None:
+        s = s * head_scale(ks)
+    s = softcap_scores(s, softcap)
     c = torch.arange(C, device=q.device)
     seen = ((c[None, :] < seg_kv_lens[tok_seg][:, None])
             & (c[None, :] <= tok_pos[:, None]))
@@ -246,13 +254,13 @@ def ragged_split_partials_ref(
     if w:
         seen = seen & (c[None, :] > tok_pos[:, None] - w)
     return split_partials_ref(s, seen[:, None, None, :], v.permute(0, 2, 1, 3),
-                              SPLIT_TOKENS)
+                              SPLIT_TOKENS, head_scale(vs))
 
 
 def ragged_paged_attention(
     q: torch.Tensor,  # [T, Hk, G, D] flat query tokens (all segments)
-    k_pool_l: torch.Tensor,  # [NP, PS, Hk, D] one layer's token-major pool
-    v_pool_l: torch.Tensor,
+    k_pool_l,  # [NP, PS, Hk, D] one layer's token-major pool, or its int8 dict
+    v_pool_l,
     seg_page_table: torch.Tensor,  # [SEG, MP] int32
     seg_kv_lens: torch.Tensor,  # [SEG] int32
     meta: torch.Tensor,  # [5, NW] int32 work units (build_ragged_metadata)
@@ -264,7 +272,8 @@ def ragged_paged_attention(
 ) -> torch.Tensor:
     """Returns [T, Hk, G, D]; rows covered by no real segment return 0.
     Every segment's K/V (its own tokens included) must already be in the
-    pool. Table entries past a segment's kv_len are never read."""
+    pool. Table entries past a segment's kv_len are never read. The pools
+    are bf16 or both int8 dicts {"q", "s"}."""
     T, Hk, G, D = q.shape
     if scale is None:
         scale = D ** -0.5
@@ -273,12 +282,10 @@ def ragged_paged_attention(
         return ragged_paged_attention_ref(
             q, k_pool_l, v_pool_l, seg_page_table, seg_kv_lens, meta, window,
             q_block=q_block, scale=scale, softcap=softcap)
-    NP, PS, Hk2, D2 = k_pool_l.shape
-    if (Hk2, D2) != (Hk, D) or v_pool_l.shape != k_pool_l.shape:
-        raise ValueError(f"pool {tuple(k_pool_l.shape)} does not match q {tuple(q.shape)}")
-    if q.dtype != torch.bfloat16 or k_pool_l.dtype != torch.bfloat16 \
-            or v_pool_l.dtype != torch.bfloat16:
-        raise TypeError("the ragged kernel takes bf16 q and pools")
+    (k, ks, v, vs), int8 = kv_operands(k_pool_l, v_pool_l, Hk, D, "ragged")
+    PS = k.shape[1]
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the ragged kernel takes a bf16 q, not {q.dtype}")
     ints = (seg_page_table, seg_kv_lens, meta)
     if any(t.dtype != torch.int32 for t in ints):
         raise TypeError("seg_page_table, seg_kv_lens and meta must be int32")
@@ -289,8 +296,8 @@ def ragged_paged_attention(
     if T % q_block or D not in KERNEL_HEAD_DIMS or q_block * G > ROWS_PER_BLOCK:
         raise ValueError(f"no ragged kernel for T={T}, D={D}, G={G}, "
                          f"q_block={q_block}")
-    tensors = (q, k_pool_l, v_pool_l) + ints
-    if any(t.device != q.device for t in tensors):
+    tensors = (q, k, v) + ints
+    if any(t.device != q.device for t in tensors + scale_tensors(ks, vs)):
         raise ValueError("all operands must be on one device")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError("the ragged kernel takes contiguous operands")
@@ -302,13 +309,14 @@ def ragged_paged_attention(
     lib = _build.load()["ragged_paged_attention"]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.ragged_paged_attention(
-        q.data_ptr(), k_pool_l.data_ptr(), v_pool_l.data_ptr(),
-        seg_page_table.data_ptr(), seg_kv_lens.data_ptr(), meta.data_ptr(),
-        out.data_ptr(), part.data_ptr(), NW, Hk, G, D, PS, MP, q_block,
-        SPLIT_TOKENS, window, float(scale), float(softcap), stream,
+        q.data_ptr(), k.data_ptr(), ptr_or_null(ks), v.data_ptr(),
+        ptr_or_null(vs), seg_page_table.data_ptr(), seg_kv_lens.data_ptr(),
+        meta.data_ptr(), out.data_ptr(), part.data_ptr(), NW, Hk, G, D, PS,
+        MP, q_block, SPLIT_TOKENS, window, float(scale), float(softcap),
+        stream,
     )
     _build.check(lib, rc, "ragged_paged_attention")
-    count_launch(ragged_paged_attention, D, window, softcap)
+    count_launch(ragged_paged_attention, D, window, softcap, int8)
     return out
 
 

@@ -28,6 +28,10 @@ def parse_args(argv=None):
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--max-seq-len", type=int, default=4096)
+    p.add_argument("--kv-quantize", choices=["int8"], default=None,
+                   help="int8 KV cache: int8 codes with one f32 scale per "
+                        "cached (token, head) vector (~half the bytes); pages "
+                        "cross the transfer boundary dequantized")
     # batching
     p.add_argument("--max-batch", type=int, default=64)
     p.add_argument("--chunk-size", type=int, default=512)
@@ -79,6 +83,7 @@ def build_runner(args, params=None) -> tuple[ModelRunner, ModelConfig]:
         max_pages_per_seq=-(-args.max_seq_len // args.page_size),
         params=params,
         device=args.device,
+        kv_quantize=args.kv_quantize,
     )
     return runner, config
 

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's engine spends its time on the card.
 
-    python3 scripts/torch_profile.py [--model llama-3.2-3b|deepseek-v3|gemma-2-9b] [--trace PATH]
+    python3 scripts/torch_profile.py [--model llama-3.2-3b|llama-3.1-8b|deepseek-v3|gemma-2-9b]
+        [--kv-quantize int8] [--trace PATH]
 
 Builds the engine exactly as chip_smoke.py's engine phase does
-(llama-3.2-3b, the default; with --model deepseek-v3, the runner of
-chip_smoke.mla_phases: DeepSeek-V3's three dense layers at full width, 2048
-pages of 16; with --model gemma-2-9b, chip_smoke.gemma_phases' runner and
-its two extra prompts past the window) and serves its workload three
+(llama-3.2-3b, the default; llama-3.1-8b with the same flags, the
+runner of chip_smoke.int8kv_phases when given --kv-quantize int8; with
+--model deepseek-v3, the runner of chip_smoke.mla_phases: DeepSeek-V3's
+three dense layers at full width, 2048 pages of 16; with --model
+gemma-2-9b, chip_smoke.gemma_phases' runner and its two extra prompts
+past the window; --kv-quantize int8 gives any of them int8 KV pools) and
+serves its workload three
 times, each with fresh
 prompts (another seed, so no run hits the previous run's prefix cache):
 once cold, once warm with tracing off, once warm under torch.profiler
@@ -40,7 +44,7 @@ import chip_smoke  # noqa: E402
 from dynamo_tpu_torch.engine.model_runner import ModelRunner  # noqa: E402
 from dynamo_tpu_torch.worker import build_engine, parse_args  # noqa: E402
 
-MODELS = ("llama-3.2-3b", "deepseek-v3", "gemma-2-9b")
+MODELS = ("llama-3.2-3b", "llama-3.1-8b", "deepseek-v3", "gemma-2-9b")
 
 
 def family(name: str) -> str:
@@ -89,18 +93,24 @@ def timed_serve(engine, seed: int, extra=()) -> float:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=MODELS, default=MODELS[0])
+    ap.add_argument("--kv-quantize", choices=["int8"], default=None,
+                    help="int8 KV pools (the runner's kv_quantize)")
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("torch_profile: no CUDA device available", file=sys.stderr)
         return 1
-    runner, engine_args, extra = None, chip_smoke.ENGINE_ARGS, ()
+    runner, extra = None, ()
+    engine_args = ["--model", args.model] + chip_smoke.ENGINE_ARGS[2:]
     if args.model == "deepseek-v3":
         runner = ModelRunner(chip_smoke.MLA_CONFIG, num_pages=2048,
                              page_size=chip_smoke.PAGE_SIZE,
-                             max_pages_per_seq=4096 // chip_smoke.PAGE_SIZE)
+                             max_pages_per_seq=4096 // chip_smoke.PAGE_SIZE,
+                             kv_quantize=args.kv_quantize)
     elif args.model == "gemma-2-9b":
         engine_args, extra = chip_smoke.GEMMA_ARGS, chip_smoke.GEMMA_LONG_PROMPTS
+    if args.kv_quantize:
+        engine_args = engine_args + ["--kv-quantize", args.kv_quantize]
     engine = build_engine(parse_args(engine_args), runner=runner)
     try:
         cold_s = timed_serve(engine, seed=11, extra=extra)
@@ -125,6 +135,7 @@ def main() -> int:
         prof.export_chrome_trace(args.trace)
     print(json.dumps({
         "model": engine.runner.config.name,
+        "kv_quantize": engine.runner.kv_quantize,
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -44,7 +44,7 @@ def test_every_module_imports_without_jax_or_dynamo_tpu():
               "kvbm.host_pool", "worker_common", "router.prefill_router",
               "ops.mla_attention", "models.mla", "ops.paged_attention",
               "ops.flash_prefill", "models.llama", "models.toolkit",
-              "engine.weights", "worker"):
+              "engine.weights", "worker", "models.quant"):
         assert f"dynamo_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
