@@ -19,9 +19,12 @@ Phases, each printing one JSON line:
                mixed step (8 decode rows + 4 chunks), the same step with
                its last chunk dropped (tail rows must be exactly 0), a
                verify-shaped step (K+1 = 5 rows per segment) and, untimed,
-               rows at the edges of its context splits (`split_edges`);
+               rows at the edges of its context splits (`split_edges`),
+               each ragged case also row by row within ROW_REL_TOL;
                then (`shapes`) all three kernels at the other shapes they
-               take, decode at every (D, G) pair it accepts; then
+               take, decode at every (D, G) pair it accepts, each also
+               row by row within ROW_REL_TOL of the plain version in
+               f32; then
                (`copy_kernels`) the three page-copy kernels at
                the 3B page shape (L 28, PS 16, Hk 8, D 128, bf16) in a
                2048-page pool, 94 pages in random order: token- and head-major
@@ -43,9 +46,13 @@ Phases, each printing one JSON line:
                heads, MLA at H 16, 32 and 128), untimed;
                then (`gemma_kernels`) the three GQA kernels' Gemma-2
                bodies (window, soft cap, scale, D 256) at D 256 / G 2 and
-               D 128 / G 3 against their plain versions in f32, timed
-               beside SDPA with a window mask or the bmm-tanh-softmax-bmm
-               calls (a D 256 instantiation that spills fails the build);
+               D 128 / G 3 against their plain versions in f32 (max abs
+               error and, row by row, error over the row's RMS; faults
+               planted in the plain computation, a window edge moved by
+               one and a tile skipped, must break the row limit), timed
+               beside the plain version and SDPA with a window mask or
+               the bmm-tanh-softmax-bmm calls (a D 256 instantiation
+               that spills fails the build);
                then (`int8_kernels`) the int8 bodies (int8 KV pools,
                models/quant.py) of the three GQA kernels at the
                `kernels` shapes and at the Gemma-2 case, and of MLA
@@ -53,6 +60,13 @@ Phases, each printing one JSON line:
                in f32, timed beside the bf16 yardstick over the K/V
                dequantized beforehand, and kv_quantize on the card
                against the CPU's (codes equal, scales within an ulp);
+               then (`head_shape_kernels`) the three GQA kernels at
+               qwen2.5-7b's heads (Hk 4, G 7, D 128, `kernels`' decode
+               contexts) and phi-3's (Hk 32, G 1, D 96, window 2047,
+               contexts 1 to 4000 around the window's edge, chunks
+               straddling it; and a 7-token window), bf16 and int8,
+               checked as gemma_kernels' cases and timed with the plain
+               version and SDPA;
   4. engine  - build_engine for llama-3.2-3b at full width and depth with
                random weights and serve 8 concurrent requests (chunked
                prefill over prior context, a prefix-cache hit, greedy and
@@ -115,12 +129,30 @@ Phases, each printing one JSON line:
                past the window; `engine_gemma2_int8`, the same params
                over int8 pools, half the launches on the
                D256_int8_window_softcap bodies.
+  8. families - with the Gemma-2 runner freed, this slice's paths, each
+               model at full width and depth with random weights, 2048
+               pages x 16, the 3B's traffic, every request `length` and
+               each kernel's launches equal to its passes x L, all on one
+               body: `engine_qwen2` and `engine_qwen2_unfused`
+               (qwen2.5-7b, G 7, q/k/v biases drawn non-zero; D128) and
+               `parity_qwen2`; `engine_phi3`, `engine_phi3_unfused`
+               (phi-3-mini-4k, D 96, a 2047-token window on all 32
+               layers, prompts of 2600 and 3900 tokens; D96_window),
+               `parity_phi3` (sequences of 2600 and 2300 tokens) and
+               `engine_phi3_int8` (int8 pools; D96_int8_window); then one
+               fused turn and a short parity each, freed in turn, for
+               qwen3-8b (D128), mistral-7b (prompts of 4600 and 5200 past
+               its 4096-token window on every layer; D128_window),
+               gemma-7b (D256), olmo-2-7b and granite-3.1-8b (D128).
 Then the `kernels` summary line (launches from the fused phase for the
 GQA attention kernels, from engine_disagg for gather and scatter, from
 engine_tiers for the layer scatter, from engine_mla for the MLA kernels,
 from engine_int8kv and engine_mla_int8 for the `*_int8` entries, the
-int8 bodies; for the GQA kernels also `variants`, the bodies each engine
-phase launched), the
+int8 bodies, from engine_qwen2 for the `*_G7` entries and from
+engine_phi3 and engine_phi3_int8 for the `*_D96_window` and
+`*_D96_int8_window` entries, whose times are head_shape_kernels'; for
+the GQA kernels also `variants`, the bodies each engine phase launched),
+the
 card's name and power limit, and, last, the contract line
 {"ok": true, "device": {...}}. Any failed check exits non-zero before it.
 It needs a CUDA device and the repository around it; it builds into
@@ -149,7 +181,7 @@ from dynamo_tpu_torch.models.quant import (
     kv_pool_quantize,
     kv_quantize,
 )
-from dynamo_tpu_torch.models.toolkit import attn_score_scale, pool_values
+from dynamo_tpu_torch.models.toolkit import attn_score_scale, layer_window, pool_values
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops import block_copy as bc
 from dynamo_tpu_torch.ops.flash_prefill import (
@@ -165,6 +197,7 @@ from dynamo_tpu_torch.ops.mla_attention import (
     prefill_mla_tiles_ref,
 )
 from dynamo_tpu_torch.ops.paged_attention import (
+    DECODE_MAX_G,
     DECODE_SPLIT_TOKENS,
     decode_paged_attention,
     decode_paged_attention_ref,
@@ -208,9 +241,47 @@ TILES_ULPS = 8
 # error per rounding that 28 layers grow to around 1%. A wrong page, mask
 # or softmax moves the logits by O(1) relative.
 FORWARD_REL_TOL = 0.05
-ENGINE_ARGS = ["--model", "llama-3.2-3b", "--num-pages", "2048",
-               "--page-size", "16", "--max-seq-len", "4096",
-               "--max-batch", "8", "--chunk-size", "512"]
+# the GQA kernels at `kernels`' ragged cases and at `shapes`',
+# gemma_kernels' and head_shape_kernels' cases, against the plain version
+# in f32: per query row (one head's D
+# outputs), the max abs error over the row's RMS. A row over n visible
+# tokens has an RMS near n^-1/2 (0.022 at a 2047-token window), so an
+# absolute limit is loose exactly where a long window's edge lies. Rounding
+# P and the output to bf16 puts a right kernel near 0.01 (a few 2^-9 at
+# the row's largest elements); a window edge moved by one token, or a
+# skipped 64-token tile, moves some row by more. gemma_case plants both
+# faults in the plain computation and fails unless each one breaks this
+# limit (the readings on the card: PERF.md, "A row-relative gate")
+ROW_REL_TOL = 0.04
+
+
+def model_args(model: str, max_seq_len: int = 4096, kv_quantize: bool = False):
+    """A full-size model's engine flags: 2048 pages of 16 tokens, batch 8,
+    chunk 512, as ENGINE_ARGS."""
+    return (["--model", model, "--num-pages", "2048", "--page-size", "16",
+             "--max-seq-len", str(max_seq_len), "--max-batch", "8",
+             "--chunk-size", "512"] + (["--kv-quantize", "int8"] if kv_quantize else []))
+
+
+ENGINE_ARGS = model_args("llama-3.2-3b")
+
+
+def timed_runner(args, params=None):
+    """build_runner from engine flags: (runner, config, seconds to build)."""
+    t0 = time.monotonic()
+    runner, cfg = build_runner(parse_args(args), params=params)
+    torch.cuda.synchronize()
+    return runner, cfg, time.monotonic() - t0
+
+
+def free(*runners):
+    """Drop the runners' pools and params and return their memory."""
+    for r in runners:
+        r.k_pool = r.v_pool = r.params = None
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 SOURCES = {
     "decode_paged_attention": (
         "dynamo_tpu_torch/ops/csrc/paged_attention.cu",
@@ -246,7 +317,7 @@ GQA_KERNELS = ("decode_paged_attention", "prefill_paged_attention",
 GQA_STEMS = ("paged_attention", "flash_prefill", "ragged_paged_attention")
 MLA_KERNELS = ("decode_mla_attention", "prefill_mla_attention")
 # DeepSeek-V3's first three layers (dense FFN; the later MoE layers wait for
-# ROADMAP A.11) at full width
+# ROADMAP A.9) at full width
 MLA_CONFIG = get_config("deepseek-v3").with_(n_layers=3, n_experts=0)
 
 
@@ -393,9 +464,26 @@ def ragged_inputs(gen, segs, T, Hk, G, D, PS, MP, dev):
     return (rnd(T, Hk, G, D), rnd(NP, PS, Hk, D), rnd(NP, PS, Hk, D)) + ints, md
 
 
+def plain32(tensors):
+    """The plain version's f32 operands: bf16 tensors in f32, int8 pools
+    (dicts, models/quant.py) as they are."""
+    return tuple(x.float() if torch.is_tensor(x) and x.dtype == torch.bfloat16 else x
+                 for x in tensors)
+
+
+def row_rel_err(got, want):
+    """Max over the rows (the last dim) of the max abs error over the
+    row's RMS in `want`; a row that is 0 in both reads 0."""
+    want = want.float()
+    err = (got.float() - want).abs().amax(-1)
+    rms = want.square().mean(-1).sqrt()
+    return torch.where(err == 0, 0.0, err / rms).max().item()
+
+
 def ragged_check(args, segs, what):
     """Kernel against the plain version on the real rows; tail rows (the
-    dummy segment) must be exactly 0. Returns the max abs error."""
+    dummy segment) must be exactly 0. Returns the max abs error and
+    row_rel_err against the plain version in f32 (within ROW_REL_TOL)."""
     out = ragged_paged_attention(*args)
     torch.cuda.synchronize()
     ref = ragged_paged_attention_ref(*args)
@@ -406,7 +494,10 @@ def ragged_check(args, segs, what):
     check(n == out.shape[0] or out[n:].float().abs().max().item() == 0.0,
           f"ragged tail rows are not 0 ({what})")
     check(err <= KERNEL_TOL, f"ragged kernel max abs err {err} > {KERNEL_TOL} ({what})")
-    return err
+    e_rel = row_rel_err(out[:n], ragged_paged_attention_ref(*plain32(args[:3]),
+                                                             *args[3:])[:n])
+    check(e_rel <= ROW_REL_TOL, f"ragged kernel row error {e_rel} > {ROW_REL_TOL} ({what})")
+    return err, e_rel
 
 
 def capped_attention(qd, kd, vd, mask, scale, cap):
@@ -481,8 +572,8 @@ def ragged_phase(gen, dev):
     for name, segs in cases.items():
         T = 16 if name == "split_edges" else RAGGED_T
         args, md = ragged_inputs(gen, segs, T, Hk, G, D, PS, MP, dev)
-        rec = {"segments": segs, "t_real": sum(n for n, _ in segs),
-               "max_abs_err": ragged_check(args, segs, name)}
+        rec = {"segments": segs, "t_real": sum(n for n, _ in segs)}
+        rec["max_abs_err"], rec["row_rel_err"] = ragged_check(args, segs, name)
         if name == "split_edges":
             out[name] = rec
             continue
@@ -629,16 +720,26 @@ def kernel_phase(dev):
 
 def shapes_phase(dev):
     """The three kernels against their plain versions at the other shapes
-    the wrappers accept (head dims 64/128, GQA groups, page sizes 4 to 32,
-    the main path's G 3 among them, q-blocks that overrun S), small and
-    untimed; their int8 bodies on the same rows, quantized, against the
-    plain int8 versions in f32."""
+    the wrappers accept (head dims 64/96/128, GQA groups, page sizes 4 to
+    32, the main path's G 3, qwen2.5-7b's G 7 and phi-3's D 96 among them,
+    q-blocks that overrun S), small and untimed; their int8 bodies on the
+    same rows, quantized, against the plain int8 versions in f32. Each is
+    within KERNEL_TOL of the plain version and within ROW_REL_TOL (row by
+    row) of the plain version in f32."""
     gen = torch.Generator(device="cpu").manual_seed(3)
-    errs = {}
+    errs, rel = {}, {}
+
+    def rows(out, ref, name):  # max row error over the plain version in f32
+        e = row_rel_err(out, ref)
+        check(e <= ROW_REL_TOL, f"{name}: row error {e} > {ROW_REL_TOL}")
+        return e
+
     for D, G, PS in ((128, 4, 16), (128, 1, 8), (128, 8, 32), (64, 4, 16),
-                     (64, 2, 4), (128, 3, 16), (128, 3, 4), (64, 3, 32)):
+                     (64, 2, 4), (128, 3, 16), (128, 3, 4), (64, 3, 32),
+                     (96, 1, 16), (96, 7, 4), (128, 7, 16), (96, 4, 32)):
         Hk, MP = 2, max(64, 1024 // PS)  # 1024+ tokens: two context splits
         NP = 3 * MP + 1
+        name = f"D{D}_G{G}_PS{PS}"
 
         def rnd(*shape):
             return torch.randn(*shape, generator=gen).bfloat16().to(dev)
@@ -651,11 +752,14 @@ def shapes_phase(dev):
         out = decode_paged_attention(q, k_pool, v_pool, pt, kvl)
         ref = decode_paged_attention_ref(q, k_pool, v_pool, pt, kvl)
         e_dec = (out.float() - ref.float()).abs().max().item()
+        r_dec = rows(out, decode_paged_attention_ref(
+            *plain32((q, k_pool, v_pool)), pt, kvl), f"decode at {name}")
         check(out[0].float().abs().max().item() == 0.0,
               f"decode kv_len=0 row not 0 at D={D} G={G} PS={PS}")
         out = decode_paged_attention(q, k8, v8, pt, kvl)
-        e8_dec = (out.float() - decode_paged_attention_ref(q.float(), k8, v8, pt, kvl)
-                  ).abs().max().item()
+        ref = decode_paged_attention_ref(q.float(), k8, v8, pt, kvl)
+        e8_dec = (out.float() - ref).abs().max().item()
+        r8_dec = rows(out, ref, f"int8 decode at {name}")
         check(out[0].float().abs().max().item() == 0.0,
               f"int8 decode kv_len=0 row not 0 at D={D} G={G} PS={PS}")
         S = 48
@@ -667,13 +771,15 @@ def shapes_phase(dev):
         out = prefill_paged_attention(*args)
         ref = prefill_paged_attention_ref(*args)
         e_pre = (out.float() - ref.float()).abs().max().item()
+        r_pre = rows(out, prefill_paged_attention_ref(*plain32(args[:3]), *args[3:]),
+                     f"prefill at {name}")
         torch.cuda.synchronize()
-        name = f"D{D}_G{G}_PS{PS}"
         check(all(out[b, n:].float().abs().max().item() == 0.0
                   for b, n in enumerate(ql)), f"prefill padding rows not 0 at {name}")
         out = prefill_paged_attention(q, k8, v8, *args[3:])
-        e8_pre = (out.float() - prefill_paged_attention_ref(q.float(), k8, v8, *args[3:])
-                  ).abs().max().item()
+        ref = prefill_paged_attention_ref(q.float(), k8, v8, *args[3:])
+        e8_pre = (out.float() - ref).abs().max().item()
+        r8_pre = rows(out, ref, f"int8 prefill at {name}")
         check(all(out[b, n:].float().abs().max().item() == 0.0
                   for b, n in enumerate(ql)), f"int8 prefill padding rows not 0 at {name}")
         # ragged: decode rows, chunks over prior context, a row and a
@@ -681,17 +787,19 @@ def shapes_phase(dev):
         segs = [(1, 36), (1, 0), (21, 13), (9, 0), (5, 100), (1, 700),
                 (9, SPLIT_TOKENS - 2)]
         args, _ = ragged_inputs(gen, segs, 56, Hk, G, D, PS, MP, dev)
-        e_rag = ragged_check(args, segs, name)
+        e_rag, r_rag = ragged_check(args, segs, name)
         args8 = (args[0], kv_pool_quantize(args[1]), kv_pool_quantize(args[2])) + args[3:]
-        e8_rag = ragged_check(args8, segs, f"{name} int8")
+        e8_rag, r8_rag = ragged_check(args8, segs, f"{name} int8")
         errs[name] = {"decode": e_dec, "prefill": e_pre, "ragged": e_rag,
                       "int8": {"decode": e8_dec, "prefill": e8_pre, "ragged": e8_rag}}
+        rel[name] = {"decode": r_dec, "prefill": r_pre, "ragged": r_rag,
+                     "int8": {"decode": r8_dec, "prefill": r8_pre, "ragged": r8_rag}}
         check(max(e_dec, e_pre, e8_dec, e8_pre) <= KERNEL_TOL,
               f"kernel parity at {name}: decode {e_dec}, prefill {e_pre}, "
               f"int8 decode {e8_dec}, int8 prefill {e8_pre}")
     # decode at every (D, G) its wrapper takes, rows over 1 to 4 splits
-    for D in (64, 128):
-        for G in (1, 2, 3, 4, 8):
+    for D in (64, 96, 128):
+        for G in range(1, DECODE_MAX_G + 1):
             Hk, PS, MP = 2, 16, 64
             NP = 4 * MP + 1
             k_pool, v_pool = (torch.randn(NP, PS, Hk, D, generator=gen)
@@ -708,7 +816,10 @@ def shapes_phase(dev):
                   f"decode kv_len=0 row not 0 at D={D} G={G}")
             check(err <= KERNEL_TOL, f"decode max abs err {err} at D={D} G={G}")
             errs[f"decode_D{D}_G{G}"] = err
-    emit({"phase": "shapes", "tol": KERNEL_TOL, "max_abs_err": errs})
+            rel[f"decode_D{D}_G{G}"] = rows(out, decode_paged_attention_ref(
+                *plain32((q, k_pool, v_pool)), pt, kvl), f"decode at D={D} G={G}")
+    emit({"phase": "shapes", "tol": KERNEL_TOL, "max_abs_err": errs,
+          "row_tol": ROW_REL_TOL, "row_rel_err": rel})
 
 
 def decode_split_edges_phase(dev):
@@ -1318,6 +1429,38 @@ def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
     return rec, launches, results
 
 
+def served_turn(runner, phase, fused, args, expect, extra=(), build_s=None):
+    """engine_phase with the checks every model's turn holds: fused plans
+    on the ragged kernel (fused=None, the card's default) or no ragged
+    launch (fused=False); every request `length` with N_OUT tokens; each
+    GQA kernel's launches by body equal to expect(n) for its n launches.
+    Returns (rec, launches)."""
+    rec, launches, results = engine_phase(runner, phase, fused=fused, build_s=build_s,
+                                          base_args=args, extra=extra)
+    st = rec["stats"]
+    if fused is None:
+        check(rec["fused_mixed"], f"{phase}: the engine did not fuse on the card")
+        check(all(launches[k] > 0 for k in GQA_KERNELS),
+              f"{phase}: a GQA kernel never launched: {launches}")
+        check(st["ragged_mixed_dispatches"] > 0 and st["padded_prefill_dispatches"] == 0,
+              f"{phase}: mixed plans did not ride the ragged step: {st}")
+    else:
+        check(not rec["fused_mixed"], f"{phase}: DYN_FUSED_MIXED=0 did not hold")
+        check(launches["ragged_paged_attention"] == 0, f"{phase}: the ragged kernel ran")
+    for i, (toks, finish, _) in enumerate(results):
+        check(finish == "length" and len(toks) == N_OUT,
+              f"{phase}: r{i} finished {finish!r} with {len(toks)} tokens")
+    for name in GQA_KERNELS:
+        b, n = rec["bodies"][name], launches[name]
+        check(b == expect(n), f"{phase}: {name} bodies {b} for {n} launches")
+    return rec, launches
+
+
+def one_body(body):
+    """served_turn's `expect` for a model whose every launch is on `body`."""
+    return lambda n: {body: n} if n else {}
+
+
 def engine_phases(dev):
     """The fused (main path), unfused and spec phases on one runner."""
     t0 = time.monotonic()
@@ -1866,10 +2009,7 @@ def mla_phases(dev):
 # the slice's main path: llama-3.1-8b at full width and depth (32 layers,
 # 32 / 8 heads, head dim 128, bf16 random weights, seed 0) over int8 KV
 # pools, 2048 pages x 16, serving workload()'s 8 requests
-ENGINE_8B_ARGS = ["--model", "llama-3.1-8b", "--num-pages", "2048",
-                  "--page-size", "16", "--max-seq-len", "4096",
-                  "--max-batch", "8", "--chunk-size", "512",
-                  "--kv-quantize", "int8"]
+ENGINE_8B_ARGS = model_args("llama-3.1-8b", kv_quantize=True)
 
 
 def int8kv_phases(dev, smi):
@@ -1879,10 +2019,7 @@ def int8kv_phases(dev, smi):
     x 32, all on the D128_int8 bodies; the pools' bytes beside a bf16
     pool's; then `parity_int8kv`. Returns the fused phase's launches and
     the bodies of both phases."""
-    t0 = time.monotonic()
-    runner, cfg = build_runner(parse_args(ENGINE_8B_ARGS))
-    torch.cuda.synchronize()
-    build_s = time.monotonic() - t0
+    runner, cfg, build_s = timed_runner(ENGINE_8B_ARGS)
     L = cfg.n_layers
     check(runner.kv_quantize == "int8" and runner.k_pool["q"].dtype == torch.int8,
           "engine_int8kv: the runner's pools are not int8")
@@ -1894,27 +2031,10 @@ def int8kv_phases(dev, smi):
     body = f"D{cfg.head_dim}_int8"
     found, fused_launches = {}, None
     for phase, fused in (("int8kv", None), ("int8kv_unfused", False)):
-        rec, launches, results = engine_phase(
-            runner, phase, fused=fused, build_s=build_s if fused is None else None,
-            base_args=ENGINE_8B_ARGS)
-        st = rec["stats"]
+        rec, launches = served_turn(runner, phase, fused, ENGINE_8B_ARGS, one_body(body),
+                                    build_s=build_s if fused is None else None)
         if fused is None:
-            check(rec["fused_mixed"], f"{phase}: the engine did not fuse on the card")
-            check(all(launches[k] > 0 for k in GQA_KERNELS),
-                  f"{phase}: a GQA kernel never launched: {launches}")
-            check(st["ragged_mixed_dispatches"] > 0 and st["padded_prefill_dispatches"] == 0,
-                  f"{phase}: mixed plans did not ride the ragged step: {st}")
             fused_launches = launches
-        else:
-            check(not rec["fused_mixed"], f"{phase}: DYN_FUSED_MIXED=0 did not hold")
-            check(launches["ragged_paged_attention"] == 0, f"{phase}: the ragged kernel ran")
-        for i, (toks, finish, _) in enumerate(results):
-            check(finish == "length" and len(toks) == N_OUT,
-                  f"{phase}: r{i} finished {finish!r} with {len(toks)} tokens")
-        for name in GQA_KERNELS:
-            b, n = rec["bodies"][name], launches[name]
-            check(b == ({body: n} if n else {}),
-                  f"{phase}: {name} bodies {b} for {n} launches")
         rec["kv_pool_bytes"] = pool_bytes
         rec["kv_pool_bytes_if_bf16"] = bf16_bytes
         rec["config"] = {k: getattr(cfg, k) for k in (
@@ -1931,9 +2051,7 @@ def int8kv_phases(dev, smi):
 # 4096-token window on the even layers, soft caps 50 (scores) and 30
 # (logits), served with workload()'s 8 requests and two prompts past the
 # window
-GEMMA_ARGS = ["--model", "gemma-2-9b", "--num-pages", "2048",
-              "--page-size", "16", "--max-seq-len", "8192",
-              "--max-batch", "8", "--chunk-size", "512"]
+GEMMA_ARGS = model_args("gemma-2-9b", 8192)
 GEMMA_LONG_PROMPTS = (4600, 5200)
 GEMMA_WINDOW = 4096
 # gemma_kernels: (Hk, G, D) of Gemma-2 9B and of the 3B's heads; 16-token
@@ -2109,14 +2227,60 @@ def gemma_plain_f32(kernel, inp, window, scale, softcap):
     return out
 
 
-def gemma_case(kernel, case, Hk, G, D, pools, pools32, gen, dgen, dev,
+def case_errors(kernel, got, want, rows):
+    """(max abs error, row_rel_err) of a case's output over its valid rows
+    (prefill: the first q_len rows of each sequence)."""
+    if kernel == "prefill":
+        pairs = [(got[b, :n], want[b, :n]) for b, n in enumerate(rows) if n]
+    else:
+        pairs = [(got[:rows], want[:rows])]
+    return (max((g.float() - w.float()).abs().max().item() for g, w in pairs),
+            max(row_rel_err(g, w) for g, w in pairs))
+
+
+def planted_faults(kernel, inp, window, scale):
+    """The plain computation (f32 SDPA over the case's dense K/V) with a
+    fault planted: the window's edge moved one token either way, and, in
+    each row that sees a whole 64-token tile before the tile of its last
+    visible token, that tile skipped. {fault: output, laid out as the
+    kernel's}; decode and prefill cases only."""
+    qd, kd, vd, mask, pos = inp["lib"]
+    args = inp["args"]
+    c = torch.arange(kd.shape[2], device=kd.device)[None, None, None, :]
+    kv = args[-1].long()[:, None, None, None]
+    p = pos[:, None, :, None]  # [B, 1, S, 1] query positions
+    seen = mask & (c < kv)
+    first = (p - window + 1).clamp_min(0) if window else torch.zeros_like(p)
+    t0 = (torch.minimum(p, kv - 1) // 64 - 1) * 64
+    skipped = (c >= t0) & (c < t0 + 64) & (t0 >= first)
+    masks = {}
+    if (skipped & seen).any():
+        masks["tile"] = seen & (c >= first) & ~skipped
+    if window and window > 1:
+        masks["window+1"] = seen & (c > p - window - 1)
+        masks["window-1"] = seen & (c > p - window + 1)
+    q32, k32, v32 = qd.float(), kd.float(), vd.float()
+    shape = args[0].shape
+    out = {}
+    for name, m in masks.items():
+        o = F.scaled_dot_product_attention(q32, k32, v32, attn_mask=m, scale=scale)
+        out[name] = (o.reshape(shape) if kernel == "decode"
+                     else o.transpose(1, 2).reshape(shape))
+    return out
+
+
+def gemma_case(kernel, what, heads, case, pools, pools32, gen, dgen, dev,
                lib_pools=None):
-    """One kernel at one gemma_kernels case: checked against the plain
-    version in f32, timed with its yardstick. Int8 dict `pools` are their
+    """One kernel at `heads` (Hk, G, D) and `case` (a GEMMA_CASES tuple):
+    checked against the plain version in f32 (max abs error within
+    KERNEL_TOL, row_rel_err within ROW_REL_TOL; on bf16 pools with no cap,
+    decode and prefill, each planted fault must break ROW_REL_TOL), timed
+    with its yardstick and the plain version. Int8 dict `pools` are their
     own f32 plain operands (`pools32`), and `lib_pools` their dequantized
     bf16 pools for the yardstick (not timed). Everything it allocates is
     freed on return (the engine phases' peak memory is read later)."""
-    contexts, window, softcap, scale, q_mul = GEMMA_CASES[case]
+    Hk, G, D = heads
+    contexts, window, softcap, scale, q_mul = case
     fn = {"decode": decode_paged_attention, "prefill": prefill_paged_attention,
           "ragged": ragged_paged_attention}[kernel]
     sc = D ** -0.5 if scale is None else scale
@@ -2130,20 +2294,26 @@ def gemma_case(kernel, case, Hk, G, D, pools, pools32, gen, dgen, dev,
     torch.cuda.synchronize()
     want = gemma_plain_f32(kernel, inp, window, scale, softcap)
     rows = inp["rows"]
+    err, rel = case_errors(kernel, got, want, rows)
     if kernel == "prefill":
-        err = max((got[b, :n].float() - want[b, :n]).abs().max().item()
-                  for b, n in enumerate(rows))
         zero = all(got[b, n:].float().abs().max().item() == 0.0
                    for b, n in enumerate(rows) if n < GEMMA_CHUNK)
     else:
-        err = (got[:rows].float() - want[:rows]).abs().max().item()
         tail = got[rows:] if kernel == "ragged" else got[-1:]
         zero = tail.numel() == 0 or tail.float().abs().max().item() == 0.0
-    del want
-    what = f"gemma_kernels D{D} G{G} {case} {kernel}"
+    what = f"{what} {kernel}"
     check(torch.isfinite(got.float()).all().item(), f"{what}: not finite")
     check(zero, f"{what}: padding, tail or empty rows are not 0")
     check(err <= KERNEL_TOL, f"{what}: max abs err {err} > {KERNEL_TOL}")
+    check(rel <= ROW_REL_TOL, f"{what}: row error {rel} > {ROW_REL_TOL}")
+    faults = {}
+    if not int8 and not softcap and kernel != "ragged":
+        for name, bad in planted_faults(kernel, inp, window, sc).items():
+            faults[name] = case_errors(kernel, bad, want, rows)[1]
+            del bad
+            check(faults[name] > ROW_REL_TOL,
+                  f"{what}: planted fault {name} reads {faults[name]}, "
+                  f"within ROW_REL_TOL {ROW_REL_TOL}")
     b_ms, b_by = gemma_bound(Hk * G, Hk, D, inp["spans"], window, inp["io_rows"],
                              inp["n_ints"], softcap, int8)
     if kernel == "ragged":
@@ -2159,11 +2329,16 @@ def gemma_case(kernel, case, Hk, G, D, pools, pools32, gen, dgen, dev,
         lib = (capped_attention(qd, kd, vd, mask, sc, softcap) if softcap else
                lambda: F.scaled_dot_product_attention(qd, kd, vd, attn_mask=mask,
                                                       scale=sc))
+    del want
 
     def call():
         return fn(*args, window, **kw)
 
-    return {"max_abs_err": err, "ms": cuda_ms(call), "device_ms": graph_ms(call),
+    return {"max_abs_err": err, "row_rel_err": rel, "planted_faults": faults,
+            "ms": cuda_ms(call), "device_ms": graph_ms(call),
+            "plain_ms": cuda_ms(
+                lambda: gemma_plain_f32(kernel, inp, window, scale, softcap),
+                iters=2, warmup=1),
             "bound_ms": b_ms, "bound_by": b_by,
             "library": "bmm-tanh-softmax-bmm" if softcap else "sdpa",
             "library_ms": cuda_ms(lib), "library_device_ms": graph_ms(lib)}
@@ -2195,8 +2370,9 @@ def gemma_kernels_phase(dev):
             crec = {"contexts": contexts, "window": window, "softcap": softcap,
                     "scale": scale, "q_scale": q_mul}
             for kernel in ("decode", "prefill", "ragged"):
-                crec[kernel] = gemma_case(kernel, case, Hk, G, D, pools, pools32,
-                                          gen, dgen, dev)
+                crec[kernel] = gemma_case(
+                    kernel, f"gemma_kernels {shape} {case}", (Hk, G, D),
+                    GEMMA_CASES[case], pools, pools32, gen, dgen, dev)
                 torch.cuda.empty_cache()
             rec["cases"][case] = crec
         out[shape] = rec
@@ -2211,7 +2387,7 @@ def gemma_kernels_phase(dev):
     if clear is not None:
         clear()
         mem["after_clearing_cublas_workspaces"] = torch.cuda.memory_allocated()
-    emit({"phase": "gemma_kernels", "tol": KERNEL_TOL,
+    emit({"phase": "gemma_kernels", "tol": KERNEL_TOL, "row_tol": ROW_REL_TOL,
           "memory_allocated_bytes": mem, **out})
     return out
 
@@ -2384,8 +2560,9 @@ def int8_kernels_phase(dev):
     NP = 2 * len(GEMMA_EDGES) * GEMMA_MP + 1
     (kq, kd), (vq, vd) = (int8_pool(rnd(NP, PS, Hk2, D2)) for _ in range(2))
     out["gemma2_D256_G2"] = {
-        kernel: gemma_case(kernel, "gemma2", Hk2, G2, D2, (kq, vq), (kq, vq), gen,
-                           dgen, dev, lib_pools=(kd, vd))
+        kernel: gemma_case(kernel, "int8_kernels gemma2", (Hk2, G2, D2),
+                           GEMMA_CASES["gemma2"],
+                           (kq, vq), (kq, vq), gen, dgen, dev, lib_pools=(kd, vd))
         for kernel in ("decode", "prefill", "ragged")}
     del kq, vq, kd, vd
     torch.cuda.empty_cache()
@@ -2430,6 +2607,64 @@ def int8_kernels_phase(dev):
     return out
 
 
+# head_shape_kernels: the head shapes (Hk, G, D) of qwen2.5-7b (G 7) and
+# phi-3-mini-4k (D 96, MHA, a 2047-token window on every layer), each with
+# a gemma_kernels case (contexts, window, softcap, scale, query scale):
+# decode rows at the contexts (and an empty row), prefill chunks of up to
+# 512 tokens ending there, and a ragged step of a decode row and a 48-token
+# chunk at each. qwen2.5-7b: `kernels`' decode contexts; phi-3: contexts
+# around the window's edge, whose chunks straddle it, and gemma_kernels'
+# 7-token window, whose edge moves O(1) outputs
+HEAD_SHAPES = {
+    "qwen2_G7_D128": ((4, 7, 128), ([4096, 1, 17, 1000, 2048, 3333, 513],
+                                    0, 0.0, None, 1.0)),
+    "phi3_G1_D96": ((32, 1, 96), ([1, 2046, 2047, 2048, 2049, 4000],
+                                  2047, 0.0, None, 1.0)),
+    "phi3_G1_D96_window_7": ((32, 1, 96), GEMMA_CASES["window_7"]),
+}
+
+
+def head_shape_kernels_phase(dev):
+    """The three GQA kernels at HEAD_SHAPES, bf16 and int8 (the pools
+    quantized; the yardstick over them dequantized beforehand), each
+    against its plain version in f32 (gemma_case: KERNEL_TOL, ROW_REL_TOL
+    and the planted faults) and timed back to back, as a CUDA-graph replay
+    and beside the plain version and SDPA, with the bound over what the
+    data needs."""
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    dgen = torch.Generator(device=dev).manual_seed(17)
+    out = {}
+    for shape, (heads, case) in HEAD_SHAPES.items():
+        Hk, G, D = heads
+        NP = 2 * len(case[0]) * GEMMA_MP + 1
+        bf = tuple(torch.randn(NP, PAGE_SIZE, Hk, D, generator=dgen,
+                               device=dev).bfloat16() for _ in range(2))
+        rec = {"Hk": Hk, "G": G, "D": D, "smem_bytes": gqa_smem_bytes(D),
+               "contexts": case[0], "window": case[1]}
+        for kind in ("bf16", "int8"):
+            if kind == "bf16":
+                pools, pools32, lib = bf, tuple(x.float() for x in bf), None
+            else:
+                (kq, kd), (vq, vd) = int8_pool(bf[0]), int8_pool(bf[1])
+                pools = pools32 = (kq, vq)
+                lib = (kd, vd)
+            rec[kind] = {kernel: gemma_case(kernel, f"head_shape_kernels {shape} {kind}",
+                                            heads, case, pools, pools32, gen, dgen, dev,
+                                            lib_pools=lib)
+                         for kernel in ("decode", "prefill", "ragged")}
+            del pools, pools32, lib
+            torch.cuda.empty_cache()
+        out[shape] = rec
+        del bf
+        torch.cuda.empty_cache()
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+    emit({"phase": "head_shape_kernels", "tol": KERNEL_TOL, "row_tol": ROW_REL_TOL,
+          **out})
+    return out
+
+
 def gemma_phases(dev, smi):
     """gemma-2-9b at full width and depth: `engine_gemma2` (the card's
     default, fused: ragged and decode kernels; a prefill chunk with no
@@ -2439,10 +2674,7 @@ def gemma_phases(dev, smi):
     passes x 42, half of them on the window bodies; then `parity_gemma2`,
     a 4700- and a 4500-token sequence prefilled in 512-token chunks, two
     decode steps and a ragged step with a chunk past the window."""
-    t0 = time.monotonic()
-    runner, cfg = build_runner(parse_args(GEMMA_ARGS))
-    torch.cuda.synchronize()
-    build_s = time.monotonic() - t0
+    runner, cfg, build_s = timed_runner(GEMMA_ARGS)
     L = cfg.n_layers
     check(runner.kv_page_shape == (L, PAGE_SIZE, cfg.n_kv_heads, cfg.head_dim),
           f"engine_gemma2: page shape {runner.kv_page_shape}")
@@ -2450,33 +2682,18 @@ def gemma_phases(dev, smi):
     found = {}
 
     def turn(runner, phase, fused, args):
-        rec, launches, results = engine_phase(
-            runner, phase, fused=fused, build_s=build_s if phase == "gemma2" else None,
-            base_args=args, extra=GEMMA_LONG_PROMPTS)
-        st = rec["stats"]
-        if fused is None:
-            check(rec["fused_mixed"], f"{phase}: the engine did not fuse on the card")
-            check(all(launches[k] > 0 for k in GQA_KERNELS),
-                  f"{phase}: a GQA kernel never launched: {launches}")
-            check(st["ragged_mixed_dispatches"] > 0 and st["padded_prefill_dispatches"] == 0,
-                  f"{phase}: mixed plans did not ride the ragged step: {st}")
-        else:
-            check(not rec["fused_mixed"], f"{phase}: DYN_FUSED_MIXED=0 did not hold")
-            check(launches["ragged_paged_attention"] == 0, f"{phase}: the ragged kernel ran")
-        for i, (toks, finish, _) in enumerate(results):
-            check(finish == "length" and len(toks) == N_OUT,
-                  f"{phase}: r{i} finished {finish!r} with {len(toks)} tokens")
-        check(max(rec["prompt_tokens"]) > GEMMA_WINDOW,
-              f"{phase}: no request ran past the window")
         # sliding layers launch the window bodies, global layers the others
         body = f"D{cfg.head_dim}" + ("_int8" if runner.kv_quantize else "") + "_softcap"
-        for name in GQA_KERNELS:
-            b = rec["bodies"][name]
-            n = launches[name]
-            check(b.get(body.replace("_softcap", "_window_softcap"), 0) == n // L * sliding
-                  and b.get(body, 0) == n - n // L * sliding
-                  and sum(b.values()) == n,
-                  f"{phase}: {name} bodies {b} for {n} launches")
+        win = body.replace("_softcap", "_window_softcap")
+
+        def expect(n):
+            return {k: v for k, v in ((win, n // L * sliding),
+                                      (body, n - n // L * sliding)) if v}
+
+        rec, _ = served_turn(runner, phase, fused, args, expect, extra=GEMMA_LONG_PROMPTS,
+                             build_s=build_s if phase == "gemma2" else None)
+        check(max(rec["prompt_tokens"]) > GEMMA_WINDOW,
+              f"{phase}: no request ran past the window")
         rec["config"] = {k: getattr(cfg, k) for k in (
             "name", "dim", "n_layers", "n_heads", "n_kv_heads", "head_dim",
             "ffn_dim", "vocab_size", "sliding_window", "attn_logit_softcap",
@@ -2491,13 +2708,123 @@ def gemma_phases(dev, smi):
                  S=512, MP=300, NP=960)
     # the int8 turn: the same params over int8 pools (the bf16 pools freed)
     params = runner.params
-    runner.k_pool = runner.v_pool = None
-    del runner
-    gc.collect()
-    torch.cuda.empty_cache()
+    free(runner)
     args8 = GEMMA_ARGS + ["--kv-quantize", "int8"]
-    runner8, _ = build_runner(parse_args(args8), params=params)
+    runner8, _, _ = timed_runner(args8, params=params)
     turn(runner8, "gemma2_int8", None, args8)
+    free(runner8)
+    return found
+
+
+CONFIG_FIELDS = ("name", "dim", "n_layers", "n_heads", "n_kv_heads", "head_dim",
+                 "ffn_dim", "vocab_size", "sliding_window", "sw_period",
+                 "attn_bias", "qk_norm", "qk_norm_wide", "pre_norms", "post_norms",
+                 "embed_multiplier", "residual_multiplier", "attn_scale",
+                 "logits_divider", "act", "norm_zero_centered")
+
+
+def family_turn(runner, phase, fused, args, body, smi, extra=(), build_s=None):
+    """served_turn with every launch on `body`, the config and the card
+    recorded; with `extra` prompts, one must run past the window. Returns
+    (bodies, launches)."""
+    rec, launches = served_turn(runner, phase, fused, args, one_body(body),
+                                extra=extra, build_s=build_s)
+    cfg = runner.config
+    if extra and cfg.sliding_window:
+        check(max(rec["prompt_tokens"]) > cfg.sliding_window,
+              f"{phase}: no request ran past the window")
+    rec["config"] = {k: getattr(cfg, k) for k in CONFIG_FIELDS}
+    rec["nvidia_smi"] = smi
+    emit(rec)
+    return rec["bodies"], launches
+
+
+# qwen2.5-7b: 28 layers, 28 query heads over 4 KV heads (G 7), q/k/v biases
+QWEN2_ARGS = model_args("qwen2.5-7b")
+# phi-3-mini-4k: 32 layers, MHA at head dim 96, a 2047-token window on every
+# layer; two prompts past the window
+PHI3_ARGS = model_args("phi-3-mini-4k")
+PHI3_LONG_PROMPTS = (2600, 3900)
+
+
+def qwen2_phases(dev, smi):
+    """`engine_qwen2` (fused) and `engine_qwen2_unfused` on one runner
+    whose q/k/v biases are drawn non-zero (k's larger, as in Qwen2.5
+    checkpoints): every request `length`, launches = passes x 28, all on
+    D128 (G 7); then `parity_qwen2`. Returns the fused launches and both
+    phases' bodies."""
+    runner, cfg, build_s = timed_runner(QWEN2_ARGS)
+    check(cfg.n_heads // cfg.n_kv_heads == 7 and cfg.attn_bias,
+          f"engine_qwen2: not qwen2.5-7b's heads: {cfg}")
+    g = torch.Generator(device=dev).manual_seed(5)
+    for name, std in (("bq", 0.5), ("bk", 2.0), ("bv", 0.5)):
+        b = runner.params["layers"][name]
+        b.copy_(torch.randn(b.shape, generator=g, device=dev) * std)
+    found, fused_launches = {}, None
+    for phase, fused in (("qwen2", None), ("qwen2_unfused", False)):
+        found[phase], launches = family_turn(
+            runner, phase, fused, QWEN2_ARGS, "D128", smi,
+            build_s=build_s if fused is None else None)
+        fused_launches = fused_launches or launches
+    parity_phase(runner, dev, phase="parity_qwen2")
+    free(runner)
+    return fused_launches, found
+
+
+def phi3_phases(dev, smi):
+    """`engine_phi3` (fused), `engine_phi3_unfused` and, on the same params
+    over int8 pools, `engine_phi3_int8`: the 3B's traffic and two prompts
+    past the 2047-token window, every request `length`, launches = passes
+    x 32, all on D96_window (int8: D96_int8_window); between them
+    `parity_phi3`, a 2600- and a 2300-token sequence prefilled in 512-token
+    chunks, two decode steps and a ragged step, all past the window.
+    Returns the fused bf16 and int8 launches and every phase's bodies."""
+    runner, cfg, build_s = timed_runner(PHI3_ARGS)
+    check(cfg.head_dim == 96 and cfg.n_heads == cfg.n_kv_heads
+          and {layer_window(cfg, l) for l in range(cfg.n_layers)} == {2047},
+          f"engine_phi3: not phi-3's heads and window: {cfg}")
+    found, fused_launches = {}, None
+    for phase, fused in (("phi3", None), ("phi3_unfused", False)):
+        found[phase], launches = family_turn(
+            runner, phase, fused, PHI3_ARGS, "D96_window", smi,
+            extra=PHI3_LONG_PROMPTS, build_s=build_s if fused is None else None)
+        fused_launches = fused_launches or launches
+    parity_phase(runner, dev, phase="parity_phi3", lens=(2600, 180, 2300), S=512,
+                 MP=170, NP=520)
+    params = runner.params
+    free(runner)
+    args8 = model_args("phi-3-mini-4k", kv_quantize=True)
+    runner8, _, _ = timed_runner(args8, params=params)
+    found["phi3_int8"], int8_launches = family_turn(
+        runner8, "phi3_int8", None, args8, "D96_int8_window", smi,
+        extra=PHI3_LONG_PROMPTS)
+    free(runner8)
+    return fused_launches, int8_launches, found
+
+
+# the other dense families, one fused turn each at full width and depth:
+# (preset, max_seq_len, prompts added to the 3B's, the body every launch
+# takes). Mistral's prompts run past its 4096-token window
+FAMILIES = {
+    "qwen3": ("qwen3-8b", 4096, (), "D128"),
+    "mistral": ("mistral-7b", 8192, (4600, 5200), "D128_window"),
+    "gemma7b": ("gemma-7b", 4096, (), "D256"),
+    "olmo2": ("olmo-2-7b", 4096, (), "D128"),
+    "granite": ("granite-3.1-8b", 4096, (), "D128"),
+}
+
+
+def families_phase(dev, smi):
+    """Each of FAMILIES in turn, random weights freed before the next:
+    `engine_<family>` (fused) and `parity_<family>`. Returns the bodies."""
+    found = {}
+    for fam, (model, max_seq_len, extra, body) in FAMILIES.items():
+        args = model_args(model, max_seq_len)
+        runner, _, build_s = timed_runner(args)
+        found[fam], _ = family_turn(runner, fam, None, args, body, smi, extra=extra,
+                                    build_s=build_s)
+        parity_phase(runner, dev, phase=f"parity_{fam}")
+        free(runner)
     return found
 
 
@@ -2519,7 +2846,7 @@ def main() -> int:
     t0 = time.monotonic()
     _build.load()
     ptxas = {stem: ptxas_lines(log) for stem, log in _build.build_log.items()}
-    # the GQA kernels' instantiations (D 64 / 128 / 256, soft cap 0 / 1)
+    # the GQA kernels' instantiations (D 64 / 96 / 128 / 256, soft cap 0 / 1)
     gqa_ptxas = {stem: ptxas_entries(_build.build_log[stem])
                  for stem in GQA_STEMS if stem in _build.build_log}
     emit({"phase": "build", "seconds": time.monotonic() - t0, "ptxas": ptxas,
@@ -2530,6 +2857,9 @@ def main() -> int:
         spills = [ln for ln in ptxas.get("mla_attention", [])
                   if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         check(not spills, f"MLA kernels spill: {spills}")
+        # D 96: ptxas keeps the ragged bodies at 168 registers (three
+        # 128-thread blocks an SM) and three int8 ones spill a few bytes;
+        # builds that do not spill run 1.3x slower (scripts/ragged_spill.py)
         # D 256: O alone is 128 registers a thread; no instantiation spills
         # (decode 4 bodies + merge, prefill 8, ragged 8 + merge: bf16 and
         # int8 each)
@@ -2546,6 +2876,7 @@ def main() -> int:
         decode_split_edges_phase(dev)
         gemma_kernels_phase(dev)
         kern.update(int8_kernels_phase(dev))
+        head = head_shape_kernels_phase(dev)
         runner, launches, bodies = engine_phases(dev)
         variants = {name: {"engine_fused": bodies[name]} for name in GQA_KERNELS}
         # each copy kernel's launches from the phase that runs it
@@ -2575,14 +2906,40 @@ def main() -> int:
         del mla, mla8
         gc.collect()
         torch.cuda.empty_cache()
-        for phase, b in gemma_phases(dev, smi).items():
+        found = gemma_phases(dev, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # this slice's paths: qwen2.5-7b (G 7), phi-3 (D 96, window 2047,
+        # bf16 and int8) and the other families; the head-shape entries'
+        # launches are their engines' fused phases'
+        q_launches, q_bodies = qwen2_phases(dev, smi)
+        p_launches, p8_launches, p_bodies = phi3_phases(dev, smi)
+        found.update(q_bodies)
+        found.update(p_bodies)
+        found.update(families_phase(dev, smi))
+        for phase, b in found.items():
             for name in GQA_KERNELS:
                 key = f"{name}_int8" if "int8" in phase else name
                 variants[key][f"engine_{phase}"] = b[name]
+        short = dict(zip(GQA_KERNELS, ("decode", "prefill", "ragged")))
+        for name in GQA_KERNELS:
+            for key, shape, pools, n in (
+                    (f"{name}_G7", "qwen2_G7_D128", "bf16", q_launches),
+                    (f"{name}_D96_window", "phi3_G1_D96", "bf16", p_launches),
+                    (f"{name}_D96_int8_window", "phi3_G1_D96", "int8", p8_launches)):
+                kern[key] = head[shape][pools][short[name]]
+                launches[key] = n[name]
     except CheckFailed as e:
         print(f"chip_smoke: check failed: {e}", file=sys.stderr)
         return 1
-    sources = {**SOURCES, **INT8_SOURCES}
+    # the head-shape entries: qwen2.5-7b's G 7 and phi-3's D 96 bodies
+    head_sources = {}
+    for name in GQA_KERNELS:
+        head_sources[f"{name}_G7"] = SOURCES[name]
+        head_sources[f"{name}_D96_window"] = SOURCES[name]
+        head_sources[f"{name}_D96_int8_window"] = INT8_SOURCES[f"{name}_int8"]
+    sources = {**SOURCES, **INT8_SOURCES, **head_sources}
+    emit({"phase": "total", "seconds": time.monotonic() - t0})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": launches[name],

@@ -3,10 +3,12 @@
 The reference's params are a stacked numpy-convertible tree
 ({"embed", "norm_f", "lm_head"?, "layers": {"wq": [L, in, out], ...}};
 MLA layers hold wkv_a, kv_norm, wkv_b, wo and wq or wq_lat, q_lat_norm,
-wq_up; Gemma-2 layers add post_attn_norm and post_mlp_norm) in x @ W
-layout; the port's forward reads exactly that layout, so this is
-a checked copy onto the device. Norm weights stay f32, as in the
-reference; matrices take `dtype`.
+wq_up; the dense families' branches add bq, bk, bv (Qwen2), q_norm and
+k_norm (per head [L, hd], or OLMo-2's full width [L, H * hd]) and
+post_attn_norm, post_mlp_norm (Gemma-2, OLMo-2; OLMo-2 has no
+attn_norm or mlp_norm)) in x @ W layout; the port's forward reads exactly
+that layout, so this is a checked copy onto the device. Norm weights stay
+f32, as in the reference; matrices and biases take `dtype`.
 """
 
 from __future__ import annotations
@@ -19,7 +21,7 @@ import torch
 from dynamo_tpu_torch.models.config import ModelConfig
 
 NORMS = ("norm_f", "attn_norm", "mlp_norm", "kv_norm", "q_lat_norm",
-         "post_attn_norm", "post_mlp_norm")
+         "post_attn_norm", "post_mlp_norm", "q_norm", "k_norm")
 
 
 def _expected_shapes(c: ModelConfig) -> Dict[str, tuple]:
@@ -48,9 +50,16 @@ def _expected_shapes(c: ModelConfig) -> Dict[str, tuple]:
             "wv": (L, c.dim, c.n_kv_heads * hd),
             "wo": (L, c.n_heads * hd, c.dim),
         })
+        if c.attn_bias:
+            shapes.update({"bq": (L, c.n_heads * hd), "bk": (L, c.n_kv_heads * hd),
+                           "bv": (L, c.n_kv_heads * hd)})
+        if c.qk_norm:
+            wide = c.qk_norm_wide
+            shapes["q_norm"] = (L, c.n_heads * hd if wide else hd)
+            shapes["k_norm"] = (L, c.n_kv_heads * hd if wide else hd)
+    if c.pre_norms or c.is_mla:
+        shapes["attn_norm"] = shapes["mlp_norm"] = (L, c.dim)
     shapes.update({
-        "attn_norm": (L, c.dim),
-        "mlp_norm": (L, c.dim),
         "w_gate": (L, c.dim, c.ffn_dim),
         "w_up": (L, c.dim, c.ffn_dim),
         "w_down": (L, c.ffn_dim, c.dim),
@@ -66,10 +75,14 @@ def _expected_shapes(c: ModelConfig) -> Dict[str, tuple]:
 def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
                       device, dtype=torch.bfloat16) -> Dict[str, Any]:
     """numpy (or array-like) tree -> the port's params dict on `device`.
-    Raises on a missing leaf or a shape that does not match `config`."""
+    Raises on a missing or an extra leaf (a branch the config does not
+    run) or a shape that does not match `config`."""
     want = _expected_shapes(config)
     flat = {k: v for k, v in tree.items() if k != "layers"}
     flat.update(tree["layers"])
+    extra = sorted(set(flat) - set(want))
+    if extra:
+        raise KeyError(f"param tree has leaves {config.name} does not use: {extra}")
 
     def conv(name):
         if name not in flat:

@@ -1,10 +1,11 @@
-"""Model architecture configs: the dense Llama path, Gemma-2 and MLA.
+"""Model architecture configs: the dense GQA families and MLA.
 
 The port's own copy of the fields of dynamo_tpu/models/config.py that the
-dense GQA forward (with the Gemma-2 branches) and the MLA (DeepSeek)
-forward read, plus the MoE fields the MLA presets set, with the same names
-and defaults, so a config built here and one built there describe the
-same model.
+dense GQA forward (Llama with the Qwen2, Qwen3, OLMo-2, Granite, Gemma
+1/2/3, Mistral and Phi-3 branches) and the MLA (DeepSeek) forward read,
+plus the MoE fields the MLA presets set, with the same names and
+defaults, so a config built here and one built there describe the same
+model.
 """
 
 from __future__ import annotations
@@ -26,16 +27,34 @@ class ModelConfig:
     rope_theta: float = 500000.0
     norm_eps: float = 1e-5
     tie_embeddings: bool = False
+    # Qwen2 q/k/v projection biases
+    attn_bias: bool = False
+    # Qwen3 per-head RMSNorm on q and k before RoPE
+    qk_norm: bool = False
+    # OLMo-2: the qk-norm's statistics over the full projection width
+    # (weight [H * hd], before the head reshape); only with qk_norm
+    qk_norm_wide: bool = False
     # Gemma family:
     #   gelu_tanh MLP activation (GeGLU) instead of SiLU
     act: str = "silu"  # "silu" | "gelu_tanh"
     #   embeddings scaled by sqrt(dim) after lookup
     embed_scale: bool = False
+    # Granite multipliers: the embedding multiplier (wins over
+    # embed_scale), the residual-branch multiplier, the softmax scale
+    # given directly (wins over query_pre_attn_scalar) and a divider of
+    # the final logits
+    embed_multiplier: float = 0.0
+    residual_multiplier: float = 1.0
+    attn_scale: float = 0.0
+    logits_divider: float = 1.0
     #   RMSNorm weights are zero-centered: output = normed * (1 + w)
     norm_zero_centered: bool = False
     #   Gemma-2 sandwich norms: post-attention and post-FFW RMSNorms on
     #   the residual branches (in addition to the pre-norms)
     post_norms: bool = False
+    #   OLMo-2 has no pre-norms: the sublayer reads the raw residual and
+    #   only the post norms apply (needs post_norms=True)
+    pre_norms: bool = True
     #   attention-score soft capping: s = cap * tanh(s / cap); 0 = off
     attn_logit_softcap: float = 0.0
     #   final-logit soft capping; 0 = off
@@ -49,10 +68,14 @@ class ModelConfig:
     sliding_window: int = 0
     sw_period: int = 2
     sw_global_residue: int = 1
+    #   Gemma-3 dual RoPE: sliding layers rotate with this base, global
+    #   layers with rope_theta (and its scaling); 0 = one RoPE
+    rope_local_theta: float = 0.0
     # explicit head_dim when it differs from dim // n_heads
     head_dim_override: int = 0
-    # MoE (0 experts = dense). The forward does not run MoE layers yet;
-    # the fields are here so the DeepSeek presets match the reference's
+    # MoE (0 experts = dense). The forward does not run MoE layers yet
+    # (ROADMAP A.9); the fields are here so the DeepSeek presets match the
+    # reference's
     n_experts: int = 0
     n_experts_active: int = 0
     moe_ffn_dim: int = 0
@@ -82,6 +105,12 @@ class ModelConfig:
     qk_rope_head_dim: int = 0  # decoupled positional key dim (shared head)
     qk_nope_head_dim: int = 0  # per-head content key dim
     v_head_dim: int = 0
+
+    def __post_init__(self):
+        if not self.pre_norms and not self.post_norms:
+            raise ValueError(
+                "pre_norms=False requires post_norms=True (OLMo-2 style: "
+                "the branch outputs are normed instead of the inputs)")
 
     @property
     def head_dim(self) -> int:
@@ -145,6 +174,11 @@ PRESETS: Dict[str, ModelConfig] = {
         max_seq_len=131072,
         rope_scaling="llama3", rope_factor=8.0, rope_orig_max_seq=8192,
     ),
+    # test-size Qwen2 (q/k/v biases) and Qwen3 (per-head qk-norm)
+    "tiny-qwen2": ModelConfig(name="tiny-qwen2", attn_bias=True),
+    "tiny-qwen3": ModelConfig(
+        name="tiny-qwen3", qk_norm=True, head_dim_override=32,
+    ),
     # MLA test models (CPU tests of the DeepSeek attention family)
     "tiny-mla": ModelConfig(
         name="tiny-mla", attn_type="mla", kv_lora_rank=32,
@@ -168,6 +202,132 @@ PRESETS: Dict[str, ModelConfig] = {
         embed_scale=True, norm_zero_centered=True, post_norms=True,
         attn_logit_softcap=50.0, final_logit_softcap=30.0,
         query_pre_attn_scalar=16.0, sliding_window=8, rope_theta=10000.0,
+    ),
+    # Gemma-3 test model (qk-norm, a 2:1 local/global window pattern, dual
+    # RoPE bases; the production pattern is 5:1 with period 6)
+    "tiny-gemma3": ModelConfig(
+        name="tiny-gemma3", n_layers=3, tie_embeddings=True,
+        act="gelu_tanh", embed_scale=True, norm_zero_centered=True,
+        post_norms=True, qk_norm=True, query_pre_attn_scalar=16.0,
+        sliding_window=8, sw_period=3, sw_global_residue=2,
+        rope_theta=100000.0, rope_local_theta=10000.0,
+    ),
+    # Qwen 2.5 7B: q/k/v biases, 28 query heads over 4 KV heads (G = 7)
+    "qwen2.5-7b": ModelConfig(
+        name="qwen2.5-7b",
+        vocab_size=152064,
+        dim=3584,
+        n_layers=28,
+        n_heads=28,
+        n_kv_heads=4,
+        ffn_dim=18944,
+        max_seq_len=32768,
+        rope_theta=1000000.0,
+        norm_eps=1e-6,
+        attn_bias=True,
+    ),
+    # Qwen3 8B: per-head qk-norm
+    "qwen3-8b": ModelConfig(
+        name="qwen3-8b",
+        vocab_size=151936,
+        dim=4096,
+        n_layers=36,
+        n_heads=32,
+        n_kv_heads=8,
+        ffn_dim=12288,
+        max_seq_len=40960,
+        rope_theta=1000000.0,
+        norm_eps=1e-6,
+        qk_norm=True,
+        head_dim_override=128,
+    ),
+    # Granite 3.1 8B: the Llama layout with Granite's four multipliers
+    "granite-3.1-8b": ModelConfig(
+        name="granite-3.1-8b",
+        vocab_size=49155,
+        dim=4096,
+        n_layers=40,
+        n_heads=32,
+        n_kv_heads=8,
+        ffn_dim=12800,
+        max_seq_len=131072,
+        rope_theta=10000000.0,
+        norm_eps=1e-5,
+        tie_embeddings=True,
+        embed_multiplier=12.0,
+        residual_multiplier=0.22,
+        attn_scale=0.0078125,
+        logits_divider=16.0,
+    ),
+    # OLMo-2 7B: post norms only, qk-norm over the full projection width
+    "olmo-2-7b": ModelConfig(
+        name="olmo-2-7b",
+        vocab_size=100352,
+        dim=4096,
+        n_layers=32,
+        n_heads=32,
+        n_kv_heads=32,
+        ffn_dim=11008,
+        max_seq_len=4096,
+        rope_theta=500000.0,
+        norm_eps=1e-6,
+        pre_norms=False,
+        post_norms=True,
+        qk_norm=True,
+        qk_norm_wide=True,
+    ),
+    # Phi-3 mini 4k: head dim 96 (3072 over 32 heads), MHA, a 2047-token
+    # window on every layer
+    "phi-3-mini-4k": ModelConfig(
+        name="phi-3-mini-4k",
+        vocab_size=32064,
+        dim=3072,
+        n_layers=32,
+        n_heads=32,
+        n_kv_heads=32,
+        ffn_dim=8192,
+        max_seq_len=4096,
+        rope_theta=10000.0,
+        norm_eps=1e-5,
+        sliding_window=2047,
+        sw_period=1,
+        sw_global_residue=1,
+    ),
+    # Mistral 7B v0.1: a 4096-token window on every layer (period 1:
+    # l % 1 == 1 never holds, so no layer is global)
+    "mistral-7b": ModelConfig(
+        name="mistral-7b",
+        vocab_size=32000,
+        dim=4096,
+        n_layers=32,
+        n_heads=32,
+        n_kv_heads=8,
+        ffn_dim=14336,
+        max_seq_len=32768,
+        rope_theta=10000.0,
+        norm_eps=1e-5,
+        sliding_window=4096,
+        sw_period=1,
+        sw_global_residue=1,
+    ),
+    # Gemma 1 7B: GeGLU, scaled embeddings, zero-centred norms, MHA with
+    # head dim 256 wider than dim / n_heads; no post norms, no caps
+    "gemma-7b": ModelConfig(
+        name="gemma-7b",
+        vocab_size=256000,
+        dim=3072,
+        n_layers=28,
+        n_heads=16,
+        n_kv_heads=16,
+        ffn_dim=24576,
+        max_seq_len=8192,
+        rope_theta=10000.0,
+        norm_eps=1e-6,
+        tie_embeddings=True,
+        act="gelu_tanh",
+        embed_scale=True,
+        norm_zero_centered=True,
+        head_dim_override=256,
     ),
     # Gemma 2 9B: head_dim 256, 16 query heads over 8 KV heads (G = 2), a
     # 4096-token window on the even layers, ~18.5 GB in bf16

@@ -1,16 +1,23 @@
 """Llama-family transformer over a paged KV cache: dense GQA layers (with
-Gemma-2's branches), and the MLA (DeepSeek) layer with a dense FFN.
+the branches of the other dense families), and the MLA (DeepSeek) layer
+with a dense FFN.
 
 Port of the dense GQA and the MLA branches of dynamo_tpu/models/llama.py
 `forward`: embed, RMSNorm, q/k/v, RoPE, KV write, paged attention (MLA:
 models/mla.py over the latent pool), wo, SwiGLU, final norm, last-position
 gather and f32 logits, with the reference's `ragged=` branch (the flat
-step of the fused mixed dispatch; GQA only, as there). Gemma-2: the
-embedding scaled by sqrt(dim), zero-centred norms, the post-attention and
-post-FFN norms, GeGLU, each layer's sliding window (a Python int per
-layer, toolkit.layer_window) with the score scale and soft cap on every
-attention route, and the final-logit soft cap. MoE layers are not
-ported (ROADMAP A.11): MoE configs raise. Params are
+step of the fused mixed dispatch; GQA only, as there). The dense families'
+branches, each as the reference has it: Qwen2's q/k/v biases (added after
+the product, in the params' dtype); Qwen3's per-head qk-norm before RoPE
+and OLMo-2's over the full projection width, with OLMo-2's post norms
+only (`pre_norms=False`); Granite's embedding and residual multipliers,
+attention scale and logit divider; Gemma's embedding scaled by sqrt(dim),
+zero-centred norms, GeGLU, Gemma-2's post-attention and post-FFN norms,
+each layer's sliding window (a Python int per layer, toolkit.layer_window;
+Mistral and Phi-3 slide on every layer) with the score scale and soft cap
+on every attention route, and the final-logit soft cap; Gemma-3's second
+RoPE base on its sliding layers (toolkit.layer_rope). MoE layers are not
+ported (ROADMAP A.9): MoE configs raise. Params are
 a plain dict of tensors in the reference's stacked layout ({"embed",
 "norm_f", "layers": {"wq": [L, in, out], ...}}, x @ W), so one checkpoint
 tree serves both packages. The layer loop is a Python loop over that
@@ -30,14 +37,13 @@ from dynamo_tpu_torch.models.toolkit import (
     apply_rope,
     gqa_score_scale,
     kv_rows,
+    layer_rope,
     layer_window,
     paged_attention_ref,
     pool_layer,
     pool_values,
     rms_norm,
-    rope_cos_sin,
-    rope_inv_freq,
-    rope_mscale,
+    rope_tables,
     write_kv,
 )
 from dynamo_tpu_torch.ops.flash_prefill import prefill_paged_attention
@@ -59,15 +65,15 @@ ATTN_IMPLS = ("kernel", "ref")
 def _refuse_moe(c: ModelConfig) -> None:
     if c.is_moe:
         raise NotImplementedError(
-            f"{c.name}: MoE layers are not ported yet (ROADMAP A.11); serve "
+            f"{c.name}: MoE layers are not ported yet (ROADMAP A.9); serve "
             "the dense layers with .with_(n_layers=n_dense_layers, n_experts=0)")
 
 
 def init_params(config: ModelConfig, seed: int, dtype, device) -> Params:
     """Random-init params from a seeded generator on `device` (weights
-    ~ N(0, 1/fan_in), norms 1, or 0 where they are zero-centred). Same
-    tree and scales as the reference's init_params; the numbers differ
-    (another generator)."""
+    ~ N(0, 1/fan_in), biases 0, norms 1, or 0 where they are
+    zero-centred). Same tree and scales as the reference's init_params;
+    the numbers differ (another generator)."""
     c = config
     _refuse_moe(c)
     g = torch.Generator(device=device).manual_seed(seed)
@@ -107,9 +113,18 @@ def init_params(config: ModelConfig, seed: int, dtype, device) -> Params:
             "wv": w(c.dim, L, c.dim, c.n_kv_heads * hd),
             "wo": w(c.n_heads * hd, L, c.n_heads * hd, c.dim),
         }
+        if c.attn_bias:  # Qwen2
+            layers["bq"] = torch.zeros(L, c.n_heads * hd, dtype=dtype, device=device)
+            layers["bk"] = torch.zeros(L, c.n_kv_heads * hd, dtype=dtype, device=device)
+            layers["bv"] = torch.zeros(L, c.n_kv_heads * hd, dtype=dtype, device=device)
+        if c.qk_norm:  # per head (Qwen3, Gemma-3) or full width (OLMo-2)
+            wide = c.qk_norm_wide
+            layers["q_norm"] = norm(L, c.n_heads * hd if wide else hd)
+            layers["k_norm"] = norm(L, c.n_kv_heads * hd if wide else hd)
+    if c.pre_norms or c.is_mla:
+        layers["attn_norm"] = norm(L, c.dim)
+        layers["mlp_norm"] = norm(L, c.dim)
     layers.update({
-        "attn_norm": norm(L, c.dim),
-        "mlp_norm": norm(L, c.dim),
         "w_gate": w(c.dim, L, c.dim, c.ffn_dim),
         "w_up": w(c.dim, L, c.dim, c.ffn_dim),
         "w_down": w(c.ffn_dim, L, c.ffn_dim, c.dim),
@@ -170,15 +185,21 @@ def forward(
     act = ((lambda x: F.gelu(x, approximate="tanh")) if c.act == "gelu_tanh"
            else F.silu)
 
+    def in_dtype(x: float, like: torch.Tensor) -> float:
+        # a multiplier rounded through the activations' dtype, as the
+        # reference's jnp.asarray(m, h.dtype)
+        return float(torch.tensor(x, dtype=like.dtype))
+
     h = params["embed"][tokens.long()]  # [B, S, E]
-    if c.embed_scale:
-        # Gemma: sqrt(dim), rounded through the embedding dtype (HF)
-        h = h * float(torch.tensor(c.dim ** 0.5, dtype=h.dtype))
+    if c.embed_multiplier:  # Granite
+        h = h * in_dtype(c.embed_multiplier, h)
+    elif c.embed_scale:  # Gemma: sqrt(dim)
+        h = h * in_dtype(c.dim ** 0.5, h)
     safe_pos = positions.clamp(min=0)
-    rope_dim = c.qk_rope_head_dim if c.is_mla else hd
-    cos, sin = rope_cos_sin(
-        safe_pos, rope_inv_freq(c, rope_dim, c.rope_theta, str(tokens.device)),
-        rope_mscale(c))
+    # one cos/sin table, or Gemma-3's two (global, local) picked per layer
+    ropes = rope_tables(c, safe_pos, c.qk_rope_head_dim if c.is_mla else hd)
+    # Granite's branch multiplier in the activations' dtype (1 elsewhere)
+    rm = in_dtype(c.residual_multiplier, h)
     if ragged is not None:
         if B != 1:
             raise ValueError("ragged forward takes a single flat [1, T] row")
@@ -200,13 +221,25 @@ def forward(
     for l in range(c.n_layers):
         if c.is_mla:
             attn = mla_attention(c, lp, h, k_pool, l, rows, page_table,
-                                 (cos, sin), safe_pos, kv_lens, q_start,
+                                 ropes[0], safe_pos, kv_lens, q_start,
                                  q_len, attn_impl)
         else:
-            x = rms_norm(h, lp["attn_norm"][l], c.norm_eps, zero_centered=zc)
-            q = (x @ lp["wq"][l]).view(B, S, c.n_heads, hd)
-            k = (x @ lp["wk"][l]).view(B, S, c.n_kv_heads, hd)
-            v = (x @ lp["wv"][l]).view(B, S, c.n_kv_heads, hd)
+            # OLMo-2 (pre_norms=False): the sublayer reads the raw residual
+            x = (rms_norm(h, lp["attn_norm"][l], c.norm_eps, zero_centered=zc)
+                 if c.pre_norms else h)
+            q, k, v = x @ lp["wq"][l], x @ lp["wk"][l], x @ lp["wv"][l]
+            if c.attn_bias:  # Qwen2: after the product, in the params' dtype
+                q, k, v = q + lp["bq"][l], k + lp["bk"][l], v + lp["bv"][l]
+            if c.qk_norm and c.qk_norm_wide:  # OLMo-2: over the full width
+                q = rms_norm(q, lp["q_norm"][l], c.norm_eps, zero_centered=zc)
+                k = rms_norm(k, lp["k_norm"][l], c.norm_eps, zero_centered=zc)
+            q = q.view(B, S, c.n_heads, hd)
+            k = k.view(B, S, c.n_kv_heads, hd)
+            v = v.view(B, S, c.n_kv_heads, hd)
+            if c.qk_norm and not c.qk_norm_wide:  # Qwen3, Gemma-3: per head
+                q = rms_norm(q, lp["q_norm"][l], c.norm_eps, zero_centered=zc)
+                k = rms_norm(k, lp["k_norm"][l], c.norm_eps, zero_centered=zc)
+            cos, sin = ropes[layer_rope(c, l)]
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
             write_kv(k_pool, l, k, rows)
@@ -231,16 +264,21 @@ def forward(
                     **attn_kw)
             attn = attn.reshape(B, S, c.n_heads * hd)
         attn_out = attn @ lp["wo"][l]
-        if c.post_norms:  # Gemma-2: norm the branch before the residual
+        if c.post_norms:  # Gemma-2, OLMo-2: norm the branch before the residual
             attn_out = rms_norm(attn_out, lp["post_attn_norm"][l], c.norm_eps,
                                 zero_centered=zc)
+        if rm != 1.0:  # Granite: scale the branch
+            attn_out = attn_out * rm
         h = h + attn_out
-        x = rms_norm(h, lp["mlp_norm"][l], c.norm_eps, zero_centered=zc)
+        x = (rms_norm(h, lp["mlp_norm"][l], c.norm_eps, zero_centered=zc)
+             if c.pre_norms or c.is_mla else h)
         gate = act(x @ lp["w_gate"][l])
         ffw = (gate * (x @ lp["w_up"][l])) @ lp["w_down"][l]
         if c.post_norms:
             ffw = rms_norm(ffw, lp["post_mlp_norm"][l], c.norm_eps,
                            zero_centered=zc)
+        if rm != 1.0:
+            ffw = ffw * rm
         h = h + ffw
 
     if last_index is not None:
@@ -254,6 +292,8 @@ def forward(
     h = rms_norm(h, params["norm_f"], c.norm_eps, zero_centered=zc)
     lm_head = params.get("lm_head")
     logits = (h @ (params["embed"].T if lm_head is None else lm_head)).float()
+    if c.logits_divider != 1.0:  # Granite
+        logits = logits / c.logits_divider
     if c.final_logit_softcap:
         cap = c.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)

@@ -1,5 +1,6 @@
 """Transformer building blocks: RMSNorm, RoPE (with llama3 and yarn
-scaling), the attention score scale, each layer's sliding window, the
+scaling, and Gemma-3's second base for sliding layers), the attention
+score scale, each layer's sliding window, the
 token-major paged KV pool (the latent pool for MLA; bf16 or the int8 dict
 of models/quant.py) and its writer, and the plain gather attention that
 every attention kernel is held against.
@@ -114,19 +115,34 @@ def attn_score_scale(config: ModelConfig, qk_dim: int) -> float:
 
 
 def gqa_score_scale(config: ModelConfig) -> Optional[float]:
-    """The GQA softmax scale: query_pre_attn_scalar^-0.5 where the config
-    sets it (Gemma), else None (the kernels' head_dim^-0.5)."""
+    """The GQA softmax scale: Granite's attn_scale where the config sets
+    it, else query_pre_attn_scalar^-0.5 where that is set (Gemma), else
+    None (the kernels' head_dim^-0.5)."""
+    if config.attn_scale:
+        return config.attn_scale
     q = config.query_pre_attn_scalar
     return q ** -0.5 if q > 0 else None
 
 
+def is_global_layer(config: ModelConfig, l: int) -> bool:
+    """Layer l is global when l % sw_period == sw_global_residue."""
+    return l % config.sw_period == config.sw_global_residue
+
+
 def layer_window(config: ModelConfig, l: int) -> int:
-    """Layer l's sliding window in tokens, 0 for a global layer: global
-    when l % sw_period == sw_global_residue or the config has no window."""
+    """Layer l's sliding window in tokens, 0 for a global layer or a
+    config with no window."""
     c = config
-    if c.sliding_window <= 0 or l % c.sw_period == c.sw_global_residue:
+    if c.sliding_window <= 0 or is_global_layer(c, l):
         return 0
     return c.sliding_window
+
+
+def layer_rope(config: ModelConfig, l: int) -> int:
+    """Which of rope_tables' tables layer l rotates with, a Python int:
+    1 (the local base) for the sliding layers of a dual-RoPE config
+    (Gemma-3's rope_local_theta), else 0."""
+    return int(bool(config.rope_local_theta) and not is_global_layer(config, l))
 
 
 def rope_inv_freq_np(config: Optional[ModelConfig], hd: int, theta: float) -> np.ndarray:
@@ -192,6 +208,20 @@ def rope_cos_sin(positions: torch.Tensor, inv_freq: torch.Tensor,
     if mscale != 1.0:
         cos, sin = cos * mscale, sin * mscale
     return cos[..., None, :], sin[..., None, :]
+
+
+def rope_tables(config: ModelConfig, positions: torch.Tensor, hd: int):
+    """The cos/sin tables of `positions` [..., S] that a forward's layers
+    pick from by layer_rope: [rope_theta's, with the config's scaling]
+    and, for a dual-RoPE config, rope_local_theta's, unscaled. A dual
+    config's tables carry no yarn magnitude, as the reference's explicit
+    inverse frequencies do not."""
+    dev = str(positions.device)
+    if not config.rope_local_theta:
+        return [rope_cos_sin(positions, rope_inv_freq(config, hd, config.rope_theta, dev),
+                             rope_mscale(config))]
+    return [rope_cos_sin(positions, rope_inv_freq(config, hd, config.rope_theta, dev)),
+            rope_cos_sin(positions, rope_inv_freq(None, hd, config.rope_local_theta, dev))]
 
 
 def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:

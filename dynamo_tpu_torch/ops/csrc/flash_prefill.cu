@@ -10,7 +10,7 @@
 // attends causally over the sequence's whole paged context (prior prefix
 // plus the chunk, already written to the token-major pool [NP, PS, Hk,
 // D]); with a window w > 0 the row at position p sees only positions
-// c > p - w. Padding rows come out 0. Head dims 64, 128 and 256.
+// c > p - w. Padding rows come out 0. Head dims 64, 96, 128 and 256.
 //
 // What bounds it on an H100: for a 512-token chunk with a few hundred
 // prior tokens the QK^T and PV products (4 * D flops per visible
@@ -176,6 +176,10 @@ extern "C" int prefill_paged_attention(
   if (D == 256) {
     return launch_d<256>(cap, grid, st, qq, kv, pt, qs, ql, kl, oo, S, Hk, G,
                          PS, MP, q_block, window, sm);
+  }
+  if (D == 96) {
+    return launch_d<96>(cap, grid, st, qq, kv, pt, qs, ql, kl, oo, S, Hk, G,
+                        PS, MP, q_block, window, sm);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -4,9 +4,8 @@
 // `decode_paged_attention` (body `_decode_kernel_body`), its bf16 bodies
 // `_decode_kernel` and `_decode_kernel_win` and its int8 bodies
 // `_decode_kernel_int8` and `_decode_kernel_int8_win`, with the static
-// softcap and scale, at head dims 64, 128 and 256: one query token per
-// sequence, all
-// G query heads of each kv-head, attends over the sequence's pages of a
+// softcap and scale, at head dims 64, 96, 128 and 256 and G 1 to 8: one
+// query token per sequence, all G query heads of each kv-head, attends over the sequence's pages of a
 // token-major pool [NP, PS, Hk, D] up to kv_len (with a window w > 0,
 // from kv_len - w: the reference's rule at paged_attention.py:78-84), with
 // an online softmax in f32. Rows with kv_len 0 come out 0.
@@ -58,6 +57,13 @@
 //   - D 256 (Gemma-2): Q's fragments are reloaded from shared memory each
 //     tile (QFrags), so that O's 128 registers fit; 211 KB of shared
 //     memory, one block an SM.
+//   - D 96 (Phi-3) is the D 128 body with 6 slices of 16 dims: rows of
+//     104 bf16 (208 bytes, 16-byte aligned, conflict-free for ldmatrix),
+//     bulk copies of 192 bytes (int8: 96), 83 KB of shared memory.
+//   - G is 1 to 8 (the rows of one 16-row fragment a KV head's queries
+//     take). At G 1 (MHA: Phi-3, OLMo-2, Gemma-7B) a warp carries one live
+//     row in its fragment: the products cost what G 8's do, the bytes
+//     are the same, and the kernel stays bound by bytes.
 //   - int8 pools (models/quant.py; the TPU kernel's `_decode_kernel_int8`
 //     and `_int8_win`, template flag kI8): a tile's codes arrive by bulk
 //     copies of D bytes into the last D bytes of each row slot and its
@@ -381,6 +387,10 @@ extern "C" int decode_paged_attention(const void* q, const void* k_pool,
   if (D == 256) {
     return launch_d<256>(cap, B, Hk, NS, st, qq, kv, pt, kl, oo, pp, G, PS, MP,
                          split, window, sm);
+  }
+  if (D == 96) {
+    return launch_d<96>(cap, B, Hk, NS, st, qq, kv, pt, kl, oo, pp, G, PS, MP,
+                        split, window, sm);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -31,7 +31,8 @@
 //     their P = 0 never meets a NaN.
 //   - Products on tensor cores: S = Q K^T and O += P V with
 //     mma.sync.m16n8k16 (bf16 in, f32 accumulate), A and B fragments from
-//     ldmatrix (.trans for V). Up to D 128 Q's fragments are loaded once
+//     ldmatrix (.trans for V); any D that is a multiple of 16 (64, 96, 128,
+//     256 are built). Up to D 128 Q's fragments are loaded once
 //     into registers; at D 256 they would take 64 registers beside O's
 //     128 (32 x 4 f32 a thread), so each tile reloads them from the Q tile
 //     in shared memory (QFrags), one slice of 16 dims for all 64 tokens at

@@ -6,7 +6,7 @@
 // `_ragged_kernel_int8` and `_ragged_kernel_int8_win` (codes and scales as
 // paged_flash.cuh's kI8 describes; the split partials fold the scales
 // before they are written, so the merge is the bf16 one), with the static
-// softcap and scale, at head dims 64, 128 and 256: one flat [T, Hk, G, D]
+// softcap and scale, at head dims 64, 96, 128 and 256: one flat [T, Hk, G, D]
 // query axis
 // holds decode rows (one token
 // each), prefill chunks and speculative-verify rows (K+1 tokens), each
@@ -266,6 +266,10 @@ extern "C" int ragged_paged_attention(
   if (D == 256) {
     return launch_d<256>(cap, NW, Hk, NS, st, qq, kv, pt, kl, mt, oo, pp, G,
                          PS, MP, q_block, split, window, sm);
+  }
+  if (D == 96) {
+    return launch_d<96>(cap, NW, Hk, NS, st, qq, kv, pt, kl, mt, oo, pp, G,
+                        PS, MP, q_block, split, window, sm);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -5,7 +5,7 @@ plus the chunk, already written to the pool).
 Port of dynamo_tpu/ops/flash_prefill.py `prefill_paged_attention`: the
 bf16 bodies and the int8 ones (dict pools of models/quant.py,
 `_prefill_kernel_int8[_win]`), each plain and Gemma-2's (sliding window,
-score soft cap, scale override), at head dims 64, 128 and 256. Positions
+score soft cap, scale override), at head dims 64, 96, 128 and 256. Positions
 contract, as there:
 query token s of sequence b sits at absolute position q_start[b] + s for
 s < q_len[b], padding after; flat context index c is absolute position c;

@@ -5,7 +5,7 @@ Port of dynamo_tpu/ops/paged_attention.py `decode_paged_attention`: the
 bf16 bodies and the int8 ones (pools as the dict {"q": int8, "s": f32} of
 models/quant.py, `_decode_kernel_int8[_win]`), each plain and Gemma-2's (a
 sliding window, a score soft cap and a scale override), at head dims 64,
-128 and 256. On CUDA tensors the wrapper launches the hand-written Hopper
+96, 128 and 256 and 1 to 8 query heads a KV head. On CUDA tensors the wrapper launches the hand-written Hopper
 kernel in csrc/paged_attention.cu; on CPU tensors it runs the plain
 PyTorch version below (for int8 pools toolkit.paged_attention_int8_ref,
 which folds the scales in the TPU kernels' order), which is also what the
@@ -176,13 +176,17 @@ def attention_ref(pool_l):
 
 
 # head dims each attention kernel is built for (wrappers raise on others)
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (64, 96, 128, 256)
+# query heads a KV head the decode kernel takes: the rows of one warp's
+# 16-row fragment that hold a KV head's queries (G > 8 would need two
+# fragments a warp, or rows split over warps)
+DECODE_MAX_G = 8
 
 
 def count_launch(fn, D: int, window: int, softcap: float,
                  int8: bool = False) -> None:
     """One launch of a GQA kernel: `fn.launches` and, by body,
-    `fn.bodies` ("D128", "D128_int8", "D256_int8_window_softcap", ...).
+    `fn.bodies` ("D128", "D96_window", "D256_int8_window_softcap", ...).
     Called by the wrappers right after their kernel launched, and nowhere
     else."""
     fn.launches += 1
@@ -279,7 +283,7 @@ def decode_paged_attention(
         raise TypeError(f"the decode kernel takes a bf16 q, not {q.dtype}")
     if page_table.dtype != torch.int32 or kv_lens.dtype != torch.int32:
         raise TypeError("page_table and kv_lens must be int32")
-    if D not in KERNEL_HEAD_DIMS or G not in (1, 2, 3, 4, 8):
+    if D not in KERNEL_HEAD_DIMS or not 1 <= G <= DECODE_MAX_G:
         raise ValueError(f"no decode kernel for D={D}, G={G}")
     tensors = (q, k, v, page_table, kv_lens)
     if any(t.device != q.device for t in tensors + scale_tensors(ks, vs)):

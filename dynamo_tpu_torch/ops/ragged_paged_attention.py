@@ -5,7 +5,7 @@ Port of dynamo_tpu/ops/ragged_paged_attention.py: the bf16 bodies and
 the int8 ones (dict pools of models/quant.py, `_ragged_kernel_int8[_win]`),
 each plain and Gemma-2's (sliding window, score soft cap, scale override;
 each flat token at position p sees c > p - w under a window w > 0), at
-head dims 64, 128 and 256.
+head dims 64, 96, 128 and 256.
 The host metadata helpers (`ragged_seg_cap`, `ragged_work_cap`,
 `build_ragged_metadata`) are copies of the reference's numpy code: the
 flat [T] axis is cut into q_block-token blocks, and every (block, segment)

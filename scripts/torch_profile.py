@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Where the PyTorch port's engine spends its time on the card.
 
-    python3 scripts/torch_profile.py [--model llama-3.2-3b|llama-3.1-8b|deepseek-v3|gemma-2-9b]
-        [--kv-quantize int8] [--trace PATH]
+    python3 scripts/torch_profile.py [--model llama-3.2-3b|llama-3.1-8b|deepseek-v3|
+        gemma-2-9b|qwen2.5-7b|phi-3-mini-4k] [--kv-quantize int8] [--trace PATH]
 
 Builds the engine exactly as chip_smoke.py's engine phase does
 (llama-3.2-3b, the default; llama-3.1-8b with the same flags, the
@@ -10,7 +10,10 @@ runner of chip_smoke.int8kv_phases when given --kv-quantize int8; with
 --model deepseek-v3, the runner of chip_smoke.mla_phases: DeepSeek-V3's
 three dense layers at full width, 2048 pages of 16; with --model
 gemma-2-9b, chip_smoke.gemma_phases' runner and its two extra prompts
-past the window; --kv-quantize int8 gives any of them int8 KV pools) and
+past the window; with --model qwen2.5-7b or phi-3-mini-4k, the runners of
+chip_smoke.qwen2_phases (its biases left at 0) and phi3_phases, phi-3
+with its two prompts past the window; --kv-quantize int8 gives any of
+them int8 KV pools) and
 serves its workload three
 times, each with fresh
 prompts (another seed, so no run hits the previous run's prefix cache):
@@ -44,7 +47,8 @@ import chip_smoke  # noqa: E402
 from dynamo_tpu_torch.engine.model_runner import ModelRunner  # noqa: E402
 from dynamo_tpu_torch.worker import build_engine, parse_args  # noqa: E402
 
-MODELS = ("llama-3.2-3b", "llama-3.1-8b", "deepseek-v3", "gemma-2-9b")
+MODELS = ("llama-3.2-3b", "llama-3.1-8b", "deepseek-v3", "gemma-2-9b",
+          "qwen2.5-7b", "phi-3-mini-4k")
 
 
 def family(name: str) -> str:
@@ -109,6 +113,8 @@ def main() -> int:
                              kv_quantize=args.kv_quantize)
     elif args.model == "gemma-2-9b":
         engine_args, extra = chip_smoke.GEMMA_ARGS, chip_smoke.GEMMA_LONG_PROMPTS
+    elif args.model == "phi-3-mini-4k":
+        engine_args, extra = chip_smoke.PHI3_ARGS, chip_smoke.PHI3_LONG_PROMPTS
     if args.kv_quantize:
         engine_args = engine_args + ["--kv-quantize", args.kv_quantize]
     engine = build_engine(parse_args(engine_args), runner=runner)

@@ -112,7 +112,8 @@ def test_window_d256_wrappers_raise_unless_on_the_cpu(op, monkeypatch):
     """A windowed, soft-capped D 256 call on tensors that are not on the
     CPU (the meta device, on a machine without the CUDA toolkit) raises:
     it never computes the plain version instead, and counts no launch.
-    On CPU tensors it runs the plain version. D 96 has no kernel."""
+    On CPU tensors it runs the plain version. D 96 reaches the build as
+    D 256 does; D 80 has no kernel."""
     fn = {"decode": pa.decode_paged_attention,
           "prefill": fp.prefill_paged_attention,
           "ragged": rag.ragged_paged_attention}[op]
@@ -122,8 +123,10 @@ def test_window_d256_wrappers_raise_unless_on_the_cpu(op, monkeypatch):
     before = fn.launches
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _gqa_call(op, 256, "meta")
-    with pytest.raises(ValueError, match="no .* kernel for"):
+    with pytest.raises(RuntimeError, match="nvcc not found"):
         _gqa_call(op, 96, "meta")
+    with pytest.raises(ValueError, match="no .* kernel for"):
+        _gqa_call(op, 80, "meta")
     out = _gqa_call(op, 256, "cpu")
     assert out.device.type == "cpu" and torch.isfinite(out.float()).all()
     assert fn.launches == before

@@ -347,16 +347,16 @@ def test_runner_turns_ragged_off_for_mla(monkeypatch):
 # -- (g) what is refused -----------------------------------------------------
 def test_moe_and_ragged_mla_are_refused():
     moe = get_config("tiny-mla-moe")
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(NotImplementedError, match="A.9"):
         llama.init_params(moe, 0, torch.float32, "cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(NotImplementedError, match="A.9"):
         llama.init_params(get_config("deepseek-v3"), 0, torch.float32, "cpu")
     cfg = get_config("tiny-mla")
     params = llama.init_params(cfg, 0, torch.float32, "cpu")
     k, v = tk.make_kv_pool(cfg, 9, 4, torch.float32, "cpu")
     tok = torch.zeros(1, 4, dtype=torch.int32)
     pos = torch.arange(4, dtype=torch.int32)[None]
-    with pytest.raises(NotImplementedError, match="A.11"):
+    with pytest.raises(NotImplementedError, match="A.9"):
         llama.forward(moe, params, tok, pos, k, v, torch.zeros(1, 2, dtype=torch.int32),
                       torch.tensor([4], dtype=torch.int32))
     ragged = (torch.zeros(1, 2, dtype=torch.int32), torch.tensor([4], dtype=torch.int32),
