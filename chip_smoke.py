@@ -144,13 +144,44 @@ Phases, each printing one JSON line:
                qwen3-8b (D128), mistral-7b (prompts of 4600 and 5200 past
                its 4096-token window on every layer; D128_window),
                gemma-7b (D256), olmo-2-7b and granite-3.1-8b (D128).
+  9. moe     - (`moe_kernels`, after `head_shape_kernels`) the grouped
+               GEMM's two entries (ops/csrc/moe_grouped_gemm.cu) at
+               qwen3-30b-a3b's experts (E 2048, F 768, 128 of them, top
+               8) at T 8, 264 and 512 and DeepSeek-V3's (E 7168, F 2048,
+               256) at T 8 and 512, each routed uniformly and skewed (half
+               the pairs on one expert, half the experts empty), against
+               the plain version in f32: max abs error (x at RMS
+               MOE_X_RMS) and row errors over the row's RMS and over its
+               max (gate/up is gated on the max form, down on the RMS
+               form, both at ROW_REL_TOL; a pair on the wrong expert and
+               a dropped last tile planted in the plain computation must
+               break the gate), timed beside the per-expert matmul loop,
+               the dense every-expert form and torch._grouped_mm, with
+               the bound over the touched experts' weights; one
+               moe_block under torch.cuda.set_sync_debug_mode("error").
+               Then, after every earlier runner is freed,
+               `engine_qwen3moe` and `engine_qwen3moe_unfused`
+               (qwen3-30b-a3b at full width and depth, 48 MoE layers, G 8,
+               61 GB of weights: the 3B's traffic, every request `length`,
+               launches = passes x 48 on D128, each grouped-GEMM entry's
+               = passes x 48), `parity_qwen3moe_free` (information: each
+               path routes on its own logits, and the top-k choices that
+               differ are counted) and `parity_qwen3moe` (the plain path
+               on the kernel path's routing, held to FORWARD_REL_TOL);
+               then `engine_mla_moe` and the two `parity_mla_moe` turns
+               (DeepSeek-V3's three dense layers and its first MoE layer,
+               get_config("deepseek-v3").with_(n_layers=4), the selection
+               bias drawn non-zero: the padded fallback, MLA launches =
+               passes x 4, each grouped-GEMM entry's = passes x 1).
 Then the `kernels` summary line (launches from the fused phase for the
 GQA attention kernels, from engine_disagg for gather and scatter, from
 engine_tiers for the layer scatter, from engine_mla for the MLA kernels,
 from engine_int8kv and engine_mla_int8 for the `*_int8` entries, the
 int8 bodies, from engine_qwen2 for the `*_G7` entries and from
 engine_phi3 and engine_phi3_int8 for the `*_D96_window` and
-`*_D96_int8_window` entries, whose times are head_shape_kernels'; for
+`*_D96_int8_window` entries, whose times are head_shape_kernels', from
+engine_qwen3moe for the grouped GEMM's two entries, whose times are
+moe_kernels' qwen3-30b-a3b T 264 uniform case; for
 the GQA kernels also `variants`, the bodies each engine phase launched),
 the
 card's name and power limit, and, last, the contract line
@@ -182,8 +213,10 @@ from dynamo_tpu_torch.models.quant import (
     kv_quantize,
 )
 from dynamo_tpu_torch.models.toolkit import attn_score_scale, layer_window, pool_values
+from dynamo_tpu_torch.models import moe as moe_model
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops import block_copy as bc
+from dynamo_tpu_torch.ops import moe_dispatch as md
 from dynamo_tpu_torch.ops.flash_prefill import (
     prefill_paged_attention,
     prefill_paged_attention_ref,
@@ -302,6 +335,11 @@ SOURCES = {
                              "dynamo_tpu/ops/mla_attention.py:161"),
     "prefill_mla_attention": ("dynamo_tpu_torch/ops/csrc/mla_attention.cu",
                               "dynamo_tpu/ops/mla_attention.py:299"),
+    # the grouped GEMM replaces no TPU kernel: XLA computes every expert
+    "moe_gate_up": ("dynamo_tpu_torch/ops/csrc/moe_grouped_gemm.cu",
+                    "dynamo_tpu/models/moe.py:69 (XLA vmap over experts; no Pallas kernel)"),
+    "moe_down": ("dynamo_tpu_torch/ops/csrc/moe_grouped_gemm.cu",
+                 "dynamo_tpu/models/moe.py:69 (XLA vmap over experts; no Pallas kernel)"),
 }
 KERNELS = {"decode_paged_attention": decode_paged_attention,
            "prefill_paged_attention": prefill_paged_attention,
@@ -310,15 +348,19 @@ KERNELS = {"decode_paged_attention": decode_paged_attention,
            "scatter_pages": bc.scatter_pages,
            "scatter_pages_layers": bc.scatter_pages_layers,
            "decode_mla_attention": decode_mla_attention,
-           "prefill_mla_attention": prefill_mla_attention}
+           "prefill_mla_attention": prefill_mla_attention,
+           "moe_gate_up": md.moe_gate_up,
+           "moe_down": md.moe_down}
 COPY_KERNELS = ("gather_pages", "scatter_pages", "scatter_pages_layers")
 GQA_KERNELS = ("decode_paged_attention", "prefill_paged_attention",
                "ragged_paged_attention")
 GQA_STEMS = ("paged_attention", "flash_prefill", "ragged_paged_attention")
 MLA_KERNELS = ("decode_mla_attention", "prefill_mla_attention")
-# DeepSeek-V3's first three layers (dense FFN; the later MoE layers wait for
-# ROADMAP A.9) at full width
+MOE_KERNELS = ("moe_gate_up", "moe_down")
+# DeepSeek-V3's first three layers (dense FFN) at full width
 MLA_CONFIG = get_config("deepseek-v3").with_(n_layers=3, n_experts=0)
+# and its first MoE layer after them (256 experts, one shared, V3's routing)
+MLA_MOE_CONFIG = get_config("deepseek-v3").with_(n_layers=4)
 
 
 class CheckFailed(Exception):
@@ -1324,11 +1366,13 @@ def serve(engine, seed: int, spec: bool = False, extra=()):
 
 
 def check_launches(phase: str, launches, stats, L: int, mla: bool = False,
-                   int8: bool = False) -> None:
+                   int8: bool = False, moe_layers: int = 0) -> None:
     """Each kernel launched once per layer of each forward pass of its
     kind, and nowhere else (an MLA model launches no GQA kernel and the
     other way round; an int8 latent's prefill gathers, as the reference's
-    does, and launches no MLA prefill kernel)."""
+    does, and launches no MLA prefill kernel); each grouped-GEMM entry
+    once per MoE layer (runner.moe_layers) of every pass, and never for a
+    dense model."""
     prefill = stats["prefill_chunks"] + stats["padded_prefill_dispatches"]
     ragged = stats["ragged_mixed_dispatches"] + stats["ragged_verify_dispatches"]
     if mla:
@@ -1344,6 +1388,11 @@ def check_launches(phase: str, launches, stats, L: int, mla: bool = False,
     for name, n in want.items():
         check(launches[name] == n * L,
               f"{phase}: {name} launches {launches[name]} != {n} passes x {L}")
+    passes = prefill + stats["decode_steps"] + ragged
+    for name in MOE_KERNELS:
+        check(launches[name] == passes * moe_layers,
+              f"{phase}: {name} launches {launches[name]} != {passes} passes x "
+              f"{moe_layers} MoE layers")
     for name in COPY_KERNELS:  # no transfer and no host tier here
         check(launches[name] == 0, f"{phase}: {name} launched {launches[name]}")
 
@@ -1397,7 +1446,8 @@ def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
     check(stats["prefill_chunks"] > 0 and stats["decode_steps"] > 0,
           f"{phase}: engine ran no prefill or no decode: {stats}")
     check_launches(phase, launches, stats, L, mla=runner.config.is_mla,
-                   int8=runner.kv_quantize is not None)
+                   int8=runner.kv_quantize is not None,
+                   moe_layers=runner.moe_layers)
     reused = engine.scheduler.reused_prefix_tokens
     check(reused >= 256, f"{phase}: late request reused only {reused} prefix tokens")
     ttft = sorted(r[2].get("ttft_s", float("nan")) for r in results)
@@ -1793,7 +1843,8 @@ def tiers_phase(params):
 
 
 def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True,
-                 lens=(300, 180, 90), S: int = 320, MP: int = 24, NP: int = 80):
+                 lens=(300, 180, 90), S: int = 320, MP: int = 24, NP: int = 80,
+                 moe_sels=None, gate: bool = True, against: str = "ref"):
     """Three sequences of `lens` tokens prefilled in chunks of S (one
     chunk by default; padding rows, and rows that have finished in later
     chunks), two decode steps of the first two (the third a padding row),
@@ -1804,7 +1855,13 @@ def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True,
     inputs are the kernel path's greedy tokens, fed to both. Only rows
     with tokens in a step are compared. With int8 pools the kernel path
     also runs on bf16 pools, and the int8 logits' distance to those is
-    reported as information."""
+    reported as information. `moe_sels` (from record_selections, around
+    the call) adds how many top-k choices differ between the paths;
+    gate=False reports the errors without holding them to the limit.
+    against="kernel" runs the kernel path in place of the plain one, on
+    pools of its own, and holds the two to bit-for-bit equality: the
+    engine's greedy streams repeat run to run only if every kernel and
+    the glue between them do."""
     from dynamo_tpu_torch.models import llama
     from dynamo_tpu_torch.models.toolkit import make_kv_pool
 
@@ -1818,9 +1875,9 @@ def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True,
     pages = torch.randperm(NP, generator=gen)[: 3 * MP].view(3, MP).to(torch.int32)
     pages = pages.to(dev)
     # path name -> (attn_impl, pools)
-    paths = {impl: (impl, make_kv_pool(cfg, NP + 1, PS, runner.dtype, dev,
+    paths = {name: (impl, make_kv_pool(cfg, NP + 1, PS, runner.dtype, dev,
                                        kv_quantize=runner.kv_quantize))
-             for impl in ("kernel", "ref")}
+             for name, impl in (("kernel", "kernel"), ("ref", against))}
     if runner.kv_quantize:
         paths["kernel_bf16"] = ("kernel", make_kv_pool(cfg, NP + 1, PS, runner.dtype, dev))
     rel, agree, worst_abs = [], [], 0.0
@@ -1843,6 +1900,7 @@ def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True,
         return logits["kernel"].argmax(-1).to(torch.int32)
 
     nxt = torch.zeros(3, dtype=torch.int32, device=dev)
+    real = []  # each step's real (not padding) tokens, flat
     for ci in range(n_chunks):  # chunked prefill, all rows in one batch
         pos = torch.full((3, S), -1, dtype=torch.int32)
         kvl = torch.zeros(3, dtype=torch.int32)
@@ -1853,6 +1911,7 @@ def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True,
                 pos[b, :hi - lo] = torch.arange(lo, hi)
                 kvl[b], last[b] = hi, hi - 1 - lo
         live = torch.tensor([n > ci * S for n in lens], device=dev)
+        real.append((pos >= 0).reshape(-1))
         out = compare({
             name: llama.forward(cfg, params, toks[ci].to(dev), pos.to(dev),
                                 *pl, pages, kvl.to(dev), last.to(dev),
@@ -1864,6 +1923,7 @@ def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True,
         p1 = torch.tensor([[lens[0] + t], [lens[1] + t], [-1]],
                           dtype=torch.int32, device=dev)
         kvl = torch.where(p1[:, 0] < 0, 0, p1[:, 0] + 1).to(torch.int32)
+        real.append((p1 >= 0).reshape(-1).cpu())
         nxt = compare({
             name: llama.forward(cfg, params, nxt[:, None], p1, *pl,
                                 pages, kvl, None, attn_impl=impl)[:, -1]
@@ -1872,20 +1932,27 @@ def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True,
     if ragged:
         ragged_parity_step(cfg, params, paths, nxt, lens, pages, MP, gen, dev,
                            compare)
+        real.append(torch.arange(88) < 79)  # two decode rows, a 77-token chunk
         steps_run.append("ragged")
     worst = max(rel)
     rec = {"phase": phase, "model": cfg.name, "lens": lens, "steps": steps_run,
-           "kv_quantize": runner.kv_quantize,
+           "kv_quantize": runner.kv_quantize, "against": against,
            "rel_l2_err_per_step": rel, "max_abs_err": worst_abs,
-           "tol_rel_l2": FORWARD_REL_TOL,
+           "tol_rel_l2": FORWARD_REL_TOL if against == "ref" else 0.0,
            "greedy_agreement": sum(agree) / len(agree)}
     if rel_bf16:  # information only: int8 against bf16 pools, both kernels
         rec["vs_bf16_pools"] = {"rel_l2_err_per_step": rel_bf16,
                                 "greedy_agreement": sum(agree_bf16) / len(agree_bf16)}
+    if moe_sels is not None:
+        rec["moe_topk"] = selection_flips(moe_sels, len(paths), runner.moe_layers,
+                                          real)
+    rec["gated"] = gate
     emit(rec)
-    check(worst <= FORWARD_REL_TOL,
-          f"{phase}: kernel vs plain forward: relative L2 error {worst} > "
-          f"{FORWARD_REL_TOL}")
+    check(not gate or worst <= rec["tol_rel_l2"],
+          f"{phase}: kernel vs {against} forward: relative L2 error {worst} > "
+          f"{rec['tol_rel_l2']}")
+    check(not gate or against == "ref" or worst_abs == 0.0,
+          f"{phase}: the kernel path twice: logits differ by {worst_abs}")
 
 
 def ragged_parity_step(cfg, params, paths, nxt, lens, pages, MP, gen, dev,
@@ -2720,7 +2787,8 @@ CONFIG_FIELDS = ("name", "dim", "n_layers", "n_heads", "n_kv_heads", "head_dim",
                  "ffn_dim", "vocab_size", "sliding_window", "sw_period",
                  "attn_bias", "qk_norm", "qk_norm_wide", "pre_norms", "post_norms",
                  "embed_multiplier", "residual_multiplier", "attn_scale",
-                 "logits_divider", "act", "norm_zero_centered")
+                 "logits_divider", "act", "norm_zero_centered", "n_experts",
+                 "n_experts_active", "moe_ffn_dim")
 
 
 def family_turn(runner, phase, fused, args, body, smi, extra=(), build_s=None):
@@ -2828,6 +2896,396 @@ def families_phase(dev, smi):
     return found
 
 
+# -- MoE: the grouped GEMM and the MoE models ---------------------------------
+
+# the grouped GEMM's cases: each model's (E, F, n_experts, k) and the
+# tokens a step gives it: a decode batch of 8, the fused ragged step (T
+# 264) and a 512-token chunk
+MOE_SHAPES = {"qwen3-30b-a3b": ((2048, 768, 128, 8), (8, 264, 512)),
+              "deepseek-v3": ((7168, 2048, 256, 8), (8, 512))}
+MOE_ROUTINGS = ("uniform", "skewed")
+# the kernels line's case: qwen3-30b-a3b's fused step, uniform routing
+MOE_HEAD = ("qwen3-30b-a3b", 264, "uniform")
+# x's RMS in the kernel cases held to KERNEL_TOL: a quarter of a normed
+# hidden state's. With the init's 1/sqrt(fan_in) weights, g and u then have
+# an RMS of about 0.25 and h and y about 0.03, so KERNEL_TOL is about a
+# typical output there and the max-abs limit is nominal: the row gates
+# (ROW_REL_TOL, each row against its own scale) carry the check. At RMS
+# 0.5 the reference's bf16 roundings of the largest outputs already reach
+# 0.0314 on an H100 (PERF.md §6, the grouped GEMM), so no max-abs limit
+# holds at the engine's scale; MOE_RMS1_CASES run there, at the RMS 1 of
+# the engine's normed x, held by the row gates alone
+MOE_X_RMS = 0.25
+MOE_RMS1_CASES = (("qwen3-30b-a3b", 264, "uniform"), ("deepseek-v3", 8, "uniform"))
+
+
+def moe_routing(gen, T, k, n, how):
+    """sel [T, k]: `uniform`, k distinct experts a token drawn uniformly;
+    `skewed`, half the pairs on expert 0 and the rest on experts 1 to
+    n/2 - 1, so that the upper half of the experts gets no row (padding
+    tokens of a bucket all route alike; the kernel takes any sel)."""
+    if how == "uniform":
+        return torch.rand(T, n, generator=gen).topk(k, dim=-1).indices
+    pick = torch.randint(1, n // 2, (T, k), generator=gen)
+    return torch.where(torch.rand(T, k, generator=gen) < 0.5, 0, pick)
+
+
+def row_errs(got, want, scale=None):
+    """The grouped GEMM's row errors: over the rows (the last dim), the max
+    of each row's max abs error against `want` divided by the row's RMS
+    (row_rel_err's form), and divided by the row's max abs value, both taken in
+    `scale` (default `want`; a planted fault is read against the right
+    rows' scale). A row with no error reads 0."""
+    want = want.float()
+    scale = want if scale is None else scale.float()
+    err = (got.float() - want).abs().amax(-1)
+
+    def form(den):
+        return torch.where(err == 0, 0.0, err / den).max().item()
+
+    return {"rms": form(scale.square().mean(-1).sqrt()),
+            "max": form(scale.abs().amax(-1))}
+
+
+def gate_up_plain32(x, tok, wg, wu, tiles, wrong_row=None):
+    """moe_gate_up's plain version in f32 from the bf16 operands, expert by
+    expert (each expert's weights converted on their own: V3's in f32
+    would be 15 GB). wrong_row plants a fault: that row computed with the
+    next expert's weights."""
+    n = wg.shape[0]
+    h = torch.zeros(tok.shape[0], wg.shape[-1], device=x.device)
+    for e, r0, r1 in md.expert_rows(tiles):
+        xr = x[tok[r0:r1].long()].float()
+        h[r0:r1] = F.silu(xr @ wg[e].float()) * (xr @ wu[e].float())
+        if wrong_row is not None and r0 <= wrong_row < r1:
+            xw, f = xr[wrong_row - r0], (e + 1) % n
+            h[wrong_row] = F.silu(xw @ wg[f].float()) * (xw @ wu[f].float())
+    return h
+
+
+def down_plain32(h, wd, tiles, wrong_row=None):
+    """moe_down's plain version in f32 (and its wrong-expert fault)."""
+    n = wd.shape[0]
+    y = torch.zeros(h.shape[0], wd.shape[-1], device=h.device)
+    for e, r0, r1 in md.expert_rows(tiles):
+        y[r0:r1] = h[r0:r1].float() @ wd[e].float()
+        if wrong_row is not None and r0 <= wrong_row < r1:
+            y[wrong_row] = h[wrong_row].float() @ wd[(e + 1) % n].float()
+    return y
+
+
+def moe_case(what, x, sel, wg, wu, wd, k, abs_gate=True):
+    """Both grouped-GEMM entries on one routing, against their plain
+    versions in f32: max abs error (held to KERNEL_TOL with `abs_gate`), the row errors over the row's RMS
+    (row_rel_err's form) and over the row's max abs value, the planted faults
+    (a pair on the wrong expert, the last tile dropped), times (b2b and
+    CUDA-graph replay) beside the plain version (the per-expert
+    torch.matmul loop), the dense every-expert form (the reference's) and
+    torch._grouped_mm where the card's torch has it, and the bound."""
+    dev = x.device
+    T, E = x.shape
+    n, _, F_ = wg.shape
+    r = md.route(sel.to(dev), n)
+    h = md.moe_gate_up(x, r.tok, wg, wu, r.tiles)
+    y = md.moe_down(h, wd, r.tiles)
+    torch.cuda.synchronize()
+    live = [t for t in r.tiles.tolist() if t[0] >= 0]
+    counts = torch.bincount(sel.reshape(-1), minlength=n)
+    touched = int((counts > 0).sum())
+    P = T * k
+    # the faults: the first row of the last expert with rows on the next
+    # expert's weights; the rows of the last tile left 0
+    wrong = md.expert_rows(r.tiles)[-1][1]
+    last0, last1 = live[-1][1], live[-1][2]
+    out = {"routing": what, "T": T, "pairs": P, "touched_experts": touched,
+           "x_rms": x.float().square().mean().sqrt().item(), "abs_gated": abs_gate,
+           "tiles": len(live), "grid_tiles": r.tiles.shape[0],
+           "max_rows_an_expert": int(counts.max())}
+    entries = {
+        "moe_gate_up": (h, lambda wr=None: gate_up_plain32(x, r.tok, wg, wu, r.tiles, wr),
+                        "max"),
+        "moe_down": (y, lambda wr=None: down_plain32(h, wd, r.tiles, wr), "rms"),
+    }
+    for name, (got, plain, gate) in entries.items():
+        want = plain()
+        check(torch.isfinite(got.float()).all().item(), f"{name} {what}: not finite")
+        err = (got.float() - want).abs().max().item()
+        rel = row_errs(got, want)
+        dropped = want.clone()
+        dropped[last0:last1] = 0
+        faults = {"wrong_expert": plain(wrong), "dropped_tile": dropped}
+        fault_rel = {f: row_errs(got, w, want)[gate] for f, w in faults.items()}
+        out[name] = {"max_abs_err": err, "row_rel_err_rms": rel["rms"],
+                     "row_rel_err_max": rel["max"], "row_gate": gate,
+                     "planted_faults": fault_rel}
+    # bounds: the touched experts' weights, each input row read once and
+    # each output row written once, the maps; or the FLOPs
+    maps = P * 4 + r.tiles.numel() * 4
+    gu_bytes = touched * 2 * E * F_ * 2 + T * E * 2 + P * F_ * 2 + maps
+    dn_bytes = touched * F_ * E * 2 + P * F_ * 2 + P * E * 2 + r.tiles.numel() * 4
+    bounds = {"moe_gate_up": bound(gu_bytes, 2 * P * E * F_ * 2),
+              "moe_down": bound(dn_bytes, 2 * P * F_ * E)}
+    # yardsticks: the dense every-expert form over all n experts, and
+    # torch._grouped_mm over the sorted rows (x gathered, h as it is)
+    h_dense = F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu)
+    calls = {
+        "moe_gate_up": (lambda: md.moe_gate_up(x, r.tok, wg, wu, r.tiles),
+                        lambda: md.moe_gate_up_ref(x, r.tok, wg, wu, r.tiles),
+                        lambda: F.silu(torch.matmul(x, wg)) * torch.matmul(x, wu)),
+        "moe_down": (lambda: md.moe_down(h, wd, r.tiles),
+                     lambda: md.moe_down_ref(h, wd, r.tiles),
+                     lambda: torch.matmul(h_dense, wd)),
+    }
+    offs = torch.cumsum(counts, 0).to(torch.int32).to(dev)
+    xs = x[r.tok.long()]
+    grouped = {"moe_gate_up": lambda: (torch._grouped_mm(xs, wg, offs=offs),
+                                       torch._grouped_mm(xs, wu, offs=offs)),
+               "moe_down": lambda: torch._grouped_mm(h, wd, offs=offs)}
+    for name, (kern, plain, dense) in calls.items():
+        bms, by = bounds[name]
+        rec = out[name]
+        rec.update({"ms": cuda_ms(kern), "device_ms": graph_ms(kern),
+                    "plain_ms": cuda_ms(plain, iters=5, warmup=1),
+                    "bound_ms": bms, "bound_by": by,
+                    "dense_ms": cuda_ms(dense, iters=5, warmup=1),
+                    "dense_device_ms": graph_ms(dense, iters=5, replays=2)})
+        try:
+            rec["grouped_mm_ms"] = cuda_ms(grouped[name])
+            rec["grouped_mm_device_ms"] = graph_ms(grouped[name])
+        except (AttributeError, RuntimeError) as e:  # a yardstick only
+            rec["grouped_mm_ms"] = rec["grouped_mm_device_ms"] = None
+            rec["grouped_mm_error"] = str(e)[:200]
+        rec["device_ms_over_bound"] = rec["device_ms"] / bms
+    del h_dense, xs
+    emit({"phase": "moe_case", **out})
+    for name in MOE_KERNELS:  # the checks, after the record is out
+        rec = out[name]
+        err, gate = rec["max_abs_err"], rec["row_gate"]
+        rel = rec[f"row_rel_err_{gate}"]
+        check(not abs_gate or err <= KERNEL_TOL,
+              f"{name} {what}: max abs err {err} > {KERNEL_TOL}")
+        check(rel <= ROW_REL_TOL,
+              f"{name} {what}: row error {rel} ({gate} form) > {ROW_REL_TOL}")
+        for f, v in rec["planted_faults"].items():
+            check(v > ROW_REL_TOL, f"{name} {what}: the planted {f} reads {v}, "
+                  f"under {ROW_REL_TOL}")
+    return out
+
+
+def moe_sync_check(x, wg, wu, wd, k, dev):
+    """One moe_block (routing, both entries, the combine) on CUDA tensors
+    under torch.cuda.set_sync_debug_mode("error"): any host sync raises.
+    Its output beside the every-expert path's (information)."""
+    cfg = get_config("qwen3-30b-a3b")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    E, n = wg.shape[1], wg.shape[0]
+    lp = {"w_router": (torch.randn(E, n, generator=gen, device=dev) * E ** -0.5
+                       ).bfloat16(),
+          "we_gate": wg, "we_up": wu, "we_down": wd}
+    xb = x[None]
+    torch.cuda.synchronize()
+    before = md.moe_gate_up.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        y = moe_model.moe_block(cfg, lp, xb, "kernel")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    check(md.moe_gate_up.launches == before + 1, "moe_block did not launch the kernel")
+    ref = moe_model.moe_block(cfg, lp, xb, "ref")
+    return {"T": x.shape[0], "host_syncs": 0,
+            "vs_every_expert_max_abs": (y.float() - ref.float()).abs().max().item(),
+            "vs_every_expert_row_errs": row_errs(y[0], ref[0])}
+
+
+def moe_kernels_phase(dev):
+    """Both grouped-GEMM entries at qwen3-30b-a3b's and DeepSeek-V3's
+    expert shapes, random bf16 weights at the init's scale, each T of
+    MOE_SHAPES under each routing of MOE_ROUTINGS at x RMS MOE_X_RMS, and
+    MOE_RMS1_CASES again at x RMS 1 (row gates alone); then the sync
+    check. Returns the kernels line's records (MOE_HEAD's case; its
+    max_abs_err the largest of the cases held to KERNEL_TOL)."""
+    gen = torch.Generator(device="cpu").manual_seed(11)
+    dgen = torch.Generator(device=dev).manual_seed(11)
+    cases, rms1, head, sync = [], [], {}, None
+    for model, ((E, F_, n, k), Ts) in MOE_SHAPES.items():
+        def w(*shape):
+            return torch.randn(shape, generator=dgen, device=dev,
+                               dtype=torch.bfloat16).mul_(shape[-2] ** -0.5)
+        wg, wu, wd = w(n, E, F_), w(n, E, F_), w(n, F_, E)
+        for T in Ts:
+            x = (torch.randn(T, E, generator=dgen, device=dev) * MOE_X_RMS).bfloat16()
+            for how in MOE_ROUTINGS:
+                rec = moe_case(f"{model} T {T} {how}", x,
+                               moe_routing(gen, T, k, n, how), wg, wu, wd, k)
+                rec.update(model=model, routing=how)
+                cases.append(rec)
+                if (model, T, how) == MOE_HEAD:
+                    head = rec
+            if (model, T) == MOE_HEAD[:2]:
+                sync = moe_sync_check(x, wg, wu, wd, k, dev)
+            for how in (h for m, t, h in MOE_RMS1_CASES if (m, t) == (model, T)):
+                x1 = (x.float() / MOE_X_RMS).bfloat16()
+                rec = moe_case(f"{model} T {T} {how} x RMS 1", x1,
+                               moe_routing(gen, T, k, n, how), wg, wu, wd, k,
+                               abs_gate=False)
+                rec.update(model=model, routing=how)
+                rms1.append(rec)
+        del wg, wu, wd
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "moe_kernels", "tol": KERNEL_TOL, "row_tol": ROW_REL_TOL,
+          "x_rms": MOE_X_RMS, "sync_check": sync,
+          "cases": [{k: c[k] for k in ("model", "T", "routing")} for c in cases],
+          "row_gated_only_at_x_rms_1": [{k: c[k] for k in ("model", "T", "routing")}
+                                        for c in rms1]})
+    out = {}
+    for name in MOE_KERNELS:
+        rec = dict(head[name])
+        rec["max_abs_err"] = max(c[name]["max_abs_err"] for c in cases)
+        # torch._grouped_mm computes moe_down in one call; gate/up takes two
+        # and the SwiGLU besides, so it has no one-call yardstick
+        rec["library_ms"] = rec["grouped_mm_ms"] if name == "moe_down" else None
+        rec["case"] = {"model": MOE_HEAD[0], "T": MOE_HEAD[1], "routing": MOE_HEAD[2]}
+        out[name] = rec
+    return out
+
+
+class record_selections:
+    """Within it, every moe_block's routing (weights, top-k ids) is kept in
+    call order (parity_phase's `moe_sels`: each step runs the kernel path's
+    layers, then the plain path's). With `pin`, the plain path's block l
+    takes the kernel path's routing of block l instead of its own, so the
+    two paths compute the same experts and differ only in arithmetic."""
+
+    def __init__(self, moe_layers: int, pin: bool = False):
+        self.moe_layers, self.pin = moe_layers, pin
+
+    def __enter__(self):
+        self.sels, self._orig = [], moe_model.router_topk
+        routes = []
+
+        def recording(*a, **kw):
+            weights, sel = self._orig(*a, **kw)
+            i = len(routes) % (2 * self.moe_layers)
+            if self.pin and i >= self.moe_layers:  # the plain path
+                weights, sel = routes[-self.moe_layers]
+            routes.append((weights, sel))
+            self.sels.append(sel)
+            return weights, sel
+
+        moe_model.router_topk = recording
+        return self.sels
+
+    def __exit__(self, *exc):
+        moe_model.router_topk = self._orig
+
+
+def selection_flips(sels, n_paths: int, moe_layers: int, real):
+    """The top-k choices of the kernel path (the first of parity_phase's
+    paths) that the plain path (the second) did not make, over every
+    step's MoE layers, at the step's real tokens (`real`, one mask a step;
+    padding tokens are routed too, on other attention outputs in each
+    path): each path's forward runs its layers in turn, the paths one
+    after the other."""
+    chunks = [sels[i:i + moe_layers] for i in range(0, len(sels), moe_layers)]
+    check(len(chunks) == n_paths * len(real),
+          f"{len(chunks)} MoE forwards recorded for {len(real)} steps")
+    choices = differ = tokens = token_layers = 0
+    for step, mask in enumerate(real):
+        i = step * n_paths
+        for a, b in zip(chunks[i], chunks[i + 1]):
+            a, b = a[mask.to(a.device)], b[mask.to(b.device)]
+            same = (a[..., :, None] == b[..., None, :]).any(-1)
+            choices += a.numel()
+            differ += int((~same).sum())
+            tokens += int((~same).any(-1).sum())
+            token_layers += a.shape[0]
+    return {"choices": choices, "choices_differing": differ,
+            "token_layers": token_layers, "token_layers_differing": tokens}
+
+
+def moe_parity(runner, dev, phase, **kw):
+    """parity_phase on a MoE model three times: `<phase>_free`, each path
+    routing on its own logits (information: a top-k choice near a tie
+    flips between paths that differ in bf16 rounding, and a flipped
+    expert moves the token's output by its whole weight), then `<phase>`,
+    the plain path on the kernel path's routing, held to FORWARD_REL_TOL.
+    Both report the choices that differ (0 when pinned). Last,
+    `repeat_<model>`: the kernel path twice, held to equal logits."""
+    with record_selections(runner.moe_layers) as sels:
+        parity_phase(runner, dev, phase=f"{phase}_free", moe_sels=sels, gate=False,
+                     **kw)
+    with record_selections(runner.moe_layers, pin=True) as sels:
+        parity_phase(runner, dev, phase=phase, moe_sels=sels, **kw)
+    parity_phase(runner, dev, phase=phase.replace("parity", "repeat"),
+                 against="kernel", **kw)
+
+
+# qwen3-30b-a3b: 48 MoE layers (128 experts, top 8, width 768), 32 / 4 heads
+# (G 8) at D 128 with qk-norm; 61 GB of bf16 weights: the card to itself
+QWEN3MOE_ARGS = model_args("qwen3-30b-a3b")
+
+
+def qwen3moe_phases(dev, smi):
+    """`engine_qwen3moe` (fused) and `engine_qwen3moe_unfused` on one
+    runner at full width and depth: every request `length`, each GQA
+    kernel's launches = passes x 48 on D128 (G 8), each grouped-GEMM
+    entry's = passes x 48; then `parity_qwen3moe` with the top-k choices
+    that differ between the paths. Returns the fused launches and the
+    phases' bodies."""
+    runner, cfg, build_s = timed_runner(QWEN3MOE_ARGS)
+    check(cfg.n_heads // cfg.n_kv_heads == 8 and runner.moe_layers == 48,
+          f"engine_qwen3moe: not qwen3-30b-a3b's heads and experts: {cfg}")
+    found, fused_launches = {}, None
+    for phase, fused in (("qwen3moe", None), ("qwen3moe_unfused", False)):
+        found[phase], launches = family_turn(
+            runner, phase, fused, QWEN3MOE_ARGS, "D128", smi,
+            build_s=build_s if fused is None else None)
+        check(launches["moe_gate_up"] > 0, f"{phase}: the grouped GEMM never ran")
+        fused_launches = fused_launches or launches
+    moe_parity(runner, dev, "parity_qwen3moe")
+    free(runner)
+    return fused_launches, found
+
+
+def mla_moe_phases(dev, smi):
+    """DeepSeek-V3's three dense layers and its first MoE layer at full
+    width (256 experts, sigmoid gates with the selection bias, 8 groups
+    keeping 4, routed scale 2.5, one shared expert): `engine_mla_moe` on
+    the padded fallback (MLA launches = passes x 4, grouped GEMM = passes
+    x 1 each) and `parity_mla_moe`."""
+    cfg = MLA_MOE_CONFIG
+    t0 = time.monotonic()
+    runner = ModelRunner(cfg, num_pages=2048, page_size=PAGE_SIZE,
+                         max_pages_per_seq=4096 // PAGE_SIZE)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    check(runner.moe_layers == 1 and "layers_dense" in runner.params,
+          f"engine_mla_moe: {runner.moe_layers} MoE layers")
+    # the selection bias drawn away from 0, so that it moves the choice
+    g = torch.Generator(device=dev).manual_seed(6)
+    bias = runner.params["layers"]["router_bias"]
+    bias.copy_(torch.randn(bias.shape, generator=g, device=dev) * 0.01)
+    rec, launches, results = engine_phase(runner, "mla_moe", build_s=build_s)
+    st = rec["stats"]
+    check(rec["fused_mixed"], "engine_mla_moe: the engine did not fuse on the card")
+    check(st["padded_prefill_dispatches"] > 0 and st["ragged_mixed_dispatches"] == 0,
+          f"engine_mla_moe: mixed plans did not take the padded fallback: {st}")
+    for i, (toks, finish, _) in enumerate(results):
+        check(finish == "length" and len(toks) == N_OUT,
+              f"engine_mla_moe: r{i} finished {finish!r} with {len(toks)} tokens")
+    rec["config"] = {k: getattr(cfg, k) for k in (
+        "name", "dim", "n_layers", "n_dense_layers", "n_experts", "n_experts_active",
+        "moe_ffn_dim", "n_shared_experts", "moe_scoring", "n_expert_groups",
+        "topk_groups", "moe_routed_scale")}
+    rec["nvidia_smi"] = smi
+    emit(rec)
+    moe_parity(runner, dev, "parity_mla_moe", ragged=False)
+    free(runner)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2877,6 +3335,7 @@ def main() -> int:
         gemma_kernels_phase(dev)
         kern.update(int8_kernels_phase(dev))
         head = head_shape_kernels_phase(dev)
+        kern.update(moe_kernels_phase(dev))
         runner, launches, bodies = engine_phases(dev)
         variants = {name: {"engine_fused": bodies[name]} for name in GQA_KERNELS}
         # each copy kernel's launches from the phase that runs it
@@ -2917,6 +3376,17 @@ def main() -> int:
         found.update(q_bodies)
         found.update(p_bodies)
         found.update(families_phase(dev, smi))
+        gc.collect()
+        torch.cuda.empty_cache()
+        # MoE, with nothing else on the card (qwen3-30b-a3b: 57 GiB of
+        # weights); the grouped GEMM's launches are engine_qwen3moe's
+        moe_launches, moe_bodies = qwen3moe_phases(dev, smi)
+        found.update(moe_bodies)
+        for name in MOE_KERNELS:
+            launches[name] = moe_launches[name]
+        gc.collect()
+        torch.cuda.empty_cache()
+        mla_moe_phases(dev, smi)
         for phase, b in found.items():
             for name in GQA_KERNELS:
                 key = f"{name}_int8" if "int8" in phase else name

@@ -35,7 +35,13 @@ from dynamo_tpu_torch.engine.sampling import SamplingParams, sample
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.quant import kv_pool_dequantize, kv_pool_quantize
-from dynamo_tpu_torch.models.toolkit import is_quantized, make_kv_pool, pool_values
+from dynamo_tpu_torch.engine.weights import check_fits
+from dynamo_tpu_torch.models.toolkit import (
+    is_quantized,
+    kv_pool_bytes,
+    make_kv_pool,
+    pool_values,
+)
 from dynamo_tpu_torch.ops.block_copy import (
     gather_pages,
     scatter_pages,
@@ -257,6 +263,12 @@ class ModelRunner:
         self.ragged_mixed = (flag not in ("0", "false", "off", "no")
                              and not config.is_mla)
         self.dtype = dtype
+        self.moe_layers = llama.moe_layer_count(config)
+        if self.device.type == "cuda":
+            need = kv_pool_bytes(config, num_pages + 1, page_size, dtype, kv_quantize)
+            if params is None:
+                need += llama.param_bytes(config, dtype)
+            check_fits(config.name, need, torch.cuda.mem_get_info(self.device)[0])
         t0 = time.monotonic()
         self.params = params if params is not None else llama.init_params(
             config, 0, dtype, self.device)

@@ -6,9 +6,15 @@ MLA layers hold wkv_a, kv_norm, wkv_b, wo and wq or wq_lat, q_lat_norm,
 wq_up; the dense families' branches add bq, bk, bv (Qwen2), q_norm and
 k_norm (per head [L, hd], or OLMo-2's full width [L, H * hd]) and
 post_attn_norm, post_mlp_norm (Gemma-2, OLMo-2; OLMo-2 has no
-attn_norm or mlp_norm)) in x @ W layout; the port's forward reads exactly
-that layout, so this is a checked copy onto the device. Norm weights stay
-f32, as in the reference; matrices and biases take `dtype`.
+attn_norm or mlp_norm); MoE layers hold w_router, we_gate, we_up,
+we_down [L, n_experts, ...] in place of w_gate, w_up, w_down, with
+router_bias (f32, DeepSeek-V3), the shared experts' ws_gate, ws_up,
+ws_down and, from Qwen2-MoE checkpoints, ws_gatectl; a config with
+n_dense_layers keeps its leading dense-FFN layers in a second stack
+"layers_dense") in x @ W layout; the port's forward reads exactly that
+layout, so this is a checked copy onto the device, against the tree
+models/llama.py `param_shapes` describes. Norm weights and the router
+bias stay f32, as in the reference; matrices and biases take `dtype`.
 """
 
 from __future__ import annotations
@@ -19,81 +25,55 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
-
-NORMS = ("norm_f", "attn_norm", "mlp_norm", "kv_norm", "q_lat_norm",
-         "post_attn_norm", "post_mlp_norm", "q_norm", "k_norm")
-
-
-def _expected_shapes(c: ModelConfig) -> Dict[str, tuple]:
-    hd, L = c.head_dim, c.n_layers
-    shapes = {"embed": (c.vocab_size, c.dim), "norm_f": (c.dim,)}
-    if c.is_mla:
-        H, dn, dr, dv = c.n_heads, c.qk_nope_head_dim, c.qk_rope_head_dim, c.v_head_dim
-        shapes.update({
-            "wkv_a": (L, c.dim, c.kv_lora_rank + dr),
-            "kv_norm": (L, c.kv_lora_rank),
-            "wkv_b": (L, c.kv_lora_rank, H * (dn + dv)),
-            "wo": (L, H * dv, c.dim),
-        })
-        if c.q_lora_rank:
-            shapes.update({
-                "wq_lat": (L, c.dim, c.q_lora_rank),
-                "q_lat_norm": (L, c.q_lora_rank),
-                "wq_up": (L, c.q_lora_rank, H * (dn + dr)),
-            })
-        else:
-            shapes["wq"] = (L, c.dim, H * (dn + dr))
-    else:
-        shapes.update({
-            "wq": (L, c.dim, c.n_heads * hd),
-            "wk": (L, c.dim, c.n_kv_heads * hd),
-            "wv": (L, c.dim, c.n_kv_heads * hd),
-            "wo": (L, c.n_heads * hd, c.dim),
-        })
-        if c.attn_bias:
-            shapes.update({"bq": (L, c.n_heads * hd), "bk": (L, c.n_kv_heads * hd),
-                           "bv": (L, c.n_kv_heads * hd)})
-        if c.qk_norm:
-            wide = c.qk_norm_wide
-            shapes["q_norm"] = (L, c.n_heads * hd if wide else hd)
-            shapes["k_norm"] = (L, c.n_kv_heads * hd if wide else hd)
-    if c.pre_norms or c.is_mla:
-        shapes["attn_norm"] = shapes["mlp_norm"] = (L, c.dim)
-    shapes.update({
-        "w_gate": (L, c.dim, c.ffn_dim),
-        "w_up": (L, c.dim, c.ffn_dim),
-        "w_down": (L, c.ffn_dim, c.dim),
-    })
-    if c.post_norms:
-        shapes["post_attn_norm"] = (L, c.dim)
-        shapes["post_mlp_norm"] = (L, c.dim)
-    if not c.tie_embeddings:
-        shapes["lm_head"] = (c.dim, c.vocab_size)
-    return shapes
-
+from dynamo_tpu_torch.models.llama import F32_LEAVES, OPTIONAL_LEAVES, param_shapes
 
 def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
                       device, dtype=torch.bfloat16) -> Dict[str, Any]:
     """numpy (or array-like) tree -> the port's params dict on `device`.
     Raises on a missing or an extra leaf (a branch the config does not
     run) or a shape that does not match `config`."""
-    want = _expected_shapes(config)
-    flat = {k: v for k, v in tree.items() if k != "layers"}
-    flat.update(tree["layers"])
-    extra = sorted(set(flat) - set(want))
+    want = param_shapes(config)
+    stacks = [k for k, v in want.items() if isinstance(v, dict)]
+    extra = sorted(set(tree) - set(want))
     if extra:
         raise KeyError(f"param tree has leaves {config.name} does not use: {extra}")
 
-    def conv(name):
-        if name not in flat:
-            raise KeyError(f"param tree lacks {name!r}")
-        arr = np.asarray(flat[name], dtype=np.float32)
-        if arr.shape != want[name]:
-            raise ValueError(f"{name}: shape {arr.shape}, config wants {want[name]}")
+    def conv(where, name, shape):
+        arr = np.asarray(where[name], dtype=np.float32)
+        if arr.shape != shape:
+            raise ValueError(f"{name}: shape {arr.shape}, config wants {shape}")
         t = torch.tensor(arr)  # a copy: the source may be read-only
-        return t.to(device=device, dtype=torch.float32 if name in NORMS else dtype)
+        return t.to(device=device,
+                    dtype=torch.float32 if name in F32_LEAVES else dtype)
 
-    top = {"embed", "norm_f", "lm_head"}
-    out: Dict[str, Any] = {n: conv(n) for n in want if n in top}
-    out["layers"] = {n: conv(n) for n in want if n not in top}
+    def convert(where, shapes, prefix=""):
+        extra = sorted(set(where) - set(shapes))
+        if extra:
+            raise KeyError(f"param tree has leaves {config.name} does not use: "
+                           f"{[prefix + e for e in extra]}")
+        out = {}
+        for name, shape in shapes.items():
+            if name in where:
+                out[name] = conv(where, name, shape)
+            elif name not in OPTIONAL_LEAVES:
+                raise KeyError(f"param tree lacks {prefix + name!r}")
+        return out
+
+    out = convert({k: v for k, v in tree.items() if k not in stacks},
+                  {k: v for k, v in want.items() if k not in stacks})
+    for st in stacks:
+        if st not in tree:
+            raise KeyError(f"param tree lacks {st!r}")
+        out[st] = convert(tree[st], want[st], f"{st}.")
     return out
+
+
+def check_fits(name: str, need: int, free: int) -> None:
+    """Raise MemoryError, before anything is drawn or copied, when `need`
+    bytes of params and pools exceed the `free` bytes of the device."""
+    if need > free:
+        raise MemoryError(
+            f"{name}: its params and KV pools take {need / 1e9:.1f} GB and the "
+            f"device has {free / 1e9:.1f} GB free; serve fewer layers "
+            "(config.with_(n_layers=...)), fewer pages, or nothing else on "
+            "the device")

@@ -1,11 +1,12 @@
-"""Model architecture configs: the dense GQA families and MLA.
+"""Model architecture configs: the dense GQA families, MLA and MoE.
 
 The port's own copy of the fields of dynamo_tpu/models/config.py that the
 dense GQA forward (Llama with the Qwen2, Qwen3, OLMo-2, Granite, Gemma
-1/2/3, Mistral and Phi-3 branches) and the MLA (DeepSeek) forward read,
-plus the MoE fields the MLA presets set, with the same names and
-defaults, so a config built here and one built there describe the same
-model.
+1/2/3, Mistral and Phi-3 branches), the MLA (DeepSeek) forward and the
+single-card MoE block read, with the same names and defaults, so a config
+built here and one built there describe the same model. The
+expert-parallel capacity factor (`moe_capacity_factor`) is not here: the
+port has no expert mesh.
 """
 
 from __future__ import annotations
@@ -73,14 +74,23 @@ class ModelConfig:
     rope_local_theta: float = 0.0
     # explicit head_dim when it differs from dim // n_heads
     head_dim_override: int = 0
-    # MoE (0 experts = dense). The forward does not run MoE layers yet
-    # (ROADMAP A.9); the fields are here so the DeepSeek presets match the
-    # reference's
+    # MoE (0 experts = dense): n_experts routed experts of width
+    # moe_ffn_dim, n_experts_active chosen a token (models/moe.py)
     n_experts: int = 0
     n_experts_active: int = 0
     moe_ffn_dim: int = 0
+    # always-active shared experts, one dense FFN of width shared_ffn_dim
+    # (explicit when it is not n_shared_experts * moe_ffn_dim)
     n_shared_experts: int = 0
+    shared_expert_ffn_dim: int = 0
+    # router scoring: softmax over the top-k logits (Mixtral, Qwen) or
+    # sigmoid gates renormalised over the top-k (DeepSeek-V3)
     moe_scoring: str = "softmax"
+    # HF norm_topk_prob: False keeps the softmax over all experts without
+    # renormalising the chosen ones (Qwen2-MoE)
+    moe_norm_topk: bool = True
+    # DeepSeek-V3: a selection bias (e_score_correction_bias) and the
+    # routed_scaling_factor on the mixing weights
     moe_router_bias: bool = False
     moe_routed_scale: float = 1.0
     # first k layers use a dense FFN instead of MoE (HF first_k_dense_replace)
@@ -128,6 +138,10 @@ class ModelConfig:
     def is_moe(self) -> bool:
         return self.n_experts > 0
 
+    @property
+    def shared_ffn_dim(self) -> int:
+        return self.shared_expert_ffn_dim or self.n_shared_experts * self.moe_ffn_dim
+
     def with_(self, **kw) -> "ModelConfig":
         return replace(self, **kw)
 
@@ -135,6 +149,15 @@ class ModelConfig:
 PRESETS: Dict[str, ModelConfig] = {
     # test-size model (CPU CI)
     "tiny": ModelConfig(),
+    # test-size MoE: softmax top-2 of 4 experts; with a sigmoid-scored
+    # shared expert (the DeepSeek style without V3's bias and groups)
+    "tiny-moe": ModelConfig(
+        name="tiny-moe", n_experts=4, n_experts_active=2, moe_ffn_dim=96
+    ),
+    "tiny-moe-shared": ModelConfig(
+        name="tiny-moe-shared", n_experts=4, n_experts_active=2,
+        moe_ffn_dim=96, n_shared_experts=1, moe_scoring="sigmoid",
+    ),
     "llama-3.2-1b": ModelConfig(
         name="llama-3.2-1b",
         vocab_size=128256,
@@ -353,9 +376,49 @@ PRESETS: Dict[str, ModelConfig] = {
         query_pre_attn_scalar=256.0,
         sliding_window=4096,
     ),
-    # DeepSeek-V3/R1 (671B-A37B): MLA + 256-expert MoE with the first 3
-    # layers dense. The port serves its dense layers only:
-    # get_config("deepseek-v3").with_(n_layers=3, n_experts=0)
+    # Qwen3 30B-A3B: 48 MoE layers of 128 experts, top 8, expert width 768;
+    # 32 query heads over 4 KV heads (G 8) at head dim 128 with qk-norm.
+    # 30.5 B parameters, 61 GB in bf16: one 80 GB card holds it alone
+    "qwen3-30b-a3b": ModelConfig(
+        name="qwen3-30b-a3b",
+        vocab_size=151936,
+        dim=2048,
+        n_layers=48,
+        n_heads=32,
+        n_kv_heads=4,
+        ffn_dim=6144,  # unused (all layers MoE)
+        max_seq_len=40960,
+        rope_theta=1000000.0,
+        norm_eps=1e-6,
+        qk_norm=True,
+        head_dim_override=128,
+        n_experts=128,
+        n_experts_active=8,
+        moe_ffn_dim=768,
+    ),
+    # Mixtral 8x7B: 8 experts, top 2, expert width 14336. 46.7 B parameters,
+    # 93 GB in bf16: more than one card holds (int8 weights, ROADMAP A.6)
+    "mixtral-8x7b": ModelConfig(
+        name="mixtral-8x7b",
+        vocab_size=32000,
+        dim=4096,
+        n_layers=32,
+        n_heads=32,
+        n_kv_heads=8,
+        ffn_dim=14336,
+        max_seq_len=32768,
+        rope_theta=1000000.0,
+        norm_eps=1e-5,
+        n_experts=8,
+        n_experts_active=2,
+        moe_ffn_dim=14336,
+        moe_scoring="softmax",
+        moe_norm_topk=True,
+    ),
+    # DeepSeek-V3/R1 (671B-A37B): MLA + 256-expert MoE (sigmoid gates, a
+    # selection bias, 8 groups keeping 4, routed scale 2.5, one shared
+    # expert) with the first 3 layers dense. One card holds its first MoE
+    # layer: get_config("deepseek-v3").with_(n_layers=4)
     "deepseek-v3": ModelConfig(
         name="deepseek-v3",
         vocab_size=129280,

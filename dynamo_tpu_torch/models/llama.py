@@ -16,16 +16,21 @@ zero-centred norms, GeGLU, Gemma-2's post-attention and post-FFN norms,
 each layer's sliding window (a Python int per layer, toolkit.layer_window;
 Mistral and Phi-3 slide on every layer) with the score scale and soft cap
 on every attention route, and the final-logit soft cap; Gemma-3's second
-RoPE base on its sliding layers (toolkit.layer_rope). MoE layers are not
-ported (ROADMAP A.9): MoE configs raise. Params are
-a plain dict of tensors in the reference's stacked layout ({"embed",
-"norm_f", "layers": {"wq": [L, in, out], ...}}, x @ W), so one checkpoint
-tree serves both packages. The layer loop is a Python loop over that
-stack; matrix products go to torch.matmul, attention to the ops/ kernels.
+RoPE base on its sliding layers (toolkit.layer_rope). MoE layers
+(Mixtral, Qwen3-MoE, DeepSeek) run models/moe.py's block in place of the
+dense FFN, as the reference's `use_moe` layers do; a config with
+`n_dense_layers` keeps its leading dense-FFN layers in a second stack
+`layers_dense` (DeepSeek's first_k_dense_replace). Params are a plain
+dict of tensors in the reference's stacked layout ({"embed", "norm_f",
+"layers": {"wq": [L, in, out], ...}, "layers_dense"?}, x @ W), so one
+checkpoint tree serves both packages. The layer loop is a Python loop over
+those stacks; matrix products go to torch.matmul, attention to the ops/
+kernels, the routed experts to the grouped GEMM (ops/moe_dispatch.py).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -33,6 +38,7 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.mla import mla_attention
+from dynamo_tpu_torch.models.moe import moe_block
 from dynamo_tpu_torch.models.toolkit import (
     apply_rope,
     gqa_score_scale,
@@ -56,85 +62,188 @@ from dynamo_tpu_torch.ops.ragged_paged_attention import (
 
 Params = Dict[str, Any]
 
-# attention paths of `forward`: "kernel" dispatches to the ops/ wrappers
-# (the Hopper kernels on CUDA tensors, their plain versions on CPU
-# tensors); "ref" runs the gather reference, the port of the JAX "jnp" path
+# paths of `forward`: "kernel" dispatches attention and the routed experts
+# to the ops/ wrappers (the Hopper kernels on CUDA tensors, their plain
+# versions on CPU tensors); "ref" runs the gather reference and the
+# every-expert MoE, the port of the JAX "jnp" path
 ATTN_IMPLS = ("kernel", "ref")
 
 
-def _refuse_moe(c: ModelConfig) -> None:
-    if c.is_moe:
-        raise NotImplementedError(
-            f"{c.name}: MoE layers are not ported yet (ROADMAP A.9); serve "
-            "the dense layers with .with_(n_layers=n_dense_layers, n_experts=0)")
+class LayerView:
+    """One layer of a stacked tree: lp[name] is stack[name][i] (the
+    reference's scan body sees the same slice)."""
+
+    __slots__ = ("stack", "i")
+
+    def __init__(self, stack: Dict[str, torch.Tensor], i: int):
+        self.stack, self.i = stack, i
+
+    def __getitem__(self, name: str) -> torch.Tensor:
+        return self.stack[name][self.i]
+
+    def __contains__(self, name: str) -> bool:
+        return name in self.stack
+
+    def get(self, name: str, default=None):
+        return self[name] if name in self.stack else default
+
+
+def layer_params(c: ModelConfig, params: Params, l: int) -> Tuple[LayerView, bool]:
+    """Layer l's params and whether its FFN is the MoE block: the
+    `layers_dense` stack for the leading n_dense_layers of a MoE config,
+    then `layers`, as the reference's two scans."""
+    kD = c.n_dense_layers if c.is_moe else 0
+    if l < kD:
+        return LayerView(params["layers_dense"], l), False
+    return LayerView(params["layers"], l - kD), c.is_moe
+
+
+def moe_layer_count(c: ModelConfig) -> int:
+    """Layers whose FFN is the MoE block (layer_params)."""
+    return c.n_layers - c.n_dense_layers if c.is_moe else 0
+
+
+# the params tree's leaves by kind: norm weights (f32)
+NORM_LEAVES = ("norm_f", "attn_norm", "mlp_norm", "kv_norm", "q_lat_norm",
+               "post_attn_norm", "post_mlp_norm", "q_norm", "k_norm")
+# leaves kept in f32 whatever the params' dtype
+F32_LEAVES = NORM_LEAVES + ("router_bias",)
+# leaves a tree may hold or not (checkpoint-dependent)
+OPTIONAL_LEAVES = ("ws_gatectl",)
+# leaves the init fills with 0 (Qwen2's biases, V3's selection bias)
+ZERO_LEAVES = ("bq", "bk", "bv", "router_bias")
+
+
+def _stack_shapes(c: ModelConfig, L: int, moe: bool) -> Dict[str, tuple]:
+    """The leaves of a stack of L layers: attention and either the dense
+    FFN or the MoE block."""
+    hd = c.head_dim
+    shapes: Dict[str, tuple] = {}
+    if c.is_mla:
+        H, dn, dr, dv = c.n_heads, c.qk_nope_head_dim, c.qk_rope_head_dim, c.v_head_dim
+        shapes.update({
+            "wkv_a": (L, c.dim, c.kv_lora_rank + dr),
+            "kv_norm": (L, c.kv_lora_rank),
+            "wkv_b": (L, c.kv_lora_rank, H * (dn + dv)),
+            "wo": (L, H * dv, c.dim),
+        })
+        if c.q_lora_rank:
+            shapes.update({
+                "wq_lat": (L, c.dim, c.q_lora_rank),
+                "q_lat_norm": (L, c.q_lora_rank),
+                "wq_up": (L, c.q_lora_rank, H * (dn + dr)),
+            })
+        else:
+            shapes["wq"] = (L, c.dim, H * (dn + dr))
+    else:
+        shapes.update({
+            "wq": (L, c.dim, c.n_heads * hd),
+            "wk": (L, c.dim, c.n_kv_heads * hd),
+            "wv": (L, c.dim, c.n_kv_heads * hd),
+            "wo": (L, c.n_heads * hd, c.dim),
+        })
+        if c.attn_bias:
+            shapes.update({"bq": (L, c.n_heads * hd), "bk": (L, c.n_kv_heads * hd),
+                           "bv": (L, c.n_kv_heads * hd)})
+        if c.qk_norm:
+            wide = c.qk_norm_wide
+            shapes["q_norm"] = (L, c.n_heads * hd if wide else hd)
+            shapes["k_norm"] = (L, c.n_kv_heads * hd if wide else hd)
+    if c.pre_norms or c.is_mla:
+        shapes["attn_norm"] = shapes["mlp_norm"] = (L, c.dim)
+    if moe:
+        n, F_ = c.n_experts, c.moe_ffn_dim
+        shapes.update({
+            "w_router": (L, c.dim, n),
+            "we_gate": (L, n, c.dim, F_),
+            "we_up": (L, n, c.dim, F_),
+            "we_down": (L, n, F_, c.dim),
+        })
+        if c.moe_router_bias:
+            shapes["router_bias"] = (L, n)
+        if c.n_shared_experts:
+            sf = c.shared_ffn_dim
+            shapes.update({"ws_gate": (L, c.dim, sf), "ws_up": (L, c.dim, sf),
+                           "ws_down": (L, sf, c.dim), "ws_gatectl": (L, c.dim, 1)})
+    else:
+        shapes.update({
+            "w_gate": (L, c.dim, c.ffn_dim),
+            "w_up": (L, c.dim, c.ffn_dim),
+            "w_down": (L, c.ffn_dim, c.dim),
+        })
+    if c.post_norms:
+        shapes["post_attn_norm"] = (L, c.dim)
+        shapes["post_mlp_norm"] = (L, c.dim)
+    return shapes
+
+
+def param_shapes(c: ModelConfig) -> Dict[str, Any]:
+    """The tree's shapes: the top leaves, "layers" and, where the config
+    has leading dense layers beside its MoE ones, "layers_dense" (each a
+    dict of leaf -> shape; OPTIONAL_LEAVES may be absent). Nothing is
+    allocated."""
+    shapes: Dict[str, Any] = {"embed": (c.vocab_size, c.dim), "norm_f": (c.dim,)}
+    if c.is_moe and c.n_dense_layers:
+        shapes["layers_dense"] = _stack_shapes(c, c.n_dense_layers, moe=False)
+        shapes["layers"] = _stack_shapes(c, c.n_layers - c.n_dense_layers, moe=True)
+    else:
+        shapes["layers"] = _stack_shapes(c, c.n_layers, moe=c.is_moe)
+    if not c.tie_embeddings:  # last: init_params draws in this order
+        shapes["lm_head"] = (c.dim, c.vocab_size)
+    return shapes
+
+
+def param_bytes(c: ModelConfig, dtype=torch.bfloat16) -> int:
+    """Bytes of the params `init_params` or `params_from_numpy` place:
+    `dtype` matrices and biases, f32 norms and router bias (optional
+    leaves not counted)."""
+    item = torch.empty((), dtype=dtype).element_size()
+
+    def size(name, shape):
+        return math.prod(shape) * (4 if name in F32_LEAVES else item)
+
+    total = 0
+    for name, v in param_shapes(c).items():
+        if isinstance(v, dict):
+            total += sum(size(n, sh) for n, sh in v.items()
+                         if n not in OPTIONAL_LEAVES)
+        else:
+            total += size(name, v)
+    return total
 
 
 def init_params(config: ModelConfig, seed: int, dtype, device) -> Params:
-    """Random-init params from a seeded generator on `device` (weights
-    ~ N(0, 1/fan_in), biases 0, norms 1, or 0 where they are
-    zero-centred). Same tree and scales as the reference's init_params;
-    the numbers differ (another generator)."""
+    """Random-init params from a seeded generator on `device`: the tree of
+    param_shapes (the reference's init_params tree, `layers_dense`
+    included), weights ~ N(0, 1/fan_in) in `dtype`, biases and the router
+    bias 0, norms 1 (0 where they are zero-centred) in f32. The numbers
+    differ from the reference's (another generator)."""
     c = config
-    _refuse_moe(c)
     g = torch.Generator(device=device).manual_seed(seed)
-    hd, L = c.head_dim, c.n_layers
 
-    def w(fan_in, *shape):
-        x = torch.randn(shape, generator=g, device=device, dtype=torch.float32)
-        return x.mul_(fan_in ** -0.5).to(dtype)
+    def leaf(name, shape):
+        if name in NORM_LEAVES:  # zero-centred (Gemma): normed * (1 + w)
+            fill = 0.0 if c.norm_zero_centered else 1.0
+            return torch.full(shape, fill, dtype=torch.float32, device=device)
+        if name in ZERO_LEAVES:
+            return torch.zeros(shape, device=device,
+                               dtype=torch.float32 if name in F32_LEAVES else dtype)
+        # weights are [..., in, out] (embed [V, dim]), drawn one matrix at a
+        # time into the result: a whole stack in f32 would be twice its
+        # bf16 bytes (qwen3-30b-a3b's we_gate: 38.7 GB)
+        scale = shape[-1 if name == "embed" else -2] ** -0.5
+        out = torch.empty(shape, dtype=dtype, device=device)
+        for m in out.view(-1, *shape[-2:]):
+            x = torch.randn(shape[-2:], generator=g, device=device,
+                            dtype=torch.float32)
+            m.copy_(x.mul_(scale))
+        return out
 
-    def norm(*shape):
-        # zero-centred norms (Gemma) store w with output normed * (1 + w)
-        fill = 0.0 if c.norm_zero_centered else 1.0
-        return torch.full(shape, fill, dtype=torch.float32, device=device)
-
-    # draws in the order of the dense tree: embed, then the layers
-    embed = w(c.dim, c.vocab_size, c.dim)
-    if c.is_mla:
-        # KV compressed to a per-token latent + the shared RoPE key; q
-        # optionally compressed too
-        H, dn, dr, dv = c.n_heads, c.qk_nope_head_dim, c.qk_rope_head_dim, c.v_head_dim
-        layers = {
-            "wkv_a": w(c.dim, L, c.dim, c.kv_lora_rank + dr),
-            "kv_norm": norm(L, c.kv_lora_rank),
-            "wkv_b": w(c.kv_lora_rank, L, c.kv_lora_rank, H * (dn + dv)),
-            "wo": w(H * dv, L, H * dv, c.dim),
-        }
-        if c.q_lora_rank:
-            layers["wq_lat"] = w(c.dim, L, c.dim, c.q_lora_rank)
-            layers["q_lat_norm"] = norm(L, c.q_lora_rank)
-            layers["wq_up"] = w(c.q_lora_rank, L, c.q_lora_rank, H * (dn + dr))
-        else:
-            layers["wq"] = w(c.dim, L, c.dim, H * (dn + dr))
-    else:
-        layers = {
-            "wq": w(c.dim, L, c.dim, c.n_heads * hd),
-            "wk": w(c.dim, L, c.dim, c.n_kv_heads * hd),
-            "wv": w(c.dim, L, c.dim, c.n_kv_heads * hd),
-            "wo": w(c.n_heads * hd, L, c.n_heads * hd, c.dim),
-        }
-        if c.attn_bias:  # Qwen2
-            layers["bq"] = torch.zeros(L, c.n_heads * hd, dtype=dtype, device=device)
-            layers["bk"] = torch.zeros(L, c.n_kv_heads * hd, dtype=dtype, device=device)
-            layers["bv"] = torch.zeros(L, c.n_kv_heads * hd, dtype=dtype, device=device)
-        if c.qk_norm:  # per head (Qwen3, Gemma-3) or full width (OLMo-2)
-            wide = c.qk_norm_wide
-            layers["q_norm"] = norm(L, c.n_heads * hd if wide else hd)
-            layers["k_norm"] = norm(L, c.n_kv_heads * hd if wide else hd)
-    if c.pre_norms or c.is_mla:
-        layers["attn_norm"] = norm(L, c.dim)
-        layers["mlp_norm"] = norm(L, c.dim)
-    layers.update({
-        "w_gate": w(c.dim, L, c.dim, c.ffn_dim),
-        "w_up": w(c.dim, L, c.dim, c.ffn_dim),
-        "w_down": w(c.ffn_dim, L, c.ffn_dim, c.dim),
-    })
-    if c.post_norms:  # Gemma-2 sandwich norms on the residual branches
-        layers["post_attn_norm"] = norm(L, c.dim)
-        layers["post_mlp_norm"] = norm(L, c.dim)
-    params: Params = {"embed": embed, "norm_f": norm(c.dim), "layers": layers}
-    if not c.tie_embeddings:
-        params["lm_head"] = w(c.dim, c.dim, c.vocab_size)
+    params: Params = {}
+    for name, v in param_shapes(c).items():
+        params[name] = ({n: leaf(n, sh) for n, sh in v.items()
+                         if n not in OPTIONAL_LEAVES}
+                        if isinstance(v, dict) else leaf(name, v))
     return params
 
 
@@ -168,15 +277,14 @@ def forward(
     [1, SEG, V]. MLA configs refuse `ragged=`, as the reference does; their
     v_pool is the 1-wide stub and is not written. Int8 dict pools
     (models/quant.py) quantize on write and reach the kernels' int8
-    bodies (the "ref" path dequantizes on its gather)."""
+    bodies (the "ref" path dequantizes on its gather). On MoE layers
+    `attn_impl` picks the routed experts' path as well (models/moe.py)."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
     c = config
-    _refuse_moe(c)
     B, S = tokens.shape
     hd = c.head_dim
     G = c.n_heads // c.n_kv_heads
-    lp = params["layers"]
     L, NP, PS = pool_values(k_pool).shape[:3]
     zc = c.norm_zero_centered
     # the scale and soft cap of every GQA attention route (None and 0 for
@@ -219,26 +327,27 @@ def forward(
         q_len = (positions >= 0).sum(1, dtype=torch.int32)
 
     for l in range(c.n_layers):
+        lp, use_moe = layer_params(c, params, l)
         if c.is_mla:
             attn = mla_attention(c, lp, h, k_pool, l, rows, page_table,
                                  ropes[0], safe_pos, kv_lens, q_start,
                                  q_len, attn_impl)
         else:
             # OLMo-2 (pre_norms=False): the sublayer reads the raw residual
-            x = (rms_norm(h, lp["attn_norm"][l], c.norm_eps, zero_centered=zc)
+            x = (rms_norm(h, lp["attn_norm"], c.norm_eps, zero_centered=zc)
                  if c.pre_norms else h)
-            q, k, v = x @ lp["wq"][l], x @ lp["wk"][l], x @ lp["wv"][l]
+            q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
             if c.attn_bias:  # Qwen2: after the product, in the params' dtype
-                q, k, v = q + lp["bq"][l], k + lp["bk"][l], v + lp["bv"][l]
+                q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
             if c.qk_norm and c.qk_norm_wide:  # OLMo-2: over the full width
-                q = rms_norm(q, lp["q_norm"][l], c.norm_eps, zero_centered=zc)
-                k = rms_norm(k, lp["k_norm"][l], c.norm_eps, zero_centered=zc)
+                q = rms_norm(q, lp["q_norm"], c.norm_eps, zero_centered=zc)
+                k = rms_norm(k, lp["k_norm"], c.norm_eps, zero_centered=zc)
             q = q.view(B, S, c.n_heads, hd)
             k = k.view(B, S, c.n_kv_heads, hd)
             v = v.view(B, S, c.n_kv_heads, hd)
             if c.qk_norm and not c.qk_norm_wide:  # Qwen3, Gemma-3: per head
-                q = rms_norm(q, lp["q_norm"][l], c.norm_eps, zero_centered=zc)
-                k = rms_norm(k, lp["k_norm"][l], c.norm_eps, zero_centered=zc)
+                q = rms_norm(q, lp["q_norm"], c.norm_eps, zero_centered=zc)
+                k = rms_norm(k, lp["k_norm"], c.norm_eps, zero_centered=zc)
             cos, sin = ropes[layer_rope(c, l)]
             q = apply_rope(q, cos, sin)
             k = apply_rope(k, cos, sin)
@@ -263,20 +372,23 @@ def forward(
                     qg, k_l, v_l, page_table, q_start, q_len, kv_lens, win,
                     **attn_kw)
             attn = attn.reshape(B, S, c.n_heads * hd)
-        attn_out = attn @ lp["wo"][l]
+        attn_out = attn @ lp["wo"]
         if c.post_norms:  # Gemma-2, OLMo-2: norm the branch before the residual
-            attn_out = rms_norm(attn_out, lp["post_attn_norm"][l], c.norm_eps,
+            attn_out = rms_norm(attn_out, lp["post_attn_norm"], c.norm_eps,
                                 zero_centered=zc)
         if rm != 1.0:  # Granite: scale the branch
             attn_out = attn_out * rm
         h = h + attn_out
-        x = (rms_norm(h, lp["mlp_norm"][l], c.norm_eps, zero_centered=zc)
+        x = (rms_norm(h, lp["mlp_norm"], c.norm_eps, zero_centered=zc)
              if c.pre_norms or c.is_mla else h)
-        gate = act(x @ lp["w_gate"][l])
-        ffw = (gate * (x @ lp["w_up"][l])) @ lp["w_down"][l]
-        if c.post_norms:
-            ffw = rms_norm(ffw, lp["post_mlp_norm"][l], c.norm_eps,
-                           zero_centered=zc)
+        if use_moe:  # no post-FFN norm on a MoE layer, as in the reference
+            ffw = moe_block(c, lp, x, attn_impl)
+        else:
+            gate = act(x @ lp["w_gate"])
+            ffw = (gate * (x @ lp["w_up"])) @ lp["w_down"]
+            if c.post_norms:
+                ffw = rms_norm(ffw, lp["post_mlp_norm"], c.norm_eps,
+                               zero_centered=zc)
         if rm != 1.0:
             ffw = ffw * rm
         h = h + ffw

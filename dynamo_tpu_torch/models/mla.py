@@ -44,7 +44,7 @@ from dynamo_tpu_torch.ops.mla_attention import (
 
 def mla_attention(
     c: ModelConfig,
-    lp,  # the stacked layer params
+    lp,  # layer l's params (llama.LayerView)
     h: torch.Tensor,  # [B, S, E] residual stream
     k_pool,  # [L, NP, PS, 1, d_c + d_rh] latent pool, or its int8 dict
     l: int,  # layer index
@@ -65,23 +65,23 @@ def mla_attention(
                       c.kv_lora_rank)
     cos, sin = rope_cs
 
-    x = rms_norm(h, lp["attn_norm"][l], c.norm_eps)
+    x = rms_norm(h, lp["attn_norm"], c.norm_eps)
     if c.q_lora_rank:
-        q_lat = rms_norm(x @ lp["wq_lat"][l], lp["q_lat_norm"][l], c.norm_eps)
-        q = q_lat @ lp["wq_up"][l]
+        q_lat = rms_norm(x @ lp["wq_lat"], lp["q_lat_norm"], c.norm_eps)
+        q = q_lat @ lp["wq_up"]
     else:
-        q = x @ lp["wq"][l]
+        q = x @ lp["wq"]
     q = q.view(B, S, H, dn + dr)
     q_nope, q_r = q[..., :dn], apply_rope(q[..., dn:], cos, sin)
 
-    kv = x @ lp["wkv_a"][l]  # [B, S, d_c + d_rh]
-    c_kv = rms_norm(kv[..., :dc], lp["kv_norm"][l], c.norm_eps)
+    kv = x @ lp["wkv_a"]  # [B, S, d_c + d_rh]
+    c_kv = rms_norm(kv[..., :dc], lp["kv_norm"], c.norm_eps)
     k_r = apply_rope(kv[..., None, dc:], cos, sin)[..., 0, :]
     write_kv(k_pool, l, torch.cat([c_kv, k_r], -1)[:, :, None, :], rows)
     lat_l = pool_layer(k_pool, l)
     quantized = is_quantized(lat_l)
 
-    wkv_b = lp["wkv_b"][l].view(dc, H, dn + dv)
+    wkv_b = lp["wkv_b"].view(dc, H, dn + dv)
     w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]
     q_abs = torch.einsum("bshn,chn->bshc", q_nope, w_uk)  # [B, S, H, d_c]
     qp = torch.cat([q_abs, q_r], -1)  # [B, S, H, d_c + d_rh]

@@ -27,6 +27,27 @@ NEG_INF = -1e30
 KV_QUANTIZE_MODES = ("int8",)
 
 
+def kv_pool_shapes(config: ModelConfig, num_pages: int, page_size: int):
+    """The k and v pools' shapes (make_kv_pool)."""
+    if config.is_mla:
+        return ((config.n_layers, num_pages, page_size, 1, config.mla_cache_dim),
+                (config.n_layers, num_pages, page_size, 1, 1))
+    shape = (config.n_layers, num_pages, page_size, config.n_kv_heads,
+             config.head_dim)
+    return shape, shape
+
+
+def kv_pool_bytes(config: ModelConfig, num_pages: int, page_size: int, dtype,
+                  kv_quantize: Optional[str] = None) -> int:
+    """Bytes make_kv_pool allocates (int8: codes and f32 scales)."""
+    item = torch.empty((), dtype=dtype).element_size()
+    total = 0
+    for shape in kv_pool_shapes(config, num_pages, page_size):
+        n = math.prod(shape)
+        total += n + 4 * (n // shape[-1]) if kv_quantize else n * item
+    return total
+
+
 def make_kv_pool(
     config: ModelConfig, num_pages: int, page_size: int, dtype, device,
     kv_quantize: Optional[str] = None,
@@ -43,12 +64,7 @@ def make_kv_pool(
     D], "s": f32 [L, NP, PS, Hk]} (models/quant.py), the MLA stub too."""
     if kv_quantize is not None and kv_quantize not in KV_QUANTIZE_MODES:
         raise ValueError(f"unknown kv_quantize mode {kv_quantize!r}")
-    if config.is_mla:
-        k_shape = (config.n_layers, num_pages, page_size, 1, config.mla_cache_dim)
-        v_shape = (config.n_layers, num_pages, page_size, 1, 1)
-    else:
-        k_shape = v_shape = (config.n_layers, num_pages, page_size,
-                             config.n_kv_heads, config.head_dim)
+    k_shape, v_shape = kv_pool_shapes(config, num_pages, page_size)
 
     def zeros(shape):
         if kv_quantize is None:

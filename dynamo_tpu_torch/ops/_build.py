@@ -59,6 +59,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # B, S, H, dc, dr, PS, MP, scale, stream
         "prefill_mla_attention": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
     },
+    "moe_grouped_gemm": {
+        # x, tok, w_gate, w_up, tiles, h, n_tiles, K, N, stream
+        "moe_gate_up": ([_P] * 6 + [_I] * 3 + [_P], _I),
+        # h, w_down, tiles, y, n_tiles, K, N, stream
+        "moe_down": ([_P] * 4 + [_I] * 3 + [_P], _I),
+    },
     "block_copy": {
         # pool, idx, out, L, NP, n, PS, Hk, R (16-byte vectors per D row),
         # head_major, stream

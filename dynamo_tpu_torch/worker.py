@@ -74,7 +74,10 @@ def parse_args(argv=None):
 def build_runner(args, params=None) -> tuple[ModelRunner, ModelConfig]:
     """Construct the ModelRunner (bf16 random weights, seed 0, until
     checkpoint loading is ported) and its model config from CLI args.
-    `params` shares another runner's weights (two engines on one card)."""
+    `params` shares another runner's weights (two engines on one card). A
+    model whose params and pools exceed the card's free memory raises
+    MemoryError before anything is drawn (DeepSeek-V3 at full depth;
+    qwen3-30b-a3b, 61 GB of weights, needs the card to itself)."""
     config = get_config(args.model)
     runner = ModelRunner(
         config,

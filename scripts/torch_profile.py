@@ -2,7 +2,8 @@
 """Where the PyTorch port's engine spends its time on the card.
 
     python3 scripts/torch_profile.py [--model llama-3.2-3b|llama-3.1-8b|deepseek-v3|
-        gemma-2-9b|qwen2.5-7b|phi-3-mini-4k] [--kv-quantize int8] [--trace PATH]
+        gemma-2-9b|qwen2.5-7b|phi-3-mini-4k|qwen3-30b-a3b] [--kv-quantize int8]
+        [--trace PATH]
 
 Builds the engine exactly as chip_smoke.py's engine phase does
 (llama-3.2-3b, the default; llama-3.1-8b with the same flags, the
@@ -12,8 +13,10 @@ three dense layers at full width, 2048 pages of 16; with --model
 gemma-2-9b, chip_smoke.gemma_phases' runner and its two extra prompts
 past the window; with --model qwen2.5-7b or phi-3-mini-4k, the runners of
 chip_smoke.qwen2_phases (its biases left at 0) and phi3_phases, phi-3
-with its two prompts past the window; --kv-quantize int8 gives any of
-them int8 KV pools) and
+with its two prompts past the window; with --model qwen3-30b-a3b, the
+runner of chip_smoke.qwen3moe_phases, 48 MoE layers at full width, which
+needs the card to itself; --kv-quantize int8 gives any of them int8 KV
+pools) and
 serves its workload three
 times, each with fresh
 prompts (another seed, so no run hits the previous run's prefix cache):
@@ -22,7 +25,8 @@ once cold, once warm with tracing off, once warm under torch.profiler
 warm runs (their difference is the tracing overhead), and for the traced
 run the device-busy time (union of kernel and copy intervals), the idle
 share of the wall time, and device time by family (the GQA attention
-kernels, the two MLA kernels, matrix products, everything else) with the
+kernels, the two MLA kernels, the MoE grouped GEMM, matrix products,
+everything else) with the
 top kernels by
 device time. With --trace, also writes the Chrome trace there (about
 100 MB for this workload). Needs one CUDA device.
@@ -48,7 +52,7 @@ from dynamo_tpu_torch.engine.model_runner import ModelRunner  # noqa: E402
 from dynamo_tpu_torch.worker import build_engine, parse_args  # noqa: E402
 
 MODELS = ("llama-3.2-3b", "llama-3.1-8b", "deepseek-v3", "gemma-2-9b",
-          "qwen2.5-7b", "phi-3-mini-4k")
+          "qwen2.5-7b", "phi-3-mini-4k", "qwen3-30b-a3b")
 
 
 def family(name: str) -> str:
@@ -63,6 +67,8 @@ def family(name: str) -> str:
         return "prefill_attention"
     if "ragged_kernel" in name or "ragged_merge_kernel" in name:
         return "ragged_attention"
+    if "moe_gemm_kernel" in name:
+        return "moe_grouped_gemm"
     low = name.lower()
     if any(k in low for k in ("gemm", "xmma", "cutlass", "nvjet", "cublas")):
         return "matmul"
