@@ -58,15 +58,26 @@ Phases, each printing one JSON line:
                `kernels` shapes and at the Gemma-2 case, and of MLA
                decode at its shape, each against its plain int8 version
                in f32, timed beside the bf16 yardstick over the K/V
-               dequantized beforehand, and kv_quantize on the card
-               against the CPU's (codes equal, scales within an ulp);
+               dequantized beforehand and (prefill, ragged) beside the
+               bf16 body's replay; the prefill and ragged ones over pools
+               whose per-(token, head) scales spread over three decades,
+               also row by row, and at the 3B shape again (`gate_3b`,
+               untimed) over kv lengths at 64-token tile edges up to
+               4097, where planted faults (a skipped tile; a K or V
+               scale read from the slot before, scales from the next
+               head, O's columns left in the kernel's order, Q's dims in
+               the kernel's order against K's) must break the row limit;
+               and kv_quantize on the card against the CPU's (codes
+               equal, scales within an ulp);
                then (`head_shape_kernels`) the three GQA kernels at
                qwen2.5-7b's heads (Hk 4, G 7, D 128, `kernels`' decode
                contexts) and phi-3's (Hk 32, G 1, D 96, window 2047,
                contexts 1 to 4000 around the window's edge, chunks
-               straddling it; and a 7-token window), bf16 and int8,
-               checked as gemma_kernels' cases and timed with the plain
-               version and SDPA;
+               straddling it; and a 7-token window) and llama-3.2-1b's
+               (Hk 8, G 4, D 64), bf16 and int8, checked as
+               gemma_kernels' cases (int8 prefill and ragged with their
+               planted faults too) and timed with the plain version and
+               SDPA, each int8 row beside its bf16 row;
   4. engine  - build_engine for llama-3.2-3b at full width and depth with
                random weights and serve 8 concurrent requests (chunked
                prefill over prior context, a prefix-cache hit, greedy and
@@ -143,7 +154,9 @@ Phases, each printing one JSON line:
                fused turn and a short parity each, freed in turn, for
                qwen3-8b (D128), mistral-7b (prompts of 4600 and 5200 past
                its 4096-token window on every layer; D128_window),
-               gemma-7b (D256), olmo-2-7b and granite-3.1-8b (D128).
+               gemma-7b (D256), olmo-2-7b and granite-3.1-8b (D128),
+               and llama-3.2-1b over int8 pools (16 layers, the card's
+               path through the D 64 bodies; D64_int8).
   9. moe     - (`moe_kernels`, after `head_shape_kernels`) the grouped
                GEMM's two entries (ops/csrc/moe_grouped_gemm.cu) at
                qwen3-30b-a3b's experts (E 2048, F 768, 128 of them, top
@@ -2336,16 +2349,97 @@ def planted_faults(kernel, inp, window, scale):
     return out
 
 
+def planted_faults_ragged(inp, want, window, scale, kpool, vpool):
+    """planted_faults for a ragged case, segment by segment (each a
+    one-sequence prefill over the segment's dense K/V from `kpool`,
+    `vpool`); a segment where a fault does not apply keeps `want`'s rows."""
+    q = inp["args"][0]
+    T, Hk, G, D = q.shape
+    out = {}
+    lo = 0
+    for s, (n, p) in enumerate(inp["segs"]):
+        pt = torch.from_numpy(inp["md"]["seg_page_table"][s:s + 1]).to(q.device)
+        kd, vd = dense_kv(kpool, pt, Hk, G), dense_kv(vpool, pt, Hk, G)
+        pos = torch.arange(p, p + n, device=q.device)[None]
+        c = torch.arange(kd.shape[2], device=q.device)
+        mask = (c[None, None, :] <= pos[:, :, None])[:, None]
+        kvl = torch.tensor([p + n], dtype=torch.int32, device=q.device)
+        seg = {"lib": (q[lo:lo + n].reshape(1, n, Hk * G, D).transpose(1, 2), kd, vd,
+                       mask, pos),
+               "args": (q[lo:lo + n][None], kvl)}
+        for name, o in planted_faults("prefill", seg, window, scale).items():
+            out.setdefault(name, want.clone())[lo:lo + n] = o[0]
+        lo += n
+    return out
+
+
+def code_perms(D: int):
+    """The int8 walk's dim orders (paged_flash.cuh code_slice, code_cols):
+    q_perm[j] is the dim of Q that the kernel stages at j, o_perm[j] the dim
+    that O's column j holds before the epilogue puts it back."""
+    g64 = D // 64 * 64
+    q_perm = [0] * D
+    for d0 in range(0, D, 4):
+        width, base = (64, d0 // 64 * 64) if d0 < g64 else (32, g64)
+        off = d0 - base
+        s, t4 = base // 16 + off % (width // 4) // 4, off // (width // 4)
+        for k, d in ((2 * t4, d0), (2 * t4 + 1, d0 + 2), (2 * t4 + 8, d0 + 1),
+                     (2 * t4 + 9, d0 + 3)):
+            q_perm[16 * s + k] = d
+    o_perm = [32 * c + 16 * (w >> 1) + 4 * t4 + (w & 1) + 2 * j
+              for c in range(D // 32) for w in range(4) for t4 in range(4)
+              for j in range(2)]
+    return q_perm, o_perm
+
+
+def int8_faults(kernel, inp, want, window, scale, softcap):
+    """The plain version in f32 with a fault of the int8 walk planted
+    (outputs laid out as the kernel's): each token's K or V scale read from
+    the slot before it, every scale from the next head, O's columns left in
+    the kernel's order, and Q's dims in the kernel's order against K's own.
+    Over pools whose scales spread over decades (spread_int8_pool) each
+    must break ROW_REL_TOL."""
+    kp, vp = inp["kp32"], inp["vp32"]
+    D = inp["args"][0].shape[-1]
+    q_perm, o_perm = code_perms(D)
+
+    def roll(pool, dim):
+        return {"q": pool["q"], "s": pool["s"].roll(1, dims=dim)}
+
+    def plain(**over):
+        return gemma_plain_f32(kernel, {**inp, **over}, window, scale, softcap)
+
+    args = inp["args"]
+    return {
+        "k_scale_token": plain(kp32=roll(kp, 1)),
+        "v_scale_token": plain(vp32=roll(vp, 1)),
+        "scale_head": plain(kp32=roll(kp, 2), vp32=roll(vp, 2)),
+        "cols": want[..., o_perm],
+        "dims": plain(args=(args[0][..., q_perm],) + tuple(args[1:])),
+    }
+
+
+def spread_int8_pool(x, gen, decades: float = 3.0):
+    """int8_pool of bf16 rows x [NP, PS, Hk, D], each (token, head) row
+    first scaled by 10^u, u uniform in [-decades, 0]: scales `decades`
+    decades apart, dequantized values at most x's."""
+    u = torch.rand(x.shape[:-1], generator=gen, device=x.device) * -decades
+    return int8_pool((x.float() * torch.pow(10.0, u)[..., None]).bfloat16())
+
+
 def gemma_case(kernel, what, heads, case, pools, pools32, gen, dgen, dev,
-               lib_pools=None):
+               lib_pools=None, spread=False, timed=True):
     """One kernel at `heads` (Hk, G, D) and `case` (a GEMMA_CASES tuple):
     checked against the plain version in f32 (max abs error within
-    KERNEL_TOL, row_rel_err within ROW_REL_TOL; on bf16 pools with no cap,
-    decode and prefill, each planted fault must break ROW_REL_TOL), timed
-    with its yardstick and the plain version. Int8 dict `pools` are their
-    own f32 plain operands (`pools32`), and `lib_pools` their dequantized
-    bf16 pools for the yardstick (not timed). Everything it allocates is
-    freed on return (the engine phases' peak memory is read later)."""
+    KERNEL_TOL, row_rel_err within ROW_REL_TOL; with no cap, each planted
+    fault must break ROW_REL_TOL: on bf16 pools decode and prefill, on
+    int8 pools prefill and ragged, and with `spread` (int8 pools from
+    spread_int8_pool) int8_faults too), timed (unless not `timed`) with its
+    yardstick and the plain version. Int8 dict `pools` are their own f32
+    plain operands (`pools32`), and `lib_pools` their dequantized bf16
+    pools for the yardstick and the planted faults. Everything it
+    allocates is freed on return (the engine phases' peak memory is read
+    later)."""
     Hk, G, D = heads
     contexts, window, softcap, scale, q_mul = case
     fn = {"decode": decode_paged_attention, "prefill": prefill_paged_attention,
@@ -2373,14 +2467,20 @@ def gemma_case(kernel, what, heads, case, pools, pools32, gen, dgen, dev,
     check(zero, f"{what}: padding, tail or empty rows are not 0")
     check(err <= KERNEL_TOL, f"{what}: max abs err {err} > {KERNEL_TOL}")
     check(rel <= ROW_REL_TOL, f"{what}: row error {rel} > {ROW_REL_TOL}")
+    bad = {}
+    if not softcap and (kernel == "prefill" or kernel == ("ragged" if int8 else "decode")):
+        bad = (planted_faults_ragged(inp, want, window, sc, *lib_pools) if kernel == "ragged"
+               else planted_faults(kernel, inp, window, sc))
+    if spread and kernel != "decode":
+        bad.update(int8_faults(kernel, inp, want, window, scale, softcap))
     faults = {}
-    if not int8 and not softcap and kernel != "ragged":
-        for name, bad in planted_faults(kernel, inp, window, sc).items():
-            faults[name] = case_errors(kernel, bad, want, rows)[1]
-            del bad
-            check(faults[name] > ROW_REL_TOL,
-                  f"{what}: planted fault {name} reads {faults[name]}, "
-                  f"within ROW_REL_TOL {ROW_REL_TOL}")
+    for name in list(bad):
+        faults[name] = case_errors(kernel, bad.pop(name), want, rows)[1]
+        check(faults[name] > ROW_REL_TOL,
+              f"{what}: planted fault {name} reads {faults[name]}, "
+              f"within ROW_REL_TOL {ROW_REL_TOL}")
+    if not timed:
+        return {"max_abs_err": err, "row_rel_err": rel, "planted_faults": faults}
     b_ms, b_by = gemma_bound(Hk * G, Hk, D, inp["spans"], window, inp["io_rows"],
                              inp["n_ints"], softcap, int8)
     if kernel == "ragged":
@@ -2511,13 +2611,22 @@ def kv_quantize_check(dev):
     return {"rows": list(x.shape), "q_equal": q_equal, "s_max_ulps": ulps}
 
 
-def int8_kernels_phase(dev):
+# kv lengths of the int8 gate at the 3B shape: 64-token tile edges, and
+# contexts whose walks wrap the 2- and 3-stage rings many times
+I8_EDGES = [1, 63, 64, 65, 127, 128, 129, 700, 2047, 2048, 2049, 4095, 4096, 4097]
+
+
+def int8_kernels_phase(dev, bf16_ms, gemma_bf16):
     """The int8 bodies against their plain int8 versions in f32 (the scale
     fold in the TPU kernels' order), each timed back to back and as a
     CUDA-graph replay beside its bf16 yardstick over the dequantized K/V,
     with a bound over the codes and scales the data needs: GQA decode,
-    prefill and ragged at `kernels`' D 128 G 3 shapes, the Gemma-2 case
-    (window 4096, cap 50, scale 1/16) at D 256 G 2, MLA decode at its
+    prefill and ragged at `kernels`' D 128 G 3 shapes (prefill and ragged
+    over spread_int8_pool pools, also held row by row, and with the bf16
+    body's replay from `bf16_ms` {kernel: ms} beside them), the gate_3b
+    cases (I8_EDGES, untimed, with planted faults), the Gemma-2 case
+    (window 4096, cap 50, scale 1/16) at D 256 G 2 (beside its bf16 row,
+    `gemma_bf16` {"decode": record, ...}), MLA decode at its
     main-path shape; and kv_quantize on the card against the CPU's."""
     gen = torch.Generator(device="cpu").manual_seed(12)
     dgen = torch.Generator(device=dev).manual_seed(12)
@@ -2564,11 +2673,12 @@ def int8_kernels_phase(dev):
                                        "kv_lens": kv_list})
     del kq, vq, kd, vd, kdd, vdd
 
-    # prefill: S 512, q_len 450 over 700 prior tokens (padding rows after)
+    # prefill: S 512, q_len 450 over 700 prior tokens (padding rows after),
+    # over pools whose scales spread over three decades
     S, prior, q_len = 512, 700, 450
     kv = prior + q_len
     MP = -(-kv // PS) + 2
-    (kq, vq), (kd, vd) = pools(MP + 1, Hk, D)
+    (kq, kd), (vq, vd) = (spread_int8_pool(rnd(MP + 1, PS, Hk, D), dgen) for _ in range(2))
     q = rnd(1, S, Hk, G, D)
     pt = random_pages(gen, 1, MP, MP + 1, dev)
     ints = [torch.tensor([x], dtype=torch.int32, device=dev) for x in (prior, q_len, kv)]
@@ -2576,10 +2686,12 @@ def int8_kernels_phase(dev):
     torch.cuda.synchronize()
     want = prefill_paged_attention_ref(q.float(), kq, vq, pt, *ints)
     err = (got[:, :q_len].float() - want[:, :q_len]).abs().max().item()
+    rel = row_rel_err(got[:, :q_len], want[:, :q_len])
     check(torch.isfinite(got.float()).all().item(), "int8 prefill output not finite")
     check(got[:, q_len:].float().abs().max().item() == 0.0,
           "int8 prefill padding rows are not 0")
     check(err <= KERNEL_TOL, f"int8 prefill max abs err {err} > {KERNEL_TOL}")
+    check(rel <= ROW_REL_TOL, f"int8 prefill row error {rel} > {ROW_REL_TOL}")
     kdd, vdd = dense_kv(kd, pt, Hk, G), dense_kv(vd, pt, Hk, G)
     s_pos = prior + torch.arange(S, device=dev)
     c_pos = torch.arange(MP * PS, device=dev)
@@ -2593,23 +2705,27 @@ def int8_kernels_phase(dev):
                                                scale=scale),
         q_len * H * D * 2 + q.numel() * 2 + kv * Hk * kv_row_bytes(D, True)
         + (-(-kv // PS)) * 4 + 3 * 4,
-        4 * n_pairs * H * D, err), shape={"S": S, "prior": prior, "q_len": q_len})
+        4 * n_pairs * H * D, err), row_rel_err=rel,
+        bf16_device_ms=bf16_ms.get("prefill_paged_attention"),
+        shape={"S": S, "prior": prior, "q_len": q_len})
     del kq, vq, kd, vd, kdd, vdd
 
     # ragged: the 264-token mixed step of 8 decode rows and 4 chunks
     segs = [(1, kv - 1) for kv in RAGGED_DECODE_KV] + RAGGED_CHUNKS
     args, md = ragged_inputs(gen, segs, RAGGED_T, Hk, G, D, PS, 4096 // PS, dev)
-    (kq, kd), (vq, vd) = int8_pool(args[1]), int8_pool(args[2])
+    (kq, kd), (vq, vd) = spread_int8_pool(args[1], dgen), spread_int8_pool(args[2], dgen)
     a8 = (args[0], kq, vq) + tuple(args[3:])
     got = ragged_paged_attention(*a8)
     torch.cuda.synchronize()
     want = ragged_paged_attention_ref(args[0].float(), kq, vq, *args[3:])
     n = sum(q_len for q_len, _ in segs)
     err = (got[:n].float() - want[:n]).abs().max().item()
+    rel = row_rel_err(got[:n], want[:n])
     check(torch.isfinite(got.float()).all().item(), "int8 ragged output not finite")
     check(n == got.shape[0] or got[n:].float().abs().max().item() == 0.0,
           "int8 ragged tail rows are not 0")
     check(err <= KERNEL_TOL, f"int8 ragged max abs err {err} > {KERNEL_TOL}")
+    check(rel <= ROW_REL_TOL, f"int8 ragged row error {rel} > {ROW_REL_TOL}")
     kv_tok = sum(q_len + p for q_len, p in segs)
     pairs = sum(p + i + 1 for q_len, p in segs for i in range(q_len))
     out["ragged_paged_attention_int8"] = dict(int8_record(
@@ -2619,17 +2735,33 @@ def int8_kernels_phase(dev):
         n * H * D * 2 + RAGGED_T * H * D * 2 + kv_tok * Hk * kv_row_bytes(D, True)
         + sum(-(-(q_len + p) // PS) for q_len, p in segs) * 4
         + md["seg_kv_lens"].size * 4 + md["meta"].size * 4,
-        4 * pairs * H * D, err), shape={"T": RAGGED_T, "segments": segs})
+        4 * pairs * H * D, err), row_rel_err=rel,
+        bf16_device_ms=bf16_ms.get("ragged_paged_attention"),
+        shape={"T": RAGGED_T, "segments": segs})
     del args, a8, kq, vq, kd, vd
+
+    # the gate at the 3B shape (untimed): prefill chunks and ragged steps
+    # ending at I8_EDGES, over pools whose scales spread over three decades,
+    # held row by row with gemma_case's planted faults and int8_faults
+    NP = 2 * len(I8_EDGES) * GEMMA_MP + 1
+    (kq, kd), (vq, vd) = (spread_int8_pool(rnd(NP, PS, Hk, D), dgen) for _ in range(2))
+    out["gate_3b"] = {
+        kernel: gemma_case(kernel, "int8_kernels gate_3b", (Hk, G, D),
+                           (I8_EDGES, 0, 0.0, None, 1.0), (kq, vq), (kq, vq), gen, dgen,
+                           dev, lib_pools=(kd, vd), spread=True, timed=False)
+        for kernel in ("prefill", "ragged")}
+    del kq, vq, kd, vd
+    torch.cuda.empty_cache()
 
     # the Gemma-2 case at D 256 G 2: the int8 window + soft-cap bodies
     Hk2, G2, D2 = GEMMA_SHAPES["D256_G2"]
     NP = 2 * len(GEMMA_EDGES) * GEMMA_MP + 1
     (kq, kd), (vq, vd) = (int8_pool(rnd(NP, PS, Hk2, D2)) for _ in range(2))
     out["gemma2_D256_G2"] = {
-        kernel: gemma_case(kernel, "int8_kernels gemma2", (Hk2, G2, D2),
-                           GEMMA_CASES["gemma2"],
-                           (kq, vq), (kq, vq), gen, dgen, dev, lib_pools=(kd, vd))
+        kernel: dict(gemma_case(kernel, "int8_kernels gemma2", (Hk2, G2, D2),
+                                GEMMA_CASES["gemma2"],
+                                (kq, vq), (kq, vq), gen, dgen, dev, lib_pools=(kd, vd)),
+                     bf16_device_ms=gemma_bf16[kernel]["device_ms"])
         for kernel in ("decode", "prefill", "ragged")}
     del kq, vq, kd, vd
     torch.cuda.empty_cache()
@@ -2674,20 +2806,23 @@ def int8_kernels_phase(dev):
     return out
 
 
-# head_shape_kernels: the head shapes (Hk, G, D) of qwen2.5-7b (G 7) and
-# phi-3-mini-4k (D 96, MHA, a 2047-token window on every layer), each with
-# a gemma_kernels case (contexts, window, softcap, scale, query scale):
-# decode rows at the contexts (and an empty row), prefill chunks of up to
-# 512 tokens ending there, and a ragged step of a decode row and a 48-token
-# chunk at each. qwen2.5-7b: `kernels`' decode contexts; phi-3: contexts
-# around the window's edge, whose chunks straddle it, and gemma_kernels'
-# 7-token window, whose edge moves O(1) outputs
+# head_shape_kernels: the head shapes (Hk, G, D) of qwen2.5-7b (G 7),
+# phi-3-mini-4k (D 96, MHA, a 2047-token window on every layer) and
+# llama-3.2-1b (D 64), each with a gemma_kernels case (contexts, window,
+# softcap, scale, query scale): decode rows at the contexts (and an empty
+# row), prefill chunks of up to 512 tokens ending there, and a ragged step
+# of a decode row and a 48-token chunk at each. qwen2.5-7b and
+# llama-3.2-1b: `kernels`' decode contexts; phi-3: contexts around the
+# window's edge, whose chunks straddle it, and gemma_kernels' 7-token
+# window, whose edge moves O(1) outputs
 HEAD_SHAPES = {
     "qwen2_G7_D128": ((4, 7, 128), ([4096, 1, 17, 1000, 2048, 3333, 513],
                                     0, 0.0, None, 1.0)),
     "phi3_G1_D96": ((32, 1, 96), ([1, 2046, 2047, 2048, 2049, 4000],
                                   2047, 0.0, None, 1.0)),
     "phi3_G1_D96_window_7": ((32, 1, 96), GEMMA_CASES["window_7"]),
+    "llama1b_G4_D64": ((8, 4, 64), ([4096, 1, 17, 1000, 2048, 3333, 513],
+                                    0, 0.0, None, 1.0)),
 }
 
 
@@ -2721,6 +2856,8 @@ def head_shape_kernels_phase(dev):
                          for kernel in ("decode", "prefill", "ragged")}
             del pools, pools32, lib
             torch.cuda.empty_cache()
+        for kernel, r in rec["int8"].items():  # each int8 row beside its bf16 row
+            r["bf16_device_ms"] = rec["bf16"][kernel]["device_ms"]
         out[shape] = rec
         del bf
         torch.cuda.empty_cache()
@@ -2872,13 +3009,16 @@ def phi3_phases(dev, smi):
 
 # the other dense families, one fused turn each at full width and depth:
 # (preset, max_seq_len, prompts added to the 3B's, the body every launch
-# takes). Mistral's prompts run past its 4096-token window
+# takes, int8 pools). Mistral's prompts run past its 4096-token window;
+# llama-3.2-1b (16 layers, Hk 8, G 4) is the card's path through the D 64
+# bodies, over int8 pools
 FAMILIES = {
-    "qwen3": ("qwen3-8b", 4096, (), "D128"),
-    "mistral": ("mistral-7b", 8192, (4600, 5200), "D128_window"),
-    "gemma7b": ("gemma-7b", 4096, (), "D256"),
-    "olmo2": ("olmo-2-7b", 4096, (), "D128"),
-    "granite": ("granite-3.1-8b", 4096, (), "D128"),
+    "qwen3": ("qwen3-8b", 4096, (), "D128", False),
+    "mistral": ("mistral-7b", 8192, (4600, 5200), "D128_window", False),
+    "gemma7b": ("gemma-7b", 4096, (), "D256", False),
+    "olmo2": ("olmo-2-7b", 4096, (), "D128", False),
+    "granite": ("granite-3.1-8b", 4096, (), "D128", False),
+    "llama1b_int8": ("llama-3.2-1b", 4096, (), "D64_int8", True),
 }
 
 
@@ -2886,8 +3026,8 @@ def families_phase(dev, smi):
     """Each of FAMILIES in turn, random weights freed before the next:
     `engine_<family>` (fused) and `parity_<family>`. Returns the bodies."""
     found = {}
-    for fam, (model, max_seq_len, extra, body) in FAMILIES.items():
-        args = model_args(model, max_seq_len)
+    for fam, (model, max_seq_len, extra, body, int8) in FAMILIES.items():
+        args = model_args(model, max_seq_len, kv_quantize=int8)
         runner, _, build_s = timed_runner(args)
         found[fam], _ = family_turn(runner, fam, None, args, body, smi, extra=extra,
                                     build_s=build_s)
@@ -3315,9 +3455,10 @@ def main() -> int:
         spills = [ln for ln in ptxas.get("mla_attention", [])
                   if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         check(not spills, f"MLA kernels spill: {spills}")
-        # D 96: ptxas keeps the ragged bodies at 168 registers (three
-        # 128-thread blocks an SM) and three int8 ones spill a few bytes;
-        # builds that do not spill run 1.3x slower (scripts/ragged_spill.py)
+        # ptxas keeps the ragged bodies at 128-211 registers (three or four
+        # 128-thread blocks an SM), and a few int8 ones (D 64, D 128
+        # plain) spill 8-16 bytes; builds that do not spill ran 10-25%
+        # slower (scripts/int8_body_variants.py --min-blocks, PERF.md)
         # D 256: O alone is 128 registers a thread; no instantiation spills
         # (decode 4 bodies + merge, prefill 8, ragged 8 + merge: bf16 and
         # int8 each)
@@ -3332,8 +3473,11 @@ def main() -> int:
         kern.update(copy_kernel_phase(dev))
         kern.update(mla_kernel_phase(dev))
         decode_split_edges_phase(dev)
-        gemma_kernels_phase(dev)
-        kern.update(int8_kernels_phase(dev))
+        gem = gemma_kernels_phase(dev)
+        kern.update(int8_kernels_phase(
+            dev, {name: kern[name]["device_ms"] for name in GQA_KERNELS},
+            gem["D256_G2"]["cases"]["gemma2"]))
+        del gem
         head = head_shape_kernels_phase(dev)
         kern.update(moe_kernels_phase(dev))
         runner, launches, bodies = engine_phases(dev)

@@ -42,6 +42,23 @@
 // (135 KB) take 203 KB of shared memory, one block an SM; Q's fragments
 // are reloaded from shared memory each tile (paged_flash.cuh QFrags) so
 // that O (128 registers) fits without spilling.
+//
+// int8 pools (paged_flash.cuh attend_codes): the stages hold the codes,
+// two deep (kCodeStages: on an H100 2 was 4-7% faster than 4, and 3 no
+// faster; PERF.md section 6), and each warp builds its bf16 fragments
+// from them in registers. That conversion is integer work in every warp
+// that computes a tile, and it binds these bodies, not the bytes. Up to D
+// 128 a warp therefore holds 32 rows (two 16-row tiles, each fragment
+// feeding both) over half of each tile's tokens, the halves merged at the
+// end: a block converts each tile 4 times, not 8, which made the D 96 and
+// D 128 bodies faster than the earlier ones that converted each tile in
+// place (the 3B case 0.0673 ms against 0.0697). At D 256, O takes 128
+// registers for 16 rows, so each of the 8 warps converts every tile, and
+// that body is 1.5x slower than the converting one; at D 64 it is 1.2x
+// slower (that body ran two blocks an SM at 128 registers; this one, held
+// to 128, spills and runs slower still). Padding rows past the last group
+// of rows with a query are written as zeros here, since no warp of
+// attend_codes holds them.
 
 #include <type_traits>
 
@@ -52,21 +69,23 @@ namespace {
 using namespace paged_flash;
 
 constexpr int kWarps = 8;  // 128 query rows: 16 a warp
+constexpr int kCodeStages = 2;  // int8 ring depth (attend_codes)
 
+// One block of the chunked prefill: bf16 pools (attend) or int8 codes
+// and their scales (kI8, attend_codes)
 template <int D, bool kCap, bool kWin, bool kI8>
-__global__ void __launch_bounds__(32 * kWarps)
-prefill_kernel(const __nv_bfloat16* __restrict__ q,
-               const void* __restrict__ k_pool,
-               const float* __restrict__ ks,  // kI8: [NP, PS, Hk] scales
-               const void* __restrict__ v_pool,
-               const float* __restrict__ vs,
-               const int* __restrict__ page_table,
-               const int* __restrict__ q_start,
-               const int* __restrict__ q_len,
-               const int* __restrict__ kv_lens,
-               __nv_bfloat16* __restrict__ out,
-               int S, int Hk, int G, int PS, int MP, int QB, int window,
-               ScoreMap sm) {
+__device__ __forceinline__ void prefill_block(const __nv_bfloat16* __restrict__ q,
+                                              const void* __restrict__ k_pool,
+                                              const float* __restrict__ ks,
+                                              const void* __restrict__ v_pool,
+                                              const float* __restrict__ vs,
+                                              const int* __restrict__ page_table,
+                                              const int* __restrict__ q_start,
+                                              const int* __restrict__ q_len,
+                                              const int* __restrict__ kv_lens,
+                                              __nv_bfloat16* __restrict__ out,
+                                              int S, int Hk, int G, int PS, int MP,
+                                              int QB, int window, ScoreMap sm) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int qb = blockIdx.x;
   const int h = blockIdx.y;
@@ -92,13 +111,69 @@ prefill_kernel(const __nv_bfloat16* __restrict__ q,
   };
   const int last_pos = n_tok > 0 ? min(pos0 + n_tok - 1, kvl - 1) : -1;
 
-  RowState<D> st;
-  attend<D, kWarps, kCap, kWin, kI8>(smem, q_row, row_span, k_pool, ks, v_pool, vs,
-                                     page_table + (size_t)b * MP, PS, Hk, h,
-                                     first_seen(pos0), last_pos + 1, sm, st);
-  store_rows<D>([&](int r) -> __nv_bfloat16* {
+  auto out_row = [&](int r) -> __nv_bfloat16* {
     return (r < rows && s0 + r / G < S) ? out + q_offset(r) : nullptr;
-  }, st);
+  };
+  if constexpr (kI8) {
+    // two 16-row tiles a warp up to D 128 (paged_flash.cuh attend_codes)
+    constexpr int kM = D <= 128 ? 2 : 1;
+    // padding rows past the last 16 kM-row group with a query are no
+    // warp's in attend_codes: zeros
+    const int held = max((max(n_tok, 0) * G + 16 * kM - 1) / (16 * kM), 1) * 16 * kM;
+    for (int i = held * (D / 8) + threadIdx.x; i < rows * (D / 8); i += blockDim.x) {
+      const int r = i / (D / 8);
+      if (s0 + r / G < S) {
+        *reinterpret_cast<uint4*>(out + q_offset(r) + (i % (D / 8)) * 8) =
+            make_uint4(0u, 0u, 0u, 0u);
+      }
+    }
+    RowState<D> st[kM];
+    // warps whose token share was merged into another's write nothing
+    if (!attend_codes<D, kWarps, kCodeStages, kM, kCap, kWin>(
+            smem, q_row, row_span, static_cast<const int8_t*>(k_pool), ks,
+            static_cast<const int8_t*>(v_pool), vs, page_table + (size_t)b * MP, PS, Hk,
+            h, first_seen(pos0), last_pos + 1, sm, st)) {
+      return;
+    }
+#pragma unroll
+    for (int m = 0; m < kM; ++m) store_rows<D, true>(out_row, st[m]);
+  } else {
+    RowState<D> st;
+    attend<D, kWarps, kCap, kWin>(smem, q_row, row_span, k_pool, v_pool,
+                                  page_table + (size_t)b * MP, PS, Hk, h,
+                                  first_seen(pos0), last_pos + 1, sm, st);
+    store_rows<D, false>(out_row, st);
+  }
+}
+
+// the bf16 bodies
+template <int D, bool kCap, bool kWin>
+__global__ void __launch_bounds__(32 * kWarps)
+prefill_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_pool,
+               const float* __restrict__ ks, const void* __restrict__ v_pool,
+               const float* __restrict__ vs, const int* __restrict__ page_table,
+               const int* __restrict__ q_start, const int* __restrict__ q_len,
+               const int* __restrict__ kv_lens, __nv_bfloat16* __restrict__ out,
+               int S, int Hk, int G, int PS, int MP, int QB, int window, ScoreMap sm) {
+  prefill_block<D, kCap, kWin, false>(q, k_pool, ks, v_pool, vs, page_table, q_start, q_len,
+                                      kv_lens, out, S, Hk, G, PS, MP, QB, window, sm);
+}
+
+// the int8 bodies (ks, vs: [NP, PS, Hk] scales), one block an SM: ptxas
+// may use 255 registers a thread, where on its own it picks 128-218 (and
+// spills at D 64); on an H100 that ran them 10-12% faster, and a chunk's
+// grid is under a wave at the main path's shapes (PERF.md section 6)
+template <int D, bool kCap, bool kWin>
+__global__ void __launch_bounds__(32 * kWarps, 1)
+prefill_codes_kernel(const __nv_bfloat16* __restrict__ q, const void* __restrict__ k_pool,
+                     const float* __restrict__ ks, const void* __restrict__ v_pool,
+                     const float* __restrict__ vs, const int* __restrict__ page_table,
+                     const int* __restrict__ q_start, const int* __restrict__ q_len,
+                     const int* __restrict__ kv_lens, __nv_bfloat16* __restrict__ out,
+                     int S, int Hk, int G, int PS, int MP, int QB, int window,
+                     ScoreMap sm) {
+  prefill_block<D, kCap, kWin, true>(q, k_pool, ks, v_pool, vs, page_table, q_start, q_len,
+                                     kv_lens, out, S, Hk, G, PS, MP, QB, window, sm);
 }
 
 template <int D, bool kCap, bool kWin, bool kI8>
@@ -106,13 +181,15 @@ int launch(const dim3& grid, cudaStream_t st, const __nv_bfloat16* q,
            const KvPools& kv, const int* pt, const int* qs, const int* ql,
            const int* kl, __nv_bfloat16* out, int S, int Hk, int G, int PS,
            int MP, int QB, int window, const ScoreMap& sm) {
-  constexpr int smem =
-      kI8 ? Shape<D, kWarps>::kSmemBytesI8 : Shape<D, kWarps>::kSmemBytes;
-  cudaError_t err = cudaFuncSetAttribute(
-      prefill_kernel<D, kCap, kWin, kI8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  constexpr int smem = kI8 ? CodeShape<D, kWarps, kCodeStages>::kSmemBytes
+                           : Shape<D, kWarps>::kSmemBytes;
+  const auto kernel =
+      kI8 ? prefill_codes_kernel<D, kCap, kWin> : prefill_kernel<D, kCap, kWin>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  prefill_kernel<D, kCap, kWin, kI8><<<grid, 32 * kWarps, smem, st>>>(
-      q, kv.k, kv.ks, kv.v, kv.vs, pt, qs, ql, kl, out, S, Hk, G, PS, MP, QB, window, sm);
+  kernel<<<grid, 32 * kWarps, smem, st>>>(q, kv.k, kv.ks, kv.v, kv.vs, pt, qs, ql, kl, out, S,
+                                          Hk, G, PS, MP, QB, window, sm);
   return static_cast<int>(cudaGetLastError());
 }
 

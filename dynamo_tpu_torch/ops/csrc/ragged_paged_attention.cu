@@ -54,10 +54,19 @@
 // wholly below the window stages nothing and writes the empty partial
 // (m = -1e30, l = 0, O = 0), which the merge weighs 0.
 // Idle rows: a decode unit fills G of a block's 64 rows (one warp's mma
-// with 3 live rows). Handing the idle warps a share of each tile's tokens
-// was not taken: clock stamps on an H100 put a tile's products and
+// with 3 live rows). In the bf16 bodies the idle warps get no share of
+// each tile's tokens: clock stamps on an H100 put a tile's products and
 // softmax in one warp at about a third of the time a tile takes to
 // arrive, so the loads, not the products, set a block's pace.
+// int8 pools (paged_flash.cuh attend_codes): the stages hold the codes
+// (three deep; two at D 256, where that lets two blocks share an SM:
+// kCodeStages) and each warp builds its bf16 fragments from them in
+// registers, integer work that a single warp would do alone for a decode
+// unit. So there the idle warps do share: a unit whose rows fill one (two)
+// of the 4 warps splits each tile's tokens 4 (2) ways, and the parts'
+// softmax states are merged at the end; only the merged rows are written.
+// That made the 3B shape's int8 step faster than its bf16 one on an H100
+// (PERF.md section 6).
 
 #include <type_traits>
 
@@ -69,6 +78,10 @@ using namespace paged_flash;
 
 constexpr int kWarps = 4;  // 64 query rows: a unit's q_block * G at most
 constexpr int kThreads = 32 * kWarps;
+// int8 ring depth (attend_codes) by head dim: at D 256 two stages let two
+// blocks share an SM
+template <int D>
+constexpr int kCodeStages = D == 256 ? 2 : 3;
 
 struct Unit {
   int n_tok, seg, t0, qpos0, last_pos;
@@ -136,28 +149,47 @@ ragged_kernel(const __nv_bfloat16* __restrict__ q,
     const int p = u.qpos0 + r / G;
     return make_int2(first_seen(p), min(p, u.last_pos));
   };
-  attend<D, kWarps, kCap, kWin, kI8>(smem, q_row, row_span, k_pool, ks, v_pool, vs,
-                                     seg_page_table + (size_t)u.seg * MP, PS, Hk, h,
-                                     c_begin, c_end, sm, st);
+  if constexpr (kI8) {
+    // warps whose token share was merged into another's write nothing
+    if (!attend_codes<D, kWarps, kCodeStages<D>, 1, kCap, kWin>(
+            smem, q_row, row_span, static_cast<const int8_t*>(k_pool), ks,
+            static_cast<const int8_t*>(v_pool), vs, seg_page_table + (size_t)u.seg * MP,
+            PS, Hk, h, c_begin, c_end, sm, &st)) {
+      return;
+    }
+  } else {
+    attend<D, kWarps, kCap, kWin>(smem, q_row, row_span, k_pool, v_pool,
+                                  seg_page_table + (size_t)u.seg * MP, PS, Hk, h, c_begin,
+                                  c_end, sm, st);
+  }
 
   if (u.last_pos < split) {  // one split: the rows go straight to out
-    store_rows<D>([&](int r) -> __nv_bfloat16* {
+    store_rows<D, kI8>([&](int r) -> __nv_bfloat16* {
       return r < rows ? out + q_offset(r) : nullptr;
     }, st);
     return;
   }
   // partials of split z: per row D values of O, then m, l
   const int lane = threadIdx.x & 31;
-  const int r0 = (threadIdx.x >> 5) * 16 + (lane >> 2);
+  const int r0 = kI8 ? st.r0 : (threadIdx.x >> 5) * 16 + (lane >> 2);
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     const int r = r0 + 8 * i;
     if (r >= rows) continue;
     float* p = base + (size_t)r * (D + 4);
+    if constexpr (kI8) {  // O's columns in code_cols' order
 #pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      *reinterpret_cast<float2*>(p + n * 8 + 2 * (lane & 3)) =
-          make_float2(st.o[n][2 * i], st.o[n][2 * i + 1]);
+      for (int c = 0; c < D / 32; ++c)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh)
+          *reinterpret_cast<float4*>(p + c * 32 + hh * 16 + 4 * (lane & 3)) =
+              code_cols(st, c, hh, i);
+    } else {
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<float2*>(p + n * 8 + 2 * (lane & 3)) =
+            make_float2(st.o[n][2 * i], st.o[n][2 * i + 1]);
+      }
     }
     if ((lane & 3) == 0) *reinterpret_cast<float2*>(p + D) = make_float2(st.m[i], st.l[i]);
   }
@@ -189,8 +221,8 @@ int launch(int NW, int Hk, int NS, cudaStream_t st, const __nv_bfloat16* q,
            const KvPools& kv, const int* pt, const int* kl, const int* mt,
            __nv_bfloat16* out, float* part, int G, int PS, int MP, int QB,
            int split, int window, const ScoreMap& sm) {
-  constexpr int smem =
-      kI8 ? Shape<D, kWarps>::kSmemBytesI8 : Shape<D, kWarps>::kSmemBytes;
+  constexpr int smem = kI8 ? CodeShape<D, kWarps, kCodeStages<D>>::kSmemBytes
+                           : Shape<D, kWarps>::kSmemBytes;
   cudaError_t err = cudaFuncSetAttribute(
       ragged_kernel<D, kCap, kWin, kI8>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);

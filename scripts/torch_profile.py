@@ -63,7 +63,7 @@ def family(name: str) -> str:
     if any(k in name for k in ("decode_kernel", "decode_split_kernel",
                                "decode_merge_kernel")):
         return "decode_attention"
-    if "prefill_kernel" in name:
+    if "prefill_kernel" in name or "prefill_codes_kernel" in name:
         return "prefill_attention"
     if "ragged_kernel" in name or "ragged_merge_kernel" in name:
         return "ragged_attention"

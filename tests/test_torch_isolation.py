@@ -1,6 +1,6 @@
 """The port stands alone: dynamo_tpu_torch, chip_smoke.py,
-scripts/torch_profile.py and scripts/mla_prefill_variants.py import
-neither JAX nor anything of the
+scripts/torch_profile.py, scripts/mla_prefill_variants.py and
+scripts/int8_body_variants.py import neither JAX nor anything of the
 dynamo_tpu package, nor ml_dtypes (the machine with the card has none of
 them). Note the prefix: `dynamo_tpu_torch` starts with `dynamo_tpu`.
 """
@@ -63,7 +63,8 @@ def test_every_module_imports_without_jax_or_dynamo_tpu():
 def test_no_source_file_imports_jax_or_dynamo_tpu():
     files = sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile.py",
-        ROOT / "scripts" / "mla_prefill_variants.py"]
+        ROOT / "scripts" / "mla_prefill_variants.py",
+        ROOT / "scripts" / "int8_body_variants.py"]
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

@@ -182,7 +182,7 @@ def _prefill_args(rng, D):
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
 def test_prefill_int8_matches_jax(variant, D):
     softcap, window, scale = VARIANTS[variant]
     args = _prefill_args(np.random.default_rng(3), D)
@@ -207,8 +207,8 @@ RAGGED = {
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-@pytest.mark.parametrize("layout,D", [("small", 128), ("small", 256),
-                                      ("splits", 128)])
+@pytest.mark.parametrize("layout,D", [("small", 64), ("small", 96), ("small", 128),
+                                      ("small", 256), ("splits", 128)])
 def test_ragged_int8_matches_jax(variant, layout, D):
     softcap, window, scale = VARIANTS[variant]
     q_lens, q_starts, kv_lens, tb, PS, MP = RAGGED[layout]
