@@ -166,10 +166,14 @@ Phases, each printing one JSON line:
                the plain version in f32: max abs error (x at RMS
                MOE_X_RMS) and row errors over the row's RMS and over its
                max (gate/up is gated on the max form, down on the RMS
-               form, both at ROW_REL_TOL; a pair on the wrong expert and
-               a dropped last tile planted in the plain computation must
-               break the gate), timed beside the per-expert matmul loop,
-               the dense every-expert form and torch._grouped_mm, with
+               form, both at ROW_REL_TOL; a pair on the wrong expert, a
+               dropped last tile and the last tile's middle 64-deep K
+               slice left out of its sums, each planted in the plain
+               computation, must break the gate), the entries' ptxas
+               registers (a spill fails the build check) and route's
+               tile size against the kernel's, timed beside the
+               per-expert matmul loop, the dense every-expert form and
+               torch._grouped_mm, with
                the bound over the touched experts' weights; one
                moe_block under torch.cuda.set_sync_debug_mode("error").
                Then, after every earlier runner is freed,
@@ -3087,11 +3091,27 @@ def row_errs(got, want, scale=None):
             "max": form(scale.abs().amax(-1))}
 
 
-def gate_up_plain32(x, tok, wg, wu, tiles, wrong_row=None):
+def skipped_rows(a, r0, r1, skip):
+    """The rows of a [r1 - r0, K] that skip = (s0, s1, k0) covers, as
+    (first, end) in a's rows, with the K slice k0 .. k0 + MOE_BK zeroed:
+    a ring stage the kernel skipped (None where the spans miss)."""
+    if skip is None:
+        return None
+    s0, s1, k0 = skip
+    lo, hi = max(r0, s0), min(r1, s1)
+    if lo >= hi:
+        return None
+    part = a[lo - r0:hi - r0].clone()
+    part[:, k0:k0 + md.MOE_BK] = 0
+    return lo, hi, part
+
+
+def gate_up_plain32(x, tok, wg, wu, tiles, wrong_row=None, skip=None):
     """moe_gate_up's plain version in f32 from the bf16 operands, expert by
     expert (each expert's weights converted on their own: V3's in f32
     would be 15 GB). wrong_row plants a fault: that row computed with the
-    next expert's weights."""
+    next expert's weights; skip = (first row, end row, k0) another: those
+    rows with the 64-deep K slice from k0 left out of both sums."""
     n = wg.shape[0]
     h = torch.zeros(tok.shape[0], wg.shape[-1], device=x.device)
     for e, r0, r1 in md.expert_rows(tiles):
@@ -3100,17 +3120,26 @@ def gate_up_plain32(x, tok, wg, wu, tiles, wrong_row=None):
         if wrong_row is not None and r0 <= wrong_row < r1:
             xw, f = xr[wrong_row - r0], (e + 1) % n
             h[wrong_row] = F.silu(xw @ wg[f].float()) * (xw @ wu[f].float())
+        part = skipped_rows(xr, r0, r1, skip)
+        if part is not None:
+            lo, hi, xs = part
+            h[lo:hi] = F.silu(xs @ wg[e].float()) * (xs @ wu[e].float())
     return h
 
 
-def down_plain32(h, wd, tiles, wrong_row=None):
-    """moe_down's plain version in f32 (and its wrong-expert fault)."""
+def down_plain32(h, wd, tiles, wrong_row=None, skip=None):
+    """moe_down's plain version in f32 (and its two faults)."""
     n = wd.shape[0]
     y = torch.zeros(h.shape[0], wd.shape[-1], device=h.device)
     for e, r0, r1 in md.expert_rows(tiles):
-        y[r0:r1] = h[r0:r1].float() @ wd[e].float()
+        hr = h[r0:r1].float()
+        y[r0:r1] = hr @ wd[e].float()
         if wrong_row is not None and r0 <= wrong_row < r1:
             y[wrong_row] = h[wrong_row].float() @ wd[(e + 1) % n].float()
+        part = skipped_rows(hr, r0, r1, skip)
+        if part is not None:
+            lo, hi, hs = part
+            y[lo:hi] = hs @ wd[e].float()
     return y
 
 
@@ -3118,7 +3147,8 @@ def moe_case(what, x, sel, wg, wu, wd, k, abs_gate=True):
     """Both grouped-GEMM entries on one routing, against their plain
     versions in f32: max abs error (held to KERNEL_TOL with `abs_gate`), the row errors over the row's RMS
     (row_rel_err's form) and over the row's max abs value, the planted faults
-    (a pair on the wrong expert, the last tile dropped), times (b2b and
+    (a pair on the wrong expert, the last tile dropped, the last tile's
+    middle 64-deep K slice left out: a ring stage skipped), times (b2b and
     CUDA-graph replay) beside the plain version (the per-expert
     torch.matmul loop), the dense every-expert form (the reference's) and
     torch._grouped_mm where the card's torch has it, and the bound."""
@@ -3134,7 +3164,8 @@ def moe_case(what, x, sel, wg, wu, wd, k, abs_gate=True):
     touched = int((counts > 0).sum())
     P = T * k
     # the faults: the first row of the last expert with rows on the next
-    # expert's weights; the rows of the last tile left 0
+    # expert's weights; the rows of the last tile left 0; the last tile's
+    # rows without the middle 64-deep K slice of their sums
     wrong = md.expert_rows(r.tiles)[-1][1]
     last0, last1 = live[-1][1], live[-1][2]
     out = {"routing": what, "T": T, "pairs": P, "touched_experts": touched,
@@ -3142,18 +3173,21 @@ def moe_case(what, x, sel, wg, wu, wd, k, abs_gate=True):
            "tiles": len(live), "grid_tiles": r.tiles.shape[0],
            "max_rows_an_expert": int(counts.max())}
     entries = {
-        "moe_gate_up": (h, lambda wr=None: gate_up_plain32(x, r.tok, wg, wu, r.tiles, wr),
-                        "max"),
-        "moe_down": (y, lambda wr=None: down_plain32(h, wd, r.tiles, wr), "rms"),
+        "moe_gate_up": (h, lambda wr=None, sk=None: gate_up_plain32(
+            x, r.tok, wg, wu, r.tiles, wr, sk), "max", E),
+        "moe_down": (y, lambda wr=None, sk=None: down_plain32(h, wd, r.tiles, wr, sk),
+                     "rms", F_),  # each with its K: the skipped stage's depth
     }
-    for name, (got, plain, gate) in entries.items():
+    for name, (got, plain, gate, K) in entries.items():
         want = plain()
         check(torch.isfinite(got.float()).all().item(), f"{name} {what}: not finite")
         err = (got.float() - want).abs().max().item()
         rel = row_errs(got, want)
         dropped = want.clone()
         dropped[last0:last1] = 0
-        faults = {"wrong_expert": plain(wrong), "dropped_tile": dropped}
+        k_mid = K // md.MOE_BK // 2 * md.MOE_BK
+        faults = {"wrong_expert": plain(wrong), "dropped_tile": dropped,
+                  "skipped_stage": plain(sk=(last0, last1, k_mid))}
         fault_rel = {f: row_errs(got, w, want)[gate] for f, w in faults.items()}
         out[name] = {"max_abs_err": err, "row_rel_err_rms": rel["rms"],
                      "row_rel_err_max": rel["max"], "row_gate": gate,
@@ -3245,6 +3279,9 @@ def moe_kernels_phase(dev):
     MOE_RMS1_CASES again at x RMS 1 (row gates alone); then the sync
     check. Returns the kernels line's records (MOE_HEAD's case; its
     max_abs_err the largest of the cases held to KERNEL_TOL)."""
+    lib = _build.load()["moe_grouped_gemm"]
+    check(lib.moe_tile_rows() == md.MOE_BM,
+          f"grouped GEMM tiles of {lib.moe_tile_rows()} rows, route's {md.MOE_BM}")
     gen = torch.Generator(device="cpu").manual_seed(11)
     dgen = torch.Generator(device=dev).manual_seed(11)
     cases, rms1, head, sync = [], [], {}, None
@@ -3274,8 +3311,15 @@ def moe_kernels_phase(dev):
         del wg, wu, wd
         gc.collect()
         torch.cuda.empty_cache()
+    # each entry's registers and spills in both configurations, 128 x 128
+    # and 64 x 64 items (ptxas -v, when built in this run)
+    ents = ptxas_entries(_build.build_log.get("moe_grouped_gemm", ""))
+    ptxas = {name: {cfg: ents.get(f"moe_gemm_kernel<{gated},{small}>")
+                    for cfg, small in (("128x128", 0), ("64x64", 1))}
+             for name, gated in zip(MOE_KERNELS, (1, 0))}
     emit({"phase": "moe_kernels", "tol": KERNEL_TOL, "row_tol": ROW_REL_TOL,
-          "x_rms": MOE_X_RMS, "sync_check": sync,
+          "x_rms": MOE_X_RMS, "tile_rows": md.MOE_BM, "ptxas": ptxas,
+          "sync_check": sync,
           "cases": [{k: c[k] for k in ("model", "T", "routing")} for c in cases],
           "row_gated_only_at_x_rms_1": [{k: c[k] for k in ("model", "T", "routing")}
                                         for c in rms1]})
@@ -3455,6 +3499,11 @@ def main() -> int:
         spills = [ln for ln in ptxas.get("mla_attention", [])
                   if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         check(not spills, f"MLA kernels spill: {spills}")
+        # nor may the grouped GEMM's entries (a spilled accumulator would
+        # leave the wgmma registers for local memory)
+        spills = [ln for ln in ptxas.get("moe_grouped_gemm", [])
+                  if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+        check(not spills, f"grouped GEMM spills: {spills}")
         # ptxas keeps the ragged bodies at 128-211 registers (three or four
         # 128-thread blocks an SM), and a few int8 ones (D 64, D 128
         # plain) spill 8-16 bytes; builds that do not spill ran 10-25%

@@ -18,10 +18,13 @@ computes the same function by routing instead:
   the rows out in tiles of MOE_BM rows, each within one expert: the tile
   map [NT, 3] (expert, first row, end row). NT is the upper bound
   ceil(T k / MOE_BM) + n_experts, a function of shapes only, so no value
-  comes back to the host; tiles past the last live one hold expert -1.
+  comes back to the host; tiles past the last live one hold expert -1
+  (the kernel's persistent blocks stop at the first of them).
 - `moe_gate_up` and `moe_down` run each expert's SwiGLU over its rows:
   on CUDA tensors the hand-written Hopper kernel of
-  csrc/moe_grouped_gemm.cu, on CPU tensors their plain versions
+  csrc/moe_grouped_gemm.cu (gate/up over more than MOE_GATHER_PAIRS
+  pairs on a copy of x's rows in sorted order, `gate_up_rows`), on CPU
+  tensors their plain versions
   (`*_ref`, a loop of torch.matmul over each expert's sorted rows), which
   is also what the kernel is held against.
 - `combine` puts the rows back in (token, choice) order, multiplies them
@@ -38,12 +41,21 @@ import torch.nn.functional as F
 
 from dynamo_tpu_torch.ops import _build
 
-# rows a tile of the grouped GEMM: the kernel's kBM
-MOE_BM = 64
-# the K depth of one step of the kernel's walk (kBK), and the width of a
-# 16-byte column chunk: the kernel takes K % 32 == 0 and N % 8 == 0
-MOE_BK = 32
-MOE_N_ALIGN = 8
+# rows a tile of the grouped GEMM: the kernel's kBM (two warpgroups of 64)
+MOE_BM = 128
+# the K depth of one stage of the kernel's ring (kBK), and the columns of
+# one weight box (kBox): the kernel takes K % 64 == 0 and N % 64 == 0
+MOE_BK = 64
+MOE_N_ALIGN = 64
+# the kernel reads its matrices in 16-byte pieces (weights by the TMA unit,
+# A rows by cp.async): each must start 16-byte aligned
+MOE_PTR_ALIGN = 16
+# gate/up launches of at most this many pairs (a decode step of up to 8
+# tokens: no tile then holds more rows than one consumer warpgroup's 64)
+# gather x's rows in the kernel; larger ones take a permuted copy of x,
+# which the kernel reads in 64-row TMA boxes (a hot expert's 128-row tiles
+# ran at half the rate on rows gathered 16 bytes at a time: PERF.md §6)
+MOE_GATHER_PAIRS = MOE_BM // 2
 
 
 def router_topk(logits: torch.Tensor, k: int, scoring: str = "softmax",
@@ -181,7 +193,8 @@ def moe_down_ref(h, w_down, tiles):
 
 def _check_operands(what: str, mats, ints, K: int, N: int) -> None:
     """The kernel's operands: bf16 matrices and int32 maps, contiguous, on
-    one device; K a multiple of MOE_BK and N of MOE_N_ALIGN."""
+    one device; K a multiple of MOE_BK and N of MOE_N_ALIGN; the matrices
+    at MOE_PTR_ALIGN-byte aligned addresses."""
     dev = mats[0][1].device
     for name, t in mats:
         if t.dtype != torch.bfloat16:
@@ -197,11 +210,24 @@ def _check_operands(what: str, mats, ints, K: int, N: int) -> None:
     if K % MOE_BK or N % MOE_N_ALIGN:
         raise ValueError(f"{what}: no kernel for K={K}, N={N} (K % {MOE_BK} "
                          f"and N % {MOE_N_ALIGN} must be 0)")
+    for name, t in mats:
+        if t.data_ptr() % MOE_PTR_ALIGN:
+            raise ValueError(f"{what}: {name} is not {MOE_PTR_ALIGN}-byte aligned")
 
 
 def _check_tiles(what: str, tiles: torch.Tensor) -> None:
     if tiles.dim() != 2 or tiles.shape[1] != 3:
         raise ValueError(f"{what}: tiles {tuple(tiles.shape)} is not [NT, 3]")
+
+
+def gate_up_rows(x: torch.Tensor, tok_of_row: torch.Tensor):
+    """The A operand of gate/up's kernel and its row map: x and the token
+    of each sorted row (the kernel gathers the rows), or, over more than
+    MOE_GATHER_PAIRS pairs, x's rows copied in sorted order and None (the
+    kernel reads them as they lie)."""
+    if tok_of_row.shape[0] > MOE_GATHER_PAIRS:
+        return x.index_select(0, tok_of_row), None
+    return x, tok_of_row
 
 
 def moe_gate_up(x: torch.Tensor, tok_of_row: torch.Tensor,
@@ -212,7 +238,7 @@ def moe_gate_up(x: torch.Tensor, tok_of_row: torch.Tensor,
     tok_of_row [T k] int32; tiles from `route`."""
     if x.device.type == "cpu":
         return moe_gate_up_ref(x, tok_of_row, w_gate, w_up, tiles)
-    E, F_ = w_gate.shape[1:]
+    n_exp, E, F_ = w_gate.shape
     if x.dim() != 2 or x.shape[1] != E or w_up.shape != w_gate.shape:
         raise ValueError(f"moe_gate_up: x {tuple(x.shape)}, w_gate "
                          f"{tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}")
@@ -220,11 +246,12 @@ def moe_gate_up(x: torch.Tensor, tok_of_row: torch.Tensor,
                     [("tok_of_row", tok_of_row), ("tiles", tiles)], E, F_)
     _check_tiles("moe_gate_up", tiles)
     h = torch.empty((tok_of_row.shape[0], F_), dtype=x.dtype, device=x.device)
+    a, rows = gate_up_rows(x, tok_of_row)
     lib = _build.load()["moe_grouped_gemm"]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.moe_gate_up(x.data_ptr(), tok_of_row.data_ptr(), w_gate.data_ptr(),
-                         w_up.data_ptr(), tiles.data_ptr(), h.data_ptr(),
-                         tiles.shape[0], E, F_, stream)
+    rc = lib.moe_gate_up(a.data_ptr(), None if rows is None else rows.data_ptr(),
+                         w_gate.data_ptr(), w_up.data_ptr(), tiles.data_ptr(),
+                         h.data_ptr(), h.shape[0], n_exp, tiles.shape[0], E, F_, stream)
     _build.check(lib, rc, "moe_gate_up")
     moe_gate_up.launches += 1
     return h
@@ -236,7 +263,7 @@ def moe_down(h: torch.Tensor, w_down: torch.Tensor,
     expert. h [T k, F]; w_down [n_exp, F, E]."""
     if h.device.type == "cpu":
         return moe_down_ref(h, w_down, tiles)
-    F_, E = w_down.shape[1:]
+    n_exp, F_, E = w_down.shape
     if h.dim() != 2 or h.shape[1] != F_:
         raise ValueError(f"moe_down: h {tuple(h.shape)}, w_down "
                          f"{tuple(w_down.shape)}")
@@ -247,7 +274,7 @@ def moe_down(h: torch.Tensor, w_down: torch.Tensor,
     lib = _build.load()["moe_grouped_gemm"]
     stream = torch.cuda.current_stream(h.device).cuda_stream
     rc = lib.moe_down(h.data_ptr(), w_down.data_ptr(), tiles.data_ptr(),
-                      y.data_ptr(), tiles.shape[0], F_, E, stream)
+                      y.data_ptr(), h.shape[0], n_exp, tiles.shape[0], F_, E, stream)
     _build.check(lib, rc, "moe_down")
     moe_down.launches += 1
     return y

@@ -83,14 +83,17 @@ def test_router_topk_matches_jax(case):
 
 # -- the routing layout ----------------------------------------------------------
 
-# (T, k, n_experts, how the pairs are routed), tiles of md.MOE_BM (64) rows
+# (T, k, n_experts, how the pairs are routed), tiles of md.MOE_BM (128) rows
 LAYOUTS = {
-    "uniform": (37, 8, 16, "uniform"),  # T k = 296: not a multiple of 64
+    "uniform": (37, 8, 16, "uniform"),  # T k = 296: not a multiple of 128
     "small_tiles": (13, 3, 8, "uniform"),  # T k = 39: one partial tile an expert
-    "empty_experts": (200, 2, 32, "few"),  # 29 experts get no row, 3 get 2-3 tiles
-    "skewed": (64, 8, 16, "skewed"),  # half the pairs on one expert: one full tile
-    "hot_expert": (300, 4, 16, "skewed"),  # 300 rows on expert 0: 4 full tiles + 44
+    "empty_experts": (200, 2, 32, "few"),  # 29 experts get no row, 3 get 1-2 tiles
+    "skewed": (64, 8, 16, "skewed"),  # expert 0 in every token: half a tile
+    "hot_expert": (300, 4, 16, "skewed"),  # 300 rows on expert 0: 2 full tiles + 44
     "one_token": (1, 8, 128, "uniform"),  # a decode row
+    "full_tile": (128, 2, 4, "first"),  # 128 rows on expert 0: one full tile
+    "full_tile_and_one": (129, 2, 4, "first"),  # 129 rows: a full tile and 1 row
+    "hot_chunk": (512, 8, 128, "skewed"),  # 512 rows on expert 0: 4 full tiles
 }
 
 
@@ -100,6 +103,8 @@ def _sel(T, k, n, how, rng):
         return np.stack([rng.permutation(n)[:k] for _ in range(T)])
     if how == "few":  # experts 3, 5, 11 only
         return np.stack([rng.permutation([3, 5, 11])[:k] for _ in range(T)])
+    if how == "first":  # expert 0 for every token, the others in turn
+        return np.stack([[0, *(1 + (t + np.arange(k - 1)) % (n - 1))] for t in range(T)])
     # skewed: expert 0 first for every token, the rest from 1..k+1
     return np.stack([[0, *rng.permutation(np.arange(1, k + 2))[:k - 1]]
                      for _ in range(T)])
@@ -194,8 +199,8 @@ def test_grouped_gemm_wrappers_raise_unless_on_the_cpu(monkeypatch):
     bf = dict(dtype=torch.bfloat16, device="meta")
     tok = torch.zeros(16, dtype=torch.int32, device="meta")
     tiles = torch.zeros(md.tile_count(16, 4), 3, dtype=torch.int32, device="meta")
-    x, wg = torch.zeros(8, 64, **bf), torch.zeros(4, 64, 96, **bf)
-    h, wd = torch.zeros(16, 96, **bf), torch.zeros(4, 96, 64, **bf)
+    x, wg = torch.zeros(8, 64, **bf), torch.zeros(4, 64, 128, **bf)
+    h, wd = torch.zeros(16, 128, **bf), torch.zeros(4, 128, 64, **bf)
     before = md.moe_gate_up.launches, md.moe_down.launches
     with pytest.raises(RuntimeError, match="nvcc not found"):
         md.moe_gate_up(x, tok, wg, wg.clone(), tiles)
@@ -208,6 +213,112 @@ def test_grouped_gemm_wrappers_raise_unless_on_the_cpu(monkeypatch):
     with pytest.raises(TypeError, match="int32"):
         md.moe_down(h, wd, tiles.long())
     assert (md.moe_gate_up.launches, md.moe_down.launches) == before
+
+
+def _meta_bf16(*shape, offset=0):
+    """A contiguous bf16 tensor on the meta device whose data starts
+    `offset` elements into its storage (its data_ptr: offset * 2)."""
+    n = int(np.prod(shape))
+    flat = torch.zeros(n + offset, dtype=torch.bfloat16, device="meta")
+    return flat[offset:].view(*shape)
+
+
+# shapes and operands the TMA-fed kernel refuses before any build: K and N
+# must be multiples of 64 (a stage's K depth, a weight box's columns), and
+# every matrix, read through a tensor map, must start 16-byte aligned.
+# The earlier mma.sync kernel took K % 32 and N % 8, so the first two ran there.
+REFUSED = {
+    "gate_up_K_96": ("gate_up", dict(E=96, F=128), "no kernel for"),
+    "gate_up_N_200": ("gate_up", dict(E=64, F=200), "no kernel for"),
+    "down_K_192_N_72": ("down", dict(E=72, F=192), "no kernel for"),
+    "gate_up_x_offset": ("gate_up", dict(E=64, F=128, x_off=4), "16-byte aligned"),
+    "gate_up_w_up_offset": ("gate_up", dict(E=64, F=128, w_off=4), "16-byte aligned"),
+    "down_h_offset": ("down", dict(E=64, F=128, x_off=2), "16-byte aligned"),
+    "down_w_offset": ("down", dict(E=64, F=128, w_off=1), "16-byte aligned"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSED))
+def test_grouped_gemm_wrappers_refuse_what_the_kernel_does_not_take(monkeypatch, case):
+    """On the meta device (no card, no toolkit): each refused operand
+    raises ValueError before the kernel's build, and counts no launch."""
+    _raise_without_nvcc(monkeypatch)
+    entry, kw, match = REFUSED[case]
+    E, F, n = kw["E"], kw["F"], 4
+    tok = torch.zeros(16, dtype=torch.int32, device="meta")
+    tiles = torch.zeros(md.tile_count(16, n), 3, dtype=torch.int32, device="meta")
+    before = md.moe_gate_up.launches, md.moe_down.launches
+    with pytest.raises(ValueError, match=match):
+        if entry == "gate_up":
+            x = _meta_bf16(8, E, offset=kw.get("x_off", 0))
+            md.moe_gate_up(x, tok, _meta_bf16(n, E, F),
+                           _meta_bf16(n, E, F, offset=kw.get("w_off", 0)), tiles)
+        else:
+            h = _meta_bf16(16, F, offset=kw.get("x_off", 0))
+            md.moe_down(h, _meta_bf16(n, F, E, offset=kw.get("w_off", 0)), tiles)
+    assert (md.moe_gate_up.launches, md.moe_down.launches) == before
+
+
+@pytest.mark.parametrize("T,k", [(8, 8), (1, 8), (9, 8), (264, 8)])
+def test_gate_up_rows_gathers_at_decode_and_copies_above(T, k):
+    """gate/up's A operand: up to MOE_GATHER_PAIRS pairs the kernel gathers
+    x's rows by token; above, it reads x's rows copied in sorted order."""
+    rng = np.random.default_rng(8)
+    n = 16
+    x = torch.from_numpy(rng.standard_normal((T, 64)).astype(np.float32))
+    r = md.route(torch.from_numpy(_sel(T, k, n, "uniform", rng)), n)
+    a, rows = md.gate_up_rows(x, r.tok)
+    if T * k <= md.MOE_GATHER_PAIRS:
+        assert a is x and rows is r.tok
+    else:
+        assert rows is None and a.is_contiguous()
+        assert torch.equal(a, x[r.tok.long()])
+
+
+class _FakeLibrary:
+    """Stands in for the built library: records each entry's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def moe_gate_up(self, *args):
+        self.calls.append(("moe_gate_up", args))
+        return 0
+
+    def moe_down(self, *args):
+        self.calls.append(("moe_down", args))
+        return 0
+
+
+@pytest.mark.parametrize("T", [8, 40])
+def test_grouped_gemm_wrappers_pass_the_kernel_its_arguments(monkeypatch, T):
+    """The C interface, argument by argument (meta tensors, a recording
+    library in place of the build): pointers, then the pairs P, n_experts,
+    the tile map's rows, K, N and the stream; gate/up's row map is the
+    token array at decode and NULL over a permuted copy of x above it."""
+    fake = _FakeLibrary()
+    monkeypatch.setattr(_build, "load", lambda: {"moe_grouped_gemm": fake})
+    monkeypatch.setattr(md.torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 7})())
+    n, k, E, F = 8, 2, 128, 192
+    P = T * k
+    bf = dict(dtype=torch.bfloat16, device="meta")
+    tok = torch.zeros(P, dtype=torch.int32, device="meta")
+    tiles = torch.zeros(md.tile_count(P, n), 3, dtype=torch.int32, device="meta")
+    x, wg, wu = torch.zeros(T, E, **bf), torch.zeros(n, E, F, **bf), torch.zeros(n, E, F, **bf)
+    h = md.moe_gate_up(x, tok, wg, wu, tiles)
+    y = md.moe_down(h, torch.zeros(n, F, E, **bf), tiles)
+    assert h.shape == (P, F) and y.shape == (P, E)
+    (name_g, g), (name_d, d) = fake.calls
+    assert name_g == "moe_gate_up" and name_d == "moe_down"
+    assert g[6:] == (P, n, tiles.shape[0], E, F, 7)
+    assert d[4:] == (P, n, tiles.shape[0], F, E, 7)
+    if P <= md.MOE_GATHER_PAIRS:
+        assert g[0] == x.data_ptr() and g[1] == tok.data_ptr()
+    else:
+        assert g[1] is None
+    for args in (g[:6], d[:4]):
+        assert all(isinstance(v, int) for v in args if v is not None)
 
 
 # the MoE configs of the forward and engine tests
