@@ -62,8 +62,9 @@ Phases, each printing one JSON line:
                bf16 body's replay; the prefill and ragged ones over pools
                whose per-(token, head) scales spread over three decades,
                also row by row, and at the 3B shape again (`gate_3b`,
-               untimed) over kv lengths at 64-token tile edges up to
-               4097, where planted faults (a skipped tile; a K or V
+               decode, prefill and ragged, untimed) over kv lengths at
+               64-token tile edges up to 4097, where planted faults (a
+               skipped tile, a window edge moved by one; a K or V
                scale read from the slot before, scales from the next
                head, O's columns left in the kernel's order, Q's dims in
                the kernel's order against K's) must break the row limit;
@@ -249,6 +250,7 @@ from dynamo_tpu_torch.ops.mla_attention import (
 from dynamo_tpu_torch.ops.paged_attention import (
     DECODE_MAX_G,
     DECODE_SPLIT_TOKENS,
+    decode_split_tokens,
     decode_paged_attention,
     decode_paged_attention_ref,
 )
@@ -881,12 +883,48 @@ def shapes_phase(dev):
           "row_tol": ROW_REL_TOL, "row_rel_err": rel})
 
 
+# page sizes of the int8 decode check beyond the engine's 16: the kernel
+# loads a page (or 64 rows) of a head by one TMA box at 8, 32, 64 and 128,
+# and a row at a time at 4
+INT8_PAGE_SIZES = (4, 8, 32, 64, 128)
+
+
+def int8_page_sizes(rnd, gate, kv_lens, dev):
+    """The int8 decode kernel at INT8_PAGE_SIZES (D 128, Hk 2, G 3; rows at
+    kv_lens, the edges of its split), global and with a 100-token window
+    (whose low edge falls inside a page and a 64-token tile), against the
+    plain int8 version in f32: max abs error within KERNEL_TOL, row error
+    within ROW_REL_TOL, the kv_len-0 row exactly 0."""
+    Hk, G, D = 2, 3, 128
+    B = len(kv_lens)
+    kvl = torch.tensor(kv_lens, dtype=torch.int32, device=dev)
+    q = rnd(B, Hk, G, D)
+    out = {}
+    for ps in INT8_PAGE_SIZES:
+        MP = -(-max(kv_lens) // ps)
+        gen = torch.Generator(device="cpu").manual_seed(ps)
+        pt = random_pages(gen, B, MP, B * MP + 1, dev)
+        k8, v8 = (kv_pool_quantize(rnd(B * MP + 1, ps, Hk, D)) for _ in range(2))
+        for window in (0, 100):
+            got = decode_paged_attention(q, k8, v8, pt, kvl, window)
+            torch.cuda.synchronize()
+            want = decode_paged_attention_ref(q.float(), k8, v8, pt, kvl, window=window)
+            what = f"int8 decode PS {ps} window {window}"
+            rel = row_rel_err(got, want)
+            check(rel <= ROW_REL_TOL, f"{what}: row error {rel} > {ROW_REL_TOL}")
+            out[f"PS{ps}_w{window}"] = {"max_abs_err": gate(got, want, what),
+                                        "row_rel_err": rel}
+        del k8, v8
+    return out
+
+
 def decode_split_edges_phase(dev):
     """Both decode kernels with rows at the edges of their context splits
     (kv_len 0, 1, split - 1, split, split + 1, 2 split and 4096), GQA at
     the main path's heads and MLA at H 16, 32 and 128, bf16 and int8
-    (the pools quantized; against the plain int8 version in f32),
-    untimed: max abs err within KERNEL_TOL, the kv_len-0 row exactly 0."""
+    (the pools quantized; against the plain int8 version in f32; GQA int8
+    at its own split, and at other page sizes: int8_page_sizes), untimed:
+    max abs err within KERNEL_TOL, the kv_len-0 row exactly 0."""
     gen = torch.Generator(device="cpu").manual_seed(7)
 
     def rnd(*shape):
@@ -915,13 +953,18 @@ def decode_split_edges_phase(dev):
     rec = {"gqa": {"split": DECODE_SPLIT_TOKENS, "kv_lens": kv_gqa,
                    "max_abs_err": gate(out, decode_paged_attention_ref(
                        q, kp, vp, pt, kvl), "decode split edges")}}
+    # int8 pools: the edges of their own split
     k8, v8 = kv_pool_quantize(kp), kv_pool_quantize(vp)
+    kv8 = edges(decode_split_tokens(D, True))
+    kvl = torch.tensor(kv8, dtype=torch.int32, device=dev)
     out = decode_paged_attention(q, k8, v8, pt, kvl)
     torch.cuda.synchronize()
+    rec["gqa"].update(split_int8=decode_split_tokens(D, True), kv_lens_int8=kv8)
     rec["gqa"]["max_abs_err_int8"] = gate(
         out, decode_paged_attention_ref(q.float(), k8, v8, pt, kvl),
         "int8 decode split edges")
     del kp, vp, k8, v8
+    rec["gqa"]["int8_page_sizes"] = int8_page_sizes(rnd, gate, kv8, dev)
     kv_mla = edges(MLA_SPLIT_TOKENS)
     kvl = torch.tensor(kv_mla, dtype=torch.int32, device=dev)
     lat = rnd(B * MP + 1, PS, 1, MLA_DC + MLA_DR)
@@ -2167,12 +2210,21 @@ GEMMA_RAGGED_CHUNK = 48  # ragged chunk rows beside each decode row
 CAP_FP32_OPS = 7
 
 
+# int8 decode's warps a block at each head dim, one tile slot each
+# (paged_attention.cu code_warps)
+DECODE_CODE_WARPS = {64: 4, 96: 4, 128: 4, 256: 6}
+
+
 def gqa_smem_bytes(D: int):
-    """Dynamic shared memory of each GQA kernel at head dim D (the layouts
-    of paged_attention.cu DecShape and paged_flash.cuh Shape: rows D + 8
-    bf16 apart, 64-token tiles, mbarriers)."""
+    """Dynamic shared memory of each GQA kernel's bf16 body at head dim D
+    (the layouts of paged_attention.cu DecShape and paged_flash.cuh Shape:
+    rows D + 8 bf16 apart, 64-token tiles, mbarriers) and of the int8
+    decode kernel (DecCodeShape: per warp a slot of 64 K and 64 V rows of D
+    + 16 bytes and their scales)."""
     row = (D + 8) * 2
+    slots = DECODE_CODE_WARPS[D]
     return {"decode": (16 + 2 * 3 * 64) * row + 8 * 3,
+            "decode_int8": slots * (2 * 64 * (D + 16) + 2 * 64 * 4 + 8),
             "prefill": (128 + 2 * 2 * 64) * row + 8 * 2,
             "ragged": (64 + 2 * 2 * 64) * row + 8 * 2}
 
@@ -2438,7 +2490,8 @@ def gemma_case(kernel, what, heads, case, pools, pools32, gen, dgen, dev,
     KERNEL_TOL, row_rel_err within ROW_REL_TOL; with no cap, each planted
     fault must break ROW_REL_TOL: on bf16 pools decode and prefill, on
     int8 pools prefill and ragged, and with `spread` (int8 pools from
-    spread_int8_pool) int8_faults too), timed (unless not `timed`) with its
+    spread_int8_pool) decode's and int8_faults too), timed (unless not
+    `timed`) with its
     yardstick and the plain version. Int8 dict `pools` are their own f32
     plain operands (`pools32`), and `lib_pools` their dequantized bf16
     pools for the yardstick and the planted faults. Everything it
@@ -2472,10 +2525,11 @@ def gemma_case(kernel, what, heads, case, pools, pools32, gen, dgen, dev,
     check(err <= KERNEL_TOL, f"{what}: max abs err {err} > {KERNEL_TOL}")
     check(rel <= ROW_REL_TOL, f"{what}: row error {rel} > {ROW_REL_TOL}")
     bad = {}
-    if not softcap and (kernel == "prefill" or kernel == ("ragged" if int8 else "decode")):
+    if not softcap and (kernel == "prefill" or (kernel == "ragged" and int8)
+                        or (kernel == "decode" and (spread or not int8))):
         bad = (planted_faults_ragged(inp, want, window, sc, *lib_pools) if kernel == "ragged"
                else planted_faults(kernel, inp, window, sc))
-    if spread and kernel != "decode":
+    if spread:
         bad.update(int8_faults(kernel, inp, want, window, scale, softcap))
     faults = {}
     for name in list(bad):
@@ -2618,6 +2672,9 @@ def kv_quantize_check(dev):
 # kv lengths of the int8 gate at the 3B shape: 64-token tile edges, and
 # contexts whose walks wrap the 2- and 3-stage rings many times
 I8_EDGES = [1, 63, 64, 65, 127, 128, 129, 700, 2047, 2048, 2049, 4095, 4096, 4097]
+# ... and, for decode, the edges of its first two context splits
+I8_DECODE_EDGES = sorted(set(I8_EDGES) | {k * decode_split_tokens(128, True) + d
+                                          for k in (1, 2) for d in (-1, 0, 1)})
 
 
 def int8_kernels_phase(dev, bf16_ms, gemma_bf16):
@@ -2625,10 +2682,10 @@ def int8_kernels_phase(dev, bf16_ms, gemma_bf16):
     fold in the TPU kernels' order), each timed back to back and as a
     CUDA-graph replay beside its bf16 yardstick over the dequantized K/V,
     with a bound over the codes and scales the data needs: GQA decode,
-    prefill and ragged at `kernels`' D 128 G 3 shapes (prefill and ragged
-    over spread_int8_pool pools, also held row by row, and with the bf16
-    body's replay from `bf16_ms` {kernel: ms} beside them), the gate_3b
-    cases (I8_EDGES, untimed, with planted faults), the Gemma-2 case
+    prefill and ragged at `kernels`' D 128 G 3 shapes (each held row by
+    row too and with the bf16 body's replay from `bf16_ms` {kernel: ms}
+    beside it; prefill and ragged over spread_int8_pool pools), the
+    gate_3b cases (I8_EDGES, untimed, with planted faults), the Gemma-2 case
     (window 4096, cap 50, scale 1/16) at D 256 G 2 (beside its bf16 row,
     `gemma_bf16` {"decode": record, ...}), MLA decode at its
     main-path shape; and kv_quantize on the card against the CPU's."""
@@ -2659,9 +2716,11 @@ def int8_kernels_phase(dev, bf16_ms, gemma_bf16):
     torch.cuda.synchronize()
     want = decode_paged_attention_ref(q.float(), kq, vq, pt, kvl)
     err = (got.float() - want).abs().max().item()
+    rel = row_rel_err(got, want)
     check(torch.isfinite(got.float()).all().item(), "int8 decode output not finite")
     check(got[1].float().abs().max().item() == 0.0, "int8 decode kv_len=0 row is not 0")
     check(err <= KERNEL_TOL, f"int8 decode max abs err {err} > {KERNEL_TOL}")
+    check(rel <= ROW_REL_TOL, f"int8 decode row error {rel} > {ROW_REL_TOL}")
     kdd, vdd = dense_kv(kd, pt, Hk, G), dense_kv(vd, pt, Hk, G)
     mask = (torch.arange(MP * PS, device=dev)[None, :] < kvl[:, None])[:, None, None, :]
     qd = q.reshape(B, H, 1, D)
@@ -2673,8 +2732,9 @@ def int8_kernels_phase(dev, bf16_ms, gemma_bf16):
                                                scale=scale),
         2 * q.numel() * 2 + n_tok * Hk * kv_row_bytes(D, True)
         + sum(-(-k // PS) for k in kv_list) * 4 + B * 4,
-        4 * n_tok * H * D, err), shape={"B": B, "Hk": Hk, "G": G, "D": D, "PS": PS,
-                                       "kv_lens": kv_list})
+        4 * n_tok * H * D, err), row_rel_err=rel,
+        bf16_device_ms=bf16_ms.get("decode_paged_attention"),
+        shape={"B": B, "Hk": Hk, "G": G, "D": D, "PS": PS, "kv_lens": kv_list})
     del kq, vq, kd, vd, kdd, vdd
 
     # prefill: S 512, q_len 450 over 700 prior tokens (padding rows after),
@@ -2744,16 +2804,18 @@ def int8_kernels_phase(dev, bf16_ms, gemma_bf16):
         shape={"T": RAGGED_T, "segments": segs})
     del args, a8, kq, vq, kd, vd
 
-    # the gate at the 3B shape (untimed): prefill chunks and ragged steps
-    # ending at I8_EDGES, over pools whose scales spread over three decades,
-    # held row by row with gemma_case's planted faults and int8_faults
-    NP = 2 * len(I8_EDGES) * GEMMA_MP + 1
+    # the gate at the 3B shape (untimed): decode rows at I8_DECODE_EDGES,
+    # prefill chunks and ragged steps ending at I8_EDGES, over pools whose
+    # scales spread over three decades, held row by row with gemma_case's
+    # planted faults and int8_faults
+    NP = 2 * len(I8_DECODE_EDGES) * GEMMA_MP + 1
     (kq, kd), (vq, vd) = (spread_int8_pool(rnd(NP, PS, Hk, D), dgen) for _ in range(2))
     out["gate_3b"] = {
         kernel: gemma_case(kernel, "int8_kernels gate_3b", (Hk, G, D),
-                           (I8_EDGES, 0, 0.0, None, 1.0), (kq, vq), (kq, vq), gen, dgen,
+                           (I8_DECODE_EDGES if kernel == "decode" else I8_EDGES, 0, 0.0,
+                            None, 1.0), (kq, vq), (kq, vq), gen, dgen,
                            dev, lib_pools=(kd, vd), spread=True, timed=False)
-        for kernel in ("prefill", "ragged")}
+        for kernel in ("decode", "prefill", "ragged")}
     del kq, vq, kd, vd
     torch.cuda.empty_cache()
 
@@ -3491,8 +3553,11 @@ def main() -> int:
     # the GQA kernels' instantiations (D 64 / 96 / 128 / 256, soft cap 0 / 1)
     gqa_ptxas = {stem: ptxas_entries(_build.build_log[stem])
                  for stem in GQA_STEMS if stem in _build.build_log}
+    # the int8 decode kernel's instantiations (D x soft cap)
+    int8_decode = {k: v for k, v in gqa_ptxas.get("paged_attention", {}).items()
+                   if k.startswith("decode_codes_kernel")}
     emit({"phase": "build", "seconds": time.monotonic() - t0, "ptxas": ptxas,
-          "gqa_kernels": gqa_ptxas})
+          "gqa_kernels": gqa_ptxas, "int8_decode_kernels": int8_decode})
 
     try:
         # the MLA kernels sit at the register cap of one block an SM
@@ -3504,16 +3569,21 @@ def main() -> int:
         spills = [ln for ln in ptxas.get("moe_grouped_gemm", [])
                   if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         check(not spills, f"grouped GEMM spills: {spills}")
+        # nor the int8 decode kernel at any head dim (8 instantiations)
+        check(len(int8_decode) == 8 or "paged_attention" not in gqa_ptxas,
+              f"int8 decode instantiations: {sorted(int8_decode)}")
+        check(all(v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
+                  for v in int8_decode.values()), f"int8 decode kernels spill: {int8_decode}")
         # ptxas keeps the ragged bodies at 128-211 registers (three or four
         # 128-thread blocks an SM), and a few int8 ones (D 64, D 128
         # plain) spill 8-16 bytes; builds that do not spill ran 10-25%
         # slower (scripts/int8_body_variants.py --min-blocks, PERF.md)
         # D 256: O alone is 128 registers a thread; no instantiation spills
-        # (decode 4 bodies + merge, prefill 8, ragged 8 + merge: bf16 and
-        # int8 each)
+        # (decode 4 bodies + the bf16 and int8 merges, prefill 8, ragged 8 +
+        # merge: bf16 and int8 each)
         d256 = {f"{stem}:{k}": v for stem, ents in gqa_ptxas.items()
                 for k, v in ents.items() if "<256" in k}
-        check(len(d256) == 22 or len(gqa_ptxas) < len(GQA_STEMS),
+        check(len(d256) == 23 or len(gqa_ptxas) < len(GQA_STEMS),
               f"GQA D 256 instantiations: {sorted(d256)}")
         check(all(v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
                   for v in d256.values()), f"GQA D 256 kernels spill: {d256}")

@@ -32,10 +32,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES: Dict[str, Dict[str, tuple]] = {
     # q, k_pool, k_scales, v_pool, v_scales (the scales NULL for bf16
     # pools), page_table, kv_lens, out, part,
-    # B, Hk, G, D, PS, MP, split, window, scale, softcap, stream
+    # B, Hk, G, D, PS, MP, NP, split, window, scale, softcap, stream
     "paged_attention": {
         "decode_paged_attention": (
-            [_P] * 9 + [_I] * 8 + [_F, _F, _P], _I),
+            [_P] * 9 + [_I] * 9 + [_F, _F, _P], _I),
     },
     # q, k_pool, k_scales, v_pool, v_scales, page_table, q_start, q_len,
     # kv_lens, out, B, S, Hk, G, D, PS, MP, q_block, window, scale,

@@ -1,9 +1,10 @@
 // Shared tile body of the GQA paged flash-attention kernels for Hopper
 // (sm_90a): flash_prefill.cu (chunked prefill) and
 // ragged_paged_attention.cu (the flat mixed step) walk a block's range
-// with `attend`; paged_attention.cu (decode) gives each warp its own
-// tiles through `tile_update`, the per-tile step `attend` runs. The
-// split-context launchers (ragged, GQA decode, MLA decode in
+// with `attend` (bf16) or `attend_codes` (int8); paged_attention.cu
+// (decode) gives each warp its own tiles through `tile_update`, the
+// per-tile step `attend` runs, or, over int8 pools, `tile_update_codes`,
+// the one `attend_codes` runs. The split-context launchers (ragged, GQA decode, MLA decode in
 // mla_attention.cu) share `merge_splits`. Each keeps its own launcher
 // and epilogue.
 //
@@ -63,16 +64,21 @@
 // from run to run.
 //
 // Why mma.sync and not wgmma: a ragged unit holds 3-24 live rows, below
-// wgmma's 64-row tile. Why bulk copies and not TMA tensor tiles: a tensor
-// map cannot follow a page table of 16-token pages without one descriptor
-// copy per page.
+// wgmma's 64-row tile. Why bulk copies and not TMA tensor tiles here: a
+// tensor map over the pool {D, Hk, NP PS} loads a page's rows of one head
+// by one box, and a box D + 16 bytes wide lands each row in a padded slot
+// (its last 16 bytes out of bounds, zeros), but a box row is at most 256
+// elements (D 256's padded row is 264 bf16, 272 int8) and the prefill and
+// ragged walks were not measured with it; the int8 decode kernel
+// (paged_attention.cu) uses such boxes at D <= 128, 16 times fewer copies
+// (PERF.md §6, int8 GQA decode).
 //
 // int8 KV (template flag kI8; the pools are models/quant.py's {"q": int8,
 // "s": f32 [NP, PS, Hk]}): the TPU kernels' `_*_kernel_int8` bodies. The
 // scales are folded as the TPU kernel folds them: the K scale multiplies
 // the raw score before the score map (scale, soft cap); the row sum takes
 // p as it is; the V scale multiplies p only for the value product, before
-// P is rounded to bf16. Two walks:
+// P is rounded to bf16. Three walks:
 //   - prefill and ragged (`attend_codes`, `tile_update_codes`): codes stay
 //     codes. A stage holds 64 K and 64 V slots of D + 16 bytes (D + 16 is
 //     16 mod 32, so any eight consecutive slots start in eight different
@@ -110,9 +116,14 @@
 //     warps and merges their softmax states at the end (attend_codes); a
 //     full prefill block cannot, and its 8 warps each convert every tile
 //     (PERF.md, section 6).
-//   - GQA decode (paged_attention.cu, `tile_update`'s kI8 path) and MLA
-//     decode (mla_attention.cu) still convert each slot in place to bf16
-//     (convert_rows).
+//   - GQA decode (paged_attention.cu `decode_codes_kernel`): the same
+//     slots and fragment conversions, one tile slot a warp and every tile
+//     of a block's split in flight at once, with products transposed
+//     (tile_update_codes_t there): a decode row group has G <= 8 query
+//     rows, so the tile's tokens take the products' 16-row side and the
+//     rows the 8-column side.
+//   - MLA decode (mla_attention.cu) converts each slot in place to bf16
+//     (convert_rows), since its 64 query rows share every latent tile.
 
 #pragma once
 
@@ -349,7 +360,8 @@ __device__ __forceinline__ int2 code_slice(int d0) {
   return make_int2(base / 16 + (off % (width / 4)) / 4, off / (width / 4));
 }
 
-// One warp converts rows [0, kRowsW) from row0 (rows kRowBytes apart)
+// MLA decode's conversion (mla_attention.cu, its last user): one warp
+// converts rows [0, kRowsW) from row0 (rows kRowBytes apart)
 // in place: each row's kD int8 codes, held in its last kD bytes (from
 // byte kRowBytes - kD), become kD bf16 at its start. A row's codes overlap
 // only its own bf16, and the warp reads a row whole (__syncwarp) before
@@ -454,16 +466,13 @@ struct QFrags {
 // cap with kCap) and mask (a token c counts for row i when full or c <=
 // st.vis[i], and with kWin st.lo[i] <= c), the running max and sum, P
 // rounded to bf16, O += P V. sK is the tile's K rows, the V rows follow
-// kTileElems later, both with rows D + 8 bf16 apart. With kI8 the rows hold
-// the converted codes and sSc the tile's scales (K at [0, 64), V at
-// [64, 128)): the K scale multiplies the raw score, the V scale p after
-// the row sum.
-template <int D, bool kCap, bool kWin, bool kI8>
+// kTileElems later, both with rows D + 8 bf16 apart (bf16 pools only: the
+// int8 walks run tile_update_codes).
+template <int D, bool kCap, bool kWin>
 __device__ __forceinline__ void tile_update(const QFrags<D>& qf,
                                             const __nv_bfloat16* sK, int c0,
                                             bool full, const ScoreMap& sm,
-                                            RowState<D>& st,
-                                            const float* sSc = nullptr) {
+                                            RowState<D>& st) {
   constexpr int kStride = D + 8;
   constexpr int kKC = D / 16;
   const __nv_bfloat16* sV = sK + kTile * kStride;
@@ -512,14 +521,11 @@ __device__ __forceinline__ void tile_update(const QFrags<D>& qf,
   float mx[2] = {minus_inf(), minus_inf()};
 #pragma unroll
   for (int n = 0; n < 8; ++n) {
-    float2 ks = make_float2(1.f, 1.f);
-    if constexpr (kI8) ks = *reinterpret_cast<const float2*>(sSc + n * 8 + 2 * t4);
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int i = e >> 1;
       const int c = c0 + n * 8 + 2 * t4 + (e & 1);
-      const float raw = kI8 ? s[n][e] * ((e & 1) ? ks.y : ks.x) : s[n][e];
-      const float x = base2_logit<kCap>(raw, sm);
+      const float x = base2_logit<kCap>(s[n][e], sm);
       s[n][e] = (full || (c <= st.vis[i] && (!kWin || c >= st.lo[i]))) ? x : minus_inf();
       mx[i] = fmaxf(mx[i], s[n][e]);
     }
@@ -543,14 +549,8 @@ __device__ __forceinline__ void tile_update(const QFrags<D>& qf,
     const float p3 = exp2_approx(s[n][3] - st.m[1]);
     sum[0] += p0 + p1;
     sum[1] += p2 + p3;
-    if constexpr (kI8) {  // the V scale, after the sum
-      const float2 vs = *reinterpret_cast<const float2*>(sSc + kTile + n * 8 + 2 * t4);
-      pa[n >> 1][(n & 1) * 2] = pack_bf16(p0 * vs.x, p1 * vs.y);
-      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2 * vs.x, p3 * vs.y);
-    } else {
-      pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
-      pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
+    pa[n >> 1][(n & 1) * 2] = pack_bf16(p0, p1);
+    pa[n >> 1][(n & 1) * 2 + 1] = pack_bf16(p2, p3);
   }
 #pragma unroll
   for (int i = 0; i < 2; ++i) st.l[i] = st.l[i] * alpha[i] + sum[i];
@@ -867,7 +867,7 @@ __device__ __forceinline__ void attend(
     mbar_wait(bar0 + 8 * (t % kStages), (t / kStages) & 1);
     // every live row sees the whole tile
     const bool full = (!kWin || c0 >= w_first_hi) && c0 + kTile - 1 <= w_lo;
-    tile_update<D, kCap, kWin, false>(qf, sK, c0, full, sm, st);
+    tile_update<D, kCap, kWin>(qf, sK, c0, full, sm, st);
   }
   // a warp that skipped tiles has not waited on them: every copy must land
   // before the block's shared memory goes

@@ -15,8 +15,9 @@ Window rule, as in the reference: the query of row b sits at position
 kv_lens[b] - 1, and with a window w > 0 it sees positions
 c >= kv_lens[b] - w only; w = 0 (or None) is global attention.
 
-The kernel splits each row's context into DECODE_SPLIT_TOKENS-long pieces,
-one block each, and merges a long row's pieces by log-sum-exp.
+The kernel splits each row's context into pieces of DECODE_SPLIT_TOKENS
+(over int8 pools, DECODE_INT8_SPLIT_TOKENS[D]: decode_split_tokens), one
+block each, and merges a long row's pieces by log-sum-exp.
 `split_partials_ref` and `merge_split_partials_ref` are that arithmetic in
 plain PyTorch for every split-context kernel of the port (this one, the
 ragged kernel and MLA decode); `decode_split_partials_ref` applies it here.
@@ -39,8 +40,16 @@ from dynamo_tpu_torch.models.toolkit import (
 from dynamo_tpu_torch.ops import _build
 
 # context tokens one kernel block walks: a multiple of the kernel's 64-token
-# tile, two tiles for each of its three warps
+# tile; bf16 pools: two tiles for each of its three warps; int8 pools, by
+# head dim: one tile for each warp of csrc/paged_attention.cu's int8 kernel
+# (code_warps), all in flight at once (PERF.md §6, int8 GQA decode)
 DECODE_SPLIT_TOKENS = 384
+DECODE_INT8_SPLIT_TOKENS = {64: 256, 96: 256, 128: 256, 256: 384}
+
+
+def decode_split_tokens(D: int, int8: bool) -> int:
+    """The decode kernel's split at head dim D over int8 or bf16 pools."""
+    return DECODE_INT8_SPLIT_TOKENS[D] if int8 else DECODE_SPLIT_TOKENS
 
 
 def split_partials_ref(s: torch.Tensor, seen: torch.Tensor, v: torch.Tensor,
@@ -127,16 +136,19 @@ def window_operand(window: Optional[int]) -> int:
 def decode_split_partials_ref(
     q: torch.Tensor, k_pool_l: torch.Tensor, v_pool_l: torch.Tensor,
     page_table: torch.Tensor, kv_lens: torch.Tensor,
-    scale: Optional[float] = None, split: int = DECODE_SPLIT_TOKENS, *,
+    scale: Optional[float] = None, split: Optional[int] = None, *,
     softcap: float = 0.0, window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The decode kernel's partials in plain f32: (m [NS, B, Hk, G],
     l [NS, B, Hk, G], o [NS, B, Hk, G, D]) over the splits of each row's
     visible positions [kv_lens[b] - window, kv_lens[b]) (from 0 without a
-    window); a split wholly below the window is the empty partial."""
+    window); a split wholly below the window is the empty partial. The
+    split defaults to the kernel's for these pools (decode_split_tokens)."""
     B, Hk, G, D = q.shape
     if scale is None:
         scale = D ** -0.5
+    if split is None:
+        split = decode_split_tokens(D, is_quantized(k_pool_l))
     k, ks = gather_context(k_pool_l, page_table.long())
     v, vs = gather_context(v_pool_l, page_table.long())
     C = k.shape[1]
@@ -293,14 +305,15 @@ def decode_paged_attention(
     # every row is written by its one block or by the merge
     out = torch.empty_like(q)
     MP = page_table.shape[1]
-    part = torch.empty((decode_split_count(MP, PS), B, Hk, G, D + 4),
+    split = decode_split_tokens(D, int8)
+    part = torch.empty((decode_split_count(MP, PS, split), B, Hk, G, D + 4),
                        dtype=torch.float32, device=q.device)
     lib = _build.load()["paged_attention"]
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = lib.decode_paged_attention(
         q.data_ptr(), k.data_ptr(), ptr_or_null(ks), v.data_ptr(), ptr_or_null(vs),
         page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        part.data_ptr(), B, Hk, G, D, PS, MP, DECODE_SPLIT_TOKENS, window,
+        part.data_ptr(), B, Hk, G, D, PS, MP, k.shape[0], split, window,
         float(scale), float(softcap), stream,
     )
     _build.check(lib, rc, "decode_paged_attention")

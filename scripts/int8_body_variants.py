@@ -1,35 +1,43 @@
 #!/usr/bin/env python3
-"""Versions of the chunked-prefill and ragged kernels' int8 bodies, timed
-against each other on the card.
+"""Versions of the GQA kernels' int8 bodies (decode, chunked prefill,
+ragged), timed against each other and beside their bf16 bodies on the
+card.
 
-    python3 scripts/int8_body_variants.py [--source NAME=DIR ...] [--stages N ...]
-        [--min-blocks P,R ...]
+    python3 scripts/int8_body_variants.py [--source NAME=DIR[:S] ...] [--stages N ...]
+        [--min-blocks P,R ...] [--decode-config W[:S] ...] [--kernels decode,prefill,ragged]
 
-Builds ops/csrc/flash_prefill.cu and ops/csrc/ragged_paged_attention.cu as
-the package does (`shipped`); each --source directory's copies of the two
-(DIR holds a whole ops/csrc: the .cu files and the paged_flash.cuh they
-include, e.g. an earlier commit's, unpacked with `git archive`); and, for
-each --stages N, copies of the shipped sources whose int8 ring is N stages
-deep at every head dim (`kCodeStages`, both kernels); and, for each
---min-blocks P,R, copies whose int8 prefill kernel (`prefill_codes_kernel`,
-shipped with 1) and ragged kernel (shipped with none: ptxas's own choice
-of 128-211 registers) declare at least P and R resident blocks
-(`__launch_bounds__(threads, N)`: at most 65536 / (threads x N) registers
-a thread). One nvcc a source, all started together; each version's
-ptxas registers and spills are printed. Each
-version's library is swapped in turn under the package's
-prefill_paged_attention and ragged_paged_attention, and driven at the int8
-and bf16 cases of chip_smoke.py's kernel rows: the 3B shape (Hk 8, G 3, D
-128: a 450-token chunk over 700 prior tokens, and `kernels`' 264-token
-ragged step), Gemma-2's (D 256, G 2, window 4096, cap 50, scale 1/16),
-phi-3's (Hk 32, G 1, D 96, window 2047), qwen2.5-7b's G 7 and
-llama-3.2-1b's D 64 (HEAD_SHAPES). Every output is held against the plain
-version in f32 (max abs error and row error, chip_smoke's KERNEL_TOL and
-ROW_REL_TOL; a version that misses either is reported, and the script
-exits 1). Then each case is timed as a CUDA-graph replay, version by
-version in turns, in order and then in reverse; both passes are printed
-(one JSON line a version and pass), then the card's name and power limit.
-Needs one CUDA device and nvcc.
+Builds ops/csrc/paged_attention.cu, flash_prefill.cu and
+ragged_paged_attention.cu as the package does (`shipped`); each --source
+directory's copies of them (DIR holds a whole ops/csrc: the .cu files and
+the paged_flash.cuh they include, e.g. an earlier commit's, unpacked with
+`git archive`; with :S its int8 decode launches run at split S, e.g. the
+split that source was written for); for each --stages N, copies of the
+shipped prefill and ragged sources whose int8 ring is N stages deep at
+every head dim (`kCodeStages`); for each --min-blocks P,R, copies whose
+int8 prefill kernel (`prefill_codes_kernel`, shipped with 1) and ragged
+kernel (shipped with none: ptxas's own choice of 128-211 registers)
+declare at least P and R resident blocks (`__launch_bounds__(threads,
+N)`: at most 65536 / (threads x N) registers a thread); for each
+--decode-config, a copy of the shipped decode source whose int8 kernel
+(`decode_codes_kernel`) has W warps a block (`code_warps`) at every head
+dim, its int8 launches at split S (tokens, a multiple of 64) when given.
+One nvcc a source, all started together; each version's ptxas registers
+and spills are printed. Each version's libraries are swapped in turn
+under the package's decode_paged_attention, prefill_paged_attention and
+ragged_paged_attention (a version that does not rebuild a source runs the
+shipped one), and driven at the int8 and bf16 cases of chip_smoke.py's
+kernel rows: the 3B shape (Hk 8, G 3, D 128: `kernels`' and
+int8_kernels' eight decode rows up to 4096 tokens, a 450-token chunk
+over 700 prior tokens, and `kernels`' 264-token ragged step), Gemma-2's
+(D 256, G 2, window 4096, cap 50, scale 1/16), phi-3's (Hk 32, G 1, D
+96, window 2047), qwen2.5-7b's G 7 and llama-3.2-1b's D 64
+(HEAD_SHAPES); --kernels keeps only the named kernels' cases. Every
+output is held against the plain version in f32 (max abs error and row
+error, chip_smoke's KERNEL_TOL and ROW_REL_TOL; a version that misses
+either is reported, and the script exits 1). Then each case is timed as
+a CUDA-graph replay, version by version in turns, in order and then in
+reverse; both passes are printed (one JSON line a version and pass),
+then the card's name and power limit. Needs one CUDA device and nvcc.
 """
 
 from __future__ import annotations
@@ -47,48 +55,119 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke as cs  # noqa: E402
 from dynamo_tpu_torch.ops import _build  # noqa: E402
+from dynamo_tpu_torch.ops import paged_attention as pa  # noqa: E402
 from dynamo_tpu_torch.ops.flash_prefill import prefill_paged_attention  # noqa: E402
 from dynamo_tpu_torch.ops.ragged_paged_attention import (  # noqa: E402
     ragged_paged_attention, ragged_paged_attention_ref)
 
-STEMS = ("flash_prefill", "ragged_paged_attention")
+STEM = {"decode": "paged_attention", "prefill": "flash_prefill",
+        "ragged": "ragged_paged_attention"}
+STEMS = tuple(STEM.values())
 STAGES = re.compile(r"constexpr int kCodeStages = [^;]+;")
 BOUNDS = {"flash_prefill": "__launch_bounds__(32 * kWarps, 1)\nprefill_codes_kernel(",
           "ragged_paged_attention": "__launch_bounds__(kThreads)\nragged_kernel("}
-FNS = {"prefill": prefill_paged_attention, "ragged": ragged_paged_attention}
+WARPS = re.compile(r"constexpr int code_warps\(\) \{ return [^;]+; \}")
+FNS = {"decode": pa.decode_paged_attention, "prefill": prefill_paged_attention,
+       "ragged": ragged_paged_attention}
+# decode_paged_attention's C arguments: k_scales (NULL for bf16), the
+# split scratch, the pool's pages (NP) and the split
+K_SCALES_ARG, PART_ARG, NP_ARG, SPLIT_ARG = 2, 8, 15, 16
 
 
-def build(sources, stages, min_blocks):
-    """{version: {stem: bound library}}, printing each version's ptxas
-    entries of the two kernels."""
+class OldAbiLib:
+    """A paged_attention library from a source whose decode_paged_attention
+    takes no NP (before its int8 kernel's page boxes): called with the
+    package's arguments less NP."""
+
+    def __init__(self, lib):
+        self.lib = lib
+        argtypes, _ = _build.SIGNATURES["paged_attention"]["decode_paged_attention"]
+        lib.decode_paged_attention.argtypes = argtypes[:NP_ARG] + argtypes[NP_ARG + 1:]
+
+    def decode_paged_attention(self, *args):
+        return self.lib.decode_paged_attention(*args[:NP_ARG], *args[NP_ARG + 1:])
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+
+class SplitLib:
+    """A paged_attention library with the int8 launches' split set to
+    `split`, on a split scratch of its own (allocated at the first call of
+    each size, outside graph capture: graph_ms calls once before it
+    captures)."""
+
+    def __init__(self, lib, split: int):
+        if split % 64:
+            raise ValueError(f"split {split}: not a multiple of 64")
+        self.lib, self.split, self.scratch = lib, split, {}
+
+    def decode_paged_attention(self, *args):
+        args = list(args)
+        if args[K_SCALES_ARG] is not None:
+            args[SPLIT_ARG] = self.split
+            B, Hk, G, D, PS, MP = args[9:NP_ARG]
+            n = pa.decode_split_count(MP, PS, self.split) * B * Hk * G * (D + 4)
+            if n not in self.scratch:
+                self.scratch[n] = torch.empty(n, dtype=torch.float32, device="cuda")
+            args[PART_ARG] = self.scratch[n].data_ptr()
+        return self.lib.decode_paged_attention(*args)
+
+    def __getattr__(self, name):
+        return getattr(self.lib, name)
+
+
+def variant_source(stem: str, pattern, text: str) -> str:
+    """The shipped source of `stem` with its one match of `pattern`
+    replaced by `text`."""
+    src = (_build.CSRC / f"{stem}.cu").read_text()
+    if len(pattern.findall(src)) != 1:
+        raise RuntimeError(f"{stem}.cu: {pattern.pattern} moved")
+    return pattern.sub(lambda _: text, src)
+
+
+def build(sources, stages, min_blocks, configs, stems):
+    """{version: {stem: bound library}} (stems a version does not rebuild:
+    the shipped ones), printing each version's ptxas entries of the
+    kernels."""
     libs = _build.load()
-    out = {"shipped": {s: libs[s] for s in STEMS}}
-    logs = {"shipped": {s: _build.build_log.get(s, "") for s in STEMS}}
+    shipped = {s: libs[s] for s in STEMS}
+    out = {"shipped": dict(shipped)}
+    logs = {"shipped": {s: _build.build_log.get(s, "") for s in stems}}
     out_dir = _build.BUILD_DIR / "variants"
     out_dir.mkdir(parents=True, exist_ok=True)
-    jobs = {}
-    for name, d in sources.items():
-        for s in STEMS:
+    jobs = {}  # (version, stem): (source path, include flags)
+
+    def copy(name, stem, text):
+        path = out_dir / f"{stem}_{name}.cu"
+        path.write_text(text)
+        jobs[(name, stem)] = (path, [f"-I{_build.CSRC}"])
+
+    config_split = {}
+    for name, spec in sources.items():
+        d, _, split = spec.partition(":")
+        for s in stems:
             jobs[(name, s)] = (Path(d) / f"{s}.cu", [f"-I{d}"])
+        if split:
+            config_split[name] = int(split)
     for n in stages:
-        name = f"stages_{n}"
-        for s in STEMS:
-            src = (_build.CSRC / f"{s}.cu").read_text()
-            if len(STAGES.findall(src)) != 1:
-                raise RuntimeError(f"{s}.cu: kCodeStages moved")
-            path = out_dir / f"{s}_{name}.cu"
-            path.write_text(STAGES.sub(f"constexpr int kCodeStages = {n};", src))
-            jobs[(name, s)] = (path, [f"-I{_build.CSRC}"])
+        for s in set(stems) & set(BOUNDS):
+            copy(f"stages_{n}", s, variant_source(
+                s, STAGES, f"constexpr int kCodeStages = {n};"))
     for pr in min_blocks:
-        name = f"min_blocks_{pr.replace(',', '_')}"
-        for s, n in zip(STEMS, pr.split(",")):
-            src = (_build.CSRC / f"{s}.cu").read_text()
-            if src.count(BOUNDS[s]) != 1:
-                raise RuntimeError(f"{s}.cu: the kernel's launch bounds moved")
-            path = out_dir / f"{s}_{name}.cu"
-            path.write_text(src.replace(
-                BOUNDS[s], re.sub(r"(\(kThreads|kWarps)(, \d+)?\)", rf"\1, {n})", BOUNDS[s])))
-            jobs[(name, s)] = (path, [f"-I{_build.CSRC}"])
+        for s, n in zip(BOUNDS, pr.split(",")):
+            if s in stems:
+                copy(f"min_blocks_{pr.replace(',', '_')}", s, variant_source(
+                    s, re.compile(re.escape(BOUNDS[s])),
+                    re.sub(r"(\(kThreads|kWarps)(, \d+)?\)", rf"\1, {n})", BOUNDS[s])))
+    for spec in configs:
+        cfg, _, split = spec.partition(":")
+        name = f"w{cfg}" + (f"_s{split}" if split else "")
+        src = variant_source("paged_attention", WARPS,
+                             f"constexpr int code_warps() {{ return {int(cfg)}; }}")
+        copy(name, "paged_attention", src)
+        if split:
+            config_split[name] = int(split)
     procs = {}
     for (name, s), (path, inc) in jobs.items():
         lib = out_dir / f"lib{s}_{name}.so"
@@ -99,7 +178,12 @@ def build(sources, stages, min_blocks):
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name} {s}:\n{log}")
-        out.setdefault(name, {})[s] = _build._bind(s, lib)
+        bound = _build._bind(s, lib)
+        if s == "paged_attention" and "int NP" not in jobs[(name, s)][0].read_text():
+            bound = OldAbiLib(bound)
+        if name in config_split and s == "paged_attention":
+            bound = SplitLib(bound, config_split[name])
+        out.setdefault(name, dict(shipped))[s] = bound
         logs.setdefault(name, {})[s] = log
     for name, by_stem in logs.items():
         print(json.dumps({"version": name, "ptxas": {
@@ -108,9 +192,9 @@ def build(sources, stages, min_blocks):
     return out
 
 
-def cases(dev):
-    """{case: (kernel, args, window, kw, rows, plain)}: plain() is the f32
-    plain version on the same operands."""
+def cases(dev, kernels):
+    """{case: (kernel, args, window, kw, rows, plain)} of the kernels named
+    in `kernels`: plain() is the f32 plain version on the same operands."""
     gen = torch.Generator(device="cpu").manual_seed(12)
     dgen = torch.Generator(device=dev).manual_seed(12)
     out = {}
@@ -118,8 +202,21 @@ def cases(dev):
     def rnd(*shape):
         return torch.randn(*shape, generator=dgen, device=dev).bfloat16()
 
-    # the 3B shape: int8_kernels' and kernels' prefill and ragged rows
+    # the 3B shape: int8_kernels' and kernels' decode, prefill and ragged rows
     Hk, G, D, PS = 8, 3, 128, cs.PAGE_SIZE
+    kv_list = [4096, 0, 1, 17, 1000, 2048, 3333, 513]
+    B, MP = len(kv_list), 4096 // PS
+    bf = (rnd(B * MP + 1, PS, Hk, D), rnd(B * MP + 1, PS, Hk, D))
+    q = rnd(B, Hk, G, D)
+    pt = cs.random_pages(gen, B, MP, B * MP + 1, dev)
+    kvl = torch.tensor(kv_list, dtype=torch.int32, device=dev)
+    for kind in ("bf16", "int8"):
+        pools = bf if kind == "bf16" else tuple(cs.int8_pool(x)[0] for x in bf)
+        p32 = tuple(x.float() for x in bf) if kind == "bf16" else pools
+        out[f"3b_decode_{kind}"] = (
+            "decode", (q, *pools, pt, kvl), 0, {}, B,
+            lambda p32=p32, q=q, pt=pt: cs.decode_paged_attention_ref(
+                q.float(), *p32, pt, kvl))
     S, prior, q_len = 512, 700, 450
     kv = prior + q_len
     MP = -(-kv // PS) + 2
@@ -157,7 +254,7 @@ def cases(dev):
         for kind in ("bf16", "int8"):
             pools = bf if kind == "bf16" else tuple(cs.int8_pool(x)[0] for x in bf)
             p32 = tuple(x.float() for x in bf) if kind == "bf16" else pools
-            for kernel in ("prefill", "ragged"):
+            for kernel in ("decode", "prefill", "ragged"):
                 inp = cs.gemma_case_inputs(kernel, contexts, Hk, G, D, q_mul, pools,
                                            gen, dgen, dev, lib_pools=bf)
                 inp["kp32"], inp["vp32"] = p32
@@ -166,17 +263,25 @@ def cases(dev):
                     inp["rows"],
                     lambda k=kernel, i=inp, w=window, s=scale, c=softcap:
                         cs.gemma_plain_f32(k, i, w, s, c))
-    return out
+    return {k: v for k, v in out.items() if v[0] in kernels}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--source", action="append", default=[],
-                    help="NAME=DIR: a directory holding a copy of ops/csrc")
+                    help="NAME=DIR[:S]: a directory holding a copy of ops/csrc[, its "
+                         "int8 decode split]")
     ap.add_argument("--stages", action="append", type=int, default=[])
     ap.add_argument("--min-blocks", action="append", default=[],
                     help="P,R: least resident blocks of the prefill and ragged kernels")
+    ap.add_argument("--decode-config", action="append", default=[],
+                    help="W[:S]: int8 decode warps a block at every D[, split]")
+    ap.add_argument("--kernels", default="decode,prefill,ragged",
+                    help="the kernels whose cases run, comma-separated")
     a = ap.parse_args()
+    kernels = a.kernels.split(",")
+    if not set(kernels) <= set(STEM):
+        ap.error(f"--kernels: {a.kernels}")
     if not torch.cuda.is_available():
         print("int8_body_variants: no CUDA device available", file=sys.stderr)
         return 1
@@ -184,8 +289,10 @@ def main() -> int:
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True).stdout.strip()
-    versions = build(dict(s.split("=", 1) for s in a.source), a.stages, a.min_blocks)
-    todo = cases(dev)
+    versions = build(dict(s.split("=", 1) for s in a.source), a.stages, a.min_blocks,
+                     a.decode_config,
+                     [STEM[k] for k in kernels])
+    todo = cases(dev, kernels)
     libs_now = _build.load()
     shipped = {s: libs_now[s] for s in STEMS}
     ok = True

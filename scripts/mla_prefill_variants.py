@@ -10,7 +10,8 @@ prefill_mla_attention and decode_mla_attention with each library in turn
 in place of the shipped one. Each prefill is held against the plain
 version (max abs err, padding rows exactly 0) at chip_smoke.py's timed
 shape and its packed [4, 256] batch, and timed there as a CUDA-graph
-replay, with the decode kernel at chip_smoke's decode batch. The sources
+replay, with the decode kernel at chip_smoke's decode batch over the bf16
+latent and over its int8 quantization (int8_kernels' MLA row). The sources
 are timed in turns, in order and then in reverse, and both passes are
 printed. Prints each source's ptxas lines, one JSON line per source and
 pass, then the card's name and power limit. Needs one CUDA device and nvcc.
@@ -91,14 +92,15 @@ def main() -> int:
                                           [cs.MLA_TIMED_SEG], dev),
              "packed": cs.mla_prefill_args(gen, *cs.MLA_PREFILL_CASES["packed"], dev)}
     dec = cs.mla_decode_args(gen, dev)
+    dec8 = (dec[0], cs.int8_pool(dec[1])[0]) + tuple(dec[2:])
     dc = cs.MLA_DC
     scale = cs.attn_score_scale(cs.MLA_CONFIG, cs.MLA_CONFIG.qk_nope_head_dim + cs.MLA_DR)
 
     def prefill(pargs):
         return mla.prefill_mla_attention(*pargs, dc=dc, scale=scale)
 
-    def decode():
-        return mla.decode_mla_attention(*dec, dc=dc, scale=scale)
+    def decode(d=dec):
+        return mla.decode_mla_attention(*d, dc=dc, scale=scale)
 
     errs = {}
     for name, lib in libs.items():
@@ -114,8 +116,11 @@ def main() -> int:
                 errs[name][cname + "_padding_zero"] = all(
                     got[b, n:].float().abs().max().item() == 0.0
                     for b, n in enumerate(ql) if n < got.shape[1])
-            want = mla.decode_mla_attention_ref(*dec, dc=dc, scale=scale)
-            errs[name]["decode"] = (decode().float() - want.float()).abs().max().item()
+            for dname, d in (("decode", dec), ("decode_int8", dec8)):
+                q32 = (d[0].float(),) + tuple(d[1:])
+                want = mla.decode_mla_attention_ref(*(q32 if d is dec8 else d), dc=dc,
+                                                    scale=scale)
+                errs[name][dname] = (decode(d).float() - want.float()).abs().max().item()
     order = list(libs)
     for p, names in enumerate((order, order[::-1])):
         for name in names:
@@ -124,6 +129,7 @@ def main() -> int:
                 for cname, pargs in cases.items():
                     rec[f"{cname}_device_ms"] = cs.graph_ms(lambda: prefill(pargs))
                 rec["decode_device_ms"] = cs.graph_ms(decode)
+                rec["decode_int8_device_ms"] = cs.graph_ms(lambda: decode(dec8))
             print(json.dumps(rec), flush=True)
     print(smi, flush=True)
     return 0

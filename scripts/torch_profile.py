@@ -61,7 +61,8 @@ def family(name: str) -> str:
     if "mla_prefill" in name:
         return "mla_prefill"
     if any(k in name for k in ("decode_kernel", "decode_split_kernel",
-                               "decode_merge_kernel")):
+                               "decode_codes_kernel", "decode_merge_kernel",
+                               "decode_merge_codes_kernel")):
         return "decode_attention"
     if "prefill_kernel" in name or "prefill_codes_kernel" in name:
         return "prefill_attention"

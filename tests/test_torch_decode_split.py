@@ -8,7 +8,9 @@ Inputs are made with numpy from a seed. Everything is f32, tolerance
 atol = rtol = 1e-5: the same f32 math summed in another order. Rows sit
 at kv_len split - 1, split, split + 1, 2 * split and 0 (exact zeros).
 Pages of 64 tokens keep the contexts past 2 * split to a few page-table
-columns, so the interpret-mode kernels stay quick.
+columns, so the interpret-mode kernels stay quick. Over int8 pools the GQA
+kernel splits at its own split (decode_split_tokens), which the plain
+partials and the wrapper's scratch and launch follow.
 """
 
 import jax.numpy as jnp
@@ -19,6 +21,7 @@ import torch
 from dynamo_tpu.ops import mla_attention as jmla
 from dynamo_tpu.ops.paged_attention import decode_paged_attention as jax_decode
 from dynamo_tpu_torch.models.toolkit import NEG_INF
+from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops import mla_attention as mla
 from dynamo_tpu_torch.ops import paged_attention as pa
 
@@ -77,6 +80,97 @@ def test_gqa_decode_partials_of_splits_a_row_cannot_see():
     assert torch.all(l[:, 4] == 0) and torch.all(m[:, 4] == NEG_INF)
 
 
+def _int8_pool(rng, NP, Hk, D):
+    """Random codes with scales log-uniform in [0.004, 0.02], as
+    tests/test_torch_kv_int8.py draws them."""
+    return {"q": rng.integers(-127, 128, (NP, PS, Hk, D)).astype(np.int8),
+            "s": np.exp(rng.uniform(np.log(0.004), np.log(0.02), (NP, PS, Hk)))
+            .astype(np.float32)}
+
+
+@pytest.mark.parametrize("window", [None, 100], ids=["global", "window_100"])
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
+def test_gqa_int8_decode_split_merge_matches_plain_and_jax(D, window):
+    """The int8 kernel's split (decode_split_tokens(D, True)): the plain
+    partials at that split (their default for int8 pools) merged equal the
+    unsplit plain int8 op and the Pallas int8 body, with rows ending one
+    before, at and one past the split and at twice it; a 100-token window
+    puts rows split + 1 and 2 split across a split edge."""
+    split = pa.decode_split_tokens(D, True)
+    kv = np.asarray(_edges(split), np.int32)
+    B, Hk, G = len(kv), 1, 2
+    MP = -(-(2 * split + 1) // PS)
+    rng = np.random.default_rng(60 + D)
+    NP, pt = _pages(rng, B, MP)
+    q = (rng.standard_normal((B, Hk, G, D)) * (16 / D) ** 0.5).astype(np.float32)
+    kp, vp = _int8_pool(rng, NP, Hk, D), _int8_pool(rng, NP, Hk, D)
+    t = [torch.from_numpy(q), {k: torch.from_numpy(v) for k, v in kp.items()},
+         {k: torch.from_numpy(v) for k, v in vp.items()}, torch.from_numpy(pt),
+         torch.from_numpy(kv)]
+    m, l, o = pa.decode_split_partials_ref(*t, window=window)
+    assert m.shape == (pa.decode_split_count(MP, PS, split), B, Hk, G)
+    got = pa.merge_split_partials_ref(m, l, o).numpy()
+    want = pa.decode_paged_attention(*t, window).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    jax_out = np.asarray(jax_decode(
+        jnp.asarray(q), {k: jnp.asarray(v) for k, v in kp.items()},
+        {k: jnp.asarray(v) for k, v in vp.items()}, jnp.asarray(pt), jnp.asarray(kv),
+        None if window is None else jnp.int32(window), interpret=True))
+    np.testing.assert_allclose(got, jax_out, **TOL)
+    assert np.all(got[kv == 0] == 0.0)
+
+
+class _FakeLibrary:
+    """Stands in for the built library: records decode's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def decode_paged_attention(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
+def test_decode_wrapper_takes_its_pools_split(monkeypatch, D, int8):
+    """The wrapper's scratch and the kernel's split and pool size (meta
+    tensors, a recording library in place of the build): an int8 pool
+    launches at decode_split_tokens(D, True) over decode_split_count(MP,
+    PS, that split) splits, a bf16 one at DECODE_SPLIT_TOKENS."""
+    fake = _FakeLibrary()
+    monkeypatch.setattr(_build, "load", lambda: {"paged_attention": fake})
+    monkeypatch.setattr(pa.torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 7})())
+    B, Hk, G, NP, PS16, MP = 3, 2, 4, 37, 16, 40
+    meta = dict(device="meta")
+    if int8:
+        pool = {"q": torch.zeros(NP, PS16, Hk, D, dtype=torch.int8, **meta),
+                "s": torch.zeros(NP, PS16, Hk, dtype=torch.float32, **meta)}
+    else:
+        pool = torch.zeros(NP, PS16, Hk, D, dtype=torch.bfloat16, **meta)
+    q = torch.zeros(B, Hk, G, D, dtype=torch.bfloat16, **meta)
+    pt = torch.zeros(B, MP, dtype=torch.int32, **meta)
+    kvl = torch.zeros(B, dtype=torch.int32, **meta)
+    scratch = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):  # the wrapper's f32 scratch
+        if kw.get("dtype") == torch.float32:
+            scratch.append(tuple(shape[0]) if len(shape) == 1 else shape)
+        return empty(*shape, **kw)
+
+    monkeypatch.setattr(pa.torch, "empty", recording_empty)
+    out = pa.decode_paged_attention(q, pool, pool, pt, kvl)
+    assert out.shape == q.shape
+    split = pa.decode_split_tokens(D, int8)
+    assert split == (pa.DECODE_INT8_SPLIT_TOKENS[D] if int8 else pa.DECODE_SPLIT_TOKENS)
+    (args,) = fake.calls
+    assert args[9:] == (B, Hk, G, D, PS16, MP, NP, split, 0, D ** -0.5, 0.0, 7)
+    assert (args[2] is None) == (not int8) and (args[4] is None) == (not int8)
+    assert scratch == [(pa.decode_split_count(MP, PS16, split), B, Hk, G, D + 4)]
+
+
 @pytest.mark.parametrize("H", [4, 16])
 def test_mla_decode_split_merge_matches_plain_and_jax(H):
     split = mla.MLA_SPLIT_TOKENS
@@ -107,4 +201,6 @@ def test_decode_split_count_follows_the_table_width(max_pages, page_size,
                                                      split, want):
     assert pa.decode_split_count(max_pages, page_size, split) == want
     assert pa.DECODE_SPLIT_TOKENS % 64 == 0  # whole 64-token tiles
+    assert all(s % 64 == 0 for s in pa.DECODE_INT8_SPLIT_TOKENS.values())
+    assert sorted(pa.DECODE_INT8_SPLIT_TOKENS) == list(pa.KERNEL_HEAD_DIMS)
     assert mla.MLA_SPLIT_TOKENS % 32 == 0  # whole 32-token tiles

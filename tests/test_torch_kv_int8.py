@@ -133,7 +133,7 @@ def _jwin(window):
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
-@pytest.mark.parametrize("D", [128, 256])
+@pytest.mark.parametrize("D", [64, 96, 128, 256])
 def test_decode_int8_matches_jax(variant, D):
     softcap, window, scale = VARIANTS[variant]
     rng = np.random.default_rng(1)
