@@ -68,8 +68,17 @@ Phases, each printing one JSON line:
                scale read from the slot before, scales from the next
                head, O's columns left in the kernel's order, Q's dims in
                the kernel's order against K's) must break the row limit;
-               and kv_quantize on the card against the CPU's (codes
-               equal, scales within an ulp);
+               int8 MLA decode (its own kernel, mla_decode_codes_kernel)
+               also row by row, timed beside the bf16 body's replay at
+               the 11,008-token batch and at an engine-shaped one
+               (MLA_ENGINE_KV), and gated (untimed) at kv lengths on its
+               64-token tile and MLA_INT8_SPLIT_TOKENS split edges at page
+               sizes 4-128 (TMA page boxes and a copy a token) over
+               scales spread over three decades, with planted faults (a
+               scale from the slot before, a row's last tile left out,
+               O's dims and Q's dims in the kernel's order) that must
+               break the row limit; and kv_quantize on the card against
+               the CPU's (codes equal, scales within an ulp);
                then (`head_shape_kernels`) the three GQA kernels at
                qwen2.5-7b's heads (Hk 4, G 7, D 128, `kernels`' decode
                contexts) and phi-3's (Hk 32, G 1, D 96, window 2047,
@@ -240,6 +249,8 @@ from dynamo_tpu_torch.ops.flash_prefill import (
     prefill_paged_attention_ref,
 )
 from dynamo_tpu_torch.ops.mla_attention import (
+    INT8_TILE_TOKENS,
+    MLA_INT8_SPLIT_TOKENS,
     MLA_SPLIT_TOKENS,
     decode_mla_attention,
     decode_mla_attention_ref,
@@ -966,14 +977,17 @@ def decode_split_edges_phase(dev):
     del kp, vp, k8, v8
     rec["gqa"]["int8_page_sizes"] = int8_page_sizes(rnd, gate, kv8, dev)
     kv_mla = edges(MLA_SPLIT_TOKENS)
-    kvl = torch.tensor(kv_mla, dtype=torch.int32, device=dev)
+    kv_mla8 = edges(MLA_INT8_SPLIT_TOKENS)
     lat = rnd(B * MP + 1, PS, 1, MLA_DC + MLA_DR)
     lat8 = kv_pool_quantize(lat)
     scale = attn_score_scale(MLA_CONFIG, MLA_CONFIG.qk_nope_head_dim + MLA_DR)
-    rec["mla"] = {"split": MLA_SPLIT_TOKENS, "kv_lens": kv_mla, "max_abs_err": {}}
+    rec["mla"] = {"split": MLA_SPLIT_TOKENS, "kv_lens": kv_mla,
+                  "split_int8": MLA_INT8_SPLIT_TOKENS, "kv_lens_int8": kv_mla8,
+                  "max_abs_err": {}}
     for H in (16, 32, 128):
         q = rnd(B, H, MLA_DC + MLA_DR)
-        for kind, pool, qr in (("", lat, q), ("_int8", lat8, q.float())):
+        for kind, pool, qr, kv in (("", lat, q, kv_mla), ("_int8", lat8, q.float(), kv_mla8)):
+            kvl = torch.tensor(kv, dtype=torch.int32, device=dev)
             out = decode_mla_attention(q, pool, pt, kvl, dc=MLA_DC, scale=scale)
             torch.cuda.synchronize()
             ref = decode_mla_attention_ref(qr, pool, pt, kvl, dc=MLA_DC, scale=scale)
@@ -1112,16 +1126,16 @@ def mla_rnd(gen, dev):
     return lambda *shape: torch.randn(*shape, generator=gen).bfloat16().to(dev)
 
 
-def mla_decode_args(gen, dev):
-    """(q, lat, page_table, kv_lens): MLA_DECODE_KV at DeepSeek-V3's
-    shapes, a 4096-token table a row."""
+def mla_decode_args(gen, dev, kv=MLA_DECODE_KV, PS=MLA_PS):
+    """(q, lat, page_table, kv_lens): rows of kv tokens (MLA_DECODE_KV) at
+    DeepSeek-V3's shapes, a 4096-token table a row."""
     rnd = mla_rnd(gen, dev)
-    B, MP = len(MLA_DECODE_KV), 4096 // MLA_PS
+    B, MP = len(kv), -(-4096 // PS)
     NP = B * MP + 1
-    lat = rnd(NP, MLA_PS, 1, MLA_DC + MLA_DR)
+    lat = rnd(NP, PS, 1, MLA_DC + MLA_DR)
     q = rnd(B, MLA_H, MLA_DC + MLA_DR)
     pt = random_pages(gen, B, MP, NP, dev)
-    return q, lat, pt, torch.tensor(MLA_DECODE_KV, dtype=torch.int32, device=dev)
+    return q, lat, pt, torch.tensor(kv, dtype=torch.int32, device=dev)
 
 
 def mla_prefill_args(gen, PS, H, S, segs, dev):
@@ -2654,6 +2668,101 @@ def int8_record(call, plain, lib, n_bytes, n_flops, err):
             "library_ms": cuda_ms(lib), "library_device_ms": graph_ms(lib)}
 
 
+# the engine-shaped int8 MLA decode batch: workload()'s prompt lengths and
+# 16 output tokens
+MLA_ENGINE_KV = [n + 16 for n in (17, 64, 300, 700, 1100, 1500, 406, 656)]
+# kv lengths of the int8 MLA gate: the edges of its 64-token tiles and of its
+# first two MLA_INT8_SPLIT_TOKENS splits, 0, 1 and 4096
+MLA_I8_EDGES = sorted({0, 1, 4096}
+                      | {k * INT8_TILE_TOKENS + d for k in (1, 2, 3) for d in (-1, 0, 1)}
+                      | {k * MLA_INT8_SPLIT_TOKENS + d for k in (1, 2) for d in (-1, 0, 1)})
+# page sizes of the gate: 16 (the engine's), TMA boxes of 8, 32 and 64 rows
+# (64-row boxes inside 128-token pages) and a copy a token at 4 and 48
+MLA_I8_PAGE_SIZES = (16, 4, 8, 32, 48, 64, 128)
+
+
+def mla_int8_bytes(kv_lens):
+    """Bytes int8 MLA decode moves at least: q and out once, each context
+    token's codes and scale, its table entries and kv_lens."""
+    Dl = MLA_DC + MLA_DR
+    B = len(kv_lens)
+    return (B * MLA_H * (Dl + MLA_DC) * 2 + sum(kv_lens) * (Dl + 4)
+            + sum(-(-k // MLA_PS) for k in kv_lens) * 4 + B * 4)
+
+
+def mla_decode_flops(kv_lens):
+    return 2 * sum(kv_lens) * MLA_H * (2 * MLA_DC + MLA_DR)
+
+
+def mla_int8_perms():
+    """The int8 MLA kernel's orders: q_perm[j] the dim of Q it stages at j
+    (code_perms' order in each 64-dim chunk), o_perm[j] the dim that O^T's
+    row j holds (m-block 64 mb, warp rows 16 w + g + 8 h: dim 64 mb + 16 w
+    + 2 g + h)."""
+    q_perm, _ = code_perms(MLA_DC + MLA_DR)
+    o_perm = [64 * mb + 16 * w + 2 * g + h for mb in range(MLA_DC // 64)
+              for w in range(4) for h in range(2) for g in range(8)]
+    return q_perm, o_perm
+
+
+def mla_int8_gate(gen, dev, scale):
+    """int8 MLA decode at H 128 with rows at MLA_I8_EDGES, over pools whose
+    per-token scales spread over three decades, at MLA_I8_PAGE_SIZES
+    (TMA boxes and copies a token), untimed: max abs err within KERNEL_TOL,
+    each row's error over its RMS within ROW_REL_TOL, the kv_len-0 row
+    exactly 0. At page size 16, faults planted in the plain f32 version must
+    each break ROW_REL_TOL: each token's scale read from the slot before
+    it, a row's last 64-token tile left out, O's dims left in the kernel's
+    order, Q's dims in the kernel's order against the codes' own."""
+    dgen = torch.Generator(device=dev).manual_seed(15)
+    kv = MLA_I8_EDGES
+    B = len(kv)
+    kvl = torch.tensor(kv, dtype=torch.int32, device=dev)
+    q = torch.randn(B, MLA_H, MLA_DC + MLA_DR, generator=dgen, device=dev).bfloat16()
+    out = {"kv_lens": kv, "page_sizes": {}}
+    for ps in MLA_I8_PAGE_SIZES:
+        MP = -(-max(kv) // ps)
+        pt = random_pages(gen, B, MP, B * MP + 1, dev)
+        lq, _ = spread_int8_pool(
+            torch.randn(B * MP + 1, ps, 1, MLA_DC + MLA_DR, generator=dgen,
+                        device=dev).bfloat16(), dgen)
+        got = decode_mla_attention(q, lq, pt, kvl, dc=MLA_DC, scale=scale)
+        torch.cuda.synchronize()
+
+        def plain(q=q.float(), pool=lq, kvl=kvl):
+            return decode_mla_attention_ref(q, pool, pt, kvl, dc=MLA_DC, scale=scale)
+
+        want = plain()
+        what = f"int8 MLA decode gate PS {ps}"
+        err = (got.float() - want).abs().max().item()
+        rel = row_rel_err(got, want)
+        check(torch.isfinite(got.float()).all().item(), f"{what}: not finite")
+        check(got[kv.index(0)].float().abs().max().item() == 0.0,
+              f"{what}: the kv_len-0 row is not 0")
+        check(err <= KERNEL_TOL, f"{what}: max abs err {err} > {KERNEL_TOL}")
+        check(rel <= ROW_REL_TOL, f"{what}: row error {rel} > {ROW_REL_TOL}")
+        rec = {"max_abs_err": err, "row_rel_err": rel}
+        if ps == MLA_PS:
+            q_perm, o_perm = mla_int8_perms()
+            tile = INT8_TILE_TOKENS
+            short = torch.tensor([k - 1 - (k - 1) % tile if k > tile else k for k in kv],
+                                 dtype=torch.int32, device=dev)
+            bad = {"scale_token": plain(pool={"q": lq["q"], "s": lq["s"].roll(1, dims=1)}),
+                   "tile_left_out": plain(kvl=short),
+                   "cols": want[..., o_perm],
+                   "dims": plain(q=q.float()[..., q_perm])}
+            rec["planted_faults"] = {}
+            for name, x in bad.items():
+                f = row_rel_err(x, want)
+                rec["planted_faults"][name] = f
+                check(f > ROW_REL_TOL, f"{what}: planted fault {name} reads {f}, within "
+                                       f"ROW_REL_TOL {ROW_REL_TOL}")
+        out["page_sizes"][f"PS{ps}"] = rec
+        del lq, got, want
+    torch.cuda.empty_cache()
+    return out
+
+
 def kv_quantize_check(dev):
     """kv_quantize on the card against the CPU's on the same bf16 rows:
     codes equal, scales within 1 ulp."""
@@ -2832,7 +2941,8 @@ def int8_kernels_phase(dev, bf16_ms, gemma_bf16):
     del kq, vq, kd, vd
     torch.cuda.empty_cache()
 
-    # MLA decode: mla_kernels' decode rows at DeepSeek-V3's shapes
+    # MLA decode: mla_kernels' decode rows at DeepSeek-V3's shapes, beside
+    # the bf16 body's replay; the engine-shaped batch; then the gate
     dc, dr = MLA_DC, MLA_DR
     Dl = dc + dr
     mscale = attn_score_scale(MLA_CONFIG, MLA_CONFIG.qk_nope_head_dim + dr)
@@ -2843,23 +2953,44 @@ def int8_kernels_phase(dev, bf16_ms, gemma_bf16):
     torch.cuda.synchronize()
     want = decode_mla_attention_ref(q.float(), lq, pt, kvl, dc=dc, scale=mscale)
     err = (got.float() - want.float()).abs().max().item()
+    rel = row_rel_err(got, want)
     check(torch.isfinite(got.float()).all().item(), "int8 MLA decode output not finite")
     check(got[1].float().abs().max().item() == 0.0, "int8 MLA decode kv_len=0 row is not 0")
     check(err <= KERNEL_TOL, f"int8 MLA decode max abs err {err} > {KERNEL_TOL}")
+    check(rel <= ROW_REL_TOL, f"int8 MLA decode row error {rel} > {ROW_REL_TOL}")
     dense = ld[pt.long()].reshape(B, MP * MLA_PS, Dl)
     mask = (torch.arange(MP * MLA_PS, device=dev)[None, :] < kvl[:, None])[:, None, None, :]
     lib_fn, lib_name = mla_library(q[:, :, None], dense, mask, dc, mscale)
-    n_tok = sum(MLA_DECODE_KV)
     out["decode_mla_attention_int8"] = dict(int8_record(
         lambda: decode_mla_attention(q, lq, pt, kvl, dc=dc, scale=mscale),
         lambda: decode_mla_attention_ref(q.float(), lq, pt, kvl, dc=dc, scale=mscale),
-        lib_fn,
-        q.numel() * 2 + B * MLA_H * dc * 2 + n_tok * (Dl + 4)
-        + sum(-(-k // MLA_PS) for k in MLA_DECODE_KV) * 4 + B * 4,
-        2 * n_tok * MLA_H * (Dl + dc), err), library=lib_name,
+        lib_fn, mla_int8_bytes(MLA_DECODE_KV), mla_decode_flops(MLA_DECODE_KV), err),
+        row_rel_err=rel, library=lib_name,
+        bf16_device_ms=bf16_ms.get("decode_mla_attention"),
         shape={"B": B, "H": MLA_H, "dc": dc, "dr": dr, "PS": MLA_PS,
-               "kv_lens": MLA_DECODE_KV})
-    del q, lat, lq, ld, dense
+               "kv_lens": MLA_DECODE_KV, "split": MLA_INT8_SPLIT_TOKENS})
+    del q, lat, lq, ld, dense, want
+    # the engine-shaped batch: workload()'s prompts and 16 output tokens,
+    # int8 beside the bf16 body on the latent it was quantized from
+    q, lat, pt, kvl = mla_decode_args(gen, dev, MLA_ENGINE_KV)
+    lq, _ = int8_pool(lat)
+    got = decode_mla_attention(q, lq, pt, kvl, dc=dc, scale=mscale)
+    torch.cuda.synchronize()
+    want = decode_mla_attention_ref(q.float(), lq, pt, kvl, dc=dc, scale=mscale)
+    err = (got.float() - want.float()).abs().max().item()
+    rel = row_rel_err(got, want)
+    check(err <= KERNEL_TOL and rel <= ROW_REL_TOL,
+          f"int8 MLA decode, engine shape: max abs err {err}, row error {rel}")
+    b_ms, b_by = bound(mla_int8_bytes(MLA_ENGINE_KV), mla_decode_flops(MLA_ENGINE_KV))
+    out["decode_mla_attention_int8"]["engine_shape"] = {
+        "kv_lens": MLA_ENGINE_KV, "max_abs_err": err, "row_rel_err": rel,
+        "device_ms": graph_ms(lambda: decode_mla_attention(q, lq, pt, kvl, dc=dc,
+                                                           scale=mscale)),
+        "bf16_device_ms": graph_ms(lambda: decode_mla_attention(q, lat, pt, kvl, dc=dc,
+                                                                scale=mscale)),
+        "bound_ms": b_ms, "bound_by": b_by}
+    del q, lat, lq, want
+    out["decode_mla_attention_int8"]["gate"] = mla_int8_gate(gen, dev, mscale)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     mem["end"] = torch.cuda.memory_allocated()
@@ -3556,14 +3687,23 @@ def main() -> int:
     # the int8 decode kernel's instantiations (D x soft cap)
     int8_decode = {k: v for k, v in gqa_ptxas.get("paged_attention", {}).items()
                    if k.startswith("decode_codes_kernel")}
+    # the MLA kernels (int8 decode: mla_decode_codes_kernel), and ptxas's
+    # notes on their wgmma products
+    mla_log = _build.build_log.get("mla_attention", "")
+    mla_ptxas = ptxas_entries(mla_log)
+    wgmma_notes = [ln.strip() for ln in mla_log.splitlines() if "wgmma" in ln]
     emit({"phase": "build", "seconds": time.monotonic() - t0, "ptxas": ptxas,
-          "gqa_kernels": gqa_ptxas, "int8_decode_kernels": int8_decode})
+          "gqa_kernels": gqa_ptxas, "int8_decode_kernels": int8_decode,
+          "mla_kernels": mla_ptxas, "mla_wgmma_notes": wgmma_notes})
 
     try:
         # the MLA kernels sit at the register cap of one block an SM
         spills = [ln for ln in ptxas.get("mla_attention", [])
                   if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         check(not spills, f"MLA kernels spill: {spills}")
+        # int8 MLA decode is a kernel of its own
+        check(any("mla_decode_codes_kernel" in k for k in mla_ptxas) or not mla_log,
+              f"no int8 MLA decode kernel among {sorted(mla_ptxas)}")
         # nor may the grouped GEMM's entries (a spilled accumulator would
         # leave the wgmma registers for local memory)
         spills = [ln for ln in ptxas.get("moe_grouped_gemm", [])
@@ -3594,7 +3734,8 @@ def main() -> int:
         decode_split_edges_phase(dev)
         gem = gemma_kernels_phase(dev)
         kern.update(int8_kernels_phase(
-            dev, {name: kern[name]["device_ms"] for name in GQA_KERNELS},
+            dev, {name: kern[name]["device_ms"]
+                  for name in GQA_KERNELS + ("decode_mla_attention",)},
             gem["D256_G2"]["cases"]["gemma2"]))
         del gem
         head = head_shape_kernels_phase(dev)

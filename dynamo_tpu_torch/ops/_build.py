@@ -53,8 +53,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
     },
     "mla_attention": {
         # q, lat_pool, lat_scales (NULL for bf16), page_table, kv_lens,
-        # out, part, B, H, dc, dr, PS, MP, split, scale, stream
-        "decode_mla_attention": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),
+        # out, part, B, H, dc, dr, PS, MP, NP, split, scale, stream
+        "decode_mla_attention": ([_P] * 7 + [_I] * 8 + [_F, _P], _I),
         # q, lat_pool, page_table, q_start, q_len, kv_lens, out,
         # B, S, H, dc, dr, PS, MP, scale, stream
         "prefill_mla_attention": ([_P] * 7 + [_I] * 7 + [_F, _P], _I),

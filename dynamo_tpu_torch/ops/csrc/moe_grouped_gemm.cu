@@ -94,8 +94,6 @@
 // plain version (ops/moe_dispatch.py moe_gate_up_ref) does in bf16
 // PyTorch. Down rounds the f32 sum to bf16 once.
 
-#include <cuda.h>  // CUtensorMap and its enums; the driver is reached at run time
-
 #include <map>
 #include <mutex>
 #include <tuple>
@@ -106,11 +104,22 @@ namespace {
 
 using bf16 = __nv_bfloat16;
 using paged_flash::cp_async16;
+using paged_flash::cp_async_arrive;
+using paged_flash::EncodeTiled;
+using paged_flash::encoder;
+using paged_flash::fence_acc;
 using paged_flash::fence_proxy_async;
+using paged_flash::mbar_arrive;
 using paged_flash::mbar_expect_tx;
 using paged_flash::mbar_init;
 using paged_flash::mbar_wait;
 using paged_flash::smem_u32;
+using paged_flash::sw128_desc;
+using paged_flash::tma_load_2d;
+using paged_flash::tma_load_3d;
+using paged_flash::wgmma_commit;
+using paged_flash::wgmma_fence;
+using paged_flash::wgmma_wait;
 
 constexpr int kBM = 128;      // rows a tile (ops/moe_dispatch.py MOE_BM)
 constexpr int kWGRows = 64;   // rows a consumer warpgroup
@@ -158,64 +167,6 @@ __device__ __forceinline__ float swiglu(float g, float u) {
   const float gb = round_bf16(g);
   const float s = round_bf16(gb / (1.f + expf(-gb)));
   return s * round_bf16(u);
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
-      : "memory");
-}
-
-// one arrival on `bar` when this thread's cp.async copies so far complete
-__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
-  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar)
-               : "memory");
-}
-
-// box {c0, c1, c2} of a 3-D map -> shared, counted on `bar`
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-         "r"(c2)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
-// address, leading and stride byte offsets (16-byte units), layout 1
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
-                                               uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int n>  // all but the newest n groups of this warpgroup complete
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(n) : "memory");
-}
-
-// keeps the compiler from moving accumulator reads and writes across the
-// asynchronous products' issue and wait
-template <int n>
-__device__ __forceinline__ void fence_acc(float (&d)[n]) {
-#pragma unroll
-  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 #define MOE_D8(i)                                                              \
@@ -469,30 +420,6 @@ moe_gemm_kernel(const __grid_constant__ CUtensorMap w0_map,
 }
 
 // -- host side -------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t rc =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return rc == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // a bf16 tensor of `rank` dims (innermost first), 128-byte swizzle
 bool encode(CUtensorMap* map, const void* ptr, cuuint32_t rank, const cuuint64_t* dims,

@@ -108,8 +108,6 @@
 //     with the ragged kernel). No atomics: results are the same bit for
 //     bit from run to run.
 
-#include <cuda.h>  // CUtensorMap and its enums; cuTensorMapEncodeTiled is looked up at run time
-
 #include <map>
 #include <mutex>
 #include <tuple>
@@ -365,26 +363,6 @@ struct DecCodeShape {
   // the combine area (per warp 8 rows of O, m, l) reuses the slots
   static_assert(kWarps * 8 * (D + 2) * 4 <= kScaleOff, "combine area larger than the slots");
 };
-
-// a page's rows of one head by one TMA box (decode_codes_kernel's page
-// boxes): box {c0, c1, c2} of a 3-D map -> shared, counted on `bar`
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
-                                            uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-         "r"(c2)
-      : "memory");
-}
-
-// an 8 x 8 b16 matrix transposed across the warp: a thread holding (row
-// g, columns 2 t4, 2 t4 + 1) gets (rows 2 t4, 2 t4 + 1, column g)
-__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
-  uint32_t y;
-  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
-  return y;
-}
 
 // One warp's rows in the transposed walk (g = lane / 4, t4 = lane % 4):
 // O^T in D / 16 blocks of 16 dims x 8 rows, register e of block j holding
@@ -768,12 +746,8 @@ decode_merge_kernel(const float* __restrict__ part, const int* __restrict__ kv_l
 
 // The int8 launches' merge, grid (Hk, B), kCodeMergeThreads threads (one
 // (row, 4 dims) item each): a programmatic dependent of the split kernel,
-// so it is scheduled while that grid runs and waits for its memory here.
-// merge_splits' result in one pass: a row's splits are read 8 at a time,
-// all of a chunk's loads in flight together (merge_splits reads each split
-// twice, in four dependent rounds for 9 to 16 splits), and each chunk is
-// folded into the running (M, L, O) in split order. No atomics: the same
-// bits from run to run.
+// so it is scheduled while that grid runs and waits for its memory here;
+// merge_splits' result in one pass (paged_flash.cuh merge_splits_chunked).
 template <int D>
 __global__ void __launch_bounds__(kCodeMergeThreads)
 decode_merge_codes_kernel(const float* __restrict__ part, const int* __restrict__ kv_lens,
@@ -784,44 +758,10 @@ decode_merge_codes_kernel(const float* __restrict__ part, const int* __restrict_
   const int b = blockIdx.y;
   const int kvl = min(kv_lens[b], MP * PS);
   if (kvl <= split) return;  // written by its one block
-  const int n = (kvl + split - 1) / split;
   const size_t row0 = ((size_t)(b * Hk + h)) * G;
-  const size_t stride = (size_t)B * Hk * G * (D + 4);
-  for (int i = threadIdx.x; i < G * (D / 4); i += kCodeMergeThreads) {
-    const int r = i / (D / 4);
-    const int d = (i % (D / 4)) * 4;
-    const float* p = part + (row0 + r) * (D + 4);
-    float M = kNegInf, L = 0.f;
-    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int z0 = 0; z0 < n; z0 += 8) {
-      float2 ml[8];  // m, l
-      float4 o[8];
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const float* pz = p + (z0 + k) * stride;
-        const bool live = z0 + k < n;
-        ml[k] = live ? *reinterpret_cast<const float2*>(pz + D) : make_float2(kNegInf, 0.f);
-        o[k] = live ? *reinterpret_cast<const float4*>(pz + d) : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-      float mc = M;
-#pragma unroll
-      for (int k = 0; k < 8; ++k) mc = fmaxf(mc, ml[k].x);
-      const float a = exp2_approx(M - mc);
-      L *= a;
-      acc = make_float4(acc.x * a, acc.y * a, acc.z * a, acc.w * a);
-#pragma unroll
-      for (int k = 0; k < 8; ++k) {
-        const float w = exp2_approx(ml[k].x - mc);
-        L += w * ml[k].y;
-        acc = make_float4(acc.x + w * o[k].x, acc.y + w * o[k].y, acc.z + w * o[k].z,
-                          acc.w + w * o[k].w);
-      }
-      M = mc;
-    }
-    const float inv = 1.f / fmaxf(L, 1e-30f);
-    *reinterpret_cast<uint2*>(out + (row0 + r) * D + d) =
-        make_uint2(pack_bf16(acc.x * inv, acc.y * inv), pack_bf16(acc.z * inv, acc.w * inv));
-  }
+  merge_splits_chunked<D, kCodeMergeThreads>(
+      part + row0 * (D + 4), (size_t)B * Hk * G * (D + 4), (kvl + split - 1) / split, G,
+      [=](int r) { return out + (row0 + r) * D; });
 }
 
 template <int D, bool kCap>
@@ -873,30 +813,6 @@ int launch_codes(int B, int Hk, int NS, cudaStream_t st, const __nv_bfloat16* q,
 }
 
 // -- int8 page boxes: tensor maps on the host -------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*,
-                                 const cuuint32_t*, const cuuint32_t*,
-                                 CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t rc =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    return rc == cudaSuccess && q == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
 
 // rows a page box of the int8 kernel at (D, PS): min(PS, 64) when that is a
 // whole number of 8-row (128-byte aligned) slot runs a tile holds whole, at

@@ -122,11 +122,13 @@
 //     (tile_update_codes_t there): a decode row group has G <= 8 query
 //     rows, so the tile's tokens take the products' 16-row side and the
 //     rows the 8-column side.
-//   - MLA decode (mla_attention.cu) converts each slot in place to bf16
-//     (convert_rows), since its 64 query rows share every latent tile.
+//   - MLA decode (mla_attention.cu `mla_decode_codes_kernel`): the same
+//     conversions into the A operand of wgmma, in 128-byte-swizzled code
+//     slots; a warpgroup builds a tile's fragments once for its 32 heads.
 
 #pragma once
 
+#include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled is looked up at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -244,6 +246,74 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int byt
       :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
 }
 
+// one arrival on mbarrier `bar`
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// one arrival on `bar` when this thread's cp.async copies so far complete
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" :: "r"(bar)
+               : "memory");
+}
+
+// box {c0, c1} of a 2-D tensor map -> shared, counted on `bar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+// box {c0, c1, c2} of a 3-D tensor map -> shared, counted on `bar`
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
+         "r"(c2)
+      : "memory");
+}
+
+// an 8 x 8 b16 matrix transposed across the warp: a thread holding (row
+// g, columns 2 t4, 2 t4 + 1) gets (rows 2 t4, 2 t4 + 1, column g)
+__device__ __forceinline__ uint32_t movmatrix_trans(uint32_t x) {
+  uint32_t y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// wgmma shared-memory descriptor of a 128-byte-swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int n>  // all but the newest n groups of this warpgroup complete
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(n) : "memory");
+}
+
+// keeps the compiler from moving accumulator reads and writes across the
+// asynchronous products' issue and wait
+template <int n>
+__device__ __forceinline__ void fence_acc(float (&d)[n]) {
+#pragma unroll
+  for (int i = 0; i < n; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
+}
+
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(addr) : "memory");
@@ -309,20 +379,6 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// 4 int8 codes (code j in byte j of w) -> 4 bf16, code 0 in the low half
-// of .x; exact. Each code, biased by 128, is the low mantissa byte of 2^23
-// in f32 (2^23 + code + 128); subtracting 2^23 + 128 leaves the code, a
-// small integer whose f32 upper 16 bits are its bf16.
-__device__ __forceinline__ uint2 i8x4_to_bf16x4(uint32_t w) {
-  const uint32_t x = w ^ 0x80808080u;
-  const float bias = 8388736.f;  // 2^23 + 128
-  const uint32_t f0 = __float_as_uint(__uint_as_float(__byte_perm(x, 0x4b000000u, 0x7540)) - bias);
-  const uint32_t f1 = __float_as_uint(__uint_as_float(__byte_perm(x, 0x4b000000u, 0x7541)) - bias);
-  const uint32_t f2 = __float_as_uint(__uint_as_float(__byte_perm(x, 0x4b000000u, 0x7542)) - bias);
-  const uint32_t f3 = __float_as_uint(__uint_as_float(__byte_perm(x, 0x4b000000u, 0x7543)) - bias);
-  return make_uint2(__byte_perm(f0, f1, 0x7632), __byte_perm(f2, f3, 0x7632));
-}
-
 // The int8 codes in bytes 0 and 2 of w -> a bf16 pair, byte 0 in the low
 // half; exact. With x7 = code & 0x7f and h its sign bit, bf16 0x4300 | x7
 // is 128 + x7 and 0x4300 | h << 7 is 128 (h 0) or 256 (h 1): their
@@ -358,39 +414,6 @@ __device__ __forceinline__ int2 code_slice(int d0) {
   const int base = d0 < kG64 ? d0 / 64 * 64 : kG64;
   const int off = d0 - base;
   return make_int2(base / 16 + (off % (width / 4)) / 4, off / (width / 4));
-}
-
-// MLA decode's conversion (mla_attention.cu, its last user): one warp
-// converts rows [0, kRowsW) from row0 (rows kRowBytes apart)
-// in place: each row's kD int8 codes, held in its last kD bytes (from
-// byte kRowBytes - kD), become kD bf16 at its start. A row's codes overlap
-// only its own bf16, and the warp reads a row whole (__syncwarp) before
-// it writes it. Rows whose codes were never copied convert whatever bytes
-// they hold: finite values, which their P = 0 (or mask) discards.
-template <int kD, int kRowBytes, int kRowsW>
-__device__ __forceinline__ void convert_rows(unsigned char* row0) {
-  constexpr int kChunks = kD / 16;  // 16 codes a chunk
-  constexpr int kPasses = (kRowsW * kChunks + 31) / 32;
-  const int lane = threadIdx.x & 31;
-#pragma unroll 2
-  for (int p = 0; p < kPasses; ++p) {
-    // pass p: chunks [32 p, 32 p + 32) of the warp's rows, row by row, so
-    // that the rows a pass reads are the rows it writes
-    const int i = p * 32 + lane;
-    const bool live = i < kRowsW * kChunks;
-    unsigned char* row = row0 + (size_t)(i / kChunks) * kRowBytes;
-    const int ch = i % kChunks;
-    uint4 c = make_uint4(0u, 0u, 0u, 0u);
-    if (live) c = *reinterpret_cast<const uint4*>(row + kRowBytes - kD + ch * 16);
-    __syncwarp();
-    if (live) {
-      const uint2 a = i8x4_to_bf16x4(c.x), b = i8x4_to_bf16x4(c.y);
-      const uint2 d = i8x4_to_bf16x4(c.z), e = i8x4_to_bf16x4(c.w);
-      *reinterpret_cast<uint4*>(row + ch * 32) = make_uint4(a.x, a.y, b.x, b.y);
-      *reinterpret_cast<uint4*>(row + ch * 32 + 16) = make_uint4(d.x, d.y, e.x, e.y);
-    }
-    __syncwarp();
-  }
 }
 
 __device__ __forceinline__ int warp_max(int x) {
@@ -1217,6 +1240,82 @@ __device__ __forceinline__ void merge_splits(const float* __restrict__ base,
     pk.y = pack_bf16(acc.z * inv, acc.w * inv);
     *reinterpret_cast<uint2*>(out_row(r) + d) = pk;
   }
+}
+
+
+// The one-pass form of merge_splits (the int8 decode launches' merges,
+// paged_attention.cu and mla_attention.cu): the same result for `rows` rows
+// in the same layout, a row's splits read 8 at a time, all of a chunk's
+// loads in flight together (merge_splits reads each split twice, in four
+// dependent rounds for 9 to 16 splits), each chunk folded into the running
+// (M, L, O) in split order. No atomics: the same bits from run to run.
+template <int D, int kThreads, class ORow>
+__device__ __forceinline__ void merge_splits_chunked(const float* __restrict__ base,
+                                                     size_t split_stride, int n_split,
+                                                     int rows, ORow out_row) {
+  for (int i = threadIdx.x; i < rows * (D / 4); i += kThreads) {
+    const int r = i / (D / 4);
+    const int d = (i % (D / 4)) * 4;
+    const float* p = base + (size_t)r * (D + 4);
+    float M = kNegInf, L = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int z0 = 0; z0 < n_split; z0 += 8) {
+      float2 ml[8];  // m, l
+      float4 o[8];
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float* pz = p + (z0 + k) * split_stride;
+        const bool live = z0 + k < n_split;
+        ml[k] = live ? *reinterpret_cast<const float2*>(pz + D) : make_float2(kNegInf, 0.f);
+        o[k] = live ? *reinterpret_cast<const float4*>(pz + d) : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+      float mc = M;
+#pragma unroll
+      for (int k = 0; k < 8; ++k) mc = fmaxf(mc, ml[k].x);
+      const float a = exp2_approx(M - mc);
+      L *= a;
+      acc = make_float4(acc.x * a, acc.y * a, acc.z * a, acc.w * a);
+#pragma unroll
+      for (int k = 0; k < 8; ++k) {
+        const float w = exp2_approx(ml[k].x - mc);
+        L += w * ml[k].y;
+        acc = make_float4(acc.x + w * o[k].x, acc.y + w * o[k].y, acc.z + w * o[k].z,
+                          acc.w + w * o[k].w);
+      }
+      M = mc;
+    }
+    const float inv = 1.f / fmaxf(L, 1e-30f);
+    *reinterpret_cast<uint2*>(out_row(r) + d) =
+        make_uint2(pack_bf16(acc.x * inv, acc.y * inv), pack_bf16(acc.z * inv, acc.w * inv));
+  }
+}
+
+// -- host side ---------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// (no -lcuda); nullptr where the driver has none
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*,
+                                 const cuuint32_t*, const cuuint32_t*,
+                                 CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t rc = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t rc =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    return rc == cudaSuccess && q == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
 }
 
 }  // namespace paged_flash

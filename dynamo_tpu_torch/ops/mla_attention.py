@@ -17,10 +17,11 @@ there is no int8 prefill kernel (models/mla.py gathers instead). The
 `*_sharded` wrappers are not ported.
 
 The decode kernel splits each row's context into MLA_SPLIT_TOKENS-long
-pieces and merges them by log-sum-exp; `decode_mla_split_partials_ref`
-is that first pass in plain PyTorch (ops/paged_attention.py
-`split_partials_ref`), merged by `merge_split_partials_ref`. The prefill
-kernel's blocks and tiles, in the same way, are `prefill_mla_tiles_ref`.
+pieces (over an int8 pool, its own kernel's MLA_INT8_SPLIT_TOKENS) and
+merges them by log-sum-exp; `decode_mla_split_partials_ref` is that first
+pass in plain PyTorch (ops/paged_attention.py `split_partials_ref`),
+merged by `merge_split_partials_ref`. The prefill kernel's blocks and
+tiles, in the same way, are `prefill_mla_tiles_ref`.
 """
 
 from __future__ import annotations
@@ -48,10 +49,20 @@ KERNEL_DIMS = (512, 64)
 HEADS_PER_BLOCK = 16
 # query tokens a prefill block owns, each with its HEADS_PER_BLOCK heads
 PREFILL_BLOCK_TOKENS = 4
-# context tokens a tile of both kernels
+# context tokens a tile of both bf16 kernels
 TILE_TOKENS = 32
 # context tokens one decode block walks: a multiple of TILE_TOKENS
 MLA_SPLIT_TOKENS = 192
+# context tokens a tile of the int8 decode kernel (mla_decode_codes_kernel)
+INT8_TILE_TOKENS = 64
+# ... and its split: a multiple of INT8_TILE_TOKENS; 192 is the kernel's
+# ring (3 tiles), so a block's whole split is in flight at once
+MLA_INT8_SPLIT_TOKENS = 192
+
+
+def mla_split_tokens(int8: bool) -> int:
+    """The decode kernel's context split over a bf16 or an int8 pool."""
+    return MLA_INT8_SPLIT_TOKENS if int8 else MLA_SPLIT_TOKENS
 
 
 def decode_mla_attention_ref(q, lat_pool_l, page_table, kv_lens, *, dc: int,
@@ -162,7 +173,7 @@ def prefill_mla_tiles_ref(q, lat_pool_l, page_table, q_start, q_len,
 def _check(q, lat_pool_l, ints, dc: int) -> int:
     """Operands the kernels take (`ints`: the page table, then the [B]
     int32 arrays; the pool bf16, or the int8 dict {"q", "s"} with 16-byte
-    aligned codes); returns d_rh."""
+    aligned codes and scales); returns d_rh."""
     Dl = q.shape[-1]
     dr = Dl - dc
     lat = pool_values(lat_pool_l)
@@ -186,9 +197,9 @@ def _check(q, lat_pool_l, ints, dc: int) -> int:
         if not sc.is_contiguous() or sc.device != q.device:
             raise ValueError("the int8 latent pool's 's' must be contiguous "
                              "and on q's device")
-        if lat.data_ptr() % 16 or sc.data_ptr() % 4:
-            raise ValueError("int8 latent pool 'q' must be 16-byte aligned "
-                             "and its 's' 4-byte aligned")
+        if lat.data_ptr() % 16 or sc.data_ptr() % 16:
+            raise ValueError("int8 latent pool 'q' and 's' must be 16-byte "
+                             "aligned (the kernel copies pages of scales)")
     elif lat.dtype != torch.bfloat16:
         raise TypeError(f"the MLA kernels take a bf16 latent pool, not "
                         f"{lat.dtype}")
@@ -228,14 +239,15 @@ def decode_mla_attention(
     scales = lat_pool_l["s"] if is_quantized(lat_pool_l) else None
     # every row is written by its one block or by the merge
     out = q.new_empty((B, H, dc))
-    PS, MP = lat.shape[1], page_table.shape[1]
-    part = torch.empty((decode_split_count(MP, PS, MLA_SPLIT_TOKENS), B, H,
-                        dc + 4), dtype=torch.float32, device=q.device)
+    NP, PS, MP = lat.shape[0], lat.shape[1], page_table.shape[1]
+    split = mla_split_tokens(scales is not None)
+    part = torch.empty((decode_split_count(MP, PS, split), B, H, dc + 4),
+                       dtype=torch.float32, device=q.device)
     lib = _build.load()["mla_attention"]
     rc = lib.decode_mla_attention(
         q.data_ptr(), lat.data_ptr(), ptr_or_null(scales),
         page_table.data_ptr(), kv_lens.data_ptr(), out.data_ptr(),
-        part.data_ptr(), B, H, dc, dr, PS, MP, MLA_SPLIT_TOKENS, float(scale),
+        part.data_ptr(), B, H, dc, dr, PS, MP, NP, split, float(scale),
         torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(lib, rc, "decode_mla_attention")
     decode_mla_attention.launches += 1

@@ -28,7 +28,10 @@ share of the wall time, and device time by family (the GQA attention
 kernels, the two MLA kernels, the MoE grouped GEMM, matrix products,
 everything else) with the
 top kernels by
-device time. With --trace, also writes the Chrome trace there (about
+device time; each family also as the union of its kernels' intervals
+(`traced_device_busy_s_by_family`: a merge launched as a programmatic
+dependent overlaps its split kernel, and the plain sums count that
+overlap twice) and its launches. With --trace, also writes the Chrome trace there (about
 100 MB for this workload). Needs one CUDA device.
 """
 
@@ -133,11 +136,13 @@ def main() -> int:
     finally:
         engine.stop()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    by_family, by_name = {}, {}
+    by_family, by_name, spans, calls = {}, {}, {}, {}
     for e in events:
         us = e.time_range.elapsed_us()
         fam = family(e.name)
         by_family[fam] = by_family.get(fam, 0.0) + us
+        spans.setdefault(fam, []).append((e.time_range.start, e.time_range.end))
+        calls[fam] = calls.get(fam, 0) + 1
         n = by_name.setdefault(e.name[:80], [0, 0.0])
         n[0] += 1
         n[1] += us
@@ -158,6 +163,11 @@ def main() -> int:
         "traced_device_busy_s": busy / 1e6,
         "traced_idle_share": 1.0 - busy / 1e6 / traced_s,
         "traced_device_s_by_family": {k: v / 1e6 for k, v in sorted(by_family.items())},
+        # each family's kernels as one union of intervals: a programmatic
+        # dependent that waits on the kernel before it is counted once
+        "traced_device_busy_s_by_family": {
+            k: busy_us(v) / 1e6 for k, v in sorted(spans.items())},
+        "traced_calls_by_family": dict(sorted(calls.items())),
         "traced_top_kernels": [
             {"name": k, "calls": n, "device_s": us / 1e6} for k, (n, us) in top],
         "n_device_events": len(events),

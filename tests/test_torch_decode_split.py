@@ -194,6 +194,90 @@ def test_mla_decode_split_merge_matches_plain_and_jax(H):
     assert np.all(got[kv == 0] == 0.0)
 
 
+def test_mla_int8_decode_split_merge_matches_jax():
+    """The int8 kernel's own split (MLA_INT8_SPLIT_TOKENS): the plain
+    partials at that split over the int8 dict, merged, equal the unsplit
+    plain int8 op and the Pallas int8 body in interpret mode, with rows at
+    the edges of the split and of a 64-token tile (one before, at, one
+    past), a zero-length row and a one-token row."""
+    split, tile = mla.MLA_INT8_SPLIT_TOKENS, mla.INT8_TILE_TOKENS
+    kv = np.asarray([0, 1, tile - 1, tile, tile + 1, split - 1, split, split + 1,
+                     2 * split + 1], np.int32)
+    B, H, dc, dr = len(kv), 4, 32, 16
+    MP = -(-(2 * split + 1) // PS)
+    rng = np.random.default_rng(70)
+    NP, pt = _pages(rng, B, MP)
+    q = (rng.standard_normal((B, H, dc + dr)) * (16 / (dc + dr)) ** 0.5).astype(np.float32)
+    lat = {"q": rng.integers(-127, 128, (NP, PS, 1, dc + dr)).astype(np.int8),
+           "s": np.exp(rng.uniform(np.log(0.004), np.log(0.02), (NP, PS, 1)))
+           .astype(np.float32)}
+    scale = (dc + dr) ** -0.5
+    t = [torch.from_numpy(q), {k: torch.from_numpy(v) for k, v in lat.items()},
+         torch.from_numpy(pt), torch.from_numpy(kv)]
+    m, l, o = mla.decode_mla_split_partials_ref(*t, dc=dc, scale=scale, split=split)
+    assert o.shape == (pa.decode_split_count(MP, PS, split), B, H, dc)
+    got = pa.merge_split_partials_ref(m, l, o).numpy()
+    np.testing.assert_allclose(got, mla.decode_mla_attention(*t, dc=dc, scale=scale).numpy(),
+                               **TOL)
+    jax_out = np.asarray(jmla.decode_mla_attention(
+        jnp.asarray(q), {k: jnp.asarray(v) for k, v in lat.items()}, jnp.asarray(pt),
+        jnp.asarray(kv), dc=dc, scale=scale, interpret=True))
+    np.testing.assert_allclose(got, jax_out, **TOL)
+    assert np.all(got[kv == 0] == 0.0)
+
+
+class _FakeMlaLibrary:
+    """Stands in for the built library: records MLA decode's arguments."""
+
+    def __init__(self):
+        self.calls = []
+
+    def decode_mla_attention(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.parametrize("int8", [True, False], ids=["int8", "bf16"])
+def test_mla_decode_wrapper_takes_its_pools_split(monkeypatch, int8):
+    """The MLA wrapper's scratch and the kernel's split and pool size (meta
+    tensors, a recording library in place of the build): an int8 pool
+    launches at MLA_INT8_SPLIT_TOKENS over decode_split_count(MP, PS, that
+    split) splits with its scales and the pool's pages (NP, for the
+    kernel's tensor map), a bf16 one at MLA_SPLIT_TOKENS with no scales."""
+    fake = _FakeMlaLibrary()
+    monkeypatch.setattr(_build, "load", lambda: {"mla_attention": fake})
+    monkeypatch.setattr(mla.torch.cuda, "current_stream",
+                        lambda device=None: type("S", (), {"cuda_stream": 7})())
+    B, H, NP, PS16, MP = 3, 32, 37, 16, 40
+    dc, dr = mla.KERNEL_DIMS
+    meta = dict(device="meta")
+    if int8:
+        pool = {"q": torch.zeros(NP, PS16, 1, dc + dr, dtype=torch.int8, **meta),
+                "s": torch.zeros(NP, PS16, 1, dtype=torch.float32, **meta)}
+    else:
+        pool = torch.zeros(NP, PS16, 1, dc + dr, dtype=torch.bfloat16, **meta)
+    q = torch.zeros(B, H, dc + dr, dtype=torch.bfloat16, **meta)
+    pt = torch.zeros(B, MP, dtype=torch.int32, **meta)
+    kvl = torch.zeros(B, dtype=torch.int32, **meta)
+    scratch = []
+    empty = torch.empty
+
+    def recording_empty(*shape, **kw):  # the wrapper's f32 scratch
+        if kw.get("dtype") == torch.float32:
+            scratch.append(tuple(shape[0]) if len(shape) == 1 else shape)
+        return empty(*shape, **kw)
+
+    monkeypatch.setattr(mla.torch, "empty", recording_empty)
+    out = mla.decode_mla_attention(q, pool, pt, kvl, dc=dc, scale=0.125)
+    assert out.shape == (B, H, dc)
+    split = mla.mla_split_tokens(int8)
+    assert split == (mla.MLA_INT8_SPLIT_TOKENS if int8 else mla.MLA_SPLIT_TOKENS)
+    (args,) = fake.calls
+    assert args[7:] == (B, H, dc, dr, PS16, MP, NP, split, 0.125, 7)
+    assert (args[2] is None) == (not int8)
+    assert scratch == [(pa.decode_split_count(MP, PS16, split), B, H, dc + 4)]
+
+
 @pytest.mark.parametrize("max_pages,page_size,split,want", [
     (256, 16, 256, 16), (1, 16, 256, 1), (16, 16, 256, 1), (17, 16, 256, 2),
     (9, 64, 256, 3), (256, 16, 512, 8)])
@@ -204,3 +288,7 @@ def test_decode_split_count_follows_the_table_width(max_pages, page_size,
     assert all(s % 64 == 0 for s in pa.DECODE_INT8_SPLIT_TOKENS.values())
     assert sorted(pa.DECODE_INT8_SPLIT_TOKENS) == list(pa.KERNEL_HEAD_DIMS)
     assert mla.MLA_SPLIT_TOKENS % 32 == 0  # whole 32-token tiles
+    # the int8 kernel's split: whole 64-token tiles
+    assert mla.MLA_INT8_SPLIT_TOKENS % mla.INT8_TILE_TOKENS == 0
+    assert mla.mla_split_tokens(True) == mla.MLA_INT8_SPLIT_TOKENS
+    assert mla.mla_split_tokens(False) == mla.MLA_SPLIT_TOKENS

@@ -238,10 +238,19 @@ def test_ragged_int8_matches_jax(variant, layout, D):
                                ref, **TOL)
 
 
-@pytest.mark.parametrize("kv_lens", [[1, 9, 24], [24, 1, 13]])
+# rows at the int8 kernel's 64-token tile and MLA_INT8_SPLIT_TOKENS split
+# edges (one before, at, one past), a zero-length and a one-token row, over
+# 64-token pages
+_T8, _S8 = mla.INT8_TILE_TOKENS, mla.MLA_INT8_SPLIT_TOKENS
+MLA_INT8_EDGES = [[_T8 - 1, _T8, _T8 + 1], [_S8 - 1, _S8, _S8 + 1], [0, 1, 2 * _S8 + 1]]
+
+
+@pytest.mark.parametrize("kv_lens", [[1, 9, 24], [24, 1, 13]] + MLA_INT8_EDGES)
 def test_mla_decode_int8_matches_jax(kv_lens):
     rng = np.random.default_rng(5)
-    B, H, dc, dr, PS, MP = 3, 4, 32, 16, 4, 6
+    B, H, dc, dr = 3, 4, 32, 16
+    PS = 4 if max(kv_lens) <= 24 else 64
+    MP = -(-max(max(kv_lens), 24) // PS)
     NP, pt = _table(rng, B, MP)
     q = (rng.standard_normal((B, H, dc + dr)) * (16 / (dc + dr)) ** 0.5
          ).astype(np.float32)
@@ -255,9 +264,11 @@ def test_mla_decode_int8_matches_jax(kv_lens):
     t = [_torch(a) for a in (q, lat, pt, kv)]
     out = mla.decode_mla_attention(*t, dc=dc, scale=scale)
     np.testing.assert_allclose(out.numpy(), ref, **TOL)
-    m, l, o = mla.decode_mla_split_partials_ref(*t, dc=dc, scale=scale, split=8)
-    np.testing.assert_allclose(pa.merge_split_partials_ref(m, l, o).numpy(),
-                               ref, **TOL)
+    for split in (8, mla.MLA_INT8_SPLIT_TOKENS):
+        m, l, o = mla.decode_mla_split_partials_ref(*t, dc=dc, scale=scale, split=split)
+        np.testing.assert_allclose(pa.merge_split_partials_ref(m, l, o).numpy(),
+                                   ref, **TOL)
+    assert np.all(out.numpy()[np.asarray(kv_lens) == 0] == 0.0)
     with pytest.raises(TypeError, match="prefill"):
         mla.prefill_mla_attention(t[0][:, None], t[1], t[2], t[3], t[3], t[3],
                                   dc=dc, scale=scale)
