@@ -100,13 +100,16 @@ Phases, each printing one JSON line:
                on the ragged kernel). Each kernel's launches must equal its
                forward passes (runner.stats) x 28 layers;
      disagg  - (`engine_disagg`) a prefill and a decode engine on the card,
-               one shared params dict, 1024 pages each, behind a
-               PrefillRouter: the same 8 requests, half pulled on the
-               device (colocated instance), half host-staged in chunks of
-               16 pages; the decode engine must run no prefill, imported
-               pages must equal the prefill engine's byte for byte, and
-               the copy kernels' launches must equal the transfer calls
-               x 2 pools;
+               one shared params dict, 1024 pages each, each served by
+               serve_worker over the in-process request plane, behind a
+               PrefillRouter whose prefill pool comes from discovery: the
+               same 8 requests, half pulled on the device (a colocated
+               prefill instance), half host-staged through the other
+               instance's kv_fetch in chunks of 16 pages; no pull may fall
+               back to recompute, the decode engine must run no prefill,
+               imported pages must equal the prefill engine's byte for
+               byte, and the copy kernels' launches must equal the
+               transfer calls x 2 pools;
      tiers   - (`engine_tiers`) one engine with a 160-page pool, a 512-block
                host tier and 4 onboard layer groups: a 1100-token request,
                two 1500-token fillers that evict its pages to the host,
@@ -116,6 +119,30 @@ Phases, each printing one JSON line:
   5. parity  - prefill-plus-decode inputs, then one ragged dispatch of
                decode rows and a chunk over prior context, through the
                kernel path and the plain attention path of the forward;
+     served  - the request plane. `engine_served_disagg`: a prefill
+               and a decode worker (the 3B params again, 1024 pages each)
+               served by serve_worker over TCP on loopback in this process,
+               neither registered colocated, behind a PrefillRouter from
+               discovery: the 8 requests, every pull host-staged through
+               kv_fetch in chunks of 16 pages; no recompute fallback, the
+               copy kernels' launches equal to the chunks pulled and the
+               imports x 2 pools, the attention kernels' launches equal to
+               both runners' passes x 28, and the prefill worker's KV
+               events (a TCP event-plane subscriber) carrying store events
+               for every full page of every prompt; the pull's ms and GB/s
+               beside engine_disagg's host-staged pull. Then, with this
+               process's runners freed, `engine_served`: `python -m
+               dynamo_tpu_torch.worker` with engine_fused's flags as a
+               process of its own on the card, file discovery on a
+               temporary root; a client runtime here discovers it, sends
+               8 other requests of the same lengths one at a time (the
+               process's first run of each shape), then the 8 requests
+               one at a time (each greedy stream equal to this process's
+               engine serving it alone, `alone_phase`) and then all at
+               once (each finishing with its 32 tokens), and reports TTFT
+               and e2e over the wire beside the in-process engine's, run
+               the same way, and engine_fused's; SIGTERM must end the
+               worker with exit code 0;
      int8    - with the 3B runner freed, the slice's main path:
                llama-3.1-8b at full width and depth with
                --kv-quantize int8 (`engine_int8kv` fused and
@@ -224,10 +251,13 @@ import gc
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
+from pathlib import Path
 
 import torch
 import torch.nn.functional as F
@@ -271,20 +301,18 @@ from dynamo_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention,
     ragged_paged_attention_ref,
 )
-from dynamo_tpu_torch.router.prefill_router import (
-    DisaggPolicy,
-    LocalPrefillClient,
-    PrefillRouter,
-)
+from dynamo_tpu_torch.router.prefill_router import DisaggPolicy, PrefillRouter
+from dynamo_tpu_torch.router.protocols import KV_EVENT_SUBJECT
 from dynamo_tpu_torch.runtime.context import Context
+from dynamo_tpu_torch.runtime.discovery import FileDiscovery, MemDiscovery
+from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.tokens.hashing import block_hashes
 from dynamo_tpu_torch.worker import (
     build_engine,
     build_runner,
-    disagg_endpoint,
     parse_args,
+    serve_args,
 )
-from dynamo_tpu_torch.worker_common import register_prefill
 
 # NVIDIA H100 SXM data sheet (dense): HBM3 rate and bf16 tensor-core peak
 HBM_BYTES_PER_S = 3.35e12
@@ -1440,7 +1468,8 @@ def serve(engine, seed: int, spec: bool = False, extra=()):
 
 
 def check_launches(phase: str, launches, stats, L: int, mla: bool = False,
-                   int8: bool = False, moe_layers: int = 0) -> None:
+                   int8: bool = False, moe_layers: int = 0,
+                   copies: bool = False) -> None:
     """Each kernel launched once per layer of each forward pass of its
     kind, and nowhere else (an MLA model launches no GQA kernel and the
     other way round; an int8 latent's prefill gathers, as the reference's
@@ -1467,7 +1496,7 @@ def check_launches(phase: str, launches, stats, L: int, mla: bool = False,
         check(launches[name] == passes * moe_layers,
               f"{phase}: {name} launches {launches[name]} != {passes} passes x "
               f"{moe_layers} MoE layers")
-    for name in COPY_KERNELS:  # no transfer and no host tier here
+    for name in COPY_KERNELS if not copies else ():  # no transfer, no host tier
         check(launches[name] == 0, f"{phase}: {name} launched {launches[name]}")
 
 
@@ -1594,6 +1623,7 @@ def engine_phases(dev):
 
     rec, launches, fused = engine_phase(runner, "fused", build_s=build_s)
     fused_bodies = rec["bodies"]
+    fused_rec = rec
     st = rec["stats"]
     check(rec["fused_mixed"], "fused: the engine did not fuse on the card")
     check(all(launches[k] > 0 for k in GQA_KERNELS),
@@ -1623,7 +1653,7 @@ def engine_phases(dev):
     check(rec["spec_stats"]["drafted"] > 0 and st["ragged_verify_dispatches"] > 0,
           f"spec: nothing was drafted or verified: {rec['spec_stats']}, {st}")
     emit(rec)
-    return runner, launches, fused_bodies
+    return runner, launches, fused_bodies, fused_rec
 
 
 DISAGG_ARGS = ["--model", "llama-3.2-3b", "--num-pages", "1024",
@@ -1681,51 +1711,122 @@ def _check_finished(phase, results, V):
         check(all(0 <= t < V for t in r["tokens"]), f"{phase}: r{i} token out of range")
 
 
-def disagg_phase(params):
-    """The slice's main path: PrefillRouter → prefill engine (park) → KV
-    pull (device for the colocated instance, host-staged chunks of 16
-    pages for the other) → decode engine (admit with KV, decode)."""
-    p_args = parse_args(DISAGG_ARGS + ["--disagg-role", "prefill"])
-    d_args = parse_args(DISAGG_ARGS + ["--disagg-role", "decode",
-                                       "--disagg-chunk-pages",
-                                       str(DISAGG_CHUNK_PAGES)])
+def _runtime(realm: str, plane: str, events: str = "inproc"):
+    """A runtime of chip_smoke's process on in-process discovery."""
+    return DistributedRuntime(discovery=MemDiscovery(realm=realm),
+                              event_transport=events, request_plane=plane)
+
+
+async def _disagg_fleet(prefill, decode, p_args, d_args, plane, host_only):
+    """Serve the prefill and the decode engine with serve_worker, each on
+    its own runtime over `plane`, and put a PrefillRouter over them on a
+    third: its prefill pool and its downstream decode client come from
+    discovery. Unless `host_only`, the prefill engine is served twice, as
+    a colocated instance (pulled on the device) and as one pulled
+    host-staged through kv_fetch; the router alternates between them.
+    Returns (router, prefill instances, decode worker, close)."""
+    realm = f"{plane}-{host_only}"
+    rts = [_runtime(realm, plane, "tcp") for _ in range(3)]
+    p_ws = [await serve_args(rts[0], prefill, p_args, colocated=not host_only)]
+    if not host_only:
+        rts.append(_runtime(realm, plane))
+        p_ws.append(await serve_args(rts[-1], prefill, p_args, colocated=False,
+                                     publish_kv_events=False, publish_fpm=False))
+    d_w = await serve_args(rts[1], decode, d_args, colocated=not host_only)
+    front = rts[2]
+    downstream = front.client(f"dyn/{d_args.component}/generate")
+    pool = front.client(f"dyn/{p_args.component}/generate")
+    await downstream.wait_ready(timeout=60)
+    await pool.wait_ready(timeout=60)
+    while len(pool.instances) < len(p_ws):
+        await asyncio.sleep(0.01)
+    router = PrefillRouter(downstream, DisaggPolicy(min_prefill_tokens=16))
+    router.activate(pool, f"dyn/{p_args.component}/kv_fetch")
+
+    async def close():
+        await downstream.close()
+        await pool.close()
+        for rt in rts:
+            await rt.shutdown(drain_timeout=10)
+        for w in [d_w] + p_ws:
+            await w.stop()
+
+    return router, p_ws, d_w, close
+
+
+async def _serve_disagg(router, reqs, late):
+    """reqs concurrently through the router, then `late` once r6 (whose
+    256-token prefix it shares) has its first token."""
+    shared = asyncio.Event()
+    tasks = [asyncio.create_task(_collect_timed(
+        router, r, f"r{i}", shared if i == len(reqs) - 1 else None))
+        for i, r in enumerate(reqs)]
+    await shared.wait()
+    tasks.append(asyncio.create_task(_collect_timed(router, late, f"r{len(reqs)}")))
+    return await asyncio.gather(*tasks)
+
+
+def _disagg_engines(params, chunk_pages=DISAGG_CHUNK_PAGES):
+    p_args = parse_args(DISAGG_ARGS + ["--disagg-role", "prefill", "--component", "prefill"])
+    d_args = parse_args(DISAGG_ARGS + ["--disagg-role", "decode", "--component", "decode",
+                                       "--disagg-chunk-pages", str(chunk_pages)])
     prefill = build_engine(p_args, runner=build_runner(p_args, params=params)[0])
     decode = build_engine(d_args, runner=build_runner(d_args, params=params)[0])
-    iid_dev = disagg_endpoint(prefill, p_args)  # colocated: device pull
-    iid_host = register_prefill(prefill, colocated=False)  # host-staged pull
-    adapter = disagg_endpoint(decode, d_args)
-    router = PrefillRouter(adapter, DisaggPolicy(min_prefill_tokens=16))
-    router.activate(LocalPrefillClient([iid_dev, iid_host]))
+    return prefill, decode, p_args, d_args
+
+
+def _transfer(n_pages, results, page_bytes):
+    """The pulls' wall on the decode side (the fetch, queueing on the
+    prefill engine's step thread included, then the import on the decode
+    engine's step thread), from the final items' phases."""
+    rows = [(n, r["phases"]["kv_fetch_s"], r["phases"]["kv_import_s"])
+            for n, r in zip(n_pages, results)]
+    pages = sum(n for n, _, _ in rows)
+    secs = sum(f + i for _, f, i in rows)
+    return {
+        "requests": len(rows), "pages": pages, "bytes": pages * page_bytes,
+        "ms_per_request": [(f + i) * 1e3 for _, f, i in rows],
+        "fetch_ms": [f * 1e3 for _, f, _ in rows],
+        "import_ms": [i * 1e3 for _, _, i in rows],
+        "prompt_pages": [n for n, _, _ in rows],
+        "gb_per_s": pages * page_bytes / secs / 1e9,
+    }
+
+
+def disagg_phase(params):
+    """The PrefillRouter → prefill worker (park) → KV pull (device for the
+    colocated instance, host-staged chunks of 16 pages through kv_fetch for
+    the other) → decode worker (admit with KV, decode), every hop over the
+    in-process request plane."""
+    prefill, decode, p_args, d_args = _disagg_engines(params)
     paths = {}
-    fetch = adapter._fetch
-
-    async def fetch_by_path(src):
-        paths[src["request_id"]] = "device" if src["instance_id"] == iid_dev else "host"
-        return await fetch(src)
-
-    adapter._fetch = fetch_by_path
     imports = _spy_calls(decode.runner, ("import_pages_device", "import_pages"))
     V, L = prefill.runner.config.vocab_size, prefill.runner.config.n_layers
     reqs, late = workload(V, seed=1)
     prompts = [r["token_ids"] for r in reqs + [late]]
 
     async def serve():
-        shared = asyncio.Event()
-        tasks = [asyncio.create_task(_collect_timed(
-            router, r, f"r{i}", shared if i == len(reqs) - 1 else None))
-            for i, r in enumerate(reqs)]
-        await shared.wait()  # the late request shares r6's 256-token prefix
-        tasks.append(asyncio.create_task(_collect_timed(router, late, f"r{len(reqs)}")))
-        return await asyncio.gather(*tasks)
+        router, p_ws, d_w, close = await _disagg_fleet(
+            prefill, decode, p_args, d_args, "inproc", host_only=False)
+        fetch = d_w.handler._fetch
+        iid_dev = p_ws[0].instance.instance_id
 
-    torch.cuda.synchronize()
-    _reset(prefill.runner, decode.runner)
-    t0 = time.monotonic()
-    try:
-        results = asyncio.run(asyncio.wait_for(serve(), 300))
-    finally:
-        prefill.stop()
-        decode.stop()
+        async def fetch_by_path(src):
+            paths[src["request_id"]] = "device" if src["instance_id"] == iid_dev else "host"
+            return await fetch(src)
+
+        d_w.handler._fetch = fetch_by_path
+        torch.cuda.synchronize()
+        _reset(prefill.runner, decode.runner)
+        t0 = time.monotonic()
+        try:
+            return await _serve_disagg(router, reqs, late), t0, d_w
+        finally:
+            await close()
+
+    results, t0, d_w = asyncio.run(asyncio.wait_for(serve(), 300))
+    check(d_w.handler.fallbacks == 0,
+          f"disagg: {d_w.handler.fallbacks} pulls fell back to recompute")
     torch.cuda.synchronize()
     wall = time.monotonic() - t0
     launches = {name: fn.launches for name, fn in KERNELS.items()}
@@ -1782,19 +1883,9 @@ def disagg_phase(params):
     # engine's step thread
     transfer = {}
     for path in ("device", "host"):
-        rows = [(n, r["phases"]["kv_fetch_s"], r["phases"]["kv_import_s"])
-                for n, r, p in zip(n_pages, results, path_of) if p == path]
-        pages = sum(n for n, _, _ in rows)
-        secs = sum(f + i for _, f, i in rows)
-        transfer[path] = {
-            "requests": len(rows), "pages": pages,
-            "bytes": pages * page_bytes,
-            "ms_per_request": [(f + i) * 1e3 for _, f, i in rows],
-            "fetch_ms": [f * 1e3 for _, f, _ in rows],
-            "import_ms": [i * 1e3 for _, _, i in rows],
-            "prompt_pages": [n for n, _, _ in rows],
-            "gb_per_s": pages * page_bytes / secs / 1e9,
-        }
+        picked = [j for j, p in enumerate(path_of) if p == path]
+        transfer[path] = _transfer([n_pages[j] for j in picked],
+                                   [results[j] for j in picked], page_bytes)
     ttft = sorted(r["ttft_s"] for r in results)
     rates = sorted((len(r["tokens"]) - 1) / (r["t_end"] - r["t_first"]) for r in results)
     rec = {
@@ -1815,7 +1906,230 @@ def disagg_phase(params):
     emit(rec)
     for name in ("gather_pages", "scatter_pages"):
         check(launches[name] > 0, f"disagg: {name} never launched")
-    return launches
+    return launches, rec
+
+
+ROOT = Path(__file__).resolve().parent
+SERVE_TIMEOUT_S = 300  # the worker's start (weights drawn on the card) and drain
+
+
+async def _one_then_all(engine, reqs):
+    """`reqs` one at a time, then all at once, through `engine` (an
+    engine or a client): (one-at-a-time results, all-at-once results,
+    the all-at-once wall)."""
+    alone = [await _collect_timed(engine, r, f"r{i}") for i, r in enumerate(reqs)]
+    t0 = time.monotonic()
+    together = await asyncio.gather(*[_collect_timed(engine, r, f"c{i}")
+                                      for i, r in enumerate(reqs)])
+    return alone, together, time.monotonic() - t0
+
+
+def alone_phase(runner):
+    """workload(seed 1)'s 8 requests served by a fresh engine over
+    `runner` in this process, one at a time, then all at once (the second
+    pass hits the first's prefix cache, as the served worker's does): the
+    streams engine_served holds the served worker's against, and the
+    in-process TTFT and e2e beside the wire's."""
+    engine = build_engine(parse_args(ENGINE_ARGS), runner=runner)
+    reqs, late = workload(runner.config.vocab_size, seed=1)
+    try:
+        return asyncio.run(asyncio.wait_for(_one_then_all(engine, reqs + [late]), 300))
+    finally:
+        engine.stop()
+
+
+def _latency(results):
+    ttft = sorted(r["ttft_s"] for r in results)
+    e2e = sorted(r["e2e_s"] for r in results)
+    return {"ttft_s": [r["ttft_s"] for r in results], "e2e_s": [r["e2e_s"] for r in results],
+            "ttft_s_median": ttft[len(ttft) // 2], "e2e_s_median": e2e[len(e2e) // 2]}
+
+
+async def _read_serving_line(proc, log_path):
+    while True:
+        line = (await proc.stdout.readline()).decode()
+        if not line:
+            tail = Path(log_path).read_text()[-3000:]
+            raise CheckFailed(f"served: the worker exited ({await proc.wait()}) "
+                              f"before serving:\n{tail}")
+        if line.startswith("worker serving"):
+            return line.strip()
+
+
+def served_phase(in_process, fused_rec, V):
+    """`python -m dynamo_tpu_torch.worker` serving llama-3.2-3b as a
+    process on the card (the engine_fused flags, file discovery on a
+    temporary root), and a client runtime in this process that discovers
+    it. The worker first serves workload(seed 2) one request at a time
+    (its first run of each shape, which this process's runner is past),
+    then workload(seed 1) as alone_phase does: one at a time, each greedy
+    stream equal to the in-process engine's, then all 8 at once, each
+    finishing with its N_OUT tokens. Then SIGTERM, after which the worker
+    must exit 0."""
+    alone, together_in, together_in_wall = in_process
+    reqs, late = workload(V, seed=1)
+    reqs = reqs + [late]
+    warm, warm_late = workload(V, seed=2)
+    greedy = [i for i in range(len(reqs)) if i not in (2, 5)]
+
+    async def run(root):
+        log_path = os.path.join(root, "worker.log")
+        with open(log_path, "w") as log_file:
+            t0 = time.monotonic()
+            proc = await asyncio.create_subprocess_exec(
+                sys.executable, "-m", "dynamo_tpu_torch.worker", *ENGINE_ARGS,
+                "--discovery-backend", "file", "--discovery-root", root,
+                cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+                stdout=asyncio.subprocess.PIPE, stderr=log_file)
+        rt = DistributedRuntime(discovery=FileDiscovery(root, poll_interval=0.05))
+        try:
+            line = await asyncio.wait_for(_read_serving_line(proc, log_path), SERVE_TIMEOUT_S)
+            start_s = time.monotonic() - t0
+            client = rt.client("dyn/tpu-worker/generate")
+            await client.wait_ready(timeout=60)  # raises when nothing registered
+            instances = len(client.instances)
+            first = [await _collect_timed(client, r, f"w{i}")
+                     for i, r in enumerate(warm + [warm_late])]
+            alone_wire, together, together_wall = await _one_then_all(client, reqs)
+            await client.close()
+            t2 = time.monotonic()
+            proc.send_signal(signal.SIGTERM)
+            rc = await asyncio.wait_for(proc.wait(), SERVE_TIMEOUT_S)
+            exit_s = time.monotonic() - t2
+        finally:
+            if proc.returncode is None:
+                proc.kill()
+                await proc.wait()
+            await rt.shutdown(drain_timeout=1)
+        return (line, start_s, instances, first, alone_wire, together, together_wall,
+                rc, exit_s)
+
+    with tempfile.TemporaryDirectory() as root:
+        (line, start_s, instances, first, alone_wire, together, together_wall, rc,
+         exit_s) = asyncio.run(run(root))
+    check(instances == 1, f"served: {instances} instances registered")
+    check(rc == 0, f"served: the worker exited {rc} after SIGTERM")
+    _check_finished("served_first", first, V)
+    _check_finished("served_alone", alone_wire, V)
+    _check_finished("served_together", together, V)
+    same = [alone_wire[i]["tokens"] == alone[i]["tokens"] for i in range(len(reqs))]
+    check(all(same[i] for i in greedy),
+          f"served: greedy streams differ from the in-process engine's: {same}")
+    rec = {
+        "phase": "engine_served", "model": ENGINE_ARGS[1], "worker": line,
+        "worker_start_s": start_s, "worker_exit_code": rc, "worker_exit_s": exit_s,
+        "requests": len(reqs), "prompt_tokens": [len(r["token_ids"]) for r in reqs],
+        "greedy_streams_equal": sum(same[i] for i in greedy), "greedy_streams": len(greedy),
+        "sampled_streams_equal": [same[i] for i in range(len(reqs)) if i not in greedy],
+        "first_shapes_wire": _latency(first),
+        "one_at_a_time": {"wire": _latency(alone_wire), "in_process": _latency(alone)},
+        "all_at_once": {
+            "wire": {**_latency(together), "wall_s": together_wall,
+                     "output_tok_s_overall": sum(len(r["tokens"]) for r in together)
+                     / together_wall},
+            "in_process": {**_latency(together_in), "wall_s": together_in_wall,
+                           "output_tok_s_overall": sum(len(r["tokens"]) for r in together_in)
+                           / together_in_wall}},
+        "in_process_engine_fused": {
+            k: fused_rec[k] for k in ("ttft_s_min", "ttft_s_median", "ttft_s_max",
+                                      "decode_tok_s_per_request_median",
+                                      "output_tok_s_overall", "wall_s")},
+    }
+    emit(rec)
+    return rec
+
+
+def served_disagg_phase(params, disagg_rec):
+    """A prefill and a decode worker served by serve_worker over the TCP
+    request plane on loopback, in this process (so the launch counts can
+    be read), neither registered colocated: every pull goes host-staged
+    through the prefill worker's kv_fetch in chunks of 16 pages. The
+    router's prefill pool and decode client come from discovery, and a
+    subscriber on the prefill worker's event publisher collects its KV
+    events."""
+    prefill, decode, p_args, d_args = _disagg_engines(params)
+    imports = _spy_calls(decode.runner, ("import_pages_device", "import_pages"))
+    V, L = prefill.runner.config.vocab_size, prefill.runner.config.n_layers
+    reqs, late = workload(V, seed=1)
+    prompts = [r["token_ids"] for r in reqs + [late]]
+    stored = set()
+
+    async def serve():
+        router, p_ws, d_w, close = await _disagg_fleet(
+            prefill, decode, p_args, d_args, "tcp", host_only=True)
+        addresses = {"prefill": p_ws[0].instance.address, "decode": d_w.instance.address}
+        sub = p_ws[0].runtime.event_subscriber([KV_EVENT_SUBJECT])
+        sub.connect(p_ws[0].instance.metadata["kv_publisher"])
+        pub = p_ws[0].runtime.event_publisher()
+        while not pub._subs:
+            await asyncio.sleep(0.01)
+
+        async def listen():
+            async for _, payload in sub.events():
+                stored.update(h for e in payload["events"] if e["kind"] == "store"
+                              and e["tier"] == "device" for h in e["block_hashes"])
+
+        listener = asyncio.create_task(listen())
+        torch.cuda.synchronize()
+        _reset(prefill.runner, decode.runner)
+        t0 = time.monotonic()
+        try:
+            results = await _serve_disagg(router, reqs, late)
+            torch.cuda.synchronize()
+            wall = time.monotonic() - t0
+            launches = {name: fn.launches for name, fn in KERNELS.items()}
+            want = set(h for p in prompts for h in block_hashes(p, PAGE_SIZE))
+            while not want <= stored:  # bounded by the caller's wait_for
+                await asyncio.sleep(0.01)
+            return results, wall, launches, d_w, addresses
+        finally:
+            listener.cancel()
+            await sub.close()
+            await close()
+
+    results, wall, launches, d_w, addresses = asyncio.run(asyncio.wait_for(serve(), 300))
+    pst, dst = dict(prefill.runner.stats), dict(decode.runner.stats)
+    _check_finished("served_disagg", results, V)
+    check(d_w.handler.fallbacks == 0,
+          f"served_disagg: {d_w.handler.fallbacks} pulls fell back to recompute")
+    check(not imports["import_pages_device"],
+          f"served_disagg: a pull took the device path: {imports['import_pages_device']}")
+    check(dst["prefill_chunks"] == dst["mixed_chunks"] == 0
+          and dst["padded_prefill_dispatches"] == 0,
+          f"served_disagg: the decode worker prefilled: {dst}")
+    n_pages = [-(-len(p) // PAGE_SIZE) for p in prompts]
+    chunks = sum(-(-n // DISAGG_CHUNK_PAGES) for n in n_pages)
+    check(pst["kv_pages_exported"] == sum(n_pages),
+          f"served_disagg: exported {pst['kv_pages_exported']} pages, want {sum(n_pages)}")
+    check(launches["gather_pages"] == 2 * chunks,
+          f"served_disagg: gather launches {launches['gather_pages']} != {chunks} x 2")
+    n_imports = len(imports["import_pages"])
+    check(launches["scatter_pages"] == 2 * n_imports,
+          f"served_disagg: scatter launches {launches['scatter_pages']} != {n_imports} x 2")
+    check(launches["scatter_pages_layers"] == 0, "served_disagg: layer scatter ran")
+    both = {k: pst[k] + dst[k] for k in pst}
+    check_launches("served_disagg", launches, both, L, copies=True)
+    check(not prefill._parked and not prefill.pool.ref,
+          "served_disagg: parked pages were not all released")
+    page_bytes = L * PAGE_SIZE * prefill.runner.config.n_kv_heads \
+        * prefill.runner.config.head_dim * 2 * 2  # both pools, bf16
+    ttft = sorted(r["ttft_s"] for r in results)
+    rec = {
+        "phase": "engine_served_disagg", "model": prefill.runner.config.name,
+        "n_layers": L, "requests": len(results), "addresses": addresses,
+        "prompt_tokens": [len(p) for p in prompts],
+        "output_tokens": [len(r["tokens"]) for r in results],
+        "prefill_stats": pst, "decode_stats": dst, "launches": launches,
+        "chunks_pulled": chunks, "import_calls": n_imports,
+        "fallbacks": d_w.handler.fallbacks, "stored_blocks": len(stored),
+        "transfer_tcp": _transfer(n_pages, results, page_bytes),
+        "transfer_in_process_host": disagg_rec["transfer"]["host"],
+        "ttft_s_min": ttft[0], "ttft_s_median": ttft[len(ttft) // 2],
+        "ttft_s_max": ttft[-1], "wall_s": wall,
+        "output_tok_s_overall": sum(len(r["tokens"]) for r in results) / wall,
+    }
+    emit(rec)
+    return rec
 
 
 TIER_ARGS = ["--model", "llama-3.2-3b", "--num-pages", "160", "--page-size", "16",
@@ -3740,18 +4054,25 @@ def main() -> int:
         del gem
         head = head_shape_kernels_phase(dev)
         kern.update(moe_kernels_phase(dev))
-        runner, launches, bodies = engine_phases(dev)
+        runner, launches, bodies, fused_rec = engine_phases(dev)
         variants = {name: {"engine_fused": bodies[name]} for name in GQA_KERNELS}
         # each copy kernel's launches from the phase that runs it
-        disagg = disagg_phase(runner.params)
+        disagg, disagg_rec = disagg_phase(runner.params)
         launches["gather_pages"] = disagg["gather_pages"]
         launches["scatter_pages"] = disagg["scatter_pages"]
         launches["scatter_pages_layers"] = tiers_phase(runner.params)[
             "scatter_pages_layers"]
         parity_phase(runner, dev)
+        # the request plane: the in-process streams served one at a time,
+        # the disaggregated pair over TCP, then (this process's runners
+        # freed) the worker as a process of its own
+        in_process = alone_phase(runner)
+        served_disagg_phase(runner.params, disagg_rec)
+        V = runner.config.vocab_size
         del runner, disagg
         gc.collect()
         torch.cuda.empty_cache()
+        served_phase(in_process, fused_rec, V)
         # the slice's main path: llama-3.1-8b over int8 pools; each int8
         # entry's launches are the fused phase's (all on its int8 body)
         int8_launches, int8_bodies = int8kv_phases(dev, smi)

@@ -14,6 +14,12 @@ token and is pulled by the decode engine (device or host-staged export); a
 "decode" request carrying `kv_import` is admitted with its KV and no
 prefill. With `host_kv_blocks` evicted prefix pages go to the G2 host pool
 and are onboarded back, layer group by layer group, on a prefix hit.
+Observers register on the step thread's hooks: `on_fpm` (one
+ForwardPassMetrics per iteration, per half of an unfused mixed one),
+`on_kv_event` (the device pool's and the host tier's store/remove events,
+drained after each iteration) and `on_phases` (each finished request's
+latency spine); the served worker publishes the first two on the event
+plane.
 Not ported yet: tree and draft-model speculation, guided decoding,
 logprobs, penalties, logit bias, n > 1 branches, LoRA, multimodal input,
 remote host-tier pulls and the G3/G4 tiers; requests asking for those are
@@ -29,11 +35,12 @@ import os
 import queue as thread_queue
 import threading
 import time
+from dataclasses import dataclass
 from typing import Any, AsyncIterator, Dict, List, Optional
 
 import torch
 
-from dynamo_tpu_torch.engine.kv_pool import PagePool
+from dynamo_tpu_torch.engine.kv_pool import KvEvent, PagePool
 from dynamo_tpu_torch.engine.model_runner import (
     BucketOverflowError,
     kv_arrays_to_payload,
@@ -66,6 +73,20 @@ _UNSUPPORTED_FIELDS = ("guided", "logit_bias", "adapter", "mm",
 _UNSUPPORTED_SAMPLING = {"logprobs": None, "repetition_penalty": 1.0,
                          "frequency_penalty": 0.0, "presence_penalty": 0.0,
                          "n": 1}
+
+
+@dataclass
+class ForwardPassMetrics:
+    """Per-iteration engine metrics published for the planner (the
+    reference's FPM). The load fields are read when the plan is made."""
+
+    ts: float
+    kind: str  # "prefill" | "decode" | "mixed"
+    wall_time_s: float
+    scheduled_tokens: int
+    n_running: int
+    n_waiting: int
+    kv_usage: float
 
 
 def engine_output(token_ids: List[int], finish_reason: Optional[str] = None,
@@ -131,9 +152,17 @@ class InferenceEngine:
         self.pool = PagePool(runner.num_pages, runner.page_size)
         self.onboard_layer_groups = max(1, int(onboard_layer_groups))
         self.host_pool: Optional[HostKvPool] = None
+        # step-thread observers, and the host tier's KV events waiting for
+        # the next drain
+        self._fpm_listeners: List[Any] = []
+        self._kv_listeners: List[Any] = []
+        self._phase_listeners: List[Any] = []
+        self._host_events: List[KvEvent] = []
+        self._plan_load = (0, 0, 0.0)  # (n_running, n_waiting, kv_usage)
         if host_kv_blocks > 0:
             self.host_pool = HostKvPool(capacity_blocks=host_kv_blocks)
             self.pool.evict_hook = self._offload_page
+            self.host_pool.on_evict(self._on_host_evicted)
         # G2 onboards served at admission: calls, blocks and seconds
         self.onboard_stats = {"onboards": 0, "blocks": 0, "seconds": 0.0,
                               "get_s": 0.0, "wire_s": 0.0, "import_s": 0.0}
@@ -191,6 +220,19 @@ class InferenceEngine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+
+    def on_fpm(self, cb) -> None:
+        """cb(ForwardPassMetrics) from the step thread."""
+        self._fpm_listeners.append(cb)
+
+    def on_kv_event(self, cb) -> None:
+        """cb(List[KvEvent]) from the step thread."""
+        self._kv_listeners.append(cb)
+
+    def on_phases(self, cb) -> None:
+        """cb(phases: Dict[str, float]) from the step thread, once per
+        finished request."""
+        self._phase_listeners.append(cb)
 
     # -- AsyncEngine protocol ----------------------------------------------
     async def generate(self, request: Dict[str, Any], context: Context) -> AsyncIterator[Any]:
@@ -322,40 +364,64 @@ class InferenceEngine:
             if not self.scheduler.has_work():
                 time.sleep(self.IDLE_SLEEP_S)
             return
+        sch = self.scheduler
+        self._plan_load = (
+            sum(1 for s in sch.active if s.state == SeqState.RUNNING),
+            len(sch.waiting), self.pool.usage())
+        t0 = time.monotonic()
         decode_done = False
         try:
             if isinstance(plan, PrefillPlan):
                 self._run_prefill_inner(plan)
+                kind, n_tok = "prefill", len(plan.chunk)
             elif isinstance(plan, MixedPlan):
                 # of the reference's fusibility gates only the switch
                 # applies: requests with guided decoding, logit bias,
                 # logprobs, penalties, LoRA or multimodal input, which the
                 # fused dispatch does not carry, are refused at admission
                 fused = self.fused_mixed
+                dseqs = plan.decode.seqs
                 # the decode half: verify rows (with the chunks when fused),
                 # else the fused dispatch, else plain decode first, so ITL
                 # never waits behind prompt processing. A verify that
                 # returns None shed its drafts (bucket overflow).
                 chunk_logits = None
-                if any(s.spec_draft for s in plan.decode.seqs):
+                drafted = sum(len(s.spec_draft) for s in dseqs)
+                if drafted:
                     chunk_logits = self._run_spec_verify(
                         plan.decode, plan.prefills if fused else [])
-                if chunk_logits is None and fused:
-                    chunk_logits = self._run_mixed_dispatch(plan)
+                steps = 1
                 if chunk_logits is None:
-                    self._run_decode_inner(plan.decode)
+                    drafted, steps = 0, plan.decode.n_steps
+                    if fused:
+                        chunk_logits = self._run_mixed_dispatch(plan)
+                    else:
+                        self._run_decode_inner(plan.decode)
                 # decode tokens are emitted: from here on a failure only
                 # fails the prefill sequences
                 decode_done = True
                 if fused:
-                    self._finish_packed_prefills(
-                        plan.prefills[:len(chunk_logits)], chunk_logits)
+                    served = plan.prefills[:len(chunk_logits)]
+                    self._finish_packed_prefills(served, chunk_logits)
+                    # one dispatch ran both halves: one "mixed" FPM
+                    kind = "mixed"
+                    n_tok = (len(dseqs) * steps + drafted
+                             + sum(len(p.chunk) for p in served))
                 else:
+                    # the halves publish separately, so observers fitting
+                    # per-kind step times keep clean samples
+                    t1 = time.monotonic()
+                    self._publish_fpm("decode", t1 - t0, len(dseqs) + drafted)
                     for p in plan.prefills:
                         self._run_prefill_inner(p)
-            elif (not any(s.spec_draft for s in plan.seqs)
-                  or self._run_spec_verify(plan, []) is None):
-                self._run_decode_inner(plan)
+                    kind, t0 = "prefill", t1
+                    n_tok = sum(len(p.chunk) for p in plan.prefills)
+            else:
+                drafted = sum(len(s.spec_draft) for s in plan.seqs)
+                if not drafted or self._run_spec_verify(plan, []) is None:
+                    drafted = 0
+                    self._run_decode_inner(plan)
+                kind, n_tok = "decode", len(plan.seqs) + drafted
         except Exception:
             # one bad step must fail ITS sequences, never kill the step
             # thread. A mixed step whose decode half already completed only
@@ -374,6 +440,31 @@ class InferenceEngine:
                     self.scheduler.abort(seq.request_id)
                 except Exception:
                     log.exception("failed to fail sequence %s", seq.request_id)
+            return
+        self._publish_fpm(kind, time.monotonic() - t0, n_tok)
+        self._publish_kv_events()
+
+    def _publish_fpm(self, kind: str, wall: float, n_tok: int) -> None:
+        n_running, n_waiting, kv_usage = self._plan_load
+        m = ForwardPassMetrics(ts=time.time(), kind=kind, wall_time_s=wall,
+                               scheduled_tokens=n_tok, n_running=n_running,
+                               n_waiting=n_waiting, kv_usage=kv_usage)
+        for cb in self._fpm_listeners:
+            try:
+                cb(m)
+            except Exception:
+                log.exception("fpm listener failed")
+
+    def _publish_kv_events(self) -> None:
+        events = self.pool.drain_events() + self._host_events
+        self._host_events = []
+        if not events:
+            return
+        for cb in self._kv_listeners:
+            try:
+                cb(events)
+            except Exception:
+                log.exception("kv listener failed")
 
     def _run_prefill_inner(self, plan: PrefillPlan) -> None:
         seq = plan.seq
@@ -725,6 +816,10 @@ class InferenceEngine:
         """Device page being evicted → copy its KV to the host tier."""
         k, v = kv_payload_to_arrays(self.runner.export_pages([page]))
         self.host_pool.put([block_hash], [parent], k, v)
+        self._host_events.append(KvEvent("store", [block_hash], parent, tier="host"))
+
+    def _on_host_evicted(self, hashes: List[int]) -> None:
+        self._host_events.append(KvEvent("remove", hashes, tier="host"))
 
     def _onboard_from_host(self, pages: List[int], hashes: List[int],
                            seq: Optional[Sequence] = None) -> bool:
@@ -778,6 +873,11 @@ class InferenceEngine:
             if seq.itl:
                 phases["itl_s"] = list(seq.itl)
             item["phases"] = phases
+            for cb in self._phase_listeners:
+                try:
+                    cb(phases)
+                except Exception:
+                    log.exception("phase listener failed")
         entry = self._streams.get(seq.request_id)
         if entry is None:
             return

@@ -1,27 +1,29 @@
 """PrefillRouter: disaggregated prefill/decode orchestration.
 
 Port of dynamo_tpu/router/prefill_router.py `DisaggPolicy` and
-`PrefillRouter.generate` / `_run_prefill_hop`: the prefill engine computes
+`PrefillRouter.generate` / `_run_prefill_hop`: the prefill worker computes
 the KV and the first token and parks the pages; the router emits that
 token, then sends the decode continuation (prompt + first token,
 max_tokens − 1, `annotations.disagg = "decode"`, `kv_transfer_src`)
-downstream to a `DisaggDecodeAdapter`, which pulls the KV and resumes
-decode with no prefill. A failed prefill hop falls back to aggregated
-serving downstream. The prefill pool is in process
-(`LocalPrefillClient`) until the request plane is ported; there is no KV
-router and no discovery.
+downstream to a decode worker's `DisaggDecodeAdapter`, which pulls the KV
+from the prefill instance's `kv_fetch` endpoint and resumes decode with no
+prefill. The prefill pool is an EndpointClient over the prefill
+component's generate endpoint, kept by discovery: a hop picks an instance
+by the client's router mode and sends straight to it. A failed hop falls
+back to aggregated serving downstream, and a transport failure cools the
+instance down (`mark_sick`). Selection by KV overlap (the KV router) and
+the LoRA filter are not ported yet.
 """
 
 from __future__ import annotations
 
-import asyncio
-import itertools
 import logging
 from dataclasses import dataclass
-from typing import Any, AsyncIterator, Dict, Optional, Set
+from typing import Any, AsyncIterator, Dict, Optional
 
 from dynamo_tpu_torch.runtime.context import Context
-from dynamo_tpu_torch.worker_common import PREFILL_ENGINES
+from dynamo_tpu_torch.runtime.request_plane import PushRouter, RequestPlaneError
+from dynamo_tpu_torch.runtime.tasks import spawn_tracked
 
 log = logging.getLogger("dynamo_tpu_torch.prefill_router")
 
@@ -38,39 +40,26 @@ class DisaggPolicy:
         return self.enabled and len(token_ids) >= self.min_prefill_tokens
 
 
-class LocalPrefillClient:
-    """The prefill pool as the router sees it: instance ids (from
-    `worker_common.register_prefill`), picked round-robin, each request
-    sent straight to that engine's `generate`."""
-
-    def __init__(self, instance_ids):
-        self.instances = list(instance_ids)
-        self._next = itertools.cycle(self.instances)
-
-    def pick(self) -> str:
-        return next(self._next)
-
-    def direct(self, request, instance_id: str, context: Context):
-        return PREFILL_ENGINES[instance_id].generate(request, context)
-
-
 class PrefillRouter:
     """Engine wrapper. Inactive (no prefill instances) → pure passthrough.
 
-    Active: push the request to a prefill engine with disagg=prefill, emit
+    Active: push the request to a prefill worker with disagg=prefill, emit
     its first token at once, then push the decode continuation (with the
     transfer source) downstream."""
 
     def __init__(self, downstream, policy: Optional[DisaggPolicy] = None):
         self.downstream = downstream
         self.policy = policy or DisaggPolicy()
-        self._prefill_client: Optional[LocalPrefillClient] = None
-        self._tasks: Set[asyncio.Task] = set()
+        self._prefill_client = None  # EndpointClient over the prefill pool
+        self._fetch_path: Optional[str] = None
 
-    def activate(self, prefill_client: LocalPrefillClient) -> None:
+    def activate(self, prefill_client, fetch_path: str) -> None:
+        """`prefill_client`: an EndpointClient over the prefill
+        component's generate endpoint; `fetch_path`: that component's
+        kv_fetch endpoint, which the decode worker pulls from."""
         self._prefill_client = prefill_client
-        log.info("prefill router ACTIVE (%d prefill instances)",
-                 len(prefill_client.instances))
+        self._fetch_path = fetch_path
+        log.info("prefill router ACTIVE (fetch path %s)", fetch_path)
 
     @property
     def active(self) -> bool:
@@ -123,16 +112,27 @@ class PrefillRouter:
             yield item
 
     def _discard_parked(self, transfer_src) -> None:
-        """Early finish: release the prefill engine's parked pages without
+        """Early finish: release the prefill worker's parked pages without
         transferring them (fire-and-forget; the parked TTL is the
         backstop)."""
-        engine = PREFILL_ENGINES.get(transfer_src["instance_id"])
-        if engine is None:
+        client = self._prefill_client
+        if client is None:
             return
-        task = asyncio.ensure_future(
-            engine.export_parked_kv(transfer_src["request_id"], discard=True))
-        self._tasks.add(task)
-        task.add_done_callback(self._tasks.discard)
+        iid = transfer_src["instance_id"]
+
+        async def _release():
+            fetch = client.runtime.client(transfer_src["path"])
+            fetch.router.update_instance(iid, transfer_src["address"])
+            try:
+                req = {"request_id": transfer_src["request_id"], "discard": True}
+                async for _ in fetch.direct(req, iid):
+                    pass
+            except RequestPlaneError as e:
+                log.debug("parked-page discard failed (%s); TTL reclaims", e.code)
+            finally:
+                await fetch.close()
+
+        spawn_tracked(_release(), logger=log)
 
     async def _run_prefill_hop(self, request, context):
         preq = dict(request)
@@ -142,18 +142,23 @@ class PrefillRouter:
         # fresh metadata: routing pins must not leak to the prefill pool
         pctx = Context(request_id=context.id + ":prefill", parent=context)
         result = None
+        client = self._prefill_client
+        iid = None
         try:
-            client = self._prefill_client
-            iid = client.pick()
-            # read the stream to its end: closing an in-process engine
-            # stream early aborts the request, which releases parked pages
+            iid, address = client.router._pick()
+            # read the stream to its end (the done frame follows the
+            # prefill_complete item): abandoning it sends a kill
             async for item in client.direct(preq, iid, pctx):
                 kt = item.get("kv_transfer")
                 if kt is not None and result is None:
-                    result = (int(item["token_ids"][0]),
-                              {"instance_id": iid, "request_id": kt["request_id"]})
-        except Exception as e:
-            log.warning("prefill hop failed (%s); falling back to aggregated", e)
+                    src = {"instance_id": iid, "address": address,
+                           "path": self._fetch_path, "request_id": kt["request_id"]}
+                    result = (int(item["token_ids"][0]), src)
+        except RequestPlaneError as e:
+            if iid is not None and e.code in PushRouter.SICK_CODES:
+                # cool the dead prefill instance so the next hop avoids it
+                client.router.mark_sick(iid)
+            log.warning("prefill hop failed (%s); falling back to aggregated", e.code)
             return None
         if result is None:
             log.warning("prefill hop returned no kv_transfer; falling back")

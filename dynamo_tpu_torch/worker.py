@@ -1,26 +1,56 @@
-"""Worker construction for the PyTorch port: parse args, build the runner
-and the engine.
+"""The port's worker: parse args, build the runner and the engine, and
+serve it.
 
-Port of dynamo_tpu/worker.py `parse_args`, `build_runner` and
-`build_engine`, with the reference's names and the flags this slice uses.
-Serving the engine over the request plane (the reference worker's main)
-is not ported yet; callers drive `engine.generate` directly, and
-`disagg_endpoint` gives what a `--disagg-role` worker offers in process.
+Port of dynamo_tpu/worker.py `parse_args`, `build_runner`, `build_engine`,
+`async_main` and `main`, with the reference's names and flags:
+
+    python -m dynamo_tpu_torch.worker --model llama-3.2-3b \
+        --discovery-backend file --discovery-root DIR
+
+registers an instance in discovery, serves `generate`, `kv_fetch` and
+`kv_state` over the request plane (TCP unless `--request-plane inproc`),
+publishes KV events and forward-pass metrics on the event plane, prints
+"worker serving <model> at <ns/component/endpoint>", and on SIGTERM or
+SIGINT unregisters, drains in-flight requests and exits 0. The engine
+runs on CUDA unless `--device cpu`. Checkpoint loading, the engine
+sidecar, multi-host groups, vision, the status server and the shadow
+failover are not ported yet (weights are random, from seed 0).
 """
 
 from __future__ import annotations
 
 import argparse
+import asyncio
+import logging
+import signal
 
 from dynamo_tpu_torch.engine.engine import InferenceEngine
 from dynamo_tpu_torch.engine.model_runner import ModelRunner
+from dynamo_tpu_torch.frontend.protocols import ModelCard
 from dynamo_tpu_torch.models.config import ModelConfig, get_config
-from dynamo_tpu_torch.worker_common import DisaggDecodeAdapter, register_prefill
+from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+from dynamo_tpu_torch.worker_common import serve_worker
+
+log = logging.getLogger("dynamo_tpu_torch.worker")
 
 
 def parse_args(argv=None):
     p = argparse.ArgumentParser("dynamo_tpu_torch.worker")
     p.add_argument("--model", default="tiny", help="model config preset name")
+    p.add_argument("--model-name", default=None,
+                   help="served model name (default: config name)")
+    p.add_argument("--tokenizer", default="byte",
+                   help="'byte' or path to tokenizer.json (published in the "
+                        "model card; the worker itself takes token ids)")
+    p.add_argument("--namespace", default="dyn")
+    p.add_argument("--component", default="tpu-worker")
+    p.add_argument("--endpoint", default="generate")
+    p.add_argument("--discovery-backend", default=None,
+                   help="mem | file (default: DYN_DISCOVERY_BACKEND or mem)")
+    p.add_argument("--discovery-root", default=None,
+                   help="file discovery: the shared directory of records")
+    p.add_argument("--request-plane", default=None, choices=[None, "tcp", "inproc"],
+                   help="request plane (default: DYN_REQUEST_PLANE or tcp)")
     p.add_argument("--device", default=None,
                    help="torch device (default cuda; 'cpu' runs the plain "
                         "PyTorch attention path)")
@@ -109,14 +139,52 @@ def build_engine(args, runner=None) -> InferenceEngine:
     )
 
 
-def disagg_endpoint(engine, args):
-    """What a worker of `--disagg-role` serves in process until the
-    request plane is ported: a prefill worker registers its engine as a
-    colocated prefill instance and returns the instance id; a decode worker
-    returns the DisaggDecodeAdapter over its engine (pull chunks of
-    `--disagg-chunk-pages`); an aggregated worker, the engine itself."""
-    if args.disagg_role == "prefill":
-        return register_prefill(engine)
-    if args.disagg_role == "decode":
-        return DisaggDecodeAdapter(engine, chunk_pages=args.disagg_chunk_pages)
-    return engine
+def model_card(args, config: ModelConfig) -> ModelCard:
+    """The card the worker publishes in its instance metadata."""
+    return ModelCard(name=args.model_name or config.name, tokenizer=args.tokenizer,
+                     context_length=args.max_seq_len, kv_block_size=args.page_size)
+
+
+async def serve_args(runtime, engine, args, **kw):
+    """serve_worker with the worker flags: namespace, component,
+    endpoint, disaggregated role and pull chunk size."""
+    return await serve_worker(
+        runtime, engine, model_card(args, engine.runner.config),
+        namespace=args.namespace, component=args.component, endpoint=args.endpoint,
+        disagg_role=args.disagg_role, disagg_chunk_pages=args.disagg_chunk_pages, **kw)
+
+
+async def async_main(args) -> None:
+    kw = {}
+    if args.discovery_root:
+        kw["root"] = args.discovery_root
+    runtime = DistributedRuntime(discovery_backend=args.discovery_backend,
+                                 request_plane=args.request_plane, **kw)
+    # weight draw and pool allocation: off the loop
+    engine = await asyncio.to_thread(build_engine, args)
+    worker = await serve_args(runtime, engine, args)
+    path = f"{args.namespace}/{args.component}/{args.endpoint}"
+    print(f"worker serving {worker.instance.metadata['model_card']['name']} at "
+          f"{path} ({worker.instance.address})", flush=True)
+    stop = asyncio.Event()
+    loop = asyncio.get_running_loop()
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        loop.add_signal_handler(sig, stop.set)
+    try:
+        await stop.wait()
+        print("draining...", flush=True)
+    finally:
+        # unregister first (clients stop picking this instance), let the
+        # in-flight requests finish, then stop the engine
+        await runtime.shutdown()
+        await worker.stop()
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=logging.INFO,
+                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    asyncio.run(async_main(parse_args(argv)))
+
+
+if __name__ == "__main__":
+    main()

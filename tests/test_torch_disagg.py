@@ -2,11 +2,14 @@
 process on the CPU at f32 (the counterparts of tests/test_disagg.py and
 tests/test_kv_tiers.py).
 
-A prefill engine and a decode engine hold the same tiny params; a
-PrefillRouter drives them. Greedy output through the device transfer, the
-chunked host-staged pull and the monolithic pull must equal aggregated
-serving (and the JAX engine's) token for token, with no prefill pass on
-the decode engine. A truncated pull recomputes; an early stop releases
+A prefill engine and a decode engine hold the same tiny params, each served
+by serve_worker on its own runtime over the in-process request plane; a
+PrefillRouter over the prefill component (from discovery) drives them,
+sending the decode continuation to the decode worker over the plane.
+Greedy output through the device transfer (a colocated prefill instance),
+the chunked host-staged pull and the monolithic pull (through the prefill
+worker's kv_fetch endpoint) must equal aggregated serving (and the JAX
+engine's) token for token, with no prefill pass on the decode engine. A truncated pull recomputes; an early stop releases
 the parked pages. With a host tier, evicted prefix pages come back on a
 prefix hit, in one or three layer groups, and the greedy stream equals a
 cold prefill's and the JAX engine's with the same tier.
@@ -14,6 +17,8 @@ cold prefill's and the JAX engine's with the same tier.
 
 import asyncio
 import dataclasses
+import gc
+import uuid
 
 import jax
 import jax.numpy as jnp
@@ -30,17 +35,14 @@ from dynamo_tpu_torch.engine.engine import InferenceEngine
 from dynamo_tpu_torch.engine.model_runner import ModelRunner
 from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.models.config import get_config
-from dynamo_tpu_torch.router.prefill_router import (
-    DisaggPolicy,
-    LocalPrefillClient,
-    PrefillRouter,
-)
+from dynamo_tpu_torch.frontend.protocols import ModelCard
+from dynamo_tpu_torch.router.prefill_router import DisaggPolicy, PrefillRouter
+from dynamo_tpu_torch.runtime.component import Instance
 from dynamo_tpu_torch.runtime.context import Context
-from dynamo_tpu_torch.worker_common import (
-    LOCAL_ENGINES,
-    DisaggDecodeAdapter,
-    register_prefill,
-)
+from dynamo_tpu_torch.runtime.discovery import MemDiscovery
+from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+from dynamo_tpu_torch.runtime.request_plane import reset_inproc
+from dynamo_tpu_torch.worker_common import LOCAL_ENGINES, serve_worker
 
 PS = 4
 GEOMETRY = dict(num_pages=64, page_size=PS, max_pages_per_seq=16,
@@ -48,6 +50,14 @@ GEOMETRY = dict(num_pages=64, page_size=PS, max_pages_per_seq=16,
 _rng = np.random.default_rng(5)
 PROMPTS = [_rng.integers(1, 500, size=n).tolist() for n in (20, 33, 9, 28)]
 MAX_TOKENS = 6
+CARD = ModelCard(name="tiny", context_length=64, kv_block_size=PS)
+
+
+@pytest.fixture(autouse=True)
+def _fresh_registries():
+    yield
+    MemDiscovery.reset()
+    reset_inproc()
 
 
 def _req(prompt, max_tokens=MAX_TOKENS, **stop):
@@ -100,12 +110,27 @@ def aggregated(jparams):
     return asyncio.run(serve())
 
 
-def _disagg(jparams, colocated, chunk_pages, min_prefill_tokens=8):
+def _runtime(realm):
+    return DistributedRuntime(discovery=MemDiscovery(realm=realm),
+                              event_transport="inproc", request_plane="inproc")
+
+
+async def _disagg(jparams, colocated, chunk_pages, min_prefill_tokens=8):
+    """A prefill and a decode worker, each on its own in-process runtime;
+    a colocated prefill instance is pulled on the device, any other
+    through its kv_fetch endpoint. The router runs on a third runtime."""
     prefill, decode = _engine(jparams), _engine(jparams)
-    iid = register_prefill(prefill, colocated=colocated)
-    router = PrefillRouter(DisaggDecodeAdapter(decode, chunk_pages=chunk_pages),
-                           DisaggPolicy(min_prefill_tokens=min_prefill_tokens))
-    router.activate(LocalPrefillClient([iid]))
+    realm = uuid.uuid4().hex
+    await serve_worker(_runtime(realm), prefill, CARD, component="prefill",
+                       disagg_role="prefill", colocated=colocated)
+    await serve_worker(_runtime(realm), decode, CARD, component="decode",
+                       disagg_role="decode", disagg_chunk_pages=chunk_pages)
+    front = _runtime(realm)
+    downstream, pool = front.client("dyn/decode/generate"), front.client("dyn/prefill/generate")
+    await downstream.wait_ready()
+    await pool.wait_ready()
+    router = PrefillRouter(downstream, DisaggPolicy(min_prefill_tokens=min_prefill_tokens))
+    router.activate(pool, "dyn/prefill/kv_fetch")
     return prefill, decode, router
 
 
@@ -135,7 +160,7 @@ async def _settle_parked(engine):
 @pytest.mark.parametrize("path,chunk_pages", [
     ("device", 16), ("host_chunked", 2), ("host_monolithic", 0)])
 async def test_disagg_matches_aggregated(jparams, aggregated, path, chunk_pages):
-    prefill, decode, router = _disagg(jparams, path == "device", chunk_pages)
+    prefill, decode, router = await _disagg(jparams, path == "device", chunk_pages)
     calls = _spy_imports(decode.runner)
     try:
         # two alone, then two at once (their transfers overlap)
@@ -171,7 +196,7 @@ async def test_park_after_fused_chunks(jparams, aggregated, monkeypatch):
     disagg prompt's chunks ride fused mixed dispatches: its last chunk
     parks through _finish_packed_prefills, and the pull still matches."""
     monkeypatch.setenv("DYN_FUSED_MIXED", "1")
-    prefill, decode, router = _disagg(jparams, True, 16)
+    prefill, decode, router = await _disagg(jparams, True, 16)
     assert prefill.fused_mixed
     try:
         running = asyncio.ensure_future(_collect(prefill, _req(PROMPTS[0], 40)))
@@ -192,7 +217,7 @@ async def test_truncated_pull_recomputes(jparams, aggregated, caplog):
     """The parked entry expires after the first chunk: the pull is
     truncated, the decode engine prefills the prompt itself, and the
     output is unchanged."""
-    prefill, decode, router = _disagg(jparams, False, 2)
+    prefill, decode, router = await _disagg(jparams, False, 2)
     export_chunk = prefill._export_chunk
 
     def expiring(rid, start, n, last):
@@ -223,7 +248,7 @@ async def test_early_finish_discards_parked_pages(jparams, aggregated, early):
         req, want = _req(PROMPTS[0], stop_ids=[first]), ([], "stop")
     else:
         req, want = _req(PROMPTS[0], max_tokens=1), ([first], "length")
-    prefill, decode, router = _disagg(jparams, True, 16)
+    prefill, decode, router = await _disagg(jparams, True, 16)
     try:
         got = (await _collect(router, req))[:2]
         await _settle_parked(prefill)
@@ -239,10 +264,14 @@ async def test_early_finish_discards_parked_pages(jparams, aggregated, early):
 async def test_short_prompts_and_failed_hops_serve_aggregated(jparams, aggregated):
     """Below min_prefill_tokens, and when the prefill hop fails, the decode
     engine serves the request itself."""
-    prefill, decode, router = _disagg(jparams, True, 16, min_prefill_tokens=10)
+    prefill, decode, router = await _disagg(jparams, True, 16, min_prefill_tokens=10)
     try:
         short = (await _collect(router, _req(PROMPTS[2])))[:2]  # 9 tokens
-        router.activate(LocalPrefillClient(["no-such-instance"]))
+        # a prefill pool whose one instance is gone
+        pool = router._prefill_client.runtime.client("dyn/gone/generate")
+        pool.instances[1] = Instance("dyn", "gone", "generate", 1, address="inproc://gone")
+        pool.router.update_instance(1, "inproc://gone")
+        router.activate(pool, "dyn/gone/kv_fetch")
         failed = (await _collect(router, _req(PROMPTS[0])))[:2]
     finally:
         prefill.stop()
@@ -254,14 +283,19 @@ async def test_short_prompts_and_failed_hops_serve_aggregated(jparams, aggregate
 
 
 def test_local_registry_is_weak(jparams):
-    """A prefill engine that goes away leaves the registry (the reference's
-    WeakValueDictionary)."""
-    eng = _engine(jparams)
-    iid = register_prefill(eng)
-    assert LOCAL_ENGINES[iid] is eng
-    del eng
-    import gc
+    """A served prefill engine that goes away leaves the registry (the
+    reference's WeakValueDictionary)."""
+    async def serve():
+        rt = _runtime(uuid.uuid4().hex)
+        eng = _engine(jparams)
+        worker = await serve_worker(rt, eng, CARD, component="prefill")
+        iid = worker.instance.instance_id
+        assert LOCAL_ENGINES[iid] is eng
+        await rt.shutdown(drain_timeout=0)
+        await worker.stop()
+        return iid
 
+    iid = asyncio.run(serve())
     gc.collect()
     assert iid not in LOCAL_ENGINES
 

@@ -1,8 +1,11 @@
 """The port stands alone: dynamo_tpu_torch, chip_smoke.py,
-scripts/torch_profile.py, scripts/mla_prefill_variants.py and
-scripts/int8_body_variants.py import neither JAX nor anything of the
-dynamo_tpu package, nor ml_dtypes (the machine with the card has none of
-them). Note the prefix: `dynamo_tpu_torch` starts with `dynamo_tpu`.
+scripts/torch_profile.py, scripts/mla_prefill_variants.py,
+scripts/int8_body_variants.py and scripts/engine_ab.py import neither JAX nor anything of the
+dynamo_tpu package, nor ml_dtypes, msgpack, zmq, aiohttp, jinja2,
+tokenizers or prometheus_client (the machine with the card has none of
+them; the request plane frames with runtime/codec.py instead of msgpack,
+and the event plane is TCP instead of ZMQ). Note the prefix:
+`dynamo_tpu_torch` starts with `dynamo_tpu`.
 """
 
 import ast
@@ -25,9 +28,12 @@ ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "dynamo_tpu_torch"
 
 
+FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "ml_dtypes", "msgpack", "zmq",
+             "aiohttp", "jinja2", "tokenizers", "prometheus_client")
+
+
 def _forbidden(name: str) -> bool:
-    top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "dynamo_tpu", "ml_dtypes")
+    return name.split(".")[0] in FORBIDDEN
 
 
 def _modules():
@@ -45,7 +51,11 @@ def test_every_module_imports_without_jax_or_dynamo_tpu():
               "ops.mla_attention", "models.mla", "ops.paged_attention",
               "ops.flash_prefill", "models.llama", "models.toolkit",
               "engine.weights", "worker", "models.quant", "models.moe",
-              "ops.moe_dispatch"):
+              "ops.moe_dispatch", "runtime.codec", "runtime.tasks",
+              "runtime.engine", "runtime.component", "runtime.discovery",
+              "runtime.request_plane", "runtime.event_plane",
+              "runtime.metrics", "runtime.distributed", "frontend.protocols",
+              "router.protocols", "router.publisher"):
         assert f"dynamo_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -64,7 +74,7 @@ def test_no_source_file_imports_jax_or_dynamo_tpu():
     files = sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile.py",
         ROOT / "scripts" / "mla_prefill_variants.py",
-        ROOT / "scripts" / "int8_body_variants.py"]
+        ROOT / "scripts" / "int8_body_variants.py", ROOT / "scripts" / "engine_ab.py"]
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -82,6 +92,8 @@ def test_no_source_file_imports_jax_or_dynamo_tpu():
 def test_forbidden_prefix_rule():
     assert _forbidden("dynamo_tpu") and _forbidden("dynamo_tpu.engine")
     assert _forbidden("jax.numpy") and _forbidden("ml_dtypes")
+    assert all(_forbidden(m) for m in ("msgpack", "zmq.asyncio", "aiohttp.web",
+                                        "jinja2", "tokenizers", "prometheus_client"))
     assert not _forbidden("dynamo_tpu_torch") and not _forbidden("dynamo_tpu_torch.ops")
 
 
