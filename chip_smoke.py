@@ -122,15 +122,20 @@ Phases, each printing one JSON line:
      served  - the request plane. `engine_served_disagg`: a prefill
                and a decode worker (the 3B params again, 1024 pages each)
                served by serve_worker over TCP on loopback in this process,
-               neither registered colocated, behind a PrefillRouter from
-               discovery: the 8 requests, every pull host-staged through
+               neither registered colocated, behind the chain of a `kv`
+               ModelWatcher's model entry (the frontend's: migration,
+               backend, PrefillRouter, KvPushRouter, both pools from
+               discovery): the 8 requests, every pull host-staged through
                kv_fetch in chunks of 16 pages; no recompute fallback, the
                copy kernels' launches equal to the chunks pulled and the
                imports x 2 pools, the attention kernels' launches equal to
                both runners' passes x 28, and the prefill worker's KV
                events (a TCP event-plane subscriber) carrying store events
                for every full page of every prompt; the pull's ms and GB/s
-               beside engine_disagg's host-staged pull. Then, with this
+               beside engine_disagg's host-staged pull; then a prompt
+               repeating the 1500-token prompt's first 1024 tokens must
+               hop to the prefill instance with >= 63 blocks of overlap
+               on the prefill pool's KvRouter. Then, with this
                process's runners freed, `engine_served`: `python -m
                dynamo_tpu_torch.worker` with engine_fused's flags as a
                process of its own on the card, file discovery on a
@@ -142,7 +147,21 @@ Phases, each printing one JSON line:
                once (each finishing with its 32 tokens), and reports TTFT
                and e2e over the wire beside the in-process engine's, run
                the same way, and engine_fused's; SIGTERM must end the
-               worker with exit code 0;
+               worker with exit code 0. Then `engine_frontend`: two such
+               worker processes behind the HTTP frontend (HttpService in
+               `kv` mode in this process, the standard library's HTTP
+               client): greedy streams through the chain equal to
+               alone_phase's, the same 8 over HTTP unary and streamed
+               (32 tokens each, the streamed text its tokens' bytes,
+               `data: [DONE]`), TTFT and e2e over HTTP on cold prompts
+               beside engine_served's, a repeated 1024-token prefix routed
+               to the worker that holds it (>= 63 blocks) with its TTFT
+               beside cold prompts', 8 distinct prompts spread over both
+               workers, a 256-token stream whose worker is SIGKILLed after
+               16 tokens migrating and finishing, a dropped client's pages
+               freed (the survivor's FPM), and `python -m
+               dynamo_tpu_torch.frontend --router-mode kv` serving and
+               exiting 0 on SIGTERM, as the worker after it;
      int8    - with the 3B runner freed, the slice's main path:
                llama-3.1-8b at full width and depth with
                --kv-quantize int8 (`engine_int8kv` fused and
@@ -301,6 +320,7 @@ from dynamo_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention,
     ragged_paged_attention_ref,
 )
+from dynamo_tpu_torch.frontend.service import ModelManager, ModelWatcher
 from dynamo_tpu_torch.router.prefill_router import DisaggPolicy, PrefillRouter
 from dynamo_tpu_torch.router.protocols import KV_EVENT_SUBJECT
 from dynamo_tpu_torch.runtime.context import Context
@@ -1717,22 +1737,20 @@ def _runtime(realm: str, plane: str, events: str = "inproc"):
                               event_transport=events, request_plane=plane)
 
 
-async def _disagg_fleet(prefill, decode, p_args, d_args, plane, host_only):
+async def _disagg_fleet(prefill, decode, p_args, d_args):
     """Serve the prefill and the decode engine with serve_worker, each on
-    its own runtime over `plane`, and put a PrefillRouter over them on a
-    third: its prefill pool and its downstream decode client come from
-    discovery. Unless `host_only`, the prefill engine is served twice, as
-    a colocated instance (pulled on the device) and as one pulled
+    its own runtime over the in-process plane, and put a PrefillRouter
+    over them on a third: its prefill pool and its downstream decode
+    client come from discovery. The prefill engine is served twice, as a
+    colocated instance (pulled on the device) and as one pulled
     host-staged through kv_fetch; the router alternates between them.
     Returns (router, prefill instances, decode worker, close)."""
-    realm = f"{plane}-{host_only}"
-    rts = [_runtime(realm, plane, "tcp") for _ in range(3)]
-    p_ws = [await serve_args(rts[0], prefill, p_args, colocated=not host_only)]
-    if not host_only:
-        rts.append(_runtime(realm, plane))
-        p_ws.append(await serve_args(rts[-1], prefill, p_args, colocated=False,
-                                     publish_kv_events=False, publish_fpm=False))
-    d_w = await serve_args(rts[1], decode, d_args, colocated=not host_only)
+    realm = "inproc-disagg"
+    rts = [_runtime(realm, "inproc", "tcp") for _ in range(3)] + [_runtime(realm, "inproc")]
+    p_ws = [await serve_args(rts[0], prefill, p_args),
+            await serve_args(rts[3], prefill, p_args, colocated=False,
+                             publish_kv_events=False, publish_fpm=False)]
+    d_w = await serve_args(rts[1], decode, d_args)
     front = rts[2]
     downstream = front.client(f"dyn/{d_args.component}/generate")
     pool = front.client(f"dyn/{p_args.component}/generate")
@@ -1752,6 +1770,50 @@ async def _disagg_fleet(prefill, decode, p_args, d_args, plane, host_only):
             await w.stop()
 
     return router, p_ws, d_w, close
+
+
+async def _frontend_disagg_fleet(prefill, decode, p_args, d_args):
+    """Serve the prefill and the decode engine with serve_worker over TCP,
+    each on its own runtime, neither colocated, and put a `kv` ModelWatcher
+    over them on a third runtime, as the frontend does: its model entry's
+    chain (migration, backend, PrefillRouter, KvPushRouter) sends prompts
+    of 16 tokens or more through the prefill worker, chosen by a KvRouter
+    over the prefill pool. Returns (entry, prefill worker, decode worker,
+    close)."""
+    realm = "tcp-frontend"
+    rts = [_runtime(realm, "tcp", "tcp") for _ in range(3)]
+    p_w = await serve_args(rts[0], prefill, p_args, colocated=False)
+    d_w = await serve_args(rts[1], decode, d_args, colocated=False)
+    manager = ModelManager()
+    watcher = ModelWatcher(rts[2], manager, router_mode="kv", disagg_min_prefill_tokens=16)
+    await watcher.wait_for_model(timeout=60)
+    entry = manager.get(d_w.instance.metadata["model_card"]["name"])
+    while not (entry.prefill_router.active and entry.prefill_kv_router.workers()):
+        await asyncio.sleep(0.01)  # bounded by the caller's wait_for
+    await entry.chain.sink.router.start()
+
+    async def close():
+        await watcher.stop()
+        for rt in rts:
+            await rt.shutdown(drain_timeout=10)
+        for w in (d_w, p_w):
+            await w.stop()
+
+    return entry, p_w, d_w, close
+
+
+def _spy_routes(kv_router):
+    """Record (request id, worker, overlap) of every request `kv_router`
+    charges."""
+    routes = []
+    add = kv_router.add_request
+
+    def spy(rid, worker, hashes, overlap):
+        routes.append((rid, worker, overlap))
+        return add(rid, worker, hashes, overlap)
+
+    kv_router.add_request = spy
+    return routes
 
 
 async def _serve_disagg(router, reqs, late):
@@ -1806,8 +1868,7 @@ def disagg_phase(params):
     prompts = [r["token_ids"] for r in reqs + [late]]
 
     async def serve():
-        router, p_ws, d_w, close = await _disagg_fleet(
-            prefill, decode, p_args, d_args, "inproc", host_only=False)
+        router, p_ws, d_w, close = await _disagg_fleet(prefill, decode, p_args, d_args)
         fetch = d_w.handler._fetch
         iid_dev = p_ws[0].instance.instance_id
 
@@ -2039,28 +2100,454 @@ def served_phase(in_process, fused_rec, V):
     return rec
 
 
+MODEL = ENGINE_ARGS[1]
+FRONTEND_MIGRATE_TOKENS = 256  # the migrated stream's length
+FRONTEND_KILL_AFTER = 16  # its worker is SIGKILLed after this many tokens
+
+
+class _ChainTap:
+    """A model entry's chain, recording each request's tokens and the
+    times of its first and last token as they leave the chain, by request
+    id (a stream's X-Request-Id): the text of a random-weight 3B's stream
+    is mostly empty (ids >= 256 decode to nothing), so its tokens are read
+    here."""
+
+    def __init__(self, chain):
+        self.chain = chain
+        self.tokens, self.times = {}, {}  # request id -> token ids, item times
+
+    def t_first(self, rid):
+        return self.times[rid][0] if self.times.get(rid) else None
+
+    def get(self, name):
+        return self.chain.get(name)
+
+    @property
+    def sink(self):
+        return self.chain.sink
+
+    async def teardown(self):
+        await self.chain.teardown()
+
+    async def generate(self, request, context):
+        toks = self.tokens.setdefault(context.id, [])
+        times = self.times.setdefault(context.id, [])
+        async for item in self.chain.generate(request, context):
+            if item.get("token_ids"):
+                times.append(time.monotonic())
+                toks.extend(item["token_ids"])
+            yield item
+
+
+def _http_body(req, stream=False):
+    """A workload request as an OpenAI completions body: token-id prompt,
+    its sampling, N_OUT tokens, EOS ignored."""
+    s = req["sampling"]
+    body = {"model": MODEL, "prompt": req["token_ids"], "stream": stream,
+            "max_tokens": req["stop"]["max_tokens"], "ignore_eos": True,
+            **{k: s[k] for k in ("temperature", "top_p", "seed") if k in s}}
+    if stream:
+        body["stream_options"] = {"include_usage": True}
+    return body
+
+
+def _http(port, method, path, body=None, headers=None):
+    """One request over http.client: (status, headers, body bytes)."""
+    import http.client
+
+    c = http.client.HTTPConnection("127.0.0.1", port, timeout=SERVE_TIMEOUT_S)
+    try:
+        c.request(method, path, json.dumps(body) if body is not None else None,
+                  {"Content-Type": "application/json", **(headers or {})})
+        r = c.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        c.close()
+
+
+def _sse(data: bytes):
+    return [e[len("data: "):] for e in data.decode().split("\n\n") if e.startswith("data: ")]
+
+
+async def _http_timed(port, body, tap):
+    """A streamed completion over HTTP on the client's clock: TTFT to its
+    first token leaving the frontend's chain (the SSE chunk carrying it
+    may wait for text), e2e to `data: [DONE]`."""
+    t0 = time.monotonic()
+    status, headers, data = await asyncio.to_thread(_http, port, "POST", "/v1/completions",
+                                                    body)
+    t_end = time.monotonic()
+    rid = headers.get("X-Request-Id")
+    events = _sse(data)
+    check(status == 200 and events[-1:] == ["[DONE]"],
+          f"frontend: stream {rid} answered {status}, ends {events[-1:]}")
+    chunks = [json.loads(e) for e in events[:-1]]
+    check(not any("error" in c for c in chunks), f"frontend: stream {rid} errored: {chunks}")
+    return {"rid": rid, "chunks": chunks, "tokens": tap.tokens.get(rid, []),
+            "text": "".join(ch["text"] for c in chunks for ch in c["choices"]),
+            "usage": chunks[-1].get("usage"),
+            "ttft_s": (tap.t_first(rid) or t_end) - t0, "e2e_s": t_end - t0}
+
+
+async def _open_stream(port, body):
+    """Send a streamed completion on a raw connection and read its head:
+    (reader, writer, request id)."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    data = json.dumps(body).encode()
+    writer.write(b"POST /v1/completions HTTP/1.1\r\nHost: chip-smoke\r\n"
+                 b"Content-Type: application/json\r\nContent-Length: %d\r\n\r\n%s"
+                 % (len(data), data))
+    await writer.drain()
+    head = (await reader.readuntil(b"\r\n\r\n")).decode()
+    check(head.startswith("HTTP/1.1 200"), f"frontend: stream refused: {head}")
+    rid = re.search(r"X-Request-Id: (\S+)", head).group(1)
+    return reader, writer, rid
+
+
+async def _read_chunked(reader) -> bytes:
+    """The rest of a chunked body, de-chunked."""
+    out = b""
+    while True:
+        n = int((await reader.readline()).split(b";")[0], 16)
+        if n == 0:
+            await reader.readline()
+            return out
+        out += await reader.readexactly(n)
+        await reader.readline()
+
+
+async def _until(cond, what, bound):
+    t0 = time.monotonic()
+    while not cond():
+        if time.monotonic() - t0 > bound:
+            raise CheckFailed(f"frontend: timed out waiting for {what}")
+        await asyncio.sleep(0.01)
+
+
+async def _spawn(args, root, marker, log_path):
+    """`python -m <args>` on the discovery root; returns (process, the
+    line starting with `marker`) once it prints it."""
+    with open(log_path, "w") as log_file:
+        proc = await asyncio.create_subprocess_exec(
+            sys.executable, "-m", *args, "--discovery-backend", "file",
+            "--discovery-root", root, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            stdout=asyncio.subprocess.PIPE, stderr=log_file)
+    while True:
+        line = (await asyncio.wait_for(proc.stdout.readline(), SERVE_TIMEOUT_S)).decode()
+        if not line:
+            tail = Path(log_path).read_text()[-3000:]
+            raise CheckFailed(f"frontend: {args[0]} exited ({await proc.wait()}) "
+                              f"before serving:\n{tail}")
+        if line.startswith(marker):
+            return proc, line.strip()
+
+
+def frontend_phase(in_process, V, served_rec, smi):
+    """`engine_frontend`: two `python -m dynamo_tpu_torch.worker`
+    processes (engine_served's flags) on one file-discovery root, behind
+    an HttpService in this process in `kv` mode (its KV router read here,
+    its chain tapped for token ids). The HTTP client is the standard
+    library's. Passes, one request at a time unless said:
+      - workload(seed 2) over HTTP unary (the workers' first run of each
+        shape): usage 32 each;
+      - workload(seed 1) through the entry's chain: each greedy stream
+        equal to alone_phase's in-process stream;
+      - the same 8 over HTTP streamed and unary: usage 32, the streamed
+        text equal to ByteTokenizer.decode of the stream's tokens, ends in
+        `data: [DONE]`; one chat completion stream ends in it too;
+      - workload(seed 3) streamed (cold prompts): TTFT and e2e over HTTP
+        beside engine_served's;
+      - a 1024-token prompt, then three prompts sharing it: each selects
+        and is routed to the worker that holds it with >= 63 blocks of
+        overlap; their TTFT beside three cold prompts of the same length;
+        8 distinct prompts at once use both workers;
+      - a 256-token stream whose worker is SIGKILLed after 16 tokens
+        finishes with 256 tokens and no error, one migration counted;
+      - a stream on the survivor dropped by its client: the survivor's
+        forward-pass metrics (FPM) show no page of it held;
+      - `python -m dynamo_tpu_torch.frontend --router-mode kv` in front of
+        the survivor lists the model and streams a completion; after
+        SIGTERM it exits 0, then the worker does."""
+    alone = in_process[0]
+    reqs, late = workload(V, seed=1)
+    reqs = reqs + [late]
+    warm, warm_late = workload(V, seed=2)
+    cold, cold_late = workload(V, seed=3)
+    greedy = [i for i in range(len(reqs)) if i not in (2, 5)]
+    gen = torch.Generator(device="cpu").manual_seed(23)
+
+    def prompt(n):
+        return torch.randint(0, V, (n,), generator=gen).tolist()
+
+    def req(p, n_out=8):
+        return {"model": MODEL, "prompt": p, "max_tokens": n_out, "temperature": 0,
+                "ignore_eos": True}
+
+    async def run(root):
+        from dynamo_tpu_torch.frontend.http import HttpService
+        from dynamo_tpu_torch.frontend.tokenizer import ByteTokenizer
+        from dynamo_tpu_torch.router.protocols import FPM_SUBJECT
+
+        rec = {"phase": "engine_frontend", "model": MODEL, "nvidia_smi": smi}
+        t_phase = time.monotonic()
+        procs = {}
+        rt = DistributedRuntime(discovery=FileDiscovery(root, poll_interval=0.05))
+        manager = ModelManager()
+        svc = HttpService(rt, manager, ModelWatcher(rt, manager, router_mode="kv"),
+                          host="127.0.0.1", port=0)
+        sub = rt.event_subscriber([FPM_SUBJECT])
+        fpm = []
+        listener = None
+        try:
+            t0 = time.monotonic()
+            started = await asyncio.gather(*[_spawn(
+                ["dynamo_tpu_torch.worker", *ENGINE_ARGS], root, "worker serving",
+                os.path.join(root, f"worker{i}.log")) for i in range(2)])
+            rec["worker_start_s"] = time.monotonic() - t0
+            for proc, line in started:
+                procs[line.rsplit("(", 1)[1].rstrip(")")] = proc
+            rec["workers"] = [line for _, line in started]
+            await svc.start()
+            port = svc.port
+            await svc.watcher.wait_for_model(timeout=60)
+            entry = manager.get(MODEL)
+            await _until(lambda: len(entry.client.instances) == 2, "both workers", 60)
+            tap = entry.chain = _ChainTap(entry.chain)
+            kv = entry.chain.sink.router
+            await kv.start()
+            routes = _spy_routes(kv)
+
+            def proc_of(iid):
+                return procs[entry.client.instances[iid].address]
+
+            async def unary(body):
+                status, _, data = await asyncio.to_thread(_http, port, "POST",
+                                                          "/v1/completions", body)
+                check(status == 200, f"frontend: unary answered {status}: {data[:300]}")
+                return json.loads(data)
+
+            # 1. the workers' first run of each shape, unary
+            for r in warm + [warm_late]:
+                usage = (await unary(_http_body(r)))["usage"]
+                check(usage["completion_tokens"] == N_OUT, f"frontend: warm usage {usage}")
+            # 2. through the chain: greedy streams equal in process
+            chain = []
+            for i, r in enumerate(reqs):
+                pre = entry.preprocessor.preprocess_completions(_http_body(r))
+                chain.append(await _collect_timed(entry.chain, pre, f"chain{i}"))
+            _check_finished("frontend_chain", chain, V)
+            same = [chain[i]["tokens"] == alone[i]["tokens"] for i in range(len(reqs))]
+            check(all(same[i] for i in greedy),
+                  f"frontend: greedy chain streams differ from in process: {same}")
+            rec["chain_greedy_streams_equal"] = sum(same[i] for i in greedy)
+            rec["chain_greedy_streams"] = len(greedy)
+            rec["sampled_streams_equal"] = [same[i] for i in range(len(reqs)) if i not in greedy]
+            rec["one_at_a_time_chain"] = _latency(chain)
+            # 3. the same 8 over HTTP, streamed then unary
+            byte_tok = ByteTokenizer()
+            streamed = [await _http_timed(port, _http_body(r, stream=True), tap) for r in reqs]
+            for s in streamed:
+                check(s["usage"]["completion_tokens"] == N_OUT == len(s["tokens"]),
+                      f"frontend: stream {s['rid']}: usage {s['usage']}, "
+                      f"{len(s['tokens'])} tokens")
+                # the backend holds back a trailing partial UTF-8 sequence,
+                # and a max_tokens finish does not flush it (the reference's
+                # backend.py does the same)
+                full = byte_tok.decode(s["tokens"])
+                check(full.startswith(s["text"]) and not full[len(s["text"]):].strip("\ufffd"),
+                      f"frontend: stream {s['rid']}'s text is not its tokens' bytes")
+            for r in reqs:
+                usage = (await unary(_http_body(r)))["usage"]
+                check(usage["completion_tokens"] == N_OUT, f"frontend: unary usage {usage}")
+            status, _, data = await asyncio.to_thread(_http, port, "POST",
+                                                      "/v1/chat/completions", {
+                "model": MODEL, "messages": [{"role": "user", "content": "hello"}],
+                "max_tokens": 8, "temperature": 0, "ignore_eos": True, "stream": True})
+            check(status == 200 and _sse(data)[-1:] == ["[DONE]"],
+                  f"frontend: chat stream answered {status}, ends {_sse(data)[-1:]}")
+            # 4. cold prompts streamed: TTFT and e2e over HTTP
+            cold_http = [await _http_timed(port, _http_body(r, stream=True), tap)
+                         for r in cold + [cold_late]]
+            rec["one_at_a_time_http"] = _latency(cold_http)
+            rec["engine_served_one_at_a_time"] = served_rec["one_at_a_time"]
+            # 5. KV routing: a 1024-token prefix and three prompts sharing it
+            prefix = prompt(1024)
+            await unary(req(prefix + prompt(64), 4))
+            seeded = routes[-1][1]
+            held = block_hashes(prefix, PAGE_SIZE)
+            await _until(lambda: kv.indexer.index.find_matches(held).scores.get(seeded, 0)
+                         >= 63, "the indexer to hold the prefix", 30)
+            hits, picks = [], []
+            for _ in range(3):
+                p = prefix + prompt(64)
+                w, overlap, _ = kv.find_best_match(p)
+                picks.append((w, overlap))
+                hits.append(await _http_timed(port, dict(req(p), stream=True), tap))
+                check(routes[-1][1:] == (w, overlap),
+                      f"frontend: routed {routes[-1]} but selected {(w, overlap)}")
+            check(all(w == seeded and o >= 63 for w, o in picks),
+                  f"frontend: prefix follow-ups picked {picks}, seeded {seeded}")
+            colds = [await _http_timed(port, dict(req(prompt(1088)), stream=True), tap)
+                     for _ in range(3)]
+            rec["kv_routing"] = {
+                "seeded": list(seeded), "overlaps": [o for _, o in picks],
+                "prefix_hit_ttft_s": [h["ttft_s"] for h in hits],
+                "cold_ttft_s": [c["ttft_s"] for c in colds]}
+            n_before = len(routes)
+            await asyncio.gather(*[unary(req(prompt(300))) for _ in range(8)])
+            spread = {w for _, w, _ in routes[n_before:]}
+            check(len(spread) == 2, f"frontend: 8 distinct prompts used {spread}")
+            rec["distinct_prompts_workers"] = len(spread)
+            # 6. migration: SIGKILL the worker of a stream after 16 tokens
+            body = dict(req(prompt(512), FRONTEND_MIGRATE_TOKENS), stream=True,
+                        stream_options={"include_usage": True})
+            t_send = time.monotonic()
+            reader, writer, rid = await _open_stream(port, body)
+            await _until(lambda: len(tap.tokens.get(rid, [])) >= FRONTEND_KILL_AFTER,
+                         "the stream's first tokens", 120)
+            victim_iid = routes[-1][1][0]
+            victim = proc_of(victim_iid)
+            n_at_kill = len(tap.tokens[rid])
+            victim.kill()
+            events = _sse(await asyncio.wait_for(_read_chunked(reader), 120))
+            writer.close()
+            t_end = time.monotonic()
+            await victim.wait()
+            chunks = [json.loads(e) for e in events[:-1]]
+            toks = tap.tokens[rid]
+            check(events[-1:] == ["[DONE]"] and not any("error" in c for c in chunks),
+                  f"frontend: the migrated stream ended {events[-2:]}")
+            check(chunks[-1]["usage"]["completion_tokens"] == FRONTEND_MIGRATE_TOKENS
+                  == len(toks), f"frontend: the migrated stream gave {len(toks)} tokens")
+            migrations = entry.chain.get("migration").migrations
+            check(migrations == 1, f"frontend: {migrations} migrations counted")
+            check(routes[-1][1][0] != victim_iid, "frontend: the retry went to the victim")
+            gaps = sorted(b - a for a, b in zip(tap.times[rid], tap.times[rid][1:]))
+            rec["migration"] = {
+                "tokens": len(toks), "tokens_at_kill": n_at_kill, "migrations": migrations,
+                "e2e_s": t_end - t_send,
+                # the stall the kill caused (detection, backoff, the replay's
+                # prefill on the survivor) beside an ordinary gap
+                "longest_gap_s": gaps[-1], "median_gap_s": gaps[len(gaps) // 2]}
+            survivor_iid = routes[-1][1][0]
+            survivor = proc_of(survivor_iid)
+            # 7. a dropped client: the survivor's FPM shows no page held
+            meta = entry.client.instances[survivor_iid].metadata
+            num_pages = int(ENGINE_ARGS[ENGINE_ARGS.index("--num-pages") + 1])
+            sub.connect(meta["fpm_publisher"])
+
+            async def listen():
+                async for _, payload in sub.events():
+                    if payload["worker"][0] == survivor_iid:
+                        fpm.append((time.monotonic(), payload))
+
+            listener = asyncio.create_task(listen())
+            reader, writer, rid = await _open_stream(port, dict(
+                req(prompt(1024), 2048), stream=True))
+            await _until(lambda: len(tap.tokens.get(rid, [])) >= FRONTEND_KILL_AFTER,
+                         "the dropped stream's first tokens", 120)
+            await _until(lambda: fpm and fpm[-1][1]["kv_usage"] * num_pages >= 64,
+                         "an FPM of the stream", 30)
+            held_pages = fpm[-1][1]["kv_usage"] * num_pages
+            writer.transport.abort()
+            t_drop = time.monotonic()
+            # probes: the first FPM whose plan holds only a probe's pages
+            probe_fpm = None
+            while probe_fpm is None:
+                check(time.monotonic() - t_drop < 30, "frontend: the dropped stream's "
+                      f"pages are still held: {fpm[-3:]}")
+                t_probe = time.monotonic()
+                await unary(req(prompt(16), 2))
+                probe_fpm = next((m for t, m in fpm if t > t_probe and m["n_running"] <= 1
+                                  and m["n_waiting"] == 0
+                                  and round(m["kv_usage"] * num_pages) <= 4), None)
+            rec["dropped_client"] = {
+                "pages_held_while_streaming": held_pages, "tokens_before_drop":
+                len(tap.tokens[rid]), "probe_fpm": probe_fpm,
+                "freed_within_s": time.monotonic() - t_drop}
+            check(svc._in_flight.get(MODEL) == 0, "frontend: requests still in flight")
+            # 8. the frontend's main in front of the survivor
+            fe, line = await _spawn(["dynamo_tpu_torch.frontend", "--router-mode", "kv",
+                                     "--http-host", "127.0.0.1", "--http-port", "0"], root,
+                                    "frontend serving at", os.path.join(root, "frontend.log"))
+            procs["frontend"] = fe
+            fe_port = int(line.rsplit(":", 1)[1])
+
+            def listed():
+                status, _, data = _http(fe_port, "GET", "/v1/models")
+                return [m["id"] for m in json.loads(data)["data"]] if status == 200 else []
+
+            t0 = time.monotonic()
+            while not (models := await asyncio.to_thread(listed)):
+                check(time.monotonic() - t0 < 60, "frontend: the main lists no model")
+                await asyncio.sleep(0.1)
+            check(models == [MODEL], f"frontend: the main lists {models}")
+            status, _, data = await asyncio.to_thread(_http, fe_port, "POST", "/v1/completions",
+                                                      dict(req(prompt(64), 16), stream=True,
+                                                           stream_options={"include_usage": True}))
+            events = _sse(data)
+            check(status == 200 and events[-1:] == ["[DONE]"]
+                  and json.loads(events[-2])["usage"]["completion_tokens"] == 16,
+                  f"frontend: the main's stream answered {status}, ends {events[-2:]}")
+            rc = {}
+            for name, proc in (("frontend", fe), ("worker", survivor)):
+                t0 = time.monotonic()
+                proc.send_signal(signal.SIGTERM)
+                rc[name] = await asyncio.wait_for(proc.wait(), SERVE_TIMEOUT_S)
+                rec[f"{name}_exit_s"] = time.monotonic() - t0
+            check(rc == {"frontend": 0, "worker": 0},
+                  f"frontend: exit codes after SIGTERM {rc}")
+            rec["main"] = {"serving": line, "models": models, "exit_codes": rc}
+            rec["seconds"] = time.monotonic() - t_phase
+            return rec
+        finally:
+            if listener is not None:
+                listener.cancel()
+            await sub.close()
+            for proc in procs.values():
+                if proc.returncode is None:
+                    proc.kill()
+                    await proc.wait()
+            await svc.stop(drain_timeout=1)
+            await rt.shutdown(drain_timeout=1)
+
+    with tempfile.TemporaryDirectory() as root:
+        rec = asyncio.run(asyncio.wait_for(run(root), 900))
+    emit(rec)
+    return rec
+
+
+
 def served_disagg_phase(params, disagg_rec):
     """A prefill and a decode worker served by serve_worker over the TCP
     request plane on loopback, in this process (so the launch counts can
     be read), neither registered colocated: every pull goes host-staged
     through the prefill worker's kv_fetch in chunks of 16 pages. The
-    router's prefill pool and decode client come from discovery, and a
+    traffic goes through the chain of a `kv` ModelWatcher's model entry
+    (the frontend's: migration, backend, PrefillRouter, KvPushRouter),
+    whose prefill pool and decode workers come from discovery, and a
     subscriber on the prefill worker's event publisher collects its KV
-    events."""
+    events. After the 8 requests, one that repeats the first 1024 tokens
+    of the 1500-token prompt must hop to the prefill instance with its
+    64 blocks of overlap, once the prefill KvRouter's index holds them."""
     prefill, decode, p_args, d_args = _disagg_engines(params)
     imports = _spy_calls(decode.runner, ("import_pages_device", "import_pages"))
     V, L = prefill.runner.config.vocab_size, prefill.runner.config.n_layers
     reqs, late = workload(V, seed=1)
     prompts = [r["token_ids"] for r in reqs + [late]]
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    repeat = dict(reqs[5], token_ids=prompts[5][:1024]
+                  + torch.randint(0, V, (64,), generator=gen).tolist())
     stored = set()
 
     async def serve():
-        router, p_ws, d_w, close = await _disagg_fleet(
-            prefill, decode, p_args, d_args, "tcp", host_only=True)
-        addresses = {"prefill": p_ws[0].instance.address, "decode": d_w.instance.address}
-        sub = p_ws[0].runtime.event_subscriber([KV_EVENT_SUBJECT])
-        sub.connect(p_ws[0].instance.metadata["kv_publisher"])
-        pub = p_ws[0].runtime.event_publisher()
+        entry, p_w, d_w, close = await _frontend_disagg_fleet(prefill, decode, p_args, d_args)
+        pkv = entry.prefill_kv_router
+        hops = _spy_routes(pkv)
+        addresses = {"prefill": p_w.instance.address, "decode": d_w.instance.address}
+        sub = p_w.runtime.event_subscriber([KV_EVENT_SUBJECT])
+        sub.connect(p_w.instance.metadata["kv_publisher"])
+        pub = p_w.runtime.event_publisher()
         while not pub._subs:
             await asyncio.sleep(0.01)
 
@@ -2074,21 +2561,37 @@ def served_disagg_phase(params, disagg_rec):
         _reset(prefill.runner, decode.runner)
         t0 = time.monotonic()
         try:
-            results = await _serve_disagg(router, reqs, late)
+            results = await _serve_disagg(entry.chain, reqs, late)
             torch.cuda.synchronize()
             wall = time.monotonic() - t0
             launches = {name: fn.launches for name, fn in KERNELS.items()}
+            stats = dict(prefill.runner.stats), dict(decode.runner.stats)
+            n_imports = len(imports["import_pages"])
             want = set(h for p in prompts for h in block_hashes(p, PAGE_SIZE))
             while not want <= stored:  # bounded by the caller's wait_for
                 await asyncio.sleep(0.01)
-            return results, wall, launches, d_w, addresses
+            # the repeated prefix, once the prefill pool's index holds it
+            worker = (p_w.instance.instance_id, 0)
+            held = block_hashes(repeat["token_ids"][:1024], PAGE_SIZE)
+            while pkv.indexer.index.find_matches(held).scores.get(worker, 0) < len(held):
+                await asyncio.sleep(0.01)
+            rep = await _collect_timed(entry.chain, repeat, "repeat")
+            while prefill._parked:
+                await asyncio.sleep(0.01)
+            return (results, wall, launches, stats, n_imports, d_w, addresses, hops, rep,
+                    worker)
         finally:
             listener.cancel()
             await sub.close()
             await close()
 
-    results, wall, launches, d_w, addresses = asyncio.run(asyncio.wait_for(serve(), 300))
-    pst, dst = dict(prefill.runner.stats), dict(decode.runner.stats)
+    (results, wall, launches, (pst, dst), n_imports, d_w, addresses, hops, rep,
+     worker) = asyncio.run(asyncio.wait_for(serve(), 300))
+    check(len(hops) == len(results) + 1 and hops[-1][1] == worker and hops[-1][2] >= 63,
+          f"served_disagg: the repeated prefix hopped {hops[-1:]}, want {worker} with "
+          f">= 63 blocks of overlap")
+    check(rep["finish"] == "length" and len(rep["tokens"]) == N_OUT,
+          f"served_disagg: the repeated prefix finished {rep['finish']!r}")
     _check_finished("served_disagg", results, V)
     check(d_w.handler.fallbacks == 0,
           f"served_disagg: {d_w.handler.fallbacks} pulls fell back to recompute")
@@ -2103,7 +2606,6 @@ def served_disagg_phase(params, disagg_rec):
           f"served_disagg: exported {pst['kv_pages_exported']} pages, want {sum(n_pages)}")
     check(launches["gather_pages"] == 2 * chunks,
           f"served_disagg: gather launches {launches['gather_pages']} != {chunks} x 2")
-    n_imports = len(imports["import_pages"])
     check(launches["scatter_pages"] == 2 * n_imports,
           f"served_disagg: scatter launches {launches['scatter_pages']} != {n_imports} x 2")
     check(launches["scatter_pages_layers"] == 0, "served_disagg: layer scatter ran")
@@ -2127,6 +2629,8 @@ def served_disagg_phase(params, disagg_rec):
         "ttft_s_min": ttft[0], "ttft_s_median": ttft[len(ttft) // 2],
         "ttft_s_max": ttft[-1], "wall_s": wall,
         "output_tok_s_overall": sum(len(r["tokens"]) for r in results) / wall,
+        "prefill_hop_overlap_blocks": [h[2] for h in hops],
+        "repeat_ttft_s": rep["ttft_s"],
     }
     emit(rec)
     return rec
@@ -4072,7 +4576,9 @@ def main() -> int:
         del runner, disagg
         gc.collect()
         torch.cuda.empty_cache()
-        served_phase(in_process, fused_rec, V)
+        served_rec = served_phase(in_process, fused_rec, V)
+        # the frontend: two worker processes behind the HTTP frontend
+        frontend_phase(in_process, V, served_rec, smi)
         # the slice's main path: llama-3.1-8b over int8 pools; each int8
         # entry's launches are the fused phase's (all on its int8 body)
         int8_launches, int8_bodies = int8kv_phases(dev, smi)

@@ -1,1 +1,1 @@
-"""The request front end: the model card a worker publishes."""
+"""The OpenAI-compatible HTTP frontend: `python -m dynamo_tpu_torch.frontend`."""

@@ -1,1 +1,1 @@
-"""Request routing of the port (the disaggregation router)."""
+"""Request routing of the port: the KV router and the disaggregation router."""

@@ -8,11 +8,13 @@ max_tokens − 1, `annotations.disagg = "decode"`, `kv_transfer_src`)
 downstream to a decode worker's `DisaggDecodeAdapter`, which pulls the KV
 from the prefill instance's `kv_fetch` endpoint and resumes decode with no
 prefill. The prefill pool is an EndpointClient over the prefill
-component's generate endpoint, kept by discovery: a hop picks an instance
-by the client's router mode and sends straight to it. A failed hop falls
-back to aggregated serving downstream, and a transport failure cools the
-instance down (`mark_sick`). Selection by KV overlap (the KV router) and
-the LoRA filter are not ported yet.
+component's generate endpoint, kept by discovery. With a KvRouter over
+that pool (`activate(..., kv_router=...)`, the frontend's `kv` mode) a
+hop picks the prefill instance by KV overlap and load, charging it for
+the hop's duration; without one it picks by the client's router mode. A
+failed hop falls back to aggregated serving downstream, and a transport
+failure cools the instance down (`mark_sick`). The LoRA filter over the
+prefill pool is not ported yet (A.9).
 """
 
 from __future__ import annotations
@@ -52,14 +54,25 @@ class PrefillRouter:
         self.policy = policy or DisaggPolicy()
         self._prefill_client = None  # EndpointClient over the prefill pool
         self._fetch_path: Optional[str] = None
+        self._kv_router = None  # KvRouter over the prefill pool (kv mode)
 
-    def activate(self, prefill_client, fetch_path: str) -> None:
+    def activate(self, prefill_client, fetch_path: str, kv_router=None) -> None:
         """`prefill_client`: an EndpointClient over the prefill
         component's generate endpoint; `fetch_path`: that component's
-        kv_fetch endpoint, which the decode worker pulls from."""
+        kv_fetch endpoint, which the decode worker pulls from;
+        `kv_router`: a KvRouter over the prefill pool, so that repeated
+        prefixes hop to the prefill instance that holds their blocks."""
         self._prefill_client = prefill_client
         self._fetch_path = fetch_path
-        log.info("prefill router ACTIVE (fetch path %s)", fetch_path)
+        self._kv_router = kv_router
+        log.info("prefill router ACTIVE (fetch path %s, %s selection)", fetch_path,
+                 "kv-overlap" if kv_router else "round-robin")
+
+    def deactivate(self) -> None:
+        self._prefill_client = None
+        self._fetch_path = None
+        self._kv_router = None
+        log.info("prefill router inactive (no prefill workers)")
 
     @property
     def active(self) -> bool:
@@ -143,9 +156,18 @@ class PrefillRouter:
         pctx = Context(request_id=context.id + ":prefill", parent=context)
         result = None
         client = self._prefill_client
-        iid = None
+        kv = self._kv_router
+        iid = rid = None
         try:
-            iid, address = client.router._pick()
+            if kv is not None:
+                await kv.start()  # idempotent; the watcher starts it eagerly
+                worker, overlap, hashes = kv.find_best_match(request.get("token_ids") or [])
+                iid = worker[0]
+                rid = pctx.id
+                kv.add_request(rid, worker, hashes, overlap)
+                address = client.instances[iid].address
+            else:
+                iid, address = client.router._pick()
             # read the stream to its end (the done frame follows the
             # prefill_complete item): abandoning it sends a kill
             async for item in client.direct(preq, iid, pctx):
@@ -160,6 +182,14 @@ class PrefillRouter:
                 client.router.mark_sick(iid)
             log.warning("prefill hop failed (%s); falling back to aggregated", e.code)
             return None
+        except (RuntimeError, KeyError) as e:
+            # the selector's empty worker list, or an instance gone from
+            # discovery between selection and the push: fall back too
+            log.warning("prefill hop failed (%s); falling back to aggregated", e)
+            return None
+        finally:
+            if rid is not None:
+                kv.free(rid)
         if result is None:
             log.warning("prefill hop returned no kv_transfer; falling back")
         return result

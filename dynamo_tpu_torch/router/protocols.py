@@ -1,9 +1,10 @@
 """Router wire protocols.
 
 Port of dynamo_tpu/router/protocols.py: the KV event subject and payload
-(`RouterEvent`) and the FPM subject. Events ride the event plane as
-msgpack dicts; block identity is the lineage hash of `tokens/hashing.py`,
-shared with the engine's prefix cache and the host tier.
+(`RouterEvent`), the FPM subject and the block index's `OverlapScores`.
+Events ride the event plane as msgpack dicts; block identity is the
+lineage hash of `tokens/hashing.py`, shared with the engine's prefix
+cache and the host tier.
 """
 
 from __future__ import annotations
@@ -13,7 +14,8 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from dynamo_tpu_torch.runtime.event_plane import FPM_SUBJECT, KV_EVENT_SUBJECT
 
-__all__ = ["FPM_SUBJECT", "KV_EVENT_SUBJECT", "RouterEvent", "WorkerId"]
+__all__ = ["FPM_SUBJECT", "KV_EVENT_SUBJECT", "OverlapScores", "RouterEvent",
+           "WorkerId"]
 
 
 @dataclass(frozen=True)
@@ -59,3 +61,11 @@ class RouterEvent:
             parent_hash=d.get("parent_hash"),
             tier=d.get("tier", "device"),
         )
+
+
+@dataclass
+class OverlapScores:
+    """find_matches result: per-worker count of matched leading blocks."""
+
+    scores: Dict[Tuple[int, int], int] = field(default_factory=dict)
+    total_blocks: int = 0

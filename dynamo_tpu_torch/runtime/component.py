@@ -64,6 +64,10 @@ class Instance:
     metadata: Dict[str, Any] = field(default_factory=dict)
 
     @property
+    def endpoint_address(self) -> EndpointAddress:
+        return EndpointAddress(self.namespace, self.component, self.endpoint)
+
+    @property
     def path(self) -> str:
         """Discovery key: services/{ns}/{component}/{endpoint}/{instance_id}
         (the reference uses `{endpoint}-{lease_id}`,

@@ -227,11 +227,18 @@ class EndpointClient:
         self._watch_task: Optional[asyncio.Task] = None
         self._ready = asyncio.Event()
         self.instances: Dict[int, Instance] = {}
+        self._change_cbs: list = []
 
     async def start(self) -> "EndpointClient":
         if self._watch_task is None:
             self._watch_task = asyncio.create_task(self._watch())
         return self
+
+    def on_instance_change(self, cb) -> None:
+        """cb(kind: "put"|"delete", Instance), sync or async; put also
+        fires on metadata updates (discovery emits puts for changed
+        records)."""
+        self._change_cbs.append(cb)
 
     async def _watch(self) -> None:
         async for ev in self.runtime.discovery.watch(self._prefix):
@@ -243,6 +250,13 @@ class EndpointClient:
             else:
                 self.instances.pop(inst.instance_id, None)
                 self.router.update_instance(inst.instance_id, None)
+            for cb in self._change_cbs:
+                try:
+                    res = cb(ev.kind, inst)
+                    if asyncio.iscoroutine(res):
+                        await res
+                except Exception:  # a subscriber's fault must not end the watch
+                    log.exception("instance-change callback failed")
 
     async def wait_ready(self, timeout: float = 10.0) -> None:
         await self.start()

@@ -1,5 +1,6 @@
-"""The port stands alone: dynamo_tpu_torch, chip_smoke.py,
-scripts/torch_profile.py, scripts/mla_prefill_variants.py,
+"""The port stands alone: dynamo_tpu_torch (the frontend's main
+included), chip_smoke.py, scripts/torch_profile.py,
+scripts/mla_prefill_variants.py,
 scripts/int8_body_variants.py and scripts/engine_ab.py import neither JAX nor anything of the
 dynamo_tpu package, nor ml_dtypes, msgpack, zmq, aiohttp, jinja2,
 tokenizers or prometheus_client (the machine with the card has none of
@@ -55,7 +56,12 @@ def test_every_module_imports_without_jax_or_dynamo_tpu():
               "runtime.engine", "runtime.component", "runtime.discovery",
               "runtime.request_plane", "runtime.event_plane",
               "runtime.metrics", "runtime.distributed", "frontend.protocols",
-              "router.protocols", "router.publisher"):
+              "router.protocols", "router.publisher", "runtime.pipeline",
+              "router.radix_tree", "native.block_index", "router.sequences",
+              "router.scheduling", "router.queue", "router.indexer",
+              "router.kv_router", "frontend.tokenizer", "frontend.preprocessor",
+              "frontend.backend", "frontend.migration", "frontend.request_trace",
+              "frontend.service", "frontend.http", "frontend.__main__"):
         assert f"dynamo_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -87,6 +93,35 @@ def test_no_source_file_imports_jax_or_dynamo_tpu():
                 continue
             bad = [n for n in names if _forbidden(n)]
             assert not bad, f"{path.relative_to(ROOT)}:{node.lineno} imports {bad}"
+
+
+def test_frontend_main_help_loads_nothing_forbidden():
+    """`python -m dynamo_tpu_torch.frontend --help` prints its flags, and
+    the frontend's main loads no forbidden module on the way."""
+    out = subprocess.run([sys.executable, "-m", "dynamo_tpu_torch.frontend", "--help"],
+                         cwd=ROOT, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    for flag in ("--http-host", "--http-port", "--router-mode", "--migration-limit",
+                 "--disagg-min-prefill-tokens", "--busy-threshold", "--router-busy-blocks",
+                 "--router-queue-depth", "--router-queue-timeout", "--router-temperature",
+                 "--kv-overlap-score-weight", "--no-kv-events", "--discovery-backend",
+                 "--discovery-root"):
+        assert flag in out.stdout
+    code = (
+        "import json, sys, runpy\n"
+        "sys.argv = ['x', '--help']\n"
+        "try:\n"
+        "    runpy.run_module('dynamo_tpu_torch.frontend', run_name='__main__')\n"
+        "except SystemExit:\n"
+        "    pass\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "dynamo_tpu_torch.frontend.http" in loaded
+    assert not [m for m in loaded if _forbidden(m)]
 
 
 def test_forbidden_prefix_rule():
