@@ -246,6 +246,44 @@ Phases, each printing one JSON line:
                get_config("deepseek-v3").with_(n_layers=4), the selection
                bias drawn non-zero: the padded fallback, MLA launches =
                passes x 4, each grouped-GEMM entry's = passes x 1).
+ 10. quant   - weight-only int8 / e4m3 weights (models/quant.py,
+               --quantize). `quant_kernels` (after `moe_kernels`): the
+               weight-only GEMM (ops/csrc/quant_gemm.cu) in its KN
+               layout at llama-3.1-8b's matrices and mixtral's head and
+               its NK layout at llama-3.2-3b's tied table, int8 and e4m3,
+               at M 1, 8, 64, 264 and 2048, x at RMS MOE_X_RMS, each
+               against its plain version (KERNEL_TOL; ROW_REL_TOL row by
+               row; at M 8 and 264 three faults planted in the plain
+               version, the scales dropped, the code x's largest element
+               meets with its sign flipped and the middle 64-deep K stage
+               left out, each of which must break the row gate), timed
+               beside the plain version and cuBLAS on the dequantized
+               bf16 weight, with the bound over codes, scales, x and y;
+               untimed edges (N 4128: half a 64-column tile past the
+               end; K 4160: decode rows on the prefill tiles; M 1, 17,
+               65 and 130 ending inside a tile) held the same way;
+               then the grouped GEMM's quantized bodies at qwen3-30b-a3b's
+               and mixtral's experts (T 8, 264, 512, uniform and skewed,
+               int8; mixtral's T 264 uniform also e4m3) against their
+               plain versions (an expert's scales dropped and a skipped
+               stage planted), beside the bf16 body on the dequantized
+               experts. After engine_int8kv (whose decode step, 8 rows at
+               1024 tokens, is timed), `engine_quant`: llama-3.1-8b with
+               int8 weights over int8 pools, the 3B's traffic, fused,
+               quant_gemm launches = passes x (7 L + 1) on its KN int8
+               body, the params' GB and the decode step beside
+               engine_int8kv's; `parity_quant`; `engine_quant_fp8_3b`
+               (llama-3.2-3b, e4m3 weights: the tied head on the NK body)
+               and `parity_quant_fp8_3b`. Last, with every other runner
+               freed, `engine_mixtral`: mixtral-8x7b at full width and
+               depth (32 MoE layers, 8 experts, top 2) with int8 weights
+               (46.7 GB), the 3B's traffic, grouped-GEMM launches =
+               passes x 32 on the int8 bodies, quant_gemm's = passes x
+               (4 L + 1), its memory (`mixtral_memory`); then
+               `parity_mixtral_free`, `parity_mixtral` (pinned to the
+               kernel path's routing) and `repeat_mixtral` at two layers.
+               Every engine phase holds quant_gemm's launches by body to
+               its quantized matrices a pass (0 over bf16 weights).
 Then the `kernels` summary line (launches from the fused phase for the
 GQA attention kernels, from engine_disagg for gather and scatter, from
 engine_tiers for the layer scatter, from engine_mla for the MLA kernels,
@@ -254,7 +292,10 @@ int8 bodies, from engine_qwen2 for the `*_G7` entries and from
 engine_phi3 and engine_phi3_int8 for the `*_D96_window` and
 `*_D96_int8_window` entries, whose times are head_shape_kernels', from
 engine_qwen3moe for the grouped GEMM's two entries, whose times are
-moe_kernels' qwen3-30b-a3b T 264 uniform case; for
+moe_kernels' qwen3-30b-a3b T 264 uniform case, from engine_quant and
+engine_quant_fp8_3b for the `quant_gemm_*` entries (times: quant_kernels'
+w_gate / tied table at M 8) and from engine_mixtral for the grouped
+GEMM's `*_int8` entries (times: mixtral's T 264 uniform case); for
 the GQA kernels also `variants`, the bodies each engine phase launched),
 the
 card's name and power limit, and, last, the contract line
@@ -284,15 +325,19 @@ import torch.nn.functional as F
 from dynamo_tpu_torch.engine.model_runner import ModelRunner
 from dynamo_tpu_torch.models.config import get_config
 from dynamo_tpu_torch.models.quant import (
+    dequantize_weight,
     kv_pool_dequantize,
     kv_pool_quantize,
     kv_quantize,
+    quantize_embed,
+    quantize_weight,
 )
 from dynamo_tpu_torch.models.toolkit import attn_score_scale, layer_window, pool_values
 from dynamo_tpu_torch.models import moe as moe_model
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops import block_copy as bc
 from dynamo_tpu_torch.ops import moe_dispatch as md
+from dynamo_tpu_torch.ops import quant_gemm as qg
 from dynamo_tpu_torch.ops.flash_prefill import (
     prefill_paged_attention,
     prefill_paged_attention_ref,
@@ -428,7 +473,8 @@ KERNELS = {"decode_paged_attention": decode_paged_attention,
            "decode_mla_attention": decode_mla_attention,
            "prefill_mla_attention": prefill_mla_attention,
            "moe_gate_up": md.moe_gate_up,
-           "moe_down": md.moe_down}
+           "moe_down": md.moe_down,
+           "quant_gemm": qg.quant_matmul}
 COPY_KERNELS = ("gather_pages", "scatter_pages", "scatter_pages_layers")
 GQA_KERNELS = ("decode_paged_attention", "prefill_paged_attention",
                "ragged_paged_attention")
@@ -467,6 +513,20 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def host_ms(fn, iters: int = 10) -> float:
+    """Mean host time of one fn() call, each launched onto an idle device
+    (synchronized between calls, outside the timing)."""
+    fn()
+    total = 0.0
+    for _ in range(iters):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        total += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return total / iters * 1e3
 
 
 def graph_ms(fn, iters: int = 20, replays: int = 5) -> float:
@@ -1489,13 +1549,15 @@ def serve(engine, seed: int, spec: bool = False, extra=()):
 
 def check_launches(phase: str, launches, stats, L: int, mla: bool = False,
                    int8: bool = False, moe_layers: int = 0,
-                   copies: bool = False) -> None:
+                   copies: bool = False, quant_per_pass: int = 0) -> None:
     """Each kernel launched once per layer of each forward pass of its
     kind, and nowhere else (an MLA model launches no GQA kernel and the
     other way round; an int8 latent's prefill gathers, as the reference's
     does, and launches no MLA prefill kernel); each grouped-GEMM entry
     once per MoE layer (runner.moe_layers) of every pass, and never for a
-    dense model."""
+    dense model; the weight-only GEMM `quant_per_pass` times a pass (its
+    quantized matrices: quant_launches_per_pass), never over bf16
+    weights."""
     prefill = stats["prefill_chunks"] + stats["padded_prefill_dispatches"]
     ragged = stats["ragged_mixed_dispatches"] + stats["ragged_verify_dispatches"]
     if mla:
@@ -1516,6 +1578,9 @@ def check_launches(phase: str, launches, stats, L: int, mla: bool = False,
         check(launches[name] == passes * moe_layers,
               f"{phase}: {name} launches {launches[name]} != {passes} passes x "
               f"{moe_layers} MoE layers")
+    check(launches["quant_gemm"] == passes * quant_per_pass,
+          f"{phase}: quant_gemm launches {launches['quant_gemm']} != {passes} passes x "
+          f"{quant_per_pass} quantized matrices")
     for name in COPY_KERNELS if not copies else ():  # no transfer, no host tier
         check(launches[name] == 0, f"{phase}: {name} launched {launches[name]}")
 
@@ -1523,8 +1588,28 @@ def check_launches(phase: str, launches, stats, L: int, mla: bool = False,
 def reset_launches():
     for fn in KERNELS.values():
         fn.launches = 0
-    for name in GQA_KERNELS + ("decode_mla_attention",):
+    for name in GQA_KERNELS + ("decode_mla_attention",) + MOE_KERNELS + ("quant_gemm",):
         KERNELS[name].bodies = {}
+
+
+def quant_launches_per_pass(runner):
+    """The weight-only GEMM's launches a forward pass, by body: each
+    quantized matrix of DEFAULT_QUANT_NAMES the pass multiplies by (q, k,
+    v, o and, on a dense layer, the three FFN matrices, on a MoE layer the
+    shared experts' three; the routed experts ride the grouped GEMM) and
+    the head, over the tied embedding in the NK layout. {} without
+    --quantize."""
+    cfg, mode = runner.config, runner.quantize
+    if not mode:
+        return {}
+    check(not cfg.is_mla, "quant_launches_per_pass: no MLA count")
+    moe = runner.moe_layers
+    kn = 4 * cfg.n_layers + 3 * (cfg.n_layers - moe) + (3 * moe if cfg.n_shared_experts
+                                                          else 0)
+    out = {f"kn_{mode}": kn + (0 if cfg.tie_embeddings else 1)}
+    if cfg.tie_embeddings:
+        out[f"nk_{mode}"] = 1
+    return out
 
 
 def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
@@ -1568,9 +1653,17 @@ def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
               f"{phase}: r{i} emitted a token out of range")
     check(stats["prefill_chunks"] > 0 and stats["decode_steps"] > 0,
           f"{phase}: engine ran no prefill or no decode: {stats}")
+    per_pass = quant_launches_per_pass(runner)
     check_launches(phase, launches, stats, L, mla=runner.config.is_mla,
                    int8=runner.kv_quantize is not None,
-                   moe_layers=runner.moe_layers)
+                   moe_layers=runner.moe_layers,
+                   quant_per_pass=sum(per_pass.values()))
+    passes = (stats["prefill_chunks"] + stats["padded_prefill_dispatches"]
+              + stats["decode_steps"] + stats["ragged_mixed_dispatches"]
+              + stats["ragged_verify_dispatches"])
+    quant_bodies = dict(qg.quant_matmul.bodies)
+    check(quant_bodies == {b: passes * n for b, n in per_pass.items() if n},
+          f"{phase}: quant_gemm bodies {quant_bodies}, {passes} passes x {per_pass}")
     reused = engine.scheduler.reused_prefix_tokens
     check(reused >= 256, f"{phase}: late request reused only {reused} prefix tokens")
     ttft = sorted(r[2].get("ttft_s", float("nan")) for r in results)
@@ -1591,7 +1684,9 @@ def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
         "decode_tok_s_per_request_median": decode_rates[len(decode_rates) // 2],
         "output_tok_s_overall": n_tokens / wall, "wall_s": wall,
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "kv_quantize": runner.kv_quantize,
+        "kv_quantize": runner.kv_quantize, "quantize": runner.quantize,
+        "quant_gemm_bodies": quant_bodies,
+        "moe_bodies": {name: dict(KERNELS[name].bodies) for name in MOE_KERNELS},
     }
     if build_s is not None:
         rec["build_s"] = build_s
@@ -3002,6 +3097,9 @@ def int8kv_phases(dev, smi):
         rec["nvidia_smi"] = smi
         found[phase] = rec["bodies"]
         emit(rec)
+    # a decode step's device time, for engine_quant's int8 weights beside it
+    DECODE_STEP_MS["int8kv"] = decode_step_ms(runner)
+    emit({"phase": "decode_step_int8kv", **DECODE_STEP_MS["int8kv"], "nvidia_smi": smi})
     parity_phase(runner, dev, phase="parity_int8kv")
     return fused_launches, found
 
@@ -4325,7 +4423,7 @@ def moe_kernels_phase(dev):
     # each entry's registers and spills in both configurations, 128 x 128
     # and 64 x 64 items (ptxas -v, when built in this run)
     ents = ptxas_entries(_build.build_log.get("moe_grouped_gemm", ""))
-    ptxas = {name: {cfg: ents.get(f"moe_gemm_kernel<{gated},{small}>")
+    ptxas = {name: {cfg: ents.get(f"moe_gemm_kernel<{gated},{small},0>")
                     for cfg, small in (("128x128", 0), ("64x64", 1))}
              for name, gated in zip(MOE_KERNELS, (1, 0))}
     emit({"phase": "moe_kernels", "tol": KERNEL_TOL, "row_tol": ROW_REL_TOL,
@@ -4481,6 +4579,486 @@ def mla_moe_phases(dev, smi):
     return launches
 
 
+# -- weight-only quantization: the quantized GEMMs and the quantized models ----
+
+QUANT_MODES = ("int8", "fp8")
+# the rows of x a launch takes on the main path: decode buckets 1, 8 and
+# 64, the fused ragged step (T 264) and a padded prefill batch
+QGEMM_M = (1, 8, 64, 264, 2048)
+# the matrices each layout serves, (K, N): llama-3.1-8b's and mixtral's in
+# the KN layout (x @ W), llama-3.2-3b's tied embedding in the NK layout
+QGEMM_SHAPES = {
+    "kn": {"llama-3.1-8b wq/wo": (4096, 4096), "llama-3.1-8b wk/wv": (4096, 1024),
+           "llama-3.1-8b w_gate/w_up": (4096, 14336),
+           "llama-3.1-8b w_down": (14336, 4096),
+           "llama-3.1-8b lm_head": (4096, 128256),
+           "mixtral-8x7b lm_head": (4096, 32000)},
+    "nk": {"llama-3.2-3b embed (tied head)": (3072, 128256)},
+}
+# each kernels-line entry's case (layout, code, matrix, M) and the engine
+# phase whose launches it reports
+QGEMM_ENTRIES = {
+    "quant_gemm_kn_int8": ("kn", "int8", "llama-3.1-8b w_gate/w_up", 8, "quant"),
+    "quant_gemm_kn_fp8": ("kn", "fp8", "llama-3.1-8b w_gate/w_up", 8, "quant_fp8_3b"),
+    "quant_gemm_nk_fp8": ("nk", "fp8", "llama-3.2-3b embed (tied head)", 8,
+                          "quant_fp8_3b"),
+}
+# the cases that also carry planted faults: every layout and code at the
+# decode batch and the fused step
+QGEMM_FAULT_M = (8, 264)
+# edges, untimed: N a multiple of 32 but not of 64 (a block's second warp
+# column past the end), K a multiple of 64 but not of 256 (the decode
+# rows on the prefill tiles), and row counts that end inside a tile
+QGEMM_EDGES = {"kn": ((4096, 4128), (4160, 1024)), "nk": ((3072, 4128),)}
+QGEMM_EDGE_M = (1, 17, 65, 130)
+QUANT_SOURCE = ("dynamo_tpu_torch/ops/csrc/quant_gemm.cu",
+                "dynamo_tpu/models/quant.py:41 (mm; XLA fuses the dequantization, "
+                "no Pallas kernel)")
+MOE_QUANT_SOURCE = ("dynamo_tpu_torch/ops/csrc/moe_grouped_gemm.cu",
+                    "dynamo_tpu/models/moe.py:66 (mm on quantized experts under an "
+                    "XLA vmap; no Pallas kernel)")
+QUANT_SOURCES = {**{name: QUANT_SOURCE for name in QGEMM_ENTRIES},
+                 "moe_gate_up_int8": MOE_QUANT_SOURCE, "moe_down_int8": MOE_QUANT_SOURCE}
+
+
+def qgemm_weight(K, N, nk, mode, dgen, dev):
+    """A quantized weight at the init's scale: KN codes [K, N] with column
+    scales, or an NK table [N, K] with row scales (the tied embedding),
+    held to what the kernel takes, as a tree's leaves are."""
+    w = torch.randn(N, K, generator=dgen, device=dev).mul_(K ** -0.5).bfloat16()
+    out = quantize_embed(w, mode) if nk else quantize_weight(w.T.contiguous(), mode)
+    qg.check_weight(out["q"], out["s"], nk)
+    return out
+
+
+def qgemm_dequantized(w, nk):
+    """The bf16 weight [K, N] the yardstick multiplies by (outside its timing)."""
+    if nk:
+        return (w["q"].float() * w["s"]).T.bfloat16().contiguous()
+    return dequantize_weight(w, torch.bfloat16)
+
+
+def flip_sign(q, k, n, nk):
+    """The codes with the one at (k, n) of the product negated."""
+    q = q.clone()
+    at = (n, k) if nk else (k, n)
+    q[at] = (-q[at].float()).to(q.dtype)
+    return q
+
+
+def qgemm_faults(x, w, nk, got, want):
+    """Faults planted in the plain version, each read as the kernel's row
+    error against it (row_errs' RMS form): the scales dropped (s = 1),
+    the largest code that x's largest element meets with its sign flipped,
+    and the middle 64-deep K stage left out of every sum."""
+    K = x.shape[-1]
+    ones = torch.ones_like(w["s"])
+    k = int(x.float().abs().amax(0).argmax())
+    codes_k = (w["q"][:, k] if nk else w["q"][k]).float().abs()
+    n = int(codes_k.argmax())
+    k0 = K // qg.QGEMM_BK // 2 * qg.QGEMM_BK
+    xs = x.clone()
+    xs[:, k0:k0 + qg.QGEMM_BK] = 0
+    faults = {"scale_dropped": qg.quant_matmul_ref(x, w["q"], ones, nk),
+              "code_sign_flipped": qg.quant_matmul_ref(x, flip_sign(w["q"], k, n, nk),
+                                                       w["s"], nk),
+              "k_stage_skipped": qg.quant_matmul_ref(xs, w["q"], w["s"], nk)}
+    return {f: row_errs(got, v, want)["rms"] for f, v in faults.items()}
+
+
+def qgemm_case(layout, mode, what, K, N, M, w, w_bf16, dgen, dev):
+    """One launch shape against the plain version (max abs error; per row,
+    the max error over the row's RMS), timed (b2b and CUDA-graph replay)
+    beside the plain version and the yardstick, torch.matmul on the
+    dequantized bf16 weight (cuBLAS: the unquantized model's product), with
+    the bound (codes, scales, x and y at the HBM rate, or the products at
+    the bf16 peak)."""
+    nk = layout == "nk"
+    x = (torch.randn(M, K, generator=dgen, device=dev) * MOE_X_RMS).bfloat16()
+    got = qg.quant_matmul(x, w["q"], w["s"], nk)
+    want = qg.quant_matmul_ref(x, w["q"], w["s"], nk)
+    torch.cuda.synchronize()
+    check(torch.isfinite(got.float()).all().item(), f"quant_gemm {what}: not finite")
+    rec = {"layout": layout, "code": mode, "matrix": what, "K": K, "N": N, "M": M,
+           "max_abs_err": (got.float() - want.float()).abs().max().item(),
+           "row_rel_err": row_errs(got, want)["rms"]}
+    if M in QGEMM_FAULT_M:
+        rec["planted_faults"] = qgemm_faults(x, w, nk, got, want)
+    del got, want
+    b_ms, b_by = bound(K * N + 4 * N + 2 * M * K + 2 * M * N, 2 * M * K * N)
+    heavy = M * N >= 2048 * 32000  # the large heads at prefill: fewer calls
+    it = dict(iters=5, replays=2) if heavy else {}
+
+    def kern():
+        return qg.quant_matmul(x, w["q"], w["s"], nk)
+
+    def lib():
+        return torch.matmul(x, w_bf16)
+
+    rec.update({"ms": cuda_ms(kern, iters=5 if heavy else 20),
+                "device_ms": graph_ms(kern, **it),
+                "plain_ms": cuda_ms(lambda: qg.quant_matmul_ref(x, w["q"], w["s"], nk),
+                                    iters=3, warmup=1),
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": cuda_ms(lib, iters=5 if heavy else 20),
+                "library_device_ms": graph_ms(lib, **it)})
+    rec["device_ms_over_bound"] = rec["device_ms"] / b_ms
+    rec["device_ms_over_library"] = rec["device_ms"] / rec["library_device_ms"]
+    return rec
+
+
+def quant_kernels_phase(dev):
+    """The weight-only GEMM (ops/csrc/quant_gemm.cu) in both layouts, int8
+    and e4m3 codes, at QGEMM_SHAPES x QGEMM_M, each against its plain
+    version (KERNEL_TOL at x RMS MOE_X_RMS, ROW_REL_TOL row by row, the
+    planted faults above it), then the grouped GEMM's quantized bodies
+    (moe_quant_kernels). Returns the kernels line's records."""
+    dgen = torch.Generator(device=dev).manual_seed(13)
+    cases, entries = [], {}
+    for layout, shapes in QGEMM_SHAPES.items():
+        for what, (K, N) in shapes.items():
+            for mode in QUANT_MODES:
+                w = qgemm_weight(K, N, layout == "nk", mode, dgen, dev)
+                w_bf16 = qgemm_dequantized(w, layout == "nk")
+                for M in QGEMM_M:
+                    rec = qgemm_case(layout, mode, what, K, N, M, w, w_bf16, dgen, dev)
+                    emit({"phase": "quant_case", **rec})
+                    cases.append(rec)
+                    for name, (lo, co, mat, m, _) in QGEMM_ENTRIES.items():
+                        if (lo, co, mat, m) == (layout, mode, what, M):
+                            entries[name] = rec
+                del w, w_bf16
+                torch.cuda.empty_cache()
+    edges = []
+    for layout, shapes in QGEMM_EDGES.items():
+        for K, N in shapes:
+            for mode in QUANT_MODES:
+                w = qgemm_weight(K, N, layout == "nk", mode, dgen, dev)
+                for M in QGEMM_EDGE_M:
+                    x = (torch.randn(M, K, generator=dgen, device=dev) * MOE_X_RMS
+                         ).bfloat16()
+                    got = qg.quant_matmul(x, w["q"], w["s"], layout == "nk")
+                    want = qg.quant_matmul_ref(x, w["q"], w["s"], layout == "nk")
+                    edges.append({"layout": layout, "code": mode, "matrix": "edge",
+                                  "K": K, "N": N, "M": M,
+                                  "max_abs_err": (got.float() - want.float()).abs()
+                                  .max().item(), "row_rel_err": row_errs(got, want)["rms"]})
+    ents = ptxas_entries(_build.build_log.get("quant_gemm", ""))
+    emit({"phase": "quant_kernels", "tol": KERNEL_TOL, "row_tol": ROW_REL_TOL,
+          "x_rms": MOE_X_RMS, "small_m": qg.QGEMM_SMALL_M, "ptxas": ents,
+          "cases": len(cases), "edges": edges})
+    for rec in cases + edges:  # the checks, after the records are out
+        what = f"quant_gemm {rec['layout']} {rec['code']} {rec['matrix']} M {rec['M']}"
+        check(rec["max_abs_err"] <= KERNEL_TOL,
+              f"{what}: max abs err {rec['max_abs_err']} > {KERNEL_TOL}")
+        check(rec["row_rel_err"] <= ROW_REL_TOL,
+              f"{what}: row error {rec['row_rel_err']} > {ROW_REL_TOL}")
+        for f, v in rec.get("planted_faults", {}).items():
+            check(v > ROW_REL_TOL, f"{what}: the planted {f} reads {v}, under {ROW_REL_TOL}")
+    lib = _build.load()["quant_gemm"]
+    check(lib.quant_gemm_small_m() == qg.QGEMM_SMALL_M,
+          f"quant_gemm's small tiles up to {lib.quant_gemm_small_m()} rows")
+    out = {name: dict(rec, max_abs_err=max(c["max_abs_err"] for c in cases
+                                           if c["layout"] == rec["layout"]
+                                           and c["code"] == rec["code"]))
+           for name, rec in entries.items()}
+    out.update(moe_quant_kernels(dev))
+    return out
+
+
+# the quantized grouped GEMM's cases: qwen3-30b-a3b's experts (MOE_SHAPES)
+# and mixtral-8x7b's (E 4096, F 14336, 8 experts, top 2) at a decode batch,
+# the fused step and a chunk; the kernels line's case is mixtral's fused step
+MOE_QUANT_SHAPES = {"qwen3-30b-a3b": ((2048, 768, 128, 8), (8, 264, 512)),
+                    "mixtral-8x7b": ((4096, 14336, 8, 2), (8, 264, 512))}
+MOE_QUANT_HEAD = ("mixtral-8x7b", 264, "uniform")
+
+
+def moe_quant_case(what, x, sel, q, k):
+    """Both grouped-GEMM entries on int8 experts q = (gate, up, down) against
+    their plain versions (max abs error; row errors in row_errs' forms,
+    gate/up on the max form and down on the RMS form, as moe_case; planted
+    faults: the last live expert's scales dropped, the last tile's middle
+    64-deep K stage skipped) and against the bf16 body on the dequantized
+    experts (information), timed beside the plain version, the bf16 body
+    on the dequantized experts and torch._grouped_mm on them, with the
+    bound over the touched experts' codes and scales."""
+    dev = x.device
+    T, E = x.shape
+    wg, wu, wd = q
+    n, _, F_ = wg["q"].shape
+    r = md.route(sel.to(dev), n)
+    h = md.moe_gate_up(x, r.tok, wg, wu, r.tiles)
+    y = md.moe_down(h, wd, r.tiles)
+    deq = [dequantize_weight(w, torch.bfloat16) for w in q]
+    h16 = md.moe_gate_up(x, r.tok, deq[0], deq[1], r.tiles)
+    y16 = md.moe_down(h, deq[2], r.tiles)
+    torch.cuda.synchronize()
+    live = [t for t in r.tiles.tolist() if t[0] >= 0]
+    counts = torch.bincount(sel.reshape(-1), minlength=n)
+    touched = int((counts > 0).sum())
+    P = T * k
+    last_e, last0, last1 = live[-1]
+
+    def no_scale(w, e):
+        s = w["s"].clone()
+        s[e] = 1.0
+        return dict(w, s=s)
+
+    out = {"routing": what, "T": T, "pairs": P, "touched_experts": touched,
+           "tiles": len(live), "max_rows_an_expert": int(counts.max())}
+    entries = {
+        "moe_gate_up": (h, h16, lambda xx=x, e=None: md.moe_gate_up_ref(
+            xx, r.tok, wg if e is None else no_scale(wg, e),
+            wu if e is None else no_scale(wu, e), r.tiles), "max", E, x),
+        "moe_down": (y, y16, lambda xx=h, e=None: md.moe_down_ref(
+            xx, wd if e is None else no_scale(wd, e), r.tiles), "rms", F_, h),
+    }
+    for name, (got, body16, plain, gate, K, a) in entries.items():
+        want = plain()
+        check(torch.isfinite(got.float()).all().item(), f"{name} {what}: not finite")
+        k_mid = K // md.MOE_BK // 2 * md.MOE_BK
+        if name == "moe_gate_up":  # the last tile's rows, from their tokens
+            rows = r.tok[last0:last1].long()
+            faulty = want.clone()
+            xs = a[rows].clone()
+            xs[:, k_mid:k_mid + md.MOE_BK] = 0
+            hs = md.moe_gate_up_ref(xs, torch.arange(len(rows), device=dev,
+                                                     dtype=torch.int32),
+                                    wg, wu, torch.tensor([[last_e, 0, len(rows)]],
+                                                         dtype=torch.int32, device=dev))
+            faulty[last0:last1] = hs
+        else:
+            skipped = a.clone()
+            skipped[last0:last1, k_mid:k_mid + md.MOE_BK] = 0
+            faulty = plain(xx=skipped)
+        faults = {"scale_dropped": plain(e=last_e), "skipped_stage": faulty}
+        out[name] = {
+            "max_abs_err": (got.float() - want.float()).abs().max().item(),
+            "row_rel_err_rms": row_errs(got, want)["rms"],
+            "row_rel_err_max": row_errs(got, want)["max"], "row_gate": gate,
+            "vs_bf16_body_on_dequantized": row_errs(got, body16),
+            "planted_faults": {f: row_errs(got, v, want)[gate] for f, v in faults.items()}}
+    code_bytes = touched * E * F_ + touched * F_ * 4
+    maps = P * 4 + r.tiles.numel() * 4
+    bounds = {"moe_gate_up": bound(2 * code_bytes + T * E * 2 + P * F_ * 2 + maps,
+                                   2 * P * E * F_ * 2),
+              "moe_down": bound(touched * F_ * E + touched * E * 4 + P * F_ * 2
+                                + P * E * 2 + r.tiles.numel() * 4, 2 * P * F_ * E)}
+    offs = torch.cumsum(counts, 0).to(torch.int32).to(dev)
+    calls = {
+        "moe_gate_up": (lambda: md.moe_gate_up(x, r.tok, wg, wu, r.tiles),
+                        lambda: md.moe_gate_up_ref(x, r.tok, wg, wu, r.tiles),
+                        lambda: md.moe_gate_up(x, r.tok, deq[0], deq[1], r.tiles), None),
+        "moe_down": (lambda: md.moe_down(h, wd, r.tiles),
+                     lambda: md.moe_down_ref(h, wd, r.tiles),
+                     lambda: md.moe_down(h, deq[2], r.tiles),
+                     lambda: torch._grouped_mm(h, deq[2], offs=offs)),
+    }
+    for name, (kern, plain, body16, grouped) in calls.items():
+        bms, by = bounds[name]
+        rec = out[name]
+        rec.update({"ms": cuda_ms(kern), "device_ms": graph_ms(kern),
+                    "plain_ms": cuda_ms(plain, iters=3, warmup=1),
+                    "bound_ms": bms, "bound_by": by,
+                    "bf16_body_on_dequantized_device_ms": graph_ms(body16),
+                    "library_ms": None})
+        if grouped is not None:
+            try:
+                rec["library_ms"] = cuda_ms(grouped)
+                rec["grouped_mm_device_ms"] = graph_ms(grouped)
+            except (AttributeError, RuntimeError) as e:  # a yardstick only
+                rec["grouped_mm_error"] = str(e)[:200]
+        rec["device_ms_over_bound"] = rec["device_ms"] / bms
+    del deq
+    emit({"phase": "moe_quant_case", **out})
+    for name in MOE_KERNELS:
+        rec = out[name]
+        err, gate = rec["max_abs_err"], rec["row_gate"]
+        rel = rec[f"row_rel_err_{gate}"]
+        check(err <= KERNEL_TOL, f"{name} int8 {what}: max abs err {err} > {KERNEL_TOL}")
+        check(rel <= ROW_REL_TOL,
+              f"{name} int8 {what}: row error {rel} ({gate} form) > {ROW_REL_TOL}")
+        for f, v in rec["planted_faults"].items():
+            check(v > ROW_REL_TOL, f"{name} int8 {what}: the planted {f} reads {v}, "
+                  f"under {ROW_REL_TOL}")
+    return out
+
+
+def moe_quant_kernels(dev):
+    """The grouped GEMM's int8 bodies at MOE_QUANT_SHAPES under both
+    routings of MOE_ROUTINGS, x at RMS MOE_X_RMS, and one e4m3 case (the
+    head's shape). Returns the kernels line's records for the int8
+    entries."""
+    gen = torch.Generator(device="cpu").manual_seed(17)
+    dgen = torch.Generator(device=dev).manual_seed(17)
+    head = {}
+    for model, ((E, F_, n, k), Ts) in MOE_QUANT_SHAPES.items():
+        def w(mode, *shape):
+            return quantize_weight(torch.randn(shape, generator=dgen, device=dev,
+                                               dtype=torch.bfloat16)
+                                   .mul_(shape[-2] ** -0.5), mode)
+        q8 = (w("int8", n, E, F_), w("int8", n, E, F_), w("int8", n, F_, E))
+        for T in Ts:
+            x = (torch.randn(T, E, generator=dgen, device=dev) * MOE_X_RMS).bfloat16()
+            for how in MOE_ROUTINGS:
+                sel = moe_routing(gen, T, k, n, how)
+                rec = moe_quant_case(f"{model} T {T} {how}", x, sel, q8, k)
+                if (model, T, how) == MOE_QUANT_HEAD:
+                    head = rec
+                    q_fp8 = (w("fp8", n, E, F_), w("fp8", n, E, F_), w("fp8", n, F_, E))
+                    moe_quant_case(f"{model} T {T} {how} fp8", x, sel, q_fp8, k)
+                    del q_fp8
+        del q8
+        gc.collect()
+        torch.cuda.empty_cache()
+    ents = ptxas_entries(_build.build_log.get("moe_grouped_gemm", ""))
+    emit({"phase": "moe_quant_kernels",
+          "ptxas": {k: v for k, v in ents.items() if not k.endswith(",0>")}})
+    out = {}
+    for name in MOE_KERNELS:
+        rec = dict(head[name])
+        rec["case"] = dict(zip(("model", "T", "routing"), MOE_QUANT_HEAD))
+        out[f"{name}_int8"] = rec
+    return out
+
+
+# llama-3.1-8b at full width and depth, int8 weights over int8 pools (the
+# 3B's traffic); llama-3.2-3b with e4m3 weights (its tied head on the NK
+# layout); mixtral-8x7b at full depth with int8 weights
+QUANT_8B_ARGS = ENGINE_8B_ARGS + ["--quantize", "int8"]
+QUANT_3B_FP8_ARGS = ENGINE_ARGS + ["--quantize", "fp8"]
+MIXTRAL_ARGS = model_args("mixtral-8x7b") + ["--quantize", "int8"]
+# the decode step timed beside engine_int8kv's: 8 rows at 1024 tokens
+DECODE_STEP_ROWS, DECODE_STEP_CONTEXT = 8, 1024
+DECODE_STEP_MS = {}
+
+
+def tree_bytes(tree) -> int:
+    if isinstance(tree, dict):
+        return sum(tree_bytes(v) for v in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+def decode_step_ms(runner):
+    """One warm decode forward pass of DECODE_STEP_ROWS rows at
+    DECODE_STEP_CONTEXT tokens of context, on the runner's pools (after its
+    engine turns), as CUDA-graph replays: the device time of a step, the
+    host's launch cost left out; back to back (host included); and the
+    host's time to launch one step onto an idle device (`host_ms`)."""
+    from dynamo_tpu_torch.models import llama
+
+    cfg, dev = runner.config, runner.device
+    B, ctx = DECODE_STEP_ROWS, DECODE_STEP_CONTEXT
+    per = ctx // runner.page_size + 1
+    pt = torch.arange(B * per, dtype=torch.int32, device=dev).view(B, per)
+    tok = torch.randint(0, cfg.vocab_size, (B, 1), device=dev, dtype=torch.int32)
+    pos = torch.full((B, 1), ctx, dtype=torch.int32, device=dev)
+    kvl = torch.full((B,), ctx + 1, dtype=torch.int32, device=dev)
+
+    def step():
+        return llama.forward(cfg, runner.params, tok, pos, runner.k_pool, runner.v_pool,
+                             pt, kvl, 0)
+
+    out = {"b2b_ms": cuda_ms(step, iters=10), "host_ms": host_ms(step, iters=10),
+           "rows": B, "context": ctx}
+    try:
+        out["device_ms"] = graph_ms(step, iters=5, replays=3)
+    except RuntimeError as e:  # a step that does not capture: b2b only
+        out["device_ms"], out["graph_error"] = None, str(e)[:200]
+    return out
+
+
+def quant_phases(dev, smi):
+    """`engine_quant` (fused) on llama-3.1-8b with int8 weights and int8
+    pools: every request `length`, quant_gemm launches = passes x (7 L +
+    1) on its KN int8 body, the attention kernels' on D128_int8; the
+    params' GB and a decode step's device time beside engine_int8kv's
+    (bf16 weights); then `parity_quant` (the kernel path against the plain
+    path on the same quantized params). Then `engine_quant_fp8_3b`:
+    llama-3.2-3b with e4m3 weights, one fused turn, the tied head on the
+    NK body. Returns the kernels line's launches of QGEMM_ENTRIES."""
+    from dynamo_tpu_torch.models import llama
+
+    found = {}
+    runner, cfg, build_s = timed_runner(QUANT_8B_ARGS)
+    L = cfg.n_layers
+    check(runner.quantize == "int8" and runner.params["layers"]["wq"]["q"].dtype
+          == torch.int8, "engine_quant: the runner's weights are not int8")
+    rec, launches = served_turn(runner, "quant", None, QUANT_8B_ARGS,
+                                one_body(f"D{cfg.head_dim}_int8"), build_s=build_s)
+    passes = (launches["quant_gemm"] // (7 * L + 1))
+    check(launches["quant_gemm"] == passes * (7 * L + 1) > 0,
+          f"engine_quant: quant_gemm launches {launches['quant_gemm']}")
+    rec["params_gb"] = tree_bytes(runner.params) / 1e9
+    rec["params_gb_if_bf16"] = llama.param_bytes(cfg) / 1e9
+    DECODE_STEP_MS["quant"] = decode_step_ms(runner)
+    rec["decode_step"] = DECODE_STEP_MS["quant"]
+    rec["decode_step_bf16_weights"] = DECODE_STEP_MS.get("int8kv")
+    rec["config"] = {k: getattr(cfg, k) for k in CONFIG_FIELDS}
+    rec["nvidia_smi"] = smi
+    emit(rec)
+    found["quant"] = rec["quant_gemm_bodies"]
+    parity_phase(runner, dev, phase="parity_quant")
+    free(runner)
+    runner, cfg, build_s = timed_runner(QUANT_3B_FP8_ARGS)
+    check(cfg.tie_embeddings and runner.params["embed"]["q"].dtype == torch.float8_e4m3fn,
+          "engine_quant_fp8_3b: not a tied e4m3 table")
+    rec, launches = served_turn(runner, "quant_fp8_3b", None, QUANT_3B_FP8_ARGS,
+                                one_body(f"D{cfg.head_dim}"), build_s=build_s)
+    check(rec["quant_gemm_bodies"].get("nk_fp8", 0) > 0,
+          f"engine_quant_fp8_3b: the NK body never ran: {rec['quant_gemm_bodies']}")
+    rec["params_gb"] = tree_bytes(runner.params) / 1e9
+    rec["nvidia_smi"] = smi
+    emit(rec)
+    found["quant_fp8_3b"] = rec["quant_gemm_bodies"]
+    parity_phase(runner, dev, phase="parity_quant_fp8_3b", lens=(300, 90, 40))
+    free(runner)
+    return {name: found[phase].get(f"{lo}_{code}", 0)
+            for name, (lo, code, _, _, phase) in QGEMM_ENTRIES.items()}
+
+
+def mixtral_phases(dev, smi):
+    """`engine_mixtral`: mixtral-8x7b at full width and depth (32 MoE
+    layers, 8 experts, top 2) with int8 weights, 2048 pages, the 3B's
+    traffic: check_fits passes, the params' GB and the card's free memory
+    after the build, every request `length`, each grouped-GEMM entry's
+    launches = passes x 32 all on its int8 body, quant_gemm's = passes x
+    (4 L + 1). Then, with it freed, the MoE parity at two layers
+    (`parity_mixtral_free`, `parity_mixtral` pinned to the kernel path's
+    routing, `repeat_mixtral`). Returns the fused launches."""
+    from dynamo_tpu_torch.models import llama
+
+    cfg0 = get_config("mixtral-8x7b")
+    free_before = torch.cuda.mem_get_info()[0]
+    runner, cfg, build_s = timed_runner(MIXTRAL_ARGS)
+    L = cfg.n_layers
+    check(L == 32 and runner.moe_layers == 32 and runner.quantize == "int8",
+          f"engine_mixtral: {L} layers, {runner.moe_layers} MoE, {runner.quantize}")
+    bodies, launches = family_turn(runner, "mixtral", None, MIXTRAL_ARGS, "D128", smi,
+                                   build_s=build_s)
+    passes = launches["moe_gate_up"] // L
+    check(launches["quant_gemm"] == passes * (4 * L + 1) and passes > 0,
+          f"engine_mixtral: quant_gemm launches {launches['quant_gemm']}, {passes} passes")
+    check(md.moe_gate_up.bodies == {"int8": passes * L} == md.moe_down.bodies,
+          f"engine_mixtral: grouped GEMM bodies {md.moe_gate_up.bodies}, "
+          f"{md.moe_down.bodies}")
+    emit({"phase": "mixtral_memory", "params_gb": tree_bytes(runner.params) / 1e9,
+          "param_bytes_gb": llama.param_bytes(cfg0, quantize="int8") / 1e9,
+          "params_gb_if_bf16": llama.param_bytes(cfg0) / 1e9,
+          "free_gb_before": free_before / 1e9,
+          "free_gb_after_build": torch.cuda.mem_get_info()[0] / 1e9,
+          "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+          "nvidia_smi": smi})
+    free(runner)
+    del runner
+    small = ModelRunner(cfg0.with_(n_layers=2), num_pages=2048, page_size=PAGE_SIZE,
+                        max_pages_per_seq=4096 // PAGE_SIZE, quantize="int8")
+    moe_parity(small, dev, "parity_mixtral")
+    free(small)
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -4527,6 +5105,10 @@ def main() -> int:
         spills = [ln for ln in ptxas.get("moe_grouped_gemm", [])
                   if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
         check(not spills, f"grouped GEMM spills: {spills}")
+        # nor the weight-only GEMM's (its accumulators would leave registers)
+        spills = [ln for ln in ptxas.get("quant_gemm", [])
+                  if any(int(n) for n in re.findall(r"(\d+) bytes spill", ln))]
+        check(not spills, f"weight-only GEMM spills: {spills}")
         # nor the int8 decode kernel at any head dim (8 instantiations)
         check(len(int8_decode) == 8 or "paged_attention" not in gqa_ptxas,
               f"int8 decode instantiations: {sorted(int8_decode)}")
@@ -4558,6 +5140,9 @@ def main() -> int:
         del gem
         head = head_shape_kernels_phase(dev)
         kern.update(moe_kernels_phase(dev))
+        kern.update(quant_kernels_phase(dev))
+        gc.collect()
+        torch.cuda.empty_cache()
         runner, launches, bodies, fused_rec = engine_phases(dev)
         variants = {name: {"engine_fused": bodies[name]} for name in GQA_KERNELS}
         # each copy kernel's launches from the phase that runs it
@@ -4589,6 +5174,10 @@ def main() -> int:
         del int8_launches
         gc.collect()
         torch.cuda.empty_cache()
+        # weight-only quantization: llama-3.1-8b int8, llama-3.2-3b fp8
+        launches.update(quant_phases(dev, smi))
+        gc.collect()
+        torch.cuda.empty_cache()
         mla, mla8 = mla_phases(dev)
         for name in MLA_KERNELS:
             launches[name] = mla[name]
@@ -4618,6 +5207,13 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         mla_moe_phases(dev, smi)
+        gc.collect()
+        torch.cuda.empty_cache()
+        # mixtral-8x7b at full depth on int8 weights, with nothing else on
+        # the card; the grouped GEMM's int8 entries' launches are its
+        mix_launches = mixtral_phases(dev, smi)
+        for name in MOE_KERNELS:
+            launches[f"{name}_int8"] = mix_launches[name]
         for phase, b in found.items():
             for name in GQA_KERNELS:
                 key = f"{name}_int8" if "int8" in phase else name
@@ -4639,7 +5235,7 @@ def main() -> int:
         head_sources[f"{name}_G7"] = SOURCES[name]
         head_sources[f"{name}_D96_window"] = SOURCES[name]
         head_sources[f"{name}_D96_int8_window"] = INT8_SOURCES[f"{name}_int8"]
-    sources = {**SOURCES, **INT8_SOURCES, **head_sources}
+    sources = {**SOURCES, **INT8_SOURCES, **head_sources, **QUANT_SOURCES}
     emit({"phase": "total", "seconds": time.monotonic() - t0})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],

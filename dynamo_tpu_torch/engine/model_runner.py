@@ -12,7 +12,9 @@ format (`KV_WIRE_LAYOUT_VERSION` 2). Params
 and the KV pools live on one device; the pools are updated in place
 (`kv_quantize="int8"`: the int8 dict pools of models/quant.py, whose pages
 cross the transfer boundary dequantized, so the wire stays in the dense
-dtype and bf16 and int8 workers interoperate). Each
+dtype and bf16 and int8 workers interoperate; `quantize="int8"` or
+`"fp8"`: weight-only quantized params, drawn quantized or, given a tree,
+a quantized copy of it, as the reference's `quantize=`). Each
 dispatch uploads its int32 inputs in one packed copy (`_upload`). The
 fused decode loop (a lax.scan there) is a Python loop here that keeps the
 sampled tokens on the device between its steps; the tokens reach the host
@@ -34,7 +36,14 @@ from dynamo_tpu_torch import resolve_device
 from dynamo_tpu_torch.engine.sampling import SamplingParams, sample
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig
-from dynamo_tpu_torch.models.quant import kv_pool_dequantize, kv_pool_quantize
+from dynamo_tpu_torch.models.quant import (
+    DEFAULT_QUANT_NAMES,
+    QUANT_MODES,
+    kv_pool_dequantize,
+    kv_pool_quantize,
+    check_tree,
+    quantize_params,
+)
 from dynamo_tpu_torch.engine.weights import check_fits
 from dynamo_tpu_torch.models.toolkit import (
     is_quantized,
@@ -242,6 +251,7 @@ class ModelRunner:
         params: Optional[Dict[str, Any]] = None,  # None: random, seed 0
         device=None,  # None -> cuda (raises without a card); "cpu" for tests
         kv_quantize: Optional[str] = None,  # "int8": int8 KV pools
+        quantize: Optional[str] = None,  # "int8" / "fp8": weight-only
     ):
         self.config = config
         self.device = resolve_device(device)
@@ -264,14 +274,33 @@ class ModelRunner:
                              and not config.is_mla)
         self.dtype = dtype
         self.moe_layers = llama.moe_layer_count(config)
+        if quantize is not None and quantize not in QUANT_MODES:
+            raise ValueError(f"unknown quantize mode {quantize!r}")
+        self.quantize = quantize
         if self.device.type == "cuda":
             need = kv_pool_bytes(config, num_pages + 1, page_size, dtype, kv_quantize)
             if params is None:
-                need += llama.param_bytes(config, dtype)
+                need += llama.param_bytes(config, dtype, quantize)
+            elif quantize:
+                # the codes and scales quantize_params adds beside the
+                # caller's tree, which stays
+                held = [params] + [params[st] for st in ("layers", "layers_dense")
+                                   if st in params]
+                plain = {n for tree in held for n, w in tree.items()
+                         if n in DEFAULT_QUANT_NAMES and torch.is_tensor(w)}
+                need += llama.param_bytes(config, dtype, quantize, only=plain)
             check_fits(config.name, need, torch.cuda.mem_get_info(self.device)[0])
         t0 = time.monotonic()
-        self.params = params if params is not None else llama.init_params(
-            config, 0, dtype, self.device)
+        if params is None:
+            # drawn quantized, one matrix at a time
+            params = llama.init_params(config, 0, dtype, self.device, quantize)
+        elif quantize:
+            # a new tree: the caller's stays as it is (another runner may
+            # serve it)
+            params = quantize_params(params, mode=quantize)
+        else:
+            check_tree(params)
+        self.params = params
         # one page more than the PagePool hands out: page `num_pages`
         # takes the padding rows' KV writes (models/toolkit.py kv_rows)
         self.kv_quantize = kv_quantize

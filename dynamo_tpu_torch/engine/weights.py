@@ -15,6 +15,16 @@ n_dense_layers keeps its leading dense-FFN layers in a second stack
 layout, so this is a checked copy onto the device, against the tree
 models/llama.py `param_shapes` describes. Norm weights and the router
 bias stay f32, as in the reference; matrices and biases take `dtype`.
+
+A weight-only quantized tree (the reference's quantize_params) holds
+{"q", "s"} leaves in place of the matrices of quant.DEFAULT_QUANT_NAMES
+and {"q", "s", "dt"} for the embedding (models/quant.py). Their codes
+cross exactly: int8 as int8, and e4m3 (numpy has no fp8 type: the
+reference's arrays are ml_dtypes.float8_e4m3fn, which the port does not
+import) through a uint8 view of their bytes, viewed as
+torch.float8_e4m3fn on this side. Scales stay f32; "dt" takes `dtype`,
+the type every plain matrix of the tree takes here. On a CUDA device the
+quantized leaves are held to what the kernels take (quant.check_tree).
 """
 
 from __future__ import annotations
@@ -26,6 +36,18 @@ import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.llama import F32_LEAVES, OPTIONAL_LEAVES, param_shapes
+from dynamo_tpu_torch.models.quant import DEFAULT_QUANT_NAMES, check_tree
+
+
+def _codes(name: str, arr) -> torch.Tensor:
+    """A quantized leaf's codes, exactly: int8, or e4m3 bytes (ml_dtypes'
+    float8_e4m3fn or its uint8 view) as torch.float8_e4m3fn."""
+    arr = np.asarray(arr)
+    if arr.dtype == np.int8:
+        return torch.tensor(arr)
+    if arr.dtype.name == "float8_e4m3fn" or arr.dtype == np.uint8:
+        return torch.tensor(arr.view(np.uint8)).view(torch.float8_e4m3fn)
+    raise TypeError(f"{name}: codes of type {arr.dtype} (int8 or float8_e4m3fn)")
 
 def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
                       device, dtype=torch.bfloat16) -> Dict[str, Any]:
@@ -38,7 +60,28 @@ def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
     if extra:
         raise KeyError(f"param tree has leaves {config.name} does not use: {extra}")
 
+    def quantized(leaf, name, shape):
+        if name not in DEFAULT_QUANT_NAMES:
+            raise ValueError(f"{name}: the port quantizes only {DEFAULT_QUANT_NAMES}")
+        embed = name == "embed"
+        want = {"q", "s", "dt"} if embed else {"q", "s"}
+        if set(leaf) - want or not {"q", "s"} <= set(leaf):
+            raise KeyError(f"{name}: quantized leaf with {sorted(leaf)}, wants "
+                           f"{sorted(want)}")
+        q = _codes(name, leaf["q"])
+        sc = torch.tensor(np.asarray(leaf["s"], dtype=np.float32))
+        s_shape = (shape[0], 1) if embed else (*shape[:-2], 1, shape[-1])
+        if tuple(q.shape) != shape or tuple(sc.shape) != s_shape:
+            raise ValueError(f"{name}: codes {tuple(q.shape)} and scales "
+                             f"{tuple(sc.shape)}, config wants {shape} and {s_shape}")
+        out = {"q": q.to(device), "s": sc.to(device)}
+        if embed:
+            out["dt"] = torch.zeros((0,), dtype=dtype, device=device)
+        return out
+
     def conv(where, name, shape):
+        if isinstance(where[name], Mapping):
+            return quantized(where[name], name, shape)
         arr = np.asarray(where[name], dtype=np.float32)
         if arr.shape != shape:
             raise ValueError(f"{name}: shape {arr.shape}, config wants {shape}")
@@ -65,6 +108,7 @@ def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
         if st not in tree:
             raise KeyError(f"param tree lacks {st!r}")
         out[st] = convert(tree[st], want[st], f"{st}.")
+    check_tree(out)
     return out
 
 

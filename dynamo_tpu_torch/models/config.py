@@ -397,7 +397,8 @@ PRESETS: Dict[str, ModelConfig] = {
         moe_ffn_dim=768,
     ),
     # Mixtral 8x7B: 8 experts, top 2, expert width 14336. 46.7 B parameters,
-    # 93 GB in bf16: more than one card holds (int8 weights, ROADMAP A.6)
+    # 93 GB in bf16, more than one card holds; 46.7 GB with --quantize int8
+    # (models/quant.py, ROADMAP A.6), which one 80 GB card serves
     "mixtral-8x7b": ModelConfig(
         name="mixtral-8x7b",
         vocab_size=32000,

@@ -24,14 +24,20 @@ dense FFN, as the reference's `use_moe` layers do; a config with
 dict of tensors in the reference's stacked layout ({"embed", "norm_f",
 "layers": {"wq": [L, in, out], ...}, "layers_dense"?}, x @ W), so one
 checkpoint tree serves both packages. The layer loop is a Python loop over
-those stacks; matrix products go to torch.matmul, attention to the ops/
-kernels, the routed experts to the grouped GEMM (ops/moe_dispatch.py).
+those stacks; matrix products go through models/quant.py `mm` (torch.matmul
+on a plain weight, the weight-only GEMM on a quantized one), the embedding
+through `embed_lookup` and the tied head through `tied_logits`, as the
+reference's do; attention goes to the ops/ kernels, the routed experts to
+the grouped GEMM (ops/moe_dispatch.py). A quantized tree (`init_params(...,
+quantize=)`, quant.quantize_params, or the reference's through
+engine/weights.py) holds {"q", "s"} leaves in place of the matrices named
+in quant.DEFAULT_QUANT_NAMES.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Collection, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -39,6 +45,18 @@ import torch.nn.functional as F
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.mla import mla_attention
 from dynamo_tpu_torch.models.moe import moe_block
+from dynamo_tpu_torch.models.quant import (
+    CODE_DTYPES,
+    DEFAULT_QUANT_NAMES,
+    QUANT_MODES,
+    check_tree,
+    embed_lookup,
+    mm,
+    quantize_embed,
+    quantize_weight,
+    quantized_bytes,
+    tied_logits,
+)
 from dynamo_tpu_torch.models.toolkit import (
     apply_rope,
     gqa_score_scale,
@@ -54,6 +72,7 @@ from dynamo_tpu_torch.models.toolkit import (
 )
 from dynamo_tpu_torch.ops.flash_prefill import prefill_paged_attention
 from dynamo_tpu_torch.ops.paged_attention import decode_paged_attention
+from dynamo_tpu_torch.ops.quant_gemm import weight_at
 from dynamo_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention,
     ragged_paged_attention_ref,
@@ -71,15 +90,16 @@ ATTN_IMPLS = ("kernel", "ref")
 
 class LayerView:
     """One layer of a stacked tree: lp[name] is stack[name][i] (the
-    reference's scan body sees the same slice)."""
+    reference's scan body sees the same slice; a quantized leaf's codes
+    and scales each sliced)."""
 
     __slots__ = ("stack", "i")
 
-    def __init__(self, stack: Dict[str, torch.Tensor], i: int):
+    def __init__(self, stack: Dict[str, Any], i: int):
         self.stack, self.i = stack, i
 
-    def __getitem__(self, name: str) -> torch.Tensor:
-        return self.stack[name][self.i]
+    def __getitem__(self, name: str):
+        return weight_at(self.stack[name], self.i)
 
     def __contains__(self, name: str) -> bool:
         return name in self.stack
@@ -193,13 +213,21 @@ def param_shapes(c: ModelConfig) -> Dict[str, Any]:
     return shapes
 
 
-def param_bytes(c: ModelConfig, dtype=torch.bfloat16) -> int:
+def param_bytes(c: ModelConfig, dtype=torch.bfloat16,
+                quantize: Optional[str] = None,
+                only: Optional[Collection[str]] = None) -> int:
     """Bytes of the params `init_params` or `params_from_numpy` place:
     `dtype` matrices and biases, f32 norms and router bias (optional
-    leaves not counted)."""
+    leaves not counted); with `quantize`, the matrices of
+    DEFAULT_QUANT_NAMES as one-byte codes and f32 scales. `only`: count
+    just the leaves of those names."""
     item = torch.empty((), dtype=dtype).element_size()
 
     def size(name, shape):
+        if only is not None and name not in only:
+            return 0
+        if quantize and name in DEFAULT_QUANT_NAMES:
+            return quantized_bytes(shape, quantize, embed=name == "embed")
         return math.prod(shape) * (4 if name in F32_LEAVES else item)
 
     total = 0
@@ -212,13 +240,20 @@ def param_bytes(c: ModelConfig, dtype=torch.bfloat16) -> int:
     return total
 
 
-def init_params(config: ModelConfig, seed: int, dtype, device) -> Params:
+def init_params(config: ModelConfig, seed: int, dtype, device,
+                quantize: Optional[str] = None) -> Params:
     """Random-init params from a seeded generator on `device`: the tree of
     param_shapes (the reference's init_params tree, `layers_dense`
     included), weights ~ N(0, 1/fan_in) in `dtype`, biases and the router
     bias 0, norms 1 (0 where they are zero-centred) in f32. The numbers
-    differ from the reference's (another generator)."""
+    differ from the reference's (another generator). With `quantize`
+    ("int8" or "fp8") the leaves of DEFAULT_QUANT_NAMES come quantized,
+    each matrix as it is drawn (quant.quantize_params of the tree drawn
+    without it, bit for bit): a whole bf16 stack is never held (one of
+    mixtral-8x7b's expert stacks is 30 GB)."""
     c = config
+    if quantize is not None and quantize not in QUANT_MODES:
+        raise ValueError(f"unknown quantize mode {quantize!r}; one of {QUANT_MODES}")
     g = torch.Generator(device=device).manual_seed(seed)
 
     def leaf(name, shape):
@@ -232,6 +267,8 @@ def init_params(config: ModelConfig, seed: int, dtype, device) -> Params:
         # time into the result: a whole stack in f32 would be twice its
         # bf16 bytes (qwen3-30b-a3b's we_gate: 38.7 GB)
         scale = shape[-1 if name == "embed" else -2] ** -0.5
+        if quantize and name in DEFAULT_QUANT_NAMES:
+            return quantized_leaf(name, shape, scale)
         out = torch.empty(shape, dtype=dtype, device=device)
         for m in out.view(-1, *shape[-2:]):
             x = torch.randn(shape[-2:], generator=g, device=device,
@@ -239,11 +276,32 @@ def init_params(config: ModelConfig, seed: int, dtype, device) -> Params:
             m.copy_(x.mul_(scale))
         return out
 
+    def quantized_leaf(name, shape, scale):
+        # each matrix drawn in f32, rounded to `dtype` as the plain tree
+        # holds it, quantized, and copied into the preallocated leaf
+        embed = name == "embed"
+        s_shape = (*shape[:-1], 1) if embed else (*shape[:-2], 1, shape[-1])
+        out = {"q": torch.empty(shape, dtype=CODE_DTYPES[quantize], device=device),
+               "s": torch.empty(s_shape, dtype=torch.float32, device=device)}
+        one = quantize_embed if embed else quantize_weight
+        for qm, sm in zip(out["q"].view(-1, *shape[-2:]),
+                          out["s"].view(-1, *s_shape[-2:])):
+            w = torch.randn(shape[-2:], generator=g, device=device,
+                            dtype=torch.float32).mul_(scale).to(dtype)
+            d = one(w, quantize)
+            qm.copy_(d["q"])
+            sm.copy_(d["s"])
+        if embed:
+            out["dt"] = torch.zeros((0,), dtype=dtype, device=device)
+        return out
+
     params: Params = {}
     for name, v in param_shapes(c).items():
         params[name] = ({n: leaf(n, sh) for n, sh in v.items()
                          if n not in OPTIONAL_LEAVES}
                         if isinstance(v, dict) else leaf(name, v))
+    if quantize:
+        check_tree(params)
     return params
 
 
@@ -298,7 +356,7 @@ def forward(
         # reference's jnp.asarray(m, h.dtype)
         return float(torch.tensor(x, dtype=like.dtype))
 
-    h = params["embed"][tokens.long()]  # [B, S, E]
+    h = embed_lookup(params["embed"], tokens)  # [B, S, E]
     if c.embed_multiplier:  # Granite
         h = h * in_dtype(c.embed_multiplier, h)
     elif c.embed_scale:  # Gemma: sqrt(dim)
@@ -336,7 +394,8 @@ def forward(
             # OLMo-2 (pre_norms=False): the sublayer reads the raw residual
             x = (rms_norm(h, lp["attn_norm"], c.norm_eps, zero_centered=zc)
                  if c.pre_norms else h)
-            q, k, v = x @ lp["wq"], x @ lp["wk"], x @ lp["wv"]
+            q, k, v = (mm(x, lp["wq"], attn_impl), mm(x, lp["wk"], attn_impl),
+                       mm(x, lp["wv"], attn_impl))
             if c.attn_bias:  # Qwen2: after the product, in the params' dtype
                 q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
             if c.qk_norm and c.qk_norm_wide:  # OLMo-2: over the full width
@@ -372,7 +431,7 @@ def forward(
                     qg, k_l, v_l, page_table, q_start, q_len, kv_lens, win,
                     **attn_kw)
             attn = attn.reshape(B, S, c.n_heads * hd)
-        attn_out = attn @ lp["wo"]
+        attn_out = mm(attn, lp["wo"], attn_impl)
         if c.post_norms:  # Gemma-2, OLMo-2: norm the branch before the residual
             attn_out = rms_norm(attn_out, lp["post_attn_norm"], c.norm_eps,
                                 zero_centered=zc)
@@ -384,8 +443,8 @@ def forward(
         if use_moe:  # no post-FFN norm on a MoE layer, as in the reference
             ffw = moe_block(c, lp, x, attn_impl)
         else:
-            gate = act(x @ lp["w_gate"])
-            ffw = (gate * (x @ lp["w_up"])) @ lp["w_down"]
+            gate = act(mm(x, lp["w_gate"], attn_impl))
+            ffw = mm(gate * mm(x, lp["w_up"], attn_impl), lp["w_down"], attn_impl)
             if c.post_norms:
                 ffw = rms_norm(ffw, lp["post_mlp_norm"], c.norm_eps,
                                zero_centered=zc)
@@ -403,7 +462,8 @@ def forward(
             h = torch.gather(h, 1, idx)
     h = rms_norm(h, params["norm_f"], c.norm_eps, zero_centered=zc)
     lm_head = params.get("lm_head")
-    logits = (h @ (params["embed"].T if lm_head is None else lm_head)).float()
+    logits = (tied_logits(h, params["embed"], attn_impl) if lm_head is None
+              else mm(h, lm_head, attn_impl)).float()
     if c.logits_divider != 1.0:  # Granite
         logits = logits / c.logits_divider
     if c.final_logit_softcap:

@@ -18,6 +18,11 @@ Pallas kernel only under DYN_MLA_INT8_KERNEL), prefill and the "ref" path
 to the reference's gather over the dequantized latent, the values being
 {"q": q[..., :d_c], "s": s} (one scale a vector, so the column slice
 keeps it exact). As there, there is no int8 prefill kernel.
+
+The projections go through models/quant.py `mm`, as the reference's do; of
+them only wq (a config without q_lora_rank) is among the leaves a
+quantized tree quantizes (quant.DEFAULT_QUANT_NAMES), so wq_lat, wq_up,
+wkv_a and wkv_b stay plain and the absorption and lift keep their einsums.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Tuple
 import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.models.quant import mm
 from dynamo_tpu_torch.models.toolkit import (
     apply_rope,
     attn_score_scale,
@@ -67,14 +73,14 @@ def mla_attention(
 
     x = rms_norm(h, lp["attn_norm"], c.norm_eps)
     if c.q_lora_rank:
-        q_lat = rms_norm(x @ lp["wq_lat"], lp["q_lat_norm"], c.norm_eps)
-        q = q_lat @ lp["wq_up"]
+        q_lat = rms_norm(mm(x, lp["wq_lat"], attn_impl), lp["q_lat_norm"], c.norm_eps)
+        q = mm(q_lat, lp["wq_up"], attn_impl)
     else:
-        q = x @ lp["wq"]
+        q = mm(x, lp["wq"], attn_impl)
     q = q.view(B, S, H, dn + dr)
     q_nope, q_r = q[..., :dn], apply_rope(q[..., dn:], cos, sin)
 
-    kv = x @ lp["wkv_a"]  # [B, S, d_c + d_rh]
+    kv = mm(x, lp["wkv_a"], attn_impl)  # [B, S, d_c + d_rh]
     c_kv = rms_norm(kv[..., :dc], lp["kv_norm"], c.norm_eps)
     k_r = apply_rope(kv[..., None, dc:], cos, sin)[..., 0, :]
     write_kv(k_pool, l, torch.cat([c_kv, k_r], -1)[:, :, None, :], rows)

@@ -11,6 +11,9 @@ mixing weights are cast back to x's dtype, as there. The routed experts:
   `moe_down` -> `combine`, the grouped GEMM on the Hopper kernel for CUDA
   tensors (its plain version on CPU tensors), with no host sync;
 - impl="ref": `dense_experts`, the reference's every-expert form.
+Quantized experts ({"q", "s"} stacks, models/quant.py) take the grouped
+GEMM's quantized body on the kernel path and the reference's `mm` on the
+plain one; the shared experts go through `mm`, as the reference's do.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch.models.config import ModelConfig
+from dynamo_tpu_torch.models.quant import mm
 from dynamo_tpu_torch.ops.moe_dispatch import (
     combine,
     dense_experts,
@@ -43,8 +47,8 @@ def moe_block(c: ModelConfig, lp: Mapping[str, torch.Tensor], x: torch.Tensor,
     x2 = x.reshape(B * S, E)
     shared = None
     if c.n_shared_experts:
-        gate = F.silu(x2 @ lp["ws_gate"])
-        shared = (gate * (x2 @ lp["ws_up"])) @ lp["ws_down"]
+        gate = F.silu(mm(x2, lp["ws_gate"], impl))
+        shared = mm(gate * mm(x2, lp["ws_up"], impl), lp["ws_down"], impl)
         if "ws_gatectl" in lp:  # Qwen2-MoE: a sigmoid-gated shared expert
             shared = shared * torch.sigmoid(x2 @ lp["ws_gatectl"])
     logits = (x2 @ lp["w_router"]).float()  # [B S, n_exp]

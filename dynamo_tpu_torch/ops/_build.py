@@ -64,8 +64,20 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         "moe_gate_up": ([_P] * 6 + [_I] * 5 + [_P], _I),
         # h, w_down, tiles, y, P, n_experts, n_tiles, K, N, stream
         "moe_down": ([_P] * 4 + [_I] * 5 + [_P], _I),
+        # quantized experts: x, tok, w_gate, w_up (codes), s_gate, s_up,
+        # tiles, h, P, n_experts, n_tiles, K, N, code (1 int8, 2 e4m3), stream
+        "moe_gate_up_codes": ([_P] * 8 + [_I] * 6 + [_P], _I),
+        # h, w_down (codes), s_down, tiles, y, P, n_experts, n_tiles, K, N,
+        # code, stream
+        "moe_down_codes": ([_P] * 5 + [_I] * 6 + [_P], _I),
         # the rows of a tile the kernel takes (MOE_BM)
         "moe_tile_rows": ([], _I),
+    },
+    "quant_gemm": {
+        # x, codes, scales, y, M, N, K, nk, fp8, stream
+        "quant_gemm": ([_P] * 4 + [_I] * 5 + [_P], _I),
+        # the rows at or below which a launch takes the small tiles
+        "quant_gemm_small_m": ([], _I),
     },
     "block_copy": {
         # pool, idx, out, L, NP, n, PS, Hk, R (16-byte vectors per D row),

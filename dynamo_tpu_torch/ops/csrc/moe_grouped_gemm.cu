@@ -93,6 +93,26 @@
 // rounded once: the reference's bf16 `mm` -> `silu` -> `*`, and what the
 // plain version (ops/moe_dispatch.py moe_gate_up_ref) does in bf16
 // PyTorch. Down rounds the f32 sum to bf16 once.
+//
+// Quantized experts (template argument kCode: int8 or e4m3 codes [n_experts,
+// K, N] with f32 scales [n_experts, 1, N], models/quant.py's weight-only
+// convention; the reference runs them through its every-expert `mm`,
+// dynamo_tpu/models/moe.py:66). The weights then come by TMA as codes, a
+// box of 64 K rows x 64 columns in 4 KB (half a bf16 box's bytes) without
+// swizzle. wgmma reads B from shared memory only, so the consumer
+// warpgroups turn each stage's code boxes into bf16 boxes in the 128-byte
+// swizzled layout a bf16 box's TMA load writes (16 codes a thread an
+// instruction: int8 by paged_flash.cuh's exact i8 pair conversions, e4m3
+// by cvt.rn.f16x2.e4m3x2, exact too), in one of two buffers taken in turn,
+// order their writes before the products with fence.proxy.async and meet
+// at a named barrier; the products then run as in the bf16 body. With
+// two buffers one barrier a stage suffices: a warpgroup converts into a
+// buffer again only after both passed the barrier of the stage between,
+// which each reaches after its products on the buffer finished. The
+// epilogue scales each expert's columns with the reference's `mm`
+// roundings, bf16(bf16(acc) * bf16(s)), before the SwiGLU (gate/up) or
+// the store (down). The codes as wgmma's register A operand (the int8 MLA
+// decode kernel's transposed products) are later work.
 
 #include <map>
 #include <mutex>
@@ -138,7 +158,11 @@ constexpr int kStagesDown = 6;         // 32 KB: A 16, down 16
 constexpr int kSmallStagesGated = 6;   // 24 KB: A 8, gate 8, up 8
 constexpr int kSmallStagesDown = 8;    // 16 KB: A 8, down 8
 
-template <bool kGated, bool kSmall>
+// the weights' element type: bf16, or one-byte codes with f32 scales
+constexpr int kBF16 = 0, kInt8 = 1, kE4M3 = 2;
+constexpr int kCodeBoxBytes = kBK * kBox;  // 4 KB: a box of codes
+
+template <bool kGated, bool kSmall, int kCode = kBF16>
 struct Cfg {
   static constexpr int kWeights = kGated ? 2 : 1;
   static constexpr int kWGs = kSmall ? 1 : 2;  // consumer warpgroups
@@ -149,9 +173,14 @@ struct Cfg {
   static constexpr int kStages = kSmall ? (kGated ? kSmallStagesGated : kSmallStagesDown)
                                         : (kGated ? kStagesGated : kStagesDown);
   static constexpr int kABytes = kRows * kRowBytes;
-  static constexpr int kStageBytes = kABytes + kWeights * kBoxes * kBoxBytes;
+  // a weight box as it arrives: bf16, or codes
+  static constexpr int kWBoxBytes = kCode == kBF16 ? kBoxBytes : kCodeBoxBytes;
+  static constexpr int kStageBytes = kABytes + kWeights * kBoxes * kWBoxBytes;
+  // codes: each of two buffers holds a stage's weights converted to bf16
+  static constexpr int kConvBytes = kCode == kBF16 ? 0 : kWeights * kBoxes * kBoxBytes;
   // and 1 KB to align the ring to the swizzle's 1024-byte repeat
-  static constexpr int kSmemBytes = kStages * kStageBytes + 1024;
+  static constexpr int kSmemBytes = kStages * kStageBytes + 2 * kConvBytes + 1024;
+  static_assert(kSmemBytes <= 232448, "shared memory of one block");
 };
 
 // the work list's counters: the next item to claim, and the blocks that
@@ -160,6 +189,57 @@ __device__ int work_counter[2];
 
 __device__ __forceinline__ float round_bf16(float v) {
   return __bfloat162float(__float2bfloat16(v));
+}
+
+// bf16(acc) * bf16(s), exact in f32: the reference's `mm` on quantized
+// weights before its last rounding
+__device__ __forceinline__ float scaled(float acc, float s) {
+  return round_bf16(acc) * round_bf16(s);
+}
+
+// A stage's code boxes (64 K rows of 64 one-byte codes each) -> bf16 boxes
+// in the 128-byte-swizzled layout (row r at 128 r, 16-byte chunk c at
+// chunk c ^ (r % 8)), by the kThreads consumer threads, 16 codes a thread
+// an instruction.
+template <int kCode, int kBoxesIn, int kThreads>
+__device__ __forceinline__ void convert_codes(uint32_t codes, uint32_t out, int tid) {
+  constexpr int kChunks = kBoxesIn * kCodeBoxBytes / 16;
+  static_assert(kChunks % kThreads == 0, "whole chunks a thread");
+#pragma unroll
+  for (int c = tid; c < kChunks; c += kThreads) {
+    const int box = c / (kCodeBoxBytes / 16), r = (c / 4) % kBK, q = c % 4;
+    uint4 v;
+    asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                 : "r"(codes + box * kCodeBoxBytes + r * kBK + q * 16)
+                 : "memory");
+    const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+    uint32_t o[8];  // 16 bf16 in column order
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if constexpr (kCode == kE4M3) {
+        o[2 * i] = paged_flash::e4m3x2_bf16x2(w[i] & 0xffffu);
+        o[2 * i + 1] = paged_flash::e4m3x2_bf16x2(w[i] >> 16);
+      } else {
+        const uint32_t p = __byte_perm(w[i], 0, 0x3120);  // bytes 0, 2, 1, 3
+        o[2 * i] = paged_flash::i8_lo_bf16x2(p);
+        o[2 * i + 1] = paged_flash::i8_hi_bf16x2(p);
+      }
+    }
+    const uint32_t row = out + box * kBoxBytes + r * kRowBytes;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n"
+                   :: "r"(row + (((2 * q + h) ^ (r & 7)) << 4)), "r"(o[4 * h]),
+                      "r"(o[4 * h + 1]), "r"(o[4 * h + 2]), "r"(o[4 * h + 3])
+                   : "memory");
+    }
+  }
+}
+
+// the consumer warpgroups' barrier (id 1; the block's __syncthreads is 0)
+__device__ __forceinline__ void consumers_sync(int n) {
+  asm volatile("bar.sync 1, %0;\n" :: "r"(n) : "memory");
 }
 
 // silu(g) * u with the reference's bf16 roundings (see above)
@@ -239,15 +319,16 @@ __device__ __forceinline__ void tile_rows(int (&src)[kN], int4 tile, const int* 
 // [T k, K], rows row0.. of the tile, also through a_map: boxes of 64 K x
 // 64 rows); w0_map, w1_map: [n_experts, K, N] (w1 unused by down); tiles
 // [n_tiles, 3] int32; out [T k, N] bf16.
-template <bool kGated, bool kSmall>
-__global__ void __launch_bounds__(Cfg<kGated, kSmall>::kThreads, 1)
+template <bool kGated, bool kSmall, int kCode>
+__global__ void __launch_bounds__(Cfg<kGated, kSmall, kCode>::kThreads, 1)
 moe_gemm_kernel(const __grid_constant__ CUtensorMap w0_map,
                 const __grid_constant__ CUtensorMap w1_map,
                 const __grid_constant__ CUtensorMap a_map,
                 const bf16* __restrict__ a, const int* __restrict__ a_rows,
-                const int* __restrict__ tiles, bf16* __restrict__ out, int n_tiles,
+                const int* __restrict__ tiles, const float* __restrict__ s0,
+                const float* __restrict__ s1, bf16* __restrict__ out, int n_tiles,
                 int K, int N) {
-  using C = Cfg<kGated, kSmall>;
+  using C = Cfg<kGated, kSmall, kCode>;
   constexpr int S = C::kStages;
   extern __shared__ unsigned char smem_raw[];
   __shared__ __align__(8) uint64_t full_bar[S];
@@ -294,7 +375,7 @@ moe_gemm_kernel(const __grid_constant__ CUtensorMap w0_map,
       int4 next_tile = make_int4(-1, 0, 0, 0);
       const int boxes = min(C::kBoxes, (N - n0) / kBox);
       const int a_boxes = !a_rows && rows > kBoxRows ? (rows + kWGRows - 1) / kWGRows : 0;
-      const int bytes = (C::kWeights * boxes + a_boxes) * kBoxBytes;
+      const int bytes = C::kWeights * boxes * C::kWBoxBytes + a_boxes * kBoxBytes;
       for (int kt = 0; kt < steps; ++kt) {
         mbar_wait(smem_u32(&empty_bar[stage]), phase ^ 1);
         const uint32_t st = ring + stage * C::kStageBytes;
@@ -305,7 +386,7 @@ moe_gemm_kernel(const __grid_constant__ CUtensorMap w0_map,
 #pragma unroll
           for (int p = 0; p < C::kWeights; ++p) {
             for (int b = 0; b < boxes; ++b) {
-              tma_load_3d(st + C::kABytes + (C::kBoxes * p + b) * kBoxBytes,
+              tma_load_3d(st + C::kABytes + (C::kBoxes * p + b) * C::kWBoxBytes,
                           p ? &w1_map : &w0_map, full, n0 + b * kBox, kt * kBK, tile.x);
             }
           }
@@ -350,6 +431,8 @@ moe_gemm_kernel(const __grid_constant__ CUtensorMap w0_map,
     const int tid = threadIdx.x & 127;
     const int warp = tid >> 5, lane = tid & 31;
     int stage = 0, phase = 0;
+    int conv = 0;  // the converted-weights buffer this stage takes (codes)
+    const uint32_t conv_base = ring + C::kStages * C::kStageBytes;
     float acc[C::kWeights][C::kBN / 2] = {};
     for (;;) {
       mbar_wait(smem_u32(&full_bar[stage]), phase);
@@ -359,9 +442,19 @@ moe_gemm_kernel(const __grid_constant__ CUtensorMap w0_map,
       const bool live = rows > wg * kWGRows;  // uniform over the warpgroup
       for (int kt = 0; kt < steps; ++kt) {
         if (kt > 0) mbar_wait(smem_u32(&full_bar[stage]), phase);
+        const uint32_t st = ring + stage * C::kStageBytes;
+        // the B boxes: the stage's, or (codes) their bf16 conversion
+        uint32_t wb = st + C::kABytes;
+        if constexpr (kCode != kBF16) {
+          wb = conv_base + conv * C::kConvBytes;
+          convert_codes<kCode, C::kWeights * C::kBoxes, C::kWGs * 128>(
+              st + C::kABytes, wb, threadIdx.x);
+          fence_proxy_async();  // the conversion's writes, before wgmma reads
+          consumers_sync(C::kWGs * 128);
+          conv ^= 1;
+        }
         if (live) {
           fence_proxy_async();  // the A rows' cp.async writes, before wgmma reads
-          const uint32_t st = ring + stage * C::kStageBytes;
           const uint32_t a0 = st + wg * kWGRows * kRowBytes;
 #pragma unroll
           for (int p = 0; p < C::kWeights; ++p) fence_acc(acc[p]);
@@ -376,8 +469,7 @@ moe_gemm_kernel(const __grid_constant__ CUtensorMap w0_map,
 #pragma unroll
             for (int p = 0; p < C::kWeights; ++p) {
               const uint64_t db = sw128_desc(
-                  st + C::kABytes + C::kBoxes * p * kBoxBytes + kk * 16 * kRowBytes,
-                  kBoxBytes, 1024);
+                  wb + C::kBoxes * p * kBoxBytes + kk * 16 * kRowBytes, kBoxBytes, 1024);
               wgmma(acc[p], da, db, (kt | kk) != 0);
             }
           }
@@ -393,6 +485,8 @@ moe_gemm_kernel(const __grid_constant__ CUtensorMap w0_map,
         }
       }
       if (!live) continue;
+      // codes: the item's expert's scales
+      const int expert = kCode != kBF16 ? __ldg(tiles + 3 * (info.x / ncb)) : 0;
       // d[4j + 2h + c]: row 16 warp + lane / 4 + 8 h, column 8 j + 2 (lane % 4) + c
 #pragma unroll
       for (int j = 0; j < C::kBN / 8; ++j) {
@@ -401,13 +495,25 @@ moe_gemm_kernel(const __grid_constant__ CUtensorMap w0_map,
           const int m = wg * kWGRows + warp * 16 + (lane >> 2) + h * 8;
           const int n = n0 + j * 8 + (lane & 3) * 2;
           if (m < rows && n < N) {
+            float v[C::kWeights][2];
+#pragma unroll
+            for (int p = 0; p < C::kWeights; ++p) {
+              v[p][0] = acc[p][4 * j + 2 * h];
+              v[p][1] = acc[p][4 * j + 2 * h + 1];
+              if constexpr (kCode != kBF16) {
+                const float2 sc = __ldg(reinterpret_cast<const float2*>(
+                    (p ? s1 : s0) + static_cast<size_t>(expert) * N + n));
+                v[p][0] = scaled(v[p][0], sc.x);
+                v[p][1] = scaled(v[p][1], sc.y);
+              }
+            }
             float v0, v1;
             if constexpr (kGated) {
-              v0 = swiglu(acc[0][4 * j + 2 * h], acc[1][4 * j + 2 * h]);
-              v1 = swiglu(acc[0][4 * j + 2 * h + 1], acc[1][4 * j + 2 * h + 1]);
+              v0 = swiglu(v[0][0], v[C::kWeights - 1][0]);
+              v1 = swiglu(v[0][1], v[C::kWeights - 1][1]);
             } else {
-              v0 = acc[0][4 * j + 2 * h];
-              v1 = acc[0][4 * j + 2 * h + 1];
+              v0 = v[0][0];
+              v1 = v[0][1];
             }
             *reinterpret_cast<__nv_bfloat162*>(
                 out + static_cast<size_t>(row0 + m) * N + n) =
@@ -421,14 +527,17 @@ moe_gemm_kernel(const __grid_constant__ CUtensorMap w0_map,
 
 // -- host side -------------------------------------------------------------
 
-// a bf16 tensor of `rank` dims (innermost first), 128-byte swizzle
+// a tensor of `rank` dims (innermost first): bf16 with the 128-byte
+// swizzle, or one-byte codes unswizzled
 bool encode(CUtensorMap* map, const void* ptr, cuuint32_t rank, const cuuint64_t* dims,
-            const cuuint64_t* strides, const cuuint32_t* box) {
+            const cuuint64_t* strides, const cuuint32_t* box, bool codes = false) {
   const EncodeTiled fn = encoder();
   const cuuint32_t ones[3] = {1, 1, 1};
-  return fn && fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(ptr),
-                  dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                  CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+  return fn && fn(map, codes ? CU_TENSOR_MAP_DATA_TYPE_UINT8 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                  rank, const_cast<void*>(ptr), dims, strides, box, ones,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE,
+                  codes ? CU_TENSOR_MAP_SWIZZLE_NONE : CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                   CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
@@ -440,24 +549,27 @@ bool rows_map(CUtensorMap* map, const void* ptr, int R, int K) {
   return encode(map, ptr, 2, dims, strides, box);
 }
 
-// weights [n_experts, K, N]: 64 x 64 a box. Weights live as long as the
-// model, so their maps are kept, keyed by pointer and shape.
-bool weight_map(CUtensorMap* map, const void* ptr, int n_experts, int K, int N) {
+// weights [n_experts, K, N] (bf16, or codes): 64 x 64 a box. Weights live
+// as long as the model, so their maps are kept, keyed by pointer, shape
+// and element type.
+bool weight_map(CUtensorMap* map, const void* ptr, int n_experts, int K, int N,
+                bool codes) {
   static std::mutex mu;
-  static std::map<std::tuple<const void*, int, int, int>, CUtensorMap> cache;
-  const auto key = std::make_tuple(ptr, n_experts, K, N);
+  static std::map<std::tuple<const void*, int, int, int, bool>, CUtensorMap> cache;
+  const auto key = std::make_tuple(ptr, n_experts, K, N, codes);
   std::lock_guard<std::mutex> lock(mu);
   const auto it = cache.find(key);
   if (it != cache.end()) {
     *map = it->second;
     return true;
   }
+  const cuuint64_t elem = codes ? 1 : 2;
   const cuuint64_t dims[3] = {static_cast<cuuint64_t>(N), static_cast<cuuint64_t>(K),
                               static_cast<cuuint64_t>(n_experts)};
-  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(N) * 2,
-                                 static_cast<cuuint64_t>(K) * N * 2};
+  const cuuint64_t strides[2] = {static_cast<cuuint64_t>(N) * elem,
+                                 static_cast<cuuint64_t>(K) * N * elem};
   const cuuint32_t box[3] = {kBox, kBK, 1};
-  if (!encode(map, ptr, 3, dims, strides, box)) return false;
+  if (!encode(map, ptr, 3, dims, strides, box, codes)) return false;
   if (cache.size() >= 4096) cache.clear();
   cache.emplace(key, *map);
   return true;
@@ -472,64 +584,90 @@ int sm_count() {
   return counts[dev];
 }
 
-template <bool kGated, bool kSmall>
-int launch_cfg(const CUtensorMap& m0, const CUtensorMap& m1, const CUtensorMap& am,
-               const bf16* a, const int* a_rows, const int* tiles, bf16* out, int n_tiles,
-               int K, int N, cudaStream_t st) {
-  using C = Cfg<kGated, kSmall>;
+// one launch's operands: the weights' maps, the A rows, the scales (codes)
+struct Args {
+  CUtensorMap m0, m1, am;
+  const bf16* a;
+  const int* a_rows;
+  const int* tiles;
+  const float* s0;
+  const float* s1;
+  bf16* out;
+  int n_tiles, K, N;
+};
+
+template <bool kGated, bool kSmall, int kCode>
+int launch_cfg(const Args& g, cudaStream_t st) {
+  using C = Cfg<kGated, kSmall, kCode>;
   static bool sized[64] = {};
   int dev = 0;
   cudaGetDevice(&dev);
   if (dev >= 0 && dev < 64 && !sized[dev]) {
     const cudaError_t rc =
-        cudaFuncSetAttribute(moe_gemm_kernel<kGated, kSmall>,
+        cudaFuncSetAttribute(moe_gemm_kernel<kGated, kSmall, kCode>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmemBytes);
     if (rc != cudaSuccess) return static_cast<int>(rc);
     sized[dev] = true;
   }
-  const int items = n_tiles * ((N + C::kBN - 1) / C::kBN);
+  const int items = g.n_tiles * ((g.N + C::kBN - 1) / C::kBN);
   const int sms = sm_count();
   if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
-  moe_gemm_kernel<kGated, kSmall><<<items < sms ? items : sms, C::kThreads,
-                                    C::kSmemBytes, st>>>(m0, m1, am, a, a_rows, tiles,
-                                                         out, n_tiles, K, N);
+  moe_gemm_kernel<kGated, kSmall, kCode><<<items < sms ? items : sms, C::kThreads,
+                                           C::kSmemBytes, st>>>(
+      g.m0, g.m1, g.am, g.a, g.a_rows, g.tiles, g.s0, g.s1, g.out, g.n_tiles, g.K, g.N);
   return static_cast<int>(cudaGetLastError());
 }
 
-// a: rows picked by a_rows, or (a_rows NULL) the P sorted rows themselves
+template <bool kGated, int kCode>
+int launch_code(bool small, const Args& g, cudaStream_t st) {
+  return small ? launch_cfg<kGated, true, kCode>(g, st)
+               : launch_cfg<kGated, false, kCode>(g, st);
+}
+
+// a: rows picked by a_rows, or (a_rows NULL) the P sorted rows themselves;
+// code kBF16 (s0, s1 NULL), kInt8 or kE4M3
 int launch(bool gated, const void* a, int P, const void* a_rows, const void* w0,
-           const void* w1, int n_experts, const void* tiles, void* out, int n_tiles,
-           int K, int N, void* stream) {
+           const void* w1, const void* s0, const void* s1, int code, int n_experts,
+           const void* tiles, void* out, int n_tiles, int K, int N, void* stream) {
   if (n_tiles <= 0 || P <= 0 || n_experts <= 0 || K <= 0 || N <= 0 || K % kBK ||
-      N % kBox) {
+      N % kBox || code < kBF16 || code > kE4M3 || (code != kBF16 && !s0) ||
+      (code != kBF16 && gated && !s1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  CUtensorMap m0, m1, am;
-  if (!weight_map(&m0, w0, n_experts, K, N) ||
-      !weight_map(&m1, gated ? w1 : w0, n_experts, K, N)) {
+  const bool codes = code != kBF16;
+  Args g;
+  if (!weight_map(&g.m0, w0, n_experts, K, N, codes) ||
+      !weight_map(&g.m1, gated ? w1 : w0, n_experts, K, N, codes)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (a_rows) {
-    am = m0;  // unused: the rows are gathered
-  } else if (!rows_map(&am, a, P, K)) {
+    g.am = g.m0;  // unused: the rows are gathered
+  } else if (!rows_map(&g.am, a, P, K)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  g.a = static_cast<const bf16*>(a);
+  g.a_rows = static_cast<const int*>(a_rows);
+  g.tiles = static_cast<const int*>(tiles);
+  g.s0 = static_cast<const float*>(s0);
+  g.s1 = static_cast<const float*>(gated ? s1 : s0);
+  g.out = static_cast<bf16*>(out);
+  g.n_tiles = n_tiles;
+  g.K = K;
+  g.N = N;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* A = static_cast<const bf16*>(a);
-  const auto* R = static_cast<const int*>(a_rows);
-  const auto* T = static_cast<const int*>(tiles);
-  auto* O = static_cast<bf16*>(out);
   const int sms = sm_count();
   constexpr int kWide = Cfg<true, false>::kBN;
   const int tiles_max = P < n_experts ? P : n_experts;  // live tiles, at most
   const bool small =
       P <= kSmallPairs && tiles_max * ((N + kWide - 1) / kWide) < kSmallItems * sms;
   if (gated) {
-    return small ? launch_cfg<true, true>(m0, m1, am, A, R, T, O, n_tiles, K, N, st)
-                 : launch_cfg<true, false>(m0, m1, am, A, R, T, O, n_tiles, K, N, st);
+    return code == kBF16   ? launch_code<true, kBF16>(small, g, st)
+           : code == kInt8 ? launch_code<true, kInt8>(small, g, st)
+                           : launch_code<true, kE4M3>(small, g, st);
   }
-  return small ? launch_cfg<false, true>(m0, m1, am, A, R, T, O, n_tiles, K, N, st)
-               : launch_cfg<false, false>(m0, m1, am, A, R, T, O, n_tiles, K, N, st);
+  return code == kBF16   ? launch_code<false, kBF16>(small, g, st)
+         : code == kInt8 ? launch_code<false, kInt8>(small, g, st)
+                         : launch_code<false, kE4M3>(small, g, st);
 }
 
 }  // namespace
@@ -539,14 +677,32 @@ int launch(bool gated, const void* a, int P, const void* a_rows, const void* w0,
 extern "C" int moe_gate_up(const void* x, const void* tok, const void* w_gate,
                            const void* w_up, const void* tiles, void* h, int P,
                            int n_experts, int n_tiles, int K, int N, void* stream) {
-  return launch(true, x, P, tok, w_gate, w_up, n_experts, tiles, h, n_tiles, K, N, stream);
+  return launch(true, x, P, tok, w_gate, w_up, nullptr, nullptr, kBF16, n_experts, tiles,
+                h, n_tiles, K, N, stream);
 }
 
 // h [P, K], w_down [n_experts, K, N], tiles -> y [P, N]
 extern "C" int moe_down(const void* h, const void* w_down, const void* tiles, void* y,
                         int P, int n_experts, int n_tiles, int K, int N, void* stream) {
-  return launch(false, h, P, nullptr, w_down, nullptr, n_experts, tiles, y, n_tiles, K, N,
-                stream);
+  return launch(false, h, P, nullptr, w_down, nullptr, nullptr, nullptr, kBF16, n_experts,
+                tiles, y, n_tiles, K, N, stream);
+}
+
+// quantized experts: codes [n_experts, K, N] (code 1 int8, 2 e4m3) with f32
+// scales [n_experts, 1, N]; otherwise as moe_gate_up and moe_down
+extern "C" int moe_gate_up_codes(const void* x, const void* tok, const void* w_gate,
+                                 const void* w_up, const void* s_gate, const void* s_up,
+                                 const void* tiles, void* h, int P, int n_experts,
+                                 int n_tiles, int K, int N, int code, void* stream) {
+  return launch(true, x, P, tok, w_gate, w_up, s_gate, s_up, code, n_experts, tiles, h,
+                n_tiles, K, N, stream);
+}
+
+extern "C" int moe_down_codes(const void* h, const void* w_down, const void* s_down,
+                              const void* tiles, void* y, int P, int n_experts,
+                              int n_tiles, int K, int N, int code, void* stream) {
+  return launch(false, h, P, nullptr, w_down, nullptr, s_down, nullptr, code, n_experts,
+                tiles, y, n_tiles, K, N, stream);
 }
 
 // the rows of a tile the kernel takes (route's MOE_BM must equal it)

@@ -130,6 +130,7 @@
 
 #include <cuda.h>  // CUtensorMap; cuTensorMapEncodeTiled is looked up at run time
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -395,6 +396,18 @@ __device__ __forceinline__ uint32_t i8_lo_bf16x2(uint32_t w) {
 // ... and the codes in bytes 1 and 3
 __device__ __forceinline__ uint32_t i8_hi_bf16x2(uint32_t w) {
   return i8_lo_bf16x2(w >> 8);
+}
+
+// Two e4m3 codes (bits 0-7 and 8-15 of p) -> a bf16 pair, the first in the
+// low half; exact: e4m3 -> f16 by cvt.rn.f16x2.e4m3x2, then f16 -> f32 ->
+// bf16, and every e4m3 value is a bf16 value (the weight-only fp8 GEMMs,
+// quant_gemm.cu and moe_grouped_gemm.cu)
+__device__ __forceinline__ uint32_t e4m3x2_bf16x2(uint32_t p) {
+  uint32_t h2;
+  asm("{\n .reg .b16 c;\n cvt.u16.u32 c, %1;\n cvt.rn.f16x2.e4m3x2 %0, c;\n}\n"
+      : "=r"(h2) : "r"(p));
+  const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&h2));
+  return pack_bf16(f.x, f.y);
 }
 
 // The dims a thread's K code word covers, in attend_codes' order. D is cut

@@ -30,6 +30,13 @@ computes the same function by routing instead:
 - `combine` puts the rows back in (token, choice) order, multiplies them
   by the mixing weights and sums over the k choices in plain PyTorch, in
   a fixed order (no float atomics: greedy streams repeat run to run).
+
+Quantized experts (models/quant.py's weight-only convention: {"q": int8
+or float8_e4m3fn codes [n_experts, K, N], "s": f32 [n_experts, 1, N]})
+take the kernel's quantized body on CUDA tensors and, in the plain
+versions, the reference's `mm` per expert (two roundings in x's dtype).
+Each wrapper counts `.launches` and, by code type, `.bodies` ("bf16",
+"int8", "fp8").
 """
 
 from __future__ import annotations
@@ -40,6 +47,12 @@ import torch
 import torch.nn.functional as F
 
 from dynamo_tpu_torch.ops import _build
+from dynamo_tpu_torch.ops.quant_gemm import (
+    CODE_TYPES,
+    is_quantized_weight,
+    mm_ref,
+    weight_at,
+)
 
 # rows a tile of the grouped GEMM: the kernel's kBM (two warpgroups of 64)
 MOE_BM = 128
@@ -101,13 +114,13 @@ def router_topk(logits: torch.Tensor, k: int, scoring: str = "softmax",
 
 
 def dense_experts(x: torch.Tensor, sel: torch.Tensor, weights: torch.Tensor,
-                  we_gate: torch.Tensor, we_up: torch.Tensor,
-                  we_down: torch.Tensor) -> torch.Tensor:
+                  we_gate, we_up, we_down) -> torch.Tensor:
     """The reference's every-expert form (models/moe.py:65-76): every
     expert's SwiGLU on every token x [N, E], then each token's k chosen
-    outputs weighted by `weights` [N, k] and summed, in x's dtype."""
-    gate = F.silu(torch.matmul(x, we_gate))  # [n_exp, N, F]
-    out = torch.matmul(gate * torch.matmul(x, we_up), we_down)  # [n_exp, N, E]
+    outputs weighted by `weights` [N, k] and summed, in x's dtype. The
+    stacks are plain or quantized (its `mm`)."""
+    gate = F.silu(mm_ref(x, we_gate))  # [n_exp, N, F]
+    out = mm_ref(gate * mm_ref(x, we_up), we_down)  # [n_exp, N, E]
     idx = sel.long()[..., None].expand(-1, -1, out.shape[-1])
     sel_out = out.permute(1, 0, 2).gather(1, idx)  # [N, k, E]
     return (sel_out * weights[..., None]).sum(1)
@@ -173,36 +186,52 @@ def expert_rows(tiles: torch.Tensor) -> List[Tuple[int, int, int]]:
     return [(e, lo, hi) for e, (lo, hi) in sorted(spans.items())]
 
 
+def _codes(w):
+    """The stack's matrices: the tensor, or a quantized stack's codes."""
+    return w["q"] if is_quantized_weight(w) else w
+
+
 def moe_gate_up_ref(x, tok_of_row, w_gate, w_up, tiles):
     """Plain version of moe_gate_up: per expert, silu(x_r @ w_gate[e]) *
     (x_r @ w_up[e]) over its rows' tokens x_r, in x's dtype."""
-    h = x.new_zeros((tok_of_row.shape[0], w_gate.shape[-1]))
+    h = x.new_zeros((tok_of_row.shape[0], _codes(w_gate).shape[-1]))
     for e, r0, r1 in expert_rows(tiles):
         xr = x[tok_of_row[r0:r1].long()]
-        h[r0:r1] = F.silu(xr @ w_gate[e]) * (xr @ w_up[e])
+        h[r0:r1] = F.silu(mm_ref(xr, weight_at(w_gate, e))) * mm_ref(xr, weight_at(w_up, e))
     return h
 
 
 def moe_down_ref(h, w_down, tiles):
     """Plain version of moe_down: per expert, h_r @ w_down[e] over its rows."""
-    y = h.new_zeros((h.shape[0], w_down.shape[-1]))
+    y = h.new_zeros((h.shape[0], _codes(w_down).shape[-1]))
     for e, r0, r1 in expert_rows(tiles):
-        y[r0:r1] = h[r0:r1] @ w_down[e]
+        y[r0:r1] = mm_ref(h[r0:r1], weight_at(w_down, e))
     return y
 
 
-def _check_operands(what: str, mats, ints, K: int, N: int) -> None:
-    """The kernel's operands: bf16 matrices and int32 maps, contiguous, on
-    one device; K a multiple of MOE_BK and N of MOE_N_ALIGN; the matrices
-    at MOE_PTR_ALIGN-byte aligned addresses."""
+def _check_operands(what: str, mats, ints, K: int, N: int, codes=(),
+                    scales=()) -> None:
+    """The kernel's operands: bf16 matrices (and, for quantized experts,
+    int8 or e4m3 codes of one type with f32 scales) and int32 maps,
+    contiguous, on one device; K a multiple of MOE_BK and N of
+    MOE_N_ALIGN; the matrices, codes and scales at MOE_PTR_ALIGN-byte
+    aligned addresses."""
     dev = mats[0][1].device
     for name, t in mats:
         if t.dtype != torch.bfloat16:
             raise TypeError(f"{what} takes a bf16 {name}, not {t.dtype}")
+    for name, t in codes:
+        if t.dtype not in CODE_TYPES or t.dtype != codes[0][1].dtype:
+            raise TypeError(f"{what} takes int8 or float8_e4m3fn codes of one type "
+                            f"for {name}, not {t.dtype}")
+    for name, t in scales:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{what} takes f32 scales for {name}, not {t.dtype}")
     for name, t in ints:
         if t.dtype != torch.int32:
             raise TypeError(f"{what} takes an int32 {name}, not {t.dtype}")
-    for name, t in mats + ints:
+    mats = list(mats) + list(codes) + list(scales)
+    for name, t in mats + list(ints):
         if t.device != dev:
             raise ValueError(f"{what}: {name} is on {t.device}, not {dev}")
         if not t.is_contiguous():
@@ -230,58 +259,99 @@ def gate_up_rows(x: torch.Tensor, tok_of_row: torch.Tensor):
     return x, tok_of_row
 
 
-def moe_gate_up(x: torch.Tensor, tok_of_row: torch.Tensor,
-                w_gate: torch.Tensor, w_up: torch.Tensor,
+def _weight_operands(what: str, named):
+    """(matrices or codes, scales ([] for bf16), code) of a wrapper's
+    weights: all bf16 (code 0), or all quantized (1 int8, 2 e4m3)."""
+    quantized = [is_quantized_weight(w) for _, w in named]
+    if any(quantized) and not all(quantized):
+        raise TypeError(f"{what}: weights are partly quantized")
+    if not quantized[0]:
+        return [(n, w) for n, w in named], [], 0
+    codes = [(n, w["q"]) for n, w in named]
+    scales = [(f"{n} scales", w["s"]) for n, w in named]
+    return codes, scales, 1 if codes[0][1].dtype == torch.int8 else 2
+
+
+def _count(fn, code: int) -> None:
+    fn.launches += 1
+    body = ("bf16", "int8", "fp8")[code]
+    fn.bodies[body] = fn.bodies.get(body, 0) + 1
+
+
+def moe_gate_up(x: torch.Tensor, tok_of_row: torch.Tensor, w_gate, w_up,
                 tiles: torch.Tensor) -> torch.Tensor:
     """h [T k, F] = silu(x[tok] @ w_gate[e]) * (x[tok] @ w_up[e]) for each
-    sorted row, e its tile's expert. x [T, E]; w_gate, w_up [n_exp, E, F];
-    tok_of_row [T k] int32; tiles from `route`."""
+    sorted row, e its tile's expert. x [T, E]; w_gate, w_up [n_exp, E, F]
+    (bf16, or quantized: codes and scales [n_exp, 1, F]); tok_of_row
+    [T k] int32; tiles from `route`."""
     if x.device.type == "cpu":
         return moe_gate_up_ref(x, tok_of_row, w_gate, w_up, tiles)
-    n_exp, E, F_ = w_gate.shape
-    if x.dim() != 2 or x.shape[1] != E or w_up.shape != w_gate.shape:
+    mats, scales, code = _weight_operands("moe_gate_up", [("w_gate", w_gate),
+                                                          ("w_up", w_up)])
+    (_, wg), (_, wu) = mats
+    n_exp, E, F_ = wg.shape
+    if (x.dim() != 2 or x.shape[1] != E or wu.shape != wg.shape
+            or any(t.shape != (n_exp, 1, F_) for _, t in scales)):
         raise ValueError(f"moe_gate_up: x {tuple(x.shape)}, w_gate "
-                         f"{tuple(w_gate.shape)}, w_up {tuple(w_up.shape)}")
-    _check_operands("moe_gate_up", [("x", x), ("w_gate", w_gate), ("w_up", w_up)],
-                    [("tok_of_row", tok_of_row), ("tiles", tiles)], E, F_)
+                         f"{tuple(wg.shape)}, w_up {tuple(wu.shape)}")
+    _check_operands("moe_gate_up", [("x", x)] + (mats if not code else []),
+                    [("tok_of_row", tok_of_row), ("tiles", tiles)], E, F_,
+                    codes=mats if code else (), scales=scales)
     _check_tiles("moe_gate_up", tiles)
     h = torch.empty((tok_of_row.shape[0], F_), dtype=x.dtype, device=x.device)
     a, rows = gate_up_rows(x, tok_of_row)
     lib = _build.load()["moe_grouped_gemm"]
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.moe_gate_up(a.data_ptr(), None if rows is None else rows.data_ptr(),
-                         w_gate.data_ptr(), w_up.data_ptr(), tiles.data_ptr(),
-                         h.data_ptr(), h.shape[0], n_exp, tiles.shape[0], E, F_, stream)
+    rows_ptr = None if rows is None else rows.data_ptr()
+    if code:
+        rc = lib.moe_gate_up_codes(
+            a.data_ptr(), rows_ptr, wg.data_ptr(), wu.data_ptr(),
+            scales[0][1].data_ptr(), scales[1][1].data_ptr(), tiles.data_ptr(),
+            h.data_ptr(), h.shape[0], n_exp, tiles.shape[0], E, F_, code, stream)
+    else:
+        rc = lib.moe_gate_up(a.data_ptr(), rows_ptr, wg.data_ptr(), wu.data_ptr(),
+                             tiles.data_ptr(), h.data_ptr(), h.shape[0], n_exp,
+                             tiles.shape[0], E, F_, stream)
     _build.check(lib, rc, "moe_gate_up")
-    moe_gate_up.launches += 1
+    _count(moe_gate_up, code)
     return h
 
 
-def moe_down(h: torch.Tensor, w_down: torch.Tensor,
-             tiles: torch.Tensor) -> torch.Tensor:
+def moe_down(h: torch.Tensor, w_down, tiles: torch.Tensor) -> torch.Tensor:
     """y [T k, E] = h_r @ w_down[e] for each sorted row r, e its tile's
-    expert. h [T k, F]; w_down [n_exp, F, E]."""
+    expert. h [T k, F]; w_down [n_exp, F, E] (bf16, or quantized)."""
     if h.device.type == "cpu":
         return moe_down_ref(h, w_down, tiles)
-    n_exp, F_, E = w_down.shape
-    if h.dim() != 2 or h.shape[1] != F_:
+    mats, scales, code = _weight_operands("moe_down", [("w_down", w_down)])
+    wd = mats[0][1]
+    n_exp, F_, E = wd.shape
+    if (h.dim() != 2 or h.shape[1] != F_
+            or any(t.shape != (n_exp, 1, E) for _, t in scales)):
         raise ValueError(f"moe_down: h {tuple(h.shape)}, w_down "
-                         f"{tuple(w_down.shape)}")
-    _check_operands("moe_down", [("h", h), ("w_down", w_down)],
-                    [("tiles", tiles)], F_, E)
+                         f"{tuple(wd.shape)}")
+    _check_operands("moe_down", [("h", h)] + (mats if not code else []),
+                    [("tiles", tiles)], F_, E, codes=mats if code else (),
+                    scales=scales)
     _check_tiles("moe_down", tiles)
     y = torch.empty((h.shape[0], E), dtype=h.dtype, device=h.device)
     lib = _build.load()["moe_grouped_gemm"]
     stream = torch.cuda.current_stream(h.device).cuda_stream
-    rc = lib.moe_down(h.data_ptr(), w_down.data_ptr(), tiles.data_ptr(),
-                      y.data_ptr(), h.shape[0], n_exp, tiles.shape[0], F_, E, stream)
+    if code:
+        rc = lib.moe_down_codes(h.data_ptr(), wd.data_ptr(), scales[0][1].data_ptr(),
+                                tiles.data_ptr(), y.data_ptr(), h.shape[0], n_exp,
+                                tiles.shape[0], F_, E, code, stream)
+    else:
+        rc = lib.moe_down(h.data_ptr(), wd.data_ptr(), tiles.data_ptr(),
+                          y.data_ptr(), h.shape[0], n_exp, tiles.shape[0], F_, E, stream)
     _build.check(lib, rc, "moe_down")
-    moe_down.launches += 1
+    _count(moe_down, code)
     return y
 
 
 moe_gate_up.launches = 0
 moe_down.launches = 0
+moe_gate_up.bodies = {}
+moe_down.bodies = {}
 
 
 def combine(y: torch.Tensor, order: torch.Tensor,

@@ -58,6 +58,11 @@ def parse_args(argv=None):
     p.add_argument("--num-pages", type=int, default=512)
     p.add_argument("--page-size", type=int, default=16)
     p.add_argument("--max-seq-len", type=int, default=4096)
+    p.add_argument("--quantize", choices=["int8", "fp8"], default=None,
+                   help="weight-only quantization: int8 or e4m3 codes with "
+                        "one f32 scale a weight column (the embedding's a "
+                        "row), about half the bf16 bytes; the products run "
+                        "on the weight-only GEMM kernels")
     p.add_argument("--kv-quantize", choices=["int8"], default=None,
                    help="int8 KV cache: int8 codes with one f32 scale per "
                         "cached (token, head) vector (~half the bytes); pages "
@@ -117,6 +122,7 @@ def build_runner(args, params=None) -> tuple[ModelRunner, ModelConfig]:
         params=params,
         device=args.device,
         kv_quantize=args.kv_quantize,
+        quantize=args.quantize,
     )
     return runner, config
 

@@ -3,7 +3,7 @@
 
     python3 scripts/torch_profile.py [--model llama-3.2-3b|llama-3.1-8b|deepseek-v3|
         gemma-2-9b|qwen2.5-7b|phi-3-mini-4k|qwen3-30b-a3b] [--kv-quantize int8]
-        [--trace PATH]
+        [--quantize int8|fp8] [--trace PATH]
 
 Builds the engine exactly as chip_smoke.py's engine phase does
 (llama-3.2-3b, the default; llama-3.1-8b with the same flags, the
@@ -16,7 +16,8 @@ chip_smoke.qwen2_phases (its biases left at 0) and phi3_phases, phi-3
 with its two prompts past the window; with --model qwen3-30b-a3b, the
 runner of chip_smoke.qwen3moe_phases, 48 MoE layers at full width, which
 needs the card to itself; --kv-quantize int8 gives any of them int8 KV
-pools) and
+pools, --quantize int8 or fp8 weight-only quantized weights: llama-3.1-8b
+with both is chip_smoke.quant_phases' runner) and
 serves its workload three
 times, each with fresh
 prompts (another seed, so no run hits the previous run's prefix cache):
@@ -31,7 +32,11 @@ top kernels by
 device time; each family also as the union of its kernels' intervals
 (`traced_device_busy_s_by_family`: a merge launched as a programmatic
 dependent overlaps its split kernel, and the plain sums count that
-overlap twice) and its launches. With --trace, also writes the Chrome trace there (about
+overlap twice) and its launches. Then, as chip_smoke.decode_step_ms
+times it, one decode step of the runner (device time, back to back, and
+the host's time to launch it), and the host's time to launch one
+projection (layer 0's wq through models/quant.py `mm`, as the forward
+calls it) at the step's rows. With --trace, also writes the Chrome trace there (about
 100 MB for this workload). Needs one CUDA device.
 """
 
@@ -52,6 +57,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 import chip_smoke  # noqa: E402
 from dynamo_tpu_torch.engine.model_runner import ModelRunner  # noqa: E402
+from dynamo_tpu_torch.models.llama import LayerView  # noqa: E402
+from dynamo_tpu_torch.models.quant import mm  # noqa: E402
 from dynamo_tpu_torch.worker import build_engine, parse_args  # noqa: E402
 
 MODELS = ("llama-3.2-3b", "llama-3.1-8b", "deepseek-v3", "gemma-2-9b",
@@ -104,11 +111,26 @@ def timed_serve(engine, seed: int, extra=()) -> float:
     return time.monotonic() - t0
 
 
+def projection_host_us(runner) -> float:
+    """Host microseconds to launch x @ layer 0's wq at the decode step's
+    rows, through `mm` and the layer's view of the stack, as the forward
+    calls it: a plain weight's torch.matmul or the weight-only GEMM (None
+    for a model without wq, as DeepSeek-V3's low-rank query)."""
+    layers = runner.params["layers"]
+    if "wq" not in layers:
+        return None
+    x = torch.randn(chip_smoke.DECODE_STEP_ROWS, 1, runner.config.dim,
+                    device=runner.device, dtype=runner.dtype)
+    return 1e3 * chip_smoke.host_ms(lambda: mm(x, LayerView(layers, 0)["wq"]), iters=200)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--model", choices=MODELS, default=MODELS[0])
     ap.add_argument("--kv-quantize", choices=["int8"], default=None,
                     help="int8 KV pools (the runner's kv_quantize)")
+    ap.add_argument("--quantize", choices=["int8", "fp8"], default=None,
+                    help="weight-only quantized weights (the runner's quantize)")
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -127,12 +149,16 @@ def main() -> int:
         engine_args, extra = chip_smoke.PHI3_ARGS, chip_smoke.PHI3_LONG_PROMPTS
     if args.kv_quantize:
         engine_args = engine_args + ["--kv-quantize", args.kv_quantize]
+    if args.quantize:
+        engine_args = engine_args + ["--quantize", args.quantize]
     engine = build_engine(parse_args(engine_args), runner=runner)
     try:
         cold_s = timed_serve(engine, seed=11, extra=extra)
         warm_s = timed_serve(engine, seed=12, extra=extra)
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             traced_s = timed_serve(engine, seed=13, extra=extra)
+        step = chip_smoke.decode_step_ms(engine.runner)
+        projection_us = projection_host_us(engine.runner)
     finally:
         engine.stop()
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -154,6 +180,7 @@ def main() -> int:
     print(json.dumps({
         "model": engine.runner.config.name,
         "kv_quantize": engine.runner.kv_quantize,
+        "quantize": engine.runner.quantize,
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -171,6 +198,8 @@ def main() -> int:
         "traced_top_kernels": [
             {"name": k, "calls": n, "device_s": us / 1e6} for k, (n, us) in top],
         "n_device_events": len(events),
+        "decode_step": step,
+        "projection_host_us": projection_us,
         "trace": args.trace,
     }), flush=True)
     return 0

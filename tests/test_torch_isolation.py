@@ -1,7 +1,8 @@
 """The port stands alone: dynamo_tpu_torch (the frontend's main
 included), chip_smoke.py, scripts/torch_profile.py,
 scripts/mla_prefill_variants.py,
-scripts/int8_body_variants.py and scripts/engine_ab.py import neither JAX nor anything of the
+scripts/int8_body_variants.py, scripts/engine_ab.py and
+scripts/quant_gemm_variants.py import neither JAX nor anything of the
 dynamo_tpu package, nor ml_dtypes, msgpack, zmq, aiohttp, jinja2,
 tokenizers or prometheus_client (the machine with the card has none of
 them; the request plane frames with runtime/codec.py instead of msgpack,
@@ -80,7 +81,8 @@ def test_no_source_file_imports_jax_or_dynamo_tpu():
     files = sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile.py",
         ROOT / "scripts" / "mla_prefill_variants.py",
-        ROOT / "scripts" / "int8_body_variants.py", ROOT / "scripts" / "engine_ab.py"]
+        ROOT / "scripts" / "int8_body_variants.py", ROOT / "scripts" / "engine_ab.py",
+        ROOT / "scripts" / "quant_gemm_variants.py"]
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))

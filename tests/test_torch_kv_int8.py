@@ -60,17 +60,23 @@ VARIANTS = {"plain": (0.0, None, None), "gemma2": (30.0, 9, 0.35 ** -0.5)}
 
 
 def test_kv_quantize_matches_jax():
+    """Scales and codes bit for bit, f32 and bf16 inputs, vectors whose
+    scales spread over ten decades: the reference's jitted quantizer takes
+    amax times the f32 reciprocal of 127 (XLA's rewrite of the division by
+    the constant), which a true division misses on some vectors."""
     rng = np.random.default_rng(0)
-    x = rng.standard_normal((3, 5, 2, 16)).astype(np.float32) * 3.0
+    x = rng.standard_normal((4, 64, 8, 16)) * np.exp(rng.uniform(-11.5, 11.5, (4, 64, 8, 1)))
+    x = x.astype(np.float32)
     x[0, 0, 0] = 0.0  # an all-zero vector: s = 1e-8 / 127, q = 0
     # ties: amax 127 gives s = 1, so x.5 rounds half to even
     x[1, 0, 0] = [127.0, 2.5, -3.5, 0.5, -0.5, 1.5, 126.5, -126.5] * 2
-    want = jax.device_get(jquant.kv_quantize(jnp.asarray(x)))
-    got = quant.kv_quantize(torch.from_numpy(x))
-    assert got["q"].dtype == torch.int8 and got["s"].dtype == torch.float32
-    np.testing.assert_array_equal(got["q"].numpy(), np.asarray(want["q"]))
-    np.testing.assert_allclose(got["s"].numpy(), np.asarray(want["s"]), rtol=1e-6)
-    assert got["q"][1, 0, 0, 1:5].tolist() == [2, -4, 0, 0]
+    for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
+        want = jax.device_get(jquant.kv_quantize(jnp.asarray(x, jdt)))
+        got = quant.kv_quantize(torch.from_numpy(x).to(tdt))
+        assert got["q"].dtype == torch.int8 and got["s"].dtype == torch.float32
+        np.testing.assert_array_equal(got["q"].numpy(), np.asarray(want["q"]))
+        np.testing.assert_array_equal(got["s"].numpy(), np.asarray(want["s"]))
+        assert got["q"][1, 0, 0, 1:5].tolist() == [2, -4, 0, 0]
     # dequantize: the product in f32, then the dtype
     for jdt, tdt in ((jnp.float32, torch.float32), (jnp.bfloat16, torch.bfloat16)):
         back = quant.kv_dequantize(got, tdt)
@@ -78,7 +84,7 @@ def test_kv_quantize_matches_jax():
                                       "s": jnp.asarray(got["s"].numpy())}, jdt)
         np.testing.assert_array_equal(back.float().numpy(),
                                       np.asarray(jback).astype(np.float32))
-    pool = quant.kv_pool_quantize(torch.from_numpy(x))
+    pool = quant.kv_pool_quantize(torch.from_numpy(x).bfloat16())
     assert torch.equal(pool["q"], got["q"]) and torch.equal(pool["s"], got["s"])
 
 
