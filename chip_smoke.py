@@ -119,6 +119,24 @@ Phases, each printing one JSON line:
   5. parity  - prefill-plus-decode inputs, then one ragged dispatch of
                decode rows and a chunk over prior context, through the
                kernel path and the plain attention path of the forward;
+     extras  - the sampling extras on the 3B runner:
+               `engine_sampling_ext` (a top-5 logprob request, each greedy
+               token its report's top, the report <= 0 and sorted; one
+               with repetition 2.0 and frequency penalties on a prompt
+               whose unpenalised greedy stream repeats a token, differing
+               from it; one with logit_bias -100 on its greedy first token
+               and +100 on another: banned never, forced always; the
+               launch identities with no ragged launch), `engine_guided`
+               (a regex within the device table budget on the ragged
+               kernel in fused plans beside a 1500-token prompt, with no
+               host mask build; a JSON schema over the budget on the host
+               fallback; each output in its DFA's language),
+               `engine_branches` (n = 4 seeded: four finishes, one
+               prefill pass, three forks, copy_pages called, four distinct
+               streams, equal on a second run) and `extras_costs` (the
+               decode step's ms at B 8 with no extra, penalties,
+               logprobs, the device guided tables and the host fallback;
+               the embed pass for 3 x 128 tokens);
      served  - the request plane. `engine_served_disagg`: a prefill
                and a decode worker (the 3B params again, 1024 pages each)
                served by serve_worker over TCP on loopback in this process,
@@ -159,7 +177,10 @@ Phases, each printing one JSON line:
                beside cold prompts', 8 distinct prompts spread over both
                workers, a 256-token stream whose worker is SIGKILLed after
                16 tokens migrating and finishing, a dropped client's pages
-               freed (the survivor's FPM), and `python -m
+               freed (the survivor's FPM), a response_format json_schema
+               chat, a completion with logprobs 3 and /v1/embeddings over
+               three inputs (norms 1, equal alone twice, batched within
+               2e-2 of alone), and `python -m
                dynamo_tpu_torch.frontend --router-mode kv` serving and
                exiting 0 on SIGTERM, as the worker after it;
      int8    - with the 3B runner freed, the slice's main path:
@@ -2337,6 +2358,70 @@ async def _spawn(args, root, marker, log_path):
             return proc, line.strip()
 
 
+async def _frontend_extras(port, prompt):
+    """A chat with response_format json_schema (FRONTEND_SCHEMA): a `stop`
+    content parses with the schema's required keys, a `length` one is a
+    prefix the schema's DFA accepts; a completion with logprobs 3 in the
+    reference's shape (tokens, token_logprobs, top_logprobs, text_offset,
+    one entry a token, each <= 0, the greedy token's the best); and
+    /v1/embeddings over three token-id inputs: each norm 1 +- 1e-3, an
+    input sent alone twice gives the same vector bit for bit, the batched
+    vectors within 2e-2 of the one-at-a-time ones (bf16)."""
+    from dynamo_tpu_torch.guided import schema_to_regex
+
+    async def post(path, body):
+        status, _, data = await asyncio.to_thread(_http, port, "POST", path, body)
+        check(status == 200, f"frontend: {path} answered {status}: {data[:300]}")
+        return json.loads(data)
+
+    out = {}
+    chat = await post("/v1/chat/completions", {
+        "model": MODEL, "messages": [{"role": "user", "content": "give me a record"}],
+        "max_tokens": 48, "temperature": 0,
+        "response_format": {"type": "json_schema",
+                            "json_schema": {"name": "r", "schema": FRONTEND_SCHEMA}}})
+    choice = chat["choices"][0]
+    content = choice["message"]["content"] or ""
+    if choice["finish_reason"] == "stop":
+        parsed = json.loads(content)
+        check(set(FRONTEND_SCHEMA["required"]) <= set(parsed),
+              f"frontend: the json_schema answer lacks a required key: {content!r}")
+    else:
+        check(_in_language(schema_to_regex(FRONTEND_SCHEMA), list(content.encode()),
+                           "length"), f"frontend: {content!r} breaks the schema")
+    out["json_schema"] = {"content": content, "finish": choice["finish_reason"]}
+    comp = await post("/v1/completions", {"model": MODEL, "prompt": prompt(64),
+                                          "max_tokens": 8, "temperature": 0,
+                                          "ignore_eos": True, "logprobs": 3})
+    lp = comp["choices"][0]["logprobs"]
+    n = comp["usage"]["completion_tokens"]
+    check(set(lp) == {"tokens", "token_logprobs", "top_logprobs", "text_offset"}
+          and all(len(lp[k]) == n == 8 for k in lp),
+          f"frontend: the logprobs body is not the reference's shape: {lp}")
+    check(all(v <= 0 and 1 <= len(top) <= 3 and v == max(top.values())
+              for v, top in zip(lp["token_logprobs"], lp["top_logprobs"])),
+          f"frontend: logprob entries out of order: {lp}")
+    out["logprobs"] = {"token_logprobs": lp["token_logprobs"]}
+    inputs = [prompt(n) for n in (40, 77, 128)]
+    batched = await post("/v1/embeddings", {"model": MODEL, "input": inputs})
+    alone = [(await post("/v1/embeddings", {"model": MODEL, "input": [x]}))["data"][0]
+             ["embedding"] for x in inputs]
+    again = (await post("/v1/embeddings", {"model": MODEL, "input": [inputs[0]]}))[
+        "data"][0]["embedding"]
+    vecs = torch.tensor([d["embedding"] for d in batched["data"]], dtype=torch.float64)
+    single = torch.tensor(alone, dtype=torch.float64)
+    norms = vecs.norm(dim=-1)
+    check(batched["usage"]["prompt_tokens"] == sum(len(x) for x in inputs)
+          and bool(((norms - 1).abs() <= 1e-3).all()),
+          f"frontend: embedding norms {norms.tolist()}")
+    check(again == alone[0], "frontend: one input embedded twice differs")
+    err = float((vecs - single).abs().max())
+    check(err <= 2e-2, f"frontend: batched embeddings {err} from one at a time")
+    out["embeddings"] = {"dim": vecs.shape[1], "norms": norms.tolist(),
+                         "batched_vs_alone_max_abs": err}
+    return out
+
+
 def frontend_phase(in_process, V, served_rec, smi):
     """`engine_frontend`: two `python -m dynamo_tpu_torch.worker`
     processes (engine_served's flags) on one file-discovery root, behind
@@ -2350,6 +2435,9 @@ def frontend_phase(in_process, V, served_rec, smi):
       - the same 8 over HTTP streamed and unary: usage 32, the streamed
         text equal to ByteTokenizer.decode of the stream's tokens, ends in
         `data: [DONE]`; one chat completion stream ends in it too;
+      - the sampling extras (_frontend_extras): a chat with a
+        response_format json_schema, a completion with logprobs 3, and
+        /v1/embeddings over three inputs;
       - workload(seed 3) streamed (cold prompts): TTFT and e2e over HTTP
         beside engine_served's;
       - a 1024-token prompt, then three prompts sharing it: each selects
@@ -2460,6 +2548,8 @@ def frontend_phase(in_process, V, served_rec, smi):
                 "max_tokens": 8, "temperature": 0, "ignore_eos": True, "stream": True})
             check(status == 200 and _sse(data)[-1:] == ["[DONE]"],
                   f"frontend: chat stream answered {status}, ends {_sse(data)[-1:]}")
+            # 3b. the sampling extras: response_format, logprobs, embeddings
+            rec["extras"] = await _frontend_extras(port, prompt)
             # 4. cold prompts streamed: TTFT and e2e over HTTP
             cold_http = [await _http_timed(port, _http_body(r, stream=True), tap)
                          for r in cold + [cold_late]]
@@ -2827,6 +2917,367 @@ def tiers_phase(params):
     check(launches["gather_pages"] > 0 and launches["scatter_pages_layers"] > 0,
           f"tiers: a copy kernel never launched: {launches}")
     return launches
+
+
+# -- the sampling extras, guided decoding, branches and embeddings ----------
+EXTRAS_OUT = 16  # output tokens of the sampling-extras requests
+# within the device table budget at V 128256 (53 DFA states of the 65 that
+# DEVICE_TABLE_MAX_ELEMS admits): the guided rows' masks come from the
+# device tables
+GUIDED_PATTERN = r"(yes|no) sir, the (red|green|blue) one is (first|second|third)!"
+# over it (165 states): the host mask callback
+GUIDED_SCHEMA = {"type": "object", "properties": {
+    "name": {"type": "string", "maxLength": 12}, "age": {"type": "integer"},
+    "tags": {"type": "array", "items": {"enum": ["a", "b"]}, "maxItems": 3}},
+    "required": ["name", "age", "tags"], "additionalProperties": False}
+# the frontend's response_format schema (33 states)
+FRONTEND_SCHEMA = {"type": "object", "properties": {
+    "ok": {"type": "boolean"}, "n": {"enum": [1, 2, 3]}},
+    "required": ["ok", "n"], "additionalProperties": False}
+EXTRAS_B = 8  # the decode batch of the extras' step costs
+EMBED_SHAPE = (3, 128)  # the embed pass timed: 3 prompts of 128 tokens
+
+
+def _in_language(pattern: str, toks, finish) -> bool:
+    """A guided output is accepted by its byte DFA: every token extends
+    the constraint, and a `stop` ended in an accepting state (a `length`
+    finish may stop on a prefix)."""
+    from dynamo_tpu_torch.guided import compile_regex
+
+    dfa = compile_regex(pattern)
+    s = dfa.start
+    for t in toks:
+        if not 0 <= t < 256 or dfa.trans[s, t] < 0:
+            return False
+        s = int(dfa.trans[s, t])
+    return finish != "stop" or bool(dfa.accept[s])
+
+
+async def _items(engine, req, rid):
+    """Every item of one request through an engine."""
+    out = []
+    async for item in engine.generate(req, Context(request_id=rid)):
+        check(item.get("finish_reason") != "error", f"request {rid}: {item}")
+        out.append(item)
+    return out
+
+
+def _tokens(items):
+    return [t for it in items for t in it["token_ids"]]
+
+
+def _repeats(prompt, toks) -> bool:
+    """Whether a stream emits a token already in its prompt or output."""
+    seen = set(prompt)
+    for t in toks:
+        if t in seen:
+            return True
+        seen.add(t)
+    return False
+
+
+def _extras_engine(runner):
+    engine = build_engine(parse_args(ENGINE_ARGS), runner=runner)
+    torch.cuda.synchronize()
+    _reset(runner)
+    return engine
+
+
+def _extras_record(phase, runner, engine, smi, t0):
+    torch.cuda.synchronize()
+    launches = {name: fn.launches for name, fn in KERNELS.items()}
+    stats = dict(runner.stats)
+    check_launches(phase, launches, stats, runner.config.n_layers)
+    return {"phase": f"engine_{phase}", "model": runner.config.name, "nvidia_smi": smi,
+            "fused_mixed": engine.fused_mixed, "stats": stats, "launches": launches,
+            "wall_s": time.monotonic() - t0}
+
+
+def sampling_ext_phase(runner, smi):
+    """`engine_sampling_ext` on the 3B: a request with logprobs (top 5), one
+    with repetition and frequency penalties, one with logit_bias (-100 on
+    its greedy first token, +100 on another), served together; the
+    penalty prompt is the first of a few whose unpenalised greedy stream
+    repeats a token. Holds: a greedy row's chosen token is its report's
+    top entry (logprob and id), reports <= 0 and sorted; the banned token
+    never appears and the forced one always; the penalised stream differs
+    from the unpenalised one; and the launch identities, with no ragged
+    launch: every mixed plan holds the logprob row, so each ran the
+    two-dispatch path (decode kernel, then the prefill kernel)."""
+    V = runner.config.vocab_size
+    gen = torch.Generator(device="cpu").manual_seed(31)
+
+    def prompt(n, motif=None):
+        if motif is None:
+            return torch.randint(0, V, (n,), generator=gen).tolist()
+        m = torch.randint(0, V, (motif,), generator=gen).tolist()
+        return (m * (n // motif + 1))[:n]
+
+    def req(p, n_out=EXTRAS_OUT, sampling=None, **extra):
+        return {"token_ids": p, "sampling": {"temperature": 0.0, **(sampling or {})},
+                "stop": {"max_tokens": n_out, "stop_ids": []}, **extra}
+
+    async def run(engine):
+        rec = {}
+        # the penalty prompt: the first whose unpenalised greedy stream
+        # repeats a token
+        plain = None
+        for i in range(6):
+            p = prompt(200, motif=8 if i % 2 else None)
+            toks = _tokens(await _items(engine, req(p), f"plain{i}"))
+            if _repeats(p, toks):
+                pen_prompt, plain = p, toks
+                break
+        check(plain is not None, "sampling_ext: no unpenalised greedy stream of six "
+              "prompts repeats a token")
+        bias_prompt = prompt(150)
+        first = _tokens(await _items(engine, req(bias_prompt, 1), "bias_probe"))[0]
+        forced = (first + 1 + int(torch.randint(0, V - 1, (1,), generator=gen))) % V
+        _reset(runner)
+        t0 = time.monotonic()
+        lp_req = req(prompt(180), sampling={"logprobs": 5})
+        pen_req = req(pen_prompt, sampling={"repetition_penalty": 2.0,
+                                             "frequency_penalty": 0.5})
+        bias_req = req(bias_prompt, logit_bias=[[first, -100.0], [forced, 100.0]])
+        lp, pen, bias = await asyncio.gather(
+            _items(engine, lp_req, "logprobs"), _items(engine, pen_req, "penalties"),
+            _items(engine, bias_req, "bias"))
+        rec.update(_extras_record("sampling_ext", runner, engine, smi, t0))
+        entries = [e for it in lp for e in it.get("logprobs") or []]
+        toks = _tokens(lp)
+        check(len(entries) == len(toks) == EXTRAS_OUT,
+              f"sampling_ext: {len(entries)} logprob entries for {len(toks)} tokens")
+        for t, e in zip(toks, entries):
+            # the top id, or one tied with it (bf16 logits do tie)
+            top = e["top_logprobs"]
+            check(len(e["top_ids"]) == 5 and e["logprob"] == top[0]
+                  and t in e["top_ids"] and top[e["top_ids"].index(t)] == top[0],
+                  f"sampling_ext: greedy token {t} is not its report's top: {e}")
+            tops = e["top_logprobs"]
+            check(all(v <= 0 for v in tops) and tops == sorted(tops, reverse=True),
+                  f"sampling_ext: the report is not <= 0 and sorted: {tops}")
+        pen_toks = _tokens(pen)
+        check(len(pen_toks) == EXTRAS_OUT and pen_toks != plain,
+              f"sampling_ext: the penalised stream equals the unpenalised {plain}")
+        bias_toks = _tokens(bias)
+        check(bias_toks == [forced] * EXTRAS_OUT and first not in bias_toks,
+              f"sampling_ext: bias -100 on {first}, +100 on {forced} gave {bias_toks}")
+        st = rec["stats"]
+        check(st["decode_steps"] > 0 and st["ragged_mixed_dispatches"] == 0,
+              f"sampling_ext: the logprob and penalty rows left the two-dispatch path: {st}")
+        rec.update(logprob_entries=len(entries), first_entry=entries[0],
+                   penalty_prompt_repeats=True, plain_stream=plain,
+                   penalised_stream=pen_toks, banned=first, forced=forced)
+        return rec
+
+    engine = _extras_engine(runner)
+    try:
+        rec = asyncio.run(asyncio.wait_for(run(engine), 300))
+    finally:
+        engine.stop()
+    emit(rec)
+
+
+def guided_phase(runner, smi):
+    """`engine_guided` on the 3B: a regex request within the device table
+    budget (GUIDED_PATTERN), with a 1500-token prompt sent once its first
+    token is out, so its fused plans ride the ragged kernel: held to
+    ragged launches > 0, device-table dispatches > 0 and no host mask
+    build; then a JSON-schema request over the budget (GUIDED_SCHEMA) on
+    the host fallback (its dispatches and mask builds > 0). Every output
+    is accepted by its DFA."""
+    from dynamo_tpu_torch.guided import schema_to_regex
+
+    V = runner.config.vocab_size
+    gen = torch.Generator(device="cpu").manual_seed(37)
+    schema_pattern = schema_to_regex(GUIDED_SCHEMA)
+
+    def req(n, n_out, pattern=None):
+        r = {"token_ids": torch.randint(0, V, (n,), generator=gen).tolist(),
+             "sampling": {"temperature": 0.0},
+             "stop": {"max_tokens": n_out, "stop_ids": [257]}}
+        if pattern is not None:
+            r["guided"] = {"kind": "regex", "pattern": pattern}
+        return r
+
+    async def run(engine):
+        first = asyncio.Event()
+        t0 = time.monotonic()
+        dev = asyncio.ensure_future(_collect_timed(
+            engine, req(64, 96, GUIDED_PATTERN), "guided_device", on_first=first))
+        await first.wait()
+        plain = await _collect_timed(engine, req(1500, 8), "beside_guided")
+        dev = await dev
+        rec = _extras_record("guided", runner, engine, smi, t0)
+        st = rec["stats"]
+        check(_in_language(GUIDED_PATTERN, dev["tokens"], dev["finish"]),
+              f"guided: {bytes(dev['tokens'])!r} ({dev['finish']}) is not in the language")
+        check(rec["launches"]["ragged_paged_attention"] > 0
+              and st["ragged_mixed_dispatches"] > 0,
+              f"guided: the bounded request's plans did not ride the ragged kernel: {st}")
+        check(st["guided_device_dispatches"] > 0 and st["guided_host_dispatches"] == 0
+              and st["guided_host_masks"] == 0,
+              f"guided: the bounded request built masks on the host: {st}")
+        rec["device"] = {"text": bytes(dev["tokens"]).decode(errors="replace"),
+                         "finish": dev["finish"], "beside": plain["finish"]}
+        _reset(runner)
+        t1 = time.monotonic()
+        host = await _collect_timed(engine, req(48, 64, schema_pattern), "guided_host")
+        hrec = _extras_record("guided_host", runner, engine, smi, t1)
+        hst = hrec["stats"]
+        check(_in_language(schema_pattern, host["tokens"], host["finish"]),
+              f"guided: {bytes(host['tokens'])!r} ({host['finish']}) breaks the schema")
+        check(hst["guided_host_dispatches"] > 0 and hst["guided_host_masks"] > 0
+              and hst["guided_device_dispatches"] == 0,
+              f"guided: the schema over the budget left the host fallback: {hst}")
+        rec["host"] = {"text": bytes(host["tokens"]).decode(errors="replace"),
+                       "finish": host["finish"], "stats": hst,
+                       "launches": hrec["launches"]}
+        return rec
+
+    engine = _extras_engine(runner)
+    try:
+        rec = asyncio.run(asyncio.wait_for(run(engine), 300))
+    finally:
+        engine.stop()
+    emit(rec)
+
+
+def branches_phase(runner, smi):
+    """`engine_branches` on the 3B: an n = 4 seeded request (temperature
+    0.8) on a 300-token prompt, twice on fresh engines. Holds: four
+    finishes, one per choice; one prefill pass (the prefill kernel's
+    launches one request's); pool.forks 3 (one fork_table a branch past
+    the parent) and copy_pages called; four distinct streams, equal on
+    the second run."""
+    V = runner.config.vocab_size
+    gen = torch.Generator(device="cpu").manual_seed(41)
+    req = {"token_ids": torch.randint(0, V, (300,), generator=gen).tolist(),
+           "sampling": {"temperature": 0.8, "seed": 77, "n": 4},
+           "stop": {"max_tokens": EXTRAS_OUT, "stop_ids": []}}
+    runs, rec = [], None
+    for turn in range(2):
+        engine = _extras_engine(runner)
+        t0 = time.monotonic()
+        try:
+            items = asyncio.run(asyncio.wait_for(_items(engine, req, f"branch{turn}"), 300))
+        finally:
+            engine.stop()
+        streams = {}
+        finishes = []
+        for it in items:
+            streams.setdefault(it["index"], []).extend(it["token_ids"])
+            if it["finish_reason"]:
+                finishes.append(it["index"])
+        runs.append(streams)
+        if turn == 0:
+            rec = _extras_record("branches", runner, engine, smi, t0)
+            st = rec["stats"]
+            check(sorted(finishes) == [0, 1, 2, 3], f"branches: finishes {finishes}")
+            check(st["prefill_chunks"] == 1 and st["padded_prefill_dispatches"] == 0,
+                  f"branches: not one prefill pass: {st}")
+            check(engine.pool.forks == 3 and st["page_copies"] >= 1,
+                  f"branches: forks {engine.pool.forks}, page copies {st['page_copies']}")
+            check(len({tuple(s) for s in streams.values()}) == 4
+                  and all(len(s) == EXTRAS_OUT for s in streams.values()),
+                  f"branches: streams not four distinct of {EXTRAS_OUT}: {streams}")
+            rec.update(forks=engine.pool.forks, streams=streams)
+    check(runs[0] == runs[1], "branches: the seeded streams changed on a second run")
+    rec["second_run_equal"] = True
+    emit(rec)
+
+
+def extras_variants(runner):
+    """The decode loops `extras_costs` times, by name: a 4-step loop at B
+    8, 1000 tokens of context a row, with no extras, with penalties
+    (1000-token histories), with the top-5 logprob report, with the device
+    guided tables (GUIDED_PATTERN) and with the host mask callback
+    (GUIDED_SCHEMA). Returns (variants, steps a loop, the device table)."""
+    from dynamo_tpu_torch.engine.engine import GuidedMaskContext
+    from dynamo_tpu_torch.guided import schema_to_regex
+    from dynamo_tpu_torch.guided.device_table import build_device_table
+
+    V = runner.config.vocab_size
+    PS = runner.page_size
+    T, ctx = 4, 1000
+    gen = torch.Generator(device="cpu").manual_seed(43)
+    engine = build_engine(parse_args(ENGINE_ARGS), runner=runner)
+    try:
+        bounded = engine._compile_guided({"kind": "regex", "pattern": GUIDED_PATTERN})
+        over = engine._compile_guided({"kind": "regex",
+                                       "pattern": schema_to_regex(GUIDED_SCHEMA)})
+    finally:
+        engine.stop()
+    table = build_device_table(bounded)
+    check(table is not None and build_device_table(over) is None,
+          "extras_costs: the device table budget did not split the two constraints")
+    n_pages = -(-(ctx + T) // PS)
+    tables = [list(range(i * n_pages, (i + 1) * n_pages)) for i in range(EXTRAS_B)]
+    tokens = torch.randint(0, V, (EXTRAS_B,), generator=gen).tolist()
+    hist = [torch.randint(0, V, (ctx,), generator=gen).tolist() for _ in range(EXTRAS_B)]
+    samp = {"temperature": [0.0] * EXTRAS_B, "top_k": [0] * EXTRAS_B,
+            "top_p": [1.0] * EXTRAS_B, "seeds": list(range(EXTRAS_B)),
+            "rep": [1.3] * EXTRAS_B, "freq": [0.2] * EXTRAS_B, "presence": [0.0] * EXTRAS_B}
+    args = (T, tokens, [ctx] * EXTRAS_B, tables, samp, 1)
+    variants = {
+        "plain": lambda: runner.decode_multi(*args),
+        "penalties": lambda: runner.decode_multi_ex(
+            *args, histories=hist, prompt_lens=[ctx] * EXTRAS_B),
+        "logprobs": lambda: runner.decode_multi_ex(*args, n_logprobs=5),
+        "guided_device": lambda: runner.decode_multi(*args, guided_dev=(
+            [table], [(0, bounded.start)] * EXTRAS_B, False)),
+        "guided_host": lambda: runner.decode_multi(*args, mask_fn=GuidedMaskContext(
+            EXTRAS_B, V, [(i, over, over.start) for i in range(EXTRAS_B)])),
+    }
+    return variants, T, table
+
+
+def extras_costs_phase(runner, smi):
+    """`extras_costs` on the 3B: one decode step's ms of each of
+    extras_variants (a loop with its readback, CUDA-synchronized, over its
+    steps; two turns, the second in reverse order), and the embed pass's
+    ms for 3 x 128 tokens."""
+    variants, T, table = extras_variants(runner)
+    V = runner.config.vocab_size
+    gen = torch.Generator(device="cpu").manual_seed(47)
+    for fn in variants.values():
+        fn()  # warm: the guided tables staged, the plane shapes seen
+    # two turns, the second in reverse order: the spread beside the means
+    step_ms = {name: [] for name in variants}
+    for order in (list(variants), list(variants)[::-1]):
+        for name in order:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(5):
+                variants[name]()
+            torch.cuda.synchronize()
+            step_ms[name].append((time.perf_counter() - t0) * 1e3 / (5 * T))
+    embed_in = [torch.randint(0, V, (EMBED_SHAPE[1],), generator=gen).tolist()
+                for _ in range(EMBED_SHAPE[0])]
+    vecs = runner.embed(embed_in)
+    check(vecs.shape == (EMBED_SHAPE[0], runner.config.dim)
+          and abs(float((vecs ** 2).sum(-1).max()) - 1.0) < 1e-3,
+          f"extras_costs: embed gave {vecs.shape}")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(5):
+        runner.embed(embed_in)
+    torch.cuda.synchronize()
+    emit({"phase": "extras_costs", "model": runner.config.name, "nvidia_smi": smi,
+          "batch": EXTRAS_B, "context": 1000, "steps_per_loop": T,
+          "decode_step_ms": step_ms,
+          "embed_ms": (time.perf_counter() - t0) * 1e3 / 5,
+          "embed_shape": list(EMBED_SHAPE),
+          "device_table_bytes": table.nbytes(), "device_table_states": table.n_states})
+
+
+def extras_phases(runner, smi):
+    """The A.4 phases on the 3B runner: sampling extras, guided decoding,
+    branches and the extras' costs."""
+    sampling_ext_phase(runner, smi)
+    guided_phase(runner, smi)
+    branches_phase(runner, smi)
+    extras_costs_phase(runner, smi)
 
 
 def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True,
@@ -5152,6 +5603,8 @@ def main() -> int:
         launches["scatter_pages_layers"] = tiers_phase(runner.params)[
             "scatter_pages_layers"]
         parity_phase(runner, dev)
+        # this slice's paths: sampling extras, guided decoding, branches
+        extras_phases(runner, smi)
         # the request plane: the in-process streams served one at a time,
         # the disaggregated pair over TCP, then (this process's runners
         # freed) the worker as a process of its own

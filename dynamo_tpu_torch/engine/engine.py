@@ -20,8 +20,15 @@ ForwardPassMetrics per iteration, per half of an unfused mixed one),
 drained after each iteration) and `on_phases` (each finished request's
 latency spine); the served worker publishes the first two on the event
 plane.
-Not ported yet: tree and draft-model speculation, guided decoding,
-logprobs, penalties, logit bias, n > 1 branches, LoRA, multimodal input,
+The sampling extras are the reference's: guided decoding (a byte DFA
+compiled per spec, single-flight, lifted to token masks; masks ride the
+ragged step, the decode loop's device DFA tables when every schema fits
+their budget, else the host `mask_fn` between the loop's steps), logit
+bias, logprobs and penalties (rows with either of the last two take the
+two-dispatch path, as the reference's `_mixed_fusible` gates them), n > 1
+branches forked after the parent's prefill (trunk pages shared, the tail
+page copied) and embeddings batched into one `embed` pass.
+Not ported yet: tree and draft-model speculation, LoRA, multimodal input,
 remote host-tier pulls and the G3/G4 tiers; requests asking for those are
 refused with an "error" item.
 """
@@ -33,14 +40,16 @@ import hashlib
 import logging
 import os
 import queue as thread_queue
+import json
 import threading
 import time
 from dataclasses import dataclass
 from typing import Any, AsyncIterator, Dict, List, Optional
 
+import numpy as np
 import torch
 
-from dynamo_tpu_torch.engine.kv_pool import KvEvent, PagePool
+from dynamo_tpu_torch.engine.kv_pool import KvEvent, NoSpace, PagePool
 from dynamo_tpu_torch.engine.model_runner import (
     BucketOverflowError,
     kv_arrays_to_payload,
@@ -57,6 +66,10 @@ from dynamo_tpu_torch.engine.scheduler import (
     Sequence,
     SeqState,
 )
+from dynamo_tpu_torch.frontend.tokenizer import load_tokenizer
+from dynamo_tpu_torch.guided import compile_regex, compile_structural
+from dynamo_tpu_torch.guided.device_table import build_device_table
+from dynamo_tpu_torch.guided.token_mask import TokenLifter
 from dynamo_tpu_torch.kvbm.host_pool import HostKvPool
 from dynamo_tpu_torch.ops.ragged_paged_attention import RAGGED_MAX_SEGS
 from dynamo_tpu_torch.runtime.context import Context
@@ -66,13 +79,13 @@ log = logging.getLogger("dynamo_tpu_torch.engine")
 # per-request ITL sample cap: bounds the spine's memory on long generations
 _ITL_CAP = 512
 
-# request fields and sampling options of features this port does not
-# serve yet: refused up front rather than silently ignored
-_UNSUPPORTED_FIELDS = ("guided", "logit_bias", "adapter", "mm",
-                       "kv_remote_host")
-_UNSUPPORTED_SAMPLING = {"logprobs": None, "repetition_penalty": 1.0,
-                         "frequency_penalty": 0.0, "presence_penalty": 0.0,
-                         "n": 1}
+# request fields of features this port does not serve yet: refused up
+# front rather than silently ignored
+_UNSUPPORTED_FIELDS = ("adapter", "mm", "kv_remote_host")
+
+# cached on a matcher whose schema exceeded the device table budget, so
+# the build (and its warning) happens once per matcher
+_OVER_BUDGET = object()
 
 
 @dataclass
@@ -102,14 +115,61 @@ def _unsupported(request: Dict[str, Any]) -> Optional[str]:
         if request.get(name):
             return name
     annotations = request.get("annotations") or {}
-    if (annotations.get("disagg") not in (None, "prefill", "decode")
-            or annotations.get("kind") == "embedding"):
+    if annotations.get("disagg") not in (None, "prefill", "decode"):
         return "annotations"
-    sampling = request.get("sampling") or {}
-    for name, neutral in _UNSUPPORTED_SAMPLING.items():
-        if sampling.get(name) not in (None, neutral):
-            return f"sampling.{name}"
     return None
+
+
+class GuidedMaskContext:
+    """Per-dispatch host state that advances guided DFAs between the
+    steps of a fused decode loop: the runner calls `ctx(t, prev_tokens)`
+    once per step; it advances a copy of each guided row's DFA state by
+    the token that row sampled at step t-1 and returns the [B, V] mask of
+    step t. The engine's per-emitted-token `_guided_advance` stays
+    authoritative. `pending_advance=True` (the ragged tail: the fed tokens
+    were sampled on the device by the ragged step) advances at t = 0
+    too. A row whose copy hits EOS or desyncs goes all-allowed for the
+    remaining steps; the engine discards tokens past a finish anyway."""
+
+    def __init__(self, B: int, vocab: int, rows, pending_advance: bool = False):
+        self.B = int(B)
+        self.vocab = int(vocab)
+        # row: [batch index, matcher, state copy, alive]
+        self.rows = [[int(i), m, int(s), True] for i, m, s in rows]
+        self.pending_advance = bool(pending_advance)
+
+    def _row_mask(self, m, state) -> np.ndarray:
+        row = m.allowed(state)
+        if not row.any():
+            # degrade as _guided_mask does: force EOS rather than sample
+            # garbage from an unextendable constraint
+            row = row.copy()
+            eos = m.lifter.eos_id
+            if 0 <= eos < row.shape[0]:
+                row[eos] = True
+        return row
+
+    def __call__(self, t, prev_tokens) -> np.ndarray:
+        t = int(t)
+        mask = np.ones((self.B, self.vocab), bool)
+        for row in self.rows:
+            idx, m, state, alive = row
+            if not alive:
+                continue
+            if t > 0 or self.pending_advance:
+                tok = int(prev_tokens[idx])
+                if tok == m.lifter.eos_id:
+                    row[3] = False
+                    continue
+                try:
+                    row[2] = state = m.advance(state, tok)
+                except ValueError:
+                    # desync: a padding row fed a masked-out token, or the
+                    # engine already finished the request
+                    row[3] = False
+                    continue
+            mask[idx] = self._row_mask(m, state)[:self.vocab]
+        return mask
 
 
 class InferenceEngine:
@@ -137,6 +197,8 @@ class InferenceEngine:
         onboard_layer_groups: int = 1,  # stream tier onboarding in this
         #   many contiguous layer groups (FlowKV-style overlap of transfer
         #   with the first layers' compute; 1 = whole-sequence import)
+        tokenizer_spec: str = "byte",  # guided decoding lifts byte DFAs to
+        #   token masks against this tokenizer (the frontend's)
     ):
         self.runner = runner
         # fused mixed dispatch: on for a card, off for the CPU (the
@@ -150,6 +212,8 @@ class InferenceEngine:
         else:
             self.fused_mixed = runner.device.type != "cpu"
         self.pool = PagePool(runner.num_pages, runner.page_size)
+        # fork-on-branch copies a forked tail page's KV through the runner
+        self.pool.copy_hook = runner.copy_pages
         self.onboard_layer_groups = max(1, int(onboard_layer_groups))
         self.host_pool: Optional[HostKvPool] = None
         # step-thread observers, and the host tier's KV events waiting for
@@ -207,6 +271,13 @@ class InferenceEngine:
         self._parked: Dict[str, tuple] = {}  # rid -> (Sequence, deadline)
         self._kv_pending: List[Sequence] = []  # disagg-decode awaiting space
         self.parked_ttl_s = 60.0
+        self._embed_pending: List[tuple] = []  # (tokens, future, loop)
+        # guided decoding: the tokenizer-lifted constraint compile cache
+        self.tokenizer_spec = tokenizer_spec
+        self._guided_lifter = None
+        self._guided_cache: Dict[str, Any] = {}
+        self._guided_lock = threading.Lock()
+        self._lifter_lock = threading.Lock()  # the one TokenLifter build
 
     def start(self) -> None:
         if self._thread is None:
@@ -234,6 +305,133 @@ class InferenceEngine:
         finished request."""
         self._phase_listeners.append(cb)
 
+    # -- guided decoding ---------------------------------------------------
+    def _compile_guided(self, spec: Dict[str, Any]):
+        """Wire spec -> GuidedMatcher, cached per spec (32 entries). Runs in
+        an executor. The lock guards only the lookups and the insert: the
+        DFA compile and the per-vocab lift happen outside it, so one slow
+        schema never serializes other guided requests; a racing build of
+        the same spec keeps the first matcher inserted."""
+        key = json.dumps(spec, sort_keys=True)
+        with self._guided_lock:
+            hit = self._guided_cache.get(key)
+            if hit is not None:
+                return hit
+        kind = spec.get("kind")
+        if kind == "regex":
+            dfa = compile_regex(spec["pattern"])
+        elif kind == "structural":
+            dfa = compile_structural(spec)
+        else:
+            raise ValueError(f"unknown guided kind {kind!r}")
+        matcher = self._get_lifter().lift(dfa)
+        with self._guided_lock:
+            hit = self._guided_cache.get(key)
+            if hit is not None:
+                return hit  # a racer inserted first; equivalent matcher
+            while len(self._guided_cache) >= 32:
+                self._guided_cache.pop(next(iter(self._guided_cache)))
+            self._guided_cache[key] = matcher
+            return matcher
+
+    def _get_lifter(self):
+        lifter = self._guided_lifter
+        if lifter is not None:
+            return lifter
+        with self._lifter_lock:
+            if self._guided_lifter is None:
+                self._guided_lifter = TokenLifter.for_tokenizer(
+                    load_tokenizer(self.tokenizer_spec),
+                    self.runner.config.vocab_size)
+            return self._guided_lifter
+
+    def _guided_mask(self, seq: Sequence) -> Optional[np.ndarray]:
+        """The sampling mask of a constrained sequence. An all-False row
+        (no token of this vocabulary extends the constraint) degrades to
+        force-EOS so the sequence stops instead of emitting garbage."""
+        m = seq.guided_m
+        if m is None:
+            return None
+        mask = m.allowed(seq.guided_s)
+        if not mask.any():
+            log.warning("request %s: no token can extend the constraint from "
+                        "state %d; forcing EOS", seq.request_id, seq.guided_s)
+            if 0 <= m.lifter.eos_id < len(mask):
+                mask = mask.copy()
+                mask[m.lifter.eos_id] = True
+        return mask
+
+    def _guided_device_plan(self, seqs: List[Sequence]):
+        """The device guided plan of a fused multi-step dispatch: (tables,
+        row entries, pending) for the runner's `_guided_op`, or None when
+        any constrained row's schema is over the device table budget (the
+        whole batch then keeps the host mask_fn). Tables build once per
+        matcher and stay cached on it."""
+        tables: List[Any] = []
+        index: Dict[int, int] = {}
+        rows: List[Any] = [None] * len(seqs)
+        for i, s in enumerate(seqs):
+            m = s.guided_m
+            if m is None:
+                continue
+            tab = getattr(m, "_device_table", None)
+            if tab is None:
+                tab = build_device_table(m)
+                if tab is None:
+                    tab = _OVER_BUDGET
+                    log.warning("guided schema exceeds the device DFA table "
+                                "budget (DYN_GUIDED_DEVICE_MAX_ELEMS); batches "
+                                "containing it keep the host mask callback")
+                m._device_table = tab  # the matcher's lifetime
+            if tab is _OVER_BUDGET:
+                return None
+            ti = index.get(tab.uid)
+            if ti is None:
+                ti = len(tables)
+                index[tab.uid] = ti
+                tables.append(tab)
+            rows[i] = (ti, int(s.guided_s))
+        if not tables:
+            return None
+        return (tables, rows, False)
+
+    def _guided_step_masks(self, seqs: List[Sequence], T: int,
+                           pending: bool = False) -> Dict[str, Any]:
+        """The runner keywords of a T-step dispatch over `seqs` with
+        guided rows: the rows' current masks [n, V] (step 0), and for
+        the later steps the device plan, else the host callback."""
+        rows = [i for i, s in enumerate(seqs) if s.guided_m is not None]
+        if not rows:
+            return {}
+        vocab = seqs[rows[0]].guided_m.lifter.vocab_size
+        masks = np.ones((len(seqs), vocab), bool)
+        for i in rows:
+            masks[i] = self._guided_mask(seqs[i])
+        kw: Dict[str, Any] = {"masks": masks}
+        if T > 1:
+            gdev = self._guided_device_plan(seqs)
+            if gdev is not None:
+                kw["guided_dev"] = gdev
+            else:
+                kw["mask_fn"] = GuidedMaskContext(
+                    len(seqs), vocab,
+                    [(i, seqs[i].guided_m, seqs[i].guided_s) for i in rows],
+                    pending_advance=pending)
+        return kw
+
+    def _guided_advance(self, seq: Sequence, token: int) -> None:
+        """Advance a sequence's DFA past an accepted token. A desync
+        (impossible while masks are honored) drops the constraint and
+        logs rather than failing the batch."""
+        m = seq.guided_m
+        if m is None or token == m.lifter.eos_id:
+            return
+        try:
+            seq.guided_s = m.advance(seq.guided_s, int(token))
+        except ValueError as e:
+            log.error("request %s: %s; constraint dropped", seq.request_id, e)
+            seq.guided_m = None
+
     # -- AsyncEngine protocol ----------------------------------------------
     async def generate(self, request: Dict[str, Any], context: Context) -> AsyncIterator[Any]:
         self.start()
@@ -246,6 +444,13 @@ class InferenceEngine:
                                 error=f"{bad} is not supported by this worker yet")
             return
         annotations = request.get("annotations") or {}
+        if annotations.get("kind") == "embedding":
+            fut: asyncio.Future = loop.create_future()
+            self._inbox.put(("embed", (
+                [int(t) for t in request.get("token_ids") or [0]], fut, loop)))
+            vec = await fut
+            yield {"embedding": vec, "finish_reason": "stop", "token_ids": []}
+            return
         seq = Sequence(
             request_id=rid,
             prompt=[int(t) for t in request.get("token_ids") or [0]],
@@ -254,6 +459,8 @@ class InferenceEngine:
             arrival=time.monotonic(),
             disagg=annotations.get("disagg"),
             kv_import=request.get("kv_import"),
+            guided=request.get("guided"),
+            logit_bias=request.get("logit_bias"),
         )
         # latency spine: upstream hops (the disagg adapter's KV fetch)
         # stamped their durations into ctx.metadata["phases"]
@@ -261,6 +468,31 @@ class InferenceEngine:
         if isinstance(upstream, dict):
             seq.phases.update({k: float(v) for k, v in upstream.items()
                                if isinstance(v, (int, float))})
+        # n > 1: fork after prefill (the trunk KV shared copy-on-write, so
+        # n choices cost one prefill); disaggregated roles stream one
+        if seq.disagg is None:
+            seq.n_branches = max(1, min(16, int(seq.sampling.get("n") or 1)))
+        if seq.logit_bias and not getattr(self.runner, "supports_logit_bias", False):
+            # a dropped ban is a safety bug: refuse rather than sample the
+            # unbiased distribution
+            yield engine_output([], "error",
+                                error="logit_bias is unsupported on this worker")
+            return
+        if seq.guided:
+            try:
+                seq.guided_m = await loop.run_in_executor(
+                    None, self._compile_guided, seq.guided)
+                seq.guided_s = seq.guided_m.start
+                # a disaggregated decode continuation: the prefill worker
+                # generated the prompt's last N tokens under this
+                # constraint; replay them through this DFA copy
+                n_adv = int(request.get("guided_advanced") or 0)
+                for t in seq.prompt[len(seq.prompt) - n_adv:] if n_adv else []:
+                    seq.guided_s = seq.guided_m.advance(seq.guided_s, int(t))
+            except Exception as e:
+                yield engine_output([], "error",
+                                    error=f"guided decoding spec rejected: {e}")
+                return
         # reject prompts that can NEVER be admitted (more pages than the
         # pool/per-seq cap): they would wait forever and block the queue
         PS = self.pool.page_size
@@ -278,6 +510,7 @@ class InferenceEngine:
         else:
             self._inbox.put(("add", seq))
         finished = False
+        n_done = 0
         try:
             while True:
                 if context.is_stopped:
@@ -293,8 +526,12 @@ class InferenceEngine:
                 item = get.result()
                 yield item
                 if item.get("finish_reason"):
-                    finished = True
-                    return
+                    # a branched request streams one finish per choice and
+                    # ends when every branch has finished
+                    n_done += 1
+                    if n_done >= seq.n_branches:
+                        finished = True
+                        return
         finally:
             # runs on normal end, cancel, AND consumer break/close
             self._streams.pop(rid, None)
@@ -322,6 +559,11 @@ class InferenceEngine:
                 self.scheduler.add(arg)
             elif op == "abort":
                 self.scheduler.abort(arg)
+                # forked branches live under derived ids: an abort of the
+                # parent's stream tears them down too
+                for bid in [s.request_id for s in list(self.scheduler.active)
+                            + list(self.scheduler.waiting) if s.branch_of == arg]:
+                    self.scheduler.abort(bid)
                 parked = self._parked.pop(arg, None)
                 if parked is not None:
                     self.scheduler.release_parked(parked[0])
@@ -341,8 +583,26 @@ class InferenceEngine:
             elif op == "export_device":
                 rid, fut, loop = arg
                 self._reply(fut, loop, self._export_parked_device, rid)
+            elif op == "embed":
+                self._embed_pending.append(arg)
         self._admit_kv_pending()
         self._expire_parked()
+        self._run_embeds()
+
+    def _run_embeds(self) -> None:
+        """Every pending embedding request in one encoder pass."""
+        if not self._embed_pending:
+            return
+        batch, self._embed_pending = self._embed_pending, []
+        try:
+            vecs = self.runner.embed([t for t, _, _ in batch])
+        except Exception as e:
+            log.exception("embed batch failed")
+            for _, fut, loop in batch:
+                loop.call_soon_threadsafe(_set_future_exc, fut, e)
+            return
+        for i, (_, fut, loop) in enumerate(batch):
+            loop.call_soon_threadsafe(_set_future, fut, vecs[i].tolist())
 
     def _reply(self, fut, loop, fn, *args) -> None:
         """Run an export op on the step thread (the only thread that
@@ -375,11 +635,7 @@ class InferenceEngine:
                 self._run_prefill_inner(plan)
                 kind, n_tok = "prefill", len(plan.chunk)
             elif isinstance(plan, MixedPlan):
-                # of the reference's fusibility gates only the switch
-                # applies: requests with guided decoding, logit bias,
-                # logprobs, penalties, LoRA or multimodal input, which the
-                # fused dispatch does not carry, are refused at admission
-                fused = self.fused_mixed
+                fused = self._mixed_fusible(plan)
                 dseqs = plan.decode.seqs
                 # the decode half: verify rows (with the chunks when fused),
                 # else the fused dispatch, else plain decode first, so ITL
@@ -474,27 +730,99 @@ class InferenceEngine:
         self._finish_prefill(plan, logits)
 
     def _finish_prefill(self, plan: PrefillPlan, logits) -> None:
-        """On the last chunk: sample the first token and start the
-        sequence RUNNING."""
+        """On the last chunk: sample the first token (under the guided
+        mask and the bias, with penalties and the logprob report when
+        asked), fork the branches of an n > 1 request, then park
+        (disaggregated prefill) or start the sequence RUNNING."""
         seq = plan.seq
         if not plan.is_last_chunk:
             return
-        token = self.runner.sample_one(
-            logits, _sampling_params([seq]), self._next_step())
+        bias1 = None
+        rows = _batch_biases([seq], self.runner)
+        if rows is not None:
+            bias1 = rows[0]
+        mask1 = self._guided_mask(seq)
+        first_lp = None
+        n_lp1 = _batch_logprobs([seq])
+        pen = _batch_penalties([seq])
+        if n_lp1 >= 0 or pen:
+            token, first_lp = self.runner.sample_one_ex(
+                logits, _sampling_params([seq]), self._next_step(),
+                history=list(seq.tokens) if pen else None,
+                n_logprobs=n_lp1, mask=mask1, bias=bias1)
+        else:
+            token = self.runner.sample_one(
+                logits, _sampling_params([seq]), self._next_step(),
+                mask=mask1, bias=bias1)
+        # fork before the parent's DFA advance: each branch samples its
+        # own first token from these logits under the same state
+        if (seq.n_branches > 1 and seq.branch_of is None
+                and seq.disagg is None and not seq.branches_spawned):
+            self._fork_branches(seq, logits, mask1, bias1)
+        self._guided_advance(seq, token)
+        lp = [_first_lp_entry(first_lp, seq)] if first_lp is not None else None
         if seq.disagg == "prefill":
             # disagg: first token + transfer handle; the pages stay held
             # for the decode engine's pull
             self.scheduler.park(seq)
             self._parked[seq.request_id] = (
                 seq, time.monotonic() + self.parked_ttl_s)
-            self._emit(seq, [token], "prefill_complete", kv_transfer={
-                "request_id": seq.request_id,
-                "prompt_len": len(seq.prompt),
-                "first_token": token,
-            })
+            self._emit(seq, [token], "prefill_complete", logprobs=lp,
+                       kv_transfer={"request_id": seq.request_id,
+                                    "prompt_len": len(seq.prompt),
+                                    "first_token": token})
             return
         reason = self.scheduler.complete_decode(seq, token, advance_computed=False)
-        self._emit(seq, [token] if reason != "stop" else [], reason)
+        if reason == "stop":
+            self._emit(seq, [], reason)
+        else:
+            self._emit(seq, [token], reason, logprobs=lp)
+
+    def _fork_branches(self, seq: Sequence, logits, mask1, bias1) -> None:
+        """Fan a just-prefilled sequence out into n_branches siblings. Each
+        shares the parent's complete trunk pages by reference (the pool
+        copies only the partial tail page, through copy_pages), inherits
+        the pre-advance DFA state, and samples its own first token from
+        the parent's prefill logits: one prefill serves n choices. A
+        branch that gets no pages or no batch slot emits an indexed error
+        item; the parent and the other branches go on."""
+        seq.branches_spawned = True  # a preempted parent must not fork again
+        n_shared = seq.computed_len // self.pool.page_size
+        for k in range(1, seq.n_branches):
+            branch = Sequence(
+                request_id=f"{seq.request_id}#b{k}",
+                prompt=list(seq.prompt),
+                sampling=dict(seq.sampling),
+                stop=seq.stop,
+                arrival=seq.arrival,
+                logit_bias=seq.logit_bias,
+                guided=seq.guided,
+                guided_m=seq.guided_m,
+                guided_s=seq.guided_s,
+                branch_of=seq.request_id,
+                branch_index=k,
+            )
+            if branch.sampling.get("seed") is not None:
+                # the frontend fan-out's choice seeds: seeded branches
+                # diverge deterministically
+                branch.sampling["seed"] = int(branch.sampling["seed"]) + k
+            try:
+                pages = self.pool.fork_table(seq.pages, n_shared)
+            except NoSpace:
+                self._emit(branch, [], "error",
+                           error="no KV pages free to fork this choice")
+                continue
+            if not self.scheduler.adopt_branch(branch, seq, pages):
+                self._emit(branch, [], "error",
+                           error="no batch slot free to fork this choice")
+                continue
+            tok = self.runner.sample_one(
+                logits, _sampling_params([branch]), self._next_step(),
+                mask=mask1, bias=bias1)
+            self._guided_advance(branch, tok)
+            reason = self.scheduler.complete_decode(branch, tok,
+                                                    advance_computed=False)
+            self._emit(branch, [tok] if reason != "stop" else [], reason)
 
     def _finish_packed_prefills(self, prefills: List[PrefillPlan],
                                 chunk_logits) -> None:
@@ -517,39 +845,77 @@ class InferenceEngine:
 
     def _run_decode_inner(self, plan: DecodePlan) -> None:
         """plan.n_steps decode iterations with on-device token feedback (one
-        host sync per plan)."""
+        host sync per plan), with the batch's guided masks, bias rows,
+        penalties and logprob report."""
         seqs = plan.seqs
         T = plan.n_steps
         step0 = self._step_counter + 1
         self._step_counter += T
-        sampled = self.runner.decode_multi(
+        kw = self._guided_step_masks(seqs, T)
+        if "guided_dev" in kw or "mask_fn" in kw:
+            del kw["masks"]  # the tables or the callback give every step's
+        biases = _batch_biases(seqs, self.runner)
+        if biases is not None:
+            kw["biases"] = biases
+        sampled, lp = self.runner.decode_multi_ex(
             T, [s.tokens[-1] for s in seqs], [s.computed_len for s in seqs],
             [s.pages for s in seqs], _sampling_params(seqs), step0,
-        )
+            n_logprobs=_batch_logprobs(seqs),
+            histories=([list(s.tokens) for s in seqs]
+                       if _batch_penalties(seqs) else None),
+            prompt_lens=[s.n_prompt0 for s in seqs], **kw)
         for i, seq in enumerate(seqs):
-            self._commit(seq, sampled[i, :T])
+            self._commit(seq, sampled[i, :T], lp, i)
 
-    def _commit(self, seq: Sequence, tokens) -> None:
+    def _commit(self, seq: Sequence, tokens, lp=None, row: int = 0) -> None:
         """Append decoded tokens until one finishes the sequence (the rest
-        are discarded) and emit what was committed."""
+        are discarded), advancing its DFA past each, and emit what was
+        committed with its logprob entries (`lp`, the batch's report, row
+        `row`)."""
         emit: List[int] = []
+        entries: List[Dict[str, Any]] = []
         reason = None
-        for token in tokens:
+        for j, token in enumerate(tokens):
             token = int(token)
             reason = self.scheduler.complete_decode(seq, token)
+            if not reason:
+                self._guided_advance(seq, token)
             if reason != "stop":
                 emit.append(token)
+                if lp is not None and seq.sampling.get("logprobs") is not None:
+                    entries.append(_lp_entry(lp, row, j, seq))
             if reason:
                 break
-        self._emit(seq, emit, reason)
+        self._emit(seq, emit, reason, logprobs=entries or None)
 
     # -- fused mixed dispatch ----------------------------------------------
+    def _mixed_fusible(self, plan: MixedPlan) -> bool:
+        """Whether a MixedPlan runs as one fused dispatch: the switch, and
+        the reference's gates for what the fused step does not carry.
+        Guided or biased decode rows fuse only on the ragged step (the
+        padded fallback has no mask or bias); logprobs and penalties in
+        the decode batch, and a biased chunk, keep the two-dispatch
+        path."""
+        if not self.fused_mixed:
+            return False
+        seqs = plan.decode.seqs
+        if any(s.guided_m is not None or s.logit_bias for s in seqs):
+            if (not getattr(self.runner, "guided_fused", False)
+                    or not self.runner._use_ragged(len(seqs), len(plan.prefills))):
+                return False
+        if _batch_logprobs(seqs) >= 0 or _batch_penalties(seqs):
+            return False
+        return not any(p.seq.logit_bias for p in plan.prefills)
+
     def _run_mixed_dispatch(self, plan: MixedPlan):
         """The fused dispatch and its decode half's bookkeeping. A pack
         the runner cannot shape sheds its newest chunk and retries; shed
         chunks were never completed, so the scheduler plans them again
-        next iteration. Returns the served chunks' last-token logits, one
-        row per chunk from the front of plan.prefills."""
+        next iteration. Guided rows sample step 0 under the ragged step's
+        masks and the later steps under the device tables or the host
+        callback, pending: step 0's tokens are sampled on the device.
+        Returns the served chunks' last-token logits, one row per chunk
+        from the front of plan.prefills."""
         seqs = plan.decode.seqs
         T = plan.decode.n_steps
         tokens = [s.tokens[-1] for s in seqs]
@@ -557,12 +923,16 @@ class InferenceEngine:
         tables = [s.pages for s in seqs]
         step0 = self._step_counter + 1
         self._step_counter += T
+        kw = self._guided_step_masks(seqs, T, pending=True)
+        biases = _batch_biases(seqs, self.runner)
+        if biases is not None:
+            kw["biases"] = biases
         prefills = list(plan.prefills)
         while True:
             try:
                 sampled, chunk_logits = self.runner.decode_multi_with_prefills(
                     T, tokens, positions, tables, _sampling_params(seqs),
-                    step0, _chunks(prefills))
+                    step0, _chunks(prefills), **kw)
                 break
             except BucketOverflowError as e:
                 if len(prefills) <= 1:
@@ -579,32 +949,52 @@ class InferenceEngine:
     def _propose_drafts(self) -> None:
         """This iteration's drafts, proposed before step_plan so the
         scheduler can charge them against the mixed pool: the host n-gram
-        scan over each running sequence's own tokens."""
-        for s in self.scheduler.active:
-            if s.state == SeqState.RUNNING:
-                s.spec_draft = (ngram_propose(s.tokens, self.spec_k)
-                                if self.spec_ngram else [])
+        scan over each running sequence's own tokens. Guided and biased
+        rows never draft: they ride the verify dispatch as one-token rows
+        under their mask and bias while the others speculate. Logprobs or
+        penalties anywhere in the batch pause speculation for all of it:
+        the verify step has no logprob report or count tables."""
+        running = [s for s in self.scheduler.active if s.state == SeqState.RUNNING]
+        for s in running:
+            s.spec_draft = []
+        if not self.spec_ngram or not running:
+            return
+        if _batch_logprobs(running) >= 0 or _batch_penalties(running):
+            return
+        for s in running:
+            if s.guided_m is None and not s.logit_bias:
+                s.spec_draft = ngram_propose(s.tokens, self.spec_k)
 
     def _run_spec_verify(self, dplan: DecodePlan, prefills):
         """One ragged dispatch verifying every speculating row's draft (a
         K+1-token segment: the last real token and the draft) beside the
         plain decode rows and, when fused, the packed prefill chunks.
-        Acceptance emits target samples through the first mismatch (and
-        the bonus token on a full match), so greedy output equals plain
-        decode. Rejected drafts' KV lies past computed_len and is
-        overwritten later. Returns the chunks' last-token logits, or None
-        when the runner cannot shape the dispatch (the drafts are dropped
-        and the caller runs the plain path)."""
+        Guided and biased rows (never drafting) verify one position under
+        their mask and bias. Acceptance emits target samples through the
+        first mismatch (and the bonus token on a full match), so greedy
+        output equals plain decode. Rejected drafts' KV lies past
+        computed_len and is overwritten later. Returns the chunks'
+        last-token logits, or None when the runner cannot shape the
+        dispatch (the drafts are dropped and the caller runs the plain
+        path)."""
         seqs = dplan.seqs
         drafts = [list(s.spec_draft) for s in seqs]
         for s in seqs:
             s.spec_draft = []  # consumed (or shed) either way
         step0 = self._next_step()
+        kw: Dict[str, Any] = {}
+        masks = {i: self._guided_mask(s) for i, s in enumerate(seqs)
+                 if s.guided_m is not None}
+        if masks:
+            kw["masks"] = masks
+        brows = _batch_biases(seqs, self.runner)
+        if brows is not None:
+            kw["biases"] = {i: brows[i] for i, s in enumerate(seqs) if s.logit_bias}
         try:
             rows, chunk_logits = self.runner.verify_spec(
                 [s.tokens[-1] for s in seqs], [s.computed_len for s in seqs],
                 [s.pages for s in seqs], drafts, _sampling_params(seqs),
-                step0, chunks=_chunks(prefills))
+                step0, chunks=_chunks(prefills), **kw)
         except BucketOverflowError as e:
             log.warning("spec verify overflows runner buckets (%s); dropping "
                         "this iteration's drafts", e)
@@ -852,7 +1242,10 @@ class InferenceEngine:
 
     # -- emission ----------------------------------------------------------
     def _emit(self, seq: Sequence, token_ids: List[int], finish: Optional[str],
+              logprobs: Optional[List[Dict[str, Any]]] = None,
               **extra: Any) -> None:
+        if logprobs:
+            extra["logprobs"] = logprobs
         if token_ids:
             now = time.monotonic()
             if "ttft_s" not in seq.phases:
@@ -878,7 +1271,11 @@ class InferenceEngine:
                     cb(phases)
                 except Exception:
                     log.exception("phase listener failed")
-        entry = self._streams.get(seq.request_id)
+        if seq.branch_of is not None or seq.n_branches > 1:
+            # branched choices share the parent's stream; the index says
+            # which choice an item belongs to
+            item.setdefault("index", seq.branch_index)
+        entry = self._streams.get(seq.branch_of or seq.request_id)
         if entry is None:
             return
         out, loop = entry
@@ -918,4 +1315,71 @@ def _sampling_params(seqs: List[Sequence]) -> Dict[str, list]:
              else _stable_seed(s.request_id))
             for s in seqs
         ],
+        "rep": [float(s.sampling.get("repetition_penalty", 1.0)) for s in seqs],
+        "freq": [float(s.sampling.get("frequency_penalty", 0.0)) for s in seqs],
+        "presence": [float(s.sampling.get("presence_penalty", 0.0)) for s in seqs],
     }
+
+
+def _batch_biases(seqs: List[Sequence], runner) -> Optional[np.ndarray]:
+    """[n, V] f32 additive logit-bias rows, or None when no sequence has
+    one (ids outside the vocabulary are ignored: the wire is
+    untrusted). A sequence's row is built once and kept on it."""
+    if not any(s.logit_bias for s in seqs):
+        return None
+    V = runner.config.vocab_size
+    rows = np.zeros((len(seqs), V), np.float32)
+    for i, s in enumerate(seqs):
+        if not s.logit_bias:
+            continue
+        cached = getattr(s, "_bias_row", None)
+        if cached is None or cached.shape[0] != V:
+            cached = np.zeros(V, np.float32)
+            for tok, b in s.logit_bias:
+                if 0 <= int(tok) < V:
+                    cached[int(tok)] = float(b)
+            s._bias_row = cached  # constant for the sequence's lifetime
+        rows[i] = cached
+    return rows
+
+
+def _batch_penalties(seqs: List[Sequence]) -> bool:
+    """Whether any sequence asked for a repetition, frequency or presence
+    penalty (the history upload and the count tables switch on)."""
+    return any(
+        float(s.sampling.get("repetition_penalty", 1.0)) != 1.0
+        or float(s.sampling.get("frequency_penalty", 0.0)) != 0.0
+        or float(s.sampling.get("presence_penalty", 0.0)) != 0.0
+        for s in seqs)
+
+
+def _batch_logprobs(seqs: List[Sequence]) -> int:
+    """The batch's top-N report width (-1: nobody asked), bucketed to the
+    reference's menu (0, 5, 20); each sequence's entries are trimmed to
+    its own N."""
+    want = [int(s.sampling.get("logprobs") or 0)
+            for s in seqs if s.sampling.get("logprobs") is not None]
+    if not want:
+        return -1
+    mx = max(want)
+    for b in (0, 5, 20):
+        if mx <= b:
+            return b
+    return 20
+
+
+def _first_lp_entry(first_lp, seq: Sequence) -> Dict[str, Any]:
+    """The first token's logprob record, trimmed to the sequence's N."""
+    n = int(seq.sampling.get("logprobs") or 0)
+    return {"logprob": first_lp[0], "top_ids": first_lp[1][:n],
+            "top_logprobs": first_lp[2][:n]}
+
+
+def _lp_entry(lp, i: int, j: int, seq: Sequence) -> Dict[str, Any]:
+    """Row i, step j of the decode loop's report, trimmed to the
+    sequence's N."""
+    tok_lp, ids, vals = lp
+    n = int(seq.sampling.get("logprobs") or 0)
+    return {"logprob": float(tok_lp[i, j]),
+            "top_ids": [int(t) for t in ids[i, j, :n]],
+            "top_logprobs": [float(v) for v in vals[i, j, :n]]}

@@ -6,7 +6,9 @@ Port of dynamo_tpu/engine/model_runner.py's main-path methods: `prefill`,
 `_ragged_step`, or the padded [N, S] fallback `_mixed_loop`), the
 speculative `verify_spec` on the same ragged step, `sample_one`, and the
 KV transfer methods (`export_pages(_device)`, `import_pages(_device)` with
-the layer-streamed import) over the block-copy kernels, with the
+the layer-streamed import) over the block-copy kernels, `copy_pages`
+(the page pool's fork-on-branch copy hook), `embed` (the embedding
+forward, models/llama.py `encode`), with the
 reference's buckets, `_next_bucket`, `BucketOverflowError` and KV wire
 format (`KV_WIRE_LAYOUT_VERSION` 2). Params
 and the KV pools live on one device; the pools are updated in place
@@ -18,7 +20,14 @@ a quantized copy of it, as the reference's `quantize=`). Each
 dispatch uploads its int32 inputs in one packed copy (`_upload`). The
 fused decode loop (a lax.scan there) is a Python loop here that keeps the
 sampled tokens on the device between its steps; the tokens reach the host
-once per call.
+once per call. The loop carries the reference's sampling extras: the
+penalty count tables (built on the device from the staged history,
+updated after every step), the logprob report, the logit-bias rows, and
+the guided masks: a static step-0 mask, the device DFA tables (state
+advance and mask gather on the device), or the host fallback `mask_fn`
+(the reference's ordered io_callback), called between the steps with the
+step's tokens read back. The ragged step and the verify step take masks
+and bias rows as well; the padded fallback takes neither and raises.
 """
 
 from __future__ import annotations
@@ -27,13 +36,20 @@ import logging
 import os
 import time
 import warnings
+from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from dynamo_tpu_torch import resolve_device
-from dynamo_tpu_torch.engine.sampling import SamplingParams, sample
+from dynamo_tpu_torch.engine.sampling import (
+    SamplingParams,
+    apply_penalties,
+    sample,
+    top_logprobs,
+)
+from dynamo_tpu_torch.guided.device_table import combine_tables
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.quant import (
@@ -79,6 +95,12 @@ STAT_KEYS = (
     "kv_pages_exported",
     "kv_pages_imported",
     "kv_layer_group_scatters",  # layer groups of streamed imports
+    # guided decode loops by mask source: the device DFA tables, or the
+    # host fallback, whose mask builds (mask_fn calls) are counted too
+    "guided_device_dispatches",
+    "guided_host_dispatches",
+    "guided_host_masks",
+    "page_copies",  # copy_pages calls (fork-on-branch tail pages)
 )
 
 
@@ -109,6 +131,11 @@ def _first_rows(x: torch.Tensor, n: int) -> torch.Tensor:
     if x.shape[0] >= n:
         return x[:n]
     return torch.cat([x, x.new_zeros((n - x.shape[0],) + x.shape[1:])])
+
+
+def _row(x: Optional[np.ndarray]) -> Optional[np.ndarray]:
+    """A [V] row as a one-row [1, V] plane (None stays None)."""
+    return None if x is None else x[None]
 
 
 def _fold_seed(seed: int, j: int) -> int:
@@ -237,6 +264,9 @@ def kv_payload_to_arrays(payload: Dict[str, Any], page_shape=None, dtype=None):
 
 
 class ModelRunner:
+    supports_logit_bias = True  # the engine admits biased requests on this
+    guided_fused = True  # guided rows ride the fused decode loop
+
     def __init__(
         self,
         config: ModelConfig,
@@ -310,6 +340,8 @@ class ModelRunner:
         self.stats: Dict[str, int] = {}
         self.reset_stats()
         self._sampling_cache: Dict[Any, SamplingParams] = {}
+        # staged guided tables by the uids of their schemas
+        self._guided_dev_cache: "OrderedDict[Tuple[int, ...], Any]" = OrderedDict()
         log.info("runner ready: %s params+pool placed in %.1fs on %s "
                  "(%d pages x %d tokens)", config.name, time.monotonic() - t0,
                  self.device, num_pages, page_size)
@@ -367,27 +399,137 @@ class ModelRunner:
         page_tables: List[List[int]],
         sampling,  # dict of host lists (engine._sampling_params)
         step: int,
+        masks: Optional[np.ndarray] = None,  # [n, V] bool guided masks
+        biases: Optional[np.ndarray] = None,  # [n, V] f32 logit-bias rows
+        mask_fn=None,  # GuidedMaskContext: host-advanced per-step masks
+        guided_dev=None,  # (tables, row_entries, pending): device DFA plan
     ) -> np.ndarray:
         """n_steps decode iterations with one host sync at the end. Page
         tables must already cover positions[i] + n_steps slots. Returns
         sampled tokens [B_bucket, n_steps]."""
+        toks, _ = self._decode_dispatch(
+            n_steps, tokens, positions, page_tables, sampling, step,
+            masks=masks, biases=biases, mask_fn=mask_fn, guided_dev=guided_dev)
+        return toks.cpu().numpy()
+
+    def decode_multi_ex(
+        self,
+        n_steps: int,
+        tokens: List[int],
+        positions: List[int],
+        page_tables: List[List[int]],
+        sampling,
+        step: int,
+        n_logprobs: int = -1,
+        histories: Optional[List[List[int]]] = None,
+        prompt_lens: Optional[List[int]] = None,
+        masks: Optional[np.ndarray] = None,
+        biases: Optional[np.ndarray] = None,
+        mask_fn=None,
+        guided_dev=None,
+    ):
+        """decode_multi with the sampling extras: `histories` (each row's
+        prompt + generated ids; `prompt_lens[i]` marks where its generated
+        output starts) switches on the penalties; `n_logprobs` >= 0 adds
+        the report (tok_lp [B, T], top_ids [B, T, K], top_lps [B, T, K])
+        as host arrays. Returns (sampled [B, T], lp or None)."""
+        toks, lp = self._decode_dispatch(
+            n_steps, tokens, positions, page_tables, sampling, step,
+            n_logprobs=n_logprobs, histories=histories, prompt_lens=prompt_lens,
+            masks=masks, biases=biases, mask_fn=mask_fn, guided_dev=guided_dev)
+        toks_h = toks.cpu().numpy()
+        if lp is None:
+            return toks_h, None
+        return toks_h, tuple(a.cpu().numpy() for a in lp)
+
+    def _decode_dispatch(self, n_steps, tokens, positions, page_tables, sampling,
+                         step, n_logprobs=-1, histories=None, prompt_lens=None,
+                         masks=None, biases=None, mask_fn=None, guided_dev=None):
+        """Stage one decode dispatch (the ints and the history in one
+        upload, the mask and bias planes padded to the bucket: pad rows
+        all-allowed and unbiased) and run the loop. Returns device
+        (tokens [B, n_steps], lp or None)."""
         B = _next_bucket(self.decode_buckets, len(positions))
-        tok, pos0, pt = self._upload(
-            _padded(tokens, B, 0), _padded(positions, B, -1),
-            self._pad_page_table(page_tables, B))
-        return self._decode_loop(n_steps, tok, pos0, pt,
-                                 self._device_sampling(sampling, B),
-                                 step).cpu().numpy()
+        ints = [_padded(tokens, B, 0), _padded(positions, B, -1),
+                self._pad_page_table(page_tables, B)]
+        if histories is not None:
+            # bucketed to 128, padded with V: the pad's counts drop
+            V = self.config.vocab_size
+            H = -(-max(8, max((len(h) for h in histories), default=1)) // 128) * 128
+            hist = np.full((B, H), V, np.int32)
+            plen = np.zeros(B, np.int32)
+            for i, h in enumerate(histories):
+                hist[i, :len(h)] = h
+                plen[i] = prompt_lens[i] if prompt_lens is not None else len(h)
+            ints += [hist, plen]
+        up = self._upload(*ints)
+        tok, pos0, pt = up[:3]
+        counts = self._count_tables(*up[3:]) if histories is not None else None
+        if mask_fn is not None:
+            mask_fn.B = B  # the callback's mask rows match the padded bucket
+        return self._decode_loop(
+            n_steps, tok, pos0, pt, self._device_sampling(sampling, B), step,
+            mask=self._plane(masks, B, True), bias=self._plane(biases, B, 0.0),
+            counts=counts, mask_fn=mask_fn,
+            guided=self._guided_op(guided_dev, B) if guided_dev else None,
+            n_logprobs=n_logprobs)
+
+    def _plane(self, rows: Optional[np.ndarray], n: int, fill) -> Optional[torch.Tensor]:
+        """Row-aligned [r, V] mask (bool) or bias (f32) rows padded to n
+        rows with `fill`, on the device; None stays None."""
+        if rows is None:
+            return None
+        out = np.full((n, self.config.vocab_size), fill, rows.dtype)
+        out[:rows.shape[0]] = rows
+        return torch.from_numpy(out).to(self.device)
+
+    def _count_tables(self, hist: torch.Tensor, plen: torch.Tensor):
+        """The penalties' count tables [B, V] f32 from a history [B, H]
+        padded with V: every token, and the generated ones only (positions
+        >= plen). Built one column wider so the pad lands in a column
+        that is cut off; the counts are small integers, so the order of
+        the accumulating adds does not matter."""
+        B, H = hist.shape
+        V = self.config.vocab_size
+        h = hist.long()
+        rows = torch.arange(B, device=h.device)[:, None].expand(B, H)
+        ones = torch.ones((B, H), dtype=torch.float32, device=h.device)
+        cols = torch.arange(H, device=h.device)[None, :]
+        out_tok = torch.where(cols >= plen[:, None].long(), h, V)
+        tables = []
+        for idx in (h, out_tok):
+            t = torch.zeros((B, V + 1), dtype=torch.float32, device=h.device)
+            t.index_put_((rows, idx), ones, accumulate=True)
+            tables.append(t[:, :V])
+        return tuple(tables)
 
     def _decode_loop(self, n_steps: int, tok: torch.Tensor,
                      pos0: torch.Tensor, pt: torch.Tensor,
-                     samp: SamplingParams, step: int) -> torch.Tensor:
+                     samp: SamplingParams, step: int, mask=None, bias=None,
+                     counts=None, mask_fn=None, guided=None,
+                     n_logprobs: int = -1):
         """The reference's `_decode_loop`: forward, sample, feed the
         sampled token back, all on the device, from device tokens `tok`
         [B] (host-packed, or chained from an earlier dispatch's samples)
         at positions `pos0` [B] (-1 = padding row) over tables `pt`
-        [B, MP]. Returns sampled tokens [B, n_steps] on the device."""
-        out = []
+        [B, MP]. Extras: `mask` [B, V] (every step; a guided dispatch
+        without mask_fn or tables runs one step), `bias` [B, V], `counts`
+        (the penalty count tables, updated after each step), `guided`
+        (gtrans [G, V], gmask [G, V], gstate [B], pending: each row's
+        state advanced by the token it fed, at step 0 too when pending,
+        then its mask row gathered), `mask_fn` (a host callback (t,
+        prev_tokens) -> [B, V] bool, fed the tokens read back), and the
+        logprob report from the raw logits. Returns (sampled [B, n_steps],
+        lp or None) on the device."""
+        out, lps = [], []
+        B = tok.shape[0]
+        r = torch.arange(B, device=tok.device)
+        gs = None
+        if guided is not None:
+            gtrans, gmask, gs, gpend = guided
+            self.stats["guided_device_dispatches"] += 1
+        if mask_fn is not None:
+            self.stats["guided_host_dispatches"] += 1
         for t in range(n_steps):
             pos = torch.where(pos0 < 0, -1, pos0 + t)
             kvl = torch.where(pos0 < 0, 0, pos0 + t + 1).to(torch.int32)
@@ -395,10 +537,65 @@ class ModelRunner:
                 self.config, self.params, tok[:, None], pos[:, None],
                 self.k_pool, self.v_pool, pt, kvl,
             )
-            tok = sample(logits[:, 0], samp, step + t)
-            out.append(tok)
+            raw = logits[:, 0]
+            lg = raw if counts is None else apply_penalties(raw, *counts, samp)
+            m = mask
+            if guided is not None:
+                if t > 0 or gpend:
+                    gs = gtrans[gs, tok.long()].long()
+                m = gmask[gs]
+            if mask_fn is not None:
+                m = torch.from_numpy(mask_fn(t, tok.cpu().numpy())).to(self.device)
+                self.stats["guided_host_masks"] += 1
+            s = sample(lg, samp, step + t, mask=m, bias=bias)
+            if n_logprobs >= 0:
+                lps.append(top_logprobs(raw, s, n_logprobs))
+            if counts is not None:
+                one = torch.ones(B, dtype=torch.float32, device=tok.device)
+                for table in counts:
+                    table.index_put_((r, s.long()), one, accumulate=True)
+            tok = s
+            out.append(s)
             self.stats["decode_steps"] += 1
-        return torch.stack(out, 1)
+        lp = None
+        if n_logprobs >= 0:
+            lp = tuple(torch.stack([x[i] for x in lps], 1) for i in range(3))
+        return torch.stack(out, 1), lp
+
+    # -- guided device tables ----------------------------------------------
+    def stage_guided_tables(self, tables):
+        """A batch's combined guided tables on the device: (trans [G, V]
+        int32, mask [G, V] bool, per-table state offsets), kept staged by
+        the schemas' uids (an LRU of 32) so a warm loop uploads only the
+        [B] initial states."""
+        key = tuple(t.uid for t in tables)
+        hit = self._guided_dev_cache.get(key)
+        if hit is not None:
+            self._guided_dev_cache.move_to_end(key)
+            return hit
+        trans, mask, offsets = combine_tables(tables)
+        hit = (torch.from_numpy(trans).to(self.device),
+               torch.from_numpy(mask).to(self.device), offsets)
+        self._guided_dev_cache[key] = hit
+        while len(self._guided_dev_cache) > 32:
+            self._guided_dev_cache.popitem(last=False)
+        return hit
+
+    def _guided_op(self, guided_dev, B: int):
+        """A (tables, row_entries, pending) plan as the decode loop's
+        `guided` operand for a B-row bucket: the staged tables, each row's
+        global initial state (pad and unguided rows in the shared DEAD
+        state, all-allowed) and pending."""
+        g_tables, g_rows, g_pend = guided_dev
+        trans, gmask, offs = self.stage_guided_tables(g_tables)
+        dead = int(trans.shape[0]) - 1
+        gs0 = np.full(B, dead, np.int32)
+        for i, ent in enumerate(g_rows):
+            if ent is not None:
+                ti, st = ent
+                gs0[i] = offs[ti] + int(st)
+        gs, = self._upload(gs0)
+        return trans, gmask, gs.long(), bool(g_pend)
 
     # -- fused mixed dispatch ----------------------------------------------
     def _use_ragged(self, n_decode: int, n_chunks: int) -> bool:
@@ -437,23 +634,37 @@ class ModelRunner:
         step: int,
         chunks: List[Dict[str, Any]],  # {"tokens", "start", "table",
         #   "prior"} per packed chunk (distinct sequences)
+        masks: Optional[np.ndarray] = None,  # [n_dec, V] step-0 guided masks
+        mask_fn=None,  # GuidedMaskContext for the fused tail steps 1..n-1
+        biases: Optional[np.ndarray] = None,  # [n_dec, V] logit-bias rows
+        guided_dev=None,  # device guided DFA plan for the fused tail
     ) -> Tuple[np.ndarray, torch.Tensor]:
         """One fused mixed iteration: the decode batch's n_steps and the
         packed prefill chunks with one token readback. Rides the ragged
         step; a plan past the largest T bucket (or DYN_RAGGED_MIXED=0)
-        takes the padded fallback. Returns (sampled [B_bucket, n_steps]
+        takes the padded fallback, which carries no mask or bias: with
+        either it raises instead (the engine sheds a chunk and retries, or
+        never fuses such a plan). Returns (sampled [B_bucket, n_steps]
         host, per-chunk last-token logits [len(chunks), V] device). Raises
         BucketOverflowError when neither path can shape the plan."""
         out = None
+        constrained = not (masks is None and mask_fn is None
+                           and biases is None and guided_dev is None)
         if self._use_ragged(len(positions), len(chunks)):
             try:
                 out = self._decode_multi_with_prefills_ragged(
                     n_steps, tokens, positions, page_tables, sampling, step,
-                    chunks)
+                    chunks, masks=masks, mask_fn=mask_fn, biases=biases,
+                    guided_dev=guided_dev)
             except BucketOverflowError as e:
+                if constrained:
+                    raise
                 log.warning("mixed plan (%d tokens) overflows ragged T "
                             "buckets (largest %d); using the padded fallback",
                             e.n, e.largest)
+        elif constrained:
+            raise NotImplementedError(
+                "guided masks / logit bias require the ragged mixed path")
         if out is None:
             out = self._mixed_loop(n_steps, tokens, positions, page_tables,
                                    sampling, step, chunks)
@@ -475,8 +686,8 @@ class ModelRunner:
         logits = llama.forward(self.config, self.params, ptok, ppos,
                                self.k_pool, self.v_pool, ppt, pkvl, plast)
         self.stats["padded_prefill_dispatches"] += 1
-        toks = self._decode_loop(n_steps, tok, pos0, pt,
-                                 self._device_sampling(sampling, B), step)
+        toks, _ = self._decode_loop(n_steps, tok, pos0, pt,
+                                    self._device_sampling(sampling, B), step)
         return toks.cpu().numpy(), logits[:len(chunks), 0]
 
     def _prep_prefill_packed(self, chunks):
@@ -525,13 +736,17 @@ class ModelRunner:
 
     def _decode_multi_with_prefills_ragged(
         self, n_steps, tokens, positions, page_tables, sampling, step, chunks,
+        masks=None, mask_fn=None, biases=None, guided_dev=None,
     ) -> Tuple[np.ndarray, torch.Tensor]:
         """Step 0 of the decode batch and every chunk in one ragged flat
-        step (decode rows first, one token each), then steps 1..n-1
-        through the decode loop chained on the step-0 tokens on the
-        device (positions and step advanced by one, so every row draws
-        with the same (seed, step) pairs as the unfused path); one
-        readback at the end."""
+        step (decode rows first, one token each, sampled under `masks`
+        and `biases`), then steps 1..n-1 through the decode loop chained
+        on the step-0 tokens on the device (positions and step advanced
+        by one, so every row draws with the same (seed, step) pairs as
+        the unfused path) under the bias and `mask_fn` or the device DFA
+        plan, pending: the step-0 tokens were sampled on the device and
+        are not folded into the rows' states yet. One readback at the
+        end."""
         n_dec = len(positions)
         B = _next_bucket(self.decode_buckets, n_dec)
         flat, md, gather = self._prep_ragged(tokens, positions, page_tables,
@@ -539,15 +754,24 @@ class ModelRunner:
         # the tail's positions ride the same upload
         sampled, seg_logits, views = self._ragged_step(
             flat, md, gather, sampling, step, extra={
-                "tail_positions": _padded([p + 1 for p in positions], B, -1)})
+                "tail_positions": _padded([p + 1 for p in positions], B, -1)},
+            masks=masks, biases=biases)
         self.stats["ragged_mixed_dispatches"] += 1
         tok0 = _first_rows(sampled, B)  # decode rows lead the segment order
         if n_steps > 1:
+            if mask_fn is not None:
+                mask_fn.B = B
+            guided = None
+            if guided_dev is not None:
+                g_tables, g_rows, _ = guided_dev
+                guided = self._guided_op((g_tables, g_rows, True), B)
             # the decode rows' tables are the first segment rows
-            rest = self._decode_loop(
+            rest, _ = self._decode_loop(
                 n_steps - 1, tok0, views["tail_positions"],
                 _first_rows(views["seg_page_table"], B),
-                self._device_sampling(sampling, B), step + 1)
+                self._device_sampling(sampling, B), step + 1,
+                bias=self._plane(biases, B, 0.0), mask_fn=mask_fn,
+                guided=guided)
             toks = torch.cat([tok0[:, None], rest], 1)
         else:
             toks = tok0[:, None]
@@ -565,11 +789,14 @@ class ModelRunner:
         row_j: Optional[np.ndarray] = None,  # [SEG] verify position per row
         extra: Optional[Dict[str, np.ndarray]] = None,  # more int32
         #   arrays to upload with the step, by name
+        masks: Optional[np.ndarray] = None,  # [r, V] bool, sampled-row aligned
+        biases: Optional[np.ndarray] = None,  # [r, V] f32, sampled-row aligned
     ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         """The reference's `_ragged_step`: one forward over the flat
         [1, T] step with logits at the SEG gathered rows, then sampling of
-        every row. Returns (sampled [SEG] int32, seg_logits [SEG, V], the
-        device views of the upload)."""
+        every row under its mask and bias row (rows past those given are
+        all-allowed and unbiased). Returns (sampled [SEG] int32,
+        seg_logits [SEG, V], the device views of the upload)."""
         seg_cap = gather.shape[0]
         host = {"flat": flat[None], "positions": md["tok_positions"][None],
                 "seg_page_table": md["seg_page_table"],
@@ -590,15 +817,16 @@ class ModelRunner:
         else:
             # per-row params gathered on the device from the cached
             # per-sequence base; seeds and the sampled-row list are host
-            idx = views["row_seq"].long()
             hot = set(base.sampled_rows)
-            samp = SamplingParams(
-                temperature=base.temperature[idx], top_k=base.top_k[idx],
-                top_p=base.top_p[idx],
+            samp = base.rows(
+                views["row_seq"].long(),
                 seeds=[_fold_seed(base.seeds[r], j)
                        for r, j in zip(row_seq, row_j)],
                 sampled_rows=[e for e, r in enumerate(row_seq) if r in hot])
-        return sample(seg_logits, samp, step), seg_logits, views
+        toks = sample(seg_logits, samp, step,
+                      mask=self._plane(masks, seg_cap, True),
+                      bias=self._plane(biases, seg_cap, 0.0))
+        return toks, seg_logits, views
 
     # -- speculative verify ------------------------------------------------
     def verify_spec(
@@ -610,6 +838,11 @@ class ModelRunner:
         sampling,
         step: int,
         chunks: Sequence[Dict[str, Any]] = (),
+        masks: Optional[Dict[int, np.ndarray]] = None,  # row index -> [V]
+        #   bool guided mask of that row's one verify position (guided rows
+        #   never draft)
+        biases: Optional[Dict[int, np.ndarray]] = None,  # row index -> [V]
+        #   f32 logit-bias row, the same draft-less contract
     ) -> Tuple[List[np.ndarray], Any]:
         """One speculative-verify iteration on the ragged step. Each
         sequence is a segment of len(draft) + 1 tokens (its last real
@@ -664,8 +897,20 @@ class ModelRunner:
             w += 1
         # chunk (and pad) entries sample with a padding row's params
         row_seq[chunk_entry0:] = min(n_rows, seg_cap - 1)
+        offs = np.concatenate([[0], np.cumsum(row_lens)])
+        row_masks = row_biases = None
+        if masks:
+            row_masks = np.ones((chunk_entry0, self.config.vocab_size), bool)
+            for i, m in masks.items():
+                row_masks[offs[i]] = m
+        if biases:
+            row_biases = np.zeros((chunk_entry0, self.config.vocab_size),
+                                  np.float32)
+            for i, b in biases.items():
+                row_biases[offs[i]] = b
         sampled, seg_logits, _ = self._ragged_step(
-            flat, md, gather, sampling, step, row_seq=row_seq, row_j=row_j)
+            flat, md, gather, sampling, step, row_seq=row_seq, row_j=row_j,
+            masks=row_masks, biases=row_biases)
         self.stats["ragged_verify_dispatches"] += 1
         sampled_h = sampled.cpu().numpy()  # one bulk sync
         out: List[np.ndarray] = []
@@ -678,23 +923,82 @@ class ModelRunner:
         return out, seg_logits[chunk_entry0:chunk_entry0 + len(chunks)]
 
     # -- sampling ----------------------------------------------------------
-    def sample_one(self, logits: torch.Tensor, sampling, step: int) -> int:
+    def sample_one(self, logits: torch.Tensor, sampling, step: int,
+                   mask: Optional[np.ndarray] = None,
+                   bias: Optional[np.ndarray] = None) -> int:
         samp = self._device_sampling(sampling, 1)
-        return int(sample(logits[None, :], samp, step)[0])
+        return int(sample(logits[None, :], samp, step,
+                          mask=self._plane(_row(mask), 1, True),
+                          bias=self._plane(_row(bias), 1, 0.0))[0])
+
+    def sample_one_ex(self, logits: torch.Tensor, sampling, step: int,
+                      history: Optional[List[int]] = None,
+                      n_logprobs: int = -1,
+                      mask: Optional[np.ndarray] = None,
+                      bias: Optional[np.ndarray] = None):
+        """sample_one with penalties over `history` (the prompt: nothing
+        is generated yet, so only repetition can bite) and/or the logprob
+        report of the sampled position. Returns (token, lp) with lp None
+        or (tok_lp, top ids, top logprobs)."""
+        samp = self._device_sampling(sampling, 1)
+        raw = logits[None, :]
+        lg = raw
+        if history is not None:
+            H = -(-max(1, len(history)) // 128) * 128
+            hist, plen = self._upload(_padded(history, H, self.config.vocab_size)[None],
+                                      [H])
+            counts = self._count_tables(hist, plen)
+            lg = apply_penalties(raw, counts[0], torch.zeros_like(counts[0]), samp)
+        s = sample(lg, samp, step, mask=self._plane(_row(mask), 1, True),
+                   bias=self._plane(_row(bias), 1, 0.0))
+        if n_logprobs < 0:
+            return int(s[0]), None
+        tok_lp, ids, vals = top_logprobs(raw, s, n_logprobs)
+        return int(s[0]), (float(tok_lp[0]), [int(i) for i in ids[0]],
+                           [float(v) for v in vals[0]])
+
+    def embed(self, token_lists: List[List[int]]) -> np.ndarray:
+        """Batched embedding forward: [n, E] f32, L2-normalized (the rows
+        padded to the decode and prefill buckets, as the reference's)."""
+        n = len(token_lists)
+        B = _next_bucket(self.decode_buckets, n)
+        S = _next_bucket(self.prefill_buckets, max(len(t) for t in token_lists))
+        toks = np.zeros((B, S), np.int32)
+        for i, t in enumerate(token_lists):
+            toks[i, :len(t)] = t
+        tok, lens = self._upload(toks, _padded([len(t) for t in token_lists], B, 0))
+        return llama.encode(self.config, self.params, tok, lens)[:n].cpu().numpy()
+
+    def copy_pages(self, src: int, dst: int) -> None:
+        """The page pool's fork-on-branch copy hook: page src's KV into
+        page dst in every layer (an int8 pool's codes and scales as they
+        are, no dequantize round trip)."""
+        for pool in (self.k_pool, self.v_pool):
+            for part in self._parts(pool):
+                part[:, dst] = part[:, src]
+        self.stats["page_copies"] += 1
 
     def _device_sampling(self, sampling, B: int) -> SamplingParams:
         """Sampling params padded to the bucket, cached on the device:
         batches resend identical lists every dispatch."""
+        n = len(sampling["temperature"])
+        pen = {name: tuple(sampling.get(name) or [neutral] * n)
+               for name, neutral in (("rep", 1.0), ("freq", 0.0),
+                                     ("presence", 0.0))}
         key = (B, tuple(sampling["temperature"]), tuple(sampling["top_k"]),
-               tuple(sampling["top_p"]), tuple(sampling["seeds"]))
+               tuple(sampling["top_p"]), tuple(sampling["seeds"]),
+               *pen.values())
         hit = self._sampling_cache.get(key)
         if hit is None:
-            pad = B - len(sampling["temperature"])
+            pad = B - n
             hit = SamplingParams.make(
                 temperature=list(sampling["temperature"]) + [0.0] * pad,
                 top_k=list(sampling["top_k"]) + [0] * pad,
                 top_p=list(sampling["top_p"]) + [1.0] * pad,
                 seeds=list(sampling["seeds"]) + [0] * pad,
+                rep_penalty=list(pen["rep"]) + [1.0] * pad,
+                freq_penalty=list(pen["freq"]) + [0.0] * pad,
+                presence_penalty=list(pen["presence"]) + [0.0] * pad,
                 device=self.device,
             )
             if len(self._sampling_cache) >= 512:

@@ -2,8 +2,9 @@
 and recompute-preemption.
 
 Pure host logic, copied from dynamo_tpu/engine/scheduler.py with the
-parts this port does not serve yet left out: tree speculation, LoRA and
-multimodal hash-chain seeds and fork-on-branch. Disaggregation (park,
+parts this port does not serve yet left out: tree speculation and the
+LoRA and multimodal hash-chain seeds. Fork-on-branch (`adopt_branch`,
+n > 1 sampling) and the guided and logit-bias fields are in. Disaggregation (park,
 release_parked, admit_with_kv) and the G2 host-tier continuation of
 `_try_allocate` are in. Linear speculative drafts stay: the engine proposes them
 before planning, the scheduler trims them to the mixed token pool and the
@@ -52,6 +53,11 @@ class Sequence:
     # first token, then park; "decode" = KV arrives by transfer, no prefill
     disagg: Optional[str] = None
     kv_import: Any = None  # page payload for disagg-decode admission
+    logit_bias: Any = None  # [[token_id, bias], ...] (OpenAI logit_bias)
+    # guided decoding: wire spec (dict), compiled GuidedMatcher, DFA state
+    guided: Any = None
+    guided_m: Any = None
+    guided_s: int = 0
     state: SeqState = SeqState.WAITING
     tokens: List[int] = field(default_factory=list)  # prompt + generated
     pages: List[int] = field(default_factory=list)
@@ -71,6 +77,15 @@ class Sequence:
     # (engine sets before step_plan; the scheduler trims them to the
     # mixed token budget; the engine consumes and clears after verify)
     spec_draft: List[int] = field(default_factory=list)
+    # fork-on-branch (n > 1 sampling): the parent carries n_branches; each
+    # forked sibling carries branch_of=<parent request_id> and its choice
+    # index, and shares the parent's trunk pages copy-on-write
+    n_branches: int = 1
+    branch_of: Optional[str] = None
+    branch_index: int = 0
+    # set once the parent's first prefill forked (or failed to fork) its
+    # siblings: a preempted parent re-prefills and must not fork again
+    branches_spawned: bool = False
 
     @property
     def n_generated(self) -> int:
@@ -399,6 +414,26 @@ class Scheduler:
         return True
 
     # -- decode ------------------------------------------------------------
+    def adopt_branch(self, branch: Sequence, parent: Sequence,
+                     pages: List[int]) -> bool:
+        """Admit a fork-on-branch sibling straight into the running batch.
+        The caller already fork_table'd the parent's pages (the trunk
+        shared by reference, the partial tail page copied), so the branch
+        starts where the parent is: same computed KV, same hash chain, one
+        prefill-sampled token away from its first decode step."""
+        if len(self.active) >= self.max_batch:
+            self.pool.release(pages)
+            return False
+        branch.tokens = list(parent.tokens)
+        branch.n_prompt0 = parent.n_prompt0
+        branch.pages = pages
+        branch.computed_len = parent.computed_len
+        branch.n_shared_pages = parent.n_shared_pages
+        branch.hash_chain = list(parent.hash_chain)
+        branch.state = SeqState.RUNNING
+        self.active.append(branch)
+        return True
+
     def _ensure_decode_capacity(
         self, running: List[Sequence], lookahead: int = 1
     ) -> List[Sequence]:

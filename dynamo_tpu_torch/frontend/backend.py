@@ -4,9 +4,8 @@ Port of dynamo_tpu/frontend/backend.py `_longest_partial_suffix`,
 `StopChecker` and `BackendOperator`. Sits between migration and the
 router: turns the engine's token-id stream into text deltas and enforces
 stop strings, stop ids and max_tokens, holding back text that may be the
-start of a stop string so that stop text never reaches the client. The
-port's engine refuses logprobs, so no item carries a logprob report to
-keep aligned.
+start of a stop string so that stop text never reaches the client. An
+item's logprob report is cut to the tokens that reach the client.
 """
 
 from __future__ import annotations
@@ -83,6 +82,11 @@ class BackendOperator:
             finish = item.get("finish_reason")
 
             token_stop, emit_ids = checker.check_tokens(token_ids)
+            if item.get("logprobs") and len(emit_ids) != len(token_ids):
+                # keep the report aligned with the tokens that reach the
+                # client (stop or length may cut the item)
+                item = dict(item)
+                item["logprobs"] = item["logprobs"][:len(emit_ids)]
             pending += detok.push(emit_ids)
 
             if checker.stop_strings:

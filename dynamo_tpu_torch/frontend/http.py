@@ -13,14 +13,17 @@ Routes: GET /health, /live, /ready, /metrics, /v1/models,
 /v1/models/{model}; POST /v1/completions and /v1/chat/completions, unary
 and streamed (`stream_options.include_usage`), with the busy-threshold
 503, the `x-dynamo-worker-instance-id` pin, `traceparent` passed on in
-the request metadata, and X-Request-Id on streams. A client that closes
+the request metadata, and X-Request-Id on streams; the logprob reports
+(a streamed report's entries held until a chunk is sent) and tool-call
+parsing of a chat with tools (frontend/tool_calls.py; a streamed one is
+buffered and sent as one tool_calls delta), as the reference's; POST
+/v1/embeddings, routed straight to the workers. A client that closes
 its connection before its answer is complete kills the request and
 closes the chain's stream at once, which frees the worker's pages.
 Preprocessing runs inline (the reference offloads large prompts to a
-compute pool). Requests with tools are refused: tool-call parsing is not
-ported yet. Not ported either: /v1/responses, the Anthropic routes,
-/v1/embeddings, batch and files, realtime, the gRPC KServe frontend, the
-routing audit and SO_REUSEPORT workers.
+compute pool). Not ported: /v1/responses, the Anthropic routes, batch
+and files, realtime, the gRPC KServe frontend, the routing audit and
+SO_REUSEPORT workers.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from urllib.parse import unquote
 
 from dynamo_tpu_torch.frontend.request_trace import RequestTiming
 from dynamo_tpu_torch.frontend.service import ModelManager, ModelWatcher
+from dynamo_tpu_torch.frontend.tool_calls import parse_tool_calls
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.request_plane import RequestPlaneError
 
@@ -291,6 +295,7 @@ class HttpService:
             ("GET", "/v1/models"): self.list_models,
             ("POST", "/v1/completions"): self.completions,
             ("POST", "/v1/chat/completions"): self.chat_completions,
+            ("POST", "/v1/embeddings"): self.embeddings,
         }
 
     def inflight_inc(self, model: str) -> None:
@@ -444,6 +449,64 @@ class HttpService:
             return _error(404, f"model {name!r} not found", "model_not_found")
         return json_response({"id": name, "object": "model", "owned_by": "dynamo_tpu"})
 
+    # -- embeddings ----------------------------------------------------------
+    async def embeddings(self, req, writer, keep) -> Response:
+        """OpenAI embeddings: each input tokenized (no BOS) and sent
+        straight to the workers (no detokenizer or migration), all at
+        once, so the engine batches them into one pass."""
+        try:
+            body = json.loads(req.body)
+        except ValueError:
+            return _error(400, "invalid JSON body", "invalid_request_error")
+        if not isinstance(body, dict):
+            return _error(400, "the JSON body must be an object", "invalid_request_error")
+        model = body.get("model")
+        try:
+            entry = self.manager.get(model)
+        except KeyError:
+            return _error(404, f"model {model!r} not found", "model_not_found")
+        inputs = body.get("input")
+        if isinstance(inputs, str):
+            inputs = [inputs]
+        if not isinstance(inputs, list) or not inputs:
+            return _error(400, "input must be a string or non-empty list",
+                          "invalid_request_error")
+        if all(isinstance(x, int) for x in inputs):
+            inputs = [inputs]  # one token-id prompt
+        token_lists = [entry.preprocessor.tokenize_prompt(x, add_bos=False)
+                       if isinstance(x, str) else [int(t) for t in x]
+                       for x in inputs]
+        n_tokens = sum(len(t) for t in token_lists)
+        try:
+            contexts = [_request_context(req, model) for _ in token_lists]
+        except _BadRequest as e:
+            return e.response
+
+        async def one(token_ids, ctx):
+            request = {"token_ids": token_ids, "annotations": {"kind": "embedding"},
+                       "model": model}
+            async for item in entry.client.generate(request, ctx):
+                if "embedding" in item:
+                    return item["embedding"]
+                if item.get("finish_reason"):
+                    break
+            return None
+
+        try:
+            vecs = await asyncio.gather(*[one(t, c) for t, c in zip(token_lists, contexts)])
+        except Exception as e:  # the request's boundary: report, keep serving
+            log.exception("embedding request failed")
+            return _error(500, str(e), "internal_error")
+        if any(v is None for v in vecs):
+            return _error(500, "worker returned no embedding", "internal_error")
+        return json_response({
+            "object": "list",
+            "data": [{"object": "embedding", "index": i, "embedding": v}
+                     for i, v in enumerate(vecs)],
+            "model": model,
+            "usage": {"prompt_tokens": n_tokens, "total_tokens": n_tokens},
+        })
+
     # -- inference endpoints -----------------------------------------------
     async def chat_completions(self, req, writer, keep) -> Optional[Response]:
         return await self._run_inference(req, writer, keep, kind="chat")
@@ -473,9 +536,6 @@ class HttpService:
             preprocessed = pre_fn(body)
         except ValueError as e:
             return _error(400, str(e), "invalid_request_error")
-        if (preprocessed.get("annotations") or {}).get("tools"):
-            return _error(400, "tools need tool-call parsing, which the port has "
-                          "not ported yet", "invalid_request_error")
         if "priority" in body:
             # the admission queue's class (0 = most urgent), opt-in
             try:
@@ -537,7 +597,36 @@ class HttpService:
         writer.write(_head(200, headers))
         sse = SseWriter(writer)
         obj = "chat.completion.chunk" if kind == "chat" else "text_completion"
+        tokenizer = entry.preprocessor.tokenizer
         n_out = 0
+        # a chat with tools is buffered: the call markup parses only whole,
+        # and clients expect tool_calls deltas, not markup fragments
+        buffer_tools = kind == "chat" and (preprocessed.get("annotations") or {}).get("tools")
+        buffered: List[str] = []
+        tools_flushed = False
+        # logprob entries of items whose chunk was not sent yet (an empty
+        # text delta) ride on the next chunk sent
+        lp_hold_ids: List[int] = []
+        lp_hold: List[Dict[str, Any]] = []
+        sent_text_len = 0
+
+        async def flush_tools(finish_reason) -> None:
+            nonlocal tools_flushed
+            tools_flushed = True
+            content, calls = parse_tool_calls("".join(buffered))
+            if calls:
+                delta = {"tool_calls": [{**c, "index": i} for i, c in enumerate(calls)]}
+                if content:
+                    delta["content"] = content
+                chunk = _chat_chunk(rid, model, created, delta, "tool_calls")
+            else:
+                chunk = _chat_chunk(rid, model, created,
+                                    {"content": content} if content else {}, finish_reason)
+            if lp_hold:
+                chunk["choices"][0]["logprobs"] = _format_logprobs(
+                    tokenizer, kind, lp_hold_ids, lp_hold)
+            await sse.send(chunk)
+
         try:
             if kind == "chat":
                 await sse.send(_chat_chunk(rid, model, created, {"role": "assistant"}, None))
@@ -549,16 +638,40 @@ class HttpService:
                 timing.on_tokens(n)
                 if finish:
                     timing.finish_reason = finish
+                if item.get("logprobs"):
+                    lp_hold_ids.extend(item.get("token_ids") or [])
+                    lp_hold.extend(item["logprobs"])
+                if buffer_tools:
+                    buffered.append(text)
+                    if finish:
+                        await flush_tools(finish)
+                        break
+                    continue
                 if text or finish:
+                    chunk_lp = None
+                    if lp_hold:
+                        chunk_lp = _format_logprobs(tokenizer, kind, lp_hold_ids,
+                                                    lp_hold, offset0=sent_text_len)
+                        lp_hold_ids, lp_hold = [], []
+                    sent_text_len += len(text)
                     if kind == "chat":
-                        await sse.send(_chat_chunk(rid, model, created,
-                                                   {"content": text} if text else {}, finish))
+                        chunk = _chat_chunk(rid, model, created,
+                                            {"content": text} if text else {}, finish)
+                        if chunk_lp is not None:
+                            chunk["choices"][0]["logprobs"] = chunk_lp
                     else:
-                        await sse.send({"id": rid, "object": obj, "created": created,
-                                        "model": model, "choices": [
-                                            {"index": 0, "text": text, "finish_reason": finish}]})
+                        choice = {"index": 0, "text": text, "finish_reason": finish}
+                        if chunk_lp is not None:
+                            choice["logprobs"] = chunk_lp
+                        chunk = {"id": rid, "object": obj, "created": created,
+                                 "model": model, "choices": [choice]}
+                    await sse.send(chunk)
                 if finish:
                     break
+            if buffer_tools and not tools_flushed:
+                # the stream ended without a finish: the buffered text
+                # still reaches the client
+                await flush_tools("stop")
             if include_usage:
                 # one last chunk with EMPTY choices carrying the totals
                 n_prompt = len(preprocessed["token_ids"])
@@ -651,12 +764,17 @@ async def generate_unary_body(entry, preprocessed, ctx, rid, model, created, kin
     finish = None
     n_prompt = len(preprocessed["token_ids"])
     n_out = 0
+    lp_tokens: List[int] = []  # token ids with logprob entries (aligned)
+    lp_entries: List[Dict[str, Any]] = []
     try:
         async for item in entry.chain.generate(preprocessed, ctx):
             if item.get("finish_reason") == "error":
                 raise RuntimeError(item.get("error") or "engine error")
             text_parts.append(item.get("text", ""))
             n_out += len(item.get("token_ids") or [])
+            if item.get("logprobs"):
+                lp_tokens.extend(item.get("token_ids") or [])
+                lp_entries.extend(item["logprobs"])
             if timing is not None:
                 timing.on_tokens(len(item.get("token_ids") or []))
             if item.get("finish_reason"):
@@ -670,13 +788,63 @@ async def generate_unary_body(entry, preprocessed, ctx, rid, model, created, kin
     usage = {"prompt_tokens": n_prompt, "completion_tokens": n_out,
              "total_tokens": n_prompt + n_out}
     if kind == "chat":
-        return {"id": rid, "object": "chat.completion", "created": created, "model": model,
-                "choices": [{"index": 0, "message": {"role": "assistant", "content": text},
+        message: Dict[str, Any] = {"role": "assistant", "content": text}
+        if (preprocessed.get("annotations") or {}).get("tools"):
+            content, calls = parse_tool_calls(text)
+            if calls:
+                message = {"role": "assistant", "content": content or None,
+                           "tool_calls": calls}
+                finish = "tool_calls"
+        body = {"id": rid, "object": "chat.completion", "created": created,
+                "model": model,
+                "choices": [{"index": 0, "message": message,
                              "finish_reason": finish or "stop"}],
                 "usage": usage}
-    return {"id": rid, "object": "text_completion", "created": created, "model": model,
-            "choices": [{"index": 0, "text": text, "finish_reason": finish or "stop"}],
-            "usage": usage}
+    else:
+        body = {"id": rid, "object": "text_completion", "created": created,
+                "model": model,
+                "choices": [{"index": 0, "text": text, "finish_reason": finish or "stop"}],
+                "usage": usage}
+    if lp_entries:
+        body["choices"][0]["logprobs"] = _format_logprobs(
+            entry.preprocessor.tokenizer, kind, lp_tokens, lp_entries)
+    return body
+
+
+def _format_logprobs(tokenizer, kind: str, token_ids, entries,
+                     offset0: int = 0) -> Dict[str, Any]:
+    """Engine logprob records as the OpenAI shape: per-token content
+    entries for chat, parallel arrays for completions. `entries` align
+    1:1 with `token_ids`; `offset0` seeds text_offset for a streamed
+    chunk (offsets accumulate over the whole completion)."""
+
+    def tok_str(tid: int) -> str:
+        try:
+            return tokenizer.decode([tid])
+        except Exception:
+            return f"<{tid}>"
+
+    if kind == "chat":
+        return {"content": [
+            {"token": tok_str(tid), "logprob": e["logprob"], "bytes": None,
+             "top_logprobs": [{"token": tok_str(i), "logprob": v, "bytes": None}
+                              for i, v in zip(e["top_ids"], e["top_logprobs"])]}
+            for tid, e in zip(token_ids, entries)]}
+    offset = offset0
+    tokens, token_logprobs, top_logprobs, text_offset = [], [], [], []
+    for tid, e in zip(token_ids, entries):
+        s = tok_str(tid)
+        tokens.append(s)
+        token_logprobs.append(e["logprob"])
+        top: Dict[str, float] = {}
+        for i, v in zip(e["top_ids"], e["top_logprobs"]):
+            # the first (highest) value wins where ids decode alike
+            top.setdefault(tok_str(i), v)
+        top_logprobs.append(top)
+        text_offset.append(offset)
+        offset += len(s)
+    return {"tokens": tokens, "token_logprobs": token_logprobs,
+            "top_logprobs": top_logprobs, "text_offset": text_offset}
 
 
 def _chat_chunk(rid, model, created, delta, finish) -> Dict[str, Any]:

@@ -14,12 +14,13 @@ jinja2's output byte for byte:
     {% endfor %}assistant:
 
 A card with a chat template of its own is refused until a template engine
-is ported. Requests whose reference preprocessing compiles a guided
-decoding constraint (a required or named `tool_choice` over tools,
-`response_format`, `guided_*`) are refused, naming A.4; images are
-refused as the reference refuses them for a model without a vision
-encoder. logit_bias, logprobs and penalties are mapped as the reference
-maps them and reach the worker.
+is ported. The guided decoding constraint is the reference's `_guided`: a
+required or named `tool_choice` over tools (the tool-call regex),
+`response_format` (json_object, json_schema, structural_tag) and the
+`guided_regex` / `guided_json` / `guided_choice` extensions, compiled to
+the wire spec the worker lifts to token masks. Images are refused as the
+reference refuses them for a model without a vision encoder. logit_bias,
+logprobs and penalties are mapped as the reference maps them.
 """
 
 from __future__ import annotations
@@ -35,6 +36,12 @@ from dynamo_tpu_torch.frontend.protocols import (
     make_preprocessed_request,
 )
 from dynamo_tpu_torch.frontend.tokenizer import Tokenizer, load_tokenizer
+from dynamo_tpu_torch.guided.json_schema import (
+    GENERIC_JSON,
+    schema_to_regex,
+    tool_call_regex,
+)
+from dynamo_tpu_torch.guided.regex_dfa import escape
 
 _TOOLS_PREAMBLE = (
     "system: You may call tools. Available tools: {}\n"
@@ -68,26 +75,6 @@ def render_default_chat(messages: List[Dict[str, Any]],
         parts.append("\n")
     parts.append("assistant:")
     return "".join(parts)
-
-
-def _guided_feature(req: Dict[str, Any],
-                    tools: Optional[List[Dict[str, Any]]]) -> Optional[str]:
-    """The request field that the reference compiles into a guided
-    decoding constraint, or None."""
-    tc = req.get("tool_choice")
-    if tools and (tc == "required" or (
-            isinstance(tc, dict) and (tc.get("function") or {}).get("name"))):
-        return "tool_choice"
-    kind = (req.get("response_format") or {}).get("type")
-    if kind in ("json_object", "json_schema", "structural_tag"):
-        return f"response_format {kind}"
-    if req.get("guided_regex"):
-        return "guided_regex"
-    if req.get("guided_json") is not None:
-        return "guided_json"
-    if req.get("guided_choice"):
-        return "guided_choice"
-    return None
 
 
 class Preprocessor:
@@ -221,14 +208,54 @@ class Preprocessor:
         sampling = self._sampling(req)
         logit_bias = self._logit_bias(req)
         stop = self._stop(req, len(ids))
-        feature = _guided_feature(req, tools)
-        if feature is not None:
-            raise ValueError(f"{feature} needs guided decoding, which the port "
-                             "has not ported yet (A.4)")
         return make_preprocessed_request(
             model=req.get("model", self.card.name), token_ids=ids,
             sampling=sampling, stop=stop, annotations=annotations,
-            logit_bias=logit_bias)
+            logit_bias=logit_bias, guided=self._guided(req, tools))
+
+    def _guided(self, req: Dict[str, Any],
+                tools: Optional[List[Dict[str, Any]]]) -> Optional[Dict[str, Any]]:
+        """The OpenAI constraint surfaces as the wire spec: tool_choice
+        "required" or {"function": {"name": ...}} as the tool-call regex
+        over the declared tools; response_format json_object, json_schema
+        or structural_tag; the guided_regex / guided_json / guided_choice
+        extensions."""
+        tc = req.get("tool_choice")
+        if tools and tc == "required":
+            return {"kind": "regex", "pattern": tool_call_regex(tools)}
+        if tools and isinstance(tc, dict):
+            name = (tc.get("function") or {}).get("name")
+            if name:
+                return {"kind": "regex", "pattern": tool_call_regex(tools, name=name)}
+        rf = req.get("response_format") or {}
+        kind = rf.get("type")
+        if kind == "json_object":
+            return {"kind": "regex", "pattern": GENERIC_JSON}
+        if kind == "json_schema":
+            schema = (rf.get("json_schema") or {}).get("schema", rf.get("schema"))
+            if schema is None:
+                raise ValueError("response_format.json_schema needs a schema")
+            return {"kind": "regex", "pattern": schema_to_regex(schema)}
+        if kind == "structural_tag":
+            structures = [
+                {"begin": st.get("begin", ""), "end": st.get("end", ""),
+                 "pattern": (schema_to_regex(st["schema"])
+                             if st.get("schema") is not None
+                             else st.get("pattern", GENERIC_JSON))}
+                for st in rf.get("structures") or []]
+            return {"kind": "structural", "triggers": rf.get("triggers") or [],
+                    "structures": structures}
+        if req.get("guided_regex"):
+            return {"kind": "regex", "pattern": req["guided_regex"]}
+        if req.get("guided_json") is not None:
+            schema = req["guided_json"]
+            if isinstance(schema, str):
+                schema = json.loads(schema)
+            return {"kind": "regex", "pattern": schema_to_regex(schema)}
+        if req.get("guided_choice"):
+            return {"kind": "regex", "pattern": "(" + "|".join(
+                escape(str(c)) for c in req["guided_choice"]) + ")"}
+        return None
 
     def _logit_bias(self, req: Dict[str, Any]):
         """OpenAI logit_bias {token_id_str: bias} → [[id, bias], ...]: ids

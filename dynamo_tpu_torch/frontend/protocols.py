@@ -63,6 +63,7 @@ def make_preprocessed_request(
     stop: StopConditions,
     annotations: Optional[Dict[str, Any]] = None,
     logit_bias: Optional[List] = None,
+    guided: Optional[Dict[str, Any]] = None,
 ) -> Dict[str, Any]:
     out = {
         "model": model,
@@ -74,4 +75,8 @@ def make_preprocessed_request(
     if logit_bias:
         # [[token_id, bias], ...]: additive sampling bias (OpenAI logit_bias)
         out["logit_bias"] = logit_bias
+    if guided:
+        # the constraint spec the worker lifts to token masks
+        # (dynamo_tpu_torch/guided): {"kind": "regex"|"structural", ...}
+        out["guided"] = guided
     return out

@@ -16,7 +16,8 @@ zero-centred norms, GeGLU, Gemma-2's post-attention and post-FFN norms,
 each layer's sliding window (a Python int per layer, toolkit.layer_window;
 Mistral and Phi-3 slide on every layer) with the score scale and soft cap
 on every attention route, and the final-logit soft cap; Gemma-3's second
-RoPE base on its sliding layers (toolkit.layer_rope). MoE layers
+RoPE base on its sliding layers (toolkit.layer_rope). `encode` is the
+reference's embedding forward. MoE layers
 (Mixtral, Qwen3-MoE, DeepSeek) run models/moe.py's block in place of the
 dense FFN, as the reference's `use_moe` layers do; a config with
 `n_dense_layers` keeps its leading dense-FFN layers in a second stack
@@ -67,6 +68,7 @@ from dynamo_tpu_torch.models.toolkit import (
     pool_layer,
     pool_values,
     rms_norm,
+    rope,
     rope_tables,
     write_kv,
 )
@@ -470,3 +472,65 @@ def forward(
         cap = c.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)
     return logits
+
+
+def encode(config: ModelConfig, params: Params, tokens: torch.Tensor,
+           lengths: torch.Tensor) -> torch.Tensor:
+    """The embedding forward (the reference's `encode`): tokens [B, S],
+    real lengths [B] (the padding masked), dense causal self-attention
+    with no KV pool, a masked mean pool of the final-norm hidden states,
+    L2-normalized -> [B, E] f32. Plain PyTorch, as the reference's plain
+    jnp; matrix products go through models/quant.py `mm`, as the
+    forward's do. MLA, mixed dense/MoE and Gemma-family configs are
+    refused, as there."""
+    c = config
+    if c.is_mla:
+        raise ValueError("embedding forward is not supported for MLA models")
+    if c.n_dense_layers:
+        raise ValueError(
+            "embedding forward is not supported for mixed dense/MoE models")
+    if (c.post_norms or c.norm_zero_centered or c.embed_scale
+            or c.attn_logit_softcap or c.sliding_window
+            or c.query_pre_attn_scalar or c.act != "silu"):
+        raise ValueError(
+            "embedding forward is not supported for Gemma-family configs")
+    B, S = tokens.shape
+    hd = c.head_dim
+    G = c.n_heads // c.n_kv_heads
+    dev = tokens.device
+    positions = torch.arange(S, device=dev)[None, :].expand(B, S)
+    ti = torch.arange(S, device=dev)
+    lengths = lengths.long()
+    # [B, 1, 1, S, S]: causal and inside the row's length
+    mask = ((ti[None, :] <= ti[:, None])[None, None, None]
+            & (ti[None, :] < lengths[:, None])[:, None, None, None, :])
+    h = embed_lookup(params["embed"], tokens)
+    for l in range(c.n_layers):
+        lp, use_moe = layer_params(c, params, l)
+        x = rms_norm(h, lp["attn_norm"], c.norm_eps)
+        q, k, v = mm(x, lp["wq"]), mm(x, lp["wk"]), mm(x, lp["wv"])
+        if c.attn_bias:
+            q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
+        q = q.view(B, S, c.n_heads, hd)
+        k = k.view(B, S, c.n_kv_heads, hd)
+        v = v.view(B, S, c.n_kv_heads, hd)
+        if c.qk_norm:
+            q = rms_norm(q, lp["q_norm"], c.norm_eps)
+            k = rms_norm(k, lp["k_norm"], c.norm_eps)
+        q = rope(q, positions, c.rope_theta, config=c)
+        k = rope(k, positions, c.rope_theta, config=c)
+        qg = q.view(B, S, c.n_kv_heads, G, hd)
+        scores = torch.einsum("bskgd,btkd->bkgst", qg, k).float() * hd ** -0.5
+        probs = torch.softmax(torch.where(mask, scores, -1e30), dim=-1).to(h.dtype)
+        attn = torch.einsum("bkgst,btkd->bskgd", probs, v).reshape(
+            B, S, c.n_heads * hd)
+        h = h + mm(attn, lp["wo"])
+        x = rms_norm(h, lp["mlp_norm"], c.norm_eps)
+        if use_moe:
+            h = h + moe_block(c, lp, x)
+        else:
+            h = h + mm(F.silu(mm(x, lp["w_gate"])) * mm(x, lp["w_up"]), lp["w_down"])
+    h = rms_norm(h, params["norm_f"], c.norm_eps).float()
+    valid = (ti[None, :] < lengths[:, None]).float()
+    pooled = (h * valid[..., None]).sum(1) / valid.sum(1).clamp(min=1)[:, None]
+    return pooled / torch.linalg.norm(pooled, dim=-1, keepdim=True).clamp(min=1e-9)

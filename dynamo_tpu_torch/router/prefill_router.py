@@ -111,6 +111,10 @@ class PrefillRouter:
         # decode continuation: prompt += first token, budget -= 1
         dreq = dict(request)
         dreq["token_ids"] = list(token_ids) + [int(first_token)]
+        if request.get("guided"):
+            # the prefill worker sampled first_token under the constraint:
+            # the decode worker replays it through its own DFA copy
+            dreq["guided_advanced"] = 1
         if max_tokens is not None:
             stop["max_tokens"] = int(max_tokens) - 1
         if int(stop.get("min_tokens") or 0) >= 1:

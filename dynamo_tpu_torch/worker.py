@@ -142,6 +142,7 @@ def build_engine(args, runner=None) -> InferenceEngine:
         spec_max_tokens=args.spec_max_tokens,
         host_kv_blocks=args.host_kv_blocks,
         onboard_layer_groups=args.onboard_layer_groups,
+        tokenizer_spec=args.tokenizer,
     )
 
 

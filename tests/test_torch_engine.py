@@ -193,9 +193,9 @@ def test_filtered_probs_match_jax():
 
 async def test_unsupported_requests_are_refused(engines):
     _, teng = engines
-    for req in (dict(_req([1, 2, 3]), guided={"regex": "a"}),
-                _req([1, 2, 3], logprobs=2),
-                _req([1, 2, 3], n=2)):
+    for req in (dict(_req([1, 2, 3]), guided={"regex": "a"}),  # no "kind"
+                dict(_req([1, 2, 3]), adapter="lora-a"),
+                dict(_req([1, 2, 3]), kv_remote_host={"hashes": [1]})):
         toks, finish = await _collect(teng, req, Context)
         assert finish == "error" and toks == []
     # a prompt past the KV capacity (16 pages x 4 tokens) is refused too

@@ -17,8 +17,9 @@ the reference's own modules, on the CPU:
   for requests covering temperature, stop, max_tokens,
   max_completion_tokens, stop_token_ids, ignore_eos, min_tokens, seed,
   logit_bias, logprobs and token-id prompts, and the same errors (over
-  context, invalid logit_bias); what the port does not serve yet is
-  refused (guided decoding, images, a card's own chat template, a
+  context, invalid logit_bias) and the same guided specs (tool_choice
+  required or named, response_format, guided_*); what the port does not
+  serve yet is refused (images, a card's own chat template, a
   tokenizer.json);
 - the HTTP/1.1 framing: keep-alive, chunked request bodies,
   `Expect: 100-continue`, 404 / 405, malformed requests.
@@ -334,8 +335,13 @@ def test_preprocess_errors_equal_reference(req):
     {"guided_regex": "a+"}, {"guided_json": {"type": "object"}}, {"guided_choice": ["x"]},
 ])
 def test_guided_requests_are_refused_naming_a4(req):
-    with pytest.raises(ValueError, match=r"guided decoding.*\(A\.4\)"):
-        Preprocessor(_card()).preprocess_chat({"messages": CHAT, **req})
+    """Guided decoding is served since it was ported (A.4): the requests
+    once refused here now preprocess to the reference's request, with
+    its guided spec."""
+    chat = {"messages": CHAT, **req}
+    got = Preprocessor(_card()).preprocess_chat(chat)
+    assert got == RefPreprocessor(_ref_card()).preprocess_chat(chat)
+    assert got["guided"]["kind"] == "regex"
 
 
 def test_images_cards_and_templates_refused():

@@ -212,3 +212,155 @@ def test_port_frontend_same_answer_from_either_worker(answers, name):
 
     status, body = _body(answers["port"][name, "tiny-jax"])
     assert (status, rename(body)) == _body(answers["port"][name, "tiny-port"])
+
+
+# -- the sampling extras behind both frontends (a 512-token context) ---------
+
+LONG_GEOMETRY = dict(num_pages=512, page_size=PS, max_pages_per_seq=128,
+                     decode_buckets=(1, 2, 4, 8), prefill_buckets=(8, 16, 32, 64, 128, 256))
+LONG_MODELS = ("tiny-port-long", "tiny-jax-long")
+SCHEMA = {"type": "object", "properties": {"ok": {"type": "boolean"},
+                                           "n": {"enum": [1, 2, 3]}},
+          "required": ["ok", "n"], "additionalProperties": False}
+TOOLS = [{"type": "function", "function": {"name": "set_unit", "parameters": {
+    "type": "object", "properties": {"unit": {"enum": ["c", "f"]}},
+    "required": ["unit"], "additionalProperties": False}}}]
+JSON_FORMAT = {"type": "json_schema", "json_schema": {"name": "r", "schema": SCHEMA}}
+LONG_REQUESTS = {
+    "chat_json_schema": {"messages": CHAT, "max_tokens": 40, "temperature": 0,
+                         "response_format": JSON_FORMAT},
+    "chat_json_stream": {"messages": CHAT, "max_tokens": 40, "temperature": 0,
+                         "response_format": JSON_FORMAT, "stream": True},
+    "chat_tools_required": {"messages": CHAT, "tools": TOOLS, "tool_choice": "required",
+                            "max_tokens": 120, "temperature": 0},
+    "chat_tools_named_stream": {"messages": CHAT, "tools": TOOLS, "stream": True,
+                                "tool_choice": {"type": "function",
+                                                "function": {"name": "set_unit"}},
+                                "max_tokens": 120, "temperature": 0},
+    "completion_logprobs": {"prompt": "hello", "max_tokens": 5, "temperature": 0,
+                            "logprobs": 3},
+    "completion_logprobs_stream": {"prompt": "hello", "max_tokens": 5, "temperature": 0,
+                                   "logprobs": 2, "stream": True},
+    "chat_logprobs": {"messages": CHAT, "max_tokens": 4, "temperature": 0,
+                      "logprobs": True, "top_logprobs": 2},
+    "chat_logprobs_stream": {"messages": CHAT, "max_tokens": 4, "temperature": 0,
+                             "logprobs": True, "top_logprobs": 3, "stream": True},
+    "guided_choice": {"prompt": "pick", "max_tokens": 10, "temperature": 0,
+                      "guided_choice": ["red", "green", "blue"]},
+    "penalties_bias": {"prompt": "aaaa", "max_tokens": 6, "temperature": 0,
+                       "repetition_penalty": 1.5, "frequency_penalty": 0.5,
+                       "logit_bias": {"98": 100}},
+}
+EMBED_INPUTS = ["hello", "a b c", [5, 6, 7, 300]]
+
+
+@pytest.fixture(scope="module")
+def long_answers(tmp_path_factory):
+    """Every request of LONG_REQUESTS and an embeddings request through
+    both frontends for both long-context models."""
+    root = str(tmp_path_factory.mktemp("discovery-long"))
+    jparams = jax.device_get(jllama.init_params(
+        jax_get_config("tiny"), jax.random.PRNGKey(7), jnp.float32))
+
+    async def scenario():
+        cfg = get_config("tiny")
+        port_rt = DistributedRuntime(discovery=FileDiscovery(root, poll_interval=0.05))
+        eng = InferenceEngine(ModelRunner(
+            cfg, device="cpu", dtype=torch.float32,
+            params=params_from_numpy(jparams, cfg, "cpu", torch.float32), **LONG_GEOMETRY),
+            max_batch=4, chunk_size=64)
+        port_w = await serve_worker(port_rt, eng, ModelCard(
+            name="tiny-port-long", context_length=512, kv_block_size=PS))
+        ref_rt = RefRuntime(discovery=RefFileDiscovery(root, poll_interval=0.05),
+                            event_transport="inproc")
+        jeng = JaxEngine(JaxRunner(jax_get_config("tiny"), params=jparams,
+                                   dtype=jnp.float32, **LONG_GEOMETRY),
+                         max_batch=4, chunk_size=64)
+        ref_w = await ref_serve_worker(
+            ref_rt, jeng, RefModelCard(name="tiny-jax-long", context_length=512,
+                                       kv_block_size=PS),
+            component="jax-worker", digest_period_s=0)
+        port_front = DistributedRuntime(discovery=FileDiscovery(root, poll_interval=0.05))
+        ref_front = RefRuntime(discovery=RefFileDiscovery(root, poll_interval=0.05),
+                               event_transport="inproc")
+        port_svc, ref_svc = HttpService(port_front, port=0), RefHttpService(ref_front, port=0)
+        out = {"port": {}, "ref": {}}
+        try:
+            await port_svc.start()
+            await ref_svc.start()
+
+            async def both_models():
+                while not all(set(LONG_MODELS) <= set(s.manager.list_models())
+                              for s in (port_svc, ref_svc)):
+                    await asyncio.sleep(0.05)
+
+            await asyncio.wait_for(both_models(), T)
+            for model in LONG_MODELS:
+                for which, svc in (("ref", ref_svc), ("port", port_svc)):
+                    for name, body in LONG_REQUESTS.items():
+                        path = ("/v1/chat/completions" if "messages" in body
+                                else "/v1/completions")
+                        out[which][name, model] = await asyncio.to_thread(
+                            _request, svc.port, "POST", path, dict(body, model=model))
+                    out[which]["embeddings", model] = await asyncio.to_thread(
+                        _request, svc.port, "POST", "/v1/embeddings",
+                        {"model": model, "input": EMBED_INPUTS})
+        finally:
+            await port_svc.stop()
+            await ref_svc.stop()
+            await port_front.shutdown(drain_timeout=1)
+            await ref_front.shutdown(drain_timeout=1)
+            await port_rt.shutdown(drain_timeout=1)
+            await port_w.stop()
+            await ref_rt.shutdown(drain_timeout=1)
+            await ref_w.stop()
+        return out
+
+    return asyncio.run(asyncio.wait_for(scenario(), 6 * T))
+
+
+def _close(got, want, path="$"):
+    """Equal JSON values, floats within 1e-4 and the values of "id" keys
+    (a tool call's random id) ignored."""
+    if isinstance(want, float) or isinstance(got, float):
+        assert abs(got - want) <= 1e-4, (path, got, want)
+    elif isinstance(want, dict):
+        assert isinstance(got, dict) and got.keys() == want.keys(), (path, got, want)
+        for k in want:
+            if k != "id":
+                _close(got[k], want[k], f"{path}.{k}")
+    elif isinstance(want, (list, tuple)):
+        assert type(got) is type(want) and len(got) == len(want), (path, got, want)
+        for i, (g, w) in enumerate(zip(got, want)):
+            _close(g, w, f"{path}[{i}]")
+    else:
+        assert got == want, (path, got, want)
+
+
+@pytest.mark.parametrize("model", LONG_MODELS)
+@pytest.mark.parametrize("name", sorted(LONG_REQUESTS) + ["embeddings"])
+def test_port_frontend_extras_equal_reference(long_answers, name, model):
+    got = _body(long_answers["port"][name, model])
+    _close(got, _body(long_answers["ref"][name, model]))
+    assert got[0] == 200
+    status, body = got
+    if name == "embeddings":
+        assert [d["index"] for d in body["data"]] == [0, 1, 2]
+        for d in body["data"]:
+            assert abs(sum(v * v for v in d["embedding"]) - 1.0) < 1e-4
+    elif name == "chat_tools_required":
+        choice = body["choices"][0]
+        if choice["finish_reason"] == "tool_calls":
+            call = choice["message"]["tool_calls"][0]["function"]
+            assert call["name"] == "set_unit"
+            assert json.loads(call["arguments"])["unit"] in ("c", "f")
+    elif name == "completion_logprobs":
+        lp = body["choices"][0]["logprobs"]
+        assert len(lp["tokens"]) == body["usage"]["completion_tokens"]
+        assert all(v <= 0 for v in lp["token_logprobs"])
+    elif name == "guided_choice":
+        assert body["choices"][0]["text"] in ("red", "green", "blue")
+    elif name == "chat_json_schema":
+        choice = body["choices"][0]
+        if choice["finish_reason"] == "stop":
+            assert set(json.loads(choice["message"]["content"])) == {"ok", "n"}

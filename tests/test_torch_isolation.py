@@ -1,8 +1,9 @@
-"""The port stands alone: dynamo_tpu_torch (the frontend's main
-included), chip_smoke.py, scripts/torch_profile.py,
+"""The port stands alone: dynamo_tpu_torch (the frontend's main, its
+tool-call parser and the guided decoding copies included), chip_smoke.py, scripts/torch_profile.py,
 scripts/mla_prefill_variants.py,
-scripts/int8_body_variants.py, scripts/engine_ab.py and
-scripts/quant_gemm_variants.py import neither JAX nor anything of the
+scripts/int8_body_variants.py, scripts/engine_ab.py,
+scripts/quant_gemm_variants.py and scripts/extras_profile.py import
+neither JAX nor anything of the
 dynamo_tpu package, nor ml_dtypes, msgpack, zmq, aiohttp, jinja2,
 tokenizers or prometheus_client (the machine with the card has none of
 them; the request plane frames with runtime/codec.py instead of msgpack,
@@ -62,7 +63,10 @@ def test_every_module_imports_without_jax_or_dynamo_tpu():
               "router.scheduling", "router.queue", "router.indexer",
               "router.kv_router", "frontend.tokenizer", "frontend.preprocessor",
               "frontend.backend", "frontend.migration", "frontend.request_trace",
-              "frontend.service", "frontend.http", "frontend.__main__"):
+              "frontend.service", "frontend.http", "frontend.__main__",
+              "frontend.tool_calls", "guided", "guided.regex_dfa",
+              "guided.json_schema", "guided.structural", "guided.token_mask",
+              "guided.device_table"):
         assert f"dynamo_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -82,7 +86,7 @@ def test_no_source_file_imports_jax_or_dynamo_tpu():
         ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile.py",
         ROOT / "scripts" / "mla_prefill_variants.py",
         ROOT / "scripts" / "int8_body_variants.py", ROOT / "scripts" / "engine_ab.py",
-        ROOT / "scripts" / "quant_gemm_variants.py"]
+        ROOT / "scripts" / "quant_gemm_variants.py", ROOT / "scripts" / "extras_profile.py"]
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
