@@ -97,8 +97,29 @@ Phases, each printing one JSON line:
                ragged kernel; the main path), `unfused` (DYN_FUSED_MIXED=0:
                decode, then each chunk on the prefill kernel) and `spec`
                (--spec-ngram, K 4, prompts that repeat n-grams: verify rows
-               on the ragged kernel). Each kernel's launches must equal its
-               forward passes (runner.stats) x 28 layers;
+               on the ragged kernel; drafts from the host scan).
+               Each kernel's launches must equal its forward passes
+               (runner.stats) x 28 layers;
+     spec    - speculative decoding on the 3B (before `engine`, the
+               `verify_shape` case: the prefill kernel at B 8 rows of
+               gamma + 1 = 5 tokens over the traffic's contexts, against
+               its plain version, timed beside its bound and SDPA; a
+               `variants` entry of prefill_paged_attention in the kernels
+               line). `engine_draft_ring`: the spec workload with drafts
+               from the device ring, each proposal held against the host
+               scan of the ring's window after the run, streams identical
+               to engine_spec's;
+               `engine_tree`: --spec-ngram with 3 branches on the fused
+               engine (branch rows verified on the ragged kernel, no page
+               held after the run); `engine_draft`: a llama-3.2-1b draft
+               (random, seed 1), gamma 4, two rounds a plan, unfused: the
+               decode kernel's launches = target steps x 28 + draft steps
+               x 16 (its D64 body), the prefill kernel's = (chunks + verify
+               passes) x 28 + draft chunks x 16, no ragged launch, a
+               sampled request equal served alone twice; acceptance,
+               tokens a target pass and the decode rate reported;
+               `engine_draft_self`: the 3B drafting for itself, acceptance
+               >= SELF_DRAFT_ACCEPT;
      disagg  - (`engine_disagg`) a prefill and a decode engine on the card,
                one shared params dict, 1024 pages each, each served by
                serve_worker over the in-process request plane, behind a
@@ -343,7 +364,8 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from dynamo_tpu_torch.engine.model_runner import ModelRunner
+from dynamo_tpu_torch.engine.model_runner import DRAFT_RING_WINDOW, ModelRunner
+from dynamo_tpu_torch.engine.ngram_draft import propose as ngram_propose
 from dynamo_tpu_torch.models.config import get_config
 from dynamo_tpu_torch.models.quant import (
     dequantize_weight,
@@ -455,6 +477,7 @@ def free(*runners):
     """Drop the runners' pools and params and return their memory."""
     for r in runners:
         r.k_pool = r.v_pool = r.params = None
+        r.draft_k_pool = r.draft_v_pool = r.draft_params = None
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1570,7 +1593,8 @@ def serve(engine, seed: int, spec: bool = False, extra=()):
 
 def check_launches(phase: str, launches, stats, L: int, mla: bool = False,
                    int8: bool = False, moe_layers: int = 0,
-                   copies: bool = False, quant_per_pass: int = 0) -> None:
+                   copies: bool = False, quant_per_pass: int = 0,
+                   draft_L: int = 0) -> None:
     """Each kernel launched once per layer of each forward pass of its
     kind, and nowhere else (an MLA model launches no GQA kernel and the
     other way round; an int8 latent's prefill gathers, as the reference's
@@ -1578,23 +1602,29 @@ def check_launches(phase: str, launches, stats, L: int, mla: bool = False,
     once per MoE layer (runner.moe_layers) of every pass, and never for a
     dense model; the weight-only GEMM `quant_per_pass` times a pass (its
     quantized matrices: quant_launches_per_pass), never over bf16
-    weights."""
+    weights. A draft model (`draft_L` layers) adds its S = 1 steps to the
+    decode kernel and its prefill chunks to the prefill kernel; the
+    target's verify passes (S = gamma + 1) run the prefill kernel."""
     prefill = stats["prefill_chunks"] + stats["padded_prefill_dispatches"]
     ragged = stats["ragged_mixed_dispatches"] + stats["ragged_verify_dispatches"]
+    verify = stats["spec_verify_passes"]
     if mla:
-        want = {"prefill_mla_attention": 0 if int8 else prefill,
-                "decode_mla_attention": stats["decode_steps"]}
+        want = {"prefill_mla_attention": 0 if int8 else prefill * L,
+                "decode_mla_attention": stats["decode_steps"] * L}
         want.update({name: 0 for name in GQA_KERNELS})
         check(ragged == 0, f"{phase}: an MLA model ran ragged passes: {stats}")
     else:
-        want = {"prefill_paged_attention": prefill,
-                "decode_paged_attention": stats["decode_steps"],
-                "ragged_paged_attention": ragged}
+        want = {"prefill_paged_attention": (prefill + verify) * L
+                + stats["draft_prefill_chunks"] * draft_L,
+                "decode_paged_attention": stats["decode_steps"] * L
+                + stats["draft_steps"] * draft_L,
+                "ragged_paged_attention": ragged * L}
         want.update({name: 0 for name in MLA_KERNELS})
     for name, n in want.items():
-        check(launches[name] == n * L,
-              f"{phase}: {name} launches {launches[name]} != {n} passes x {L}")
-    passes = prefill + stats["decode_steps"] + ragged
+        check(launches[name] == n,
+              f"{phase}: {name} launches {launches[name]} != {n} ({L} layers, draft "
+              f"{draft_L}; {stats})")
+    passes = prefill + stats["decode_steps"] + ragged + verify
     for name in MOE_KERNELS:
         check(launches[name] == passes * moe_layers,
               f"{phase}: {name} launches {launches[name]} != {passes} passes x "
@@ -1634,21 +1664,26 @@ def quant_launches_per_pass(runner):
 
 
 def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
-                 build_s: float = None, base_args=ENGINE_ARGS, extra=()):
+                 build_s: float = None, base_args=ENGINE_ARGS, extra=(),
+                 engine_kw=None, probe=None):
     """Serve the workload on a fresh engine over `runner`, with every
     launch count and runner.stats set to 0 just before and read just
     after. fused=None keeps the engine's default (fused on a card);
-    `extra` adds prompts to the workload."""
+    `extra` adds prompts to the workload; `engine_kw` sets engine
+    arguments no flag carries; `probe(engine)` runs before the workload
+    (a phase's instrumentation)."""
     args = base_args + (["--spec-ngram", "--spec-k", "4"] if spec else [])
     saved = os.environ.pop("DYN_FUSED_MIXED", None)
     if fused is not None:
         os.environ["DYN_FUSED_MIXED"] = "1" if fused else "0"
     try:
-        engine = build_engine(parse_args(args), runner=runner)
+        engine = build_engine(parse_args(args), runner=runner, **(engine_kw or {}))
     finally:
         os.environ.pop("DYN_FUSED_MIXED", None)
         if saved is not None:
             os.environ["DYN_FUSED_MIXED"] = saved
+    if probe is not None:
+        probe(engine)
     V = runner.config.vocab_size
     L = runner.config.n_layers
     torch.cuda.synchronize()
@@ -1672,16 +1707,18 @@ def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
               f"{phase}: r{i} emitted {len(toks)} tokens, wanted {N_OUT}")
         check(all(0 <= t < V for t in toks),
               f"{phase}: r{i} emitted a token out of range")
-    check(stats["prefill_chunks"] > 0 and stats["decode_steps"] > 0,
+    check(stats["prefill_chunks"] > 0
+          and stats["decode_steps"] + stats["spec_verify_passes"] > 0,
           f"{phase}: engine ran no prefill or no decode: {stats}")
     per_pass = quant_launches_per_pass(runner)
     check_launches(phase, launches, stats, L, mla=runner.config.is_mla,
                    int8=runner.kv_quantize is not None,
                    moe_layers=runner.moe_layers,
-                   quant_per_pass=sum(per_pass.values()))
+                   quant_per_pass=sum(per_pass.values()),
+                   draft_L=runner.draft_config.n_layers if runner.has_draft else 0)
     passes = (stats["prefill_chunks"] + stats["padded_prefill_dispatches"]
               + stats["decode_steps"] + stats["ragged_mixed_dispatches"]
-              + stats["ragged_verify_dispatches"])
+              + stats["ragged_verify_dispatches"] + stats["spec_verify_passes"])
     quant_bodies = dict(qg.quant_matmul.bodies)
     check(quant_bodies == {b: passes * n for b, n in per_pass.items() if n},
           f"{phase}: quant_gemm bodies {quant_bodies}, {passes} passes x {per_pass}")
@@ -1711,7 +1748,7 @@ def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
     }
     if build_s is not None:
         rec["build_s"] = build_s
-    if spec:
+    if spec or runner.has_draft:
         rec["spec_stats"] = dict(engine.spec_stats)
         rec["acceptance_rate"] = (engine.spec_stats["accepted"]
                                   / max(1, engine.spec_stats["drafted"]))
@@ -1784,12 +1821,252 @@ def engine_phases(dev):
         "token_agreement": sum(pos) / max(1, len(pos))}
     emit(rec)
 
-    rec, _, _ = engine_phase(runner, "spec", spec=True)
+    rec, _, spec = engine_phase(runner, "spec", spec=True)
     st = rec["stats"]
     check(rec["spec_stats"]["drafted"] > 0 and st["ragged_verify_dispatches"] > 0,
           f"spec: nothing was drafted or verified: {rec['spec_stats']}, {st}")
+    check(st["draft_ring_steps"] == 0,
+          f"spec: the default drafted from the device ring: {st}")
     emit(rec)
-    return runner, launches, fused_bodies, fused_rec
+    return runner, launches, fused_bodies, fused_rec, {"unfused": unfused, "spec": spec}
+
+
+def ring_probe(proposals):
+    """engine_phase's probe of the device draft ring: inside the timed
+    window it only records each proposal with its row's token list and
+    length (check_ring compares them after the window)."""
+    def install(engine):
+        device_draft = engine._device_draft
+
+        def recorded(seqs):
+            out = device_draft(seqs)
+            proposals.extend((out[s.request_id], s.tokens, len(s.tokens))
+                             for s in seqs)
+            return out
+
+        engine._device_draft = recorded
+    return install
+
+
+def check_ring(proposals, k):
+    """Each recorded ring proposal against ngram_propose over the history
+    the ring held (the last DRAFT_RING_WINDOW tokens: they must be equal)
+    and over the whole history (counted; they differ only where the
+    window cuts)."""
+    ring = {"rows": len(proposals), "window_mismatches": 0, "host_mismatches": 0}
+    for draft, tokens, n in proposals:
+        hist = tokens[:n]
+        ring["window_mismatches"] += draft != ngram_propose(hist[-DRAFT_RING_WINDOW:], k)
+        ring["host_mismatches"] += draft != ngram_propose(hist, k)
+    return ring
+
+
+def draft_ring_phase(runner, streams):
+    """`engine_draft_ring`: the spec phase's workload with linear drafts
+    from the device ring (spec_device_draft) against engine_spec's host
+    scan: every ring proposal equals the host scan of the history the ring
+    holds (compared after the timed window), and where they all do the two
+    runs made the same dispatches, so their streams must be identical."""
+    proposals = []
+    rec, _, ring_streams = engine_phase(runner, "draft_ring", spec=True,
+                                        engine_kw={"spec_device_draft": True},
+                                        probe=ring_probe(proposals))
+    st = rec["stats"]
+    check(st["ragged_verify_dispatches"] > 0,
+          f"draft_ring: nothing was verified: {st}")
+    ring = check_ring(proposals, 4)
+    check(st["draft_ring_steps"] > 0 and ring["rows"] > 0,
+          f"draft_ring: the device ring proposed nothing: {ring}, {st}")
+    check(ring["window_mismatches"] == 0,
+          f"draft_ring: ring proposals differ from the host scan of their window: {ring}")
+    rec["ring_proposals"] = ring
+    same = [a[0] == b[0] for a, b in zip(ring_streams, streams["spec"])]
+    rec["streams_identical_to_host_scan"] = sum(same)
+    rec["streams"] = len(same)
+    check(all(same), f"draft_ring: ring streams differ from the host scan's: {same}")
+    emit(rec)
+
+
+TREE_BRANCHES = 3
+
+
+def tree_phase(runner):
+    """`engine_tree`: --spec-ngram with spec_branches 3 on the fused engine
+    (the spec workload; drafts from the host scan, each extra branch a
+    verify row on a forked page table). Holds: branch rows verified on
+    the ragged kernel, and every page back in the pool after the run (no
+    table holds a page: no fork leaked)."""
+    held = {}
+    rec, _, _ = engine_phase(runner, "tree", spec=True,
+                             engine_kw={"spec_branches": TREE_BRANCHES},
+                             probe=lambda e: held.update(engine=e))
+    st, sp = rec["stats"], rec["spec_stats"]
+    pool = held["engine"].pool
+    check(rec["fused_mixed"] and st["ragged_verify_dispatches"] > 0,
+          f"tree: the verify did not ride the fused ragged step: {st}")
+    check(sp["tree_rows"] > 0, f"tree: no branch row was verified: {sp}")
+    check(not pool.ref and pool.n_free == runner.num_pages,
+          f"tree: pages held after the run ({len(pool.ref)} referenced, "
+          f"{pool.n_free} of {runner.num_pages} free)")
+    rec.update(pool_free_after=pool.n_free, forks=pool.forks)
+    emit(rec)
+
+
+# draft-model speculation on the 3B: llama-3.2-1b drafts (the public pair:
+# both Llama-3, the 128256-token vocabulary), gamma 4, decode plans of two
+# rounds (the engine's default 4 steps would shrink gamma to 3)
+DRAFT_MODEL = "llama-3.2-1b"
+DRAFT_GAMMA = 4
+DRAFT_ENGINE = {"decode_steps": 2 * (DRAFT_GAMMA + 1)}
+# the verify pass's shape on the prefill kernel: the 3B's B 8 rows of
+# gamma + 1 tokens over its traffic's contexts (the 8 prompts)
+VERIFY_CONTEXTS = (17, 64, 300, 700, 1100, 1500, 406, 656)
+# drafts a self-draft must have accepted: bf16 near-ties between the
+# decode kernel (drafting) and the prefill kernel (verifying) reject a few
+SELF_DRAFT_ACCEPT = 0.8
+
+
+def _draft_turn(runner, phase, draft, draft_params, fused_rec):
+    """engine_phase on a draft runner over the 3B's params: the launch
+    identities (check_launches, and by body: the draft's steps and
+    prefill chunks on its head dim's bodies), no fused plan, no ragged
+    launch, a draft prefill per target chunk; acceptance, tokens a
+    target pass and the decode rate beside engine_fused's reported."""
+    args = ENGINE_ARGS + ["--draft-model", draft, "--spec-gamma", str(DRAFT_GAMMA)]
+    t0 = time.monotonic()
+    drunner, _ = build_runner(parse_args(args), params=runner.params,
+                              draft_params=draft_params)
+    torch.cuda.synchronize()
+    rec, launches, results = engine_phase(drunner, phase, base_args=args,
+                                          build_s=time.monotonic() - t0,
+                                          engine_kw=DRAFT_ENGINE)
+    st, sp = rec["stats"], rec["spec_stats"]
+    L, dL = drunner.config.n_layers, drunner.draft_config.n_layers
+    dD, D = f"D{drunner.draft_config.head_dim}", f"D{drunner.config.head_dim}"
+    check(not rec["fused_mixed"], f"{phase}: a draft runner's engine fused")
+    check(launches["ragged_paged_attention"] == 0, f"{phase}: the ragged kernel ran")
+    check(st["spec_verify_passes"] > 0 and st["draft_steps"] > 0,
+          f"{phase}: no speculative round ran: {st}")
+    check(st["draft_prefill_chunks"] == st["prefill_chunks"],
+          f"{phase}: draft prefill chunks != target chunks: {st}")
+    want = {}
+    for body, n in ((D, st["decode_steps"] * L), (dD, st["draft_steps"] * dL)):
+        if n:
+            want[body] = want.get(body, 0) + n
+    check(rec["bodies"]["decode_paged_attention"] == want,
+          f"{phase}: decode bodies {rec['bodies']['decode_paged_attention']} != {want}")
+    want = {}
+    for body, n in ((D, (st["prefill_chunks"] + st["spec_verify_passes"]) * L),
+                    (dD, st["draft_prefill_chunks"] * dL)):
+        if n:
+            want[body] = want.get(body, 0) + n
+    check(rec["bodies"]["prefill_paged_attention"] == want,
+          f"{phase}: prefill bodies {rec['bodies']['prefill_paged_attention']} != {want}")
+    rec["draft_model"] = drunner.draft_config.name
+    rec["gamma"] = DRAFT_GAMMA
+    rec["tokens_per_target_pass"] = sp["spec_emitted"] / max(1, sp["verify_rows"])
+    rec["decode_tok_s_per_request_median_fused"] = fused_rec[
+        "decode_tok_s_per_request_median"]
+    return drunner, rec, results
+
+
+def draft_phases(runner, streams, fused_rec):
+    """`engine_draft` (a llama-3.2-1b draft, random weights from seed 1:
+    acceptance reported) and `engine_draft_self` (the 3B drafting for
+    itself: acceptance gated at SELF_DRAFT_ACCEPT, greedy agreement with
+    engine_unfused reported); in engine_draft a sampled request served
+    alone twice must stream the same tokens. Each draft runner is freed
+    after its phase."""
+    drunner, rec, _ = _draft_turn(runner, "draft", DRAFT_MODEL, None, fused_rec)
+    reqs, _ = workload(runner.config.vocab_size, seed=1)
+    runs = []
+    for turn in range(2):
+        engine = build_engine(parse_args(ENGINE_ARGS), runner=drunner, **DRAFT_ENGINE)
+        try:
+            items = asyncio.run(asyncio.wait_for(
+                _items(engine, reqs[2], f"draft_sampled{turn}"), 300))
+        finally:
+            engine.stop()
+        runs.append([t for it in items for t in it["token_ids"]])
+    check(runs[0] == runs[1] and len(runs[0]) == N_OUT,
+          f"draft: a sampled request streamed differently twice: {runs}")
+    rec["sampled_twice_equal"] = True
+    emit(rec)
+    free(drunner)
+    del drunner
+    drunner, rec, results = _draft_turn(runner, "draft_self", MODEL, runner.params,
+                                        fused_rec)
+    check(rec["acceptance_rate"] >= SELF_DRAFT_ACCEPT,
+          f"draft_self: acceptance {rec['acceptance_rate']} < {SELF_DRAFT_ACCEPT}")
+    greedy = [i for i in range(len(results)) if i not in (2, 5)]
+    unfused = streams["unfused"]
+    pos = [a == b for i in greedy for a, b in zip(results[i][0], unfused[i][0])]
+    rec["greedy_agreement_with_unfused"] = {
+        "streams_identical": sum(results[i][0] == unfused[i][0] for i in greedy),
+        "streams": len(greedy), "token_agreement": sum(pos) / max(1, len(pos))}
+    emit(rec)
+    drunner.params = None  # the 3B's: not this runner's to free
+    drunner.draft_params = None
+    free(drunner)
+
+
+def verify_shape_phase(dev):
+    """prefill_paged_attention at the draft path's verify shape: B 8 rows of
+    S = gamma + 1 = 5 query tokens over the 3B traffic's contexts (Hk 8,
+    G 3, D 128, PS 16, bf16), against its plain version (KERNEL_TOL, and
+    in f32 row by row within ROW_REL_TOL), timed back to back and as graph
+    replays beside its bound, the plain version and SDPA over K/V gathered
+    dense beforehand."""
+    gen = torch.Generator(device="cpu").manual_seed(20)
+    Hk, G, D, PS = 8, 3, 128, 16
+    H, B, S = Hk * G, len(VERIFY_CONTEXTS), DRAFT_GAMMA + 1
+    kv_list = [c + S for c in VERIFY_CONTEXTS]
+    MP = -(-max(kv_list) // PS) + 1
+    NP = B * MP + 1
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).bfloat16().to(dev)
+
+    k_pool, v_pool, q = rnd(NP, PS, Hk, D), rnd(NP, PS, Hk, D), rnd(B, S, Hk, G, D)
+    pt = random_pages(gen, B, MP, NP, dev)
+    ints = [torch.tensor(x, dtype=torch.int32, device=dev)
+            for x in (list(VERIFY_CONTEXTS), [S] * B, kv_list)]
+    args = (q, k_pool, v_pool, pt, *ints)
+    out = prefill_paged_attention(*args)
+    torch.cuda.synchronize()
+    ref = prefill_paged_attention_ref(*args)
+    err = (out.float() - ref.float()).abs().max().item()
+    check(torch.isfinite(out.float()).all().item(), "verify shape: output not finite")
+    check(err <= KERNEL_TOL, f"verify shape: prefill max abs err {err} > {KERNEL_TOL}")
+    e_rel = row_rel_err(out, prefill_paged_attention_ref(*plain32(args[:3]), *args[3:]))
+    check(e_rel <= ROW_REL_TOL, f"verify shape: prefill row error {e_rel} > {ROW_REL_TOL}")
+    kq, vq = dense_kv(k_pool, pt, Hk, G), dense_kv(v_pool, pt, Hk, G)
+    qd = q.reshape(B, S, H, D).transpose(1, 2)
+    s_pos = ints[0][:, None] + torch.arange(S, device=dev)[None, :]  # [B, S]
+    c_pos = torch.arange(MP * PS, device=dev)
+    mask = (c_pos[None, None, :] <= s_pos[:, :, None])[:, None]
+    n_pairs = sum(c + s + 1 for c in VERIFY_CONTEXTS for s in range(S))
+    n_bytes = (2 * q.numel() * 2 + sum(kv_list) * Hk * D * 2 * 2
+               + sum(-(-k // PS) for k in kv_list) * 4 + 3 * B * 4)
+    bound_ms, bound_by = bound(n_bytes, 4 * n_pairs * H * D)
+
+    def kernel():
+        return prefill_paged_attention(*args)
+
+    def library():
+        return F.scaled_dot_product_attention(qd, kq, vq, attn_mask=mask,
+                                              scale=D ** -0.5)
+
+    rec = {"B": B, "S": S, "Hk": Hk, "G": G, "D": D, "PS": PS, "kv_lens": kv_list,
+           "q_block": 64 // G, "max_abs_err": err, "row_rel_err": e_rel,
+           "ms": cuda_ms(kernel), "device_ms": graph_ms(kernel),
+           "plain_ms": cuda_ms(lambda: prefill_paged_attention_ref(*args)),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": cuda_ms(library), "library_device_ms": graph_ms(library)}
+    emit({"phase": "verify_shape", **rec})
+    del k_pool, v_pool, kq, vq
+    torch.cuda.empty_cache()
+    return rec
 
 
 DISAGG_ARGS = ["--model", "llama-3.2-3b", "--num-pages", "1024",
@@ -5594,8 +5871,16 @@ def main() -> int:
         kern.update(quant_kernels_phase(dev))
         gc.collect()
         torch.cuda.empty_cache()
-        runner, launches, bodies, fused_rec = engine_phases(dev)
+        verify_rec = verify_shape_phase(dev)
+        runner, launches, bodies, fused_rec, streams = engine_phases(dev)
         variants = {name: {"engine_fused": bodies[name]} for name in GQA_KERNELS}
+        variants["prefill_paged_attention"]["verify_B8_S5"] = verify_rec
+        # this slice's paths: the device ring against the host scan, tree
+        # speculation, and draft-model speculation on the 3B's params
+        draft_ring_phase(runner, streams)
+        tree_phase(runner)
+        draft_phases(runner, streams, fused_rec)
+        del streams
         # each copy kernel's launches from the phase that runs it
         disagg, disagg_rec = disagg_phase(runner.params)
         launches["gather_pages"] = disagg["gather_pages"]

@@ -7,8 +7,15 @@ tokens flow back through per-request asyncio queues. A MixedPlan runs
 fused on a card (the decode batch's steps and every packed prefill chunk
 in one ragged dispatch plus the decode loop, one token readback) and
 unfused on the CPU (decode first, then each chunk), with DYN_FUSED_MIXED
-overriding, as in the reference. Linear n-gram speculative decoding
-(`spec_ngram`) verifies host-proposed drafts on the same ragged dispatch.
+overriding, as in the reference. N-gram speculative decoding
+(`spec_ngram`) verifies drafts on the same ragged dispatch: linear drafts
+from the host scan (or the device history ring, `spec_device_draft`),
+or trees of `spec_branches` candidates, each extra branch a row on a
+forked page table. A runner with a draft
+model (`ModelRunner(draft_config=...)`) decodes by speculative rounds
+(engine/spec_decode.py: gamma draft steps, one target verify pass), keeps
+the draft's KV in step with every prefill chunk and import, and runs its
+mixed plans unfused.
 Disaggregated roles: a "prefill" request parks its KV after the first
 token and is pulled by the decode engine (device or host-staged export); a
 "decode" request carrying `kv_import` is admitted with its KV and no
@@ -28,9 +35,10 @@ bias, logprobs and penalties (rows with either of the last two take the
 two-dispatch path, as the reference's `_mixed_fusible` gates them), n > 1
 branches forked after the parent's prefill (trunk pages shared, the tail
 page copied) and embeddings batched into one `embed` pass.
-Not ported yet: tree and draft-model speculation, LoRA, multimodal input,
-remote host-tier pulls and the G3/G4 tiers; requests asking for those are
-refused with an "error" item.
+Not ported yet: LoRA, multimodal input, remote host-tier pulls and the
+G3/G4 tiers; requests asking for those are refused with an "error" item,
+as are guided decoding and logit bias on a draft-model worker (as in the
+reference: the speculative verify cannot honor them).
 """
 
 from __future__ import annotations
@@ -56,8 +64,9 @@ from dynamo_tpu_torch.engine.model_runner import (
     kv_payload_incompatible,
     kv_payload_to_arrays,
 )
-from dynamo_tpu_torch.engine.ngram_draft import accept_deterministic
+from dynamo_tpu_torch.engine.ngram_draft import accept_deterministic, accept_tree
 from dynamo_tpu_torch.engine.ngram_draft import propose as ngram_propose
+from dynamo_tpu_torch.engine.ngram_draft import propose_tree as ngram_propose_tree
 from dynamo_tpu_torch.engine.scheduler import (
     DecodePlan,
     MixedPlan,
@@ -193,6 +202,13 @@ class InferenceEngine:
         spec_k: int = 4,  # draft tokens proposed per sequence per step
         spec_max_tokens: int = 0,  # per-iteration cap on drafted tokens
         #   (0 = bounded only by the mixed pool leftover)
+        spec_branches: int = 1,  # tree speculation: candidate drafts a
+        #   sequence, each extra one verified on a forked page table
+        #   (1 = linear)
+        spec_device_draft: bool = False,  # linear drafts from the runner's
+        #   device history ring instead of the host scan (off: on the card
+        #   the ring's step and readback cost more host time than the scan
+        #   of histories that match early; scripts/draft_ring_ab.py)
         host_kv_blocks: int = 0,  # G2 host-tier capacity (0 = disabled)
         onboard_layer_groups: int = 1,  # stream tier onboarding in this
         #   many contiguous layer groups (FlowKV-style overlap of transfer
@@ -211,6 +227,12 @@ class InferenceEngine:
             self.fused_mixed = False
         else:
             self.fused_mixed = runner.device.type != "cpu"
+        # a draft-model runner: speculative decode rounds
+        self.has_draft = runner.has_draft
+        if self.has_draft:
+            # the draft's KV must follow every prefill chunk, which the
+            # fused dispatch does not write (the reference's gate)
+            self.fused_mixed = False
         self.pool = PagePool(runner.num_pages, runner.page_size)
         # fork-on-branch copies a forked tail page's KV through the runner
         self.pool.copy_hook = runner.copy_pages
@@ -255,9 +277,22 @@ class InferenceEngine:
         if spec_ngram and not self.spec_ngram:
             log.warning("spec_ngram requested with mixed_prefill_tokens=0; "
                         "disabled")
+        # tree speculation keeps the host scan (its branches need every
+        # match site, the ring gathers one)
+        self.spec_branches = max(1, int(spec_branches))
+        self._spec_device_draft = bool(spec_device_draft) and self.spec_branches == 1
+        self._draft_slots: Dict[str, int] = {}  # rid -> history-ring slot
+        self._draft_free: List[int] = []
+        self._draft_synced: Dict[str, int] = {}  # rid -> tokens mirrored
+        self._draft_D = 0  # the ring's per-step append capacity
+        if self.spec_ngram and self._spec_device_draft:
+            self._draft_D = runner.ensure_draft_ring(max_batch, self.spec_k)
+            self._draft_free = list(range(max_batch))
+        self._draft_fallback_warned = False
         self.spec_stats = {"drafted": 0, "accepted": 0, "rejected": 0,
                            "verify_rows": 0, "verify_iters": 0,
-                           "spec_emitted": 0}
+                           "spec_emitted": 0, "tree_rows": 0,
+                           "tree_switches": 0}
         # the scheduler caps a mixed plan at max_batch decode rows +
         # mixed_prefill_tokens chunk tokens: that sum is a T bucket, so a
         # full mixed iteration never rounds up
@@ -472,11 +507,17 @@ class InferenceEngine:
         # n choices cost one prefill); disaggregated roles stream one
         if seq.disagg is None:
             seq.n_branches = max(1, min(16, int(seq.sampling.get("n") or 1)))
-        if seq.logit_bias and not getattr(self.runner, "supports_logit_bias", False):
+        if seq.logit_bias and (self.has_draft or not getattr(
+                self.runner, "supports_logit_bias", False)):
             # a dropped ban is a safety bug: refuse rather than sample the
-            # unbiased distribution
+            # unbiased distribution (the speculative verify has no bias)
             yield engine_output([], "error",
                                 error="logit_bias is unsupported on this worker")
+            return
+        if seq.guided and self.has_draft:
+            # the speculative verify cannot honor per-token masks
+            yield engine_output([], "error", error=(
+                "guided decoding is unsupported on a speculative-decoding worker"))
             return
         if seq.guided:
             try:
@@ -726,6 +767,11 @@ class InferenceEngine:
         seq = plan.seq
         logits = self.runner.prefill(
             plan.chunk, plan.start_pos, seq.pages, prior_len=plan.start_pos)
+        if self.has_draft and seq.disagg != "prefill":
+            # the draft's KV in step with the target's (a disaggregated
+            # prefill worker exports none: the decode side rebuilds it)
+            self.runner.draft_prefill(plan.chunk, plan.start_pos, seq.pages,
+                                      prior_len=plan.start_pos)
         self.scheduler.complete_prefill(plan)
         self._finish_prefill(plan, logits)
 
@@ -850,6 +896,18 @@ class InferenceEngine:
         seqs = plan.seqs
         T = plan.n_steps
         step0 = self._step_counter + 1
+        if self.has_draft:
+            if _batch_logprobs(seqs) < 0 and not _batch_penalties(seqs):
+                self._run_draft_decode(seqs, T, step0)
+                return
+            # the speculative verify has no logprob report or count
+            # tables: this batch decodes plainly (its draft KV skips these
+            # positions, which costs acceptance later, never correctness)
+            if not self._draft_fallback_warned:
+                self._draft_fallback_warned = True
+                log.warning("logprobs/penalties are incompatible with "
+                            "speculative verification; falling back to "
+                            "plain decode")
         self._step_counter += T
         kw = self._guided_step_masks(seqs, T)
         if "guided_dev" in kw or "mask_fn" in kw:
@@ -866,6 +924,35 @@ class InferenceEngine:
             prompt_lens=[s.n_prompt0 for s in seqs], **kw)
         for i, seq in enumerate(seqs):
             self._commit(seq, sampled[i, :T], lp, i)
+
+    def _run_draft_decode(self, seqs: List[Sequence], T: int, step0: int) -> None:
+        """The draft-model path of a T-step decode plan: R = T // (gamma +
+        1) speculative rounds, each emitting 1..gamma+1 tokens a sequence.
+        Under gamma + 1 steps of budget gamma shrinks to T - 1 rather than
+        falling back to plain decode, whose steps would leave holes in the
+        draft's pool (gamma 0 is plain decode plus the draft's KV)."""
+        gamma = self.runner.spec_gamma
+        if T < gamma + 1:
+            gamma, R = T - 1, 1
+        else:
+            R = T // (gamma + 1)
+        self._step_counter += R
+        toks, counts = self.runner.spec_decode_multi(
+            R, [s.tokens[-1] for s in seqs], [s.computed_len for s in seqs],
+            [s.pages for s in seqs], _sampling_params(seqs), step0, gamma=gamma)
+        for i, seq in enumerate(seqs):
+            self._commit(seq, [int(t) for r in range(R)
+                               for t in toks[i, r, :int(counts[i, r])]])
+        # every row-round verifies gamma drafts and emits counts tokens
+        rounds = len(seqs) * R
+        accepted = int(counts[:len(seqs)].sum()) - rounds
+        st = self.spec_stats
+        st["verify_iters"] += R
+        st["verify_rows"] += rounds
+        st["drafted"] += rounds * gamma
+        st["accepted"] += accepted
+        st["rejected"] += rounds * gamma - accepted
+        st["spec_emitted"] += accepted + rounds
 
     def _commit(self, seq: Sequence, tokens, lp=None, row: int = 0) -> None:
         """Append decoded tokens until one finishes the sequence (the rest
@@ -948,22 +1035,70 @@ class InferenceEngine:
     # -- speculative decoding (n-gram drafts + ragged verify) ---------------
     def _propose_drafts(self) -> None:
         """This iteration's drafts, proposed before step_plan so the
-        scheduler can charge them against the mixed pool: the host n-gram
-        scan over each running sequence's own tokens. Guided and biased
+        scheduler can charge them against the mixed pool. Guided and biased
         rows never draft: they ride the verify dispatch as one-token rows
         under their mask and bias while the others speculate. Logprobs or
         penalties anywhere in the batch pause speculation for all of it:
-        the verify step has no logprob report or count tables."""
+        the verify step has no logprob report or count tables. Tree mode
+        (spec_branches > 1) takes the host scan's candidates; linear
+        drafts come from the host scan, or from one device ring step
+        under spec_device_draft."""
         running = [s for s in self.scheduler.active if s.state == SeqState.RUNNING]
         for s in running:
             s.spec_draft = []
+            s.spec_tree = []
         if not self.spec_ngram or not running:
             return
         if _batch_logprobs(running) >= 0 or _batch_penalties(running):
             return
-        for s in running:
-            if s.guided_m is None and not s.logit_bias:
+        free = [s for s in running if s.guided_m is None and not s.logit_bias]
+        if self.spec_branches > 1:
+            for s in free:
+                # siblings come clipped to the primary's length
+                tree = ngram_propose_tree(s.tokens, self.spec_k, self.spec_branches)
+                if tree:
+                    s.spec_draft, s.spec_tree = tree[0], tree[1:]
+            return
+        if self._spec_device_draft and free:
+            drafts = self._device_draft(free)
+            for s in free:
+                s.spec_draft = drafts[s.request_id]
+        else:
+            for s in free:
                 s.spec_draft = ngram_propose(s.tokens, self.spec_k)
+
+    def _device_draft(self, seqs: List[Sequence]) -> Dict[str, List[int]]:
+        """One device ring step for every drafting row: each row's tokens
+        committed since its last proposal are appended to its slot's
+        history and k tokens are proposed a slot, with one staging copy
+        and one readback. Returns rid -> draft, equal to
+        ngram_draft.propose while the history fits the ring's window. The
+        ring has max_batch slots and the batch never exceeds max_batch
+        rows, so once the slots of rows gone are handed back every row
+        has one."""
+        live = {s.request_id for s in seqs}
+        for rid in [r for r in self._draft_slots if r not in live]:
+            # finished, preempted or no longer drafting rows hand their
+            # slot back; a row that drafts again resets a fresh one
+            self._draft_free.append(self._draft_slots.pop(rid))
+            self._draft_synced.pop(rid, None)
+        updates: List[tuple] = []
+        for s in seqs:
+            rid = s.request_id
+            slot = self._draft_slots.get(rid)
+            delta = len(s.tokens) - self._draft_synced.get(rid, 0)
+            if slot is None:
+                slot = self._draft_free.pop()
+                self._draft_slots[rid] = slot
+                delta = -1  # a fresh slot: reset below
+            if delta < 0 or delta > self._draft_D:
+                self.runner.draft_ring_reset(slot, s.tokens)
+            elif delta:
+                updates.append((slot, s.tokens[-delta:]))
+            self._draft_synced[rid] = len(s.tokens)
+        drafts, n_prop = self.runner.draft_step(updates, self.spec_k)
+        return {s.request_id: drafts[slot][:int(n_prop[slot])].tolist()
+                for s in seqs for slot in (self._draft_slots[s.request_id],)}
 
     def _run_spec_verify(self, dplan: DecodePlan, prefills):
         """One ragged dispatch verifying every speculating row's draft (a
@@ -973,14 +1108,52 @@ class InferenceEngine:
         their mask and bias. Acceptance emits target samples through the
         first mismatch (and the bonus token on a full match), so greedy
         output equals plain decode. Rejected drafts' KV lies past
-        computed_len and is overwritten later. Returns the chunks'
-        last-token logits, or None when the runner cannot shape the
-        dispatch (the drafts are dropped and the caller runs the plain
-        path)."""
+        computed_len and is overwritten later.
+
+        A tree's extra branches are rows of their own on page tables
+        forked from the owner's (the committed trunk shared, the tail
+        fresh), after every primary row, with the owner's sampling
+        entries; `accept_tree` walks them, the winning fork's table is
+        adopted before the tokens are committed, and every other fork is
+        released. A fork the pool cannot give sheds the row's remaining
+        branches. Returns the chunks' last-token logits, or None when the
+        runner cannot shape the dispatch (the drafts are dropped, every
+        fork released, and the caller runs the plain path)."""
         seqs = dplan.seqs
         drafts = [list(s.spec_draft) for s in seqs]
+        trees = [list(s.spec_tree) for s in seqs]
         for s in seqs:
             s.spec_draft = []  # consumed (or shed) either way
+            s.spec_tree = []
+        tokens = [s.tokens[-1] for s in seqs]
+        positions = [s.computed_len for s in seqs]
+        tables = [s.pages for s in seqs]
+        sp = _sampling_params(seqs)
+        branch_rows: List[List[int]] = [[] for _ in seqs]
+        forks: List[List[Optional[List[int]]]] = [[] for _ in seqs]
+        PS = self.pool.page_size
+        for i, s in enumerate(seqs):
+            for b in (trees[i] if drafts[i] else []):
+                try:
+                    fork = self.pool.fork_table(s.pages, s.computed_len // PS)
+                except NoSpace:
+                    break  # pool pressure: shed the remaining branches
+                branch_rows[i].append(len(tokens))
+                forks[i].append(fork)
+                tokens.append(s.tokens[-1])
+                positions.append(s.computed_len)
+                tables.append(fork)
+                drafts.append([int(t) for t in b])
+                for key in sp:
+                    sp[key].append(sp[key][i])
+            trees[i] = trees[i][:len(forks[i])]
+
+        def release_forks(i: int) -> None:
+            for f in forks[i]:
+                if f is not None:
+                    self.pool.release(f)
+            forks[i] = []
+
         step0 = self._next_step()
         kw: Dict[str, Any] = {}
         masks = {i: self._guided_mask(s) for i, s in enumerate(seqs)
@@ -992,28 +1165,50 @@ class InferenceEngine:
             kw["biases"] = {i: brows[i] for i, s in enumerate(seqs) if s.logit_bias}
         try:
             rows, chunk_logits = self.runner.verify_spec(
-                [s.tokens[-1] for s in seqs], [s.computed_len for s in seqs],
-                [s.pages for s in seqs], drafts, _sampling_params(seqs),
-                step0, chunks=_chunks(prefills), **kw)
+                tokens, positions, tables, drafts, sp, step0,
+                chunks=_chunks(prefills), **kw)
         except BucketOverflowError as e:
+            for i in range(len(seqs)):
+                release_forks(i)  # nothing was committed to them
             log.warning("spec verify overflows runner buckets (%s); dropping "
                         "this iteration's drafts", e)
             return None
-        n_drafted = sum(len(d) for d in drafts)
-        accepted = emitted_spec = 0
-        for seq, draft, row in zip(seqs, drafts, rows):
-            emitted = accept_deterministic(draft, row)
-            if draft:
+        except BaseException:
+            for i in range(len(seqs)):
+                release_forks(i)
+            raise
+        n_drafted = sum(len(d) for d in drafts[:len(seqs)])
+        accepted = emitted_spec = switches = 0
+        for i, seq in enumerate(seqs):
+            if forks[i]:
+                emitted, winner = accept_tree(
+                    [drafts[i]] + trees[i],
+                    [rows[i]] + [rows[r] for r in branch_rows[i]])
+                if winner > 0:
+                    # the winning fork's fresh tail holds the accepted
+                    # suffix's KV: adopt its table before committing (the
+                    # trunk is shared, so the swap moves one reference)
+                    old = seq.pages
+                    seq.pages = forks[i][winner - 1]
+                    forks[i][winner - 1] = None
+                    self.pool.release(old)
+                    switches += 1
+                release_forks(i)
+            else:
+                emitted = accept_deterministic(drafts[i], rows[i])
+            if drafts[i]:
                 accepted += len(emitted) - 1
                 emitted_spec += len(emitted)
             self._commit(seq, emitted)
         st = self.spec_stats
         st["verify_iters"] += 1
-        st["verify_rows"] += sum(1 for d in drafts if d)
+        st["verify_rows"] += sum(1 for d in drafts[:len(seqs)] if d)
         st["drafted"] += n_drafted
         st["accepted"] += accepted
         st["rejected"] += n_drafted - accepted
         st["spec_emitted"] += emitted_spec
+        st["tree_rows"] += sum(len(r) for r in branch_rows)
+        st["tree_switches"] += switches
         return chunk_logits
 
     def _next_step(self) -> int:
@@ -1094,6 +1289,15 @@ class InferenceEngine:
                 self.runner.import_pages(seq.pages[lo:hi], lo - off, ch)
         elif target and payload.get("data"):
             self.runner.import_pages(target, ns, payload)
+        if self.has_draft:
+            # the transfer carries the target's KV only: rebuild the
+            # draft's by draft prefill, after the prefix-shared pages
+            # (whose draft KV the sequence that filled them wrote)
+            toks = seq.prompt[:-1]
+            chunk = self.scheduler.chunk_size
+            for start in range(ns * PS, len(toks), chunk):
+                self.runner.draft_prefill(toks[start:start + chunk], start,
+                                          seq.pages, prior_len=start)
         seq.phases["kv_import_s"] = time.monotonic() - t0
 
     # -- disaggregation: prefill-side export (step thread) -------------------

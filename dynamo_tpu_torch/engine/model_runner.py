@@ -8,7 +8,11 @@ speculative `verify_spec` on the same ragged step, `sample_one`, and the
 KV transfer methods (`export_pages(_device)`, `import_pages(_device)` with
 the layer-streamed import) over the block-copy kernels, `copy_pages`
 (the page pool's fork-on-branch copy hook), `embed` (the embedding
-forward, models/llama.py `encode`), with the
+forward, models/llama.py `encode`), draft-model speculation
+(`draft_config`: the draft's params and pools, `draft_prefill`,
+`spec_decode_multi` over engine/spec_decode.py `spec_rounds`), the
+device n-gram draft ring (`draft_ring_step`, `ensure_draft_ring`,
+`draft_ring_reset`, `draft_step`), with the
 reference's buckets, `_next_bucket`, `BucketOverflowError` and KV wire
 format (`KV_WIRE_LAYOUT_VERSION` 2). Params
 and the KV pools live on one device; the pools are updated in place
@@ -53,17 +57,16 @@ from dynamo_tpu_torch.guided.device_table import combine_tables
 from dynamo_tpu_torch.models import llama
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.quant import (
-    DEFAULT_QUANT_NAMES,
     QUANT_MODES,
     kv_pool_dequantize,
     kv_pool_quantize,
     check_tree,
     quantize_params,
 )
-from dynamo_tpu_torch.engine.weights import check_fits
+from dynamo_tpu_torch.engine.spec_decode import spec_rounds
+from dynamo_tpu_torch.engine.weights import check_fits, serving_bytes
 from dynamo_tpu_torch.models.toolkit import (
     is_quantized,
-    kv_pool_bytes,
     make_kv_pool,
     pool_values,
 )
@@ -101,6 +104,13 @@ STAT_KEYS = (
     "guided_host_dispatches",
     "guided_host_masks",
     "page_copies",  # copy_pages calls (fork-on-branch tail pages)
+    # draft-model speculation: target verify passes (S = gamma + 1, the
+    # prefill kernel), draft S = 1 steps (the decode kernel) and draft
+    # prefill chunks (the prefill kernel)
+    "spec_verify_passes",
+    "draft_steps",
+    "draft_prefill_chunks",
+    "draft_ring_steps",  # device n-gram ring proposals (draft_step calls)
 )
 
 
@@ -142,6 +152,71 @@ def _fold_seed(seed: int, j: int) -> int:
     """Verify position j > 0 draws with its own seed (the reference's
     `(seed * 1000003 + j) & 0x7FFFFFFF`); position 0 keeps the row's."""
     return int(seed) if j == 0 else (int(seed) * 1000003 + int(j)) & 0x7FFFFFFF
+
+
+# device n-gram draft ring width: history tokens kept a slot. Below the
+# host scan's NGRAM_SCAN_WINDOW (4096): the match is the host scan's for
+# histories shorter than the window
+DRAFT_RING_WINDOW = 512
+
+
+def draft_ring_step(hist: torch.Tensor, lens: torch.Tensor,
+                    upd_tok: torch.Tensor, upd_n: torch.Tensor, k: int,
+                    max_match: int = 4):
+    """The reference's `_draft_ring_step`: one device draft step over all
+    slots. Append each slot's newly committed tokens to its history
+    (shifting left on overflow), then run the prompt-lookup suffix match
+    (`ngram_draft.propose` as dense [SLOTS, W] ops: the longest suffix m in
+    [1, max_match] wins, its most recent earlier occurrence wins, the
+    continuation is clipped at the history's end) and gather k tokens a
+    slot. hist [SLOTS, W] int32 (-1 padded), lens [SLOTS], upd_tok
+    [SLOTS, D] (-1 padded), upd_n [SLOTS]. Returns (hist, lens, drafts
+    [SLOTS, k], n_prop [SLOTS]). The reference's dropped out-of-range
+    writes are a scatter into a padding column W that is cut off; its
+    match, a loop over m of m gathers each, is one [SLOTS, max_match, W]
+    comparison (65 operations dispatched a step at 8 slots, views aside,
+    in place of 173)."""
+    SLOTS, W = hist.shape
+    D = upd_tok.shape[1]
+    dev = hist.device
+    cols_d = torch.arange(D, dtype=torch.int32, device=dev)[None, :]
+    # -- append, shifting left on overflow --------------------------------
+    over = (lens + upd_n - W).clamp(min=0)
+    gidx = torch.arange(W, dtype=torch.int32, device=dev)[None, :] + over[:, None]
+    hp = torch.cat([hist, hist.new_full((SLOTS, D), -1)], 1)
+    hist = torch.gather(hp, 1, gidx.long())
+    lens = lens - over
+    pos = lens[:, None] + cols_d
+    valid = cols_d < upd_n[:, None]
+    hw = torch.cat([hist, hist.new_full((SLOTS, 1), -1)], 1)
+    hw.scatter_(1, torch.where(valid, pos, W).long(),
+                torch.where(valid, upd_tok, -1))
+    hist = hw[:, :W].contiguous()
+    lens = lens + upd_n
+    # -- suffix match -------------------------------------------------------
+    # a continuation position t (the draft starts at hist[t]) follows an
+    # m-token match of the suffix iff hist[t-1-j] == hist[len-1-j] for
+    # every j < m: run[t] counts the leading equal j (the left padding
+    # -2 never equals a token, so s = t - m >= 0). The reference's loop
+    # over m becomes one score: the longest suffix (capped at len - 1)
+    # wins, then the most recent t <= len - 1 (at least one token after
+    # the occurrence, before the suffix itself)
+    j = torch.arange(max_match, dtype=torch.int32, device=dev)
+    sfx = torch.gather(hist, 1, (lens[:, None] - 1 - j).clamp(0, W - 1).long())
+    left = torch.cat([hist.new_full((SLOTS, max_match), -2), hist], 1)
+    back = torch.stack([left[:, max_match - 1 - i:max_match - 1 - i + W]
+                        for i in range(max_match)], 1)
+    run = (back == sfx[:, :, None]).int().cumprod(1).sum(1, dtype=torch.int32)
+    t = torch.arange(W, dtype=torch.int32, device=dev)[None, :]
+    m_t = torch.minimum(run, (lens[:, None] - 1).clamp(max=max_match))
+    score = torch.where(t <= lens[:, None] - 1, m_t * (W + 1) + t, -1).amax(1)
+    best_m = score.div(W + 1, rounding_mode="floor")
+    start = torch.where(best_m > 0, score - best_m * (W + 1), -1)
+    hpad = torch.cat([hist, hist.new_full((SLOTS, k), -1)], 1)
+    idx = start[:, None] + torch.arange(k, dtype=torch.int32, device=dev)[None, :]
+    drafts = torch.gather(hpad, 1, idx.clamp(min=0).long())
+    n_prop = torch.where(best_m > 0, (lens - start).clamp(0, k), 0)
+    return hist, lens, drafts, n_prop.to(torch.int32)
 
 
 # Wire layout version for P→D / cross-worker KV payloads. v2 = token-major
@@ -282,6 +357,10 @@ class ModelRunner:
         device=None,  # None -> cuda (raises without a card); "cpu" for tests
         kv_quantize: Optional[str] = None,  # "int8": int8 KV pools
         quantize: Optional[str] = None,  # "int8" / "fp8": weight-only
+        draft_config: Optional[ModelConfig] = None,  # speculative decoding
+        #   with a draft model
+        draft_params: Optional[Dict[str, Any]] = None,  # None: random, seed 1
+        spec_gamma: int = 4,  # draft tokens proposed per verify pass
     ):
         self.config = config
         self.device = resolve_device(device)
@@ -307,18 +386,14 @@ class ModelRunner:
         if quantize is not None and quantize not in QUANT_MODES:
             raise ValueError(f"unknown quantize mode {quantize!r}")
         self.quantize = quantize
+        if draft_config is not None and draft_config.vocab_size != config.vocab_size:
+            # acceptance compares the two models' token ids
+            raise ValueError(f"draft {draft_config.name} has vocabulary "
+                             f"{draft_config.vocab_size}, {config.name} "
+                             f"{config.vocab_size}")
         if self.device.type == "cuda":
-            need = kv_pool_bytes(config, num_pages + 1, page_size, dtype, kv_quantize)
-            if params is None:
-                need += llama.param_bytes(config, dtype, quantize)
-            elif quantize:
-                # the codes and scales quantize_params adds beside the
-                # caller's tree, which stays
-                held = [params] + [params[st] for st in ("layers", "layers_dense")
-                                   if st in params]
-                plain = {n for tree in held for n, w in tree.items()
-                         if n in DEFAULT_QUANT_NAMES and torch.is_tensor(w)}
-                need += llama.param_bytes(config, dtype, quantize, only=plain)
+            need = serving_bytes(config, num_pages, page_size, dtype, kv_quantize,
+                                 quantize, params, draft_config, draft_params)
             check_fits(config.name, need, torch.cuda.mem_get_info(self.device)[0])
         t0 = time.monotonic()
         if params is None:
@@ -337,6 +412,28 @@ class ModelRunner:
         self.k_pool, self.v_pool = make_kv_pool(
             config, num_pages + 1, page_size, dtype, self.device,
             kv_quantize=kv_quantize)
+        # draft-model speculation: the draft owns pools of its own (bf16 or
+        # int8 as the target's, the same spare page) addressed by the same
+        # page tables, so paging, prefix sharing and preemption need no
+        # bookkeeping of their own; its params are never quantized
+        self.draft_config = draft_config
+        self.spec_gamma = int(spec_gamma)
+        self.draft_params = None
+        self.draft_k_pool = self.draft_v_pool = None
+        if draft_config is not None:
+            if draft_params is None:
+                draft_params = llama.init_params(draft_config, 1, dtype, self.device)
+            else:
+                check_tree(draft_params)
+            self.draft_params = draft_params
+            self.draft_k_pool, self.draft_v_pool = make_kv_pool(
+                draft_config, num_pages + 1, page_size, dtype, self.device,
+                kv_quantize=kv_quantize)
+        # the device n-gram draft ring (ensure_draft_ring)
+        self._draft_ring = None  # (hist [SLOTS, W], lens [SLOTS]) device
+        self._draft_ring_host = None  # its host mirror
+        self._draft_ring_dirty = False  # mirror edited: restage
+        self._draft_ring_shape = None  # (slots, window, delta capacity)
         self.stats: Dict[str, int] = {}
         self.reset_stats()
         self._sampling_cache: Dict[Any, SamplingParams] = {}
@@ -854,7 +951,15 @@ class ModelRunner:
         the len(drafts[i]) + 1 target samples, chunk_logits the chunks'
         last-token logits [len(chunks), V] on the device ([] without
         chunks). Raises BucketOverflowError past the T bucket or the
-        sampled-row capacity."""
+        sampled-row capacity.
+
+        Tree speculation's branch rows are more rows of the same lists
+        (after every primary row, so the row-indexed masks and biases
+        stay valid): the owner's last token and position on a forked page
+        table, with the owner's sampling entries repeated. A branch row
+        thus draws with its owner's seed, and identical prefixes sample
+        identically (what `accept_tree` relies on); its tokens count
+        against the T bucket and the sampled-row capacity as any row's."""
         chunks = list(chunks)
         n_rows = len(positions)
         row_lens = [len(d) + 1 for d in drafts]
@@ -922,6 +1027,132 @@ class ModelRunner:
             return out, []
         return out, seg_logits[chunk_entry0:chunk_entry0 + len(chunks)]
 
+    # -- draft-model speculation -------------------------------------------
+    @property
+    def has_draft(self) -> bool:
+        return self.draft_config is not None
+
+    def draft_prefill(self, tokens: List[int], start_pos: int,
+                      page_table_row: List[int], prior_len: int) -> None:
+        """The draft model's KV for a prefill chunk (the target's page
+        table); its logits are not computed past the last token and are
+        discarded."""
+        n = len(tokens)
+        S = _next_bucket(self.prefill_buckets, n)
+        pos = _padded(range(start_pos, start_pos + n), S, -1)
+        tok, pos, pt, kvl = self._upload(
+            _padded(tokens, S, 0)[None], pos[None],
+            self._pad_page_table([page_table_row]), [prior_len + n])
+        llama.forward(self.draft_config, self.draft_params, tok, pos,
+                      self.draft_k_pool, self.draft_v_pool, pt, kvl, n - 1)
+        self.stats["draft_prefill_chunks"] += 1
+
+    def spec_decode_multi(
+        self,
+        n_rounds: int,
+        tokens: List[int],
+        positions: List[int],
+        page_tables: List[List[int]],
+        sampling,
+        step: int,
+        gamma: Optional[int] = None,
+    ) -> Tuple[np.ndarray, np.ndarray]:
+        """n_rounds speculative rounds (engine/spec_decode.py
+        `spec_rounds`) with one readback. Returns (tokens [B_bucket, R,
+        gamma+1], counts [B_bucket, R]) host arrays; row i's round r holds
+        counts[i, r] valid tokens. Padding rows sit at position -1. Page
+        tables must cover positions[i] + n_rounds * (gamma + 1) slots.
+        `gamma` overrides spec_gamma (the engine shrinks it near a token
+        budget so the draft pool never gaps; 0 verifies on the decode
+        kernel)."""
+        gamma = self.spec_gamma if gamma is None else int(gamma)
+        B = _next_bucket(self.decode_buckets, len(tokens))
+        tok, pos, pt = self._upload(_padded(tokens, B, 0), _padded(positions, B, -1),
+                                    self._pad_page_table(page_tables, B))
+        toks, counts = spec_rounds(
+            self.config, self.draft_config, gamma, n_rounds, self.params,
+            self.draft_params, tok, pos, self.k_pool, self.v_pool,
+            self.draft_k_pool, self.draft_v_pool, pt,
+            self._device_sampling(sampling, B), step)
+        self.stats["draft_steps"] += n_rounds * (gamma + 1)
+        # gamma 0 verifies one token: an S = 1 forward on the decode kernel
+        self.stats["spec_verify_passes" if gamma else "decode_steps"] += n_rounds
+        both = torch.cat([toks.reshape(B, -1), counts], 1).cpu().numpy()
+        R = n_rounds
+        return both[:, :R * (gamma + 1)].reshape(B, R, gamma + 1), both[:, R * (gamma + 1):]
+
+    # -- the device n-gram draft ring --------------------------------------
+    def ensure_draft_ring(self, slots: int, k: int,
+                          window: int = DRAFT_RING_WINDOW) -> int:
+        """Allocate the device draft ring ([slots, window] history and the
+        slots' lengths, with a host mirror). Returns the per-step delta
+        capacity D: the engine resets a slot when a sequence commits more
+        than D tokens between proposals."""
+        D = max(16, int(k) + 2)
+        shape = (int(slots), int(window), D)
+        if self._draft_ring_shape == shape and self._draft_ring is not None:
+            return D
+        hist = np.full((slots, window), -1, np.int32)
+        lens = np.zeros(slots, np.int32)
+        self._draft_ring_host = (hist, lens)
+        self._draft_ring = tuple(self._upload(hist, lens))
+        self._draft_ring_dirty = False
+        self._draft_ring_shape = shape
+        return D
+
+    def draft_ring_reset(self, slot: int, tokens: Sequence[int]) -> None:
+        """Rewrite one slot's history (a fresh slot, or a delta larger than
+        the append capacity) in the host mirror; the next draft_step
+        restages the ring."""
+        hist, lens = self._draft_ring_host
+        W = hist.shape[1]
+        tail = list(tokens)[-W:]
+        hist[slot] = -1
+        hist[slot, :len(tail)] = tail
+        lens[slot] = len(tail)
+        self._draft_ring_dirty = True
+
+    def draft_step(self, updates: Sequence[Tuple[int, Sequence[int]]],
+                   k: int) -> Tuple[np.ndarray, np.ndarray]:
+        """Append each (slot, delta) to the ring and propose k tokens a
+        slot (`draft_ring_step`), with one staging copy (the [SLOTS, D]
+        delta, or the whole mirror after a reset) and one readback.
+        Returns (drafts [SLOTS, k], n_prop [SLOTS]) host arrays."""
+        slots, W, D = self._draft_ring_shape
+        hist_h, lens_h = self._draft_ring_host
+        upd_tok = np.full((slots, D), -1, np.int32)
+        upd_n = np.zeros(slots, np.int32)
+        for slot, delta in updates:
+            d = list(delta)
+            if len(d) > D:
+                raise ValueError(f"draft delta of {len(d)} tokens exceeds the "
+                                 f"ring's capacity {D} (reset the slot)")
+            n = len(d)
+            upd_tok[slot, :n] = d
+            upd_n[slot] = n
+            # mirror the append, so a later reset's restage stays coherent
+            if lens_h[slot] + n > W:
+                over = lens_h[slot] + n - W
+                hist_h[slot, :W - over] = hist_h[slot, over:]
+                lens_h[slot] -= over
+            hist_h[slot, lens_h[slot]:lens_h[slot] + n] = d
+            lens_h[slot] += n
+        if self._draft_ring_dirty:
+            # restage from the mirror, which holds this step's deltas
+            # already: the device step appends nothing
+            h, ln = self._upload(hist_h, lens_h)
+            ut = torch.full((slots, D), -1, dtype=torch.int32, device=self.device)
+            un = torch.zeros(slots, dtype=torch.int32, device=self.device)
+            self._draft_ring_dirty = False
+        else:
+            h, ln = self._draft_ring
+            ut, un = self._upload(upd_tok, upd_n)
+        h, ln, drafts, n_prop = draft_ring_step(h, ln, ut, un, int(k))
+        self._draft_ring = (h, ln)
+        self.stats["draft_ring_steps"] += 1
+        both = torch.cat([drafts, n_prop[:, None]], 1).cpu().numpy()
+        return both[:, :-1], both[:, -1]
+
     # -- sampling ----------------------------------------------------------
     def sample_one(self, logits: torch.Tensor, sampling, step: int,
                    mask: Optional[np.ndarray] = None,
@@ -973,7 +1204,10 @@ class ModelRunner:
         """The page pool's fork-on-branch copy hook: page src's KV into
         page dst in every layer (an int8 pool's codes and scales as they
         are, no dequantize round trip)."""
-        for pool in (self.k_pool, self.v_pool):
+        pools = [self.k_pool, self.v_pool]
+        if self.draft_config is not None:  # the draft's pools mirror the tables
+            pools += [self.draft_k_pool, self.draft_v_pool]
+        for pool in pools:
             for part in self._parts(pool):
                 part[:, dst] = part[:, src]
         self.stats["page_copies"] += 1

@@ -2,13 +2,14 @@
 and recompute-preemption.
 
 Pure host logic, copied from dynamo_tpu/engine/scheduler.py with the
-parts this port does not serve yet left out: tree speculation and the
-LoRA and multimodal hash-chain seeds. Fork-on-branch (`adopt_branch`,
+parts this port does not serve yet left out: the LoRA and multimodal
+hash-chain seeds. Fork-on-branch (`adopt_branch`,
 n > 1 sampling) and the guided and logit-bias fields are in. Disaggregation (park,
 release_parked, admit_with_kv) and the G2 host-tier continuation of
-`_try_allocate` are in. Linear speculative drafts stay: the engine proposes them
-before planning, the scheduler trims them to the mixed token pool and the
-ragged dispatch's sampled rows, and reserves their KV slots. What stays
+`_try_allocate` are in. Speculative drafts stay, linear and tree: the
+engine proposes them before planning, the scheduler trims them to the
+mixed token pool and the ragged dispatch's sampled rows (a tree's extra
+branches shed first), and reserves their KV slots. What stays
 plans exactly as the reference does, so both engines see the same
 PrefillPlan / DecodePlan / MixedPlan sequence for the same requests.
 
@@ -77,6 +78,10 @@ class Sequence:
     # (engine sets before step_plan; the scheduler trims them to the
     # mixed token budget; the engine consumes and clears after verify)
     spec_draft: List[int] = field(default_factory=list)
+    # tree speculation: extra candidate branches beyond spec_draft (branch
+    # 0), each verified as its own row on a forked page table; charged
+    # len + 1 tokens each and shed before the primary draft is trimmed
+    spec_tree: List[List[int]] = field(default_factory=list)
     # fork-on-branch (n > 1 sampling): the parent carries n_branches; each
     # forked sibling carries branch_of=<parent request_id> and its choice
     # index, and shares the parent's trunk pages copy-on-write
@@ -229,9 +234,12 @@ class Scheduler:
 
     @staticmethod
     def _spec_cost(s: Sequence) -> int:
-        """Charged verify tokens for one sequence: its draft's tokens (the
-        +1 verify position is the row's own decode slot)."""
-        return len(s.spec_draft)
+        """Charged verify tokens for one sequence: its primary draft's
+        tokens (the +1 verify position is the row's own decode slot) and
+        every token of every extra tree branch (a branch row has no decode
+        slot: all len(b) + 1 of its entries are extra tokens and sampled
+        rows)."""
+        return len(s.spec_draft) + sum(len(b) + 1 for b in s.spec_tree)
 
     def _trim_spec(
         self, running: List[Sequence], pplans: List[PrefillPlan], cap: int
@@ -246,6 +254,7 @@ class Scheduler:
         if self.mixed_prefill_tokens <= 0:
             for s in running:
                 s.spec_draft = []
+                s.spec_tree = []
             return
         left = self.mixed_prefill_tokens - sum(len(p.chunk) for p in pplans)
         if self.spec_max_tokens:
@@ -257,6 +266,7 @@ class Scheduler:
             seg_left = self.spec_seg_budget - len(running) - len(pplans)
         for s in running:
             if not s.spec_draft:
+                s.spec_tree = []  # branches never ride without a primary
                 continue
             take = min(len(s.spec_draft), max(0, left))
             if seg_left is not None:
@@ -267,10 +277,29 @@ class Scheduler:
                 int((s.stop or {}).get("max_tokens", 1 << 30)) - s.n_generated
             )
             take = min(take, max(0, remaining))
+            if take < len(s.spec_draft):
+                # the primary draft itself is trimmed: branches are
+                # optional work, shed them all first
+                s.spec_tree = []
             s.spec_draft = s.spec_draft[:take]
             left -= take
             if seg_left is not None:
                 seg_left -= take
+            # extra branches (propose_tree clips each to the primary, whose
+            # page capacity is the fork's): len(b) + 1 tokens and sampled
+            # rows each (and a ragged segment); whole branches shed when
+            # the leftover cannot carry them
+            kept: List[List[int]] = []
+            for b in s.spec_tree:
+                cost = len(b) + 1
+                if cost > max(0, left) or (
+                        seg_left is not None and cost > max(0, seg_left)):
+                    continue
+                kept.append(b)
+                left -= cost
+                if seg_left is not None:
+                    seg_left -= cost
+            s.spec_tree = kept
 
     # -- admission ---------------------------------------------------------
     def _admit(self) -> None:
@@ -481,6 +510,7 @@ class Scheduler:
         seq.n_preemptions += 1
         seq.state = SeqState.WAITING
         seq.spec_draft = []  # stale drafts must not ride the re-admission
+        seq.spec_tree = []
         # re-admit with prompt = all tokens so far (already-emitted ones are
         # not re-emitted; generation resumes with the next sampled token)
         seq.prompt = list(seq.tokens)
@@ -524,6 +554,7 @@ class Scheduler:
         self.pool.release(seq.pages)
         seq.pages = []
         seq.spec_draft = []
+        seq.spec_tree = []
         if seq in self.active:
             self.active.remove(seq)
 

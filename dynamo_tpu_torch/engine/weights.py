@@ -35,8 +35,14 @@ import numpy as np
 import torch
 
 from dynamo_tpu_torch.models.config import ModelConfig
-from dynamo_tpu_torch.models.llama import F32_LEAVES, OPTIONAL_LEAVES, param_shapes
+from dynamo_tpu_torch.models.llama import (
+    F32_LEAVES,
+    OPTIONAL_LEAVES,
+    param_bytes,
+    param_shapes,
+)
 from dynamo_tpu_torch.models.quant import DEFAULT_QUANT_NAMES, check_tree
+from dynamo_tpu_torch.models.toolkit import kv_pool_bytes
 
 
 def _codes(name: str, arr) -> torch.Tensor:
@@ -110,6 +116,34 @@ def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
         out[st] = convert(tree[st], want[st], f"{st}.")
     check_tree(out)
     return out
+
+
+def serving_bytes(config: ModelConfig, num_pages: int, page_size: int,
+                  dtype=torch.bfloat16, kv_quantize=None, quantize=None,
+                  params=None, draft_config: ModelConfig = None,
+                  draft_params=None) -> int:
+    """Device bytes a ModelRunner places: its KV pools (`num_pages` + 1
+    pages: the spare page takes the padding rows' writes), its params when
+    it draws them (`params` None) or, given a tree under `quantize`, the
+    codes and scales quantize_params adds beside it; with a draft model,
+    the draft's pools (the same pages) and its params when drawn. Draft
+    params are never quantized."""
+    need = kv_pool_bytes(config, num_pages + 1, page_size, dtype, kv_quantize)
+    if params is None:
+        need += param_bytes(config, dtype, quantize)
+    elif quantize:
+        # the caller's tree stays (another runner may serve it)
+        held = [params] + [params[st] for st in ("layers", "layers_dense")
+                           if st in params]
+        plain = {n for tree in held for n, w in tree.items()
+                 if n in DEFAULT_QUANT_NAMES and torch.is_tensor(w)}
+        need += param_bytes(config, dtype, quantize, only=plain)
+    if draft_config is not None:
+        need += kv_pool_bytes(draft_config, num_pages + 1, page_size, dtype,
+                              kv_quantize)
+        if draft_params is None:
+            need += param_bytes(draft_config, dtype)
+    return need
 
 
 def check_fits(name: str, need: int, free: int) -> None:

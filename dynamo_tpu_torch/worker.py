@@ -12,7 +12,9 @@ registers an instance in discovery, serves `generate`, `kv_fetch` and
 publishes KV events and forward-pass metrics on the event plane, prints
 "worker serving <model> at <ns/component/endpoint>", and on SIGTERM or
 SIGINT unregisters, drains in-flight requests and exits 0. The engine
-runs on CUDA unless `--device cpu`. Checkpoint loading, the engine
+runs on CUDA unless `--device cpu`. `--draft-model PRESET --spec-gamma N`
+decodes by draft-model speculation. Checkpoint loading (and with it
+`--draft-checkpoint`), the engine
 sidecar, multi-host groups, vision, the status server and the shadow
 failover are not ported yet (weights are random, from seed 0).
 """
@@ -81,6 +83,13 @@ def parse_args(argv=None):
                    help="fair-share floor: each packed sequence is offered "
                         "at least this many prefill tokens per iteration")
     # speculative decoding
+    p.add_argument("--draft-model", default=None,
+                   help="draft model config preset (enables speculative "
+                        "decoding: the draft proposes, the model verifies)")
+    p.add_argument("--spec-gamma", type=int, default=4,
+                   help="draft tokens proposed per target verify pass")
+    p.add_argument("--spec-draft-model", default=None, metavar="PRESET",
+                   help="alias for --draft-model")
     p.add_argument("--spec-ngram", action="store_true",
                    help="draft-model-free speculation: propose the next K "
                         "tokens by prompt/history n-gram lookup and verify "
@@ -106,14 +115,17 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
-def build_runner(args, params=None) -> tuple[ModelRunner, ModelConfig]:
+def build_runner(args, params=None, draft_params=None) -> tuple[ModelRunner, ModelConfig]:
     """Construct the ModelRunner (bf16 random weights, seed 0, until
-    checkpoint loading is ported) and its model config from CLI args.
-    `params` shares another runner's weights (two engines on one card). A
-    model whose params and pools exceed the card's free memory raises
-    MemoryError before anything is drawn (DeepSeek-V3 at full depth;
-    qwen3-30b-a3b, 61 GB of weights, needs the card to itself)."""
+    checkpoint loading is ported; a draft model's from seed 1) and its
+    model config from CLI args. `params` shares another runner's weights
+    (two engines on one card), `draft_params` a draft tree (the model's
+    own params make a self-draft). A model whose params and pools exceed
+    the card's free memory raises MemoryError before anything is drawn
+    (DeepSeek-V3 at full depth; qwen3-30b-a3b, 61 GB of weights, needs the
+    card to itself)."""
     config = get_config(args.model)
+    draft = args.draft_model or args.spec_draft_model
     runner = ModelRunner(
         config,
         num_pages=args.num_pages,
@@ -123,15 +135,20 @@ def build_runner(args, params=None) -> tuple[ModelRunner, ModelConfig]:
         device=args.device,
         kv_quantize=args.kv_quantize,
         quantize=args.quantize,
+        draft_config=get_config(draft) if draft else None,
+        draft_params=draft_params,
+        spec_gamma=args.spec_gamma,
     )
     return runner, config
 
 
-def build_engine(args, runner=None) -> InferenceEngine:
+def build_engine(args, runner=None, **engine_kw) -> InferenceEngine:
+    """The engine of the CLI args over `runner` (built from them when
+    None); `engine_kw` sets InferenceEngine arguments no flag carries
+    (decode_steps, spec_branches, spec_device_draft)."""
     if runner is None:
         runner, _ = build_runner(args)
-    return InferenceEngine(
-        runner,
+    kw = dict(
         max_batch=args.max_batch,
         chunk_size=args.chunk_size,
         mixed_prefill_tokens=args.mixed_prefill_tokens,
@@ -144,6 +161,8 @@ def build_engine(args, runner=None) -> InferenceEngine:
         onboard_layer_groups=args.onboard_layer_groups,
         tokenizer_spec=args.tokenizer,
     )
+    kw.update(engine_kw)
+    return InferenceEngine(runner, **kw)
 
 
 def model_card(args, config: ModelConfig) -> ModelCard:

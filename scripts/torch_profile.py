@@ -3,7 +3,8 @@
 
     python3 scripts/torch_profile.py [--model llama-3.2-3b|llama-3.1-8b|deepseek-v3|
         gemma-2-9b|qwen2.5-7b|phi-3-mini-4k|qwen3-30b-a3b] [--kv-quantize int8]
-        [--quantize int8|fp8] [--trace PATH]
+        [--quantize int8|fp8] [--draft-model PRESET | --self-draft]
+        [--spec-gamma N] [--trace PATH]
 
 Builds the engine exactly as chip_smoke.py's engine phase does
 (llama-3.2-3b, the default; llama-3.1-8b with the same flags, the
@@ -17,7 +18,11 @@ with its two prompts past the window; with --model qwen3-30b-a3b, the
 runner of chip_smoke.qwen3moe_phases, 48 MoE layers at full width, which
 needs the card to itself; --kv-quantize int8 gives any of them int8 KV
 pools, --quantize int8 or fp8 weight-only quantized weights: llama-3.1-8b
-with both is chip_smoke.quant_phases' runner) and
+with both is chip_smoke.quant_phases' runner; --draft-model PRESET
+decodes by draft-model speculation with that preset's random weights,
+--self-draft with the model's own params as the draft, both at gamma
+--spec-gamma and chip_smoke's two rounds a plan, as its engine_draft and
+engine_draft_self) and
 serves its workload three
 times, each with fresh
 prompts (another seed, so no run hits the previous run's prefix cache):
@@ -59,7 +64,7 @@ import chip_smoke  # noqa: E402
 from dynamo_tpu_torch.engine.model_runner import ModelRunner  # noqa: E402
 from dynamo_tpu_torch.models.llama import LayerView  # noqa: E402
 from dynamo_tpu_torch.models.quant import mm  # noqa: E402
-from dynamo_tpu_torch.worker import build_engine, parse_args  # noqa: E402
+from dynamo_tpu_torch.worker import build_engine, build_runner, parse_args  # noqa: E402
 
 MODELS = ("llama-3.2-3b", "llama-3.1-8b", "deepseek-v3", "gemma-2-9b",
           "qwen2.5-7b", "phi-3-mini-4k", "qwen3-30b-a3b")
@@ -131,6 +136,12 @@ def main() -> int:
                     help="int8 KV pools (the runner's kv_quantize)")
     ap.add_argument("--quantize", choices=["int8", "fp8"], default=None,
                     help="weight-only quantized weights (the runner's quantize)")
+    draft = ap.add_mutually_exclusive_group()
+    draft.add_argument("--draft-model", default=None,
+                       help="a draft model preset (random weights, seed 1)")
+    draft.add_argument("--self-draft", action="store_true",
+                       help="the model drafts for itself (its own params)")
+    ap.add_argument("--spec-gamma", type=int, default=chip_smoke.DRAFT_GAMMA)
     ap.add_argument("--trace", default=None, help="Chrome trace output path")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -151,7 +162,15 @@ def main() -> int:
         engine_args = engine_args + ["--kv-quantize", args.kv_quantize]
     if args.quantize:
         engine_args = engine_args + ["--quantize", args.quantize]
-    engine = build_engine(parse_args(engine_args), runner=runner)
+    engine_kw = {}
+    if args.draft_model or args.self_draft:
+        engine_args = engine_args + ["--draft-model", args.draft_model or args.model,
+                                     "--spec-gamma", str(args.spec_gamma)]
+        engine_kw = chip_smoke.DRAFT_ENGINE
+        if args.self_draft:
+            runner, _ = build_runner(parse_args(engine_args))
+            runner.draft_params = runner.params
+    engine = build_engine(parse_args(engine_args), runner=runner, **engine_kw)
     try:
         cold_s = timed_serve(engine, seed=11, extra=extra)
         warm_s = timed_serve(engine, seed=12, extra=extra)
@@ -181,6 +200,9 @@ def main() -> int:
         "model": engine.runner.config.name,
         "kv_quantize": engine.runner.kv_quantize,
         "quantize": engine.runner.quantize,
+        "draft": (engine.runner.draft_config.name + (" (self)" if args.self_draft else "")
+                  if engine.runner.has_draft else None),
+        "spec_stats": engine.spec_stats,
         "device": torch.cuda.get_device_name(0),
         "nvidia_smi": subprocess.run(
             ["nvidia-smi", "--query-gpu=name,power.limit",
