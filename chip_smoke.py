@@ -29,7 +29,16 @@ Phases, each printing one JSON line:
                the 3B page shape (L 28, PS 16, Hk 8, D 128, bf16) in a
                2048-page pool, 94 pages in random order: token- and head-major
                gather, scatter, and a 4-group layer scatter, bit for bit
-               against their plain versions; then (`mla_kernels`) the two
+               against their plain versions, and, as graph replays beside
+               `index_select` / `index_copy_` and the byte bound, the KV
+               tiers' shapes: a 1-page gather (an offload), a 1-page
+               scatter (a prefetch promotion) and a 64-page scatter in 4
+               layer groups (an onboard); then
+               (`tier_codec_kernels`) the device tier codec
+               (ops/csrc/tier_codec.cu) at that onboard's 64 pages,
+               quantize and dequantize bit for bit against the plain
+               codec on the CPU, timed beside the plain codec on the card
+               and the byte bound; then (`mla_kernels`) the two
                MLA kernels at DeepSeek-V3's shapes (H 128, d_c 512, d_rh
                64, PS 16, bf16): decode at B 8 (an empty row), prefill
                S 512 with q_len 450 over 700 prior tokens, a packed [4, 256]
@@ -136,7 +145,28 @@ Phases, each printing one JSON line:
                two 1500-token fillers that evict its pages to the host,
                then a request sharing its first 1024 tokens, onboarded
                from the host (bytes equal to what was offloaded, stream
-               equal to a cold prefill's);
+               equal to a cold prefill's on a warm engine), with the
+               offload's cost (batches of one alloc's evicted pages),
+               the onboard's rate (the engine's clock, and the runner's
+               alone ending in a synchronize) and the TTFT onboarded and
+               cold; then the same traffic through
+               `engine_tiers_g3` (a 16-block host tier spilling to a
+               `--disk-kv-root`), `engine_tiers_g4` (`--obj-kv-root`),
+               `engine_tiers_quant` (`--kv-tier-quantize` over bf16
+               pools: the pages equal the codec's dequantization) and
+               `engine_tiers_quant_int8` (over int8 pools: codes and
+               scales passed through), each labelled by its deepest tier
+               with no recompute; `engine_tiers_remote` (two workers
+               over TCP, the KV router's `kv_remote_host` hint: B pulls
+               A's host blocks through kv_host_fetch, no recompute, B's
+               pages equal A's bytes) and `engine_tiers_prefetch` (the
+               router's `kv_prefetch` hint promotes A2's 64 blocks on A
+               before A2 arrives: 64 hits, no onboard). Every case holds
+               the copy kernels' launches to its transfers (a gather a
+               pool part an offload batch, a layer scatter a group a pool
+               part an onboard, a whole-pool scatter a pool part a
+               promotion) and its stream to the cold one (a quantized
+               tier's, lossy, is reported);
   5. parity  - prefill-plus-decode inputs, then one ragged dispatch of
                decode rows and a chunk over prior context, through the
                kernel path and the plain attention path of the forward;
@@ -328,7 +358,8 @@ Phases, each printing one JSON line:
                its quantized matrices a pass (0 over bf16 weights).
 Then the `kernels` summary line (launches from the fused phase for the
 GQA attention kernels, from engine_disagg for gather and scatter, from
-engine_tiers for the layer scatter, from engine_mla for the MLA kernels,
+engine_tiers for the layer scatter, from engine_tiers_quant for the device
+tier codec's two entries, from engine_mla for the MLA kernels,
 from engine_int8kv and engine_mla_int8 for the `*_int8` entries, the
 int8 bodies, from engine_qwen2 for the `*_G7` entries and from
 engine_phi3 and engine_phi3_int8 for the `*_D96_window` and
@@ -353,6 +384,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -364,7 +396,11 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
-from dynamo_tpu_torch.engine.model_runner import DRAFT_RING_WINDOW, ModelRunner
+from dynamo_tpu_torch.engine.model_runner import (
+    DRAFT_RING_WINDOW,
+    ModelRunner,
+    layer_group_bounds,
+)
 from dynamo_tpu_torch.engine.ngram_draft import propose as ngram_propose
 from dynamo_tpu_torch.models.config import get_config
 from dynamo_tpu_torch.models.quant import (
@@ -381,6 +417,7 @@ from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops import block_copy as bc
 from dynamo_tpu_torch.ops import moe_dispatch as md
 from dynamo_tpu_torch.ops import quant_gemm as qg
+from dynamo_tpu_torch.ops import tier_codec as tc
 from dynamo_tpu_torch.ops.flash_prefill import (
     prefill_paged_attention,
     prefill_paged_attention_ref,
@@ -409,6 +446,7 @@ from dynamo_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention_ref,
 )
 from dynamo_tpu_torch.frontend.service import ModelManager, ModelWatcher
+from dynamo_tpu_torch.router.kv_router import KvPushRouter, KvRouter
 from dynamo_tpu_torch.router.prefill_router import DisaggPolicy, PrefillRouter
 from dynamo_tpu_torch.router.protocols import KV_EVENT_SUBJECT
 from dynamo_tpu_torch.runtime.context import Context
@@ -518,7 +556,17 @@ KERNELS = {"decode_paged_attention": decode_paged_attention,
            "prefill_mla_attention": prefill_mla_attention,
            "moe_gate_up": md.moe_gate_up,
            "moe_down": md.moe_down,
-           "quant_gemm": qg.quant_matmul}
+           "quant_gemm": qg.quant_matmul,
+           "tier_quantize": tc.tier_quantize,
+           "tier_dequantize": tc.tier_dequantize}
+# the device tier codec replaces no TPU kernel: the reference's codec is
+# numpy on the host
+TIER_CODEC_SOURCES = {
+    "tier_quantize": ("dynamo_tpu_torch/ops/csrc/tier_codec.cu",
+                      "dynamo_tpu/kvbm/quant.py:49 (numpy on the host; no Pallas kernel)"),
+    "tier_dequantize": ("dynamo_tpu_torch/ops/csrc/tier_codec.cu",
+                        "dynamo_tpu/kvbm/quant.py:66 (numpy on the host; no Pallas kernel)"),
+}
 COPY_KERNELS = ("gather_pages", "scatter_pages", "scatter_pages_layers")
 GQA_KERNELS = ("decode_paged_attention", "prefill_paged_attention",
                "ragged_paged_attention")
@@ -1155,6 +1203,7 @@ def decode_split_edges_phase(dev):
 COPY_SHAPE = (28, 2048, 16, 8, 128)  # L, NP, PS, Hk, D
 COPY_N = 94
 COPY_GROUPS = 4
+TIER_ONBOARD_PAGES = 64  # engine_tiers' onboard: A2's 1024 shared tokens
 
 
 def copy_kernel_phase(dev):
@@ -1248,11 +1297,103 @@ def copy_kernel_phase(dev):
             c[lo:hi].index_copy_(1, idx_l, slab)
             for (lo, hi), slab in zip(groups, slabs)]),
     }
-    del b, c, pool, pages
+    # the KV tiers' shapes as graph replays of the launches alone:
+    # an offload's 1-page gather and a 64-page onboard in 4 layer groups
+    page_bytes = L * PS * Hk * D * pool.element_size()
+    one = idx[:1].contiguous()
+    one_l = one.long()
+    buf1 = torch.empty((L, 1, PS, Hk, D), dtype=pool.dtype, device=dev)
+    out["gather_pages"]["cases"]["offload_1_page"] = {
+        "device_ms": graph_ms(lambda: bc._launch_gather(pool, one, buf1, False)),
+        "library_device_ms": graph_ms(
+            lambda: torch.index_select(pool, 1, one_l, out=buf1)),
+        "bound_ms": bound(2 * page_bytes, 0)[0], "bound_by": "bytes"}
+    # a prefetch promotion: one page into every layer
+    page1 = pages[:, :1].contiguous()
+    e = pool.clone()
+    out["scatter_pages"]["cases"] = {"promote_1_page": {
+        "device_ms": graph_ms(lambda: bc._launch_scatter(e, one, page1)),
+        "library_device_ms": graph_ms(lambda: e.index_copy_(1, one_l, page1)),
+        "bound_ms": bound(2 * page_bytes, 0)[0], "bound_by": "bytes"}}
+    idx64 = idx[:TIER_ONBOARD_PAGES].contiguous()
+    idx64_l = idx64.long()
+    slabs64 = [pages[lo:hi, :TIER_ONBOARD_PAGES].contiguous() for lo, hi in groups]
+    d = pool.clone()
+
+    def onboard64(fn):
+        def run():
+            for g in range(COPY_GROUPS):
+                fn(d, idx64, slabs64[g], offs[g:g + 1])
+        return run
+
+    onboard64(bc.scatter_pages_layers)()
+    torch.cuda.synchronize()
+    want64 = pool.clone()
+    want64.index_copy_(1, idx64_l, torch.cat(slabs64, dim=0))
+    out["scatter_pages_layers"]["cases"] = {"onboard_64_pages_4_groups": {
+        "max_abs_err": exact(d, want64, "64-page layer scatter"),
+        "device_ms": graph_ms(onboard64(bc._launch_scatter)),
+        "library_device_ms": graph_ms(lambda: [
+            d[lo:hi].index_copy_(1, idx64_l, slab)
+            for (lo, hi), slab in zip(groups, slabs64)]),
+        "bound_ms": bound(2 * TIER_ONBOARD_PAGES * page_bytes, 0)[0],
+        "bound_by": "bytes"}}
+    del b, c, d, e, want64, slabs64, pool, pages
     torch.cuda.empty_cache()
     emit({"phase": "copy_kernels", "tol": 0.0,
           "shape": {"L": L, "NP": NP, "PS": PS, "Hk": Hk, "D": D, "n": COPY_N,
                     "dtype": "bfloat16"}, **out})
+    return out
+
+
+def tier_codec_phase(dev):
+    """The device tier codec at engine_tiers' onboard: the 3B's 64 pages
+    page-major, [64, 28, 16, 8, 128] bf16, vectors whose scales spread
+    over six decades with a zero vector, against the plain codec on the
+    CPU bit for bit (codes, scales, dequantized bytes); timed back to
+    back and as graph replays, beside the plain codec on the card (there
+    a division by a Python scalar is a product with its reciprocal, so it
+    is timed, not held) and the byte bound."""
+    L, _, PS, Hk, D = COPY_SHAPE
+    shape = (TIER_ONBOARD_PAGES, L, PS, Hk, D)
+    cgen = torch.Generator(device="cpu").manual_seed(21)
+    spread = torch.pow(10.0, torch.rand(shape[:-1] + (1,), generator=cgen) * 6 - 3)
+    x = (torch.randn(shape, generator=cgen) * spread).bfloat16()
+    x[0, 0, 0] = 0
+    xd = x.to(dev)
+    q, sc = tc.tier_quantize(xd)
+    back = tc.tier_dequantize(q, sc, torch.bfloat16)
+    torch.cuda.synchronize()
+    qr, sr = tc.tier_quantize_ref(x)
+    backr = tc.tier_dequantize_ref(qr, sr, torch.bfloat16)
+    check(torch.equal(q.cpu(), qr)
+          and torch.equal(sc.cpu().view(torch.int32), sr.view(torch.int32)),
+          "tier_quantize differs from the plain codec")
+    check(torch.equal(back.cpu().view(torch.int16), backr.view(torch.int16)),
+          "tier_dequantize differs from the plain codec")
+    n = x.numel()
+    rows = n // D
+    moved = n * 2 + n + rows * 4  # bf16 vectors, int8 codes, f32 scales
+    out = {
+        "tier_quantize": {
+            "shape": list(shape),
+            "max_abs_err": max((q.cpu().float() - qr.float()).abs().max().item(),
+                               (sc.cpu() - sr).abs().max().item()),
+            "ms": cuda_ms(lambda: tc.tier_quantize(xd)),
+            "device_ms": graph_ms(lambda: tc.tier_quantize(xd)),
+            "plain_ms": cuda_ms(lambda: tc.tier_quantize_ref(xd)),
+            "bound_ms": bound(moved, 0)[0], "bound_by": "bytes", "library_ms": None},
+        "tier_dequantize": {
+            "shape": list(shape),
+            "max_abs_err": (back.cpu().float() - backr.float()).abs().max().item(),
+            "ms": cuda_ms(lambda: tc.tier_dequantize(q, sc, torch.bfloat16)),
+            "device_ms": graph_ms(lambda: tc.tier_dequantize(q, sc, torch.bfloat16)),
+            "plain_ms": cuda_ms(lambda: tc.tier_dequantize_ref(q, sc, torch.bfloat16)),
+            "bound_ms": bound(moved, 0)[0], "bound_by": "bytes", "library_ms": None},
+    }
+    del x, xd, q, sc, back
+    torch.cuda.empty_cache()
+    emit({"phase": "tier_codec_kernels", "tol": 0.0, **out})
     return out
 
 
@@ -3101,99 +3242,479 @@ def served_disagg_phase(params, disagg_rec):
 TIER_ARGS = ["--model", "llama-3.2-3b", "--num-pages", "160", "--page-size", "16",
              "--max-seq-len", "4096", "--max-batch", "8", "--chunk-size", "512"]
 TIER_HOST = ["--host-kv-blocks", "512", "--onboard-layer-groups", "4"]
+G2_PAIRS = 3  # the G2 onboard against the cold prefill, in this many pairs
+# the lower tiers' cases: a host tier of 16 blocks, fewer than A's
+# 64-block shared chain, so A's pages spill past it ("{root}": a
+# temporary directory of the case)
+TIER_SMALL_HOST = ["--host-kv-blocks", "16", "--onboard-layer-groups", "4"]
+TIER_CASES = {
+    # name: (worker flags, the label of the onboard's deepest tier)
+    "g3": (TIER_SMALL_HOST + ["--disk-kv-blocks", "512", "--disk-kv-root", "{root}/g3"],
+           "G3"),
+    "g4": (TIER_SMALL_HOST + ["--obj-kv-root", "{root}/g4"], "G4"),
+    "quant": (TIER_HOST + ["--kv-tier-quantize"], "G2"),
+}
 
 
-def tiers_phase(params):
-    """G2 host tier: a 1100-token request A, two 1500-token fillers that
-    evict A's pages from the 160-page pool to the host, then A2 = A's
-    first 1024 tokens + 100 new ones, onboarded from the host in 4 layer
-    groups. A cold engine over the same runner serves A2 first: the
-    tiered stream must equal it."""
-    runner, _ = build_runner(parse_args(TIER_ARGS), params=params)
-    cold = build_engine(parse_args(TIER_ARGS), runner=runner)
-    tiered = build_engine(parse_args(TIER_ARGS + TIER_HOST), runner=runner)
-    V, L = runner.config.vocab_size, runner.config.n_layers
-    gen = torch.Generator(device="cpu").manual_seed(5)
+def _tier_prompts(V, seed=5):
+    """A (1100 tokens), two 1500-token fillers that evict A's pages from
+    the 160-page pool, and A2: A's first 1024 tokens + 100 new ones, with
+    the hashes of its 64 blocks shared with A."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
 
     def prompt(n):
         return torch.randint(0, V, (n,), generator=gen).tolist()
-
-    def req(p):
-        return {"token_ids": p, "sampling": {"temperature": 0.0},
-                "stop": {"max_tokens": N_OUT, "stop_ids": []}}
 
     a = prompt(1100)
     fillers = [prompt(1500), prompt(1500)]
     a2 = a[:1024] + prompt(100)
     shared = block_hashes(a2, PAGE_SIZE)[:1024 // PAGE_SIZE]
+    return a, fillers, a2, shared
 
-    async def serve(engine, prompts, tag):
-        return [await _collect_timed(engine, req(p), f"{tag}{i}")
-                for i, p in enumerate(prompts)]
 
+def _tier_req(p):
+    return {"token_ids": p, "sampling": {"temperature": 0.0},
+            "stop": {"max_tokens": N_OUT, "stop_ids": []}}
+
+
+async def _tier_serve(engine, prompts, tag):
+    return [await _collect_timed(engine, _tier_req(p), f"{tag}{i}")
+            for i, p in enumerate(prompts)]
+
+
+def _run(coro, bound=300):
+    return asyncio.run(asyncio.wait_for(coro, bound))
+
+
+def _onboard_labels(engine):
+    """Record each onboard's onboard_tier (the deepest tier it read)."""
+    labels = []
+    orig = engine.scheduler.host_onboard
+
+    def spy(pages, hashes, seq=None):
+        ok = orig(pages, hashes, seq)
+        labels.append(seq.onboard_tier if seq is not None else None)
+        return ok
+
+    engine.scheduler.host_onboard = spy
+    return labels
+
+
+def _reset_offloads(*engines):
+    for e in engines:
+        e.offload_stats.update(offloads=0, batches=0, seconds=0.0)
+
+
+def _tier_identities(name, launches, runners, engines, onboards=None, promoted=0,
+                     dequantized=0):
+    """The copy kernels' launches against the transfer counts: an
+    offload batch (one alloc's evicted pages) gathers once a pool part,
+    a grouped onboard scatters each group once a pool part, a prefetch
+    promotion scatters its page once a pool part; every offloaded page
+    was exported. A quantizing tier's offload batch quantizes once a
+    pool on the device, and each of its `dequantized` onboards (codes
+    into dense pools) dequantizes each group once a pool."""
+    parts = 2 if runners[0].kv_quantize else 1
+    groups = len(layer_group_bounds(runners[0].config.n_layers,
+                                    engines[0].onboard_layer_groups))
+    exported = sum(r.stats["kv_pages_exported"] for r in runners)
+    scatters = sum(r.stats["kv_layer_group_scatters"] for r in runners)
+    batches = sum(e.offload_stats["batches"] for e in engines)
+    offloads = sum(e.offload_stats["offloads"] for e in engines)
+    check(exported == offloads,
+          f"{name}: {exported} pages exported for {offloads} offloaded")
+    check(launches["gather_pages"] == 2 * parts * batches,
+          f"{name}: gathers {launches['gather_pages']} for {batches} offload "
+          f"batches x {parts} parts")
+    if onboards is not None:
+        check(scatters == onboards * groups,
+              f"{name}: {scatters} layer-group scatters for {onboards} onboards")
+    check(launches["scatter_pages_layers"] == 2 * parts * scatters,
+          f"{name}: layer scatters {launches['scatter_pages_layers']} != "
+          f"{scatters} groups x 2 pools x {parts} parts")
+    check(launches["scatter_pages"] == 2 * parts * promoted,
+          f"{name}: whole-pool scatters {launches['scatter_pages']} for "
+          f"{promoted} promotions")
+    quantizing = sum(e.offload_stats["batches"] for e in engines if e.kv_tier_quantize)
+    check(launches["tier_quantize"] == 2 * quantizing,
+          f"{name}: tier quantizes {launches['tier_quantize']} for {quantizing} "
+          "quantized offload batches")
+    check(launches["tier_dequantize"] == 2 * groups * dequantized,
+          f"{name}: tier dequantizes {launches['tier_dequantize']} for "
+          f"{dequantized} onboards of codes into dense pools")
+
+
+def _pages_hold(name, runner, engine, shared, native=False):
+    """The device pages of `shared` hold the tiers' blocks: their dense
+    bytes (dequantized by the tier codec when the tier quantizes), or,
+    native, the tier's codes and scales."""
+    pages = [engine.pool.by_hash[h] for h in shared]
+    if native:
+        raw = [engine.host_pool.host.get_block_raw(h) for h in shared]
+        for pool, j in ((runner.k_pool, 0), (runner.v_pool, 1)):
+            q = torch.stack([b[j]["q"] for b in raw], dim=1)
+            sc = torch.stack([b[j]["s"] for b in raw], dim=1)
+            check(torch.equal(pool["q"][:, pages].cpu(), q)
+                  and torch.equal(pool["s"][:, pages].cpu(), sc),
+                  f"{name}: onboarded codes/scales differ from the tier's")
+        return
+    hk, hv = engine.host_pool.get(shared)
+    check(torch.equal(runner.k_pool[:, pages].cpu(), hk)
+          and torch.equal(runner.v_pool[:, pages].cpu(), hv),
+          f"{name}: onboarded pages differ from the tiers' bytes")
+
+
+def _common_prefix(x, y) -> int:
+    n = 0
+    for a, b in zip(x, y):
+        if a != b:
+            break
+        n += 1
+    return n
+
+
+def _tier_case(runner, name, extra, prompts, cold, deepest, native=False):
+    """One engine over `runner` with the tier flags `extra`: serve A and
+    the fillers, flush the lower tiers, then A2, whose 64 shared blocks
+    onboard from the tiers in 4 layer groups. Held: the stream equals the
+    cold engine's (a quantized tier's is reported), the onboard's label is
+    the deepest tier's, nothing is recomputed, the copy kernels' launch
+    identities, and the pages hold the tiers' blocks."""
+    a, fillers, a2, shared = prompts
+    V = runner.config.vocab_size
+    lossy = "--kv-tier-quantize" in extra
+    root = tempfile.mkdtemp(prefix="chip_smoke_tiers_")
+    eng = build_engine(parse_args(TIER_ARGS + [x.replace("{root}", root)
+                                                for x in extra]), runner=runner)
+    labels = _onboard_labels(eng)
     torch.cuda.synchronize()
     _reset(runner)
     t0 = time.monotonic()
     try:
-        cold_out = asyncio.run(asyncio.wait_for(serve(cold, [a2], "cold"), 300))
-        cold.stop()
-        warm = asyncio.run(asyncio.wait_for(serve(tiered, [a] + fillers, "t"), 300))
-        on_host = tiered.host_pool.match(shared)
-        before = tiered.scheduler.reused_prefix_tokens
-        hit = asyncio.run(asyncio.wait_for(serve(tiered, [a2], "hit"), 300))
-        reused = tiered.scheduler.reused_prefix_tokens - before
+        warm = _run(_tier_serve(eng, [a] + fillers, f"{name}_"))
+        for t in (eng.host_pool.disk, eng.host_pool.obj):
+            if t is not None:
+                t.flush()
+        where = eng.host_pool.residency(shared)
+        before = eng.scheduler.reused_prefix_tokens
+        hit = _run(_tier_serve(eng, [a2], f"{name}_hit"))
+        reused = eng.scheduler.reused_prefix_tokens - before
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+        launches = {n: fn.launches for n, fn in KERNELS.items()}
+        st = dict(runner.stats)
+        _check_finished(f"tiers_{name}", warm + hit, V)
+        # a quantized tier onboards other bytes than the cold prefill
+        # wrote (one int8 rounding), so its greedy stream may part from
+        # the cold one on a near-tie: reported, and held to the JAX
+        # engine's with the same tier on the CPU (test_torch_kv_tiers)
+        same = _common_prefix(hit[0]["tokens"], cold["tokens"])
+        check(same == N_OUT or lossy,
+              f"tiers_{name}: the onboarded stream differs from the cold prefill's")
+        check(reused == 1024 and eng.onboard_stats["blocks"] == len(shared),
+              f"tiers_{name}: A2 reused {reused} tokens, "
+              f"{eng.onboard_stats['blocks']} blocks onboarded")
+        tier = {"G2": "host", "G3": "disk", "G4": "obj"}[deepest]
+        check(where.count(tier) == len(shared),
+              f"tiers_{name}: only {where.count(tier)} of A's {len(shared)} shared "
+              f"pages reached the {tier} tier")
+        check(labels == [deepest], f"tiers_{name}: onboard labels {labels}")
+        check(eng.tier_stats["onboard_misses"] == 0,
+              f"tiers_{name}: {eng.tier_stats['onboard_misses']} recomputes")
+        # codes onboard into dense pools from an all-G2 chain of a
+        # quantizing tier
+        dequantized = int(lossy and deepest == "G2" and not runner.kv_quantize)
+        _tier_identities(f"tiers_{name}", launches, [runner], [eng], onboards=1,
+                         dequantized=dequantized)
+        _pages_hold(f"tiers_{name}", runner, eng, shared, native)
+        # the lower tier's reads of the 64 blocks again, alone
+        # (pools define __len__: an empty tier is falsy, so test for None)
+        lower = eng.host_pool.disk if eng.host_pool.disk is not None else eng.host_pool.obj
+        reads_s = None
+        if lower is not None and deepest != "G2":
+            t_read = time.perf_counter()
+            for h in shared:
+                lower.get_block(h)
+            reads_s = time.perf_counter() - t_read
+        rec = {
+            "phase": f"engine_tiers_{name}", "flags": extra,
+            "residency_before_A2": {t: where.count(t) for t in sorted(set(where))},
+            "onboard_labels": labels, "stats": st, "launches": launches,
+            "tiers": dict(eng.host_pool.stats), "onboard": dict(eng.onboard_stats),
+            "offload": dict(eng.offload_stats), "tier_stats": dict(eng.tier_stats),
+            "kv_onboard_ewma": eng.kv_onboard_ewma, "reused_prefix_tokens_A2": reused,
+            "kv_onboard_s": hit[0]["phases"].get("kv_onboard_s"),
+            "ttft_s_A2_onboarded": hit[0]["ttft_s"], "ttft_s_A2_cold": cold["ttft_s"],
+            "phases": {k: v for k, v in hit[0]["phases"].items() if k != "itl_s"},
+            "tokens_equal_cold": same, "lower_reads_again_s": reads_s, "wall_s": wall,
+        }
+    finally:
+        eng.stop()
+        shutil.rmtree(root, ignore_errors=True)
+    emit(rec)
+    return rec, eng
+
+
+def _onboard_device_time(runner, engine, shared, groups, reps=3):
+    """The 64-block onboard through the runner alone, on the device
+    clock's terms: the blocks' copies to the card and the layer
+    scatters, ending in a synchronize (host clock around it)."""
+    blocks = engine.host_pool.host.get_blocks(shared)
+    pages = [engine.pool.by_hash[h] for h in shared]
+    ks, vs = [b[0] for b in blocks], [b[1] for b in blocks]
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        runner.import_page_tensors(pages, ks, vs, layer_groups=groups)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return sorted(times)
+
+
+def _cold_a2(runner, a2, seed):
+    """A2 on a cold engine, after an unrelated prompt of A2's length
+    (the engine warm, nothing of A2 cached)."""
+    cold = build_engine(parse_args(TIER_ARGS), runner=runner)
+    warm_up = _tier_prompts(runner.config.vocab_size, seed=seed)[2]
+    try:
+        return _run(_tier_serve(cold, [warm_up, a2], f"cold{seed}_"))[1]
     finally:
         cold.stop()
-        tiered.stop()
-    torch.cuda.synchronize()
-    wall = time.monotonic() - t0
-    launches = {name: fn.launches for name, fn in KERNELS.items()}
-    st = dict(runner.stats)
-    host = dict(tiered.host_pool.stats)
-    onboard = dict(tiered.onboard_stats)
-    results = cold_out + warm + hit
-    _check_finished("tiers", results, V)
-    check(on_host == len(shared), f"tiers: only {on_host} of A's {len(shared)} "
-          "shared pages reached the host tier")
-    check(reused >= 1024 and onboard["blocks"] == len(shared),
-          f"tiers: A2 reused {reused} tokens, {onboard['blocks']} from the host")
-    check(hit[0]["tokens"] == cold_out[0]["tokens"],
-          "tiers: the onboarded stream differs from the cold prefill's")
-    groups = tiered.onboard_layer_groups
-    check(launches["scatter_pages_layers"] == onboard["onboards"] * groups * 2
-          == st["kv_layer_group_scatters"] * 2 and onboard["onboards"] > 0,
-          f"tiers: layer scatters {launches['scatter_pages_layers']} != "
-          f"{onboard['onboards']} onboards x {groups} groups x 2 pools")
-    # every offload exports one page: one gather per pool
-    check(launches["gather_pages"] == 2 * host["offloaded"] == 2 * st["kv_pages_exported"],
-          f"tiers: gathers {launches['gather_pages']} for {host['offloaded']} offloads")
-    check(launches["scatter_pages"] == 0, "tiers: whole-pool scatter ran")
-    # the onboarded device pages hold exactly the bytes that were offloaded
-    pages = [tiered.pool.by_hash[h] for h in shared]
-    hk, hv = tiered.host_pool.get(shared)
-    check(torch.equal(runner.k_pool[:, pages].cpu(), hk)
-          and torch.equal(runner.v_pool[:, pages].cpu(), hv),
-          "tiers: onboarded pages differ from the offloaded bytes")
-    onboard_bytes = onboard["blocks"] * 2 * L * PAGE_SIZE * runner.config.n_kv_heads \
+
+
+def g2_pairs(runner, prompts, n_pairs):
+    """The G2 case and the cold prefill of A2 in `n_pairs` pairs, the
+    side that runs first alternating (host clocks move between calls and
+    machines); each onboarded stream is held to the first cold one.
+    Returns the pairs' TTFTs, the G2 cases' records, the cold outputs and
+    the first G2 case's engine."""
+    pairs, colds, cases, first_eng = [], [], [], None
+    for i in range(n_pairs):
+        cold_first = i % 2 == 0
+        if cold_first:
+            colds.append(_cold_a2(runner, prompts[2], 6 + i))
+        case, eng = _tier_case(runner, "g2" if i == 0 else f"g2_{i + 1}",
+                               TIER_HOST, prompts, colds[0], "G2")
+        if not cold_first:
+            colds.append(_cold_a2(runner, prompts[2], 6 + i))
+        cases.append(case)
+        if i == 0:
+            first_eng = eng
+        pairs.append({"first": "cold" if cold_first else "onboarded",
+                      "ttft_s_A2_onboarded": case["ttft_s_A2_onboarded"],
+                      "ttft_s_A2_cold": colds[-1]["ttft_s"]})
+    return pairs, cases, colds, first_eng
+
+
+def tiers_phase(params):
+    """The KV tiers of the 3B, each case an engine over one runner.
+    `engine_tiers` (G2): a 512-block host tier; A, two fillers that evict
+    A's pages to the host, then A2 onboarded from the host in 4 layer
+    groups, against a cold engine over the same runner that serves A2,
+    in G2_PAIRS pairs (g2_pairs); with the offload's cost a page, the
+    onboard's rate and A2's TTFT onboarded and cold. Then the G3 disk and G4 object tiers under a
+    16-block host tier, the quantized tier on bf16 pools (the pages equal
+    the codec's dequantization of the offloaded ones) and on int8 pools
+    (codes and scales passed through), a remote-G2 pull between two
+    workers over TCP through the KV router's hint, and a prefetch hint
+    that promotes A2's blocks before A2 arrives. Returns the G2 case's
+    launches, with the device codec's from the quantized case."""
+    runner, _ = build_runner(parse_args(TIER_ARGS), params=params)
+    prompts = _tier_prompts(runner.config.vocab_size)
+    a, fillers, a2, shared = prompts
+    L = runner.config.n_layers
+    pairs, cases, colds, eng = g2_pairs(runner, prompts, G2_PAIRS)
+    rec, cold_out = cases[0], colds[0]
+    check(rec["offload"]["offloads"] == rec["tiers"]["offloaded"]
+          == rec["stats"]["kv_pages_exported"],
+          f"tiers: offloads {rec['offload']} against the host tier's {rec['tiers']}")
+    launches = dict(rec["launches"])
+    # (a) the G2 timings: the offload a page, the onboard's rate (the
+    # engine's host clock, and the runner alone ending in a synchronize)
+    onboard_bytes = len(shared) * 2 * L * PAGE_SIZE * runner.config.n_kv_heads \
         * runner.config.head_dim * 2
-    rec = {
-        "phase": "engine_tiers", "model": runner.config.name, "n_layers": L,
-        "num_pages": runner.num_pages, "host_kv_blocks": tiered.host_pool.capacity,
-        "onboard_layer_groups": groups,
-        "prompt_tokens": {"A": len(a), "fillers": [len(f) for f in fillers],
-                          "A2": len(a2), "A2_shared_with_A": 1024},
-        "stats": st, "launches": launches, "host_pool": host,
-        "onboard": onboard, "reused_prefix_tokens_A2": reused,
-        "kv_onboard_s": hit[0]["phases"].get("kv_onboard_s"),
-        "onboard_bytes": onboard_bytes,
-        "onboard_gb_per_s": onboard_bytes / onboard["seconds"] / 1e9,
-        "ttft_s_A2_onboarded": hit[0]["ttft_s"], "ttft_s_A2_cold": cold_out[0]["ttft_s"],
-        "wall_s": wall,
-    }
-    emit(rec)
+    device_s = _onboard_device_time(runner, eng, shared, eng.onboard_layer_groups)
+    onboard = rec["onboard"]
+    emit({"phase": "engine_tiers", "model": runner.config.name, "n_layers": L,
+          "num_pages": runner.num_pages, "host_kv_blocks": eng.host_pool.host.capacity,
+          "onboard_layer_groups": eng.onboard_layer_groups,
+          "prompt_tokens": {"A": len(a), "fillers": [len(f) for f in fillers],
+                            "A2": len(a2), "A2_shared_with_A": 1024},
+          "launches": launches, "onboard": onboard, "offload": rec["offload"],
+          "offload_ms_per_page": rec["offload"]["seconds"]
+          / max(1, rec["offload"]["offloads"]) * 1e3,
+          "offload_ms_per_batch": rec["offload"]["seconds"]
+          / max(1, rec["offload"]["batches"]) * 1e3,
+          "onboard_bytes": onboard_bytes,
+          "onboard_gb_per_s": onboard_bytes / onboard["seconds"] / 1e9,
+          "onboard_synced_s": device_s,
+          "onboard_synced_gb_per_s": onboard_bytes / device_s[0] / 1e9,
+          "kv_onboard_s": rec["kv_onboard_s"],
+          "g2_pairs": pairs,
+          "ttft_s_A2_onboarded": [c["ttft_s_A2_onboarded"] for c in cases],
+          "ttft_s_A2_cold": [c["ttft_s"] for c in colds],
+          "phases_A2_onboarded": [c["phases"] for c in cases],
+          "phases_A2_cold": [{k: v for k, v in c["phases"].items() if k != "itl_s"}
+                             for c in colds],
+          "wall_s": rec["wall_s"]})
     check(launches["gather_pages"] > 0 and launches["scatter_pages_layers"] > 0,
           f"tiers: a copy kernel never launched: {launches}")
+    del eng
+    # (b) G3, (c) G4, (d) the quantized tier on bf16 pools
+    for name, (extra, deepest) in TIER_CASES.items():
+        case, _ = _tier_case(runner, name, extra, prompts, cold_out, deepest)
+        if name == "quant":
+            for k in ("tier_quantize", "tier_dequantize"):
+                launches[k] = case["launches"][k]
+    # (d) the quantized tier on int8 pools: codes and scales pass through
+    r8, _ = build_runner(parse_args(TIER_ARGS + ["--kv-quantize", "int8"]), params=params)
+    cold8 = build_engine(parse_args(TIER_ARGS + ["--kv-quantize", "int8"]), runner=r8)
+    warm_up = _tier_prompts(runner.config.vocab_size, seed=6)[2]
+    try:
+        cold8_out = _run(_tier_serve(cold8, [warm_up, a2], "cold8_"))[1]
+    finally:
+        cold8.stop()
+    _tier_case(r8, "quant_int8", TIER_HOST + ["--kv-quantize", "int8", "--kv-tier-quantize"],
+               prompts, cold8_out, "G2", native=True)
+    free(r8)
+    # (e) remote G2 and (f) prefetch, over TCP
+    _run(_tier_fleet(params, runner, prompts, cold_out), 600)
+    free(runner)
     return launches
+
+
+async def _tier_fleet(params, runner, prompts, cold):
+    """(e) Worker A (the runner, `--prefetch`) and worker B (a second
+    runner on the same params) served over TCP; a KvRouter on a third
+    runtime hears their KV events. A serves A and the fillers, so A's
+    shared blocks sit in A's host tier; A2 routed to B carries the
+    router's `kv_remote_host` hint, and B pulls A's blocks through A's
+    kv_host_fetch: no recompute, B's pages hold A's bytes. (f) The
+    router's `kv_prefetch` hint for A2 on A promotes the 64 blocks before
+    A2 reaches A, which then claims them (hits) with no onboard."""
+    a, fillers, a2, shared = prompts
+    V = runner.config.vocab_size
+    rb, _ = build_runner(parse_args(TIER_ARGS), params=params)
+    args_a = parse_args(TIER_ARGS + TIER_HOST + ["--prefetch"])
+    args_b = parse_args(TIER_ARGS + TIER_HOST)
+    eng_a = build_engine(args_a, runner=runner)
+    eng_b = build_engine(args_b, runner=rb)
+    realm = "tcp-tiers"
+    rts = [_runtime(realm, "tcp", "tcp") for _ in range(3)]
+    wa = await serve_args(rts[0], eng_a, args_a, colocated=False)
+    wb = await serve_args(rts[1], eng_b, args_b, colocated=False)
+    a_id, b_id = wa.instance.instance_id, wb.instance.instance_id
+    client = rts[2].client("dyn/tpu-worker/generate")
+    kv = KvRouter(rts[2], client, block_size=PAGE_SIZE)
+    push = KvPushRouter(kv)
+    try:
+        await client.wait_ready(timeout=60)
+        while len(client.instances) < 2:
+            await asyncio.sleep(0.01)
+        await kv.start()
+        warm = []
+        for i, p in enumerate([a] + fillers):
+            warm.append(await _collect_timed(_Direct(client, a_id), _tier_req(p), f"fa{i}"))
+        host = kv.indexer.host_index
+        hashes = block_hashes(a2, PAGE_SIZE)
+        while host.find_matches(hashes).scores.get((a_id, 0), 0) < len(shared):
+            await asyncio.sleep(0.01)
+        # (e): A2 on B, pulled from A's host tier
+        torch.cuda.synchronize()
+        _reset(runner, rb)
+        _reset_offloads(eng_a, eng_b)
+        before = eng_b.scheduler.reused_prefix_tokens
+        ctx_meta = {"target_instance": b_id}
+        hit_b = await _collect_timed(_Pinned(push, ctx_meta), _tier_req(a2), "remote")
+        torch.cuda.synchronize()
+        launches_e = {n: fn.launches for n, fn in KERNELS.items()}
+        reused_b = eng_b.scheduler.reused_prefix_tokens - before
+        _check_finished("tiers_remote", warm + [hit_b], V)
+        check(hit_b["tokens"] == cold["tokens"],
+              "tiers_remote: B's stream differs from the cold prefill's")
+        ts = dict(eng_b.tier_stats)
+        check(ts["remote_pulls"] == 1 and ts["remote_blocks"] == len(shared)
+              and ts["remote_failures"] == 0 and ts["onboard_misses"] == 0
+              and reused_b == 1024,
+              f"tiers_remote: B pulled {ts}, reused {reused_b} tokens")
+        _tier_identities("tiers_remote", launches_e, [runner, rb], [eng_a, eng_b],
+                         onboards=1)
+        pages_b = [eng_b.pool.by_hash[h] for h in shared]
+        hk, hv = eng_a.host_pool.get(shared)
+        check(torch.equal(rb.k_pool[:, pages_b].cpu(), hk)
+              and torch.equal(rb.v_pool[:, pages_b].cpu(), hv),
+              "tiers_remote: B's pages differ from A's host blocks")
+        emit({"phase": "engine_tiers_remote", "launches": launches_e,
+              "tier_stats_B": ts, "onboard_B": dict(eng_b.onboard_stats),
+              "kv_onboard_ewma_B": eng_b.kv_onboard_ewma,
+              "pull_bytes": len(shared) * 2 * hk[:, 0].numel() * 2,
+              "reused_prefix_tokens_A2": reused_b, "ttft_s_A2_remote": hit_b["ttft_s"],
+              "ttft_s_A2_cold": cold["ttft_s"], "phases": hit_b["phases"]})
+        # (f): the router's prefetch hint for A2 on A, then A2 on A
+        torch.cuda.synchronize()
+        _reset(runner, rb)
+        _reset_offloads(eng_a, eng_b)
+        overlap = kv.indexer.index.find_matches(hashes).scores.get((a_id, 0), 0)
+        hint = kv.prefetch_hint(hashes, (a_id, 0), overlap, None)
+        check(hint is not None and hint["hashes"] == shared[overlap:],
+              f"tiers_prefetch: the router's hint {hint and len(hint['hashes'])}")
+        t_hint = time.monotonic()
+        kv.emit_prefetch(a_id, hint)
+        pf = eng_a.prefetch
+        while (pf.stats["promoted"] + pf.stats["lost"] + pf.stats["no_space"]
+               + pf.stats["dup"] < len(hint["hashes"])):
+            check(time.monotonic() - t_hint < 60, f"tiers_prefetch: {pf.stats}")
+            await asyncio.sleep(0.005)
+        promote_s = time.monotonic() - t_hint
+        before = eng_a.scheduler.reused_prefix_tokens
+        onboards = eng_a.onboard_stats["onboards"]
+        hit_a = await _collect_timed(_Direct(client, a_id), _tier_req(a2), "prefetched")
+        torch.cuda.synchronize()
+        launches_f = {n: fn.launches for n, fn in KERNELS.items()}
+        reused_a = eng_a.scheduler.reused_prefix_tokens - before
+        pst = dict(pf.stats)
+        check(hit_a["tokens"] == cold["tokens"],
+              "tiers_prefetch: the prefetched stream differs from the cold prefill's")
+        check(pst["promoted"] == len(hint["hashes"]) and pst["hits"] == pst["promoted"] > 0
+              and eng_a.onboard_stats["onboards"] == onboards and reused_a == 1024
+              and eng_a.tier_stats["onboard_misses"] == 0,
+              f"tiers_prefetch: {pst}, reused {reused_a}")
+        _tier_identities("tiers_prefetch", launches_f, [runner, rb], [eng_a, eng_b],
+                         onboards=0, promoted=pst["promoted"])
+        emit({"phase": "engine_tiers_prefetch", "launches": launches_f,
+              "prefetch": pst, "promote_s": promote_s, "reused_prefix_tokens_A2": reused_a,
+              "ttft_s_A2_prefetched": hit_a["ttft_s"], "ttft_s_A2_cold": cold["ttft_s"]})
+    finally:
+        await kv.stop()
+        await client.close()
+        for rt in rts:
+            await rt.shutdown(drain_timeout=10)
+        for w in (wa, wb):
+            await w.stop()
+        free(rb)
+
+
+class _Direct:
+    """generate() straight to one instance through a client."""
+
+    def __init__(self, client, instance_id):
+        self.client, self.instance_id = client, instance_id
+
+    def generate(self, req, ctx):
+        return self.client.direct(req, self.instance_id, ctx)
+
+
+class _Pinned:
+    """generate() through a KvPushRouter with metadata set on the context
+    (target_instance)."""
+
+    def __init__(self, push, meta):
+        self.push, self.meta = push, meta
+
+    def generate(self, req, ctx):
+        ctx.metadata.update(self.meta)
+        return self.push.generate(req, ctx)
 
 
 # -- the sampling extras, guided decoding, branches and embeddings ----------
@@ -5858,6 +6379,7 @@ def main() -> int:
         kern = kernel_phase(dev)
         shapes_phase(dev)
         kern.update(copy_kernel_phase(dev))
+        kern.update(tier_codec_phase(dev))
         kern.update(mla_kernel_phase(dev))
         decode_split_edges_phase(dev)
         gem = gemma_kernels_phase(dev)
@@ -5885,8 +6407,9 @@ def main() -> int:
         disagg, disagg_rec = disagg_phase(runner.params)
         launches["gather_pages"] = disagg["gather_pages"]
         launches["scatter_pages"] = disagg["scatter_pages"]
-        launches["scatter_pages_layers"] = tiers_phase(runner.params)[
-            "scatter_pages_layers"]
+        tier_launches = tiers_phase(runner.params)
+        for name in ("scatter_pages_layers", "tier_quantize", "tier_dequantize"):
+            launches[name] = tier_launches[name]
         parity_phase(runner, dev)
         # this slice's paths: sampling extras, guided decoding, branches
         extras_phases(runner, smi)
@@ -5973,7 +6496,8 @@ def main() -> int:
         head_sources[f"{name}_G7"] = SOURCES[name]
         head_sources[f"{name}_D96_window"] = SOURCES[name]
         head_sources[f"{name}_D96_int8_window"] = INT8_SOURCES[f"{name}_int8"]
-    sources = {**SOURCES, **INT8_SOURCES, **head_sources, **QUANT_SOURCES}
+    sources = {**SOURCES, **INT8_SOURCES, **head_sources, **QUANT_SOURCES,
+               **TIER_CODEC_SOURCES}
     emit({"phase": "total", "seconds": time.monotonic() - t0})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],

@@ -20,7 +20,17 @@ Disaggregated roles: a "prefill" request parks its KV after the first
 token and is pulled by the decode engine (device or host-staged export); a
 "decode" request carrying `kv_import` is admitted with its KV and no
 prefill. With `host_kv_blocks` evicted prefix pages go to the G2 host pool
-and are onboarded back, layer group by layer group, on a prefix hit.
+and down to the G3 disk tier (`disk_kv_blocks`) and the G4 object tier
+(`obj_kv_root`), optionally as the int8 tier codec's blocks
+(`kv_tier_quantize`), and are onboarded back, layer group by layer group,
+on a prefix hit (the host tier's blocks pinned up to HOST_PINNED_BLOCKS
+and copied to the card whole, pageable pages through pinned staging). A
+request carrying the router's `kv_remote_host` hint first pulls a peer's
+lower-tier blocks into the local host tier (`remote_kv_fetch`, wired by
+worker_common; a failed pull recomputes, and pulls stop once they
+measure slower than the prefill), and `prefetch` promotes the blocks a
+router's `kv_prefetch` hint names before the request arrives
+(kvbm/prefetch.py).
 Observers register on the step thread's hooks: `on_fpm` (one
 ForwardPassMetrics per iteration, per half of an unfused mixed one),
 `on_kv_event` (the device pool's and the host tier's store/remove events,
@@ -35,10 +45,10 @@ bias, logprobs and penalties (rows with either of the last two take the
 two-dispatch path, as the reference's `_mixed_fusible` gates them), n > 1
 branches forked after the parent's prefill (trunk pages shared, the tail
 page copied) and embeddings batched into one `embed` pass.
-Not ported yet: LoRA, multimodal input, remote host-tier pulls and the
-G3/G4 tiers; requests asking for those are refused with an "error" item,
-as are guided decoding and logit bias on a draft-model worker (as in the
-reference: the speculative verify cannot honor them).
+Not ported yet: LoRA and multimodal input; requests asking for those are
+refused with an "error" item, as are guided decoding and logit bias on a
+draft-model worker (as in the reference: the speculative verify cannot
+honor them).
 """
 
 from __future__ import annotations
@@ -63,6 +73,7 @@ from dynamo_tpu_torch.engine.model_runner import (
     kv_arrays_to_payload,
     kv_payload_incompatible,
     kv_payload_to_arrays,
+    kv_quant_arrays_to_payload,
 )
 from dynamo_tpu_torch.engine.ngram_draft import accept_deterministic, accept_tree
 from dynamo_tpu_torch.engine.ngram_draft import propose as ngram_propose
@@ -79,7 +90,11 @@ from dynamo_tpu_torch.frontend.tokenizer import load_tokenizer
 from dynamo_tpu_torch.guided import compile_regex, compile_structural
 from dynamo_tpu_torch.guided.device_table import build_device_table
 from dynamo_tpu_torch.guided.token_mask import TokenLifter
+from dynamo_tpu_torch.kvbm.disk_pool import DiskKvPool, TieredKv
 from dynamo_tpu_torch.kvbm.host_pool import HostKvPool
+from dynamo_tpu_torch.kvbm.object_store import FsBackend, ObjectKvPool
+from dynamo_tpu_torch.kvbm.prefetch import PrefetchManager
+from dynamo_tpu_torch.kvbm.quant import is_quantized_block
 from dynamo_tpu_torch.ops.ragged_paged_attention import RAGGED_MAX_SEGS
 from dynamo_tpu_torch.runtime.context import Context
 
@@ -90,7 +105,21 @@ _ITL_CAP = 512
 
 # request fields of features this port does not serve yet: refused up
 # front rather than silently ignored
-_UNSUPPORTED_FIELDS = ("adapter", "mm", "kv_remote_host")
+_UNSUPPORTED_FIELDS = ("adapter", "mm")
+
+# lower tiers by depth, and their labels on a sequence's onboard_tier
+_TIER_ORDER = {"host": 0, "disk": 1, "obj": 2}
+_TIER_LABEL = {"host": "G2", "disk": "G3", "obj": "G4"}
+
+# a remote-G2 pull: its time limit, and how long a peer that failed one
+# is skipped (the request recomputes instead)
+REMOTE_PULL_TIMEOUT_S = 5.0
+REMOTE_PULL_BACKOFF_S = 30.0
+
+# at most this many offloaded pages' host blocks are pinned at a time (the
+# 3B's: 3.8 GB), as many as the host tier holds pinned when it is built;
+# the blocks offloaded past it are pageable
+HOST_PINNED_BLOCKS = 2048
 
 # cached on a matcher whose schema exceeded the device table budget, so
 # the build (and its warning) happens once per matcher
@@ -210,9 +239,22 @@ class InferenceEngine:
         #   the ring's step and readback cost more host time than the scan
         #   of histories that match early; scripts/draft_ring_ab.py)
         host_kv_blocks: int = 0,  # G2 host-tier capacity (0 = disabled)
+        disk_kv_blocks: int = 0,  # G3 disk-tier capacity (needs G2)
+        disk_kv_root: Optional[str] = None,  # G3 directory (None: a temp dir)
+        obj_kv_root: Optional[str] = None,  # G4 object store (a directory,
+        #   FsBackend; needs G2)
+        kv_tier_quantize: bool = False,  # store demoted G2/G3/G4 blocks as
+        #   int8 + per-(token, head) scales (kvbm/quant.py); promotion
+        #   dequantizes, or passes through when the pools are int8
         onboard_layer_groups: int = 1,  # stream tier onboarding in this
         #   many contiguous layer groups (FlowKV-style overlap of transfer
         #   with the first layers' compute; 1 = whole-sequence import)
+        prefetch: bool = False,  # router-hinted tier promotion ahead of
+        #   the request (kvbm/prefetch.py; needs host_kv_blocks > 0)
+        prefetch_max_inflight: int = 4,  # concurrent G3/G4 -> G2 reads
+        prefetch_bandwidth_mbps: float = 0.0,  # promoted bytes/s (0 = off)
+        prefetch_hint_ttl_s: float = 10.0,  # an unserved hint's lifetime
+        prefetch_pin_ttl_s: float = 5.0,  # a promoted block's pin lifetime
         tokenizer_spec: str = "byte",  # guided decoding lifts byte DFAs to
         #   token masks against this tokenizer (the frontend's)
     ):
@@ -237,7 +279,16 @@ class InferenceEngine:
         # fork-on-branch copies a forked tail page's KV through the runner
         self.pool.copy_hook = runner.copy_pages
         self.onboard_layer_groups = max(1, int(onboard_layer_groups))
-        self.host_pool: Optional[HostKvPool] = None
+        self.kv_tier_quantize = bool(kv_tier_quantize)
+        self.host_pool: Optional[TieredKv] = None
+        # cross-worker onboarding: worker_common sets an async
+        # callable(hint) -> payload that pulls a peer's lower-tier blocks
+        # through its kv_host_fetch endpoint (None: off)
+        self.remote_kv_fetch = None
+        self._remote_fetch_backoff: Dict[int, float] = {}  # peer -> until
+        # per-tier EWMA of measured onboard seconds a block (the deepest
+        # tier of each chain, and the remote leg)
+        self.kv_onboard_ewma: Dict[str, Dict[str, float]] = {}
         # step-thread observers, and the host tier's KV events waiting for
         # the next drain
         self._fpm_listeners: List[Any] = []
@@ -245,13 +296,63 @@ class InferenceEngine:
         self._phase_listeners: List[Any] = []
         self._host_events: List[KvEvent] = []
         self._plan_load = (0, 0, 0.0)  # (n_running, n_waiting, kv_usage)
+        if (disk_kv_blocks > 0 or obj_kv_root) and host_kv_blocks <= 0:
+            log.warning("disk/object KV tiers ignored: they spill from the G2 "
+                        "host tier; also set host_kv_blocks > 0")
         if host_kv_blocks > 0:
-            self.host_pool = HostKvPool(capacity_blocks=host_kv_blocks)
+            host = HostKvPool(capacity_blocks=host_kv_blocks,
+                              quantize=self.kv_tier_quantize)
+            disk = None
+            if disk_kv_blocks > 0:
+                import tempfile
+
+                disk = DiskKvPool(
+                    disk_kv_root or tempfile.mkdtemp(prefix="dyn_kv_g3_"),
+                    capacity_blocks=disk_kv_blocks,
+                    quantize=self.kv_tier_quantize)
+            obj = None
+            if obj_kv_root:
+                obj = ObjectKvPool(FsBackend(obj_kv_root),
+                                   quantize=self.kv_tier_quantize)
+                # the router's G4 index hears of each stored block (from
+                # the writer or spill thread, through the inbox)
+                obj.store_listener = self._on_obj_stored
+            self.host_pool = TieredKv(host, disk, obj)
+            # an alloc's evicted pages are offloaded as one batch, before
+            # the alloc returns them (nothing writes them earlier)
             self.pool.evict_hook = self._offload_page
+            self.pool.evict_flush = self._flush_offloads
             self.host_pool.on_evict(self._on_host_evicted)
-        # G2 onboards served at admission: calls, blocks and seconds
+            # pinned memory for the blocks the host tier fills up with, and
+            # the card's side of the largest onboard
+            stage = min(runner.max_pages_per_seq, runner.num_pages)
+            runner.reserve_host_memory(stage, min(HOST_PINNED_BLOCKS, host_kv_blocks),
+                                       HOST_PINNED_BLOCKS, quantize=self.kv_tier_quantize)
+        # onboards served at admission: calls, blocks and seconds (get_s:
+        # the tier reads, import_s: the enqueued copies and scatters)
         self.onboard_stats = {"onboards": 0, "blocks": 0, "seconds": 0.0,
-                              "get_s": 0.0, "wire_s": 0.0, "import_s": 0.0}
+                              "get_s": 0.0, "import_s": 0.0}
+        # device pages offloaded to the host tier, in batches of one alloc's
+        # evictions (pending until the alloc flushes them)
+        self._offload_pending: List[tuple] = []
+        self.offload_stats = {"offloads": 0, "batches": 0, "seconds": 0.0}
+        # the lower tiers' recomputes and remote pulls (cost skips: pulls
+        # not made because they measured slower than the prefill)
+        self.tier_stats = {"onboard_misses": 0, "remote_pulls": 0,
+                           "remote_blocks": 0, "remote_failures": 0,
+                           "remote_backoff_skips": 0, "remote_cost_skips": 0}
+        # prefill seconds a scheduled token, an EWMA over the prefill and
+        # mixed steps: the recompute a remote pull is weighed against
+        self._prefill_s_per_token: Optional[float] = None
+        self.prefetch: Optional[PrefetchManager] = None
+        if prefetch and self.host_pool is not None:
+            self.prefetch = PrefetchManager(
+                self, max_inflight=prefetch_max_inflight,
+                bandwidth_mbps=prefetch_bandwidth_mbps,
+                hint_ttl_s=prefetch_hint_ttl_s, pin_ttl_s=prefetch_pin_ttl_s)
+        elif prefetch:
+            log.warning("prefetch requested without a host KV tier "
+                        "(host_kv_blocks=0); disabled")
         self.scheduler = Scheduler(
             self.pool,
             max_batch=max_batch,
@@ -326,6 +427,8 @@ class InferenceEngine:
         if self._thread is not None:
             self._thread.join(timeout=30)
             self._thread = None
+        if self.prefetch is not None:
+            self.prefetch.stop()
 
     def on_fpm(self, cb) -> None:
         """cb(ForwardPassMetrics) from the step thread."""
@@ -545,6 +648,12 @@ class InferenceEngine:
                 f"prompt of {len(seq.prompt)} tokens exceeds this worker's "
                 f"KV capacity ({cap_tokens - 1} tokens)"))
             return
+        remote = request.get("kv_remote_host")
+        if remote and self.host_pool is not None and self.remote_kv_fetch is not None:
+            # pull the peer's lower-tier blocks into the local host tier
+            # before admission; the inbox is FIFO, so the import lands
+            # before the scheduler sees the request
+            await self._pull_remote_host(remote)
         self._streams[rid] = (out, loop)
         if seq.disagg == "decode" and seq.kv_import is not None:
             self._inbox.put(("add_kv", seq))
@@ -626,9 +735,28 @@ class InferenceEngine:
                 self._reply(fut, loop, self._export_parked_device, rid)
             elif op == "embed":
                 self._embed_pending.append(arg)
+            elif op == "host_export":
+                hashes, fut, loop = arg
+                self._reply(fut, loop, self._host_export, hashes)
+            elif op == "host_import":
+                self._host_import(*arg)
+            elif op == "prefetch":
+                if self.prefetch is not None:
+                    self.prefetch.on_hint(arg)
+            elif op == "prefetch_disk":
+                if self.prefetch is not None:
+                    self.prefetch.on_disk_read(*arg)
+            elif op == "prefetch_obj":
+                if self.prefetch is not None:
+                    self.prefetch.on_obj_read(*arg)
+            elif op == "obj_event":
+                h, parent = arg
+                self._host_events.append(KvEvent("store", [h], parent, tier="obj"))
         self._admit_kv_pending()
         self._expire_parked()
         self._run_embeds()
+        if self.prefetch is not None:
+            self.prefetch.tick()
 
     def _run_embeds(self) -> None:
         """Every pending embedding request in one encoder pass."""
@@ -742,6 +870,10 @@ class InferenceEngine:
         self._publish_kv_events()
 
     def _publish_fpm(self, kind: str, wall: float, n_tok: int) -> None:
+        if kind in ("prefill", "mixed") and n_tok > 0:
+            e = self._prefill_s_per_token
+            per_tok = wall / n_tok
+            self._prefill_s_per_token = per_tok if e is None else 0.25 * per_tok + 0.75 * e
         n_running, n_waiting, kv_usage = self._plan_load
         m = ForwardPassMetrics(ts=time.time(), kind=kind, wall_time_s=wall,
                                scheduled_tokens=n_tok, n_running=n_running,
@@ -1405,44 +1537,246 @@ class InferenceEngine:
                 return
             yield payload
 
-    # -- KVBM G2 tier (step-thread callbacks) -------------------------------
+    # -- KVBM tiers: the asyncio side ---------------------------------------
+    async def export_host_blocks(self, hashes: List[int]) -> Dict[str, Any]:
+        """Serve a peer's cross-worker onboarding pull: the lower-tier
+        read runs on the step thread (the pools are its state)."""
+        return await self._step_thread_call("host_export", [int(h) for h in hashes])
+
+    async def _pull_remote_host(self, hint: Dict[str, Any]) -> None:
+        """Best-effort remote-G2 pull, as the reference's: a peer's blocks
+        into the local host tier before admission. A failure recomputes;
+        a peer that failed is skipped for REMOTE_PULL_BACKOFF_S."""
+        hashes = [int(h) for h in hint.get("hashes") or []]
+        parents = list(hint.get("parents") or [])
+        if not hashes or len(parents) != len(hashes):
+            return
+        if self.host_pool.match(hashes) >= len(hashes):
+            return  # already local (the prefetch hint pulled them)
+        peer = int(hint.get("instance") or 0)
+        now = time.monotonic()
+        if now < self._remote_fetch_backoff.get(peer, 0.0):
+            self.tier_stats["remote_backoff_skips"] += 1
+            return
+        if not self._remote_pull_pays():
+            self.tier_stats["remote_cost_skips"] += 1
+            return
+        t0 = time.perf_counter()
+        try:
+            payload = await asyncio.wait_for(self.remote_kv_fetch(hint),
+                                             timeout=REMOTE_PULL_TIMEOUT_S)
+        except Exception as e:
+            self._remote_fetch_backoff[peer] = now + REMOTE_PULL_BACKOFF_S
+            self.tier_stats["remote_failures"] += 1
+            log.info("remote host-tier pull failed (%s); recomputing", e)
+            return
+        n = int((payload or {}).get("n") or 0)
+        if n <= 0:
+            return
+        self.tier_stats["remote_pulls"] += 1
+        self.tier_stats["remote_blocks"] += n
+        # the peer-pull leg of the transfer cost (the blocks then onboard
+        # from the local G2), and per link class when the router gave one
+        elapsed = time.perf_counter() - t0
+        self._note_onboard([], n, elapsed, tier="remote")
+        link = hint.get("link")
+        if link in ("ici", "dcn"):
+            self._note_onboard([], n, elapsed, tier=f"remote_{link}")
+        self._inbox.put(("host_import", (hashes[:n], parents[:n], payload)))
+
+    def _remote_pull_pays(self) -> bool:
+        """Whether a remote-G2 pull is expected to beat recomputing its
+        blocks: the pulls' measured seconds a block plus the local
+        onboard's, against a page of the prefill's measured seconds a
+        token. Pull until both are measured. (The reference always pulls,
+        and leaves the weighing to the router's tier costs.)"""
+        pull = self.kv_onboard_ewma.get("remote")
+        per_tok = self._prefill_s_per_token
+        if pull is None or per_tok is None:
+            return True
+        onboard = self.kv_onboard_ewma.get("host", {}).get("s_per_block", 0.0)
+        return pull["s_per_block"] + onboard <= per_tok * self.pool.page_size
+
+    async def prefetch_hint_async(self, hint: Dict[str, Any]) -> bool:
+        """The router's `kv_prefetch` hint: promote the hinted blocks
+        before the request arrives. A hint with a `remote` leg first pulls
+        the peer's blocks into the local host tier (the inbox is FIFO, so
+        the import lands before the promotion looks for it)."""
+        if self.prefetch is None:
+            return False
+        remote = hint.get("remote")
+        if remote and self.remote_kv_fetch is not None:
+            await self._pull_remote_host(remote)
+        self._inbox.put(("prefetch", hint))
+        return True
+
+    # -- KVBM tiers (step-thread callbacks) ---------------------------------
     def _offload_page(self, page: int, block_hash: int, parent: Optional[int]) -> None:
-        """Device page being evicted → copy its KV to the host tier."""
-        k, v = kv_payload_to_arrays(self.runner.export_pages([page]))
-        self.host_pool.put([block_hash], [parent], k, v)
-        self._host_events.append(KvEvent("store", [block_hash], parent, tier="host"))
+        """A device page being evicted: its KV goes to the host tier when
+        the evicting alloc flushes (`_flush_offloads`)."""
+        self._offload_pending.append((page, block_hash, parent))
+
+    def _flush_offloads(self) -> None:
+        """The evicted pages of one alloc → the host tier in one batch:
+        one gather a pool, one copy a block into host memory the tier
+        keeps (pinned up to the runner's cap), one wait."""
+        pending, self._offload_pending = self._offload_pending, []
+        if not pending:
+            return
+        t0 = time.perf_counter()
+        blocks = self.runner.export_page_blocks([p for p, _, _ in pending],
+                                                quantize=self.kv_tier_quantize)
+        for (_, h, parent), (k, v) in zip(pending, blocks):
+            self.host_pool.host.put_block(h, parent, k, v)
+            self._host_events.append(KvEvent("store", [h], parent, tier="host"))
+        st = self.offload_stats
+        st["offloads"] += len(pending)
+        st["batches"] += 1
+        st["seconds"] += time.perf_counter() - t0
 
     def _on_host_evicted(self, hashes: List[int]) -> None:
         self._host_events.append(KvEvent("remove", hashes, tier="host"))
+        if self.host_pool.obj is not None:
+            # the terminal tier is G4: the block left the shared store's
+            # index too, so the router's obj_index residency goes with it
+            self._host_events.append(KvEvent("remove", hashes, tier="obj"))
+
+    def _on_obj_stored(self, block_hash: int, parent: Optional[int]) -> None:
+        """G4 store_listener, possibly on the writer or spill thread: the
+        event goes to the step thread through the inbox."""
+        self._inbox.put(("obj_event", (block_hash, parent)))
+
+    def _host_export(self, hashes: List[int]) -> Dict[str, Any]:
+        """A peer's pull: the leading run of `hashes` resident in this
+        worker's lower tiers, as a dense wire payload with "n" blocks."""
+        out: Dict[str, Any] = {"n": 0}
+        if self.host_pool is None or not hashes:
+            return out
+        n = self.host_pool.match(hashes)
+        if not n:
+            return out
+        try:
+            k, v = self.host_pool.get(hashes[:n])
+        except Exception:
+            # an eviction race (KeyError) or a G3/G4 read error: fail the
+            # export, never the step thread
+            log.warning("host export failed; replying empty", exc_info=True)
+            return out
+        if k is None:
+            # a block whose data is gone: advertising it would spread
+            # phantom residency
+            return out
+        out["n"] = n
+        out.update(kv_arrays_to_payload(k, v))
+        return out
+
+    def _host_import(self, hashes: List[int], parents: List[Optional[int]],
+                     payload: Dict[str, Any]) -> None:
+        """Blocks pulled from a peer land in the local G2 (admission then
+        onboards them as any host-tier hit), with host store events.
+        Geometry and dtype are checked here, at ingest: a mismatched
+        peer's blocks are dropped and the request recomputes."""
+        if self.host_pool is None or not hashes:
+            return
+        try:
+            arrays = kv_payload_to_arrays(payload, self.runner.kv_page_shape,
+                                          self.runner.kv_wire_dtype)
+        except Exception:
+            log.warning("peer KV payload rejected; recomputing", exc_info=True)
+            self.tier_stats["remote_failures"] += 1
+            return
+        if arrays is None:
+            return
+        k, v = arrays
+        self.host_pool.put(hashes, parents, k, v)
+        self._host_events.append(
+            KvEvent("store", list(hashes), parents[0] if parents else None,
+                    tier="host"))
 
     def _onboard_from_host(self, pages: List[int], hashes: List[int],
                            seq: Optional[Sequence] = None) -> bool:
-        """Host-tier blocks → device pages during admission, imported in
-        `onboard_layer_groups` layer slabs. Returns False when a matched
-        block was evicted between match and get: the scheduler then
-        recomputes instead of trusting a partial import."""
+        """Lower-tier blocks → device pages during admission, imported in
+        `onboard_layer_groups` layer slabs (runner.import_page_tensors:
+        pinned blocks copied whole, others staged). Returns False when a matched
+        block left the tiers or has no data (the scheduler then recomputes
+        instead of trusting a partial import). A quantizing tier's all-G2
+        chain crosses as codes and scales (int8 pools store them, dense
+        pools dequantize them on the device); the measured time feeds the
+        per-tier EWMA."""
+        if self.prefetch is not None:
+            # blocks still mid-promotion arrived late: this import wins
+            self.prefetch.note_sync_onboard(hashes)
+        tiers = self.host_pool.residency(hashes)
+        if seq is not None and tiers:
+            # the deepest rung dominates the transfer and labels it
+            deepest = max(tiers, key=lambda t: _TIER_ORDER.get(t, -1))
+            seq.onboard_tier = _TIER_LABEL.get(deepest, deepest)
+        groups = self.onboard_layer_groups
         t0 = time.perf_counter()
         try:
-            k, v = self.host_pool.get(hashes)
+            payload = self._native_quant_payload(hashes, tiers)
+            blocks = None if payload is not None else self.host_pool.get_blocks(hashes)
         except KeyError:
-            log.info("host-tier block evicted before onboard; recomputing")
+            log.info("lower-tier block evicted before onboard; recomputing")
+            self.tier_stats["onboard_misses"] += 1
             return False
-        if seq is not None:
-            seq.onboard_tier = "G2"
+        if payload is None and blocks is None:
+            # a block whose data is gone (a deleted G4 object)
+            log.info("lower-tier block has no data; recomputing")
+            self.tier_stats["onboard_misses"] += 1
+            return False
         t1 = time.perf_counter()
-        payload = kv_arrays_to_payload(k, v)
+        if payload is not None:
+            self.runner.import_pages(pages, 0, payload, layer_groups=groups)
+        else:
+            self.runner.import_page_tensors(pages, [b[0] for b in blocks],
+                                            [b[1] for b in blocks],
+                                            layer_groups=groups)
         t2 = time.perf_counter()
-        self.runner.import_pages(pages, 0, payload,
-                                 layer_groups=self.onboard_layer_groups)
-        t3 = time.perf_counter()
         st = self.onboard_stats
         st["onboards"] += 1
         st["blocks"] += len(hashes)
-        st["seconds"] += t3 - t0
-        st["get_s"] += t1 - t0  # host blocks stacked
-        st["wire_s"] += t2 - t1  # stacked pages to wire bytes
-        st["import_s"] += t3 - t2  # bytes to device pages
+        st["seconds"] += t2 - t0
+        st["get_s"] += t1 - t0  # tier reads (and dequantization)
+        st["import_s"] += t2 - t1  # the enqueued copies and scatters
+        self._note_onboard(tiers, len(hashes), t2 - t0)
         return True
+
+    def _native_quant_payload(self, hashes: List[int], tiers: List[str]):
+        """The codes + scales payload when the whole chain is in G2 and the
+        tier quantizes: int8 pools adopt them as they are, dense pools
+        dequantize them on the device (the reference dequantizes on the
+        host; the bytes are the same). Else None (the dense path). Raises
+        KeyError on an eviction race."""
+        if not self.host_pool.host.quantize:
+            return None
+        if any(t != "host" for t in tiers):
+            return None
+        blocks = [self.host_pool.host.get_block_raw(h) for h in hashes]
+        if not blocks or not all(is_quantized_block(k) and is_quantized_block(v)
+                                 for k, v in blocks):
+            return None
+        return kv_quant_arrays_to_payload(
+            [k["q"] for k, _ in blocks], [k["s"] for k, _ in blocks],
+            [v["q"] for _, v in blocks], [v["s"] for _, v in blocks])
+
+    def _note_onboard(self, tiers: List[str], n_blocks: int, elapsed_s: float,
+                      tier: Optional[str] = None) -> None:
+        """Fold one measured onboard into the per-tier seconds-a-block
+        EWMA (alpha 0.25), charged to the chain's deepest tier."""
+        if tier is None:
+            tier = "host"
+            for t in tiers:
+                if _TIER_ORDER.get(t, -1) > _TIER_ORDER[tier]:
+                    tier = t
+        per_block = elapsed_s / max(1, n_blocks)
+        e = self.kv_onboard_ewma.get(tier)
+        if e is None:
+            self.kv_onboard_ewma[tier] = {"s_per_block": per_block, "n": n_blocks}
+            return
+        alpha = 0.25
+        e["s_per_block"] = alpha * per_block + (1 - alpha) * e["s_per_block"]
+        e["n"] += n_blocks
 
     # -- emission ----------------------------------------------------------
     def _emit(self, seq: Sequence, token_ids: List[int], finish: Optional[str],

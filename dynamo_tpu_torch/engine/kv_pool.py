@@ -53,6 +53,10 @@ class PagePool:
         # offload hook: cb(page, block_hash, parent_hash) invoked just
         # before an evicted page's slot is reused (KVBM G1→G2 offload)
         self.evict_hook = None
+        # cb() once an alloc's evictions are all made, before it returns
+        # the pages: the port's engine offloads the alloc's evicted pages
+        # in one batch here (nothing writes them before alloc returns)
+        self.evict_flush = None
         # prefetch-pinned hashes: cached pages eviction must skip (promoted
         # speculatively for an inbound request; pins are TTL-bounded by the
         # PrefetchManager, never held across a pool reset)
@@ -104,6 +108,8 @@ class PagePool:
         if self.n_free < n:
             raise NoSpace(f"need {n} pages, have {self.n_free} evictable")
         pages = [self._pop_free() for _ in range(n)]
+        if self.evict_flush is not None:
+            self.evict_flush()
         for p in pages:
             self.ref[p] = 1
         return pages

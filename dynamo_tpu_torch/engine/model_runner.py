@@ -6,7 +6,11 @@ Port of dynamo_tpu/engine/model_runner.py's main-path methods: `prefill`,
 `_ragged_step`, or the padded [N, S] fallback `_mixed_loop`), the
 speculative `verify_spec` on the same ragged step, `sample_one`, and the
 KV transfer methods (`export_pages(_device)`, `import_pages(_device)` with
-the layer-streamed import) over the block-copy kernels, `copy_pages`
+the layer-streamed import; for the KV tiers `export_page_blocks`, which
+can quantize on the device with the tier codec, `import_page_tensors`
+and the codes-and-scales import, over a copy stream, the host tier's
+blocks pinned up to a cap and pageable pages staged in pinned buffers,
+`reserve_host_memory`) over the block-copy kernels, `copy_pages`
 (the page pool's fork-on-branch copy hook), `embed` (the embedding
 forward, models/llama.py `encode`), draft-model speculation
 (`draft_config`: the draft's params and pools, `draft_prefill`,
@@ -40,6 +44,7 @@ import logging
 import os
 import time
 import warnings
+import weakref
 from collections import OrderedDict
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
@@ -75,6 +80,7 @@ from dynamo_tpu_torch.ops.block_copy import (
     scatter_pages,
     scatter_pages_layers,
 )
+from dynamo_tpu_torch.ops.tier_codec import tier_dequantize, tier_quantize
 from dynamo_tpu_torch.ops.ragged_paged_attention import (
     DEFAULT_Q_BLOCK,
     RAGGED_MAX_SEGS,
@@ -121,6 +127,11 @@ class BucketOverflowError(ValueError):
         super().__init__(f"{n} exceeds largest bucket {buckets[-1]}")
         self.n = n
         self.largest = buckets[-1]
+
+
+def _unpin_one(live: List[int]) -> None:
+    """A pinned host block was freed (ModelRunner._host_block)."""
+    live[0] -= 1
 
 
 def _next_bucket(buckets: Sequence[int], n: int) -> int:
@@ -267,6 +278,29 @@ def kv_arrays_to_payload(k: torch.Tensor, v: torch.Tensor,
         "head_dim": int(k.shape[4]),
         "layers": int(k.shape[0]),
         "tp": int(tp),
+    }
+
+
+def kv_quant_arrays_to_payload(kq, ks, vq, vs) -> Dict[str, Any]:
+    """The int8 + scales payload of a LOCAL tier promotion (engine to
+    runner in one process; tensors stay tensors, no bytes): the tier
+    codec's per-(token, head) codes and scales as lists of n per-block
+    tensors, q [L, PS, Hk, D] and s [L, PS, Hk] (the reference stacks
+    them; here each block goes to the card as it is), so an int8 pool
+    adopts them without a dequantize / requantize round trip. The
+    cross-worker wire stays dense (kv_arrays_to_payload)."""
+    shape = [int(kq[0].shape[0]), len(kq)] + [int(d) for d in kq[0].shape[1:]]
+    return {
+        "data": True,
+        "quant": "int8_ts",
+        "kq": kq, "ks": ks, "vq": vq, "vs": vs,
+        "shape": shape,
+        "n_pages": shape[1],
+        "layout": KV_WIRE_LAYOUT_VERSION,
+        "page_size": shape[2],
+        "kv_heads": shape[3],
+        "head_dim": shape[4],
+        "layers": shape[0],
     }
 
 
@@ -436,6 +470,16 @@ class ModelRunner:
         self._draft_ring_shape = None  # (slots, window, delta capacity)
         self.stats: Dict[str, int] = {}
         self.reset_stats()
+        # the host tier's blocks (export_page_blocks): at most
+        # `pinned_block_cap` of the host tensors handed out are pinned (set
+        # by reserve_host_memory), the rest pageable; `_pinned_live` counts
+        # the pinned ones alive. The imports' pinned staging of pageable
+        # pages (_host_stage) and their copy stream.
+        self.pinned_block_cap = 0
+        self._pinned_live = [0]
+        self._stage_bufs: Dict[str, torch.Tensor] = {}
+        self._stage_event = None
+        self._copy_stream = None
         self._sampling_cache: Dict[Any, SamplingParams] = {}
         # staged guided tables by the uids of their schemas
         self._guided_dev_cache: "OrderedDict[Tuple[int, ...], Any]" = OrderedDict()
@@ -1296,6 +1340,66 @@ class ModelRunner:
         the pool dtype."""
         return x.contiguous().to(self.device, self.dtype)
 
+    def _host_stage(self, key: str, shape, dtype: torch.dtype) -> torch.Tensor:
+        """A persistent pinned host buffer, one per pool part, grown on
+        demand to the largest import of pageable pages, so an import pins
+        no memory. It is handed out again only after the last copy that
+        read it has finished (`_stage_event`). Copies straight from
+        pageable memory measured slower than through it
+        (scripts/tier_staging_bench.py, PERF.md)."""
+        if self._stage_event is not None:
+            self._stage_event.synchronize()
+            self._stage_event = None
+        n = 1
+        for d in shape:
+            n *= int(d)
+        n *= torch.empty((), dtype=dtype).element_size()
+        buf = self._stage_bufs.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.empty(n, dtype=torch.uint8,
+                              pin_memory=self.device.type == "cuda")
+            self._stage_bufs[key] = buf
+        return buf[:n].view(dtype).view(tuple(shape))
+
+    def _stage_in(self, key: str, x) -> torch.Tensor:
+        """Host pages into staging: x is [L, n, ...] (any CPU tensor or
+        view) or a list of n [L, ...] blocks, stacked straight into the
+        buffer (no pageable intermediate). On a CPU runner the pages are
+        used where they are."""
+        if isinstance(x, (list, tuple)):
+            if self.device.type != "cuda":
+                return torch.stack(list(x), dim=1)
+            b0 = x[0]
+            shape = (b0.shape[0], len(x)) + tuple(b0.shape[1:])
+            out = self._host_stage(key, shape, b0.dtype)
+            torch.stack(list(x), dim=1, out=out)
+            return out
+        if self.device.type != "cuda" or x.device.type == "cuda":
+            return x
+        out = self._host_stage(key, x.shape, x.dtype)
+        out.copy_(x)
+        return out
+
+    def _host_block(self, shape, dtype: torch.dtype) -> torch.Tensor:
+        """A host tensor for one part of an offloaded block: pinned while
+        fewer than `pinned_block_cap` pinned ones are alive (PyTorch's
+        caching host allocator recycles the memory of a block the tier
+        dropped, once the copies that read it have finished), pageable
+        past the cap or when pinning fails."""
+        live = self._pinned_live
+        if live[0] < self.pinned_block_cap:
+            try:
+                h = torch.empty(shape, dtype=dtype, pin_memory=True)
+            except RuntimeError as e:
+                log.warning("pinning a host KV block failed (%s); the host "
+                            "tier's later blocks are pageable", e)
+                self.pinned_block_cap = live[0]
+            else:
+                live[0] += 1
+                weakref.finalize(h, _unpin_one, live)
+                return h
+        return torch.empty(shape, dtype=dtype)
+
     def export_pages_device(self, pages: List[int]):
         """Gather whole KV pages into fresh device buffers (no host copy),
         [L, n, PS, Hk, D] per pool. The gather materializes new tensors, so
@@ -1315,17 +1419,87 @@ class ModelRunner:
         self._store_pages(self.v_pool, idx, v[:, offset:offset + n])
         self.stats["kv_pages_imported"] += n
 
+    def export_page_blocks(self, pages: List[int], quantize: bool = False) -> List[tuple]:
+        """Device→host read of whole KV pages as one (k, v) pair of host
+        blocks a page, the host tier's unit: dense [L, PS, Hk, D], or with
+        `quantize` the tier codec's {"q", "s", "dt"} dicts, quantized on
+        the device (ops/tier_codec.py, bit for bit the host codec) so half
+        the bytes cross. One gather per pool, the pages made page-major
+        on the device, one copy a block part into its own host tensor
+        (`_host_block`: pinned up to `pinned_block_cap`, from PyTorch's
+        caching host allocator warmed by `reserve_host_memory`), one wait.
+        The blocks belong to the caller."""
+        k, v = self.export_pages_device(pages)
+        cuda = self.device.type == "cuda"
+        dt = _WIRE_DTYPES[self.dtype]
+        pools = []
+        for x in (k, v):
+            xp = x.transpose(0, 1).contiguous()  # [n, L, PS, Hk, D]
+            pools.append(tier_quantize(xp) if quantize else (xp,))
+        out = []
+        for i in range(len(pages)):  # page by page: the pinned cap ends at a page
+            pair = []
+            for parts in pools:
+                held = []
+                for t in parts:
+                    if cuda:
+                        h = self._host_block(t.shape[1:], t.dtype)
+                        h.copy_(t[i], non_blocking=True)
+                    else:
+                        h = t[i]
+                    held.append(h)
+                pair.append({"q": held[0], "s": held[1], "dt": dt}
+                            if quantize else held[0])
+            out.append(tuple(pair))
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        return out
+
+    def reserve_host_memory(self, stage_pages: int, blocks: int, cap_blocks: int,
+                            quantize: bool = False) -> None:
+        """Pin the host tier's memory off the request path: `blocks`
+        offloaded pages' blocks (dense, or the codec's codes and scales),
+        allocated pinned and freed at once, so PyTorch's caching host
+        allocator hands later offloads memory it already holds (pinning
+        fresh memory is slow: PERF.md §6), with at most `cap_blocks` pages'
+        blocks pinned at a time (`pinned_block_cap`); and the import
+        staging of `stage_pages` pageable pages. Then warm the card's side
+        of such an onboard: its device buffers, left in the caching
+        allocator, and the copy stream's first copy and event, which a
+        first onboard pays otherwise."""
+        if self.device.type != "cuda":
+            return
+        L, PS, Hk, D = self.kv_page_shape
+        shapes = ([((L, PS, Hk, D), torch.int8), ((L, PS, Hk), torch.float32)]
+                  if quantize else [((L, PS, Hk, D), self.dtype)])
+        self.pinned_block_cap = 2 * cap_blocks * len(shapes)
+        warm = [torch.empty(shape, dtype=dtype, pin_memory=True)
+                for _ in range(2 * blocks) for shape, dtype in shapes]
+        del warm
+        for key in ("k0", "v0"):
+            self._host_stage(key, (L, stage_pages, PS, Hk, D), self.dtype)
+        warm = [torch.empty(self._stage_bufs[key].numel(), dtype=torch.uint8,
+                            device=self.device) for key in ("k0", "v0")]
+        del warm
+        if self._copy_stream is None:
+            self._copy_stream = torch.cuda.Stream(self.device)
+        with torch.cuda.stream(self._copy_stream):
+            torch.empty(16, device=self.device).copy_(
+                self._stage_bufs["k0"][:64].view(torch.float32), non_blocking=True)
+            torch.cuda.Event().record(self._copy_stream)
+        self._copy_stream.synchronize()
+
     def export_pages(self, pages: List[int]) -> Dict[str, Any]:
-        """Device→host read of whole KV pages for P→D transfer and the
-        host tier: one gather per pool into a device buffer, one copy per
-        pool into pinned host memory, then the wire bytes
-        [L, n_pages, PS, Hk, D]."""
+        """Device→host read of whole KV pages for P→D transfer, as wire
+        bytes [L, n_pages, PS, Hk, D]: one gather per pool, one copy per
+        pool into pinned memory, one wait."""
         k, v = self.export_pages_device(pages)
         if self.device.type == "cuda":
             k_h = torch.empty(k.shape, dtype=k.dtype, pin_memory=True)
             v_h = torch.empty(v.shape, dtype=v.dtype, pin_memory=True)
-            k_h.copy_(k)
-            v_h.copy_(v)
+            k_h.copy_(k, non_blocking=True)
+            v_h.copy_(v, non_blocking=True)
+            torch.cuda.current_stream(self.device).synchronize()
             k, v = k_h, v_h
         return kv_arrays_to_payload(k, v)
 
@@ -1348,33 +1522,137 @@ class ModelRunner:
         slots. `offset` = first payload page to use (earlier pages were
         satisfied by the local prefix cache). Validates the payload's
         layout metadata against the local pool geometry
-        (KvWireLayoutMismatch on any divergence).
-
-        layer_groups > 1 streams the import in contiguous layer slabs
-        (FlowKV-style): each group's host→device copy and scatter are
-        enqueued on their own. Final pool contents are identical to a whole-sequence
-        import."""
+        (KvWireLayoutMismatch on any divergence). An "int8_ts" payload
+        (kv_quant_arrays_to_payload) takes `_import_pages_quant`."""
+        if payload.get("quant") == "int8_ts":
+            return self._import_pages_quant(target_pages, offset, payload,
+                                            layer_groups)
         arrays = kv_payload_to_arrays(payload, self.kv_page_shape,
                                       self.kv_wire_dtype)
         if arrays is None:
             return
         k, v = arrays
+        sel = slice(offset, offset + len(target_pages))
+        self.import_page_tensors(target_pages, k[:, sel], v[:, sel], layer_groups)
+
+    def import_page_tensors(self, target_pages: List[int], k, v,
+                            layer_groups: int = 1) -> None:
+        """Dense pages into this pool's slots: k, v [L, n, PS, Hk, D] host
+        tensors, or lists of n [L, PS, Hk, D] host blocks (all pinned:
+        copied whole; else stacked straight into the staging buffers), in
+        the runner's dtype. An int8 pool quantizes them on the device with
+        its own quantizer.
+
+        layer_groups > 1 streams the import in contiguous layer slabs
+        (FlowKV-style): on a card each group's host→device copy runs on a
+        copy stream and its scatter on the compute stream behind it, so a
+        group's copy overlaps the previous group's scatter. Final pool
+        contents are identical to a whole-sequence import."""
+        self._import_staged(target_pages, [k], [v], layer_groups)
+
+    def _import_pages_quant(self, target_pages: List[int], offset: int,
+                            payload: Dict[str, Any], layer_groups: int = 1) -> None:
+        """The tier codec's int8 + scales pages (kv_quant_arrays_to_payload):
+        an int8 pool adopts the codes and scales as they are, with no
+        dequantize / requantize; a dense pool dequantizes them on the
+        device after the copy (ops/tier_codec.py, the host codec's
+        arithmetic bit for bit), one rounding as on the dense wire."""
+        if payload.get("layout") != KV_WIRE_LAYOUT_VERSION:
+            raise KvWireLayoutMismatch(
+                f"kv wire layout {payload.get('layout')} != {KV_WIRE_LAYOUT_VERSION}")
+        L, PS, Hk, D = self.kv_page_shape
+        shape = tuple(payload["shape"])
+        got = (shape[0],) + shape[2:]
+        if got != (L, PS, Hk, D):
+            raise KvWireLayoutMismatch(
+                f"quant page geometry {got} != local (L={L}, PS={PS}, "
+                f"Hk={Hk}, D={D})")
+        sel = slice(offset, offset + len(target_pages))
+        kq, ks, vq, vs = (payload[n][sel] for n in ("kq", "ks", "vq", "vs"))
+        # the scales as the 1-wide last dim the copy kernels move (_parts)
+        self._import_staged(target_pages, [kq, [s[..., None] for s in ks]],
+                            [vq, [s[..., None] for s in vs]], layer_groups, codes=True)
+
+    def _import_staged(self, target_pages: List[int], k_parts, v_parts,
+                       layer_groups: int, codes: bool = False) -> None:
+        """Host pages of each pool part into the pools. `k_parts` /
+        `v_parts` hold the dense pages ([pages]) or, `codes`, the tier
+        codec's [codes, scales[..., None]], which an int8 pool stores as
+        they are and a dense pool dequantizes on the device; each part is
+        a [L, n, ...] tensor or a list of n blocks."""
         n = len(target_pages)
-        sel = slice(offset, offset + n)
-        if layer_groups <= 1:
-            idx, = self._page_ids(target_pages)
-            self._store_pages(self.k_pool, idx, k[:, sel])
-            self._store_pages(self.v_pool, idx, v[:, sel])
-        else:
-            bounds = layer_group_bounds(self.kv_page_shape[0], layer_groups)
-            # the page list and every group's first layer: one upload
-            idx, offs = self._page_ids(target_pages, [lo for lo, _ in bounds])
-            for g, (lo, hi) in enumerate(bounds):
-                self._store_pages_layers(self.k_pool, idx, k[lo:hi, sel],
-                                         offs[g:g + 1])
-                self._store_pages_layers(self.v_pool, idx, v[lo:hi, sel],
-                                         offs[g:g + 1])
+        L = self.kv_page_shape[0]
+        layered = layer_groups > 1
+        bounds = layer_group_bounds(L, layer_groups) if layered else [(0, L)]
+        idx, offs = self._page_ids(target_pages, [lo for lo, _ in bounds])
+        cuda = self.device.type == "cuda"
+        host = {}
+        for name, parts in (("k", k_parts), ("v", v_parts)):
+            for j, x in enumerate(parts):
+                key = f"{name}{j}"
+                if cuda and isinstance(x, (list, tuple)) and all(b.is_pinned() for b in x):
+                    # pinned blocks (the host tier's own): copied to the
+                    # card whole, with no host stack (a host memcpy of the
+                    # onboard's bytes, slow when the host is busy)
+                    host[key] = list(x)
+                else:
+                    host[key] = self._stage_in(key, x)
+        src, events = host, []
+        if cuda:
+            main = torch.cuda.current_stream(self.device)
+            if self._copy_stream is None:
+                self._copy_stream = torch.cuda.Stream(self.device)
+            cs = self._copy_stream
+            # device staging allocated on the compute stream, written on
+            # the copy stream, read on the compute stream after each
+            # group's event: freed only behind its last reader. Pinned
+            # blocks land page-major, [n, L, ...], each group made
+            # layer-major on the compute stream; staged pages are copied a
+            # layer group at a time, every group enqueued first, so copy
+            # g + 1 runs while group g scatters (each scatter's wrapper
+            # reads its page ids back, which waits for the compute stream
+            # only).
+            src = {key: torch.empty(
+                (len(x),) + tuple(x[0].shape) if isinstance(x, list) else x.shape,
+                dtype=x[0].dtype if isinstance(x, list) else x.dtype,
+                device=self.device) for key, x in host.items()}
+            cs.wait_stream(main)
+            with torch.cuda.stream(cs):
+                for key, x in host.items():
+                    if isinstance(x, list):
+                        for i, b in enumerate(x):
+                            src[key][i].copy_(b, non_blocking=True)
+                for lo, hi in bounds:
+                    for key, x in host.items():
+                        if not isinstance(x, list):
+                            src[key][lo:hi].copy_(x[lo:hi], non_blocking=True)
+                    ev = torch.cuda.Event()
+                    ev.record(cs)
+                    events.append(ev)
+        for g, (lo, hi) in enumerate(bounds):
+            if cuda:
+                main.wait_event(events[g])
+            grp = {key: (t[:, lo:hi].transpose(0, 1).contiguous()
+                         if isinstance(host[key], list) else t[lo:hi])
+                   for key, t in src.items()}
+            for name, pool in (("k", self.k_pool), ("v", self.v_pool)):
+                if not codes:
+                    stored = self._as_stored(pool, grp[f"{name}0"])
+                elif is_quantized(pool):
+                    stored = [grp[f"{name}0"], grp[f"{name}1"]]
+                else:
+                    stored = [tier_dequantize(grp[f"{name}0"], grp[f"{name}1"][..., 0],
+                                              self.dtype)]
+                for p, pages in zip(self._parts(pool), stored):
+                    if layered:
+                        scatter_pages_layers(p, idx, pages, offs[g:g + 1])
+                    else:
+                        scatter_pages(p, idx, pages)
+            if layered:
                 self.stats["kv_layer_group_scatters"] += 1
+        if cuda:
+            # the host buffers are reused once the last copy has read them
+            self._stage_event = events[-1]
         self.stats["kv_pages_imported"] += n
 
     def _pad_page_table(self, rows: List[List[int]], B: Optional[int] = None) -> np.ndarray:

@@ -79,6 +79,12 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
         # the rows at or below which a launch takes the small tiles
         "quant_gemm_small_m": ([], _I),
     },
+    "tier_codec": {
+        # x, q, s, rows, D, dtype (0 f32, 1 bf16, 2 f16), stream
+        "tier_quantize": ([_P] * 3 + [_I] * 3 + [_P], _I),
+        # q, s, out, rows, D, dtype, stream
+        "tier_dequantize": ([_P] * 3 + [_I] * 3 + [_P], _I),
+    },
     "block_copy": {
         # pool, idx, out, L, NP, n, PS, Hk, R (16-byte vectors per D row),
         # head_major, stream

@@ -5,8 +5,8 @@ Port of dynamo_tpu/router/indexer.py `KvIndexer`. Freshness loop: a
 worker's PagePool mutation → KvEventPublisher → the TCP event plane →
 this subscriber → `apply_event` → the next `find_matches` sees it.
 Device-tier events go to `index` (the C++ index in event mode, the
-Python one in TTL mode), host-tier (G2) events to `host_index`; the
-object-tier index stays empty until the port has that tier (A.7).
+Python one in TTL mode), host-tier (G2) events to `host_index`, and
+object-tier (G4) store and remove events to `obj_index`.
 Recovery: a gap in a worker's event ids (a subscriber that fell behind
 the publisher's high-water mark) triggers a full-state resync from that
 worker's `kv_state` endpoint; the same dump seeds the index when a worker
@@ -46,7 +46,7 @@ class KvIndexer:
         self.index = index if index is not None else make_block_index(
             ttl_mode=ttl is not None)
         self.host_index = BlockIndex()  # G2 residency (partial credits)
-        self.obj_index = BlockIndex()  # object-tier residency (A.7)
+        self.obj_index = BlockIndex()  # G4 object-tier residency
         self._sub = subscriber
         self._dump_fn = dump_fn
         self.ttl = ttl

@@ -11,9 +11,19 @@ active-sequence charge (add on routing, prefill done at the first item,
 free at the end). Without KV events (approximate mode) the router
 predicts cache state from what it routed, with a TTL.
 
-Not ported yet: the router replica sync, the prefetch and remote-host
-hints and hot-trunk replication (with the host-tier peer pulls, A.7), the
-LoRA filter (A.9), the routing audit and the tracing spans (A.11).
+The lower tiers: the selector prices the workers' host-tier (G2) and
+object-tier (G4) residency, a peer's G2 by the link class of the pull
+(`kv_slice` metadata: same slice "ici", another "dcn"), and measured
+onboard costs when a `tier_cost_fn` is bound. A request whose longest
+prefix sits in a peer's lower tier carries a `kv_remote_host` hint (the
+worker pulls the blocks through the peer's `kv_host_fetch`), a worker
+that runs a prefetch manager gets a `kv_prefetch` hint ahead of the
+request, and a trunk (first block) that proves hot is replicated once
+onto a slice that holds none of it.
+
+Not ported yet: the router replica sync, the LoRA filter (A.9), the
+routing audit, the tracing spans and the fleet digest that feeds
+`bind_tier_costs` (A.11).
 """
 
 from __future__ import annotations
@@ -21,6 +31,7 @@ from __future__ import annotations
 import asyncio
 import logging
 import time
+from collections import OrderedDict
 from typing import Any, AsyncIterator, Dict, List, Optional, Tuple
 
 from dynamo_tpu_torch.router.indexer import KvIndexer
@@ -72,6 +83,28 @@ class KvRouter:
         )
         self._started = False
         self._known_workers: set = set()
+        # kv_prefetch hints ahead of the request, to workers that advertise
+        # a prefetch manager; fire-and-forget, and an instance whose hint
+        # endpoint errors is hinted no more
+        self.prefetch_hints = True
+        self._prefetch_client = None  # {ns}/{comp}/kv_prefetch, lazily
+        self._prefetch_bad: set = set()
+        self._prefetch_tasks: set = set()
+        # measured per-(worker, tier) onboard costs (bind_tier_costs: () ->
+        # {worker: {tier: s_per_block}}), snapshotted at most once a second
+        # (find_best_match is the per-request hot path); None keeps the
+        # config's constant priors
+        self.tier_cost_fn = None
+        self._tier_costs_cache: Dict[Worker, Dict[str, float]] = {}
+        self._tier_costs_at = 0.0
+        # per-trunk (first block hash) popularity: a hot trunk is
+        # replicated once onto a slice that holds none of it
+        self.prefix_stats = {"replications": 0, "hot_trunks": 0}
+        self._trunk_pop: "OrderedDict[int, int]" = OrderedDict()
+        self._trunk_replicated: Dict[int, float] = {}  # trunk -> mono ts
+        self.replicate_hot_threshold = 8
+        self.replicate_cooldown_s = 30.0
+        self._trunk_cap = 4096
 
     async def start(self) -> None:
         if self._started:
@@ -140,6 +173,23 @@ class KvRouter:
         raise RuntimeError("empty kv dump")
 
     # -- selection ---------------------------------------------------------
+    def bind_tier_costs(self, fn) -> None:
+        """Late-bind the measured-cost source."""
+        self.tier_cost_fn = fn
+
+    def _tier_costs(self) -> Dict[Worker, Dict[str, float]]:
+        if self.tier_cost_fn is None:
+            return {}
+        now = time.monotonic()
+        if now - self._tier_costs_at > 1.0:
+            try:
+                self._tier_costs_cache = self.tier_cost_fn() or {}
+            except Exception:
+                log.debug("tier cost snapshot failed", exc_info=True)
+                self._tier_costs_cache = {}
+            self._tier_costs_at = now
+        return self._tier_costs_cache
+
     def workers(self) -> List[Worker]:
         out: List[Worker] = []
         for inst in self.client.instances.values():
@@ -147,16 +197,54 @@ class KvRouter:
             out.extend((inst.instance_id, r) for r in range(dp))
         return sorted(out)
 
+    def _slice_of(self, instance_id: int) -> Optional[str]:
+        """A worker's kv_slice label; None: topology unknown."""
+        inst = self.client.instances.get(instance_id)
+        if inst is None:
+            return None
+        s = (inst.metadata or {}).get("kv_slice")
+        return str(s) if s is not None else None
+
+    def _link_classes(self, workers: List[Worker],
+                      host_overlaps: Dict[Worker, int]) -> Dict[Worker, str]:
+        """Each candidate's link to the best G2 holder: the same slice
+        "ici", another "dcn". Candidates or holders without a slice stay
+        absent (the selector's flat "remote" prior)."""
+        holder, best_n = None, 0
+        for w, n in sorted(host_overlaps.items()):
+            if n > best_n:
+                holder, best_n = w, n
+        out: Dict[Worker, str] = {}
+        if holder is None:
+            return out
+        h_slice = self._slice_of(holder[0])
+        if h_slice is None:
+            return out
+        for w in workers:
+            if w[0] == holder[0]:
+                continue  # its own lower tier, not a peer pull
+            w_slice = self._slice_of(w[0])
+            if w_slice is not None:
+                out[w] = "ici" if w_slice == h_slice else "dcn"
+        return out
+
     def find_best_match(
         self, token_ids: List[int], pinned_instance: Optional[int] = None,
+        collect: Optional[Dict[str, Any]] = None,
     ) -> Tuple[Worker, int, List[int]]:
         """Returns (worker, overlap blocks, block hashes); `pinned_instance`
-        restricts selection to that instance's ranks. The hash chain is
-        the base model's: the workers refuse LoRA adapters and
-        multimodal inputs, whose lineages fork it (A.9, A.12)."""
+        restricts selection to that instance's ranks; `collect` receives
+        the host and object overlaps (for the hints, without a second
+        walk). The hash chain is the base model's: the workers refuse
+        LoRA adapters and multimodal inputs, whose lineages fork it (A.9,
+        A.12)."""
         hashes = block_hashes(token_ids, self.block_size)
         overlaps = self.indexer.index.find_matches(hashes)
         host_overlaps = self.indexer.host_index.find_matches(hashes).scores
+        obj_overlaps = self.indexer.obj_index.find_matches(hashes).scores
+        if collect is not None:
+            collect["host_overlaps"] = host_overlaps
+            collect["obj_overlaps"] = obj_overlaps
         workers = self.workers()
         if pinned_instance is not None:
             # an explicit pin bypasses the sick filter, and a pinned
@@ -176,8 +264,192 @@ class KvRouter:
                     workers = healthy
         worker, overlap = self.selector.select(
             workers, len(hashes), overlaps, self.sequences,
-            host_overlaps=host_overlaps)
+            host_overlaps=host_overlaps, tier_costs=self._tier_costs(),
+            link_class=self._link_classes(workers, host_overlaps),
+            obj_overlaps=obj_overlaps)
         return worker, overlap, hashes
+
+    def _kv_path(self, endpoint: str) -> str:
+        ns, comp = self.client.path.split("/")[:2]
+        return f"{ns}/{comp}/{endpoint}"
+
+    def remote_host_hint(
+        self, hashes: List[int], selected: Worker, overlap: int,
+        seed: Optional[int], host_overlaps: Optional[Dict[Worker, int]] = None,
+    ) -> Optional[Dict[str, Any]]:
+        """When a peer's lower tier holds a longer prefix than the
+        selected worker holds anywhere, tell the selected worker where to
+        pull the rest from: the suffix past its own best run, anchored on
+        its last local block (or `seed`)."""
+        if not hashes:
+            return None
+        host = (host_overlaps if host_overlaps is not None
+                else self.indexer.host_index.find_matches(hashes).scores)
+        local_best = max([overlap] + [n for w, n in host.items()
+                                      if w[0] == selected[0]])
+        peer, peer_n = None, local_best
+        for w, n in sorted(host.items()):
+            if w[0] != selected[0] and n > peer_n:
+                peer, peer_n = w, n
+        if peer is None:
+            return None
+        chain = hashes[local_best:peer_n]
+        anchor = hashes[local_best - 1] if local_best > 0 else seed
+        hint = {
+            "instance": peer[0],
+            "path": self._kv_path("kv_host_fetch"),
+            "hashes": chain,
+            "parents": [anchor] + chain[:-1],
+        }
+        # the pull's link class: the worker notes its onboard EWMA under
+        # remote_<link>
+        sel_slice = self._slice_of(selected[0])
+        peer_slice = self._slice_of(peer[0])
+        if sel_slice is not None and peer_slice is not None:
+            hint["link"] = "ici" if sel_slice == peer_slice else "dcn"
+        return hint
+
+    # -- predictive prefetch (kvbm/prefetch.py) -----------------------------
+    def prefetch_hint(
+        self, hashes: List[int], selected: Worker, overlap: int,
+        seed: Optional[int], host_overlaps: Optional[Dict[Worker, int]] = None,
+        remote: Optional[Dict[str, Any]] = None,
+    ) -> Optional[Dict[str, Any]]:
+        """The blocks the selected worker will onboard from its lower
+        tiers beyond its device overlap, plus those a remote hint's pull
+        will land in its G2; None when nothing below G1 is worth
+        promoting or the worker runs no prefetch manager."""
+        if not self.prefetch_hints or not hashes:
+            return None
+        if selected[0] in self._prefetch_bad:
+            return None
+        inst = self.client.instances.get(selected[0])
+        if inst is None or not (inst.metadata or {}).get("kv_prefetch"):
+            return None
+        host = (host_overlaps if host_overlaps is not None
+                else self.indexer.host_index.find_matches(hashes).scores)
+        end = max([overlap] + [n for w, n in host.items() if w[0] == selected[0]])
+        if remote is not None:
+            # the remote chain goes on where the local tiers end
+            end += len(remote.get("hashes") or [])
+        chain = hashes[overlap:end]
+        if not chain:
+            return None
+        anchor = hashes[overlap - 1] if overlap > 0 else seed
+        hint: Dict[str, Any] = {"hashes": chain, "parents": [anchor] + chain[:-1]}
+        if remote is not None:
+            hint["remote"] = remote
+        return hint
+
+    def emit_prefetch(self, instance_id: int, hint: Dict[str, Any]) -> None:
+        """Fire and forget: the hint races the request by design; losing
+        the race leaves the worker's synchronous onboard as it was."""
+        t = asyncio.get_running_loop().create_task(
+            self._send_prefetch(instance_id, hint))
+        self._prefetch_tasks.add(t)
+        t.add_done_callback(self._prefetch_tasks.discard)
+
+    async def _send_prefetch(self, instance_id: int, hint: Dict[str, Any]) -> None:
+        try:
+            if self._prefetch_client is None:
+                # cached before the awaits; start() is idempotent
+                self._prefetch_client = self.runtime.client(self._kv_path("kv_prefetch"))
+            await self._prefetch_client.start()
+            # the first hint races the discovery watch: wait briefly for
+            # the target rather than mark it bad
+            loop = asyncio.get_running_loop()
+            deadline = loop.time() + 2.0
+            while (instance_id not in self._prefetch_client.instances
+                   and loop.time() < deadline):
+                await asyncio.sleep(0.05)
+            async for _ in self._prefetch_client.direct({"kv_prefetch": hint},
+                                                        instance_id):
+                break
+        except Exception as e:
+            # a dead instance or one without the endpoint: hint it no more
+            self._prefetch_bad.add(instance_id)
+            log.debug("kv_prefetch hint to %x failed: %s", instance_id, e)
+
+    # -- hot trunks ---------------------------------------------------------
+    def note_popularity(self, hashes: List[int]) -> Optional[int]:
+        """Count the request's trunk (its first block hash), LRU-capped."""
+        if not hashes:
+            return None
+        trunk = hashes[0]
+        pop = self._trunk_pop
+        pop[trunk] = pop.get(trunk, 0) + 1
+        pop.move_to_end(trunk)
+        if pop[trunk] == self.replicate_hot_threshold:
+            self.prefix_stats["hot_trunks"] += 1
+        while len(pop) > self._trunk_cap:
+            pop.popitem(last=False)
+        return trunk
+
+    def maybe_replicate(self, hashes: List[int], seed: Optional[int],
+                        host_overlaps: Optional[Dict[Worker, int]] = None) -> None:
+        """Replicate a hot trunk onto one slice that holds none of it,
+        through the prefetch and peer-pull path; once a cooldown per
+        trunk, fire and forget."""
+        trunk = self.note_popularity(hashes)
+        if trunk is None or not self.prefetch_hints:
+            return
+        if self._trunk_pop.get(trunk, 0) < self.replicate_hot_threshold:
+            return
+        now = time.monotonic()
+        last = self._trunk_replicated.get(trunk)
+        if last is not None and now - last < self.replicate_cooldown_s:
+            return
+        host = (host_overlaps if host_overlaps is not None
+                else self.indexer.host_index.find_matches(hashes).scores)
+        src, src_n = None, 0
+        for w, n in sorted(host.items()):
+            if n > src_n:
+                src, src_n = w, n
+        if src is None:
+            return  # nothing in any G2 to pull from yet
+        # the slices that hold (part of) the trunk, any tier
+        dev = self.indexer.index.find_matches(hashes).scores
+        holder_slices = set()
+        for w, n in list(host.items()) + list(dev.items()):
+            if n > 0:
+                s = self._slice_of(w[0])
+                if s is not None:
+                    holder_slices.add(s)
+        if not holder_slices:
+            return  # no topology metadata: nothing to spread across
+        target = None
+        for w in self.workers():
+            if w[0] == src[0] or w[0] in self._prefetch_bad:
+                continue
+            s = self._slice_of(w[0])
+            if s is None or s in holder_slices:
+                continue
+            inst = self.client.instances.get(w[0])
+            if inst is None or not (inst.metadata or {}).get("kv_prefetch"):
+                continue
+            target = w
+            break
+        if target is None:
+            return  # every slice holds it already (or cannot prefetch)
+        self._trunk_replicated[trunk] = now
+        if len(self._trunk_replicated) > self._trunk_cap:
+            for k in sorted(self._trunk_replicated,
+                            key=self._trunk_replicated.get)[
+                                :len(self._trunk_replicated) - self._trunk_cap]:
+                self._trunk_replicated.pop(k, None)
+        self.prefix_stats["replications"] += 1
+        chain = hashes[:src_n]
+        remote: Dict[str, Any] = {
+            "instance": src[0],
+            "path": self._kv_path("kv_host_fetch"),
+            "hashes": chain,
+            "parents": [seed] + chain[:-1],
+        }
+        t_slice, s_slice = self._slice_of(target[0]), self._slice_of(src[0])
+        if t_slice is not None and s_slice is not None:
+            remote["link"] = "ici" if t_slice == s_slice else "dcn"
+        self.emit_prefetch(target[0], {
+            "hashes": chain, "parents": [seed] + chain[:-1], "remote": remote})
 
     # -- lifecycle charging -------------------------------------------------
     def add_request(self, request_id: str, worker: Worker, hashes: List[int],
@@ -198,6 +470,10 @@ class KvRouter:
         self.admission.notify(1)  # one slot freed: admit one waiter
 
     async def stop(self) -> None:
+        for t in list(self._prefetch_tasks):
+            t.cancel()
+        if self._prefetch_client is not None:
+            await self._prefetch_client.close()
         await self.indexer.stop()
 
 
@@ -213,9 +489,29 @@ class KvPushRouter:
         # parks here while every worker is saturated; raises queue_full /
         # queue_timeout (HTTP 429) on rejection
         await self.router.admission.acquire(request.get("priority"))
+        collect: Dict[str, Any] = {}
         worker, overlap, hashes = self.router.find_best_match(
             request.get("token_ids") or [],
-            pinned_instance=context.metadata.get("target_instance"))
+            pinned_instance=context.metadata.get("target_instance"),
+            collect=collect)
+        host_overlaps = collect.get("host_overlaps")
+        # the hash chain's seed: no adapter or multimodal lineage here
+        seed = None
+        hint = self.router.remote_host_hint(hashes, worker, overlap, seed,
+                                            host_overlaps=host_overlaps)
+        if hint is not None:
+            request = dict(request)
+            request["kv_remote_host"] = hint
+        pf = self.router.prefetch_hint(hashes, worker, overlap, seed,
+                                       host_overlaps=host_overlaps, remote=hint)
+        if pf is not None:
+            self.router.emit_prefetch(worker[0], pf)
+        # count the trunk; replicate it onto a cold slice once it proves
+        # hot (fire and forget, off the request's path)
+        try:
+            self.router.maybe_replicate(hashes, seed, host_overlaps=host_overlaps)
+        except Exception:
+            log.debug("hot-trunk replication failed", exc_info=True)
         rid = context.id
         self.router.add_request(rid, worker, hashes, overlap)
         context.metadata["kv_overlap_blocks"] = overlap

@@ -9,11 +9,13 @@ Port of dynamo_tpu/router/scheduling.py `KvRouterConfig` and
 
 where the credit counts the blocks the worker holds on the device in
 full and those in lower tiers in part. Selection samples
-softmax(-cost / temperature); temperature 0 is the argmin. The lower-tier
-inputs (`tier_costs`, `link_class`, `obj_overlaps`) are passed empty in
-the port until the host-tier peer pulls and the object tier land (A.7),
-so every credit below the device's is its constant prior. The routing
-audit is not ported.
+softmax(-cost / temperature); temperature 0 is the argmin. The KV
+router passes the object-tier overlaps (`obj_overlaps`, from the workers'
+tier="obj" events), each candidate's link class to the best G2 holder
+(`link_class`, from `kv_slice` metadata) and, when a cost source is
+bound, measured onboard seconds a block (`tier_costs`; the fleet digest
+that feeds it waits for A.11), so a credit without a measurement is its
+constant prior. The routing audit is not ported.
 """
 
 from __future__ import annotations

@@ -7,13 +7,17 @@ Port of dynamo_tpu/worker.py `parse_args`, `build_runner`, `build_engine`,
     python -m dynamo_tpu_torch.worker --model llama-3.2-3b \
         --discovery-backend file --discovery-root DIR
 
-registers an instance in discovery, serves `generate`, `kv_fetch` and
-`kv_state` over the request plane (TCP unless `--request-plane inproc`),
+registers an instance in discovery, serves `generate`, `kv_fetch`,
+`kv_state`, `kv_host_fetch` and `kv_prefetch` over the request plane (TCP
+unless `--request-plane inproc`),
 publishes KV events and forward-pass metrics on the event plane, prints
 "worker serving <model> at <ns/component/endpoint>", and on SIGTERM or
 SIGINT unregisters, drains in-flight requests and exits 0. The engine
 runs on CUDA unless `--device cpu`. `--draft-model PRESET --spec-gamma N`
-decodes by draft-model speculation. Checkpoint loading (and with it
+decodes by draft-model speculation. The KV tiers: `--host-kv-blocks N`
+(G2), `--disk-kv-blocks M [--disk-kv-root DIR]` (G3), `--obj-kv-root DIR`
+(G4), `--kv-tier-quantize` (the int8 tier codec) and `--prefetch` (router
+hints promote blocks ahead of the request). Checkpoint loading (and with it
 `--draft-checkpoint`), the engine
 sidecar, multi-host groups, vision, the status server and the shadow
 failover are not ported yet (weights are random, from seed 0).
@@ -103,9 +107,33 @@ def parse_args(argv=None):
     # KVBM tiers
     p.add_argument("--host-kv-blocks", type=int, default=0,
                    help="G2 host-DRAM KV tier capacity in blocks (0 = off)")
+    p.add_argument("--disk-kv-blocks", type=int, default=0,
+                   help="G3 disk KV tier capacity in blocks (needs G2 on)")
+    p.add_argument("--disk-kv-root", default=None,
+                   help="G3 tier directory (default: a temp dir)")
+    p.add_argument("--obj-kv-root", default=None,
+                   help="G4 object-store root (shared mount; enables the "
+                        "terminal KV tier)")
+    p.add_argument("--kv-tier-quantize", action="store_true",
+                   help="store demoted G2/G3/G4 blocks as int8 + per-"
+                        "(token, head) scales (~1.9x blocks per byte at "
+                        "D=128); G1 device hits stay full precision")
     p.add_argument("--onboard-layer-groups", type=int, default=1,
-                   help="stream G2 onboarding in this many contiguous layer "
-                        "groups (1 = whole-sequence import)")
+                   help="stream tier onboarding in this many layer-group "
+                        "slabs so prefill starts after the first slab "
+                        "lands (1 = whole-sequence import)")
+    p.add_argument("--prefetch", action="store_true",
+                   help="router-hinted predictive KV promotion (needs "
+                        "--host-kv-blocks > 0); advertises kv_prefetch so "
+                        "routers send tier-promotion hints ahead of dispatch")
+    p.add_argument("--prefetch-max-inflight", type=int, default=4,
+                   help="max concurrent G3->G2 disk reads per worker")
+    p.add_argument("--prefetch-bandwidth-mbps", type=float, default=0.0,
+                   help="promotion bandwidth budget in MB/s (0 = unlimited)")
+    p.add_argument("--prefetch-hint-ttl-s", type=float, default=10.0,
+                   help="drop a hint whose request never arrives after this")
+    p.add_argument("--prefetch-pin-ttl-s", type=float, default=5.0,
+                   help="how long promoted blocks stay pinned against eviction")
     # disaggregation
     p.add_argument("--disagg-role", choices=["prefill", "decode"], default=None,
                    help="disaggregated role (default: aggregated)")
@@ -158,7 +186,16 @@ def build_engine(args, runner=None, **engine_kw) -> InferenceEngine:
         spec_k=args.spec_k,
         spec_max_tokens=args.spec_max_tokens,
         host_kv_blocks=args.host_kv_blocks,
+        disk_kv_blocks=args.disk_kv_blocks,
+        disk_kv_root=args.disk_kv_root,
+        obj_kv_root=args.obj_kv_root,
+        kv_tier_quantize=args.kv_tier_quantize,
         onboard_layer_groups=args.onboard_layer_groups,
+        prefetch=args.prefetch,
+        prefetch_max_inflight=args.prefetch_max_inflight,
+        prefetch_bandwidth_mbps=args.prefetch_bandwidth_mbps,
+        prefetch_hint_ttl_s=args.prefetch_hint_ttl_s,
+        prefetch_pin_ttl_s=args.prefetch_pin_ttl_s,
         tokenizer_spec=args.tokenizer,
     )
     kw.update(engine_kw)

@@ -3,15 +3,19 @@ kv_state endpoints, KV events and forward-pass metrics on the event plane,
 and the decode side of disaggregated serving.
 
 Port of dynamo_tpu/worker_common.py `ServedWorker`, `serve_worker`,
-`LOCAL_ENGINES`, `DisaggDecodeAdapter` and the `kv_fetch` endpoint. A
+`LOCAL_ENGINES`, `DisaggDecodeAdapter`, the `kv_fetch` endpoint and the
+KV tiers' endpoints: `kv_host_fetch` (a peer pulls up to
+MAX_HOST_FETCH_BLOCKS of this worker's lower-tier blocks), `kv_prefetch`
+(the router's promotion hints; advertised as `kv_prefetch` metadata when
+the engine runs a prefetch manager) and the engine's `remote_kv_fetch`
+(the pull of a peer's blocks a `kv_remote_host` hint names). A
 request carrying `kv_transfer_src` pulls the prefill worker's parked KV
 before admission: from a colocated engine (same process, registered in
 `LOCAL_ENGINES`) on the device, gathered on the prefill engine's step
 thread and scattered on the decode engine's; from any other instance
 host-staged, through an EndpointClient to that instance's `kv_fetch`
 endpoint, in chunks of `chunk_pages` pages (0: one payload). The fleet
-digest, the RL admin endpoint, the host-tier peer pulls, the prefetch
-plane and the shadow server are not ported yet.
+digest, the RL admin endpoint and the shadow server are not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from __future__ import annotations
 import asyncio
 import dataclasses
 import logging
+import os
 import time
 import weakref
 from typing import Any, AsyncIterator, Dict, Optional
@@ -36,6 +41,10 @@ log = logging.getLogger("dynamo_tpu_torch.worker")
 # in-process engine registry: when prefill and decode engines share one
 # process (colocated disagg), the KV transfer stays entirely on the device
 LOCAL_ENGINES: "weakref.WeakValueDictionary" = weakref.WeakValueDictionary()
+
+# the most blocks one kv_host_fetch reply carries (64 blocks of the 3B:
+# ~117 MB in bf16)
+MAX_HOST_FETCH_BLOCKS = 64
 
 
 async def kv_fetch(engine, request: Dict[str, Any]) -> AsyncIterator[Any]:
@@ -152,12 +161,13 @@ class ServedWorker:
     KV event publisher and the generate handler (the disagg adapter)."""
 
     def __init__(self, runtime, engine, instance: Instance, publisher,
-                 handler: DisaggDecodeAdapter):
+                 handler: DisaggDecodeAdapter, fetch_clients=None):
         self.runtime = runtime
         self.engine = engine
         self.instance = instance
         self.publisher = publisher
         self.handler = handler
+        self._fetch_clients = fetch_clients if fetch_clients is not None else {}
 
     async def stop(self) -> None:
         """Stop the engine and what serves it (after the runtime drained)."""
@@ -165,6 +175,9 @@ class ServedWorker:
         if self.publisher is not None:
             await self.publisher.stop()
         await self.handler.close()
+        for client in self._fetch_clients.values():
+            await client.close()
+        self._fetch_clients.clear()
 
 
 async def serve_worker(
@@ -191,6 +204,10 @@ async def serve_worker(
     metadata: Dict[str, Any] = {"model_card": card.to_dict(), "dp_rank": dp_rank}
     if disagg_role:
         metadata["disagg_role"] = disagg_role
+    # topology label for link-class routing: one kv_slice is one island
+    kv_slice = os.environ.get("DYN_KV_SLICE")
+    if kv_slice:
+        metadata["kv_slice"] = str(kv_slice)
 
     publisher = None
     if publish_kv_events:
@@ -239,10 +256,60 @@ async def serve_worker(
         FnEngine(lambda request, context: kv_fetch(engine, request or {})),
         instance_id=instance_id)
 
+    # cross-worker onboarding: peers pull this worker's lower-tier blocks
+    async def kv_host_fetch(request, context):
+        hashes = [int(h) for h in (request or {}).get("hashes") or []]
+        return await engine.export_host_blocks(hashes[:MAX_HOST_FETCH_BLOCKS])
+
+    await runtime.serve_endpoint(f"{namespace}/{component}/kv_host_fetch",
+                                 kv_host_fetch, instance_id=instance_id)
+
+    # the prefetch plane: the router names what a request will need before
+    # it sends the request; advertised so routers hint only such workers
+    if getattr(engine, "prefetch", None) is not None:
+        metadata["kv_prefetch"] = True
+        engine.prefetch.bind_metrics(runtime.metrics.child(dynamo_namespace=namespace))
+
+    async def kv_prefetch(request, context):
+        hint = (request or {}).get("kv_prefetch") or {}
+        ok = False
+        if getattr(engine, "prefetch", None) is not None and hint:
+            ok = await engine.prefetch_hint_async(hint)
+        yield {"ok": bool(ok)}
+
+    await runtime.serve_endpoint(f"{namespace}/{component}/kv_prefetch",
+                                 FnEngine(kv_prefetch), instance_id=instance_id)
+
+    fetch_clients: Dict[str, Any] = {}
+
+    async def remote_kv_fetch(hint):
+        """Pull the blocks a kv_remote_host hint names from the peer's
+        kv_host_fetch endpoint; the first reply item is the payload."""
+        path = hint["path"]
+        client = fetch_clients.get(path)
+        if client is None:
+            # cached before any await that can raise: a failed first pull
+            # must not leak a client a request
+            client = fetch_clients[path] = runtime.client(path)
+            await client.start()
+        peer = int(hint["instance"])
+        # the first pull after the client's creation races the discovery
+        # watch: give the peer a moment to appear
+        loop = asyncio.get_running_loop()
+        deadline = loop.time() + 2.0
+        while peer not in client.instances and loop.time() < deadline:
+            await asyncio.sleep(0.05)
+        req = {"hashes": [int(h) for h in hint["hashes"][:MAX_HOST_FETCH_BLOCKS]]}
+        async for item in client.direct(req, peer):
+            return item
+        return None
+
+    engine.remote_kv_fetch = remote_kv_fetch
+
     handler = DisaggDecodeAdapter(engine, runtime, chunk_pages=disagg_chunk_pages)
     engine.start()
     inst = await runtime.serve_endpoint(f"{namespace}/{component}/{endpoint}", handler,
                                         metadata=metadata, instance_id=instance_id)
     log.info("worker %x serving %s (role=%s)", instance_id, card.name,
              disagg_role or "both")
-    return ServedWorker(runtime, engine, inst, publisher, handler)
+    return ServedWorker(runtime, engine, inst, publisher, handler, fetch_clients)

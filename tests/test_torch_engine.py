@@ -194,10 +194,16 @@ def test_filtered_probs_match_jax():
 async def test_unsupported_requests_are_refused(engines):
     _, teng = engines
     for req in (dict(_req([1, 2, 3]), guided={"regex": "a"}),  # no "kind"
-                dict(_req([1, 2, 3]), adapter="lora-a"),
-                dict(_req([1, 2, 3]), kv_remote_host={"hashes": [1]})):
+                dict(_req([1, 2, 3]), adapter="lora-a")):
         toks, finish = await _collect(teng, req, Context)
         assert finish == "error" and toks == []
+    # a kv_remote_host hint with no peer to pull from is served by
+    # recompute: the same stream as without the hint
+    plain = await _collect(teng, _req([1, 2, 3]), Context)
+    hinted = await _collect(teng, dict(_req([1, 2, 3]), kv_remote_host={
+        "instance": 1, "path": "dyn/tpu-worker/kv_host_fetch", "hashes": [1],
+        "parents": [None]}), Context)
+    assert hinted == plain and plain[1] != "error"
     # a prompt past the KV capacity (16 pages x 4 tokens) is refused too
     toks, finish = await _collect(teng, _req(range(1, 80)), Context)
     assert finish == "error"

@@ -2,10 +2,11 @@
 tool-call parser and the guided decoding copies included), chip_smoke.py, scripts/torch_profile.py,
 scripts/mla_prefill_variants.py,
 scripts/int8_body_variants.py, scripts/engine_ab.py,
-scripts/quant_gemm_variants.py and scripts/extras_profile.py import
+scripts/quant_gemm_variants.py, scripts/extras_profile.py,
+scripts/tier_staging_bench.py and scripts/tier_ttft_pairs.py import
 neither JAX nor anything of the
 dynamo_tpu package, nor ml_dtypes, msgpack, zmq, aiohttp, jinja2,
-tokenizers or prometheus_client (the machine with the card has none of
+tokenizers, prometheus_client or boto3 (the machine with the card has none of
 them; the request plane frames with runtime/codec.py instead of msgpack,
 and the event plane is TCP instead of ZMQ). Note the prefix:
 `dynamo_tpu_torch` starts with `dynamo_tpu`.
@@ -32,7 +33,7 @@ PKG = ROOT / "dynamo_tpu_torch"
 
 
 FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "ml_dtypes", "msgpack", "zmq",
-             "aiohttp", "jinja2", "tokenizers", "prometheus_client")
+             "aiohttp", "jinja2", "tokenizers", "prometheus_client", "boto3")
 
 
 def _forbidden(name: str) -> bool:
@@ -66,7 +67,8 @@ def test_every_module_imports_without_jax_or_dynamo_tpu():
               "frontend.service", "frontend.http", "frontend.__main__",
               "frontend.tool_calls", "guided", "guided.regex_dfa",
               "guided.json_schema", "guided.structural", "guided.token_mask",
-              "guided.device_table"):
+              "guided.device_table", "ops.tier_codec", "kvbm.quant", "kvbm.disk_pool",
+              "kvbm.object_store", "kvbm.prefetch"):
         assert f"dynamo_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -86,7 +88,8 @@ def test_no_source_file_imports_jax_or_dynamo_tpu():
         ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile.py",
         ROOT / "scripts" / "mla_prefill_variants.py",
         ROOT / "scripts" / "int8_body_variants.py", ROOT / "scripts" / "engine_ab.py",
-        ROOT / "scripts" / "quant_gemm_variants.py", ROOT / "scripts" / "extras_profile.py"]
+        ROOT / "scripts" / "quant_gemm_variants.py", ROOT / "scripts" / "extras_profile.py",
+        ROOT / "scripts" / "tier_staging_bench.py", ROOT / "scripts" / "tier_ttft_pairs.py"]
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
@@ -134,7 +137,8 @@ def test_forbidden_prefix_rule():
     assert _forbidden("dynamo_tpu") and _forbidden("dynamo_tpu.engine")
     assert _forbidden("jax.numpy") and _forbidden("ml_dtypes")
     assert all(_forbidden(m) for m in ("msgpack", "zmq.asyncio", "aiohttp.web",
-                                        "jinja2", "tokenizers", "prometheus_client"))
+                                        "jinja2", "tokenizers", "prometheus_client",
+                                        "boto3"))
     assert not _forbidden("dynamo_tpu_torch") and not _forbidden("dynamo_tpu_torch.ops")
 
 
