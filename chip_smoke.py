@@ -188,6 +188,25 @@ Phases, each printing one JSON line:
                decode step's ms at B 8 with no extra, penalties,
                logprobs, the device guided tables and the host fallback;
                the embed pass for 3 x 128 tokens);
+     lora    - `engine_lora` (multi-LoRA on the 3B's params: slots 3,
+               rank 16, all seven targets; ad-one rank 8 on the default
+               targets and ad-mlp rank 16 on all seven, scale 0.25; the
+               3B's 8 requests split over base, ad-one and ad-mlp): every
+               launch on the decode and prefill kernels (passes x 28),
+               none on the ragged kernel (mixed plans on the padded
+               fallback); a turn with n-gram speculation (`lora_spec`)
+               whose verify passes launch the ragged kernel (passes x 28)
+               with a slot a token; base-slot rows of a prefill and a
+               decode dispatch bit for bit the LoRA-less forward's; the
+               kernel path with adapters within FORWARD_REL_TOL of the
+               plain path in bf16 and its adapter rows within
+               LORA_F32_REL_TOL of the plain path in f32; each adapter's
+               greedy stream unlike the base's;
+               no cached token reused across adapters; an adapter
+               registered at run time into the free slot served; the
+               decode rate and a decode step's device time beside the
+               LoRA-less runner's on the same padded path
+               (`engine_lora_base_padded`);
      served  - the request plane. `engine_served_disagg`: a prefill
                and a decode worker (the 3B params again, 1024 pages each)
                served by serve_worker over TCP on loopback in this process,
@@ -233,7 +252,13 @@ Phases, each printing one JSON line:
                three inputs (norms 1, equal alone twice, batched within
                2e-2 of alone), and `python -m
                dynamo_tpu_torch.frontend --router-mode kv` serving and
-               exiting 0 on SIGTERM, as the worker after it;
+               exiting 0 on SIGTERM, as the worker after it. Then
+               `lora_served`: two llama-3.2-1b worker processes, one with
+               `--lora ad-one`, behind `python -m dynamo_tpu_torch.frontend
+               --router-mode kv`: /v1/models lists ad-one, ad-one traffic
+               runs forward passes only on its holder (each worker's FPM),
+               and an rl load_adapter makes the other a holder that then
+               receives ad-one traffic;
      int8    - with the 3B runner freed, the slice's main path:
                llama-3.1-8b at full width and depth with
                --kv-quantize int8 (`engine_int8kv` fused and
@@ -1722,11 +1747,15 @@ def spec_workload(vocab_size: int, seed: int):
     return [req(p) for p in prompts], req(late)
 
 
-def serve(engine, seed: int, spec: bool = False, extra=()):
+def serve(engine, seed: int, spec: bool = False, extra=(), adapters=None):
     """Serve workload(seed, extra) (spec_workload with spec) to
-    completion, at most 900 s."""
+    completion, at most 900 s; `adapters` names request i's LoRA adapter
+    (None: the base model), the late request's last."""
     V = engine.runner.config.vocab_size
     reqs, late = spec_workload(V, seed) if spec else workload(V, seed, extra)
+    for r, ad in zip(reqs + [late], adapters or ()):
+        if ad:
+            r["adapter"] = ad
     prompts = [r["token_ids"] for r in reqs + [late]]
     return prompts, asyncio.run(asyncio.wait_for(
         _serve(engine, reqs, len(reqs) - 1, late), 900))
@@ -1806,13 +1835,14 @@ def quant_launches_per_pass(runner):
 
 def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
                  build_s: float = None, base_args=ENGINE_ARGS, extra=(),
-                 engine_kw=None, probe=None):
+                 engine_kw=None, probe=None, adapters=None):
     """Serve the workload on a fresh engine over `runner`, with every
     launch count and runner.stats set to 0 just before and read just
     after. fused=None keeps the engine's default (fused on a card);
     `extra` adds prompts to the workload; `engine_kw` sets engine
     arguments no flag carries; `probe(engine)` runs before the workload
-    (a phase's instrumentation)."""
+    (a phase's instrumentation); `adapters` gives the requests' LoRA
+    adapters (serve)."""
     args = base_args + (["--spec-ngram", "--spec-k", "4"] if spec else [])
     saved = os.environ.pop("DYN_FUSED_MIXED", None)
     if fused is not None:
@@ -1833,7 +1863,8 @@ def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
     runner.reset_stats()
     t0 = time.monotonic()
     try:
-        prompts, results = serve(engine, seed=1, spec=spec, extra=extra)
+        prompts, results = serve(engine, seed=1, spec=spec, extra=extra,
+                                 adapters=adapters)
     finally:
         engine.stop()
     torch.cuda.synchronize()  # a fault during the run surfaces here
@@ -1887,6 +1918,8 @@ def engine_phase(runner, phase: str, fused: bool = None, spec: bool = False,
         "quant_gemm_bodies": quant_bodies,
         "moe_bodies": {name: dict(KERNELS[name].bodies) for name in MOE_KERNELS},
     }
+    if adapters:
+        rec["adapters"] = list(adapters)
     if build_s is not None:
         rec["build_s"] = build_s
     if spec or runner.has_draft:
@@ -4078,6 +4111,438 @@ def extras_phases(runner, smi):
     extras_costs_phase(runner, smi)
 
 
+# multi-LoRA on the 3B (`engine_lora`): ad-one (rank 8, the default
+# targets, zero-padded to the tree's rank) and ad-mlp (rank 16, all seven
+# targets) in slots 1 and 2, slot 3 free for a runtime load; the 3B's 8
+# requests split over base and the two adapters (the late request shares
+# r6's prefix, so it takes r6's adapter)
+LORA_ALL_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+LORA_RANK = 16
+LORA_TRAFFIC = (None, "ad-one", "ad-mlp", None, "ad-one", "ad-mlp", "ad-one", "ad-one")
+LORA_ROWS = (0, 1, 2, 0)  # the forward checks' rows' slots
+LORA_STEP_ROWS = (0, 1, 2, 0, 1, 2, 0, 1)  # decode_step_ms's rows' slots
+
+
+# the adapters' scale (random_adapter's B factor): a delta about a
+# quarter of a projection's size, where the bf16 forward stays as close
+# to the f32 one on adapter rows as on base rows (0.017-0.019 against
+# 0.015-0.016). At 2.0 the random 3B's bf16 forward, plain path and
+# kernel path alike, lands 0.29-0.41 relative L2 from its f32 forward on
+# adapter rows: PERF.md §6, multi-LoRA
+LORA_SCALE = 0.25
+# (c) against f32: an adapter row's kernel-path logits within this
+# relative L2 of the f32 plain path's (f32 params, factors and pools):
+# about 1.5x the base rows' reading there (0.0155-0.0165, PERF.md §6)
+LORA_F32_REL_TOL = 0.025
+
+
+def lora_factors(cfg, name):
+    """The phase's adapters, scale LORA_SCALE, at the tree's rank."""
+    from dynamo_tpu_torch.models import lora
+    from dynamo_tpu_torch.worker import pad_rank
+
+    rank, targets, seed = {"ad-one": (8, lora.DEFAULT_TARGETS, 1),
+                           "ad-mlp": (16, LORA_ALL_TARGETS, 2),
+                           "ad-late": (16, LORA_ALL_TARGETS, 3)}[name]
+    f = lora.random_adapter(cfg, rank, targets, seed=seed, scale=LORA_SCALE)
+    return {k: pad_rank(k, a, LORA_RANK) for k, a in f.items()}
+
+
+def lora_forward_checks(lr, dev):
+    """(b) and (c) on one prefill dispatch (4 rows of 64 tokens, slots
+    LORA_ROWS) and the decode step after it, each path on scratch pools.
+    (b): the LoRA runner's kernel path against the same params without
+    adapters on the same kernel path (the LoRA-less runner's forward,
+    padded as the LoRA runner's): its base-slot rows bit for bit equal,
+    its adapter rows not. (c): the kernel path against the plain path
+    (attn_impl "ref") in bf16, every row within FORWARD_REL_TOL as the
+    parity phases hold; and its adapter rows against the plain path in
+    f32 (params, factors and pools upcast) within LORA_F32_REL_TOL, so an
+    error in the delta on the card fails (the base rows' reading there is
+    printed beside it). The prefill rows go once more as one flat ragged
+    row with a slot a token (the ragged kernel, as a LoRA runner's n-gram
+    verify runs them), held to the same two limits. The decode step is
+    fed the kernel path's greedy tokens."""
+    from dynamo_tpu_torch.models import llama
+    from dynamo_tpu_torch.models.toolkit import make_kv_pool
+
+    def f32(tree):
+        return ({k: f32(v) for k, v in tree.items()} if isinstance(tree, dict)
+                else tree.float())
+
+    cfg, params = lr.config, lr.params
+    PS, S, B = 16, 64, len(LORA_ROWS)
+    per = S // PS + 1
+    pages = torch.arange(B * per, dtype=torch.int32, device=dev).view(B, per)
+    idx = torch.tensor(LORA_ROWS, dtype=torch.int32, device=dev)
+    params32 = f32(params)
+    paths = {
+        "lora": {"lora": lr.lora, "adapter_idx": idx},
+        "base": {},
+        "ref": {"lora": lr.lora, "adapter_idx": idx, "attn_impl": "ref"},
+        "ref32": {"lora": f32(lr.lora), "adapter_idx": idx, "attn_impl": "ref"},
+    }
+    pools = {name: make_kv_pool(cfg, B * per + 1, PS,
+                                torch.float32 if name == "ref32" else lr.dtype, dev)
+             for name in paths}
+    gen = torch.Generator(device="cpu").manual_seed(31)
+    tok = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                        dtype=torch.int32).to(dev)
+    pos = torch.arange(S, dtype=torch.int32, device=dev)[None].expand(B, S).contiguous()
+    steps = []
+    base_rows = [i for i, a in enumerate(LORA_ROWS) if a == 0]
+    ad_rows = [i for i, a in enumerate(LORA_ROWS) if a != 0]
+    for kind in ("prefill", "decode"):
+        if kind == "prefill":
+            args = (tok, pos, pages, torch.full((B,), S, dtype=torch.int32, device=dev),
+                    torch.full((B,), S - 1, dtype=torch.int32, device=dev))
+        else:
+            args = (nxt[:, None], torch.full((B, 1), S, dtype=torch.int32, device=dev),
+                    pages, torch.full((B,), S + 1, dtype=torch.int32, device=dev), None)
+        out = {name: llama.forward(cfg, params32 if name == "ref32" else params, args[0],
+                                   args[1], *pools[name], *args[2:], **kw)[:, -1]
+               for name, kw in paths.items()}
+        a, b, r32, r16 = out["lora"], out["base"], out["ref32"], out["ref"]
+        check(torch.isfinite(a).all().item(), f"engine_lora: {kind} logits not finite")
+        same = [torch.equal(a[i], b[i]) for i in base_rows]
+        differ = [not torch.equal(a[i], b[i]) for i in ad_rows]
+
+        def rel_rows(x, y):
+            return [round(v, 5) for v in ((x - y).norm(dim=-1) / y.norm(dim=-1)).tolist()]
+
+        vs_ref, vs_f32, vs_base = rel_rows(a, r16), rel_rows(a, r32), rel_rows(a, b)
+        steps.append({"step": kind, "base_rows_equal": same, "adapter_rows_differ": differ,
+                      "rel_l2_vs_ref": vs_ref,
+                      "greedy_agreement_vs_ref": (a.argmax(-1) == r16.argmax(-1))
+                      .float().mean().item(),
+                      "rel_l2_vs_ref_f32_adapter_rows": [vs_f32[i] for i in ad_rows],
+                      "rel_l2_vs_ref_f32_base_rows": [vs_f32[i] for i in base_rows],
+                      # what a delta lost on the card would read
+                      "rel_l2_adapter_rows_vs_base": [vs_base[i] for i in ad_rows],
+                      "ref_bf16_vs_ref_f32": rel_rows(r16, r32)})
+        check(all(same), f"engine_lora: {kind}: base-slot rows differ from the "
+                         f"LoRA-less forward's: {same}")
+        check(all(differ), f"engine_lora: {kind}: an adapter row equals the base's")
+        if kind == "prefill":
+            # the same rows as one flat ragged row with a slot a token, as
+            # a LoRA runner's n-gram verify feeds the ragged kernel
+            rag = build_ragged_metadata([S] * B, [0] * B, [S] * B, pages.tolist(), B * S,
+                                        max_pages=per)
+            ops = [torch.from_numpy(rag[k]).to(dev)
+                   for k in ("seg_page_table", "seg_kv_lens", "meta", "last_index")]
+            g = llama.forward(cfg, params, tok.view(1, B * S),
+                              torch.from_numpy(rag["tok_positions"][None]).to(dev),
+                              *make_kv_pool(cfg, B * per + 1, PS, lr.dtype, dev),
+                              last_index=ops[3][:B], ragged=tuple(ops[:3]), lora=lr.lora,
+                              adapter_idx=idx.repeat_interleave(S))[0]
+            g_ref, g_f32 = rel_rows(g, r16), rel_rows(g, r32)
+            steps[-1]["ragged"] = {"rel_l2_vs_ref": g_ref,
+                                   "rel_l2_vs_ref_f32_adapter_rows": [g_f32[i] for i in ad_rows]}
+            vs_ref = vs_ref + g_ref
+            vs_f32 = [max(x, y) for x, y in zip(vs_f32, g_f32)]
+        check(max(vs_ref) <= FORWARD_REL_TOL,
+              f"engine_lora: {kind}: kernel vs ref with adapters: relative L2 "
+              f"{max(vs_ref)} > {FORWARD_REL_TOL}: {steps[-1]}")
+        worst = max(vs_f32[i] for i in ad_rows)
+        check(worst <= LORA_F32_REL_TOL,
+              f"engine_lora: {kind}: adapter rows vs the f32 plain path: relative L2 "
+              f"{worst} > {LORA_F32_REL_TOL}: {steps[-1]}")
+        nxt = a.argmax(-1).to(torch.int32)
+    del pools, params32
+    return steps
+
+
+async def _lora_streams(engine, lr, V):
+    """(d), (e), (f) on one engine over the LoRA runner: one 80-token
+    prompt under base, ad-one, ad-mlp and ad-one again, then ad-late
+    registered at run time into the free slot (on the step thread) and
+    served. Returns (streams by adapter, prefix tokens each reused)."""
+    gen = torch.Generator(device="cpu").manual_seed(41)
+    prompt = torch.randint(0, V, (80,), generator=gen).tolist()
+    sch = engine.scheduler
+    streams, reused = {}, {}
+
+    async def one(ad, key):
+        req = {"token_ids": prompt, "sampling": {"temperature": 0.0},
+               "stop": {"max_tokens": 16, "stop_ids": []}}
+        if ad:
+            req["adapter"] = ad
+        before = sch.reused_prefix_tokens
+        r = await _collect_timed(engine, req, f"lora-{key}")
+        check(r["finish"] == "length" and len(r["tokens"]) == 16,
+              f"engine_lora: {key} finished {r['finish']} with {len(r['tokens'])} tokens")
+        streams[key], reused[key] = r["tokens"], sch.reused_prefix_tokens - before
+
+    for ad, key in ((None, "base"), ("ad-one", "ad-one"), ("ad-mlp", "ad-mlp"),
+                    ("ad-one", "ad-one_again")):
+        await one(ad, key)
+    slot = await engine.call_on_step_thread(lr.register_adapter, "ad-late",
+                                            lora_factors(lr.config, "ad-late"))
+    check(slot == 3, f"engine_lora: the runtime load took slot {slot}")
+    await one("ad-late", "ad-late")
+    return streams, reused
+
+
+def lora_phases(runner, dev, smi):
+    """`engine_lora`: a LoRA runner over the 3B's params (full width and
+    depth, lora_slots 3, rank 16, all seven targets) with ad-one and
+    ad-mlp, serving the 3B's traffic split over base and the two
+    adapters, every batch mixing slots, with the counts set to 0 just
+    before and read just after: (a) every launch on the decode and
+    prefill kernels (passes x 28), the ragged kernel not at all (the
+    padded path: mixed plans on the padded fallback); a second turn with
+    n-gram speculation (`lora_spec`, counted the same way), whose verify
+    runs on the ragged kernel (verify passes x 28) with each token's
+    adapter, its mixed plans still padded; then, outside the
+    counted window, (b) and (c) (lora_forward_checks), (d) each adapter's
+    greedy stream differs from the base's, (e) the same prompt under
+    another adapter reuses no cached token, (f) an adapter registered at
+    run time into the free slot is served. Recorded beside the LoRA-less
+    runner's turn on the same padded path (`lora_base_padded`, the same
+    requests without adapters): the decode rate a request, and a decode
+    step's device time with and without adapters."""
+    from dynamo_tpu_torch.models import lora
+
+    t0 = time.monotonic()
+    cfg = runner.config
+    args = parse_args(ENGINE_ARGS)
+    lr = ModelRunner(cfg, num_pages=args.num_pages, page_size=args.page_size,
+                     max_pages_per_seq=-(-args.max_seq_len // args.page_size),
+                     params=runner.params, lora_slots=3, lora_rank=LORA_RANK,
+                     lora_targets=LORA_ALL_TARGETS)
+    for name in ("ad-one", "ad-mlp"):
+        lr.register_adapter(name, lora_factors(cfg, name))
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    check(not lr.ragged_mixed and lr.adapter_names == ["ad-one", "ad-mlp"],
+          f"engine_lora: ragged {lr.ragged_mixed}, adapters {lr.adapter_names}")
+    rec, launches, results = engine_phase(lr, "lora", build_s=build_s,
+                                          adapters=LORA_TRAFFIC)
+    st = rec["stats"]
+    check(rec["fused_mixed"], "engine_lora: the engine did not fuse on the card")
+    check(launches["ragged_paged_attention"] == 0 and st["ragged_mixed_dispatches"] == 0,
+          f"engine_lora: the ragged kernel ran: {launches}, {st}")
+    check(launches["decode_paged_attention"] > 0 and launches["prefill_paged_attention"] > 0
+          and st["padded_prefill_dispatches"] > 0,
+          f"engine_lora: mixed plans did not take the padded path: {launches}, {st}")
+    for i, (toks, finish, _) in enumerate(results):
+        check(finish == "length" and len(toks) == N_OUT,
+              f"engine_lora: r{i} finished {finish!r} with {len(toks)} tokens")
+    rec["lora"] = {"slots": 3, "rank": LORA_RANK, "targets": list(LORA_ALL_TARGETS),
+                   "tree_mb": lora.lora_bytes(cfg, 4, LORA_RANK, LORA_ALL_TARGETS) / 1e6}
+    # the LoRA-less runner on the same padded path, the same requests
+    saved = runner.ragged_mixed
+    runner.ragged_mixed = False
+    try:
+        base_rec, base_launches, _ = engine_phase(runner, "lora_base_padded")
+    finally:
+        runner.ragged_mixed = saved
+    check(base_launches["ragged_paged_attention"] == 0,
+          "lora_base_padded: the ragged kernel ran")
+    emit(base_rec)
+    emit({**rec, "phase": "engine_lora_turn"})
+    # n-gram speculation under the adapters: the verify rides the ragged
+    # step, a slot a flat token; mixed plans stay padded
+    spec_rec, spec_launches, _ = engine_phase(lr, "lora_spec", spec=True,
+                                              adapters=LORA_TRAFFIC)
+    sst = spec_rec["stats"]
+    check(spec_rec["spec_stats"]["drafted"] > 0 and sst["ragged_verify_dispatches"] > 0,
+          f"lora_spec: nothing was drafted or verified: {spec_rec['spec_stats']}, {sst}")
+    check(sst["ragged_mixed_dispatches"] == 0,
+          f"lora_spec: a mixed plan took the ragged step: {sst}")
+    emit(spec_rec)
+    rec["spec_turn"] = {
+        "launches": spec_launches, "ragged_verify_dispatches": sst["ragged_verify_dispatches"],
+        "padded_prefill_dispatches": sst["padded_prefill_dispatches"],
+        "spec_stats": spec_rec["spec_stats"],
+        "decode_tok_s_per_request_median": spec_rec["decode_tok_s_per_request_median"]}
+    rec["forward_checks"] = lora_forward_checks(lr, dev)
+    engine = build_engine(args, runner=lr)
+    try:
+        streams, reused = asyncio.run(asyncio.wait_for(
+            _lora_streams(engine, lr, cfg.vocab_size), 300))
+    finally:
+        engine.stop()
+    for key in ("ad-one", "ad-mlp", "ad-late"):
+        check(streams[key] != streams["base"],
+              f"engine_lora: the {key} stream equals the base stream")
+    check(streams["ad-one"] == streams["ad-one_again"],
+          "engine_lora: ad-one's cached rerun differs")
+    check(reused["ad-one"] == 0 and reused["ad-mlp"] == 0,
+          f"engine_lora: a prompt reused another adapter's cache: {reused}")
+    check(reused["ad-one_again"] >= 64, f"engine_lora: no reuse in ad-one's lineage: {reused}")
+    rec["streams_differ_from_base"] = {k: streams[k] != streams["base"]
+                                       for k in ("ad-one", "ad-mlp", "ad-late")}
+    rec["reused_prefix_tokens_by_turn"] = reused
+    rec["runtime_load"] = {"adapter": "ad-late", "slot": 3,
+                           "adapters": lr.adapter_names}
+    rec["decode_step"] = decode_step_ms(lr, LORA_STEP_ROWS)
+    rec["decode_step_without_adapters"] = decode_step_ms(runner)
+    rec["decode_step_lora_slots"] = list(LORA_STEP_ROWS)
+    rec["lora_base_padded"] = {k: base_rec[k] for k in (
+        "decode_tok_s_per_request_median", "output_tok_s_overall", "ttft_s_median",
+        "wall_s")}
+    rec["nvidia_smi"] = smi
+    rec["seconds"] = time.monotonic() - t0
+    emit(rec)
+    free(lr)
+
+
+LORA_SERVED_ARGS = model_args("llama-3.2-1b")
+LORA_SERVED_MODEL = "llama-3.2-1b"
+
+
+def lora_served_phase(smi):
+    """`lora_served`: two `python -m dynamo_tpu_torch.worker` processes
+    on llama-3.2-1b (full width and depth, 2048 pages), one with `--lora
+    ad-one`, the other with one free slot (`--lora-slots 1`), behind
+    `python -m dynamo_tpu_torch.frontend --router-mode kv`, on one
+    file-discovery root. Checks: /v1/models lists ad-one; 8 ad-one
+    completions (4 one at a time, 4 at once) all answer 16 tokens and
+    only the holder runs forward passes for them (each worker's
+    forward-pass metrics, subscribed here); an rl load_adapter of the
+    same adapter on the other worker (its seed and scale) makes it a
+    holder, and batches of 4 ad-one completions at once reach it within
+    30 s; both processes and the frontend exit 0 on SIGTERM."""
+    from dynamo_tpu_torch.router.protocols import FPM_SUBJECT
+
+    def body(prompt, n=16):
+        return {"model": "ad-one", "prompt": prompt, "max_tokens": n, "temperature": 0,
+                "ignore_eos": True}
+
+    async def run(root):
+        rec = {"phase": "lora_served", "model": LORA_SERVED_MODEL, "nvidia_smi": smi}
+        t_phase = time.monotonic()
+        procs = {}
+        rt = DistributedRuntime(discovery=FileDiscovery(root, poll_interval=0.05))
+        sub = rt.event_subscriber([FPM_SUBJECT])
+        fpm = {}
+        listener = None
+        gen = torch.Generator(device="cpu").manual_seed(53)
+        V = get_config(LORA_SERVED_MODEL).vocab_size
+
+        def prompt(n=48):
+            return torch.randint(0, V, (n,), generator=gen).tolist()
+
+        try:
+            t0 = time.monotonic()
+            (pa, la), (pb, lb) = await asyncio.gather(
+                _spawn(["dynamo_tpu_torch.worker", *LORA_SERVED_ARGS, "--lora", "ad-one"],
+                       root, "worker serving", os.path.join(root, "holder.log")),
+                _spawn(["dynamo_tpu_torch.worker", *LORA_SERVED_ARGS, "--lora-slots", "1"],
+                       root, "worker serving", os.path.join(root, "other.log")))
+            procs.update(holder=pa, other=pb)
+            rec["worker_start_s"] = time.monotonic() - t0
+            fe, line = await _spawn(["dynamo_tpu_torch.frontend", "--router-mode", "kv",
+                                     "--http-host", "127.0.0.1", "--http-port", "0"], root,
+                                    "frontend serving at", os.path.join(root, "frontend.log"))
+            procs["frontend"] = fe
+            port = int(line.rsplit(":", 1)[1])
+
+            def listed():
+                status, _, data = _http(port, "GET", "/v1/models")
+                return [m["id"] for m in json.loads(data)["data"]] if status == 200 else []
+
+            t0 = time.monotonic()
+            while (models := await asyncio.to_thread(listed)) != ["ad-one",
+                                                                  LORA_SERVED_MODEL]:
+                check(time.monotonic() - t0 < 60, f"lora_served: the frontend lists {models}")
+                await asyncio.sleep(0.1)
+            rec["models"] = models
+            addr = {"holder": la.rsplit("(", 1)[1].rstrip(")"),
+                    "other": lb.rsplit("(", 1)[1].rstrip(")")}
+            insts = {i.address: i for i in await rt.discovery.list_instances("services/")
+                     if (i.metadata or {}).get("model_card")}
+            iid = {}
+            for name, a in addr.items():
+                inst = insts[a]
+                iid[name] = inst.instance_id
+                sub.connect(inst.metadata["fpm_publisher"])
+                fpm[inst.instance_id] = 0
+
+            async def listen():
+                async for _, payload in sub.events():
+                    w = payload["worker"][0]
+                    if w in fpm:
+                        fpm[w] += 1
+
+            listener = asyncio.create_task(listen())
+            await asyncio.sleep(0.5)  # the subscriptions connect
+
+            async def completion(p):
+                status, _, data = await asyncio.to_thread(_http, port, "POST",
+                                                          "/v1/completions", body(p))
+                check(status == 200, f"lora_served: ad-one answered {status}: {data[:300]}")
+                out = json.loads(data)
+                check(out["usage"]["completion_tokens"] == 16 and out["model"] == "ad-one",
+                      f"lora_served: {out}")
+                return out
+
+            async def settled():
+                last = None
+                while last != dict(fpm):
+                    last = dict(fpm)
+                    await asyncio.sleep(0.5)
+                return last
+
+            before = await settled()
+            t0 = time.monotonic()
+            for _ in range(4):
+                await completion(prompt())
+            await asyncio.gather(*[completion(prompt()) for _ in range(4)])
+            rec["ad_one_8_s"] = time.monotonic() - t0
+            after = await settled()
+            rec["fpm_before_load"] = {name: after[i] - before[i] for name, i in iid.items()}
+            check(after[iid["other"]] == before[iid["other"]],
+                  f"lora_served: ad-one traffic reached the non-holder: {rec}")
+            check(after[iid["holder"]] > before[iid["holder"]],
+                  f"lora_served: the holder ran no forward pass: {rec}")
+            # the runtime load on the other worker
+            rl = rt.client("dyn/tpu-worker/rl")
+            await rl.start()
+            await _until(lambda: iid["other"] in rl.instances, "the rl endpoint", 30)
+            t_load = time.monotonic()
+            got = [x async for x in rl.direct({"op": "load_adapter", "name": "ad-one",
+                                                "seed": 100, "scale": 1.0}, iid["other"])][0]
+            rec["load_adapter"] = {**got, "seconds": time.monotonic() - t_load}
+            check(got.get("slot") == 1 and got.get("adapters") == ["ad-one"],
+                  f"lora_served: load_adapter answered {got}")
+            await rl.close()
+            mark = dict(fpm)
+            batches = 0
+            while fpm[iid["other"]] == mark[iid["other"]]:
+                check(time.monotonic() - t_load < 30,
+                      f"lora_served: no ad-one traffic reached the new holder: {fpm}")
+                await asyncio.gather(*[completion(prompt()) for _ in range(4)])
+                batches += 1
+                await asyncio.sleep(0.3)
+            rec["new_holder"] = {"seconds_to_first_pass": time.monotonic() - t_load,
+                                 "batches": batches}
+            rc = {}
+            for name in ("frontend", "holder", "other"):
+                procs[name].send_signal(signal.SIGTERM)
+                rc[name] = await asyncio.wait_for(procs[name].wait(), SERVE_TIMEOUT_S)
+            check(rc == {"frontend": 0, "holder": 0, "other": 0},
+                  f"lora_served: exit codes after SIGTERM {rc}")
+            rec["exit_codes"] = rc
+            rec["seconds"] = time.monotonic() - t_phase
+            return rec
+        finally:
+            if listener is not None:
+                listener.cancel()
+            await sub.close()
+            for proc in procs.values():
+                if proc.returncode is None:
+                    proc.kill()
+                    await proc.wait()
+            await rt.shutdown(drain_timeout=1)
+
+    with tempfile.TemporaryDirectory() as root:
+        rec = asyncio.run(asyncio.wait_for(run(root), 600))
+    emit(rec)
+    return rec
+
+
 def parity_phase(runner, dev, phase: str = "parity", ragged: bool = True,
                  lens=(300, 180, 90), S: int = 320, MP: int = 24, NP: int = 80,
                  moe_sels=None, gate: bool = True, against: str = "ref"):
@@ -6189,12 +6654,13 @@ def tree_bytes(tree) -> int:
     return tree.numel() * tree.element_size()
 
 
-def decode_step_ms(runner):
+def decode_step_ms(runner, adapters=None):
     """One warm decode forward pass of DECODE_STEP_ROWS rows at
     DECODE_STEP_CONTEXT tokens of context, on the runner's pools (after its
     engine turns), as CUDA-graph replays: the device time of a step, the
     host's launch cost left out; back to back (host included); and the
-    host's time to launch one step onto an idle device (`host_ms`)."""
+    host's time to launch one step onto an idle device (`host_ms`).
+    `adapters`: the rows' LoRA slots on a LoRA runner."""
     from dynamo_tpu_torch.models import llama
 
     cfg, dev = runner.config, runner.device
@@ -6204,10 +6670,14 @@ def decode_step_ms(runner):
     tok = torch.randint(0, cfg.vocab_size, (B, 1), device=dev, dtype=torch.int32)
     pos = torch.full((B, 1), ctx, dtype=torch.int32, device=dev)
     kvl = torch.full((B,), ctx + 1, dtype=torch.int32, device=dev)
+    kw = {}
+    if adapters is not None:
+        kw = {"lora": runner.lora,
+              "adapter_idx": torch.tensor(adapters, dtype=torch.int32, device=dev)}
 
     def step():
         return llama.forward(cfg, runner.params, tok, pos, runner.k_pool, runner.v_pool,
-                             pt, kvl, 0)
+                             pt, kvl, 0, **kw)
 
     out = {"b2b_ms": cuda_ms(step, iters=10), "host_ms": host_ms(step, iters=10),
            "rows": B, "context": ctx}
@@ -6413,6 +6883,8 @@ def main() -> int:
         parity_phase(runner, dev)
         # this slice's paths: sampling extras, guided decoding, branches
         extras_phases(runner, smi)
+        # multi-LoRA on the 3B's params: the padded path with adapters
+        lora_phases(runner, dev, smi)
         # the request plane: the in-process streams served one at a time,
         # the disaggregated pair over TCP, then (this process's runners
         # freed) the worker as a process of its own
@@ -6425,6 +6897,8 @@ def main() -> int:
         served_rec = served_phase(in_process, fused_rec, V)
         # the frontend: two worker processes behind the HTTP frontend
         frontend_phase(in_process, V, served_rec, smi)
+        # LoRA adapters served as models, filtered routing, a runtime load
+        lora_served_phase(smi)
         # the slice's main path: llama-3.1-8b over int8 pools; each int8
         # entry's launches are the fused phase's (all on its int8 body)
         int8_launches, int8_bodies = int8kv_phases(dev, smi)

@@ -45,10 +45,16 @@ bias, logprobs and penalties (rows with either of the last two take the
 two-dispatch path, as the reference's `_mixed_fusible` gates them), n > 1
 branches forked after the parent's prefill (trunk pages shared, the tail
 page copied) and embeddings batched into one `embed` pass.
-Not ported yet: LoRA and multimodal input; requests asking for those are
-refused with an "error" item, as are guided decoding and logit bias on a
-draft-model worker (as in the reference: the speculative verify cannot
-honor them).
+Multi-LoRA: a request's `adapter` names a slot of the runner's stacked
+adapters (`lora_slots`), resolved at admission (an unknown name gets the
+reference's "unknown LoRA adapter" error item); the slot rides every
+dispatch the sequence takes (prefill, decode, the padded mixed fallback,
+n-gram verify, draft-model verify, its n > 1 branches) and seeds its hash
+chain, so its prefix cache never crosses adapters. `paused` refuses new
+admissions (the rl endpoint's pause).
+Not ported yet: multimodal input; requests carrying it are refused with
+an "error" item, as are guided decoding and logit bias on a draft-model
+worker (as in the reference: the speculative verify cannot honor them).
 """
 
 from __future__ import annotations
@@ -105,7 +111,7 @@ _ITL_CAP = 512
 
 # request fields of features this port does not serve yet: refused up
 # front rather than silently ignored
-_UNSUPPORTED_FIELDS = ("adapter", "mm")
+_UNSUPPORTED_FIELDS = ("mm",)
 
 # lower tiers by depth, and their labels on a sequence's onboard_tier
 _TIER_ORDER = {"host": 0, "disk": 1, "obj": 2}
@@ -414,6 +420,9 @@ class InferenceEngine:
         self._guided_cache: Dict[str, Any] = {}
         self._guided_lock = threading.Lock()
         self._lifter_lock = threading.Lock()  # the one TokenLifter build
+        # the rl endpoint's admission gate (worker_common): a paused engine
+        # refuses new requests, the admitted ones run on
+        self.paused = False
 
     def start(self) -> None:
         if self._thread is None:
@@ -576,6 +585,10 @@ class InferenceEngine:
         loop = asyncio.get_running_loop()
         out: asyncio.Queue = asyncio.Queue()
         rid = context.id
+        if self.paused:
+            yield engine_output([], "error",
+                                error="worker paused (weight update in progress)")
+            return
         bad = _unsupported(request)
         if bad is not None:
             yield engine_output([], "error",
@@ -597,9 +610,17 @@ class InferenceEngine:
             arrival=time.monotonic(),
             disagg=annotations.get("disagg"),
             kv_import=request.get("kv_import"),
+            adapter=request.get("adapter") or None,
             guided=request.get("guided"),
             logit_bias=request.get("logit_bias"),
         )
+        if seq.adapter:
+            try:
+                seq.adapter_idx = self.runner.adapter_slot(seq.adapter)
+            except KeyError:
+                yield engine_output([], "error",
+                                    error=f"unknown LoRA adapter {seq.adapter!r}")
+                return
         # latency spine: upstream hops (the disagg adapter's KV fetch)
         # stamped their durations into ctx.metadata["phases"]
         upstream = context.metadata.get("phases")
@@ -735,6 +756,9 @@ class InferenceEngine:
                 self._reply(fut, loop, self._export_parked_device, rid)
             elif op == "embed":
                 self._embed_pending.append(arg)
+            elif op == "call":
+                fn, args, fut, loop = arg
+                self._reply(fut, loop, fn, *args)
             elif op == "host_export":
                 hashes, fut, loop = arg
                 self._reply(fut, loop, self._host_export, hashes)
@@ -774,13 +798,13 @@ class InferenceEngine:
             loop.call_soon_threadsafe(_set_future, fut, vecs[i].tolist())
 
     def _reply(self, fut, loop, fn, *args) -> None:
-        """Run an export op on the step thread (the only thread that
-        touches this runner's pools) and resolve the caller's future with
+        """Run an op on the step thread (the only thread that touches this
+        runner's pools and adapters) and resolve the caller's future with
         its result, or with its exception."""
         try:
             value = fn(*args)
         except Exception as e:
-            log.exception("KV export failed")
+            log.exception("step-thread op %s failed", getattr(fn, "__name__", fn))
             loop.call_soon_threadsafe(_set_future_exc, fut, e)
             return
         loop.call_soon_threadsafe(_set_future, fut, value)
@@ -898,7 +922,8 @@ class InferenceEngine:
     def _run_prefill_inner(self, plan: PrefillPlan) -> None:
         seq = plan.seq
         logits = self.runner.prefill(
-            plan.chunk, plan.start_pos, seq.pages, prior_len=plan.start_pos)
+            plan.chunk, plan.start_pos, seq.pages, prior_len=plan.start_pos,
+            adapter=seq.adapter_idx)
         if self.has_draft and seq.disagg != "prefill":
             # the draft's KV in step with the target's (a disaggregated
             # prefill worker exports none: the decode side rebuilds it)
@@ -973,6 +998,8 @@ class InferenceEngine:
                 sampling=dict(seq.sampling),
                 stop=seq.stop,
                 arrival=seq.arrival,
+                adapter=seq.adapter,
+                adapter_idx=seq.adapter_idx,
                 logit_bias=seq.logit_bias,
                 guided=seq.guided,
                 guided_m=seq.guided_m,
@@ -1053,7 +1080,8 @@ class InferenceEngine:
             n_logprobs=_batch_logprobs(seqs),
             histories=([list(s.tokens) for s in seqs]
                        if _batch_penalties(seqs) else None),
-            prompt_lens=[s.n_prompt0 for s in seqs], **kw)
+            prompt_lens=[s.n_prompt0 for s in seqs],
+            adapters=[s.adapter_idx for s in seqs], **kw)
         for i, seq in enumerate(seqs):
             self._commit(seq, sampled[i, :T], lp, i)
 
@@ -1071,7 +1099,8 @@ class InferenceEngine:
         self._step_counter += R
         toks, counts = self.runner.spec_decode_multi(
             R, [s.tokens[-1] for s in seqs], [s.computed_len for s in seqs],
-            [s.pages for s in seqs], _sampling_params(seqs), step0, gamma=gamma)
+            [s.pages for s in seqs], _sampling_params(seqs), step0, gamma=gamma,
+            adapters=[s.adapter_idx for s in seqs])
         for i, seq in enumerate(seqs):
             self._commit(seq, [int(t) for r in range(R)
                                for t in toks[i, r, :int(counts[i, r])]])
@@ -1146,6 +1175,7 @@ class InferenceEngine:
         biases = _batch_biases(seqs, self.runner)
         if biases is not None:
             kw["biases"] = biases
+        kw["adapters"] = [s.adapter_idx for s in seqs]
         prefills = list(plan.prefills)
         while True:
             try:
@@ -1260,6 +1290,7 @@ class InferenceEngine:
         tokens = [s.tokens[-1] for s in seqs]
         positions = [s.computed_len for s in seqs]
         tables = [s.pages for s in seqs]
+        slots = [s.adapter_idx for s in seqs]
         sp = _sampling_params(seqs)
         branch_rows: List[List[int]] = [[] for _ in seqs]
         forks: List[List[Optional[List[int]]]] = [[] for _ in seqs]
@@ -1275,6 +1306,7 @@ class InferenceEngine:
                 tokens.append(s.tokens[-1])
                 positions.append(s.computed_len)
                 tables.append(fork)
+                slots.append(s.adapter_idx)
                 drafts.append([int(t) for t in b])
                 for key in sp:
                     sp[key].append(sp[key][i])
@@ -1295,6 +1327,7 @@ class InferenceEngine:
         brows = _batch_biases(seqs, self.runner)
         if brows is not None:
             kw["biases"] = {i: brows[i] for i, s in enumerate(seqs) if s.logit_bias}
+        kw["adapters"] = slots
         try:
             rows, chunk_logits = self.runner.verify_spec(
                 tokens, positions, tables, drafts, sp, step0,
@@ -1508,6 +1541,12 @@ class InferenceEngine:
         fut: asyncio.Future = loop.create_future()
         self._inbox.put((op, (*args, fut, loop)))
         return await fut
+
+    async def call_on_step_thread(self, fn, *args):
+        """fn(*args) run on the step thread between steps (a LoRA slot
+        written while no dispatch reads the tree); its result."""
+        self.start()
+        return await self._step_thread_call("call", fn, args)
 
     async def export_parked_kv_device(self, request_id: str):
         """Device-resident parked-KV export: a same-process decode engine
@@ -1839,7 +1878,7 @@ def _stable_seed(request_id: str) -> int:
 def _chunks(prefills: List[PrefillPlan]) -> List[Dict[str, Any]]:
     """The runner's chunk records for packed prefill plans."""
     return [{"tokens": p.chunk, "start": p.start_pos, "table": p.seq.pages,
-             "prior": p.start_pos} for p in prefills]
+             "prior": p.start_pos, "adapter": p.seq.adapter_idx} for p in prefills]
 
 
 def _sampling_params(seqs: List[Sequence]) -> Dict[str, list]:

@@ -16,7 +16,13 @@ forward, models/llama.py `encode`), draft-model speculation
 (`draft_config`: the draft's params and pools, `draft_prefill`,
 `spec_decode_multi` over engine/spec_decode.py `spec_rounds`), the
 device n-gram draft ring (`draft_ring_step`, `ensure_draft_ring`,
-`draft_ring_reset`, `draft_step`), with the
+`draft_ring_reset`, `draft_step`), multi-LoRA (`lora_slots`: a stacked
+adapter tree, models/lora.py, `register_adapter`, `adapter_slot`,
+`adapter_names`; each dispatch takes per-row slot indices, uploaded with
+its other int32 inputs, and the forward adds each row's adapter delta;
+as in the reference a LoRA runner turns the ragged mixed step off, so its
+mixed plans take the padded fallback, while its n-gram verify stays on
+the ragged step with a slot a flat token), with the
 reference's buckets, `_next_bucket`, `BucketOverflowError` and KV wire
 format (`KV_WIRE_LAYOUT_VERSION` 2). Params
 and the KV pools live on one device; the pools are updated in place
@@ -60,6 +66,7 @@ from dynamo_tpu_torch.engine.sampling import (
 )
 from dynamo_tpu_torch.guided.device_table import combine_tables
 from dynamo_tpu_torch.models import llama
+from dynamo_tpu_torch.models import lora as lora_mod
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.quant import (
     QUANT_MODES,
@@ -395,6 +402,10 @@ class ModelRunner:
         #   with a draft model
         draft_params: Optional[Dict[str, Any]] = None,  # None: random, seed 1
         spec_gamma: int = 4,  # draft tokens proposed per verify pass
+        lora_slots: int = 0,  # > 0: multi-LoRA with this many adapter slots
+        #   beside the base slot 0
+        lora_rank: int = 8,  # the stacked tree's rank (adapters zero-padded)
+        lora_targets: Optional[Sequence[str]] = None,  # None: DEFAULT_TARGETS
     ):
         self.config = config
         self.device = resolve_device(device)
@@ -411,10 +422,11 @@ class ModelRunner:
         self.ragged_q_block = DEFAULT_Q_BLOCK
         # fused mixed plans ride the ragged step unless DYN_RAGGED_MIXED=0
         # forces the padded fallback (the reference's A/B switch); MLA has
-        # no ragged attention, so its plans take the padded fallback
+        # no ragged attention, and a LoRA batch carries per-row adapters
+        # the one flat row cannot, so their plans take the padded fallback
         flag = os.environ.get("DYN_RAGGED_MIXED", "").lower()
         self.ragged_mixed = (flag not in ("0", "false", "off", "no")
-                             and not config.is_mla)
+                             and not config.is_mla and lora_slots <= 0)
         self.dtype = dtype
         self.moe_layers = llama.moe_layer_count(config)
         if quantize is not None and quantize not in QUANT_MODES:
@@ -425,9 +437,19 @@ class ModelRunner:
             raise ValueError(f"draft {draft_config.name} has vocabulary "
                              f"{draft_config.vocab_size}, {config.name} "
                              f"{config.vocab_size}")
+        self.lora_rank = int(lora_rank)
+        self.lora_targets = (tuple(lora_targets or lora_mod.DEFAULT_TARGETS)
+                             if lora_slots > 0 else None)
+        if lora_slots > 0 and (config.is_mla or (config.is_moe and config.n_dense_layers)):
+            raise NotImplementedError(
+                "LoRA is not supported for MLA models" if config.is_mla
+                else "LoRA is not supported with n_dense_layers models")
         if self.device.type == "cuda":
             need = serving_bytes(config, num_pages, page_size, dtype, kv_quantize,
                                  quantize, params, draft_config, draft_params)
+            if lora_slots > 0:
+                need += lora_mod.lora_bytes(config, lora_slots + 1, self.lora_rank,
+                                            self.lora_targets, dtype)
             check_fits(config.name, need, torch.cuda.mem_get_info(self.device)[0])
         t0 = time.monotonic()
         if params is None:
@@ -440,6 +462,14 @@ class ModelRunner:
         else:
             check_tree(params)
         self.params = params
+        # multi-LoRA: the stacked factors, slot 0 the base (all zero), and
+        # the registered adapters' slots by name
+        self.lora = None
+        self._adapter_slots: Dict[str, int] = {}
+        if lora_slots > 0:
+            self.lora = lora_mod.init_lora_params(
+                config, lora_slots + 1, self.lora_rank, self.lora_targets, dtype,
+                self.device)
         # one page more than the PagePool hands out: page `num_pages`
         # takes the padding rows' KV writes (models/toolkit.py kv_rows)
         self.kv_quantize = kv_quantize
@@ -502,6 +532,20 @@ class ModelRunner:
             off += a.size
         return out
 
+    def _adapter_ints(self, adapters: Optional[Sequence[int]], B: int) -> List[np.ndarray]:
+        """The [B] slot indices of a dispatch (pad rows on the base slot)
+        as one more array of its upload; none without LoRA."""
+        if self.lora is None:
+            return []
+        return [_padded(list(adapters or []), B, 0)]
+
+    def _lora_kw(self, idx: Sequence[torch.Tensor]) -> Dict[str, Any]:
+        """forward's LoRA arguments for the uploaded slot indices (an empty
+        list without LoRA)."""
+        if not idx:
+            return {}
+        return {"lora": self.lora, "adapter_idx": idx[0]}
+
     # -- steps -------------------------------------------------------------
     def prefill(
         self,
@@ -509,28 +553,32 @@ class ModelRunner:
         start_pos: int,
         page_table_row: List[int],
         prior_len: int,
+        adapter: int = 0,
     ) -> torch.Tensor:
         """Run one prefill chunk for a single sequence. `tokens` are the
         uncomputed prompt tokens starting at absolute position `start_pos`;
-        `prior_len` is the context length already in the pool. Returns
-        last-token logits [V] (f32, on the device)."""
+        `prior_len` is the context length already in the pool; `adapter`
+        its LoRA slot. Returns last-token logits [V] (f32, on the
+        device)."""
         n = len(tokens)
         S = _next_bucket(self.prefill_buckets, n)
         pos = _padded(range(start_pos, start_pos + n), S, -1)
-        tok, pos, pt, kvl = self._upload(
+        tok, pos, pt, kvl, *ad = self._upload(
             _padded(tokens, S, 0)[None], pos[None],
-            self._pad_page_table([page_table_row]), [prior_len + n])
+            self._pad_page_table([page_table_row]), [prior_len + n],
+            *self._adapter_ints([adapter], 1))
         logits = llama.forward(
             self.config, self.params, tok, pos, self.k_pool, self.v_pool,
-            pt, kvl, n - 1)
+            pt, kvl, n - 1, **self._lora_kw(ad))
         self.stats["prefill_chunks"] += 1
         return logits[0, 0]
 
     def decode(self, tokens: List[int], positions: List[int],
-               page_tables: List[List[int]], sampling, step: int) -> np.ndarray:
+               page_tables: List[List[int]], sampling, step: int,
+               adapters: Optional[List[int]] = None) -> np.ndarray:
         """One decode step. Returns sampled token ids [B_bucket] (host)."""
         return self.decode_multi(1, tokens, positions, page_tables, sampling,
-                                 step)[:, 0]
+                                 step, adapters=adapters)[:, 0]
 
     def decode_multi(
         self,
@@ -544,13 +592,15 @@ class ModelRunner:
         biases: Optional[np.ndarray] = None,  # [n, V] f32 logit-bias rows
         mask_fn=None,  # GuidedMaskContext: host-advanced per-step masks
         guided_dev=None,  # (tables, row_entries, pending): device DFA plan
+        adapters: Optional[List[int]] = None,  # LoRA slot a row
     ) -> np.ndarray:
         """n_steps decode iterations with one host sync at the end. Page
         tables must already cover positions[i] + n_steps slots. Returns
         sampled tokens [B_bucket, n_steps]."""
         toks, _ = self._decode_dispatch(
             n_steps, tokens, positions, page_tables, sampling, step,
-            masks=masks, biases=biases, mask_fn=mask_fn, guided_dev=guided_dev)
+            masks=masks, biases=biases, mask_fn=mask_fn, guided_dev=guided_dev,
+            adapters=adapters)
         return toks.cpu().numpy()
 
     def decode_multi_ex(
@@ -568,6 +618,7 @@ class ModelRunner:
         biases: Optional[np.ndarray] = None,
         mask_fn=None,
         guided_dev=None,
+        adapters: Optional[List[int]] = None,
     ):
         """decode_multi with the sampling extras: `histories` (each row's
         prompt + generated ids; `prompt_lens[i]` marks where its generated
@@ -577,7 +628,8 @@ class ModelRunner:
         toks, lp = self._decode_dispatch(
             n_steps, tokens, positions, page_tables, sampling, step,
             n_logprobs=n_logprobs, histories=histories, prompt_lens=prompt_lens,
-            masks=masks, biases=biases, mask_fn=mask_fn, guided_dev=guided_dev)
+            masks=masks, biases=biases, mask_fn=mask_fn, guided_dev=guided_dev,
+            adapters=adapters)
         toks_h = toks.cpu().numpy()
         if lp is None:
             return toks_h, None
@@ -585,14 +637,16 @@ class ModelRunner:
 
     def _decode_dispatch(self, n_steps, tokens, positions, page_tables, sampling,
                          step, n_logprobs=-1, histories=None, prompt_lens=None,
-                         masks=None, biases=None, mask_fn=None, guided_dev=None):
-        """Stage one decode dispatch (the ints and the history in one
-        upload, the mask and bias planes padded to the bucket: pad rows
-        all-allowed and unbiased) and run the loop. Returns device
-        (tokens [B, n_steps], lp or None)."""
+                         masks=None, biases=None, mask_fn=None, guided_dev=None,
+                         adapters=None):
+        """Stage one decode dispatch (the ints, the LoRA slots and the
+        history in one upload, the mask and bias planes padded to the
+        bucket: pad rows all-allowed and unbiased) and run the loop.
+        Returns device (tokens [B, n_steps], lp or None)."""
         B = _next_bucket(self.decode_buckets, len(positions))
+        ad_ints = self._adapter_ints(adapters, B)
         ints = [_padded(tokens, B, 0), _padded(positions, B, -1),
-                self._pad_page_table(page_tables, B)]
+                self._pad_page_table(page_tables, B), *ad_ints]
         if histories is not None:
             # bucketed to 128, padded with V: the pad's counts drop
             V = self.config.vocab_size
@@ -605,7 +659,9 @@ class ModelRunner:
             ints += [hist, plen]
         up = self._upload(*ints)
         tok, pos0, pt = up[:3]
-        counts = self._count_tables(*up[3:]) if histories is not None else None
+        ad = up[3:3 + len(ad_ints)]
+        counts = (self._count_tables(*up[3 + len(ad_ints):])
+                  if histories is not None else None)
         if mask_fn is not None:
             mask_fn.B = B  # the callback's mask rows match the padded bucket
         return self._decode_loop(
@@ -613,7 +669,7 @@ class ModelRunner:
             mask=self._plane(masks, B, True), bias=self._plane(biases, B, 0.0),
             counts=counts, mask_fn=mask_fn,
             guided=self._guided_op(guided_dev, B) if guided_dev else None,
-            n_logprobs=n_logprobs)
+            n_logprobs=n_logprobs, adapter_idx=ad)
 
     def _plane(self, rows: Optional[np.ndarray], n: int, fill) -> Optional[torch.Tensor]:
         """Row-aligned [r, V] mask (bool) or bias (f32) rows padded to n
@@ -648,7 +704,7 @@ class ModelRunner:
                      pos0: torch.Tensor, pt: torch.Tensor,
                      samp: SamplingParams, step: int, mask=None, bias=None,
                      counts=None, mask_fn=None, guided=None,
-                     n_logprobs: int = -1):
+                     n_logprobs: int = -1, adapter_idx=()):
         """The reference's `_decode_loop`: forward, sample, feed the
         sampled token back, all on the device, from device tokens `tok`
         [B] (host-packed, or chained from an earlier dispatch's samples)
@@ -659,9 +715,10 @@ class ModelRunner:
         (gtrans [G, V], gmask [G, V], gstate [B], pending: each row's
         state advanced by the token it fed, at step 0 too when pending,
         then its mask row gathered), `mask_fn` (a host callback (t,
-        prev_tokens) -> [B, V] bool, fed the tokens read back), and the
-        logprob report from the raw logits. Returns (sampled [B, n_steps],
-        lp or None) on the device."""
+        prev_tokens) -> [B, V] bool, fed the tokens read back), the
+        logprob report from the raw logits, and `adapter_idx` (the rows'
+        LoRA slots, [] or one [B] device tensor). Returns (sampled [B,
+        n_steps], lp or None) on the device."""
         out, lps = [], []
         B = tok.shape[0]
         r = torch.arange(B, device=tok.device)
@@ -676,7 +733,7 @@ class ModelRunner:
             kvl = torch.where(pos0 < 0, 0, pos0 + t + 1).to(torch.int32)
             logits = llama.forward(
                 self.config, self.params, tok[:, None], pos[:, None],
-                self.k_pool, self.v_pool, pt, kvl,
+                self.k_pool, self.v_pool, pt, kvl, **self._lora_kw(adapter_idx),
             )
             raw = logits[:, 0]
             lg = raw if counts is None else apply_penalties(raw, *counts, samp)
@@ -755,14 +812,17 @@ class ModelRunner:
         self, n_steps: int, tokens: List[int], positions: List[int],
         page_tables: List[List[int]], sampling, step: int,
         chunk_tokens: List[int], chunk_start: int, chunk_table: List[int],
-        chunk_prior: int,
+        chunk_prior: int, adapters: Optional[List[int]] = None,
+        chunk_adapter: int = 0,
     ) -> Tuple[np.ndarray, torch.Tensor]:
         """decode_multi_with_prefills for one chunk. Returns (sampled
         [B_bucket, n_steps] host, the chunk's last-token logits [V])."""
         chunk = {"tokens": chunk_tokens, "start": chunk_start,
-                 "table": chunk_table, "prior": chunk_prior}
+                 "table": chunk_table, "prior": chunk_prior,
+                 "adapter": chunk_adapter}
         toks, chunk_logits = self.decode_multi_with_prefills(
-            n_steps, tokens, positions, page_tables, sampling, step, [chunk])
+            n_steps, tokens, positions, page_tables, sampling, step, [chunk],
+            adapters=adapters)
         return toks, chunk_logits[0]
 
     def decode_multi_with_prefills(
@@ -774,11 +834,12 @@ class ModelRunner:
         sampling,
         step: int,
         chunks: List[Dict[str, Any]],  # {"tokens", "start", "table",
-        #   "prior"} per packed chunk (distinct sequences)
+        #   "prior", "adapter"?} per packed chunk (distinct sequences)
         masks: Optional[np.ndarray] = None,  # [n_dec, V] step-0 guided masks
         mask_fn=None,  # GuidedMaskContext for the fused tail steps 1..n-1
         biases: Optional[np.ndarray] = None,  # [n_dec, V] logit-bias rows
         guided_dev=None,  # device guided DFA plan for the fused tail
+        adapters: Optional[List[int]] = None,  # the decode rows' LoRA slots
     ) -> Tuple[np.ndarray, torch.Tensor]:
         """One fused mixed iteration: the decode batch's n_steps and the
         packed prefill chunks with one token readback. Rides the ragged
@@ -808,32 +869,41 @@ class ModelRunner:
                 "guided masks / logit bias require the ragged mixed path")
         if out is None:
             out = self._mixed_loop(n_steps, tokens, positions, page_tables,
-                                   sampling, step, chunks)
+                                   sampling, step, chunks, adapters)
         self.stats["mixed_chunks"] += len(chunks)
         return out
 
     def _mixed_loop(self, n_steps, tokens, positions, page_tables, sampling,
-                    step, chunks) -> Tuple[np.ndarray, torch.Tensor]:
+                    step, chunks, adapters=None) -> Tuple[np.ndarray, torch.Tensor]:
         """The padded fallback (the reference's `_mixed_loop` over
         `_prep_prefill_packed`): the chunks as rows of one [N, S] prefill
         batch, each row's tokens a contiguous run from s=0 as the prefill
         kernel needs, then the decode loop. Rows past the real chunks are
         all padding (q_len 0): their KV goes to the spare page and their
-        logits are dropped."""
+        logits are dropped. A LoRA runner uploads each chunk's and each
+        decode row's slot with the rest."""
         B = _next_bucket(self.decode_buckets, len(positions))
-        (ptok, ppos, ppt, pkvl, plast, tok, pos0, pt) = self._upload(
-            *self._prep_prefill_packed(chunks), _padded(tokens, B, 0),
-            _padded(positions, B, -1), self._pad_page_table(page_tables, B))
+        packed, p_ad = self._prep_prefill_packed(chunks)
+        ad_ints = self._adapter_ints(adapters, B)
+        up = self._upload(*packed, *p_ad, _padded(tokens, B, 0),
+                          _padded(positions, B, -1), self._pad_page_table(page_tables, B),
+                          *ad_ints)
+        ptok, ppos, ppt, pkvl, plast = up[:5]
+        k = 5 + len(p_ad)
+        tok, pos0, pt = up[k:k + 3]
         logits = llama.forward(self.config, self.params, ptok, ppos,
-                               self.k_pool, self.v_pool, ppt, pkvl, plast)
+                               self.k_pool, self.v_pool, ppt, pkvl, plast,
+                               **self._lora_kw(up[5:k]))
         self.stats["padded_prefill_dispatches"] += 1
         toks, _ = self._decode_loop(n_steps, tok, pos0, pt,
-                                    self._device_sampling(sampling, B), step)
+                                    self._device_sampling(sampling, B), step,
+                                    adapter_idx=up[k + 3:])
         return toks.cpu().numpy(), logits[:len(chunks), 0]
 
     def _prep_prefill_packed(self, chunks):
-        """Host arrays of the padded [N, S] chunk batch: tokens, positions
-        (-1 padding), page tables, kv lens and per-row last indices."""
+        """Host arrays of the padded [N, S] chunk batch: (tokens, positions
+        (-1 padding), page tables, kv lens, per-row last indices), and a
+        LoRA runner's [N] chunk slots ([] without LoRA)."""
         N = _next_bucket(self.pack_buckets, len(chunks))
         S = _next_bucket(self.prefill_buckets,
                          max(len(c["tokens"]) for c in chunks))
@@ -848,7 +918,8 @@ class ModelRunner:
             pkvl[i] = c["prior"] + n
             plast[i] = n - 1
         ppt = self._pad_page_table([c["table"] for c in chunks], N)
-        return ptok, ppos, ppt, pkvl, plast
+        return ((ptok, ppos, ppt, pkvl, plast),
+                self._adapter_ints([c.get("adapter") or 0 for c in chunks], N))
 
     def _prep_ragged(self, tokens, positions, page_tables, chunks):
         """Flatten a mixed plan (the decode rows first, one token each,
@@ -932,6 +1003,8 @@ class ModelRunner:
         #   arrays to upload with the step, by name
         masks: Optional[np.ndarray] = None,  # [r, V] bool, sampled-row aligned
         biases: Optional[np.ndarray] = None,  # [r, V] f32, sampled-row aligned
+        tok_adapters: Optional[np.ndarray] = None,  # [T] LoRA slot a flat
+        #   token (a LoRA runner's verify)
     ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         """The reference's `_ragged_step`: one forward over the flat
         [1, T] step with logits at the SEG gathered rows, then sampling of
@@ -945,12 +1018,16 @@ class ModelRunner:
                 "gather": gather, **(extra or {})}
         if row_seq is not None:
             host["row_seq"] = row_seq
+        if tok_adapters is not None:
+            host["tok_adapters"] = tok_adapters
         views = dict(zip(host, self._upload(*host.values())))
+        lora_kw = ({} if tok_adapters is None else
+                   {"lora": self.lora, "adapter_idx": views["tok_adapters"]})
         logits = llama.forward(
             self.config, self.params, views["flat"], views["positions"],
             self.k_pool, self.v_pool, last_index=views["gather"],
             ragged=(views["seg_page_table"], views["seg_kv_lens"],
-                    views["meta"]))
+                    views["meta"]), **lora_kw)
         seg_logits = logits[0]
         base = self._device_sampling(sampling, seg_cap)
         if row_seq is None:
@@ -984,6 +1061,8 @@ class ModelRunner:
         #   never draft)
         biases: Optional[Dict[int, np.ndarray]] = None,  # row index -> [V]
         #   f32 logit-bias row, the same draft-less contract
+        adapters: Optional[List[int]] = None,  # LoRA slot a row (a LoRA
+        #   runner: chunks carry theirs as "adapter")
     ) -> Tuple[List[np.ndarray], Any]:
         """One speculative-verify iteration on the ragged step. Each
         sequence is a segment of len(draft) + 1 tokens (its last real
@@ -1003,7 +1082,11 @@ class ModelRunner:
         table, with the owner's sampling entries repeated. A branch row
         thus draws with its owner's seed, and identical prefixes sample
         identically (what `accept_tree` relies on); its tokens count
-        against the T bucket and the sampled-row capacity as any row's."""
+        against the T bucket and the sampled-row capacity as any row's.
+
+        On a LoRA runner every flat token carries its row's (or chunk's)
+        slot, so each segment's adapter applies; the reference's ragged
+        verify drops them (ROADMAP departures)."""
         chunks = list(chunks)
         n_rows = len(positions)
         row_lens = [len(d) + 1 for d in drafts]
@@ -1030,6 +1113,13 @@ class ModelRunner:
         for c in chunks:
             flat[off:off + len(c["tokens"])] = c["tokens"]
             off += len(c["tokens"])
+        tok_adapters = None
+        if self.lora is not None:
+            seg_slots = (list(adapters) if adapters else [0] * n_rows) + [
+                c.get("adapter") or 0 for c in chunks]
+            flat_slots = np.repeat(seg_slots, q_lens)
+            tok_adapters = np.zeros(t_bucket, np.int32)  # pad tokens: base
+            tok_adapters[:len(flat_slots)] = flat_slots
         cu = md["cu_q_lens"]
         gather = np.zeros(seg_cap, np.int32)
         row_seq = np.zeros(seg_cap, np.int32)
@@ -1059,7 +1149,7 @@ class ModelRunner:
                 row_biases[offs[i]] = b
         sampled, seg_logits, _ = self._ragged_step(
             flat, md, gather, sampling, step, row_seq=row_seq, row_j=row_j,
-            masks=row_masks, biases=row_biases)
+            masks=row_masks, biases=row_biases, tok_adapters=tok_adapters)
         self.stats["ragged_verify_dispatches"] += 1
         sampled_h = sampled.cpu().numpy()  # one bulk sync
         out: List[np.ndarray] = []
@@ -1100,6 +1190,7 @@ class ModelRunner:
         sampling,
         step: int,
         gamma: Optional[int] = None,
+        adapters: Optional[List[int]] = None,
     ) -> Tuple[np.ndarray, np.ndarray]:
         """n_rounds speculative rounds (engine/spec_decode.py
         `spec_rounds`) with one readback. Returns (tokens [B_bucket, R,
@@ -1108,22 +1199,55 @@ class ModelRunner:
         tables must cover positions[i] + n_rounds * (gamma + 1) slots.
         `gamma` overrides spec_gamma (the engine shrinks it near a token
         budget so the draft pool never gaps; 0 verifies on the decode
-        kernel)."""
+        kernel). `adapters`: the rows' LoRA slots, applied by the target's
+        verify only (the draft proposes base-only, as the reference's)."""
         gamma = self.spec_gamma if gamma is None else int(gamma)
         B = _next_bucket(self.decode_buckets, len(tokens))
-        tok, pos, pt = self._upload(_padded(tokens, B, 0), _padded(positions, B, -1),
-                                    self._pad_page_table(page_tables, B))
+        tok, pos, pt, *ad = self._upload(
+            _padded(tokens, B, 0), _padded(positions, B, -1),
+            self._pad_page_table(page_tables, B), *self._adapter_ints(adapters, B))
         toks, counts = spec_rounds(
             self.config, self.draft_config, gamma, n_rounds, self.params,
             self.draft_params, tok, pos, self.k_pool, self.v_pool,
             self.draft_k_pool, self.draft_v_pool, pt,
-            self._device_sampling(sampling, B), step)
+            self._device_sampling(sampling, B), step, **self._lora_kw(ad))
         self.stats["draft_steps"] += n_rounds * (gamma + 1)
         # gamma 0 verifies one token: an S = 1 forward on the decode kernel
         self.stats["spec_verify_passes" if gamma else "decode_steps"] += n_rounds
         both = torch.cat([toks.reshape(B, -1), counts], 1).cpu().numpy()
         R = n_rounds
         return both[:, :R * (gamma + 1)].reshape(B, R, gamma + 1), both[:, R * (gamma + 1):]
+
+    # -- the multi-LoRA registry -------------------------------------------
+    @property
+    def adapter_names(self) -> List[str]:
+        return list(self._adapter_slots)
+
+    def register_adapter(self, name: str, factors: Dict[str, Any]) -> int:
+        """Install an adapter's factors (models/lora.py layout: {t}_a
+        [L, in, r], {t}_b [L, r, out], scaling folded into B, at the
+        tree's rank) into the next free slot, in place on the device;
+        returns the slot sequences name. A registered name keeps its
+        slot and factors."""
+        if self.lora is None:
+            raise RuntimeError("runner built without lora_slots")
+        if name in self._adapter_slots:
+            return self._adapter_slots[name]
+        slot = len(self._adapter_slots) + 1  # 0 is the base slot
+        n_slots = next(iter(self.lora["layers"].values())).shape[1]
+        if slot >= n_slots:
+            raise RuntimeError(f"all {n_slots - 1} LoRA slots in use")
+        lora_mod.set_adapter_slot(self.lora, slot, factors)
+        self._adapter_slots[name] = slot
+        log.info("registered LoRA adapter %r in slot %d", name, slot)
+        return slot
+
+    def adapter_slot(self, name: Optional[str]) -> int:
+        """The slot of a registered adapter (0 for None or ""); KeyError
+        for an unknown name."""
+        if not name:
+            return 0
+        return self._adapter_slots[name]
 
     # -- the device n-gram draft ring --------------------------------------
     def ensure_draft_ring(self, slots: int, k: int,

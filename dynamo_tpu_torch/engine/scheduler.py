@@ -1,9 +1,11 @@
 """Continuous-batching scheduler with chunked prefill, prefix-cache reuse,
 and recompute-preemption.
 
-Pure host logic, copied from dynamo_tpu/engine/scheduler.py with the
-parts this port does not serve yet left out: the LoRA and multimodal
-hash-chain seeds. Fork-on-branch (`adopt_branch`,
+Pure host logic, copied from dynamo_tpu/engine/scheduler.py. A
+sequence's hash chain is seeded by `request_seed(adapter, mm_seed)` (its
+LoRA adapter and multimodal content each fork the lineage), so equal
+tokens under different adapters never share cache blocks, here or in the
+lower KV tiers, which key on the same hashes. Fork-on-branch (`adopt_branch`,
 n > 1 sampling) and the guided and logit-bias fields are in. Disaggregation (park,
 release_parked, admit_with_kv) and the G2 host-tier continuation of
 `_try_allocate` are in. Speculative drafts stay, linear and tree: the
@@ -31,7 +33,7 @@ from enum import Enum
 from typing import Any, Dict, List, Optional
 
 from dynamo_tpu_torch.engine.kv_pool import NoSpace, PagePool
-from dynamo_tpu_torch.tokens.hashing import block_hashes, hash_block
+from dynamo_tpu_torch.tokens.hashing import block_hashes, hash_block, request_seed
 
 log = logging.getLogger("dynamo_tpu_torch.engine.scheduler")
 
@@ -41,6 +43,12 @@ class SeqState(Enum):
     PREFILL = "prefill"
     RUNNING = "running"
     FINISHED = "finished"
+
+
+def _chain_seed(seq: "Sequence") -> Optional[int]:
+    """The hash chain's seed: LoRA adapters and multimodal content each
+    fork the block lineage (K/V depend on them)."""
+    return request_seed(seq.adapter, seq.mm_seed)
 
 
 @dataclass
@@ -54,6 +62,9 @@ class Sequence:
     # first token, then park; "decode" = KV arrives by transfer, no prefill
     disagg: Optional[str] = None
     kv_import: Any = None  # page payload for disagg-decode admission
+    adapter: Optional[str] = None  # LoRA adapter name (None = base model)
+    adapter_idx: int = 0  # its slot, resolved by the engine at admission
+    mm_seed: Optional[int] = None  # multimodal content hash (chain seed)
     logit_bias: Any = None  # [[token_id, bias], ...] (OpenAI logit_bias)
     # guided decoding: wire spec (dict), compiled GuidedMatcher, DFA state
     guided: Any = None
@@ -322,7 +333,7 @@ class Scheduler:
         use_cache = self.enable_prefix_cache and seq.n_preemptions == 0
         max_shared = (len(prompt) - 1) // PS
         if use_cache:
-            matched_pages, hashes = self.pool.match_prefix(prompt)
+            matched_pages, hashes = self.pool.match_prefix(prompt, _chain_seed(seq))
             # never share the page containing the final prompt token: its
             # logits must be recomputed, so cap the match below it
             while len(matched_pages) > max_shared:
@@ -334,7 +345,8 @@ class Scheduler:
         host_n = 0
         host_hashes: List[int] = []
         if use_cache and self.host_tier is not None and self.host_onboard is not None:
-            candidates = block_hashes(prompt, PS)[len(matched_pages):max_shared]
+            candidates = block_hashes(prompt, PS, _chain_seed(seq))[
+                len(matched_pages):max_shared]
             host_n = self.host_tier.match(candidates)
             host_hashes = candidates[:host_n]
 
@@ -354,7 +366,7 @@ class Scheduler:
                 seq.phases["kv_onboard_s"] = (
                     seq.phases.get("kv_onboard_s", 0.0)
                     + (time.monotonic() - t_onboard))
-                parent = hashes[-1] if hashes else None
+                parent = hashes[-1] if hashes else _chain_seed(seq)
                 for page, h in zip(fresh[:host_n], host_hashes):
                     canonical = self.pool.register(page, h, parent)
                     if canonical != page:  # raced with another registration
@@ -568,7 +580,7 @@ class Scheduler:
         n_complete = min(seq.computed_len // PS, len(seq.pages))
         while len(seq.hash_chain) < n_complete:
             i = len(seq.hash_chain)
-            parent = seq.hash_chain[-1] if seq.hash_chain else None
+            parent = seq.hash_chain[-1] if seq.hash_chain else _chain_seed(seq)
             h = hash_block(parent, seq.tokens[i * PS : (i + 1) * PS])
             canonical = self.pool.register(seq.pages[i], h, parent)
             if canonical != seq.pages[i]:

@@ -166,11 +166,16 @@ def spec_rounds(
     page_table: torch.Tensor,  # [B, MP]
     samp: SamplingParams,
     step0: int,
+    lora=None,  # the target's stacked LoRA tree (models/lora.py)
+    adapter_idx: torch.Tensor = None,  # [B] the rows' slots
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """R speculative rounds on the device, the four pools written in
     place. Returns (tokens [B, R, gamma+1], counts [B, R]) on the device;
     row i's round r holds counts[i, r] valid tokens. The page tables must
-    cover positions0 + R * (gamma + 1) slots."""
+    cover positions0 + R * (gamma + 1) slots. With `lora` only the
+    target's verify applies the rows' adapters: the draft proposes
+    base-only (the reference's contract; acceptance keeps the output the
+    adapted target's)."""
     B = tokens0.shape[0]
     dev = tokens0.device
     g1 = gamma + 1
@@ -210,7 +215,8 @@ def spec_rounds(
         ver_pos = torch.where(pos[:, None] < 0, -1, pos[:, None] + offs)
         kvl = torch.where(pos < 0, 0, pos + g1).to(torch.int32)
         logits = llama.forward(config, params, ver_toks, ver_pos, k_pool, v_pool,
-                               page_table, kvl)  # [B, g+1, V]
+                               page_table, kvl, lora=lora,
+                               adapter_idx=adapter_idx)  # [B, g+1, V]
         t_idx, t_probs = filtered_probs(logits.reshape(B * g1, -1), rep)
         K = t_idx.shape[-1]
         t_idx = t_idx.view(B, g1, K)

@@ -20,7 +20,9 @@ required or named `tool_choice` over tools (the tool-call regex),
 `guided_regex` / `guided_json` / `guided_choice` extensions, compiled to
 the wire spec the worker lifts to token masks. Images are refused as the
 reference refuses them for a model without a vision encoder. logit_bias,
-logprobs and penalties are mapped as the reference maps them.
+logprobs and penalties are mapped as the reference maps them. A LoRA
+adapter's entry (frontend/service.py) has a preprocessor of its own that
+stamps the adapter's name into every request it builds.
 """
 
 from __future__ import annotations
@@ -78,13 +80,15 @@ def render_default_chat(messages: List[Dict[str, Any]],
 
 
 class Preprocessor:
-    def __init__(self, card: ModelCard, tokenizer: Optional[Tokenizer] = None):
+    def __init__(self, card: ModelCard, tokenizer: Optional[Tokenizer] = None,
+                 adapter: Optional[str] = None):
         if card.chat_template:
             raise ValueError(
                 f"model {card.name!r} brings a chat template of its own; the port "
                 "renders only the default template (no template engine yet)")
         self.card = card
         self.tokenizer = tokenizer or load_tokenizer(card.tokenizer)
+        self.adapter = adapter  # the LoRA adapter this entry serves (None: base)
 
     # -- prompt assembly ---------------------------------------------------
     def render_chat(self, messages: List[Dict[str, Any]],
@@ -211,7 +215,8 @@ class Preprocessor:
         return make_preprocessed_request(
             model=req.get("model", self.card.name), token_ids=ids,
             sampling=sampling, stop=stop, annotations=annotations,
-            logit_bias=logit_bias, guided=self._guided(req, tools))
+            logit_bias=logit_bias, guided=self._guided(req, tools),
+            adapter=self.adapter)
 
     def _guided(self, req: Dict[str, Any],
                 tools: Optional[List[Dict[str, Any]]]) -> Optional[Dict[str, Any]]:

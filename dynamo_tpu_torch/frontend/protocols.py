@@ -64,6 +64,7 @@ def make_preprocessed_request(
     annotations: Optional[Dict[str, Any]] = None,
     logit_bias: Optional[List] = None,
     guided: Optional[Dict[str, Any]] = None,
+    adapter: Optional[str] = None,
 ) -> Dict[str, Any]:
     out = {
         "model": model,
@@ -79,4 +80,7 @@ def make_preprocessed_request(
         # the constraint spec the worker lifts to token masks
         # (dynamo_tpu_torch/guided): {"kind": "regex"|"structural", ...}
         out["guided"] = guided
+    if adapter:
+        # the LoRA adapter the worker applies (its slot resolved there)
+        out["adapter"] = adapter
     return out

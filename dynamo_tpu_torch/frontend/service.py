@@ -12,13 +12,25 @@ in `kv` mode, a KvPushRouter. Instances registered with the prefill role
 activate the PrefillRouter; in `kv` mode it picks among them by KV
 overlap through a second KvRouter over the prefill pool.
 
-Not ported yet: LoRA adapter entries (A.9), session affinity, the encoder
-stage (A.12), the `kv-remote` and `device_aware` modes.
+LoRA adapters a card lists (ModelCard.adapters) become models of their
+own: an adapter entry shares its base model's client, has a chain and a
+preprocessor of its own (which stamps the adapter into every request),
+and lists as instances only the workers whose card holds the adapter. Its
+chain head (`_AdapterGate`) stamps those holders into the routing context
+(`allowed_instances`), so every picker below (PushRouter modes, the KV
+router's cost selection) chooses among them only; its PrefillRouter hops
+only to prefill workers holding it (`_restrict_adapter_prefill`; with
+none, aggregated). An adapter a worker loads at run time reaches the
+watcher as a republished card; the entry goes when its last holder does.
+
+Not ported yet: session affinity, the encoder stage (A.12), the
+`kv-remote` and `device_aware` modes.
 """
 
 from __future__ import annotations
 
 import asyncio
+import dataclasses
 import logging
 from dataclasses import dataclass, field
 from typing import Any, Dict, Optional, Set
@@ -50,6 +62,13 @@ class ModelEntry:
     prefill_client: Any = None
     prefill_instance_ids: Set[int] = field(default_factory=set)
     prefill_kv_router: Any = None  # KvRouter over the prefill pool (kv mode)
+    owns_client: bool = True  # False for a LoRA adapter entry (shared client)
+    adapter_names: Set[str] = field(default_factory=set)  # entries this base spawned
+    # base entries: each prefill instance's adapters (the adapter entries'
+    # prefill-pool restriction), and the pool's kv_fetch path (for an
+    # adapter entry made after the pool was activated)
+    prefill_instance_adapters: Dict[int, Set[str]] = field(default_factory=dict)
+    prefill_fetch_path: Optional[str] = None
 
     @property
     def prefill_router(self) -> Optional[PrefillRouter]:
@@ -63,7 +82,8 @@ class ModelEntry:
             await router.stop()
         if self.prefill_client is not None:
             await self.prefill_client.close()
-        await self.client.close()
+        if self.owns_client:
+            await self.client.close()
 
 
 class ModelManager:
@@ -188,8 +208,56 @@ class ModelWatcher:
             log.info("model %s added (endpoint %s)", card.name, entry.endpoint_path)
             for pending in self._pending_prefill.pop(card.name, []):
                 await self._on_prefill_put(card, pending)
+        # the LoRA adapters this instance serves, each a model; on every
+        # put, so a later replica's (or a runtime load's) new adapter
+        # registers too
+        held = set(card.adapters or [])
+        for aname in sorted(held):
+            self._ensure_adapter_entry(entry, card, aname)
         entry.instance_ids.add(inst.instance_id)
+        # an adapter entry lists only the replicas holding its adapter:
+        # the set its routing filters on
+        for aname in entry.adapter_names:
+            aentry = self.manager.models.get(aname)
+            if aentry is None:
+                continue
+            if aname in held:
+                aentry.instance_ids.add(inst.instance_id)
+            else:
+                aentry.instance_ids.discard(inst.instance_id)
         self._ready.set()
+
+    def _ensure_adapter_entry(self, entry: ModelEntry, card: ModelCard,
+                              aname: str) -> None:
+        """The adapter's entry: the base's client, its own preprocessor
+        (stamping the adapter) and chain, under `_AdapterGate`."""
+        if aname in self.manager.models:
+            entry.adapter_names.add(aname)
+            return
+        acard = dataclasses.replace(card, name=aname, adapters=[])
+        apre = Preprocessor(acard, tokenizer=entry.preprocessor.tokenizer, adapter=aname)
+        aentry = ModelEntry(card=acard, endpoint_path=entry.endpoint_path,
+                            preprocessor=apre, client=entry.client,
+                            chain=self._build_chain(acard, entry.client, apre),
+                            owns_client=False)
+        aentry.chain = _AdapterGate(aentry.chain, aentry)
+        self.manager.models[aname] = aentry
+        entry.adapter_names.add(aname)
+        self._restrict_adapter_prefill(entry, aname, aentry)
+        if entry.prefill_client is not None and entry.prefill_fetch_path:
+            # an adapter after the prefill pool's activation joins it now
+            aentry.prefill_router.activate(entry.prefill_client, entry.prefill_fetch_path,
+                                           kv_router=entry.prefill_kv_router)
+        log.info("adapter %s added (base %s)", aname, card.name)
+
+    def _restrict_adapter_prefill(self, entry: ModelEntry, aname: str,
+                                  aentry: ModelEntry) -> None:
+        """The prefill pool's face of the LoRA filter: hops for this
+        adapter go only to prefill workers holding it; with none, the
+        empty set makes every hop fall back to aggregated serving."""
+        aentry.prefill_router.restrict_prefill(
+            {pid for pid, pads in entry.prefill_instance_adapters.items()
+             if aname in pads})
 
     async def _on_prefill_put(self, card: ModelCard, inst) -> None:
         entry = self.manager.models.get(card.name)
@@ -207,9 +275,26 @@ class ModelWatcher:
                 # request's TTFT
                 entry.prefill_kv_router = self._kv_router(card, entry.prefill_client)
                 await entry.prefill_kv_router.start()
+            entry.prefill_fetch_path = fetch_path
             entry.prefill_router.activate(entry.prefill_client, fetch_path,
                                           kv_router=entry.prefill_kv_router)
+            # the adapter entries disaggregate too, over the same pool
+            for aentry in self._adapter_entries(entry):
+                aentry.prefill_router.activate(entry.prefill_client, fetch_path,
+                                               kv_router=entry.prefill_kv_router)
         entry.prefill_instance_ids.add(inst.instance_id)
+        # from the instance's own card: a pending prefill instance is
+        # joined under its decode peer's card
+        own = (inst.metadata or {}).get("model_card") or {}
+        entry.prefill_instance_adapters[inst.instance_id] = set(own.get("adapters") or [])
+        for aname in entry.adapter_names:
+            aentry = self.manager.models.get(aname)
+            if aentry is not None:
+                self._restrict_adapter_prefill(entry, aname, aentry)
+
+    def _adapter_entries(self, entry: ModelEntry):
+        return [self.manager.models[a] for a in sorted(entry.adapter_names)
+                if a in self.manager.models]
 
     async def _on_delete(self, card: ModelCard, inst) -> None:
         pending = self._pending_prefill.get(card.name)
@@ -220,8 +305,16 @@ class ModelWatcher:
             return
         if (inst.metadata or {}).get("disagg_role") == "prefill":
             entry.prefill_instance_ids.discard(inst.instance_id)
+            entry.prefill_instance_adapters.pop(inst.instance_id, None)
+            for aname in entry.adapter_names:
+                aentry = self.manager.models.get(aname)
+                if aentry is not None:
+                    self._restrict_adapter_prefill(entry, aname, aentry)
             if not entry.prefill_instance_ids:
                 entry.prefill_router.deactivate()
+                for aentry in self._adapter_entries(entry):
+                    aentry.prefill_router.deactivate()
+                entry.prefill_fetch_path = None
                 router, entry.prefill_kv_router = entry.prefill_kv_router, None
                 if router is not None:
                     await router.stop()
@@ -230,10 +323,50 @@ class ModelWatcher:
                     await client.close()
             return
         entry.instance_ids.discard(inst.instance_id)
+        # an adapter entry goes with its last holder
+        for aname in sorted(entry.adapter_names):
+            aentry = self.manager.models.get(aname)
+            if aentry is None:
+                continue
+            aentry.instance_ids.discard(inst.instance_id)
+            if not aentry.instance_ids:
+                del self.manager.models[aname]
+                entry.adapter_names.discard(aname)
+                await aentry.close()
+                log.info("adapter %s removed (last holder gone)", aname)
         if not entry.instance_ids:
             del self.manager.models[card.name]
             await entry.close()
             log.info("model %s removed (last instance gone)", card.name)
+
+
+class _AdapterGate:
+    """An adapter entry's chain head: stamps the entry's live holders (the
+    replicas whose card lists its adapter) into the routing context as
+    `allowed_instances`, so every picker below filters before it selects
+    (the reference's two-stage LoRA-filtered routing). With no holder the
+    pick raises no_instances: a clean error, not an "unknown adapter" one
+    from an arbitrary worker. Stages and teardown are the chain's."""
+
+    def __init__(self, inner, entry: ModelEntry):
+        self.inner = inner
+        self.entry = entry
+
+    async def generate(self, request: Any, context: Context):
+        # a list, not a set: the metadata stays serializable
+        context.metadata["allowed_instances"] = sorted(self.entry.instance_ids)
+        async for item in self.inner.generate(request, context):
+            yield item
+
+    def get(self, name: str):
+        return self.inner.get(name)
+
+    @property
+    def sink(self):
+        return self.inner.sink
+
+    async def teardown(self) -> None:
+        await self.inner.teardown()
 
 
 class _ClientEngine:

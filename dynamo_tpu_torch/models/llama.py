@@ -43,6 +43,7 @@ from typing import Any, Collection, Dict, Optional, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from dynamo_tpu_torch.models import lora as lora_mod
 from dynamo_tpu_torch.models.config import ModelConfig
 from dynamo_tpu_torch.models.mla import mla_attention
 from dynamo_tpu_torch.models.moe import moe_block
@@ -319,6 +320,9 @@ def forward(
     last_index: Optional[Union[int, torch.Tensor]] = None,  # int or [B]
     attn_impl: str = "kernel",
     ragged: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    lora: Optional[Params] = None,  # stacked multi-adapter tree (models/lora.py)
+    adapter_idx: Optional[torch.Tensor] = None,  # [B] slot a row (0 = base),
+    #   or [T] a token of the ragged row
 ) -> torch.Tensor:
     """One forward pass (prefill chunk S > 1 or decode S = 1). Writes this
     step's K/V into the pools in place, attends over the full context and
@@ -338,10 +342,28 @@ def forward(
     v_pool is the 1-wide stub and is not written. Int8 dict pools
     (models/quant.py) quantize on write and reach the kernels' int8
     bodies (the "ref" path dequantizes on its gather). On MoE layers
-    `attn_impl` picks the routed experts' path as well (models/moe.py)."""
+    `attn_impl` picks the routed experts' path as well (models/moe.py).
+
+    `lora` (models/lora.py's stacked tree) with `adapter_idx` adds each
+    token's adapter delta x @ A[a] @ B[a] to every target projection,
+    after the base product (`mm`, so a quantized weight composes) and
+    before Qwen2's biases, as the reference's `lproj`. `adapter_idx` is a
+    slot a row ([B]), or a slot a token of the ragged row ([T]: its
+    segments may carry different adapters); the delta is models/lora.py
+    `delta`, two products over every slot masked to each token's slot (a
+    base-slot token adds an exact zero). MLA configs and configs with
+    n_dense_layers refuse it, as the reference does."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
     c = config
+    lora_layers = (lora or {}).get("layers", {})
+    if lora_layers and c.is_mla:
+        # the MLA branch never consults the factors: an adapter that
+        # seems to load but changes nothing is worse than a refusal
+        raise NotImplementedError("LoRA is not supported for MLA models")
+    if lora_layers and c.is_moe and c.n_dense_layers:
+        raise NotImplementedError(
+            "LoRA is not supported with n_dense_layers models")
     B, S = tokens.shape
     hd = c.head_dim
     G = c.n_heads // c.n_kv_heads
@@ -386,6 +408,18 @@ def forward(
         q_start = safe_pos[:, 0].to(torch.int32).contiguous()
         q_len = (positions >= 0).sum(1, dtype=torch.int32)
 
+    if lora_layers:  # each token's slot one-hot: [B, S or 1, n, 1]
+        slot_sel = lora_mod.slot_mask(
+            adapter_idx.view(B, S) if ragged is not None else adapter_idx.view(B, 1),
+            next(iter(lora_layers.values())).shape[1], h.dtype)
+
+    def lproj(y: torch.Tensor, x: torch.Tensor, name: str, l: int) -> torch.Tensor:
+        """y = x @ W, plus each token's delta x @ A[a] @ B[a]."""
+        a = lora_layers.get(name + "_a")
+        if a is None:
+            return y
+        return y + lora_mod.delta(x, a[l], lora_layers[name + "_b"][l], slot_sel)
+
     for l in range(c.n_layers):
         lp, use_moe = layer_params(c, params, l)
         if c.is_mla:
@@ -396,8 +430,8 @@ def forward(
             # OLMo-2 (pre_norms=False): the sublayer reads the raw residual
             x = (rms_norm(h, lp["attn_norm"], c.norm_eps, zero_centered=zc)
                  if c.pre_norms else h)
-            q, k, v = (mm(x, lp["wq"], attn_impl), mm(x, lp["wk"], attn_impl),
-                       mm(x, lp["wv"], attn_impl))
+            q, k, v = (lproj(mm(x, lp[t], attn_impl), x, t, l)
+                       for t in ("wq", "wk", "wv"))
             if c.attn_bias:  # Qwen2: after the product, in the params' dtype
                 q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
             if c.qk_norm and c.qk_norm_wide:  # OLMo-2: over the full width
@@ -433,7 +467,7 @@ def forward(
                     qg, k_l, v_l, page_table, q_start, q_len, kv_lens, win,
                     **attn_kw)
             attn = attn.reshape(B, S, c.n_heads * hd)
-        attn_out = mm(attn, lp["wo"], attn_impl)
+        attn_out = lproj(mm(attn, lp["wo"], attn_impl), attn, "wo", l)
         if c.post_norms:  # Gemma-2, OLMo-2: norm the branch before the residual
             attn_out = rms_norm(attn_out, lp["post_attn_norm"], c.norm_eps,
                                 zero_centered=zc)
@@ -445,8 +479,9 @@ def forward(
         if use_moe:  # no post-FFN norm on a MoE layer, as in the reference
             ffw = moe_block(c, lp, x, attn_impl)
         else:
-            gate = act(mm(x, lp["w_gate"], attn_impl))
-            ffw = mm(gate * mm(x, lp["w_up"], attn_impl), lp["w_down"], attn_impl)
+            gate = act(lproj(mm(x, lp["w_gate"], attn_impl), x, "w_gate", l))
+            gu = gate * lproj(mm(x, lp["w_up"], attn_impl), x, "w_up", l)
+            ffw = lproj(mm(gu, lp["w_down"], attn_impl), gu, "w_down", l)
             if c.post_norms:
                 ffw = rms_norm(ffw, lp["post_mlp_norm"], c.norm_eps,
                                zero_centered=zc)

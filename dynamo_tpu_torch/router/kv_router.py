@@ -21,9 +21,15 @@ that runs a prefetch manager gets a `kv_prefetch` hint ahead of the
 request, and a trunk (first block) that proves hot is replicated once
 onto a slice that holds none of it.
 
-Not ported yet: the router replica sync, the LoRA filter (A.9), the
-routing audit, the tracing spans and the fleet digest that feeds
-`bind_tier_costs` (A.11).
+LoRA and multimodal requests hash their blocks on their own lineage (the
+chain seeded by tokens/hashing.py `request_seed`, as the worker's
+scheduler seeds it), in the overlap scores and every hint, and a
+request whose context carries `allowed_instances` (a LoRA adapter
+entry's holders) is routed among those workers only, before cost-based
+selection (the reference's two-stage LoRA-filtered routing).
+
+Not ported yet: the router replica sync, the routing audit, the tracing
+spans and the fleet digest that feeds `bind_tier_costs` (A.11).
 """
 
 from __future__ import annotations
@@ -42,7 +48,7 @@ from dynamo_tpu_torch.router.sequences import ActiveSequences
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.request_plane import PushRouter, RequestPlaneError
 from dynamo_tpu_torch.runtime.tasks import spawn_tracked
-from dynamo_tpu_torch.tokens.hashing import block_hashes
+from dynamo_tpu_torch.tokens.hashing import block_hashes, mm_content_seed, request_seed
 
 log = logging.getLogger("dynamo_tpu_torch.router")
 
@@ -229,16 +235,19 @@ class KvRouter:
         return out
 
     def find_best_match(
-        self, token_ids: List[int], pinned_instance: Optional[int] = None,
-        collect: Optional[Dict[str, Any]] = None,
+        self, token_ids: List[int], adapter: Optional[str] = None,
+        mm_seed: Optional[int] = None, pinned_instance: Optional[int] = None,
+        collect: Optional[Dict[str, Any]] = None, allowed_instances=None,
     ) -> Tuple[Worker, int, List[int]]:
-        """Returns (worker, overlap blocks, block hashes); `pinned_instance`
-        restricts selection to that instance's ranks; `collect` receives
-        the host and object overlaps (for the hints, without a second
-        walk). The hash chain is the base model's: the workers refuse
-        LoRA adapters and multimodal inputs, whose lineages fork it (A.9,
-        A.12)."""
-        hashes = block_hashes(token_ids, self.block_size)
+        """Returns (worker, overlap blocks, block hashes). `adapter` and
+        `mm_seed` seed the hash chain as the worker's scheduler does
+        (request_seed), so a LoRA request scores overlap only against its
+        own lineage's blocks; `pinned_instance` restricts selection to
+        that instance's ranks; `allowed_instances` (the LoRA filter) to
+        the replicas holding the adapter, before cost-based selection;
+        `collect` receives the host and object overlaps (for the hints,
+        without a second walk)."""
+        hashes = block_hashes(token_ids, self.block_size, request_seed(adapter, mm_seed))
         overlaps = self.indexer.index.find_matches(hashes)
         host_overlaps = self.indexer.host_index.find_matches(hashes).scores
         obj_overlaps = self.indexer.obj_index.find_matches(hashes).scores
@@ -246,6 +255,11 @@ class KvRouter:
             collect["host_overlaps"] = host_overlaps
             collect["obj_overlaps"] = obj_overlaps
         workers = self.workers()
+        if allowed_instances is not None:
+            workers = [w for w in workers if w[0] in allowed_instances]
+            if not workers:
+                raise RequestPlaneError(f"no workers hold adapter {adapter!r}",
+                                        code="no_instances")
         if pinned_instance is not None:
             # an explicit pin bypasses the sick filter, and a pinned
             # target that is gone fails loudly (migratable), never
@@ -470,6 +484,11 @@ class KvRouter:
         self.admission.notify(1)  # one slot freed: admit one waiter
 
     async def stop(self) -> None:
+        # the client may outlive this router (a LoRA adapter entry's router
+        # over its base model's client)
+        off = getattr(self.client, "off_instance_change", None)
+        if off is not None:
+            off(self._on_instance)
         for t in list(self._prefetch_tasks):
             t.cancel()
         if self._prefetch_client is not None:
@@ -490,13 +509,17 @@ class KvPushRouter:
         # queue_timeout (HTTP 429) on rejection
         await self.router.admission.acquire(request.get("priority"))
         collect: Dict[str, Any] = {}
+        mm = request.get("mm")
+        mm_seed = mm_content_seed(mm["data"]) if mm else None
+        allowed = context.metadata.get("allowed_instances")
         worker, overlap, hashes = self.router.find_best_match(
-            request.get("token_ids") or [],
-            pinned_instance=context.metadata.get("target_instance"),
-            collect=collect)
+            request.get("token_ids") or [], adapter=request.get("adapter"),
+            mm_seed=mm_seed, pinned_instance=context.metadata.get("target_instance"),
+            collect=collect,
+            allowed_instances=set(allowed) if allowed is not None else None)
         host_overlaps = collect.get("host_overlaps")
-        # the hash chain's seed: no adapter or multimodal lineage here
-        seed = None
+        # the hash chain's seed: the anchor of the hints' first parents
+        seed = request_seed(request.get("adapter"), mm_seed)
         hint = self.router.remote_host_hint(hashes, worker, overlap, seed,
                                             host_overlaps=host_overlaps)
         if hint is not None:

@@ -14,7 +14,10 @@ hop picks the prefill instance by KV overlap and load, charging it for
 the hop's duration; without one it picks by the client's router mode. A
 failed hop falls back to aggregated serving downstream, and a transport
 failure cools the instance down (`mark_sick`). The LoRA filter over the
-prefill pool is not ported yet (A.9).
+prefill pool (`restrict_prefill`): a LoRA adapter entry's router hops only
+to prefill instances that hold its adapter; with none (the empty set) its
+hops fall back to aggregated serving on the decode worker, which holds
+it. A kv-mode hop hashes the request on the adapter's lineage.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Any, AsyncIterator, Dict, Optional
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.request_plane import PushRouter, RequestPlaneError
 from dynamo_tpu_torch.runtime.tasks import spawn_tracked
+from dynamo_tpu_torch.tokens.hashing import mm_content_seed
 
 log = logging.getLogger("dynamo_tpu_torch.prefill_router")
 
@@ -55,6 +59,13 @@ class PrefillRouter:
         self._prefill_client = None  # EndpointClient over the prefill pool
         self._fetch_path: Optional[str] = None
         self._kv_router = None  # KvRouter over the prefill pool (kv mode)
+        # the LoRA filter over the prefill pool: None = unrestricted, a set
+        # of instance ids = the prefill replicas holding this entry's
+        # adapter (empty: none does, every hop falls back to aggregated)
+        self.allowed_prefill = None
+
+    def restrict_prefill(self, instance_ids) -> None:
+        self.allowed_prefill = None if instance_ids is None else set(instance_ids)
 
     def activate(self, prefill_client, fetch_path: str, kv_router=None) -> None:
         """`prefill_client`: an EndpointClient over the prefill
@@ -165,13 +176,17 @@ class PrefillRouter:
         try:
             if kv is not None:
                 await kv.start()  # idempotent; the watcher starts it eagerly
-                worker, overlap, hashes = kv.find_best_match(request.get("token_ids") or [])
+                mm = request.get("mm")
+                worker, overlap, hashes = kv.find_best_match(
+                    request.get("token_ids") or [], adapter=request.get("adapter"),
+                    mm_seed=mm_content_seed(mm["data"]) if mm else None,
+                    allowed_instances=self.allowed_prefill)
                 iid = worker[0]
                 rid = pctx.id
                 kv.add_request(rid, worker, hashes, overlap)
                 address = client.instances[iid].address
             else:
-                iid, address = client.router._pick()
+                iid, address = client.router._pick(allowed=self.allowed_prefill)
             # read the stream to its end (the done frame follows the
             # prefill_complete item): abandoning it sends a kill
             async for item in client.direct(preq, iid, pctx):

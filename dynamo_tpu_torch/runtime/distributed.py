@@ -143,6 +143,13 @@ class DistributedRuntime:
         log.info("serving %s as instance %x at %s", path, inst.instance_id, inst.address)
         return inst
 
+    async def update_instance_metadata(self, inst: Instance,
+                                       metadata: Dict[str, Any]) -> None:
+        """Merge `metadata` into a served instance's and register it again,
+        so watchers see the change as a put (a republished model card)."""
+        inst.metadata.update(metadata)
+        await self.discovery.register(inst)
+
     # -- clients ----------------------------------------------------------
     def client(self, path: str, mode: str = RouterMode.ROUND_ROBIN) -> "EndpointClient":
         return EndpointClient(self, path, mode)
@@ -239,6 +246,12 @@ class EndpointClient:
         fires on metadata updates (discovery emits puts for changed
         records)."""
         self._change_cbs.append(cb)
+
+    def off_instance_change(self, cb) -> None:
+        """Drop a callback on_instance_change registered (a router over a
+        shared client that stops)."""
+        if cb in self._change_cbs:
+            self._change_cbs.remove(cb)
 
     async def _watch(self) -> None:
         async for ev in self.runtime.discovery.watch(self._prefix):

@@ -480,7 +480,9 @@ class PushRouter:
     instance set is kept by a discovery watch (EndpointClient). Load-aware
     modes rank instances by this router's own count of outstanding
     requests; the worker-published load signal and the device-capacity
-    weights of the reference wait for the KV router."""
+    weights of the reference wait for the KV router. A request whose
+    context carries `allowed_instances` (a LoRA adapter entry's holders,
+    frontend/service.py) is routed among those only."""
 
     # how long a transport-failed instance is avoided: discovery lease
     # expiry is the authoritative removal; this bridges the gap so retries
@@ -523,11 +525,22 @@ class PushRouter:
     def load_of(self, instance_id: int) -> float:
         return float(self._inflight.get(instance_id, 0))
 
-    def _pick(self, instance_id: Optional[int] = None) -> Tuple[int, str]:
+    def _pick(self, instance_id: Optional[int] = None,
+              allowed=None) -> Tuple[int, str]:
+        """`allowed`: an instance-id collection restricting the choice (the
+        LoRA filter: only replicas holding the request's adapter are
+        candidates), applied before the mode's selection."""
         if not self._instances:
             raise RequestPlaneError(f"no instances for {self.endpoint_path}",
                                     code="no_instances")
         if instance_id is not None:
+            if allowed is not None and instance_id not in allowed:
+                # a pin outside the restriction fails loudly: ignoring the
+                # filter would land the request on a worker without the
+                # adapter
+                raise RequestPlaneError(
+                    f"instance {instance_id:x} excluded by the adapter restriction",
+                    code="cannot_connect")
             addr = self._instances.get(instance_id)
             if addr is None:
                 raise RequestPlaneError(f"instance {instance_id:x} not found",
@@ -536,7 +549,12 @@ class PushRouter:
         if self.mode == RouterMode.DIRECT:
             raise RequestPlaneError("direct routing mode requires a target instance_id",
                                     code="no_target")
-        ids = sorted(self._instances)
+        ids = sorted(self._instances if allowed is None
+                     else (i for i in self._instances if i in allowed))
+        if not ids:
+            raise RequestPlaneError(
+                f"no instances for {self.endpoint_path} satisfy the adapter "
+                "restriction", code="no_instances")
         sick = self.sick_instances()
         if sick:
             healthy = [i for i in ids if i not in sick]
@@ -563,7 +581,9 @@ class PushRouter:
 
     async def generate(self, request: Any, context: Context) -> AsyncIterator[Any]:
         t_route = time.monotonic()
-        iid, addr = self._pick(context.metadata.get("target_instance"))
+        allowed = context.metadata.get("allowed_instances")
+        iid, addr = self._pick(context.metadata.get("target_instance"),
+                               set(allowed) if allowed is not None else None)
         # report the choice so wrappers (session affinity) can pin to it
         context.metadata["routed_instance"] = iid
         ph = context.metadata.setdefault("phases", {})

@@ -17,8 +17,13 @@ runs on CUDA unless `--device cpu`. `--draft-model PRESET --spec-gamma N`
 decodes by draft-model speculation. The KV tiers: `--host-kv-blocks N`
 (G2), `--disk-kv-blocks M [--disk-kv-root DIR]` (G3), `--obj-kv-root DIR`
 (G4), `--kv-tier-quantize` (the int8 tier codec) and `--prefetch` (router
-hints promote blocks ahead of the request). Checkpoint loading (and with it
-`--draft-checkpoint`), the engine
+hints promote blocks ahead of the request). Multi-LoRA: `--lora NAME` (random
+factors from a seed) or `--lora NAME=<peft_dir>` (a HuggingFace PEFT
+checkpoint), repeatable, each adapter published in the model card as a
+servable model; `--lora-rank` the random adapters' rank, `--lora-slots`
+free slots for the `rl` endpoint's runtime `load_adapter`
+(worker_common). Checkpoint loading (and with it `--draft-checkpoint`
+and `--lora` over a checkpoint), the engine
 sidecar, multi-host groups, vision, the status server and the shadow
 failover are not ported yet (weights are random, from seed 0).
 """
@@ -30,9 +35,12 @@ import asyncio
 import logging
 import signal
 
+import numpy as np
+
 from dynamo_tpu_torch.engine.engine import InferenceEngine
 from dynamo_tpu_torch.engine.model_runner import ModelRunner
 from dynamo_tpu_torch.frontend.protocols import ModelCard
+from dynamo_tpu_torch.models import lora as lora_mod
 from dynamo_tpu_torch.models.config import ModelConfig, get_config
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.worker_common import serve_worker
@@ -104,6 +112,17 @@ def parse_args(argv=None):
                    help="per-iteration cap on drafted tokens admitted to "
                         "the verify dispatch (0 = the leftover mixed "
                         "prefill token budget)")
+    # multi-LoRA
+    p.add_argument("--lora", action="append", default=[],
+                   help="serve a LoRA adapter: NAME=<peft_dir> (HF PEFT "
+                        "safetensors) or bare NAME (random factors, dev). "
+                        "Repeatable; each name becomes a servable model.")
+    p.add_argument("--lora-rank", type=int, default=8,
+                   help="rank of the random dev adapters (the stacked tree "
+                        "takes the largest rank of all)")
+    p.add_argument("--lora-slots", type=int, default=0,
+                   help="EXTRA free adapter slots beyond --lora specs, for "
+                        "runtime registration via the rl load_adapter op")
     # KVBM tiers
     p.add_argument("--host-kv-blocks", type=int, default=0,
                    help="G2 host-DRAM KV tier capacity in blocks (0 = off)")
@@ -143,6 +162,60 @@ def parse_args(argv=None):
     return p.parse_args(argv)
 
 
+def _lora_kwargs(args, config: ModelConfig) -> dict:
+    """The runner's LoRA arguments from the --lora specs, each loaded up
+    front into `args._lora_factors` [(name, factors)] for registration:
+    a repeated name is an error (it would keep the first checkpoint's
+    weights), the stacked tree's rank is the largest of them (and
+    --lora-rank), each smaller adapter zero-padded up to it (the padding
+    adds nothing to x @ A @ B), and its targets are the union of what the
+    adapters adapt. --lora-slots adds free slots for runtime loads."""
+    extra = int(getattr(args, "lora_slots", 0) or 0)
+    if not args.lora:
+        args._lora_factors = []
+        if extra > 0:
+            # runtime loads only: free slots, nothing registered at boot
+            return {"lora_slots": extra, "lora_rank": args.lora_rank}
+        return {}
+    names = [s.partition("=")[0] for s in args.lora]
+    dupes = {n for n in names if names.count(n) > 1}
+    if dupes:
+        raise SystemExit(f"duplicate --lora adapter names: {sorted(dupes)}")
+    loaded = []
+    targets = set()
+    for i, spec in enumerate(args.lora):
+        name, _, path = spec.partition("=")
+        if path:
+            factors = lora_mod.load_peft_adapter(path, config)
+        else:
+            factors = lora_mod.random_adapter(config, rank=args.lora_rank, seed=100 + i)
+        targets.update(k[:-2] for k in factors)
+        loaded.append((name, factors))
+    rank = max([args.lora_rank] + [f[k].shape[-1] for _, f in loaded for k in f
+                                   if k.endswith("_a")])
+    for _, factors in loaded:
+        for k, arr in list(factors.items()):
+            factors[k] = pad_rank(k, arr, rank)
+    args._lora_factors = loaded
+    return {"lora_slots": len(loaded) + extra, "lora_rank": rank,
+            "lora_targets": tuple(sorted(targets))}
+
+
+def pad_rank(name: str, arr: np.ndarray, rank: int) -> np.ndarray:
+    """One factor ({t}_a [L, in, r] or {t}_b [L, r, out]) zero-padded to
+    `rank`; a higher rank than the tree's raises (it cannot fit its
+    slots, and truncating would change the adapter)."""
+    axis = -1 if name.endswith("_a") else -2
+    r = arr.shape[axis]
+    if r > rank:
+        raise ValueError(f"adapter rank {r} exceeds the worker's --lora-rank {rank}")
+    if r == rank:
+        return arr
+    pad = [(0, 0)] * arr.ndim
+    pad[axis] = (0, rank - r)
+    return np.pad(arr, pad)
+
+
 def build_runner(args, params=None, draft_params=None) -> tuple[ModelRunner, ModelConfig]:
     """Construct the ModelRunner (bf16 random weights, seed 0, until
     checkpoint loading is ported; a draft model's from seed 1) and its
@@ -151,7 +224,8 @@ def build_runner(args, params=None, draft_params=None) -> tuple[ModelRunner, Mod
     own params make a self-draft). A model whose params and pools exceed
     the card's free memory raises MemoryError before anything is drawn
     (DeepSeek-V3 at full depth; qwen3-30b-a3b, 61 GB of weights, needs the
-    card to itself)."""
+    card to itself). The --lora adapters are registered in order, slots 1
+    on."""
     config = get_config(args.model)
     draft = args.draft_model or args.spec_draft_model
     runner = ModelRunner(
@@ -166,7 +240,10 @@ def build_runner(args, params=None, draft_params=None) -> tuple[ModelRunner, Mod
         draft_config=get_config(draft) if draft else None,
         draft_params=draft_params,
         spec_gamma=args.spec_gamma,
+        **_lora_kwargs(args, config),
     )
+    for name, factors in args._lora_factors:
+        runner.register_adapter(name, factors)
     return runner, config
 
 
@@ -202,17 +279,23 @@ def build_engine(args, runner=None, **engine_kw) -> InferenceEngine:
     return InferenceEngine(runner, **kw)
 
 
-def model_card(args, config: ModelConfig) -> ModelCard:
-    """The card the worker publishes in its instance metadata."""
+def model_card(args, config: ModelConfig, adapters=None) -> ModelCard:
+    """The card the worker publishes in its instance metadata; its
+    `adapters` (the LoRA names served as models) default to the --lora
+    names."""
+    if adapters is None:
+        adapters = [s.partition("=")[0] for s in args.lora]
     return ModelCard(name=args.model_name or config.name, tokenizer=args.tokenizer,
-                     context_length=args.max_seq_len, kv_block_size=args.page_size)
+                     context_length=args.max_seq_len, kv_block_size=args.page_size,
+                     adapters=list(adapters))
 
 
 async def serve_args(runtime, engine, args, **kw):
     """serve_worker with the worker flags: namespace, component,
     endpoint, disaggregated role and pull chunk size."""
     return await serve_worker(
-        runtime, engine, model_card(args, engine.runner.config),
+        runtime, engine, model_card(args, engine.runner.config,
+                                    getattr(engine.runner, "adapter_names", None)),
         namespace=args.namespace, component=args.component, endpoint=args.endpoint,
         disagg_role=args.disagg_role, disagg_chunk_pages=args.disagg_chunk_pages, **kw)
 

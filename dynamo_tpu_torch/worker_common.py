@@ -14,8 +14,14 @@ before admission: from a colocated engine (same process, registered in
 `LOCAL_ENGINES`) on the device, gathered on the prefill engine's step
 thread and scattered on the decode engine's; from any other instance
 host-staged, through an EndpointClient to that instance's `kv_fetch`
-endpoint, in chunks of `chunk_pages` pages (0: one payload). The fleet
-digest, the RL admin endpoint and the shadow server are not ported yet.
+endpoint, in chunks of `chunk_pages` pages (0: one payload). The `rl`
+admin endpoint (`rl_admin`): `describe`, `pause` / `resume` (the engine's
+admission gate) and `load_adapter` (a LoRA adapter into a free slot, from
+a PEFT directory or random factors from a seed, zero-padded to the
+tree's rank; the card republished so the frontend routes the adapter to
+this worker). Its `update_weights` answers an error item: weight reloads
+come with checkpoint loading. The fleet digest and the shadow server are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -29,6 +35,7 @@ import weakref
 from typing import Any, AsyncIterator, Dict, Optional
 
 from dynamo_tpu_torch.frontend.protocols import ModelCard
+from dynamo_tpu_torch.models import lora as lora_mod
 from dynamo_tpu_torch.router.protocols import FPM_SUBJECT
 from dynamo_tpu_torch.router.publisher import KvEventPublisher
 from dynamo_tpu_torch.runtime.component import Instance, new_instance_id
@@ -154,6 +161,68 @@ class DisaggDecodeAdapter:
         for client in self._fetch_clients.values():
             await client.close()
         self._fetch_clients.clear()
+
+
+async def rl_admin(engine, card: ModelCard, request: Dict[str, Any],
+                   republish, instance_id: int) -> Dict[str, Any]:
+    """One op of the `rl` endpoint (the reference's lib/rl role), as its
+    reply: `describe` (the default), `pause`, `resume`, `load_adapter`
+    ({"name", "peft"?: dir, "seed"?, "scale"?, "rank"?}) and
+    `update_weights`. `republish()` registers the instance again with the
+    card after a load. Failures come back as {"error": ...}."""
+    op = request.get("op", "describe")
+    if op == "pause":
+        engine.paused = True
+    elif op == "resume":
+        engine.paused = False
+    elif op == "load_adapter":
+        return await _load_adapter(engine, card, request, republish, instance_id)
+    elif op == "update_weights":
+        return {"error": "update_weights is not supported by this worker yet: "
+                         "weight reloads come with checkpoint loading (ROADMAP A.10)"}
+    elif op != "describe":
+        return {"error": f"unknown rl op {op!r}"}
+    return {"model": card.name, "paused": bool(getattr(engine, "paused", False)),
+            "weights_version": int(getattr(engine, "weights_version", 0)),
+            "adapters": list(card.adapters or []), "instance": instance_id}
+
+
+async def _load_adapter(engine, card: ModelCard, request: Dict[str, Any],
+                        republish, instance_id: int) -> Dict[str, Any]:
+    """Install an adapter into a free slot and republish the card: the
+    frontend's watcher makes the name a model, or this worker one more
+    of its holders. Slots are append-only: a registered name is refused
+    (its factors would not change), a rank above the tree's too."""
+    name = request.get("name")
+    runner = getattr(engine, "runner", None)
+    if not name:
+        return {"error": "load_adapter needs 'name'"}
+    if runner is None or getattr(runner, "lora", None) is None:
+        return {"error": "worker built without --lora slots"}
+    if name in runner.adapter_names:
+        return {"error": f"adapter {name!r} already registered; "
+                         "weight rollover needs a new name"}
+    from dynamo_tpu_torch.worker import pad_rank
+
+    try:
+        if request.get("peft"):
+            factors = await asyncio.to_thread(lora_mod.load_peft_adapter,
+                                              request["peft"], runner.config)
+        else:  # random dev factors from a seed
+            factors = lora_mod.random_adapter(
+                runner.config, rank=int(request.get("rank") or runner.lora_rank),
+                targets=runner.lora_targets, seed=int(request.get("seed") or 0),
+                scale=float(request.get("scale") or 2.0))
+        factors = {k: pad_rank(k, a, runner.lora_rank) for k, a in factors.items()}
+        # on the step thread: the slot is written between dispatches
+        slot = await engine.call_on_step_thread(runner.register_adapter, name, factors)
+    except Exception as e:
+        return {"error": f"adapter load failed: {e}"}
+    if name not in card.adapters:
+        card.adapters = list(card.adapters) + [name]
+    await republish()
+    return {"model": card.name, "adapter": name, "slot": slot,
+            "adapters": list(card.adapters), "instance": instance_id}
 
 
 class ServedWorker:
@@ -306,10 +375,26 @@ async def serve_worker(
 
     engine.remote_kv_fetch = remote_kv_fetch
 
+    # the rl admin endpoint; a loaded adapter republishes the card in the
+    # generate instance's metadata (set below)
+    served: Dict[str, Any] = {}
+
+    async def republish() -> None:
+        if served.get("inst") is not None:
+            await runtime.update_instance_metadata(
+                served["inst"], {"model_card": card.to_dict()})
+
+    async def rl(request, context):
+        yield await rl_admin(engine, card, request or {}, republish, instance_id)
+
+    await runtime.serve_endpoint(f"{namespace}/{component}/rl", FnEngine(rl),
+                                 instance_id=instance_id)
+
     handler = DisaggDecodeAdapter(engine, runtime, chunk_pages=disagg_chunk_pages)
     engine.start()
     inst = await runtime.serve_endpoint(f"{namespace}/{component}/{endpoint}", handler,
                                         metadata=metadata, instance_id=instance_id)
+    served["inst"] = inst
     log.info("worker %x serving %s (role=%s)", instance_id, card.name,
              disagg_role or "both")
     return ServedWorker(runtime, engine, inst, publisher, handler, fetch_clients)

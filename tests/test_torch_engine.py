@@ -194,9 +194,15 @@ def test_filtered_probs_match_jax():
 async def test_unsupported_requests_are_refused(engines):
     _, teng = engines
     for req in (dict(_req([1, 2, 3]), guided={"regex": "a"}),  # no "kind"
-                dict(_req([1, 2, 3]), adapter="lora-a")):
+                dict(_req([1, 2, 3]), mm={"data": b"x"})):
         toks, finish = await _collect(teng, req, Context)
         assert finish == "error" and toks == []
+    # an adapter is served now; a runner without LoRA slots answers the
+    # reference's error item for a name it does not hold
+    items = [it async for it in teng.generate(dict(_req([1, 2, 3]), adapter="lora-a"),
+                                              Context())]
+    assert [(it["finish_reason"], it["token_ids"], it.get("error")) for it in items] == [
+        ("error", [], "unknown LoRA adapter 'lora-a'")]
     # a kv_remote_host hint with no peer to pull from is served by
     # recompute: the same stream as without the hint
     plain = await _collect(teng, _req([1, 2, 3]), Context)

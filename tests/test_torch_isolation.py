@@ -3,11 +3,12 @@ tool-call parser and the guided decoding copies included), chip_smoke.py, script
 scripts/mla_prefill_variants.py,
 scripts/int8_body_variants.py, scripts/engine_ab.py,
 scripts/quant_gemm_variants.py, scripts/extras_profile.py,
-scripts/tier_staging_bench.py and scripts/tier_ttft_pairs.py import
+scripts/tier_staging_bench.py, scripts/tier_ttft_pairs.py and
+scripts/lora_delta_bench.py import
 neither JAX nor anything of the
 dynamo_tpu package, nor ml_dtypes, msgpack, zmq, aiohttp, jinja2,
-tokenizers, prometheus_client or boto3 (the machine with the card has none of
-them; the request plane frames with runtime/codec.py instead of msgpack,
+tokenizers, prometheus_client, boto3 or safetensors (the machine with the
+card has none of them; PEFT adapters are read by engine/st_io.py; the request plane frames with runtime/codec.py instead of msgpack,
 and the event plane is TCP instead of ZMQ). Note the prefix:
 `dynamo_tpu_torch` starts with `dynamo_tpu`.
 """
@@ -33,7 +34,8 @@ PKG = ROOT / "dynamo_tpu_torch"
 
 
 FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "ml_dtypes", "msgpack", "zmq",
-             "aiohttp", "jinja2", "tokenizers", "prometheus_client", "boto3")
+             "aiohttp", "jinja2", "tokenizers", "prometheus_client", "boto3",
+             "safetensors")
 
 
 def _forbidden(name: str) -> bool:
@@ -68,7 +70,7 @@ def test_every_module_imports_without_jax_or_dynamo_tpu():
               "frontend.tool_calls", "guided", "guided.regex_dfa",
               "guided.json_schema", "guided.structural", "guided.token_mask",
               "guided.device_table", "ops.tier_codec", "kvbm.quant", "kvbm.disk_pool",
-              "kvbm.object_store", "kvbm.prefetch"):
+              "kvbm.object_store", "kvbm.prefetch", "models.lora", "engine.st_io"):
         assert f"dynamo_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -89,7 +91,8 @@ def test_no_source_file_imports_jax_or_dynamo_tpu():
         ROOT / "scripts" / "mla_prefill_variants.py",
         ROOT / "scripts" / "int8_body_variants.py", ROOT / "scripts" / "engine_ab.py",
         ROOT / "scripts" / "quant_gemm_variants.py", ROOT / "scripts" / "extras_profile.py",
-        ROOT / "scripts" / "tier_staging_bench.py", ROOT / "scripts" / "tier_ttft_pairs.py"]
+        ROOT / "scripts" / "tier_staging_bench.py", ROOT / "scripts" / "tier_ttft_pairs.py",
+        ROOT / "scripts" / "lora_delta_bench.py"]
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
