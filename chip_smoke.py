@@ -421,6 +421,7 @@ from pathlib import Path
 import torch
 import torch.nn.functional as F
 
+from dynamo_tpu_torch.engine import shm_weights, st_io, weights
 from dynamo_tpu_torch.engine.model_runner import (
     DRAFT_RING_WINDOW,
     ModelRunner,
@@ -434,6 +435,7 @@ from dynamo_tpu_torch.models.quant import (
     kv_pool_quantize,
     kv_quantize,
     quantize_embed,
+    quantize_params,
     quantize_weight,
 )
 from dynamo_tpu_torch.models.toolkit import attn_score_scale, layer_window, pool_values
@@ -2002,7 +2004,8 @@ def engine_phases(dev):
     check(st["draft_ring_steps"] == 0,
           f"spec: the default drafted from the device ring: {st}")
     emit(rec)
-    return runner, launches, fused_bodies, fused_rec, {"unfused": unfused, "spec": spec}
+    return runner, launches, fused_bodies, fused_rec, {"fused": fused, "unfused": unfused,
+                                                       "spec": spec}
 
 
 def ring_probe(proposals):
@@ -2100,13 +2103,15 @@ VERIFY_CONTEXTS = (17, 64, 300, 700, 1100, 1500, 406, 656)
 SELF_DRAFT_ACCEPT = 0.8
 
 
-def _draft_turn(runner, phase, draft, draft_params, fused_rec):
-    """engine_phase on a draft runner over the 3B's params: the launch
-    identities (check_launches, and by body: the draft's steps and
-    prefill chunks on its head dim's bodies), no fused plan, no ragged
-    launch, a draft prefill per target chunk; acceptance, tokens a
-    target pass and the decode rate beside engine_fused's reported."""
-    args = ENGINE_ARGS + ["--draft-model", draft, "--spec-gamma", str(DRAFT_GAMMA)]
+def _draft_turn(runner, phase, draft_args, draft_params, fused_rec):
+    """engine_phase on a draft runner over the 3B's params, its draft
+    given by `draft_args` (--draft-model PRESET, or --draft-checkpoint
+    DIR) or `draft_params`: the launch identities (check_launches, and by
+    body: the draft's steps and prefill chunks on its head dim's bodies),
+    no fused plan, no ragged launch, a draft prefill per target chunk;
+    acceptance, tokens a target pass and the decode rate beside
+    engine_fused's reported."""
+    args = ENGINE_ARGS + list(draft_args) + ["--spec-gamma", str(DRAFT_GAMMA)]
     t0 = time.monotonic()
     drunner, _ = build_runner(parse_args(args), params=runner.params,
                               draft_params=draft_params)
@@ -2150,8 +2155,9 @@ def draft_phases(runner, streams, fused_rec):
     itself: acceptance gated at SELF_DRAFT_ACCEPT, greedy agreement with
     engine_unfused reported); in engine_draft a sampled request served
     alone twice must stream the same tokens. Each draft runner is freed
-    after its phase."""
-    drunner, rec, _ = _draft_turn(runner, "draft", DRAFT_MODEL, None, fused_rec)
+    after its phase. Returns engine_draft_self's record."""
+    drunner, rec, _ = _draft_turn(runner, "draft", ["--draft-model", DRAFT_MODEL], None,
+                                  fused_rec)
     reqs, _ = workload(runner.config.vocab_size, seed=1)
     runs = []
     for turn in range(2):
@@ -2168,8 +2174,8 @@ def draft_phases(runner, streams, fused_rec):
     emit(rec)
     free(drunner)
     del drunner
-    drunner, rec, results = _draft_turn(runner, "draft_self", MODEL, runner.params,
-                                        fused_rec)
+    drunner, rec, results = _draft_turn(runner, "draft_self", ["--draft-model", MODEL],
+                                        runner.params, fused_rec)
     check(rec["acceptance_rate"] >= SELF_DRAFT_ACCEPT,
           f"draft_self: acceptance {rec['acceptance_rate']} < {SELF_DRAFT_ACCEPT}")
     greedy = [i for i in range(len(results)) if i not in (2, 5)]
@@ -2182,6 +2188,407 @@ def draft_phases(runner, streams, fused_rec):
     drunner.params = None  # the 3B's: not this runner's to free
     drunner.draft_params = None
     free(drunner)
+    return rec
+
+
+# -- checkpoints, fast restart and weight reloads ----------------------------
+
+# Llama-3.2-3B's published config.json fields (meta-llama/Llama-3.2-3B on
+# the HF hub) that config_from_hf reads: the derived config must be the
+# llama-3.2-3b preset
+LLAMA32_3B_HF_CONFIG = {
+    "model_type": "llama", "architectures": ["LlamaForCausalLM"],
+    "hidden_size": 3072, "num_hidden_layers": 28, "num_attention_heads": 24,
+    "num_key_value_heads": 8, "intermediate_size": 8192, "vocab_size": 128256,
+    "max_position_embeddings": 131072, "rope_theta": 500000.0,
+    "rope_scaling": {"factor": 32.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                     "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+    "rms_norm_eps": 1e-05, "tie_word_embeddings": True, "torch_dtype": "bfloat16",
+}
+# what a reload may add to the device's peak beyond the largest leaf: the
+# in-flight request's decode steps (activations, the split scratch)
+# between the peak reset and the reload
+RELOAD_SLACK_BYTES = 512 << 20
+# what a quantized cold load may add to the device beyond its int8 tree:
+# one row range in bf16 (a layer's w_gate, 8192 embedding rows: 50 MB)
+# and its f32 quantize temporaries (the int8 reload peaks at 478 MB)
+QUANT_LOAD_SLACK_BYTES = 1 << 30
+RELOAD_ERROR = "weights updated mid-flight; retry"
+
+
+def _tree_diff(got, want):
+    """Flattened keys whose tensors are not bit for bit equal (or absent)."""
+    a, b = dict(weights.flatten(got)), dict(weights.flatten(want))
+    return sorted(k for k in set(a) | set(b)
+                  if k not in a or k not in b or a[k].dtype != b[k].dtype
+                  or not torch.equal(a[k], b[k]))
+
+
+def write_hf_checkpoint(params, cfg, path: Path):
+    """`params` as an HF directory at `path`: config.json (the published
+    fields) and two safetensors shards written by the port's writer, the
+    matrices transposed back to [out, in] on the card. Returns seconds
+    and bytes."""
+    path.mkdir(parents=True)
+    (path / "config.json").write_text(json.dumps(LLAMA32_3B_HF_CONFIG))
+    t0 = time.monotonic()
+    sd = weights.hf_state_dict(params, cfg)
+    torch.cuda.synchronize()
+    t1 = time.monotonic()
+    names = list(sd)
+    bounce = st_io.HostBounce(params["embed"].device)
+    for k, part in enumerate((names[:len(names) // 2], names[len(names) // 2:])):
+        st_io.save_file({n: sd[n] for n in part},
+                        path / f"model-{k + 1:05d}-of-00002.safetensors", bounce=bounce)
+        for n in part:
+            del sd[n]
+    st = bounce.stats
+    return {"seconds": time.monotonic() - t0, "transpose_s": t1 - t0,
+            "d2h_s": st["d2h_s"], "write_s": st["write_s"], "bytes": st["bytes"],
+            "shards": 2}
+
+
+def checkpoint_phase(runner, fused, fused_rec, draft_self, root: Path, smi):
+    """`engine_checkpoint`: the 3B's params (seed 0) written as an HF
+    directory, config_from_hf equal to the preset, build_runner(
+    --checkpoint DIR) bit for bit equal to them, the 3B's traffic on the
+    fused engine over the loaded runner (launch identities; greedy
+    streams beside engine_fused's, reported: near-ties may part), the
+    cold load's seconds split into file reads, host-to-device copies and
+    device transposes; then a self-draft from --draft-checkpoint DIR
+    (acceptance gated as engine_draft_self's, reported beside it); then
+    the checkpoint loaded under int8 quantization (`--quantize int8`'s
+    load): the tree bit for bit quantize_params of the written params,
+    the device's peak growing by at most the int8 tree +
+    QUANT_LOAD_SLACK_BYTES (the bf16 tree is never whole on the card).
+    Returns the checkpoint's path."""
+    cfg = runner.config
+    ckpt = root / "ckpt"
+    write = write_hf_checkpoint(runner.params, cfg, ckpt)
+    derived = weights.config_from_hf(str(ckpt), name=cfg.name)
+    check(derived == cfg, f"checkpoint: config_from_hf gave {derived}, the preset is {cfg}")
+    argv = ENGINE_ARGS + ["--checkpoint", str(ckpt)]
+    args = parse_args(argv)
+    t0 = time.monotonic()
+    crunner, ccfg = build_runner(args)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    check(args._weights_source == "checkpoint" and ccfg == cfg,
+          f"checkpoint: weights from {args._weights_source}, config {ccfg}")
+    diff = _tree_diff(crunner.params, runner.params)
+    check(not diff, f"checkpoint: leaves differ from the written params: {diff}")
+    load = dict(args._load_stats)
+    load["gb_per_s"] = load["bytes"] / load["seconds"] / 1e9
+    load["read_gb_per_s"] = load["bytes"] / max(load["read_s"], 1e-9) / 1e9
+    load["h2d_gb_per_s"] = load["bytes"] / max(load["h2d_s"], 1e-9) / 1e9
+    rec, launches, results = engine_phase(crunner, "checkpoint", build_s=build_s,
+                                          base_args=argv)
+    check(rec["fused_mixed"] and all(launches[k] > 0 for k in GQA_KERNELS),
+          f"checkpoint: the fused path did not run every kernel: {launches}")
+    greedy = [i for i in range(len(results)) if i not in (2, 5)]
+    pos = [a == b for i in greedy for a, b in zip(results[i][0], fused[i][0])]
+    rec.update({
+        "checkpoint_write": write, "cold_load": load, "params_bit_equal": True,
+        "config_from_hf_equals_preset": True,
+        "greedy_agreement_with_fused": {
+            "streams_identical": sum(results[i][0] == fused[i][0] for i in greedy),
+            "streams": len(greedy), "token_agreement": sum(pos) / max(1, len(pos))}})
+    emit(rec)
+    drunner, drec, _ = _draft_turn(crunner, "checkpoint_draft_self",
+                                   ["--checkpoint", str(ckpt), "--draft-checkpoint",
+                                    str(ckpt)], None, fused_rec)
+    check(drunner.draft_config.name == "draft"
+          and drunner.draft_config.with_(name=cfg.name) == cfg,
+          f"checkpoint_draft_self: draft config {drunner.draft_config}")
+    check(drec["acceptance_rate"] >= SELF_DRAFT_ACCEPT,
+          f"checkpoint_draft_self: acceptance {drec['acceptance_rate']} < "
+          f"{SELF_DRAFT_ACCEPT}")
+    drec["engine_draft_self"] = {k: draft_self[k] for k in (
+        "acceptance_rate", "tokens_per_target_pass", "decode_tok_s_per_request_median")}
+    emit(drec)
+    drunner.params = None  # crunner's: freed below
+    free(drunner, crunner)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    qstats = {}
+    qparams = weights.load_hf_checkpoint(str(ckpt), cfg, runner.device, quantize="int8",
+                                         stats=qstats)
+    torch.cuda.synchronize()
+    growth = torch.cuda.max_memory_allocated() - base
+    int8_bytes = weights.param_bytes(cfg, quantize="int8")
+    diff = _tree_diff(qparams, quantize_params(runner.params, "int8"))
+    check(not diff, f"checkpoint int8: leaves differ from quantize_params: {diff}")
+    check(growth <= int8_bytes + QUANT_LOAD_SLACK_BYTES,
+          f"checkpoint int8: the peak grew {growth} bytes, the int8 tree is {int8_bytes}")
+    emit({"phase": "engine_checkpoint_int8", "model": MODEL, "nvidia_smi": smi,
+          "seconds": qstats["seconds"], "read_s": qstats["read_s"],
+          "h2d_s": qstats["h2d_s"], "device_s": qstats["device_s"],
+          "bytes": qstats["bytes"], "peak_growth_bytes": growth,
+          "int8_tree_bytes": int8_bytes, "bf16_tree_bytes": weights.param_bytes(cfg),
+          "slack_bytes": QUANT_LOAD_SLACK_BYTES, "params_bit_equal": True})
+    del qparams
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ckpt
+
+
+# the worker's log lines that time each step of its start: the weights'
+# load by tier, the stage's publish, the snapshot's write, the runner
+RESTART_LOG_SECONDS = (
+    ("checkpoint_load_s", r"loaded HF checkpoint .* in ([0-9.]+)s"),
+    ("stage_copy_s", r"copied the stage to \S+ in ([0-9.]+)s"),
+    ("snapshot_load_s", r"loaded the params snapshot in ([0-9.]+)s"),
+    ("stage_publish_s", r"staged \d+ arrays .* in ([0-9.]+)s"),
+    ("snapshot_write_s", r"wrote the params snapshot in ([0-9.]+)s"),
+    ("runner_ready_s", r"runner ready: .* placed in ([0-9.]+)s"),
+)
+
+
+def _log_seconds(log: str, pattern: str):
+    """The seconds a worker's log line gives, or None without the line."""
+    m = re.search(pattern, log)
+    return float(m.group(1)) if m else None
+
+
+async def _restart_turn(argv, root: Path, tier: str, req):
+    """One worker process from spawn to its "worker serving" line, one
+    greedy request through a client, SIGTERM: (tokens, seconds to
+    serving, exit code, its log)."""
+    droot = root / f"discovery_{tier}"
+    droot.mkdir()
+    log_path = root / f"worker_{tier}.log"
+    t0 = time.monotonic()
+    proc, _ = await _spawn(["dynamo_tpu_torch.worker", *argv], str(droot), "worker serving",
+                           str(log_path))
+    serving_s = time.monotonic() - t0
+    rt = DistributedRuntime(discovery=FileDiscovery(str(droot), poll_interval=0.05))
+    try:
+        client = rt.client("dyn/tpu-worker/generate")
+        await client.wait_ready(timeout=60)
+        out = await _collect_timed(client, req, f"restart_{tier}")
+        await client.close()
+        proc.send_signal(signal.SIGTERM)
+        rc = await asyncio.wait_for(proc.wait(), SERVE_TIMEOUT_S)
+    finally:
+        if proc.returncode is None:
+            proc.kill()
+            await proc.wait()
+        await rt.shutdown(drain_timeout=1)
+    return out, serving_s, rc, log_path.read_text()
+
+
+def restart_phase(ckpt: Path, root: Path, smi):
+    """`engine_restart`: `python -m dynamo_tpu_torch.worker --checkpoint
+    DIR --orbax-cache SNAP --shm-weights NAME` three times, one after
+    another: cold (reads the checkpoint, publishes the stage, writes the
+    snapshot), warm from the shm stage (neither the checkpoint nor the
+    snapshot read), and warm from the snapshot after the stage is
+    unlinked. Each serves one greedy request, its tokens equal to the
+    cold worker's; seconds from spawn to "worker serving" by tier. The
+    stage and the snapshot are removed after."""
+    name = f"chip{os.getpid()}"
+    snap = root / "snapshot"
+    argv = ENGINE_ARGS + ["--checkpoint", str(ckpt), "--orbax-cache", str(snap),
+                          "--shm-weights", name]
+    V = get_config(MODEL).vocab_size
+    reqs, _ = workload(V, seed=1)
+    req = reqs[3]  # 700 prompt tokens, greedy
+    turns = {}
+    try:
+        for tier in ("checkpoint", "shm", "snapshot"):
+            if tier == "snapshot":
+                shm_weights.unlink(name)
+            out, serving_s, rc, log = asyncio.run(_restart_turn(argv, root, tier, req))
+            check(rc == 0, f"restart {tier}: the worker exited {rc}")
+            check(out["finish"] == "length" and len(out["tokens"]) == N_OUT,
+                  f"restart {tier}: {out['finish']} with {len(out['tokens'])} tokens")
+            cold = "loading HF checkpoint" in log
+            attached = "fast restart: attached" in log
+            from_snap = "fast restart: loading params snapshot" in log
+            want = {"checkpoint": (True, False, False), "shm": (False, True, False),
+                    "snapshot": (False, False, True)}[tier]
+            check((cold, attached, from_snap) == want,
+                  f"restart {tier}: log says cold {cold}, attached {attached}, "
+                  f"snapshot {from_snap}:\n{log[-3000:]}")
+            if tier == "checkpoint":
+                check("writing params snapshot" in log and snap.is_dir(),
+                      f"restart: the cold worker wrote no snapshot:\n{log[-3000:]}")
+                stage = shm_weights.attach(name)
+                check(stage is not None, "restart: the cold worker published no stage")
+                stage_bytes = stage.nbytes
+                stage.close()
+            turns[tier] = {"spawn_to_serving_s": serving_s, "ttft_s": out["ttft_s"],
+                           "e2e_s": out["e2e_s"], "tokens": out["tokens"],
+                           **{k: _log_seconds(log, pat) for k, pat in RESTART_LOG_SECONDS}}
+        for tier in ("shm", "snapshot"):
+            check(turns[tier]["tokens"] == turns["checkpoint"]["tokens"],
+                  f"restart {tier}: tokens differ from the cold worker's")
+    finally:
+        shm_weights.unlink(name)
+        shutil.rmtree(snap, ignore_errors=True)
+    emit({"phase": "engine_restart", "model": MODEL, "nvidia_smi": smi,
+          "prompt_tokens": len(req["token_ids"]), "stage_bytes": stage_bytes,
+          **{f"{t}_{k}": v for t, r in turns.items() for k, v in r.items()
+             if k != "tokens" and v is not None},
+          "tokens_equal": True})
+
+
+async def _reload_drive(engine, args, snap1, a, fillers):
+    """The reload's traffic on a served engine: A and two fillers (their
+    evictions offloaded to G2), a request in flight, then over the
+    request plane rl pause, update_weights, resume."""
+    rt_w, rt_c = _runtime("reload", "tcp"), _runtime("reload", "tcp")
+    w = await serve_args(rt_w, engine, args)
+    try:
+        rl = rt_c.client("dyn/tpu-worker/rl")
+        await rl.wait_ready(timeout=60)
+
+        async def call(req):
+            return [item async for item in rl.generate(req, Context())][0]
+
+        for i, p in enumerate([a] + fillers):
+            await _collect_timed(engine, _tier_req(p), f"fill{i}")
+        torch.cuda.synchronize()
+        gathers = KERNELS["gather_pages"].launches
+        host_blocks = len(engine.host_pool.host)
+        cached = len(engine.pool.by_hash)
+        items, first = [], asyncio.Event()
+
+        async def inflight():
+            req = dict(_tier_req(a[:300]), stop={"max_tokens": 1024, "stop_ids": []})
+            async for item in engine.generate(req, Context(request_id="inflight")):
+                items.append(item)
+                if item["token_ids"]:
+                    first.set()
+
+        task = asyncio.create_task(inflight())
+        await first.wait()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.monotonic()
+        paused = await call({"op": "pause"})
+        t1 = time.monotonic()
+        reply = await call({"op": "update_weights", "orbax": str(snap1)})
+        t2 = time.monotonic()
+        resumed = await call({"op": "resume"})
+        t3 = time.monotonic()
+        await asyncio.wait_for(task, 60)
+        peak = torch.cuda.max_memory_allocated() - base
+        describe = await call({})
+        left = (len(engine.pool.by_hash), len(engine.host_pool.host))
+        # a prompt served before the reload: nothing of it is reused
+        reused = engine.scheduler.reused_prefix_tokens
+        again = await _collect_timed(engine, _tier_req(a), "again")
+        reused = engine.scheduler.reused_prefix_tokens - reused
+    finally:
+        await rt_c.shutdown(drain_timeout=1)
+        await rt_w.shutdown(drain_timeout=1)
+        await w.stop()
+    return {"gathers": gathers, "host_blocks": host_blocks, "cached_blocks": cached,
+            "items": items, "paused": paused, "reply": reply, "resumed": resumed,
+            "describe": describe, "reload_s": t2 - t1, "paused_window_s": t3 - t0,
+            "peak_growth_bytes": peak, "left_after": left, "again": again,
+            "reused_after": reused}
+
+
+def reload_phase(root: Path, smi):
+    """`engine_reload`: seed-1 params as a snapshot; a 3B engine with a
+    G2 tier (TIER_ARGS, 512 host blocks) on seed-0 weights, offloads to
+    G2 counted by gather_pages launches, a request in flight, then rl
+    pause / update_weights / resume over the request plane. Gates: the
+    in-flight request ends with the reference's error item,
+    weights_version 1, the params bit for bit the seed-1 tree, the
+    prefix cache and the host tier empty, a repeated prompt reusing 0
+    prefix tokens, the device's peak during the reload at most the
+    largest leaf + RELOAD_SLACK_BYTES over what was allocated. Then a
+    --quantize int8 runner reloads the same snapshot: codes and scales
+    bit for bit quantize_params of the seed-1 tree."""
+    from dynamo_tpu_torch.models import llama
+
+    cfg = get_config(MODEL)
+    dev = torch.device("cuda", 0)
+    p1 = llama.init_params(cfg, 1, torch.bfloat16, dev)
+    largest = max(t.numel() * t.element_size() for _, t in weights.flatten(p1))
+    snap1 = root / "seed1"
+    t0 = time.monotonic()
+    weights.save_snapshot(p1, str(snap1), cfg)
+    snapshot_write_s = time.monotonic() - t0
+    args = parse_args(TIER_ARGS + TIER_HOST)
+    runner, _ = build_runner(args)
+    engine = build_engine(args, runner=runner)
+    a, fillers, _, _ = _tier_prompts(cfg.vocab_size)
+    reset_launches()
+    runner.reset_stats()
+    try:
+        d = _run(_reload_drive(engine, args, snap1, a, fillers))
+        check(d["gathers"] > 0 and d["host_blocks"] > 0,
+              f"reload: nothing was offloaded to G2 before the reload: {d['gathers']} "
+              f"gathers, {d['host_blocks']} host blocks")
+        last = d["items"][-1]
+        check(last.get("finish_reason") == "error" and last.get("error") == RELOAD_ERROR
+              and last.get("token_ids") == [],
+              f"reload: the in-flight request ended with {last}")
+        check(d["reply"].get("weights_version") == 1 and d["describe"]["weights_version"] == 1
+              and d["paused"]["paused"] and not d["resumed"]["paused"],
+              f"reload: rl replies {d['paused']}, {d['reply']}, {d['resumed']}")
+        diff = _tree_diff(runner.params, p1)
+        check(not diff, f"reload: leaves differ from the seed-1 tree: {diff}")
+        check(d["left_after"] == (0, 0),
+              f"reload: (cached blocks, host blocks) {d['left_after']} after the flush")
+        check(d["peak_growth_bytes"] <= largest + RELOAD_SLACK_BYTES,
+              f"reload: the peak grew {d['peak_growth_bytes']} bytes, the largest leaf "
+              f"is {largest}")
+        again = d["again"]
+        check(d["reused_after"] == 0 and again["finish"] == "length"
+              and len(again["tokens"]) == N_OUT,
+              f"reload: a repeated prompt reused {d['reused_after']} prefix tokens, "
+              f"finished {again['finish']}")
+    finally:
+        engine.stop()
+    rec = {"phase": "engine_reload", "model": MODEL, "nvidia_smi": smi,
+           "snapshot_write_s": snapshot_write_s, "snapshot_bytes": weights.param_bytes(cfg),
+           "largest_leaf_bytes": largest, "slack_bytes": RELOAD_SLACK_BYTES,
+           **{k: d[k] for k in ("gathers", "host_blocks", "cached_blocks", "reload_s",
+                                "paused_window_s", "peak_growth_bytes")},
+           "weights_version": d["reply"]["weights_version"],
+           "inflight_tokens_before_error": sum(len(it["token_ids"]) for it in d["items"])}
+    free(runner)
+    del runner, engine
+    # the same snapshot into an int8 runner: requantized in place
+    qrunner, _ = build_runner(parse_args(TIER_ARGS + ["--quantize", "int8"]))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.monotonic()
+    qrunner.reload_params(str(snap1))
+    rec["int8_reload_s"] = time.monotonic() - t0
+    rec["int8_peak_growth_bytes"] = torch.cuda.max_memory_allocated() - base
+    diff = _tree_diff(qrunner.params, quantize_params(p1, "int8"))
+    check(not diff, f"reload int8: leaves differ from quantize_params: {diff}")
+    check(rec["int8_peak_growth_bytes"] <= largest + RELOAD_SLACK_BYTES,
+          f"reload int8: the peak grew {rec['int8_peak_growth_bytes']} bytes")
+    free(qrunner)
+    del p1
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit(rec)
+
+
+def checkpoint_phases(runner, fused, fused_rec, draft_self, smi):
+    """engine_checkpoint, engine_restart and engine_reload, in a temporary
+    directory removed after."""
+    root = Path(tempfile.mkdtemp(prefix="chip_ckpt_"))
+    try:
+        ckpt = checkpoint_phase(runner, fused, fused_rec, draft_self, root, smi)
+        restart_phase(ckpt, root, smi)
+        shutil.rmtree(ckpt)
+        reload_phase(root, smi)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
 
 
 def verify_shape_phase(dev):
@@ -6871,7 +7278,11 @@ def main() -> int:
         # speculation, and draft-model speculation on the 3B's params
         draft_ring_phase(runner, streams)
         tree_phase(runner)
-        draft_phases(runner, streams, fused_rec)
+        draft_self = draft_phases(runner, streams, fused_rec)
+        # this slice's paths: the 3B's params as an HF checkpoint served
+        # through --checkpoint (and a self-draft from --draft-checkpoint),
+        # the three restart tiers as worker processes, rl update_weights
+        checkpoint_phases(runner, streams["fused"], fused_rec, draft_self, smi)
         del streams
         # each copy kernel's launches from the phase that runs it
         disagg, disagg_rec = disagg_phase(runner.params)

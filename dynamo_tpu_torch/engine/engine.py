@@ -51,7 +51,15 @@ reference's "unknown LoRA adapter" error item); the slot rides every
 dispatch the sequence takes (prefill, decode, the padded mixed fallback,
 n-gram verify, draft-model verify, its n > 1 branches) and seeds its hash
 chain, so its prefix cache never crosses adapters. `paused` refuses new
-admissions (the rl endpoint's pause).
+admissions (the rl endpoint's pause). `update_weights(path)` reloads a
+params snapshot on the step thread, then flushes what the old weights
+computed (`_flush_kv_state`): active sequences end with an error item,
+parked and pending-import sequences are dropped, the pools, the prefix
+cache and the lower tiers are emptied and the removals published; it
+counts `weights_version`. A reload that fails after its first copy
+leaves the served tree a mix of two weight sets: the engine flushes as
+above and refuses every request (`weights_error`) until a reload
+succeeds.
 Not ported yet: multimodal input; requests carrying it are refused with
 an "error" item, as are guided decoding and logit bias on a draft-model
 worker (as in the reference: the speculative verify cannot honor them).
@@ -92,6 +100,7 @@ from dynamo_tpu_torch.engine.scheduler import (
     Sequence,
     SeqState,
 )
+from dynamo_tpu_torch.engine.weights import PartialReload
 from dynamo_tpu_torch.frontend.tokenizer import load_tokenizer
 from dynamo_tpu_torch.guided import compile_regex, compile_structural
 from dynamo_tpu_torch.guided.device_table import build_device_table
@@ -421,8 +430,13 @@ class InferenceEngine:
         self._guided_lock = threading.Lock()
         self._lifter_lock = threading.Lock()  # the one TokenLifter build
         # the rl endpoint's admission gate (worker_common): a paused engine
-        # refuses new requests, the admitted ones run on
+        # refuses new requests, the admitted ones run on; weights_version
+        # counts the reloads that succeeded
         self.paused = False
+        self.weights_version = 0
+        # set while a failed reload has left the weights a mix of old and
+        # new leaves: every request is refused with it until one succeeds
+        self.weights_error: Optional[str] = None
 
     def start(self) -> None:
         if self._thread is None:
@@ -438,6 +452,55 @@ class InferenceEngine:
             self._thread = None
         if self.prefetch is not None:
             self.prefetch.stop()
+
+    async def update_weights(self, path: str) -> int:
+        """Swap the served weights for the params snapshot at `path` on the
+        step thread (between dispatches), then flush the KV state the old
+        weights computed; returns the new weights_version. Pause first for
+        a clean cut: sequences still running end with an error item."""
+        self.start()
+        loop = asyncio.get_running_loop()
+        fut: asyncio.Future = loop.create_future()
+        self._inbox.put(("reload_weights", (path, fut, loop)))
+        return await fut
+
+    def _reload_weights(self, path: str) -> int:
+        try:
+            self.runner.reload_params(path)
+        except PartialReload as e:
+            self.weights_error = (f"weights incomplete after a failed reload ({e}); "
+                                  "serving resumes when a reload succeeds")
+            self._flush_kv_state("weights updated mid-flight; retry")
+            raise
+        self.weights_error = None
+        # all cached KV was computed under the old weights: serving it
+        # against the new ones would mix the two
+        self._flush_kv_state("weights updated mid-flight; retry")
+        self.weights_version += 1
+        return self.weights_version
+
+    def _flush_kv_state(self, error_message: str) -> None:
+        """End every active sequence with an error item, release parked
+        entries, drop pending disaggregated imports (their KV bytes are the
+        old weights'), zero the pools and forget the prefix cache, empty the
+        lower tiers and publish the removals."""
+        for seq in list(self.scheduler.active):
+            try:
+                self._emit(seq, [], "error", error=error_message)
+                self.scheduler.abort(seq.request_id)
+            except Exception:
+                log.exception("failed to fail sequence %s", seq.request_id)
+        for rid, (seq, _) in list(self._parked.items()):
+            self._parked.pop(rid, None)
+            self.scheduler.release_parked(seq)
+        pending, self._kv_pending = self._kv_pending, []
+        for seq in pending:
+            self._emit(seq, [], "error", error=error_message)
+        self.runner.reset_kv_pools()
+        self.pool.reset()
+        if self.host_pool is not None:
+            self.host_pool.clear()
+        self._publish_kv_events()
 
     def on_fpm(self, cb) -> None:
         """cb(ForwardPassMetrics) from the step thread."""
@@ -589,6 +652,9 @@ class InferenceEngine:
             yield engine_output([], "error",
                                 error="worker paused (weight update in progress)")
             return
+        if self.weights_error is not None:
+            yield engine_output([], "error", error=self.weights_error)
+            return
         bad = _unsupported(request)
         if bad is not None:
             yield engine_output([], "error",
@@ -726,7 +792,10 @@ class InferenceEngine:
                 op, arg = self._inbox.get_nowait()
             except thread_queue.Empty:
                 break
-            if op == "add":
+            if op in ("add", "add_kv") and self.weights_error is not None:
+                # queued before a reload failed mid-copy
+                self._emit(arg, [], "error", error=self.weights_error)
+            elif op == "add":
                 self.scheduler.add(arg)
             elif op == "abort":
                 self.scheduler.abort(arg)
@@ -755,7 +824,12 @@ class InferenceEngine:
                 rid, fut, loop = arg
                 self._reply(fut, loop, self._export_parked_device, rid)
             elif op == "embed":
-                self._embed_pending.append(arg)
+                if self.weights_error is not None:
+                    _, fut, loop = arg
+                    loop.call_soon_threadsafe(_set_future_exc, fut,
+                                              RuntimeError(self.weights_error))
+                else:
+                    self._embed_pending.append(arg)
             elif op == "call":
                 fn, args, fut, loop = arg
                 self._reply(fut, loop, fn, *args)
@@ -776,6 +850,9 @@ class InferenceEngine:
             elif op == "obj_event":
                 h, parent = arg
                 self._host_events.append(KvEvent("store", [h], parent, tier="obj"))
+            elif op == "reload_weights":
+                path, fut, loop = arg
+                self._reply(fut, loop, self._reload_weights, path)
         self._admit_kv_pending()
         self._expire_parked()
         self._run_embeds()

@@ -42,6 +42,9 @@ advance and mask gather on the device), or the host fallback `mask_fn`
 (the reference's ordered io_callback), called between the steps with the
 step's tokens read back. The ragged step and the verify step take masks
 and bias rows as well; the padded fallback takes neither and raises.
+`reload_params` swaps the served weights for a params snapshot's in
+place, leaf by leaf (requantized under `quantize`), and
+`reset_kv_pools` zeroes the pools, the draft's too.
 """
 
 from __future__ import annotations
@@ -76,7 +79,7 @@ from dynamo_tpu_torch.models.quant import (
     quantize_params,
 )
 from dynamo_tpu_torch.engine.spec_decode import spec_rounds
-from dynamo_tpu_torch.engine.weights import check_fits, serving_bytes
+from dynamo_tpu_torch.engine.weights import check_fits, read_snapshot_into, serving_bytes
 from dynamo_tpu_torch.models.toolkit import (
     is_quantized,
     make_kv_pool,
@@ -1160,6 +1163,31 @@ class ModelRunner:
         if not chunks:
             return out, []
         return out, seg_logits[chunk_entry0:chunk_entry0 + len(chunks)]
+
+    # -- weight reloads ------------------------------------------------------
+    def reload_params(self, path: str) -> None:
+        """Swap the served weights for a params snapshot's (engine/weights.py
+        `save_snapshot`; the rl endpoint's update_weights), copied into the
+        tensors this runner holds, leaf by leaf, and requantized under
+        `quantize` as quantize_params would: the device holds at most one
+        leaf's slice more, and every tensor keeps its address. A self-draft
+        sharing these tensors serves the new weights too; a draft tree of
+        its own keeps its weights, as the reference's does. The snapshot is
+        checked whole before the first copy; a failure after it raises
+        weights.PartialReload (the tree then mixes old and new leaves)."""
+        t0 = time.monotonic()
+        read_snapshot_into(path, self.config, self.params, self.quantize)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        log.info("reloaded params from %s in %.2fs", path, time.monotonic() - t0)
+
+    def reset_kv_pools(self) -> None:
+        """Zero the KV pools, and the draft's, in place: every cached page
+        is lost (the caller resets its PagePool)."""
+        for pool in (self.k_pool, self.v_pool, self.draft_k_pool, self.draft_v_pool):
+            if pool is not None:
+                for t in self._parts(pool):
+                    t.zero_()
 
     # -- draft-model speculation -------------------------------------------
     @property

@@ -97,7 +97,8 @@ class ModelConfig:
     n_dense_layers: int = 0
     n_expert_groups: int = 0
     topk_groups: int = 0
-    # RoPE long-context scaling (HF rope_scaling): "none" | "llama3" | "yarn"
+    # RoPE long-context scaling (HF rope_scaling): "none" | "linear" |
+    # "llama3" | "yarn"
     rope_scaling: str = "none"
     rope_factor: float = 1.0
     rope_orig_max_seq: int = 0  # original_max_position_embeddings

@@ -164,8 +164,10 @@ def layer_rope(config: ModelConfig, l: int) -> int:
 def rope_inv_freq_np(config: Optional[ModelConfig], hd: int, theta: float) -> np.ndarray:
     """[hd//2] f32 inverse frequencies with the config's scaling applied,
     computed in float64 numpy and cast to f32 (HF rope_scaling semantics:
-    "llama3" interpolates wavelengths past orig_max/low_freq_factor by
-    1/factor, keeps short ones, and blends a smooth band between; "yarn"
+    "linear" divides every frequency by the factor (uniform position
+    interpolation, Gemma-3's global layers at 8); "llama3" interpolates
+    wavelengths past orig_max/low_freq_factor by 1/factor, keeps short
+    ones, and blends a smooth band between; "yarn"
     blends interpolated and base frequencies per dim with a ramp between
     the beta_fast/beta_slow correction dims)."""
     half = hd // 2
@@ -173,6 +175,8 @@ def rope_inv_freq_np(config: Optional[ModelConfig], hd: int, theta: float) -> np
     if config is None or config.rope_scaling == "none":
         return base.astype(np.float32)
     c = config
+    if c.rope_scaling == "linear":
+        return (base / c.rope_factor).astype(np.float32)
     if c.rope_scaling == "llama3":
         orig = c.rope_orig_max_seq or c.max_seq_len
         wavelen = 2.0 * math.pi / base

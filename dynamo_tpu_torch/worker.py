@@ -22,10 +22,22 @@ factors from a seed) or `--lora NAME=<peft_dir>` (a HuggingFace PEFT
 checkpoint), repeatable, each adapter published in the model card as a
 servable model; `--lora-rank` the random adapters' rank, `--lora-slots`
 free slots for the `rl` endpoint's runtime `load_adapter`
-(worker_common). Checkpoint loading (and with it `--draft-checkpoint`
-and `--lora` over a checkpoint), the engine
-sidecar, multi-host groups, vision, the status server and the shadow
-failover are not ported yet (weights are random, from seed 0).
+(worker_common). Weights: `--checkpoint DIR` serves an HF safetensors
+directory (its config.json gives the config; `--lora NAME=PEFT_DIR` is
+checked against it) and `--draft-checkpoint DIR` a draft model's; without
+them the weights are random, from seed 0 (a draft's from seed 1). Fast
+restart, in the reference's order: `--shm-weights NAME` attaches a stage
+a peer or an earlier run published in /dev/shm (engine/shm_weights.py)
+when its fingerprint matches, else `--orbax-cache DIR` loads a params
+snapshot (the port's own format, engine/weights.py `save_snapshot`), else
+the checkpoint is read cold; then the stage is published and the
+snapshot written if they were missing, and the log says which tier the
+weights came from ("fast restart: attached ...", "fast restart: loading
+params snapshot ..."). The rl endpoint's `update_weights` reloads a
+snapshot in place, and then unlinks the stage and refreshes the snapshot
+directory. The hub fetch (a --checkpoint that is not a local directory),
+the engine sidecar, multi-host groups, vision, the status server and the
+shadow failover are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,10 +45,19 @@ from __future__ import annotations
 import argparse
 import asyncio
 import logging
+import os
+import shutil
 import signal
+import tempfile
+import time
+from typing import Any, Dict, Optional
 
 import numpy as np
+import torch
 
+from dynamo_tpu_torch import resolve_device
+from dynamo_tpu_torch.engine import shm_weights
+from dynamo_tpu_torch.engine import weights
 from dynamo_tpu_torch.engine.engine import InferenceEngine
 from dynamo_tpu_torch.engine.model_runner import ModelRunner
 from dynamo_tpu_torch.frontend.protocols import ModelCard
@@ -51,6 +72,17 @@ log = logging.getLogger("dynamo_tpu_torch.worker")
 def parse_args(argv=None):
     p = argparse.ArgumentParser("dynamo_tpu_torch.worker")
     p.add_argument("--model", default="tiny", help="model config preset name")
+    p.add_argument("--checkpoint", default=None,
+                   help="HF safetensors checkpoint dir (config derived from its "
+                        "config.json)")
+    p.add_argument("--shm-weights", default=None, metavar="NAME",
+                   help="host shared-memory weight staging: attach the staged "
+                        "tree if a host peer published it, else load and "
+                        "publish it for peers and restarts")
+    p.add_argument("--orbax-cache", default=None,
+                   help="params snapshot dir: load it if present, else write it "
+                        "after the build (fast worker restarts; the port's own "
+                        "snapshot format, not orbax's)")
     p.add_argument("--model-name", default=None,
                    help="served model name (default: config name)")
     p.add_argument("--tokenizer", default="byte",
@@ -98,6 +130,8 @@ def parse_args(argv=None):
     p.add_argument("--draft-model", default=None,
                    help="draft model config preset (enables speculative "
                         "decoding: the draft proposes, the model verifies)")
+    p.add_argument("--draft-checkpoint", default=None,
+                   help="HF safetensors dir for draft weights")
     p.add_argument("--spec-gamma", type=int, default=4,
                    help="draft tokens proposed per target verify pass")
     p.add_argument("--spec-draft-model", default=None, metavar="PRESET",
@@ -216,35 +250,198 @@ def pad_rank(name: str, arr: np.ndarray, rank: int) -> np.ndarray:
     return np.pad(arr, pad)
 
 
+def _warm_params(args, config: ModelConfig, device: torch.device
+                 ) -> tuple[Optional[Dict[str, Any]], Optional[str]]:
+    """The params from the first tier that has them, as the reference's
+    build_runner takes them: the shm stage when its fingerprint matches,
+    else the params snapshot (a mismatch exits), else the checkpoint cold;
+    (None, None) without any. Under --quantize each is quantized a row
+    range at a time as it is read. The tiers below the one read are
+    written as it is read, from its unquantized values: the stage (after
+    a snapshot or a cold load) and the snapshot when it is absent.
+    Returns (params, tier)."""
+    meta = weights.weights_fingerprint(config)
+    q = args.quantize
+    snap_sinks = []
+    if args.orbax_cache and not _snapshot_present(args):
+        snap_sinks.append(weights.SnapshotWriter(args.orbax_cache, config))
+    if args.shm_weights:
+        stage = shm_weights.attach(args.shm_weights)
+        if stage is not None:
+            try:
+                if stage.meta == meta:
+                    log.info("fast restart: attached %d staged arrays (%.1f MB shm) as %r",
+                             stage.n_arrays, stage.nbytes / 1e6, args.shm_weights)
+                    t0 = time.monotonic()
+                    params = _filled(lambda s: stage.tensors(device, q, s), snap_sinks)
+                    log.info("copied the stage to %s in %.2fs", device,
+                             time.monotonic() - t0)
+                    return params, "shm"
+                log.warning("shm stage %r fingerprint %s does not match model config "
+                            "%s; loading cold (the publish will replace the stale "
+                            "stage)", args.shm_weights, stage.meta, meta)
+            finally:
+                stage.close()
+    stage_sinks = []
+    if args.shm_weights:
+        if shm_weights.available():
+            stage_sinks.append(shm_weights.StageWriter(args.shm_weights, meta))
+        else:
+            log.warning("%s missing: shm weight staging disabled", shm_weights.SHM_DIR)
+    if args.orbax_cache and not snap_sinks:
+        log.info("fast restart: loading params snapshot %s", args.orbax_cache)
+        t0 = time.monotonic()
+        try:
+            params = _filled(lambda s: weights.load_snapshot(
+                args.orbax_cache, config, device, quantize=q, sinks=s), stage_sinks)
+        except ValueError as e:
+            raise SystemExit(f"snapshot {args.orbax_cache} does not match model config "
+                             f"{config.name} ({e}); delete the snapshot to rebuild it")
+        log.info("loaded the params snapshot in %.2fs", time.monotonic() - t0)
+        return params, "snapshot"
+    if args.checkpoint:
+        log.info("loading HF checkpoint %s cold", args.checkpoint)
+        args._load_stats = {}
+        return (_filled(lambda s: weights.load_hf_checkpoint(
+            args.checkpoint, config, device, stats=args._load_stats, quantize=q, sinks=s),
+            stage_sinks + snap_sinks), "checkpoint")
+    return None, None
+
+
+def _filled(load, sinks):
+    """`load(sinks)`'s params with every sink committed after it (the
+    snapshot's "wrote" line logged), or every sink aborted when it
+    raises."""
+    for sink in sinks:
+        if isinstance(sink, weights.SnapshotWriter):
+            log.info("writing params snapshot to %s", sink.path)
+    try:
+        params = load(sinks)
+        for sink in sinks:
+            sink.commit()
+    except BaseException:
+        for sink in sinks:
+            sink.abort()
+        raise
+    for sink in sinks:
+        if isinstance(sink, weights.SnapshotWriter):
+            log.info("wrote the params snapshot in %.2fs", sink.seconds)
+    return params
+
+
+def _snapshot_present(args) -> bool:
+    d = args.orbax_cache
+    return bool(d and os.path.isdir(d) and os.listdir(d))
+
+
+def _local_checkpoint(path: str) -> str:
+    if not os.path.isdir(path):
+        raise FileNotFoundError(
+            f"checkpoint {path!r} is not a local directory; fetching one from the "
+            "hub (engine/hub.py) is not ported: it needs the network")
+    return path
+
+
 def build_runner(args, params=None, draft_params=None) -> tuple[ModelRunner, ModelConfig]:
-    """Construct the ModelRunner (bf16 random weights, seed 0, until
-    checkpoint loading is ported; a draft model's from seed 1) and its
-    model config from CLI args. `params` shares another runner's weights
-    (two engines on one card), `draft_params` a draft tree (the model's
-    own params make a self-draft). A model whose params and pools exceed
-    the card's free memory raises MemoryError before anything is drawn
-    (DeepSeek-V3 at full depth; qwen3-30b-a3b, 61 GB of weights, needs the
-    card to itself). The --lora adapters are registered in order, slots 1
-    on."""
-    config = get_config(args.model)
+    """Construct the ModelRunner and its model config from CLI args. The
+    config comes from --checkpoint's config.json, else the --model preset;
+    the weights from `params` (another runner's: two engines on one
+    card), else the warm tiers or the checkpoint (`_warm_params`; the
+    stage is published and the snapshot written when missing), else
+    random from seed 0. A draft
+    model's config and weights come from --draft-checkpoint, else its
+    preset with random weights from seed 1, unless `draft_params` is given
+    (the model's own params make a self-draft). Weights and pools that
+    exceed the card's free memory raise MemoryError before anything is
+    read or drawn. The --lora adapters are registered in order, slots 1
+    on. `args._weights_source` says where the weights came from."""
+    device = resolve_device(args.device)
+    if args.checkpoint:
+        config = weights.config_from_hf(_local_checkpoint(args.checkpoint),
+                                        name=args.model_name or args.model)
+    else:
+        config = get_config(args.model)
     draft = args.draft_model or args.spec_draft_model
+    draft_config = None
+    if args.draft_checkpoint:
+        draft_config = weights.config_from_hf(_local_checkpoint(args.draft_checkpoint),
+                                              name=draft or "draft")
+    elif draft:
+        draft_config = get_config(draft)
+    lora_kw = _lora_kwargs(args, config)
+    args._weights_source = "shared" if params is not None else "random"
+    if params is None:
+        if device.type == "cuda" and (args.checkpoint or args.shm_weights or args.orbax_cache):
+            # the params (their codes and scales under --quantize) beside
+            # the pools
+            need = weights.serving_bytes(config, args.num_pages, args.page_size,
+                                         kv_quantize=args.kv_quantize,
+                                         quantize=args.quantize,
+                                         draft_config=draft_config,
+                                         draft_params=draft_params)
+            weights.check_fits(config.name, need, torch.cuda.mem_get_info(device)[0])
+        params, tier = _warm_params(args, config, device)
+        if tier is not None:
+            args._weights_source = tier
+    if draft_params is None and args.draft_checkpoint:
+        draft_params = weights.load_hf_checkpoint(args.draft_checkpoint, draft_config, device)
     runner = ModelRunner(
         config,
         num_pages=args.num_pages,
         page_size=args.page_size,
         max_pages_per_seq=-(-args.max_seq_len // args.page_size),
         params=params,
-        device=args.device,
+        device=device,
         kv_quantize=args.kv_quantize,
         quantize=args.quantize,
-        draft_config=get_config(draft) if draft else None,
+        draft_config=draft_config,
         draft_params=draft_params,
         spec_gamma=args.spec_gamma,
-        **_lora_kwargs(args, config),
+        **lora_kw,
     )
     for name, factors in args._lora_factors:
         runner.register_adapter(name, factors)
     return runner, config
+
+
+def _refresh_snapshot(src: str, cache_dir: str) -> None:
+    """Replace the snapshot directory `cache_dir` by a copy of `src`,
+    renamed into place (a restart never sees half a directory)."""
+    if os.path.realpath(src) == os.path.realpath(cache_dir):
+        return
+    parent = os.path.dirname(os.path.abspath(cache_dir)) or "."
+    tmp = tempfile.mkdtemp(prefix=".snapshot_swap_", dir=parent)
+    try:
+        new = os.path.join(tmp, "new")
+        shutil.copytree(src, new)
+        if os.path.exists(cache_dir):
+            os.rename(cache_dir, os.path.join(tmp, "old"))
+        os.rename(new, cache_dir)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _invalidate_warm_tiers(engine: InferenceEngine, args) -> None:
+    """After an rl weight update the warm tiers hold the superseded
+    weights, and a restart would serve them: each update unlinks the shm
+    stage and replaces the snapshot directory by the new snapshot."""
+    inner = engine.update_weights
+    stage, cache_dir = args.shm_weights, args.orbax_cache
+
+    async def update_and_invalidate(path: str) -> int:
+        version = await inner(path)
+        if stage:
+            shm_weights.unlink(stage)
+        if cache_dir:
+            try:
+                await asyncio.to_thread(_refresh_snapshot, path, cache_dir)
+            except Exception:
+                log.exception("snapshot refresh from %s failed: a restart would "
+                              "load the superseded snapshot", path)
+        log.info("warm tiers refreshed after weight update v%d", version)
+        return version
+
+    engine.update_weights = update_and_invalidate
 
 
 def build_engine(args, runner=None, **engine_kw) -> InferenceEngine:
@@ -276,7 +473,10 @@ def build_engine(args, runner=None, **engine_kw) -> InferenceEngine:
         tokenizer_spec=args.tokenizer,
     )
     kw.update(engine_kw)
-    return InferenceEngine(runner, **kw)
+    engine = InferenceEngine(runner, **kw)
+    if args.shm_weights or args.orbax_cache:
+        _invalidate_warm_tiers(engine, args)
+    return engine
 
 
 def model_card(args, config: ModelConfig, adapters=None) -> ModelCard:

@@ -19,9 +19,9 @@ admin endpoint (`rl_admin`): `describe`, `pause` / `resume` (the engine's
 admission gate) and `load_adapter` (a LoRA adapter into a free slot, from
 a PEFT directory or random factors from a seed, zero-padded to the
 tree's rank; the card republished so the frontend routes the adapter to
-this worker). Its `update_weights` answers an error item: weight reloads
-come with checkpoint loading. The fleet digest and the shadow server are
-not ported yet.
+this worker) and `update_weights` (the engine reloads a params snapshot
+and flushes its KV state; the reply carries the new weights_version).
+The fleet digest and the shadow server are not ported yet.
 """
 
 from __future__ import annotations
@@ -168,8 +168,10 @@ async def rl_admin(engine, card: ModelCard, request: Dict[str, Any],
     """One op of the `rl` endpoint (the reference's lib/rl role), as its
     reply: `describe` (the default), `pause`, `resume`, `load_adapter`
     ({"name", "peft"?: dir, "seed"?, "scale"?, "rank"?}) and
-    `update_weights`. `republish()` registers the instance again with the
-    card after a load. Failures come back as {"error": ...}."""
+    `update_weights` ({"orbax": a params snapshot dir}, the reference's
+    key; engine/weights.py `save_snapshot` writes one). `republish()`
+    registers the instance again with the card after a load. Failures
+    come back as {"error": ...}."""
     op = request.get("op", "describe")
     if op == "pause":
         engine.paused = True
@@ -178,13 +180,24 @@ async def rl_admin(engine, card: ModelCard, request: Dict[str, Any],
     elif op == "load_adapter":
         return await _load_adapter(engine, card, request, republish, instance_id)
     elif op == "update_weights":
-        return {"error": "update_weights is not supported by this worker yet: "
-                         "weight reloads come with checkpoint loading (ROADMAP A.10)"}
+        path = request.get("orbax")
+        if not path:
+            return {"error": "update_weights needs 'orbax': <snapshot dir>"}
+        try:
+            version = await engine.update_weights(path)
+        except Exception as e:
+            return {"error": f"weight reload failed: {e}"}
+        return {"model": card.name, "paused": bool(engine.paused),
+                "weights_version": version, "instance": instance_id}
     elif op != "describe":
         return {"error": f"unknown rl op {op!r}"}
-    return {"model": card.name, "paused": bool(getattr(engine, "paused", False)),
-            "weights_version": int(getattr(engine, "weights_version", 0)),
-            "adapters": list(card.adapters or []), "instance": instance_id}
+    out = {"model": card.name, "paused": bool(getattr(engine, "paused", False)),
+           "weights_version": int(getattr(engine, "weights_version", 0)),
+           "adapters": list(card.adapters or []), "instance": instance_id}
+    if getattr(engine, "weights_error", None):
+        # a reload failed mid-copy: every request is refused until one succeeds
+        out["weights_error"] = engine.weights_error
+    return out
 
 
 async def _load_adapter(engine, card: ModelCard, request: Dict[str, Any],

@@ -7,10 +7,14 @@ scripts/tier_staging_bench.py, scripts/tier_ttft_pairs.py and
 scripts/lora_delta_bench.py import
 neither JAX nor anything of the
 dynamo_tpu package, nor ml_dtypes, msgpack, zmq, aiohttp, jinja2,
-tokenizers, prometheus_client, boto3 or safetensors (the machine with the
-card has none of them; PEFT adapters are read by engine/st_io.py; the request plane frames with runtime/codec.py instead of msgpack,
-and the event plane is TCP instead of ZMQ). Note the prefix:
-`dynamo_tpu_torch` starts with `dynamo_tpu`.
+tokenizers, prometheus_client, boto3, safetensors, orbax or transformers
+(the machine with the card has none of them; checkpoints, PEFT adapters
+and params snapshots are read and written by engine/st_io.py; the shm
+weight stage's index and the request plane's frames are packed by
+runtime/codec.py instead of msgpack, and the event plane is TCP instead
+of ZMQ); loading a checkpoint, writing and reading a snapshot and a shm
+stage load none of them either. Note the prefix: `dynamo_tpu_torch`
+starts with `dynamo_tpu`.
 """
 
 import ast
@@ -35,7 +39,7 @@ PKG = ROOT / "dynamo_tpu_torch"
 
 FORBIDDEN = ("jax", "jaxlib", "dynamo_tpu", "ml_dtypes", "msgpack", "zmq",
              "aiohttp", "jinja2", "tokenizers", "prometheus_client", "boto3",
-             "safetensors")
+             "safetensors", "orbax", "transformers")
 
 
 def _forbidden(name: str) -> bool:
@@ -70,7 +74,8 @@ def test_every_module_imports_without_jax_or_dynamo_tpu():
               "frontend.tool_calls", "guided", "guided.regex_dfa",
               "guided.json_schema", "guided.structural", "guided.token_mask",
               "guided.device_table", "ops.tier_codec", "kvbm.quant", "kvbm.disk_pool",
-              "kvbm.object_store", "kvbm.prefetch", "models.lora", "engine.st_io"):
+              "kvbm.object_store", "kvbm.prefetch", "models.lora", "engine.st_io",
+              "engine.shm_weights"):
         assert f"dynamo_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -78,6 +83,43 @@ def test_every_module_imports_without_jax_or_dynamo_tpu():
         "print(json.dumps(sorted(sys.modules)))\n"
     )
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, bad
+
+
+def test_checkpoints_snapshots_and_stages_load_nothing_forbidden(tmp_path):
+    """A tiny checkpoint written by the port's own writer, loaded, written
+    and read back as a params snapshot, staged in shm and attached, in a
+    fresh interpreter: no forbidden module is loaded on the way."""
+    code = (
+        "import json, os, sys\n"
+        "from pathlib import Path\n"
+        "import torch\n"
+        "from dynamo_tpu_torch.engine import shm_weights, st_io, weights\n"
+        "from dynamo_tpu_torch.models import llama\n"
+        "from dynamo_tpu_torch.models.config import get_config\n"
+        "d = Path(sys.argv[1])\n"
+        "cfg = get_config('tiny')\n"
+        "p = llama.init_params(cfg, 0, torch.bfloat16, 'cpu')\n"
+        "st_io.save_file(weights.hf_state_dict(p, cfg), d / 'model.safetensors')\n"
+        "(d / 'config.json').write_text(json.dumps({'vocab_size': 512, 'hidden_size': 64,"
+        " 'num_hidden_layers': 2, 'num_attention_heads': 4, 'num_key_value_heads': 2,"
+        " 'intermediate_size': 128}))\n"
+        "got = weights.load_hf_checkpoint(str(d), weights.config_from_hf(str(d)), 'cpu')\n"
+        "weights.save_snapshot(got, str(d / 'snap'), cfg)\n"
+        "weights.load_snapshot(str(d / 'snap'), cfg, 'cpu')\n"
+        "name = f'iso{os.getpid()}'\n"
+        "try:\n"
+        "    shm_weights.publish(name, got)\n"
+        "    shm_weights.attach(name).tensors('cpu')\n"
+        "finally:\n"
+        "    shm_weights.unlink(name)\n"
+        "print(json.dumps(sorted(sys.modules)))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code, str(tmp_path)], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     loaded = json.loads(out.stdout.strip().splitlines()[-1])

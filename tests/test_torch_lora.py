@@ -172,7 +172,7 @@ def test_st_io_reads_what_safetensors_writes(tmp_path):
         else:
             np.testing.assert_array_equal(t.numpy(), want)
     t = got["f32"]
-    t += 1  # copy-on-write: the file keeps its bytes
+    t += 1  # the reader's own tensor: the file keeps its bytes
     np.testing.assert_array_equal(st_io.load_file(tmp_path / "x.safetensors")["f32"].numpy(),
                                   tensors["f32"])
     (tmp_path / "bad.safetensors").write_bytes(b"\x01")

@@ -15,7 +15,7 @@ serving cases on dynamo_tpu_torch), on the CPU:
 - `PushRouter`'s allowed filter in every mode;
 - the `rl` endpoint: describe, pause / resume, load_adapter (slot
   exhaustion, the re-registration and over-rank errors, a worker without
-  slots), update_weights refused;
+  slots), update_weights without a snapshot refused;
 - block hashes seeded by an adapter equal the reference's `request_seed`
   hashes, in the router and in the engine's KV events;
 - `python -m dynamo_tpu_torch.worker --lora ad-one` behind `python -m
@@ -350,7 +350,7 @@ async def test_rl_endpoint_and_runtime_adapter_loads(params):
             {"token_ids": PROMPT, "sampling": {}, "stop": {"max_tokens": 2}}, Context())]
         assert items[-1]["finish_reason"] == "error" and "paused" in items[-1]["error"]
         assert (await call(ia, {"op": "resume"}))["paused"] is False
-        assert "A.10" in (await call(ia, {"op": "update_weights"}))["error"]
+        assert "needs 'orbax'" in (await call(ia, {"op": "update_weights"}))["error"]
         assert "unknown rl op" in (await call(ia, {"op": "nope"}))["error"]
         assert "without --lora" in (await call(ib, {"op": "load_adapter",
                                                     "name": "x"}))["error"]
