@@ -381,6 +381,52 @@ Phases, each printing one JSON line:
                kernel path's routing) and `repeat_mixtral` at two layers.
                Every engine phase holds quant_gemm's launches by body to
                its quantized matrices a pass (0 over bf16 weights).
+ 11. observability - the runtime hooks on the card (runtime/
+               sanitizer.py, flight_recorder.py, annotations.py,
+               tracing.py, fleet_observer.py, status.py). After
+               `parity`, on the 3B runner: `observability_engine`
+               (sync_mode_phase: which of SYNC_CASES the sync debug mode
+               "error" catches, held to the table; guard_phase: the 3B's
+               traffic under a warm sanitizer with no violation, and
+               none beside a second engine's G2 offloads and onboard
+               in the same process (guard_beside_tiers), a
+               planted `.item()` inside the guarded decode failing its
+               request and recorded, the same sync in an allow scope
+               passing, an unknown label a violation, the penalty
+               decode's guard reported, a kernel library rebuilt
+               after warm-up a violation; anomaly_phase: a stall of
+               twice the trigger's threshold fires exactly one anomaly,
+               its dump lands and its ANOMALY_PROFILE_MS torch.profiler
+               window holds the engine's ranges and the GQA kernels),
+               then `observability_costs` (the decode rate a request of
+               8 requests of 64 prompt and 32 output tokens with the
+               recorder, the span ring, the ranges and the sanitizer off
+               and on, in turns off, on, on, off; every turn holds the
+               launch identities; the "on" turns time each hook's host
+               work where it runs, under HOOK_SHARE_MAX of the
+               iterations' time, and each hook alone over HOOK_CALLS
+               calls) and `hw_profile` (run_hw_sweep at the
+               3B's width: kernel and ref x bf16 and int8 KV, batches
+               1/8/32, chunks 128/512; launches = the kernel variants'
+               passes x 28, the artifact read back). In `tiers`,
+               `tier_cost_feed` (the G2 engine's digest carries its
+               kv_onboard_ewma; a KvRouter bound to a FleetObserver that
+               ingested it prices G2 as measured). In `engine_frontend`,
+               the workers run with --sanitize, --status-port,
+               --digest-period 0.5 and --anomaly-dump-dir under
+               DYN_TRACE_RING, the in-process frontend keeps a span ring
+               and serves its status port (frontend/__main__.py
+               start_fleet_status), and after the 3B's traffic
+               `observability_served` holds: no sanitizer violation over
+               guarded dispatches, one timeline record per iteration
+               summing to the runner's counters, each streamed request's
+               spans under one trace across the processes, the routing
+               audit naming the worker that served it, the fleet's TTFT
+               counts equal to the requests routed to each worker, the
+               reference's /metrics series, every hook's failure count 0
+               on /debug/engine and /metrics, no malformed digest at the
+               frontend; the frontend's main, behind
+               the survivor, serves the same views.
 Then the `kernels` summary line (launches from the fused phase for the
 GQA attention kernels, from engine_disagg for gather and scatter, from
 engine_tiers for the layer scatter, from engine_tiers_quant for the device
@@ -411,6 +457,7 @@ import os
 import re
 import shutil
 import signal
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -476,9 +523,11 @@ from dynamo_tpu_torch.frontend.service import ModelManager, ModelWatcher
 from dynamo_tpu_torch.router.kv_router import KvPushRouter, KvRouter
 from dynamo_tpu_torch.router.prefill_router import DisaggPolicy, PrefillRouter
 from dynamo_tpu_torch.router.protocols import KV_EVENT_SUBJECT
+from dynamo_tpu_torch.router.scheduling import KvRouterConfig
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.discovery import FileDiscovery, MemDiscovery
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+from dynamo_tpu_torch.runtime.tracing import SpanRing, set_exporter, span_to_dict
 from dynamo_tpu_torch.tokens.hashing import block_hashes
 from dynamo_tpu_torch.worker import (
     build_engine,
@@ -615,7 +664,13 @@ def check(ok: bool, what: str) -> None:
         raise CheckFailed(what)
 
 
+_T_START = time.monotonic()
+
+
 def emit(obj) -> None:
+    """One JSON line, with `t_s`: the seconds since the script started."""
+    if isinstance(obj, dict) and "phase" in obj:
+        obj = {**obj, "t_s": time.monotonic() - _T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -3198,13 +3253,15 @@ async def _until(cond, what, bound):
         await asyncio.sleep(0.01)
 
 
-async def _spawn(args, root, marker, log_path):
-    """`python -m <args>` on the discovery root; returns (process, the
-    line starting with `marker`) once it prints it."""
+async def _spawn(args, root, marker, log_path, env=None):
+    """`python -m <args>` on the discovery root, with `env` added to the
+    environment; returns (process, the line starting with `marker`) once
+    it prints it."""
     with open(log_path, "w") as log_file:
         proc = await asyncio.create_subprocess_exec(
             sys.executable, "-m", *args, "--discovery-backend", "file",
-            "--discovery-root", root, cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)),
+            "--discovery-root", root, cwd=ROOT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT), **(env or {})),
             stdout=asyncio.subprocess.PIPE, stderr=log_file)
     while True:
         line = (await asyncio.wait_for(proc.stdout.readline(), SERVE_TIMEOUT_S)).decode()
@@ -3280,6 +3337,163 @@ async def _frontend_extras(port, prompt):
     return out
 
 
+# observability_served: the flags and environment frontend_phase's
+# workers and frontends run with
+OBS_WORKER_ARGS = ["--sanitize", "--digest-period", "0.5"]
+OBS_ENV = {"DYN_TRACE_RING": "4096"}
+OBS_DIGEST_WINDOW_S = 900.0  # the whole phase
+OBS_SERIES = ("dynamo_request_phase_seconds_count{", "dynamo_compile_variants{",
+              "dynamo_compile_seconds_total{", "dynamo_flight_recorder_anomalies_total{",
+              "dynamo_tracing_dropped_spans{")
+# each hook's failure count on a worker's /metrics (all 0 on a clean run)
+OBS_FAILURE_SERIES = ("dynamo_digest_publish_failures_total{",
+                      "dynamo_digest_probe_failures_total{",
+                      "dynamo_flight_recorder_failures_total{")
+OBS_FRONTEND_SERIES = ("dynamo_frontend_requests_total{", "dynamo_frontend_ttft_seconds_count{",
+                       "dynamo_tracing_dropped_spans{")
+OBS_SPANS = {"frontend.request", "route.kv", "rpc", "worker.request", "worker.queue",
+             "worker.prefill", "worker.stream"}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+async def _obs_get(port, path):
+    status, _, data = await asyncio.to_thread(_http, port, "GET", path)
+    check(status == 200, f"observability: GET {path} on :{port} answered {status}: "
+          f"{data[:200]}")
+    return json.loads(data) if not path.startswith("/metrics") else data.decode()
+
+
+def _trace_of(spans, rid):
+    """The trace id of request `rid`'s frontend.request root."""
+    ids = {s["trace_id"] for s in spans if s["name"] == "frontend.request"
+           and s["attributes"].get("request.id") == rid}
+    check(len(ids) == 1, f"observability: request {rid} has roots in traces {ids}")
+    return ids.pop()
+
+
+def _joined(spans, tid, what):
+    """One trace's spans reach one frontend.request root through their
+    parents, and hold every hop's span."""
+    by_id = {s["span_id"]: s for s in spans}
+    names = {s["name"].split(" ")[0] for s in spans}
+    check(OBS_SPANS <= names and {s["trace_id"] for s in spans} == {tid},
+          f"observability: {what}'s trace {tid} holds {sorted(names)}")
+    for s in spans:
+        while s["parent_span_id"] in by_id:
+            s = by_id[s["parent_span_id"]]
+        check(s["name"] == "frontend.request",
+              f"observability: {what}'s span {s['name']} is not under the root")
+
+
+async def _observability_served(fe_status, ring, workers, rids, model):
+    """`observability_served`, on frontend_phase's two workers (`workers`:
+    instance -> status port) and its in-process frontend (status port
+    `fe_status`, span ring `ring`) after the 3B's traffic. Every worker's
+    sanitizer reports no violation over a non-zero count of guarded
+    dispatches; its timeline holds one record per dispatched iteration,
+    their ragged, chunk and step sums equal to the runner's counters;
+    each streamed request (`rids`) has the frontend root, routing span,
+    server hop and engine spans under one trace id, across the frontend's
+    ring and its worker's; /debug/routing?rid= names the worker whose ring
+    holds the trace; /debug/fleet shows both workers, each with TTFT
+    counts equal to the requests the KV router sent it; and /metrics on
+    every status port serves the reference's series names."""
+    t0 = time.monotonic()
+    rec = {"workers": {}}
+    # the routing audit's count a worker, then the digests catching up
+    dec = (await _obs_get(fe_status, "/debug/routing?last_n=100000"))["decisions"]
+    sent = {iid: sum(1 for d in dec if d["router"] == f"{model}/kv"
+                     and d["chosen"][0] == iid) for iid in workers}
+    check(sum(sent.values()) > 0, f"observability: no KV routing recorded: {dec[-3:]}")
+
+    async def fleet_rows():
+        view = await _obs_get(fe_status, "/debug/fleet")
+        return {r["worker"][0]: r for r in view["workers"].values()}
+
+    deadline = time.monotonic() + 30
+    while True:
+        rows = await fleet_rows()
+        ttft = {iid: rows.get(iid, {}).get("phases", {}).get("ttft", {}).get("n", 0)
+                for iid in workers}
+        if ttft == sent or time.monotonic() > deadline:
+            break
+        await asyncio.sleep(0.25)
+    check(set(rows) == set(workers) and ttft == sent
+          and all(rows[i]["counters"]["requests"] == sent[i] for i in workers),
+          f"observability: fleet TTFT counts {ttft}, requests "
+          f"{ {i: r['counters']['requests'] for i, r in rows.items()} }, routed {sent}")
+    rec["routed"] = {f"{i:x}": n for i, n in sent.items()}
+    view = await _obs_get(fe_status, "/debug/fleet")
+    check(view["dropped_malformed"] == 0,
+          f"observability: the frontend dropped malformed digests: {view['dropped_malformed']}")
+    rec["digests_received"] = view["received"]
+    for iid, port in workers.items():
+        san = await _obs_get(port, "/debug/sanitizer")
+        eng = await _obs_get(port, "/debug/engine")
+        tl = await _obs_get(port, "/debug/timeline")
+        text = await _obs_get(port, "/metrics")
+        check(san["ok"] and not san["violations"] and san["warm"]
+              and san["counters"]["guarded_dispatches"] > 0,
+              f"observability: worker {iid:x}'s sanitizer: {san}")
+        recs = [e["args"] for e in tl["traceEvents"] if e["ph"] == "X"]
+        st = eng["stats"]
+        ragged = sum(r["ragged"] for r in recs)
+        sums = {"records": len(recs), "ragged": ragged,
+                "fused_chunks": sum(r["n_chunks"] for r in recs if r["fused"]),
+                "unfused_chunks": sum(r["n_chunks"] for r in recs if not r["fused"]),
+                "decode_steps_less_ragged": sum(r["decode_steps"] for r in recs) - ragged}
+        want = {"records": eng["iterations"],
+                "ragged": st["ragged_mixed_dispatches"] + st["ragged_verify_dispatches"],
+                "fused_chunks": st["mixed_chunks"], "unfused_chunks": st["prefill_chunks"],
+                "decode_steps_less_ragged": st["decode_steps"]}
+        check(eng["instance"] == iid and sums == want
+              and eng["recorder"]["appended"] == eng["iterations"],
+              f"observability: worker {iid:x}'s timeline sums {sums} != counters {want}")
+        missing = [n for n in OBS_SERIES if n not in text]
+        check(not missing, f"observability: worker {iid:x}'s /metrics lacks {missing}")
+        # no hook failed: recorder dumps, hooks and profile windows, the
+        # step profiler, the digest publisher and its engine probes
+        fails = eng["hook_failures"]
+        series = {n: [ln for ln in text.splitlines() if ln.startswith(n)]
+                  for n in OBS_FAILURE_SERIES}
+        check(len(fails) == 6 and not any(fails.values())
+              and eng["digest"]["published"] > 0
+              and all(v and all(ln.endswith(" 0.0") for ln in v) for v in series.values()),
+              f"observability: worker {iid:x}'s hook failures {fails}, digest "
+              f"{eng['digest']}, /metrics {series}")
+        rec["workers"][f"{iid:x}"] = {"sanitizer": san["counters"], "timeline": sums,
+                                      "recorder": eng["recorder"], "hook_failures": fails,
+                                      "digests_published": eng["digest"]["published"]}
+    spans = [span_to_dict(s) for s in ring.snapshot()]
+    for rid in rids:
+        tid = _trace_of(spans, rid)
+        holders = {}
+        for iid, port in workers.items():
+            got = (await _obs_get(port, f"/debug/traces?trace_id={tid}"))["spans"]
+            if got:
+                holders[iid] = got
+        check(len(holders) == 1, f"observability: {rid}'s trace on workers {list(holders)}")
+        (iid, wspans), = holders.items()
+        _joined([s for s in spans if s["trace_id"] == tid] + wspans, tid, rid)
+        routed = (await _obs_get(fe_status, f"/debug/routing?rid={rid}"))["decisions"]
+        check([d["chosen"][0] for d in routed if d["router"] == f"{model}/kv"] == [iid],
+              f"observability: {rid} routed {routed}, served by {iid:x}")
+    rec["traced_requests"] = len(rids)
+    text = await _obs_get(fe_status, "/metrics")
+    missing = [n for n in OBS_FRONTEND_SERIES if n not in text]
+    check(not missing, f"observability: the frontend's /metrics lacks {missing}")
+    rec["seconds"] = time.monotonic() - t0
+    return rec
+
+
+
 def frontend_phase(in_process, V, served_rec, smi):
     """`engine_frontend`: two `python -m dynamo_tpu_torch.worker`
     processes (engine_served's flags) on one file-discovery root, behind
@@ -3329,9 +3543,16 @@ def frontend_phase(in_process, V, served_rec, smi):
         from dynamo_tpu_torch.frontend.tokenizer import ByteTokenizer
         from dynamo_tpu_torch.router.protocols import FPM_SUBJECT
 
+        from dynamo_tpu_torch.frontend.__main__ import start_fleet_status
+
         rec = {"phase": "engine_frontend", "model": MODEL, "nvidia_smi": smi}
         t_phase = time.monotonic()
         procs = {}
+        # observability_served: this process's frontend keeps a span ring
+        # and serves the fleet and routing views on a status port, as the
+        # frontend's main does with --status-port and DYN_TRACE_RING
+        ring = SpanRing(4096)
+        set_exporter(ring)
         rt = DistributedRuntime(discovery=FileDiscovery(root, poll_interval=0.05))
         manager = ModelManager()
         svc = HttpService(rt, manager, ModelWatcher(rt, manager, router_mode="kv"),
@@ -3339,20 +3560,35 @@ def frontend_phase(in_process, V, served_rec, smi):
         sub = rt.event_subscriber([FPM_SUBJECT])
         fpm = []
         listener = None
+        fleet = None
         try:
             t0 = time.monotonic()
+            w_status = [_free_port(), _free_port()]
             started = await asyncio.gather(*[_spawn(
-                ["dynamo_tpu_torch.worker", *ENGINE_ARGS], root, "worker serving",
-                os.path.join(root, f"worker{i}.log")) for i in range(2)])
+                ["dynamo_tpu_torch.worker", *ENGINE_ARGS, *OBS_WORKER_ARGS,
+                 "--status-port", str(w_status[i]),
+                 "--anomaly-dump-dir", os.path.join(root, f"anomaly{i}")], root,
+                "worker serving", os.path.join(root, f"worker{i}.log"), env=OBS_ENV)
+                for i in range(2)])
             rec["worker_start_s"] = time.monotonic() - t0
             for proc, line in started:
                 procs[line.rsplit("(", 1)[1].rstrip(")")] = proc
             rec["workers"] = [line for _, line in started]
+            fe_status = _free_port()
+            fleet = await start_fleet_status(rt, manager, svc.watcher, fe_status,
+                                             OBS_DIGEST_WINDOW_S)
             await svc.start()
             port = svc.port
             await svc.watcher.wait_for_model(timeout=60)
             entry = manager.get(MODEL)
             await _until(lambda: len(entry.client.instances) == 2, "both workers", 60)
+            # every digest of the traffic reaches the observer
+            await _until(lambda: len(fleet[1].workers()) == 2, "both workers' digests", 60)
+            status_of = {}
+            for sp in w_status:
+                status_of[(await _obs_get(sp, "/debug/engine"))["instance"]] = sp
+            check(set(status_of) == set(entry.client.instances),
+                  f"frontend: status ports {status_of} for {list(entry.client.instances)}")
             tap = entry.chain = _ChainTap(entry.chain)
             kv = entry.chain.sink.router
             await kv.start()
@@ -3441,6 +3677,12 @@ def frontend_phase(in_process, V, served_rec, smi):
             spread = {w for _, w, _ in routes[n_before:]}
             check(len(spread) == 2, f"frontend: 8 distinct prompts used {spread}")
             rec["distinct_prompts_workers"] = len(spread)
+            # observability_served: both workers up, all their traffic done
+            obs = await _observability_served(
+                fe_status, ring, status_of,
+                [r["rid"] for r in streamed + cold_http + hits + colds], MODEL)
+            emit({"phase": "observability_served", "model": MODEL, "nvidia_smi": smi, **obs})
+            rec["observability_served_s"] = obs["seconds"]
             # 6. migration: SIGKILL the worker of a stream after 16 tokens
             body = dict(req(prompt(512), FRONTEND_MIGRATE_TOKENS), stream=True,
                         stream_options={"include_usage": True})
@@ -3510,9 +3752,13 @@ def frontend_phase(in_process, V, served_rec, smi):
                 "freed_within_s": time.monotonic() - t_drop}
             check(svc._in_flight.get(MODEL) == 0, "frontend: requests still in flight")
             # 8. the frontend's main in front of the survivor
+            main_status = _free_port()
             fe, line = await _spawn(["dynamo_tpu_torch.frontend", "--router-mode", "kv",
-                                     "--http-host", "127.0.0.1", "--http-port", "0"], root,
-                                    "frontend serving at", os.path.join(root, "frontend.log"))
+                                     "--http-host", "127.0.0.1", "--http-port", "0",
+                                     "--status-port", str(main_status), "--digest-window",
+                                     str(OBS_DIGEST_WINDOW_S)], root,
+                                    "frontend serving at", os.path.join(root, "frontend.log"),
+                                    env=OBS_ENV)
             procs["frontend"] = fe
             fe_port = int(line.rsplit(":", 1)[1])
 
@@ -3525,13 +3771,45 @@ def frontend_phase(in_process, V, served_rec, smi):
                 check(time.monotonic() - t0 < 60, "frontend: the main lists no model")
                 await asyncio.sleep(0.1)
             check(models == [MODEL], f"frontend: the main lists {models}")
-            status, _, data = await asyncio.to_thread(_http, fe_port, "POST", "/v1/completions",
-                                                      dict(req(prompt(64), 16), stream=True,
-                                                           stream_options={"include_usage": True}))
+
+            async def main_sees_survivor():
+                while not (await _obs_get(main_status, "/debug/fleet"))["workers"]:
+                    await asyncio.sleep(0.1)
+
+            await asyncio.wait_for(main_sees_survivor(), 60)
+            status, heads, data = await asyncio.to_thread(
+                _http, fe_port, "POST", "/v1/completions",
+                dict(req(prompt(64), 16), stream=True, stream_options={"include_usage": True}))
             events = _sse(data)
             check(status == 200 and events[-1:] == ["[DONE]"]
                   and json.loads(events[-2])["usage"]["completion_tokens"] == 16,
                   f"frontend: the main's stream answered {status}, ends {events[-2:]}")
+            # the main's status port: its routing names the survivor, its
+            # fleet row counts the request, its ring and the survivor's
+            # join the request's trace
+            main_rid = heads["X-Request-Id"]
+            routed = (await _obs_get(main_status, f"/debug/routing?rid={main_rid}"))["decisions"]
+            check([d["chosen"][0] for d in routed] == [survivor_iid],
+                  f"frontend: the main routed {routed}, survivor {survivor_iid:x}")
+            fe_spans = (await _obs_get(main_status, "/debug/traces"))["spans"]
+            tid = _trace_of(fe_spans, main_rid)
+            w_spans = (await _obs_get(status_of[survivor_iid],
+                                      f"/debug/traces?trace_id={tid}"))["spans"]
+            _joined([s for s in fe_spans if s["trace_id"] == tid] + w_spans, tid, main_rid)
+
+            async def main_counts_it():
+                while True:
+                    rows = (await _obs_get(main_status, "/debug/fleet"))["workers"]
+                    n = [r["phases"].get("ttft", {}).get("n", 0) for r in rows.values()
+                         if r["worker"][0] == survivor_iid]
+                    if n == [1]:
+                        return
+                    await asyncio.sleep(0.2)
+
+            await asyncio.wait_for(main_counts_it(), 30)
+            text = await _obs_get(main_status, "/metrics")
+            check(all(n in text for n in OBS_FRONTEND_SERIES),
+                  f"frontend: the main's /metrics lacks series: {text[:300]}")
             rc = {}
             for name, proc in (("frontend", fe), ("worker", survivor)):
                 t0 = time.monotonic()
@@ -3551,8 +3829,14 @@ def frontend_phase(in_process, V, served_rec, smi):
                 if proc.returncode is None:
                     proc.kill()
                     await proc.wait()
+            if fleet is not None:
+                status_srv, observer, task = fleet
+                task.cancel()
+                await observer.stop()
+                await status_srv.stop()
             await svc.stop(drain_timeout=1)
             await rt.shutdown(drain_timeout=1)
+            set_exporter(None)
 
     with tempfile.TemporaryDirectory() as root:
         rec = asyncio.run(asyncio.wait_for(run(root), 900))
@@ -4000,6 +4284,7 @@ def tiers_phase(params):
           "wall_s": rec["wall_s"]})
     check(launches["gather_pages"] > 0 and launches["scatter_pages_layers"] > 0,
           f"tiers: a copy kernel never launched: {launches}")
+    emit({"phase": "tier_cost_feed", **tier_cost_feed(eng)})
     del eng
     # (b) G3, (c) G4, (d) the quantized tier on bf16 pools
     for name, (extra, deepest) in TIER_CASES.items():
@@ -7185,6 +7470,697 @@ def mixtral_phases(dev, smi):
     return launches
 
 
+# -- observability: the runtime hooks on the card ---------------------------
+# each entry: a planted operation on a CUDA tensor, and whether the sync
+# debug mode "error" must catch it (True) or lets it through (False), as a
+# run on an H100 found (PERF.md §6): the list the sanitizer's docstring
+# names
+SYNC_CASES = {
+    "item": (lambda x, pin: x[0].item(), True),
+    "cpu": (lambda x, pin: x.cpu(), True),
+    "tolist": (lambda x, pin: x.tolist(), True),
+    "int": (lambda x, pin: int(x[1]), True),
+    "bool": (lambda x, pin: bool(x[1] > 0), True),
+    "nonzero": (lambda x, pin: torch.nonzero(x), True),
+    "masked_select": (lambda x, pin: x[x > 3], True),
+    "index_put_accumulate": (lambda x, pin: torch.zeros_like(x).index_put_(
+        (torch.arange(2, device=x.device),), x[:2], accumulate=True), False),
+    "h2d_pageable": (lambda x, pin: pin.clone().to(x.device), True),
+    "h2d_pinned_blocking": (lambda x, pin: pin.to(x.device), True),
+    "torch_tensor_on_device": (lambda x, pin: torch.tensor([1, 2], device=x.device), True),
+    "stream_synchronize": (lambda x, pin: torch.cuda.current_stream().synchronize(), True),
+    "h2d_pinned_non_blocking": (lambda x, pin: pin.to(x.device, non_blocking=True), False),
+    "d2h_pinned_non_blocking": (lambda x, pin: torch.empty(
+        x.shape, pin_memory=True).copy_(x, non_blocking=True), False),
+    "torch_cuda_synchronize": (lambda x, pin: torch.cuda.synchronize(), False),
+    "event_synchronize": (lambda x, pin: torch.cuda.Event().synchronize(), False),
+    "topk": (lambda x, pin: torch.topk(x, 3), False),
+    "generator_seed": (lambda x, pin: torch.Generator(device=x.device).manual_seed(3),
+                       False),
+}
+ANOMALY_K = 8.0  # the stall phase's trigger: well above the decode's spread
+HW_DECODE_STEPS = 4  # the hardware sweep's decode steps a timed call
+ANOMALY_PROFILE_MS = 300
+OBS_COST_TURNS = (0, 1, 1, 0)  # off, on, on, off: parent-style pairs
+HOOK_CALLS = 5000  # hook_call_costs: calls a hook
+# a hook's host work, as a share of the iterations it runs in: below
+# every hook's run-to-run spread of the decode rate that the cost pairs
+# have shown on an H100 (the larger side's, 2.9-32.3% of the rate,
+# PERF.md §6)
+HOOK_SHARE_MAX = 0.01
+# a cost turn's batch: decode-bound, so the rate a request is the decode
+# loop's (the prefills batched at the start)
+COST_REQUESTS, COST_PROMPT, COST_OUT = 8, 64, 32
+
+
+def sync_mode_phase(dev):
+    """What set_sync_debug_mode("error") catches: each SYNC_CASES entry
+    inside a warm guard, caught (raised and recorded) or not, held to
+    the table."""
+    from dynamo_tpu_torch.runtime.sanitizer import Sanitizer
+
+    san = Sanitizer(strict=False, warmup_steps=0)
+    san.mark_warm()
+    x = torch.arange(16, device=dev, dtype=torch.float32)
+    pin = torch.ones(16, pin_memory=True)
+    got = {}
+    try:
+        for name, (fn, _) in SYNC_CASES.items():
+            n = len(san.violations)
+            try:
+                with san.transfer_scope(name):
+                    fn(x, pin)
+                got[name] = False
+            except RuntimeError:
+                got[name] = len(san.violations) == n + 1
+            torch.cuda.synchronize()
+    finally:
+        san.disarm()
+    want = {name: caught for name, (_, caught) in SYNC_CASES.items()}
+    check(got == want, f"sync mode: caught {got}, expected {want}")
+    return got
+
+
+def _one(engine, prompt, max_tokens=8, **sampling):
+    """One request: (tokens, finish reason, error text)."""
+    async def run():
+        toks, finish, err = [], None, None
+        req = {"token_ids": prompt, "sampling": {"temperature": 0.0, **sampling},
+               "stop": {"max_tokens": max_tokens, "stop_ids": []}}
+        async for item in engine.generate(req, Context()):
+            toks.extend(item["token_ids"])
+            if item.get("finish_reason"):
+                finish, err = item["finish_reason"], item.get("error")
+        return toks, finish, err
+    return asyncio.run(asyncio.wait_for(run(), 120))
+
+
+def _planted(runner, name, fn):
+    """runner.<name> with fn(runner) run inside it, before the call."""
+    orig = getattr(runner, name)
+
+    def wrapped(*a, **kw):
+        fn(runner)
+        return orig(*a, **kw)
+
+    setattr(runner, name, wrapped)
+    return lambda: setattr(runner, name, orig)
+
+
+def guard_beside_tiers(runner, engine, san):
+    """Guarded decodes beside another engine's device work in one process:
+    a TIER_ARGS engine (a second runner on the same params, a 512-block
+    host tier, no sanitizer) serves A and the two fillers (its G2
+    offloads) and A2 (a G2 onboard) while `engine`, warm under `san`,
+    runs rounds of four greedy decodes until the tier side is done. The
+    device gate keeps the tier engine's iterations out of the guarded
+    windows: no new violation, more guarded dispatches, and every
+    request of both engines finishes `length`."""
+    r2, _ = build_runner(parse_args(TIER_ARGS), params=runner.params)
+    tier = build_engine(parse_args(TIER_ARGS + TIER_HOST), runner=r2)
+    labels = _onboard_labels(tier)
+    a, fillers, a2, _ = _tier_prompts(runner.config.vocab_size)
+    V = runner.config.vocab_size
+    gen = torch.Generator(device="cpu").manual_seed(53)
+    n0, g0 = len(san.violations), san.counters["guarded_dispatches"]
+
+    async def collect(eng, prompt, rid):
+        finish = None
+        req = {"token_ids": prompt, "sampling": {"temperature": 0.0},
+               "stop": {"max_tokens": N_OUT, "stop_ids": []}}
+        async for item in eng.generate(req, Context(request_id=rid)):
+            finish = item.get("finish_reason") or finish
+        return finish
+
+    async def run():
+        done = asyncio.Event()
+
+        async def tiers():
+            try:
+                return [await collect(tier, p, f"beside_tier{i}")
+                        for i, p in enumerate([a, *fillers, a2])]
+            finally:
+                done.set()
+
+        async def decodes():
+            out, n = [], 0
+            while not done.is_set():
+                out += await asyncio.gather(*[
+                    collect(engine, torch.randint(0, V, (64,), generator=gen).tolist(),
+                            f"beside_decode{n}_{i}") for i in range(4)])
+                n += 1
+            return out
+
+        return await asyncio.gather(tiers(), decodes())
+
+    try:
+        t0 = time.monotonic()
+        tier_fin, decode_fin = _run(run())
+        seconds = time.monotonic() - t0
+        exported = r2.stats["kv_pages_exported"]
+    finally:
+        tier.stop()
+        free(r2)
+    guarded = san.counters["guarded_dispatches"] - g0
+    check(san.violations[n0:] == [] and guarded > 0 and "G2" in labels and exported > 0
+          and set(tier_fin) == {"length"} and set(decode_fin) == {"length"},
+          f"guard beside tiers: violations {san.violations[n0:]}, guarded {guarded}, "
+          f"onboards {labels}, offloaded pages {exported}, tier {tier_fin}, "
+          f"decodes {decode_fin}")
+    return {"guarded_dispatches": guarded, "decode_requests": len(decode_fin),
+            "tier_requests": len(tier_fin), "onboards": labels,
+            "offloaded_pages": exported, "seconds": seconds}
+
+
+def guard_phase(runner, dev):
+    """The sync guard in a warm 3B engine (a non-strict sanitizer, so a
+    violation is recorded and its step fails alone): the workload's
+    guarded decodes with no violation; guarded decodes beside a second
+    engine's G2 offloads and onboard with none (guard_beside_tiers); a
+    `.item()` planted inside the
+    guarded decode fails its request and is recorded against the decode;
+    the same sync in an allow_transfer("token_readback") scope passes; an
+    unknown label is a violation (strict: raised); a request with a
+    frequency penalty (count tables inside the decode) is reported as it
+    comes; and a kernel library that nvcc builds after warm-up is a
+    violation."""
+    from dynamo_tpu_torch.runtime.sanitizer import Sanitizer, SanitizerViolation
+
+    V = runner.config.vocab_size
+    gen = torch.Generator(device="cpu").manual_seed(41)
+    prompt = lambda n: torch.randint(0, V, (n,), generator=gen).tolist()  # noqa: E731
+    san = Sanitizer(strict=False, warmup_steps=4)
+    engine = build_engine(parse_args(ENGINE_ARGS), runner=runner, sanitizer=san)
+    rec = {}
+    try:
+        serve(engine, seed=1)
+        rep = san.report()
+        check(rep["ok"] and rep["warm"] and rep["counters"]["guarded_dispatches"] > 0,
+              f"guard: the workload under the guard: {rep}")
+        rec["workload"] = rep["counters"]
+        rec["beside_tiers"] = guard_beside_tiers(runner, engine, san)
+        zero = lambda r: torch.zeros(1, device=dev).sum().item()  # noqa: E731
+        undo = _planted(runner, "decode_multi_ex", zero)
+        try:
+            toks, finish, _ = _one(engine, prompt(40))
+        finally:
+            undo()
+        v = san.violations
+        check(finish == "error" and len(v) == 1 and v[0]["kind"] == "transfer"
+              and "decode" in v[0]["message"],
+              f"guard: the planted .item() finished {finish!r}, violations {v}")
+        rec["planted_item"] = v[0]["message"][:160]
+
+        def allowed(r):
+            with r._allow("token_readback"):
+                zero(r)
+
+        undo = _planted(runner, "decode_multi_ex", allowed)
+        try:
+            toks, finish, _ = _one(engine, prompt(40))
+        finally:
+            undo()
+        check(finish == "length" and len(toks) == 8 and len(san.violations) == 1,
+              f"guard: an allowed sync finished {finish!r}: {san.violations}")
+        with san.allow_transfer("not_a_label"):
+            pass
+        check(san.violations[-1]["kind"] == "allowlist",
+              f"guard: an unknown label: {san.violations[-1]}")
+        try:
+            with Sanitizer(strict=True).allow_transfer("not_a_label"):
+                pass
+            check(False, "guard: a strict unknown label did not raise")
+        except SanitizerViolation:
+            pass
+        # the penalties' count tables inside the decode: reported as they
+        # come (a sync here would be a finding for ROADMAP A.2)
+        n = len(san.violations)
+        toks, finish, err = _one(engine, prompt(40), frequency_penalty=0.5)
+        rec["finding_penalty_decode"] = {
+            "finish": finish, "violations": [x["message"][:200] for x in san.violations[n:]]}
+        # a kernel library rebuilt after warm-up (block_copy: the smallest)
+        n = len(san.violations)
+        lib = _build.library_path("block_copy")
+        moved = lib.with_name(lib.name + ".aside")
+        os.replace(lib, moved)
+        _build._libs.pop("block_copy")
+        try:
+            t0 = time.monotonic()
+            _build.load()
+            rec["rebuild_s"] = time.monotonic() - t0
+            san.note_step(runner)
+        finally:
+            moved.unlink(missing_ok=True)
+        check([x["kind"] for x in san.violations[n:]] == ["kernel_build"],
+              f"guard: the rebuild after warm-up: {san.violations[n:]}")
+    finally:
+        engine.stop()
+        runner.attach_sanitizer(None)
+    rec["violations"] = [x["kind"] for x in san.violations]
+    return rec
+
+
+def anomaly_phase(runner, smi):
+    """A planted stall: one decode iteration held twice the trigger's
+    threshold (at least 1 s) inside a warm 3B engine (recorder anomaly_k
+    ANOMALY_K, 16 samples a kind before it arms) fires exactly one
+    anomaly; its dump lands, and its profile
+    window (ANOMALY_PROFILE_MS, torch.profiler opened by the step thread)
+    writes a Chrome trace holding the engine's ranges and the GQA
+    kernels' names."""
+    root = tempfile.mkdtemp(prefix="chip_smoke_anomaly_")
+    args = ENGINE_ARGS + ["--anomaly-k", str(ANOMALY_K), "--anomaly-dump-dir", root,
+                          "--anomaly-profile-ms", str(ANOMALY_PROFILE_MS)]
+    engine = build_engine(parse_args(args), runner=runner)
+    fr = engine.recorder
+    fr.anomaly_min_samples = 16
+    V = runner.config.vocab_size
+    gen = torch.Generator(device="cpu").manual_seed(43)
+    try:
+        for _ in range(2):  # 32 decode iterations: the decode EWMA, armed
+            _one(engine, torch.randint(0, V, (64,), generator=gen).tolist(), 64)
+        # the stall: twice the trigger's threshold over the decode EWMA
+        # the warm-up left (at least 1 s)
+        stall_s = max(1.0, 2 * ANOMALY_K * fr.stats()["ewma_s"]["decode"])
+        stalled = [False]
+
+        def stall(r):
+            if not stalled[0]:
+                stalled[0] = True
+                time.sleep(stall_s)
+
+        undo = _planted(runner, "decode_multi_ex", stall)
+        try:
+            _one(engine, torch.randint(0, V, (64,), generator=gen).tolist(), 64)
+        finally:
+            undo()
+        # the dump thread asks the step thread for the window: keep the
+        # engine stepping until it is written
+        t0 = time.monotonic()
+        while fr.profiles_written < 1 and time.monotonic() - t0 < 60:
+            _one(engine, [1] * 64, max_tokens=32)
+    finally:
+        engine.stop()
+    trig = [r for r in fr.snapshot() if r.anomaly]
+    dumps = [f for f in os.listdir(root) if f.endswith(".json")]
+    check(fr.anomalies_fired == 1 and len(trig) == 1 and trig[0].wall_s >= stall_s
+          and dumps == [f"flight_dump_{trig[0].seq:08d}.json"],
+          f"anomaly: fired {fr.anomalies_fired}, triggers {trig}, dumps {dumps}, "
+          f"stall {stall_s} s, {fr.stats()}")
+    check(fr.profiles_written == 1, f"anomaly: {fr.stats()}")
+    events = json.load(open(fr.last_profile))["traceEvents"]
+    names = {e.get("name") for e in events}
+    ranges = sorted(n for n in names if n and n.startswith("engine."))
+    kernels = sorted({m.group(1) for n in names
+                      if n and (m := re.search(r"(\w+_kernel)\s*<", n))})
+    check(ranges and any("decode" in k or "ragged" in k for k in kernels),
+          f"anomaly: the profile window holds ranges {ranges}, kernels {kernels}")
+    rec = {"stall_s": stall_s, "trigger_kind": trig[0].kind, "trigger_wall_s": trig[0].wall_s,
+           "ewma_s": fr.stats()["ewma_s"], "profile": fr.last_profile,
+           "profile_ranges": ranges, "profile_kernels": kernels,
+           "profile_events": len(events)}
+    shutil.rmtree(root, ignore_errors=True)
+    return rec
+
+
+def _traced(engine):
+    """probe: every request carries a traceparent, so the engine rebuilds
+    its spans and the iteration records its trace ids."""
+    import secrets
+
+    gen = engine.generate
+
+    async def generate(req, ctx):
+        ctx.metadata.setdefault(
+            "traceparent", f"00-{secrets.token_hex(16)}-{secrets.token_hex(8)}-01")
+        async for item in gen(req, ctx):
+            yield item
+
+    engine.generate = generate
+
+
+def _decode_turn(engine, phase):
+    """COST_REQUESTS concurrent greedy requests of COST_PROMPT prompt and
+    COST_OUT output tokens through `engine` (their prefill batched, then
+    decode rows alone), with every launch count and runner.stats set to 0
+    just before and the launch identities held just after. Returns the
+    median decode rate a request, (output tokens - 1) / (e2e - TTFT)."""
+    runner = engine.runner
+    V = runner.config.vocab_size
+    gen = torch.Generator(device="cpu").manual_seed(47)
+    prompts = [torch.randint(0, V, (COST_PROMPT,), generator=gen).tolist()
+               for _ in range(COST_REQUESTS)]
+
+    async def one(i, p):
+        toks, phases = [], {}
+        req = {"token_ids": p, "sampling": {"temperature": 0.0},
+               "stop": {"max_tokens": COST_OUT, "stop_ids": []}}
+        async for item in engine.generate(req, Context(request_id=f"{phase}{i}")):
+            toks.extend(item["token_ids"])
+            if item.get("finish_reason"):
+                check(item["finish_reason"] == "length",
+                      f"{phase}: r{i} finished {item['finish_reason']!r}")
+                phases = item["phases"]
+        return (len(toks) - 1) / (phases["e2e_s"] - phases["ttft_s"])
+
+    async def run():
+        return await asyncio.gather(*[one(i, p) for i, p in enumerate(prompts)])
+
+    torch.cuda.synchronize()
+    reset_launches()
+    runner.reset_stats()
+    try:
+        rates = asyncio.run(asyncio.wait_for(run(), 300))
+    finally:
+        engine.stop()
+    torch.cuda.synchronize()
+    check_launches(phase, {name: fn.launches for name, fn in KERNELS.items()},
+                   dict(runner.stats), runner.config.n_layers)
+    return statistics.median(rates)
+
+
+class _TimedScope:
+    """A context manager whose enter and exit (not its body) add their
+    seconds to `acc` = [seconds, calls]."""
+
+    __slots__ = ("cm", "acc")
+
+    def __init__(self, cm, acc):
+        self.cm, self.acc = cm, acc
+
+    def __enter__(self):
+        t0 = time.perf_counter()
+        out = self.cm.__enter__()
+        self.acc[0] += time.perf_counter() - t0
+        self.acc[1] += 1
+        return out
+
+    def __exit__(self, *exc):
+        t0 = time.perf_counter()
+        out = self.cm.__exit__(*exc)
+        self.acc[0] += time.perf_counter() - t0
+        return out
+
+
+def _timed_scopes(factory, acc):
+    return lambda *a, **kw: _TimedScope(factory(*a, **kw), acc)
+
+
+def _timed_calls(fn, acc):
+    def timed(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            acc[0] += time.perf_counter() - t0
+            acc[1] += 1
+    return timed
+
+
+def _hook_timers(engine, hook):
+    """Time `hook`'s host work in `engine` where it runs (step thread):
+    the recorder's _record_iteration; the worker spans' emission; the
+    annotate ranges' enter and exit; the sanitizer's guard scopes, allow
+    scopes, note_step and the device gate's enter and exit. Also times
+    each iteration (_step_once calls that dispatched). Returns
+    ({part: [seconds, calls]}, the step accumulator, undo)."""
+    from dynamo_tpu_torch.engine import engine as engine_mod
+
+    parts, undo = {}, []
+
+    def patch(obj, name, wrap, part):
+        acc = parts.setdefault(part, [0.0, 0])
+        orig = getattr(obj, name)
+        setattr(obj, name, wrap(orig, acc))
+        undo.append(lambda: setattr(obj, name, orig))
+
+    if hook == "recorder":
+        patch(engine, "_record_iteration", _timed_calls, "record_iteration")
+    elif hook == "tracing":
+        patch(engine, "_emit_worker_spans", _timed_calls, "emit_worker_spans")
+    elif hook == "annotate":
+        patch(engine_mod, "annotate", _timed_scopes, "annotate")
+    elif hook == "sanitizer":
+        san = engine.sanitizer
+        patch(san, "transfer_scope", _timed_scopes, "transfer_scope")
+        patch(san, "allow_transfer", _timed_scopes, "allow_transfer")
+        patch(san, "note_step", _timed_calls, "note_step")
+        patch(engine_mod, "device_gate", _timed_scopes, "device_gate")
+    steps = [0.0, 0]
+    orig_step = engine._step_once
+
+    def step():
+        t0 = time.perf_counter()
+        idle = orig_step()
+        if not idle:
+            steps[0] += time.perf_counter() - t0
+            steps[1] += 1
+        return idle
+
+    engine._step_once = step
+    undo.append(lambda: setattr(engine, "_step_once", orig_step))
+    return parts, steps, lambda: [u() for u in reversed(undo)]
+
+
+def _per_call_us(fn, n=HOOK_CALLS):
+    """fn() run n times: microseconds a call."""
+    fn()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def hook_call_costs():
+    """Each hook's host work alone, HOOK_CALLS times on this thread (no
+    engine): a recorder append of one IterationRecord, one span into a
+    4096-span ring, an annotate range entered and left (ranges on), and
+    a warm sanitizer's guard scope with one allow scope inside, entered
+    through the armed device gate. Microseconds a call."""
+    from dynamo_tpu_torch.runtime import annotations as ann
+    from dynamo_tpu_torch.runtime import tracing
+    from dynamo_tpu_torch.runtime.flight_recorder import FlightRecorder, IterationRecord
+    from dynamo_tpu_torch.runtime.sanitizer import Sanitizer, device_gate
+
+    fr = FlightRecorder(capacity=4096)
+    n = [0]
+
+    def record():
+        n[0] += 1
+        fr.append(IterationRecord(
+            seq=n[0], ts=time.time(), wall_s=0.03, kind="decode", decode_seqs=8,
+            decode_steps=4, n_chunks=0, chunk_tokens=0, charged_tokens=0, ragged=False,
+            fused=True, n_waiting=0, n_running=8, kv_usage=0.1, g2_blocks=0, g3_blocks=0,
+            prefetch_hits=0, compile_variants=3, compile_calls=n[0]))
+
+    tracing.set_exporter(SpanRing(4096))
+    try:
+        tp = f"00-{'1' * 32}-{'2' * 16}-01"
+        span = _per_call_us(lambda: tracing.record_span(
+            "worker.stream", 0, 1000, parent=tp, attributes={"request.id": "r"}))
+    finally:
+        tracing.set_exporter(None)
+    os.environ["DYN_ENABLE_JAX_TRACE"] = "1"
+    ann._enabled.cache_clear()
+    try:
+        def rng():
+            with ann.annotate("engine.decode"):
+                pass
+        annotate_us = _per_call_us(rng)
+    finally:
+        os.environ.pop("DYN_ENABLE_JAX_TRACE", None)
+        ann._enabled.cache_clear()
+    san = Sanitizer(warmup_steps=0)
+    san.mark_warm()
+    try:
+        def guard():
+            with device_gate():
+                with san.transfer_scope("decode"):
+                    with san.allow_transfer("token_readback"):
+                        pass
+        guard_us = _per_call_us(guard)
+    finally:
+        san.disarm()
+    return {"calls": HOOK_CALLS, "recorder_append_us": _per_call_us(record),
+            "span_us": span, "annotate_us": annotate_us, "guard_scope_us": guard_us}
+
+
+def cost_pairs_phase(runner, smi):
+    """Each hook's cost to the decode rate a request, off and on in turns
+    OBS_COST_TURNS (off, on, on, off) over _decode_turn's batch
+    (its launch identities held in every turn): the recorder (size 0
+    against 4096), the span ring (off against DYN_TRACE_RING's ring,
+    every request traced), the profiler ranges (DYN_ENABLE_JAX_TRACE off
+    against on) and the sanitizer (off against armed). Prints each side's
+    decode rates, their median and their spread (max - min). The "on"
+    turns also time the hook's own host work where it runs
+    (_hook_timers): microseconds an iteration beside the iteration's own
+    milliseconds, a cost that host drift between turns does not blur;
+    hook_call_costs times each hook alone over HOOK_CALLS calls."""
+    from dynamo_tpu_torch.runtime import annotations as ann
+    from dynamo_tpu_torch.runtime import tracing
+    from dynamo_tpu_torch.runtime.sanitizer import Sanitizer
+
+    def turn(hook, on):
+        kw = {}
+        if hook == "recorder":
+            kw["recorder_size"] = 4096 if on else 0
+        elif hook == "tracing":
+            tracing.set_exporter(tracing.SpanRing(4096) if on else None)
+        elif hook == "annotate":
+            os.environ["DYN_ENABLE_JAX_TRACE"] = "1" if on else "0"
+            ann._enabled.cache_clear()
+        elif hook == "sanitizer":
+            kw["sanitizer"] = Sanitizer(warmup_steps=4) if on else None
+        try:
+            engine = build_engine(parse_args(ENGINE_ARGS), runner=runner, **kw)
+            if hook == "tracing":
+                _traced(engine)
+            parts, steps, undo = _hook_timers(engine, hook if on else None)
+            try:
+                rate = _decode_turn(engine, f"cost_{hook}_{'on' if on else 'off'}")
+            finally:
+                undo()
+            return rate, parts, steps
+        finally:
+            tracing.set_exporter(None)
+            os.environ.pop("DYN_ENABLE_JAX_TRACE", None)
+            ann._enabled.cache_clear()
+            runner.attach_sanitizer(None)
+
+    out = {}
+    for hook in ("recorder", "tracing", "annotate", "sanitizer"):
+        rates = {0: [], 1: []}
+        hook_s, step_s, iters, calls = 0.0, 0.0, 0, {}
+        for on in OBS_COST_TURNS:
+            rate, parts, steps = turn(hook, on)
+            rates[on].append(rate)
+            if on:
+                step_s += steps[0]
+                iters += steps[1]
+                for part, (sec, n) in parts.items():
+                    hook_s += sec
+                    calls[part] = calls.get(part, 0) + n
+        out[hook] = {
+            side: {"decode_tok_s_per_request": r, "median": statistics.median(r),
+                   "spread": max(r) - min(r)}
+            for side, r in (("off", rates[0]), ("on", rates[1]))}
+        spread = max(out[hook]["off"]["spread"], out[hook]["on"]["spread"])
+        share = hook_s / step_s
+        out[hook]["host_work"] = {
+            "iterations": iters, "calls": calls,
+            "us_per_iteration": hook_s / iters * 1e6,
+            "step_ms_per_iteration": step_s / iters * 1e3,
+            "share_of_step": share,
+            "spread_share_of_rate": spread / out[hook]["off"]["median"]}
+        check(share < HOOK_SHARE_MAX,
+              f"observability_costs: {hook} takes {share:.2%} of the step")
+    emit({"phase": "observability_costs", "model": runner.config.name,
+          "turns": OBS_COST_TURNS, "requests": COST_REQUESTS,
+          "prompt_tokens": COST_PROMPT, "output_tokens": COST_OUT, "nvidia_smi": smi,
+          **out, "per_call": hook_call_costs()})
+    return out
+
+
+def hw_profile_phase(runner, smi):
+    """`run_hw_sweep` at llama-3.2-3b's full width on the 3B's params:
+    variants kernel and ref x bf16 and int8 KV, batches 1/8/32 (each call
+    HW_DECODE_STEPS steps), prefill chunks 128/512, 3 timed calls each. The GQA kernels' launches equal
+    the kernel variants' passes x layers (the ref variants launch none),
+    the artifact reads back through load_profile / profile_fit, and each
+    variant's fitted lines and capacities are printed."""
+    from dynamo_tpu_torch.planner.hw_profile import (
+        load_profile, profile_fit, run_hw_sweep, save_profile)
+
+    L = runner.config.n_layers
+    reset_launches()
+    t0 = time.monotonic()
+    prof = run_hw_sweep("llama-3.2-3b", params=runner.params, batches=(1, 8, 32),
+                        prefill_chunks=(128, 512), kv_quants=(None, "int8"), iters=3,
+                        decode_steps=HW_DECODE_STEPS)
+    seconds = time.monotonic() - t0
+    launches = {name: KERNELS[name].launches for name in GQA_KERNELS}
+    kern = [v["passes"] for k, v in prof["variants"].items() if k.startswith("kernel")]
+    want = {"decode_paged_attention": sum(p["decode"] for p in kern) * L,
+            "prefill_paged_attention": sum(p["prefill"] for p in kern) * L,
+            "ragged_paged_attention": 0}
+    check(launches == want, f"hw_profile: launches {launches} != passes x {L} {want}")
+    path = os.path.join(tempfile.mkdtemp(prefix="chip_smoke_hw_"),
+                        "hw_profile_llama-3.2-3b.json")
+    save_profile(prof, path)
+    back = load_profile(path)
+    fits = {k: profile_fit(back, k) for k in back["variants"]}
+    check(set(fits) == {"kernel", "kernel+kv_int8", "ref", "ref+kv_int8"}
+          and back["device"] == torch.cuda.get_device_name(0)
+          and all(f["decode_capacity_tok_s"] > 0 for f in fits.values()),
+          f"hw_profile: the artifact read back: {back['device']}, {fits}")
+    emit({"phase": "hw_profile", "model": prof["model"], "device": prof["device"],
+          "nvidia_smi": smi, "seconds": seconds, "best_variant": prof["best_variant"],
+          "launches": launches, "fits": fits,
+          "points": {k: {"decode": v["decode"], "prefill": v["prefill"]}
+                     for k, v in prof["variants"].items()}})
+    shutil.rmtree(os.path.dirname(path), ignore_errors=True)
+    return launches
+
+
+def observability_engine_phase(runner, dev, smi):
+    """`observability_engine`, in process on the 3B runner: the sync
+    mode's catch list, the guard in an engine, the planted stall's anomaly
+    and profile window, and the hooks' costs."""
+    t0 = time.monotonic()
+    rec = {"phase": "observability_engine", "model": runner.config.name,
+           "nvidia_smi": smi, "sync_mode_catches": sync_mode_phase(dev)}
+    rec["guard"] = guard_phase(runner, dev)
+    rec["anomaly"] = anomaly_phase(runner, smi)
+    rec["seconds_checks"] = time.monotonic() - t0
+    emit(rec)
+    cost_pairs_phase(runner, smi)
+
+
+def tier_cost_feed(engine):
+    """The measured G2 price: after the G2 onboard, the engine's digest
+    carries kv_onboard_ewma; a FleetObserver ingests it, and a KvRouter
+    bound to the observer's onboard_costs prices that worker's G2 credit
+    from the measured seconds a block (its audit says "measured"), where
+    an unbound one uses the prior."""
+    from types import SimpleNamespace
+
+    from dynamo_tpu_torch.router.protocols import OverlapScores
+    from dynamo_tpu_torch.runtime.fleet_observer import DigestBuilder, FleetObserver
+
+    digest = DigestBuilder(7).build(engine=engine, period_s=1.0)
+    ewma = digest["kv"].get("onboard_ewma", {}).get("host")
+    check(ewma is not None and ewma["n"] > 0 and ewma["s_per_block"] > 0,
+          f"tier costs: the digest's kv block: {digest['kv']}")
+    obs = FleetObserver(None, window_s=60.0)
+    check(obs.ingest(digest), "tier costs: the observer refused the digest")
+    stub_rt = SimpleNamespace(event_subscriber=lambda subjects=None: None)
+    stub_client = SimpleNamespace(
+        instances={i: SimpleNamespace(instance_id=i, metadata={}) for i in (7, 8)},
+        router=SimpleNamespace(sick_instances=lambda: set()))
+
+    def credit(bound):
+        kv = KvRouter(stub_rt, stub_client, block_size=PAGE_SIZE, use_kv_events=False)
+        if bound:
+            kv.bind_tier_costs(obs.onboard_costs)
+        audit = []
+        kv.selector.select(kv.workers(), 64, OverlapScores(scores={}, total_blocks=64),
+                           kv.sequences, host_overlaps={(7, 0): 64},
+                           tier_costs=kv._tier_costs(), audit=audit)
+        return next(e for e in audit if e["worker"] == [7, 0])
+
+    measured, prior = credit(True), credit(False)
+    cfg = KvRouterConfig()
+    check(measured["credit_src"]["host"] == "measured"
+          and measured["host_credit_w"] == round(cfg.credit_fraction(ewma["s_per_block"]), 3)
+          and prior["credit_src"]["host"] == "prior"
+          and prior["host_credit_w"] == cfg.host_credit,
+          f"tier costs: bound {measured}, unbound {prior}")
+    return {"kv_onboard_ewma": ewma, "host_credit_measured": measured["host_credit_w"],
+            "host_credit_prior": prior["host_credit_w"],
+            "recompute_block_s": cfg.recompute_block_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -7292,7 +8268,11 @@ def main() -> int:
         for name in ("scatter_pages_layers", "tier_quantize", "tier_dequantize"):
             launches[name] = tier_launches[name]
         parity_phase(runner, dev)
-        # this slice's paths: sampling extras, guided decoding, branches
+        # this slice's paths: the sync guard, the anomaly trigger and its
+        # profile window, the hooks' costs, and the hardware sweep
+        observability_engine_phase(runner, dev, smi)
+        hw_profile_phase(runner, smi)
+        # earlier slices' paths: sampling extras, guided decoding, branches
         extras_phases(runner, smi)
         # multi-LoRA on the 3B's params: the padded path with adapters
         lora_phases(runner, dev, smi)

@@ -31,6 +31,16 @@ worker_common; a failed pull recomputes, and pulls stop once they
 measure slower than the prefill), and `prefetch` promotes the blocks a
 router's `kv_prefetch` hint names before the request arrives
 (kvbm/prefetch.py).
+Observability (runtime/): one `IterationRecord` a dispatched iteration
+goes into the flight recorder (`recorder`, `recorder_size` 0 turns it
+off; the anomaly trigger dumps and opens a profile window through
+`profiler`, the step thread's StepProfiler); `annotate` ranges mark each
+dispatch (engine.decode, engine.mixed, engine.prefill,
+engine.spec_verify); a request's `traceparent` yields worker.request and
+its queue / kv_onboard / prefill / stream spans at finish; and a
+`sanitizer` (or DYN_SAN) guards the warm decode and spec-verify
+dispatches with the sync guard, runs the shape tripwire after every
+iteration and audits the page pool at stop.
 Observers register on the step thread's hooks: `on_fpm` (one
 ForwardPassMetrics per iteration, per half of an unfused mixed one),
 `on_kv_event` (the device pool's and the host tier's store/remove events,
@@ -68,6 +78,7 @@ worker (as in the reference: the speculative verify cannot honor them).
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import hashlib
 import logging
 import os
@@ -111,7 +122,11 @@ from dynamo_tpu_torch.kvbm.object_store import FsBackend, ObjectKvPool
 from dynamo_tpu_torch.kvbm.prefetch import PrefetchManager
 from dynamo_tpu_torch.kvbm.quant import is_quantized_block
 from dynamo_tpu_torch.ops.ragged_paged_attention import RAGGED_MAX_SEGS
+from dynamo_tpu_torch.runtime import tracing
+from dynamo_tpu_torch.runtime.annotations import StepProfiler, annotate
 from dynamo_tpu_torch.runtime.context import Context
+from dynamo_tpu_torch.runtime.flight_recorder import FlightRecorder, IterationRecord
+from dynamo_tpu_torch.runtime.sanitizer import Sanitizer, device_gate, env_enabled
 
 log = logging.getLogger("dynamo_tpu_torch.engine")
 
@@ -135,6 +150,8 @@ REMOTE_PULL_BACKOFF_S = 30.0
 # 3B's: 3.8 GB), as many as the host tier holds pinned when it is built;
 # the blocks offloaded past it are pageable
 HOST_PINNED_BLOCKS = 2048
+
+_NULL = contextlib.nullcontext()
 
 # cached on a matcher whose schema exceeded the device table budget, so
 # the build (and its warning) happens once per matcher
@@ -272,6 +289,14 @@ class InferenceEngine:
         prefetch_pin_ttl_s: float = 5.0,  # a promoted block's pin lifetime
         tokenizer_spec: str = "byte",  # guided decoding lifts byte DFAs to
         #   token masks against this tokenizer (the frontend's)
+        recorder_size: int = 4096,  # flight-recorder ring (0 = off)
+        anomaly_k: float = 4.0,  # an iteration over EWMA * k fires a dump
+        anomaly_dump_dir: Optional[str] = None,  # None: count, don't dump
+        anomaly_dump_last_n: int = 256,  # records a dump writes
+        anomaly_profile_ms: int = 0,  # torch.profiler window a dump (0 = off)
+        sanitize: Optional[bool] = None,  # the runtime sanitizer (None:
+        #   DYN_SAN decides)
+        sanitizer: Optional[Sanitizer] = None,  # a prebuilt one (tests)
     ):
         self.runner = runner
         # fused mixed dispatch: on for a card, off for the CPU (the
@@ -437,6 +462,23 @@ class InferenceEngine:
         # set while a failed reload has left the weights a mix of old and
         # new leaves: every request is refused with it until one succeeds
         self.weights_error: Optional[str] = None
+        # the flight recorder, and the profile windows the step thread
+        # opens for it and for the worker's /profile route
+        self.profiler = StepProfiler()
+        self.recorder = FlightRecorder(
+            recorder_size, anomaly_k=anomaly_k, anomaly_dump_dir=anomaly_dump_dir,
+            anomaly_dump_last_n=anomaly_dump_last_n,
+            anomaly_profile_ms=anomaly_profile_ms)
+        self.recorder.profile_fn = self.profiler.request
+        self.iterations = 0  # dispatched iterations (one record each)
+        if sanitizer is None and (sanitize or (sanitize is None and env_enabled())):
+            sanitizer = Sanitizer()
+        self.sanitizer = sanitizer
+        if sanitizer is not None:
+            self._guided_lock = sanitizer.wrap_lock(self._guided_lock,
+                                                    "engine.guided_cache")
+            self._lifter_lock = sanitizer.wrap_lock(self._lifter_lock, "engine.lifter")
+            runner.attach_sanitizer(sanitizer)
 
     def start(self) -> None:
         if self._thread is None:
@@ -452,6 +494,18 @@ class InferenceEngine:
             self._thread = None
         if self.prefetch is not None:
             self.prefetch.stop()
+        self.profiler.close()
+        if self.sanitizer is not None:
+            self.sanitizer.disarm()
+            live = (len(self.scheduler.active) + len(self.scheduler.waiting)
+                    + len(self._kv_pending))
+            self.sanitizer.audit_pool(self.pool, live_seqs=live)
+
+    def _san_scope(self, where: str):
+        """The sync guard's scope for a steady-state dispatch (a shared
+        nullcontext without a sanitizer)."""
+        san = self.sanitizer
+        return _NULL if san is None else san.transfer_scope(where)
 
     async def update_weights(self, path: str) -> int:
         """Swap the served weights for the params snapshot at `path` on the
@@ -693,6 +747,11 @@ class InferenceEngine:
         if isinstance(upstream, dict):
             seq.phases.update({k: float(v) for k, v in upstream.items()
                                if isinstance(v, (int, float))})
+        # the hop this request arrived under: the worker's spans are
+        # rebuilt under it from the spine at finish
+        tp = context.metadata.get("traceparent")
+        if isinstance(tp, str):
+            seq.tp = tp
         # n > 1: fork after prefill (the trunk KV shared copy-on-write, so
         # n choices cost one prefill); disaggregated roles stream one
         if seq.disagg is None:
@@ -887,26 +946,50 @@ class InferenceEngine:
         loop.call_soon_threadsafe(_set_future, fut, value)
 
     def _loop_once(self) -> None:
+        # an armed sync guard is process-wide: device work of every step
+        # thread takes the gate, one iteration at a time (and the idle
+        # sleep outside it); a requested profiler window opens or closes
+        # at the iteration's edge
+        with device_gate():
+            self.profiler.tick()
+            idle = self._step_once()
+        if idle:
+            time.sleep(self.IDLE_SLEEP_S)
+
+    def _step_once(self) -> bool:
+        """One iteration: drain the inbox, plan, dispatch, publish and
+        record. Returns True when there is nothing to do (the caller
+        sleeps)."""
         self._drain_inbox()
         self._propose_drafts()
         plan = self.scheduler.step_plan()
         if plan is None:
-            if not self.scheduler.has_work():
-                time.sleep(self.IDLE_SLEEP_S)
-            return
+            return not self.scheduler.has_work()
         sch = self.scheduler
         self._plan_load = (
             sum(1 for s in sch.active if s.state == SeqState.RUNNING),
             len(sch.waiting), self.pool.usage())
         t0 = time.monotonic()
+        t_start, ts_wall = t0, time.time()
+        rst = self.runner.stats
+        ragged0 = rst["ragged_mixed_dispatches"] + rst["ragged_verify_dispatches"]
+        # the iteration's composition for its flight record; each branch
+        # fills in what it served
+        rinfo = {"decode_seqs": 0, "decode_steps": 0, "n_chunks": 0,
+                 "chunk_tokens": 0, "fused": False,
+                 "spec_rows": 0, "spec_emitted": 0}
+        dseqs = (plan.decode.seqs if isinstance(plan, MixedPlan)
+                 else [] if isinstance(plan, PrefillPlan) else plan.seqs)
+        rinfo["guided_rows"] = sum(1 for s in dseqs if s.guided_m is not None)
         decode_done = False
         try:
             if isinstance(plan, PrefillPlan):
-                self._run_prefill_inner(plan)
+                with annotate("engine.prefill"):
+                    self._run_prefill_inner(plan)
                 kind, n_tok = "prefill", len(plan.chunk)
+                rinfo.update(n_chunks=1, chunk_tokens=len(plan.chunk))
             elif isinstance(plan, MixedPlan):
                 fused = self._mixed_fusible(plan)
-                dseqs = plan.decode.seqs
                 # the decode half: verify rows (with the chunks when fused),
                 # else the fused dispatch, else plain decode first, so ITL
                 # never waits behind prompt processing. A verify that
@@ -915,14 +998,15 @@ class InferenceEngine:
                 drafted = sum(len(s.spec_draft) for s in dseqs)
                 if drafted:
                     chunk_logits = self._run_spec_verify(
-                        plan.decode, plan.prefills if fused else [])
+                        plan.decode, plan.prefills if fused else [], rinfo)
                 steps = 1
                 if chunk_logits is None:
                     drafted, steps = 0, plan.decode.n_steps
                     if fused:
                         chunk_logits = self._run_mixed_dispatch(plan)
                     else:
-                        self._run_decode_inner(plan.decode)
+                        self._run_decode(plan.decode)
+                rinfo.update(decode_seqs=len(dseqs), decode_steps=steps)
                 # decode tokens are emitted: from here on a failure only
                 # fails the prefill sequences
                 decode_done = True
@@ -931,23 +1015,29 @@ class InferenceEngine:
                     self._finish_packed_prefills(served, chunk_logits)
                     # one dispatch ran both halves: one "mixed" FPM
                     kind = "mixed"
-                    n_tok = (len(dseqs) * steps + drafted
-                             + sum(len(p.chunk) for p in served))
+                    n_chunk_tok = sum(len(p.chunk) for p in served)
+                    n_tok = len(dseqs) * steps + drafted + n_chunk_tok
+                    rinfo.update(n_chunks=len(served), chunk_tokens=n_chunk_tok,
+                                 fused=True)
                 else:
                     # the halves publish separately, so observers fitting
                     # per-kind step times keep clean samples
                     t1 = time.monotonic()
                     self._publish_fpm("decode", t1 - t0, len(dseqs) + drafted)
-                    for p in plan.prefills:
-                        self._run_prefill_inner(p)
+                    with annotate("engine.prefill_packed"):
+                        for p in plan.prefills:
+                            self._run_prefill_inner(p)
                     kind, t0 = "prefill", t1
                     n_tok = sum(len(p.chunk) for p in plan.prefills)
+                    rinfo.update(n_chunks=len(plan.prefills), chunk_tokens=n_tok)
             else:
                 drafted = sum(len(s.spec_draft) for s in plan.seqs)
-                if not drafted or self._run_spec_verify(plan, []) is None:
-                    drafted = 0
-                    self._run_decode_inner(plan)
+                steps = 1
+                if not drafted or self._run_spec_verify(plan, [], rinfo) is None:
+                    drafted, steps = 0, plan.n_steps
+                    self._run_decode(plan)
                 kind, n_tok = "decode", len(plan.seqs) + drafted
+                rinfo.update(decode_seqs=len(plan.seqs), decode_steps=steps)
         except Exception:
             # one bad step must fail ITS sequences, never kill the step
             # thread. A mixed step whose decode half already completed only
@@ -966,9 +1056,60 @@ class InferenceEngine:
                     self.scheduler.abort(seq.request_id)
                 except Exception:
                     log.exception("failed to fail sequence %s", seq.request_id)
-            return
+            return False
+        if self.sanitizer is not None:
+            # arms the sync guard and freezes the dispatch families after
+            # warm-up; growth past that is reported
+            self.sanitizer.note_step(self.runner)
         self._publish_fpm(kind, time.monotonic() - t0, n_tok)
         self._publish_kv_events()
+        rinfo["ragged"] = (rst["ragged_mixed_dispatches"]
+                           + rst["ragged_verify_dispatches"]) > ragged0
+        self._record_iteration(ts_wall, time.monotonic() - t_start,
+                               "mixed" if isinstance(plan, MixedPlan) else kind, rinfo)
+        return False
+
+    def _record_iteration(self, ts: float, wall: float, kind: str,
+                          rinfo: Dict[str, Any]) -> None:
+        """Assemble and append this iteration's flight record (step thread;
+        field reads only)."""
+        self.iterations += 1
+        rec = self.recorder
+        if not rec.enabled:
+            return
+        sch = self.scheduler
+        g2 = g3 = 0
+        if self.host_pool is not None:
+            g2 = len(self.host_pool.host)
+            if self.host_pool.disk is not None:
+                g3 = len(self.host_pool.disk)
+        variants = calls = 0
+        for fam in self.runner._families.values():
+            variants += fam.variants
+            calls += fam.calls
+        trace_ids: List[str] = []
+        if tracing.enabled():
+            # bounded join key: the traces this iteration served
+            for s in sch.active[:8]:
+                pctx = tracing.parse_traceparent(s.tp)
+                if pctx is not None and pctx.trace_id not in trace_ids:
+                    trace_ids.append(pctx.trace_id)
+        rec.append(IterationRecord(
+            seq=self._step_counter, ts=ts, wall_s=wall, kind=kind,
+            decode_seqs=rinfo["decode_seqs"], decode_steps=rinfo["decode_steps"],
+            n_chunks=rinfo["n_chunks"], chunk_tokens=rinfo["chunk_tokens"],
+            charged_tokens=rinfo["chunk_tokens"], ragged=rinfo["ragged"],
+            fused=rinfo["fused"], n_waiting=len(sch.waiting),
+            n_running=sum(1 for s in sch.active if s.state == SeqState.RUNNING),
+            kv_usage=self.pool.usage(), g2_blocks=g2, g3_blocks=g3,
+            prefetch_hits=(self.prefetch.stats["hits"]
+                           if self.prefetch is not None else 0),
+            compile_variants=variants, compile_calls=calls,
+            accepted_per_step=(rinfo["spec_emitted"] / rinfo["spec_rows"]
+                               if rinfo["spec_rows"] else 0.0),
+            guided_rows=rinfo["guided_rows"],
+            tree_hit_blocks=self.pool.match_hit_blocks, forks=self.pool.forks,
+            trace_ids=trace_ids))
 
     def _publish_fpm(self, kind: str, wall: float, n_tok: int) -> None:
         if kind in ("prefill", "mixed") and n_tok > 0:
@@ -1125,6 +1266,13 @@ class InferenceEngine:
                     log.exception("failed to fail sequence %s",
                                   pplan.seq.request_id)
 
+    def _run_decode(self, plan: DecodePlan) -> None:
+        """The steady-state decode dispatch: a profiler range and the
+        sync guard."""
+        with annotate("engine.decode"):
+            with self._san_scope("decode"):
+                self._run_decode_inner(plan)
+
     def _run_decode_inner(self, plan: DecodePlan) -> None:
         """plan.n_steps decode iterations with on-device token feedback (one
         host sync per plan), with the batch's guided masks, bias rows,
@@ -1256,9 +1404,10 @@ class InferenceEngine:
         prefills = list(plan.prefills)
         while True:
             try:
-                sampled, chunk_logits = self.runner.decode_multi_with_prefills(
-                    T, tokens, positions, tables, _sampling_params(seqs),
-                    step0, _chunks(prefills), **kw)
+                with annotate("engine.mixed"):
+                    sampled, chunk_logits = self.runner.decode_multi_with_prefills(
+                        T, tokens, positions, tables, _sampling_params(seqs),
+                        step0, _chunks(prefills), **kw)
                 break
             except BucketOverflowError as e:
                 if len(prefills) <= 1:
@@ -1339,7 +1488,7 @@ class InferenceEngine:
         return {s.request_id: drafts[slot][:int(n_prop[slot])].tolist()
                 for s in seqs for slot in (self._draft_slots[s.request_id],)}
 
-    def _run_spec_verify(self, dplan: DecodePlan, prefills):
+    def _run_spec_verify(self, dplan: DecodePlan, prefills, rinfo=None):
         """One ragged dispatch verifying every speculating row's draft (a
         K+1-token segment: the last real token and the draft) beside the
         plain decode rows and, when fused, the packed prefill chunks.
@@ -1357,7 +1506,9 @@ class InferenceEngine:
         released. A fork the pool cannot give sheds the row's remaining
         branches. Returns the chunks' last-token logits, or None when the
         runner cannot shape the dispatch (the drafts are dropped, every
-        fork released, and the caller runs the plain path)."""
+        fork released, and the caller runs the plain path). `rinfo`, the
+        iteration's flight-record composition, gets the speculating rows
+        and the tokens they emitted."""
         seqs = dplan.seqs
         drafts = [list(s.spec_draft) for s in seqs]
         trees = [list(s.spec_tree) for s in seqs]
@@ -1406,9 +1557,11 @@ class InferenceEngine:
             kw["biases"] = {i: brows[i] for i, s in enumerate(seqs) if s.logit_bias}
         kw["adapters"] = slots
         try:
-            rows, chunk_logits = self.runner.verify_spec(
-                tokens, positions, tables, drafts, sp, step0,
-                chunks=_chunks(prefills), **kw)
+            with annotate("engine.spec_verify"):
+                with self._san_scope("spec_verify"):
+                    rows, chunk_logits = self.runner.verify_spec(
+                        tokens, positions, tables, drafts, sp, step0,
+                        chunks=_chunks(prefills), **kw)
         except BucketOverflowError as e:
             for i in range(len(seqs)):
                 release_forks(i)  # nothing was committed to them
@@ -1451,6 +1604,9 @@ class InferenceEngine:
         st["spec_emitted"] += emitted_spec
         st["tree_rows"] += sum(len(r) for r in branch_rows)
         st["tree_switches"] += switches
+        if rinfo is not None:
+            rinfo["spec_rows"] = sum(1 for d in drafts[:len(seqs)] if d)
+            rinfo["spec_emitted"] = emitted_spec
         return chunk_logits
 
     def _next_step(self) -> int:
@@ -1919,6 +2075,12 @@ class InferenceEngine:
                 phases["e2e_s"] = max(0.0, time.monotonic() - seq.arrival)
             if seq.itl:
                 phases["itl_s"] = list(seq.itl)
+            pctx = tracing.parse_traceparent(seq.tp)
+            if pctx is not None:
+                # the trace id rides the spine, so digests join their
+                # aggregates back to traces
+                phases["trace_id"] = pctx.trace_id
+                self._emit_worker_spans(seq, phases, finish)
             item["phases"] = phases
             for cb in self._phase_listeners:
                 try:
@@ -1934,6 +2096,43 @@ class InferenceEngine:
             return
         out, loop = entry
         loop.call_soon_threadsafe(out.put_nowait, item)
+
+    def _emit_worker_spans(self, seq: Sequence, phases: Dict[str, Any],
+                           finish: str) -> None:
+        """The worker's spans, rebuilt at finish from the phase spine:
+        worker.request under the hop the request arrived with, and its
+        queue, kv_onboard (labelled with the tier), prefill and stream
+        children, cut back from now by the spine's durations and clamped
+        into the request's interval."""
+        if not tracing.enabled():
+            return
+        e2e = float(phases.get("e2e_s") or 0.0)
+        if e2e <= 0.0:
+            return
+        end_ns = time.time_ns()
+        t0 = end_ns - int(e2e * 1e9)
+        root = tracing.record_span(
+            "worker.request", t0, end_ns, parent=seq.tp,
+            attributes={"request.id": seq.request_id, "finish_reason": finish,
+                        "n_tokens": len(seq.tokens),
+                        "preemptions": seq.n_preemptions})
+        if root is None:
+            return
+        wtp = root.traceparent
+        qw = max(0.0, float(phases.get("queue_wait_s") or 0.0))
+        ob = max(0.0, float(phases.get("kv_onboard_s") or 0.0))
+        ttft = max(qw + ob, float(phases.get("ttft_s") or 0.0))
+        cut = [min(end_ns, t0 + int(x * 1e9)) for x in (qw, qw + ob, ttft)]
+        attrs = {"request.id": seq.request_id}
+        tracing.record_span("worker.queue", t0, cut[0], parent=wtp, attributes=attrs)
+        if ob > 0.0:
+            tracing.record_span("worker.kv_onboard", cut[0], cut[1], parent=wtp,
+                                attributes=dict(attrs, **{
+                                    "kv.tier": seq.onboard_tier or "G2"}))
+        tracing.record_span("worker.prefill", cut[1], cut[2], parent=wtp,
+                            attributes=attrs)
+        tracing.record_span("worker.stream", cut[2], end_ns, parent=wtp,
+                            attributes=dict(attrs, n_itl_samples=len(seq.itl)))
 
 
 def _set_future(fut: asyncio.Future, value) -> None:

@@ -49,6 +49,7 @@ place, leaf by leaf (requantized under `quantize`), and
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import time
@@ -91,6 +92,7 @@ from dynamo_tpu_torch.ops.block_copy import (
     scatter_pages_layers,
 )
 from dynamo_tpu_torch.ops.tier_codec import tier_dequantize, tier_quantize
+from dynamo_tpu_torch.runtime.sanitizer import tensor_rows
 from dynamo_tpu_torch.ops.ragged_paged_attention import (
     DEFAULT_Q_BLOCK,
     RAGGED_MAX_SEGS,
@@ -128,6 +130,25 @@ STAT_KEYS = (
     "draft_prefill_chunks",
     "draft_ring_steps",  # device n-gram ring proposals (draft_step calls)
 )
+
+
+_NULL = contextlib.nullcontext()
+
+
+class DispatchFamily:
+    """One dispatch kind's distinct bucket shapes and its dispatch count
+    (`variants` / `calls`: the names the reference's compile families
+    and the sanitizer's tripwire read)."""
+
+    __slots__ = ("shapes", "calls")
+
+    def __init__(self):
+        self.shapes: set = set()
+        self.calls = 0
+
+    @property
+    def variants(self) -> int:
+        return len(self.shapes)
 
 
 class BucketOverflowError(ValueError):
@@ -409,8 +430,11 @@ class ModelRunner:
         #   beside the base slot 0
         lora_rank: int = 8,  # the stacked tree's rank (adapters zero-padded)
         lora_targets: Optional[Sequence[str]] = None,  # None: DEFAULT_TARGETS
+        attn_impl: str = "kernel",  # forward's path: the kernels, or "ref"
+        #   (the plain PyTorch versions; the hardware sweep's A/B)
     ):
         self.config = config
+        self.attn_impl = attn_impl
         self.device = resolve_device(device)
         self.num_pages = num_pages
         self.page_size = page_size
@@ -503,6 +527,11 @@ class ModelRunner:
         self._draft_ring_shape = None  # (slots, window, delta capacity)
         self.stats: Dict[str, int] = {}
         self.reset_stats()
+        # the sanitizer (attach_sanitizer), the dispatch families (kind ->
+        # shapes seen, dispatches) and where each tensor was placed
+        self._sanitizer = None
+        self._families: Dict[str, DispatchFamily] = {}
+        self._placed = {name: (t.device, t.dtype) for name, t in self._layout_rows()}
         # the host tier's blocks (export_page_blocks): at most
         # `pinned_block_cap` of the host tensors handed out are pinned (set
         # by reserve_host_memory), the rest pageable; `_pinned_live` counts
@@ -523,12 +552,54 @@ class ModelRunner:
     def reset_stats(self) -> None:
         self.stats = {k: 0 for k in STAT_KEYS}
 
-    def _upload(self, *arrays) -> List[torch.Tensor]:
+    # -- observability -------------------------------------------------------
+    def attach_sanitizer(self, san) -> None:
+        """The engine's sanitizer: every sanctioned sync of a dispatch runs
+        inside its named allow scope."""
+        self._sanitizer = san
+
+    def _allow(self, label: str):
+        san = self._sanitizer
+        return _NULL if san is None else san.allow_transfer(label)
+
+    def _note_shape(self, kind: str, shape) -> None:
+        """Count a dispatch of family `kind` at `shape` (its buckets)."""
+        fam = self._families.get(kind)
+        if fam is None:
+            fam = self._families[kind] = DispatchFamily()
+        fam.shapes.add(shape)
+        fam.calls += 1
+
+    def compile_stats(self) -> Dict[str, Dict[str, int]]:
+        """{family: {"variants", "calls"}}: the distinct (kind, bucket)
+        shapes dispatched and the dispatches made, the counterpart of the
+        reference's compile-cache counters (the fleet digest's compile
+        block)."""
+        return {k: {"variants": f.variants, "calls": f.calls}
+                for k, f in self._families.items()}
+
+    def layout_table(self):
+        """(name, live tensor, (device, dtype) placed) for every param,
+        KV pool and adapter tensor: the sanitizer's layout check."""
+        placed = self._placed
+        for name, t in self._layout_rows():
+            yield name, t, placed.get(name, (t.device, t.dtype))
+
+    def _layout_rows(self):
+        yield from tensor_rows("params/", self.params)
+        yield from tensor_rows("k_pool/", self.k_pool)
+        yield from tensor_rows("v_pool/", self.v_pool)
+        if self.lora is not None:
+            yield from tensor_rows("lora/", self.lora)
+
+    def _upload(self, *arrays, label: str = "decode_staging") -> List[torch.Tensor]:
         """One host-to-device copy for a dispatch's int32 arrays; returns
-        device views with the arrays' shapes."""
+        device views with the arrays' shapes. The copy waits for the host
+        memory to be read, a sync the sanitizer allows under `label`."""
         arrays = [np.asarray(a, np.int32) for a in arrays]
         flat = np.concatenate([a.ravel() for a in arrays])
-        dev = torch.from_numpy(flat).to(self.device)
+        with self._allow(label):
+            dev = torch.from_numpy(flat).to(self.device)
         out, off = [], 0
         for a in arrays:
             out.append(dev[off:off + a.size].view(a.shape))
@@ -572,8 +643,9 @@ class ModelRunner:
             *self._adapter_ints([adapter], 1))
         logits = llama.forward(
             self.config, self.params, tok, pos, self.k_pool, self.v_pool,
-            pt, kvl, n - 1, **self._lora_kw(ad))
+            pt, kvl, n - 1, attn_impl=self.attn_impl, **self._lora_kw(ad))
         self.stats["prefill_chunks"] += 1
+        self._note_shape("prefill", (S,))
         return logits[0, 0]
 
     def decode(self, tokens: List[int], positions: List[int],
@@ -604,7 +676,8 @@ class ModelRunner:
             n_steps, tokens, positions, page_tables, sampling, step,
             masks=masks, biases=biases, mask_fn=mask_fn, guided_dev=guided_dev,
             adapters=adapters)
-        return toks.cpu().numpy()
+        with self._allow("token_readback"):
+            return toks.cpu().numpy()
 
     def decode_multi_ex(
         self,
@@ -633,10 +706,11 @@ class ModelRunner:
             n_logprobs=n_logprobs, histories=histories, prompt_lens=prompt_lens,
             masks=masks, biases=biases, mask_fn=mask_fn, guided_dev=guided_dev,
             adapters=adapters)
-        toks_h = toks.cpu().numpy()
-        if lp is None:
-            return toks_h, None
-        return toks_h, tuple(a.cpu().numpy() for a in lp)
+        with self._allow("token_readback"):
+            toks_h = toks.cpu().numpy()
+            if lp is None:
+                return toks_h, None
+            return toks_h, tuple(a.cpu().numpy() for a in lp)
 
     def _decode_dispatch(self, n_steps, tokens, positions, page_tables, sampling,
                          step, n_logprobs=-1, histories=None, prompt_lens=None,
@@ -667,6 +741,7 @@ class ModelRunner:
                   if histories is not None else None)
         if mask_fn is not None:
             mask_fn.B = B  # the callback's mask rows match the padded bucket
+        self._note_shape("decode", (B,))
         return self._decode_loop(
             n_steps, tok, pos0, pt, self._device_sampling(sampling, B), step,
             mask=self._plane(masks, B, True), bias=self._plane(biases, B, 0.0),
@@ -681,7 +756,8 @@ class ModelRunner:
             return None
         out = np.full((n, self.config.vocab_size), fill, rows.dtype)
         out[:rows.shape[0]] = rows
-        return torch.from_numpy(out).to(self.device)
+        with self._allow("decode_staging"):
+            return torch.from_numpy(out).to(self.device)
 
     def _count_tables(self, hist: torch.Tensor, plen: torch.Tensor):
         """The penalties' count tables [B, V] f32 from a history [B, H]
@@ -736,7 +812,8 @@ class ModelRunner:
             kvl = torch.where(pos0 < 0, 0, pos0 + t + 1).to(torch.int32)
             logits = llama.forward(
                 self.config, self.params, tok[:, None], pos[:, None],
-                self.k_pool, self.v_pool, pt, kvl, **self._lora_kw(adapter_idx),
+                self.k_pool, self.v_pool, pt, kvl, attn_impl=self.attn_impl,
+                **self._lora_kw(adapter_idx),
             )
             raw = logits[:, 0]
             lg = raw if counts is None else apply_penalties(raw, *counts, samp)
@@ -746,7 +823,12 @@ class ModelRunner:
                     gs = gtrans[gs, tok.long()].long()
                 m = gmask[gs]
             if mask_fn is not None:
-                m = torch.from_numpy(mask_fn(t, tok.cpu().numpy())).to(self.device)
+                # the guided host fallback: each step's tokens read back,
+                # its mask built on the host and staged
+                with self._allow("token_readback"):
+                    prev = tok.cpu().numpy()
+                with self._allow("decode_staging"):
+                    m = torch.from_numpy(mask_fn(t, prev)).to(self.device)
                 self.stats["guided_host_masks"] += 1
             s = sample(lg, samp, step + t, mask=m, bias=bias)
             if n_logprobs >= 0:
@@ -775,8 +857,9 @@ class ModelRunner:
             self._guided_dev_cache.move_to_end(key)
             return hit
         trans, mask, offsets = combine_tables(tables)
-        hit = (torch.from_numpy(trans).to(self.device),
-               torch.from_numpy(mask).to(self.device), offsets)
+        with self._allow("decode_staging"):
+            hit = (torch.from_numpy(trans).to(self.device),
+                   torch.from_numpy(mask).to(self.device), offsets)
         self._guided_dev_cache[key] = hit
         while len(self._guided_dev_cache) > 32:
             self._guided_dev_cache.popitem(last=False)
@@ -896,12 +979,14 @@ class ModelRunner:
         tok, pos0, pt = up[k:k + 3]
         logits = llama.forward(self.config, self.params, ptok, ppos,
                                self.k_pool, self.v_pool, ppt, pkvl, plast,
-                               **self._lora_kw(up[5:k]))
+                               attn_impl=self.attn_impl, **self._lora_kw(up[5:k]))
         self.stats["padded_prefill_dispatches"] += 1
+        self._note_shape("mixed_padded", (int(packed[0].shape[0]), int(packed[0].shape[1]), B))
         toks, _ = self._decode_loop(n_steps, tok, pos0, pt,
                                     self._device_sampling(sampling, B), step,
                                     adapter_idx=up[k + 3:])
-        return toks.cpu().numpy(), logits[:len(chunks), 0]
+        with self._allow("token_readback"):
+            return toks.cpu().numpy(), logits[:len(chunks), 0]
 
     def _prep_prefill_packed(self, chunks):
         """Host arrays of the padded [N, S] chunk batch: (tokens, positions
@@ -972,6 +1057,7 @@ class ModelRunner:
                 "tail_positions": _padded([p + 1 for p in positions], B, -1)},
             masks=masks, biases=biases)
         self.stats["ragged_mixed_dispatches"] += 1
+        self._note_shape("ragged", (len(flat), B))
         tok0 = _first_rows(sampled, B)  # decode rows lead the segment order
         if n_steps > 1:
             if mask_fn is not None:
@@ -990,7 +1076,8 @@ class ModelRunner:
             toks = torch.cat([tok0[:, None], rest], 1)
         else:
             toks = tok0[:, None]
-        return toks.cpu().numpy(), seg_logits[n_dec:n_dec + len(chunks)]
+        with self._allow("token_readback"):
+            return toks.cpu().numpy(), seg_logits[n_dec:n_dec + len(chunks)]
 
     def _ragged_step(
         self,
@@ -1008,6 +1095,7 @@ class ModelRunner:
         biases: Optional[np.ndarray] = None,  # [r, V] f32, sampled-row aligned
         tok_adapters: Optional[np.ndarray] = None,  # [T] LoRA slot a flat
         #   token (a LoRA runner's verify)
+        label: str = "decode_staging",  # the upload's allow scope
     ) -> Tuple[torch.Tensor, torch.Tensor, Dict[str, torch.Tensor]]:
         """The reference's `_ragged_step`: one forward over the flat
         [1, T] step with logits at the SEG gathered rows, then sampling of
@@ -1023,14 +1111,14 @@ class ModelRunner:
             host["row_seq"] = row_seq
         if tok_adapters is not None:
             host["tok_adapters"] = tok_adapters
-        views = dict(zip(host, self._upload(*host.values())))
+        views = dict(zip(host, self._upload(*host.values(), label=label)))
         lora_kw = ({} if tok_adapters is None else
                    {"lora": self.lora, "adapter_idx": views["tok_adapters"]})
         logits = llama.forward(
             self.config, self.params, views["flat"], views["positions"],
             self.k_pool, self.v_pool, last_index=views["gather"],
             ragged=(views["seg_page_table"], views["seg_kv_lens"],
-                    views["meta"]), **lora_kw)
+                    views["meta"]), attn_impl=self.attn_impl, **lora_kw)
         seg_logits = logits[0]
         base = self._device_sampling(sampling, seg_cap)
         if row_seq is None:
@@ -1152,9 +1240,12 @@ class ModelRunner:
                 row_biases[offs[i]] = b
         sampled, seg_logits, _ = self._ragged_step(
             flat, md, gather, sampling, step, row_seq=row_seq, row_j=row_j,
-            masks=row_masks, biases=row_biases, tok_adapters=tok_adapters)
+            masks=row_masks, biases=row_biases, tok_adapters=tok_adapters,
+            label="verify_staging")
         self.stats["ragged_verify_dispatches"] += 1
-        sampled_h = sampled.cpu().numpy()  # one bulk sync
+        self._note_shape("verify", (t_bucket,))
+        with self._allow("token_readback"):
+            sampled_h = sampled.cpu().numpy()  # one bulk sync
         out: List[np.ndarray] = []
         w = 0
         for ln in row_lens:
@@ -1178,7 +1269,8 @@ class ModelRunner:
         t0 = time.monotonic()
         read_snapshot_into(path, self.config, self.params, self.quantize)
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            with self._allow("weight_reload"):
+                torch.cuda.synchronize(self.device)
         log.info("reloaded params from %s in %.2fs", path, time.monotonic() - t0)
 
     def reset_kv_pools(self) -> None:
@@ -1233,7 +1325,9 @@ class ModelRunner:
         B = _next_bucket(self.decode_buckets, len(tokens))
         tok, pos, pt, *ad = self._upload(
             _padded(tokens, B, 0), _padded(positions, B, -1),
-            self._pad_page_table(page_tables, B), *self._adapter_ints(adapters, B))
+            self._pad_page_table(page_tables, B), *self._adapter_ints(adapters, B),
+            label="spec_staging")
+        self._note_shape("spec_decode", (B, n_rounds, gamma))
         toks, counts = spec_rounds(
             self.config, self.draft_config, gamma, n_rounds, self.params,
             self.draft_params, tok, pos, self.k_pool, self.v_pool,
@@ -1242,7 +1336,8 @@ class ModelRunner:
         self.stats["draft_steps"] += n_rounds * (gamma + 1)
         # gamma 0 verifies one token: an S = 1 forward on the decode kernel
         self.stats["spec_verify_passes" if gamma else "decode_steps"] += n_rounds
-        both = torch.cat([toks.reshape(B, -1), counts], 1).cpu().numpy()
+        with self._allow("token_readback"):
+            both = torch.cat([toks.reshape(B, -1), counts], 1).cpu().numpy()
         R = n_rounds
         return both[:, :R * (gamma + 1)].reshape(B, R, gamma + 1), both[:, R * (gamma + 1):]
 
@@ -1336,17 +1431,19 @@ class ModelRunner:
         if self._draft_ring_dirty:
             # restage from the mirror, which holds this step's deltas
             # already: the device step appends nothing
-            h, ln = self._upload(hist_h, lens_h)
+            h, ln = self._upload(hist_h, lens_h, label="spec_staging")
             ut = torch.full((slots, D), -1, dtype=torch.int32, device=self.device)
             un = torch.zeros(slots, dtype=torch.int32, device=self.device)
             self._draft_ring_dirty = False
         else:
             h, ln = self._draft_ring
-            ut, un = self._upload(upd_tok, upd_n)
+            ut, un = self._upload(upd_tok, upd_n, label="spec_staging")
         h, ln, drafts, n_prop = draft_ring_step(h, ln, ut, un, int(k))
         self._draft_ring = (h, ln)
         self.stats["draft_ring_steps"] += 1
-        both = torch.cat([drafts, n_prop[:, None]], 1).cpu().numpy()
+        self._note_shape("draft_ring", (slots, int(k)))
+        with self._allow("draft_readback"):
+            both = torch.cat([drafts, n_prop[:, None]], 1).cpu().numpy()
         return both[:, :-1], both[:, -1]
 
     # -- sampling ----------------------------------------------------------
@@ -1394,7 +1491,9 @@ class ModelRunner:
         for i, t in enumerate(token_lists):
             toks[i, :len(t)] = t
         tok, lens = self._upload(toks, _padded([len(t) for t in token_lists], B, 0))
-        return llama.encode(self.config, self.params, tok, lens)[:n].cpu().numpy()
+        vecs = llama.encode(self.config, self.params, tok, lens)[:n]
+        with self._allow("embed_readback"):
+            return vecs.cpu().numpy()
 
     def copy_pages(self, src: int, dst: int) -> None:
         """The page pool's fork-on-branch copy hook: page src's KV into
@@ -1421,16 +1520,17 @@ class ModelRunner:
         hit = self._sampling_cache.get(key)
         if hit is None:
             pad = B - n
-            hit = SamplingParams.make(
-                temperature=list(sampling["temperature"]) + [0.0] * pad,
-                top_k=list(sampling["top_k"]) + [0] * pad,
-                top_p=list(sampling["top_p"]) + [1.0] * pad,
-                seeds=list(sampling["seeds"]) + [0] * pad,
-                rep_penalty=list(pen["rep"]) + [1.0] * pad,
-                freq_penalty=list(pen["freq"]) + [0.0] * pad,
-                presence_penalty=list(pen["presence"]) + [0.0] * pad,
-                device=self.device,
-            )
+            with self._allow("sampling_staging"):
+                hit = SamplingParams.make(
+                    temperature=list(sampling["temperature"]) + [0.0] * pad,
+                    top_k=list(sampling["top_k"]) + [0] * pad,
+                    top_p=list(sampling["top_p"]) + [1.0] * pad,
+                    seeds=list(sampling["seeds"]) + [0] * pad,
+                    rep_penalty=list(pen["rep"]) + [1.0] * pad,
+                    freq_penalty=list(pen["freq"]) + [0.0] * pad,
+                    presence_penalty=list(pen["presence"]) + [0.0] * pad,
+                    device=self.device,
+                )
             if len(self._sampling_cache) >= 512:
                 self._sampling_cache.clear()
             self._sampling_cache[key] = hit
@@ -1461,7 +1561,9 @@ class ModelRunner:
         return [pool]
 
     def _dense_pages(self, pool, idx: torch.Tensor) -> torch.Tensor:
-        parts = [gather_pages(p, idx) for p in self._parts(pool)]
+        # the copy kernels read their page ids back once a call
+        with self._allow("kv_tier_io"):
+            parts = [gather_pages(p, idx) for p in self._parts(pool)]
         if is_quantized(pool):
             return kv_pool_dequantize({"q": parts[0], "s": parts[1][..., 0]},
                                       self.dtype)
@@ -1476,16 +1578,18 @@ class ModelRunner:
         return [d["q"], d["s"][..., None]]
 
     def _store_pages(self, pool, idx: torch.Tensor, dense: torch.Tensor) -> None:
-        for p, pages in zip(self._parts(pool), self._as_stored(pool, dense)):
-            scatter_pages(p, idx, pages)
+        with self._allow("kv_tier_io"):
+            for p, pages in zip(self._parts(pool), self._as_stored(pool, dense)):
+                scatter_pages(p, idx, pages)
 
     def _store_pages_layers(self, pool, idx: torch.Tensor, dense: torch.Tensor,
                             layer_off: torch.Tensor) -> None:
         """Layer-group scatter: dense [Lg, n, PS, Hk, D] pages into pool
         layers [layer_off, layer_off+Lg) at slots idx — the per-group unit
         of the streamed onboard."""
-        for p, pages in zip(self._parts(pool), self._as_stored(pool, dense)):
-            scatter_pages_layers(p, idx, pages, layer_off)
+        with self._allow("kv_tier_io"):
+            for p, pages in zip(self._parts(pool), self._as_stored(pool, dense)):
+                scatter_pages_layers(p, idx, pages, layer_off)
 
     def _staged(self, x: torch.Tensor) -> torch.Tensor:
         """Pages as the kernels take them: contiguous, on this device, in

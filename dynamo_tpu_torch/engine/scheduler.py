@@ -85,6 +85,9 @@ class Sequence:
     t_last_emit: float = 0.0  # monotonic time of the last token emission
     # deepest KV tier the admission onboard touched ("G2")
     onboard_tier: Optional[str] = None
+    # the traceparent of the hop this request arrived under: the engine
+    # rebuilds the worker's spans from the phase spine under it at finish
+    tp: Optional[str] = None
     # speculative decoding: draft tokens proposed for THIS iteration
     # (engine sets before step_plan; the scheduler trims them to the
     # mixed token budget; the engine consumes and clears after verify)

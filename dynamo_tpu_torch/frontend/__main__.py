@@ -10,9 +10,14 @@ model and serves HTTP:
 
 prints "frontend serving at http://HOST:PORT" once it listens, and on
 SIGTERM or SIGINT stops accepting, lets the requests in flight finish and
-exits 0. The status server, the SLO engine, planner actuation, the gRPC
-frontend, router replica sync, session affinity and SO_REUSEPORT workers
-are not ported yet.
+exits 0. `--status-port P` serves /live, /health, /metrics,
+/debug/traces (with DYN_TRACE_RING set), /debug/fleet (a FleetObserver
+over every worker's digest publisher, windowed by `--digest-window`
+seconds) and /debug/routing (`?rid=` one request's decisions, `?last_n=`),
+and binds the observer's measured onboard costs as the KV routers' tier
+prices; `--request-trace PATH` writes a JSONL record per request. The SLO
+engine, planner actuation, the gRPC frontend, router replica sync,
+session affinity and SO_REUSEPORT workers are not ported yet.
 """
 
 from __future__ import annotations
@@ -27,6 +32,11 @@ from dynamo_tpu_torch.frontend.service import ROUTER_MODES, ModelManager, ModelW
 from dynamo_tpu_torch.router.queue import AdmissionConfig
 from dynamo_tpu_torch.router.scheduling import KvRouterConfig
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+from dynamo_tpu_torch.runtime.event_plane import FLEET_DIGEST_SUBJECT
+from dynamo_tpu_torch.runtime.fleet_observer import FleetObserver, routing_debug_payload
+from dynamo_tpu_torch.runtime.logging_util import configure_logging
+from dynamo_tpu_torch.runtime.status import StatusServer
+from dynamo_tpu_torch.runtime.tasks import spawn_tracked
 
 log = logging.getLogger("dynamo_tpu_torch.frontend.cli")
 
@@ -63,7 +73,60 @@ def parse_args(argv=None):
                    help="mem | file (default: DYN_DISCOVERY_BACKEND or mem)")
     p.add_argument("--discovery-root", default=None,
                    help="file discovery: the shared directory of records")
+    p.add_argument("--request-trace", default=None,
+                   help="JSONL per-request trace path (also DYN_REQUEST_TRACE)")
+    p.add_argument("--status-port", type=int, default=0,
+                   help="serve /live /health /metrics /debug/fleet /debug/routing "
+                        "on this side port (0 = off); starts the fleet digest "
+                        "observer")
+    p.add_argument("--digest-window", type=float, default=60.0,
+                   help="fleet observer aggregation window in seconds")
     return p.parse_args(argv)
+
+
+async def start_fleet_status(runtime, manager: ModelManager, watcher: ModelWatcher,
+                             port: int, window_s: float):
+    """The frontend's status server: a FleetObserver subscribed to every
+    worker's digest publisher as it registers (and forgetting it when it
+    goes), bound as the KV routers' tier-cost source, with /debug/fleet
+    and /debug/routing. Returns (server, observer, watch task)."""
+    observer = FleetObserver(runtime.event_subscriber([FLEET_DIGEST_SUBJECT]),
+                             window_s=window_s)
+    await observer.start()
+    # the KV routers price the lower tiers by the workers' measured
+    # onboard seconds a block, the prior until a digest carries one
+    watcher.tier_cost_source = observer.onboard_costs
+
+    async def watch_digests() -> None:
+        async for ev in runtime.discovery.watch("services/"):
+            addr = (ev.instance.metadata or {}).get("digest_publisher")
+            if ev.kind == "put" and addr:
+                observer.connect_publisher(addr)
+            elif ev.kind == "delete":
+                # a dead worker's rows go now, not after the window ages
+                # them out
+                observer.forget_instance(ev.instance.instance_id)
+
+    # a watch that fails is logged, not silent
+    task = spawn_tracked(watch_digests(), name="fleet-digest-watch", logger=log)
+
+    def fleet_view(q):
+        win = q.get("window_s")
+        return observer.fleet(window_s=float(win) if win else None)
+
+    def routing_view(q):
+        try:
+            last_n = int(q.get("last_n", 64))
+        except ValueError:
+            last_n = 64
+        return routing_debug_payload(manager.routing_audits(), rid=q.get("rid"),
+                                     last_n=last_n)
+
+    status = StatusServer(runtime, port=port)
+    status.add_debug("fleet", fleet_view)
+    status.add_debug("routing", routing_view)
+    await status.start()
+    return status, observer, task
 
 
 async def async_main(args) -> None:
@@ -87,7 +150,14 @@ async def async_main(args) -> None:
         router_kv_events=not args.no_kv_events,
     )
     svc = HttpService(runtime, manager, watcher, host=args.http_host,
-                      port=args.http_port, busy_threshold=args.busy_threshold)
+                      port=args.http_port, busy_threshold=args.busy_threshold,
+                      trace_path=args.request_trace)
+    fleet = None
+    if args.status_port:
+        fleet = await start_fleet_status(runtime, manager, watcher, args.status_port,
+                                         args.digest_window)
+        print(f"status server at port {fleet[0].port} (/debug/fleet, /debug/routing)",
+              flush=True)
     url = await svc.start()
     print(f"frontend serving at {url}", flush=True)
     stop = asyncio.Event()
@@ -99,12 +169,16 @@ async def async_main(args) -> None:
         print("draining...", flush=True)
     finally:
         await svc.stop()
+        if fleet is not None:
+            status, observer, task = fleet
+            task.cancel()
+            await observer.stop()
+            await status.stop()
         await runtime.shutdown()
 
 
 def main(argv=None) -> None:
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    configure_logging()
     asyncio.run(async_main(parse_args(argv)))
 
 

@@ -22,8 +22,9 @@ its connection before its answer is complete kills the request and
 closes the chain's stream at once, which frees the worker's pages.
 Preprocessing runs inline (the reference offloads large prompts to a
 compute pool). Not ported: /v1/responses, the Anthropic routes, batch
-and files, realtime, the gRPC KServe frontend, the routing audit and
-SO_REUSEPORT workers.
+and files, realtime, the gRPC KServe frontend and SO_REUSEPORT workers.
+`trace_path` (or DYN_REQUEST_TRACE) writes each finished request's
+timeline as a JSONL record (frontend/request_trace.py `RequestTracer`).
 """
 
 from __future__ import annotations
@@ -38,7 +39,7 @@ import uuid
 from typing import Any, Dict, List, Optional, Tuple
 from urllib.parse import unquote
 
-from dynamo_tpu_torch.frontend.request_trace import RequestTiming
+from dynamo_tpu_torch.frontend.request_trace import RequestTiming, RequestTracer
 from dynamo_tpu_torch.frontend.service import ModelManager, ModelWatcher
 from dynamo_tpu_torch.frontend.tool_calls import parse_tool_calls
 from dynamo_tpu_torch.runtime.context import Context
@@ -275,8 +276,10 @@ class HttpService:
         host: str = "127.0.0.1",
         port: int = 8080,
         busy_threshold: int = 0,  # max in-flight requests per model (0 = off)
+        trace_path: Optional[str] = None,  # JSONL request trace (RequestTracer)
     ):
         self.runtime = runtime
+        self.tracer = RequestTracer(trace_path)
         self.manager = manager or ModelManager()
         self.watcher = watcher or ModelWatcher(runtime, self.manager)
         self.host = host
@@ -334,6 +337,7 @@ class HttpService:
         if self._server is not None:
             await self._server.wait_closed()
         await self.watcher.stop()
+        self.tracer.close()
 
     # -- connections -------------------------------------------------------
     async def _handle_conn(self, stream_reader: asyncio.StreamReader,
@@ -577,6 +581,8 @@ class HttpService:
         finally:
             for _ in range(n_choices):
                 self.inflight_dec(model)
+            if self.tracer.enabled:
+                self.tracer.record(**timing.fields(stream=stream))
             f = timing.fields()
             m.counter("frontend_requests_total", "completed requests", model=model,
                       finish=str(f["finish_reason"] or "none")).inc()

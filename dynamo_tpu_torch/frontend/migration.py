@@ -8,18 +8,28 @@ is sent again to a fresh worker with the tokens generated so far appended
 to its prompt, so generation resumes where it stopped, at most
 `migration_limit` times a request. The backoff before a retry is
 jittered deterministically from (request id, attempt). `migrations`
-counts the retries this operator made. The tracing spans and the tail
-marks are not ported (A.11); the phase accounting is.
+counts the retries this operator made.
+
+Every frontend request funnels through this operator, so it opens the
+serving pipeline's root span, `frontend.request` (continuing the
+caller's `traceparent`), re-points the request metadata at it, and adds
+a `first_token` event, a `migration` event per retry and the phase
+spine as `phase.*` events. A migrated request, an error finish or an
+SLO excursion (`DYN_TRACE_TAIL_TTFT_S` / `DYN_TRACE_TAIL_E2E_S`,
+seconds) tail-marks the trace so the span rings keep it whole, with a
+zero-length `trace.tail` span carrying the reason.
 """
 
 from __future__ import annotations
 
 import asyncio
 import logging
+import os
 import time
 import zlib
 from typing import Any, AsyncIterator, Dict
 
+from dynamo_tpu_torch.runtime import tracing
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.request_plane import RequestPlaneError
 
@@ -54,46 +64,65 @@ class Migration:
     async def generate(self, request: Dict[str, Any], context: Context) -> AsyncIterator[Any]:
         retries_left = self.migration_limit
         accumulated: list[int] = []  # tokens already delivered downstream
-        # the frontend's wait before dispatch, in the phase dict that rides
-        # the request plane to the worker
-        t_dispatch = time.monotonic()
-        ph = context.metadata.setdefault("phases", {})
-        ph["frontend_queue_s"] = max(0.0, t_dispatch - context.created_at)
-        while True:
-            try:
-                # a retry gets a fresh child context, so a stop on the dead
-                # stream does not poison it
-                attempt_ctx = context.child()
-                async for item in self.downstream.generate(request, attempt_ctx):
-                    accumulated.extend(item.get("token_ids") or [])
-                    if item.get("finish_reason"):
-                        self._finish_phases(item, t_dispatch,
-                                            attempts=self.migration_limit - retries_left)
-                    yield item
-                return
-            except RequestPlaneError as e:
-                if not is_migratable(e) or retries_left <= 0 or context.is_stopped:
-                    raise
-                retries_left -= 1
-                self.migrations += 1
-                attempts = self.migration_limit - retries_left
-                context.metadata["migration_attempt"] = attempts
-                ph["migration_attempts"] = attempts
-                request = self._replay_request(request, accumulated)
-                n_replayed = len(accumulated)
-                accumulated = []  # folded into the replayed prompt
-                log.warning("migrating request %s after %s (%d retries left, "
-                            "%d tokens replayed)", context.id, e.code, retries_left,
-                            n_replayed)
-                delay = self._backoff_s(context.id, attempts)
-                if delay > 0.0:
-                    # by the second attempt the dead instance is in its
-                    # failure cooldown and selection avoids it
-                    await asyncio.sleep(delay)
+        with tracing.span(
+                "frontend.request", parent=context.metadata.get("traceparent"), kind=2,
+                attributes={"request.id": context.id,
+                            "model": str(context.metadata.get("model") or "")}) as root:
+            tracing.child_traceparent(context.metadata, root)
+            # the frontend's wait before dispatch, in the phase dict that
+            # rides the request plane to the worker
+            t_dispatch = time.monotonic()
+            ph = context.metadata.setdefault("phases", {})
+            ph["frontend_queue_s"] = max(0.0, t_dispatch - context.created_at)
+            first_token_seen = False
+            while True:
+                try:
+                    # a retry gets a fresh child context, so a stop on the
+                    # dead stream does not poison it
+                    attempt_ctx = context.child()
+                    async for item in self.downstream.generate(request, attempt_ctx):
+                        accumulated.extend(item.get("token_ids") or [])
+                        if not first_token_seen and item.get("token_ids"):
+                            first_token_seen = True
+                            root.add_event("first_token", {
+                                "frontend_ttft_s": time.monotonic() - t_dispatch})
+                        if item.get("finish_reason"):
+                            self._finish_phases(
+                                item, root, t_dispatch,
+                                attempts=self.migration_limit - retries_left)
+                            self._maybe_tail(item, context)
+                        yield item
+                    return
+                except RequestPlaneError as e:
+                    if not is_migratable(e) or retries_left <= 0 or context.is_stopped:
+                        raise
+                    retries_left -= 1
+                    self.migrations += 1
+                    attempts = self.migration_limit - retries_left
+                    root.set_attribute("migration.attempts", attempts)
+                    context.metadata["migration_attempt"] = attempts
+                    ph["migration_attempts"] = attempts
+                    root.add_event("migration", {"attempt": attempts})
+                    # a migrated request is always kept: the tail mark on
+                    # the metadata's traceparent rides every retry hop
+                    tracing.mark_tail(context.metadata)
+                    request = self._replay_request(request, accumulated)
+                    n_replayed = len(accumulated)
+                    accumulated = []  # folded into the replayed prompt
+                    log.warning("migrating request %s after %s (%d retries left, "
+                                "%d tokens replayed)", context.id, e.code, retries_left,
+                                n_replayed)
+                    delay = self._backoff_s(context.id, attempts)
+                    if delay > 0.0:
+                        # by the second attempt the dead instance is in its
+                        # failure cooldown and selection avoids it
+                        await asyncio.sleep(delay)
 
     @staticmethod
-    def _finish_phases(item: Dict[str, Any], t_dispatch: float, attempts: int = 0) -> None:
-        """Fold the frontend's stamps into the final item's phases."""
+    def _finish_phases(item: Dict[str, Any], root, t_dispatch: float,
+                       attempts: int = 0) -> None:
+        """Fold the frontend's stamps into the final item's phases and
+        surface every scalar phase as an event on the root span."""
         phases = item.get("phases")
         if not isinstance(phases, dict):
             phases = {}
@@ -104,6 +133,41 @@ class Migration:
             # success
             phases["migration_attempts"] = attempts
             phases["migration_succeeded"] = 1
+        for key, val in phases.items():
+            if isinstance(val, (int, float)):
+                root.add_event(f"phase.{key}", {"seconds": float(val)})
+
+    @staticmethod
+    def _maybe_tail(item: Dict[str, Any], context: Context) -> None:
+        """Finish-time tail marking: migrated requests, error finishes and
+        SLO excursions survive sampling; a zero-length `trace.tail` span
+        carries the mark (the ring samples at read time, so late marking
+        keeps the whole trace)."""
+        phases = item.get("phases") or {}
+        reason = None
+        if phases.get("migration_attempts"):
+            reason = "migration"
+        elif item.get("finish_reason") == "error":
+            reason = "error"
+        else:
+            for env, key in (("DYN_TRACE_TAIL_TTFT_S", "ttft_s"),
+                             ("DYN_TRACE_TAIL_E2E_S", "e2e_s")):
+                raw = os.environ.get(env)
+                if not raw:
+                    continue
+                try:
+                    if float(phases.get(key) or 0.0) > float(raw):
+                        reason = f"{key}_excursion"
+                        break
+                except ValueError:
+                    continue
+        if reason is None:
+            return
+        tp = tracing.mark_tail(context.metadata)
+        if tp is not None:
+            now = time.time_ns()
+            tracing.record_span("trace.tail", now, now, parent=tp,
+                                attributes={"reason": reason, "request.id": context.id})
 
     @staticmethod
     def _replay_request(request: Dict[str, Any], accumulated: list[int]) -> Dict[str, Any]:

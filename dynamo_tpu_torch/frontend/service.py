@@ -23,6 +23,11 @@ only to prefill workers holding it (`_restrict_adapter_prefill`; with
 none, aggregated). An adapter a worker loads at run time reaches the
 watcher as a republished card; the entry goes when its last holder does.
 
+Observability: `ModelManager.routing_audits()` gathers every router's
+decision ring (the /debug/routing source), and a `tier_cost_source` the
+frontend binds (its FleetObserver's measured onboard costs) prices the
+lower KV tiers of every KV router the watcher builds.
+
 Not ported yet: session affinity, the encoder stage (A.12), the
 `kv-remote` and `device_aware` modes.
 """
@@ -101,6 +106,24 @@ class ModelManager:
     def list_models(self) -> list:
         return sorted(self.models)
 
+    def routing_audits(self) -> Dict[str, Any]:
+        """{label: RoutingAudit} across entries: the /debug/routing source.
+        Labels name the model and the router that recorded the decision."""
+        audits: Dict[str, Any] = {}
+        for name, entry in self.models.items():
+            if not entry.owns_client:
+                continue  # adapter entries share the base's client and sink
+            for label, obj in (
+                    (f"{name}/kv", getattr(entry.chain.sink, "router", None)),
+                    (f"{name}/push", getattr(entry.client, "router", None)),
+                    (f"{name}/prefill_kv", entry.prefill_kv_router),
+                    (f"{name}/prefill_push",
+                     getattr(entry.prefill_client, "router", None))):
+                audit = getattr(obj, "audit", None)
+                if audit is not None:
+                    audits[label] = audit
+        return audits
+
 
 class ModelWatcher:
     """Watches discovery; builds and tears down ModelEntries."""
@@ -132,11 +155,21 @@ class ModelWatcher:
         # prefill-role instances seen before their model's entry existed
         self._pending_prefill: Dict[str, list] = {}
         self._refused: Set[str] = set()  # models whose card was refused
+        # the measured onboard-cost source of the KV routers' tier pricing:
+        # () -> {worker: {tier: s_per_block}}, bound by the frontend once
+        # its FleetObserver exists (the routers read it late)
+        self.tier_cost_source = None
+
+    def _tier_costs(self):
+        src = self.tier_cost_source
+        return src() if src is not None else {}
 
     def _kv_router(self, card: ModelCard, client) -> KvRouter:
-        return KvRouter(self.runtime, client, block_size=card.kv_block_size,
-                        config=self.router_config, use_kv_events=self.router_kv_events,
-                        admission=self.admission_config)
+        router = KvRouter(self.runtime, client, block_size=card.kv_block_size,
+                          config=self.router_config, use_kv_events=self.router_kv_events,
+                          admission=self.admission_config)
+        router.bind_tier_costs(self._tier_costs)
+        return router
 
     def _build_chain(self, card: ModelCard, client, pre: Preprocessor):
         if self.router_mode == "kv":

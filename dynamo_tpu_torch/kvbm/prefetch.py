@@ -24,9 +24,12 @@ that arrives mid-promotion takes the synchronous onboard
 through the PagePool's register() dedup. Hits come from the PagePool's
 claim hook, lates from the synchronous onboard, cancels from the TTLs.
 
+A hint that carries the router's route-span `traceparent` gets each
+promotion as a `kv.prefetch.promote` span (G2->G1), rebuilt at promotion
+from the job's start, so promotions land in the request's trace.
+
 Not ported: the reference's hash-only branches (`_sim_runner`,
-`sim_block_bytes`), which serve its mocker workers (the port has none),
-and the promotion tracing spans (A.11).
+`sim_block_bytes`), which serve its mocker workers (the port has none).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional
 
 from dynamo_tpu_torch.engine.kv_pool import NoSpace
+from dynamo_tpu_torch.runtime import tracing
 
 from .quant import pair_nbytes
 
@@ -49,15 +53,17 @@ PROMOTED = "promoted"  # registered and pinned in the device pool
 
 
 class _Job:
-    __slots__ = ("h", "parent", "state", "t0", "deadline", "pin_deadline")
+    __slots__ = ("h", "parent", "state", "t0", "deadline", "pin_deadline", "tp")
 
-    def __init__(self, h: int, parent: Optional[int], t0: float, deadline: float):
+    def __init__(self, h: int, parent: Optional[int], t0: float, deadline: float,
+                 tp: Optional[str] = None):
         self.h = h
         self.parent = parent
         self.state = QUEUED
         self.t0 = t0
         self.deadline = deadline
         self.pin_deadline = 0.0
+        self.tp = tp  # the hinting route span's traceparent
 
 
 class PrefetchManager:
@@ -138,7 +144,7 @@ class PrefetchManager:
                 continue  # already warm or already being promoted
             parent = parents[i] if i < len(parents) else None
             parent = int(parent) if parent is not None else None
-            job = _Job(h, parent, now, now + self.hint_ttl_s)
+            job = _Job(h, parent, now, now + self.hint_ttl_s, hint.get("traceparent"))
             if h in self._reading:
                 # a TTL-expired job's read is still in flight: adopt it
                 # rather than queue a second read (pins are a set, so the
@@ -295,6 +301,14 @@ class PrefetchManager:
         self.stats["bytes_promoted_g2"] += nbytes
         self.stats["promote_latency_sum_s"] += now - job.t0
         self._m_bytes.inc(nbytes)
+        if job.tp is not None:
+            # a promotion spans engine ticks: its span is rebuilt now, under
+            # the route span that hinted it
+            end_ns = time.time_ns()
+            tracing.record_span(
+                "kv.prefetch.promote", end_ns - max(0, int((now - job.t0) * 1e9)),
+                end_ns, parent=job.tp,
+                attributes={"kv.block_hash": h, "kv.tier": "G2->G1", "kv.bytes": nbytes})
 
     # -- accounting hooks ----------------------------------------------------
     def _on_claim(self, h: int) -> None:

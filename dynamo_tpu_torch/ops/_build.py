@@ -99,6 +99,8 @@ SIGNATURES: Dict[str, Dict[str, tuple]] = {
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
 build_log: Dict[str, str] = {}  # source stem -> nvcc's output (ptxas -v)
+# libraries nvcc compiled in this process (the sanitizer's build tripwire)
+nvcc_builds = [0]
 
 
 def nvcc_path() -> str:
@@ -162,6 +164,7 @@ def load() -> Dict[str, ctypes.CDLL]:
                 tmp.unlink(missing_ok=True)
             else:
                 os.replace(tmp, out)
+                nvcc_builds[0] += 1
         if failed:
             raise RuntimeError("nvcc failed for " + "\n".join(failed))
         for stem in missing:

@@ -28,8 +28,16 @@ request whose context carries `allowed_instances` (a LoRA adapter
 entry's holders) is routed among those workers only, before cost-based
 selection (the reference's two-stage LoRA-filtered routing).
 
-Not ported yet: the router replica sync, the routing audit, the tracing
-spans and the fleet digest that feeds `bind_tier_costs` (A.11).
+Observability: every decision goes into the router's `RoutingAudit`
+with the selector's per-candidate cost breakdown (each lower tier's
+credit weight and whether it was measured or the prior), served at the
+frontend's /debug/routing; KvPushRouter opens a `route.kv` span around
+admission and selection, and the remote-pull and prefetch hints carry it
+so the worker's `kv.peer_pull` and `kv.prefetch.promote` join the trace.
+The frontend binds its FleetObserver's `onboard_costs` (the workers'
+measured `kv_onboard_ewma` from their fleet digests) as `tier_cost_fn`.
+
+Not ported yet: the router replica sync.
 """
 
 from __future__ import annotations
@@ -45,7 +53,9 @@ from dynamo_tpu_torch.router.protocols import KV_EVENT_SUBJECT, RouterEvent
 from dynamo_tpu_torch.router.queue import AdmissionConfig, AdmissionQueue
 from dynamo_tpu_torch.router.scheduling import KvRouterConfig, WorkerSelector
 from dynamo_tpu_torch.router.sequences import ActiveSequences
+from dynamo_tpu_torch.runtime import tracing
 from dynamo_tpu_torch.runtime.context import Context
+from dynamo_tpu_torch.runtime.fleet_observer import RoutingAudit
 from dynamo_tpu_torch.runtime.request_plane import PushRouter, RequestPlaneError
 from dynamo_tpu_torch.runtime.tasks import spawn_tracked
 from dynamo_tpu_torch.tokens.hashing import block_hashes, mm_content_seed, request_seed
@@ -103,6 +113,8 @@ class KvRouter:
         self.tier_cost_fn = None
         self._tier_costs_cache: Dict[Worker, Dict[str, float]] = {}
         self._tier_costs_at = 0.0
+        # routing decisions with their candidates' cost breakdowns
+        self.audit = RoutingAudit()
         # per-trunk (first block hash) popularity: a hot trunk is
         # replicated once onto a slice that holds none of it
         self.prefix_stats = {"replications": 0, "hot_trunks": 0}
@@ -246,7 +258,7 @@ class KvRouter:
         that instance's ranks; `allowed_instances` (the LoRA filter) to
         the replicas holding the adapter, before cost-based selection;
         `collect` receives the host and object overlaps (for the hints,
-        without a second walk)."""
+        without a second walk) and the candidates' cost breakdowns."""
         hashes = block_hashes(token_ids, self.block_size, request_seed(adapter, mm_seed))
         overlaps = self.indexer.index.find_matches(hashes)
         host_overlaps = self.indexer.host_index.find_matches(hashes).scores
@@ -276,11 +288,14 @@ class KvRouter:
                 healthy = [w for w in workers if w[0] not in sick]
                 if healthy:
                     workers = healthy
+        cand_audit: List[dict] = []
         worker, overlap = self.selector.select(
             workers, len(hashes), overlaps, self.sequences,
             host_overlaps=host_overlaps, tier_costs=self._tier_costs(),
             link_class=self._link_classes(workers, host_overlaps),
-            obj_overlaps=obj_overlaps)
+            obj_overlaps=obj_overlaps, audit=cand_audit)
+        if collect is not None:
+            collect["candidates"] = cand_audit
         return worker, overlap, hashes
 
     def _kv_path(self, endpoint: str) -> str:
@@ -505,44 +520,61 @@ class KvPushRouter:
     async def generate(self, request: Dict[str, Any], context: Context) -> AsyncIterator[Any]:
         t_route = time.monotonic()
         await self.router.start()
-        # parks here while every worker is saturated; raises queue_full /
-        # queue_timeout (HTTP 429) on rejection
-        await self.router.admission.acquire(request.get("priority"))
-        collect: Dict[str, Any] = {}
-        mm = request.get("mm")
-        mm_seed = mm_content_seed(mm["data"]) if mm else None
-        allowed = context.metadata.get("allowed_instances")
-        worker, overlap, hashes = self.router.find_best_match(
-            request.get("token_ids") or [], adapter=request.get("adapter"),
-            mm_seed=mm_seed, pinned_instance=context.metadata.get("target_instance"),
-            collect=collect,
-            allowed_instances=set(allowed) if allowed is not None else None)
-        host_overlaps = collect.get("host_overlaps")
-        # the hash chain's seed: the anchor of the hints' first parents
-        seed = request_seed(request.get("adapter"), mm_seed)
-        hint = self.router.remote_host_hint(hashes, worker, overlap, seed,
-                                            host_overlaps=host_overlaps)
-        if hint is not None:
-            request = dict(request)
-            request["kv_remote_host"] = hint
-        pf = self.router.prefetch_hint(hashes, worker, overlap, seed,
-                                       host_overlaps=host_overlaps, remote=hint)
-        if pf is not None:
-            self.router.emit_prefetch(worker[0], pf)
-        # count the trunk; replicate it onto a cold slice once it proves
-        # hot (fire and forget, off the request's path)
-        try:
-            self.router.maybe_replicate(hashes, seed, host_overlaps=host_overlaps)
-        except Exception:
-            log.debug("hot-trunk replication failed", exc_info=True)
-        rid = context.id
-        self.router.add_request(rid, worker, hashes, overlap)
-        context.metadata["kv_overlap_blocks"] = overlap
-        context.metadata["routed_instance"] = worker[0]
-        # the selection's cost (admission wait included), accumulated
-        # across migration retries; the metadata rides to the worker
-        ph = context.metadata.setdefault("phases", {})
-        ph["route_s"] = ph.get("route_s", 0.0) + (time.monotonic() - t_route)
+        # the route hop's span covers admission and selection; the direct
+        # rpc and the hinted pulls and promotions child off it
+        with tracing.span("route.kv", parent=context.metadata.get("traceparent")) as rspan:
+            # parks here while every worker is saturated; raises queue_full
+            # / queue_timeout (HTTP 429) on rejection
+            await self.router.admission.acquire(request.get("priority"))
+            collect: Dict[str, Any] = {}
+            mm = request.get("mm")
+            mm_seed = mm_content_seed(mm["data"]) if mm else None
+            allowed = context.metadata.get("allowed_instances")
+            worker, overlap, hashes = self.router.find_best_match(
+                request.get("token_ids") or [], adapter=request.get("adapter"),
+                mm_seed=mm_seed, pinned_instance=context.metadata.get("target_instance"),
+                collect=collect,
+                allowed_instances=set(allowed) if allowed is not None else None)
+            host_overlaps = collect.get("host_overlaps")
+            # the hash chain's seed: the anchor of the hints' first parents
+            seed = request_seed(request.get("adapter"), mm_seed)
+            rtp = getattr(rspan, "traceparent", None)
+            hint = self.router.remote_host_hint(hashes, worker, overlap, seed,
+                                                host_overlaps=host_overlaps)
+            if hint is not None:
+                if rtp:
+                    hint["traceparent"] = rtp
+                request = dict(request)
+                request["kv_remote_host"] = hint
+            pf = self.router.prefetch_hint(hashes, worker, overlap, seed,
+                                           host_overlaps=host_overlaps, remote=hint)
+            if pf is not None:
+                if rtp:
+                    pf["traceparent"] = rtp
+                self.router.emit_prefetch(worker[0], pf)
+            # count the trunk; replicate it onto a cold slice once it
+            # proves hot (fire and forget, off the request's path)
+            try:
+                self.router.maybe_replicate(hashes, seed, host_overlaps=host_overlaps)
+            except Exception:
+                log.debug("hot-trunk replication failed", exc_info=True)
+            rid = context.id
+            self.router.add_request(rid, worker, hashes, overlap)
+            context.metadata["kv_overlap_blocks"] = overlap
+            context.metadata["routed_instance"] = worker[0]
+            self.router.audit.record(
+                rid, "kv", worker, candidates=collect.get("candidates"),
+                overlap_blocks=overlap, total_blocks=len(hashes),
+                remote_hint=hint is not None, prefetch_hint=pf is not None)
+            # the selection's cost (admission wait included), accumulated
+            # across migration retries; the metadata rides to the worker
+            ph = context.metadata.setdefault("phases", {})
+            ph["route_s"] = ph.get("route_s", 0.0) + (time.monotonic() - t_route)
+            rspan.set_attribute("request.id", rid)
+            rspan.set_attribute("router.mode", "kv")
+            rspan.set_attribute("routed.instance", worker[0])
+            rspan.set_attribute("kv.overlap_blocks", overlap)
+            tracing.child_traceparent(context.metadata, rspan)
         first = True
         try:
             async for item in self.router.client.direct(request, worker[0], context):

@@ -13,9 +13,12 @@ softmax(-cost / temperature); temperature 0 is the argmin. The KV
 router passes the object-tier overlaps (`obj_overlaps`, from the workers'
 tier="obj" events), each candidate's link class to the best G2 holder
 (`link_class`, from `kv_slice` metadata) and, when a cost source is
-bound, measured onboard seconds a block (`tier_costs`; the fleet digest
-that feeds it waits for A.11), so a credit without a measurement is its
-constant prior. The routing audit is not ported.
+bound, measured onboard seconds a block (`tier_costs`: the frontend's
+FleetObserver `onboard_costs`, from the workers' fleet digests), so a
+credit without a measurement is its constant prior. With `audit`, each
+candidate's cost breakdown is appended (the routing audit's records:
+overlaps, credit weights and whether each lower tier's weight was
+measured or the prior, the cost, and which one was chosen).
 """
 
 from __future__ import annotations
@@ -81,6 +84,7 @@ class WorkerSelector:
         tier_costs: Optional[Dict[Worker, Dict[str, float]]] = None,
         link_class: Optional[Dict[Worker, str]] = None,
         obj_overlaps: Optional[Dict[Worker, int]] = None,
+        audit: Optional[List[dict]] = None,
     ) -> Tuple[Worker, int]:
         """Returns (worker, device overlap blocks). Raises if no workers.
 
@@ -104,15 +108,16 @@ class WorkerSelector:
             # as they are, cold legs at their prior credit's seconds
             if "host" in tc:
                 host_s = tc["host"]
-                host_w = cfg.credit_fraction(host_s)
+                host_w, host_src = cfg.credit_fraction(host_s), "measured"
             else:
                 host_s = cfg.prior_seconds(cfg.host_credit)
-                host_w = cfg.host_credit
+                host_w, host_src = cfg.host_credit, "prior"
             r_key = None
             if link is not None and f"remote_{link}" in tc:
                 r_key = f"remote_{link}"
             elif "remote" in tc:
                 r_key = "remote"
+            remote_src = "measured" if r_key is not None else "prior"
             if r_key is not None:
                 remote_leg_s = tc[r_key]
             else:
@@ -125,6 +130,7 @@ class WorkerSelector:
             remote_w = cfg.credit_fraction(remote_leg_s + host_s)
             obj_w = (cfg.credit_fraction(tc["obj"] + host_s) if "obj" in tc
                      else cfg.obj_credit)
+            obj_src = "measured" if "obj" in tc else "prior"
             credit = cfg.device_credit * dev + host_w * max(0, host - dev)
             # blocks a peer's lower tier holds can be pulled across workers
             credit += remote_w * max(0, cluster_host - max(dev, host))
@@ -134,6 +140,22 @@ class WorkerSelector:
             prefill = new_blocks + sequences.prefill_blocks(w)
             decode = sequences.decode_blocks(w)
             costs.append(cfg.prefill_load_scale * prefill + decode)
+            if audit is not None:
+                audit.append({
+                    "worker": list(w), "overlap_blocks": dev,
+                    "host_overlap_blocks": host,
+                    "obj_overlap_blocks": (obj_overlaps or {}).get(w, 0),
+                    "link_class": link, "credit": round(credit, 3),
+                    "host_credit_w": round(host_w, 3),
+                    "remote_credit_w": round(remote_w, 3),
+                    "obj_credit_w": round(obj_w, 3),
+                    "credit_src": {"host": host_src, "remote": remote_src,
+                                   "obj": obj_src},
+                    "new_blocks": round(new_blocks, 3),
+                    "prefill_blocks": round(prefill, 3),
+                    "decode_blocks": round(decode, 3),
+                    "cost": round(costs[-1], 3),
+                })
 
         if cfg.temperature <= 0.0:
             best = min(range(len(workers)), key=lambda i: (costs[i], workers[i]))
@@ -152,4 +174,7 @@ class WorkerSelector:
                     best = i
                     break
         w = workers[best]
+        if audit is not None:
+            for i, entry in enumerate(audit[-len(workers):]):
+                entry["chosen"] = i == best
         return w, overlaps.scores.get(w, 0)

@@ -1,4 +1,5 @@
-"""Event plane: pub/sub for KV events and forward-pass metrics (FPM).
+"""Event plane: pub/sub for KV events, forward-pass metrics (FPM) and the
+fleet digests.
 
 Port of dynamo_tpu/runtime/event_plane.py: the `EventPublisher` /
 `EventSubscriber` interface, the in-process bus, and in place of the
@@ -36,6 +37,8 @@ log = logging.getLogger("dynamo_tpu_torch.event_plane")
 # well-known subjects (the reference's router/protocols.py names)
 KV_EVENT_SUBJECT = "kv_events"
 FPM_SUBJECT = "fpm"
+# periodic per-worker observability digests (runtime/fleet_observer.py)
+FLEET_DIGEST_SUBJECT = "fleet_digest"
 
 
 class EventPublisher:

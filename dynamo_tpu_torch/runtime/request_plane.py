@@ -14,9 +14,12 @@ server answers a reference client and the other way round:
 Connections are MULTIPLEXED: many id-tagged request streams interleave on
 one TCP connection; a small per-address connection set fans out streams by
 least-streams-first, so hundreds of concurrent requests ride a handful of
-sockets. The native frame splitter, the NATS plane and the per-hop tracing
-spans are not ported yet; a `traceparent` in the request metadata rides
-the headers untouched.
+sockets. Each server hop opens an `rpc <endpoint>` span continuing the
+`traceparent` in the request metadata and re-points the metadata at it
+before the engine runs; PushRouter opens `route.push` around its pick and
+records the decision in its `RoutingAudit` (runtime/fleet_observer.py).
+The metadata rides the frame headers, so the hops of one request join
+one trace. The native frame splitter and the NATS plane are not ported.
 """
 
 from __future__ import annotations
@@ -28,7 +31,7 @@ import struct
 import time
 from typing import Any, AsyncIterator, Dict, Optional, Tuple
 
-from dynamo_tpu_torch.runtime import codec
+from dynamo_tpu_torch.runtime import codec, tracing
 from dynamo_tpu_torch.runtime.context import CancellationError, Context
 from dynamo_tpu_torch.runtime.engine import AsyncEngine
 from dynamo_tpu_torch.runtime.tasks import spawn_tracked
@@ -184,12 +187,25 @@ class PushEndpoint:
         ctx = Context.from_headers(frame.get("headers") or {})
         self._active[rid] = ctx
         conn_ctxs[rid] = ctx
-        stream = engine.generate(frame.get("payload"), ctx)
+        # the server hop's span continues the caller's trace and re-points
+        # the metadata, so the engine's own spans nest under this hop
+        attrs = {"rpc.endpoint": path, "request.id": rid}
         try:
-            async for item in stream:
-                if ctx.is_killed:
-                    raise CancellationError(rid)
-                await send({"t": "item", "id": rid, "data": item})
+            # metadata is wire input: a malformed value must not fail the
+            # request before the err-frame path is armed
+            attrs["migration.attempt"] = int(ctx.metadata["migration_attempt"])
+        except (KeyError, TypeError, ValueError):
+            pass
+        stream = None
+        try:
+            with tracing.span(f"rpc {path}", parent=ctx.metadata.get("traceparent"),
+                              kind=2, attributes=attrs) as sp:
+                tracing.child_traceparent(ctx.metadata, sp)
+                stream = engine.generate(frame.get("payload"), ctx)
+                async for item in stream:
+                    if ctx.is_killed:
+                        raise CancellationError(rid)
+                    await send({"t": "item", "id": rid, "data": item})
             await send({"t": "done", "id": rid})
         except CancellationError:
             try:
@@ -499,6 +515,12 @@ class PushRouter:
         self._rr = 0
         self._inflight: Dict[int, int] = {}  # instance_id -> outstanding reqs
         self._sick: Dict[int, float] = {}  # instance_id -> retry-after
+        # routing decisions, joinable to the phase spine by request id
+        # (imported here: fleet_observer imports the event plane, which
+        # imports this module)
+        from dynamo_tpu_torch.runtime.fleet_observer import RoutingAudit
+
+        self.audit = RoutingAudit()
 
     def update_instance(self, instance_id: int, address: Optional[str]) -> None:
         if address is None:
@@ -581,13 +603,30 @@ class PushRouter:
 
     async def generate(self, request: Any, context: Context) -> AsyncIterator[Any]:
         t_route = time.monotonic()
-        allowed = context.metadata.get("allowed_instances")
-        iid, addr = self._pick(context.metadata.get("target_instance"),
-                               set(allowed) if allowed is not None else None)
-        # report the choice so wrappers (session affinity) can pin to it
-        context.metadata["routed_instance"] = iid
-        ph = context.metadata.setdefault("phases", {})
-        ph["route_s"] = ph.get("route_s", 0.0) + (time.monotonic() - t_route)
+        # the route hop's span covers the pick and the audit; the rpc
+        # hop children off it
+        with tracing.span("route.push", parent=context.metadata.get("traceparent")) as rspan:
+            allowed = context.metadata.get("allowed_instances")
+            allowed = set(allowed) if allowed is not None else None
+            target = context.metadata.get("target_instance")
+            iid, addr = self._pick(target, allowed)
+            # report the choice so wrappers (session affinity) can pin to it
+            context.metadata["routed_instance"] = iid
+            ph = context.metadata.setdefault("phases", {})
+            ph["route_s"] = ph.get("route_s", 0.0) + (time.monotonic() - t_route)
+            sick = set(self._sick)
+            self.audit.record(
+                context.id, self.mode, iid,
+                candidates=[{"instance": i, "load": self.load_of(i), "weight": 1.0,
+                             "sick": i in sick, "chosen": i == iid}
+                            for i in sorted(self._instances if allowed is None
+                                            else (j for j in self._instances
+                                                  if j in allowed))],
+                pinned=target is not None)
+            rspan.set_attribute("request.id", context.id)
+            rspan.set_attribute("router.mode", str(self.mode))
+            rspan.set_attribute("routed.instance", iid)
+            tracing.child_traceparent(context.metadata, rspan)
         engine = RemoteEngine(self._pool, addr, self.endpoint_path)
         self._inflight[iid] = self._inflight.get(iid, 0) + 1
         try:

@@ -35,9 +35,17 @@ snapshot written if they were missing, and the log says which tier the
 weights came from ("fast restart: attached ...", "fast restart: loading
 params snapshot ..."). The rl endpoint's `update_weights` reloads a
 snapshot in place, and then unlinks the stage and refreshes the snapshot
-directory. The hub fetch (a --checkpoint that is not a local directory),
-the engine sidecar, multi-host groups, vision, the status server and the
-shadow failover are not ported yet.
+directory. Observability: `--status-port P` serves /live, /health,
+/metrics, /debug/timeline (the flight recorder, `--recorder-size`, 0 =
+off), /debug/traces (with DYN_TRACE_RING set), /debug/sanitizer
+(`--sanitize`) and /debug/engine (the runner's counters); the anomaly
+trigger (`--anomaly-k`, `--anomaly-dump-dir`, `--anomaly-dump-last-n`,
+`--anomaly-profile-ms`) dumps the ring and opens a torch.profiler window;
+`--profiler-port P` serves GET /profile?ms=N (a torch.profiler window of
+N ms, CPU + CUDA, written as a Chrome trace; the answer is its path);
+`--digest-period` publishes fleet digests (0 = off). The hub fetch (a
+--checkpoint that is not a local directory), the engine sidecar,
+multi-host groups, vision and the shadow failover are not ported yet.
 """
 
 from __future__ import annotations
@@ -60,10 +68,14 @@ from dynamo_tpu_torch.engine import shm_weights
 from dynamo_tpu_torch.engine import weights
 from dynamo_tpu_torch.engine.engine import InferenceEngine
 from dynamo_tpu_torch.engine.model_runner import ModelRunner
+from dynamo_tpu_torch.frontend.http import Response, json_response
 from dynamo_tpu_torch.frontend.protocols import ModelCard
 from dynamo_tpu_torch.models import lora as lora_mod
 from dynamo_tpu_torch.models.config import ModelConfig, get_config
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
+from dynamo_tpu_torch.runtime.flight_recorder import to_chrome_trace
+from dynamo_tpu_torch.runtime.logging_util import configure_logging
+from dynamo_tpu_torch.runtime.status import StatusServer
 from dynamo_tpu_torch.worker_common import serve_worker
 
 log = logging.getLogger("dynamo_tpu_torch.worker")
@@ -193,6 +205,33 @@ def parse_args(argv=None):
     p.add_argument("--disagg-chunk-pages", type=int, default=16,
                    help="decode role: P->D KV pull chunk size in pages "
                         "(0 = single message)")
+    # observability
+    p.add_argument("--profiler-port", type=int, default=0,
+                   help="serve GET /profile?ms=N on this port: a torch.profiler "
+                        "window written as a Chrome trace (0 = off); pair with "
+                        "DYN_ENABLE_JAX_TRACE=1 for the engine's ranges outside "
+                        "windows")
+    p.add_argument("--status-port", type=int, default=0,
+                   help="serve /live /health /metrics /debug/* on this port (0 = off)")
+    p.add_argument("--digest-period", type=float, default=2.0,
+                   help="fleet digest publish period in seconds (0 = off)")
+    p.add_argument("--recorder-size", type=int, default=4096,
+                   help="flight-recorder ring capacity in iterations (0 = off)")
+    p.add_argument("--anomaly-k", type=float, default=4.0,
+                   help="iteration wall time > EWMA*k fires the anomaly trigger "
+                        "(dump + optional profile window)")
+    p.add_argument("--anomaly-dump-dir", default=None,
+                   help="directory for anomaly ring dumps (unset = no dumps)")
+    p.add_argument("--anomaly-dump-last-n", type=int, default=256,
+                   help="ring records written per anomaly dump")
+    p.add_argument("--anomaly-profile-ms", type=int, default=0,
+                   help="torch.profiler window on anomaly, in ms (0 = off; "
+                        "traces land under the dump dir)")
+    p.add_argument("--sanitize", action="store_true",
+                   help="arm the runtime sanitizer: the sync guard around "
+                        "steady-state dispatches, the shape tripwire, the "
+                        "lock-order recorder and the pool audit (DYN_SAN=1 is "
+                        "the env equivalent)")
     return p.parse_args(argv)
 
 
@@ -471,6 +510,12 @@ def build_engine(args, runner=None, **engine_kw) -> InferenceEngine:
         prefetch_hint_ttl_s=args.prefetch_hint_ttl_s,
         prefetch_pin_ttl_s=args.prefetch_pin_ttl_s,
         tokenizer_spec=args.tokenizer,
+        recorder_size=args.recorder_size,
+        anomaly_k=args.anomaly_k,
+        anomaly_dump_dir=args.anomaly_dump_dir,
+        anomaly_dump_last_n=args.anomaly_dump_last_n,
+        anomaly_profile_ms=args.anomaly_profile_ms,
+        sanitize=True if args.sanitize else None,
     )
     kw.update(engine_kw)
     engine = InferenceEngine(runner, **kw)
@@ -497,7 +542,66 @@ async def serve_args(runtime, engine, args, **kw):
         runtime, engine, model_card(args, engine.runner.config,
                                     getattr(engine.runner, "adapter_names", None)),
         namespace=args.namespace, component=args.component, endpoint=args.endpoint,
-        disagg_role=args.disagg_role, disagg_chunk_pages=args.disagg_chunk_pages, **kw)
+        disagg_role=args.disagg_role, disagg_chunk_pages=args.disagg_chunk_pages,
+        digest_period_s=args.digest_period, **kw)
+
+
+def engine_debug(engine, instance_id: Optional[int] = None,
+                 digest_pub=None) -> Dict[str, Any]:
+    """GET /debug/engine: the serving instance, the runner's counters, the
+    dispatched iterations, the recorder's and profiler's counters (what
+    /debug/timeline's records add up to) and every hook's failures."""
+    rec = engine.recorder
+    failures = {f"recorder_{k}": n for k, n in rec.failures.items()}
+    failures["profile_window"] = engine.profiler.failed
+    if digest_pub is not None:
+        failures["digest_publish"] = digest_pub.publish_failures
+        failures["digest_probe"] = digest_pub.builder.probe_failures
+    return {"instance": instance_id, "stats": dict(engine.runner.stats),
+            "iterations": engine.iterations,
+            "families": engine.runner.compile_stats(),
+            "recorder": rec.stats(),
+            "profiles": {"opened": engine.profiler.opened,
+                         "written": engine.profiler.written,
+                         "anomaly": rec.profiles_written},
+            "digest": None if digest_pub is None else {
+                "published": digest_pub.published, "period_s": digest_pub.period_s},
+            "hook_failures": failures}
+
+
+async def start_status(runtime, engine, port: int) -> StatusServer:
+    """The worker's status server: health, metrics, the flight recorder's
+    timeline, the sanitizer's report and the engine's counters."""
+    status = StatusServer(runtime, port=port)
+    status.add_check("engine", lambda: engine._thread is not None)
+    rec = engine.recorder
+    if rec.enabled:
+        status.add_timeline(lambda last_n=None: to_chrome_trace(rec.snapshot(last_n)))
+    if engine.sanitizer is not None:
+        status.add_debug("sanitizer", lambda _q: engine.sanitizer.report())
+    status.add_debug("engine", lambda _q: engine_debug(engine))
+    await status.start()
+    return status
+
+
+async def start_profiler(runtime, engine, port: int, out_dir: str) -> StatusServer:
+    """GET /profile?ms=N on `port`: a torch.profiler window of N ms (CPU +
+    CUDA activity) opened and closed by the engine's step thread, written
+    as a Chrome trace under `out_dir`; the answer names its path."""
+    server = StatusServer(runtime, port=port)
+
+    async def profile(query) -> Response:
+        try:
+            ms = int(query.get("ms", 1000))
+        except ValueError:
+            return json_response({"error": "ms must be an integer"}, status=400)
+        fut = engine.profiler.request(ms, out_dir)
+        path = await asyncio.wrap_future(fut)
+        return json_response({"trace": path, "ms": ms})
+
+    server.add_route("/profile", profile)
+    await server.start()
+    return server
 
 
 async def async_main(args) -> None:
@@ -508,7 +612,22 @@ async def async_main(args) -> None:
                                  request_plane=args.request_plane, **kw)
     # weight draw and pool allocation: off the loop
     engine = await asyncio.to_thread(build_engine, args)
+    servers = []
+    if args.status_port:
+        status = await start_status(runtime, engine, args.status_port)
+        servers.append(status)
+        print(f"status server at port {status.port}", flush=True)
+    if args.profiler_port:
+        out_dir = os.path.join(args.anomaly_dump_dir or tempfile.gettempdir(),
+                               "profiles")
+        prof = await start_profiler(runtime, engine, args.profiler_port, out_dir)
+        servers.append(prof)
+        print(f"profiler at port {prof.port}", flush=True)
     worker = await serve_args(runtime, engine, args)
+    if args.status_port:
+        iid = worker.instance.instance_id
+        servers[0].add_debug("engine", lambda _q: engine_debug(engine, iid,
+                                                               worker.digest_pub))
     path = f"{args.namespace}/{args.component}/{args.endpoint}"
     print(f"worker serving {worker.instance.metadata['model_card']['name']} at "
           f"{path} ({worker.instance.address})", flush=True)
@@ -524,11 +643,12 @@ async def async_main(args) -> None:
         # in-flight requests finish, then stop the engine
         await runtime.shutdown()
         await worker.stop()
+        for server in servers:
+            await server.stop()
 
 
 def main(argv=None) -> None:
-    logging.basicConfig(level=logging.INFO,
-                        format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+    configure_logging()
     asyncio.run(async_main(parse_args(argv)))
 
 

@@ -21,7 +21,13 @@ a PEFT directory or random factors from a seed, zero-padded to the
 tree's rank; the card republished so the frontend routes the adapter to
 this worker) and `update_weights` (the engine reloads a params snapshot
 and flushes its KV state; the reply carries the new weights_version).
-The fleet digest and the shadow server are not ported yet.
+Observability: the fleet digest (`digest_period_s` > 0: a
+DigestPublisher on the event plane, advertised as `digest_publisher`
+metadata), the latency spine and the dispatch families
+(`dynamo_compile_variants{family}`) on the runtime's metrics, the flight
+recorder's anomaly counter (advertised as `flight_recorder`), and the
+remote-G2 pull as a `kv.peer_pull` span under the router's route span.
+The shadow server is not ported yet.
 """
 
 from __future__ import annotations
@@ -39,8 +45,10 @@ from dynamo_tpu_torch.models import lora as lora_mod
 from dynamo_tpu_torch.router.protocols import FPM_SUBJECT
 from dynamo_tpu_torch.router.publisher import KvEventPublisher
 from dynamo_tpu_torch.runtime.component import Instance, new_instance_id
+from dynamo_tpu_torch.runtime import tracing
 from dynamo_tpu_torch.runtime.context import Context
 from dynamo_tpu_torch.runtime.engine import FnEngine
+from dynamo_tpu_torch.runtime.fleet_observer import DigestBuilder, DigestPublisher
 from dynamo_tpu_torch.runtime.tasks import spawn_tracked
 
 log = logging.getLogger("dynamo_tpu_torch.worker")
@@ -243,16 +251,20 @@ class ServedWorker:
     KV event publisher and the generate handler (the disagg adapter)."""
 
     def __init__(self, runtime, engine, instance: Instance, publisher,
-                 handler: DisaggDecodeAdapter, fetch_clients=None):
+                 handler: DisaggDecodeAdapter, fetch_clients=None, digest_pub=None):
         self.runtime = runtime
         self.engine = engine
         self.instance = instance
         self.publisher = publisher
         self.handler = handler
         self._fetch_clients = fetch_clients if fetch_clients is not None else {}
+        self.digest_pub = digest_pub
 
     async def stop(self) -> None:
-        """Stop the engine and what serves it (after the runtime drained)."""
+        """Stop the engine and what serves it (after the runtime drained);
+        the digest publisher flushes its last window first."""
+        if self.digest_pub is not None:
+            await self.digest_pub.stop()
         self.engine.stop()
         if self.publisher is not None:
             await self.publisher.stop()
@@ -273,6 +285,7 @@ async def serve_worker(
     publish_fpm: bool = True,
     disagg_role: Optional[str] = None,  # None/"both" | "prefill" | "decode"
     disagg_chunk_pages: int = 16,  # P->D pull chunk size (0 = monolithic)
+    digest_period_s: float = 2.0,  # fleet digest publish period (0 = off)
     colocated: bool = True,  # enter LOCAL_ENGINES: same-process pulls of
     #   this instance's parked KV stay on the device
 ) -> ServedWorker:
@@ -333,6 +346,42 @@ async def serve_worker(
 
     engine.on_phases(observe_phases)
 
+    # the dispatch families (kind, bucket shapes) as the reference's
+    # compile gauges, refreshed after each iteration's FPM; the port
+    # compiles nothing per shape, so compile_seconds_total stays 0
+    def update_compile_gauges(_m=None) -> None:
+        for fam, st in engine.runner.compile_stats().items():
+            metrics.gauge("compile_variants",
+                          "compiled XLA variants per step-function family",
+                          family=fam).set(st["variants"])
+            metrics.gauge("compile_seconds_total",
+                          "cumulative trace+compile wall seconds per family",
+                          family=fam).set(0.0)
+
+    engine.on_fpm(update_compile_gauges)
+    update_compile_gauges()
+
+    # the flight recorder's anomaly counter on the shared metrics, and the
+    # recorder advertised so tooling knows /debug/timeline is live
+    if engine.recorder.enabled:
+        engine.recorder.bind_metrics(metrics)
+        metadata["flight_recorder"] = True
+
+    # the fleet digest plane: phase histograms, queue depth, KV tiers and
+    # the measured onboard costs, pushed every period; the accumulation
+    # hooks run on the step thread, the publish task on the event loop
+    digest_pub = None
+    if digest_period_s and digest_period_s > 0:
+        builder = DigestBuilder(instance_id, dp_rank)
+        engine.on_fpm(builder.observe_fpm)
+        engine.on_phases(builder.observe_phases)
+        digest_pub = DigestPublisher(builder, runtime.event_publisher(), engine=engine,
+                                     period_s=digest_period_s)
+        digest_pub.bind_metrics(metrics)
+        digest_pub.start()
+        metadata["digest_publisher"] = digest_pub.address
+        metadata["digest_period_s"] = digest_pub.period_s
+
     await runtime.serve_endpoint(
         f"{namespace}/{component}/kv_fetch",
         FnEngine(lambda request, context: kv_fetch(engine, request or {})),
@@ -375,16 +424,20 @@ async def serve_worker(
             client = fetch_clients[path] = runtime.client(path)
             await client.start()
         peer = int(hint["instance"])
-        # the first pull after the client's creation races the discovery
-        # watch: give the peer a moment to appear
-        loop = asyncio.get_running_loop()
-        deadline = loop.time() + 2.0
-        while peer not in client.instances and loop.time() < deadline:
-            await asyncio.sleep(0.05)
-        req = {"hashes": [int(h) for h in hint["hashes"][:MAX_HOST_FETCH_BLOCKS]]}
-        async for item in client.direct(req, peer):
-            return item
-        return None
+        # the pull is a traced hop under the route span the hint carries
+        with tracing.span("kv.peer_pull", parent=hint.get("traceparent"), kind=3,
+                          attributes={"kv.n_blocks": len(hint.get("hashes") or []),
+                                      "kv.peer_instance": peer}):
+            # the first pull after the client's creation races the
+            # discovery watch: give the peer a moment to appear
+            loop = asyncio.get_running_loop()
+            deadline = loop.time() + 2.0
+            while peer not in client.instances and loop.time() < deadline:
+                await asyncio.sleep(0.05)
+            req = {"hashes": [int(h) for h in hint["hashes"][:MAX_HOST_FETCH_BLOCKS]]}
+            async for item in client.direct(req, peer):
+                return item
+            return None
 
     engine.remote_kv_fetch = remote_kv_fetch
 
@@ -410,4 +463,5 @@ async def serve_worker(
     served["inst"] = inst
     log.info("worker %x serving %s (role=%s)", instance_id, card.name,
              disagg_role or "both")
-    return ServedWorker(runtime, engine, inst, publisher, handler, fetch_clients)
+    return ServedWorker(runtime, engine, inst, publisher, handler, fetch_clients,
+                        digest_pub=digest_pub)

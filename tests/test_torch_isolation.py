@@ -1,5 +1,6 @@
 """The port stands alone: dynamo_tpu_torch (the frontend's main, its
-tool-call parser and the guided decoding copies included), chip_smoke.py, scripts/torch_profile.py,
+tool-call parser, the guided decoding copies, the observability modules
+and the planner's hardware sweep included), chip_smoke.py, scripts/torch_profile.py,
 scripts/mla_prefill_variants.py,
 scripts/int8_body_variants.py, scripts/engine_ab.py,
 scripts/quant_gemm_variants.py, scripts/extras_profile.py,
@@ -75,7 +76,10 @@ def test_every_module_imports_without_jax_or_dynamo_tpu():
               "guided.json_schema", "guided.structural", "guided.token_mask",
               "guided.device_table", "ops.tier_codec", "kvbm.quant", "kvbm.disk_pool",
               "kvbm.object_store", "kvbm.prefetch", "models.lora", "engine.st_io",
-              "engine.shm_weights"):
+              "engine.shm_weights", "runtime.tracing", "runtime.logging_util",
+              "runtime.annotations", "runtime.flight_recorder", "runtime.sanitizer",
+              "runtime.status", "runtime.fleet_observer", "planner",
+              "planner.hw_profile"):
         assert f"dynamo_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
