@@ -260,10 +260,10 @@ Phases, each printing one JSON line:
                and an rl load_adapter makes the other a holder that then
                receives ad-one traffic;
      int8    - with the 3B runner freed, the slice's main path:
-               llama-3.1-8b at full width and depth with
+               llama-3.1-8b at full width, 8 of its 32 layers, with
                --kv-quantize int8 (`engine_int8kv` fused and
                `engine_int8kv_unfused`: every request `length`, each GQA
-               kernel's launches equal to its passes x 32, all on the
+               kernel's launches equal to its passes x 8, all on the
                D128_int8 bodies, the pools' bytes beside a bf16 pool's),
                and `parity_int8kv` (as `parity`, over int8 pools; the
                distance to bf16 pools reported);
@@ -281,12 +281,12 @@ Phases, each printing one JSON line:
                the same params over an int8 latent: every decode launch
                on the int8 body, no MLA prefill launch (int8 prefill
                gathers, as the reference's does).
-  7. gemma  - with the 3B and MLA runners freed, gemma-2-9b at full width
-               and depth (42 layers, head dim 256, a 4096-token window on
+  7. gemma  - with the 3B and MLA runners freed, gemma-2-9b at full width,
+               10 of its 42 layers (head dim 256, a 4096-token window on
                the even layers): `engine_gemma2` (fused, the default) and
                `engine_gemma2_unfused` serve the same 8 requests and two
                prompts of 4600 and 5200 tokens, each request `length`,
-               each kernel's launches equal to its passes x 42, half on
+               each kernel's launches equal to its passes x 10, half on
                the window bodies; `parity_gemma2` prefills a 4700- and a
                4500-token sequence in 512-token chunks through both
                attention paths, then two decode steps and a ragged step
@@ -294,7 +294,8 @@ Phases, each printing one JSON line:
                over int8 pools, half the launches on the
                D256_int8_window_softcap bodies.
   8. families - with the Gemma-2 runner freed, this slice's paths, each
-               model at full width and depth with random weights, 2048
+               model at full width and 8 layers (llama-3.2-1b at its full
+               16) with random weights, 2048
                pages x 16, the 3B's traffic, every request `length` and
                each kernel's launches equal to its passes x L, all on one
                body: `engine_qwen2` and `engine_qwen2_unfused`
@@ -331,10 +332,10 @@ Phases, each printing one JSON line:
                moe_block under torch.cuda.set_sync_debug_mode("error").
                Then, after every earlier runner is freed,
                `engine_qwen3moe` and `engine_qwen3moe_unfused`
-               (qwen3-30b-a3b at full width and depth, 48 MoE layers, G 8,
-               61 GB of weights: the 3B's traffic, every request `length`,
-               launches = passes x 48 on D128, each grouped-GEMM entry's
-               = passes x 48), `parity_qwen3moe_free` (information: each
+               (qwen3-30b-a3b at full width, 8 of its 48 MoE layers, G 8:
+               the 3B's traffic, every request `length`,
+               launches = passes x 8 on D128, each grouped-GEMM entry's
+               = passes x 8), `parity_qwen3moe_free` (information: each
                path routes on its own logits, and the top-k choices that
                differ are counted) and `parity_qwen3moe` (the plain path
                on the kernel path's routing, held to FORWARD_REL_TOL);
@@ -372,11 +373,13 @@ Phases, each printing one JSON line:
                engine_int8kv's; `parity_quant`; `engine_quant_fp8_3b`
                (llama-3.2-3b, e4m3 weights: the tied head on the NK body)
                and `parity_quant_fp8_3b`. Last, with every other runner
-               freed, `engine_mixtral`: mixtral-8x7b at full width and
-               depth (32 MoE layers, 8 experts, top 2) with int8 weights
-               (46.7 GB), the 3B's traffic, grouped-GEMM launches =
-               passes x 32 on the int8 bodies, quant_gemm's = passes x
-               (4 L + 1), its memory (`mixtral_memory`); then
+               freed, `engine_mixtral`: mixtral-8x7b at full width, 8 of
+               its 32 MoE layers (8 experts, top 2), with int8 weights,
+               the 3B's traffic, grouped-GEMM launches =
+               passes x 8 on the int8 bodies, quant_gemm's = passes x
+               (4 L + 1), its memory at 8 layers beside the full depth's
+               computed bytes (`mixtral_memory`; the full-depth build
+               and its fit check no longer run); then
                `parity_mixtral_free`, `parity_mixtral` (pinned to the
                kernel path's routing) and `repeat_mixtral` at two layers.
                Every engine phase holds quant_gemm's launches by body to
@@ -401,7 +404,7 @@ Phases, each printing one JSON line:
                then `observability_costs` (the decode rate a request of
                8 requests of 64 prompt and 32 output tokens with the
                recorder, the span ring, the ranges and the sanitizer off
-               and on, in turns off, on, on, off; every turn holds the
+               and on, in turns off, on (OBS_COST_TURNS); every turn holds the
                launch identities; the "on" turns time each hook's host
                work where it runs, under HOOK_SHARE_MAX of the
                iterations' time, and each hook alone over HOOK_CALLS
@@ -427,8 +430,34 @@ Phases, each printing one JSON line:
                on /debug/engine and /metrics, no malformed digest at the
                frontend; the frontend's main, behind
                the survivor, serves the same views.
+Tensor parallelism (`tp_kernels`, among the kernel phases: each sharded
+wrapper on one rank's slice at llama-3.1-8b's TP 2 shapes, Hk 4, G 4,
+against its plain version within KERNEL_TOL and ROW_REL_TOL, the page
+copies bit for bit, timed beside the bound and the yardstick; then,
+after `lora_served` with nothing else on the card, `engine_tp`:
+llama-3.1-8b at full width and depth through `--tensor-parallel 2`, two
+rank processes on the card over gloo (`tp_ranks` prints the transport),
+`tp_parity` against a TP 1 runner on the same seed-0 params (a prefill's
+and a fused step's logits within FORWARD_REL_TOL, greedy agreement, a
+decode step's ms at 8 rows for both), `tp_pull` (a TP 1 export imported
+at TP 2 and exported back, bit for bit), the 3B's traffic fused
+(`engine_tp`) and unfused (`engine_tp_unfused`) and, on the same ranks,
+over int8 pools (`engine_tp_int8`): every rank's launches of each
+sharded wrapper equal to its kernel's and to passes x 32 on Hk 4, the
+ranks' counters and the digests of their returned tokens equal, each
+rank's peak memory; then `engine_tp_70b`, llama-3.1-70b at TP 2 refused
+by the fit check before anything is spawned or drawn).
+`python3 chip_smoke.py --only tp` runs the build and these two phases
+alone. Each top-level phase prints its seconds on a line of its own
+(`phase_seconds`). For the script's time, the models of DEPTH_CUTS serve
+their width at fewer layers (gemma-2-9b 10, the others 8), as the text
+above says at each; every launch identity reads the runner's own depth.
+The full-depth builds of mixtral-8x7b and qwen3-30b-a3b (and so their fit
+checks on the card) no longer run: `mixtral_memory` prints the full
+depth's param bytes as computed, not measured.
 Then the `kernels` summary line (launches from the fused phase for the
-GQA attention kernels, from engine_disagg for gather and scatter, from
+GQA attention kernels, from engine_tp for the three sharded attention
+wrappers and tp_pull for the two sharded copies, from engine_disagg for gather and scatter, from
 engine_tiers for the layer scatter, from engine_tiers_quant for the device
 tier codec's two entries, from engine_mla for the MLA kernels,
 from engine_int8kv and engine_mla_int8 for the `*_int8` entries, the
@@ -495,6 +524,7 @@ from dynamo_tpu_torch.ops import tier_codec as tc
 from dynamo_tpu_torch.ops.flash_prefill import (
     prefill_paged_attention,
     prefill_paged_attention_ref,
+    prefill_paged_attention_sharded,
 )
 from dynamo_tpu_torch.ops.mla_attention import (
     INT8_TILE_TOKENS,
@@ -512,13 +542,16 @@ from dynamo_tpu_torch.ops.paged_attention import (
     decode_split_tokens,
     decode_paged_attention,
     decode_paged_attention_ref,
+    decode_paged_attention_sharded,
 )
 from dynamo_tpu_torch.ops.ragged_paged_attention import (
     SPLIT_TOKENS,
     build_ragged_metadata,
     ragged_paged_attention,
     ragged_paged_attention_ref,
+    ragged_paged_attention_sharded,
 )
+from dynamo_tpu_torch.ops.block_copy import gather_pages_sharded, scatter_pages_sharded
 from dynamo_tpu_torch.frontend.service import ModelManager, ModelWatcher
 from dynamo_tpu_torch.router.kv_router import KvPushRouter, KvRouter
 from dynamo_tpu_torch.router.prefill_router import DisaggPolicy, PrefillRouter
@@ -579,12 +612,34 @@ def model_args(model: str, max_seq_len: int = 4096, kv_quantize: bool = False):
 ENGINE_ARGS = model_args("llama-3.2-3b")
 
 
-def timed_runner(args, params=None):
-    """build_runner from engine flags: (runner, config, seconds to build)."""
-    t0 = time.monotonic()
-    runner, cfg = build_runner(parse_args(args), params=params)
-    torch.cuda.synchronize()
-    return runner, cfg, time.monotonic() - t0
+# Depth cuts for the script's time (the launch identities read each
+# runner's own depth): these models' phases serve the preset's width with
+# fewer layers, as many of each kind where layers differ (Gemma-2's even
+# sliding and odd global ones). The 3B's paths (but its fp8 weights') and
+# llama-3.1-8b at TP 2 keep their full depth.
+DEPTH_CUTS = {"gemma-2-9b": 10, "phi-3-mini-4k": 8, "qwen2.5-7b": 8,
+              "qwen3-30b-a3b": 8, "qwen3-8b": 8, "mistral-7b": 8, "gemma-7b": 8,
+              "olmo-2-7b": 8, "granite-3.1-8b": 8, "llama-3.1-8b": 8,
+              "mixtral-8x7b": 8, "llama-3.2-3b": 8}
+
+
+def timed_runner(args, params=None, cut: bool = False):
+    """build_runner from engine flags: (runner, config, seconds to build).
+    `cut`: the model at its DEPTH_CUTS depth (its preset swapped for the
+    build)."""
+    from dynamo_tpu_torch.models import config as config_mod
+
+    model = args[args.index("--model") + 1]
+    full = config_mod.PRESETS[model]
+    if cut:
+        config_mod.PRESETS[model] = full.with_(n_layers=DEPTH_CUTS[model])
+    try:
+        t0 = time.monotonic()
+        runner, cfg = build_runner(parse_args(args), params=params)
+        torch.cuda.synchronize()
+        return runner, cfg, time.monotonic() - t0
+    finally:
+        config_mod.PRESETS[model] = full
 
 
 def free(*runners):
@@ -665,6 +720,16 @@ def check(ok: bool, what: str) -> None:
 
 
 _T_START = time.monotonic()
+
+
+def timed(name: str, fn, *args):
+    """Run one top-level phase and print its seconds on a line of its
+    own (also when it fails)."""
+    t = time.monotonic()
+    try:
+        return fn(*args)
+    finally:
+        emit({"phase_seconds": name, "seconds": time.monotonic() - t})
 
 
 def emit(obj) -> None:
@@ -3966,7 +4031,7 @@ def served_disagg_phase(params, disagg_rec):
 TIER_ARGS = ["--model", "llama-3.2-3b", "--num-pages", "160", "--page-size", "16",
              "--max-seq-len", "4096", "--max-batch", "8", "--chunk-size", "512"]
 TIER_HOST = ["--host-kv-blocks", "512", "--onboard-layer-groups", "4"]
-G2_PAIRS = 3  # the G2 onboard against the cold prefill, in this many pairs
+G2_PAIRS = 1  # the G2 onboard against the cold prefill, in this many pairs
 # the lower tiers' cases: a host tier of 16 blocks, fewer than A's
 # 64-block shared chain, so A's pages spill past it ("{root}": a
 # temporary directory of the case)
@@ -5466,20 +5531,21 @@ def mla_phases(dev):
     return launches, launches8
 
 
-# the slice's main path: llama-3.1-8b at full width and depth (32 layers,
-# 32 / 8 heads, head dim 128, bf16 random weights, seed 0) over int8 KV
-# pools, 2048 pages x 16, serving workload()'s 8 requests
+# llama-3.1-8b at full width (32 / 8 heads, head dim 128, bf16 random
+# weights, seed 0; 8 of its 32 layers in int8kv_phases and quant_phases,
+# DEPTH_CUTS) over int8 KV pools, 2048 pages x 16, serving workload()'s 8
+# requests
 ENGINE_8B_ARGS = model_args("llama-3.1-8b", kv_quantize=True)
 
 
 def int8kv_phases(dev, smi):
     """`engine_int8kv` (fused, the card's default) and
-    `engine_int8kv_unfused` on one llama-3.1-8b runner with int8 pools:
-    every request `length`, each GQA kernel's launches equal to its passes
-    x 32, all on the D128_int8 bodies; the pools' bytes beside a bf16
+    `engine_int8kv_unfused` on one llama-3.1-8b runner (8 layers) with
+    int8 pools: every request `length`, each GQA kernel's launches equal to
+    its passes x 8, all on the D128_int8 bodies; the pools' bytes beside a bf16
     pool's; then `parity_int8kv`. Returns the fused phase's launches and
     the bodies of both phases."""
-    runner, cfg, build_s = timed_runner(ENGINE_8B_ARGS)
+    runner, cfg, build_s = timed_runner(ENGINE_8B_ARGS, cut=True)
     L = cfg.n_layers
     check(runner.kv_quantize == "int8" and runner.k_pool["q"].dtype == torch.int8,
           "engine_int8kv: the runner's pools are not int8")
@@ -5510,7 +5576,7 @@ def int8kv_phases(dev, smi):
     return fused_launches, found
 
 
-# Gemma-2 9B at full width and depth: 42 layers, head dim 256, G 2, a
+# Gemma-2 9B at full width (10 of its 42 layers in gemma_phases), head dim 256, G 2, a
 # 4096-token window on the even layers, soft caps 50 (scores) and 30
 # (logits), served with workload()'s 8 requests and two prompts past the
 # window
@@ -6389,15 +6455,15 @@ def head_shape_kernels_phase(dev):
 
 
 def gemma_phases(dev, smi):
-    """gemma-2-9b at full width and depth: `engine_gemma2` (the card's
+    """gemma-2-9b at full width, 10 layers: `engine_gemma2` (the card's
     default, fused: ragged and decode kernels; a prefill chunk with no
     decode row on the prefill kernel) and `engine_gemma2_unfused`
     (DYN_FUSED_MIXED=0: prefill and decode kernels) on one runner, each
     request finishing `length`, each kernel's launches equal to its
-    passes x 42, half of them on the window bodies; then `parity_gemma2`,
+    passes x 10, half of them on the window bodies; then `parity_gemma2`,
     a 4700- and a 4500-token sequence prefilled in 512-token chunks, two
     decode steps and a ragged step with a chunk past the window."""
-    runner, cfg, build_s = timed_runner(GEMMA_ARGS)
+    runner, cfg, build_s = timed_runner(GEMMA_ARGS, cut=True)
     L = cfg.n_layers
     check(runner.kv_page_shape == (L, PAGE_SIZE, cfg.n_kv_heads, cfg.head_dim),
           f"engine_gemma2: page shape {runner.kv_page_shape}")
@@ -6433,7 +6499,7 @@ def gemma_phases(dev, smi):
     params = runner.params
     free(runner)
     args8 = GEMMA_ARGS + ["--kv-quantize", "int8"]
-    runner8, _, _ = timed_runner(args8, params=params)
+    runner8, _, _ = timed_runner(args8, params=params, cut=True)
     turn(runner8, "gemma2_int8", None, args8)
     free(runner8)
     return found
@@ -6463,9 +6529,9 @@ def family_turn(runner, phase, fused, args, body, smi, extra=(), build_s=None):
     return rec["bodies"], launches
 
 
-# qwen2.5-7b: 28 layers, 28 query heads over 4 KV heads (G 7), q/k/v biases
+# qwen2.5-7b: 28 layers (8 served), 28 query heads over 4 KV heads (G 7), q/k/v biases
 QWEN2_ARGS = model_args("qwen2.5-7b")
-# phi-3-mini-4k: 32 layers, MHA at head dim 96, a 2047-token window on every
+# phi-3-mini-4k: 32 layers (8 served), MHA at head dim 96, a 2047-token window on every
 # layer; two prompts past the window
 PHI3_ARGS = model_args("phi-3-mini-4k")
 PHI3_LONG_PROMPTS = (2600, 3900)
@@ -6477,7 +6543,7 @@ def qwen2_phases(dev, smi):
     checkpoints): every request `length`, launches = passes x 28, all on
     D128 (G 7); then `parity_qwen2`. Returns the fused launches and both
     phases' bodies."""
-    runner, cfg, build_s = timed_runner(QWEN2_ARGS)
+    runner, cfg, build_s = timed_runner(QWEN2_ARGS, cut=True)
     check(cfg.n_heads // cfg.n_kv_heads == 7 and cfg.attn_bias,
           f"engine_qwen2: not qwen2.5-7b's heads: {cfg}")
     g = torch.Generator(device=dev).manual_seed(5)
@@ -6499,11 +6565,11 @@ def phi3_phases(dev, smi):
     """`engine_phi3` (fused), `engine_phi3_unfused` and, on the same params
     over int8 pools, `engine_phi3_int8`: the 3B's traffic and two prompts
     past the 2047-token window, every request `length`, launches = passes
-    x 32, all on D96_window (int8: D96_int8_window); between them
+    x 8, all on D96_window (int8: D96_int8_window); between them
     `parity_phi3`, a 2600- and a 2300-token sequence prefilled in 512-token
     chunks, two decode steps and a ragged step, all past the window.
     Returns the fused bf16 and int8 launches and every phase's bodies."""
-    runner, cfg, build_s = timed_runner(PHI3_ARGS)
+    runner, cfg, build_s = timed_runner(PHI3_ARGS, cut=True)
     check(cfg.head_dim == 96 and cfg.n_heads == cfg.n_kv_heads
           and {layer_window(cfg, l) for l in range(cfg.n_layers)} == {2047},
           f"engine_phi3: not phi-3's heads and window: {cfg}")
@@ -6518,7 +6584,7 @@ def phi3_phases(dev, smi):
     params = runner.params
     free(runner)
     args8 = model_args("phi-3-mini-4k", kv_quantize=True)
-    runner8, _, _ = timed_runner(args8, params=params)
+    runner8, _, _ = timed_runner(args8, params=params, cut=True)
     found["phi3_int8"], int8_launches = family_turn(
         runner8, "phi3_int8", None, args8, "D96_int8_window", smi,
         extra=PHI3_LONG_PROMPTS)
@@ -6526,7 +6592,8 @@ def phi3_phases(dev, smi):
     return fused_launches, int8_launches, found
 
 
-# the other dense families, one fused turn each at full width and depth:
+# the other dense families, one fused turn each at full width and the
+# depth of DEPTH_CUTS (llama-3.2-1b at its full 16 layers):
 # (preset, max_seq_len, prompts added to the 3B's, the body every launch
 # takes, int8 pools). Mistral's prompts run past its 4096-token window;
 # llama-3.2-1b (16 layers, Hk 8, G 4) is the card's path through the D 64
@@ -6547,7 +6614,7 @@ def families_phase(dev, smi):
     found = {}
     for fam, (model, max_seq_len, extra, body, int8) in FAMILIES.items():
         args = model_args(model, max_seq_len, kv_quantize=int8)
-        runner, _, build_s = timed_runner(args)
+        runner, _, build_s = timed_runner(args, cut=model in DEPTH_CUTS)
         found[fam], _ = family_turn(runner, fam, None, args, body, smi, extra=extra,
                                     build_s=build_s)
         parity_phase(runner, dev, phase=f"parity_{fam}")
@@ -6921,20 +6988,20 @@ def moe_parity(runner, dev, phase, **kw):
                  against="kernel", **kw)
 
 
-# qwen3-30b-a3b: 48 MoE layers (128 experts, top 8, width 768), 32 / 4 heads
-# (G 8) at D 128 with qk-norm; 61 GB of bf16 weights: the card to itself
+# qwen3-30b-a3b: 48 MoE layers (8 served; 128 experts, top 8, width 768),
+# 32 / 4 heads (G 8) at D 128 with qk-norm
 QWEN3MOE_ARGS = model_args("qwen3-30b-a3b")
 
 
 def qwen3moe_phases(dev, smi):
     """`engine_qwen3moe` (fused) and `engine_qwen3moe_unfused` on one
-    runner at full width and depth: every request `length`, each GQA
-    kernel's launches = passes x 48 on D128 (G 8), each grouped-GEMM
-    entry's = passes x 48; then `parity_qwen3moe` with the top-k choices
+    runner at full width, 8 layers: every request `length`, each GQA
+    kernel's launches = passes x 8 on D128 (G 8), each grouped-GEMM
+    entry's = passes x 8; then `parity_qwen3moe` with the top-k choices
     that differ between the paths. Returns the fused launches and the
     phases' bodies."""
-    runner, cfg, build_s = timed_runner(QWEN3MOE_ARGS)
-    check(cfg.n_heads // cfg.n_kv_heads == 8 and runner.moe_layers == 48,
+    runner, cfg, build_s = timed_runner(QWEN3MOE_ARGS, cut=True)
+    check(cfg.n_heads // cfg.n_kv_heads == 8 and runner.moe_layers == cfg.n_layers,
           f"engine_qwen3moe: not qwen3-30b-a3b's heads and experts: {cfg}")
     found, fused_launches = {}, None
     for phase, fused in (("qwen3moe", None), ("qwen3moe_unfused", False)):
@@ -7329,9 +7396,9 @@ def moe_quant_kernels(dev):
     return out
 
 
-# llama-3.1-8b at full width and depth, int8 weights over int8 pools (the
+# llama-3.1-8b at full width, 8 layers, int8 weights over int8 pools (the
 # 3B's traffic); llama-3.2-3b with e4m3 weights (its tied head on the NK
-# layout); mixtral-8x7b at full depth with int8 weights
+# layout), 8 layers; mixtral-8x7b at full width, 8 layers, with int8 weights
 QUANT_8B_ARGS = ENGINE_8B_ARGS + ["--quantize", "int8"]
 QUANT_3B_FP8_ARGS = ENGINE_ARGS + ["--quantize", "fp8"]
 MIXTRAL_ARGS = model_args("mixtral-8x7b") + ["--quantize", "int8"]
@@ -7392,7 +7459,7 @@ def quant_phases(dev, smi):
     from dynamo_tpu_torch.models import llama
 
     found = {}
-    runner, cfg, build_s = timed_runner(QUANT_8B_ARGS)
+    runner, cfg, build_s = timed_runner(QUANT_8B_ARGS, cut=True)
     L = cfg.n_layers
     check(runner.quantize == "int8" and runner.params["layers"]["wq"]["q"].dtype
           == torch.int8, "engine_quant: the runner's weights are not int8")
@@ -7412,7 +7479,7 @@ def quant_phases(dev, smi):
     found["quant"] = rec["quant_gemm_bodies"]
     parity_phase(runner, dev, phase="parity_quant")
     free(runner)
-    runner, cfg, build_s = timed_runner(QUANT_3B_FP8_ARGS)
+    runner, cfg, build_s = timed_runner(QUANT_3B_FP8_ARGS, cut=True)
     check(cfg.tie_embeddings and runner.params["embed"]["q"].dtype == torch.float8_e4m3fn,
           "engine_quant_fp8_3b: not a tied e4m3 table")
     rec, launches = served_turn(runner, "quant_fp8_3b", None, QUANT_3B_FP8_ARGS,
@@ -7430,11 +7497,13 @@ def quant_phases(dev, smi):
 
 
 def mixtral_phases(dev, smi):
-    """`engine_mixtral`: mixtral-8x7b at full width and depth (32 MoE
-    layers, 8 experts, top 2) with int8 weights, 2048 pages, the 3B's
-    traffic: check_fits passes, the params' GB and the card's free memory
-    after the build, every request `length`, each grouped-GEMM entry's
-    launches = passes x 32 all on its int8 body, quant_gemm's = passes x
+    """`engine_mixtral`: mixtral-8x7b at full width, 8 of its 32 MoE
+    layers (8 experts, top 2), with int8 weights, 2048 pages, the 3B's
+    traffic: check_fits passes, the params' GB at 8 layers beside the full
+    depth's computed bytes (its build and fit check no longer run) and the
+    card's free memory after the build, every request `length`, each
+    grouped-GEMM entry's launches = passes x 8 all on its int8 body,
+    quant_gemm's = passes x
     (4 L + 1). Then, with it freed, the MoE parity at two layers
     (`parity_mixtral_free`, `parity_mixtral` pinned to the kernel path's
     routing, `repeat_mixtral`). Returns the fused launches."""
@@ -7442,9 +7511,10 @@ def mixtral_phases(dev, smi):
 
     cfg0 = get_config("mixtral-8x7b")
     free_before = torch.cuda.mem_get_info()[0]
-    runner, cfg, build_s = timed_runner(MIXTRAL_ARGS)
+    runner, cfg, build_s = timed_runner(MIXTRAL_ARGS, cut=True)
     L = cfg.n_layers
-    check(L == 32 and runner.moe_layers == 32 and runner.quantize == "int8",
+    check(L == DEPTH_CUTS["mixtral-8x7b"] and runner.moe_layers == L
+          and runner.quantize == "int8",
           f"engine_mixtral: {L} layers, {runner.moe_layers} MoE, {runner.quantize}")
     bodies, launches = family_turn(runner, "mixtral", None, MIXTRAL_ARGS, "D128", smi,
                                    build_s=build_s)
@@ -7454,9 +7524,13 @@ def mixtral_phases(dev, smi):
     check(md.moe_gate_up.bodies == {"int8": passes * L} == md.moe_down.bodies,
           f"engine_mixtral: grouped GEMM bodies {md.moe_gate_up.bodies}, "
           f"{md.moe_down.bodies}")
-    emit({"phase": "mixtral_memory", "params_gb": tree_bytes(runner.params) / 1e9,
-          "param_bytes_gb": llama.param_bytes(cfg0, quantize="int8") / 1e9,
-          "params_gb_if_bf16": llama.param_bytes(cfg0) / 1e9,
+    emit({"phase": "mixtral_memory", "n_layers": L,
+          "params_gb": tree_bytes(runner.params) / 1e9,
+          "param_bytes_gb": llama.param_bytes(cfg, quantize="int8") / 1e9,
+          "params_gb_if_bf16": llama.param_bytes(cfg) / 1e9,
+          "full_depth_layers": cfg0.n_layers,
+          "full_depth_param_bytes_gb_computed":
+              llama.param_bytes(cfg0, quantize="int8") / 1e9,
           "free_gb_before": free_before / 1e9,
           "free_gb_after_build": torch.cuda.mem_get_info()[0] / 1e9,
           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
@@ -7501,7 +7575,7 @@ SYNC_CASES = {
 ANOMALY_K = 8.0  # the stall phase's trigger: well above the decode's spread
 HW_DECODE_STEPS = 4  # the hardware sweep's decode steps a timed call
 ANOMALY_PROFILE_MS = 300
-OBS_COST_TURNS = (0, 1, 1, 0)  # off, on, on, off: parent-style pairs
+OBS_COST_TURNS = (0, 1)  # off, on: one pair a hook (the script's time)
 HOOK_CALLS = 5000  # hook_call_costs: calls a hook
 # a hook's host work, as a share of the iterations it runs in: below
 # every hook's run-to-run spread of the decode rate that the cost pairs
@@ -7987,7 +8061,7 @@ def hook_call_costs():
 
 def cost_pairs_phase(runner, smi):
     """Each hook's cost to the decode rate a request, off and on in turns
-    OBS_COST_TURNS (off, on, on, off) over _decode_turn's batch
+    OBS_COST_TURNS (off, on) over _decode_turn's batch
     (its launch identities held in every turn): the recorder (size 0
     against 4096), the span ring (off against DYN_TRACE_RING's ring,
     every request traced), the profiler ranges (DYN_ENABLE_JAX_TRACE off
@@ -8161,7 +8235,432 @@ def tier_cost_feed(engine):
             "recompute_block_s": cfg.recompute_block_s}
 
 
+
+# -- tensor parallelism: llama-3.1-8b over two rank processes on one card -----
+
+TP_ARGS = model_args("llama-3.1-8b") + ["--tensor-parallel", "2"]
+TP_L, TP_HK, TP_G, TP_D = 32, 4, 4, 128  # llama-3.1-8b's rank at TP 2
+TP_SHARDED = {
+    "decode_paged_attention_sharded": (
+        "dynamo_tpu_torch/ops/csrc/paged_attention.cu",
+        "dynamo_tpu/ops/paged_attention.py:163 (decode_paged_attention_sharded: "
+        "shard_map of :302 over the model axis)"),
+    "prefill_paged_attention_sharded": (
+        "dynamo_tpu_torch/ops/csrc/flash_prefill.cu",
+        "dynamo_tpu/ops/flash_prefill.py:168 (prefill_paged_attention_sharded: "
+        "shard_map of :313)"),
+    "ragged_paged_attention_sharded": (
+        "dynamo_tpu_torch/ops/csrc/ragged_paged_attention.cu",
+        "dynamo_tpu/ops/ragged_paged_attention.py:345 (ragged_paged_attention_sharded: "
+        "shard_map of :486)"),
+    "gather_pages_sharded": (
+        "dynamo_tpu_torch/ops/csrc/block_copy.cu",
+        "dynamo_tpu/ops/block_copy.py:88 (gather_pages_sharded: shard_map of :79)"),
+    "scatter_pages_sharded": (
+        "dynamo_tpu_torch/ops/csrc/block_copy.cu",
+        "dynamo_tpu/ops/block_copy.py:121 (scatter_pages_sharded: shard_map of :226)"),
+}
+# the plain kernel each sharded wrapper launches
+TP_INNER = {"decode_paged_attention_sharded": "decode_paged_attention",
+            "prefill_paged_attention_sharded": "prefill_paged_attention",
+            "ragged_paged_attention_sharded": "ragged_paged_attention",
+            "gather_pages_sharded": "gather_pages",
+            "scatter_pages_sharded": "scatter_pages"}
+
+
+def tp_kernels_phase(dev):
+    """Each sharded wrapper on one rank's slice at llama-3.1-8b's TP 2
+    shapes (Hk 4, G 4, D 128, PS 16; the page copies over a 32-layer pool
+    of 2048 pages) against its plain version on the same inputs: the
+    attention ones within KERNEL_TOL and, row by row, ROW_REL_TOL of the
+    plain version in f32; the copies bit for bit. Timed back to back and
+    as CUDA-graph replays, beside the plain version, the bound and the
+    yardstick (SDPA over K/V gathered dense beforehand; index_select /
+    index_copy_) at the same shapes."""
+    gen = torch.Generator(device="cpu").manual_seed(25)
+    Hk, G, D, PS = TP_HK, TP_G, TP_D, 16
+    H, scale = Hk * G, TP_D ** -0.5
+    out = {}
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen).bfloat16().to(dev)
+
+    # decode: B 8 over the main path's contexts
+    kv_list = [4096, 0, 1, 17, 1000, 2048, 3333, 513]
+    B, MP = len(kv_list), 4096 // PS
+    NP = B * MP + 1
+    kp, vp, q = rnd(NP, PS, Hk, D), rnd(NP, PS, Hk, D), rnd(B, Hk, G, D)
+    pt = random_pages(gen, B, MP, NP, dev)
+    kvl = torch.tensor(kv_list, dtype=torch.int32, device=dev)
+    fn = decode_paged_attention_sharded
+    got = fn(q, kp, vp, pt, kvl)
+    torch.cuda.synchronize()
+    ref = decode_paged_attention_ref(q, kp, vp, pt, kvl)
+    err = (got.float() - ref.float()).abs().max().item()
+    rel = row_rel_err(got, decode_paged_attention_ref(*plain32((q, kp, vp)), pt, kvl))
+    check(torch.isfinite(got.float()).all().item() and err <= KERNEL_TOL
+          and rel <= ROW_REL_TOL, f"tp decode: err {err}, row error {rel}")
+    kq, vq = dense_kv(kp, pt, Hk, G), dense_kv(vp, pt, Hk, G)
+    mask = (torch.arange(MP * PS, device=dev)[None, :] < kvl[:, None])[:, None, None, :]
+    n_tok = sum(kv_list)
+    n_bytes = (2 * q.numel() * 2 + n_tok * Hk * D * 4
+               + sum(-(-k // PS) for k in kv_list) * 4 + B * 4)
+    b_ms, b_by = bound(n_bytes, 4 * n_tok * H * D)
+    qd = q.reshape(B, H, 1, D)
+
+    def lib():
+        return F.scaled_dot_product_attention(qd, kq, vq, attn_mask=mask, scale=scale)
+
+    out[fn.__name__] = {
+        "max_abs_err": err, "row_rel_err": rel,
+        "ms": cuda_ms(lambda: fn(q, kp, vp, pt, kvl)),
+        "plain_ms": cuda_ms(lambda: decode_paged_attention_ref(q, kp, vp, pt, kvl)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib),
+        "device_ms": graph_ms(lambda: fn(q, kp, vp, pt, kvl)), "library_device_ms": graph_ms(lib),
+        "shape": {"B": B, "Hk": Hk, "G": G, "D": D, "PS": PS, "kv_lens": kv_list}}
+    del kp, vp, kq, vq
+
+    # prefill: a 450-token chunk over 700 prior tokens, S 512
+    prior, q_len, S = 700, 450, 512
+    kv = prior + q_len
+    MP = -(-kv // PS) + 2
+    NP = MP + 1
+    kp, vp, q = rnd(NP, PS, Hk, D), rnd(NP, PS, Hk, D), rnd(1, S, Hk, G, D)
+    pt = random_pages(gen, 1, MP, NP, dev)
+    ints = [torch.tensor([x], dtype=torch.int32, device=dev) for x in (prior, q_len, kv)]
+    args = (q, kp, vp, pt, *ints)
+    fn = prefill_paged_attention_sharded
+    got = fn(*args)
+    torch.cuda.synchronize()
+    ref = prefill_paged_attention_ref(*args)
+    err = (got[:, :q_len].float() - ref[:, :q_len].float()).abs().max().item()
+    rel = row_rel_err(got[:, :q_len], prefill_paged_attention_ref(
+        *plain32(args[:3]), *args[3:])[:, :q_len])
+    check(err <= KERNEL_TOL and rel <= ROW_REL_TOL
+          and got[:, q_len:].float().abs().max().item() == 0.0,
+          f"tp prefill: err {err}, row error {rel} (padding rows must be 0)")
+    kq, vq = dense_kv(kp, pt, Hk, G), dense_kv(vp, pt, Hk, G)
+    qd = q.reshape(1, S, H, D).transpose(1, 2)
+    s_pos = prior + torch.arange(S, device=dev)
+    c_pos = torch.arange(MP * PS, device=dev)
+    mask = ((c_pos[None, :] <= s_pos[:, None]) & (c_pos[None, :] < kv))[None, None]
+    n_pairs = sum(min(prior + s + 1, kv) for s in range(q_len))
+    b_ms, b_by = bound(q_len * H * D * 2 + q.numel() * 2 + kv * Hk * D * 4
+                       + (-(-kv // PS)) * 4 + 12, 4 * n_pairs * H * D)
+
+    def lib():
+        return F.scaled_dot_product_attention(qd, kq, vq, attn_mask=mask, scale=scale)
+
+    out[fn.__name__] = {
+        "max_abs_err": err, "row_rel_err": rel,
+        "ms": cuda_ms(lambda: fn(*args)),
+        "plain_ms": cuda_ms(lambda: prefill_paged_attention_ref(*args)),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib),
+        "device_ms": graph_ms(lambda: fn(*args)), "library_device_ms": graph_ms(lib),
+        "shape": {"S": S, "q_len": q_len, "prior": prior, "Hk": Hk, "G": G, "D": D}}
+    del kp, vp, kq, vq, args
+
+    # ragged: the main path's 264-token mixed step (8 decode rows, 4 chunks)
+    segs = [(1, k - 1) for k in RAGGED_DECODE_KV] + RAGGED_CHUNKS
+    args, md = ragged_inputs(gen, segs, RAGGED_T, Hk, G, D, PS, 4096 // PS, dev)
+    fn = ragged_paged_attention_sharded
+    got = fn(*args)
+    torch.cuda.synchronize()
+    ref = ragged_paged_attention_ref(*args)
+    n = sum(k for k, _ in segs)
+    err = (got[:n].float() - ref[:n].float()).abs().max().item()
+    rel = row_rel_err(got[:n], ragged_paged_attention_ref(*plain32(args[:3]), *args[3:])[:n])
+    check(err <= KERNEL_TOL and rel <= ROW_REL_TOL
+          and (n == got.shape[0] or got[n:].float().abs().max().item() == 0.0),
+          f"tp ragged: err {err}, row error {rel} (tail rows must be 0)")
+    kv_tok = sum(k + p for k, p in segs)
+    pairs = sum(p + i + 1 for k, p in segs for i in range(k))
+    b_ms, b_by = bound(n * H * D * 2 + RAGGED_T * H * D * 2 + kv_tok * Hk * D * 4
+                       + sum(-(-(k + p) // PS) for k, p in segs) * 4
+                       + md["seg_kv_lens"].size * 4 + md["meta"].size * 4,
+                       4 * pairs * H * D)
+    lib = ragged_library(args, segs, md, scale)
+    out[fn.__name__] = {
+        "max_abs_err": err, "row_rel_err": rel,
+        "ms": cuda_ms(lambda: fn(*args)),
+        "plain_ms": cuda_ms(lambda: ragged_paged_attention_ref(*args), iters=5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib),
+        "device_ms": graph_ms(lambda: fn(*args)), "library_device_ms": graph_ms(lib),
+        "shape": {"T": RAGGED_T, "Hk": Hk, "G": G, "D": D, "PS": PS}}
+    del args, lib
+
+    # the page copies: 94 random pages of a rank's 32-layer, 2048-page pool
+    shape = (TP_L, 2048, PS, Hk, D)
+    pool = torch.randn(shape, generator=gen).bfloat16().to(dev)
+    idx = torch.randperm(2048, generator=gen)[:94].to(torch.int32).to(dev)
+    idx_l = idx.long()
+    fn = gather_pages_sharded
+    pages = fn(pool, idx)
+    torch.cuda.synchronize()
+    check(torch.equal(pages, bc.gather_pages_ref(pool, idx)), "tp gather: not bit for bit")
+    buf = torch.empty_like(pages)
+    b_ms, b_by = bound(2 * pages.numel() * pages.element_size() + idx.numel() * 4, 0)
+    out[fn.__name__] = {
+        "max_abs_err": 0.0, "ms": cuda_ms(lambda: fn(pool, idx)),
+        "plain_ms": cuda_ms(lambda: bc.gather_pages_ref(pool, idx)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: pool.index_select(1, idx_l)),
+        # the wrapper reads its page ids back, which a graph cannot hold:
+        # its kernel's launch on the checked operands is replayed
+        "device_ms": graph_ms(lambda: bc._launch_gather(pool, idx, buf, False)),
+        "library_device_ms": graph_ms(lambda: pool.index_select(1, idx_l)),
+        "shape": {"pool": list(shape), "pages": 94}}
+    fn = scatter_pages_sharded
+    new = torch.randn(pages.shape, generator=gen).bfloat16().to(dev)
+    a, b = pool.clone(), pool.clone()
+    fn(a, idx, new)
+    bc.scatter_pages_ref(b, idx, new)
+    torch.cuda.synchronize()
+    check(torch.equal(a, b), "tp scatter: not bit for bit")
+    out[fn.__name__] = {
+        "max_abs_err": 0.0, "ms": cuda_ms(lambda: fn(a, idx, new)),
+        "plain_ms": cuda_ms(lambda: bc.scatter_pages_ref(b, idx, new)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cuda_ms(lambda: b.index_copy_(1, idx_l, new)),
+        "device_ms": graph_ms(lambda: bc._launch_scatter(a, idx, new)),
+        "library_device_ms": graph_ms(lambda: b.index_copy_(1, idx_l, new)),
+        "shape": {"pool": list(shape), "pages": 94}}
+    del pool, a, b, pages, new, buf
+    gc.collect()
+    torch.cuda.empty_cache()
+    emit({"phase": "tp_kernels", "tol": KERNEL_TOL, "row_tol": ROW_REL_TOL, **out})
+    return out
+
+
+def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.float(), b.float()
+    return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
+
+
+def tp_check_ranks(phase: str, runner, L: int, reps, want_calls=None):
+    """Every rank's report after a run: the same runner counters and the
+    same digest of returned arrays (the followers' tokens are rank 0's);
+    each sharded wrapper's launches equal to the launches of its kernel
+    (every launch went through it) on Hk 4 only, and each attention
+    kernel's to its passes x L."""
+    st = reps[0]["stats"]
+    passes = {"decode_paged_attention_sharded": st["decode_steps"],
+              "prefill_paged_attention_sharded": st["prefill_chunks"]
+              + st["padded_prefill_dispatches"] + st["spec_verify_passes"],
+              "ragged_paged_attention_sharded": st["ragged_mixed_dispatches"]
+              + st["ragged_verify_dispatches"]}
+    for rep in reps:
+        r = rep["rank"]
+        check(rep["stats"] == st, f"{phase}: rank {r} counters {rep['stats']} != rank 0's {st}")
+        check(rep["digest"] == reps[0]["digest"] and rep["outputs"] == reps[0]["outputs"],
+              f"{phase}: rank {r}'s returned tokens differ from rank 0's")
+        for name, inner in TP_INNER.items():
+            n = rep["launches"][name]
+            check(n == rep["launches"][inner],
+                  f"{phase}: rank {r} {inner} {rep['launches'][inner]} launches, "
+                  f"{n} through {name}")
+            check(rep["heads"][name] == ({TP_HK: n} if n else {}),
+                  f"{phase}: rank {r} {name} heads {rep['heads'][name]}")
+        for name, p in passes.items():
+            check(rep["launches"][name] == p * L,
+                  f"{phase}: rank {r} {name} {rep['launches'][name]} != {p} passes x {L}")
+        for name, n in (want_calls or {}).items():
+            check(rep["launches"][name] == n,
+                  f"{phase}: rank {r} {name} {rep['launches'][name]} != {n}")
+    return {
+        "per_rank": [{k: rep.get(k) for k in ("rank", "pid", "device", "launches", "heads",
+                                              "peak_bytes", "digest", "outputs")}
+                     for rep in reps],
+        "bodies": [rep["bodies"] for rep in reps]}
+
+
+def tp_turn(runner, phase: str, fused, build_s=None):
+    """One engine turn of the 3B's traffic on the TP 2 runner: every rank's
+    counters zeroed just before and read just after; rank 0's launch
+    identities as every turn's (served_turn), then every rank's
+    (tp_check_ranks). Returns (rec, rank 0's launches)."""
+    cfg = runner.config
+    rec, launches, results = engine_phase(
+        runner, phase, fused=fused, build_s=build_s, base_args=TP_ARGS,
+        probe=lambda engine: runner.reset_counters())
+    check(all(f == "length" and len(t) == N_OUT for t, f, _ in results),
+          f"{phase}: a request did not finish `length` with {N_OUT} tokens")
+    st = rec["stats"]
+    if fused is None:
+        check(rec["fused_mixed"] and st["ragged_mixed_dispatches"] > 0
+              and st["padded_prefill_dispatches"] == 0,
+              f"{phase}: mixed plans did not ride the ragged step: {st}")
+    else:
+        check(not rec["fused_mixed"] and launches["ragged_paged_attention"] == 0,
+              f"{phase}: DYN_FUSED_MIXED=0 did not hold")
+    reps = runner.rank_reports()
+    rec.update(tp_check_ranks(phase, runner, cfg.n_layers, reps))
+    rec["streams"] = [t for t, _, _ in results]
+    return rec, launches
+
+
+def tp_parity(tp1, tp2, smi):
+    """TP 2 against TP 1 on the same seed-0 params: a 700-token prefill's
+    logits, a fused mixed step's chunk logits (the ragged kernel: a decode
+    row beside a 300-token chunk) within FORWARD_REL_TOL (rel L2), greedy
+    agreement over 16 decode steps, and a decode step's ms at 8 rows for
+    both, in turns (TP 1, TP 2, TP 2, TP 1)."""
+    V = tp1.config.vocab_size
+    gen = torch.Generator(device="cpu").manual_seed(26)
+    prompt = torch.randint(0, V, (700,), generator=gen).tolist()
+    chunk = torch.randint(0, V, (300,), generator=gen).tolist()
+    table = list(range(1, 45))  # 44 pages of 16: room for the decode steps
+    ctable = list(range(50, 70))
+    greedy = {"temperature": [0.0], "top_k": [0], "top_p": [1.0], "seeds": [0]}
+    got = {}
+    for name, r in (("tp1", tp1), ("tp2", tp2)):
+        pre = r.prefill(prompt, 0, table, 0).float()
+        tok = int(pre.argmax())
+        toks, mixed = r.decode_multi_with_prefill(
+            1, [tok], [len(prompt)], [table], greedy, 0, chunk, 0, ctable, 0)
+        dec = r.decode_multi(16, [int(toks[0, 0])], [len(prompt) + 1], [table], greedy, 1)
+        got[name] = (pre, mixed.float(), [tok, int(toks[0, 0])] + dec[0].tolist())
+    rel_pre = rel_l2(got["tp2"][0], got["tp1"][0])
+    rel_mix = rel_l2(got["tp2"][1], got["tp1"][1])
+    a, b = got["tp1"][2], got["tp2"][2]
+    agree = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+    check(rel_pre <= FORWARD_REL_TOL and rel_mix <= FORWARD_REL_TOL,
+          f"tp parity: rel L2 prefill {rel_pre}, mixed {rel_mix} > {FORWARD_REL_TOL}")
+    # a decode step's ms at 8 rows over 700-token contexts, host included
+    rows = [list(range(100 + 45 * i, 145 + 45 * i)) for i in range(8)]
+    eight = {k: v * 8 for k, v in greedy.items()}
+    eight["seeds"] = list(range(8))
+
+    def step_ms(r, n=8):
+        r.decode_multi(n, [1] * 8, [700] * 8, rows, eight, 0)  # warm
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        r.decode_multi(n, [1] * 8, [700] * 8, rows, eight, 0)
+        torch.cuda.synchronize()
+        return (time.monotonic() - t0) * 1e3 / n
+
+    turns = [("tp1", step_ms(tp1)), ("tp2", step_ms(tp2)), ("tp2", step_ms(tp2)),
+             ("tp1", step_ms(tp1))]
+    rec = {"phase": "tp_parity", "rel_l2_prefill": rel_pre, "rel_l2_mixed": rel_mix,
+           "tol": FORWARD_REL_TOL, "greedy_tokens": len(a), "greedy_agree_prefix": agree,
+           "greedy_agree_frac": sum(x == y for x, y in zip(a, b)) / len(a),
+           "decode_step_ms_8_rows": turns, "nvidia_smi": smi}
+    emit(rec)
+    return prompt, table
+
+
+def tp_pull(tp1, tp2, prompt, table, smi):
+    """One TP 1 -> TP 2 pull: the prompt's pages exported from the TP 1
+    runner, imported into other pages of the TP 2 runner (each rank keeps
+    its heads: scatter_pages_sharded), exported back from the TP 2 runner
+    (each rank gathers its heads, gather_pages_sharded, and the ranks'
+    slices are all-gathered): bit for bit the TP 1 export. Each rank's
+    copies counted from 0 just before the TP 2 runner's import (the TP 1
+    export, in this process too, before it)."""
+    pages = table[:-(-len(prompt) // 16)]
+    dst = list(range(1500, 1500 + len(pages)))
+    payload = tp1.export_pages(pages)
+    tp2.reset_counters()
+    t0 = time.monotonic()
+    tp2.import_pages(dst, 0, payload)
+    back = tp2.export_pages(dst)
+    torch.cuda.synchronize()
+    seconds = time.monotonic() - t0
+    check(back["tp"] == 2 and payload["tp"] == 1, "tp pull: the payloads' tp degrees")
+    check(back["k"] == payload["k"] and back["v"] == payload["v"],
+          "tp pull: the TP 2 runner's export of the imported pages is not the TP 1 export")
+    reps = tp2.rank_reports()
+    per = tp_check_ranks("tp_pull", tp2, TP_L, reps, {
+        "gather_pages_sharded": 2, "scatter_pages_sharded": 2})
+    rec = {"phase": "tp_pull", "pages": len(pages), "bytes": 2 * len(payload["k"]),
+           "seconds": seconds, **per, "nvidia_smi": smi}
+    emit(rec)
+    return {name: reps[0]["launches"][name] for name in
+            ("gather_pages_sharded", "scatter_pages_sharded")}
+
+
+def engine_tp_phase(smi):
+    """llama-3.1-8b at full width and depth served at TP 2, two rank
+    processes on the card (`--tensor-parallel 2`: the kernels built once
+    here, the follower spawned): its parity with a TP 1 runner on the same
+    seed-0 params (tp_parity), one TP 1 -> TP 2 pull (tp_pull), then the
+    3B's traffic fused (`engine_tp`, the main path) and unfused
+    (`engine_tp_unfused`), and a fused turn over int8 pools
+    (`engine_tp_int8`, a TP 2 runner on the same ranks); each turn with
+    every rank's launch identities, the followers' tokens equal to rank
+    0's, each rank's peak memory. Last, llama-3.1-70b at TP 2 is refused
+    by the fit check before anything is spawned or drawn. Returns the
+    sharded wrappers' launches (the fused turn's; the copies' from the
+    pull) and the turns' bodies."""
+    t0 = time.monotonic()
+    tp2, cfg = build_runner(parse_args(TP_ARGS))
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    group = tp2.group
+    emit({"phase": "tp_ranks", "transport": group.transport,
+          "devices": [str(d) for d in group.devices],
+          "follower_pids": [p.pid for p in tp2._procs], "build_s": build_s,
+          "nvidia_smi": smi})
+    check(cfg.n_layers == TP_L and cfg.n_kv_heads // 2 == TP_HK,
+          f"engine_tp: {cfg.name} has {cfg.n_layers} layers, {cfg.n_kv_heads} KV heads")
+    tp1, _, _ = timed_runner(model_args("llama-3.1-8b"))
+    prompt, table = tp_parity(tp1, tp2, smi)
+    launches = tp_pull(tp1, tp2, prompt, table, smi)
+    free(tp1)
+    del tp1
+    found = {}
+    for phase, fused in (("tp", None), ("tp_unfused", False)):
+        rec, l0 = tp_turn(tp2, phase, fused, build_s if fused is None else None)
+        rec["transport"] = group.transport
+        rec["nvidia_smi"] = smi
+        found[phase] = rec["bodies"][0]
+        if fused is None:
+            for name in ("decode_paged_attention_sharded", "prefill_paged_attention_sharded",
+                         "ragged_paged_attention_sharded"):
+                launches[name] = rec["per_rank"][0]["launches"][name]
+        emit(rec)
+    tp2.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    # int8 pools on the same ranks
+    kw = dict(config=cfg, num_pages=2048, page_size=16, max_pages_per_seq=256,
+              device=group.devices[0], kv_quantize="int8")
+    from dynamo_tpu_torch.parallel.group import MirroredRunner, shutdown_followers
+    tp8 = MirroredRunner(group, tp2._procs, **kw)
+    rec, _ = tp_turn(tp8, "tp_int8", None)
+    check(all(set(b["ragged_paged_attention"]) <= {"D128_int8"} for b in rec["bodies"]),
+          f"engine_tp_int8: bodies {rec['bodies']}")
+    rec["nvidia_smi"] = smi
+    found["tp_int8"] = rec["bodies"][0]
+    emit(rec)
+    tp8.close()
+    codes = shutdown_followers(group, tp2._procs)
+    check(codes == [0], f"engine_tp: the follower exited {codes}")
+    del tp2, tp8
+    gc.collect()
+    torch.cuda.empty_cache()
+    # llama-3.1-70b over two ranks on this one card: refused by the fit
+    # check before any follower is spawned or any tensor drawn
+    before = torch.cuda.memory_allocated()
+    try:
+        build_runner(parse_args(model_args("llama-3.1-70b") + ["--tensor-parallel", "2"]))
+        refused = None
+    except MemoryError as e:
+        refused = str(e)
+    check(refused is not None and "2 rank(s) on this device" in refused,
+          f"engine_tp_70b: not refused by the fit check: {refused}")
+    check(torch.cuda.memory_allocated() == before, "engine_tp_70b: memory was allocated")
+    emit({"phase": "engine_tp_70b", "refused": refused, "nvidia_smi": smi})
+    return launches, found
+
+
 def main() -> int:
+    only = []
+    if sys.argv[1:2] == ["--only"]:
+        only = sys.argv[2].split(",")
+        if only != ["tp"]:
+            print(f"chip_smoke: --only takes `tp`, not {only}", file=sys.stderr)
+            return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -8229,70 +8728,87 @@ def main() -> int:
               f"GQA D 256 instantiations: {sorted(d256)}")
         check(all(v.get("spill_stores", 1) == 0 and v.get("spill_loads", 1) == 0
                   for v in d256.values()), f"GQA D 256 kernels spill: {d256}")
-        kern = kernel_phase(dev)
-        shapes_phase(dev)
-        kern.update(copy_kernel_phase(dev))
-        kern.update(tier_codec_phase(dev))
-        kern.update(mla_kernel_phase(dev))
-        decode_split_edges_phase(dev)
-        gem = gemma_kernels_phase(dev)
-        kern.update(int8_kernels_phase(
-            dev, {name: kern[name]["device_ms"]
-                  for name in GQA_KERNELS + ("decode_mla_attention",)},
+        if only == ["tp"]:  # tensor parallelism alone (a quicker check)
+            kern = timed("tp_kernels_phase", tp_kernels_phase, dev)
+            launches, _ = timed("engine_tp_phase", engine_tp_phase, smi)
+            return finish(t0, kern, launches, {}, TP_SHARDED, smi, kind, count)
+        kern = timed("kernel_phase", kernel_phase, dev)
+        timed("shapes_phase", shapes_phase, dev)
+        kern.update(timed("copy_kernel_phase", copy_kernel_phase, dev))
+        kern.update(timed("tier_codec_phase", tier_codec_phase, dev))
+        kern.update(timed("mla_kernel_phase", mla_kernel_phase, dev))
+        timed("decode_split_edges_phase", decode_split_edges_phase, dev)
+        gem = timed("gemma_kernels_phase", gemma_kernels_phase, dev)
+        kern.update(timed(
+            "int8_kernels_phase", int8_kernels_phase, dev,
+            {name: kern[name]["device_ms"]
+             for name in GQA_KERNELS + ("decode_mla_attention",)},
             gem["D256_G2"]["cases"]["gemma2"]))
         del gem
-        head = head_shape_kernels_phase(dev)
-        kern.update(moe_kernels_phase(dev))
-        kern.update(quant_kernels_phase(dev))
+        head = timed("head_shape_kernels_phase", head_shape_kernels_phase, dev)
+        kern.update(timed("moe_kernels_phase", moe_kernels_phase, dev))
+        kern.update(timed("quant_kernels_phase", quant_kernels_phase, dev))
+        # this slice's kernels: the sharded wrappers at a TP 2 rank's shapes
+        kern.update(timed("tp_kernels_phase", tp_kernels_phase, dev))
         gc.collect()
         torch.cuda.empty_cache()
-        verify_rec = verify_shape_phase(dev)
-        runner, launches, bodies, fused_rec, streams = engine_phases(dev)
+        verify_rec = timed("verify_shape_phase", verify_shape_phase, dev)
+        runner, launches, bodies, fused_rec, streams = timed("engine_phases", engine_phases, dev)
         variants = {name: {"engine_fused": bodies[name]} for name in GQA_KERNELS}
         variants["prefill_paged_attention"]["verify_B8_S5"] = verify_rec
         # this slice's paths: the device ring against the host scan, tree
         # speculation, and draft-model speculation on the 3B's params
-        draft_ring_phase(runner, streams)
-        tree_phase(runner)
-        draft_self = draft_phases(runner, streams, fused_rec)
+        timed("draft_ring_phase", draft_ring_phase, runner, streams)
+        timed("tree_phase", tree_phase, runner)
+        draft_self = timed("draft_phases", draft_phases, runner, streams, fused_rec)
         # this slice's paths: the 3B's params as an HF checkpoint served
         # through --checkpoint (and a self-draft from --draft-checkpoint),
         # the three restart tiers as worker processes, rl update_weights
-        checkpoint_phases(runner, streams["fused"], fused_rec, draft_self, smi)
+        timed("checkpoint_phases", checkpoint_phases, runner, streams["fused"], fused_rec, draft_self, smi)
         del streams
         # each copy kernel's launches from the phase that runs it
-        disagg, disagg_rec = disagg_phase(runner.params)
+        disagg, disagg_rec = timed("disagg_phase", disagg_phase, runner.params)
         launches["gather_pages"] = disagg["gather_pages"]
         launches["scatter_pages"] = disagg["scatter_pages"]
-        tier_launches = tiers_phase(runner.params)
+        tier_launches = timed("tiers_phase", tiers_phase, runner.params)
         for name in ("scatter_pages_layers", "tier_quantize", "tier_dequantize"):
             launches[name] = tier_launches[name]
-        parity_phase(runner, dev)
+        timed("parity_phase", parity_phase, runner, dev)
         # this slice's paths: the sync guard, the anomaly trigger and its
         # profile window, the hooks' costs, and the hardware sweep
-        observability_engine_phase(runner, dev, smi)
-        hw_profile_phase(runner, smi)
+        timed("observability_engine_phase", observability_engine_phase, runner, dev, smi)
+        timed("hw_profile_phase", hw_profile_phase, runner, smi)
         # earlier slices' paths: sampling extras, guided decoding, branches
-        extras_phases(runner, smi)
+        timed("extras_phases", extras_phases, runner, smi)
         # multi-LoRA on the 3B's params: the padded path with adapters
-        lora_phases(runner, dev, smi)
+        timed("lora_phases", lora_phases, runner, dev, smi)
         # the request plane: the in-process streams served one at a time,
         # the disaggregated pair over TCP, then (this process's runners
         # freed) the worker as a process of its own
-        in_process = alone_phase(runner)
-        served_disagg_phase(runner.params, disagg_rec)
+        in_process = timed("alone_phase", alone_phase, runner)
+        timed("served_disagg_phase", served_disagg_phase, runner.params, disagg_rec)
         V = runner.config.vocab_size
         del runner, disagg
         gc.collect()
         torch.cuda.empty_cache()
-        served_rec = served_phase(in_process, fused_rec, V)
+        served_rec = timed("served_phase", served_phase, in_process, fused_rec, V)
         # the frontend: two worker processes behind the HTTP frontend
-        frontend_phase(in_process, V, served_rec, smi)
+        timed("frontend_phase", frontend_phase, in_process, V, served_rec, smi)
         # LoRA adapters served as models, filtered routing, a runtime load
-        lora_served_phase(smi)
+        timed("lora_served_phase", lora_served_phase, smi)
+        # this slice's path: llama-3.1-8b at TP 2, two rank processes on the
+        # card, with nothing else on it
+        tp_launches, tp_bodies = timed("engine_tp_phase", engine_tp_phase, smi)
+        launches.update(tp_launches)
+        for name in ("decode_paged_attention_sharded", "prefill_paged_attention_sharded",
+                     "ragged_paged_attention_sharded"):
+            variants[name] = {f"engine_{ph}": b[TP_INNER[name]]
+                              for ph, b in tp_bodies.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
         # the slice's main path: llama-3.1-8b over int8 pools; each int8
         # entry's launches are the fused phase's (all on its int8 body)
-        int8_launches, int8_bodies = int8kv_phases(dev, smi)
+        int8_launches, int8_bodies = timed("int8kv_phases", int8kv_phases, dev, smi)
         for name in GQA_KERNELS:
             launches[f"{name}_int8"] = int8_launches[name]
             variants[f"{name}_int8"] = {f"engine_{phase}": b[name]
@@ -8301,43 +8817,43 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
         # weight-only quantization: llama-3.1-8b int8, llama-3.2-3b fp8
-        launches.update(quant_phases(dev, smi))
+        launches.update(timed("quant_phases", quant_phases, dev, smi))
         gc.collect()
         torch.cuda.empty_cache()
-        mla, mla8 = mla_phases(dev)
+        mla, mla8 = timed("mla_phases", mla_phases, dev)
         for name in MLA_KERNELS:
             launches[name] = mla[name]
         launches["decode_mla_attention_int8"] = mla8["decode_mla_attention"]
         del mla, mla8
         gc.collect()
         torch.cuda.empty_cache()
-        found = gemma_phases(dev, smi)
+        found = timed("gemma_phases", gemma_phases, dev, smi)
         gc.collect()
         torch.cuda.empty_cache()
         # this slice's paths: qwen2.5-7b (G 7), phi-3 (D 96, window 2047,
         # bf16 and int8) and the other families; the head-shape entries'
         # launches are their engines' fused phases'
-        q_launches, q_bodies = qwen2_phases(dev, smi)
-        p_launches, p8_launches, p_bodies = phi3_phases(dev, smi)
+        q_launches, q_bodies = timed("qwen2_phases", qwen2_phases, dev, smi)
+        p_launches, p8_launches, p_bodies = timed("phi3_phases", phi3_phases, dev, smi)
         found.update(q_bodies)
         found.update(p_bodies)
-        found.update(families_phase(dev, smi))
+        found.update(timed("families_phase", families_phase, dev, smi))
         gc.collect()
         torch.cuda.empty_cache()
         # MoE, with nothing else on the card (qwen3-30b-a3b: 57 GiB of
         # weights); the grouped GEMM's launches are engine_qwen3moe's
-        moe_launches, moe_bodies = qwen3moe_phases(dev, smi)
+        moe_launches, moe_bodies = timed("qwen3moe_phases", qwen3moe_phases, dev, smi)
         found.update(moe_bodies)
         for name in MOE_KERNELS:
             launches[name] = moe_launches[name]
         gc.collect()
         torch.cuda.empty_cache()
-        mla_moe_phases(dev, smi)
+        timed("mla_moe_phases", mla_moe_phases, dev, smi)
         gc.collect()
         torch.cuda.empty_cache()
-        # mixtral-8x7b at full depth on int8 weights, with nothing else on
+        # mixtral-8x7b at 8 layers on int8 weights, with nothing else on
         # the card; the grouped GEMM's int8 entries' launches are its
-        mix_launches = mixtral_phases(dev, smi)
+        mix_launches = timed("mixtral_phases", mixtral_phases, dev, smi)
         for name in MOE_KERNELS:
             launches[f"{name}_int8"] = mix_launches[name]
         for phase, b in found.items():
@@ -8362,7 +8878,13 @@ def main() -> int:
         head_sources[f"{name}_D96_window"] = SOURCES[name]
         head_sources[f"{name}_D96_int8_window"] = INT8_SOURCES[f"{name}_int8"]
     sources = {**SOURCES, **INT8_SOURCES, **head_sources, **QUANT_SOURCES,
-               **TIER_CODEC_SOURCES}
+               **TIER_CODEC_SOURCES, **TP_SHARDED}
+    return finish(t0, kern, launches, variants, sources, smi, kind, count)
+
+
+def finish(t0, kern, launches, variants, sources, smi, kind, count) -> int:
+    """The total, the kernels line, the card's name and power limit, and
+    the last line."""
     emit({"phase": "total", "seconds": time.monotonic() - t0})
     emit({"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],

@@ -2,7 +2,7 @@
 H100.
 
 The package mirrors dynamo_tpu's module names (models/, ops/, engine/,
-router/, frontend/, runtime/, planner/, worker.py) so each counterpart is easy to
+router/, frontend/, runtime/, planner/, parallel/, worker.py) so each counterpart is easy to
 find. It imports torch and never JAX or dynamo_tpu. Entry points run on CUDA unless the caller passes
 device="cpu"; the attention and page-copy ops run hand-written Hopper
 kernels on CUDA tensors and their plain PyTorch versions on CPU tensors.

@@ -25,7 +25,13 @@ mixed plans take the padded fallback, while its n-gram verify stays on
 the ragged step with a slot a flat token), with the
 reference's buckets, `_next_bucket`, `BucketOverflowError` and KV wire
 format (`KV_WIRE_LAYOUT_VERSION` 2). Params
-and the KV pools live on one device; the pools are updated in place
+and the KV pools live on one device; under tensor parallelism (`tp`, a
+parallel/group.py TPGroup; the runner built on every rank by
+parallel/group.py MirroredRunner) they are this rank's slices and Hk / tp
+heads, the forward's collectives keep the ranks in step, the copies go
+through the sharded page-copy wrappers, the wire keeps whole-head pages
+(exports all-gathered, imports cut) and `layout_table` names each
+tensor's rank and cut. The pools are updated in place
 (`kv_quantize="int8"`: the int8 dict pools of models/quant.py, whose pages
 cross the transfer boundary dequantized, so the wire stays in the dense
 dtype and bf16 and int8 workers interoperate; `quantize="int8"` or
@@ -83,13 +89,26 @@ from dynamo_tpu_torch.engine.spec_decode import spec_rounds
 from dynamo_tpu_torch.engine.weights import check_fits, read_snapshot_into, serving_bytes
 from dynamo_tpu_torch.models.toolkit import (
     is_quantized,
+    kv_pool_shapes,
     make_kv_pool,
     pool_values,
 )
 from dynamo_tpu_torch.ops.block_copy import (
     gather_pages,
+    gather_pages_sharded,
     scatter_pages,
     scatter_pages_layers,
+    scatter_pages_sharded,
+)
+from dynamo_tpu_torch.parallel.mesh import (
+    ITEM_TIERS,
+    KV_CUT,
+    MeshConfig,
+    cut,
+    local_shape,
+    param_cut,
+    refuse_tp,
+    shard_tree,
 )
 from dynamo_tpu_torch.ops.tier_codec import tier_dequantize, tier_quantize
 from dynamo_tpu_torch.runtime.sanitizer import tensor_rows
@@ -170,6 +189,12 @@ def _next_bucket(buckets: Sequence[int], n: int) -> int:
         if b >= n:
             return b
     raise BucketOverflowError(n, buckets)
+
+
+def _to_device(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    return tree.to(device)
 
 
 def _padded(values: Sequence[int], n: int, fill: int) -> np.ndarray:
@@ -432,10 +457,18 @@ class ModelRunner:
         lora_targets: Optional[Sequence[str]] = None,  # None: DEFAULT_TARGETS
         attn_impl: str = "kernel",  # forward's path: the kernels, or "ref"
         #   (the plain PyTorch versions; the hardware sweep's A/B)
+        tp=None,  # parallel/group.py TPGroup: this rank's slice of a
+        #   tensor-parallel model (built by parallel/group.py MirroredRunner)
     ):
         self.config = config
         self.attn_impl = attn_impl
         self.device = resolve_device(device)
+        # tensor parallelism: this rank of tp_size (its params slices and
+        # its pools' Hk / tp_size heads, parallel/mesh.py)
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        self.tp_rank = 0 if self.tp is None else tp.rank
+        self.tp_size = 1 if self.tp is None else tp.size
+        self.mesh_config = MeshConfig(model=self.tp_size)
         self.num_pages = num_pages
         self.page_size = page_size
         self.max_pages_per_seq = max_pages_per_seq
@@ -471,7 +504,9 @@ class ModelRunner:
             raise NotImplementedError(
                 "LoRA is not supported for MLA models" if config.is_mla
                 else "LoRA is not supported with n_dense_layers models")
-        if self.device.type == "cuda":
+        if self.device.type == "cuda" and self.tp is None:
+            # (a tensor-parallel build is checked for every rank on the
+            # card before any rank draws: MirroredRunner)
             need = serving_bytes(config, num_pages, page_size, dtype, kv_quantize,
                                  quantize, params, draft_config, draft_params)
             if lora_slots > 0:
@@ -480,8 +515,15 @@ class ModelRunner:
             check_fits(config.name, need, torch.cuda.mem_get_info(self.device)[0])
         t0 = time.monotonic()
         if params is None:
-            # drawn quantized, one matrix at a time
-            params = llama.init_params(config, 0, dtype, self.device, quantize)
+            # drawn quantized, one matrix at a time (or this rank's slices)
+            params = llama.init_params(config, 0, dtype, self.device, quantize,
+                                       rank=self.tp_rank, tp=self.tp_size)
+        elif self.tp is not None:
+            # a whole tree (or this rank's) -> this rank's slices, here
+            params = shard_tree(params, llama.param_shapes(config), self.tp_rank,
+                                self.tp_size)
+            params = _to_device(params, self.device)
+            check_tree(params)
         elif quantize:
             # a new tree: the caller's stays as it is (another runner may
             # serve it)
@@ -502,7 +544,7 @@ class ModelRunner:
         self.kv_quantize = kv_quantize
         self.k_pool, self.v_pool = make_kv_pool(
             config, num_pages + 1, page_size, dtype, self.device,
-            kv_quantize=kv_quantize)
+            kv_quantize=kv_quantize, tp=self.tp_size)
         # draft-model speculation: the draft owns pools of its own (bf16 or
         # int8 as the target's, the same spare page) addressed by the same
         # page tables, so paging, prefix sharing and preemption need no
@@ -531,7 +573,8 @@ class ModelRunner:
         # shapes seen, dispatches) and where each tensor was placed
         self._sanitizer = None
         self._families: Dict[str, DispatchFamily] = {}
-        self._placed = {name: (t.device, t.dtype) for name, t in self._layout_rows()}
+        self._placed = {name: (t.device, t.dtype) + self._declared(name)
+                        for name, t in self._layout_rows()}
         # the host tier's blocks (export_page_blocks): at most
         # `pinned_block_cap` of the host tensors handed out are pinned (set
         # by reserve_host_memory), the rest pageable; `_pinned_live` counts
@@ -580,10 +623,29 @@ class ModelRunner:
 
     def layout_table(self):
         """(name, live tensor, (device, dtype) placed) for every param,
-        KV pool and adapter tensor: the sanitizer's layout check."""
+        KV pool and adapter tensor: the sanitizer's layout check. Under
+        tensor parallelism `placed` is (device, dtype, the rank's declared
+        shape, rank, the dim cut over the ranks or None)."""
         placed = self._placed
         for name, t in self._layout_rows():
             yield name, t, placed.get(name, (t.device, t.dtype))
+
+    def _declared(self, name: str) -> tuple:
+        """A tensor-parallel row's (shape, rank, cut dim): what the split
+        rule (parallel/mesh.py) gives this rank; () without tensor
+        parallelism."""
+        if self.tp is None:
+            return ()
+        parts = name.split("/")
+        if parts[0] == "params":
+            node = llama.param_shapes(self.config)
+            for p in parts[1:]:
+                node = node[p]
+            dim = param_cut(parts[-1])
+            return local_shape(node, dim, self.tp_size), self.tp_rank, dim
+        shape = kv_pool_shapes(self.config, self.num_pages + 1, self.page_size,
+                               self.tp_size)[0]
+        return (shape[:-1] if parts[-1] == "s" else shape), self.tp_rank, KV_CUT
 
     def _layout_rows(self):
         yield from tensor_rows("params/", self.params)
@@ -643,7 +705,7 @@ class ModelRunner:
             *self._adapter_ints([adapter], 1))
         logits = llama.forward(
             self.config, self.params, tok, pos, self.k_pool, self.v_pool,
-            pt, kvl, n - 1, attn_impl=self.attn_impl, **self._lora_kw(ad))
+            pt, kvl, n - 1, attn_impl=self.attn_impl, tp=self.tp, **self._lora_kw(ad))
         self.stats["prefill_chunks"] += 1
         self._note_shape("prefill", (S,))
         return logits[0, 0]
@@ -812,7 +874,7 @@ class ModelRunner:
             kvl = torch.where(pos0 < 0, 0, pos0 + t + 1).to(torch.int32)
             logits = llama.forward(
                 self.config, self.params, tok[:, None], pos[:, None],
-                self.k_pool, self.v_pool, pt, kvl, attn_impl=self.attn_impl,
+                self.k_pool, self.v_pool, pt, kvl, attn_impl=self.attn_impl, tp=self.tp,
                 **self._lora_kw(adapter_idx),
             )
             raw = logits[:, 0]
@@ -979,7 +1041,7 @@ class ModelRunner:
         tok, pos0, pt = up[k:k + 3]
         logits = llama.forward(self.config, self.params, ptok, ppos,
                                self.k_pool, self.v_pool, ppt, pkvl, plast,
-                               attn_impl=self.attn_impl, **self._lora_kw(up[5:k]))
+                               attn_impl=self.attn_impl, tp=self.tp, **self._lora_kw(up[5:k]))
         self.stats["padded_prefill_dispatches"] += 1
         self._note_shape("mixed_padded", (int(packed[0].shape[0]), int(packed[0].shape[1]), B))
         toks, _ = self._decode_loop(n_steps, tok, pos0, pt,
@@ -1118,7 +1180,7 @@ class ModelRunner:
             self.config, self.params, views["flat"], views["positions"],
             self.k_pool, self.v_pool, last_index=views["gather"],
             ragged=(views["seg_page_table"], views["seg_kv_lens"],
-                    views["meta"]), attn_impl=self.attn_impl, **lora_kw)
+                    views["meta"]), attn_impl=self.attn_impl, tp=self.tp, **lora_kw)
         seg_logits = logits[0]
         base = self._device_sampling(sampling, seg_cap)
         if row_seq is None:
@@ -1562,8 +1624,9 @@ class ModelRunner:
 
     def _dense_pages(self, pool, idx: torch.Tensor) -> torch.Tensor:
         # the copy kernels read their page ids back once a call
+        gather = gather_pages if self.tp is None else gather_pages_sharded
         with self._allow("kv_tier_io"):
-            parts = [gather_pages(p, idx) for p in self._parts(pool)]
+            parts = [gather(p, idx) for p in self._parts(pool)]
         if is_quantized(pool):
             return kv_pool_dequantize({"q": parts[0], "s": parts[1][..., 0]},
                                       self.dtype)
@@ -1578,9 +1641,10 @@ class ModelRunner:
         return [d["q"], d["s"][..., None]]
 
     def _store_pages(self, pool, idx: torch.Tensor, dense: torch.Tensor) -> None:
+        scatter = scatter_pages if self.tp is None else scatter_pages_sharded
         with self._allow("kv_tier_io"):
             for p, pages in zip(self._parts(pool), self._as_stored(pool, dense)):
-                scatter_pages(p, idx, pages)
+                scatter(p, idx, pages)
 
     def _store_pages_layers(self, pool, idx: torch.Tensor, dense: torch.Tensor,
                             layer_off: torch.Tensor) -> None:
@@ -1660,10 +1724,16 @@ class ModelRunner:
         """Gather whole KV pages into fresh device buffers (no host copy),
         [L, n, PS, Hk, D] per pool. The gather materializes new tensors, so
         the source pages may be reused once it is enqueued: later writes
-        run behind it on the same stream."""
+        run behind it on the same stream. Under tensor parallelism each
+        rank gathers its own heads (gather_pages_sharded) and the ranks'
+        slices are all-gathered into whole-head pages: the wire is always
+        dense full-head pages, as the reference's."""
         idx, = self._page_ids(pages)
         self.stats["kv_pages_exported"] += len(pages)
-        return self._dense_pages(self.k_pool, idx), self._dense_pages(self.v_pool, idx)
+        k, v = self._dense_pages(self.k_pool, idx), self._dense_pages(self.v_pool, idx)
+        if self.tp is not None:
+            k, v = self.tp.all_gather(k, KV_CUT), self.tp.all_gather(v, KV_CUT)
+        return k, v
 
     def import_pages_device(self, target_pages: List[int], offset: int, k, v) -> None:
         """Scatter device-staged pages [:, offset:offset+n] into this
@@ -1757,14 +1827,20 @@ class ModelRunner:
             v_h.copy_(v, non_blocking=True)
             torch.cuda.current_stream(self.device).synchronize()
             k, v = k_h, v_h
-        return kv_arrays_to_payload(k, v)
+        return kv_arrays_to_payload(k, v, tp=self.tp_size)
 
     @property
     def kv_page_shape(self) -> Tuple[int, int, int, int]:
         """(L, PS, Hk, D) page geometry of this runner's pools — the local
-        side of the wire layout handshake."""
+        side of the wire layout handshake (whole heads under tensor
+        parallelism: the wire holds full-head pages)."""
         L, _, PS, Hk, D = pool_values(self.k_pool).shape
-        return (L, PS, Hk, D)
+        return (L, PS, Hk * self.tp_size, D)
+
+    def _refuse_tp(self, what: str) -> None:
+        # payloads a mirrored call may carry that this slice does not take
+        if self.tp is not None:
+            raise refuse_tp(what, ITEM_TIERS)
 
     @property
     def kv_wire_dtype(self) -> str:
@@ -1797,13 +1873,18 @@ class ModelRunner:
         tensors, or lists of n [L, PS, Hk, D] host blocks (all pinned:
         copied whole; else stacked straight into the staging buffers), in
         the runner's dtype. An int8 pool quantizes them on the device with
-        its own quantizer.
+        its own quantizer. Under tensor parallelism the pages hold every
+        KV head and each rank keeps its own (scatter_pages_sharded).
 
         layer_groups > 1 streams the import in contiguous layer slabs
         (FlowKV-style): on a card each group's host→device copy runs on a
         copy stream and its scatter on the compute stream behind it, so a
         group's copy overlaps the previous group's scatter. Final pool
         contents are identical to a whole-sequence import."""
+        if self.tp is not None:
+            if isinstance(k, (list, tuple)) or isinstance(v, (list, tuple)):
+                self._refuse_tp("importing host-tier page blocks")
+            k, v = (cut(x, KV_CUT, self.tp_rank, self.tp_size) for x in (k, v))
         self._import_staged(target_pages, [k], [v], layer_groups)
 
     def _import_pages_quant(self, target_pages: List[int], offset: int,
@@ -1813,6 +1894,7 @@ class ModelRunner:
         dequantize / requantize; a dense pool dequantizes them on the
         device after the copy (ops/tier_codec.py, the host codec's
         arithmetic bit for bit), one rounding as on the dense wire."""
+        self._refuse_tp("the tier codec's int8 pages")
         if payload.get("layout") != KV_WIRE_LAYOUT_VERSION:
             raise KvWireLayoutMismatch(
                 f"kv wire layout {payload.get('layout')} != {KV_WIRE_LAYOUT_VERSION}")
@@ -1902,6 +1984,8 @@ class ModelRunner:
                 for p, pages in zip(self._parts(pool), stored):
                     if layered:
                         scatter_pages_layers(p, idx, pages, offs[g:g + 1])
+                    elif self.tp is not None:
+                        scatter_pages_sharded(p, idx, pages)
                     else:
                         scatter_pages(p, idx, pages)
             if layered:

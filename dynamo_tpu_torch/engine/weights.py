@@ -84,6 +84,7 @@ from dynamo_tpu_torch.models.quant import (
     quantize_weight,
 )
 from dynamo_tpu_torch.models.toolkit import kv_pool_bytes
+from dynamo_tpu_torch.parallel.mesh import cut, local_param_shapes, param_cut
 
 log = logging.getLogger("dynamo_tpu_torch.engine.weights")
 
@@ -99,10 +100,13 @@ def _codes(name: str, arr) -> torch.Tensor:
     raise TypeError(f"{name}: codes of type {arr.dtype} (int8 or float8_e4m3fn)")
 
 def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
-                      device, dtype=torch.bfloat16) -> Dict[str, Any]:
+                      device, dtype=torch.bfloat16, rank: int = 0,
+                      tp: int = 1) -> Dict[str, Any]:
     """numpy (or array-like) tree -> the port's params dict on `device`.
     Raises on a missing or an extra leaf (a branch the config does not
-    run) or a shape that does not match `config`."""
+    run) or a shape that does not match `config`. `tp` > 1: the whole
+    tree's rank `rank` slices (parallel/mesh.py's rule; quantized trees
+    are refused)."""
     want = param_shapes(config)
     stacks = [k for k, v in want.items() if isinstance(v, dict)]
     extra = sorted(set(tree) - set(want))
@@ -130,11 +134,16 @@ def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
 
     def conv(where, name, shape):
         if isinstance(where[name], Mapping):
+            if tp > 1:
+                raise NotImplementedError(
+                    "quantized weights under tensor parallelism: ROADMAP A.14 "
+                    "(second half)")
             return quantized(where[name], name, shape)
         arr = np.asarray(where[name], dtype=np.float32)
         if arr.shape != shape:
             raise ValueError(f"{name}: shape {arr.shape}, config wants {shape}")
-        t = torch.tensor(arr)  # a copy: the source may be read-only
+        t = cut(torch.tensor(arr), param_cut(name), rank, tp)  # a copy: the
+        #   source may be read-only
         return t.to(device=device,
                     dtype=torch.float32 if name in F32_LEAVES else dtype)
 
@@ -164,16 +173,17 @@ def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
 def serving_bytes(config: ModelConfig, num_pages: int, page_size: int,
                   dtype=torch.bfloat16, kv_quantize=None, quantize=None,
                   params=None, draft_config: ModelConfig = None,
-                  draft_params=None) -> int:
+                  draft_params=None, tp: int = 1) -> int:
     """Device bytes a ModelRunner places: its KV pools (`num_pages` + 1
     pages: the spare page takes the padding rows' writes), its params when
     it draws them (`params` None) or, given a tree under `quantize`, the
     codes and scales quantize_params adds beside it; with a draft model,
     the draft's pools (the same pages) and its params when drawn. Draft
-    params are never quantized."""
-    need = kv_pool_bytes(config, num_pages + 1, page_size, dtype, kv_quantize)
+    params are never quantized. `tp`: one of tp ranks' bytes (tensor
+    parallelism: its params slice and its pools' heads)."""
+    need = kv_pool_bytes(config, num_pages + 1, page_size, dtype, kv_quantize, tp)
     if params is None:
-        need += param_bytes(config, dtype, quantize)
+        need += param_bytes(config, dtype, quantize, tp=tp)
     elif quantize:
         # the caller's tree stays (another runner may serve it)
         held = [params] + [params[st] for st in ("layers", "layers_dense")
@@ -189,9 +199,21 @@ def serving_bytes(config: ModelConfig, num_pages: int, page_size: int,
     return need
 
 
-def check_fits(name: str, need: int, free: int) -> None:
+def check_fits(name: str, need: int, free: int, ranks: int = 1, tp: int = 1) -> None:
     """Raise MemoryError, before anything is drawn or copied, when `need`
-    bytes of params and pools exceed the `free` bytes of the device."""
+    bytes of params and pools exceed the `free` bytes of the device. Under
+    tensor parallelism `need` is one of `tp` ranks' bytes and `ranks` of
+    them share the device."""
+    if tp > 1:
+        total = need * ranks
+        if total > free:
+            raise MemoryError(
+                f"{name} over {tp} tensor-parallel ranks: {ranks} rank(s) on "
+                f"this device, {need / 1e9:.1f} GB each of params slices and KV "
+                f"pools, {total / 1e9:.1f} GB in all, and the device has "
+                f"{free / 1e9:.1f} GB free; spread the ranks over more cards, "
+                "serve fewer layers or fewer pages")
+        return
     if need > free:
         raise MemoryError(
             f"{name}: its params and KV pools take {need / 1e9:.1f} GB and the "
@@ -551,8 +573,8 @@ def _stack_sources(c: ModelConfig, ckpt: _Checkpoint, L0: int, moe: bool
 
 def load_hf_checkpoint(checkpoint_dir: str, config: ModelConfig, device=None,
                        dtype=torch.bfloat16, stats: Optional[Dict[str, float]] = None,
-                       quantize: Optional[str] = None, sinks: Sequence[Any] = ()
-                       ) -> Dict[str, Any]:
+                       quantize: Optional[str] = None, sinks: Sequence[Any] = (),
+                       rank: int = 0, tp: int = 1) -> Dict[str, Any]:
     """An HF safetensors directory -> the port's params on `device` (CUDA
     unless "cpu"), in x @ W layout, the tree `param_shapes(config)`
     describes: matrices in `dtype`, norms and the router bias in f32, bit
@@ -563,13 +585,22 @@ def load_hf_checkpoint(checkpoint_dir: str, config: ModelConfig, device=None,
     not match `config` raises ValueError, one that does not fit the card
     MemoryError, both before any tensor is copied. `stats` (a dict) gets
     the seconds of the file reads, host-to-device copies and device
-    transposes, and the bytes read."""
+    transposes, and the bytes read. `tp` > 1 reads rank `rank`'s slice of
+    every leaf (parallel/mesh.py): a leaf cut along the stored tensor's
+    rows (a column-parallel projection, its bias, an untied head) reads
+    only those rows; one cut along its columns (wo, w_down, the
+    embedding) is read a layer or a row range at a time and cut on the
+    device. Under tensor parallelism the caller checks the fit (every
+    rank sharing the card), and quantized or sinked loads are refused."""
     d = Path(checkpoint_dir)
     files = sorted(d.glob("*.safetensors"))
     if not files:
         raise FileNotFoundError(f"no .safetensors files under {checkpoint_dir}")
     device = resolve_device(device)
     c = config
+    if tp > 1 and (quantize or sinks):
+        raise NotImplementedError("quantized loads and warm-tier sinks under "
+                                  "tensor parallelism: ROADMAP A.14 (second half)")
     t_start = time.monotonic()
     ckpt = _Checkpoint(files, c, device)
     try:
@@ -579,10 +610,10 @@ def load_hf_checkpoint(checkpoint_dir: str, config: ModelConfig, device=None,
                 raise ValueError(
                     f"checkpoint shape {tuple(q[::-1])} does not match config "
                     f"{c.name} ({c.dim}, {c.n_heads * c.head_dim})")
-        if device.type == "cuda":
+        if device.type == "cuda" and tp == 1:
             check_fits(c.name, param_bytes(c, dtype, quantize),
                        torch.cuda.mem_get_info(device)[0])
-        entries, read = _checkpoint_reader(ckpt, c, dtype)
+        entries, read = _checkpoint_reader(ckpt, c, dtype, rank, tp)
         params = alloc_tree(entries, device, quantize)
         for s in sinks:
             s.begin(entries)
@@ -599,20 +630,36 @@ def load_hf_checkpoint(checkpoint_dir: str, config: ModelConfig, device=None,
     return params
 
 
-def _checkpoint_reader(ckpt: _Checkpoint, c: ModelConfig, dtype):
+def _checkpoint_reader(ckpt: _Checkpoint, c: ModelConfig, dtype, rank: int = 0,
+                       tp: int = 1):
     """The unquantized tree the checkpoint gives, as fill_tree's entries
     (sorted by key) and reader: a leaf's rows come from each layer's [out,
     in] tensor, read as stored and transposed, cast and (MLA) permuted
-    into place on the device."""
+    into place on the device. `tp` > 1: rank `rank`'s slices."""
     dc, dr = c.kv_lora_rank, c.qk_rope_head_dim
     rp = _rope_deinterleave(dr).to(ckpt.device) if c.is_mla else None
 
     def fill(dst: torch.Tensor, name: str, transpose: bool, fix: str = "",
-             rows: Optional[Tuple[int, int]] = None) -> None:
+             rows: Optional[Tuple[int, int]] = None, cut_dim: Optional[int] = None) -> None:
         """Read `name` ([out, in] for a matrix), or its rows, and copy it,
-        transposed and cast, into `dst`; then MLA's RoPE fix."""
-        src = ckpt.read(name, tuple(dst.shape[::-1]) if transpose else tuple(dst.shape),
-                        rows)
+        transposed and cast, into `dst`; then MLA's RoPE fix. `cut_dim`:
+        dst is rank `rank`'s slice of that dim of the leaf."""
+        whole = list(dst.shape)
+        sdim = None
+        if cut_dim is not None and tp > 1:
+            whole[cut_dim] *= tp
+            sdim = cut_dim % dst.dim()
+            if transpose:
+                sdim = dst.dim() - 1 - sdim
+        stored = tuple(whole[::-1]) if transpose else tuple(whole)
+        if sdim == 0 and rows is None:  # the stored tensor's rows: read only them
+            w = stored[0] // tp
+            src = ckpt.read(name, (w,) + stored[1:], (rank * w, (rank + 1) * w))
+        else:
+            src = ckpt.read(name, stored, rows)
+            if sdim is not None:
+                w = stored[sdim] // tp
+                src = src.narrow(sdim, rank * w, w)
         t0 = time.monotonic()
         dst.copy_(src.t() if transpose else src)
         if fix == "kv_a":  # the k_pe block: the last dr columns
@@ -623,7 +670,7 @@ def _checkpoint_reader(ckpt: _Checkpoint, c: ModelConfig, dtype):
         _sync(ckpt.device)
         ckpt.device_s += time.monotonic() - t0
 
-    want = param_shapes(c)
+    want = local_param_shapes(param_shapes(c), tp)
     kind = lambda leaf: torch.float32 if leaf in F32_LEAVES else dtype  # noqa: E731
     entries: List[Entry] = [("embed", kind("embed"), want["embed"]),
                             ("norm_f", kind("norm_f"), want["norm_f"])]
@@ -646,7 +693,7 @@ def _checkpoint_reader(ckpt: _Checkpoint, c: ModelConfig, dtype):
         if key not in srcs:  # embed [V, dim] and norm_f as stored; the head transposed
             name = {"embed": "model.embed_tokens.weight", "norm_f": "model.norm.weight",
                     "lm_head": "lm_head.weight"}[key]
-            fill(out, name, key == "lm_head", rows=rows)
+            fill(out, name, key == "lm_head", rows=rows, cut_dim=param_cut(key))
             return
         tmpl, fix, L0 = srcs[key]
         r0 = 0 if rows is None else rows[0]
@@ -655,7 +702,8 @@ def _checkpoint_reader(ckpt: _Checkpoint, c: ModelConfig, dtype):
                 for e in range(c.n_experts):
                     fill(w[e], tmpl.format(i=L0 + j, e=e), True)
             else:
-                fill(w, tmpl.format(i=L0 + j), w.dim() == 2, fix)
+                fill(w, tmpl.format(i=L0 + j), w.dim() == 2, fix,
+                     cut_dim=param_cut(key))
 
     return sorted(entries), read
 

@@ -456,6 +456,19 @@ PRESETS: Dict[str, ModelConfig] = {
         rope_mscale=1.0,
         rope_mscale_all_dim=1.0,
     ),
+    # Llama 3.1 70B (G 8): served only across ranks (--tensor-parallel);
+    # its bf16 weights (141 GB) fit no one card
+    "llama-3.1-70b": ModelConfig(
+        name="llama-3.1-70b",
+        vocab_size=128256,
+        dim=8192,
+        n_layers=80,
+        n_heads=64,
+        n_kv_heads=8,
+        ffn_dim=28672,
+        max_seq_len=131072,
+        rope_scaling="llama3", rope_factor=8.0, rope_orig_max_seq=8192,
+    ),
 }
 
 

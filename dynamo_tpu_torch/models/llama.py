@@ -73,12 +73,20 @@ from dynamo_tpu_torch.models.toolkit import (
     rope_tables,
     write_kv,
 )
-from dynamo_tpu_torch.ops.flash_prefill import prefill_paged_attention
-from dynamo_tpu_torch.ops.paged_attention import decode_paged_attention
+from dynamo_tpu_torch.ops.flash_prefill import (
+    prefill_paged_attention,
+    prefill_paged_attention_sharded,
+)
+from dynamo_tpu_torch.parallel.mesh import cut, local_shape, param_cut
+from dynamo_tpu_torch.ops.paged_attention import (
+    decode_paged_attention,
+    decode_paged_attention_sharded,
+)
 from dynamo_tpu_torch.ops.quant_gemm import weight_at
 from dynamo_tpu_torch.ops.ragged_paged_attention import (
     ragged_paged_attention,
     ragged_paged_attention_ref,
+    ragged_paged_attention_sharded,
     ragged_token_index,
 )
 
@@ -218,17 +226,19 @@ def param_shapes(c: ModelConfig) -> Dict[str, Any]:
 
 def param_bytes(c: ModelConfig, dtype=torch.bfloat16,
                 quantize: Optional[str] = None,
-                only: Optional[Collection[str]] = None) -> int:
+                only: Optional[Collection[str]] = None, tp: int = 1) -> int:
     """Bytes of the params `init_params` or `params_from_numpy` place:
     `dtype` matrices and biases, f32 norms and router bias (optional
     leaves not counted); with `quantize`, the matrices of
     DEFAULT_QUANT_NAMES as one-byte codes and f32 scales. `only`: count
-    just the leaves of those names."""
+    just the leaves of those names. `tp`: one of tp ranks' slices
+    (parallel/mesh.py)."""
     item = torch.empty((), dtype=dtype).element_size()
 
     def size(name, shape):
         if only is not None and name not in only:
             return 0
+        shape = local_shape(shape, param_cut(name), tp)
         if quantize and name in DEFAULT_QUANT_NAMES:
             return quantized_bytes(shape, quantize, embed=name == "embed")
         return math.prod(shape) * (4 if name in F32_LEAVES else item)
@@ -244,7 +254,7 @@ def param_bytes(c: ModelConfig, dtype=torch.bfloat16,
 
 
 def init_params(config: ModelConfig, seed: int, dtype, device,
-                quantize: Optional[str] = None) -> Params:
+                quantize: Optional[str] = None, rank: int = 0, tp: int = 1) -> Params:
     """Random-init params from a seeded generator on `device`: the tree of
     param_shapes (the reference's init_params tree, `layers_dense`
     included), weights ~ N(0, 1/fan_in) in `dtype`, biases and the router
@@ -253,13 +263,19 @@ def init_params(config: ModelConfig, seed: int, dtype, device,
     ("int8" or "fp8") the leaves of DEFAULT_QUANT_NAMES come quantized,
     each matrix as it is drawn (quant.quantize_params of the tree drawn
     without it, bit for bit): a whole bf16 stack is never held (one of
-    mixtral-8x7b's expert stacks is 30 GB)."""
+    mixtral-8x7b's expert stacks is 30 GB). Under tensor parallelism
+    (`tp` ranks) it is rank `rank`'s slice of that tree (parallel/mesh.py),
+    bit for bit: each matrix is drawn whole, in param_shapes order, and the
+    rank's part kept, so at most one whole matrix is transient (quantized
+    trees are not cut: parallel/mesh.py check_tp refuses them)."""
     c = config
     if quantize is not None and quantize not in QUANT_MODES:
         raise ValueError(f"unknown quantize mode {quantize!r}; one of {QUANT_MODES}")
     g = torch.Generator(device=device).manual_seed(seed)
 
-    def leaf(name, shape):
+    def leaf(name, full):
+        dim = param_cut(name)
+        shape = local_shape(full, dim, tp)
         if name in NORM_LEAVES:  # zero-centred (Gemma): normed * (1 + w)
             fill = 0.0 if c.norm_zero_centered else 1.0
             return torch.full(shape, fill, dtype=torch.float32, device=device)
@@ -269,14 +285,14 @@ def init_params(config: ModelConfig, seed: int, dtype, device,
         # weights are [..., in, out] (embed [V, dim]), drawn one matrix at a
         # time into the result: a whole stack in f32 would be twice its
         # bf16 bytes (qwen3-30b-a3b's we_gate: 38.7 GB)
-        scale = shape[-1 if name == "embed" else -2] ** -0.5
+        scale = full[-1 if name == "embed" else -2] ** -0.5
         if quantize and name in DEFAULT_QUANT_NAMES:
             return quantized_leaf(name, shape, scale)
         out = torch.empty(shape, dtype=dtype, device=device)
         for m in out.view(-1, *shape[-2:]):
-            x = torch.randn(shape[-2:], generator=g, device=device,
+            x = torch.randn(full[-2:], generator=g, device=device,
                             dtype=torch.float32)
-            m.copy_(x.mul_(scale))
+            m.copy_(cut(x, dim, rank, tp).mul_(scale))
         return out
 
     def quantized_leaf(name, shape, scale):
@@ -323,6 +339,7 @@ def forward(
     lora: Optional[Params] = None,  # stacked multi-adapter tree (models/lora.py)
     adapter_idx: Optional[torch.Tensor] = None,  # [B] slot a row (0 = base),
     #   or [T] a token of the ragged row
+    tp=None,  # parallel/group.py TPGroup: this rank's slice of the model
 ) -> torch.Tensor:
     """One forward pass (prefill chunk S > 1 or decode S = 1). Writes this
     step's K/V into the pools in place, attends over the full context and
@@ -352,7 +369,21 @@ def forward(
     segments may carry different adapters); the delta is models/lora.py
     `delta`, two products over every slot masked to each token's slot (a
     base-slot token adds an exact zero). MLA configs and configs with
-    n_dense_layers refuse it, as the reference does."""
+    n_dense_layers refuse it, as the reference does.
+
+    `tp` (a parallel/group.py TPGroup of N > 1 ranks) runs one rank's part
+    of the pass, the reference's forward under `MeshConfig(model=N)`: the
+    params are the rank's slices and the pools hold its Hk / N KV heads
+    (parallel/mesh.py). The embedding's E columns are gathered after the
+    lookup; q, k and v are the rank's heads (G query heads with their KV
+    head), written to its pools and attended by the `*_sharded` kernels;
+    one all-reduce follows `wo` and one `w_down` a layer, after the product
+    and before any post norm and the residual add, where GSPMD places
+    them; OLMo-2's full-width qk-norm sums its squares over the ranks; the
+    V-cut logits are gathered, and a tied head all-reduces its partial
+    product over the E cut. Every rank returns the same logits. It serves
+    dense GQA configs without LoRA: parallel/mesh.py check_tp refuses the
+    rest when a tensor-parallel runner is built."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
     c = config
@@ -364,9 +395,12 @@ def forward(
     if lora_layers and c.is_moe and c.n_dense_layers:
         raise NotImplementedError(
             "LoRA is not supported with n_dense_layers models")
+    sharded = tp is not None and tp.size > 1
+    n_tp = tp.size if sharded else 1
     B, S = tokens.shape
     hd = c.head_dim
     G = c.n_heads // c.n_kv_heads
+    Hq, Hk = c.n_heads // n_tp, c.n_kv_heads // n_tp  # this rank's heads
     L, NP, PS = pool_values(k_pool).shape[:3]
     zc = c.norm_zero_centered
     # the scale and soft cap of every GQA attention route (None and 0 for
@@ -380,7 +414,9 @@ def forward(
         # reference's jnp.asarray(m, h.dtype)
         return float(torch.tensor(x, dtype=like.dtype))
 
-    h = embed_lookup(params["embed"], tokens)  # [B, S, E]
+    h = embed_lookup(params["embed"], tokens)  # [B, S, E] ([.., E / N] a rank)
+    if sharded:
+        h = tp.all_gather(h, -1)
     if c.embed_multiplier:  # Granite
         h = h * in_dtype(c.embed_multiplier, h)
     elif c.embed_scale:  # Gemma: sqrt(dim)
@@ -400,6 +436,7 @@ def forward(
         tok_seg, _ = ragged_token_index(meta, S)
         rows = kv_rows(seg_pt[tok_seg], positions.view(S, 1), NP, PS)
         ragged_attn = (ragged_paged_attention_ref if attn_impl == "ref"
+                       else ragged_paged_attention_sharded if sharded
                        else ragged_paged_attention)
     else:
         rows = kv_rows(page_table, positions, NP, PS)
@@ -435,11 +472,11 @@ def forward(
             if c.attn_bias:  # Qwen2: after the product, in the params' dtype
                 q, k, v = q + lp["bq"], k + lp["bk"], v + lp["bv"]
             if c.qk_norm and c.qk_norm_wide:  # OLMo-2: over the full width
-                q = rms_norm(q, lp["q_norm"], c.norm_eps, zero_centered=zc)
-                k = rms_norm(k, lp["k_norm"], c.norm_eps, zero_centered=zc)
-            q = q.view(B, S, c.n_heads, hd)
-            k = k.view(B, S, c.n_kv_heads, hd)
-            v = v.view(B, S, c.n_kv_heads, hd)
+                q = wide_norm(q, lp["q_norm"], c.norm_eps, zc, tp if sharded else None)
+                k = wide_norm(k, lp["k_norm"], c.norm_eps, zc, tp if sharded else None)
+            q = q.view(B, S, Hq, hd)
+            k = k.view(B, S, Hk, hd)
+            v = v.view(B, S, Hk, hd)
             if c.qk_norm and not c.qk_norm_wide:  # Qwen3, Gemma-3: per head
                 q = rms_norm(q, lp["q_norm"], c.norm_eps, zero_centered=zc)
                 k = rms_norm(k, lp["k_norm"], c.norm_eps, zero_centered=zc)
@@ -448,7 +485,7 @@ def forward(
             k = apply_rope(k, cos, sin)
             write_kv(k_pool, l, k, rows)
             write_kv(v_pool, l, v, rows)
-            qg = q.view(B, S, c.n_kv_heads, G, hd)
+            qg = q.view(B, S, Hk, G, hd)
             win = layer_window(c, l)
             k_l, v_l = pool_layer(k_pool, l), pool_layer(v_pool, l)
             if ragged is not None:
@@ -459,15 +496,19 @@ def forward(
                     qg, k_l, v_l, page_table, safe_pos, kv_lens, window=win,
                     **attn_kw)
             elif S == 1:
-                attn = decode_paged_attention(
+                attn = (decode_paged_attention_sharded if sharded
+                        else decode_paged_attention)(
                     qg[:, 0], k_l, v_l, page_table, kv_lens, win,
                     **attn_kw)[:, None]
             else:
-                attn = prefill_paged_attention(
+                attn = (prefill_paged_attention_sharded if sharded
+                        else prefill_paged_attention)(
                     qg, k_l, v_l, page_table, q_start, q_len, kv_lens, win,
                     **attn_kw)
-            attn = attn.reshape(B, S, c.n_heads * hd)
+            attn = attn.reshape(B, S, Hq * hd)
         attn_out = lproj(mm(attn, lp["wo"], attn_impl), attn, "wo", l)
+        if sharded:  # wo's rows are cut: sum the ranks' partial products
+            tp.all_reduce(attn_out)
         if c.post_norms:  # Gemma-2, OLMo-2: norm the branch before the residual
             attn_out = rms_norm(attn_out, lp["post_attn_norm"], c.norm_eps,
                                 zero_centered=zc)
@@ -482,6 +523,8 @@ def forward(
             gate = act(lproj(mm(x, lp["w_gate"], attn_impl), x, "w_gate", l))
             gu = gate * lproj(mm(x, lp["w_up"], attn_impl), x, "w_up", l)
             ffw = lproj(mm(gu, lp["w_down"], attn_impl), gu, "w_down", l)
+            if sharded:
+                tp.all_reduce(ffw)
             if c.post_norms:
                 ffw = rms_norm(ffw, lp["post_mlp_norm"], c.norm_eps,
                                zero_centered=zc)
@@ -499,14 +542,36 @@ def forward(
             h = torch.gather(h, 1, idx)
     h = rms_norm(h, params["norm_f"], c.norm_eps, zero_centered=zc)
     lm_head = params.get("lm_head")
-    logits = (tied_logits(h, params["embed"], attn_impl) if lm_head is None
-              else mm(h, lm_head, attn_impl)).float()
+    if not sharded:
+        logits = (tied_logits(h, params["embed"], attn_impl) if lm_head is None
+                  else mm(h, lm_head, attn_impl))
+    elif lm_head is None:  # the tied head over this rank's E columns
+        logits = tp.all_reduce(tied_logits(
+            cut(h, -1, tp.rank, n_tp), params["embed"], attn_impl))
+    else:  # this rank's V columns
+        logits = tp.all_gather(mm(h, lm_head, attn_impl), -1)
+    logits = logits.float()
     if c.logits_divider != 1.0:  # Granite
         logits = logits / c.logits_divider
     if c.final_logit_softcap:
         cap = c.final_logit_softcap
         logits = cap * torch.tanh(logits / cap)
     return logits
+
+
+def wide_norm(x: torch.Tensor, weight: torch.Tensor, eps: float, zc: bool,
+              tp=None) -> torch.Tensor:
+    """OLMo-2's qk-norm over the projection's full width. Under tensor
+    parallelism x holds this rank's columns and `weight` is whole: the
+    squares are summed over the ranks and the rank's part of the weight
+    applied."""
+    if tp is None:
+        return rms_norm(x, weight, eps, zero_centered=zc)
+    xf = x.float()
+    ss = tp.all_reduce(xf.pow(2).sum(-1, keepdim=True))
+    normed = xf * torch.rsqrt(ss / (x.shape[-1] * tp.size) + eps)
+    w = cut(weight, -1, tp.rank, tp.size)
+    return (normed * (w + 1.0 if zc else w)).to(x.dtype)
 
 
 def encode(config: ModelConfig, params: Params, tokens: torch.Tensor,

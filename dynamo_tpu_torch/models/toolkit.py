@@ -27,22 +27,25 @@ NEG_INF = -1e30
 KV_QUANTIZE_MODES = ("int8",)
 
 
-def kv_pool_shapes(config: ModelConfig, num_pages: int, page_size: int):
-    """The k and v pools' shapes (make_kv_pool)."""
+def kv_pool_shapes(config: ModelConfig, num_pages: int, page_size: int,
+                   tp: int = 1):
+    """The k and v pools' shapes (make_kv_pool); under tensor parallelism
+    (tp ranks) one rank's, its Hk / tp heads."""
     if config.is_mla:
         return ((config.n_layers, num_pages, page_size, 1, config.mla_cache_dim),
                 (config.n_layers, num_pages, page_size, 1, 1))
-    shape = (config.n_layers, num_pages, page_size, config.n_kv_heads,
+    shape = (config.n_layers, num_pages, page_size, config.n_kv_heads // tp,
              config.head_dim)
     return shape, shape
 
 
 def kv_pool_bytes(config: ModelConfig, num_pages: int, page_size: int, dtype,
-                  kv_quantize: Optional[str] = None) -> int:
-    """Bytes make_kv_pool allocates (int8: codes and f32 scales)."""
+                  kv_quantize: Optional[str] = None, tp: int = 1) -> int:
+    """Bytes make_kv_pool allocates (int8: codes and f32 scales), on one
+    of tp ranks."""
     item = torch.empty((), dtype=dtype).element_size()
     total = 0
-    for shape in kv_pool_shapes(config, num_pages, page_size):
+    for shape in kv_pool_shapes(config, num_pages, page_size, tp):
         n = math.prod(shape)
         total += n + 4 * (n // shape[-1]) if kv_quantize else n * item
     return total
@@ -50,7 +53,7 @@ def kv_pool_bytes(config: ModelConfig, num_pages: int, page_size: int, dtype,
 
 def make_kv_pool(
     config: ModelConfig, num_pages: int, page_size: int, dtype, device,
-    kv_quantize: Optional[str] = None,
+    kv_quantize: Optional[str] = None, tp: int = 1,
 ):
     """Two zeroed pools [L, NP, PS, Hk, D], token-major: one page is one
     contiguous PS*Hk*D slab, and one token's [Hk, D] row is contiguous.
@@ -61,10 +64,12 @@ def make_kv_pool(
     keeps its k/v shape contract.
 
     kv_quantize="int8" makes each pool the dict {"q": int8 [L, NP, PS, Hk,
-    D], "s": f32 [L, NP, PS, Hk]} (models/quant.py), the MLA stub too."""
+    D], "s": f32 [L, NP, PS, Hk]} (models/quant.py), the MLA stub too.
+    Under tensor parallelism (tp ranks) each is one rank's, Hk / tp heads
+    (parallel/mesh.py: the reference's kv_pool_sharding_tree)."""
     if kv_quantize is not None and kv_quantize not in KV_QUANTIZE_MODES:
         raise ValueError(f"unknown kv_quantize mode {kv_quantize!r}")
-    k_shape, v_shape = kv_pool_shapes(config, num_pages, page_size)
+    k_shape, v_shape = kv_pool_shapes(config, num_pages, page_size, tp)
 
     def zeros(shape):
         if kv_quantize is None:

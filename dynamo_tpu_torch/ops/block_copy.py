@@ -8,8 +8,9 @@ and launches the hand-written Hopper kernel in csrc/block_copy.cu; on CPU
 tensors it runs the plain PyTorch version beside it (advanced indexing, a
 transpose, `index_copy_`), which is also what the kernels are held against.
 The scatters write into the pool tensor in place, the counterpart of the
-reference's donated, aliased output. The `*_sharded` wrappers wait for
-tensor parallelism.
+reference's donated, aliased output. `gather_pages_sharded` and
+`scatter_pages_sharded` are one tensor-parallel rank's copies of its own
+KV heads.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from typing import Optional
 import torch
 
 from dynamo_tpu_torch.ops import _build
+from dynamo_tpu_torch.ops.paged_attention import count_sharded
 
 # the kernels move bytes: any of these element types, 16-byte vectors
 # (int8: the codes of an int8 KV pool; its f32 scales go as float32)
@@ -217,3 +219,43 @@ def _launch_scatter(pool, idx, pages, layer_off=None) -> None:
 gather_pages.launches = 0
 scatter_pages.launches = 0
 scatter_pages_layers.launches = 0
+
+
+def gather_pages_sharded(
+    pool: torch.Tensor,  # [L, NP, PS, Hk / tp, D]: this rank's slice
+    idx: torch.Tensor,  # [n] int32 page ids, whole on every rank
+    *,
+    head_major: bool = False,
+) -> torch.Tensor:
+    """The tensor-parallel counterpart of gather_pages (the reference's
+    `gather_pages_sharded`): one rank copies its own head slice of every
+    page, no collective. Returns [L, n, PS, Hk / tp, D] (or head-major);
+    counts its own launches beside the kernel's."""
+    before = gather_pages.launches
+    out = gather_pages(pool, idx, head_major=head_major)
+    count_sharded(gather_pages_sharded, gather_pages.launches - before, pool.shape[-2])
+    return out
+
+
+def scatter_pages_sharded(
+    pool: torch.Tensor,  # [L, NP, PS, Hk / tp, D]: this rank's slice, in place
+    idx: torch.Tensor,  # [n] int32 target page ids, whole on every rank
+    pages: torch.Tensor,  # [L, n, PS, Hk / tp, D]: this rank's heads of the pages
+) -> torch.Tensor:
+    """The tensor-parallel counterpart of scatter_pages (the reference's
+    `scatter_pages_sharded`): one rank writes its own head slice of the
+    pages into its pool slice, no collective; returns the pool. Counts
+    its own launches beside the kernel's."""
+    if pages.shape[-2] != pool.shape[-2]:
+        raise ValueError(f"scatter_pages_sharded: pages hold {pages.shape[-2]} KV "
+                         f"heads, the rank's pool slice {pool.shape[-2]}")
+    before = scatter_pages.launches
+    scatter_pages(pool, idx, pages)
+    count_sharded(scatter_pages_sharded, scatter_pages.launches - before, pool.shape[-2])
+    return pool
+
+
+gather_pages_sharded.launches = 0
+gather_pages_sharded.heads = {}
+scatter_pages_sharded.launches = 0
+scatter_pages_sharded.heads = {}

@@ -12,7 +12,8 @@ s < q_len[b], padding after; flat context index c is absolute position c;
 with a window w > 0 the query at position p sees only c > p - w. On CUDA
 tensors the wrapper launches the hand-written Hopper kernel in
 csrc/flash_prefill.cu; on CPU tensors it runs the plain PyTorch version
-below.
+below. `prefill_paged_attention_sharded` is one tensor-parallel rank's
+call on its own KV heads.
 """
 
 from __future__ import annotations
@@ -25,7 +26,9 @@ from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops.paged_attention import (
     KERNEL_HEAD_DIMS,
     attention_ref,
+    check_local_heads,
     count_launch,
+    count_sharded,
     kv_operands,
     ptr_or_null,
     scale_tensors,
@@ -113,3 +116,32 @@ def prefill_paged_attention(
 
 prefill_paged_attention.launches = 0
 prefill_paged_attention.bodies = {}
+
+
+def prefill_paged_attention_sharded(
+    q: torch.Tensor,  # [B, S, Hk / tp, G, D]: this rank's KV heads
+    k_pool_l,  # [NP, PS, Hk / tp, D]: this rank's slice of one layer's pool
+    v_pool_l,
+    page_table: torch.Tensor,  # [B, MP] int32, whole on every rank
+    q_start: torch.Tensor,
+    q_len: torch.Tensor,
+    kv_lens: torch.Tensor,
+    window: Optional[int] = None,
+    *,
+    scale: Optional[float] = None,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """The tensor-parallel counterpart of prefill_paged_attention (the
+    reference's `prefill_paged_attention_sharded`): one rank's call on its
+    own KV heads, no collective. Returns [B, S, Hk / tp, G, D]; counts its
+    own launches beside the kernel's."""
+    check_local_heads(q.shape[2], k_pool_l, v_pool_l, "prefill_paged_attention_sharded")
+    before = prefill_paged_attention.launches
+    out = prefill_paged_attention(q, k_pool_l, v_pool_l, page_table, q_start, q_len,
+                                  kv_lens, window, scale=scale, softcap=softcap)
+    count_sharded(prefill_paged_attention_sharded, prefill_paged_attention.launches - before, q.shape[2])
+    return out
+
+
+prefill_paged_attention_sharded.launches = 0
+prefill_paged_attention_sharded.heads = {}

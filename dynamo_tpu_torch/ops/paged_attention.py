@@ -5,7 +5,8 @@ Port of dynamo_tpu/ops/paged_attention.py `decode_paged_attention`: the
 bf16 bodies and the int8 ones (pools as the dict {"q": int8, "s": f32} of
 models/quant.py, `_decode_kernel_int8[_win]`), each plain and Gemma-2's (a
 sliding window, a score soft cap and a scale override), at head dims 64,
-96, 128 and 256 and 1 to 8 query heads a KV head. On CUDA tensors the wrapper launches the hand-written Hopper
+96, 128 and 256 and 1 to 8 query heads a KV head. `decode_paged_attention_sharded`
+is one tensor-parallel rank's call on its own KV heads. On CUDA tensors the wrapper launches the hand-written Hopper
 kernel in csrc/paged_attention.cu; on CPU tensors it runs the plain
 PyTorch version below (for int8 pools toolkit.paged_attention_int8_ref,
 which folds the scales in the TPU kernels' order), which is also what the
@@ -323,3 +324,50 @@ def decode_paged_attention(
 
 decode_paged_attention.launches = 0
 decode_paged_attention.bodies = {}
+
+
+def count_sharded(fn, n: int, Hk: int) -> None:
+    """A sharded wrapper's `n` launches (0 or 1) of its kernel: `fn.launches`,
+    and by the rank's KV heads, `fn.heads` ({Hk: launches})."""
+    if n:
+        fn.launches += n
+        fn.heads[Hk] = fn.heads.get(Hk, 0) + n
+
+
+def check_local_heads(Hk: int, k_pool_l, v_pool_l, what: str) -> None:
+    """A sharded wrapper's operands: q's KV heads are the pool slice's."""
+    for pool in (k_pool_l, v_pool_l):
+        held = (pool["q"] if isinstance(pool, dict) else pool).shape[-2]
+        if held != Hk:
+            raise ValueError(f"{what}: q has {Hk} KV heads, the rank's pool slice {held}")
+
+
+def decode_paged_attention_sharded(
+    q: torch.Tensor,  # [B, Hk / tp, G, D]: this rank's KV heads
+    k_pool_l,  # [NP, PS, Hk / tp, D]: this rank's slice of one layer's pool
+    v_pool_l,
+    page_table: torch.Tensor,  # [B, MP] int32, whole on every rank
+    kv_lens: torch.Tensor,  # [B] int32, whole on every rank
+    window: Optional[int] = None,
+    *,
+    scale: Optional[float] = None,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """The tensor-parallel counterpart of decode_paged_attention (the
+    reference's `decode_paged_attention_sharded`, a shard_map over the
+    model axis): one rank's call on the KV heads it holds
+    (parallel/mesh.py), with no collective: attention is independent per
+    KV head, and the block's all-reduce comes after the out-projection.
+    G, D, the window, the scale and the soft cap are the model's, so every
+    decode body applies. Returns [B, Hk / tp, G, D]; counts its own
+    launches (one a launch of the kernel) beside the kernel's."""
+    check_local_heads(q.shape[1], k_pool_l, v_pool_l, "decode_paged_attention_sharded")
+    before = decode_paged_attention.launches
+    out = decode_paged_attention(q, k_pool_l, v_pool_l, page_table, kv_lens, window,
+                                 scale=scale, softcap=softcap)
+    count_sharded(decode_paged_attention_sharded, decode_paged_attention.launches - before, q.shape[1])
+    return out
+
+
+decode_paged_attention_sharded.launches = 0
+decode_paged_attention_sharded.heads = {}

@@ -30,6 +30,8 @@ block each, and merges a long unit's pieces by log-sum-exp;
 ops/paged_attention.py's `split_partials_ref` and
 `merge_split_partials_ref`, shared by every split-context kernel), and
 `split_scratch_shape` the kernel's f32 scratch for it.
+`ragged_paged_attention_sharded` is one tensor-parallel rank's call on
+its own KV heads.
 """
 
 from __future__ import annotations
@@ -44,7 +46,9 @@ from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops.paged_attention import (  # noqa: F401 (re-export)
     KERNEL_HEAD_DIMS,
     attention_ref,
+    check_local_heads,
     count_launch,
+    count_sharded,
     decode_split_count,
     gather_context,
     head_scale,
@@ -322,3 +326,33 @@ def ragged_paged_attention(
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.bodies = {}
+
+
+def ragged_paged_attention_sharded(
+    q: torch.Tensor,  # [T, Hk / tp, G, D]: this rank's KV heads
+    k_pool_l,  # [NP, PS, Hk / tp, D]: this rank's slice of one layer's pool
+    v_pool_l,
+    seg_page_table: torch.Tensor,  # whole on every rank
+    seg_kv_lens: torch.Tensor,
+    meta: torch.Tensor,
+    window: Optional[int] = None,
+    *,
+    q_block: int = DEFAULT_Q_BLOCK,
+    scale: Optional[float] = None,
+    softcap: float = 0.0,
+) -> torch.Tensor:
+    """The tensor-parallel counterpart of ragged_paged_attention (the
+    reference's `ragged_paged_attention_sharded`): one rank's call on its
+    own KV heads over the whole step's metadata, no collective. Returns
+    [T, Hk / tp, G, D]; counts its own launches beside the kernel's."""
+    check_local_heads(q.shape[1], k_pool_l, v_pool_l, "ragged_paged_attention_sharded")
+    before = ragged_paged_attention.launches
+    out = ragged_paged_attention(q, k_pool_l, v_pool_l, seg_page_table, seg_kv_lens,
+                                 meta, window, q_block=q_block, scale=scale,
+                                 softcap=softcap)
+    count_sharded(ragged_paged_attention_sharded, ragged_paged_attention.launches - before, q.shape[1])
+    return out
+
+
+ragged_paged_attention_sharded.launches = 0
+ragged_paged_attention_sharded.heads = {}

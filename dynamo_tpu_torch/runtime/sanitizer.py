@@ -40,8 +40,10 @@ worker's ``--sanitize``:
   mid-serving stalls the step thread for seconds.
 - **layout check** — at the warm transition, every param and KV pool of
   the runner must still sit on the runner's device with the dtype it was
-  placed with (``ModelRunner.layout_table``); sharded layouts wait for
-  multi-card serving.
+  placed with (``ModelRunner.layout_table``); under tensor parallelism
+  also with the shape the split rule declares for its rank and cut, on
+  every rank (a mirrored runner's ``rank_layout_problems`` runs the same
+  check on each follower).
 - **lock-order recorder**, **asyncio watchdog**, **task audit** and
   **page-pool audit** — copies of the reference's.
 
@@ -184,6 +186,25 @@ def tensor_rows(prefix: str, tree) -> Iterable[Tuple[str, Any]]:
             yield from tensor_rows(f"{prefix}{i}/", v)
     elif hasattr(tree, "device") and hasattr(tree, "dtype"):
         yield prefix.rstrip("/"), tree
+
+
+def layout_problems(rows) -> Tuple[int, List[str]]:
+    """(rows checked, problems) of a runner's layout table: each live
+    tensor against the (device, dtype) it was placed with and, where the
+    row declares one (a tensor-parallel rank's: shape, rank, cut dim), its
+    shape."""
+    checked, out = 0, []
+    for name, t, placed in rows:
+        checked += 1
+        device, dtype = placed[:2]
+        if t.device != device or t.dtype != dtype:
+            out.append(f"{name}: live {t.device}/{t.dtype} diverges from the "
+                       f"placed {device}/{dtype}")
+        if len(placed) > 2 and tuple(t.shape) != tuple(placed[2]):
+            shape, rank, dim = placed[2:5]
+            out.append(f"{name} on rank {rank}: live shape {tuple(t.shape)} is not "
+                       f"the declared {tuple(shape)} (cut dim {dim})")
+    return checked, out
 
 
 class _TrackedLock:
@@ -368,14 +389,14 @@ class Sanitizer:
         table_fn = getattr(runner, "layout_table", None)
         if table_fn is None:
             return 0
-        checked = 0
-        for name, t, (device, dtype) in table_fn():
-            checked += 1
-            if t.device != device or t.dtype != dtype:
-                self._violation(
-                    "layout",
-                    f"{name}: live {t.device}/{t.dtype} diverges from the "
-                    f"placed {device}/{dtype}")
+        checked, problems = layout_problems(table_fn())
+        remote = getattr(runner, "rank_layout_problems", None)
+        if remote is not None:  # the followers' own tables
+            for n, probs in remote():
+                checked += n
+                problems += probs
+        for msg in problems:
+            self._violation("layout", msg)
         self.counters["layout_checked"] = checked
         return checked
 

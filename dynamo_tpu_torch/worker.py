@@ -72,6 +72,15 @@ from dynamo_tpu_torch.frontend.http import Response, json_response
 from dynamo_tpu_torch.frontend.protocols import ModelCard
 from dynamo_tpu_torch.models import lora as lora_mod
 from dynamo_tpu_torch.models.config import ModelConfig, get_config
+from dynamo_tpu_torch.ops import _build
+from dynamo_tpu_torch.parallel.group import (
+    FollowerWatch,
+    MirroredRunner,
+    shutdown_followers,
+    spawn_followers,
+    tp_check_fits,
+)
+from dynamo_tpu_torch.parallel.mesh import MeshConfig, check_tp, check_tp_flags
 from dynamo_tpu_torch.runtime.distributed import DistributedRuntime
 from dynamo_tpu_torch.runtime.flight_recorder import to_chrome_trace
 from dynamo_tpu_torch.runtime.logging_util import configure_logging
@@ -79,6 +88,10 @@ from dynamo_tpu_torch.runtime.status import StatusServer
 from dynamo_tpu_torch.worker_common import serve_worker
 
 log = logging.getLogger("dynamo_tpu_torch.worker")
+
+# how long a worker that lost a tensor-parallel rank waits for its
+# in-flight requests before it exits with an error
+TP_DRAIN_S = 30.0
 
 
 def parse_args(argv=None):
@@ -232,7 +245,31 @@ def parse_args(argv=None):
                         "steady-state dispatches, the shape tripwire, the "
                         "lock-order recorder and the pool audit (DYN_SAN=1 is "
                         "the env equivalent)")
+    # parallelism (mesh axes); this slice serves the model axis alone
+    p.add_argument("--tensor-parallel", type=int, default=1,
+                   help="ranks the model is cut over (KV heads, FFN width, "
+                        "embedding and head), one process each: rank 0 "
+                        "serves, ranks 1..N-1 are spawned followers on "
+                        "cuda:(rank %% cards); dense GQA models only")
+    p.add_argument("--data-parallel", type=int, default=1,
+                   help="replicas over a data axis (only 1 is ported)")
+    p.add_argument("--expert-parallel", type=int, default=1,
+                   help="MoE experts over an expert axis (only 1 is ported)")
     return p.parse_args(argv)
+
+
+def mesh_config(args) -> MeshConfig:
+    """The mesh of the parallelism flags; raises for what is not served:
+    data or expert parallelism > 1, and under --tensor-parallel > 1 each
+    flag of parallel/mesh.py TP_REFUSED, naming the item that ports it."""
+    mesh = MeshConfig(data=getattr(args, "data_parallel", 1),
+                      model=getattr(args, "tensor_parallel", 1),
+                      expert=getattr(args, "expert_parallel", 1))
+    if mesh.model < 1:
+        raise ValueError(f"--tensor-parallel {mesh.model}: at least 1")
+    mesh.check_supported()
+    check_tp_flags(args, mesh.model)
+    return mesh
 
 
 def _lora_kwargs(args, config: ModelConfig) -> dict:
@@ -393,8 +430,16 @@ def build_runner(args, params=None, draft_params=None) -> tuple[ModelRunner, Mod
     (the model's own params make a self-draft). Weights and pools that
     exceed the card's free memory raise MemoryError before anything is
     read or drawn. The --lora adapters are registered in order, slots 1
-    on. `args._weights_source` says where the weights came from."""
+    on. `args._weights_source` says where the weights came from.
+
+    --tensor-parallel N > 1 (dense GQA models): the kernels are built
+    here first (on a card), then ranks 1..N-1 spawned, and the runner is a
+    parallel/group.py MirroredRunner over every rank's slice; each rank
+    draws its slice from seed 0 or reads it from --checkpoint. Every card's
+    free memory is checked against the bytes of all its ranks before any
+    rank draws."""
     device = resolve_device(args.device)
+    mesh = mesh_config(args)
     if args.checkpoint:
         config = weights.config_from_hf(_local_checkpoint(args.checkpoint),
                                         name=args.model_name or args.model)
@@ -407,6 +452,8 @@ def build_runner(args, params=None, draft_params=None) -> tuple[ModelRunner, Mod
                                               name=draft or "draft")
     elif draft:
         draft_config = get_config(draft)
+    if mesh.model > 1:
+        return _build_tp_runner(args, config, device, mesh, params), config
     lora_kw = _lora_kwargs(args, config)
     args._weights_source = "shared" if params is not None else "random"
     if params is None:
@@ -483,6 +530,39 @@ def _invalidate_warm_tiers(engine: InferenceEngine, args) -> None:
     engine.update_weights = update_and_invalidate
 
 
+def _build_tp_runner(args, config: ModelConfig, device: torch.device,
+                     mesh: MeshConfig, params=None) -> MirroredRunner:
+    """build_runner's tensor-parallel branch: config checked, kernels
+    built once (the followers load what this process built), followers
+    spawned, every rank's runner built from the same arguments."""
+    check_tp(config, mesh.model)
+    kw = dict(config=config, num_pages=args.num_pages, page_size=args.page_size,
+              max_pages_per_seq=-(-args.max_seq_len // args.page_size),
+              device=device, kv_quantize=args.kv_quantize)
+    if device.type == "cuda":
+        tp_check_fits(mesh.model, device, dict(kw, params=params))
+        _build.load()
+    group, procs = spawn_followers(mesh.model, device)
+    log.info("tensor parallel %d: transport %s, followers pids %s", mesh.model,
+             group.transport, [p.pid for p in procs])
+    print(f"tensor parallel {mesh.model}: transport {group.transport}, "
+          f"devices {[str(d) for d in group.devices]}, follower pids "
+          f"{[p.pid for p in procs]}", flush=True)
+    if params is not None:
+        kw["params"] = params
+        args._weights_source = "shared"
+    elif args.checkpoint:
+        kw["checkpoint_dir"] = _local_checkpoint(args.checkpoint)
+        args._weights_source = "checkpoint"
+    else:
+        args._weights_source = "random"
+    try:
+        return MirroredRunner(group, procs, **kw)
+    except BaseException:
+        shutdown_followers(group, procs)
+        raise
+
+
 def build_engine(args, runner=None, **engine_kw) -> InferenceEngine:
     """The engine of the CLI args over `runner` (built from them when
     None); `engine_kw` sets InferenceEngine arguments no flag carries
@@ -532,7 +612,10 @@ def model_card(args, config: ModelConfig, adapters=None) -> ModelCard:
         adapters = [s.partition("=")[0] for s in args.lora]
     return ModelCard(name=args.model_name or config.name, tokenizer=args.tokenizer,
                      context_length=args.max_seq_len, kv_block_size=args.page_size,
-                     adapters=list(adapters))
+                     adapters=list(adapters),
+                     runtime_config={"mesh": list(mesh_config(args).shape),
+                                     "num_pages": args.num_pages,
+                                     "max_batch": args.max_batch})
 
 
 async def serve_args(runtime, engine, args, **kw):
@@ -612,6 +695,21 @@ async def async_main(args) -> None:
                                  request_plane=args.request_plane, **kw)
     # weight draw and pool allocation: off the loop
     engine = await asyncio.to_thread(build_engine, args)
+    loop = asyncio.get_running_loop()
+    stop = asyncio.Event()
+    runner = engine.runner
+    tp = isinstance(runner, MirroredRunner)
+    lost: list = []
+    watch = None
+    if tp:
+        def follower_died(rank: int, code) -> None:
+            log.error("tensor-parallel rank %d died (exit code %s): stopping the "
+                      "worker", rank, code)
+            lost.append((rank, code))
+            loop.call_soon_threadsafe(stop.set)
+
+        watch = FollowerWatch(runner._procs, follower_died)
+        watch.start()
     servers = []
     if args.status_port:
         status = await start_status(runtime, engine, args.status_port)
@@ -631,8 +729,6 @@ async def async_main(args) -> None:
     path = f"{args.namespace}/{args.component}/{args.endpoint}"
     print(f"worker serving {worker.instance.metadata['model_card']['name']} at "
           f"{path} ({worker.instance.address})", flush=True)
-    stop = asyncio.Event()
-    loop = asyncio.get_running_loop()
     for sig in (signal.SIGTERM, signal.SIGINT):
         loop.add_signal_handler(sig, stop.set)
     try:
@@ -640,11 +736,22 @@ async def async_main(args) -> None:
         print("draining...", flush=True)
     finally:
         # unregister first (clients stop picking this instance), let the
-        # in-flight requests finish, then stop the engine
+        # in-flight requests finish, then stop the engine; a lost rank's
+        # in-flight requests fail within the group's timeout, which bounds
+        # the drain
         await runtime.shutdown()
-        await worker.stop()
+        try:
+            await asyncio.wait_for(worker.stop(), TP_DRAIN_S if lost else None)
+        except asyncio.TimeoutError:
+            log.error("drain still running %.0fs after a lost rank", TP_DRAIN_S)
         for server in servers:
             await server.stop()
+        if tp:
+            watch.stop()
+            codes = shutdown_followers(runner.group, runner._procs)
+            log.info("tensor-parallel followers exited: %s", codes)
+    if lost:
+        raise SystemExit(f"tensor-parallel rank(s) died (rank, exit code): {lost}")
 
 
 def main(argv=None) -> None:

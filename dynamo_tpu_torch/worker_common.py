@@ -303,6 +303,10 @@ async def serve_worker(
     kv_slice = os.environ.get("DYN_KV_SLICE")
     if kv_slice:
         metadata["kv_slice"] = str(kv_slice)
+    # the devices the worker's mesh spans (a tensor-parallel worker's ranks)
+    mesh = getattr(getattr(engine, "runner", None), "mesh_config", None)
+    if mesh is not None:
+        metadata["device_weight"] = float(mesh.n_devices)
 
     publisher = None
     if publish_kv_events:

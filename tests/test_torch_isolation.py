@@ -1,11 +1,12 @@
 """The port stands alone: dynamo_tpu_torch (the frontend's main, its
 tool-call parser, the guided decoding copies, the observability modules
-and the planner's hardware sweep included), chip_smoke.py, scripts/torch_profile.py,
+the planner's hardware sweep and the tensor-parallel ranks, rank 0's and
+its spawned followers', included), chip_smoke.py, scripts/torch_profile.py,
 scripts/mla_prefill_variants.py,
 scripts/int8_body_variants.py, scripts/engine_ab.py,
 scripts/quant_gemm_variants.py, scripts/extras_profile.py,
-scripts/tier_staging_bench.py, scripts/tier_ttft_pairs.py and
-scripts/lora_delta_bench.py import
+scripts/tier_staging_bench.py, scripts/tier_ttft_pairs.py,
+scripts/lora_delta_bench.py and scripts/tp_transport_probe.py import
 neither JAX nor anything of the
 dynamo_tpu package, nor ml_dtypes, msgpack, zmq, aiohttp, jinja2,
 tokenizers, prometheus_client, boto3, safetensors, orbax or transformers
@@ -79,7 +80,7 @@ def test_every_module_imports_without_jax_or_dynamo_tpu():
               "engine.shm_weights", "runtime.tracing", "runtime.logging_util",
               "runtime.annotations", "runtime.flight_recorder", "runtime.sanitizer",
               "runtime.status", "runtime.fleet_observer", "planner",
-              "planner.hw_profile"):
+              "planner.hw_profile", "parallel", "parallel.mesh", "parallel.group"):
         assert f"dynamo_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -131,6 +132,37 @@ def test_checkpoints_snapshots_and_stages_load_nothing_forbidden(tmp_path):
     assert not bad, bad
 
 
+def test_tensor_parallel_ranks_load_nothing_forbidden():
+    """A TP 2 runner on the CPU (its follower spawned), a prefill and a
+    decode through it, in a fresh interpreter: no forbidden module is
+    loaded by rank 0 or by the follower."""
+    code = (
+        "import json, sys\n"
+        "import torch\n"
+        "from dynamo_tpu_torch.models.config import get_config\n"
+        "from dynamo_tpu_torch.parallel import group as g\n"
+        "if __name__ == '__main__':\n"
+        "    grp, procs = g.spawn_followers(2, 'cpu')\n"
+        "    r = g.MirroredRunner(grp, procs, config=get_config('tiny'), num_pages=16,\n"
+        "                         device='cpu', dtype=torch.float32)\n"
+        "    r.prefill([1, 2, 3], 0, [0], 0)\n"
+        "    samp = {'temperature': [0.0], 'top_k': [0], 'top_p': [1.0], 'seeds': [0]}\n"
+        "    r.decode_multi(2, [4], [3], [[0]], samp, 0)\n"
+        "    grp.send_call('__modules__')\n"
+        "    mods = grp.gather_objects(sorted(sys.modules))\n"
+        "    r.close()\n"
+        "    assert g.shutdown_followers(grp, procs) == [0]\n"
+        "    print(json.dumps(sorted(set(mods[0]) | set(mods[1]))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    loaded = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "dynamo_tpu_torch.parallel.group" in loaded
+    bad = [m for m in loaded if _forbidden(m)]
+    assert not bad, bad
+
+
 def test_no_source_file_imports_jax_or_dynamo_tpu():
     files = sorted(PKG.rglob("*.py")) + [
         ROOT / "chip_smoke.py", ROOT / "scripts" / "torch_profile.py",
@@ -138,7 +170,7 @@ def test_no_source_file_imports_jax_or_dynamo_tpu():
         ROOT / "scripts" / "int8_body_variants.py", ROOT / "scripts" / "engine_ab.py",
         ROOT / "scripts" / "quant_gemm_variants.py", ROOT / "scripts" / "extras_profile.py",
         ROOT / "scripts" / "tier_staging_bench.py", ROOT / "scripts" / "tier_ttft_pairs.py",
-        ROOT / "scripts" / "lora_delta_bench.py"]
+        ROOT / "scripts" / "lora_delta_bench.py", ROOT / "scripts" / "tp_transport_probe.py"]
     assert len(files) > 10
     for path in files:
         tree = ast.parse(path.read_text(), filename=str(path))
