@@ -433,7 +433,10 @@ Phases, each printing one JSON line:
 Tensor parallelism (`tp_kernels`, among the kernel phases: each sharded
 wrapper on one rank's slice at llama-3.1-8b's TP 2 shapes, Hk 4, G 4,
 against its plain version within KERNEL_TOL and ROW_REL_TOL, the page
-copies bit for bit, timed beside the bound and the yardstick; then,
+copies bit for bit, timed beside the bound and the yardstick, and the
+sharded MLA pair at DeepSeek-V3's rank shape, H 64 of 128 over the whole
+latent pool (decode on the bf16 and the int8 latent, replayed beside TP
+1's H 128 call; prefill of a 450-token chunk over 700); then,
 after `lora_served` with nothing else on the card, `engine_tp`:
 llama-3.1-8b at full width and depth through `--tensor-parallel 2`, two
 rank processes on the card over gloo (`tp_ranks` prints the transport),
@@ -445,8 +448,16 @@ at TP 2 and exported back, bit for bit), the 3B's traffic fused
 over int8 pools (`engine_tp_int8`): every rank's launches of each
 sharded wrapper equal to its kernel's and to passes x 32 on Hk 4, the
 ranks' counters and the digests of their returned tokens equal, each
-rank's peak memory; then `engine_tp_70b`, llama-3.1-70b at TP 2 refused
-by the fit check before anything is spawned or drawn).
+rank's peak memory; then, on the same ranks, `engine_tp_mla`
+(DeepSeek-V3's three dense layers at full width, MLA_CONFIG: the
+sharded MLA pair on 64 heads a rank) and `engine_tp_moe` (qwen3-30b-a3b
+at 8 layers: each expert's F / 2, the GQA wrappers at Hk 2, G 8), each
+with `tp_parity_<phase>` against a TP 1 runner on the same seed-0 params
+(the MoE one pinned to the TP 2 run's routing, its free run beside it),
+one fused turn of the traffic with every rank's launch identities, and
+the ranks' digests and peaks; then `engine_tp_70b`, llama-3.1-70b at TP
+2, and `engine_tp_v3`, DeepSeek-V3 at full depth at TP 2, refused by the
+fit check before anything is spawned or drawn).
 `python3 chip_smoke.py --only tp` runs the build and these two phases
 alone. Each top-level phase prints its seconds on a line of its own
 (`phase_seconds`). For the script's time, the models of DEPTH_CUTS serve
@@ -457,7 +468,8 @@ checks on the card) no longer run: `mixtral_memory` prints the full
 depth's param bytes as computed, not measured.
 Then the `kernels` summary line (launches from the fused phase for the
 GQA attention kernels, from engine_tp for the three sharded attention
-wrappers and tp_pull for the two sharded copies, from engine_disagg for gather and scatter, from
+wrappers and tp_pull for the two sharded copies, from engine_tp_mla for
+the sharded MLA pair, from engine_disagg for gather and scatter, from
 engine_tiers for the layer scatter, from engine_tiers_quant for the device
 tier codec's two entries, from engine_mla for the MLA kernels,
 from engine_int8kv and engine_mla_int8 for the `*_int8` entries, the
@@ -532,8 +544,10 @@ from dynamo_tpu_torch.ops.mla_attention import (
     MLA_SPLIT_TOKENS,
     decode_mla_attention,
     decode_mla_attention_ref,
+    decode_mla_attention_sharded,
     prefill_mla_attention,
     prefill_mla_attention_ref,
+    prefill_mla_attention_sharded,
     prefill_mla_tiles_ref,
 )
 from dynamo_tpu_torch.ops.paged_attention import (
@@ -8259,13 +8273,29 @@ TP_SHARDED = {
     "scatter_pages_sharded": (
         "dynamo_tpu_torch/ops/csrc/block_copy.cu",
         "dynamo_tpu/ops/block_copy.py:121 (scatter_pages_sharded: shard_map of :226)"),
+    "decode_mla_attention_sharded": (
+        "dynamo_tpu_torch/ops/csrc/mla_attention.cu",
+        "dynamo_tpu/ops/mla_attention.py:345 (decode_mla_attention_sharded: "
+        "shard_map of :161 over the model axis)"),
+    "prefill_mla_attention_sharded": (
+        "dynamo_tpu_torch/ops/csrc/mla_attention.cu",
+        "dynamo_tpu/ops/mla_attention.py:310 (prefill_mla_attention_sharded: "
+        "shard_map of :299)"),
 }
 # the plain kernel each sharded wrapper launches
 TP_INNER = {"decode_paged_attention_sharded": "decode_paged_attention",
             "prefill_paged_attention_sharded": "prefill_paged_attention",
             "ragged_paged_attention_sharded": "ragged_paged_attention",
             "gather_pages_sharded": "gather_pages",
-            "scatter_pages_sharded": "scatter_pages"}
+            "scatter_pages_sharded": "scatter_pages",
+            "decode_mla_attention_sharded": "decode_mla_attention",
+            "prefill_mla_attention_sharded": "prefill_mla_attention"}
+# DeepSeek-V3's query heads a rank at TP 2 (the latent pool is whole)
+TP_MLA_H = MLA_H // 2
+# the MoE model at TP 2: qwen3-30b-a3b at its DEPTH_CUTS depth, a rank's
+# Hk 2 with G 8 (the GQA sharded wrappers at G 8) and F 384 of each expert
+TP_MOE_MODEL = "qwen3-30b-a3b"
+TP_MOE_HK = 2
 
 
 def tp_kernels_phase(dev):
@@ -8389,6 +8419,8 @@ def tp_kernels_phase(dev):
         "shape": {"T": RAGGED_T, "Hk": Hk, "G": G, "D": D, "PS": PS}}
     del args, lib
 
+    out.update(tp_mla_kernels(gen, dev))
+
     # the page copies: 94 random pages of a rank's 32-layer, 2048-page pool
     shape = (TP_L, 2048, PS, Hk, D)
     pool = torch.randn(shape, generator=gen).bfloat16().to(dev)
@@ -8432,23 +8464,141 @@ def tp_kernels_phase(dev):
     return out
 
 
+def tp_mla_kernels(gen, dev):
+    """The sharded MLA pair at DeepSeek-V3's TP 2 rank shape (H 64 of 128,
+    d_c 512, d_rh 64, PS 16; the latent pool whole): decode at B 8 over
+    MLA_DECODE_KV on the bf16 and the int8 latent bodies, prefill of a
+    450-token chunk over 700 prior tokens (S 512), each against its plain
+    version within KERNEL_TOL and, row by row against the plain version in
+    f32, ROW_REL_TOL; timed back to back and as graph replays beside the
+    plain version, the bound and the three-call yardstick over the latent
+    gathered dense beforehand (mla_library). Decode at TP 1's H 128 on the
+    same inputs is replayed beside it: a decode block owns 64 heads, so a
+    rank launches half of TP 1's blocks, each reading the same latent."""
+    H, dc, dr, PS = TP_MLA_H, MLA_DC, MLA_DR, MLA_PS
+    Dl = dc + dr
+    scale = attn_score_scale(MLA_CONFIG, MLA_CONFIG.qk_nope_head_dim + dr)
+    rnd = mla_rnd(gen, dev)
+    out = {}
+
+    kv_list = MLA_DECODE_KV
+    B, MP = len(kv_list), 4096 // PS
+    NP = B * MP + 1
+    lat = rnd(NP, PS, 1, Dl)
+    q_full = rnd(B, MLA_H, Dl)
+    q = q_full[:, :H].contiguous()  # rank 0's heads
+    pt = random_pages(gen, B, MP, NP, dev)
+    kvl = torch.tensor(kv_list, dtype=torch.int32, device=dev)
+    lat8, lat8_deq = int8_pool(lat)
+    dense = lat[pt.long()].reshape(B, MP * PS, Dl)
+    dense8 = lat8_deq[pt.long()].reshape(B, MP * PS, Dl)
+    mask = (torch.arange(MP * PS, device=dev)[None, :] < kvl[:, None])[:, None, None, :]
+    n_tok = sum(kv_list)
+    io = q.numel() * 2 + B * H * dc * 2 + sum(-(-k // PS) for k in kv_list) * 4 + B * 4
+    fn = decode_mla_attention_sharded
+    bodies = {}
+    for body, pool, deq in (("bf16", lat, dense), ("int8", lat8, dense8)):
+        call = lambda pool=pool: fn(q, pool, pt, kvl, dc=dc, scale=scale)  # noqa: E731
+        before = dict(decode_mla_attention.bodies)
+        got = call()
+        torch.cuda.synchronize()
+        check(decode_mla_attention.bodies.get(body, 0) == before.get(body, 0) + 1,
+              f"tp mla decode: the {body} call did not launch the {body} body")
+        ref = decode_mla_attention_ref(q, pool, pt, kvl, dc=dc, scale=scale)
+        err = (got.float() - ref.float()).abs().max().item()
+        rel = row_rel_err(got, decode_mla_attention_ref(q.float(), pool.float() if body == "bf16"
+                                                        else pool, pt, kvl, dc=dc, scale=scale))
+        check(torch.isfinite(got.float()).all().item() and err <= KERNEL_TOL
+              and rel <= ROW_REL_TOL and got[1].float().abs().max().item() == 0.0,
+              f"tp mla decode ({body}): err {err}, row error {rel} (the kv_len 0 row must be 0)")
+        lat_bytes = n_tok * (Dl + 4 if body == "int8" else Dl * 2)
+        b_ms, b_by = bound(io + lat_bytes, 2 * n_tok * H * (Dl + dc))
+        lib, lib_name = mla_library(q[:, :, None], deq, mask, dc, scale)
+        bodies[body] = {
+            "max_abs_err": err, "row_rel_err": rel, "ms": cuda_ms(call),
+            "plain_ms": cuda_ms(lambda pool=pool: decode_mla_attention_ref(
+                q, pool, pt, kvl, dc=dc, scale=scale), iters=5),
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib),
+            "library": lib_name, "device_ms": graph_ms(call),
+            "library_device_ms": graph_ms(lib)}
+        # TP 1's call on all 128 heads of the same rows: twice the blocks
+        full = lambda pool=pool: decode_mla_attention(  # noqa: E731
+            q_full, pool, pt, kvl, dc=dc, scale=scale)
+        tb_ms, _ = bound(io * MLA_H // H + lat_bytes, 2 * n_tok * MLA_H * (Dl + dc))
+        bodies[body]["tp1_H128"] = {"device_ms": graph_ms(full), "bound_ms": tb_ms}
+    out[fn.__name__] = {**bodies["bf16"], "bodies": bodies,
+                        # a decode block owns 64 heads of a row's split
+                        "head_blocks": {"rank": -(-H // 64), "tp1": -(-MLA_H // 64)},
+                        "shape": {"B": B, "H": H, "dc": dc, "dr": dr, "PS": PS,
+                                  "kv_lens": kv_list}}
+    del lat, lat8, lat8_deq, dense, dense8
+
+    S, (q_len, prior) = MLA_TIMED_S, MLA_TIMED_SEG
+    kv = prior + q_len
+    MP = -(-kv // PS) + 2
+    lat = rnd(MP + 1, PS, 1, Dl)
+    q = rnd(1, S, H, Dl)
+    pt = random_pages(gen, 1, MP, MP + 1, dev)
+    ints = [torch.tensor([x], dtype=torch.int32, device=dev) for x in (prior, q_len, kv)]
+    args = (q, lat, pt, *ints)
+    fn = prefill_mla_attention_sharded
+    got = fn(*args, dc=dc, scale=scale)
+    torch.cuda.synchronize()
+    ref = prefill_mla_attention_ref(*args, dc=dc, scale=scale)
+    err = (got[:, :q_len].float() - ref[:, :q_len].float()).abs().max().item()
+    rel = row_rel_err(got[:, :q_len], prefill_mla_attention_ref(
+        *plain32(args[:2]), *args[2:], dc=dc, scale=scale)[:, :q_len])
+    check(torch.isfinite(got.float()).all().item() and err <= KERNEL_TOL
+          and rel <= ROW_REL_TOL and got[:, q_len:].float().abs().max().item() == 0.0,
+          f"tp mla prefill: err {err}, row error {rel} (padding rows must be 0)")
+    n_pairs = sum(min(prior + s + 1, kv) for s in range(q_len))
+    b_ms, b_by = bound(q_len * H * Dl * 2 + S * H * dc * 2 + kv * Dl * 2
+                       + (-(-kv // PS)) * 4 + 3 * 4, 2 * n_pairs * H * (Dl + dc))
+    dense = lat[pt.long()].reshape(1, MP * PS, Dl)
+    s_pos = prior + torch.arange(q_len, device=dev)
+    c_pos = torch.arange(MP * PS, device=dev)
+    mask = ((c_pos[None, :] <= s_pos[:, None]) & (c_pos[None, :] < kv))[None, None]
+    lib, lib_name = mla_library(q[:, :q_len].permute(0, 2, 1, 3).contiguous(), dense,
+                                mask, dc, scale)
+    out[fn.__name__] = {
+        "max_abs_err": err, "row_rel_err": rel,
+        "ms": cuda_ms(lambda: fn(*args, dc=dc, scale=scale)),
+        "plain_ms": cuda_ms(lambda: prefill_mla_attention_ref(*args, dc=dc, scale=scale),
+                            iters=5),
+        "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(lib), "library": lib_name,
+        "device_ms": graph_ms(lambda: fn(*args, dc=dc, scale=scale)),
+        "library_device_ms": graph_ms(lib),
+        "shape": {"S": S, "q_len": q_len, "prior": prior, "H": H, "dc": dc, "dr": dr,
+                  "PS": PS}}
+    del lat, dense, args, lib
+    return out
+
+
 def rel_l2(a: torch.Tensor, b: torch.Tensor) -> float:
     a, b = a.float(), b.float()
     return ((a - b).norm() / b.norm().clamp(min=1e-30)).item()
 
 
-def tp_check_ranks(phase: str, runner, L: int, reps, want_calls=None):
+def tp_check_ranks(phase: str, runner, L: int, reps, want_calls=None, heads=TP_HK):
     """Every rank's report after a run: the same runner counters and the
     same digest of returned arrays (the followers' tokens are rank 0's);
     each sharded wrapper's launches equal to the launches of its kernel
-    (every launch went through it) on Hk 4 only, and each attention
-    kernel's to its passes x L."""
+    (every launch went through it) on the rank's `heads` only (KV heads,
+    or an MLA model's query heads), each attention kernel's of the model's
+    family to its passes x L and the other family's 0, and each grouped-
+    GEMM entry's to passes x the MoE layers."""
     st = reps[0]["stats"]
-    passes = {"decode_paged_attention_sharded": st["decode_steps"],
-              "prefill_paged_attention_sharded": st["prefill_chunks"]
-              + st["padded_prefill_dispatches"] + st["spec_verify_passes"],
-              "ragged_paged_attention_sharded": st["ragged_mixed_dispatches"]
-              + st["ragged_verify_dispatches"]}
+    cfg = runner.config
+    prefill = st["prefill_chunks"] + st["padded_prefill_dispatches"]
+    ragged = st["ragged_mixed_dispatches"] + st["ragged_verify_dispatches"]
+    gqa = {"decode_paged_attention_sharded": st["decode_steps"],
+           "prefill_paged_attention_sharded": prefill + st["spec_verify_passes"],
+           "ragged_paged_attention_sharded": ragged}
+    mla = {"decode_mla_attention_sharded": st["decode_steps"],
+           "prefill_mla_attention_sharded": 0 if runner.kv_quantize else prefill}
+    passes = {**{k: 0 if cfg.is_mla else n for k, n in gqa.items()},
+              **{k: n if cfg.is_mla else 0 for k, n in mla.items()}}
+    all_passes = prefill + st["decode_steps"] + ragged + st["spec_verify_passes"]
     for rep in reps:
         r = rep["rank"]
         check(rep["stats"] == st, f"{phase}: rank {r} counters {rep['stats']} != rank 0's {st}")
@@ -8459,11 +8609,15 @@ def tp_check_ranks(phase: str, runner, L: int, reps, want_calls=None):
             check(n == rep["launches"][inner],
                   f"{phase}: rank {r} {inner} {rep['launches'][inner]} launches, "
                   f"{n} through {name}")
-            check(rep["heads"][name] == ({TP_HK: n} if n else {}),
+            check(rep["heads"][name] == ({heads: n} if n else {}),
                   f"{phase}: rank {r} {name} heads {rep['heads'][name]}")
         for name, p in passes.items():
             check(rep["launches"][name] == p * L,
                   f"{phase}: rank {r} {name} {rep['launches'][name]} != {p} passes x {L}")
+        for name in MOE_KERNELS:
+            check(rep["launches"][name] == all_passes * runner.moe_layers,
+                  f"{phase}: rank {r} {name} {rep['launches'][name]} != {all_passes} "
+                  f"passes x {runner.moe_layers} MoE layers")
         for name, n in (want_calls or {}).items():
             check(rep["launches"][name] == n,
                   f"{phase}: rank {r} {name} {rep['launches'][name]} != {n}")
@@ -8474,19 +8628,24 @@ def tp_check_ranks(phase: str, runner, L: int, reps, want_calls=None):
         "bodies": [rep["bodies"] for rep in reps]}
 
 
-def tp_turn(runner, phase: str, fused, build_s=None):
+def tp_turn(runner, phase: str, fused, build_s=None, base_args=TP_ARGS, heads=TP_HK):
     """One engine turn of the 3B's traffic on the TP 2 runner: every rank's
     counters zeroed just before and read just after; rank 0's launch
     identities as every turn's (served_turn), then every rank's
-    (tp_check_ranks). Returns (rec, rank 0's launches)."""
+    (tp_check_ranks, the sharded wrappers on the rank's `heads`). Returns
+    (rec, rank 0's launches)."""
     cfg = runner.config
     rec, launches, results = engine_phase(
-        runner, phase, fused=fused, build_s=build_s, base_args=TP_ARGS,
+        runner, phase, fused=fused, build_s=build_s, base_args=base_args,
         probe=lambda engine: runner.reset_counters())
     check(all(f == "length" and len(t) == N_OUT for t, f, _ in results),
           f"{phase}: a request did not finish `length` with {N_OUT} tokens")
     st = rec["stats"]
-    if fused is None:
+    if fused is None and cfg.is_mla:  # MLA has no ragged step
+        check(rec["fused_mixed"] and st["padded_prefill_dispatches"] > 0
+              and st["ragged_mixed_dispatches"] == 0,
+              f"{phase}: mixed plans did not take the padded fallback: {st}")
+    elif fused is None:
         check(rec["fused_mixed"] and st["ragged_mixed_dispatches"] > 0
               and st["padded_prefill_dispatches"] == 0,
               f"{phase}: mixed plans did not ride the ragged step: {st}")
@@ -8494,59 +8653,9 @@ def tp_turn(runner, phase: str, fused, build_s=None):
         check(not rec["fused_mixed"] and launches["ragged_paged_attention"] == 0,
               f"{phase}: DYN_FUSED_MIXED=0 did not hold")
     reps = runner.rank_reports()
-    rec.update(tp_check_ranks(phase, runner, cfg.n_layers, reps))
+    rec.update(tp_check_ranks(phase, runner, cfg.n_layers, reps, heads=heads))
     rec["streams"] = [t for t, _, _ in results]
     return rec, launches
-
-
-def tp_parity(tp1, tp2, smi):
-    """TP 2 against TP 1 on the same seed-0 params: a 700-token prefill's
-    logits, a fused mixed step's chunk logits (the ragged kernel: a decode
-    row beside a 300-token chunk) within FORWARD_REL_TOL (rel L2), greedy
-    agreement over 16 decode steps, and a decode step's ms at 8 rows for
-    both, in turns (TP 1, TP 2, TP 2, TP 1)."""
-    V = tp1.config.vocab_size
-    gen = torch.Generator(device="cpu").manual_seed(26)
-    prompt = torch.randint(0, V, (700,), generator=gen).tolist()
-    chunk = torch.randint(0, V, (300,), generator=gen).tolist()
-    table = list(range(1, 45))  # 44 pages of 16: room for the decode steps
-    ctable = list(range(50, 70))
-    greedy = {"temperature": [0.0], "top_k": [0], "top_p": [1.0], "seeds": [0]}
-    got = {}
-    for name, r in (("tp1", tp1), ("tp2", tp2)):
-        pre = r.prefill(prompt, 0, table, 0).float()
-        tok = int(pre.argmax())
-        toks, mixed = r.decode_multi_with_prefill(
-            1, [tok], [len(prompt)], [table], greedy, 0, chunk, 0, ctable, 0)
-        dec = r.decode_multi(16, [int(toks[0, 0])], [len(prompt) + 1], [table], greedy, 1)
-        got[name] = (pre, mixed.float(), [tok, int(toks[0, 0])] + dec[0].tolist())
-    rel_pre = rel_l2(got["tp2"][0], got["tp1"][0])
-    rel_mix = rel_l2(got["tp2"][1], got["tp1"][1])
-    a, b = got["tp1"][2], got["tp2"][2]
-    agree = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
-    check(rel_pre <= FORWARD_REL_TOL and rel_mix <= FORWARD_REL_TOL,
-          f"tp parity: rel L2 prefill {rel_pre}, mixed {rel_mix} > {FORWARD_REL_TOL}")
-    # a decode step's ms at 8 rows over 700-token contexts, host included
-    rows = [list(range(100 + 45 * i, 145 + 45 * i)) for i in range(8)]
-    eight = {k: v * 8 for k, v in greedy.items()}
-    eight["seeds"] = list(range(8))
-
-    def step_ms(r, n=8):
-        r.decode_multi(n, [1] * 8, [700] * 8, rows, eight, 0)  # warm
-        torch.cuda.synchronize()
-        t0 = time.monotonic()
-        r.decode_multi(n, [1] * 8, [700] * 8, rows, eight, 0)
-        torch.cuda.synchronize()
-        return (time.monotonic() - t0) * 1e3 / n
-
-    turns = [("tp1", step_ms(tp1)), ("tp2", step_ms(tp2)), ("tp2", step_ms(tp2)),
-             ("tp1", step_ms(tp1))]
-    rec = {"phase": "tp_parity", "rel_l2_prefill": rel_pre, "rel_l2_mixed": rel_mix,
-           "tol": FORWARD_REL_TOL, "greedy_tokens": len(a), "greedy_agree_prefix": agree,
-           "greedy_agree_frac": sum(x == y for x, y in zip(a, b)) / len(a),
-           "decode_step_ms_8_rows": turns, "nvidia_smi": smi}
-    emit(rec)
-    return prompt, table
 
 
 def tp_pull(tp1, tp2, prompt, table, smi):
@@ -8577,6 +8686,171 @@ def tp_pull(tp1, tp2, prompt, table, smi):
     emit(rec)
     return {name: reps[0]["launches"][name] for name in
             ("gather_pages_sharded", "scatter_pages_sharded")}
+
+
+class route_tape:
+    """Within it, every moe_block's routing (weights, top-k ids) in this
+    process is kept in call order (a TP 2 runner's rank 0 runs here: every
+    rank routes the same tokens alike on the same all-reduced h). With
+    `replay`, each call takes the next recorded routing instead of its own
+    (its shape checked), so a TP 1 runner computes the TP 2 run's experts
+    and the two differ only in arithmetic."""
+
+    def __init__(self, replay=None):
+        self.replay = replay
+        self.routes = []
+
+    def __enter__(self):
+        self._orig = moe_model.router_topk
+
+        def hook(*a, **kw):
+            weights, sel = self._orig(*a, **kw)
+            if self.replay is not None:
+                check(len(self.routes) < len(self.replay),
+                      f"route_tape: more MoE blocks than the {len(self.replay)} recorded")
+                rw, rs = self.replay[len(self.routes)]
+                check(rs.shape == sel.shape, f"route_tape: {tuple(sel.shape)} against "
+                      f"the recorded {tuple(rs.shape)}")
+                weights, sel = rw, rs
+            self.routes.append((weights, sel))
+            return weights, sel
+
+        moe_model.router_topk = hook
+        return self
+
+    def __exit__(self, *exc):
+        moe_model.router_topk = self._orig
+        if exc[0] is None and self.replay is not None:
+            check(len(self.routes) == len(self.replay),
+                  f"route_tape: {len(self.routes)} MoE blocks, {len(self.replay)} recorded")
+
+
+def route_flips(a, b):
+    """Top-k choices of routing tape `a` that tape `b` did not make."""
+    choices = differ = 0
+    for (_, sa), (_, sb) in zip(a, b):
+        same = (sa[..., :, None] == sb[..., None, :]).any(-1)
+        choices += sa.numel()
+        differ += int((~same).sum())
+    return {"choices": choices, "choices_differing": differ}
+
+
+def tp_parity(tp1, tp2, smi, phase: str = "tp_parity", greedy_steps: int = 16):
+    """TP 2 against TP 1 on the same seed-0 params: a 700-token prefill's
+    logits and a fused step's chunk logits (a decode row beside a
+    300-token chunk) within FORWARD_REL_TOL (rel L2); on a MoE model the
+    TP 1 runner pinned to the TP 2 run's routing (route_tape), its free
+    run reported beside it with the choices that differ; greedy agreement
+    over `greedy_steps` decode steps after the fused step; then a decode
+    step's ms at 8 rows over 700-token contexts for both, in turns (TP 1,
+    TP 2, TP 2, TP 1). Returns the prompt and its pages."""
+    moe = tp1.moe_layers > 0
+    V = tp1.config.vocab_size
+    gen = torch.Generator(device="cpu").manual_seed(26)
+    prompt = torch.randint(0, V, (700,), generator=gen).tolist()
+    chunk = torch.randint(0, V, (300,), generator=gen).tolist()
+    table = list(range(1, 45))  # 44 pages of 16: room for the decode steps
+    ctable = list(range(50, 70))
+    greedy = {"temperature": [0.0], "top_k": [0], "top_p": [1.0], "seeds": [0]}
+
+    def forwards(r, tok=None):
+        """The prefill's and the fused step's logits, the prefill's token
+        (`tok` if given: a pinned run takes the TP 2 run's) and the step's."""
+        pre = r.prefill(prompt, 0, table, 0).float()
+        tok = int(pre.argmax()) if tok is None else tok
+        toks, mixed = r.decode_multi_with_prefill(
+            1, [tok], [len(prompt)], [table], greedy, 0, chunk, 0, ctable, 0)
+        return pre, mixed.float(), tok, int(toks[0, 0])
+
+    with route_tape() as tape2:
+        pre2, mix2, tok2, nxt2 = forwards(tp2)
+    rec = {"phase": phase, "model": tp1.config.name, "n_layers": tp1.config.n_layers,
+           "tol": FORWARD_REL_TOL}
+    if moe:
+        with route_tape() as tape1:
+            pre1, mix1, tok1, nxt1 = forwards(tp1, tok2)
+        rec["free"] = {"rel_l2_prefill": rel_l2(pre2, pre1), "rel_l2_mixed": rel_l2(mix2, mix1),
+                       **route_flips(tape2.routes, tape1.routes)}
+        with route_tape(replay=tape2.routes):
+            pre1, mix1, tok1, nxt1 = forwards(tp1, tok2)
+        rec["pinned_moe_blocks"] = len(tape2.routes)
+    else:
+        pre1, mix1, tok1, nxt1 = forwards(tp1)
+    rec["rel_l2_prefill"], rec["rel_l2_mixed"] = rel_l2(pre2, pre1), rel_l2(mix2, mix1)
+    check(rec["rel_l2_prefill"] <= FORWARD_REL_TOL and rec["rel_l2_mixed"] <= FORWARD_REL_TOL,
+          f"{phase}: rel L2 prefill {rec['rel_l2_prefill']}, mixed {rec['rel_l2_mixed']} "
+          f"> {FORWARD_REL_TOL}")
+    if greedy_steps:
+        a, b = ([t, n] + r.decode_multi(greedy_steps, [n], [len(prompt) + 1], [table],
+                                        greedy, 1)[0].tolist()
+                for r, t, n in ((tp1, tok1, nxt1), (tp2, tok2, nxt2)))
+        rec["greedy_tokens"] = len(a)
+        rec["greedy_agree_prefix"] = next(
+            (i for i, (x, y) in enumerate(zip(a, b)) if x != y), len(a))
+        rec["greedy_agree_frac"] = sum(x == y for x, y in zip(a, b)) / len(a)
+    rows = [list(range(100 + 45 * i, 145 + 45 * i)) for i in range(8)]
+    eight = {k: v * 8 for k, v in greedy.items()}
+    eight["seeds"] = list(range(8))
+
+    def step_ms(r, n=8):
+        r.decode_multi(n, [1] * 8, [700] * 8, rows, eight, 0)  # warm
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        r.decode_multi(n, [1] * 8, [700] * 8, rows, eight, 0)
+        torch.cuda.synchronize()
+        return (time.monotonic() - t0) * 1e3 / n
+
+    rec["decode_step_ms_8_rows"] = [("tp1", step_ms(tp1)), ("tp2", step_ms(tp2)),
+                                    ("tp2", step_ms(tp2)), ("tp1", step_ms(tp1))]
+    rec["nvidia_smi"] = smi
+    emit(rec)
+    return prompt, table
+
+
+def tp_model_phase(group, procs, phase: str, cfg, base_args, heads: int, smi,
+                   int8_turn: bool = False):
+    """`cfg` at TP 2 on the ranks engine_tp spawned (each rank drawing its
+    seed-0 slices), beside a TP 1 runner on the same params in this
+    process: tp_parity, the TP 1 runner freed, then one fused turn
+    of the 3B's traffic (`engine_<phase>`) with every rank's launch
+    identities on the rank's `heads`, the ranks' counters and digests
+    equal and each rank's peak memory; with `int8_turn` (MLA), a second
+    turn over int8 pools on the same ranks (`engine_<phase>_int8`: every
+    decode launch on the int8 latent body of each rank's aligned pool,
+    prefill gathering). Returns rank 0's launches of the first turn."""
+    from dynamo_tpu_torch.parallel.group import MirroredRunner
+
+    kw = dict(config=cfg, num_pages=2048, page_size=PAGE_SIZE,
+              max_pages_per_seq=4096 // PAGE_SIZE)
+    t0 = time.monotonic()
+    tp2 = MirroredRunner(group, procs, device=group.devices[0], **kw)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    tp1 = ModelRunner(device=group.devices[0], **kw)
+    tp_parity(tp1, tp2, smi, f"tp_parity_{phase}", greedy_steps=0)
+    free(tp1)
+    del tp1
+    rec, _ = tp_turn(tp2, phase, None, build_s, base_args=base_args, heads=heads)
+    rec["config"] = {k: getattr(cfg, k) for k in CONFIG_FIELDS if hasattr(cfg, k)}
+    rec["transport"] = group.transport
+    rec["nvidia_smi"] = smi
+    emit(rec)
+    tp2.close()
+    gc.collect()
+    torch.cuda.empty_cache()
+    if int8_turn:
+        tp8 = MirroredRunner(group, procs, device=group.devices[0], kv_quantize="int8", **kw)
+        rec8, _ = tp_turn(tp8, f"{phase}_int8", None, base_args=base_args, heads=heads)
+        for r, b in enumerate(rec8["bodies"]):
+            n = rec8["per_rank"][r]["launches"]["decode_mla_attention"]
+            check(n > 0 and b["decode_mla_attention"] == {"int8": n},
+                  f"engine_{phase}_int8: rank {r} decode bodies {b['decode_mla_attention']}")
+        rec8["nvidia_smi"] = smi
+        emit(rec8)
+        tp8.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return rec["per_rank"][0]["launches"]
 
 
 def engine_tp_phase(smi):
@@ -8634,9 +8908,24 @@ def engine_tp_phase(smi):
     found["tp_int8"] = rec["bodies"][0]
     emit(rec)
     tp8.close()
+    del tp8
+    gc.collect()
+    torch.cuda.empty_cache()
+    # MLA and MoE on the same ranks: DeepSeek-V3's three dense layers (the
+    # sharded MLA pair on 64 heads a rank) and qwen3-30b-a3b cut to 8 layers
+    # (the GQA wrappers at Hk 2, G 8; each expert's F / 2)
+    t_new = time.monotonic()
+    mla = timed("engine_tp_mla", tp_model_phase, group, tp2._procs, "tp_mla", MLA_CONFIG,
+                model_args("deepseek-v3"), TP_MLA_H, smi, True)
+    for name in ("decode_mla_attention_sharded", "prefill_mla_attention_sharded"):
+        launches[name] = mla[name]
+    moe_cfg = get_config(TP_MOE_MODEL).with_(n_layers=DEPTH_CUTS[TP_MOE_MODEL])
+    timed("engine_tp_moe", tp_model_phase, group, tp2._procs, "tp_moe", moe_cfg,
+          model_args(TP_MOE_MODEL), TP_MOE_HK, smi)
+    emit({"phase": "tp_mla_moe_seconds", "seconds": time.monotonic() - t_new})
     codes = shutdown_followers(group, tp2._procs)
     check(codes == [0], f"engine_tp: the follower exited {codes}")
-    del tp2, tp8
+    del tp2
     gc.collect()
     torch.cuda.empty_cache()
     # llama-3.1-70b over two ranks on this one card: refused by the fit
@@ -8651,6 +8940,17 @@ def engine_tp_phase(smi):
           f"engine_tp_70b: not refused by the fit check: {refused}")
     check(torch.cuda.memory_allocated() == before, "engine_tp_70b: memory was allocated")
     emit({"phase": "engine_tp_70b", "refused": refused, "nvidia_smi": smi})
+    # DeepSeek-V3 at full depth (61 layers, 256 experts) over two ranks:
+    # refused the same way
+    try:
+        build_runner(parse_args(model_args("deepseek-v3") + ["--tensor-parallel", "2"]))
+        refused = None
+    except MemoryError as e:
+        refused = str(e)
+    check(refused is not None and "2 rank(s) on this device" in refused,
+          f"engine_tp_v3: not refused by the fit check: {refused}")
+    check(torch.cuda.memory_allocated() == before, "engine_tp_v3: memory was allocated")
+    emit({"phase": "engine_tp_v3", "refused": refused, "nvidia_smi": smi})
     return launches, found
 
 

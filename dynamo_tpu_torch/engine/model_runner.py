@@ -31,7 +31,9 @@ parallel/group.py MirroredRunner) they are this rank's slices and Hk / tp
 heads, the forward's collectives keep the ranks in step, the copies go
 through the sharded page-copy wrappers, the wire keeps whole-head pages
 (exports all-gathered, imports cut) and `layout_table` names each
-tensor's rank and cut. The pools are updated in place
+tensor's rank and cut; an MLA latent pool is whole on every rank, so its
+pages are copied by the plain wrappers, exported as rank 0 holds them and
+imported whole into every rank's pool. The pools are updated in place
 (`kv_quantize="int8"`: the int8 dict pools of models/quant.py, whose pages
 cross the transfer boundary dequantized, so the wire stays in the dense
 dtype and bf16 and int8 workers interoperate; `quantize="int8"` or
@@ -102,9 +104,9 @@ from dynamo_tpu_torch.ops.block_copy import (
 )
 from dynamo_tpu_torch.parallel.mesh import (
     ITEM_TIERS,
-    KV_CUT,
     MeshConfig,
     cut,
+    kv_cut,
     local_shape,
     param_cut,
     refuse_tp,
@@ -469,6 +471,10 @@ class ModelRunner:
         self.tp_rank = 0 if self.tp is None else tp.rank
         self.tp_size = 1 if self.tp is None else tp.size
         self.mesh_config = MeshConfig(model=self.tp_size)
+        # the dim a rank's pools cut (None: whole on every rank, as an MLA
+        # latent pool is), and whether its page copies are the sharded ones
+        self.kv_cut = kv_cut(config)
+        self._kv_sharded = self.tp is not None and self.kv_cut is not None
         self.num_pages = num_pages
         self.page_size = page_size
         self.max_pages_per_seq = max_pages_per_seq
@@ -645,7 +651,7 @@ class ModelRunner:
             return local_shape(node, dim, self.tp_size), self.tp_rank, dim
         shape = kv_pool_shapes(self.config, self.num_pages + 1, self.page_size,
                                self.tp_size)[0]
-        return (shape[:-1] if parts[-1] == "s" else shape), self.tp_rank, KV_CUT
+        return (shape[:-1] if parts[-1] == "s" else shape), self.tp_rank, self.kv_cut
 
     def _layout_rows(self):
         yield from tensor_rows("params/", self.params)
@@ -1624,7 +1630,7 @@ class ModelRunner:
 
     def _dense_pages(self, pool, idx: torch.Tensor) -> torch.Tensor:
         # the copy kernels read their page ids back once a call
-        gather = gather_pages if self.tp is None else gather_pages_sharded
+        gather = gather_pages_sharded if self._kv_sharded else gather_pages
         with self._allow("kv_tier_io"):
             parts = [gather(p, idx) for p in self._parts(pool)]
         if is_quantized(pool):
@@ -1641,7 +1647,7 @@ class ModelRunner:
         return [d["q"], d["s"][..., None]]
 
     def _store_pages(self, pool, idx: torch.Tensor, dense: torch.Tensor) -> None:
-        scatter = scatter_pages if self.tp is None else scatter_pages_sharded
+        scatter = scatter_pages_sharded if self._kv_sharded else scatter_pages
         with self._allow("kv_tier_io"):
             for p, pages in zip(self._parts(pool), self._as_stored(pool, dense)):
                 scatter(p, idx, pages)
@@ -1727,12 +1733,14 @@ class ModelRunner:
         run behind it on the same stream. Under tensor parallelism each
         rank gathers its own heads (gather_pages_sharded) and the ranks'
         slices are all-gathered into whole-head pages: the wire is always
-        dense full-head pages, as the reference's."""
+        dense full-head pages, as the reference's. An MLA latent pool is
+        whole on every rank: each gathers its own pages and returns them as
+        they are, with no collective."""
         idx, = self._page_ids(pages)
         self.stats["kv_pages_exported"] += len(pages)
         k, v = self._dense_pages(self.k_pool, idx), self._dense_pages(self.v_pool, idx)
-        if self.tp is not None:
-            k, v = self.tp.all_gather(k, KV_CUT), self.tp.all_gather(v, KV_CUT)
+        if self._kv_sharded:
+            k, v = self.tp.all_gather(k, self.kv_cut), self.tp.all_gather(v, self.kv_cut)
         return k, v
 
     def import_pages_device(self, target_pages: List[int], offset: int, k, v) -> None:
@@ -1835,7 +1843,7 @@ class ModelRunner:
         side of the wire layout handshake (whole heads under tensor
         parallelism: the wire holds full-head pages)."""
         L, _, PS, Hk, D = pool_values(self.k_pool).shape
-        return (L, PS, Hk * self.tp_size, D)
+        return (L, PS, Hk * self.tp_size if self._kv_sharded else Hk, D)
 
     def _refuse_tp(self, what: str) -> None:
         # payloads a mirrored call may carry that this slice does not take
@@ -1874,7 +1882,8 @@ class ModelRunner:
         copied whole; else stacked straight into the staging buffers), in
         the runner's dtype. An int8 pool quantizes them on the device with
         its own quantizer. Under tensor parallelism the pages hold every
-        KV head and each rank keeps its own (scatter_pages_sharded).
+        KV head and each rank keeps its own (scatter_pages_sharded); an MLA
+        latent page goes whole into every rank's pool.
 
         layer_groups > 1 streams the import in contiguous layer slabs
         (FlowKV-style): on a card each group's host→device copy runs on a
@@ -1884,7 +1893,7 @@ class ModelRunner:
         if self.tp is not None:
             if isinstance(k, (list, tuple)) or isinstance(v, (list, tuple)):
                 self._refuse_tp("importing host-tier page blocks")
-            k, v = (cut(x, KV_CUT, self.tp_rank, self.tp_size) for x in (k, v))
+            k, v = (cut(x, self.kv_cut, self.tp_rank, self.tp_size) for x in (k, v))
         self._import_staged(target_pages, [k], [v], layer_groups)
 
     def _import_pages_quant(self, target_pages: List[int], offset: int,
@@ -1984,7 +1993,7 @@ class ModelRunner:
                 for p, pages in zip(self._parts(pool), stored):
                     if layered:
                         scatter_pages_layers(p, idx, pages, offs[g:g + 1])
-                    elif self.tp is not None:
+                    elif self._kv_sharded:
                         scatter_pages_sharded(p, idx, pages)
                     else:
                         scatter_pages(p, idx, pages)

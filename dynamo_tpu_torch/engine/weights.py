@@ -136,8 +136,7 @@ def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
         if isinstance(where[name], Mapping):
             if tp > 1:
                 raise NotImplementedError(
-                    "quantized weights under tensor parallelism: ROADMAP A.14 "
-                    "(second half)")
+                    "quantized weights under tensor parallelism: ROADMAP A.14 (c)")
             return quantized(where[name], name, shape)
         arr = np.asarray(where[name], dtype=np.float32)
         if arr.shape != shape:
@@ -600,7 +599,7 @@ def load_hf_checkpoint(checkpoint_dir: str, config: ModelConfig, device=None,
     c = config
     if tp > 1 and (quantize or sinks):
         raise NotImplementedError("quantized loads and warm-tier sinks under "
-                                  "tensor parallelism: ROADMAP A.14 (second half)")
+                                  "tensor parallelism: ROADMAP A.14 (c)")
     t_start = time.monotonic()
     ckpt = _Checkpoint(files, c, device)
     try:
@@ -665,7 +664,7 @@ def _checkpoint_reader(ckpt: _Checkpoint, c: ModelConfig, dtype, rank: int = 0,
         if fix == "kv_a":  # the k_pe block: the last dr columns
             dst[:, dc:] = dst[:, dc:][:, rp]
         elif fix == "q":  # each head's rope block [dn:dn + dr]
-            w3 = dst.view(dst.shape[0], c.n_heads, c.qk_nope_head_dim + dr)
+            w3 = dst.view(dst.shape[0], -1, c.qk_nope_head_dim + dr)  # a rank's heads
             w3[:, :, c.qk_nope_head_dim:] = w3[:, :, c.qk_nope_head_dim:][:, :, rp]
         _sync(ckpt.device)
         ckpt.device_s += time.monotonic() - t0
@@ -700,7 +699,7 @@ def _checkpoint_reader(ckpt: _Checkpoint, c: ModelConfig, dtype, rank: int = 0,
         for j, w in enumerate(out, start=r0):
             if key.endswith(("/we_gate", "/we_up", "/we_down")):
                 for e in range(c.n_experts):
-                    fill(w[e], tmpl.format(i=L0 + j, e=e), True)
+                    fill(w[e], tmpl.format(i=L0 + j, e=e), True, cut_dim=param_cut(key))
             else:
                 fill(w, tmpl.format(i=L0 + j), w.dim() == 2, fix,
                      cut_dim=param_cut(key))

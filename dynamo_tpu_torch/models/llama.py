@@ -377,13 +377,18 @@ def forward(
     (parallel/mesh.py). The embedding's E columns are gathered after the
     lookup; q, k and v are the rank's heads (G query heads with their KV
     head), written to its pools and attended by the `*_sharded` kernels;
-    one all-reduce follows `wo` and one `w_down` a layer, after the product
-    and before any post norm and the residual add, where GSPMD places
-    them; OLMo-2's full-width qk-norm sums its squares over the ranks; the
-    V-cut logits are gathered, and a tied head all-reduces its partial
-    product over the E cut. Every rank returns the same logits. It serves
-    dense GQA configs without LoRA: parallel/mesh.py check_tp refuses the
-    rest when a tensor-parallel runner is built."""
+    an MLA layer computes the rank's H / N heads over the whole latent pool
+    every rank holds (models/mla.py); one all-reduce follows `wo` and one
+    the FFN a layer (`w_down`, or the MoE block: a rank's routed experts
+    hold F / N columns each and its shared experts are a dense FFN's cut,
+    so both sums are partial; the router is whole and every rank routes
+    the same tokens alike), after the product and before any post norm
+    and the residual add, where GSPMD places them; OLMo-2's full-width
+    qk-norm sums its squares over the ranks; the V-cut logits are
+    gathered, and a tied head all-reduces its partial product over the E
+    cut. Every rank returns the same logits. It serves configs without
+    LoRA or quantized weights: parallel/mesh.py check_tp refuses the rest
+    when a tensor-parallel runner is built."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
     c = config
@@ -462,7 +467,7 @@ def forward(
         if c.is_mla:
             attn = mla_attention(c, lp, h, k_pool, l, rows, page_table,
                                  ropes[0], safe_pos, kv_lens, q_start,
-                                 q_len, attn_impl)
+                                 q_len, attn_impl, n_tp)
         else:
             # OLMo-2 (pre_norms=False): the sublayer reads the raw residual
             x = (rms_norm(h, lp["attn_norm"], c.norm_eps, zero_centered=zc)
@@ -519,6 +524,8 @@ def forward(
              if c.pre_norms or c.is_mla else h)
         if use_moe:  # no post-FFN norm on a MoE layer, as in the reference
             ffw = moe_block(c, lp, x, attn_impl)
+            if sharded:  # F is cut: the routed and shared sums are partial
+                tp.all_reduce(ffw)
         else:
             gate = act(lproj(mm(x, lp["w_gate"], attn_impl), x, "w_gate", l))
             gu = gate * lproj(mm(x, lp["w_up"], attn_impl), x, "w_up", l)

@@ -3,9 +3,16 @@ divergence from the dense layer, attention in absorbed form over a
 per-token latent cache instead of full-head K/V pools.
 
 Port of dynamo_tpu/models/mla.py `_mla_attention` (bf16 or int8 latent
-pool, no tensor parallelism). Per token the pool caches one [d_c + d_rh]
-vector: the RMS-normed KV latent c_kv, then the RoPE'd shared key k_R.
-W_UK is absorbed into the query (q_abs = q_nope @ W_UK), so scores are
+pool). Under tensor parallelism (`tp` ranks) a rank computes its own
+H / tp heads: wq (or wq_up) and wkv_b hold its heads' columns
+(parallel/mesh.py), the latent (wkv_a, kv_norm) is the whole model's on
+every rank and written into every rank's whole pool, and attention goes
+through the `*_sharded` wrappers on the rank's heads; the caller's
+all-reduce after wo sums the ranks' partial products.
+
+Per token the pool caches one [d_c + d_rh] vector: the RMS-normed KV
+latent c_kv, then the RoPE'd shared key k_R. W_UK is absorbed into the
+query (q_abs = q_nope @ W_UK), so scores are
 q_abs . c_kv + q_R . k_R, i.e. paged attention with one KV head, all
 query heads in its group, keys = the latent and values = its first d_c
 columns; W_UV then lifts the attended latent to per-head values. The absorption and the lift
@@ -44,7 +51,9 @@ from dynamo_tpu_torch.models.toolkit import (
 )
 from dynamo_tpu_torch.ops.mla_attention import (
     decode_mla_attention,
+    decode_mla_attention_sharded,
     prefill_mla_attention,
+    prefill_mla_attention_sharded,
 )
 
 
@@ -62,11 +71,12 @@ def mla_attention(
     q_start: torch.Tensor,  # [B] int32 (prefill kernel metadata)
     q_len: torch.Tensor,  # [B] int32
     attn_impl: str,  # "kernel" | "ref"
+    tp: int = 1,  # tensor-parallel ranks: this rank's H / tp heads
 ) -> torch.Tensor:
     """Writes this step's latents into layer `l` of the pool in place and
-    returns the attention output [B, S, H * d_v] (before wo)."""
+    returns the attention output [B, S, H / tp * d_v] (before wo)."""
     B, S = safe_pos.shape
-    H = c.n_heads
+    H = c.n_heads // tp
     dn, dr, dv, dc = (c.qk_nope_head_dim, c.qk_rope_head_dim, c.v_head_dim,
                       c.kv_lora_rank)
     cos, sin = rope_cs
@@ -100,11 +110,11 @@ def mla_attention(
             qp[:, :, None], lat_l, val, page_table, safe_pos, kv_lens,
             scale)[:, :, 0]
     elif S == 1:
-        attn_lat = decode_mla_attention(
+        attn_lat = (decode_mla_attention_sharded if tp > 1 else decode_mla_attention)(
             qp[:, 0].contiguous(), lat_l, page_table, kv_lens, dc=dc,
             scale=scale)[:, None]
     else:
-        attn_lat = prefill_mla_attention(
+        attn_lat = (prefill_mla_attention_sharded if tp > 1 else prefill_mla_attention)(
             qp, lat_l, page_table, q_start, q_len, kv_lens, dc=dc, scale=scale)
     attn = torch.einsum("bshc,chv->bshv", attn_lat, w_uv)
     return attn.reshape(B, S, H * dv)

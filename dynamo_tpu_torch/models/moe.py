@@ -2,7 +2,13 @@
 experts, plus the always-active shared experts.
 
 Port of dynamo_tpu/models/moe.py `_moe_block` off an expert mesh (the
-expert-parallel dispatch, moe.py:34-53, waits for ROADMAP A.14). The
+expert-parallel dispatch, moe.py:34-53, waits for ROADMAP A.14 (b)).
+Under tensor parallelism a rank holds F / tp columns of every routed
+expert (we_gate / we_up cut F, we_down its F rows) and its shared
+experts are a dense FFN's cut, so the block's output is the rank's
+partial sum and the caller all-reduces it once (models/llama.py), as
+the reference's GSPMD does; the router (w_router, router_bias) and
+ws_gatectl are whole, and every rank routes the same tokens alike. The
 shared experts (DeepSeek, Qwen2-MoE) are a dense SwiGLU added to the
 routed output, gated by sigmoid(x @ ws_gatectl) where the tree has it.
 The router product runs in x's dtype and is then cast to f32, and the

@@ -13,8 +13,14 @@ in csrc/mla_attention.cu; on CPU tensors it runs the plain version beside
 it. Decode also takes the int8 latent pool {"q": int8 [NP, PS, 1, Dl],
 "s": f32 [NP, PS, 1]} (`_mla_kernel_int8`): the one per-token scale folds
 into the scores and, after the denominator, into p. As in the reference
-there is no int8 prefill kernel (models/mla.py gathers instead). The
-`*_sharded` wrappers are not ported.
+there is no int8 prefill kernel (models/mla.py gathers instead).
+
+`decode_mla_attention_sharded` and `prefill_mla_attention_sharded` are
+the tensor-parallel counterparts (the reference's shard_maps of the two
+kernels over the model axis): a rank's call on the H / tp query heads it
+computes against the whole latent pool every rank holds, with no
+collective; each runs the same kernel and counts its own launches by the
+rank's heads (ops/paged_attention.py `count_sharded`).
 
 The decode kernel splits each row's context into MLA_SPLIT_TOKENS-long
 pieces (over an int8 pool, its own kernel's MLA_INT8_SPLIT_TOKENS) and
@@ -35,6 +41,7 @@ from dynamo_tpu_torch.models.toolkit import is_quantized, pool_values
 from dynamo_tpu_torch.ops import _build
 from dynamo_tpu_torch.ops.flash_prefill import prefill_paged_attention_ref
 from dynamo_tpu_torch.ops.paged_attention import (
+    count_sharded,
     decode_paged_attention_ref,
     decode_split_count,
     gather_context,
@@ -295,3 +302,66 @@ def prefill_mla_attention(
 decode_mla_attention.launches = 0
 decode_mla_attention.bodies = {}  # launches by latent type: "bf16", "int8"
 prefill_mla_attention.launches = 0
+
+
+def check_whole_latent(lat_pool_l, what: str) -> None:
+    """A sharded MLA wrapper's pool: the whole latent pool (one head)."""
+    held = pool_values(lat_pool_l).shape[-2]
+    if held != 1:
+        raise ValueError(f"{what}: the latent pool has {held} heads, not the "
+                         "one latent every rank holds whole")
+
+
+def decode_mla_attention_sharded(
+    q: torch.Tensor,  # [B, H / tp, Dl]: this rank's query heads
+    lat_pool_l,  # [NP, PS, 1, Dl] whole on every rank, or its int8 dict
+    page_table: torch.Tensor,  # [B, MP] int32, whole on every rank
+    kv_lens: torch.Tensor,  # [B] int32, whole on every rank
+    *,
+    dc: int,
+    scale: float,
+) -> torch.Tensor:
+    """The tensor-parallel counterpart of decode_mla_attention (the
+    reference's `decode_mla_attention_sharded`): one rank's call on the
+    query heads it computes against the whole latent pool, with no
+    collective (the block's all-reduce comes after wo). Both latent types,
+    bf16 and int8, as the unsharded wrapper. Returns [B, H / tp, dc];
+    counts its own launches (one a launch of the kernel) beside the
+    kernel's."""
+    check_whole_latent(lat_pool_l, "decode_mla_attention_sharded")
+    before = decode_mla_attention.launches
+    out = decode_mla_attention(q, lat_pool_l, page_table, kv_lens, dc=dc, scale=scale)
+    count_sharded(decode_mla_attention_sharded, decode_mla_attention.launches - before,
+                  q.shape[1])
+    return out
+
+
+def prefill_mla_attention_sharded(
+    q: torch.Tensor,  # [B, S, H / tp, Dl]: this rank's query heads
+    lat_pool_l: torch.Tensor,  # [NP, PS, 1, Dl] whole on every rank
+    page_table: torch.Tensor,  # [B, MP] int32
+    q_start: torch.Tensor,  # [B] int32
+    q_len: torch.Tensor,  # [B] int32
+    kv_lens: torch.Tensor,  # [B] int32
+    *,
+    dc: int,
+    scale: float,
+) -> torch.Tensor:
+    """The tensor-parallel counterpart of prefill_mla_attention (the
+    reference's `prefill_mla_attention_sharded`): one rank's chunk on its
+    query heads against the whole bf16 latent pool, no collective.
+    Returns [B, S, H / tp, dc]; counts its own launches beside the
+    kernel's."""
+    check_whole_latent(lat_pool_l, "prefill_mla_attention_sharded")
+    before = prefill_mla_attention.launches
+    out = prefill_mla_attention(q, lat_pool_l, page_table, q_start, q_len, kv_lens,
+                                dc=dc, scale=scale)
+    count_sharded(prefill_mla_attention_sharded, prefill_mla_attention.launches - before,
+                  q.shape[2])
+    return out
+
+
+decode_mla_attention_sharded.launches = 0
+decode_mla_attention_sharded.heads = {}  # launches by the rank's heads
+prefill_mla_attention_sharded.launches = 0
+prefill_mla_attention_sharded.heads = {}

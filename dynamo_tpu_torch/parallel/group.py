@@ -265,8 +265,10 @@ class TPGroup:
 # -- per-rank counters -----------------------------------------------------------
 def kernel_counters() -> Dict[str, Any]:
     """The wrappers a tensor-parallel pass can launch, by name: the GQA
-    attention kernels, the page copies and their sharded counterparts."""
-    from dynamo_tpu_torch.ops import block_copy, flash_prefill, paged_attention
+    and MLA attention kernels, the page copies, their sharded
+    counterparts, and the grouped GEMM's two entries."""
+    from dynamo_tpu_torch.ops import block_copy, flash_prefill, mla_attention, paged_attention
+    from dynamo_tpu_torch.ops import moe_dispatch
     from dynamo_tpu_torch.ops import ragged_paged_attention as rag
 
     return {
@@ -281,6 +283,12 @@ def kernel_counters() -> Dict[str, Any]:
         "ragged_paged_attention_sharded": rag.ragged_paged_attention_sharded,
         "gather_pages_sharded": block_copy.gather_pages_sharded,
         "scatter_pages_sharded": block_copy.scatter_pages_sharded,
+        "decode_mla_attention": mla_attention.decode_mla_attention,
+        "prefill_mla_attention": mla_attention.prefill_mla_attention,
+        "decode_mla_attention_sharded": mla_attention.decode_mla_attention_sharded,
+        "prefill_mla_attention_sharded": mla_attention.prefill_mla_attention_sharded,
+        "moe_gate_up": moe_dispatch.moe_gate_up,
+        "moe_down": moe_dispatch.moe_down,
     }
 
 

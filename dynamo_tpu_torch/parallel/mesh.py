@@ -11,15 +11,22 @@ contiguous parts along the one dimension the rule names, part r kept.
 The rule (`param_cut`, by leaf name): column-parallel projections (wq, wk,
 wv, w_gate, w_up and the shared experts' ws_gate, ws_up) cut their output
 dim, so a rank's query heads stay with their KV head (head h = kv * G + g);
+MLA's wq_up and wkv_b cut it too (their columns are head-major, so a
+contiguous part is a rank's heads, in step with wo's row cut: a departure
+in memory only, the reference keeps both whole and lets shard_map slice
+q's heads), while wq_lat, q_lat_norm, wkv_a and kv_norm stay whole;
 row-parallel ones (wo, w_down, ws_down) cut their input dim; Qwen2's bq,
 bk, bv follow the column cut; the embedding [V, E] cuts E and an untied
 head [E, V] cuts V; the routed experts' we_gate / we_up [L, n, E, F] cut
 F and we_down its F; norms (q_norm and k_norm included), the router and
 scalars are whole on every rank. The KV pools [L, NP, PS, Hk, D] and an
-int8 pool's scales [L, NP, PS, Hk] cut Hk (dim KV_CUT of both).
+int8 pool's scales [L, NP, PS, Hk] cut Hk (dim KV_CUT of both); an MLA
+latent pool (Hk 1) is whole on every rank (`kv_cut`), as the reference
+replicates it.
 
-This slice serves `model` > 1 alone, for the dense GQA families. What it
-does not serve under tensor parallelism is decided here, in one table
+This slice serves `model` > 1 alone, for the dense GQA, MLA and MoE
+families (MoE without an expert axis: a rank holds every expert's F / tp
+columns). What it does not serve under tensor parallelism is decided here, in one table
 (TP_REFUSED) and one list of runner calls (TP_REFUSED_CALLS), each entry
 naming the ROADMAP item that ports it: `check_supported` refuses the other
 axes, `check_tp` a config, a runner argument or a worker flag when a
@@ -37,14 +44,14 @@ import torch
 AXES = ("data", "model", "expert", "seq", "pipe")
 
 # the ROADMAP items that port what this slice refuses
-ITEM_MLA_EP_DP = "ROADMAP A.14 (second half: MLA, expert and data parallelism)"
+ITEM_EP_DP = "ROADMAP A.14 (b) (expert and data parallelism)"
 ITEM_SEQ_PIPE = "ROADMAP A.15 (sequence and pipeline parallelism)"
-ITEM_QUANT = "ROADMAP A.14 (second half: A.6's sharded quantized trees)"
-ITEM_LORA = "ROADMAP A.14 (second half: A.9's sharded stacked tree)"
-ITEM_DRAFT = "ROADMAP A.14 (second half: a sharded draft)"
-ITEM_TIERS = "ROADMAP A.14 (second half: the KV tiers' sharded pages)"
-ITEM_WEIGHTS = "ROADMAP A.14 (second half: sharded weight reloads and warm tiers)"
-ITEM_HOST_STEPS = ("ROADMAP A.14 (second half: host work between steps, "
+ITEM_QUANT = "ROADMAP A.14 (c) (A.6's sharded quantized trees)"
+ITEM_LORA = "ROADMAP A.14 (c) (A.9's sharded stacked tree)"
+ITEM_DRAFT = "ROADMAP A.14 (c) (a sharded draft)"
+ITEM_TIERS = "ROADMAP A.14 (c) (the KV tiers' sharded pages)"
+ITEM_WEIGHTS = "ROADMAP A.14 (c) (sharded weight reloads and warm tiers)"
+ITEM_HOST_STEPS = ("ROADMAP A.14 (c) (host work between steps, "
                    "embeddings and device drafts)")
 
 # what this slice refuses under tensor parallelism: (what, the runner
@@ -64,7 +71,7 @@ TP_REFUSED = (
 # runner calls refused under tensor parallelism, and the item that ports
 # each; MirroredRunner refuses any other call it neither mirrors nor reads
 # too, naming TP_ITEM
-TP_ITEM = "ROADMAP A.14 (second half)"
+TP_ITEM = "ROADMAP A.14 (c)"
 TP_REFUSED_CALLS = {
     "reload_params": ITEM_WEIGHTS,
     "export_page_blocks": ITEM_TIERS,
@@ -81,12 +88,18 @@ TP_REFUSED_CALLS = {
 # the dim each leaf cuts over the model axis (negative: from the end), by
 # leaf name; a name not listed is whole on every rank
 _CUT_OUT = ("wq", "wk", "wv", "w_gate", "w_up", "ws_gate", "ws_up",
-            "bq", "bk", "bv", "embed", "lm_head")
+            "bq", "bk", "bv", "embed", "lm_head", "wq_up", "wkv_b")
 _CUT_IN = ("wo", "w_down", "ws_down")
 _CUT_EXPERT_F = {"we_gate": -1, "we_up": -1, "we_down": -2}
 
 # a KV pool's head dim, in the pool [L, NP, PS, Hk, D] and its scales
 KV_CUT = 3
+
+
+def kv_cut(config) -> Optional[int]:
+    """The dim a rank's KV pools cut: KV_CUT, or None for an MLA latent
+    pool (one latent a token, whole on every rank)."""
+    return None if config.is_mla else KV_CUT
 
 
 @dataclass(frozen=True)
@@ -113,7 +126,7 @@ class MeshConfig:
         for axis, n in zip(AXES, self.shape):
             if axis == "model" or n == 1:
                 continue
-            item = ITEM_SEQ_PIPE if axis in ("seq", "pipe") else ITEM_MLA_EP_DP
+            item = ITEM_SEQ_PIPE if axis in ("seq", "pipe") else ITEM_EP_DP
             raise NotImplementedError(
                 f"{axis} parallelism ({axis}={n}) is not ported yet: {item}")
 
@@ -211,20 +224,27 @@ def check_tp_flags(args, tp: int) -> None:
 
 def check_tp(config, tp: int, runner_kw: Optional[Mapping[str, Any]] = None) -> None:
     """Raise unless `config`, built with the ModelRunner arguments
-    `runner_kw`, can be served over tp ranks in this slice: a dense GQA
-    family whose KV heads, FFN width, model width and (untied) vocabulary
-    each divide by tp, with no runner argument of TP_REFUSED set."""
+    `runner_kw`, can be served over tp ranks in this slice: every width
+    the split rule cuts divides by tp (a GQA config's KV heads, an MLA
+    config's heads, the dense FFN, the routed and shared experts' widths,
+    the model width and an untied vocabulary), with no runner argument of
+    TP_REFUSED set."""
     if tp == 1:
         return
-    if config.is_mla:
-        raise refuse_tp(f"{config.name}: MLA models", ITEM_MLA_EP_DP)
-    if config.is_moe:
-        raise refuse_tp(f"{config.name}: MoE models", ITEM_MLA_EP_DP)
     for what, arg, _, item in TP_REFUSED:
         if arg is not None and (runner_kw or {}).get(arg):
             raise refuse_tp(what, item)
-    dims = {"n_kv_heads": config.n_kv_heads, "ffn_dim": config.ffn_dim,
-            "dim": config.dim}
+    dims = {"dim": config.dim}
+    if config.is_mla:
+        dims["n_heads"] = config.n_heads
+    else:
+        dims["n_kv_heads"] = config.n_kv_heads
+    if not config.is_moe or config.n_dense_layers:
+        dims["ffn_dim"] = config.ffn_dim
+    if config.is_moe:
+        dims["moe_ffn_dim"] = config.moe_ffn_dim
+        if config.n_shared_experts:
+            dims["shared_ffn_dim"] = config.shared_ffn_dim
     if not config.tie_embeddings:
         dims["vocab_size"] = config.vocab_size
     bad = {k: v for k, v in dims.items() if v % tp}

@@ -236,8 +236,14 @@ async def test_lora_filtered_routing(params, mode):
         for i in range(6):
             assert await _via(mgr, "tuned", PROMPT[:6 + i % 3])
         assert _work(eng_b) == 0 and _work(eng_a) > 0
-        for i in range(8):
-            assert await _via(mgr, "tiny", [i + 1] * (5 + i))
+        # base requests two at a time: the kv router breaks a cost tie by
+        # instance id (random), so requests one at a time may all land on
+        # one worker; a pair's second pick sees the first's blocks and goes
+        # to the other worker whichever id sorts first
+        for i in range(0, 8, 2):
+            got = await asyncio.gather(*(_via(mgr, "tiny", [j + 1] * (5 + j))
+                                         for j in (i, i + 1)))
+            assert all(got)
         assert _work(eng_b) > 0, "base requests never reached worker b"
         # a worker joining with a new adapter
         await f.add("c", params, [("late", 9)])

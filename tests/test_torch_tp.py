@@ -147,6 +147,29 @@ async def test_engine_streams_match_jax_tp2(group, monkeypatch, fused, kvq):
         trun.close()
 
 
+@pytest.mark.parametrize("name", ["tiny-mla", "tiny-mla-moe"])
+async def test_mla_engine_streams_match_jax_tp2(group, monkeypatch, name):
+    """MLA (fused plans on the padded fallback: MLA has no ragged step) and
+    MLA with MoE layers at TP 2: greedy streams equal to the JAX engine's
+    at MeshConfig(model=2), the ranks' counters and digests equal."""
+    monkeypatch.setenv("DYN_FUSED_MIXED", "1")
+    jcfg, cfg = jax_get_config(name), get_config(name)
+    jp = _jtree(jcfg, 12)
+    jrun = JaxRunner(jcfg, JaxMesh(model=2), params=jp, dtype=jnp.float32, **GEOMETRY)
+    jres = await _serve(JaxEngine(jrun, **ENGINE), _reqs(), JaxContext)
+    trun = _tp_runner(group, cfg, jp)
+    try:
+        tres = await _serve(InferenceEngine(trun, **ENGINE), _reqs(), Context)
+        assert tres == jres
+        reps = trun.rank_reports()
+        assert len({r["digest"] for r in reps}) == 1 and reps[0]["outputs"] > 0
+        assert reps[0]["stats"] == reps[1]["stats"]
+        assert reps[1]["stats"]["padded_prefill_dispatches"] > 0
+        assert reps[1]["stats"]["ragged_mixed_dispatches"] == 0
+    finally:
+        trun.close()
+
+
 async def test_ngram_spec_and_branches_match_tp1(group, monkeypatch):
     """n-gram speculation (its verify rides the ragged step) and n > 1
     branches (forked tail pages through copy_pages) at TP 2 give the TP 1

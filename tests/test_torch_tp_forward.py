@@ -1,6 +1,7 @@
 """Tensor parallelism with ranks as processes, on the CPU: one forward pass
 at TP 2 against the JAX package, for every dense family whose KV heads
-divide by 2, and int8 pools written per rank (the engine:
+divide by 2 and for the MLA and MoE presets (against the JAX runner at
+`MeshConfig(model=2)`), and int8 pools written per rank (the engine:
 tests/test_torch_tp.py; the KV wire and the worker:
 tests/test_torch_tp_served.py).
 
@@ -23,6 +24,7 @@ from dynamo_tpu.engine.model_runner import ModelRunner as JaxRunner
 from dynamo_tpu.models import llama as jllama
 from dynamo_tpu.models.config import ModelConfig as JaxConfig
 from dynamo_tpu.models.config import get_config as jax_get_config
+from dynamo_tpu.parallel.mesh import MeshConfig as JaxMesh
 from dynamo_tpu_torch.engine.model_runner import ModelRunner
 from dynamo_tpu_torch.engine.weights import params_from_numpy
 from dynamo_tpu_torch.models.config import ModelConfig, get_config
@@ -109,6 +111,77 @@ def test_forward_logits_and_rank_pools_match_jax(group, name):
         reps = trun.rank_reports()
         assert reps[0]["digest"] == reps[1]["digest"] and reps[1]["outputs"] == 1
         assert reps[1]["stats"]["prefill_chunks"] == 1 and reps[1]["stats"]["decode_steps"] == 3
+    finally:
+        trun.close()
+
+
+# MLA (a rank's heads over the whole latent pool), MLA with q compression,
+# MoE (F cut, the block's sum all-reduced), with shared experts, and both
+# with a leading dense layer
+MLA_MOE = ("tiny-mla", "tiny-mla-q", "tiny-moe", "tiny-moe-shared", "tiny-mla-moe")
+
+
+@pytest.mark.parametrize("name", MLA_MOE)
+def test_mla_and_moe_forward_matches_jax_mesh(group, name):
+    """A prefill chunk and decode steps at TP 2 against the JAX runner at
+    MeshConfig(model=2): the logits within 1e-4, the greedy tokens equal,
+    and each rank's pools the JAX runner's (an MLA latent pool whole on
+    every rank, a GQA pool the rank's heads)."""
+    jcfg, cfg = jax_get_config(name), get_config(name)
+    jp = _jtree(jcfg, 3)
+    jrun = JaxRunner(jcfg, params=jp, dtype=jnp.float32, mesh_config=JaxMesh(model=2),
+                     **GEOMETRY)
+    trun = _tp_runner(group, cfg, jp)
+    try:
+        prompt, table = PROMPTS[4], [5, 2, 9, 11]
+        want = np.asarray(jrun.prefill(prompt, 0, table, 0))
+        got = trun.prefill(prompt, 0, table, 0).numpy()
+        np.testing.assert_allclose(got, want, atol=1e-4, rtol=1e-4)
+        tok = int(np.argmax(want))
+        samp = {"temperature": [0.0], "top_k": [0], "top_p": [1.0], "seeds": [0]}
+        jt = jrun.decode_multi(3, [tok], [len(prompt)], [table], samp, 0)
+        tt = trun.decode_multi(3, [tok], [len(prompt)], [table], samp, 0)
+        np.testing.assert_array_equal(tt, np.asarray(jt))
+        hk = 1 if cfg.is_mla else cfg.n_kv_heads // 2
+        for r, rp in enumerate(trun.rank_pools()):
+            for key, jpool in (("k", jrun.k_pool), ("v", jrun.v_pool)):
+                ref = np.asarray(jpool)[:, table]
+                if not cfg.is_mla:
+                    ref = ref[..., r * hk:(r + 1) * hk, :]
+                np.testing.assert_allclose(rp[key][:, table], ref, atol=1e-5, rtol=1e-5)
+            assert rp["k"][:, table].any()
+        reps = trun.rank_reports()
+        assert reps[0]["digest"] == reps[1]["digest"] and reps[1]["outputs"] == 1
+    finally:
+        trun.close()
+
+
+def test_mla_int8_latent_at_tp2_matches_jax_mesh(group):
+    """tiny-mla over int8 latent pools at TP 2 against the JAX runner on
+    one device: the logits within 1e-4, every rank's whole pool the JAX
+    one (a code may round the other way), each layer's codes and scales
+    16-byte aligned on rank 0, as the int8 decode kernel needs. (The JAX
+    runner at MeshConfig(model=2) rounds one latent code of this tree the
+    other way in its own sums, moving its logits by 0.0078 from its
+    single-device run; the port's TP 2 run is the single-device one's.)"""
+    from dynamo_tpu_torch.models.toolkit import pool_layer
+
+    jcfg, cfg = jax_get_config("tiny-mla"), get_config("tiny-mla")
+    jp = _jtree(jcfg, 4)
+    jrun = JaxRunner(jcfg, params=jp, dtype=jnp.float32, kv_quantize="int8", **GEOMETRY)
+    trun = _tp_runner(group, cfg, jp, kv_quantize="int8")
+    try:
+        table = [3, 4, 8, 9]
+        want = np.asarray(jrun.prefill(PROMPTS[4], 0, table, 0))
+        np.testing.assert_allclose(trun.prefill(PROMPTS[4], 0, table, 0).numpy(), want,
+                                   atol=1e-4, rtol=1e-4)
+        for rp in trun.rank_pools():
+            ref = {k: np.asarray(v)[:, table] for k, v in jrun.k_pool.items()}
+            assert np.abs(rp["k"]["q"][:, table].astype(int) - ref["q"].astype(int)).max() <= 1
+            np.testing.assert_allclose(rp["k"]["s"][:, table], ref["s"], rtol=1e-5)
+        for l in range(cfg.n_layers):
+            lat = pool_layer(trun.runner.k_pool, l)
+            assert lat["q"].data_ptr() % 16 == 0 and lat["s"].data_ptr() % 16 == 0
     finally:
         trun.close()
 

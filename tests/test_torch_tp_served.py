@@ -149,6 +149,38 @@ async def test_disagg_pull_across_tp_degrees_matches_aggregated(group, prefill_t
                 r.close()
 
 
+def test_mla_pages_cross_tp_degrees_bit_for_bit(group):
+    """An MLA latent page is whole on every rank: exported from a TP 2
+    runner as rank 0 holds it (no all-gather), imported at TP 1 and back
+    (every rank writing it whole, host-staged and device-staged), bit for
+    bit on the wire (v2, the reference's) and in every rank's pool."""
+    cfg = get_config("tiny-mla")
+    jp = _jtree(jax_get_config("tiny-mla"), 11)
+    tp2, tp1 = _tp_runner(group, cfg, jp), _runner(cfg, jp)
+    try:
+        assert tp2.kv_page_shape == tp1.kv_page_shape == (cfg.n_layers, PS, 1,
+                                                          cfg.mla_cache_dim)
+        tp2.prefill(PROMPTS[4], 0, [5, 2, 9, 11], 0)
+        out = tp2.export_pages([5, 2, 9, 11])
+        assert out["tp"] == 2 and out["kv_heads"] == 1 and out["layout"] == 2
+        tp1.import_pages([20, 21, 22, 23], 0, out)
+        back1 = tp1.export_pages([20, 21, 22, 23])
+        assert back1["tp"] == 1 and (back1["k"], back1["v"]) == (out["k"], out["v"])
+        tp2.import_pages([40, 41, 42, 43], 0, back1)
+        back2 = tp2.export_pages([40, 41, 42, 43])
+        assert (back2["k"], back2["v"]) == (out["k"], out["v"])
+        k, v = tp1.export_pages_device([20, 21, 22, 23])
+        tp2.import_pages_device([60, 61, 62, 63], 0, k, v)
+        for rp in tp2.rank_pools():
+            for dst in ([40, 41, 42, 43], [60, 61, 62, 63]):
+                np.testing.assert_array_equal(rp["k"][:, dst], rp["k"][:, [5, 2, 9, 11]])
+        reps = tp2.rank_reports()
+        assert reps[0]["stats"] == reps[1]["stats"]
+        assert reps[1]["stats"]["kv_pages_imported"] == 8
+    finally:
+        tp2.close()
+
+
 # -- the worker as processes ---------------------------------------------------------
 
 
