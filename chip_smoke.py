@@ -458,8 +458,32 @@ one fused turn of the traffic with every rank's launch identities, and
 the ranks' digests and peaks; then `engine_tp_70b`, llama-3.1-70b at TP
 2, and `engine_tp_v3`, DeepSeek-V3 at full depth at TP 2, refused by the
 fit check before anything is spawned or drawn).
-`python3 chip_smoke.py --only tp` runs the build and these two phases
-alone. Each top-level phase prints its seconds on a line of its own
+Expert and data parallelism (after `engine_tp`, with nothing else on the
+card; each mesh built through the worker's `build_runner` from
+`--expert-parallel`, `--tensor-parallel` and `--data-parallel`, its rank
+processes spawned for it and stopped after): `engine_ep_moe`
+(qwen3-30b-a3b at 8 layers, EP 2: 64 experts a rank, whole heads),
+`engine_ep_tp` (EP 2 x TP 2: four ranks, the GQA wrappers at Hk 2, each
+expert's F / 2) and `engine_dp_ep` (DP 2 x EP 2: four ranks, the data
+replicas mirroring their peers), each with `ep_parity_<phase>` against an
+EP 1 runner on the same seed-0 params (tp_parity: a prefill's and a
+fused step's logits, pinned to the mesh's routing, the free run beside
+it, and a decode step's ms at 8 rows for both), `ep_buckets_<phase>`
+(a 1-row decode all on the dense fallback, an 8-row decode all
+dispatched, on every rank), and one fused turn of the 3B's traffic
+(`engine_<phase>`: every rank's attention launches passes x 8 (the
+sharded wrappers on Hk 2 under TP), the grouped GEMM passes x 8, MoE
+blocks dispatched plus fallen back = passes x 8, three all_to_alls a
+dispatch, the ranks' counters and digests equal, the collectives a pass
+and their host seconds, each rank's peak memory); then
+`engine_ep_mla_moe` (MLA_MOE_CONFIG at EP 2: 128 experts a rank, the
+selection bias drawn away from 0 on every rank alike, MLA launches
+passes x 4), its parity against the 30 GB EP 1 runner counted by the fit
+check; and `ep_fit` (qwen3-30b-a3b at its 48 layers at EP 2 checked
+against the card, DeepSeek-V3 at 61 layers at EP 2 refused, nothing
+drawn).
+`python3 chip_smoke.py --only tp` runs the build, these phases and the
+tensor-parallel ones alone. Each top-level phase prints its seconds on a line of its own
 (`phase_seconds`). For the script's time, the models of DEPTH_CUTS serve
 their width at fewer layers (gemma-2-9b 10, the others 8), as the text
 above says at each; every launch identity reads the runner's own depth.
@@ -637,16 +661,16 @@ DEPTH_CUTS = {"gemma-2-9b": 10, "phi-3-mini-4k": 8, "qwen2.5-7b": 8,
               "mixtral-8x7b": 8, "llama-3.2-3b": 8}
 
 
-def timed_runner(args, params=None, cut: bool = False):
+def timed_runner(args, params=None, cut: bool = False, layers: int = 0):
     """build_runner from engine flags: (runner, config, seconds to build).
-    `cut`: the model at its DEPTH_CUTS depth (its preset swapped for the
-    build)."""
+    `cut`: the model at its DEPTH_CUTS depth; `layers`: at that many
+    layers (its preset swapped for the build)."""
     from dynamo_tpu_torch.models import config as config_mod
 
     model = args[args.index("--model") + 1]
     full = config_mod.PRESETS[model]
-    if cut:
-        config_mod.PRESETS[model] = full.with_(n_layers=DEPTH_CUTS[model])
+    if cut or layers:
+        config_mod.PRESETS[model] = full.with_(n_layers=layers or DEPTH_CUTS[model])
     try:
         t0 = time.monotonic()
         runner, cfg = build_runner(parse_args(args), params=params)
@@ -8735,7 +8759,8 @@ def route_flips(a, b):
     return {"choices": choices, "choices_differing": differ}
 
 
-def tp_parity(tp1, tp2, smi, phase: str = "tp_parity", greedy_steps: int = 16):
+def tp_parity(tp1, tp2, smi, phase: str = "tp_parity", greedy_steps: int = 16,
+              labels=("tp1", "tp2")):
     """TP 2 against TP 1 on the same seed-0 params: a 700-token prefill's
     logits and a fused step's chunk logits (a decode row beside a
     300-token chunk) within FORWARD_REL_TOL (rel L2); on a MoE model the
@@ -8743,7 +8768,8 @@ def tp_parity(tp1, tp2, smi, phase: str = "tp_parity", greedy_steps: int = 16):
     run reported beside it with the choices that differ; greedy agreement
     over `greedy_steps` decode steps after the fused step; then a decode
     step's ms at 8 rows over 700-token contexts for both, in turns (TP 1,
-    TP 2, TP 2, TP 1). Returns the prompt and its pages."""
+    TP 2, TP 2, TP 1; `labels` name the two). Returns the prompt and its
+    pages."""
     moe = tp1.moe_layers > 0
     V = tp1.config.vocab_size
     gen = torch.Generator(device="cpu").manual_seed(26)
@@ -8800,8 +8826,9 @@ def tp_parity(tp1, tp2, smi, phase: str = "tp_parity", greedy_steps: int = 16):
         torch.cuda.synchronize()
         return (time.monotonic() - t0) * 1e3 / n
 
-    rec["decode_step_ms_8_rows"] = [("tp1", step_ms(tp1)), ("tp2", step_ms(tp2)),
-                                    ("tp2", step_ms(tp2)), ("tp1", step_ms(tp1))]
+    a, b = labels
+    rec["decode_step_ms_8_rows"] = [(a, step_ms(tp1)), (b, step_ms(tp2)),
+                                    (b, step_ms(tp2)), (a, step_ms(tp1))]
     rec["nvidia_smi"] = smi
     emit(rec)
     return prompt, table
@@ -8954,6 +8981,239 @@ def engine_tp_phase(smi):
     return launches, found
 
 
+# -- expert and data parallelism (ROADMAP A.14 (b)) ----------------------------
+
+EP_MOE_MODEL = "qwen3-30b-a3b"
+# the qwen3-30b-a3b meshes: (phase, worker flags)
+EP_MESHES = (("ep_moe", ("--expert-parallel", "2")),
+             ("ep_tp", ("--expert-parallel", "2", "--tensor-parallel", "2")),
+             ("dp_ep", ("--data-parallel", "2", "--expert-parallel", "2")))
+
+
+def set_router_bias(group, seed: int) -> float:
+    """DeepSeek-V3's selection bias drawn away from 0 (as mla_moe_phases
+    draws it) into the runner's params on every rank alike (run through
+    TPGroup.run_on_ranks; a SimpleNamespace(runner=...) for one runner).
+    Returns the bias's abs sum."""
+    bias = group.runner.params["layers"]["router_bias"]
+    g = torch.Generator(device=bias.device).manual_seed(seed)
+    bias.copy_(torch.randn(bias.shape, generator=g, device=bias.device) * 0.01)
+    return float(bias.abs().sum())
+
+
+def passes_of(st) -> int:
+    """Forward passes a runner's counters show (each runs every layer)."""
+    return (st["prefill_chunks"] + st["padded_prefill_dispatches"] + st["decode_steps"]
+            + st["ragged_mixed_dispatches"] + st["ragged_verify_dispatches"]
+            + st["spec_verify_passes"])
+
+
+def collective_totals(rep):
+    """A rank report's collectives: calls, host seconds and bytes over its
+    axis groups."""
+    out = {"calls": 0, "seconds": 0.0, "bytes": 0}
+    for stats in rep["collectives"].values():
+        for key, v in stats.items():
+            for what in out:
+                if key.endswith(f"_{what}"):
+                    out[what] += v
+    return out
+
+
+def ep_check_ranks(phase: str, runner, reps, heads: int):
+    """Every rank's report after a run on an expert mesh: under `model` > 1
+    tp_check_ranks' identities (the sharded wrappers on the rank's
+    `heads`); else every rank's launches rank 0's (the whole-head kernels,
+    no sharded launch), counters and digests equal. Then the MoE blocks:
+    dispatched plus fallen back = passes x the MoE layers on every rank,
+    the dispatches alike across ranks, three all_to_alls a dispatch."""
+    mc = runner.mesh_config
+    if mc.model > 1:
+        out = tp_check_ranks(phase, runner, runner.config.n_layers, reps, heads=heads)
+    else:
+        for rep in reps:
+            r = rep["rank"]
+            check(rep["stats"] == reps[0]["stats"],
+                  f"{phase}: rank {r} counters {rep['stats']} != rank 0's")
+            check(rep["digest"] == reps[0]["digest"] and rep["outputs"] == reps[0]["outputs"],
+                  f"{phase}: rank {r}'s returned tokens differ from rank 0's")
+            check(rep["launches"] == reps[0]["launches"],
+                  f"{phase}: rank {r} launches {rep['launches']} != rank 0's")
+            check(all(rep["launches"][name] == 0 for name in TP_INNER),
+                  f"{phase}: rank {r} launched a sharded wrapper at model 1")
+        out = {"per_rank": [{k: rep.get(k) for k in ("rank", "pid", "device", "launches",
+                                                     "peak_bytes", "digest", "outputs")}
+                            for rep in reps],
+               "bodies": [rep["bodies"] for rep in reps]}
+    passes = passes_of(reps[0]["stats"])
+    blocks = passes * runner.moe_layers
+    for rep in reps:
+        r, ep = rep["rank"], rep["ep"]
+        check(ep["dispatches"] + ep["fallbacks"] == blocks,
+              f"{phase}: rank {r} {ep} against {passes} passes x {runner.moe_layers} MoE layers")
+        check(ep["dispatches"] == reps[0]["ep"]["dispatches"],
+              f"{phase}: rank {r} dispatched {ep['dispatches']} blocks, rank 0 "
+              f"{reps[0]['ep']['dispatches']}")
+        check(rep["collectives"]["expert"]["all_to_all_calls"] == 3 * ep["dispatches"],
+              f"{phase}: rank {r} all_to_alls {rep['collectives']['expert']}")
+        check(rep["coords"] == mc.coords(r), f"{phase}: rank {r} at {rep['coords']}")
+    tot = collective_totals(reps[0])
+    out.update({
+        "mesh": list(mc.shape), "passes": passes, "ep": [rep["ep"] for rep in reps],
+        "coords": [rep["coords"] for rep in reps],
+        "collectives": [rep["collectives"] for rep in reps],
+        "collectives_per_pass_rank0": tot["calls"] / max(1, passes),
+        "collective_host_s_rank0": tot["seconds"],
+        "rows_sent_per_dispatch_rank0": (reps[0]["ep"]["rows_sent"]
+                                         / max(1, reps[0]["ep"]["dispatches"])),
+        "all_to_all_bytes_rank0": reps[0]["collectives"]["expert"]["all_to_all_bytes"],
+        "peak_gb": [rep.get("peak_bytes", 0) / 1e9 for rep in reps]})
+    return out
+
+
+def ep_buckets(runner, phase: str, table, smi):
+    """The reference's path choice on every rank: two decode steps at one
+    row (B S 1 does not split over the expert ranks: the dense fallback,
+    one all-reduce a block) and two at eight rows (bucket 8: dispatched),
+    each with every rank's counters zeroed just before."""
+    greedy = {"temperature": [0.0], "top_k": [0], "top_p": [1.0], "seeds": [0]}
+    rec = {"phase": f"ep_buckets_{phase}"}
+    L = runner.moe_layers
+    for rows, want in ((1, "fallbacks"), (8, "dispatches")):
+        runner.reset_counters()
+        samp = {k: v * rows for k, v in greedy.items()}
+        samp["seeds"] = list(range(rows))
+        runner.decode_multi(2, [1] * rows, [700] * rows, [table] * rows, samp, 0)
+        reps = runner.rank_reports()
+        other = "dispatches" if want == "fallbacks" else "fallbacks"
+        for rep in reps:
+            check(rep["ep"][want] == 2 * L and rep["ep"][other] == 0,
+                  f"ep_buckets_{phase}: rank {rep['rank']} at {rows} row(s): {rep['ep']}")
+        rec[f"rows_{rows}"] = {"ep": reps[0]["ep"], "collectives": reps[0]["collectives"]}
+    rec["nvidia_smi"] = smi
+    emit(rec)
+    return rec
+
+
+def ep_turn(runner, phase: str, build_s, base_args, heads: int, smi):
+    """One engine turn of the 3B's traffic on an expert mesh, every rank's
+    counters zeroed just before and read just after: rank 0's launch
+    identities as every turn's (engine_phase), then every rank's
+    (ep_check_ranks)."""
+    cfg = runner.config
+    rec, _, results = engine_phase(runner, phase, build_s=build_s, base_args=base_args,
+                                   probe=lambda engine: runner.reset_counters())
+    check(all(f == "length" and len(t) == N_OUT for t, f, _ in results),
+          f"{phase}: a request did not finish `length` with {N_OUT} tokens")
+    st = rec["stats"]
+    mixed = "padded_prefill_dispatches" if cfg.is_mla else "ragged_mixed_dispatches"
+    check(rec["fused_mixed"] and st[mixed] > 0, f"{phase}: no fused mixed plan: {st}")
+    rec.update(ep_check_ranks(phase, runner, runner.rank_reports(), heads))
+    rec["collective_host_share_rank0"] = rec["collective_host_s_rank0"] / rec["wall_s"]
+    rec["transport"] = runner.group.transport
+    rec["nvidia_smi"] = smi
+    emit(rec)
+    return rec
+
+
+def ep_mesh_phase(ep1, phase: str, flags, smi, layers: int = 0, bias_seed=None):
+    """One mesh of the MoE model: built through the worker's build_runner
+    (`flags`, the preset at its DEPTH_CUTS depth or `layers`), its parity
+    against `ep1` on the same seed-0 params (pinned to the mesh's routing,
+    the free run beside it), the bucket probe, one fused turn; the ranks
+    stopped after. `bias_seed`: DeepSeek-V3's selection bias drawn on
+    every rank as on ep1."""
+    from dynamo_tpu_torch.parallel.group import shutdown_followers
+
+    model = ep1.config.name
+    args = model_args(model) + list(flags)
+    runner, cfg, build_s = timed_runner(args, cut=not layers, layers=layers)
+    group, procs = runner.group, runner._procs
+    try:
+        check(runner.mesh_config.n_devices == group.size and cfg == ep1.config,
+              f"engine_{phase}: mesh {runner.mesh_config} over {group.size} ranks, {cfg.name}")
+        emit({"phase": f"{phase}_ranks", "mesh": list(runner.mesh_config.shape),
+              "describe": runner.mesh_config.describe(), "transport": group.transport,
+              "follower_pids": [p.pid for p in procs], "build_s": build_s, "nvidia_smi": smi})
+        if bias_seed is not None:
+            sums = group.run_on_ranks(set_router_bias, bias_seed)
+            check(len(set(sums)) == 1, f"engine_{phase}: selection biases differ {sums}")
+        _, table = tp_parity(ep1, runner, smi, f"ep_parity_{phase}", greedy_steps=0,
+                             labels=("ep1", phase))
+        ep_buckets(runner, phase, table, smi)
+        heads = cfg.n_kv_heads // runner.mesh_config.model
+        return ep_turn(runner, phase, build_s, args, heads, smi)
+    finally:
+        runner.close()
+        codes = shutdown_followers(group, procs)
+        gc.collect()
+        torch.cuda.empty_cache()
+        check(codes == [0] * len(procs), f"engine_{phase}: followers exited {codes}")
+
+
+def ep_fit_phase(smi):
+    """The fit check's verdicts with nothing drawn: qwen3-30b-a3b at its 48
+    layers at EP 2 (each rank ~35 GB with 2048 pages) against this card,
+    and DeepSeek-V3 at 61 layers at EP 2, refused before any spawn."""
+    from dynamo_tpu_torch.parallel.group import tp_check_fits
+    from dynamo_tpu_torch.parallel.mesh import MeshConfig
+
+    dev = torch.device("cuda", 0)
+    before = torch.cuda.memory_allocated()
+    cfg = get_config(EP_MOE_MODEL)
+    kw = dict(config=cfg, num_pages=2048, page_size=PAGE_SIZE, dtype=torch.bfloat16)
+    try:
+        tp_check_fits(MeshConfig(expert=2), dev, kw)
+        verdict = "fits"
+    except MemoryError as e:
+        verdict = str(e)
+    try:
+        build_runner(parse_args(model_args("deepseek-v3") + ["--expert-parallel", "2"]))
+        refused = None
+    except MemoryError as e:
+        refused = str(e)
+    check(refused is not None and "2 rank(s) on this device" in refused,
+          f"ep_fit: DeepSeek-V3 at EP 2 not refused by the fit check: {refused}")
+    check(torch.cuda.memory_allocated() == before, "ep_fit: memory was allocated")
+    rec = {"phase": "ep_fit", "qwen3_30b_a3b_48_layers_ep2": verdict,
+           "qwen3_rank_gb": weights.serving_bytes(cfg, 2048, PAGE_SIZE, ep=2) / 1e9,
+           "free_gb": torch.cuda.mem_get_info(dev)[0] / 1e9,
+           "deepseek_v3_ep2": refused, "nvidia_smi": smi}
+    emit(rec)
+    return rec
+
+
+def engine_ep_phases(smi):
+    """Expert and data parallelism on the card, with nothing else on it:
+    qwen3-30b-a3b at 8 layers at EP 2, EP 2 x TP 2 and DP 2 x EP 2 beside
+    one EP 1 runner on the same seed-0 params; then DeepSeek-V3's first
+    MoE layer (MLA_MOE_CONFIG) at EP 2 beside its EP 1 runner; then the
+    fit verdicts. Returns the phases' seconds."""
+    from types import SimpleNamespace
+
+    t0 = time.monotonic()
+    ep1, cfg, _ = timed_runner(model_args(EP_MOE_MODEL), cut=True)
+    check(cfg.n_layers == DEPTH_CUTS[EP_MOE_MODEL] and ep1.moe_layers == cfg.n_layers,
+          f"engine_ep: {cfg.name} at {cfg.n_layers} layers")
+    for phase, flags in EP_MESHES:
+        timed(f"engine_{phase}", ep_mesh_phase, ep1, phase, flags, smi)
+    free(ep1)
+    del ep1
+    # DeepSeek-V3's three dense layers and first MoE layer: the EP 1
+    # runner (30 GB) stays on the card, and the ranks' fit check counts it
+    ep1 = ModelRunner(MLA_MOE_CONFIG, num_pages=2048, page_size=PAGE_SIZE,
+                      max_pages_per_seq=4096 // PAGE_SIZE)
+    set_router_bias(SimpleNamespace(runner=ep1), 6)
+    timed("engine_ep_mla_moe", ep_mesh_phase, ep1, "ep_mla_moe",
+          ("--expert-parallel", "2"), smi, MLA_MOE_CONFIG.n_layers, 6)
+    free(ep1)
+    del ep1
+    ep_fit_phase(smi)
+    seconds = time.monotonic() - t0
+    emit({"phase": "ep_seconds", "seconds": seconds})
+    return seconds
+
+
 def main() -> int:
     only = []
     if sys.argv[1:2] == ["--only"]:
@@ -9031,6 +9291,9 @@ def main() -> int:
         if only == ["tp"]:  # tensor parallelism alone (a quicker check)
             kern = timed("tp_kernels_phase", tp_kernels_phase, dev)
             launches, _ = timed("engine_tp_phase", engine_tp_phase, smi)
+            gc.collect()
+            torch.cuda.empty_cache()
+            timed("engine_ep_phases", engine_ep_phases, smi)
             return finish(t0, kern, launches, {}, TP_SHARDED, smi, kind, count)
         kern = timed("kernel_phase", kernel_phase, dev)
         timed("shapes_phase", shapes_phase, dev)
@@ -9104,6 +9367,10 @@ def main() -> int:
                      "ragged_paged_attention_sharded"):
             variants[name] = {f"engine_{ph}": b[TP_INNER[name]]
                               for ph, b in tp_bodies.items()}
+        gc.collect()
+        torch.cuda.empty_cache()
+        # this slice's paths: MoE models over expert, tensor and data ranks
+        timed("engine_ep_phases", engine_ep_phases, smi)
         gc.collect()
         torch.cuda.empty_cache()
         # the slice's main path: llama-3.1-8b over int8 pools; each int8

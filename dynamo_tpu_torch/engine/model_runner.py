@@ -107,7 +107,7 @@ from dynamo_tpu_torch.parallel.mesh import (
     MeshConfig,
     cut,
     kv_cut,
-    local_shape,
+    leaf_shape,
     param_cut,
     refuse_tp,
     shard_tree,
@@ -460,17 +460,23 @@ class ModelRunner:
         attn_impl: str = "kernel",  # forward's path: the kernels, or "ref"
         #   (the plain PyTorch versions; the hardware sweep's A/B)
         tp=None,  # parallel/group.py TPGroup: this rank's slice of a
-        #   tensor-parallel model (built by parallel/group.py MirroredRunner)
+        #   model on its mesh (built by parallel/group.py MirroredRunner)
     ):
         self.config = config
         self.attn_impl = attn_impl
         self.device = resolve_device(device)
-        # tensor parallelism: this rank of tp_size (its params slices and
-        # its pools' Hk / tp_size heads, parallel/mesh.py)
-        self.tp = tp if tp is not None and tp.size > 1 else None
-        self.tp_rank = 0 if self.tp is None else tp.rank
-        self.tp_size = 1 if self.tp is None else tp.size
-        self.mesh_config = MeshConfig(model=self.tp_size)
+        # the rank's place on its mesh (parallel/mesh.py): `group` the
+        # world (None on one rank), `tp` its group over `model` (its params
+        # slices and its pools' Hk / tp_size heads), `ep` over `expert` (its
+        # n_experts / ep_size routed experts); a data index replicates
+        group = tp if tp is not None and tp.size > 1 else None
+        self.group = group
+        self.mesh_config = group.mesh if group is not None else MeshConfig()
+        coords = group.coords if group is not None else {"model": 0, "expert": 0}
+        self.tp = group.model if group is not None else None
+        self.ep = group.expert if group is not None else None
+        self.tp_rank, self.tp_size = coords["model"], self.mesh_config.model
+        self.ep_rank, self.ep_size = coords["expert"], self.mesh_config.expert
         # the dim a rank's pools cut (None: whole on every rank, as an MLA
         # latent pool is), and whether its page copies are the sharded ones
         self.kv_cut = kv_cut(config)
@@ -510,7 +516,7 @@ class ModelRunner:
             raise NotImplementedError(
                 "LoRA is not supported for MLA models" if config.is_mla
                 else "LoRA is not supported with n_dense_layers models")
-        if self.device.type == "cuda" and self.tp is None:
+        if self.device.type == "cuda" and self.group is None:
             # (a tensor-parallel build is checked for every rank on the
             # card before any rank draws: MirroredRunner)
             need = serving_bytes(config, num_pages, page_size, dtype, kv_quantize,
@@ -523,11 +529,12 @@ class ModelRunner:
         if params is None:
             # drawn quantized, one matrix at a time (or this rank's slices)
             params = llama.init_params(config, 0, dtype, self.device, quantize,
-                                       rank=self.tp_rank, tp=self.tp_size)
-        elif self.tp is not None:
+                                       rank=self.tp_rank, tp=self.tp_size,
+                                       ep_rank=self.ep_rank, ep=self.ep_size)
+        elif self.group is not None:
             # a whole tree (or this rank's) -> this rank's slices, here
             params = shard_tree(params, llama.param_shapes(config), self.tp_rank,
-                                self.tp_size)
+                                self.tp_size, self.ep_rank, self.ep_size)
             params = _to_device(params, self.device)
             check_tree(params)
         elif quantize:
@@ -637,21 +644,21 @@ class ModelRunner:
             yield name, t, placed.get(name, (t.device, t.dtype))
 
     def _declared(self, name: str) -> tuple:
-        """A tensor-parallel row's (shape, rank, cut dim): what the split
-        rule (parallel/mesh.py) gives this rank; () without tensor
-        parallelism."""
-        if self.tp is None:
+        """A parallel rank's row's (shape, rank, cut dim over `model`):
+        what the split rule (parallel/mesh.py) gives this rank; () on one
+        rank."""
+        if self.group is None:
             return ()
         parts = name.split("/")
         if parts[0] == "params":
             node = llama.param_shapes(self.config)
             for p in parts[1:]:
                 node = node[p]
-            dim = param_cut(parts[-1])
-            return local_shape(node, dim, self.tp_size), self.tp_rank, dim
+            return (leaf_shape(parts[-1], node, self.tp_size, self.ep_size),
+                    self.group.rank, param_cut(parts[-1]))
         shape = kv_pool_shapes(self.config, self.num_pages + 1, self.page_size,
                                self.tp_size)[0]
-        return (shape[:-1] if parts[-1] == "s" else shape), self.tp_rank, self.kv_cut
+        return (shape[:-1] if parts[-1] == "s" else shape), self.group.rank, self.kv_cut
 
     def _layout_rows(self):
         yield from tensor_rows("params/", self.params)
@@ -711,7 +718,7 @@ class ModelRunner:
             *self._adapter_ints([adapter], 1))
         logits = llama.forward(
             self.config, self.params, tok, pos, self.k_pool, self.v_pool,
-            pt, kvl, n - 1, attn_impl=self.attn_impl, tp=self.tp, **self._lora_kw(ad))
+            pt, kvl, n - 1, attn_impl=self.attn_impl, tp=self.tp, ep=self.ep, **self._lora_kw(ad))
         self.stats["prefill_chunks"] += 1
         self._note_shape("prefill", (S,))
         return logits[0, 0]
@@ -880,7 +887,7 @@ class ModelRunner:
             kvl = torch.where(pos0 < 0, 0, pos0 + t + 1).to(torch.int32)
             logits = llama.forward(
                 self.config, self.params, tok[:, None], pos[:, None],
-                self.k_pool, self.v_pool, pt, kvl, attn_impl=self.attn_impl, tp=self.tp,
+                self.k_pool, self.v_pool, pt, kvl, attn_impl=self.attn_impl, tp=self.tp, ep=self.ep,
                 **self._lora_kw(adapter_idx),
             )
             raw = logits[:, 0]
@@ -1047,7 +1054,8 @@ class ModelRunner:
         tok, pos0, pt = up[k:k + 3]
         logits = llama.forward(self.config, self.params, ptok, ppos,
                                self.k_pool, self.v_pool, ppt, pkvl, plast,
-                               attn_impl=self.attn_impl, tp=self.tp, **self._lora_kw(up[5:k]))
+                               attn_impl=self.attn_impl, tp=self.tp, ep=self.ep,
+                               **self._lora_kw(up[5:k]))
         self.stats["padded_prefill_dispatches"] += 1
         self._note_shape("mixed_padded", (int(packed[0].shape[0]), int(packed[0].shape[1]), B))
         toks, _ = self._decode_loop(n_steps, tok, pos0, pt,
@@ -1186,7 +1194,7 @@ class ModelRunner:
             self.config, self.params, views["flat"], views["positions"],
             self.k_pool, self.v_pool, last_index=views["gather"],
             ragged=(views["seg_page_table"], views["seg_kv_lens"],
-                    views["meta"]), attn_impl=self.attn_impl, tp=self.tp, **lora_kw)
+                    views["meta"]), attn_impl=self.attn_impl, tp=self.tp, ep=self.ep, **lora_kw)
         seg_logits = logits[0]
         base = self._device_sampling(sampling, seg_cap)
         if row_seq is None:
@@ -1847,7 +1855,7 @@ class ModelRunner:
 
     def _refuse_tp(self, what: str) -> None:
         # payloads a mirrored call may carry that this slice does not take
-        if self.tp is not None:
+        if self.group is not None:
             raise refuse_tp(what, ITEM_TIERS)
 
     @property
@@ -1890,7 +1898,7 @@ class ModelRunner:
         copy stream and its scatter on the compute stream behind it, so a
         group's copy overlaps the previous group's scatter. Final pool
         contents are identical to a whole-sequence import."""
-        if self.tp is not None:
+        if self.group is not None:
             if isinstance(k, (list, tuple)) or isinstance(v, (list, tuple)):
                 self._refuse_tp("importing host-tier page blocks")
             k, v = (cut(x, self.kv_cut, self.tp_rank, self.tp_size) for x in (k, v))

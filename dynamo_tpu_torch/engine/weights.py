@@ -84,7 +84,7 @@ from dynamo_tpu_torch.models.quant import (
     quantize_weight,
 )
 from dynamo_tpu_torch.models.toolkit import kv_pool_bytes
-from dynamo_tpu_torch.parallel.mesh import cut, local_param_shapes, param_cut
+from dynamo_tpu_torch.parallel.mesh import cut_leaf, local_param_shapes, param_cut
 
 log = logging.getLogger("dynamo_tpu_torch.engine.weights")
 
@@ -101,12 +101,12 @@ def _codes(name: str, arr) -> torch.Tensor:
 
 def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
                       device, dtype=torch.bfloat16, rank: int = 0,
-                      tp: int = 1) -> Dict[str, Any]:
+                      tp: int = 1, ep_rank: int = 0, ep: int = 1) -> Dict[str, Any]:
     """numpy (or array-like) tree -> the port's params dict on `device`.
     Raises on a missing or an extra leaf (a branch the config does not
-    run) or a shape that does not match `config`. `tp` > 1: the whole
-    tree's rank `rank` slices (parallel/mesh.py's rule; quantized trees
-    are refused)."""
+    run) or a shape that does not match `config`. `tp` or `ep` > 1: the
+    whole tree's slices of model rank `rank` and expert rank `ep_rank`
+    (parallel/mesh.py's rule; quantized trees are refused)."""
     want = param_shapes(config)
     stacks = [k for k, v in want.items() if isinstance(v, dict)]
     extra = sorted(set(tree) - set(want))
@@ -134,15 +134,16 @@ def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
 
     def conv(where, name, shape):
         if isinstance(where[name], Mapping):
-            if tp > 1:
+            if tp > 1 or ep > 1:
                 raise NotImplementedError(
-                    "quantized weights under tensor parallelism: ROADMAP A.14 (c)")
+                    "quantized weights under tensor or expert parallelism: "
+                    "ROADMAP A.14 (c)")
             return quantized(where[name], name, shape)
         arr = np.asarray(where[name], dtype=np.float32)
         if arr.shape != shape:
             raise ValueError(f"{name}: shape {arr.shape}, config wants {shape}")
-        t = cut(torch.tensor(arr), param_cut(name), rank, tp)  # a copy: the
-        #   source may be read-only
+        # a copy: the source may be read-only
+        t = cut_leaf(name, torch.tensor(arr), rank, tp, ep_rank, ep)
         return t.to(device=device,
                     dtype=torch.float32 if name in F32_LEAVES else dtype)
 
@@ -172,17 +173,18 @@ def params_from_numpy(tree: Mapping[str, Any], config: ModelConfig,
 def serving_bytes(config: ModelConfig, num_pages: int, page_size: int,
                   dtype=torch.bfloat16, kv_quantize=None, quantize=None,
                   params=None, draft_config: ModelConfig = None,
-                  draft_params=None, tp: int = 1) -> int:
+                  draft_params=None, tp: int = 1, ep: int = 1) -> int:
     """Device bytes a ModelRunner places: its KV pools (`num_pages` + 1
     pages: the spare page takes the padding rows' writes), its params when
     it draws them (`params` None) or, given a tree under `quantize`, the
     codes and scales quantize_params adds beside it; with a draft model,
     the draft's pools (the same pages) and its params when drawn. Draft
-    params are never quantized. `tp`: one of tp ranks' bytes (tensor
-    parallelism: its params slice and its pools' heads)."""
+    params are never quantized. `tp` / `ep`: one rank's bytes over tp
+    model and ep expert ranks (its params slice, its own experts', and its
+    pools' heads)."""
     need = kv_pool_bytes(config, num_pages + 1, page_size, dtype, kv_quantize, tp)
     if params is None:
-        need += param_bytes(config, dtype, quantize, tp=tp)
+        need += param_bytes(config, dtype, quantize, tp=tp, ep=ep)
     elif quantize:
         # the caller's tree stays (another runner may serve it)
         held = [params] + [params[st] for st in ("layers", "layers_dense")
@@ -200,14 +202,14 @@ def serving_bytes(config: ModelConfig, num_pages: int, page_size: int,
 
 def check_fits(name: str, need: int, free: int, ranks: int = 1, tp: int = 1) -> None:
     """Raise MemoryError, before anything is drawn or copied, when `need`
-    bytes of params and pools exceed the `free` bytes of the device. Under
-    tensor parallelism `need` is one of `tp` ranks' bytes and `ranks` of
-    them share the device."""
+    bytes of params and pools exceed the `free` bytes of the device. On a
+    mesh `need` is one of its `tp` ranks' bytes and `ranks` of them share
+    the device."""
     if tp > 1:
         total = need * ranks
         if total > free:
             raise MemoryError(
-                f"{name} over {tp} tensor-parallel ranks: {ranks} rank(s) on "
+                f"{name} over {tp} parallel ranks: {ranks} rank(s) on "
                 f"this device, {need / 1e9:.1f} GB each of params slices and KV "
                 f"pools, {total / 1e9:.1f} GB in all, and the device has "
                 f"{free / 1e9:.1f} GB free; spread the ranks over more cards, "
@@ -573,7 +575,8 @@ def _stack_sources(c: ModelConfig, ckpt: _Checkpoint, L0: int, moe: bool
 def load_hf_checkpoint(checkpoint_dir: str, config: ModelConfig, device=None,
                        dtype=torch.bfloat16, stats: Optional[Dict[str, float]] = None,
                        quantize: Optional[str] = None, sinks: Sequence[Any] = (),
-                       rank: int = 0, tp: int = 1) -> Dict[str, Any]:
+                       rank: int = 0, tp: int = 1, ep_rank: int = 0,
+                       ep: int = 1) -> Dict[str, Any]:
     """An HF safetensors directory -> the port's params on `device` (CUDA
     unless "cpu"), in x @ W layout, the tree `param_shapes(config)`
     describes: matrices in `dtype`, norms and the router bias in f32, bit
@@ -589,15 +592,18 @@ def load_hf_checkpoint(checkpoint_dir: str, config: ModelConfig, device=None,
     rows (a column-parallel projection, its bias, an untied head) reads
     only those rows; one cut along its columns (wo, w_down, the
     embedding) is read a layer or a row range at a time and cut on the
-    device. Under tensor parallelism the caller checks the fit (every
-    rank sharing the card), and quantized or sinked loads are refused."""
+    device. `ep` > 1 reads, of the routed experts, only expert rank
+    `ep_rank`'s (HF checkpoints hold a tensor an expert: the others are
+    not read). On a mesh the caller checks the fit (every rank sharing
+    the card), and quantized or sinked loads are refused."""
     d = Path(checkpoint_dir)
     files = sorted(d.glob("*.safetensors"))
     if not files:
         raise FileNotFoundError(f"no .safetensors files under {checkpoint_dir}")
     device = resolve_device(device)
     c = config
-    if tp > 1 and (quantize or sinks):
+    parallel = tp > 1 or ep > 1
+    if parallel and (quantize or sinks):
         raise NotImplementedError("quantized loads and warm-tier sinks under "
                                   "tensor parallelism: ROADMAP A.14 (c)")
     t_start = time.monotonic()
@@ -609,10 +615,10 @@ def load_hf_checkpoint(checkpoint_dir: str, config: ModelConfig, device=None,
                 raise ValueError(
                     f"checkpoint shape {tuple(q[::-1])} does not match config "
                     f"{c.name} ({c.dim}, {c.n_heads * c.head_dim})")
-        if device.type == "cuda" and tp == 1:
+        if device.type == "cuda" and not parallel:
             check_fits(c.name, param_bytes(c, dtype, quantize),
                        torch.cuda.mem_get_info(device)[0])
-        entries, read = _checkpoint_reader(ckpt, c, dtype, rank, tp)
+        entries, read = _checkpoint_reader(ckpt, c, dtype, rank, tp, ep_rank, ep)
         params = alloc_tree(entries, device, quantize)
         for s in sinks:
             s.begin(entries)
@@ -630,11 +636,12 @@ def load_hf_checkpoint(checkpoint_dir: str, config: ModelConfig, device=None,
 
 
 def _checkpoint_reader(ckpt: _Checkpoint, c: ModelConfig, dtype, rank: int = 0,
-                       tp: int = 1):
+                       tp: int = 1, ep_rank: int = 0, ep: int = 1):
     """The unquantized tree the checkpoint gives, as fill_tree's entries
     (sorted by key) and reader: a leaf's rows come from each layer's [out,
     in] tensor, read as stored and transposed, cast and (MLA) permuted
-    into place on the device. `tp` > 1: rank `rank`'s slices."""
+    into place on the device. `tp` > 1: model rank `rank`'s slices; `ep`
+    > 1: expert rank `ep_rank`'s experts alone."""
     dc, dr = c.kv_lora_rank, c.qk_rope_head_dim
     rp = _rope_deinterleave(dr).to(ckpt.device) if c.is_mla else None
 
@@ -669,7 +676,8 @@ def _checkpoint_reader(ckpt: _Checkpoint, c: ModelConfig, dtype, rank: int = 0,
         _sync(ckpt.device)
         ckpt.device_s += time.monotonic() - t0
 
-    want = local_param_shapes(param_shapes(c), tp)
+    want = local_param_shapes(param_shapes(c), tp, ep)
+    n_local = c.n_experts // ep if c.is_moe else 0
     kind = lambda leaf: torch.float32 if leaf in F32_LEAVES else dtype  # noqa: E731
     entries: List[Entry] = [("embed", kind("embed"), want["embed"]),
                             ("norm_f", kind("norm_f"), want["norm_f"])]
@@ -698,8 +706,9 @@ def _checkpoint_reader(ckpt: _Checkpoint, c: ModelConfig, dtype, rank: int = 0,
         r0 = 0 if rows is None else rows[0]
         for j, w in enumerate(out, start=r0):
             if key.endswith(("/we_gate", "/we_up", "/we_down")):
-                for e in range(c.n_experts):
-                    fill(w[e], tmpl.format(i=L0 + j, e=e), True, cut_dim=param_cut(key))
+                for e in range(n_local):
+                    fill(w[e], tmpl.format(i=L0 + j, e=ep_rank * n_local + e), True,
+                         cut_dim=param_cut(key))
             else:
                 fill(w, tmpl.format(i=L0 + j), w.dim() == 2, fix,
                      cut_dim=param_cut(key))

@@ -3,10 +3,9 @@
 The port's own copy of the fields of dynamo_tpu/models/config.py that the
 dense GQA forward (Llama with the Qwen2, Qwen3, OLMo-2, Granite, Gemma
 1/2/3, Mistral and Phi-3 branches), the MLA (DeepSeek) forward and the
-single-card MoE block read, with the same names and defaults, so a config
-built here and one built there describe the same model. The
-expert-parallel capacity factor (`moe_capacity_factor`) is not here: the
-port has no expert mesh.
+MoE block and its expert-parallel dispatch read, with the same names and
+defaults, so a config built here and one built there describe the same
+model.
 """
 
 from __future__ import annotations
@@ -89,6 +88,12 @@ class ModelConfig:
     # HF norm_topk_prob: False keeps the softmax over all experts without
     # renormalising the chosen ones (Qwen2-MoE)
     moe_norm_topk: bool = True
+    # EP dispatch capacity per (src,dst) lane as a multiple of the even
+    # split. 0.0 (default) = lossless (n_experts/n_experts_active): the EP
+    # path then matches the dense path exactly, so the shape-dependent
+    # EP/dense selection never changes results. Operators trade memory for
+    # drops by setting e.g. 1.5.
+    moe_capacity_factor: float = 0.0
     # DeepSeek-V3: a selection bias (e_score_correction_bias) and the
     # routed_scaling_factor on the mixing weights
     moe_router_bias: bool = False

@@ -77,7 +77,7 @@ from dynamo_tpu_torch.ops.flash_prefill import (
     prefill_paged_attention,
     prefill_paged_attention_sharded,
 )
-from dynamo_tpu_torch.parallel.mesh import cut, local_shape, param_cut
+from dynamo_tpu_torch.parallel.mesh import cut, expert_cut, leaf_shape, param_cut
 from dynamo_tpu_torch.ops.paged_attention import (
     decode_paged_attention,
     decode_paged_attention_sharded,
@@ -226,19 +226,19 @@ def param_shapes(c: ModelConfig) -> Dict[str, Any]:
 
 def param_bytes(c: ModelConfig, dtype=torch.bfloat16,
                 quantize: Optional[str] = None,
-                only: Optional[Collection[str]] = None, tp: int = 1) -> int:
+                only: Optional[Collection[str]] = None, tp: int = 1, ep: int = 1) -> int:
     """Bytes of the params `init_params` or `params_from_numpy` place:
     `dtype` matrices and biases, f32 norms and router bias (optional
     leaves not counted); with `quantize`, the matrices of
     DEFAULT_QUANT_NAMES as one-byte codes and f32 scales. `only`: count
-    just the leaves of those names. `tp`: one of tp ranks' slices
-    (parallel/mesh.py)."""
+    just the leaves of those names. `tp` / `ep`: one rank's slices over tp
+    model and ep expert ranks (parallel/mesh.py)."""
     item = torch.empty((), dtype=dtype).element_size()
 
     def size(name, shape):
         if only is not None and name not in only:
             return 0
-        shape = local_shape(shape, param_cut(name), tp)
+        shape = leaf_shape(name, shape, tp, ep)
         if quantize and name in DEFAULT_QUANT_NAMES:
             return quantized_bytes(shape, quantize, embed=name == "embed")
         return math.prod(shape) * (4 if name in F32_LEAVES else item)
@@ -254,7 +254,8 @@ def param_bytes(c: ModelConfig, dtype=torch.bfloat16,
 
 
 def init_params(config: ModelConfig, seed: int, dtype, device,
-                quantize: Optional[str] = None, rank: int = 0, tp: int = 1) -> Params:
+                quantize: Optional[str] = None, rank: int = 0, tp: int = 1,
+                ep_rank: int = 0, ep: int = 1) -> Params:
     """Random-init params from a seeded generator on `device`: the tree of
     param_shapes (the reference's init_params tree, `layers_dense`
     included), weights ~ N(0, 1/fan_in) in `dtype`, biases and the router
@@ -263,11 +264,13 @@ def init_params(config: ModelConfig, seed: int, dtype, device,
     ("int8" or "fp8") the leaves of DEFAULT_QUANT_NAMES come quantized,
     each matrix as it is drawn (quant.quantize_params of the tree drawn
     without it, bit for bit): a whole bf16 stack is never held (one of
-    mixtral-8x7b's expert stacks is 30 GB). Under tensor parallelism
-    (`tp` ranks) it is rank `rank`'s slice of that tree (parallel/mesh.py),
-    bit for bit: each matrix is drawn whole, in param_shapes order, and the
-    rank's part kept, so at most one whole matrix is transient (quantized
-    trees are not cut: parallel/mesh.py check_tp refuses them)."""
+    mixtral-8x7b's expert stacks is 30 GB). On a mesh it is the slice of
+    that tree of model rank `rank` of `tp` and expert rank `ep_rank` of
+    `ep` (parallel/mesh.py), bit for bit: each matrix is drawn whole, in
+    param_shapes order, and the rank's part kept (another rank's expert
+    drawn and dropped), so at most one whole matrix is transient
+    (quantized trees are not cut: parallel/mesh.py check_tp refuses
+    them)."""
     c = config
     if quantize is not None and quantize not in QUANT_MODES:
         raise ValueError(f"unknown quantize mode {quantize!r}; one of {QUANT_MODES}")
@@ -275,7 +278,7 @@ def init_params(config: ModelConfig, seed: int, dtype, device,
 
     def leaf(name, full):
         dim = param_cut(name)
-        shape = local_shape(full, dim, tp)
+        shape = leaf_shape(name, full, tp, ep)
         if name in NORM_LEAVES:  # zero-centred (Gemma): normed * (1 + w)
             fill = 0.0 if c.norm_zero_centered else 1.0
             return torch.full(shape, fill, dtype=torch.float32, device=device)
@@ -289,10 +292,16 @@ def init_params(config: ModelConfig, seed: int, dtype, device,
         if quantize and name in DEFAULT_QUANT_NAMES:
             return quantized_leaf(name, shape, scale)
         out = torch.empty(shape, dtype=dtype, device=device)
-        for m in out.view(-1, *shape[-2:]):
+        mats = iter(out.view(-1, *shape[-2:]))
+        # every matrix of the whole tree is drawn, in order; of a routed
+        # expert stack [L, n, ...] the rank keeps its own experts' draws
+        n_exp = full[expert_cut(name)] if expert_cut(name) is not None else 0
+        for j in range(math.prod(full[:-2])):
             x = torch.randn(full[-2:], generator=g, device=device,
                             dtype=torch.float32)
-            m.copy_(cut(x, dim, rank, tp).mul_(scale))
+            if n_exp and (j % n_exp) * ep // n_exp != ep_rank:
+                continue  # another expert rank's expert
+            next(mats).copy_(cut(x, dim, rank, tp).mul_(scale))
         return out
 
     def quantized_leaf(name, shape, scale):
@@ -339,7 +348,8 @@ def forward(
     lora: Optional[Params] = None,  # stacked multi-adapter tree (models/lora.py)
     adapter_idx: Optional[torch.Tensor] = None,  # [B] slot a row (0 = base),
     #   or [T] a token of the ragged row
-    tp=None,  # parallel/group.py TPGroup: this rank's slice of the model
+    tp=None,  # parallel/group.py AxisGroup over `model`: this rank's slice
+    ep=None,  # its AxisGroup over `expert`: the rank's routed experts
 ) -> torch.Tensor:
     """One forward pass (prefill chunk S > 1 or decode S = 1). Writes this
     step's K/V into the pools in place, attends over the full context and
@@ -371,8 +381,9 @@ def forward(
     base-slot token adds an exact zero). MLA configs and configs with
     n_dense_layers refuse it, as the reference does.
 
-    `tp` (a parallel/group.py TPGroup of N > 1 ranks) runs one rank's part
-    of the pass, the reference's forward under `MeshConfig(model=N)`: the
+    `tp` (the rank's parallel/group.py AxisGroup over a `model` axis of
+    N > 1 ranks) runs one rank's part of the pass, the reference's forward
+    under `MeshConfig(model=N)`: the
     params are the rank's slices and the pools hold its Hk / N KV heads
     (parallel/mesh.py). The embedding's E columns are gathered after the
     lookup; q, k and v are the rank's heads (G query heads with their KV
@@ -386,9 +397,13 @@ def forward(
     and the residual add, where GSPMD places them; OLMo-2's full-width
     qk-norm sums its squares over the ranks; the V-cut logits are
     gathered, and a tied head all-reduces its partial product over the E
-    cut. Every rank returns the same logits. It serves configs without
+    cut. `ep` (its group over an `expert` axis) gives each MoE block the
+    rank's n_experts / ep routed experts, and the block's token dispatch or
+    dense fallback (models/moe.py) returns the whole output; attention and
+    everything else is as under `tp` alone (whole on every rank without
+    it). Every rank returns the same logits. It serves configs without
     LoRA or quantized weights: parallel/mesh.py check_tp refuses the rest
-    when a tensor-parallel runner is built."""
+    when a parallel runner is built."""
     if attn_impl not in ATTN_IMPLS:
         raise ValueError(f"attn_impl must be one of {ATTN_IMPLS}")
     c = config
@@ -523,9 +538,8 @@ def forward(
         x = (rms_norm(h, lp["mlp_norm"], c.norm_eps, zero_centered=zc)
              if c.pre_norms or c.is_mla else h)
         if use_moe:  # no post-FFN norm on a MoE layer, as in the reference
-            ffw = moe_block(c, lp, x, attn_impl)
-            if sharded:  # F is cut: the routed and shared sums are partial
-                tp.all_reduce(ffw)
+            # (under tp or ep the block sums its partial outputs itself)
+            ffw = moe_block(c, lp, x, attn_impl, tp if sharded else None, ep)
         else:
             gate = act(lproj(mm(x, lp["w_gate"], attn_impl), x, "w_gate", l))
             gu = gate * lproj(mm(x, lp["w_up"], attn_impl), x, "w_up", l)

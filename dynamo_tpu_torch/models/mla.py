@@ -8,7 +8,9 @@ H / tp heads: wq (or wq_up) and wkv_b hold its heads' columns
 (parallel/mesh.py), the latent (wkv_a, kv_norm) is the whole model's on
 every rank and written into every rank's whole pool, and attention goes
 through the `*_sharded` wrappers on the rank's heads; the caller's
-all-reduce after wo sums the ranks' partial products.
+all-reduce after wo sums the ranks' partial products. Over `expert` or
+`data` ranks alone (`tp` 1) every rank computes all H heads over its
+whole latent pool, through the whole-head kernels, as on one rank.
 
 Per token the pool caches one [d_c + d_rh] vector: the RMS-normed KV
 latent c_kv, then the RoPE'd shared key k_R. W_UK is absorbed into the

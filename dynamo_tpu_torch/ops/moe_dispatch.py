@@ -4,8 +4,8 @@ Port of dynamo_tpu/ops/moe_dispatch.py `router_topk` (every branch:
 softmax over the chosen logits, softmax over all experts without
 renormalising, sigmoid gates with and without V3's selection bias and
 group-limited choice, the 1e-9 floor of the renormalisation, the routed
-scale) and `moe_dense_reference`. The expert-parallel `moe_ep` waits for
-an expert mesh (ROADMAP A.14).
+scale), `moe_dense_reference` and the expert-parallel `moe_ep` (its
+`_local_moe`: the token dispatch over the ranks of an `expert` axis).
 
 Off an expert mesh the reference computes every expert on every token (a
 vmap over the experts that XLA compiles, dynamo_tpu/models/moe.py:65; no
@@ -31,6 +31,25 @@ computes the same function by routing instead:
   by the mixing weights and sums over the k choices in plain PyTorch, in
   a fixed order (no float atomics: greedy streams repeat run to run).
 
+Expert parallelism (`moe_ep`, `local_moe`): the rank's tokens' (token,
+choice) pairs, flattened token-major, go to rank expert // n_local; a
+pair's place in its lane is the count of earlier pairs bound for the same
+rank, and pairs at or past the capacity C = ceil(T_local k / n * cf) are
+dropped, as in the reference. The reference fills [n, C, E] buffers and
+exchanges them whole; here the ranks first trade the per-(rank, local
+expert) counts of kept pairs, then the kept rows alone (`ep_plan` orders
+them by destination, local expert and pair order), so a lane carries no
+padding: at the lossless default C = T_local n_local and the buffers
+would hold n_local times the rows sent. Each rank runs its received rows
+through the grouped GEMM over its own experts (`local_experts`), sums a
+model-cut expert's partial rows over the `model` group, sends them back
+with a second exchange, and the sender combines them in f32 in pair order.
+`moe_ep_ref` is the plain version: every rank's shards in one process, a
+loop over the ranks. `ep_fallback` is the reference's dense path on an
+expert mesh (the shape does not split over the ranks, or the experts are
+quantized): every rank computes its own experts over the pairs that chose
+them, and the caller sums the ranks' outputs.
+
 Quantized experts (models/quant.py's weight-only convention: {"q": int8
 or float8_e4m3fn codes [n_experts, K, N], "s": f32 [n_experts, 1, N]})
 take the kernel's quantized body on CUDA tensors and, in the plain
@@ -41,6 +60,7 @@ Each wrapper counts `.launches` and, by code type, `.bodies` ("bf16",
 
 from __future__ import annotations
 
+import math
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
@@ -361,4 +381,189 @@ def combine(y: torch.Tensor, order: torch.Tensor,
     index_copy_ writes each row once, and the sum runs in a fixed order."""
     T, k = weights.shape
     pairs = torch.empty_like(y).index_copy_(0, order, y)
+    return (pairs.view(T, k, -1) * weights[..., None]).sum(1)
+
+
+# -- expert parallelism ------------------------------------------------------
+
+# this process's expert-parallel MoE blocks since the counters were last
+# zeroed (parallel/group.py reset_counters): token dispatches, dense
+# fallbacks, and the rows its dispatches sent out and received
+EP_COUNTS = {"dispatches": 0, "fallbacks": 0, "rows_sent": 0, "rows_received": 0}
+
+
+def ep_capacity(t_local: int, k: int, n_ranks: int, capacity_factor: float) -> int:
+    """Rows a (source, destination) lane carries: the reference's
+    ceil(T_local k / n * capacity_factor), in its float order."""
+    return int(math.ceil(t_local * k / n_ranks * capacity_factor))
+
+
+class EPPlan(NamedTuple):
+    """One rank's kept pairs in the order they go on the wire: by
+    destination rank, then the destination's local expert, then pair
+    order (pair = token * k + choice)."""
+    pair: torch.Tensor  # [S] int64: each row's pair
+    tok: torch.Tensor  # [S] int64: each row's local token
+    counts: torch.Tensor  # [n, n_local] int64 on the host: rows a (rank, expert)
+
+
+def ep_plan(sel: torch.Tensor, n_ranks: int, n_local: int, capacity: int) -> EPPlan:
+    """The dispatch of the pairs of sel [T, k] (global expert ids) over
+    n_ranks ranks of n_local experts each: a pair goes to rank
+    expert // n_local, is kept if fewer than `capacity` earlier pairs go
+    there, as the reference's running count (one host read: the counts)."""
+    k = sel.shape[-1]
+    flat = sel.reshape(-1).long()
+    dest = flat // n_local
+    onehot = F.one_hot(dest, n_ranks)
+    pos = ((torch.cumsum(onehot, 0) - onehot) * onehot).sum(-1)
+    slots = n_ranks * n_local
+    key = torch.where(pos < capacity, flat, slots)  # dropped pairs sort last
+    order = torch.sort(key, stable=True).indices
+    counts = torch.zeros(slots + 1, dtype=torch.int64, device=flat.device)
+    counts.scatter_add_(0, key, torch.ones_like(key))
+    counts = counts[:slots].cpu().view(n_ranks, n_local)
+    pair = order[:int(counts.sum())]
+    return EPPlan(pair, pair // k, counts)
+
+
+def local_experts(rows: torch.Tensor, ids: torch.Tensor, we_gate, we_up, we_down,
+                  impl: str = "kernel") -> torch.Tensor:
+    """Each row of rows [R, E] through its expert ids[r] of the stacks the
+    rank holds: the grouped GEMM (its plain version on CPU tensors, and
+    with impl="ref"), back in the rows' order, in rows' dtype."""
+    if rows.shape[0] == 0:
+        return rows.new_zeros((0, _codes(we_down).shape[-1]))
+    r = route(ids.view(-1, 1), _codes(we_gate).shape[0])
+    up, down = ((moe_gate_up_ref, moe_down_ref) if impl == "ref"
+                else (moe_gate_up, moe_down))
+    h = up(rows, r.tok, we_gate, we_up, r.tiles)
+    y = down(h, we_down, r.tiles)
+    return torch.empty_like(y).index_copy_(0, r.order, y)
+
+
+def combine_pairs(y: torch.Tensor, pair: torch.Tensor, weights: torch.Tensor,
+                  dtype) -> torch.Tensor:
+    """Rows y [S, E] of pairs `pair` (the rest dropped: 0) times their
+    mixing weights [T, k], summed over each token's choices in f32 in pair
+    order (the reference's scatter-add), as `dtype` [T, E]."""
+    T, k = weights.shape
+    pairs = torch.zeros((T * k, y.shape[-1]), dtype=torch.float32, device=y.device)
+    pairs.index_copy_(0, pair, y.float() * weights.reshape(-1)[pair].float()[:, None])
+    pairs = pairs.view(T, k, -1)
+    out = pairs[:, 0]
+    for c in range(1, k):
+        out = out + pairs[:, c]
+    return out.to(dtype)
+
+
+def local_moe(x: torch.Tensor, weights: torch.Tensor, sel: torch.Tensor,
+             we_gate, we_up, we_down, group, capacity: int, model_group=None,
+             impl: str = "kernel") -> torch.Tensor:
+    """The reference's `_local_moe` on one rank of an expert group
+    (parallel/group.py AxisGroup): x [T, E] the rank's tokens, weights
+    (x's dtype) and sel [T, k] their routing, we_* the rank's n_local
+    experts (each F / model wide under `model_group`). Counts, then kept
+    rows, out; the rank's received rows through its experts (their partial
+    rows summed over `model_group`); the results back; combined in f32.
+    Returns [T, E] in x's dtype."""
+    n, n_local = group.size, _codes(we_gate).shape[0]
+    plan = ep_plan(sel, n, n_local, capacity)
+    recv = group.all_to_all(plan.counts, [1] * n, [1] * n)  # [n, n_local]
+    send_rows, recv_rows = plan.counts.sum(1).tolist(), recv.sum(1).tolist()
+    rows = group.all_to_all(x.index_select(0, plan.tok), send_rows, recv_rows)
+    EP_COUNTS["dispatches"] += 1
+    EP_COUNTS["rows_sent"] += sum(send_rows)
+    EP_COUNTS["rows_received"] += sum(recv_rows)
+    ids = torch.repeat_interleave(torch.arange(n_local).repeat(n), recv.reshape(-1))
+    y = local_experts(rows, ids.to(x.device), we_gate, we_up, we_down, impl)
+    if model_group is not None:
+        model_group.all_reduce(y)
+    back = group.all_to_all(y, recv_rows, send_rows)
+    return combine_pairs(back, plan.pair, weights, x.dtype)
+
+
+def moe_ep(x: torch.Tensor, w_router: torch.Tensor, we_gate, we_up, we_down, group,
+           n_experts_active: int, capacity_factor: float = 2.0, model_group=None,
+           scoring: str = "softmax", norm_topk: bool = True,
+           router_bias: Optional[torch.Tensor] = None, routed_scale: float = 1.0,
+           n_groups: int = 0, topk_groups: int = 0, impl: str = "kernel") -> torch.Tensor:
+    """The reference's `moe_ep` on one rank: x [T_local, E] the rank's
+    contiguous block of the T tokens, routed here with the whole router,
+    we_* [n_local, ...] the rank's experts; the capacity from T_local and
+    `capacity_factor`. Returns the rank's block of the output [T_local, E]."""
+    logits = (x @ w_router).float()
+    weights, sel = router_topk(logits, n_experts_active, scoring, norm_topk,
+                               bias=router_bias, routed_scale=routed_scale,
+                               n_groups=n_groups, topk_groups=topk_groups)
+    cap = ep_capacity(x.shape[0], n_experts_active, group.size, capacity_factor)
+    return local_moe(x, weights.to(x.dtype), sel, we_gate, we_up, we_down, group, cap,
+                    model_group, impl)
+
+
+def moe_ep_ref(x: torch.Tensor, w_router: torch.Tensor, we_gate, we_up, we_down,
+               n_ranks: int, n_experts_active: int, capacity_factor: float = 2.0,
+               n_model: int = 1, scoring: str = "softmax", norm_topk: bool = True,
+               router_bias: Optional[torch.Tensor] = None, routed_scale: float = 1.0,
+               n_groups: int = 0, topk_groups: int = 0) -> torch.Tensor:
+    """Plain version of moe_ep over every rank in one process: x [T, E]
+    all the tokens, we_* [n_experts, ...] whole. A loop over the source
+    ranks (each routes its block), then over the destinations (each runs
+    its experts' rows, with n_model F-cuts summed in x's dtype), then the
+    combine. Returns [T, E]."""
+    T = x.shape[0]
+    t_local = T // n_ranks
+    n_local = _codes(we_gate).shape[0] // n_ranks
+    cap = ep_capacity(t_local, n_experts_active, n_ranks, capacity_factor)
+    blocks = []
+    for s in range(n_ranks):
+        xs = x[s * t_local:(s + 1) * t_local]
+        weights, sel = router_topk((xs @ w_router).float(), n_experts_active, scoring,
+                                   norm_topk, bias=router_bias, routed_scale=routed_scale,
+                                   n_groups=n_groups, topk_groups=topk_groups)
+        blocks.append((xs, weights.to(x.dtype), ep_plan(sel, n_ranks, n_local, cap)))
+    # rows source s sends destination d: a run of its wire order
+    starts = [torch.cumsum(p.counts.sum(1), 0) - p.counts.sum(1) for _, _, p in blocks]
+    back = [torch.zeros((len(p.pair), x.shape[1]), dtype=x.dtype) for _, _, p in blocks]
+    for d in range(n_ranks):
+        mine = slice(d * n_local, (d + 1) * n_local)
+        for s, (xs, _, p) in enumerate(blocks):
+            a, m = int(starts[s][d]), int(p.counts[d].sum())
+            ids = torch.repeat_interleave(torch.arange(n_local), p.counts[d])
+            rows = xs.index_select(0, p.tok[a:a + m])
+            y = None
+            for j in range(n_model):
+                f = slice(j * (we_gate.shape[-1] // n_model),
+                          (j + 1) * (we_gate.shape[-1] // n_model))
+                part = local_experts(rows, ids, we_gate[mine][..., f], we_up[mine][..., f],
+                                     we_down[mine][:, f], impl="ref")
+                y = part if y is None else y + part
+            back[s][a:a + m] = y
+    return torch.cat([combine_pairs(back[s], p.pair, w, x.dtype)
+                      for s, (_, w, p) in enumerate(blocks)], 0)
+
+
+def ep_fallback(x: torch.Tensor, weights: torch.Tensor, sel: torch.Tensor,
+                we_gate, we_up, we_down, ep_rank: int, impl: str = "kernel") -> torch.Tensor:
+    """The reference's dense path on an expert mesh, a rank's part: of the
+    pairs of sel [T, k], those whose expert is one of rank ep_rank's
+    n_local through the grouped GEMM on its stacks, weighted by `weights`
+    and summed over each token's choices in x's dtype (the other pairs add
+    0). The caller sums the ranks' parts. No value is read back to the
+    host: the other experts' pairs sort into a last expert whose tiles are
+    dead (-1)."""
+    n_local = _codes(we_gate).shape[0]
+    T, k = sel.shape
+    EP_COUNTS["fallbacks"] += 1
+    local = sel.reshape(-1).long() - ep_rank * n_local
+    mine = (local >= 0) & (local < n_local)
+    r = route(torch.where(mine, local, n_local).view(T, k), n_local + 1)
+    dead = r.tiles[:, 0] == n_local
+    tiles = r.tiles.masked_fill(dead[:, None], 0)
+    tiles[:, 0].masked_fill_(dead, -1)
+    up, down = ((moe_gate_up_ref, moe_down_ref) if impl == "ref"
+                else (moe_gate_up, moe_down))
+    y = down(up(x, r.tok, we_gate, we_up, tiles), we_down, tiles)
+    pairs = torch.empty_like(y).index_copy_(0, r.order, y)
+    pairs = pairs.masked_fill(~mine[:, None], 0)
     return (pairs.view(T, k, -1) * weights[..., None]).sum(1)

@@ -1,20 +1,28 @@
-"""Ranks as processes: the tensor-parallel group, its collectives, the
-mirrored runner on rank 0 and the followers' loop.
+"""Ranks as processes: the world and its groups over the mesh's axes, their
+collectives, the mirrored runner on rank 0 and the followers' loop.
 
-The reference serves `MeshConfig(model=N)` from one process and leaves the
-collectives to XLA. Here each rank is a process of a `torch.distributed`
-group: rank 0 holds the engine, the scheduler and the request plane, and
-ranks 1..N-1 are followers (`spawn_followers`, torch.multiprocessing's
-spawn) that hold their own slice of the params and KV pools
-(parallel/mesh.py) and run the same runner calls in the same order. Rank
+The reference serves a `MeshConfig(data=D, model=M, expert=X)` from one
+process and leaves the collectives to XLA. Here each of its D M X ranks
+is a process of a `torch.distributed` world: rank 0 holds the engine, the
+scheduler and the request plane, and ranks 1..N-1 are followers
+(`spawn_followers`, torch.multiprocessing's spawn) that hold their own
+slice of the params and KV pools (parallel/mesh.py) and run the same
+runner calls in the same order. A rank sits at the mesh coordinates of
+`MeshConfig.coords` and holds a gloo group over each axis above 1
+(`TPGroup.axes`, AxisGroup: the ranks that share its other coordinates):
+the forward runs attention's and the FFN's all-reduces and gathers over
+the `model` group and the MoE token dispatch (`all_to_all`) or its
+fallback's all-reduce over the `expert` group; the `data` group carries
+nothing in the forward (a data rank computes what its peers compute, as
+the reference's runner places no batch over `data`). Rank
 0's runner is wrapped in `MirroredRunner`: every call that touches the
 params or the pools is first broadcast, as its name and its host arguments
 (numpy or plain Python, pickled), over a CPU (gloo) group, then run
 locally; each follower runs the same method on its own ModelRunner. The
-collectives inside the forward pass (`all_reduce`, `all_gather`) keep the
-ranks in step. Every rank samples the same tokens from the same gathered
-logits with the same seeded generators, so a decode loop needs no token
-broadcast; each rank folds the arrays its calls return into a digest, and
+collectives inside the forward pass (`all_reduce`, `all_gather`,
+`all_to_all`) keep the ranks in step. Every rank samples the same
+tokens from the same gathered logits with the same seeded generators, so
+a decode loop needs no token broadcast; each rank folds the arrays its calls return into a digest, and
 `MirroredRunner.rank_reports` gathers them (with each rank's launch
 counts, runner counters and peak memory), so a follower whose tokens
 differ from rank 0's shows.
@@ -35,11 +43,11 @@ a card of its own; gloo when ranks share a card (NCCL refuses two ranks on
 one device) or run on the CPU. Under gloo a CUDA tensor's collective goes
 through a pinned host buffer in float32, explicitly (gloo takes neither
 CUDA tensors for every op nor bfloat16 everywhere; a bf16 value is exact
-in f32, and every rank rounds the same f32 sum back to bf16). The calls'
-broadcasts ride a second gloo group whose timeout is long (a follower may
-wait for the next call as long as the worker idles); the collectives' own
-group times out after `timeout_s`, so a rank that stops answering ends a
-step with an error. `FollowerWatch` polls the followers' processes and
+in f32, and every rank rounds the same f32 sum back to bf16), a pinned
+buffer grown as needed and reused. The calls' broadcasts ride a second gloo group
+whose timeout is long (a follower may wait for the next call as long as
+the worker idles); the collectives' own groups time out after
+`timeout_s`, so a rank that stops answering ends a step with an error. `FollowerWatch` polls the followers' processes and
 reports a death at once.
 """
 
@@ -49,6 +57,7 @@ import datetime
 import gc
 import hashlib
 import logging
+import math
 import os
 import pickle
 import shutil
@@ -64,9 +73,11 @@ import torch.distributed as dist
 
 from dynamo_tpu_torch.parallel.mesh import (
     ITEM_HOST_STEPS,
+    MeshConfig,
+    as_mesh,
     check_tp,
-    local_shape,
-    param_cut,
+    leaf_shape,
+    narrow_leaf,
     refuse_tp,
     refused_call_item,
 )
@@ -97,8 +108,8 @@ MIRRORED = (
 READ_ONLY = (
     "config", "device", "dtype", "stats", "num_pages", "page_size",
     "max_pages_per_seq", "kv_quantize", "quantize", "moe_layers", "attn_impl",
-    "mesh_config", "tp_rank", "tp_size", "ragged_mixed", "ragged_buckets",
-    "decode_buckets", "prefill_buckets", "pack_buckets", "ragged_q_block",
+    "mesh_config", "tp_rank", "tp_size", "ep_rank", "ep_size", "ragged_mixed",
+    "ragged_buckets", "decode_buckets", "prefill_buckets", "pack_buckets", "ragged_q_block",
     "has_draft", "draft_config", "spec_gamma", "guided_fused", "lora", "lora_rank",
     "lora_targets", "adapter_names", "adapter_slot", "kv_page_shape",
     "kv_wire_dtype", "compile_stats", "layout_table", "_families", "_use_ragged",
@@ -124,12 +135,125 @@ def choose_transport(devices: Sequence[torch.device]) -> str:
     return "nccl"
 
 
+# what an AxisGroup counts of its collectives (reset_counters zeroes them)
+COLLECTIVES = ("all_reduce", "all_gather", "all_to_all")
+
+
+class AxisGroup:
+    """A rank's group over one mesh axis: its index and size there, its device, and the collectives the forward pass runs
+    over it (gloo through the host, or NCCL where every rank has a card).
+    `stats` counts each collective's calls, the bytes this rank sent
+    (all_to_all) or contributed, and their wall seconds on the host."""
+
+    def __init__(self, axis: str, ranks: Sequence[int], rank: int, device,
+                 gloo, nccl=None):
+        self.axis = axis
+        self.ranks = list(ranks)  # the world ranks, in the axis's order
+        self.rank, self.size = self.ranks.index(rank), len(self.ranks)
+        self.device = device
+        self._gloo, self._nccl = gloo, nccl
+        self._pinned: Dict[Tuple[str, torch.dtype], torch.Tensor] = {}
+        self.reset_stats()
+
+    def reset_stats(self) -> None:
+        self.stats = {f"{op}_{k}": 0 for op in COLLECTIVES
+                      for k in ("calls", "bytes", "seconds")}
+
+    def _note(self, op: str, x: torch.Tensor, t0: float) -> None:
+        self.stats[f"{op}_calls"] += 1
+        self.stats[f"{op}_bytes"] += x.numel() * x.element_size()
+        self.stats[f"{op}_seconds"] += time.perf_counter() - t0
+
+    def _pinned_buffer(self, which: str, shape, dtype) -> torch.Tensor:
+        """A pinned host buffer of `shape`: a view of one grown as needed and
+        reused (collectives run one at a time, each copied out before it
+        returns)."""
+        n = math.prod(shape)
+        buf = self._pinned.get((which, dtype))
+        if buf is None or buf.numel() < n:
+            buf = self._pinned[(which, dtype)] = torch.empty(
+                max(n, 1 << 16), dtype=dtype, pin_memory=True)
+        return buf[:n].view(shape)
+
+    def _host(self, x: torch.Tensor) -> torch.Tensor:
+        """x as gloo takes it: a CPU tensor, floats in f32 (CUDA tensors
+        through the reused pinned buffer; a CPU f32 tensor is itself)."""
+        dtype = torch.float32 if x.is_floating_point() else x.dtype
+        if x.device.type == "cpu":
+            return x.contiguous() if x.dtype == dtype else x.to(dtype)
+        buf = self._pinned_buffer("send", tuple(x.shape), dtype)
+        buf.copy_(x)  # waits for the device
+        return buf
+
+    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
+        """Sum `x` over the group, in place; returns x."""
+        if self.size == 1:
+            return x
+        t0 = time.perf_counter()
+        if self._nccl is not None:
+            self._nccl.allreduce([x]).wait()
+        else:
+            h = self._host(x)
+            self._gloo.allreduce([h]).wait()
+            if h is not x:
+                x.copy_(h)
+        self._note("all_reduce", x, t0)
+        return x
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every rank's `x` concatenated along `dim`, in the group's order."""
+        if self.size == 1:
+            return x
+        t0 = time.perf_counter()
+        if self._nccl is not None:
+            parts = [torch.empty_like(x) for _ in range(self.size)]
+            self._nccl.allgather([parts], [x.contiguous()]).wait()
+            out = torch.cat(parts, dim)
+        else:
+            h = self._host(x)
+            parts = [torch.empty_like(h, device="cpu") for _ in range(self.size)]
+            self._gloo.allgather([parts], [h]).wait()
+            out = torch.cat(parts, dim).to(device=x.device, dtype=x.dtype)
+        self._note("all_gather", x, t0)
+        return out
+
+    def all_to_all(self, x: torch.Tensor, send: Sequence[int],
+                   recv: Sequence[int]) -> torch.Tensor:
+        """Rows of x [sum(send), ...]: send[j] consecutive rows to rank j
+        of the group, in order; returns the rows received [sum(recv), ...],
+        recv[j] from rank j, in the group's order (the sizes must agree
+        with what the peers send: exchange them first). A CPU tensor goes
+        over gloo under either transport."""
+        if self.size == 1:
+            return x
+        t0 = time.perf_counter()
+        send, recv = [int(n) for n in send], [int(n) for n in recv]
+        shape = (sum(recv),) + tuple(x.shape[1:])
+        if self._nccl is not None and x.device.type == "cuda":
+            out = torch.empty(shape, dtype=x.dtype, device=x.device)
+            self._nccl.alltoall_base(out, x.contiguous(), recv, send,
+                                     dist.AllToAllOptions()).wait()
+        else:
+            h = self._host(x)
+            out = (torch.empty(shape, dtype=h.dtype) if x.device.type == "cpu"
+                   else self._pinned_buffer("recv", shape, h.dtype))
+            self._gloo.alltoall_base(out, h, recv, send, dist.AllToAllOptions()).wait()
+            out = out.to(device=x.device, dtype=x.dtype)
+        self._note("all_to_all", x, t0)
+        return out
+
+
 class TPGroup:
-    """One rank's view of the group: its rank, size and device, the
-    transport, and the collectives the forward pass and the mirror use."""
+    """One rank's view of the world: its rank, size, device and place on
+    the mesh, the transport, its group over each mesh axis (`axes`:
+    "model", "expert", "data"; None where the axis is 1: the forward's
+    collectives), and the broadcasts the mirror uses."""
 
     def __init__(self, rank: int, size: int, store_path: str, device,
-                 timeout_s: float = DEFAULT_TIMEOUT_S):
+                 timeout_s: float = DEFAULT_TIMEOUT_S, mesh: Optional[MeshConfig] = None):
+        mesh = mesh or MeshConfig(model=size)
+        if mesh.n_devices != size:
+            raise ValueError(f"a mesh of {mesh.n_devices} ranks over a world of {size}")
         self.rank, self.size = rank, size
         self.device = rank_device(rank, device)
         self.devices = [rank_device(r, device) for r in range(size)]
@@ -151,51 +275,49 @@ class TPGroup:
         self._nccl = (dist.ProcessGroupNCCL(dist.PrefixStore("nccl", store), rank, size)
                       if self.transport == "nccl" else None)
         self._store = store
-        self._pinned: Dict[Tuple[Tuple[int, ...], torch.dtype], torch.Tensor] = {}
+        self._mesh_gen = 0
+        self.set_axes(mesh)
+        # this rank's ModelRunner while one is built (run_on_ranks reads it)
+        self.runner = None
         self.closed = False
 
-    # -- collectives ---------------------------------------------------------
-    def _host(self, x: torch.Tensor) -> torch.Tensor:
-        """x as gloo takes it: a CPU tensor, floats in f32 (CUDA tensors
-        through a reused pinned buffer; a CPU f32 tensor is itself)."""
-        floating = x.is_floating_point()
-        dtype = torch.float32 if floating else x.dtype
-        if x.device.type == "cpu":
-            return x.contiguous() if x.dtype == dtype else x.to(dtype)
-        key = (tuple(x.shape), dtype)
-        buf = self._pinned.get(key)
-        if buf is None:
-            if len(self._pinned) > 64:
-                self._pinned.clear()
-            buf = self._pinned[key] = torch.empty(x.shape, dtype=dtype, pin_memory=True)
-        buf.copy_(x)  # waits for the device
-        return buf
+    def set_axes(self, mesh: MeshConfig) -> None:
+        """Lay the world out as `mesh`: this rank's coordinates and a group
+        over each axis above 1, made on every rank in the same order (data,
+        model, expert), each from a store prefix of its own. An axis that
+        spans the whole world reuses the world's groups."""
+        if mesh.n_devices != self.size:
+            raise ValueError(f"a mesh of {mesh.n_devices} ranks over a world of {self.size}")
+        mesh.check_supported()
+        self._mesh_gen += 1
+        self.mesh = mesh
+        self.coords = mesh.coords(self.rank)
+        self.axes: Dict[str, Optional[AxisGroup]] = {}
+        for axis in ("data", "model", "expert"):
+            n = getattr(mesh, axis)
+            if n == 1:
+                self.axes[axis] = None
+                continue
+            peers = mesh.peers(self.rank, axis)
+            if n == self.size:
+                gloo, nccl = self._world, self._nccl
+            else:
+                prefix = f"axes{self._mesh_gen}/{axis}/{peers[0]}"
+                gloo = dist.ProcessGroupGloo(
+                    dist.PrefixStore(prefix, self._store), peers.index(self.rank), n,
+                    datetime.timedelta(seconds=self.timeout_s))
+                nccl = (dist.ProcessGroupNCCL(dist.PrefixStore(prefix + "/nccl", self._store),
+                                              peers.index(self.rank), n)
+                        if self.transport == "nccl" else None)
+            self.axes[axis] = AxisGroup(axis, peers, self.rank, self.device, gloo, nccl)
 
-    def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
-        """Sum `x` over the ranks, in place; returns x."""
-        if self.size == 1:
-            return x
-        if self._nccl is not None:
-            self._nccl.allreduce([x]).wait()
-            return x
-        h = self._host(x)
-        self._world.allreduce([h]).wait()
-        if h is not x:
-            x.copy_(h)
-        return x
+    @property
+    def model(self) -> Optional[AxisGroup]:
+        return self.axes["model"]
 
-    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
-        """Every rank's `x` concatenated along `dim`, in rank order."""
-        if self.size == 1:
-            return x
-        if self._nccl is not None:
-            parts = [torch.empty_like(x) for _ in range(self.size)]
-            self._nccl.allgather([parts], [x.contiguous()]).wait()
-            return torch.cat(parts, dim)
-        h = self._host(x)
-        parts = [torch.empty_like(h, device="cpu") for _ in range(self.size)]
-        self._world.allgather([parts], [h]).wait()
-        return torch.cat(parts, dim).to(device=x.device, dtype=x.dtype)
+    @property
+    def expert(self) -> Optional[AxisGroup]:
+        return self.axes["expert"]
 
     # -- the dispatch broadcast ----------------------------------------------
     def _broadcast(self, t: torch.Tensor) -> None:
@@ -252,19 +374,52 @@ class TPGroup:
         self._calls.allgather([parts], [mine]).wait()
         return [pickle.loads(p[:int(s[0])].numpy().tobytes()) for p, s in zip(parts, sizes)]
 
+    def remesh(self, mesh: MeshConfig) -> None:
+        """Rank 0: lay every rank's world out as `mesh` (set_axes on each;
+        no runner may be live across it). Raises if any rank failed."""
+        self.send_call("__mesh__", (mesh,))
+        err = None
+        try:
+            self.set_axes(mesh)
+        except Exception as e:
+            err = e
+        outcomes = self.call_status(err)
+        if any(outcomes):
+            raise RuntimeError(f"remesh to {mesh}: {outcomes}") from err
+
+    def run_on_ranks(self, fn: Callable[..., Any], *args) -> List[Any]:
+        """Rank 0: fn(rank's group, *args) on every rank (fn importable by
+        module and name, its arguments pickled; `group.runner` is the
+        rank's runner, if one is built); every rank's result, in rank
+        order. Raises naming the ranks that raised."""
+        self.send_call("__run__", (fn.__module__, fn.__qualname__, args))
+        outs = self.gather_objects(_run_one(self, fn, args))
+        bad = [(r, o[1]) for r, o in enumerate(outs) if not o[0]]
+        if bad:
+            raise RuntimeError(f"run_on_ranks {fn.__qualname__}: {bad}")
+        return [o[1] for o in outs]
+
     def close(self) -> None:
         if self.closed:
             return
         self.closed = True
         self._world = self._calls = self._nccl = self._store = None
+        self.axes = {}
         gc.collect()
         if self.rank == 0:
             shutil.rmtree(os.path.dirname(self.store_path), ignore_errors=True)
 
 
+def _run_one(group: TPGroup, fn: Callable[..., Any], args: tuple) -> Tuple[bool, Any]:
+    try:
+        return True, fn(group, *args)
+    except Exception as e:
+        return False, f"{type(e).__name__}: {e}"
+
+
 # -- per-rank counters -----------------------------------------------------------
 def kernel_counters() -> Dict[str, Any]:
-    """The wrappers a tensor-parallel pass can launch, by name: the GQA
+    """The wrappers a parallel pass can launch, by name: the GQA
     and MLA attention kernels, the page copies, their sharded
     counterparts, and the grouped GEMM's two entries."""
     from dynamo_tpu_torch.ops import block_copy, flash_prefill, mla_attention, paged_attention
@@ -300,10 +455,23 @@ def reset_counters(runner=None) -> None:
         for attr in ("bodies", "heads"):
             if hasattr(fn, attr):
                 setattr(fn, attr, {})
+    from dynamo_tpu_torch.ops.moe_dispatch import EP_COUNTS
+
+    for k in EP_COUNTS:
+        EP_COUNTS[k] = 0
     if runner is not None:
         runner.reset_stats()
+        for g in _axis_groups(runner):
+            g.reset_stats()
         if runner.device.type == "cuda":
             torch.cuda.reset_peak_memory_stats(runner.device)
+
+
+def _axis_groups(runner) -> List[AxisGroup]:
+    group = getattr(runner, "group", None)
+    if group is None:
+        return []
+    return [g for g in group.axes.values() if g is not None]
 
 
 class Digest:
@@ -338,8 +506,13 @@ def rank_report(rank: int, runner, digest: Digest) -> Dict[str, Any]:
                   if hasattr(fn, "heads")},
     }
     rep["digest"], rep["outputs"] = digest.value()
+    from dynamo_tpu_torch.ops.moe_dispatch import EP_COUNTS
+
+    rep["ep"] = dict(EP_COUNTS)
     if runner is not None:
         rep["device"] = str(runner.device)
+        rep["coords"] = dict(runner.group.coords) if runner.group is not None else {}
+        rep["collectives"] = {g.axis: dict(g.stats) for g in _axis_groups(runner)}
         rep["stats"] = dict(runner.stats)
         if runner.device.type == "cuda":
             rep["peak_bytes"] = torch.cuda.max_memory_allocated(runner.device)
@@ -364,9 +537,11 @@ def _leaves(tree: Dict[str, Any]):
             yield (name,), name, v
 
 
-def slice_manifest(params: Dict[str, Any], config, tp: int) -> List[tuple]:
+def slice_manifest(params: Dict[str, Any], config, mesh) -> List[tuple]:
     """(path, a rank's shape, dtype) of every leaf of a whole params tree,
-    in its order: what send_param_slices sends each follower."""
+    in its order: what send_param_slices sends each follower (`mesh` a
+    MeshConfig, or an int: that many tensor-parallel ranks)."""
+    mesh = as_mesh(mesh)
     from dynamo_tpu_torch.models.llama import param_shapes
 
     full = param_shapes(config)
@@ -376,25 +551,25 @@ def slice_manifest(params: Dict[str, Any], config, tp: int) -> List[tuple]:
         if tuple(t.shape) != tuple(want):
             raise ValueError(f"{'/'.join(path)}: shape {tuple(t.shape)} is not the whole "
                              f"{tuple(want)} (a tensor-parallel build takes a whole tree)")
-        out.append((path, local_shape(want, param_cut(leaf), tp), t.dtype))
+        out.append((path, leaf_shape(leaf, want, mesh.model, mesh.expert), t.dtype))
     return out
 
 
 def send_param_slices(group: TPGroup, params: Dict[str, Any],
                       manifest: List[tuple]) -> None:
-    """Rank 0: each follower's slice of every leaf of a whole tree, to that
-    follower alone, a leaf at a time through the host (one slice is
-    transient). Every leaf is sent even after a copy fails (zeros in its
-    place: the follower receives them all), then the first failure
-    raises."""
+    """Rank 0: each follower's slice of every leaf of a whole tree (cut by
+    its coordinates on the mesh), to that follower alone, a leaf at a time
+    through the host (one slice is transient). Every leaf is sent even
+    after a copy fails (zeros in its place: the follower receives them
+    all), then the first failure raises."""
     err = None
+    mesh = group.mesh
     for r in range(1, group.size):
+        c = mesh.coords(r)
         for (_, leaf, t), (_, shape, dtype) in zip(_leaves(params), manifest):
-            dim = param_cut(leaf)
             try:
-                part = (t if dim is None else
-                        t.narrow(dim, r * (t.shape[dim] // group.size),
-                                 t.shape[dim] // group.size)).to("cpu")
+                part = narrow_leaf(leaf, t, c["model"], mesh.model, c["expert"],
+                                   mesh.expert).to("cpu")
             except Exception as e:
                 err = err or e
                 part = torch.zeros(shape, dtype=dtype)
@@ -442,10 +617,19 @@ def build_rank_runner(group: TPGroup, kw: Dict[str, Any]):
     if manifest is not None:
         kw["params"] = recv_param_slices(group, manifest)
     if ckpt is not None:
-        kw["params"] = weights.load_hf_checkpoint(
-            ckpt, kw["config"], group.device, kw.get("dtype", torch.bfloat16),
-            rank=group.rank, tp=group.size)
+        kw["params"] = load_rank_checkpoint(group, ckpt, kw)
     return ModelRunner(**kw, tp=group)
+
+
+def load_rank_checkpoint(group: TPGroup, ckpt: str, kw: Dict[str, Any]):
+    """This rank's slices of an HF checkpoint directory: its model cut
+    and, of the routed experts, only its own."""
+    from dynamo_tpu_torch.engine import weights
+
+    c, mesh = group.coords, group.mesh
+    return weights.load_hf_checkpoint(
+        ckpt, kw["config"], group.device, kw.get("dtype", torch.bfloat16),
+        rank=c["model"], tp=mesh.model, ep_rank=c["expert"], ep=mesh.expert)
 
 
 def _local_pools(runner) -> Dict[str, Any]:
@@ -469,7 +653,7 @@ def follower_loop(group: TPGroup) -> None:
         if name == "__exit__":
             return
         if name == "__close__":
-            runner = None
+            runner = group.runner = None
             gc.collect()
             if group.device.type == "cuda":
                 torch.cuda.empty_cache()
@@ -484,6 +668,15 @@ def follower_loop(group: TPGroup) -> None:
         if name == "__pools__":
             group.gather_objects(_local_pools(runner))
             continue
+        if name == "__run__":  # a function on every rank (tests)
+            import importlib
+
+            mod, qual, fargs = args
+            fn = importlib.import_module(mod)
+            for part in qual.split("."):
+                fn = getattr(fn, part)
+            group.gather_objects(_run_one(group, fn, fargs))
+            continue
         if name == "__modules__":  # what this rank has imported (tests)
             group.gather_objects(sorted(sys.modules))
             continue
@@ -494,12 +687,16 @@ def follower_loop(group: TPGroup) -> None:
         err = None
         try:
             if name == "__build__":
-                runner = None
+                runner = group.runner = None
                 digest = Digest()
                 gc.collect()
-                runner = build_rank_runner(group, kw)
+                runner = group.runner = build_rank_runner(group, kw)
             elif name == "__set__":
                 setattr(runner, *args)
+            elif name == "__mesh__":
+                runner = group.runner = None
+                gc.collect()
+                group.set_axes(*args)
             else:
                 digest.fold(getattr(runner, name)(*args, **kw))
         except Exception as e:
@@ -512,7 +709,7 @@ def follower_loop(group: TPGroup) -> None:
 
 
 def _follower_main(rank: int, size: int, store_path: str, device: str,
-                   timeout_s: float) -> None:
+                   timeout_s: float, mesh: Optional[MeshConfig] = None) -> None:
     from dynamo_tpu_torch.runtime.logging_util import configure_logging
 
     configure_logging()
@@ -521,37 +718,39 @@ def _follower_main(rank: int, size: int, store_path: str, device: str,
         torch.cuda.set_device(dev)
     else:  # CPU ranks share the host's cores
         torch.set_num_threads(max(1, (os.cpu_count() or 1) // size))
-    group = TPGroup(rank, size, store_path, device, timeout_s)
+    group = TPGroup(rank, size, store_path, device, timeout_s, mesh)
     try:
         follower_loop(group)
     finally:
         group.close()
 
 
-def spawn_followers(size: int, device, timeout_s: float = DEFAULT_TIMEOUT_S
-                    ) -> Tuple[TPGroup, List[Any]]:
+def spawn_followers(size: int, device, timeout_s: float = DEFAULT_TIMEOUT_S,
+                    mesh: Optional[MeshConfig] = None) -> Tuple[TPGroup, List[Any]]:
     """Start ranks 1..size-1 (spawned processes, daemonic: they end with
-    this one) and join the group as rank 0. Returns (rank 0's group, the
+    this one) and join the group as rank 0, the world laid out as `mesh`
+    (default: `size` tensor-parallel ranks). Returns (rank 0's group, the
     follower processes)."""
     import torch.multiprocessing as mp
 
+    mesh = mesh or MeshConfig(model=size)
     d = tempfile.mkdtemp(prefix="dyn_tp_")
     init = os.path.join(d, "store")
     ctx = mp.get_context("spawn")
     procs = []
     for r in range(1, size):
         p = ctx.Process(target=_follower_main, name=f"tp-rank{r}",
-                        args=(r, size, init, str(torch.device(device)), timeout_s),
+                        args=(r, size, init, str(torch.device(device)), timeout_s, mesh),
                         daemon=True)
         p.start()
         procs.append(p)
     try:
-        group = TPGroup(0, size, init, device, timeout_s)
+        group = TPGroup(0, size, init, device, timeout_s, mesh)
     except BaseException:
         for p in procs:
             p.kill()
         raise
-    log.info("tensor parallel: %d ranks on %s, transport %s", size,
+    log.info("%s: %d ranks on %s, transport %s", mesh.describe(), size,
              [str(d) for d in group.devices], group.transport)
     return group, procs
 
@@ -582,7 +781,7 @@ class FollowerWatch(threading.Thread):
 
 # -- rank 0 ----------------------------------------------------------------------
 class MirroredRunner:
-    """Rank 0's runner under tensor parallelism: builds a ModelRunner on
+    """Rank 0's runner on a parallel mesh: builds a ModelRunner on
     every rank from the same arguments, broadcasts each call of MIRRORED
     (and each attribute set) before running it here and checks that every
     rank's outcome agrees, reads the names of READ_ONLY from rank 0's own
@@ -594,9 +793,9 @@ class MirroredRunner:
         from dynamo_tpu_torch.engine.model_runner import ModelRunner
 
         config = runner_kw["config"]
-        check_tp(config, group.size, runner_kw)
+        check_tp(config, group.mesh, runner_kw)
         if group.device.type == "cuda":
-            tp_check_fits(group.size, group.devices[0], runner_kw)
+            tp_check_fits(group.mesh, group.devices[0], runner_kw)
         object.__setattr__(self, "_group", group)
         object.__setattr__(self, "_procs", list(procs))
         object.__setattr__(self, "_lock", threading.RLock())
@@ -607,7 +806,7 @@ class MirroredRunner:
         build_kw = dict(runner_kw)
         if params is not None:
             build_kw["params"] = None
-            build_kw["param_slices"] = slice_manifest(params, config, group.size)
+            build_kw["param_slices"] = slice_manifest(params, config, group.mesh)
         kw = dict(runner_kw)
         ckpt = kw.pop("checkpoint_dir", None)
         kw["device"] = group.device
@@ -616,16 +815,14 @@ class MirroredRunner:
             if params is not None:
                 send_param_slices(group, params, build_kw["param_slices"])
             if ckpt is not None:
-                from dynamo_tpu_torch.engine import weights
-                kw["params"] = weights.load_hf_checkpoint(
-                    ckpt, config, group.device, kw.get("dtype", torch.bfloat16),
-                    rank=0, tp=group.size)
+                kw["params"] = load_rank_checkpoint(group, ckpt, kw)
             return ModelRunner(**kw, tp=group)
 
         with self._lock:
             self._check_alive()
             group.send_call("__build__", (), build_kw)
             object.__setattr__(self, "_runner", self._settled("__build__", build))
+            group.runner = self._runner
 
     @property
     def group(self) -> TPGroup:
@@ -735,22 +932,27 @@ class MirroredRunner:
                     and all(p.is_alive() for p in self._procs)):
                 self._group.send_call("__close__")
             object.__setattr__(self, "_runner", None)
+            self._group.runner = None
             gc.collect()
 
 
-def tp_check_fits(size: int, device, runner_kw: Dict[str, Any]) -> None:
+def tp_check_fits(mesh, device, runner_kw: Dict[str, Any]) -> None:
     """Before any rank draws or reads a tensor (and before the followers
     are spawned, where the caller checks then): every card's free memory
-    against the bytes of all the ranks it holds (each rank's params slice
-    and pools), MemoryError naming both. A given whole tree is already
-    resident; each rank's slices of it are counted, as drawn ones (their
-    transfer holds one slice on the host)."""
+    against the bytes of all the ranks of `mesh` (an int: that many
+    tensor-parallel ranks) it holds (each rank's params slice, its own
+    experts' included, and its pools), MemoryError naming both. A given
+    whole tree is already resident; each rank's slices of it are counted,
+    as drawn ones (their transfer holds one slice on the host)."""
     from dynamo_tpu_torch.engine.weights import check_fits, serving_bytes
 
+    mesh = as_mesh(mesh)
     c = runner_kw["config"]
     per_rank = serving_bytes(
         c, runner_kw.get("num_pages", 512), runner_kw.get("page_size", 16),
-        runner_kw.get("dtype", torch.bfloat16), runner_kw.get("kv_quantize"), tp=size)
+        runner_kw.get("dtype", torch.bfloat16), runner_kw.get("kv_quantize"),
+        tp=mesh.model, ep=mesh.expert)
+    size = mesh.n_devices
     devices = [rank_device(r, device) for r in range(size)]
     for dev in sorted(set(devices), key=str):
         check_fits(c.name, per_rank, torch.cuda.mem_get_info(dev)[0],

@@ -245,30 +245,34 @@ def parse_args(argv=None):
                         "steady-state dispatches, the shape tripwire, the "
                         "lock-order recorder and the pool audit (DYN_SAN=1 is "
                         "the env equivalent)")
-    # parallelism (mesh axes); this slice serves the model axis alone
+    # parallelism (mesh axes data x model x expert): one process a rank,
+    # rank 0 serves, ranks 1..N-1 are spawned followers on cuda:(rank %% cards)
     p.add_argument("--tensor-parallel", type=int, default=1,
-                   help="ranks the model is cut over (KV heads, FFN width, "
-                        "embedding and head), one process each: rank 0 "
-                        "serves, ranks 1..N-1 are spawned followers on "
-                        "cuda:(rank %% cards); dense GQA models only")
+                   help="ranks the model is cut over (KV heads or MLA heads, "
+                        "FFN and expert width, embedding and head)")
     p.add_argument("--data-parallel", type=int, default=1,
-                   help="replicas over a data axis (only 1 is ported)")
+                   help="replicas over a data axis: each data index mirrors its "
+                        "tensor and expert peers (the reference's runner splits "
+                        "no batch over it)")
     p.add_argument("--expert-parallel", type=int, default=1,
-                   help="MoE experts over an expert axis (only 1 is ported)")
+                   help="ranks a MoE model's routed experts are cut over; tokens "
+                        "reach their experts by an all-to-all dispatch")
     return p.parse_args(argv)
 
 
 def mesh_config(args) -> MeshConfig:
     """The mesh of the parallelism flags; raises for what is not served:
-    data or expert parallelism > 1, and under --tensor-parallel > 1 each
-    flag of parallel/mesh.py TP_REFUSED, naming the item that ports it."""
+    an axis below 1, and on a mesh of more than one rank each flag of
+    parallel/mesh.py TP_REFUSED, naming the item that ports it."""
     mesh = MeshConfig(data=getattr(args, "data_parallel", 1),
                       model=getattr(args, "tensor_parallel", 1),
                       expert=getattr(args, "expert_parallel", 1))
-    if mesh.model < 1:
-        raise ValueError(f"--tensor-parallel {mesh.model}: at least 1")
+    for flag, n in (("--data-parallel", mesh.data), ("--tensor-parallel", mesh.model),
+                    ("--expert-parallel", mesh.expert)):
+        if n < 1:
+            raise ValueError(f"{flag} {n}: at least 1")
     mesh.check_supported()
-    check_tp_flags(args, mesh.model)
+    check_tp_flags(args, mesh)
     return mesh
 
 
@@ -432,12 +436,12 @@ def build_runner(args, params=None, draft_params=None) -> tuple[ModelRunner, Mod
     read or drawn. The --lora adapters are registered in order, slots 1
     on. `args._weights_source` says where the weights came from.
 
-    --tensor-parallel N > 1 (dense GQA models): the kernels are built
-    here first (on a card), then ranks 1..N-1 spawned, and the runner is a
-    parallel/group.py MirroredRunner over every rank's slice; each rank
-    draws its slice from seed 0 or reads it from --checkpoint. Every card's
-    free memory is checked against the bytes of all its ranks before any
-    rank draws."""
+    A mesh of N > 1 ranks (--tensor-parallel x --expert-parallel x
+    --data-parallel): the kernels are built here first (on a card), then
+    ranks 1..N-1 spawned, and the runner is a parallel/group.py
+    MirroredRunner over every rank's slice; each rank draws its slice from
+    seed 0 or reads it from --checkpoint. Every card's free memory is
+    checked against the bytes of all its ranks before any rank draws."""
     device = resolve_device(args.device)
     mesh = mesh_config(args)
     if args.checkpoint:
@@ -452,7 +456,7 @@ def build_runner(args, params=None, draft_params=None) -> tuple[ModelRunner, Mod
                                               name=draft or "draft")
     elif draft:
         draft_config = get_config(draft)
-    if mesh.model > 1:
+    if mesh.n_devices > 1:
         return _build_tp_runner(args, config, device, mesh, params), config
     lora_kw = _lora_kwargs(args, config)
     args._weights_source = "shared" if params is not None else "random"
@@ -532,20 +536,20 @@ def _invalidate_warm_tiers(engine: InferenceEngine, args) -> None:
 
 def _build_tp_runner(args, config: ModelConfig, device: torch.device,
                      mesh: MeshConfig, params=None) -> MirroredRunner:
-    """build_runner's tensor-parallel branch: config checked, kernels
+    """build_runner's parallel branch: config checked on the mesh, kernels
     built once (the followers load what this process built), followers
     spawned, every rank's runner built from the same arguments."""
-    check_tp(config, mesh.model)
+    check_tp(config, mesh)
     kw = dict(config=config, num_pages=args.num_pages, page_size=args.page_size,
               max_pages_per_seq=-(-args.max_seq_len // args.page_size),
               device=device, kv_quantize=args.kv_quantize)
     if device.type == "cuda":
-        tp_check_fits(mesh.model, device, dict(kw, params=params))
+        tp_check_fits(mesh, device, dict(kw, params=params))
         _build.load()
-    group, procs = spawn_followers(mesh.model, device)
-    log.info("tensor parallel %d: transport %s, followers pids %s", mesh.model,
+    group, procs = spawn_followers(mesh.n_devices, device, mesh=mesh)
+    log.info("%s: transport %s, followers pids %s", mesh.describe(),
              group.transport, [p.pid for p in procs])
-    print(f"tensor parallel {mesh.model}: transport {group.transport}, "
+    print(f"{mesh.describe()}: {mesh.n_devices} ranks, transport {group.transport}, "
           f"devices {[str(d) for d in group.devices]}, follower pids "
           f"{[p.pid for p in procs]}", flush=True)
     if params is not None:
@@ -703,7 +707,7 @@ async def async_main(args) -> None:
     watch = None
     if tp:
         def follower_died(rank: int, code) -> None:
-            log.error("tensor-parallel rank %d died (exit code %s): stopping the "
+            log.error("parallel rank %d died (exit code %s): stopping the "
                       "worker", rank, code)
             lost.append((rank, code))
             loop.call_soon_threadsafe(stop.set)
@@ -749,9 +753,9 @@ async def async_main(args) -> None:
         if tp:
             watch.stop()
             codes = shutdown_followers(runner.group, runner._procs)
-            log.info("tensor-parallel followers exited: %s", codes)
+            log.info("parallel followers exited: %s", codes)
     if lost:
-        raise SystemExit(f"tensor-parallel rank(s) died (rank, exit code): {lost}")
+        raise SystemExit(f"parallel rank(s) died (rank, exit code): {lost}")
 
 
 def main(argv=None) -> None:

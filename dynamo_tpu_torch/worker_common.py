@@ -293,7 +293,9 @@ async def serve_worker(
     one instance whose metadata carries the model card and the event
     publisher's address."""
     instance_id = new_instance_id()
-    dp_rank = 0  # no data parallelism in the port yet
+    # a data rank mirrors its peers (parallel/group.py), so the worker
+    # publishes data rank 0 alone, as the reference's worker does
+    dp_rank = 0
     if colocated:
         LOCAL_ENGINES[instance_id] = engine
     metadata: Dict[str, Any] = {"model_card": card.to_dict(), "dp_rank": dp_rank}

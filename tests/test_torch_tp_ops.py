@@ -482,21 +482,23 @@ def test_llama_70b_preset_is_the_reference():
 
     want = dataclasses.asdict(jax_get_config("llama-3.1-70b"))
     got = dataclasses.asdict(get_config("llama-3.1-70b"))
-    common = sorted(set(want) & set(got))  # the port's config has no MoE capacity
-    assert {k: got[k] for k in common} == {k: want[k] for k in common}
-    assert set(want) - set(got) == {"moe_capacity_factor"}
+    # every field, the EP capacity factor included
+    assert got == want
 
 
 # -- refusals --------------------------------------------------------------------
 
 
 def test_mesh_refuses_other_axes():
+    """data, model and expert are served; seq and pipe, alone or beside
+    them, are refused naming A.15."""
     tmesh.MeshConfig(model=4).check_supported()
-    for kw, item in (({"data": 2}, "A.14"), ({"expert": 2}, "A.14"),
-                     ({"seq": 2}, "A.15"), ({"pipe": 2}, "A.15")):
-        with pytest.raises(NotImplementedError, match=item):
-            tmesh.MeshConfig(model=2, **kw).check_supported()
+    tmesh.MeshConfig(data=2, model=2, expert=2).check_supported()
+    for kw in ({"seq": 2}, {"pipe": 2}, {"model": 2, "seq": 2}, {"expert": 2, "pipe": 2}):
+        with pytest.raises(NotImplementedError, match="A.15"):
+            tmesh.MeshConfig(**kw).check_supported()
     assert tmesh.MeshConfig(model=2).n_devices == 2
+    assert tmesh.MeshConfig(data=2, model=2, expert=2).n_devices == 8
 
 
 # what an MLA or a MoE config must divide beside the dense widths
@@ -560,8 +562,9 @@ def _worker_args(argv):
     (["--obj-kv-root", "/x"], "--obj-kv-root"),
     (["--kv-tier-quantize"], "--kv-tier-quantize"), (["--prefetch"], "--prefetch"),
     (["--shm-weights", "x"], "--shm-weights"), (["--orbax-cache", "/x"], "--orbax-cache"),
-    (["--data-parallel", "2"], "data parallelism"),
-    (["--expert-parallel", "2"], "expert parallelism"),
+    # beside data or expert parallelism the refusal names the mesh
+    (["--data-parallel", "2", "--quantize", "int8"], "data parallelism"),
+    (["--expert-parallel", "2", "--quantize", "int8"], "expert parallelism"),
 ])
 def test_worker_refuses_flags_under_tp(argv, flag):
     from dynamo_tpu_torch.worker import mesh_config
